@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on an NVIDIA GPU.
+
+    python3 chip_smoke.py        (from the repository root; needs one card)
+
+Phases, each of which passes or ends the script with a nonzero exit:
+
+1. prints the card's name and power limit, then builds the CUDA kernels
+   from ``mujoco_tpu_torch/csrc`` with nvcc (sm_90a);
+2. kernel 1 (``linalg_cuda``, LDL solve) against its plain version on
+   random SPD batches (n 9, 27, 64; B 3072) and the humanoid's qM, at f64
+   (max relative error ≤ 1e-9) and f32 (≤ 1e-4); times the kernel (L2
+   flushed before each launch, and L2-warm), the plain version and
+   ``torch.linalg.solve`` at the main path's shape;
+3. kernel 2 (``newton_cuda``, whole Newton solve) against its plain version
+   on the humanoid's rows as ``solver.newton_args`` builds them for the main
+   path (B 3072, nefc 162, nv 27) at (iterations, ls_iterations) (1, 4) and
+   (4, 4): elementwise at f64 (atol 1e-9 plus rtol 1e-9), and at f32 by the
+   statistical criteria of tests/test_newton_kernel.py (≥ 99 % of envs for
+   one iteration, ≥ 85 % above, mean objective gap < 2e-3); times kernel and
+   plain version at the main path's shape, reads the kernel's resident
+   blocks per SM and times one block per SM and one full wave;
+4. the main path: ``rollout.scan_steps`` of the humanoid at f32, B 3072,
+   200 steps, check=True, from ``make_batch`` with 0.01·N(0, 1) qpos noise;
+   the state must stay finite and the launch counters must show exactly
+   one LDL and one Newton launch per step;
+5. where a step's time goes: 10 warm steps of the same path under
+   ``torch.profiler`` (CUDA activity only); wall time, device busy time
+   and idle share from that one window, launches per step and the top
+   device kernels; the same 10 steps unprofiled give the tracing's cost;
+6. 25 steps at f64, B 64, on the card against the same run of the port on
+   the CPU (qpos to 1e-8), which ties the GPU path to the CPU path the tests
+   hold against mujoco_tpu.
+
+It prints one JSON line describing each kernel, the card line, and last
+``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+B = 3072
+NSTEP = 200
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 without tensor cores
+PEAK_FP64_FLOPS = 34e12         # H100 SXM fp64 without tensor cores
+
+
+def card_line() -> str:
+  r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"], capture_output=True,
+                     text=True, check=True, timeout=60)
+  return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps=30, warmup=3) -> float:
+  """Mean device time of fn in ms, by CUDA events around reps calls (its
+  inputs stay warm in L2 from one call to the next)."""
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(reps):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / reps
+
+
+_FLUSH = None
+
+
+def cuda_ms_cold(fn, reps=30, warmup=3) -> float:
+  """Mean device time of fn in ms with L2 flushed before each call: a
+  256 MiB buffer (five times the H100's 50 MB L2) is overwritten, then CUDA
+  events bracket the call alone."""
+  global _FLUSH
+  if _FLUSH is None:
+    _FLUSH = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+  for _ in range(warmup):
+    fn()
+  events = []
+  for _ in range(reps):
+    _FLUSH.fill_(1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    events.append((start, end))
+  torch.cuda.synchronize()
+  return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+  """Least time the card could take: bytes over HBM rate vs operations over
+  the peak rate of their type; returns (ms, 'bytes' | 'operations')."""
+  peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FP64_FLOPS
+  t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+  return (max(t_bytes, t_ops) * 1e3,
+          "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ldl_flops(n: int) -> int:
+  """Arithmetic of one in-place LDLᵀ factor and the three solves."""
+  factor = sum((n - k - 1) + 2 * (n - k - 1) * (n - k) // 2 + 1
+               for k in range(n))
+  return factor + 2 * n * (n - 1) + n
+
+
+def newton_flops(nefc: int, nv: int, iterations: int, ls_iter: int) -> int:
+  """Arithmetic of the whole Newton solve per env, counted from the
+  algorithm: each objective evaluation is J·x (2·nefc·nv), the row update
+  (~8 per row) and M·dx (2·nv²); each iteration adds Jᵀf, the lower
+  triangle of JᵀWJ (3·nefc per entry), the LDL, J·p, M·p and ls_iter row
+  passes (~12 per row)."""
+  objective = 2 * nefc * nv + 8 * nefc + 2 * nv * nv + 4 * nv
+  per_iter = (objective + 2 * nefc * nv + 3 * nefc * nv * (nv + 1) // 2
+              + nv * nv + ldl_flops(nv) + 2 * nefc * nv + 2 * nv * nv
+              + ls_iter * 12 * nefc + 2 * nv)
+  return 2 * objective + iterations * per_iter + objective + 2 * nefc * nv
+
+
+def humanoid_state(m, nbatch, seed):
+  """A forward-evaluated batch of the humanoid, feet pushed into the floor,
+  with the solver inputs filled in (this launches the LDL kernel) and a
+  warmstart near the smooth acceleration, so the solve's cost pick is not
+  one-sided."""
+  from mujoco_tpu_torch.ops import forward
+  from mujoco_tpu_torch.parallel import rollout
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  d = rollout.make_batch(m, nbatch)
+  qpos = d.qpos + 0.03 * torch.randn(d.qpos.shape, generator=gen,
+                                     device="cuda", dtype=d.qpos.dtype)
+  qpos[:, 2] -= 0.12
+  qvel = 0.5 * torch.randn(d.qvel.shape, generator=gen, device="cuda",
+                           dtype=d.qvel.dtype)
+  d = forward.fwd_acceleration(m, forward.fwd_actuation(
+      m, forward.fwd_velocity(m, forward.fwd_position(
+          m, d.replace(qpos=qpos, qvel=qvel)))))
+  return d.replace(qacc_warmstart=0.9 * d.qacc_smooth)
+
+
+def phase_ldl(report, details):
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import linalg_cuda
+  gen = np.random.default_rng(0)
+  worst64 = 0.0
+  for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+    cases = []
+    for n in (9, 27, 64):
+      a = gen.standard_normal((B, n, n))
+      h = a @ a.transpose(0, 2, 1) + n * np.eye(n)
+      cases.append((f"spd n{n}", torch.tensor(h, dtype=dtype, device="cuda"),
+                    torch.tensor(gen.standard_normal((B, n)), dtype=dtype,
+                                 device="cuda")))
+    d = humanoid_state(zoo.humanoid(dtype), B, 1)
+    cases.append(("humanoid qM", d.qM.contiguous(),
+                  d.qfrc_smooth.contiguous()))
+    for name, h, g in cases:
+      p = linalg_cuda.spd_solve_kernel(h, g)
+      torch.cuda.synchronize()
+      ref = linalg_cuda.spd_solve_plain(h, g)
+      abs_err = (p - ref).abs().max().item()
+      rel = abs_err / ref.abs().max().item()
+      print(f"ldl_solve {str(dtype)[6:]} {name}: max rel err {rel:.3e} "
+            f"(limit {tol:g})", flush=True)
+      if not np.isfinite(rel) or rel > tol:
+        raise AssertionError(f"ldl_solve disagrees with its plain version: "
+                             f"{name} {dtype} rel err {rel}")
+      if dtype == torch.float64 and name == "humanoid qM":
+        worst64 = abs_err
+  # time at the main path's shape and type: humanoid qM, f32, B 3072
+  h, g = cases[-1][1], cases[-1][2]
+  n = h.shape[1]
+  kernel_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  warm_ms = cuda_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  plain_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g))
+  library_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g))
+  # an SPD solve needs only H's lower triangle (all the kernel reads), g,
+  # and writes p
+  bound_ms, bound_by = bound(B * (n * (n + 1) // 2 + 2 * n) * 4,
+                             B * ldl_flops(n), torch.float32)
+  print(f"ldl_solve f32 B{B} n{n}: kernel_ms {kernel_ms:.4f} (L2 flushed; "
+        f"L2-warm {warm_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (torch.linalg.solve) bound_ms {bound_ms:.5f} "
+        f"({bound_by})", flush=True)
+  details["ldl_solve_l2_warm_ms"] = warm_ms
+  report["ldl_solve"] = dict(
+      name="ldl_solve", route="cuda",
+      source="mujoco_tpu_torch/csrc/ldl_solve.cu",
+      replaces="mujoco_tpu/ops/linalg_tpu.py:34", max_abs_err=worst64,
+      ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+      library_ms=library_ms)
+
+
+def newton_violation(out_k, out_p, rtol=1e-9, atol=1e-9) -> dict:
+  """Per output, the largest |kernel − plain| / (atol + rtol·|plain|)
+  (≤ 1 passes). The stat rows' improvement is a difference of two costs,
+  so both columns take the env's costs, |improvement| + |cost|, as scale."""
+  worst = {}
+  for name, a, b in zip(("x", "force", "qfrc", "stat"), out_k, out_p):
+    scale = b.abs()
+    if name == "stat":
+      scale = scale.sum(-1, keepdim=True)
+    worst[name] = ((a - b).abs() / (atol + rtol * scale)).max().item()
+  return worst
+
+
+def phase_newton(report, details):
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import newton_cuda, solver
+  worst64 = 0.0
+  for dtype in (torch.float64, torch.float32):
+    m = zoo.humanoid(dtype)
+    args = solver.newton_args(m, humanoid_state(m, B, 2))
+    active = int((args[2] > 0).sum().item())
+    for iterations, ls_iter in ((1, 4), (4, 4)):
+      out_k = newton_cuda.newton_kernel(*args, iterations, ls_iter)
+      torch.cuda.synchronize()
+      out_p = newton_cuda.newton_plain(*args, iterations, ls_iter)
+      gap = (out_k[0] - out_p[0]).abs().amax(1)
+      tag = f"newton {str(dtype)[6:]} it{iterations} ls{ls_iter}"
+      if dtype == torch.float64:
+        errs = {k: (a - b).abs().max().item() for k, a, b in zip(
+            ("x", "force", "qfrc", "stat"), out_k, out_p)}
+        viol = newton_violation(out_k, out_p)
+        print(f"{tag}: {active} active rows, max abs err "
+              + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + "; worst err / (1e-9 + 1e-9·|plain|) "
+              + " ".join(f"{k} {v:.3f}" for k, v in viol.items()),
+              flush=True)
+        for k, v in viol.items():
+          if not v <= 1.0:
+            raise AssertionError(f"{tag}: {k} off by {v} × (1e-9 + "
+                                 f"1e-9·|plain|)")
+        worst64 = max(worst64, errs["x"])
+      else:
+        # 2e-4 relative to the env's largest |x|: the humanoid's
+        # accelerations reach O(1e3), where f32 rounding alone exceeds an
+        # absolute 2e-4
+        scale = torch.clamp(out_p[0].abs().amax(1), min=1.0)
+        close = (gap < 2e-4 * scale).float().mean().item()
+        args64 = [a.double() for a in args]
+        c_k = newton_cuda.objective(args64, out_k[0].double())
+        c_p = newton_cuda.objective(args64, out_p[0].double())
+        rel = ((c_k - c_p) / torch.clamp(c_p.abs(), min=1.0)).mean().item()
+        need = 0.99 if iterations == 1 else 0.85
+        print(f"{tag}: {close:.4%} of envs match to 2e-4 rel (need "
+              f"{need:.0%}), mean objective gap {rel:.3e} (limit 2e-3)",
+              flush=True)
+        if close < need or not abs(rel) < 2e-3:
+          raise AssertionError(f"{tag}: kernel and plain version disagree")
+  # time at the main path's shape and type (f32, it 1, ls 4)
+  it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
+  kernel_ms = cuda_ms_cold(lambda: newton_cuda.newton_kernel(*args, it, ls))
+  warm_ms = cuda_ms(lambda: newton_cuda.newton_kernel(*args, it, ls))
+  plain_ms = cuda_ms_cold(lambda: newton_cuda.newton_plain(*args, it, ls),
+                          reps=5)
+  nefc, nv = args[0].shape[1:]
+  # inputs J, aref/D/R/fl, the two masks, M's lower triangle (symmetric),
+  # a_s/warm and reg; outputs x, qfrc, force and stat (32 × 2)
+  nbytes = 4 * (B * nefc * nv + 4 * B * nefc + 2 * nefc
+                + B * nv * (nv + 1) // 2 + 2 * B * nv + B + 2 * B * nv
+                + B * nefc + B * 64)
+  bound_ms, bound_by = bound(nbytes, B * newton_flops(nefc, nv, it, ls),
+                             torch.float32)
+  print(f"newton_pyramidal f32 B{B} nefc{nefc} nv{nv} it{it} ls{ls}: "
+        f"kernel_ms {kernel_ms:.4f} (L2 flushed; L2-warm {warm_ms:.4f}) "
+        f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})",
+        flush=True)
+  # what sets the kernel's time: resident blocks per SM, and the time of
+  # one block per SM (a single env's latency) against one full wave
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  per_sm = newton_cuda.blocks_per_sm(nefc, nv, torch.float32)
+  waves = {}
+  for k in (sms, sms * per_sm):
+    sub = [a if i in (5, 6) else a[:k].contiguous()     # 5, 6: row masks
+           for i, a in enumerate(args)]
+    waves[k] = cuda_ms(lambda: newton_cuda.newton_kernel(*sub, it, ls))
+  print(f"newton_pyramidal f32 occupancy: {per_sm} blocks/SM on {sms} SMs "
+        f"({-(-B // (sms * per_sm))} waves at B{B}); one block per SM "
+        f"{waves[sms]:.4f} ms, one full wave ({sms * per_sm} envs) "
+        f"{waves[sms * per_sm]:.4f} ms", flush=True)
+  details["newton"] = dict(l2_warm_ms=warm_ms, blocks_per_sm=per_sm, sms=sms,
+                           one_block_per_sm_ms=waves[sms],
+                           one_wave_ms=waves[sms * per_sm])
+  report["newton_pyramidal"] = dict(
+      name="newton_pyramidal", route="cuda",
+      source="mujoco_tpu_torch/csrc/newton.cu",
+      replaces="mujoco_tpu/ops/newton_tpu.py:155", max_abs_err=worst64,
+      ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+      library_ms=None)
+
+
+def phase_main_path(report, details):
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import linalg_cuda, newton_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  m = zoo.humanoid(torch.float32)
+  d = rollout.make_batch(m, B)
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  d = d.replace(qpos=d.qpos + 0.01 * torch.randn(
+      d.qpos.shape, generator=gen, device="cuda", dtype=d.qpos.dtype))
+  torch.cuda.synchronize()
+  linalg_cuda.LAUNCHES = 0
+  newton_cuda.LAUNCHES = 0
+  t0 = time.perf_counter()
+  out = rollout.scan_steps(m, d, NSTEP, check=True)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = {"ldl_solve": linalg_cuda.LAUNCHES,
+              "newton_pyramidal": newton_cuda.LAUNCHES}
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  sps = B * NSTEP / wall
+  print(f"main path: humanoid f32 B{B} {NSTEP} steps check=True: wall "
+        f"{wall:.3f} s, {sps:.1f} env-steps/s, launches {launches}, "
+        f"finite {finite}", flush=True)
+  if not finite:
+    raise AssertionError("main path produced a non-finite state")
+  for name, n in launches.items():
+    if n != NSTEP:
+      raise AssertionError(f"{name} launched {n} times in {NSTEP} steps")
+    report[name]["launches"] = n
+  details["main_path"] = dict(batch=B, nstep=NSTEP, wall_s=wall,
+                              env_steps_per_s=sps, launches=launches,
+                              mean_height=out.qpos[:, 2].mean().item())
+
+
+def phase_profile(details, nstep=10):
+  """Wall, device busy time and idle share of nstep warm steps, all from one
+  profiled window; the same steps unprofiled give the tracing's cost."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  m = zoo.humanoid(torch.float32)
+  d = rollout.make_batch(m, B)
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  d = d.replace(qpos=d.qpos + 0.01 * torch.randn(
+      d.qpos.shape, generator=gen, device="cuda", dtype=d.qpos.dtype))
+  d = rollout.scan_steps(m, d, 20, check=True)   # warm up, reach contact
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  rollout.scan_steps(m, d, nstep, check=True)
+  torch.cuda.synchronize()
+  plain_wall_ms = (time.perf_counter() - t0) * 1e3 / nstep
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    rollout.scan_steps(m, d, nstep, check=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / nstep
+  kernels = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  if not kernels:
+    raise AssertionError("the profiler recorded no device kernel")
+  by_name = {}
+  for e in kernels:
+    t, n = by_name.get(e.name, (0.0, 0))
+    by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+  busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / nstep
+  ours_ms = sum(t for name, (t, _) in by_name.items()
+                if "ldl_solve_kernel" in name or "newton_kernel" in name
+                ) / 1e3 / nstep
+  top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+  prof_out = dict(
+      batch=B, steps=nstep, wall_ms_per_step=wall_ms,
+      unprofiled_wall_ms_per_step=plain_wall_ms,
+      device_busy_ms_per_step=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+      kernel_launches_per_step=len(kernels) / nstep,
+      handwritten_kernels_ms_per_step=ours_ms,
+      top=[dict(name=name[:100], ms_per_step=t / 1e3 / nstep,
+                launches_per_step=n / nstep) for name, (t, n) in top])
+  details["profile"] = prof_out
+  print(f"profile: humanoid f32 B{B} {nstep} warm steps: wall {wall_ms:.3f} "
+        f"ms/step (unprofiled {plain_wall_ms:.3f}), device busy "
+        f"{busy_ms:.3f} ms/step, idle {1 - busy_ms / wall_ms:.2%}, "
+        f"{len(kernels) / nstep:.1f} kernel launches/step, the two "
+        f"hand-written kernels {ours_ms:.3f} ms/step", flush=True)
+
+
+def phase_cross_check(details):
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  outs = {}
+  for dev in ("cuda", "cpu"):
+    m = zoo.humanoid(torch.float64, device=dev)
+    d = rollout.make_batch(m, 64, device=dev)
+    noise = torch.from_numpy(
+        np.random.default_rng(5).standard_normal(tuple(d.qpos.shape)))
+    d = d.replace(qpos=d.qpos + 0.02 * noise.to(dev))
+    outs[dev] = rollout.scan_steps(m, d, 25, check=True).qpos.cpu()
+  err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+  print(f"cross-check: 25 steps f64 B64, card vs CPU max qpos err "
+        f"{err:.3e} (limit 1e-8)", flush=True)
+  details["cross_check_qpos_err"] = err
+  if not err <= 1e-8:
+    raise AssertionError(f"card and CPU trajectories differ by {err}")
+
+
+def main() -> int:
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device is available", file=sys.stderr)
+    return 1
+  sys.path.insert(0, ROOT)
+  from mujoco_tpu_torch.ops import cuda_build
+  card = card_line()
+  print(f"card: {card}", flush=True)
+  print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
+        f"{torch.version.cuda}", flush=True)
+  t0 = time.perf_counter()
+  cuda_build.library()
+  build_s = time.perf_counter() - t0
+  print(f"kernels built and loaded in {build_s:.1f} s", flush=True)
+
+  report, details = {}, {"card": card, "build_s": build_s}
+  phase_ldl(report, details)
+  phase_newton(report, details)
+  phase_main_path(report, details)
+  phase_profile(details)
+  phase_cross_check(details)
+
+  kernels = [report["ldl_solve"], report["newton_pyramidal"]]
+  details["kernels"] = kernels
+  os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+  with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+    json.dump(details, f, indent=1)
+  print(json.dumps({"kernels": kernels}))
+  print(card)
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -1,0 +1,133 @@
+"""Forward dynamics and Euler integration on the stage path.
+
+Port of mujoco_tpu/ops/forward.py: ``fwd_position`` (:28), ``fwd_velocity``
+(:71), ``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose
+M⁻¹·qfrc goes through the CUDA LDL kernel), ``fwd_constraint`` (:134),
+``forward`` (:152), ``integrate_pos`` (:210), ``euler`` (:416, the branch
+without implicit damping) and ``step`` (:515). Sensors, energy, sleep,
+tendons, flex, RK4 and the implicit integrators are outside the slice;
+``io.put_model`` rejects models that need them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_tpu_torch.models.types import Data, DisableBit, JointType, Model
+from mujoco_tpu_torch.ops import (actuation, collision_driver, constraint,
+                                  linalg_cuda, passive, smooth, solver,
+                                  support)
+from mujoco_tpu_torch.utils import math as mjm
+from mujoco_tpu_torch.utils.device import index
+
+
+def fwd_position(m: Model, d: Data) -> Data:
+  """Position-dependent stage (mj_fwdPosition)."""
+  d = smooth.kinematics(m, d)
+  d = smooth.com_pos(m, d)
+  d = smooth.crb(m, d)
+  if m.con.ncon or m.efc.nefc:
+    d = collision_driver.collision(m, d)
+    d = constraint.make_constraint(m, d)
+  return smooth.transmission(m, d)
+
+
+def fwd_velocity(m: Model, d: Data) -> Data:
+  """Velocity-dependent stage (mj_fwdVelocity)."""
+  d = d.replace(actuator_velocity=(d.actuator_moment
+                                   @ d.qvel[..., None])[..., 0])
+  d = smooth.com_vel(m, d)
+  d = passive.passive(m, d)
+  d = d.replace(qfrc_bias=smooth.rne(m, d))
+  if m.efc.nefc:
+    d = constraint.reference_acceleration(m, d)
+  return d
+
+
+def fwd_actuation(m: Model, d: Data) -> Data:
+  return actuation.fwd_actuation(m, d)
+
+
+def fwd_acceleration(m: Model, d: Data) -> Data:
+  """Smooth acceleration qacc_smooth = M⁻¹ qfrc_smooth
+  (mj_fwdAcceleration)."""
+  qfrc = (d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator + d.qfrc_applied
+          + support.xfrc_accumulate(m, d))
+  return d.replace(qfrc_smooth=qfrc,
+                   qacc_smooth=linalg_cuda.spd_solve(d.qM, qfrc))
+
+
+def fwd_constraint(m: Model, d: Data) -> Data:
+  """Constraint solve → qacc (mj_fwdConstraint)."""
+  if not m.efc.nefc or m.disabled(DisableBit.CONSTRAINT):
+    return d.replace(qacc=d.qacc_smooth,
+                     qfrc_constraint=torch.zeros_like(d.qfrc_constraint),
+                     efc_force=torch.zeros_like(d.efc_force))
+  return solver.solve(m, d)
+
+
+def forward(m: Model, d: Data) -> Data:
+  """Full forward dynamics (mj_forward)."""
+  d = fwd_position(m, d)
+  d = fwd_velocity(m, d)
+  d = fwd_actuation(m, d)
+  d = fwd_acceleration(m, d)
+  return fwd_constraint(m, d)
+
+
+def _dof_to_qpos_map(m: Model) -> np.ndarray:
+  """dof → qpos index for linear (non-quaternion) dofs, −1 otherwise."""
+  mp = np.full(m.nv, -1, dtype=np.int64)
+  for j in range(m.njnt):
+    jt = int(m.jnt_type[j])
+    qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
+    if jt in (JointType.HINGE, JointType.SLIDE):
+      mp[dadr] = qadr
+    elif jt == JointType.FREE:
+      mp[dadr:dadr + 3] = np.arange(qadr, qadr + 3)
+  return mp
+
+
+def integrate_pos(m: Model, qpos, qvel, dt):
+  """Manifold-aware position integration (mj_integratePos): quaternions by
+  the exponential map, everything else linearly."""
+  dev = qpos.device
+  dof_of_q = np.full(m.nq, m.nv, dtype=np.int64)
+  for v, qi in enumerate(_dof_to_qpos_map(m)):
+    if qi >= 0:
+      dof_of_q[qi] = v
+  qvel_pad = torch.cat([qvel, torch.zeros_like(qvel[:, :1])], dim=1)
+  out = qpos + dt * qvel_pad[:, index(dof_of_q, dev)]
+
+  qadrs, dadrs = [], []
+  for j in range(m.njnt):
+    jt = int(m.jnt_type[j])
+    if jt == JointType.BALL:
+      qadrs.append(int(m.jnt_qposadr[j]))
+      dadrs.append(int(m.jnt_dofadr[j]))
+    elif jt == JointType.FREE:
+      qadrs.append(int(m.jnt_qposadr[j]) + 3)
+      dadrs.append(int(m.jnt_dofadr[j]) + 3)
+  if qadrs:
+    qidx = np.array(qadrs)[:, None] + np.arange(4)
+    q = mjm.normalize(qpos[:, index(qidx, dev)])
+    w = qvel[:, index(np.array(dadrs)[:, None] + np.arange(3), dev)]
+    quats = mjm.quat_integrate(q, w, dt)
+    out = out.clone()
+    out[:, index(qidx.ravel(), dev)] = quats.reshape(qpos.shape[0], -1)
+  return out
+
+
+def euler(m: Model, d: Data) -> Data:
+  """Semi-implicit Euler without implicit damping (mj_Euler with
+  eulerdamp off): qvel += h·qacc, then qpos by integrate_pos."""
+  h = m.opt.timestep
+  qvel = d.qvel + h * d.qacc
+  return d.replace(qvel=qvel, qpos=integrate_pos(m, d.qpos, qvel, h),
+                   time=d.time + h, qacc_warmstart=d.qacc)
+
+
+def step(m: Model, d: Data) -> Data:
+  """One physics step (mj_step): forward, then Euler."""
+  return euler(m, forward(m, d))

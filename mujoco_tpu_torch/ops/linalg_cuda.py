@@ -1,0 +1,79 @@
+"""Batched small dense SPD solves: kernel 1 of the port.
+
+Replaces the Pallas kernel ``_ldl_solve_kernel``
+(mujoco_tpu/ops/linalg_tpu.py:34, launched by ``ldl_solve_lanes`` :80 and
+dispatched by ``_spd_solve_vmap`` :141; public entry ``spd_solve`` :126).
+The CUDA source is ``csrc/ldl_solve.cu`` (one warp per env, H resident in
+shared memory, in-place LDLᵀ without square roots, then the forward,
+diagonal and back solves).
+
+``spd_solve(H, g)`` takes H (B, n, n) and g (B, n), batch first, the same
+as the reference's ``spd_solve`` under ``jax.vmap``. A CUDA tensor launches
+the kernel or raises; a CPU tensor takes ``spd_solve_plain``. Gradients
+through the kernel wait for a later slice, so a CUDA input that requires
+grad raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mujoco_tpu_torch.ops import cuda_build
+
+MAX_N = 64
+LAUNCHES = 0   # kernel launches by ``spd_solve`` (never by the plain path)
+
+
+def spd_solve_plain(H, g):
+  """p = H⁻¹ g by Cholesky, as the reference's CPU path does
+  (mujoco_tpu/ops/linalg_tpu.py:150-153)."""
+  chol = torch.linalg.cholesky(H)
+  return torch.cholesky_solve(g[..., None], chol)[..., 0]
+
+
+def _check(H, g):
+  if H.dtype not in (torch.float32, torch.float64) or g.dtype != H.dtype:
+    raise TypeError(f"spd_solve takes float32/float64, got {H.dtype}, "
+                    f"{g.dtype}")
+  if H.dim() != 3 or H.shape[1] != H.shape[2] or g.shape != H.shape[:2]:
+    raise ValueError(f"spd_solve shapes: H {tuple(H.shape)}, g "
+                     f"{tuple(g.shape)}; want (B, n, n) and (B, n)")
+  if H.shape[1] > MAX_N:
+    raise ValueError(f"spd_solve kernel supports n <= {MAX_N}, got "
+                     f"{H.shape[1]}")
+  if g.device != H.device:
+    raise ValueError("H and g on different devices")
+  if not (H.is_contiguous() and g.is_contiguous()):
+    raise ValueError("spd_solve kernel takes contiguous H and g")
+  if H.requires_grad or g.requires_grad:
+    raise NotImplementedError(
+        "gradients through the CUDA spd_solve kernel are not ported yet")
+
+
+def spd_solve_kernel(H, g):
+  """Launch the CUDA kernel on H (B, n, n), g (B, n); returns p (B, n)."""
+  global LAUNCHES
+  _check(H, g)
+  if not H.is_cuda:
+    raise ValueError("spd_solve_kernel needs CUDA tensors")
+  B, n = g.shape
+  p = torch.empty_like(g)
+  if B == 0 or n == 0:
+    return p
+  lib = cuda_build.library()
+  fn = lib.mjt_ldl_solve_f32 if H.dtype == torch.float32 else \
+      lib.mjt_ldl_solve_f64
+  with torch.cuda.device(H.device):
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fn(H.data_ptr(), g.data_ptr(), p.data_ptr(), B, n, stream)
+  cuda_build.check(code, "ldl_solve")
+  LAUNCHES += 1
+  return p
+
+
+def spd_solve(H, g):
+  """p = H⁻¹ g for a batch of dense SPD matrices: the CUDA kernel for CUDA
+  tensors, the plain Cholesky for CPU tensors."""
+  if H.is_cuda:
+    return spd_solve_kernel(H, g)
+  return spd_solve_plain(H, g)

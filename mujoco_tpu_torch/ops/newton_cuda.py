@@ -1,0 +1,220 @@
+"""Whole pyramidal Newton solve: kernel 2 of the port.
+
+Replaces the Pallas kernel ``_newton_kernel``
+(mujoco_tpu/ops/newton_tpu.py:155, launched by ``_newton_lanes`` :289 and
+dispatched by ``_raw_vmap`` :370; public entry ``newton_pyramidal`` :422).
+The CUDA source is ``csrc/newton.cu``: one thread block per env runs
+
+  warmstart-vs-smooth cost pick → [jar = Jx − aref → row update →
+  grad = M(x − a_s) − Jᵀf → H = M + JᵀWJ + reg·I → in-place LDL →
+  p = −H⁻¹grad → bracketed Newton linesearch → x += αp] × iterations →
+  final row update, qfrc = Jᵀf, [improvement, cost] per iteration.
+
+``newton_plain`` is the line-for-line batched twin of the reference's XLA
+body (``_xla_newton`` :81 and ``_xla_linesearch`` :126); the CPU path and
+the tests run it, and it is what the kernel is held against on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_tpu_torch.ops import cuda_build
+from mujoco_tpu_torch.utils.device import const
+from mujoco_tpu_torch.utils.math import MINVAL
+
+MAX_NV = 64
+STAT_ROWS = 32
+# kernel launches by ``newton_pyramidal`` (never by the plain path)
+LAUNCHES = 0
+
+
+def row_update(jar, D, R, fl, fric, ones):
+  """Pyramidal mj_constraintUpdate_impl on row tensors: quadratic rows,
+  linear friction-loss rows outside ±R·fl, satisfied one-sided rows.
+  fric/ones are {0, 1} masks. Returns (force, cost_rows, quad_w)
+  (mujoco_tpu/ops/newton_tpu.py:52)."""
+  force = -D * jar
+  cost = 0.5 * D * jar * jar
+  w = D
+  rfl = R * fl
+  lin_neg = (fric > 0) & (jar <= -rfl)
+  lin_pos = (fric > 0) & (jar >= rfl)
+  lin = lin_neg | lin_pos
+  fric_cost = -0.5 * rfl * fl + fl * jar.abs()
+  force = torch.where(lin_neg, fl, torch.where(lin_pos, -fl, force))
+  cost = torch.where(lin, fric_cost, cost)
+  w = torch.where(lin, 0.0, w)
+  satisfied = (ones > 0) & (jar >= 0)
+  force = torch.where(satisfied, 0.0, force)
+  cost = torch.where(satisfied, 0.0, cost)
+  w = torch.where(satisfied, 0.0, w)
+  return force, cost, w
+
+
+def _mv(a, x):
+  return (a @ x[..., None])[..., 0]
+
+
+def objective(args, x):
+  """Σ_r cost_r(Jx − aref) + ½(x − a_s)ᵀM(x − a_s) per env, for the
+  kernel's argument tuple ``args`` (as ``kernel_args`` returns it)."""
+  J, aref, D, R, fl, fric, ones, M, a_s = args[:9]
+  _, cost, _ = row_update(_mv(J, x) - aref, D, R, fl, fric, ones)
+  dx = x - a_s
+  return cost.sum(-1) + 0.5 * (dx * _mv(M, dx)).sum(-1)
+
+
+def _linesearch(jar0, jp, gx0, pmp, D, R, fl, fric, ones, ls_iter: int):
+  """Bracketed safeguarded Newton on φ'(α) = 0, per env."""
+  lo = torch.zeros_like(gx0)
+  hi = torch.full_like(gx0, float("inf"))
+  has_hi = torch.zeros_like(gx0, dtype=torch.bool)
+  alpha = torch.zeros_like(gx0)
+  for _ in range(ls_iter):
+    force, _, w = row_update(jar0 + alpha[:, None] * jp, D, R, fl, fric, ones)
+    dphi = gx0 + alpha * pmp - (jp * force).sum(-1)
+    ddphi = pmp + (w * jp * jp).sum(-1)
+    neg = dphi < 0
+    lo = torch.where(neg, torch.maximum(lo, alpha), lo)
+    hi = torch.where(neg, hi, torch.minimum(hi, alpha))
+    has_hi = has_hi | ~neg
+    prop = alpha - dphi / torch.clamp(ddphi, min=MINVAL)
+    mid = 0.5 * (lo + torch.where(has_hi, hi, lo))
+    ok = (prop >= lo) & (prop <= hi)
+    alpha = torch.where(ok, prop, torch.where(has_hi, mid, prop))
+  return torch.clamp(alpha, min=0.0)
+
+
+def newton_plain(J, aref, D, R, fl, fric, ones, M, a_s, warm, reg,
+                 iterations: int, ls_iter: int):
+  """Plain PyTorch Newton solve on batched row tensors: J (B, nefc, nv);
+  aref, D, R, fl (B, nefc); fric, ones (nefc,) or (B, nefc); M (B, nv, nv);
+  a_s, warm (B, nv); reg (B,) or scalar. Returns (x, force, qfrc, stat)
+  with stat (B, 32, 2) holding [improvement, cost] per iteration."""
+  nbatch, _, nv = J.shape
+  reg = torch.as_tensor(reg, dtype=J.dtype, device=J.device).expand(nbatch)
+  Jt = J.transpose(1, 2)
+  args = (J, aref, D, R, fl, fric, ones, M, a_s)
+  x = torch.where((objective(args, warm) < objective(args, a_s))[:, None],
+                  warm, a_s)
+  eye = torch.eye(nv, dtype=J.dtype, device=J.device)
+  costs = []
+  for _ in range(iterations):
+    jar = _mv(J, x) - aref
+    force, cost_rows, w = row_update(jar, D, R, fl, fric, ones)
+    mdx = _mv(M, x - a_s)
+    costs.append(cost_rows.sum(-1) + 0.5 * ((x - a_s) * mdx).sum(-1))
+    grad = mdx - _mv(Jt, force)
+    h = M + (J * w[..., None]).transpose(1, 2) @ J + eye * reg[:, None, None]
+    chol = torch.linalg.cholesky(h)
+    p = -torch.cholesky_solve(grad[..., None], chol)[..., 0]
+    jp = _mv(J, p)
+    gx0 = (p * mdx).sum(-1)
+    pmp = (p * _mv(M, p)).sum(-1)
+    alpha = _linesearch(jar, jp, gx0, pmp, D, R, fl, fric, ones, ls_iter)
+    x = x + alpha[:, None] * p
+
+  force, _, _ = row_update(_mv(J, x) - aref, D, R, fl, fric, ones)
+  costs.append(objective(args, x))
+  rows = torch.stack([torch.stack([costs[i] - costs[i + 1], costs[i + 1]],
+                                  dim=-1) for i in range(iterations)], dim=1)
+  stat = torch.cat([rows, rows.new_zeros(
+      (nbatch, STAT_ROWS - iterations, 2))], dim=1)
+  return x, force, _mv(Jt, force), stat
+
+
+def _check(args, iterations, ls_iter):
+  J, aref, D, R, fl, fric, ones, M, a_s, warm, reg = args
+  if J.dtype not in (torch.float32, torch.float64):
+    raise TypeError(f"newton_pyramidal takes float32/float64, got {J.dtype}")
+  nbatch, nefc, nv = J.shape
+  want = {"aref": (nbatch, nefc), "D": (nbatch, nefc), "R": (nbatch, nefc),
+          "fl": (nbatch, nefc), "fric": (nefc,), "ones": (nefc,),
+          "M": (nbatch, nv, nv), "a_s": (nbatch, nv), "warm": (nbatch, nv),
+          "reg": (nbatch,)}
+  for (name, shape), t in zip(want.items(), args[1:]):
+    if tuple(t.shape) != shape:
+      raise ValueError(f"newton_pyramidal: {name} has shape "
+                       f"{tuple(t.shape)}, want {shape}")
+  for t in args:
+    if t.dtype != J.dtype or t.device != J.device:
+      raise ValueError("newton_pyramidal: all inputs share J's dtype/device")
+    if not t.is_contiguous():
+      raise ValueError("newton_pyramidal kernel takes contiguous tensors")
+    if t.requires_grad:
+      raise NotImplementedError(
+          "gradients through the CUDA Newton kernel are not ported yet")
+  if nv > MAX_NV or nv < 1:
+    raise ValueError(f"newton kernel supports 1 <= nv <= {MAX_NV}, got {nv}")
+  if not 1 <= iterations <= STAT_ROWS or ls_iter < 0:
+    raise ValueError(f"newton kernel: iterations {iterations} not in "
+                     f"[1, {STAT_ROWS}] or ls_iter {ls_iter} < 0")
+
+
+def newton_kernel(J, aref, D, R, fl, fric, ones, M, a_s, warm, reg,
+                  iterations: int, ls_iter: int):
+  """Launch the CUDA kernel (shapes as ``newton_plain``, masks (nefc,),
+  reg (B,), all contiguous CUDA tensors of one dtype)."""
+  global LAUNCHES
+  args = (J, aref, D, R, fl, fric, ones, M, a_s, warm, reg)
+  _check(args, iterations, ls_iter)
+  if not J.is_cuda:
+    raise ValueError("newton_kernel needs CUDA tensors")
+  nbatch, nefc, nv = J.shape
+  x = torch.empty_like(a_s)
+  force = torch.empty_like(aref)
+  qfrc = torch.empty_like(a_s)
+  stat = torch.empty((nbatch, STAT_ROWS, 2), dtype=J.dtype, device=J.device)
+  if nbatch == 0:
+    return x, force, qfrc, stat
+  lib = cuda_build.library()
+  fn = lib.mjt_newton_f32 if J.dtype == torch.float32 else lib.mjt_newton_f64
+  with torch.cuda.device(J.device):
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fn(*(t.data_ptr() for t in args + (x, force, qfrc, stat)),
+              nbatch, nefc, nv, int(iterations), int(ls_iter), stream)
+  cuda_build.check(code, "newton_pyramidal")
+  LAUNCHES += 1
+  return x, force, qfrc, stat
+
+
+def blocks_per_sm(nefc: int, nv: int, dtype) -> int:
+  """Blocks of the kernel resident per SM at these shapes, as the CUDA
+  runtime's occupancy calculator reports it for the current card."""
+  n = cuda_build.library().mjt_newton_blocks_per_sm(
+      nefc, nv, int(dtype == torch.float64))
+  if n < 0:
+    cuda_build.check(-n, "newton occupancy")
+  return n
+
+
+def kernel_args(J, aref, D, R, fl, fric_mask, oneside_mask, M, a_s, warm,
+                reg):
+  """The argument tuple ``newton_kernel`` and ``newton_plain`` take: the
+  static {0, 1} row masks (nefc,) given as numpy become tensors on J's
+  device, reg (scalar or (B,)) becomes a contiguous (B,) tensor."""
+  dtype, dev = J.dtype, J.device
+  fric = const(np.asarray(fric_mask, dtype=np.float64), dev, dtype)
+  ones = const(np.asarray(oneside_mask, dtype=np.float64), dev, dtype)
+  reg = torch.as_tensor(reg, dtype=dtype, device=dev).expand(
+      J.shape[0]).contiguous()
+  return (J, aref, D, R, fl, fric, ones, M, a_s, warm, reg)
+
+
+def run(args, iterations: int, ls_iter: int):
+  """The CUDA kernel for CUDA tensors, ``newton_plain`` for CPU tensors, on
+  a ``kernel_args`` tuple."""
+  fn = newton_kernel if args[0].is_cuda else newton_plain
+  return fn(*args, iterations, ls_iter)
+
+
+def newton_pyramidal(J, aref, D, R, fl, fric_mask, oneside_mask, M, a_s,
+                     warm, reg, iterations: int, ls_iter: int):
+  """Full pyramidal Newton solve → (qacc, efc_force, qfrc_constraint,
+  solver_stat). fric_mask/oneside_mask: static {0, 1} row masks (nefc,)
+  as numpy. reg: scalar or (B,) diagonal regularizer. The CUDA kernel for
+  CUDA tensors, ``newton_plain`` for CPU tensors."""
+  return run(kernel_args(J, aref, D, R, fl, fric_mask, oneside_mask, M, a_s,
+                         warm, reg), iterations, ls_iter)

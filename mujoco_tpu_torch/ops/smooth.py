@@ -1,0 +1,251 @@
+"""Smooth dynamics: FK, CoM frames, CRB inertia, RNE, transmission.
+
+Port of mujoco_tpu/ops/smooth.py: ``kinematics`` (:57), ``com_pos`` (:206),
+``crb`` (:260), ``com_vel`` (:361), ``rne`` (:378) and ``transmission``
+(:459, hinge/slide JOINT transmissions). Tree recursions are the
+reference's static dense masks (Model.tree) turned into batched matmuls;
+forward kinematics stays level-sequential, one vectorized block per tree
+level. ``camlight`` (:662) and ``tendon`` (:405) have no counterpart: models
+with cameras, lights or tendons are rejected by ``io.put_model``.
+
+Every function takes batched Data (leading env axis) and returns it updated.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_tpu_torch.models.types import Data, DisableBit, JointType, Model
+from mujoco_tpu_torch.utils import math as mjm
+from mujoco_tpu_torch.utils.device import const, index
+
+
+def _quat_adr(m: Model) -> list:
+  """qpos addresses of every ball/free-joint quaternion."""
+  out = []
+  for j in range(m.njnt):
+    if m.jnt_type[j] == JointType.BALL:
+      out.append(int(m.jnt_qposadr[j]))
+    elif m.jnt_type[j] == JointType.FREE:
+      out.append(int(m.jnt_qposadr[j]) + 3)
+  return out
+
+
+def normalize_qpos(m: Model, qpos):
+  """Normalize ball/free quaternions in qpos (mj_normalizeQuat)."""
+  adr = _quat_adr(m)
+  if not adr:
+    return qpos
+  idx = index((np.array(adr)[:, None] + np.arange(4)[None, :]).ravel(),
+              qpos.device)
+  q = mjm.normalize(qpos[:, idx].reshape(qpos.shape[0], -1, 4))
+  out = qpos.clone()
+  out[:, idx] = q.reshape(qpos.shape[0], -1)
+  return out
+
+
+def _take_qpos(qpos, qadr: np.ndarray, width: int, nq: int):
+  idx = np.minimum(qadr[:, None] + np.arange(width)[None, :], nq - 1)
+  return qpos[:, index(idx, qpos.device)]
+
+
+def kinematics(m: Model, d: Data) -> Data:
+  """Forward kinematics (mj_kinematics), level by level down the tree with
+  per-(level, joint type) groups, as in the reference."""
+  nbatch = d.qpos.shape[0]
+  dtype, dev = d.qpos.dtype, d.qpos.device
+  qpos = normalize_qpos(m, d.qpos)
+  qpos0 = m.qpos0
+
+  row_of = np.zeros(m.nbody, dtype=np.int64)
+  next_row = 1
+  xp = torch.zeros((nbatch, 1, 3), dtype=dtype, device=dev)
+  xq = torch.zeros((nbatch, 1, 4), dtype=dtype, device=dev)
+  xq[..., 0] = 1.0
+  anchor_chunks, axis_chunks = [], []
+
+  ix = lambda a: index(a, dev)
+  for bids in m.tree.levels:
+    pid_rows = ix(row_of[m.body_parentid[bids]])
+    pq, pp = xq[:, pid_rows], xp[:, pid_rows]
+    bq = mjm.normalize(mjm.mul_quat(pq, m.body_quat[ix(bids)]))
+    bp = pp + mjm.rot_vec_quat(m.body_pos[ix(bids)], pq)
+
+    jnum = m.body_jntnum[bids]
+    jadr = m.body_jntadr[bids]
+    nlev = len(bids)
+    for k in range(int(jnum.max()) if len(jnum) else 0):
+      has = k < jnum
+      jid_all = np.where(has, jadr + k, 0)
+      jt_all = np.where(has, m.jnt_type[jid_all], -1)
+      groups = []
+      for jt in (JointType.FREE, JointType.BALL, JointType.SLIDE,
+                 JointType.HINGE):
+        sel = np.nonzero(jt_all == jt)[0]
+        if not len(sel):
+          continue
+        jid = jid_all[sel]
+        qadr = m.jnt_qposadr[jid]
+        bq_s, bp_s = bq[:, ix(sel)], bp[:, ix(sel)]
+        jaxis, jpos = m.jnt_axis[ix(jid)], m.jnt_pos[ix(jid)]
+        if jt == JointType.FREE:
+          q7 = _take_qpos(qpos, qadr, 7, m.nq)
+          new_bp = q7[..., :3]
+          new_bq = mjm.normalize(q7[..., 3:7])
+          anchor = new_bp
+          axis_out = jaxis.expand(nbatch, len(sel), 3)
+        else:
+          axis_w = mjm.rot_vec_quat(jaxis, bq_s)
+          anchor = bp_s + mjm.rot_vec_quat(jpos, bq_s)
+          if jt == JointType.SLIDE:
+            dq = qpos[:, ix(qadr)] - qpos0[ix(qadr)]
+            new_bp = bp_s + axis_w * dq[..., None]
+            new_bq = bq_s
+          else:
+            if jt == JointType.BALL:
+              qloc = mjm.normalize(_take_qpos(qpos, qadr, 4, m.nq))
+            else:
+              qloc = mjm.axis_angle_to_quat(
+                  jaxis, qpos[:, ix(qadr)] - qpos0[ix(qadr)])
+            new_bq = mjm.mul_quat(bq_s, qloc)
+            new_bp = anchor - mjm.rot_vec_quat(jpos, new_bq)
+          axis_out = axis_w
+        anchor_chunks.append((jid, anchor))
+        axis_chunks.append((jid, axis_out))
+        groups.append((sel, new_bp, new_bq))
+
+      if groups:
+        sels = np.concatenate([g[0] for g in groups])
+        rest = np.setdiff1d(np.arange(nlev), sels)
+        inv = np.empty(nlev, dtype=np.int64)
+        inv[np.concatenate([sels, rest])] = np.arange(nlev)
+        bp = torch.cat([g[1] for g in groups] + [bp[:, ix(rest)]],
+                       dim=1)[:, ix(inv)]
+        bq = torch.cat([g[2] for g in groups] + [bq[:, ix(rest)]],
+                       dim=1)[:, ix(inv)]
+
+    bq = mjm.normalize(bq)
+    xp = torch.cat([xp, bp], dim=1)
+    xq = torch.cat([xq, bq], dim=1)
+    row_of[bids] = next_row + np.arange(len(bids))
+    next_row += len(bids)
+
+  xpos, xquat = xp[:, ix(row_of)], xq[:, ix(row_of)]
+  if m.njnt:
+    jids = np.concatenate([c[0] for c in anchor_chunks])
+    jinv = np.empty(m.njnt, dtype=np.int64)
+    jinv[jids] = np.arange(m.njnt)
+    xanchor = torch.cat([c[1] for c in anchor_chunks], dim=1)[:, ix(jinv)]
+    xaxis = torch.cat([c[1] for c in axis_chunks], dim=1)[:, ix(jinv)]
+  else:
+    xanchor = xaxis = torch.zeros((nbatch, 0, 3), dtype=dtype, device=dev)
+
+  xmat = mjm.quat_to_mat(xquat)
+  xipos = xpos + mjm.rot_vec_quat(m.body_ipos, xquat)
+  ximat = mjm.quat_to_mat(mjm.mul_quat(xquat, m.body_iquat))
+  gb = ix(m.geom_bodyid)
+  geom_xpos = xpos[:, gb] + mjm.rot_vec_quat(m.geom_pos, xquat[:, gb])
+  geom_xmat = mjm.quat_to_mat(mjm.mul_quat(xquat[:, gb], m.geom_quat))
+  sb = ix(m.site_bodyid)
+  site_xpos = xpos[:, sb] + mjm.rot_vec_quat(m.site_pos, xquat[:, sb])
+  site_xmat = mjm.quat_to_mat(mjm.mul_quat(xquat[:, sb], m.site_quat))
+  return d.replace(qpos=qpos, xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
+                   ximat=ximat, xanchor=xanchor, xaxis=xaxis,
+                   geom_xpos=geom_xpos, geom_xmat=geom_xmat,
+                   site_xpos=site_xpos, site_xmat=site_xmat)
+
+
+def com_pos(m: Model, d: Data) -> Data:
+  """Subtree CoM, c-frame spatial inertias and dof motion axes (mj_comPos)."""
+  sub = const(m.tree.subtree_mask, m.device, m.dtype)
+  moment = m.body_mass[:, None] * d.xipos
+  mass = m.body_subtreemass
+  subtree_com = sub @ moment / torch.clamp(mass, min=mjm.MINVAL)[:, None]
+  subtree_com = torch.where((mass > mjm.MINVAL)[:, None], subtree_com,
+                            d.xipos)
+  ix = lambda a: index(a, m.device)
+  offset = d.xipos - subtree_com[:, ix(m.body_rootid)]
+  cinert = mjm.spatial_inertia(m.body_mass, m.body_inertia, d.ximat, offset)
+  cinert = torch.cat([torch.zeros_like(cinert[:, :1]), cinert[:, 1:]], dim=1)
+
+  jnt = m.dof_jntid
+  jtype = m.jnt_type[jnt]
+  bodyid = m.dof_bodyid
+  anchor = d.xanchor[:, ix(jnt)]
+  off_ca = subtree_com[:, ix(m.body_rootid[bodyid])] - anchor
+  dof_in_jnt = np.arange(m.nv) - m.jnt_dofadr[jnt]
+  axis_col = np.clip(np.where(jtype == JointType.FREE, dof_in_jnt - 3,
+                              dof_in_jnt), 0, 2)
+  # column axis_col of each dof body's xmat: (B, nv, 3)
+  frame_axis = d.xmat[:, ix(bodyid)].transpose(-1, -2)[
+      :, ix(np.arange(m.nv)), ix(axis_col)]
+  hinge_axis = d.xaxis[:, ix(jnt)]
+  is_hinge = const(jtype == JointType.HINGE, m.device)
+  is_free_trans = (jtype == JointType.FREE) & (dof_in_jnt < 3)
+  use_lin = const((jtype == JointType.SLIDE) | is_free_trans, m.device)
+
+  rot_axis = torch.where(is_hinge[:, None], hinge_axis, frame_axis)
+  cdof_rot = torch.cat([rot_axis, mjm.cross(rot_axis, off_ca)], dim=-1)
+  world_axes = const(np.eye(3)[np.clip(dof_in_jnt, 0, 2)], m.device,
+                     m.dtype)
+  slide_lin = torch.where(const(is_free_trans, m.device)[:, None],
+                          world_axes, hinge_axis)
+  cdof_lin = torch.cat([torch.zeros_like(slide_lin), slide_lin], dim=-1)
+  cdof = torch.where(use_lin[:, None], cdof_lin, cdof_rot)
+  return d.replace(subtree_com=subtree_com, cinert=cinert, cdof=cdof)
+
+
+def crb(m: Model, d: Data) -> Data:
+  """Composite rigid-body inertia and the dense joint-space inertia qM
+  (mj_crb + mj_makeM) on the dof-ancestor sparsity pattern."""
+  sub = const(m.tree.subtree_mask, m.device, m.dtype)
+  crb_ = torch.einsum("bc,ncij->nbij", sub, d.cinert)
+  u = torch.einsum("nvij,nvj->nvi", crb_[:, index(m.dof_bodyid, m.device)],
+                   d.cdof)
+  p = u @ d.cdof.transpose(1, 2)
+  danc = const(m.tree.dof_ancestor_mask, m.device)
+  qm = torch.where(danc, p, 0.0)
+  qm = qm + qm.transpose(1, 2) - torch.diag_embed(torch.diagonal(
+      p, dim1=1, dim2=2))
+  qm = qm + torch.diag(m.dof_armature)
+  return d.replace(crb=crb_, qM=qm)
+
+
+def com_vel(m: Model, d: Data) -> Data:
+  """Body spatial velocities and cdof time derivatives (mj_comVel)."""
+  anc = const(m.tree.ancestor_mask, m.device, m.dtype)
+  cvel = (anc * d.qvel[:, None, :]) @ d.cdof
+  pred = const(m.tree.cdofdot_mask, m.device, m.dtype)
+  v_pred = (pred * d.qvel[:, None, :]) @ d.cdof
+  return d.replace(cvel=cvel, cdof_dot=mjm.motion_cross(v_pred, d.cdof))
+
+
+def rne(m: Model, d: Data):
+  """Recursive Newton-Euler bias force qfrc_bias (mj_rne), as masked dense
+  contractions."""
+  anc = const(m.tree.ancestor_mask, m.device, m.dtype)
+  base = torch.zeros(6, dtype=m.dtype, device=m.device)
+  if not m.disabled(DisableBit.GRAVITY):
+    base = torch.cat([base[:3], -m.opt.gravity])
+  cacc = base + (anc * d.qvel[:, None, :]) @ d.cdof_dot
+  icvel = torch.einsum("nbij,nbj->nbi", d.cinert, d.cvel)
+  f = (torch.einsum("nbij,nbj->nbi", d.cinert, cacc)
+       + mjm.force_cross(d.cvel, icvel))
+  tmp = anc.T @ f                                          # (B, nv, 6)
+  return (tmp * d.cdof).sum(-1)
+
+
+def transmission(m: Model, d: Data) -> Data:
+  """Actuator lengths and moment arms (mj_transmission) for hinge/slide
+  joint transmissions: length = q·gear, moment = gear at the joint's dof."""
+  if m.nu == 0:
+    return d
+  jid = m.actuator_trnid[:, 0]
+  gear = m.actuator_gear[:, 0]
+  length = d.qpos[:, index(m.jnt_qposadr[jid], m.device)] * gear
+  onehot = np.zeros((m.nu, m.nv))
+  onehot[np.arange(m.nu), m.jnt_dofadr[jid]] = 1.0
+  moment = const(onehot, m.device, m.dtype) * gear[:, None]
+  return d.replace(actuator_length=length,
+                   actuator_moment=moment.expand(d.qpos.shape[0], -1, -1))

@@ -1,0 +1,137 @@
+"""Quaternion and spatial (6D) algebra on tensors with any leading batch
+dims (port of mujoco_tpu/utils/math.py:1-202).
+
+Conventions are the reference's: quaternions (w, x, y, z); spatial vectors
+angular-first, v = (omega; v_lin), f = (torque; force).
+
+``cos_accurate`` (mujoco_tpu/utils/math.py:40) is not ported: it works around
+an XLA-CPU f64 ``cos`` that is only f32-accurate on scalars. ``torch.cos`` at
+f64 agrees with numpy to the last bit on scalars and vectors alike, so the
+port calls it directly.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# small-denominator clamp, mirroring mjMINVAL (mujoco_tpu/utils/math.py:22)
+MINVAL = 1e-15
+
+
+def cross(a, b):
+  a, b = torch.broadcast_tensors(a, b)
+  return torch.linalg.cross(a, b, dim=-1)
+
+
+def dot(a, b):
+  return (a * b).sum(-1)
+
+
+def norm_safe(x, keepdim=False):
+  """L2 norm over the last axis, clamped away from 0."""
+  sq = (x * x).sum(-1, keepdim=keepdim)
+  return torch.sqrt(torch.clamp(sq, min=MINVAL * MINVAL))
+
+
+def normalize(x):
+  return x / norm_safe(x, keepdim=True)
+
+
+def mul_quat(q1, q2):
+  """Hamilton product q1 ⊗ q2 (mju_mulQuat)."""
+  w1, x1, y1, z1 = q1.unbind(-1)
+  w2, x2, y2, z2 = q2.unbind(-1)
+  return torch.stack([
+      w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+      w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+      w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+      w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+  ], dim=-1)
+
+
+def conj_quat(q):
+  return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def rot_vec_quat(v, q):
+  """Rotate 3-vector v by quaternion q (mju_rotVecQuat)."""
+  w = q[..., :1]
+  r = q[..., 1:]
+  cross1 = cross(r, v) + w * v
+  return v + 2.0 * cross(r, cross1)
+
+
+def quat_to_mat(q):
+  """Quaternion to 3x3 rotation matrix (mju_quat2Mat)."""
+  w, x, y, z = q.unbind(-1)
+  xx, yy, zz = x * x, y * y, z * z
+  xy, xz, yz = x * y, x * z, y * z
+  wx, wy, wz = w * x, w * y, w * z
+  m = torch.stack([
+      1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+      2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+      2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+  ], dim=-1)
+  return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_quat(axis, angle):
+  """Unit axis + angle to quaternion (mju_axisAngle2Quat)."""
+  half = 0.5 * angle
+  s = torch.sin(half)
+  axis, s = torch.broadcast_tensors(axis, s[..., None])
+  return torch.cat([torch.cos(half)[..., None], axis * s], dim=-1)
+
+
+def quat_integrate(q, omega, dt):
+  """q ⊗ exp(omega·dt/2), renormalized (mju_quatIntegrate)."""
+  angle = norm_safe(omega) * dt
+  axis = normalize(omega)
+  return normalize(mul_quat(q, axis_angle_to_quat(axis, angle)))
+
+
+def quat_sub(qa, qb):
+  """Velocity-space difference: rotation vector taking qb to qa
+  (mju_subQuat)."""
+  qd = mul_quat(conj_quat(qb), qa)
+  sin_half = norm_safe(qd[..., 1:])
+  angle = 2.0 * torch.atan2(sin_half, qd[..., 0])
+  angle = torch.where(angle > math.pi, angle - 2.0 * math.pi, angle)
+  return normalize(qd[..., 1:]) * angle[..., None]
+
+
+def motion_cross(v, m):
+  """Spatial cross product of motion vectors: v × m (mju_crossMotion)."""
+  w, u = v[..., :3], v[..., 3:]
+  mw, mu = m[..., :3], m[..., 3:]
+  return torch.cat([cross(w, mw), cross(w, mu) + cross(u, mw)], dim=-1)
+
+
+def force_cross(v, f):
+  """Spatial cross product applied to a force: v ×* f (mju_crossForce)."""
+  w, u = v[..., :3], v[..., 3:]
+  n, g = f[..., :3], f[..., 3:]
+  return torch.cat([cross(w, n) + cross(u, g), cross(w, g)], dim=-1)
+
+
+def skew(v):
+  """3-vector to skew-symmetric matrix so that skew(a) @ b = a × b."""
+  z = torch.zeros_like(v[..., 0])
+  m = torch.stack([z, -v[..., 2], v[..., 1],
+                   v[..., 2], z, -v[..., 0],
+                   -v[..., 1], v[..., 0], z], dim=-1)
+  return m.reshape(v.shape[:-1] + (3, 3))
+
+
+def spatial_inertia(mass, inertia_diag, imat, offset):
+  """6x6 spatial inertia in a frame displaced by ``offset`` from the CoM,
+  angular-first (mju_inertCom layout, mujoco_tpu/utils/math.py:179)."""
+  icom = imat @ (inertia_diag[..., None] * imat.transpose(-1, -2))
+  cx = skew(offset)
+  m = mass[..., None, None]
+  eye = torch.eye(3, dtype=cx.dtype, device=cx.device).expand(cx.shape)
+  top = torch.cat([icom + m * (cx @ cx.transpose(-1, -2)), m * cx], dim=-1)
+  bot = torch.cat([m * cx.transpose(-1, -2), m * eye], dim=-1)
+  return torch.cat([top, bot], dim=-2)

@@ -26,3 +26,8 @@ import jax
 # re-pin to cpu at config level so tests stay local and fast.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+  config.addinivalue_line(
+      "markers", "cuda: needs an NVIDIA GPU; skips where there is none")

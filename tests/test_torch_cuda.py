@@ -1,0 +1,178 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+This file imports neither jax nor mujoco_tpu. On a machine that has only
+PyTorch and the CUDA toolkit, skip tests/conftest.py, which configures JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Every test needs an NVIDIA GPU and skips where there is none (marker
+``cuda``). The plain versions are held against mujoco_tpu on the CPU by
+tests/test_torch_linalg.py and tests/test_torch_newton.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mujoco_tpu_torch.models import zoo
+from mujoco_tpu_torch.ops import forward, linalg_cuda, newton_cuda, solver
+from mujoco_tpu_torch.parallel import rollout
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs an NVIDIA GPU (CUDA kernel)")
+  return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("n", [1, 9, 27, 33, 64])
+def test_ldl_kernel_matches_plain(cuda, dtype, tol, n):
+  rng = np.random.default_rng(n)
+  a = rng.standard_normal((1000, n, n))
+  h = torch.tensor(a @ a.transpose(0, 2, 1) + n * np.eye(n), dtype=dtype,
+                   device=cuda)
+  g = torch.tensor(rng.standard_normal((1000, n)), dtype=dtype, device=cuda)
+  before = linalg_cuda.LAUNCHES
+  out = linalg_cuda.spd_solve(h, g)
+  torch.cuda.synchronize()
+  assert linalg_cuda.LAUNCHES == before + 1
+  torch.testing.assert_close(out, linalg_cuda.spd_solve_plain(h, g),
+                             rtol=tol, atol=tol)
+
+
+def test_ldl_kernel_rejects_what_it_cannot_take(cuda):
+  h = torch.eye(65, device=cuda).expand(4, 65, 65).contiguous()
+  with pytest.raises(ValueError):
+    linalg_cuda.spd_solve(h, torch.ones(4, 65, device=cuda))
+  h = torch.eye(3, device=cuda).expand(4, 3, 3)
+  with pytest.raises(ValueError):
+    linalg_cuda.spd_solve(h, torch.ones(4, 3, device=cuda))
+  h = torch.eye(3, device=cuda).repeat(4, 1, 1).requires_grad_()
+  with pytest.raises(NotImplementedError):
+    linalg_cuda.spd_solve(h, torch.ones(4, 3, device=cuda))
+
+
+def _synthetic(nbatch, dtype, device, nefc=22, nv=9):
+  rng = np.random.default_rng(0)
+  a = rng.standard_normal((nbatch, nv, nv))
+  D = rng.uniform(0.0, 5.0, (nbatch, nefc))
+  D[:, -3:] = 0.0
+  a_s = rng.standard_normal((nbatch, nv))
+  fric = np.zeros(nefc)
+  fric[4:7] = 1.0
+  ones = np.zeros(nefc)
+  ones[7:] = 1.0
+  vals = [rng.standard_normal((nbatch, nefc, nv)),
+          0.3 * rng.standard_normal((nbatch, nefc)), D,
+          rng.uniform(0.01, 0.5, (nbatch, nefc)),
+          rng.uniform(0.1, 2.0, (nbatch, nefc)), fric, ones,
+          a @ a.transpose(0, 2, 1) + 3.0 * np.eye(nv), a_s,
+          a_s + 0.1 * rng.standard_normal((nbatch, nv)),
+          np.full((nbatch,), 1e-6)]
+  return [torch.tensor(v, dtype=dtype, device=device) for v in vals]
+
+
+def _humanoid(nbatch, device, dtype):
+  """The main path's Newton arguments (``solver.newton_args``) for a
+  forward-evaluated humanoid batch with its feet in the floor and a
+  warmstart near the smooth acceleration."""
+  m = zoo.humanoid(dtype, device=device)
+  d = rollout.make_batch(m, nbatch, device=device)
+  gen = torch.Generator().manual_seed(3)
+  qpos = d.qpos + 0.03 * torch.randn(d.qpos.shape, generator=gen,
+                                     dtype=torch.float64).to(device, dtype)
+  qpos[:, 2] -= 0.12
+  d = forward.fwd_acceleration(m, forward.fwd_actuation(
+      m, forward.fwd_velocity(m, forward.fwd_position(
+          m, d.replace(qpos=qpos)))))
+  return solver.newton_args(m, d.replace(qacc_warmstart=0.9 * d.qacc_smooth))
+
+
+def _objective(args, x):
+  return newton_cuda.objective([a.double() for a in args], x.double())
+
+
+@pytest.mark.parametrize("iterations,ls_iter", [(1, 4), (4, 4)])
+def test_newton_kernel_matches_plain_f64(cuda, iterations, ls_iter):
+  args = _humanoid(64, cuda, torch.float64)
+  before = newton_cuda.LAUNCHES
+  out_k = newton_cuda.newton_kernel(*args, iterations, ls_iter)
+  torch.cuda.synchronize()
+  assert newton_cuda.LAUNCHES == before + 1
+  out_p = newton_cuda.newton_plain(*args, iterations, ls_iter)
+  for name, a, b in zip(("x", "force", "qfrc"), out_p, out_k):
+    torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-9, msg=name)
+  # a stat row's improvement is a difference of two costs: both columns
+  # take the env's costs, |improvement| + |cost|, as their scale
+  scale = out_p[3].abs().sum(-1, keepdim=True)
+  assert ((out_k[3] - out_p[3]).abs() <= 1e-9 + 1e-9 * scale).all()
+
+
+@pytest.mark.parametrize("iterations,ls_iter", [(1, 4), (2, 6), (4, 4)])
+def test_newton_kernel_matches_plain_f32_humanoid(cuda, iterations, ls_iter):
+  """At f32 the linesearch can park on a kink whose side depends on the last
+  bit of rounding, so envs are held as tests/test_newton_kernel.py:83-117
+  holds the Pallas kernel: ≥ 99 % (one iteration) or ≥ 85 % of envs
+  elementwise, the mean objective gap under 2e-3. Elementwise means 2e-4
+  relative to the env's largest |x|: the humanoid's accelerations reach
+  O(1e3), where f32 rounding alone exceeds an absolute 2e-4."""
+  args = _humanoid(1024, cuda, torch.float32)
+  out_k = newton_cuda.newton_kernel(*args, iterations, ls_iter)
+  out_p = newton_cuda.newton_plain(*args, iterations, ls_iter)
+  scale = torch.clamp(out_p[0].abs().amax(1), min=1.0)
+  close = (out_k[0] - out_p[0]).abs().amax(1) < 2e-4 * scale
+  assert close.float().mean() >= (0.99 if iterations == 1 else 0.85)
+  c_k, c_p = _objective(args, out_k[0]), _objective(args, out_p[0])
+  rel = (c_k - c_p) / torch.clamp(c_p.abs(), min=1.0)
+  assert abs(rel.mean().item()) < 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("iterations,ls_iter", [(1, 4), (2, 6), (4, 4)])
+def test_newton_kernel_diverges_no_more_than_a_reordering(cuda, dtype,
+                                                          iterations,
+                                                          ls_iter):
+  """Random row systems with friction-loss rows park many envs on
+  rounding-sensitive kinks, at f64 too. The plain version run on the same
+  systems with the rows permuted (another summation order) sets the
+  baseline: the kernel must agree with the plain version about as often as
+  the plain version agrees with itself, with an unbiased objective."""
+  args = _synthetic(4096, dtype, cuda)
+  perm = torch.randperm(args[0].shape[1],
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+  permuted = list(args)
+  for i in range(5):
+    permuted[i] = args[i][:, perm].contiguous()
+  for i in (5, 6):
+    permuted[i] = args[i][perm].contiguous()
+  out_p = newton_cuda.newton_plain(*args, iterations, ls_iter)
+  tol = 1e-9 if dtype == torch.float64 else 2e-4
+
+  def agreement(x):
+    close = (x - out_p[0]).abs().amax(1) < tol
+    c, c_p = _objective(args, x), _objective(args, out_p[0])
+    rel = (c - c_p) / torch.clamp(c_p.abs(), min=1.0)
+    return close.float().mean().item(), rel
+
+  close_k, rel_k = agreement(newton_cuda.newton_kernel(*args, iterations,
+                                                       ls_iter)[0])
+  close_self, _ = agreement(newton_cuda.newton_plain(*permuted, iterations,
+                                                     ls_iter)[0])
+  assert close_k >= close_self - 0.01, (close_k, close_self)
+  assert abs(rel_k.mean().item()) < 2e-3
+  assert rel_k.abs().median().item() < 1e-5
+
+
+def test_main_path_launches_each_kernel_once_per_step(cuda):
+  m = zoo.humanoid(torch.float32)
+  d = rollout.make_batch(m, 16)
+  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = 0
+  out = rollout.scan_steps(m, d, 5)
+  torch.cuda.synchronize()
+  assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES) == (5, 5)
+  assert torch.isfinite(out.qpos).all()

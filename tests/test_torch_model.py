@@ -1,0 +1,136 @@
+"""The PyTorch port's model bridge against mujoco_tpu's, at f64 on CPU.
+
+put_model / make_data on the flagship humanoid and on a contact-free
+pendulum equal the reference field for field (integers and masks exactly,
+floats to 1e-12); the committed humanoid snapshot equals a fresh compile;
+a mujoco_tpu Model carried across with model_from_numpy equals the port's
+own put_model; models outside the slice raise NotImplementedError.
+"""
+
+import mujoco
+import numpy as np
+import pytest
+import torch
+
+from mujoco_tpu.models import io as jio
+from mujoco_tpu_torch.models import io as tio
+from mujoco_tpu_torch.models import snapshot, zoo
+
+PENDULUM = """
+<mujoco>
+  <option timestep="0.004" gravity="0 0 -9.81">
+    <flag eulerdamp="disable"/>
+  </option>
+  <worldbody>
+    <body pos="0 0 1.1">
+      <joint name="swing" type="hinge" axis="0 1 0" damping="0.05"/>
+      <geom type="capsule" size="0.035" fromto="0 0 0 0 0 -0.5" density="800"/>
+      <body pos="0 0 -0.5">
+        <joint name="elbow" type="hinge" axis="0 1 0" stiffness="1.2"
+               springref="0.25"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0.03 0 -0.35"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="swing" gear="4" ctrlrange="-1 1" ctrllimited="true"/>
+  </actuator>
+</mujoco>
+"""
+
+
+def _mjmodel(name):
+  if name == "humanoid":
+    return mujoco.MjModel.from_xml_path(f"{zoo.XML_DIR}/humanoid.xml")
+  return mujoco.MjModel.from_xml_string(PENDULUM)
+
+
+def assert_fields_match(port: dict, ref: dict, prefix=""):
+  """Every port field equals the same-named reference field: integers and
+  bools exactly, floats to 1e-12."""
+  for k, v in port.items():
+    assert k in ref, f"{prefix}{k} missing from the reference"
+    a, b = np.asarray(ref[k]), np.asarray(v)
+    assert a.shape == b.shape, (k, a.shape, b.shape)
+    if b.dtype.kind in "biuU":
+      np.testing.assert_array_equal(b, a, err_msg=k)
+    else:
+      np.testing.assert_allclose(b, a, rtol=0, atol=1e-12, err_msg=k)
+
+
+@pytest.fixture(scope="module", params=["humanoid", "pendulum"])
+def models(request):
+  mjm = _mjmodel(request.param)
+  return (request.param, mjm, jio.put_model(mjm),
+          tio.put_model(mjm, dtype=torch.float64, device="cpu"))
+
+
+def test_put_model_matches_reference(models):
+  _, _, jm, tm = models
+  port = tio.flatten(tm)
+  assert len(port) > 100
+  assert_fields_match(port, tio.flatten(jm))
+
+
+def test_make_data_matches_reference(models):
+  _, _, jm, tm = models
+  td = tio.make_data(tm, device="cpu")
+  assert td.qpos.shape == (1, tm.nq)
+  ref = {k: np.asarray(v)[None]
+         for k, v in tio.flatten(jio.make_data(jm)).items()}
+  assert_fields_match(tio.flatten(td), ref)
+
+
+def test_model_from_numpy_roundtrips_reference(models):
+  """A mujoco_tpu Model carried across equals the port's own put_model."""
+  _, mjm, jm, tm = models
+  carried = tio.model_from_numpy(tio.flatten(jm), dtype=torch.float64,
+                                 device="cpu")
+  assert_fields_match(tio.flatten(carried), tio.flatten(tm))
+  assert carried.names == tm.names
+  assert carried.tree.levels[0].dtype == tm.tree.levels[0].dtype
+
+
+def test_snapshot_is_current():
+  """The committed humanoid.npz equals what put_model gives from the XML."""
+  committed = zoo.load_snapshot("humanoid")
+  fresh = snapshot.compile_numpy("humanoid")
+  assert sorted(committed) == sorted(fresh)
+  for k in fresh:
+    assert committed[k].dtype == fresh[k].dtype, k
+    np.testing.assert_array_equal(committed[k], fresh[k], err_msg=k)
+  m = zoo.humanoid(torch.float64, device="cpu")
+  assert (m.nq, m.nv, m.nu, m.nbody, m.ngeom, m.efc.nefc, m.con.ncon) == (
+      28, 27, 21, 15, 18, 162, 30)
+
+
+_OUT_OF_SLICE = {
+    "tendon": """<mujoco><worldbody><body><joint name="a" type="slide"/>
+      <geom size="0.1"/></body></worldbody><tendon><fixed name="t">
+      <joint joint="a" coef="1"/></fixed></tendon></mujoco>""",
+    "sensor": """<mujoco><worldbody><body><joint name="a" type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor>
+      <jointpos joint="a"/></sensor></mujoco>""",
+    "box_contact": """<mujoco><worldbody><geom type="plane" size="1 1 1"/>
+      <body><freejoint/><geom type="box" size="0.1 0.1 0.1"/></body>
+      </worldbody></mujoco>""",
+    "elliptic": """<mujoco><option cone="elliptic"/><worldbody>
+      <geom type="plane" size="1 1 1"/><body><freejoint/>
+      <geom size="0.1"/></body></worldbody></mujoco>""",
+    "rk4": """<mujoco><option integrator="RK4"/><worldbody><body>
+      <joint type="hinge"/><geom size="0.1" contype="0"/></body></worldbody>
+      </mujoco>""",
+    "cg": """<mujoco><option solver="CG"/><worldbody><body>
+      <joint type="hinge" limited="true" range="-1 1"/>
+      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+    "eulerdamp": """<mujoco><worldbody><body><joint type="hinge"
+      damping="1"/><geom size="0.1" contype="0"/></body></worldbody>
+      </mujoco>""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(_OUT_OF_SLICE))
+def test_out_of_slice_raises(name):
+  mjm = mujoco.MjModel.from_xml_string(_OUT_OF_SLICE[name])
+  with pytest.raises(NotImplementedError):
+    tio.put_model(mjm, dtype=torch.float64, device="cpu")
