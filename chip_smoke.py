@@ -20,18 +20,38 @@ Phases, each of which passes or ends the script with a nonzero exit:
    one iteration, ≥ 85 % above, mean objective gap < 2e-3); times kernel and
    plain version at the main path's shape, reads the kernel's resident
    blocks per SM and times one block per SM and one full wave;
-4. the main path: ``rollout.scan_steps`` of the humanoid at f32, B 3072,
+4. kernel 3 (``megastep_cuda``, the whole rollout in one launch) against
+   its plain version on the humanoid, quadruped, ``mixed`` and
+   ``spherebox`` snapshots, B 512, from posed states made from a numpy
+   seed: f64 one step elementwise (qpos 1e-9, qvel 1e-8, qacc 1e-6, each
+   atol plus rtol), f64 25 steps (every env finite, ≥ 99 % of envs with
+   qpos within 1e-8), f32 1 and 10 steps (≥ 99 % of envs within 2e-4 of
+   the env's largest |value|, qpos and qvel; bodies sunk at most 0.15);
+   times the kernel at the main path's shape (humanoid, f32, B 3072, 200
+   steps; L2 flushed and L2-warm) and the plain version over 10 steps,
+   holds the kernel's 10 steps at B 3072 against that plain output by the
+   same f32 criterion, prints (as a witness, not a gate) the f32 shares at
+   0.3 deep of kernel against f32 plain and of f32 plain against f64
+   plain, reads its shared memory and blocks per SM and times one block
+   per SM and one full wave;
+5. the main path: ``rollout.scan_steps`` of the humanoid at f32, B 3072,
    200 steps, check=True, from ``make_batch`` with 0.01·N(0, 1) qpos noise;
-   the state must stay finite and the launch counters must show exactly
-   one LDL and one Newton launch per step;
-5. where a step's time goes: 10 warm steps of the same path under
-   ``torch.profiler`` (CUDA activity only); wall time, device busy time
-   and idle share from that one window, launches per step and the top
-   device kernels; the same 10 steps unprofiled give the tracing's cost;
-6. 25 steps at f64, B 64, on the card against the same run of the port on
-   the CPU (qpos to 1e-8), which ties the GPU path to the CPU path the tests
-   hold against mujoco_tpu.
+   the state must stay finite and the launch counters, zeroed just before,
+   must show exactly one megastep launch and no LDL or Newton launch;
+6. the stage path of PR 1 (``MJTPU_MEGASTEP=0``), same start, 20 steps:
+   finite, exactly one LDL and one Newton launch per step;
+7. where the time goes: one 200-step megastep call and 10 warm stage-path
+   steps, each under ``torch.profiler`` (CUDA activity only) with wall,
+   device busy time and idle share from that one window, the launches and
+   the top device kernels, and the same work unprofiled for the tracing's
+   cost;
+8. 25 steps at f64, B 64, on the card against the same run of the port on
+   the CPU (qpos to 1e-8; the stage path on both, f64 does not dispatch to
+   the megastep), which ties the GPU path to the CPU path the tests hold
+   against mujoco_tpu.
 
+The kernels' ``launches`` are counted in the run of their own path: the
+megastep's in phase 5, the LDL's and the Newton kernel's in phase 6.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -304,62 +324,321 @@ def phase_newton(report, details):
       library_ms=None)
 
 
-def phase_main_path(report, details):
+MEGASTEP_MODELS = ("humanoid", "quadruped", "mixed", "spherebox")
+
+
+def posed_state(m, nbatch, seed, lower=0.3):
+  """The megastep STATE dict of a batch posed from a numpy seed: qpos0 plus
+  0.05·N(0, 1), every free body lowered by up to ``lower`` (toward and into
+  the floor), qvel 0.5·N(0, 1), ctrl 0.3·N(0, 1), and small qfrc_applied and
+  xfrc_applied, on the card in the Model's dtype; plus the guard's fresh
+  state (make_data's)."""
+  from mujoco_tpu_torch.models import io
+  rng = np.random.default_rng(seed)
+  qpos = m.qpos0.cpu().double().numpy() + 0.05 * rng.standard_normal(
+      (nbatch, m.nq))
+  for j in range(m.njnt):
+    if m.jnt_type[j] == 0:
+      qpos[:, m.jnt_qposadr[j] + 2] -= rng.uniform(0.0, lower, nbatch)
+  t = lambda a: torch.tensor(a, dtype=m.dtype, device="cuda").contiguous()
+  state = dict(qpos=t(qpos), qvel=t(0.5 * rng.standard_normal((nbatch, m.nv))),
+               ctrl=t(0.3 * rng.standard_normal((nbatch, m.nu))),
+               warm=t(np.zeros((nbatch, m.nv))),
+               qacc=t(np.zeros((nbatch, m.nv))), time=t(np.zeros(nbatch)),
+               qfrc_applied=t(0.1 * rng.standard_normal((nbatch, m.nv))),
+               xfrc=t(0.5 * rng.standard_normal((nbatch, 6 * m.nbody))))
+  d0 = io.make_data(m)
+  fresh = {k: getattr(d0, k)[0].contiguous() for k in ("qpos", "qvel",
+                                                       "ctrl")}
+  return state, fresh
+
+
+def megastep_flops(m) -> int:
+  """Arithmetic of one megastep step per env, counted from csrc/megastep.cu
+  stage by stage (multiply-adds count 2): FK and frames ~250 per body,
+  cinert ~250 per body, cdof ~30 per dof, CRB 36 per body, u 72 per dof,
+  qM 24·nv², com_vel and cacc 4·6·nbody·nv plus cdof_dot 12·nv² + 30·nv,
+  RNE and xfrc forces ~190 per body and 24·nbody·nv projections, the two
+  LDL solves (a_s and the damped Euler), the narrowphase ~400 per group,
+  the contact Jacobian ~50 per (slot, dof) twice, the rows, the Newton
+  solve (newton_flops) with Jᵀf, and Euler ~10 per dof."""
+  nb, nv, nefc = m.nbody, m.nv, m.efc.nefc
+  ncon, nl = m.con.ncon, m.efc.nl
+  ngroup = int(np.count_nonzero(m.con.con_first)) if ncon else 0
+  flops = (500 * nb + 30 * nv + 36 * nb + 72 * nv + 24 * nv * nv
+           + 24 * nb * nv + 12 * nv * nv + 30 * nv + 190 * nb
+           + 24 * nb * nv + 2 * ldl_flops(nv) + 400 * ngroup
+           + 100 * ncon * nv + 60 * ncon + 30 * nl + 10 * nv)
+  if nefc:
+    flops += newton_flops(nefc, nv, int(m.opt.iterations),
+                          int(m.opt.ls_iterations)) + 2 * nefc * nv
+  return flops
+
+
+def f32_fractions(out_a, out_b) -> dict:
+  """Per qpos and qvel, the share of envs whose largest |a − b| is below
+  2e-4 of the env's largest |b| (at least 1): the Newton kernel's f32
+  criterion."""
+  fracs = {}
+  for k in ("qpos", "qvel"):
+    b = out_b[k].to(out_a[k].dtype)
+    scale = torch.clamp(b.abs().amax(1), min=1.0)
+    gap = (out_a[k] - b).abs().amax(1)
+    fracs[k] = (gap < 2e-4 * scale).float().mean().item()
+  return fracs
+
+
+def check_f32(tag, out_k, out_p) -> dict:
+  """Kernel against plain version at f32: ≥ 99 % of envs by f32_fractions
+  on qpos and qvel (kinks: see PERF.md), or the phase fails."""
+  fracs = f32_fractions(out_k, out_p)
+  print(f"megastep f32 {tag}: envs within 2e-4 rel "
+        + " ".join(f"{k} {v:.2%}" for k, v in fracs.items())
+        + " (need 99%)", flush=True)
+  if min(fracs.values()) < 0.99:
+    raise AssertionError(f"megastep f32 {tag}: kernel and plain disagree")
+  return fracs
+
+
+def f32_floor_witness(m, nbatch) -> dict:
+  """Printed, not a gate: why the f32 checks pose bodies at most 0.15 deep.
+  At 0.3 deep, the kernel against the f32 plain version next to the f32
+  plain version against the f64 plain version on the same (f32) inputs:
+  if the second share is as low as the first, the gap is rounding that
+  both f32 sides share, not something the kernel adds."""
   from mujoco_tpu_torch.models import zoo
-  from mujoco_tpu_torch.ops import linalg_cuda, newton_cuda
-  from mujoco_tpu_torch.parallel import rollout
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  m64 = zoo.humanoid(torch.float64)
+  state, fresh = posed_state(m, nbatch, 3, lower=0.3)
+  s64 = {k: v.double() for k, v in state.items()}
+  f64 = {k: v.double() for k, v in fresh.items()}
+  out = {}
+  for nstep in (1, 10):
+    k32 = mc.megastep_kernel(m, state, nstep, fresh)
+    p32 = mc.megastep_plain(m, state, nstep, fresh)
+    p64 = mc.megastep_plain(m64, s64, nstep, f64)
+    out[nstep] = dict(kernel_vs_plain32=f32_fractions(k32, p32),
+                      plain32_vs_plain64=f32_fractions(p32, p64),
+                      kernel_vs_plain64=f32_fractions(k32, p64))
+    print(f"megastep f32 floor, humanoid B{nbatch} sunk up to 0.3, {nstep} "
+          f"steps, envs within 2e-4 rel (qpos, qvel): " + "; ".join(
+              f"{tag} " + " ".join(f"{v:.2%}" for v in fr.values())
+              for tag, fr in out[nstep].items()), flush=True)
+  return out
+
+
+def phase_megastep(report, details):
+  """Kernel 3 against its plain version on the four snapshots, then its
+  time at the main path's shape."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  nb_check = 512
+  worst64 = 0.0
+  for name in MEGASTEP_MODELS:
+    m = zoo.load(name, torch.float64)
+    assert mc.supported(m), name
+    state, fresh = posed_state(m, nb_check, 7)
+    # f64, one step: elementwise at the tolerances of the CPU tests
+    out_k = mc.megastep_kernel(m, state, 1, fresh)
+    torch.cuda.synchronize()
+    out_p = mc.megastep_plain(m, state, 1, fresh)
+    errs = {}
+    for k, tol in (("qpos", 1e-9), ("qvel", 1e-8), ("qacc", 1e-6)):
+      diff = (out_k[k] - out_p[k]).abs()
+      errs[k] = diff.max().item()
+      viol = (diff / (tol + tol * out_p[k].abs())).max().item()
+      if not viol <= 1.0:
+        raise AssertionError(f"megastep f64 {name} 1 step: {k} off by "
+                             f"{viol} × ({tol} + {tol}·|plain|)")
+    worst64 = max(worst64, errs["qpos"])
+    # f64, 25 steps: finite, ≥ 99 % of envs with qpos within 1e-8
+    out_k = mc.megastep_kernel(m, state, 25, fresh)
+    out_p = mc.megastep_plain(m, state, 25, fresh)
+    gap = (out_k["qpos"] - out_p["qpos"]).abs().amax(1)
+    finite = bool(torch.isfinite(out_k["qpos"]).all()
+                  & torch.isfinite(out_k["qvel"]).all())
+    close25 = (gap <= 1e-8).float().mean().item()
+    print(f"megastep f64 {name} B{nb_check}: 1 step max abs err "
+          + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; 25 steps finite {finite}, {close25:.2%} of envs qpos within"
+          f" 1e-8 (need 99%), largest qpos diff {gap.max().item():.3e}",
+          flush=True)
+    if not finite or close25 < 0.99:
+      raise AssertionError(f"megastep f64 {name} 25 steps disagree")
+    # f32, 1 and 10 steps: ≥ 99 % of envs within 2e-4 relative to the
+    # env's largest |value| (kinks: see PERF.md). The poses sink at most
+    # 0.15 here; f32_floor_witness shows what f32 rounding alone does to
+    # both sides at 0.3
+    m32 = zoo.load(name, torch.float32)
+    s32, f32 = posed_state(m32, nb_check, 7, lower=0.15)
+    for nstep in (1, 10):
+      out_k = mc.megastep_kernel(m32, s32, nstep, f32)
+      out_p = mc.megastep_plain(m32, s32, nstep, f32)
+      check_f32(f"{name} B{nb_check} {nstep} steps", out_k, out_p)
+
+  # the main path's shape: humanoid, f32, B 3072, posed as the f32 checks
   m = zoo.humanoid(torch.float32)
+  state, fresh = posed_state(m, B, 3, lower=0.15)
+  run = lambda: mc.megastep_kernel(m, state, NSTEP, fresh)
+  kernel_ms = cuda_ms_cold(run, reps=5, warmup=1)
+  warm_ms = cuda_ms(run, reps=5, warmup=1)
+  held = {}
+
+  def plain10():
+    held["out"] = mc.megastep_plain(m, state, 10, fresh)
+
+  plain_ms = cuda_ms(plain10, reps=1, warmup=1) / 10
+  # the kernel at the batch the main path launches it with, against the
+  # plain output just timed
+  details["megastep_f32_b3072_10_steps"] = check_f32(
+      f"humanoid B{B} 10 steps", mc.megastep_kernel(m, state, 10, fresh),
+      held["out"])
+  details["megastep_f32_depth_0.3"] = f32_floor_witness(m, B)
+  # state read once and written once: qpos, qvel, ctrl, warm, qacc, time,
+  # qfrc_applied, xfrc in; the first six out; the packed tables once
+  nstate_in = m.nq + 4 * m.nv + m.nu + 1 + 6 * m.nbody
+  nstate_out = m.nq + 3 * m.nv + m.nu + 1
+  nbytes = 4 * B * (nstate_in + nstate_out) + mc.packed(
+      m, torch.float32, "cuda")[1].numel()
+  bound_ms, bound_by = bound(nbytes, B * NSTEP * megastep_flops(m),
+                             torch.float32)
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  per_sm = mc.blocks_per_sm(m, torch.float32)
+  waves = {}
+  for k in (sms, sms * per_sm):
+    sub = {n: v[:k].contiguous() for n, v in state.items()}
+    waves[k] = cuda_ms(lambda: mc.megastep_kernel(m, sub, NSTEP, fresh),
+                       reps=3, warmup=1)
+  smem = mc.smem_bytes(m, torch.float32)
+  print(f"megastep f32 B{B} {NSTEP} steps: kernel_ms {kernel_ms:.3f} (L2 "
+        f"flushed; L2-warm {warm_ms:.3f}) plain_ms {plain_ms:.3f} per step "
+        f"bound_ms {bound_ms:.4f} ({bound_by}); {smem} B shared memory, "
+        f"{per_sm} blocks/SM on {sms} SMs ({-(-B // (sms * per_sm))} waves);"
+        f" one block per SM {waves[sms]:.3f} ms, one full wave "
+        f"({sms * per_sm} envs) {waves[sms * per_sm]:.3f} ms", flush=True)
+  details["megastep"] = dict(l2_warm_ms=warm_ms, plain_ms_per_step=plain_ms,
+                             smem_bytes=smem, blocks_per_sm=per_sm, sms=sms,
+                             one_block_per_sm_ms=waves[sms],
+                             one_wave_ms=waves[sms * per_sm],
+                             flops_per_env_step=megastep_flops(m))
+  report["megastep"] = dict(
+      name="megastep", route="cuda", source="mujoco_tpu_torch/csrc/megastep.cu",
+      replaces="mujoco_tpu/ops/megastep_tpu.py:1389", max_abs_err=worst64,
+      ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+      library_ms=None)
+
+
+def main_path_batch(m):
+  """make_batch with 0.01·N(0, 1) qpos noise, the main path's start."""
+  from mujoco_tpu_torch.parallel import rollout
   d = rollout.make_batch(m, B)
   gen = torch.Generator(device="cuda").manual_seed(0)
-  d = d.replace(qpos=d.qpos + 0.01 * torch.randn(
+  return d.replace(qpos=d.qpos + 0.01 * torch.randn(
       d.qpos.shape, generator=gen, device="cuda", dtype=d.qpos.dtype))
+
+
+def reset_counts():
+  from mujoco_tpu_torch.ops import linalg_cuda, megastep_cuda, newton_cuda
+  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+  from mujoco_tpu_torch.ops import linalg_cuda, megastep_cuda, newton_cuda
+  return {"ldl_solve": linalg_cuda.LAUNCHES,
+          "newton_pyramidal": newton_cuda.LAUNCHES,
+          "megastep": megastep_cuda.LAUNCHES}
+
+
+class stage_path:
+  """MJTPU_MEGASTEP=0 inside the block: scan_steps takes the stage path."""
+
+  def __enter__(self):
+    self.old = os.environ.get("MJTPU_MEGASTEP")
+    os.environ["MJTPU_MEGASTEP"] = "0"
+
+  def __exit__(self, *exc):
+    if self.old is None:
+      os.environ.pop("MJTPU_MEGASTEP")
+    else:
+      os.environ["MJTPU_MEGASTEP"] = self.old
+
+
+def phase_main_path(report, details):
+  """The main path: one rollout.scan_steps call, through the megastep."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  m = zoo.humanoid(torch.float32)
+  d = main_path_batch(m)
   torch.cuda.synchronize()
-  linalg_cuda.LAUNCHES = 0
-  newton_cuda.LAUNCHES = 0
+  reset_counts()
   t0 = time.perf_counter()
   out = rollout.scan_steps(m, d, NSTEP, check=True)
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  launches = {"ldl_solve": linalg_cuda.LAUNCHES,
-              "newton_pyramidal": newton_cuda.LAUNCHES}
+  launches = read_counts()
   finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
   sps = B * NSTEP / wall
   print(f"main path: humanoid f32 B{B} {NSTEP} steps check=True: wall "
-        f"{wall:.3f} s, {sps:.1f} env-steps/s, launches {launches}, "
+        f"{wall:.4f} s, {sps:.1f} env-steps/s, launches {launches}, "
         f"finite {finite}", flush=True)
   if not finite:
     raise AssertionError("main path produced a non-finite state")
-  for name, n in launches.items():
-    if n != NSTEP:
-      raise AssertionError(f"{name} launched {n} times in {NSTEP} steps")
-    report[name]["launches"] = n
+  if launches != {"ldl_solve": 0, "newton_pyramidal": 0, "megastep": 1}:
+    raise AssertionError(f"main path launches {launches}: want one megastep "
+                         f"launch and no other")
+  report["megastep"]["launches"] = launches["megastep"]
+  # a second call with the tables cached
+  t0 = time.perf_counter()
+  rollout.scan_steps(m, d, NSTEP, check=True)
+  torch.cuda.synchronize()
+  wall2 = time.perf_counter() - t0
+  print(f"main path, second call: wall {wall2:.4f} s, "
+        f"{B * NSTEP / wall2:.1f} env-steps/s", flush=True)
   details["main_path"] = dict(batch=B, nstep=NSTEP, wall_s=wall,
-                              env_steps_per_s=sps, launches=launches,
+                              env_steps_per_s=sps, second_wall_s=wall2,
+                              second_env_steps_per_s=B * NSTEP / wall2,
+                              launches=launches,
                               mean_height=out.qpos[:, 2].mean().item())
 
 
-def phase_profile(details, nstep=10):
-  """Wall, device busy time and idle share of nstep warm steps, all from one
-  profiled window; the same steps unprofiled give the tracing's cost."""
-  from torch.profiler import ProfilerActivity, profile
-
+def phase_stage_path(report, details, nstep=20):
+  """The stage path (MJTPU_MEGASTEP=0) at a cut depth: one LDL and one
+  Newton launch per step, a finite state."""
   from mujoco_tpu_torch.models import zoo
   from mujoco_tpu_torch.parallel import rollout
   m = zoo.humanoid(torch.float32)
-  d = rollout.make_batch(m, B)
-  gen = torch.Generator(device="cuda").manual_seed(0)
-  d = d.replace(qpos=d.qpos + 0.01 * torch.randn(
-      d.qpos.shape, generator=gen, device="cuda", dtype=d.qpos.dtype))
-  d = rollout.scan_steps(m, d, 20, check=True)   # warm up, reach contact
+  d = main_path_batch(m)
   torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  rollout.scan_steps(m, d, nstep, check=True)
-  torch.cuda.synchronize()
-  plain_wall_ms = (time.perf_counter() - t0) * 1e3 / nstep
+  with stage_path():
+    reset_counts()
+    t0 = time.perf_counter()
+    out = rollout.scan_steps(m, d, nstep, check=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  sps = B * nstep / wall
+  print(f"stage path (MJTPU_MEGASTEP=0): humanoid f32 B{B} {nstep} steps: "
+        f"wall {wall:.3f} s, {sps:.1f} env-steps/s, launches {launches}, "
+        f"finite {finite}", flush=True)
+  if not finite:
+    raise AssertionError("stage path produced a non-finite state")
+  if launches != {"ldl_solve": nstep, "newton_pyramidal": nstep,
+                  "megastep": 0}:
+    raise AssertionError(f"stage path launches {launches} in {nstep} steps")
+  for name in ("ldl_solve", "newton_pyramidal"):
+    report[name]["launches"] = launches[name]
+  details["stage_path"] = dict(batch=B, nstep=nstep, wall_s=wall,
+                               env_steps_per_s=sps, launches=launches)
+
+
+def profile_window(fn, nstep):
+  """Wall, device busy time and the kernels of fn() under torch.profiler
+  (CUDA activity), per step; fn ends in a synchronize."""
+  from torch.profiler import ProfilerActivity, profile
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    rollout.scan_steps(m, d, nstep, check=True)
-    torch.cuda.synchronize()
+    fn()
     wall_ms = (time.perf_counter() - t0) * 1e3 / nstep
   kernels = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -370,24 +649,70 @@ def phase_profile(details, nstep=10):
     t, n = by_name.get(e.name, (0.0, 0))
     by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
   busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / nstep
-  ours_ms = sum(t for name, (t, _) in by_name.items()
-                if "ldl_solve_kernel" in name or "newton_kernel" in name
-                ) / 1e3 / nstep
   top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-  prof_out = dict(
-      batch=B, steps=nstep, wall_ms_per_step=wall_ms,
-      unprofiled_wall_ms_per_step=plain_wall_ms,
-      device_busy_ms_per_step=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-      kernel_launches_per_step=len(kernels) / nstep,
-      handwritten_kernels_ms_per_step=ours_ms,
-      top=[dict(name=name[:100], ms_per_step=t / 1e3 / nstep,
-                launches_per_step=n / nstep) for name, (t, n) in top])
-  details["profile"] = prof_out
-  print(f"profile: humanoid f32 B{B} {nstep} warm steps: wall {wall_ms:.3f} "
-        f"ms/step (unprofiled {plain_wall_ms:.3f}), device busy "
-        f"{busy_ms:.3f} ms/step, idle {1 - busy_ms / wall_ms:.2%}, "
-        f"{len(kernels) / nstep:.1f} kernel launches/step, the two "
-        f"hand-written kernels {ours_ms:.3f} ms/step", flush=True)
+  return dict(wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
+              device_idle_share=1 - busy_ms / wall_ms,
+              kernel_launches_per_step=len(kernels) / nstep,
+              top=[dict(name=name[:100], ms_per_step=t / 1e3 / nstep,
+                        launches_per_step=n / nstep)
+                   for name, (t, n) in top]), by_name
+
+
+def phase_profile(details, nstep=10):
+  """Where the time goes: a window of the megastep path (one 200-step
+  scan_steps call) and one of the stage path (nstep warm steps), each with
+  wall, device busy time and idle share from that window, and the same
+  work unprofiled for the tracing's cost."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  m = zoo.humanoid(torch.float32)
+  d = main_path_batch(m)
+
+  def mega():
+    rollout.scan_steps(m, d, NSTEP, check=True)
+    torch.cuda.synchronize()
+
+  mega()
+  t0 = time.perf_counter()
+  mega()
+  plain_wall = (time.perf_counter() - t0) * 1e3 / NSTEP
+  out, by_name = profile_window(mega, NSTEP)
+  out["unprofiled_wall_ms_per_step"] = plain_wall
+  out["megastep_kernel_ms_per_step"] = sum(
+      t for name, (t, _) in by_name.items() if "megastep_kernel" in name
+  ) / 1e3 / NSTEP
+  details["profile_megastep"] = out
+  print(f"profile, megastep path: humanoid f32 B{B} one {NSTEP}-step call: "
+        f"wall {out['wall_ms_per_step']:.4f} ms/step (unprofiled "
+        f"{plain_wall:.4f}), device busy {out['device_busy_ms_per_step']:.4f}"
+        f" ms/step, idle {out['device_idle_share']:.2%}, "
+        f"{out['kernel_launches_per_step'] * NSTEP:.0f} kernel launches in "
+        f"the call, the megastep kernel "
+        f"{out['megastep_kernel_ms_per_step']:.4f} ms/step", flush=True)
+
+  with stage_path():
+    d = rollout.scan_steps(m, d, 20, check=True)   # warm up, reach contact
+
+    def stage():
+      rollout.scan_steps(m, d, nstep, check=True)
+      torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    stage()
+    plain_wall = (time.perf_counter() - t0) * 1e3 / nstep
+    out, by_name = profile_window(stage, nstep)
+  out["unprofiled_wall_ms_per_step"] = plain_wall
+  out["handwritten_kernels_ms_per_step"] = sum(
+      t for name, (t, _) in by_name.items()
+      if "ldl_solve_kernel" in name or "newton_kernel" in name) / 1e3 / nstep
+  details["profile_stage"] = out
+  print(f"profile, stage path: humanoid f32 B{B} {nstep} warm steps: wall "
+        f"{out['wall_ms_per_step']:.3f} ms/step (unprofiled {plain_wall:.3f})"
+        f", device busy {out['device_busy_ms_per_step']:.3f} ms/step, idle "
+        f"{out['device_idle_share']:.2%}, "
+        f"{out['kernel_launches_per_step']:.1f} kernel launches/step, the "
+        f"LDL and Newton kernels {out['handwritten_kernels_ms_per_step']:.3f}"
+        f" ms/step", flush=True)
 
 
 def phase_cross_check(details):
@@ -427,11 +752,14 @@ def main() -> int:
   report, details = {}, {"card": card, "build_s": build_s}
   phase_ldl(report, details)
   phase_newton(report, details)
+  phase_megastep(report, details)
   phase_main_path(report, details)
+  phase_stage_path(report, details)
   phase_profile(details)
   phase_cross_check(details)
 
-  kernels = [report["ldl_solve"], report["newton_pyramidal"]]
+  kernels = [report["ldl_solve"], report["newton_pyramidal"],
+             report["megastep"]]
   details["kernels"] = kernels
   os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
   with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -22,64 +22,14 @@
 // update and the linesearch sums, the nv columns for Jᵀf, M·x and the
 // gradient, and the lower triangle of H for Σ_r w_r J_rᵀJ_r, which the
 // kernel sums itself; one warp then factors H in place with the LDL of the
-// spd_solve kernel (ldl_common.cuh). Block sums reduce in a fixed order and
-// every thread reads the same totals, so the linesearch's scalar state
-// (lo, hi, has_hi, α) is identical in all threads without a broadcast.
+// spd_solve kernel (ldl_common.cuh). The solve itself is block_newton
+// (newton_common.cuh), which the megastep kernel calls too.
 #include <cuda_runtime.h>
 
-#include <math.h>
-
-#include "ldl_common.cuh"
+#include "newton_common.cuh"
 
 namespace mjt {
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kStatRows = 32;
-constexpr double kMinVal = 1e-15;  // mjMINVAL
-
-template <typename T>
-__device__ inline void row_update(T jar, T D, T R, T fl, T fric, T ones,
-                                  T& force, T& cost, T& w) {
-  force = -D * jar;
-  cost = T(0.5) * D * jar * jar;
-  w = D;
-  const T rfl = R * fl;
-  const bool lin_neg = fric > T(0) && jar <= -rfl;
-  const bool lin_pos = fric > T(0) && jar >= rfl;
-  if (lin_neg || lin_pos) {
-    force = lin_neg ? fl : -fl;
-    cost = -T(0.5) * rfl * fl + fl * fabs(jar);
-    w = T(0);
-  }
-  if (ones > T(0) && jar >= T(0)) {
-    force = T(0);
-    cost = T(0);
-    w = T(0);
-  }
-}
-
-// Sum a and b over the block; every thread returns the same totals.
-template <typename T>
-__device__ inline void block_sum2(T& a, T& b, T* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(kFullMask, a, off);
-    b += __shfl_down_sync(kFullMask, b, off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // earlier readers of red are done
-  if (lane == 0) {
-    red[warp] = a;
-    red[32 + warp] = b;
-  }
-  __syncthreads();
-  a = T(0);
-  b = T(0);
-  for (int w = 0; w < (kThreads >> 5); ++w) {
-    a += red[w];
-    b += red[32 + w];
-  }
-}
 
 struct Shapes {
   int nefc, nv, ld;
@@ -154,114 +104,13 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   const T reg_e = reg[env];
   __syncthreads();
 
-  // Σ_r cost_r(Jv − aref) and 0.5·(v − a_s)ᵀM(v − a_s) for v in shared
-  // memory; stores jar, force and w per row and dx, M·dx per dof.
-  auto objective = [&](const T* v) -> T {
-    T rows = T(0), quad = T(0);
-    for (int r = tid; r < nefc; r += kThreads) {
-      T acc = T(0);
-      for (int j = 0; j < nv; ++j) acc += sJ[r * nv + j] * v[j];
-      const T jar = acc - sAref[r];
-      T f, c, w;
-      row_update(jar, sD[r], sR[r], sFl[r], sFric[r], sOnes[r], f, c, w);
-      sJar[r] = jar;
-      sForce[r] = f;
-      sW[r] = w;
-      rows += c;
-    }
-    for (int i = tid; i < nv; i += kThreads) sDx[i] = v[i] - sAs[i];
-    __syncthreads();
-    for (int i = tid; i < nv; i += kThreads) {
-      T acc = T(0);
-      for (int j = 0; j < nv; ++j) acc += sM[i * nv + j] * sDx[j];
-      sMdx[i] = acc;
-      quad += sDx[i] * acc;
-    }
-    block_sum2(rows, quad, sRed);
-    return rows + T(0.5) * quad;
-  };
+  const NewtonSmem<T> sm{sJ,   sM,  sH,     sAref, sD,   sR,   sFl,
+                         sFric, sOnes, sJar, sJp,   sForce, sW, sX,
+                         sAs,  sWarm, sDx,  sMdx,  sY,   sRed, sCost,
+                         nefc, nv,  ld};
+  block_newton<T, false>(sm, reg_e, iterations, ls_iter, true);
 
-  // ---- warmstart-vs-smooth pick
-  const T cost_warm = objective(sWarm);
-  const T cost_smooth = objective(sAs);
-  const T* pick = cost_warm < cost_smooth ? sWarm : sAs;
-  for (int i = tid; i < nv; i += kThreads) sX[i] = pick[i];
-  __syncthreads();
-
-  for (int it = 0; it < iterations; ++it) {
-    // jar, row update, M·(x − a_s) and the objective at x
-    const T cost = objective(sX);
-    if (tid == 0) sCost[it] = cost;
-    // right-hand side −grad = −(M(x − a_s) − Jᵀf)
-    for (int i = tid; i < nv; i += kThreads) {
-      T jtf = T(0);
-      for (int r = 0; r < nefc; ++r) jtf += sJ[r * nv + i] * sForce[r];
-      sY[i] = -(sMdx[i] - jtf);
-    }
-    // H = M + Σ_r w_r J_rᵀ J_r + reg·I, lower triangle
-    for (int e = tid; e < nv * nv; e += kThreads) {
-      const int i = e / nv, j = e - i * nv;
-      if (j > i) continue;
-      T acc = T(0);
-      for (int r = 0; r < nefc; ++r)
-        acc += (sW[r] * sJ[r * nv + i]) * sJ[r * nv + j];
-      T hij = sM[i * nv + j] + acc;
-      if (i == j) hij += reg_e;
-      sH[i * ld + j] = hij;
-    }
-    __syncthreads();
-    if (tid < 32) warp_ldl_solve(sH, ld, sY, nv, tid);
-    __syncthreads();
-    // linesearch inputs: jp = J p, gx0 = pᵀM(x − a_s), pmp = pᵀMp
-    for (int r = tid; r < nefc; r += kThreads) {
-      T acc = T(0);
-      for (int j = 0; j < nv; ++j) acc += sJ[r * nv + j] * sY[j];
-      sJp[r] = acc;
-    }
-    T gx0 = T(0), pmp = T(0);
-    for (int i = tid; i < nv; i += kThreads) {
-      T acc = T(0);
-      for (int j = 0; j < nv; ++j) acc += sM[i * nv + j] * sY[j];
-      gx0 += sY[i] * sMdx[i];
-      pmp += sY[i] * acc;
-    }
-    block_sum2(gx0, pmp, sRed);
-
-    T lo = T(0), hi = T(INFINITY), alpha = T(0);
-    bool has_hi = false;
-    for (int l = 0; l < ls_iter; ++l) {
-      T jpf = T(0), curv = T(0);
-      for (int r = tid; r < nefc; r += kThreads) {
-        T f, c, w;
-        row_update(sJar[r] + alpha * sJp[r], sD[r], sR[r], sFl[r], sFric[r],
-                   sOnes[r], f, c, w);
-        jpf += sJp[r] * f;
-        curv += w * sJp[r] * sJp[r];
-      }
-      block_sum2(jpf, curv, sRed);
-      const T dphi = gx0 + alpha * pmp - jpf;
-      const T ddphi = pmp + curv;
-      const bool neg = dphi < T(0);
-      if (neg) {
-        lo = lo > alpha ? lo : alpha;
-      } else {
-        hi = hi < alpha ? hi : alpha;
-      }
-      has_hi = has_hi || !neg;
-      const T prop = alpha - dphi / (ddphi > T(kMinVal) ? ddphi : T(kMinVal));
-      // has_hi selects hi without ever forming inf·0
-      const T mid = T(0.5) * (lo + (has_hi ? hi : lo));
-      const bool ok = prop >= lo && prop <= hi;
-      alpha = ok ? prop : (has_hi ? mid : prop);
-    }
-    alpha = alpha > T(0) ? alpha : T(0);
-    for (int i = tid; i < nv; i += kThreads) sX[i] += alpha * sY[i];
-    __syncthreads();
-  }
-
-  // ---- final row update, qfrc = Jᵀf, outputs
-  const T cost_final = objective(sX);
-  if (tid == 0) sCost[iterations] = cost_final;
+  // ---- outputs: x, the final forces, qfrc = Jᵀf, [improvement, cost]
   for (int r = tid; r < nefc; r += kThreads) f_out[env * nefc + r] = sForce[r];
   for (int i = tid; i < nv; i += kThreads) {
     T jtf = T(0);
@@ -269,7 +118,6 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
     qfrc_out[env * nv + i] = jtf;
     x_out[env * nv + i] = sX[i];
   }
-  __syncthreads();
   for (int e = tid; e < 2 * kStatRows; e += kThreads) {
     const int it = e >> 1;
     T v = T(0);

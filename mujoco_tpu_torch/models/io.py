@@ -40,7 +40,17 @@ from mujoco_tpu_torch.utils.struct import is_static
 _PAIR_NCON = {
     (GeomType.PLANE, GeomType.SPHERE): 1,
     (GeomType.PLANE, GeomType.CAPSULE): 2,
+    (GeomType.PLANE, GeomType.BOX): 4,
+    (GeomType.SPHERE, GeomType.SPHERE): 1,
+    (GeomType.SPHERE, GeomType.CAPSULE): 1,
+    (GeomType.SPHERE, GeomType.BOX): 1,
+    (GeomType.CAPSULE, GeomType.CAPSULE): 2,
 }
+
+# above this many non-plane pairs of one type the reference culls them with
+# a dynamic top-K broadphase (mujoco_tpu/models/io.py:518-530, pair budget
+# 24); the port keeps static slots only
+_DYNAMIC_PAIRS = 48
 
 # the reference engages constraint islands only from this many dofs up
 # (mujoco_tpu/ops/island.py:217-227); the port has no island solve yet
@@ -109,14 +119,17 @@ def _tree_topology(parentid, body_dofadr, body_dofnum, dof_parentid, nv,
 
 def _contact_meta(mjm: Any) -> dict:
   """Candidate geom pairs and their fixed slots, mirroring mj_collision's
-  filtering (contype/conaffinity, same weld, parent-child weld, excludes)."""
+  filtering (contype/conaffinity, same weld, parent-child weld, excludes).
+  Slot order is the reference's (mujoco_tpu/models/io.py:512-545): plane
+  pairs in enumeration order, then the other pairs grouped by sorted
+  (type1, type2, condim) signature."""
   filterparent = not (mjm.opt.disableflags & DisableBit.FILTERPARENT)
   exclude_sigs = {int(mjm.exclude_signature[i]) for i in range(mjm.nexclude)}
   weld = mjm.body_weldid
   weldparent = np.array([weld[mjm.body_parentid[weld[b]]]
                          for b in range(mjm.nbody)])
 
-  g1s, g2s, types, condims, first = [], [], [], [], []
+  plane_pairs, staged = [], {}
   for g1 in range(mjm.ngeom):
     for g2 in range(g1 + 1, mjm.ngeom):
       b1, b2 = int(mjm.geom_bodyid[g1]), int(mjm.geom_bodyid[g2])
@@ -144,12 +157,26 @@ def _contact_meta(mjm: Any) -> dict:
       if condim not in (1, 3):
         raise NotImplementedError(
             f"contact condim {condim} (torsional/rolling friction)")
-      for k in range(_PAIR_NCON[t1, t2]):
-        g1s.append(a)
-        g2s.append(b)
-        types.append((int(t1), int(t2)))
-        condims.append(condim)
-        first.append(k == 0)
+      sig = (int(t1), int(t2), condim)
+      if t1 == GeomType.PLANE:
+        plane_pairs.append((a, b, sig))
+      else:
+        staged.setdefault(sig, []).append((a, b, sig))
+  pairs = list(plane_pairs)
+  for sig, group in sorted(staged.items()):
+    if len(group) > _DYNAMIC_PAIRS:
+      raise NotImplementedError(
+          f"{len(group)} candidate pairs of one type (dynamic pair groups)")
+    pairs.extend(group)
+
+  g1s, g2s, types, condims, first = [], [], [], [], []
+  for a, b, (t1, t2, condim) in pairs:
+    for k in range(_PAIR_NCON[t1, t2]):
+      g1s.append(a)
+      g2s.append(b)
+      types.append((t1, t2))
+      condims.append(condim)
+      first.append(k == 0)
 
   si = lambda x: np.array(x, dtype=np.int32).reshape(-1)
   return {"ncon": len(g1s), "geom1": si(g1s), "geom2": si(g2s),
@@ -282,10 +309,6 @@ def _check_subset(mjm: Any) -> None:
     raise NotImplementedError("fluid forces")
   if mjm.nv >= _ISLAND_MIN_NV and not (opt.disableflags & DisableBit.ISLAND):
     raise NotImplementedError("constraint islands")
-  damping = bool(np.any(np.asarray(mjm.dof_damping) > 0))
-  if damping and not (opt.disableflags & (DisableBit.EULERDAMP
-                                          | DisableBit.DAMPER)):
-    raise NotImplementedError("eulerdamp with joint damping")
   if np.any(np.asarray(mjm.dof_frictionloss) > 0):
     raise NotImplementedError("dof friction loss")
   if np.any(np.asarray(getattr(mjm, "jnt_actgravcomp", [0]))):

@@ -1,6 +1,7 @@
 """Narrowphase driver over the static contact-slot table (port of
-mujoco_tpu/ops/collision_driver.py: ``make_frame`` :44, ``_combine_params``
-:61, ``collision`` :194).
+mujoco_tpu/ops/collision_driver.py: ``_COLLIDERS`` :28 for the seven
+primitive pairs, ``make_frame`` :44, ``_combine_params`` :61,
+``collision`` :194).
 
 Every candidate pair owns fixed slots (Model.con); each type-pair group is
 one batched collider call over (env, pair), and a slot whose dist exceeds
@@ -23,6 +24,11 @@ from mujoco_tpu_torch.utils.device import const, index
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): (cp.plane_sphere, 1),
     (GeomType.PLANE, GeomType.CAPSULE): (cp.plane_capsule, 2),
+    (GeomType.PLANE, GeomType.BOX): (cp.plane_box, 4),
+    (GeomType.SPHERE, GeomType.SPHERE): (cp.sphere_sphere, 1),
+    (GeomType.SPHERE, GeomType.CAPSULE): (cp.sphere_capsule, 1),
+    (GeomType.SPHERE, GeomType.BOX): (cp.sphere_box, 1),
+    (GeomType.CAPSULE, GeomType.CAPSULE): (cp.capsule_capsule, 2),
 }
 
 

@@ -110,10 +110,22 @@ def library() -> ctypes.CDLL:
       fn.restype = ctypes.c_int
     lib.mjt_newton_blocks_per_sm.argtypes = [i, i, i]
     lib.mjt_newton_blocks_per_sm.restype = i
+    bind_megastep(lib)
     lib.mjt_error_string.argtypes = [i]
     lib.mjt_error_string.restype = ctypes.c_char_p
     _LIB = lib
   return _LIB
+
+
+def bind_megastep(lib) -> None:
+  """argtypes of the megastep kernel's C interface (csrc/megastep.cu)."""
+  p, i = ctypes.c_void_p, ctypes.c_int
+  for fn in (lib.mjt_megastep_f32, lib.mjt_megastep_f64):
+    fn.argtypes = [p, i, p, p, p] + [p] * 14 + [i, i, i, p]
+    fn.restype = i
+  for fn in (lib.mjt_megastep_smem_bytes, lib.mjt_megastep_blocks_per_sm):
+    fn.argtypes = [p, i, i]
+    fn.restype = i
 
 
 def check(code: int, what: str) -> None:

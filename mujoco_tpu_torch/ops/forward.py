@@ -3,8 +3,8 @@
 Port of mujoco_tpu/ops/forward.py: ``fwd_position`` (:28), ``fwd_velocity``
 (:71), ``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose
 M⁻¹·qfrc goes through the CUDA LDL kernel), ``fwd_constraint`` (:134),
-``forward`` (:152), ``integrate_pos`` (:210), ``euler`` (:416, the branch
-without implicit damping) and ``step`` (:515). Sensors, energy, sleep,
+``forward`` (:152), ``integrate_pos`` (:210), ``euler`` (:416, with
+implicit joint damping) and ``step`` (:515). Sensors, energy, sleep,
 tendons, flex, RK4 and the implicit integrators are outside the slice;
 ``io.put_model`` rejects models that need them.
 """
@@ -120,10 +120,22 @@ def integrate_pos(m: Model, qpos, qvel, dt):
 
 
 def euler(m: Model, d: Data) -> Data:
-  """Semi-implicit Euler without implicit damping (mj_Euler with
-  eulerdamp off): qvel += h·qacc, then qpos by integrate_pos."""
+  """Semi-implicit Euler (mj_Euler, engine_forward.c:1401): qvel += h·a,
+  then qpos by integrate_pos. With joint damping (and neither eulerdamp nor
+  the damper disabled) the damping is implicit:
+  a = (M + h·diag(damping))⁻¹ (qfrc_smooth + qfrc_constraint). The
+  reference factors that matrix on qM's tree sparsity (factor_tree /
+  solve_tree); the port solves the same matrix densely with
+  ``linalg_cuda.spd_solve`` (the LDL kernel on the card, Cholesky on the
+  CPU). d.qacc, and so the next warmstart, stays the solver's acceleration."""
   h = m.opt.timestep
-  qvel = d.qvel + h * d.qacc
+  acc = d.qacc
+  if (m.has_dof_damping and not m.disabled(DisableBit.EULERDAMP)
+      and not m.disabled(DisableBit.DAMPER)):
+    acc = linalg_cuda.spd_solve(
+        d.qM + torch.diag(h * m.dof_damping),
+        (d.qfrc_smooth + d.qfrc_constraint).contiguous())
+  qvel = d.qvel + h * acc
   return d.replace(qvel=qvel, qpos=integrate_pos(m, d.qpos, qvel, h),
                    time=d.time + h, qacc_warmstart=d.qacc)
 

@@ -26,8 +26,11 @@ LAUNCHES = 0   # kernel launches by ``spd_solve`` (never by the plain path)
 
 def spd_solve_plain(H, g):
   """p = H⁻¹ g by Cholesky, as the reference's CPU path does
-  (mujoco_tpu/ops/linalg_tpu.py:150-153)."""
-  chol = torch.linalg.cholesky(H)
+  (mujoco_tpu/ops/linalg_tpu.py:150-153). A batch element that is not
+  positive definite (a diverged env's NaNs) gives non-finite values, as the
+  kernel does, instead of raising; nothing reads the factor's status back,
+  so no call synchronizes the card."""
+  chol = torch.linalg.cholesky_ex(H)[0]
   return torch.cholesky_solve(g[..., None], chol)[..., 0]
 
 

@@ -108,7 +108,7 @@ def newton_plain(J, aref, D, R, fl, fric, ones, M, a_s, warm, reg,
     costs.append(cost_rows.sum(-1) + 0.5 * ((x - a_s) * mdx).sum(-1))
     grad = mdx - _mv(Jt, force)
     h = M + (J * w[..., None]).transpose(1, 2) @ J + eye * reg[:, None, None]
-    chol = torch.linalg.cholesky(h)
+    chol = torch.linalg.cholesky_ex(h)[0]   # as spd_solve_plain
     p = -torch.cholesky_solve(grad[..., None], chol)[..., 0]
     jp = _mv(J, p)
     gx0 = (p * mdx).sum(-1)

@@ -1,10 +1,13 @@
 """Batched rollouts on one device (port of mujoco_tpu/parallel/rollout.py:
-``make_batch`` :25, ``STATE_FIELDS`` :59, ``scan_steps`` :64 on the
-single-device stage path, ``check_reset`` :231).
+``make_batch`` :25, ``STATE_FIELDS`` :59, ``scan_steps`` :64 with the
+single-device dispatch of ``_scan_steps_local`` :133, ``check_reset`` :231).
 
-The env batch is the leading axis of every Data tensor; a Python loop
-takes the place of ``lax.scan``. Nothing here reads a value back to the
-host, so the loop only enqueues work on the card.
+The env batch is the leading axis of every Data tensor. A batched f32
+rollout on the card of a model in the megastep class runs as one launch of
+the megastep kernel (``ops/megastep_cuda.py``); everything else takes the
+stage path, where a Python loop takes the place of ``lax.scan``. Neither
+reads a value back to the host, so a rollout only enqueues work on the
+card.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from mujoco_tpu_torch.models import io
 from mujoco_tpu_torch.models.types import Data, Model
-from mujoco_tpu_torch.ops import forward
+from mujoco_tpu_torch.ops import forward, megastep_cuda
 
 # the integration state that crosses step boundaries; everything else in
 # Data is workspace that forward() recomputes from it (the reference's list
@@ -56,13 +59,35 @@ def check_reset(m: Model, d: Data, d_fresh: Data) -> Data:
                                 "qacc_warmstart", "qacc")})
 
 
+def megastep_eligible(m: Model, d: Data, d_fresh: Data) -> bool:
+  """The megastep dispatch's conditions other than the device: a batched
+  f32 rollout whose state and Model need no gradient, d_fresh a batch of 1,
+  ``megastep_cuda.enabled()`` (the MJTPU_MEGASTEP switch) and
+  ``megastep_cuda.supported(m)`` (reference ``_scan_steps_local``
+  :141-150)."""
+  return (d.qpos.dtype == torch.float32
+          and not any(getattr(d, k).requires_grad for k in STATE_FIELDS)
+          and d_fresh.qpos.shape[0] == 1 and megastep_cuda.enabled()
+          and megastep_cuda.supported(m)
+          and not megastep_cuda.model_requires_grad(m))
+
+
 def scan_steps(m: Model, d: Data, nstep: int, d_fresh: Optional[Data] = None,
                check: bool = True) -> Data:
   """nstep physics steps carrying only STATE_FIELDS between steps; with
   check=True each step ends with the divergence guard. Returns d_fresh's
-  workspace merged with the final state, as the reference does."""
+  workspace merged with the final state, as the reference does.
+
+  As the reference's ``_scan_steps_local``, a rollout on the card that is
+  ``megastep_eligible`` goes to the megastep kernel. That path is
+  numerically equivalent to the stage path, not bit-identical, and its
+  guard resets time to 0 rather than to d_fresh.time. CPU tensors keep the
+  stage path, as the reference keeps its XLA path off the TPU."""
   if d_fresh is None:
     d_fresh = io.make_data(m, dtype=d.qpos.dtype, device=d.qpos.device)
+  if d.qpos.is_cuda and megastep_eligible(m, d, d_fresh):
+    return megastep_cuda.scan_batch(m, d, nstep, d_fresh=d_fresh,
+                                    check=check)
   template = _expand(d_fresh, d.qpos.shape[0])
   st = {k: getattr(d, k) for k in STATE_FIELDS}
   for _ in range(nstep):

@@ -7,7 +7,8 @@ PyTorch and the CUDA toolkit, skip tests/conftest.py, which configures JAX:
 
 Every test needs an NVIDIA GPU and skips where there is none (marker
 ``cuda``). The plain versions are held against mujoco_tpu on the CPU by
-tests/test_torch_linalg.py and tests/test_torch_newton.py.
+tests/test_torch_linalg.py, tests/test_torch_newton.py and
+tests/test_torch_megastep.py.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from mujoco_tpu_torch.models import zoo
 from mujoco_tpu_torch.ops import forward, linalg_cuda, newton_cuda, solver
+from mujoco_tpu_torch.ops import megastep_cuda
 from mujoco_tpu_torch.parallel import rollout
 
 pytestmark = pytest.mark.cuda
@@ -168,11 +170,115 @@ def test_newton_kernel_diverges_no_more_than_a_reordering(cuda, dtype,
   assert rel_k.abs().median().item() < 1e-5
 
 
-def test_main_path_launches_each_kernel_once_per_step(cuda):
+def test_main_path_launches_each_kernel_once_per_step(cuda, monkeypatch):
+  """The stage path (MJTPU_MEGASTEP=0) launches the LDL and Newton kernels
+  once per step; by default the same rollout is one megastep launch."""
   m = zoo.humanoid(torch.float32)
   d = rollout.make_batch(m, 16)
-  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = 0
+  monkeypatch.setenv("MJTPU_MEGASTEP", "0")
+  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
   out = rollout.scan_steps(m, d, 5)
   torch.cuda.synchronize()
   assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES) == (5, 5)
+  assert megastep_cuda.LAUNCHES == 0
   assert torch.isfinite(out.qpos).all()
+  monkeypatch.setenv("MJTPU_MEGASTEP", "1")
+  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = 0
+  fast = rollout.scan_steps(m, d, 5)
+  torch.cuda.synchronize()
+  assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
+          megastep_cuda.LAUNCHES) == (0, 0, 1)
+  # numerically equivalent to the stage path (f32, 5 steps from rest)
+  torch.testing.assert_close(fast.qpos, out.qpos, rtol=1e-3, atol=1e-3)
+
+
+def _posed(m, nbatch, seed, lower=0.3):
+  """Megastep state and fresh state from a numpy seed, on the card: qpos0
+  plus noise with the free bodies sunk by up to ``lower``."""
+  rng = np.random.default_rng(seed)
+  qpos = m.qpos0.cpu().double().numpy() + 0.05 * rng.standard_normal(
+      (nbatch, m.nq))
+  for j in range(m.njnt):
+    if m.jnt_type[j] == 0:
+      qpos[:, m.jnt_qposadr[j] + 2] -= rng.uniform(0.0, lower, nbatch)
+  t = lambda a: torch.tensor(a, dtype=m.dtype, device="cuda")
+  state = dict(qpos=t(qpos), qvel=t(0.5 * rng.standard_normal((nbatch, m.nv))),
+               ctrl=t(0.3 * rng.standard_normal((nbatch, m.nu))),
+               warm=t(np.zeros((nbatch, m.nv))),
+               qacc=t(np.zeros((nbatch, m.nv))), time=t(np.zeros(nbatch)),
+               qfrc_applied=t(0.1 * rng.standard_normal((nbatch, m.nv))),
+               xfrc=t(0.5 * rng.standard_normal((nbatch, 6 * m.nbody))))
+  fresh = dict(qpos=m.qpos0.contiguous(),
+               qvel=torch.zeros(m.nv, dtype=m.dtype, device="cuda"),
+               ctrl=torch.zeros(m.nu, dtype=m.dtype, device="cuda"))
+  return state, fresh
+
+
+@pytest.mark.parametrize("name", ["humanoid", "quadruped", "mixed",
+                                  "spherebox"])
+def test_megastep_kernel_matches_plain_f64(cuda, name):
+  m = zoo.load(name, torch.float64)
+  state, fresh = _posed(m, 128, 1)
+  before = megastep_cuda.LAUNCHES
+  out_k = megastep_cuda.megastep_kernel(m, state, 3, fresh)
+  torch.cuda.synchronize()
+  assert megastep_cuda.LAUNCHES == before + 1
+  out_p = megastep_cuda.megastep_plain(m, state, 3, fresh)
+  for k, tol in (("qpos", 1e-9), ("qvel", 1e-8), ("qacc", 1e-6),
+                 ("time", 1e-12)):
+    torch.testing.assert_close(out_k[k], out_p[k], rtol=tol, atol=tol,
+                               msg=k)
+
+
+@pytest.mark.parametrize("name", ["humanoid", "quadruped", "mixed",
+                                  "spherebox"])
+def test_megastep_kernel_matches_plain_f32(cuda, name):
+  """At f32 an env can land on either side of a linesearch kink, so ≥ 99 %
+  of envs within 2e-4 of the env's largest |value| (as the Newton
+  kernel's test). The bodies sink at most 0.15: at 0.3, f32 rounding alone
+  moves the humanoid's qvel by up to 5e-4 of its largest entry against
+  f64, in the plain version and the kernel alike."""
+  m = zoo.load(name, torch.float32)
+  state, fresh = _posed(m, 512, 2, lower=0.15)
+  out_k = megastep_cuda.megastep_kernel(m, state, 1, fresh)
+  out_p = megastep_cuda.megastep_plain(m, state, 1, fresh)
+  for k in ("qpos", "qvel"):
+    scale = torch.clamp(out_p[k].abs().amax(1), min=1.0)
+    close = (out_k[k] - out_p[k]).abs().amax(1) < 2e-4 * scale
+    assert close.float().mean() >= 0.99, k
+
+
+def test_megastep_kernel_rejects_what_it_cannot_take(cuda):
+  m = zoo.humanoid(torch.float32)
+  state, fresh = _posed(m, 4, 0)
+  bad = dict(state, qvel=state["qvel"].double())
+  with pytest.raises(ValueError):
+    megastep_cuda.megastep_kernel(m, bad, 1, fresh)
+  bad = dict(state, qpos=state["qpos"].t().contiguous().t())
+  with pytest.raises(ValueError):
+    megastep_cuda.megastep_kernel(m, bad, 1, fresh)
+  bad = dict(state, qpos=state["qpos"].clone().requires_grad_())
+  with pytest.raises(NotImplementedError):
+    megastep_cuda.megastep_kernel(m, bad, 1, fresh)
+  mg = m.replace(body_mass=m.body_mass.clone().requires_grad_())
+  with pytest.raises(NotImplementedError, match="Model"):
+    megastep_cuda.megastep_kernel(mg, state, 1, fresh)
+  # an empty batch launches nothing, so it counts nothing
+  before = megastep_cuda.LAUNCHES
+  empty = {k: v[:0].contiguous() for k, v in state.items()}
+  assert megastep_cuda.megastep_kernel(m, empty, 1, fresh)["qpos"].shape == (
+      0, m.nq)
+  assert megastep_cuda.LAUNCHES == before
+
+
+def test_model_needing_a_gradient_keeps_the_stage_path(cuda):
+  """scan_steps sends a Model that requires a gradient to the stage path,
+  whose CUDA kernels refuse gradients loudly; the megastep is not
+  launched."""
+  m = zoo.humanoid(torch.float32)
+  mg = m.replace(body_mass=m.body_mass.clone().requires_grad_())
+  d = rollout.make_batch(m, 4)
+  megastep_cuda.LAUNCHES = 0
+  with pytest.raises(NotImplementedError):
+    rollout.scan_steps(mg, d, 1)
+  assert megastep_cuda.LAUNCHES == 0

@@ -2,9 +2,10 @@
 
 put_model / make_data on the flagship humanoid and on a contact-free
 pendulum equal the reference field for field (integers and masks exactly,
-floats to 1e-12); the committed humanoid snapshot equals a fresh compile;
+floats to 1e-12); the committed snapshots equal a fresh compile;
 a mujoco_tpu Model carried across with model_from_numpy equals the port's
-own put_model; models outside the slice raise NotImplementedError.
+own put_model; models outside the slice raise NotImplementedError, and the
+models the megastep class admitted (plane-box, eulerdamp) load.
 """
 
 import mujoco
@@ -92,16 +93,23 @@ def test_model_from_numpy_roundtrips_reference(models):
 
 
 def test_snapshot_is_current():
-  """The committed humanoid.npz equals what put_model gives from the XML."""
-  committed = zoo.load_snapshot("humanoid")
-  fresh = snapshot.compile_numpy("humanoid")
-  assert sorted(committed) == sorted(fresh)
-  for k in fresh:
-    assert committed[k].dtype == fresh[k].dtype, k
-    np.testing.assert_array_equal(committed[k], fresh[k], err_msg=k)
+  """Every committed snapshot equals what put_model gives from its XML."""
+  for name in zoo.SNAPSHOTS:
+    committed = zoo.load_snapshot(name)
+    fresh = snapshot.compile_numpy(name)
+    assert sorted(committed) == sorted(fresh), name
+    for k in fresh:
+      assert committed[k].dtype == fresh[k].dtype, (name, k)
+      np.testing.assert_array_equal(committed[k], fresh[k],
+                                    err_msg=f"{name} {k}")
   m = zoo.humanoid(torch.float64, device="cpu")
   assert (m.nq, m.nv, m.nu, m.nbody, m.ngeom, m.efc.nefc, m.con.ncon) == (
       28, 27, 21, 15, 18, 162, 30)
+  m = zoo.quadruped(torch.float64, device="cpu")
+  assert (m.nq, m.nv, m.nu, m.has_dof_damping) == (19, 18, 12, True)
+  pairs = {tuple(p) for name in ("quadruped", "mixed", "spherebox")
+           for p in zoo.load(name, device="cpu").con.pair_type.tolist()}
+  assert len(pairs) == 7, pairs
 
 
 _OUT_OF_SLICE = {
@@ -111,9 +119,10 @@ _OUT_OF_SLICE = {
     "sensor": """<mujoco><worldbody><body><joint name="a" type="slide"/>
       <geom size="0.1"/></body></worldbody><sensor>
       <jointpos joint="a"/></sensor></mujoco>""",
-    "box_contact": """<mujoco><worldbody><geom type="plane" size="1 1 1"/>
+    "box_contact": """<mujoco><option iterations="2"/><worldbody>
       <body><freejoint/><geom type="box" size="0.1 0.1 0.1"/></body>
-      </worldbody></mujoco>""",
+      <body pos="0 0 0.3"><freejoint/><geom type="box" size="0.1 0.1 0.1"/>
+      </body></worldbody></mujoco>""",
     "elliptic": """<mujoco><option cone="elliptic"/><worldbody>
       <geom type="plane" size="1 1 1"/><body><freejoint/>
       <geom size="0.1"/></body></worldbody></mujoco>""",
@@ -123,6 +132,16 @@ _OUT_OF_SLICE = {
     "cg": """<mujoco><option solver="CG"/><worldbody><body>
       <joint type="hinge" limited="true" range="-1 1"/>
       <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+    "implicitfast_damping": """<mujoco><option integrator="implicitfast"/>
+      <worldbody><body><joint type="hinge" damping="1"/>
+      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+}
+
+# models that raised before the megastep class widened the slice
+_WIDENED = {
+    "plane_box": """<mujoco><option iterations="2"/><worldbody>
+      <geom type="plane" size="1 1 1"/><body><freejoint/>
+      <geom type="box" size="0.1 0.1 0.1"/></body></worldbody></mujoco>""",
     "eulerdamp": """<mujoco><worldbody><body><joint type="hinge"
       damping="1"/><geom size="0.1" contype="0"/></body></worldbody>
       </mujoco>""",
@@ -134,3 +153,11 @@ def test_out_of_slice_raises(name):
   mjm = mujoco.MjModel.from_xml_string(_OUT_OF_SLICE[name])
   with pytest.raises(NotImplementedError):
     tio.put_model(mjm, dtype=torch.float64, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(_WIDENED))
+def test_widened_slice_loads(name):
+  mjm = mujoco.MjModel.from_xml_string(_WIDENED[name])
+  m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
+  assert m.con.ncon == (4 if name == "plane_box" else 0)
+  assert m.has_dof_damping == (name == "eulerdamp")
