@@ -32,8 +32,16 @@ Phases, each of which passes or ends the script with a nonzero exit:
    holds the kernel's 10 steps at B 3072 against that plain output by the
    same f32 criterion, prints (as a witness, not a gate) the f32 shares at
    0.3 deep of kernel against f32 plain and of f32 plain against f64
-   plain, reads its shared memory and blocks per SM and times one block
-   per SM and one full wave;
+   plain; prints the occupancy (registers and local, spilled, bytes per
+   thread from ``cudaFuncGetAttributes``, shared memory, blocks per SM,
+   waves), times one block per SM and one full wave, and runs the stage
+   clock (the kernel's timed instantiation,
+   ``megastep_cuda.megastep_timed``) on the timing's inputs at B 3072 and
+   at one block per SM; the bound counts the mean active rows and slots of
+   that run (the dense bound over every row printed beside); then the
+   kernel's time at f64 once;
+4b. the stage clock at the main path's start: each stage's share and µs
+   per env-step, the mean and largest active constraint rows per env-step;
 5. the main path: ``rollout.scan_steps`` of the humanoid at f32, B 3072,
    200 steps, check=True, from ``make_batch`` with 0.01·N(0, 1) qpos noise;
    the state must stay finite and the launch counters, zeroed just before,
@@ -353,25 +361,35 @@ def posed_state(m, nbatch, seed, lower=0.3):
   return state, fresh
 
 
-def megastep_flops(m) -> int:
+def megastep_flops(m, active=None) -> float:
   """Arithmetic of one megastep step per env, counted from csrc/megastep.cu
   stage by stage (multiply-adds count 2): FK and frames ~250 per body,
   cinert ~250 per body, cdof ~30 per dof, CRB 36 per body, u 72 per dof,
   qM 24·nv², com_vel and cacc 4·6·nbody·nv plus cdof_dot 12·nv² + 30·nv,
   RNE and xfrc forces ~190 per body and 24·nbody·nv projections, the two
   LDL solves (a_s and the damped Euler), the narrowphase ~400 per group,
-  the contact Jacobian ~50 per (slot, dof) twice, the rows, the Newton
-  solve (newton_flops) with Jᵀf, and Euler ~10 per dof."""
+  the limit rows ~30 each, then per contact slot its Jacobian ~50 per dof
+  and its velocity sums 6 per dof and its rows ~60, the Newton solve
+  (newton_flops) with Jᵀf, and Euler ~10 per dof. active = (rows, slots),
+  the mean active constraint rows and contact slots per env-step that a
+  timed run measured, counts the work these inputs need: the Newton solve
+  over those rows, each active slot's Jacobian once. None gives the
+  dense count: every row and slot, the Jacobian twice, as the dense kernel
+  computed it."""
   nb, nv, nefc = m.nbody, m.nv, m.efc.nefc
   ncon, nl = m.con.ncon, m.efc.nl
+  if active is None:
+    rows, slots, jac = nefc, ncon, 100
+  else:
+    (rows, slots), jac = active, 56
   ngroup = int(np.count_nonzero(m.con.con_first)) if ncon else 0
   flops = (500 * nb + 30 * nv + 36 * nb + 72 * nv + 24 * nv * nv
            + 24 * nb * nv + 12 * nv * nv + 30 * nv + 190 * nb
-           + 24 * nb * nv + 2 * ldl_flops(nv) + 400 * ngroup
-           + 100 * ncon * nv + 60 * ncon + 30 * nl + 10 * nv)
+           + 24 * nb * nv + 2 * ldl_flops(nv) + 400 * ngroup + 30 * nl
+           + slots * (jac * nv + 60) + 10 * nv)
   if nefc:
-    flops += newton_flops(nefc, nv, int(m.opt.iterations),
-                          int(m.opt.ls_iterations)) + 2 * nefc * nv
+    flops += newton_flops(rows, nv, int(m.opt.iterations),
+                          int(m.opt.ls_iterations)) + 2 * rows * nv
   return flops
 
 
@@ -425,6 +443,73 @@ def f32_floor_witness(m, nbatch) -> dict:
               f"{tag} " + " ".join(f"{v:.2%}" for v in fr.values())
               for tag, fr in out[nstep].items()), flush=True)
   return out
+
+
+def occupancy(m) -> dict:
+  """What sets the megastep's envs per SM for m's dtype, printed: the
+  untimed kernel's registers and local (spilled) bytes per thread, its
+  dynamic shared memory per block, resident blocks per SM and the waves of
+  a B-env launch."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  attrs = mc.attributes(m.dtype)
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  out = dict(attrs, smem_bytes=mc.smem_bytes(m, m.dtype),
+             blocks_per_sm=mc.blocks_per_sm(m, m.dtype), sms=sms)
+  out["waves"] = B / (sms * out["blocks_per_sm"])
+  print(f"megastep {str(m.dtype)[6:]} occupancy: {out['threads']} threads "
+        f"per block, {out['regs']} registers and {out['local_bytes']} local "
+        f"bytes per thread, {out['smem_bytes']} B dynamic shared memory per "
+        f"block, {out['blocks_per_sm']} blocks/SM on {sms} SMs, "
+        f"{out['waves']:.2f} waves at B{B}", flush=True)
+  return out
+
+
+def stage_clock(m, state, fresh, tag) -> dict:
+  """One NSTEP launch of the kernel's stage-clock instantiation on state:
+  each stage's share of the summed cycles and its µs per env-step (cycles
+  at the card's SM clock), the mean and largest active constraint rows per
+  env-step and the mean active contact slots, printed."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  _, stats = mc.megastep_timed(m, state, NSTEP, fresh)
+  st = stats.double().cpu()
+  nst = len(mc.STAGES)
+  cycles = st[:, :nst].mean(0) / NSTEP                 # per env-step
+  mhz = mc.sm_clock_khz() / 1e3
+  us = cycles / mhz
+  total = us.sum().item()
+  out = dict(sm_clock_mhz=mhz, us_per_env_step=total,
+             stages={name: dict(share=(us[i] / total).item(),
+                                us_per_env_step=us[i].item())
+                     for i, name in enumerate(mc.STAGES)},
+             mean_active_rows=(st[:, nst].mean() / NSTEP).item(),
+             max_active_rows=int(st[:, nst + 1].max().item()),
+             mean_active_slots=(st[:, nst + 2].mean() / NSTEP).item(),
+             timed_attributes=mc.attributes(m.dtype, timed=True))
+  print(f"megastep stage clock, {tag}, {str(m.dtype)[6:]} B"
+        f"{state['qpos'].shape[0]} {NSTEP} steps: {total:.3f} µs per "
+        f"env-step at {mhz:.0f} MHz; " + ", ".join(
+            f"{k} {v['share']:.1%} {v['us_per_env_step']:.3f} µs"
+            for k, v in out["stages"].items()), flush=True)
+  print(f"megastep active rows per env-step, {tag}: mean "
+        f"{out['mean_active_rows']:.2f}, most {out['max_active_rows']} (of "
+        f"{m.efc.nefc}); active contact slots mean "
+        f"{out['mean_active_slots']:.2f} (of {m.con.ncon})", flush=True)
+  return out
+
+
+def phase_stage_clock(details):
+  """The stage clock at the main path's start (make_batch with 0.01·N(0, 1)
+  qpos noise, humanoid, f32, B 3072, 200 steps)."""
+  from mujoco_tpu_torch.models import io, zoo
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  m = zoo.humanoid(torch.float32)
+  d = main_path_batch(m)
+  # the guard's fresh state, as scan_batch makes it
+  d0 = io.make_data(m)
+  fresh = {k: getattr(d0, k)[0].contiguous() for k in ("qpos", "qvel",
+                                                       "ctrl")}
+  details["stage_clock_main_path"] = stage_clock(m, mc.state_of(d), fresh,
+                                                 "main path's start")
 
 
 def phase_megastep(report, details):
@@ -494,33 +579,59 @@ def phase_megastep(report, details):
       f"humanoid B{B} 10 steps", mc.megastep_kernel(m, state, 10, fresh),
       held["out"])
   details["megastep_f32_depth_0.3"] = f32_floor_witness(m, B)
-  # state read once and written once: qpos, qvel, ctrl, warm, qacc, time,
-  # qfrc_applied, xfrc in; the first six out; the packed tables once
+  # the bound: the state read once and written once (qpos, qvel, ctrl,
+  # warm, qacc, time, qfrc_applied, xfrc in; the first six out) and the
+  # packed tables once; the operations these inputs need, over the active
+  # rows and slots that the timed kernel counts on them, with the dense
+  # count beside
+  clock = stage_clock(m, state, fresh, "timing inputs")
+  active = (clock["mean_active_rows"], clock["mean_active_slots"])
   nstate_in = m.nq + 4 * m.nv + m.nu + 1 + 6 * m.nbody
   nstate_out = m.nq + 3 * m.nv + m.nu + 1
   nbytes = 4 * B * (nstate_in + nstate_out) + mc.packed(
       m, torch.float32, "cuda")[1].numel()
-  bound_ms, bound_by = bound(nbytes, B * NSTEP * megastep_flops(m),
+  bound_ms, bound_by = bound(nbytes, B * NSTEP * megastep_flops(m, active),
                              torch.float32)
-  sms = torch.cuda.get_device_properties(0).multi_processor_count
-  per_sm = mc.blocks_per_sm(m, torch.float32)
+  dense_ms, dense_by = bound(nbytes, B * NSTEP * megastep_flops(m),
+                             torch.float32)
+  occ = occupancy(m)
+  sms, per_sm = occ["sms"], occ["blocks_per_sm"]
   waves = {}
   for k in (sms, sms * per_sm):
     sub = {n: v[:k].contiguous() for n, v in state.items()}
     waves[k] = cuda_ms(lambda: mc.megastep_kernel(m, sub, NSTEP, fresh),
                        reps=3, warmup=1)
-  smem = mc.smem_bytes(m, torch.float32)
+  # the stage clock at one block per SM: each env's latency alone
+  clock_one = stage_clock(m, {n: v[:sms].contiguous()
+                              for n, v in state.items()}, fresh,
+                          "timing inputs, one block per SM")
   print(f"megastep f32 B{B} {NSTEP} steps: kernel_ms {kernel_ms:.3f} (L2 "
         f"flushed; L2-warm {warm_ms:.3f}) plain_ms {plain_ms:.3f} per step "
-        f"bound_ms {bound_ms:.4f} ({bound_by}); {smem} B shared memory, "
-        f"{per_sm} blocks/SM on {sms} SMs ({-(-B // (sms * per_sm))} waves);"
-        f" one block per SM {waves[sms]:.3f} ms, one full wave "
+        f"bound_ms {bound_ms:.4f} ({bound_by}; "
+        f"{megastep_flops(m, active):.0f} operations per env-step over "
+        f"{active[0]:.2f} active rows and {active[1]:.2f} active slots) "
+        f"beside the dense bound_ms {dense_ms:.4f} ({dense_by}; "
+        f"{megastep_flops(m):.0f} per env-step over {m.efc.nefc} rows); one "
+        f"block per SM {waves[sms]:.3f} ms, one full wave "
         f"({sms * per_sm} envs) {waves[sms * per_sm]:.3f} ms", flush=True)
+  # the kernel at f64 once, L2-warm (posed as the f64 checks)
+  m64 = zoo.humanoid(torch.float64)
+  s64, f64 = posed_state(m64, B, 3)
+  f64_ms = cuda_ms(lambda: mc.megastep_kernel(m64, s64, NSTEP, f64), reps=2,
+                   warmup=1)
+  occ64 = occupancy(m64)
+  print(f"megastep f64 B{B} {NSTEP} steps: kernel_ms {f64_ms:.3f} "
+        f"(L2-warm), {occ64['smem_bytes']} B shared memory, "
+        f"{occ64['regs']} registers, {occ64['blocks_per_sm']} blocks/SM",
+        flush=True)
   details["megastep"] = dict(l2_warm_ms=warm_ms, plain_ms_per_step=plain_ms,
-                             smem_bytes=smem, blocks_per_sm=per_sm, sms=sms,
-                             one_block_per_sm_ms=waves[sms],
+                             occupancy=occ, one_block_per_sm_ms=waves[sms],
                              one_wave_ms=waves[sms * per_sm],
-                             flops_per_env_step=megastep_flops(m))
+                             flops_per_env_step=megastep_flops(m, active),
+                             dense_flops_per_env_step=megastep_flops(m),
+                             dense_bound_ms=dense_ms, stage_clock=clock,
+                             stage_clock_one_block_per_sm=clock_one,
+                             f64_ms=f64_ms, f64_occupancy=occ64)
   report["megastep"] = dict(
       name="megastep", route="cuda", source="mujoco_tpu_torch/csrc/megastep.cu",
       replaces="mujoco_tpu/ops/megastep_tpu.py:1389", max_abs_err=worst64,
@@ -753,6 +864,7 @@ def main() -> int:
   phase_ldl(report, details)
   phase_newton(report, details)
   phase_megastep(report, details)
+  phase_stage_clock(details)
   phase_main_path(report, details)
   phase_stage_path(report, details)
   phase_profile(details)

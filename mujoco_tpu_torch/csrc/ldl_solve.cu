@@ -8,10 +8,10 @@
 // operations-per-byte balance at n = 27 (≈ 9 flops per 4-byte value at f32
 // against a balance near 20 for fp32 without tensor cores). The TPU kernel
 // put 128 envs on the lanes of a vector register; here one warp owns one
-// env, keeps its whole H in shared memory through the factor and both
-// solves, and reads H once (lower triangle only, contiguous per env, so a
-// warp's loads coalesce) and writes p once. Lane i owns row i (and i + 32),
-// so the pivot steps need only __syncwarp, never a block barrier. The ragged
+// env, stages its H in shared memory, and reads H once (lower triangle only,
+// contiguous per env, so a warp's loads coalesce) and writes p once. Lane i
+// owns row i (and i + 32): in registers for n ≤ 32, in shared memory above
+// (ldl_common.cuh), so the pivot steps need no block barrier. The ragged
 // batch edge is masked (warps past B return) instead of padded with
 // identity matrices.
 #include <cuda_runtime.h>

@@ -15,22 +15,43 @@
 // The model is data, not code: the host packs its tables once per (Model,
 // dtype) (mujoco_tpu_torch/ops/megastep_cuda.py, class Tables), an int32
 // section and a section of values in T, with their offsets in Meta. The
-// kernel walks bodies in topological order (parent < child) and is generic
-// over the supported class; no source is generated per model.
+// kernel is generic over the supported class; no source is generated per
+// model.
 //
-// What bounds it on an H100: by the roofline, operations — about 4.5e5 per
-// env-step for the humanoid (the Newton solve's JᵀWJ dominates), against
-// ~2e2 state values that cross device memory once per launch, not per
-// step. In practice it is the serial latency of one env's step, far above
-// that bound. The design keeps every intermediate of the step in shared
-// memory (41 KB per block at f32 for the humanoid) and splits the work over
-// the block's threads where it is independent: threads over (i, j) for qM,
-// over bodies for cinert and the RNE forces, over dofs for cdof, cdof_dot
-// and the force projections, one thread per contact group for the
-// narrowphase, threads over (row, dof) for the Jacobian, then the Newton
-// split of newton.cu (block_newton, newton_common.cuh). The tree passes
-// with a serial dependency (FK, the subtree-CoM accumulation) run in one
-// thread; the CRB accumulation runs in 36 threads, one per entry.
+// What bounds it on an H100: by the roofline, operations (about 1.3e5 per
+// env-step for the humanoid over the rows its contacts make active),
+// against ~2e2 state values that cross device memory once per launch, not
+// per step. In practice it is the latency of one env's step, chains of
+// dependent shared-memory reads, shuffles, barriers and divisions far
+// above that bound, and the shared-memory pipe that the envs of an SM
+// share; so the design aims at short chains, few shared-memory
+// instructions and many envs per SM (PERF.md has the stage clock's
+// breakdown):
+//
+// - Only the active constraint rows (D > 0) reach the Newton solve, as a
+//   list in shared memory (ListRows, newton_common.cuh): on the humanoid
+//   about 13 of 162 rows per step. An inactive row contributes exact zeros
+//   to every sum of the dense solve, so dropping it changes only the order
+//   of those sums. Limit rows store no Jacobian (a dof and a sign); a
+//   contact slot in use stores its normal and two tangent vectors, and its
+//   four pyramidal rows jn ± μ·jt are formed entry by entry, as rounded as
+//   the dense kernel stored them. JᵀWJ keeps each thread's entries in
+//   registers while it walks the rows once.
+// - The LDL solves run in one warp's registers (ldl_common.cuh).
+// - Warp 1 builds every constraint row (narrowphase, active limit rows and
+//   contact slots, the slots' vectors and rows) while warp 0 solves a_s.
+// - The tree passes go level by level (FK and the frames top-down, the
+//   subtree CoM and the CRB bottom-up, each body gathering its children in
+//   the order of the serial pass), the chains of com_vel, cdof_dot, the
+//   RNE projections and the motors read compact per-body and per-dof lists
+//   from the host instead of dense masks, the hinges' sines and cosines
+//   are taken in parallel ahead of FK, and qM's symmetric entries are
+//   summed once.
+// - The work space overlays what only the smooth dynamics needs with what
+//   only the constraints need: 27.8 KB per block at f32 for the humanoid,
+//   with the compact tree lists copied in as 16-bit ints, so that 8 blocks
+//   of 64 threads fit an SM by shared memory, and __launch_bounds__ holds
+//   registers to what 8 blocks leave (128).
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -45,13 +66,15 @@ namespace {
 // in that order: counts, then the offset of each int table, then the
 // offset of each value table.
 struct Meta {
-  int nq, nv, nu, nbody, njnt, nl, ncon, ngroup, nfree, nefc, iterations,
-      ls_iter, flags;
+  int nq, nv, nu, nbody, njnt, nl, ncon, ngroup, nfree, nefc, nlevel,
+      nlist, iterations, ls_iter, flags;
   int i_body_parent, i_body_jntadr, i_body_jntnum, i_body_root, i_jnt_type,
       i_jnt_qadr, i_jnt_dadr, i_dof_jnt, i_dof_body, i_dof_q, i_dof_root,
       i_dof_spring_q, i_anc, i_danc, i_pred, i_free_qadr, i_free_dadr,
       i_act_dadr, i_act_flags, i_lim_qadr, i_lim_dadr, i_lim_pow, i_con_pow,
-      i_con_group, i_grp_type, i_grp_b1, i_grp_b2, i_grp_slot, i_grp_mask;
+      i_con_group, i_grp_type, i_grp_b1, i_grp_b2, i_grp_slot, i_grp_mask,
+      i_lvl_adr, i_lvl_body, i_child_adr, i_child, i_bdof_adr, i_bdof,
+      i_pdof_adr, i_pdof, i_dbody_adr, i_dbody, i_dact_adr, i_dact;
   int f_scal, f_body_pos, f_body_quat, f_body_ipos, f_body_iquat,
       f_body_mass, f_body_inertia, f_body_subtreemass, f_jnt_axis, f_jnt_pos,
       f_jnt_qpos0, f_dof_armature, f_dof_damping, f_dof_spring_k,
@@ -65,21 +88,92 @@ struct Meta {
 constexpr int kSpringOff = 1, kDamperOff = 2, kActuationOff = 4,
               kClampCtrlOff = 8, kLimitOff = 16, kContactOff = 32,
               kUseWarm = 64, kUseDamp = 128;
+
+// The stage clock. The timed instantiation of the kernel (kTimed) has
+// thread 0 read clock64() right after the block barrier that ends each
+// stage of step(), and sums the deltas per stage over the launch; the
+// untimed one, which the main path launches, has no clock code. Stages in
+// step() order (megastep_cuda.STAGES lists the same names):
+enum Stage {
+  kFk,      // quaternion normalize, hinge sin/cos, FK and frames
+  kCom,     // subtree CoM
+  kCinert,  // cinert, cdof, CRB
+  kVel,     // com_vel, cdof_dot, cacc, u
+  kRne,     // qM (and H for a_s), RNE and xfrc forces
+  kForce,   // bias and xfrc projections, passive, motor forces
+  kSmooth,  // qfrc_actuator, qfrc_smooth, a_s by LDL (warp 0)
+  kRows,    // narrowphase, limit and contact rows (warp 1 alongside the
+            // LDL; only what outlasts it)
+  kNewton,  // Newton solve, qfrc_constraint
+  kEuler,   // Euler, divergence guard
+  kNumStages
+};
+constexpr const char* kStageNames[kNumStages] = {
+    "fk", "com", "cinert", "vel", "rne", "force", "smooth", "rows", "newton",
+    "euler"};
+// Per env, the timed launch writes kNumStages cycle sums, then the active
+// constraint rows summed over its steps, their most in one step, and the
+// active contact slots summed over its steps.
+constexpr int kStatWords = kNumStages + 3;
+
+template <bool kTimed>
+struct StageClock {
+  __device__ void start() {}
+  __device__ void mark(int) {}
+  __device__ void rows(int, int) {}
+};
+
+template <>
+struct StageClock<true> {
+  long long* sum;  // shared, kStatWords
+  long long last;  // thread 0's last reading
+  __device__ void start() { last = clock64(); }
+  __device__ void mark(int stage) {
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      sum[stage] += now - last;
+      last = now;
+    }
+  }
+  __device__ void rows(int nrow, int nslot) {
+    if (threadIdx.x == 0) {
+      sum[kNumStages] += nrow;
+      if (nrow > sum[kNumStages + 1]) sum[kNumStages + 1] = nrow;
+      sum[kNumStages + 2] += nslot;
+    }
+  }
+};
+
 // joint types
 constexpr int kFree = 0, kSlide = 2, kHinge = 3;
 constexpr double kMaxVal = 1e10;  // mjMAXVAL
 
-// Shared-memory work space of one env's step.
+// Threads of a block: two warps, one env. One warp has no second warp to
+// build the rows alongside the LDL; more warps leave fewer registers for
+// the same 8 envs per SM.
+constexpr int kMT = 64;
+static_assert(kMT == 64, "step() gives warp 0 and warp 1 a task each");
+
+// Shared-memory work space of one env's step, in three parts: what lives
+// the whole step; what only the smooth dynamics needs (up to a_s); what
+// only the constraints need (from the narrowphase on), which overlays the
+// second part.
 template <typename T>
 struct Work {
   T *qpos, *qvel, *ctrl, *warm, *qacc, *qfrc_app, *xfrc, *time;
-  T *xpos, *xquat, *xipos, *ximat, *xanchor, *xaxis, *com, *macc;
-  T *cinert, *crb, *cdof, *cdofdot, *cvel, *cacc, *fall, *f6, *u;
-  T *qM, *H;
-  T *bias, *passive, *act, *qx, *smooth, *as, *qc, *x, *dx, *mdx, *y;
-  T *cdist, *cpos, *cframe;
-  T *J, *aref, *D, *jar, *jp, *force, *w;
-  T *red, *cost;
+  T *xpos, *xquat, *com, *cdof, *qM, *H;
+  T *smooth, *as, *qc, *x, *dx, *mdx, *y, *red, *cost;
+  // the compact tree lists (i_lvl_adr .. i_dact, nlist values), copied in
+  // once per launch: the tree passes walk them every step
+  unsigned short* lists;
+  // smooth dynamics
+  T *jsc, *xipos, *ximat, *xanchor, *xaxis, *macc, *cinert, *crb;
+  T *cdofdot, *cvel, *cacc, *fall, *f6, *u, *bias, *passive, *qx, *actf;
+  // constraints: the narrowphase's contacts, each active slot's normal and
+  // tangent vectors (cv), and per row of the active list its ListRows
+  // fields (ra, rb, rc, aref, D) and the solve's row vectors
+  T *cdist, *cpos, *cframe, *cv, *rc, *aref, *D, *jar, *jp, *force, *w;
+  int *ra, *rb, *aslot, *cnt;  // cnt: active limit rows, active slots
 };
 
 // Carves base into the work space (w given) and returns its size in
@@ -93,11 +187,15 @@ __host__ __device__ size_t layout(const Meta& mt, T* base, Work<T>* w) {
     dst = base ? base + off : nullptr;
     off += n;
   };
+  auto take_int = [&](int*& dst, size_t n) {
+    dst = base ? reinterpret_cast<int*>(base + off) : nullptr;
+    off += (n * sizeof(int) + sizeof(T) - 1) / sizeof(T);
+  };
   const size_t nq = mt.nq, nv = mt.nv, nb = mt.nbody, nj = mt.njnt;
-  const size_t ncon = mt.ncon, nefc = mt.nefc;
+  const size_t nu = mt.nu > 0 ? mt.nu : 1, ncon = mt.ncon, nefc = mt.nefc;
   take(s.qpos, nq);
   take(s.qvel, nv);
-  take(s.ctrl, mt.nu > 0 ? mt.nu : 1);
+  take(s.ctrl, nu);
   take(s.warm, nv);
   take(s.qacc, nv);
   take(s.qfrc_app, nv);
@@ -105,35 +203,49 @@ __host__ __device__ size_t layout(const Meta& mt, T* base, Work<T>* w) {
   take(s.time, 2);
   take(s.xpos, 3 * nb);
   take(s.xquat, 4 * nb);
+  take(s.com, 3 * nb);
+  take(s.cdof, 6 * nv);
+  take(s.qM, nv * nv);
+  take(s.H, nv * static_cast<size_t>(ldl_ld(mt.nv)));
+  T** dofvec[] = {&s.smooth, &s.as, &s.qc, &s.x, &s.dx, &s.mdx, &s.y};
+  for (T** p : dofvec) take(*p, nv);
+  take(s.red, 64);
+  take(s.cost, kStatRows + 1);
+  s.lists = base ? reinterpret_cast<unsigned short*>(base + off) : nullptr;
+  off += (mt.nlist * sizeof(unsigned short) + sizeof(T) - 1) / sizeof(T);
+  const size_t whole_step = off;
+
+  take(s.jsc, 2 * nj);
   take(s.xipos, 3 * nb);
   take(s.ximat, 9 * nb);
   take(s.xanchor, 3 * nj);
   take(s.xaxis, 3 * nj);
-  take(s.com, 3 * nb);
   take(s.macc, 3 * nb);
   take(s.cinert, 36 * nb);
   take(s.crb, 36 * nb);
-  take(s.cdof, 6 * nv);
   take(s.cdofdot, 6 * nv);
   take(s.cvel, 6 * nb);
   take(s.cacc, 6 * nb);
   take(s.fall, 6 * nb);
   take(s.f6, 6 * nb);
   take(s.u, 6 * nv);
-  take(s.qM, nv * nv);
-  take(s.H, nv * static_cast<size_t>(ldl_ld(mt.nv)));
-  T** dofvec[] = {&s.bias, &s.passive, &s.act, &s.qx, &s.smooth, &s.as,
-                  &s.qc,   &s.x,       &s.dx,  &s.mdx, &s.y};
-  for (T** p : dofvec) take(*p, nv);
+  T** smoothvec[] = {&s.bias, &s.passive, &s.qx};
+  for (T** p : smoothvec) take(*p, nv);
+  take(s.actf, nu);
+  const size_t smooth_end = off;
+
+  off = whole_step;
   take(s.cdist, ncon);
   take(s.cpos, 3 * ncon);
   take(s.cframe, 9 * ncon);
-  take(s.J, nefc * nv);
-  T** rowvec[] = {&s.aref, &s.D, &s.jar, &s.jp, &s.force, &s.w};
+  take(s.cv, 3 * nv * ncon);
+  T** rowvec[] = {&s.rc, &s.aref, &s.D, &s.jar, &s.jp, &s.force, &s.w};
   for (T** p : rowvec) take(*p, nefc);
-  take(s.red, 64);
-  take(s.cost, kStatRows + 1);
-  return off;
+  take_int(s.ra, nefc);
+  take_int(s.rb, nefc);
+  take_int(s.aslot, ncon);
+  take_int(s.cnt, 2);
+  return off > smooth_end ? off : smooth_end;
 }
 
 // ---- per-thread vector math, as the reference's lane math (:374-425):
@@ -551,191 +663,329 @@ __device__ inline void contact_jac(const Meta& mt, const int* ic,
   jt2 = dot3(jac, f + 6) * cm;
 }
 
-// ---- one physics step of the block's env (every thread calls it)
+// ---- the tree passes of one body
+
+// FK of body b from its parent's frame: hinges rotate by the half-angle of
+// qpos − qpos0 (:762-767), whose sine and cosine s.jsc holds; then b's
+// inertial frame and its mass-weighted CoM, the start of the subtree pass.
 template <typename T>
-__device__ void step(const Meta& mt, const int* __restrict__ ic,
-                     const T* __restrict__ fc, const Work<T>& s) {
-  const int tid = threadIdx.x;
-  const int nv = mt.nv, nu = mt.nu, nb = mt.nbody;
-  const int ld = ldl_ld(nv);
-  const int flags = mt.flags;
-  const T h = fc[mt.f_scal];
-  const int* anc = ic + mt.i_anc;
-
-  // normalize the free joints' quaternions (mj_normalizeQuat)
-  for (int j = tid; j < mt.nfree; j += kThreads)
-    qnorm(s.qpos + ic[mt.i_free_qadr + j] + 3);
-  __syncthreads();
-
-  // FK, one thread: bodies in topological order; hinges rotate by the
-  // half-angle of qpos − qpos0 (:762-767)
-  if (tid == 0) {
+__device__ void fk_body(const Meta& mt, const int* __restrict__ ic,
+                        const T* __restrict__ fc, const Work<T>& s, int b) {
+  if (b == 0) {
     for (int k = 0; k < 3; ++k) s.xpos[k] = T(0);
     s.xquat[0] = T(1);
     s.xquat[1] = s.xquat[2] = s.xquat[3] = T(0);
-    for (int b = 1; b < nb; ++b) {
-      const int pid = ic[mt.i_body_parent + b];
-      const T* pq = s.xquat + 4 * pid;
-      T bq[4], bp[3];
-      qmul(pq, fc + mt.f_body_quat + 4 * b, bq);
-      qnorm(bq);
-      qrot(fc + mt.f_body_pos + 3 * b, pq, bp);
-      for (int k = 0; k < 3; ++k) bp[k] += s.xpos[3 * pid + k];
-      const int j0 = ic[mt.i_body_jntadr + b];
-      for (int j = j0; j < j0 + ic[mt.i_body_jntnum + b]; ++j) {
-        const int jt = ic[mt.i_jnt_type + j], qa = ic[mt.i_jnt_qadr + j];
-        const T* ax = fc + mt.f_jnt_axis + 3 * j;
-        const T* jpos = fc + mt.f_jnt_pos + 3 * j;
-        T* xanchor = s.xanchor + 3 * j;
-        T* xaxis = s.xaxis + 3 * j;
-        if (jt == kFree) {
-          for (int k = 0; k < 3; ++k) {
-            bp[k] = s.qpos[qa + k];
-            xanchor[k] = bp[k];
-            xaxis[k] = ax[k];
-          }
-          for (int k = 0; k < 4; ++k) bq[k] = s.qpos[qa + 3 + k];
-          qnorm(bq);
-          continue;
-        }
-        T axis_w[3], jpos_w[3], anchor[3];
-        qrot(ax, bq, axis_w);
-        qrot(jpos, bq, jpos_w);
-        for (int k = 0; k < 3; ++k) anchor[k] = bp[k] + jpos_w[k];
-        const T dq = s.qpos[qa] - fc[mt.f_jnt_qpos0 + j];
-        if (jt == kSlide) {
-          for (int k = 0; k < 3; ++k) bp[k] = bp[k] + axis_w[k] * dq;
-        } else {
-          const T half = T(0.5) * dq;
-          const T sn = sin(half);
-          const T qloc[4] = {cos(half), ax[0] * sn, ax[1] * sn, ax[2] * sn};
-          qmul(bq, qloc, bq);
-          qrot(jpos, bq, jpos_w);
-          for (int k = 0; k < 3; ++k) bp[k] = anchor[k] - jpos_w[k];
-        }
+  } else {
+    const int pid = ic[mt.i_body_parent + b];
+    const T* pq = s.xquat + 4 * pid;
+    T bq[4], bp[3];
+    qmul(pq, fc + mt.f_body_quat + 4 * b, bq);
+    qnorm(bq);
+    qrot(fc + mt.f_body_pos + 3 * b, pq, bp);
+    for (int k = 0; k < 3; ++k) bp[k] += s.xpos[3 * pid + k];
+    const int j0 = ic[mt.i_body_jntadr + b];
+    for (int j = j0; j < j0 + ic[mt.i_body_jntnum + b]; ++j) {
+      const int jt = ic[mt.i_jnt_type + j], qa = ic[mt.i_jnt_qadr + j];
+      const T* ax = fc + mt.f_jnt_axis + 3 * j;
+      const T* jpos = fc + mt.f_jnt_pos + 3 * j;
+      T* xanchor = s.xanchor + 3 * j;
+      T* xaxis = s.xaxis + 3 * j;
+      if (jt == kFree) {
         for (int k = 0; k < 3; ++k) {
-          xanchor[k] = anchor[k];
-          xaxis[k] = axis_w[k];
+          bp[k] = s.qpos[qa + k];
+          xanchor[k] = bp[k];
+          xaxis[k] = ax[k];
         }
+        for (int k = 0; k < 4; ++k) bq[k] = s.qpos[qa + 3 + k];
+        qnorm(bq);
+        continue;
       }
-      qnorm(bq);
-      for (int k = 0; k < 3; ++k) s.xpos[3 * b + k] = bp[k];
-      for (int k = 0; k < 4; ++k) s.xquat[4 * b + k] = bq[k];
+      T axis_w[3], jpos_w[3], anchor[3];
+      qrot(ax, bq, axis_w);
+      qrot(jpos, bq, jpos_w);
+      for (int k = 0; k < 3; ++k) anchor[k] = bp[k] + jpos_w[k];
+      if (jt == kSlide) {
+        const T dq = s.qpos[qa] - fc[mt.f_jnt_qpos0 + j];
+        for (int k = 0; k < 3; ++k) bp[k] = bp[k] + axis_w[k] * dq;
+      } else {
+        const T sn = s.jsc[2 * j], cs = s.jsc[2 * j + 1];
+        const T qloc[4] = {cs, ax[0] * sn, ax[1] * sn, ax[2] * sn};
+        qmul(bq, qloc, bq);
+        qrot(jpos, bq, jpos_w);
+        for (int k = 0; k < 3; ++k) bp[k] = anchor[k] - jpos_w[k];
+      }
+      for (int k = 0; k < 3; ++k) {
+        xanchor[k] = anchor[k];
+        xaxis[k] = axis_w[k];
+      }
+    }
+    qnorm(bq);
+    for (int k = 0; k < 3; ++k) s.xpos[3 * b + k] = bp[k];
+    for (int k = 0; k < 4; ++k) s.xquat[4 * b + k] = bq[k];
+  }
+  T r[3], q[4];
+  qrot(fc + mt.f_body_ipos + 3 * b, s.xquat + 4 * b, r);
+  for (int k = 0; k < 3; ++k) s.xipos[3 * b + k] = s.xpos[3 * b + k] + r[k];
+  qmul(s.xquat + 4 * b, fc + mt.f_body_iquat + 4 * b, q);
+  qmat(q, s.ximat + 9 * b);
+  const T mass = fc[mt.f_body_mass + b];
+  for (int k = 0; k < 3; ++k) s.macc[3 * b + k] = s.xipos[3 * b + k] * mass;
+}
+
+// cinert of body b (angular first, mju_inertCom)
+template <typename T>
+__device__ void cinert_body(const Meta& mt, const int* __restrict__ ic,
+                            const T* __restrict__ fc, const Work<T>& s,
+                            int b) {
+  T* ci = s.cinert + 36 * b;
+  if (b == 0) {
+    for (int e = 0; e < 36; ++e) ci[e] = T(0);
+    return;
+  }
+  const T* R = s.ximat + 9 * b;
+  const T* I = fc + mt.f_body_inertia + 3 * b;
+  const T mass = fc[mt.f_body_mass + b];
+  const int root = ic[mt.i_body_root + b];
+  const T o[3] = {s.xipos[3 * b] - s.com[3 * root],
+                  s.xipos[3 * b + 1] - s.com[3 * root + 1],
+                  s.xipos[3 * b + 2] - s.com[3 * root + 2]};
+  const T cx[3][3] = {{T(0), -o[2], o[1]},
+                      {o[2], T(0), -o[0]},
+                      {-o[1], o[0], T(0)}};
+  for (int a = 0; a < 3; ++a) {
+    for (int c = 0; c < 3; ++c) {
+      T icom = T(0), cc = T(0);
+      for (int k = 0; k < 3; ++k) {
+        icom += R[3 * a + k] * I[k] * R[3 * c + k];
+        cc += cx[a][k] * cx[c][k];
+      }
+      ci[6 * a + c] = icom + mass * cc;
+      ci[6 * a + 3 + c] = mass * cx[a][c];
+      ci[6 * (3 + a) + c] = mass * cx[c][a];
+      ci[6 * (3 + a) + 3 + c] = a == c ? mass : T(0);
     }
   }
-  __syncthreads();
+}
 
-  // inertial frames
-  for (int b = tid; b < nb; b += kThreads) {
-    T r[3], q[4];
-    qrot(fc + mt.f_body_ipos + 3 * b, s.xquat + 4 * b, r);
-    for (int k = 0; k < 3; ++k) s.xipos[3 * b + k] = s.xpos[3 * b + k] + r[k];
-    qmul(s.xquat + 4 * b, fc + mt.f_body_iquat + 4 * b, q);
-    qmat(q, s.ximat + 9 * b);
+// cdof of dof v
+template <typename T>
+__device__ void cdof_dof(const Meta& mt, const int* __restrict__ ic,
+                         const Work<T>& s, int v) {
+  const int j = ic[mt.i_dof_jnt + v], b = ic[mt.i_dof_body + v];
+  const int jt = ic[mt.i_jnt_type + j];
+  const int din = v - ic[mt.i_jnt_dadr + j];
+  const T* rc = s.com + 3 * ic[mt.i_dof_root + v];
+  T* cd = s.cdof + 6 * v;
+  T ax[3], offca[3];
+  if (jt == kSlide || (jt == kFree && din < 3)) {
+    for (int k = 0; k < 3; ++k) {
+      cd[k] = T(0);
+      cd[3 + k] = jt == kSlide ? s.xaxis[3 * j + k] : T(k == din);
+    }
+    return;
   }
-  __syncthreads();
+  if (jt == kHinge) {
+    for (int k = 0; k < 3; ++k) ax[k] = s.xaxis[3 * j + k];
+  } else {  // free rotation: column din − 3 of the body's frame
+    T Rb[9];
+    qmat(s.xquat + 4 * b, Rb);
+    for (int k = 0; k < 3; ++k) ax[k] = Rb[3 * k + din - 3];
+  }
+  for (int k = 0; k < 3; ++k) offca[k] = rc[k] - s.xanchor[3 * j + k];
+  cross3(ax, offca, cd + 3);
+  for (int k = 0; k < 3; ++k) cd[k] = ax[k];
+}
 
-  // subtree CoM, one thread: children have larger ids, so accumulate in
-  // reverse (:786-799)
-  if (tid == 0) {
-    for (int b = 0; b < nb; ++b) {
-      const T mass = fc[mt.f_body_mass + b];
-      for (int k = 0; k < 3; ++k) s.macc[3 * b + k] = s.xipos[3 * b + k] * mass;
+// The constraint rows by warp 1, with no block barrier: the narrowphase
+// (one contact group per lane); the active limit rows (D > 0) and the
+// active contact slots, each listed in ascending order by ballots; each
+// active slot's normal and tangent vectors, once per (slot, dof); then its
+// four pyramidal rows jn ± μ·jt1, jn ± μ·jt2. s.cnt gets the numbers of
+// active limit rows and slots.
+template <typename T>
+__device__ void constraint_rows(const Meta& mt, const int* __restrict__ ic,
+                                const T* __restrict__ fc, const Work<T>& s) {
+  const int lane = threadIdx.x & 31;
+  const int nv = mt.nv, nl = mt.nl, ncon = mt.ncon, flags = mt.flags;
+  const unsigned below = (1u << lane) - 1u;
+  for (int g = lane; g < mt.ngroup; g += 32) collide_group(mt, ic, fc, s, g);
+  __syncwarp(kFullMask);
+  int nla = 0;
+  for (int base = 0; base < nl; base += 32) {
+    const int r = base + lane;
+    bool on = false;
+    T side = T(0), margin = T(0), dist = T(0);
+    if (r < nl) {
+      side = fc[mt.f_lim_side + r];
+      margin = fc[mt.f_lim_margin + r];
+      dist = side * (fc[mt.f_lim_value + r] - s.qpos[ic[mt.i_lim_qadr + r]]);
+      on = !(flags & kLimitOff) && dist < margin;
     }
-    for (int b = nb - 1; b > 0; --b) {
-      const int pid = ic[mt.i_body_parent + b];
-      for (int k = 0; k < 3; ++k) s.macc[3 * pid + k] += s.macc[3 * b + k];
+    const unsigned ballot = __ballot_sync(kFullMask, on);
+    if (on) {
+      const int k = nla + __popc(ballot & below);
+      const int da = ic[mt.i_lim_dadr + r];
+      const T imp = impedance(dist, margin, fc + mt.f_lim_imp + 9 * r,
+                              ic[mt.i_lim_pow + r]);
+      const T kk = fc[mt.f_lim_kb + 2 * r], bb = fc[mt.f_lim_kb + 2 * r + 1];
+      const T r_row = max_keep_nan(
+          T(kMinVal), (T(1) - imp) * fc[mt.f_lim_diaga + r] / imp);
+      const T jqvel = -side * s.qvel[da];
+      s.aref[k] = -bb * jqvel - kk * imp * (dist - margin);
+      s.D[k] = T(1) / r_row;
+      s.ra[k] = -1 - da;
+      s.rc[k] = -side;
     }
-    for (int b = 0; b < nb; ++b) {
+    nla += __popc(ballot);
+  }
+  int nsl = 0;
+  for (int base = 0; base < ncon; base += 32) {
+    const int c = base + lane;
+    const bool on = c < ncon && !(flags & kContactOff) &&
+                    s.cdist[c] < fc[mt.f_con_margin + c];
+    const unsigned ballot = __ballot_sync(kFullMask, on);
+    if (on) s.aslot[nsl + __popc(ballot & below)] = c;
+    nsl += __popc(ballot);
+  }
+  __syncwarp(kFullMask);
+  for (int e = lane; e < nsl * nv; e += 32) {
+    const int sp = e / nv, v = e - sp * nv;
+    T* vec = s.cv + 3 * nv * sp;
+    contact_jac(mt, ic, s, s.aslot[sp], v, vec[v], vec[nv + v],
+                vec[2 * nv + v]);
+  }
+  __syncwarp(kFullMask);
+  for (int sp = lane; sp < nsl; sp += 32) {
+    const int c = s.aslot[sp];
+    const T* vec = s.cv + 3 * nv * sp;
+    T jqn = T(0), jq1 = T(0), jq2 = T(0);
+    for (int v = 0; v < nv; ++v) {
+      jqn += vec[v] * s.qvel[v];
+      jq1 += vec[nv + v] * s.qvel[v];
+      jq2 += vec[2 * nv + v] * s.qvel[v];
+    }
+    const T dist = s.cdist[c], margin = fc[mt.f_con_margin + c];
+    const T imp = impedance(dist, margin, fc + mt.f_con_imp + 9 * c,
+                            ic[mt.i_con_pow + c]);
+    const T r0 = max_keep_nan(
+        T(kMinVal), (T(1) - imp) * fc[mt.f_con_diaga + c] / imp);
+    const T d_py = T(1) / (fc[mt.f_con_rpy + c] * r0);
+    const T k = fc[mt.f_con_kb + 2 * c], b = fc[mt.f_con_kb + 2 * c + 1];
+    const T aref_base = -k * imp * (dist - margin);
+    const T f0 = fc[mt.f_con_fri + 2 * c], f1 = fc[mt.f_con_fri + 2 * c + 1];
+    const T jqv[4] = {jqn + f0 * jq1, jqn + (-f0) * jq1, jqn + f1 * jq2,
+                      jqn + (-f1) * jq2};
+    const T mu[4] = {f0, -f0, f1, -f1};
+    for (int q = 0; q < 4; ++q) {
+      const int row = nla + 4 * sp + q;
+      s.aref[row] = -b * jqv[q] + aref_base;
+      s.D[row] = d_py;
+      s.ra[row] = 3 * nv * sp;
+      s.rb[row] = 3 * nv * sp + nv * (1 + (q >> 1));
+      s.rc[row] = mu[q];
+    }
+  }
+  if (lane == 0) {
+    s.cnt[0] = nla;
+    s.cnt[1] = nsl;
+  }
+}
+
+// ---- one physics step of the block's env (every thread calls it)
+template <typename T, bool kTimed>
+__device__ void step(const Meta& mt, const int* __restrict__ ic,
+                     const T* __restrict__ fc, const Work<T>& s,
+                     StageClock<kTimed>& clk) {
+  const int tid = threadIdx.x;
+  const int nv = mt.nv, nu = mt.nu, nb = mt.nbody, nlev = mt.nlevel;
+  const int ld = ldl_ld(nv);
+  const int flags = mt.flags;
+  const T h = fc[mt.f_scal];
+  // the lists in shared memory, at their offsets from the first of them
+  const auto list = [&](int i) { return s.lists + (i - mt.i_lvl_adr); };
+  const unsigned short* lvl_adr = list(mt.i_lvl_adr);
+  const unsigned short* lvl_body = list(mt.i_lvl_body);
+  const unsigned short* child_adr = list(mt.i_child_adr);
+  const unsigned short* child = list(mt.i_child);
+
+  // normalize the free joints' quaternions (mj_normalizeQuat); each hinge's
+  // half-angle sine and cosine; then FK and the frames level by level (the
+  // world is level 0), parents before children
+  for (int j = tid; j < mt.nfree; j += kMT)
+    qnorm(s.qpos + ic[mt.i_free_qadr + j] + 3);
+  for (int j = tid; j < mt.njnt; j += kMT) {
+    if (ic[mt.i_jnt_type + j] == kHinge) {
+      const T dq = s.qpos[ic[mt.i_jnt_qadr + j]] - fc[mt.f_jnt_qpos0 + j];
+      const T half = T(0.5) * dq;
+      s.jsc[2 * j] = sin(half);
+      s.jsc[2 * j + 1] = cos(half);
+    }
+  }
+  if (tid == 0) fk_body(mt, ic, fc, s, 0);
+  __syncthreads();
+  for (int lv = 1; lv < nlev; ++lv) {
+    for (int i = lvl_adr[lv] + tid; i < lvl_adr[lv + 1]; i += kMT)
+      fk_body(mt, ic, fc, s, lvl_body[i]);
+    __syncthreads();
+  }
+  clk.mark(kFk);
+
+  // subtree CoM, bottom-up: each body adds its children's sums in
+  // descending id order, as the serial reverse pass (:786-799) adds them
+  for (int lv = nlev - 1; lv >= 0; --lv) {
+    for (int i = lvl_adr[lv] + tid; i < lvl_adr[lv + 1]; i += kMT) {
+      const int b = lvl_body[i];
+      T* mb = s.macc + 3 * b;
+      for (int c = child_adr[b]; c < child_adr[b + 1]; ++c)
+        for (int k = 0; k < 3; ++k) mb[k] += s.macc[3 * child[c] + k];
       const T sm = fc[mt.f_body_subtreemass + b];
       for (int k = 0; k < 3; ++k)
-        s.com[3 * b + k] = sm > T(kMinVal) ? s.macc[3 * b + k] / sm
-                                           : s.xipos[3 * b + k];
+        s.com[3 * b + k] = sm > T(kMinVal) ? mb[k] / sm : s.xipos[3 * b + k];
     }
+    __syncthreads();
   }
-  __syncthreads();
+  clk.mark(kCom);
 
-  // cinert per body (angular first, mju_inertCom) and cdof per dof
-  for (int b = tid; b < nb; b += kThreads) {
-    T* ci = s.cinert + 36 * b;
-    if (b == 0) {
-      for (int e = 0; e < 36; ++e) ci[e] = T(0);
-      continue;
-    }
-    const T* R = s.ximat + 9 * b;
-    const T* I = fc + mt.f_body_inertia + 3 * b;
-    const T mass = fc[mt.f_body_mass + b];
-    const int root = ic[mt.i_body_root + b];
-    const T o[3] = {s.xipos[3 * b] - s.com[3 * root],
-                    s.xipos[3 * b + 1] - s.com[3 * root + 1],
-                    s.xipos[3 * b + 2] - s.com[3 * root + 2]};
-    const T cx[3][3] = {{T(0), -o[2], o[1]},
-                        {o[2], T(0), -o[0]},
-                        {-o[1], o[0], T(0)}};
-    for (int a = 0; a < 3; ++a) {
-      for (int c = 0; c < 3; ++c) {
-        T icom = T(0), cc = T(0);
-        for (int k = 0; k < 3; ++k) {
-          icom += R[3 * a + k] * I[k] * R[3 * c + k];
-          cc += cx[a][k] * cx[c][k];
-        }
-        ci[6 * a + c] = icom + mass * cc;
-        ci[6 * a + 3 + c] = mass * cx[a][c];
-        ci[6 * (3 + a) + c] = mass * cx[c][a];
-        ci[6 * (3 + a) + 3 + c] = a == c ? mass : T(0);
-      }
-    }
-  }
-  for (int v = tid; v < nv; v += kThreads) {
-    const int j = ic[mt.i_dof_jnt + v], b = ic[mt.i_dof_body + v];
-    const int jt = ic[mt.i_jnt_type + j];
-    const int din = v - ic[mt.i_jnt_dadr + j];
-    const T* rc = s.com + 3 * ic[mt.i_dof_root + v];
-    T* cd = s.cdof + 6 * v;
-    T ax[3], offca[3];
-    if (jt == kSlide || (jt == kFree && din < 3)) {
-      for (int k = 0; k < 3; ++k) {
-        cd[k] = T(0);
-        cd[3 + k] = jt == kSlide ? s.xaxis[3 * j + k] : T(k == din);
-      }
-      continue;
-    }
-    if (jt == kHinge) {
-      for (int k = 0; k < 3; ++k) ax[k] = s.xaxis[3 * j + k];
-    } else {  // free rotation: column din − 3 of the body's frame
-      T Rb[9];
-      qmat(s.xquat + 4 * b, Rb);
-      for (int k = 0; k < 3; ++k) ax[k] = Rb[3 * k + din - 3];
-    }
-    for (int k = 0; k < 3; ++k) offca[k] = rc[k] - s.xanchor[3 * j + k];
-    cross3(ax, offca, cd + 3);
-    for (int k = 0; k < 3; ++k) cd[k] = ax[k];
-  }
+  // cinert per body, cdof per dof; then the CRB bottom-up, 36 entries of a
+  // body per thread set, children in descending id order (the world's CRB
+  // is never read)
+  for (int b = tid; b < nb; b += kMT) cinert_body(mt, ic, fc, s, b);
+  for (int v = tid; v < nv; v += kMT) cdof_dof(mt, ic, s, v);
   __syncthreads();
+  for (int lv = nlev - 1; lv >= 1; --lv) {
+    const int b0 = lvl_adr[lv], nent = 36 * (lvl_adr[lv + 1] - b0);
+    for (int e = tid; e < nent; e += kMT) {
+      const int b = lvl_body[b0 + e / 36], k = e % 36;
+      T acc = s.cinert[36 * b + k];
+      for (int c = child_adr[b]; c < child_adr[b + 1]; ++c)
+        acc += s.crb[36 * child[c] + k];
+      s.crb[36 * b + k] = acc;
+    }
+    __syncthreads();
+  }
+  clk.mark(kCinert);
 
-  // CRB: 36 threads, one per entry, each accumulating child into parent in
-  // reverse body order
-  for (int e = tid; e < 36 * nb; e += kThreads) s.crb[e] = s.cinert[e];
-  __syncthreads();
-  if (tid < 36) {
-    for (int b = nb - 1; b > 0; --b) {
-      const int pid = ic[mt.i_body_parent + b];
-      if (pid > 0) s.crb[36 * pid + tid] += s.crb[36 * b + tid];
-    }
-  }
-  // com_vel: cvel per body and cdof_dot per dof from the ancestor chains
-  for (int e = tid; e < 6 * nb; e += kThreads) {
+  // com_vel: cvel per body over the dofs of its chain (bdof), cdof_dot per
+  // dof over the dofs before it (pdof); then u = crb(dof body) · cdof and
+  // cacc (RNE's acceleration, gravity added)
+  const unsigned short* bdof_adr = list(mt.i_bdof_adr);
+  const unsigned short* bdof = list(mt.i_bdof);
+  const unsigned short* pdof_adr = list(mt.i_pdof_adr);
+  const unsigned short* pdof = list(mt.i_pdof);
+  for (int e = tid; e < 6 * nb; e += kMT) {
     const int b = e / 6, k = e - 6 * b;
     T acc = T(0);
-    for (int v = 0; v < nv; ++v)
-      if (anc[b * nv + v]) acc += s.cdof[6 * v + k] * s.qvel[v];
+    for (int i = bdof_adr[b]; i < bdof_adr[b + 1]; ++i) {
+      const int v = bdof[i];
+      acc += s.cdof[6 * v + k] * s.qvel[v];
+    }
     s.cvel[e] = acc;
   }
-  for (int v = tid; v < nv; v += kThreads) {
+  for (int v = tid; v < nv; v += kMT) {
     T vp[6];
     for (int k = 0; k < 6; ++k) vp[k] = T(0);
-    for (int w = 0; w < nv; ++w) {
-      if (!ic[mt.i_pred + v * nv + w]) continue;
+    for (int i = pdof_adr[v]; i < pdof_adr[v + 1]; ++i) {
+      const int w = pdof[i];
       for (int k = 0; k < 6; ++k) vp[k] += s.cdof[6 * w + k] * s.qvel[w];
     }
     const T* m = s.cdof + 6 * v;
@@ -746,40 +996,46 @@ __device__ void step(const Meta& mt, const int* __restrict__ ic,
     cross3(vp + 3, m, t2);       // u × m_ang
     for (int k = 0; k < 3; ++k) out[3 + k] = t1[k] + t2[k];
   }
-  __syncthreads();
-
-  // u = crb(dof body) · cdof, then cacc (RNE's acceleration, gravity added)
-  for (int e = tid; e < 6 * nv; e += kThreads) {
+  for (int e = tid; e < 6 * nv; e += kMT) {
     const int v = e / 6, a = e - 6 * v;
     const T* c = s.crb + 36 * ic[mt.i_dof_body + v] + 6 * a;
     T acc = T(0);
     for (int k = 0; k < 6; ++k) acc += c[k] * s.cdof[6 * v + k];
     s.u[e] = acc;
   }
-  for (int e = tid; e < 6 * nb; e += kThreads) {
+  __syncthreads();
+  for (int e = tid; e < 6 * nb; e += kMT) {
     const int b = e / 6, k = e - 6 * b;
     T acc = T(0);
-    for (int v = 0; v < nv; ++v)
-      if (anc[b * nv + v]) acc += s.cdofdot[6 * v + k] * s.qvel[v];
+    for (int i = bdof_adr[b]; i < bdof_adr[b + 1]; ++i) {
+      const int v = bdof[i];
+      acc += s.cdofdot[6 * v + k] * s.qvel[v];
+    }
     s.cacc[e] = acc + fc[mt.f_scal + 1 + k];
   }
   __syncthreads();
+  clk.mark(kVel);
 
-  // qM on the dof-ancestor pattern (:870-875); RNE forces and the xfrc
-  // wrenches per body
-  for (int e = tid; e < nv * nv; e += kThreads) {
-    const int i = e / nv, j = e - i * nv;
-    T p = T(0), pt = T(0);
-    for (int a = 0; a < 6; ++a) {
-      p += s.u[6 * i + a] * s.cdof[6 * j + a];
-      pt += s.u[6 * j + a] * s.cdof[6 * i + a];
-    }
+  // qM on the dof-ancestor pattern (:870-875), one thread per entry of the
+  // lower triangle: the dense form's entry (i, j) and its mirror (j, i) are
+  // the same sum u_i·cdof_j (+0 from the pattern's other half), so each is
+  // summed once and stored twice, and into H's lower triangle for a_s;
+  // RNE forces and the xfrc wrenches per body
+  for (int t = tid; t < nv * (nv + 1) / 2; t += kMT) {
+    int i = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+    while ((i + 1) * (i + 2) / 2 <= t) ++i;
+    while (i * (i + 1) / 2 > t) --i;
+    const int j = t - i * (i + 1) / 2;
+    T p = T(0);
+    for (int a = 0; a < 6; ++a) p += s.u[6 * i + a] * s.cdof[6 * j + a];
     const bool da = ic[mt.i_danc + i * nv + j] != 0;
-    const bool st = i != j && ic[mt.i_danc + j * nv + i] != 0;
-    s.qM[e] = ((da ? p : T(0)) + (st ? pt : T(0)))
-              + (i == j ? fc[mt.f_dof_armature + i] : T(0));
+    const T q = ((da ? p : T(0)) + T(0))
+                + (i == j ? fc[mt.f_dof_armature + i] : T(0));
+    s.qM[i * nv + j] = q;
+    s.qM[j * nv + i] = q;
+    s.H[i * ld + j] = q;
   }
-  for (int b = tid; b < nb; b += kThreads) {
+  for (int b = tid; b < nb; b += kMT) {
     const T* ci = s.cinert + 36 * b;
     T icacc[6], icvel[6];
     for (int a = 0; a < 6; ++a) {
@@ -812,14 +1068,19 @@ __device__ void step(const Meta& mt, const int* __restrict__ ic,
     }
   }
   __syncthreads();
+  clk.mark(kRne);
 
-  // per dof: bias (RNE backward pass), xfrc, springs and dampers; thread 0
-  // also runs the joint motors
-  for (int v = tid; v < nv; v += kThreads) {
+  // per dof: bias (RNE backward pass) and xfrc over the bodies that carry
+  // the dof (dbody), springs and dampers; per actuator: its joint motor's
+  // force and the bad-ctrl guard (a NaN or huge clamped control zeroes all
+  // motors), which the barrier ORs over the block
+  const unsigned short* dbody_adr = list(mt.i_dbody_adr);
+  const unsigned short* dbody = list(mt.i_dbody);
+  for (int v = tid; v < nv; v += kMT) {
     T tb[6], tx[6];
     for (int k = 0; k < 6; ++k) tb[k] = tx[k] = T(0);
-    for (int b = 0; b < nb; ++b) {
-      if (!anc[b * nv + v]) continue;
+    for (int i = dbody_adr[v]; i < dbody_adr[v + 1]; ++i) {
+      const int b = dbody[i];
       for (int k = 0; k < 6; ++k) {
         tb[k] += s.fall[6 * b + k];
         tx[k] += s.f6[6 * b + k];
@@ -839,164 +1100,105 @@ __device__ void step(const Meta& mt, const int* __restrict__ ic,
     if (!(flags & kDamperOff)) pas = pas - fc[mt.f_dof_damping + v] * s.qvel[v];
     s.passive[v] = pas;
   }
-  if (tid == 0) {
-    for (int v = 0; v < nv; ++v) s.act[v] = T(0);
-    if (nu && !(flags & kActuationOff)) {
-      // the bad-ctrl guard: a NaN or huge clamped control zeroes them all
-      bool bad = false;
-      for (int i = 0; i < nu; ++i) {
-        T c = s.ctrl[i];
-        if (!(flags & kClampCtrlOff) && (ic[mt.i_act_flags + i] & 1))
-          c = clip(c, fc[mt.f_act_ctrlrange + 2 * i],
-                   fc[mt.f_act_ctrlrange + 2 * i + 1]);
-        bad = bad || c != c || fabs(c) > T(kMaxVal);
-      }
-      for (int i = 0; i < nu; ++i) {
-        const int af = ic[mt.i_act_flags + i];
-        if (af & 4) continue;
-        T c = s.ctrl[i];
-        if (!(flags & kClampCtrlOff) && (af & 1))
-          c = clip(c, fc[mt.f_act_ctrlrange + 2 * i],
-                   fc[mt.f_act_ctrlrange + 2 * i + 1]);
-        T force = fc[mt.f_act_gain + i] * c;
-        if (af & 2)
-          force = clip(force, fc[mt.f_act_forcerange + 2 * i],
-                       fc[mt.f_act_forcerange + 2 * i + 1]);
-        if (bad) force = T(0);
-        const int da = ic[mt.i_act_dadr + i];
-        s.act[da] = s.act[da] + fc[mt.f_act_gear + i] * force;
-      }
+  const bool motors = nu && !(flags & kActuationOff);
+  bool bad_mine = false;
+  if (motors) {
+    for (int i = tid; i < nu; i += kMT) {
+      const int af = ic[mt.i_act_flags + i];
+      T c = s.ctrl[i];
+      if (!(flags & kClampCtrlOff) && (af & 1))
+        c = clip(c, fc[mt.f_act_ctrlrange + 2 * i],
+                 fc[mt.f_act_ctrlrange + 2 * i + 1]);
+      bad_mine = bad_mine || c != c || fabs(c) > T(kMaxVal);
+      T force = fc[mt.f_act_gain + i] * c;
+      if (af & 2)
+        force = clip(force, fc[mt.f_act_forcerange + 2 * i],
+                     fc[mt.f_act_forcerange + 2 * i + 1]);
+      s.actf[i] = force;
     }
   }
-  __syncthreads();
+  const bool bad = __syncthreads_or(bad_mine);
+  clk.mark(kForce);
 
-  // qfrc_smooth and a_s = M⁻¹ qfrc_smooth by the LDL of ldl_common.cuh
-  for (int v = tid; v < nv; v += kThreads) {
-    const T sm = s.passive[v] - s.bias[v] + s.act[v] + s.qfrc_app[v] + s.qx[v];
+  // qfrc_actuator per dof, its motors in actuator order; qfrc_smooth
+  for (int v = tid; v < nv; v += kMT) {
+    T act = T(0);
+    if (motors) {
+      const unsigned short* dact_adr = list(mt.i_dact_adr);
+      for (int i = dact_adr[v]; i < dact_adr[v + 1]; ++i) {
+        const int a = list(mt.i_dact)[i];
+        if (ic[mt.i_act_flags + a] & 4) continue;
+        const T force = bad ? T(0) : s.actf[a];
+        act = act + fc[mt.f_act_gear + a] * force;
+      }
+    }
+    const T sm = s.passive[v] - s.bias[v] + act + s.qfrc_app[v] + s.qx[v];
     s.smooth[v] = sm;
-    s.y[v] = sm;
+    s.as[v] = sm;
   }
-  for (int e = tid; e < nv * nv; e += kThreads) {
-    const int i = e / nv, j = e - i * nv;
-    if (j <= i) s.H[i * ld + j] = s.qM[e];
-  }
-  __syncthreads();
-  if (tid < 32) warp_ldl_solve(s.H, ld, s.y, nv, tid);
-  __syncthreads();
-  for (int v = tid; v < nv; v += kThreads) s.as[v] = s.y[v];
   __syncthreads();
 
-  const int nl = mt.nl, ncon = mt.ncon, nefc = mt.nefc;
+  // warp 0: a_s by the LDL of ldl_common.cuh; warp 1 meanwhile: the
+  // constraint rows. The smooth dynamics' work space is free from here on.
+  const int nefc = mt.nefc;
+  if (tid < 32) {
+    warp_ldl_solve(s.H, ld, s.as, nv, tid);
+    clk.mark(kSmooth);
+  } else if (nefc > 0) {
+    constraint_rows(mt, ic, fc, s);
+  }
+  __syncthreads();
+  clk.mark(kRows);
+
   if (nefc > 0) {
-    // limit rows (constant one-hot J) and the narrowphase
-    for (int e = tid; e < nl * nv; e += kThreads) {
-      const int r = e / nv, v = e - r * nv;
-      s.J[e] = v == ic[mt.i_lim_dadr + r] ? -fc[mt.f_lim_side + r] : T(0);
-    }
-    for (int r = tid; r < nl; r += kThreads) {
-      const int qa = ic[mt.i_lim_qadr + r], da = ic[mt.i_lim_dadr + r];
-      const T side = fc[mt.f_lim_side + r];
-      const T margin = fc[mt.f_lim_margin + r];
-      const T dist = side * (fc[mt.f_lim_value + r] - s.qpos[qa]);
-      const T act_f = (!(flags & kLimitOff) && dist < margin) ? T(1) : T(0);
-      const T imp = impedance(dist, margin, fc + mt.f_lim_imp + 9 * r,
-                              ic[mt.i_lim_pow + r]);
-      const T k = fc[mt.f_lim_kb + 2 * r], b = fc[mt.f_lim_kb + 2 * r + 1];
-      const T r_row = max_keep_nan(
-          T(kMinVal), (T(1) - imp) * fc[mt.f_lim_diaga + r] / imp);
-      const T jqvel = -side * s.qvel[da];
-      s.aref[r] = (-b * jqvel - k * imp * (dist - margin)) * act_f;
-      s.D[r] = act_f / r_row;
-    }
-    for (int g = tid; g < mt.ngroup; g += kThreads)
-      collide_group(mt, ic, fc, s, g);
-    __syncthreads();
+    const int nla = s.cnt[0], nsl = s.cnt[1];
+    const int nrow = nla + 4 * nsl;
+    clk.rows(nrow, nsl);
 
-    // pyramidal contact rows: jn ± μ·jt1, jn ± μ·jt2 per slot
-    for (int e = tid; e < ncon * nv; e += kThreads) {
-      const int c = e / nv, v = e - c * nv;
-      T jn, jt1, jt2;
-      contact_jac(mt, ic, s, c, v, jn, jt1, jt2);
-      const T f0 = fc[mt.f_con_fri + 2 * c], f1 = fc[mt.f_con_fri + 2 * c + 1];
-      T* row = s.J + (nl + 4 * c) * nv + v;
-      row[0] = jn + f0 * jt1;
-      row[nv] = jn + (-f0) * jt1;
-      row[2 * nv] = jn + f1 * jt2;
-      row[3 * nv] = jn + (-f1) * jt2;
-    }
-    for (int c = tid; c < ncon; c += kThreads) {
-      T jqn = T(0), jq1 = T(0), jq2 = T(0);
-      for (int v = 0; v < nv; ++v) {
-        T jn, jt1, jt2;
-        contact_jac(mt, ic, s, c, v, jn, jt1, jt2);
-        jqn += jn * s.qvel[v];
-        jq1 += jt1 * s.qvel[v];
-        jq2 += jt2 * s.qvel[v];
-      }
-      const T dist = s.cdist[c], margin = fc[mt.f_con_margin + c];
-      const T act_f = (!(flags & kContactOff) && dist < margin) ? T(1) : T(0);
-      const T imp = impedance(dist, margin, fc + mt.f_con_imp + 9 * c,
-                              ic[mt.i_con_pow + c]);
-      const T r0 = max_keep_nan(
-          T(kMinVal), (T(1) - imp) * fc[mt.f_con_diaga + c] / imp);
-      const T d_py = act_f / (fc[mt.f_con_rpy + c] * r0);
-      const T k = fc[mt.f_con_kb + 2 * c], b = fc[mt.f_con_kb + 2 * c + 1];
-      const T aref_base = -k * imp * (dist - margin);
-      const T f0 = fc[mt.f_con_fri + 2 * c], f1 = fc[mt.f_con_fri + 2 * c + 1];
-      const T jqv[4] = {jqn + f0 * jq1, jqn + (-f0) * jq1, jqn + f1 * jq2,
-                        jqn + (-f1) * jq2};
-      for (int q = 0; q < 4; ++q) {
-        s.aref[nl + 4 * c + q] = (-b * jqv[q] + aref_base) * act_f;
-        s.D[nl + 4 * c + q] = d_py;
-      }
-    }
-    __syncthreads();
-
-    // the Newton solve, every row one-sided (no friction-loss rows)
-    const NewtonSmem<T> sm{s.J,    s.qM,   s.H,   s.aref,  s.D,   nullptr,
-                           nullptr, nullptr, nullptr, s.jar, s.jp, s.force,
-                           s.w,    s.x,    s.as,  s.warm,  s.dx,  s.mdx,
-                           s.y,    s.red,  s.cost, nefc,   nv,    ld};
-    block_newton<T, true>(sm, fc[mt.f_scal + 7], mt.iterations, mt.ls_iter,
-                          (flags & kUseWarm) != 0);
-    for (int i = tid; i < nv; i += kThreads) {
-      T acc = T(0);
-      for (int r = 0; r < nefc; ++r) acc += s.J[r * nv + i] * s.force[r];
-      s.qc[i] = acc;
-    }
+    // the Newton solve over the active rows, every one one-sided; then
+    // qfrc_constraint = Jᵀf
+    const ListRows<T> rows{s.cv, s.ra, s.rb, s.rc, s.aref, s.D, nrow, nv,
+                           nla};
+    const NewtonWork<T> work{s.qM, s.H,  s.jar, s.jp, s.force, s.w,
+                             s.x,  s.as, s.warm, s.dx, s.mdx,  s.y,
+                             s.red, s.cost, nv,   ld};
+    block_newton<kMT>(rows, work, fc[mt.f_scal + 7], mt.iterations,
+                      mt.ls_iter, (flags & kUseWarm) != 0);
+    for (int i = tid; i < nv; i += kMT) s.qc[i] = rows.jtf(i, s.force);
   } else {
-    for (int i = tid; i < nv; i += kThreads) {
+    for (int i = tid; i < nv; i += kMT) {
       s.x[i] = s.as[i];
       s.qc[i] = T(0);
     }
   }
   __syncthreads();
+  clk.mark(kNewton);
 
   // Euler; with joint damping the velocity update is implicit:
   // (M + h·diag(damping))⁻¹ (qfrc_smooth + qfrc_constraint) (:1327-1337).
   // qacc and the next warmstart keep the solver's x (:1362).
   const T* acc = s.x;
   if (flags & kUseDamp) {
-    for (int e = tid; e < nv * nv; e += kThreads) {
+    for (int e = tid; e < nv * nv; e += kMT) {
       const int i = e / nv, j = e - i * nv;
       if (j <= i)
         s.H[i * ld + j] = s.qM[e] + (i == j ? h * fc[mt.f_dof_damping + i] : T(0));
     }
-    for (int v = tid; v < nv; v += kThreads) s.y[v] = s.smooth[v] + s.qc[v];
+    for (int v = tid; v < nv; v += kMT) s.y[v] = s.smooth[v] + s.qc[v];
     __syncthreads();
     if (tid < 32) warp_ldl_solve(s.H, ld, s.y, nv, tid);
     __syncthreads();
     acc = s.y;
   }
-  for (int v = tid; v < nv; v += kThreads) s.qvel[v] = s.qvel[v] + h * acc[v];
+  for (int v = tid; v < nv; v += kMT) s.qvel[v] = s.qvel[v] + h * acc[v];
   __syncthreads();
-  for (int v = tid; v < nv; v += kThreads) {
+  for (int v = tid; v < nv; v += kMT) {
     const int q = ic[mt.i_dof_q + v];
     if (q >= 0) s.qpos[q] = s.qpos[q] + h * s.qvel[v];
     s.warm[v] = s.x[v];
     s.qacc[v] = s.x[v];
   }
-  for (int j = tid; j < mt.nfree; j += kThreads) {
+  for (int j = tid; j < mt.nfree; j += kMT) {
     T* q = s.qpos + ic[mt.i_free_qadr + j] + 3;
     const T* w = s.qvel + ic[mt.i_free_dadr + j] + 3;
     qnorm(q);
@@ -1014,8 +1216,8 @@ __device__ void step(const Meta& mt, const int* __restrict__ ic,
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool kTimed>
+__global__ void __launch_bounds__(kMT, sizeof(T) == 4 ? 8 : 4)
 megastep_kernel(Meta mt, const int* __restrict__ ic,
                 const T* __restrict__ fc, const T* __restrict__ fresh,
                 const T* __restrict__ qpos_in, const T* __restrict__ qvel_in,
@@ -1025,7 +1227,7 @@ megastep_kernel(Meta mt, const int* __restrict__ ic,
                 T* __restrict__ qpos_out, T* __restrict__ qvel_out,
                 T* __restrict__ ctrl_out, T* __restrict__ warm_out,
                 T* __restrict__ qacc_out, T* __restrict__ time_out,
-                int nstep, int check) {
+                int nstep, int check, long long* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Work<T> s;
   layout<T>(mt, reinterpret_cast<T*>(smem_raw), &s);
@@ -1034,21 +1236,30 @@ megastep_kernel(Meta mt, const int* __restrict__ ic,
   const int nq = mt.nq, nv = mt.nv, nu = mt.nu, nb = mt.nbody;
 
   // the state, read once
-  for (int i = tid; i < nq; i += kThreads) s.qpos[i] = qpos_in[env * nq + i];
-  for (int i = tid; i < nv; i += kThreads) {
+  for (int i = tid; i < nq; i += kMT) s.qpos[i] = qpos_in[env * nq + i];
+  for (int i = tid; i < nv; i += kMT) {
     s.qvel[i] = qvel_in[env * nv + i];
     s.warm[i] = warm_in[env * nv + i];
     s.qacc[i] = qacc_in[env * nv + i];
     s.qfrc_app[i] = qfrc_in[env * nv + i];
   }
-  for (int i = tid; i < nu; i += kThreads) s.ctrl[i] = ctrl_in[env * nu + i];
-  for (int i = tid; i < 6 * nb; i += kThreads) s.xfrc[i] = xfrc_in[env * 6 * nb + i];
+  for (int i = tid; i < nu; i += kMT) s.ctrl[i] = ctrl_in[env * nu + i];
+  for (int i = tid; i < 6 * nb; i += kMT) s.xfrc[i] = xfrc_in[env * 6 * nb + i];
+  for (int i = tid; i < mt.nlist; i += kMT)
+    s.lists[i] = static_cast<unsigned short>(ic[mt.i_lvl_adr + i]);
   if (tid == 0) s.time[0] = time_in[env];
+  StageClock<kTimed> clk;
+  if constexpr (kTimed) {
+    __shared__ long long clk_sum[kStatWords];
+    clk.sum = clk_sum;
+    for (int i = tid; i < kStatWords; i += kMT) clk_sum[i] = 0;
+  }
   __syncthreads();
+  clk.start();
 
   const T h = fc[mt.f_scal];
   for (int n = 0; n < nstep; ++n) {
-    step(mt, ic, fc, s);
+    step(mt, ic, fc, s, clk);
     if (tid == 0) s.time[0] = s.time[0] + h;
     if (check) {
       // the divergence guard (_check_reset_lane): a NaN or a value above
@@ -1056,33 +1267,38 @@ megastep_kernel(Meta mt, const int* __restrict__ ic,
       // fresh state and warmstart, qacc and time to 0 (not to
       // d_fresh.time, unlike the stage path's check_reset)
       bool mine = false;
-      for (int i = tid; i < nq; i += kThreads)
+      for (int i = tid; i < nq; i += kMT)
         mine = mine || s.qpos[i] != s.qpos[i] || fabs(s.qpos[i]) > T(kMaxVal);
-      for (int i = tid; i < nv; i += kThreads)
+      for (int i = tid; i < nv; i += kMT)
         mine = mine || s.qvel[i] != s.qvel[i] || fabs(s.qvel[i]) > T(kMaxVal);
       if (__syncthreads_or(mine)) {
-        for (int i = tid; i < nq; i += kThreads) s.qpos[i] = fresh[i];
-        for (int i = tid; i < nv; i += kThreads) {
+        for (int i = tid; i < nq; i += kMT) s.qpos[i] = fresh[i];
+        for (int i = tid; i < nv; i += kMT) {
           s.qvel[i] = fresh[nq + i];
           s.warm[i] = T(0);
           s.qacc[i] = T(0);
         }
-        for (int i = tid; i < nu; i += kThreads) s.ctrl[i] = fresh[nq + nv + i];
+        for (int i = tid; i < nu; i += kMT) s.ctrl[i] = fresh[nq + nv + i];
         if (tid == 0) s.time[0] = T(0);
       }
     }
     __syncthreads();
+    clk.mark(kEuler);
   }
 
   // the state, written once
-  for (int i = tid; i < nq; i += kThreads) qpos_out[env * nq + i] = s.qpos[i];
-  for (int i = tid; i < nv; i += kThreads) {
+  for (int i = tid; i < nq; i += kMT) qpos_out[env * nq + i] = s.qpos[i];
+  for (int i = tid; i < nv; i += kMT) {
     qvel_out[env * nv + i] = s.qvel[i];
     warm_out[env * nv + i] = s.warm[i];
     qacc_out[env * nv + i] = s.qacc[i];
   }
-  for (int i = tid; i < nu; i += kThreads) ctrl_out[env * nu + i] = s.ctrl[i];
+  for (int i = tid; i < nu; i += kMT) ctrl_out[env * nu + i] = s.ctrl[i];
   if (tid == 0) time_out[env] = s.time[0];
+  if constexpr (kTimed) {
+    for (int i = tid; i < kStatWords; i += kMT)
+      stats[env * kStatWords + i] = clk.sum[i];
+  }
 }
 
 // Meta from the host's int array; false if the count is not Meta's
@@ -1098,25 +1314,28 @@ size_t smem_bytes(const Meta& mt) {
                    static_cast<Work<T>*>(nullptr)) * sizeof(T);
 }
 
-template <typename T>
+template <typename T, bool kTimed>
 int launch_megastep(const int* meta, int nmeta, const int* ic, const T* fc,
-                     const T* fresh, const T* const* in, T* const* out, int B,
-                     int nstep, int check, cudaStream_t stream) {
+                    const T* fresh, const T* const* in, T* const* out, int B,
+                    int nstep, int check, long long* stats,
+                    cudaStream_t stream) {
   Meta mt;
   if (!read_meta(meta, nmeta, &mt) || B < 1 || nstep < 0 || mt.nv < 1 ||
       mt.nv > 64 || (mt.nefc > 0 && (mt.iterations < 1 ||
-                                     mt.iterations > kStatRows)))
+                                     mt.iterations > kStatRows)) ||
+      (kTimed && stats == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<T>(mt);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        megastep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        megastep_kernel<T, kTimed>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  megastep_kernel<T><<<B, kThreads, smem, stream>>>(
+  megastep_kernel<T, kTimed><<<B, kMT, smem, stream>>>(
       mt, ic, fc, fresh, in[0], in[1], in[2], in[3], in[4], in[5], in[6],
-      in[7], out[0], out[1], out[2], out[3], out[4], out[5], nstep, check);
+      in[7], out[0], out[1], out[2], out[3], out[4], out[5], nstep, check,
+      stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1127,13 +1346,56 @@ int megastep_blocks_per_sm(const int* meta, int nmeta) {
     return -static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<T>(mt);
   cudaError_t err = cudaFuncSetAttribute(
-      megastep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      megastep_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem > 48 * 1024 ? smem : 48 * 1024));
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, megastep_kernel<T>, kThreads, smem);
+        &blocks, megastep_kernel<T, false>, kMT, smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// cudaFuncGetAttributes of one instantiation: registers per thread, local
+// (spilled) bytes per thread, static shared bytes, threads per block
+template <typename T, bool kTimed>
+int megastep_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, megastep_kernel<T, kTimed>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = kMT;
+  return 0;
+}
+
+// The C entries' common arguments: the tables, the fresh state, the 8 state
+// inputs and 6 outputs of STATE/OUT order, the batch, the steps, the guard
+// switch and the stream; the timed entries add stats, (B, kStatWords) int64.
+#define MJT_MEGASTEP_PARAMS                                                 \
+  const int *meta, int nmeta, const void *ic, const void *fc,               \
+      const void *fresh, const void *qpos, const void *qvel,                \
+      const void *ctrl, const void *warm, const void *qacc,                 \
+      const void *time, const void *qfrc, const void *xfrc, void *qpos_o,   \
+      void *qvel_o, void *ctrl_o, void *warm_o, void *qacc_o, void *time_o, \
+      int B, int nstep, int check, void *stream
+#define MJT_MEGASTEP_ARGS                                                    \
+  meta, nmeta, ic, fc, fresh, qpos, qvel, ctrl, warm, qacc, time, qfrc, xfrc, \
+      qpos_o, qvel_o, ctrl_o, warm_o, qacc_o, time_o, B, nstep, check, stream
+
+template <typename T, bool kTimed>
+int entry(MJT_MEGASTEP_PARAMS, void* stats) {
+  const T* in[8] = {static_cast<const T*>(qpos), static_cast<const T*>(qvel),
+                    static_cast<const T*>(ctrl), static_cast<const T*>(warm),
+                    static_cast<const T*>(qacc), static_cast<const T*>(time),
+                    static_cast<const T*>(qfrc), static_cast<const T*>(xfrc)};
+  T* out[6] = {static_cast<T*>(qpos_o), static_cast<T*>(qvel_o),
+               static_cast<T*>(ctrl_o), static_cast<T*>(warm_o),
+               static_cast<T*>(qacc_o), static_cast<T*>(time_o)};
+  return launch_megastep<T, kTimed>(
+      meta, nmeta, static_cast<const int*>(ic), static_cast<const T*>(fc),
+      static_cast<const T*>(fresh), in, out, B, nstep, check,
+      static_cast<long long*>(stats), static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1153,28 +1415,37 @@ int mjt_megastep_blocks_per_sm(const int* meta, int nmeta, int f64) {
              : mjt::megastep_blocks_per_sm<float>(meta, nmeta);
 }
 
-}  // extern "C"
-
-#define MJT_MEGASTEP_ENTRY(NAME, T)                                           \
-  extern "C" int NAME(const int* meta, int nmeta, const void* ic,             \
-                      const void* fc, const void* fresh, const void* qpos,    \
-                      const void* qvel, const void* ctrl, const void* warm,   \
-                      const void* qacc, const void* time, const void* qfrc,   \
-                      const void* xfrc, void* qpos_o, void* qvel_o,           \
-                      void* ctrl_o, void* warm_o, void* qacc_o, void* time_o, \
-                      int B, int nstep, int check, void* stream) {            \
-    const T* in[8] = {static_cast<const T*>(qpos), static_cast<const T*>(qvel), \
-                      static_cast<const T*>(ctrl), static_cast<const T*>(warm), \
-                      static_cast<const T*>(qacc), static_cast<const T*>(time), \
-                      static_cast<const T*>(qfrc), static_cast<const T*>(xfrc)}; \
-    T* out[6] = {static_cast<T*>(qpos_o), static_cast<T*>(qvel_o),            \
-                 static_cast<T*>(ctrl_o), static_cast<T*>(warm_o),            \
-                 static_cast<T*>(qacc_o), static_cast<T*>(time_o)};           \
-    return mjt::launch_megastep<T>(                                           \
-        meta, nmeta, static_cast<const int*>(ic), static_cast<const T*>(fc),  \
-        static_cast<const T*>(fresh), in, out, B, nstep, check,               \
-        static_cast<cudaStream_t>(stream));                                   \
+int mjt_megastep_attributes(int f64, int timed, int* out) {
+  if (f64) {
+    return timed ? mjt::megastep_attributes<double, true>(out)
+                 : mjt::megastep_attributes<double, false>(out);
   }
+  return timed ? mjt::megastep_attributes<float, true>(out)
+               : mjt::megastep_attributes<float, false>(out);
+}
 
-MJT_MEGASTEP_ENTRY(mjt_megastep_f32, float)
-MJT_MEGASTEP_ENTRY(mjt_megastep_f64, double)
+int mjt_megastep_stat_words(void) { return mjt::kStatWords; }
+
+// the SM clock in kHz, which converts the stage clock's cycles to time
+int mjt_sm_clock_khz(void) {
+  int dev = 0, khz = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&khz, cudaDevAttrClockRate, dev) != cudaSuccess)
+    return -1;
+  return khz;
+}
+
+int mjt_megastep_f32(MJT_MEGASTEP_PARAMS) {
+  return mjt::entry<float, false>(MJT_MEGASTEP_ARGS, nullptr);
+}
+int mjt_megastep_f64(MJT_MEGASTEP_PARAMS) {
+  return mjt::entry<double, false>(MJT_MEGASTEP_ARGS, nullptr);
+}
+int mjt_megastep_timed_f32(MJT_MEGASTEP_PARAMS, void* stats) {
+  return mjt::entry<float, true>(MJT_MEGASTEP_ARGS, stats);
+}
+int mjt_megastep_timed_f64(MJT_MEGASTEP_PARAMS, void* stats) {
+  return mjt::entry<double, true>(MJT_MEGASTEP_ARGS, stats);
+}
+
+}  // extern "C"

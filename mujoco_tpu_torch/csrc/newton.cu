@@ -104,18 +104,15 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   const T reg_e = reg[env];
   __syncthreads();
 
-  const NewtonSmem<T> sm{sJ,   sM,  sH,     sAref, sD,   sR,   sFl,
-                         sFric, sOnes, sJar, sJp,   sForce, sW, sX,
-                         sAs,  sWarm, sDx,  sMdx,  sY,   sRed, sCost,
-                         nefc, nv,  ld};
-  block_newton<T, false>(sm, reg_e, iterations, ls_iter, true);
+  const DenseRows<T> rows{sJ, sAref, sD, sR, sFl, sFric, sOnes, nefc, nv};
+  const NewtonWork<T> work{sM,  sH,   sJar, sJp,  sForce, sW,   sX,  sAs,
+                           sWarm, sDx, sMdx, sY,  sRed,   sCost, nv, ld};
+  block_newton<kThreads>(rows, work, reg_e, iterations, ls_iter, true);
 
   // ---- outputs: x, the final forces, qfrc = Jᵀf, [improvement, cost]
   for (int r = tid; r < nefc; r += kThreads) f_out[env * nefc + r] = sForce[r];
   for (int i = tid; i < nv; i += kThreads) {
-    T jtf = T(0);
-    for (int r = 0; r < nefc; ++r) jtf += sJ[r * nv + i] * sForce[r];
-    qfrc_out[env * nv + i] = jtf;
+    qfrc_out[env * nv + i] = rows.jtf(i, sForce);
     x_out[env * nv + i] = sX[i];
   }
   for (int e = tid; e < 2 * kStatRows; e += kThreads) {

@@ -1,7 +1,8 @@
 // The pyramidal Newton solve of one env by one thread block, over operands
 // already staged in shared memory. Shared by the Newton kernel (newton.cu),
-// which stages rows built by the stage path, and the megastep kernel
-// (megastep.cu), which builds its rows in shared memory itself.
+// which stages a dense J built by the stage path (DenseRows), and the
+// megastep kernel (megastep.cu), which builds the list of its active rows
+// in shared memory itself (ListRows).
 //
 // Semantics are those of the reference's XLA body _xla_newton
 // (mujoco_tpu/ops/newton_tpu.py:81) and _xla_linesearch (:126), which the
@@ -11,12 +12,12 @@
 // H = M + JᵀWJ + reg·I, in-place LDL, p = −H⁻¹grad, a bracketed Newton
 // linesearch of ls_iter steps, x += αp; then a final row update.
 //
-// Threads split the nefc rows for jar, the row update and the linesearch
-// sums, the nv columns for Jᵀf, M·x and the gradient, and the lower
-// triangle of H for Σ_r w_r J_rᵀJ_r; warp 0 then factors H in place with the
-// LDL of ldl_common.cuh. Block sums reduce in a fixed order and every thread
-// reads the same totals, so the linesearch's scalar state (lo, hi, has_hi,
-// α) is identical in all threads without a broadcast.
+// Threads split the rows for jar, the row update and the linesearch sums,
+// the nv columns for Jᵀf, M·x and the gradient, and the lower triangle of H
+// for Σ_r w_r J_rᵀJ_r; warp 0 then factors H in place with the LDL of
+// ldl_common.cuh. Block sums reduce in a fixed order and every thread reads
+// the same totals, so the linesearch's scalar state (lo, hi, has_hi, α) is
+// identical in all threads without a broadcast.
 //
 // Kinks: the linesearch stops where φ'(α) changes sign, and φ' is piecewise
 // linear with a kink wherever a row crosses jar = 0 (or ±R·fl). At f32 an
@@ -33,7 +34,7 @@
 
 namespace mjt {
 
-constexpr int kThreads = 128;  // threads of a block that runs one solve
+constexpr int kThreads = 128;  // threads of a Newton-kernel block
 constexpr int kStatRows = 32;
 constexpr double kMinVal = 1e-15;  // mjMINVAL
 
@@ -58,8 +59,9 @@ __device__ inline void row_update(T jar, T D, T R, T fl, T fric, T ones,
   }
 }
 
-// Sum a and b over the block; every thread returns the same totals.
-template <typename T>
+// Sum a and b over the block of kNT threads; every thread returns the same
+// totals.
+template <int kNT, typename T>
 __device__ inline void block_sum2(T& a, T& b, T* red) {
   for (int off = 16; off > 0; off >>= 1) {
     a += __shfl_down_sync(kFullMask, a, off);
@@ -74,27 +76,20 @@ __device__ inline void block_sum2(T& a, T& b, T* red) {
   __syncthreads();
   a = T(0);
   b = T(0);
-  for (int w = 0; w < (kThreads >> 5); ++w) {
+  for (int w = 0; w < (kNT >> 5); ++w) {
     a += red[w];
     b += red[32 + w];
   }
 }
 
-// Shared-memory operands of one env's solve. J (nefc × nv), M (nv × nv)
-// and the inputs are read only; H (nv × ld), the row vectors jar, jp, force
-// and w (nefc), x, dx, mdx and y (nv), red (64) and cost (kStatRows + 1) are
-// work space. R, fl, fric and ones are unused when every row is one-sided.
+// Shared-memory work space of one env's solve: M (nv × nv) and the inputs
+// are read only; H (nv × ld), the row vectors jar, jp, force and w (one per
+// row of the solve), x, dx, mdx and y (nv), red (64) and cost
+// (kStatRows + 1) are written.
 template <typename T>
-struct NewtonSmem {
-  const T* J;
+struct NewtonWork {
   const T* M;
   T* H;
-  const T* aref;
-  const T* D;
-  const T* R;
-  const T* fl;
-  const T* fric;
-  const T* ones;
   T* jar;
   T* jp;
   T* force;
@@ -107,119 +102,254 @@ struct NewtonSmem {
   T* y;
   T* red;
   T* cost;
-  int nefc, nv, ld;
+  int nv, ld;
 };
 
-// Row update of row r; with kOneSided every row is a one-sided row without
-// friction loss (fric 0, ones 1), the megastep's whole row set.
-template <typename T, bool kOneSided>
-__device__ inline void row_at(const NewtonSmem<T>& s, int r, T jar, T& f,
-                              T& c, T& w) {
-  if (kOneSided) {
-    row_update(jar, s.D[r], T(0), T(0), T(0), T(1), f, c, w);
-  } else {
-    row_update(jar, s.D[r], s.R[r], s.fl[r], s.fric[r], s.ones[r], f, c, w);
+// The rows of a solve, as block_newton reads them: n rows; dot(k, v), row
+// k's product with a dof vector; jtf(i, f) = (Jᵀf)_i summed in row order;
+// build_h<kNT>(s, reg), H's lower triangle M + JᵀWJ + reg·I by the block's
+// kNT threads, each entry's JᵀWJ summed in row order; update(k, jar, ...),
+// the row update at jar. Two kinds:
+//
+// DenseRows (newton.cu): every row of a dense J (n × nv) in shared memory,
+// with friction-loss and two-sided rows (R, fl, fric, ones).
+template <typename T>
+struct DenseRows {
+  const T* J;
+  const T* aref;
+  const T* D;
+  const T* R;
+  const T* fl;
+  const T* fric;
+  const T* ones;
+  int n, nv;
+  __device__ T dot(int k, const T* v) const {
+    T acc = T(0);
+    for (int j = 0; j < nv; ++j) acc += J[k * nv + j] * v[j];
+    return acc;
   }
-}
+  __device__ T jtf(int i, const T* f) const {
+    T acc = T(0);
+    for (int k = 0; k < n; ++k) acc += J[k * nv + i] * f[k];
+    return acc;
+  }
+  template <int kNT>
+  __device__ void build_h(const NewtonWork<T>& s, T reg) const {
+    for (int e = threadIdx.x; e < nv * nv; e += kNT) {
+      const int i = e / nv, j = e - i * nv;
+      if (j > i) continue;
+      T acc = T(0);
+      for (int k = 0; k < n; ++k)
+        acc += (s.w[k] * J[k * nv + i]) * J[k * nv + j];
+      T hij = s.M[i * nv + j] + acc;
+      if (i == j) hij += reg;
+      s.H[i * s.ld + j] = hij;
+    }
+  }
+  __device__ void update(int k, T jar, T& f, T& c, T& w) const {
+    row_update(jar, D[k], R[k], fl[k], fric[k], ones[k], f, c, w);
+  }
+};
+
+// ListRows (megastep.cu): the active rows only, in ascending order of their
+// index in the dense row set, every one one-sided without friction loss:
+// first nlim limit rows, row k with J = rc[k] at dof −1 − ra[k] and zero
+// elsewhere; then four pyramidal rows jn + μ·jt per active contact slot,
+// the slot's normal vector jn and tangent vectors jt1, jt2 stored one
+// after the other (3·nv values) at cv + ra[k], jt at cv + rb[k], μ = rc[k]
+// (+f0, −f0 with jt1, +f1, −f1 with jt2). Each entry is formed with the
+// same rounding as a row that was stored. Dropping the inactive rows (D =
+// 0: force −0·jar, cost and w 0) and a limit row's zeros leaves every sum
+// of the dense solve unchanged but for its order.
+template <typename T>
+struct ListRows {
+  const T* cv;
+  const int* ra;
+  const int* rb;
+  const T* rc;
+  const T* aref;
+  const T* D;
+  int n, nv, nlim;
+  __device__ T jtf(int i, const T* f) const {
+    T acc = T(0);
+    for (int k = 0; k < nlim; ++k)
+      if (-1 - ra[k] == i) acc += rc[k] * f[k];
+    for (int k = nlim; k < n; k += 4) {
+      const T* jn = cv + ra[k];
+      const T n_i = jn[i], t1 = jn[nv + i], t2 = jn[2 * nv + i];
+      acc += (n_i + rc[k] * t1) * f[k];
+      acc += (n_i + rc[k + 1] * t1) * f[k + 1];
+      acc += (n_i + rc[k + 2] * t2) * f[k + 2];
+      acc += (n_i + rc[k + 3] * t2) * f[k + 3];
+    }
+    return acc;
+  }
+  // Each thread keeps up to kChunk entries of the lower triangle in
+  // registers and walks the rows once for all of them: a limit row touches
+  // only its dof's diagonal entry, a contact slot's four rows are formed
+  // from its three vectors.
+  template <int kNT>
+  __device__ void build_h(const NewtonWork<T>& s, T reg) const {
+    constexpr int kChunk = 8;
+    const int ntri = nv * (nv + 1) / 2;
+    for (int base = 0; base < ntri; base += kChunk * kNT) {
+      int ii[kChunk], jj[kChunk];
+      T acc[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        // entry t of the row-major lower triangle: t = i(i + 1)/2 + j
+        const int t = base + threadIdx.x + c * kNT;
+        int i = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+        while ((i + 1) * (i + 2) / 2 <= t) ++i;
+        while (i * (i + 1) / 2 > t) --i;
+        ii[c] = t < ntri ? i : -1;
+        jj[c] = t - i * (i + 1) / 2;
+        acc[c] = T(0);
+      }
+      for (int k = 0; k < nlim; ++k) {
+        const int dof = -1 - ra[k];
+        const T mu = rc[k];
+        const T wmu = s.w[k] * mu;
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c)
+          if (ii[c] == dof && jj[c] == dof) acc[c] += wmu * mu;
+      }
+      for (int k = nlim; k < n; k += 4) {
+        const T* jn = cv + ra[k];
+        const T mu[4] = {rc[k], rc[k + 1], rc[k + 2], rc[k + 3]};
+        const T w[4] = {s.w[k], s.w[k + 1], s.w[k + 2], s.w[k + 3]};
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          if (ii[c] < 0) continue;
+          const int i = ii[c], j = jj[c];
+          const T n_i = jn[i], t1_i = jn[nv + i], t2_i = jn[2 * nv + i];
+          const T n_j = jn[j], t1_j = jn[nv + j], t2_j = jn[2 * nv + j];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const T ti = q < 2 ? t1_i : t2_i, tj = q < 2 ? t1_j : t2_j;
+            acc[c] += (w[q] * (n_i + mu[q] * ti)) * (n_j + mu[q] * tj);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        if (ii[c] < 0) continue;
+        const int i = ii[c], j = jj[c];
+        T hij = s.M[i * nv + j] + acc[c];
+        if (i == j) hij += reg;
+        s.H[i * s.ld + j] = hij;
+      }
+    }
+  }
+  __device__ T dot(int k, const T* v) const {
+    const int a = ra[k];
+    const T mu = rc[k];
+    if (a < 0) return mu * v[-1 - a];
+    const T* jn = cv + a;
+    const T* jt = cv + rb[k];
+    T acc = T(0);
+    for (int j = 0; j < nv; ++j) acc += (jn[j] + mu * jt[j]) * v[j];
+    return acc;
+  }
+  __device__ void update(int k, T jar, T& f, T& c, T& w) const {
+    row_update(jar, D[k], T(0), T(0), T(0), T(1), f, c, w);
+  }
+};
+
 
 // Σ_r cost_r(Jv − aref) + 0.5·(v − a_s)ᵀM(v − a_s) for v in shared memory;
 // stores jar, force and w per row and dx, M·dx per dof. Every thread calls
 // it and gets the total.
-template <typename T, bool kOneSided>
-__device__ T newton_objective(const NewtonSmem<T>& s, const T* v) {
-  const int tid = threadIdx.x, nefc = s.nefc, nv = s.nv;
-  T rows = T(0), quad = T(0);
-  for (int r = tid; r < nefc; r += kThreads) {
-    T acc = T(0);
-    for (int j = 0; j < nv; ++j) acc += s.J[r * nv + j] * v[j];
-    const T jar = acc - s.aref[r];
+template <int kNT, typename T, class Rows>
+__device__ T newton_objective(const Rows& rows, const NewtonWork<T>& s,
+                              const T* v) {
+  const int tid = threadIdx.x, nv = s.nv;
+  T sum_rows = T(0), quad = T(0);
+  for (int k = tid; k < rows.n; k += kNT) {
+    const T jar = rows.dot(k, v) - rows.aref[k];
     T f, c, w;
-    row_at<T, kOneSided>(s, r, jar, f, c, w);
-    s.jar[r] = jar;
-    s.force[r] = f;
-    s.w[r] = w;
-    rows += c;
+    rows.update(k, jar, f, c, w);
+    s.jar[k] = jar;
+    s.force[k] = f;
+    s.w[k] = w;
+    sum_rows += c;
   }
-  for (int i = tid; i < nv; i += kThreads) s.dx[i] = v[i] - s.as[i];
+  for (int i = tid; i < nv; i += kNT) s.dx[i] = v[i] - s.as[i];
   __syncthreads();
-  for (int i = tid; i < nv; i += kThreads) {
+  for (int i = tid; i < nv; i += kNT) {
     T acc = T(0);
     for (int j = 0; j < nv; ++j) acc += s.M[i * nv + j] * s.dx[j];
     s.mdx[i] = acc;
     quad += s.dx[i] * acc;
   }
-  block_sum2(rows, quad, s.red);
-  return rows + T(0.5) * quad;
+  block_sum2<kNT>(sum_rows, quad, s.red);
+  return sum_rows + T(0.5) * quad;
 }
 
-// The whole solve: on return s.x holds the solution, s.force the forces of
-// its final row update and s.cost[0..iterations] the objective before each
-// iteration and after the last. use_warm = false starts from a_s without
-// the pick (DisableBit.WARMSTART in the megastep). Every thread of the
-// block must call it; the results are visible to all threads on return.
-template <typename T, bool kOneSided>
-__device__ void block_newton(const NewtonSmem<T>& s, T reg, int iterations,
-                             int ls_iter, bool use_warm) {
-  const int tid = threadIdx.x, nefc = s.nefc, nv = s.nv, ld = s.ld;
+// The whole solve by a block of kNT threads: on return s.x holds the
+// solution, s.force the forces of its final row update and
+// s.cost[0..iterations] the objective before each iteration and after the
+// last. use_warm = false starts from a_s without the pick
+// (DisableBit.WARMSTART in the megastep). Every thread of the block must
+// call it; the results are visible to all threads on return.
+template <int kNT, typename T, class Rows>
+__device__ void block_newton(const Rows& rows, const NewtonWork<T>& s, T reg,
+                             int iterations, int ls_iter, bool use_warm) {
+  const int tid = threadIdx.x, n = rows.n, nv = s.nv, ld = s.ld;
   const T* start = s.as;
+  // the objective at the warmstart is evaluated last, so that when the
+  // warmstart wins the pick its rows and M·dx are those of x = start and
+  // the first iteration reuses them and its cost
+  bool have_start = false;
+  T cost_start = T(0);
   if (use_warm) {
-    const T cost_warm = newton_objective<T, kOneSided>(s, s.warm);
-    const T cost_smooth = newton_objective<T, kOneSided>(s, s.as);
-    if (cost_warm < cost_smooth) start = s.warm;
+    const T cost_smooth = newton_objective<kNT>(rows, s, s.as);
+    const T cost_warm = newton_objective<kNT>(rows, s, s.warm);
+    if (cost_warm < cost_smooth) {
+      start = s.warm;
+      have_start = true;
+      cost_start = cost_warm;
+    }
   }
-  for (int i = tid; i < nv; i += kThreads) s.x[i] = start[i];
+  for (int i = tid; i < nv; i += kNT) s.x[i] = start[i];
   __syncthreads();
 
   for (int it = 0; it < iterations; ++it) {
     // jar, row update, M·(x − a_s) and the objective at x
-    const T cost = newton_objective<T, kOneSided>(s, s.x);
+    const T cost = it == 0 && have_start
+                       ? cost_start
+                       : newton_objective<kNT>(rows, s, s.x);
     if (tid == 0) s.cost[it] = cost;
     // right-hand side −grad = −(M(x − a_s) − Jᵀf)
-    for (int i = tid; i < nv; i += kThreads) {
-      T jtf = T(0);
-      for (int r = 0; r < nefc; ++r) jtf += s.J[r * nv + i] * s.force[r];
-      s.y[i] = -(s.mdx[i] - jtf);
-    }
+    for (int i = tid; i < nv; i += kNT)
+      s.y[i] = -(s.mdx[i] - rows.jtf(i, s.force));
     // H = M + Σ_r w_r J_rᵀ J_r + reg·I, lower triangle
-    for (int e = tid; e < nv * nv; e += kThreads) {
-      const int i = e / nv, j = e - i * nv;
-      if (j > i) continue;
-      T acc = T(0);
-      for (int r = 0; r < nefc; ++r)
-        acc += (s.w[r] * s.J[r * nv + i]) * s.J[r * nv + j];
-      T hij = s.M[i * nv + j] + acc;
-      if (i == j) hij += reg;
-      s.H[i * ld + j] = hij;
-    }
+    rows.template build_h<kNT>(s, reg);
     __syncthreads();
     if (tid < 32) warp_ldl_solve(s.H, ld, s.y, nv, tid);
     __syncthreads();
     // linesearch inputs: jp = J p, gx0 = pᵀM(x − a_s), pmp = pᵀMp
-    for (int r = tid; r < nefc; r += kThreads) {
-      T acc = T(0);
-      for (int j = 0; j < nv; ++j) acc += s.J[r * nv + j] * s.y[j];
-      s.jp[r] = acc;
-    }
+    for (int k = tid; k < n; k += kNT) s.jp[k] = rows.dot(k, s.y);
     T gx0 = T(0), pmp = T(0);
-    for (int i = tid; i < nv; i += kThreads) {
+    for (int i = tid; i < nv; i += kNT) {
       T acc = T(0);
       for (int j = 0; j < nv; ++j) acc += s.M[i * nv + j] * s.y[j];
       gx0 += s.y[i] * s.mdx[i];
       pmp += s.y[i] * acc;
     }
-    block_sum2(gx0, pmp, s.red);
+    block_sum2<kNT>(gx0, pmp, s.red);
 
     T lo = T(0), hi = T(INFINITY), alpha = T(0);
     bool has_hi = false;
     for (int l = 0; l < ls_iter; ++l) {
       T jpf = T(0), curv = T(0);
-      for (int r = tid; r < nefc; r += kThreads) {
+      for (int k = tid; k < n; k += kNT) {
         T f, c, w;
-        row_at<T, kOneSided>(s, r, s.jar[r] + alpha * s.jp[r], f, c, w);
-        jpf += s.jp[r] * f;
-        curv += w * s.jp[r] * s.jp[r];
+        rows.update(k, s.jar[k] + alpha * s.jp[k], f, c, w);
+        jpf += s.jp[k] * f;
+        curv += w * s.jp[k] * s.jp[k];
       }
-      block_sum2(jpf, curv, s.red);
+      block_sum2<kNT>(jpf, curv, s.red);
       const T dphi = gx0 + alpha * pmp - jpf;
       const T ddphi = pmp + curv;
       const bool neg = dphi < T(0);
@@ -236,12 +366,12 @@ __device__ void block_newton(const NewtonSmem<T>& s, T reg, int iterations,
       alpha = ok ? prop : (has_hi ? mid : prop);
     }
     alpha = alpha > T(0) ? alpha : T(0);
-    for (int i = tid; i < nv; i += kThreads) s.x[i] += alpha * s.y[i];
+    for (int i = tid; i < nv; i += kNT) s.x[i] += alpha * s.y[i];
     __syncthreads();
   }
 
   // final row update at the solution
-  const T cost_final = newton_objective<T, kOneSided>(s, s.x);
+  const T cost_final = newton_objective<kNT>(rows, s, s.x);
   if (tid == 0) s.cost[iterations] = cost_final;
   __syncthreads();
 }

@@ -120,11 +120,21 @@ def library() -> ctypes.CDLL:
 def bind_megastep(lib) -> None:
   """argtypes of the megastep kernel's C interface (csrc/megastep.cu)."""
   p, i = ctypes.c_void_p, ctypes.c_int
+  args = [p, i, p, p, p] + [p] * 14 + [i, i, i, p]
   for fn in (lib.mjt_megastep_f32, lib.mjt_megastep_f64):
-    fn.argtypes = [p, i, p, p, p] + [p] * 14 + [i, i, i, p]
+    fn.argtypes = args
+    fn.restype = i
+  # the stage-clock instantiation: the same arguments, then its stats
+  for fn in (lib.mjt_megastep_timed_f32, lib.mjt_megastep_timed_f64):
+    fn.argtypes = args + [p]
     fn.restype = i
   for fn in (lib.mjt_megastep_smem_bytes, lib.mjt_megastep_blocks_per_sm):
     fn.argtypes = [p, i, i]
+    fn.restype = i
+  lib.mjt_megastep_attributes.argtypes = [i, i, p]
+  lib.mjt_megastep_attributes.restype = i
+  for fn in (lib.mjt_megastep_stat_words, lib.mjt_sm_clock_khz):
+    fn.argtypes = []
     fn.restype = i
 
 

@@ -27,6 +27,7 @@ version for CPU tensors) and ``scan_batch`` (Data in, Data out), which
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional
 
@@ -63,6 +64,15 @@ PAIRS = ((GeomType.PLANE, GeomType.SPHERE), (GeomType.PLANE, GeomType.CAPSULE),
          (GeomType.CAPSULE, GeomType.CAPSULE))
 PAIR_SLOTS = (1, 2, 4, 1, 1, 1, 2)
 
+# the stage clock's stages in step() order, as csrc/megastep.cu's
+# kStageNames (a test holds the two lists equal)
+STAGES = ("fk", "com", "cinert", "vel", "rne", "force", "smooth", "rows",
+          "newton", "euler")
+# after the stages' cycle sums, a timed launch's stats row holds the active
+# constraint rows summed over the steps, their most in one step and the
+# active contact slots summed over the steps
+STAT_WORDS = len(STAGES) + 3
+
 # flag bits of Meta.flags
 SPRING_OFF, DAMPER_OFF, ACTUATION_OFF, CLAMPCTRL_OFF = 1, 2, 4, 8
 LIMIT_OFF, CONTACT_OFF, USE_WARM, USE_DAMP = 16, 32, 64, 128
@@ -70,13 +80,21 @@ LIMIT_OFF, CONTACT_OFF, USE_WARM, USE_DAMP = 16, 32, 64, 128
 # the packed tables; csrc/megastep.cu's ``struct Meta`` has one int per
 # name of META_FIELDS, in this order (a test holds the two lists equal)
 _COUNTS = ("nq", "nv", "nu", "nbody", "njnt", "nl", "ncon", "ngroup",
-           "nfree", "nefc", "iterations", "ls_iter", "flags")
+           "nfree", "nefc", "nlevel", "nlist", "iterations", "ls_iter",
+           "flags")
 INT_TABLES = (
     "body_parent", "body_jntadr", "body_jntnum", "body_root", "jnt_type",
     "jnt_qadr", "jnt_dadr", "dof_jnt", "dof_body", "dof_q", "dof_root",
     "dof_spring_q", "anc", "danc", "pred", "free_qadr", "free_dadr",
     "act_dadr", "act_flags", "lim_qadr", "lim_dadr", "lim_pow", "con_pow",
-    "con_group", "grp_type", "grp_b1", "grp_b2", "grp_slot", "grp_mask")
+    "con_group", "grp_type", "grp_b1", "grp_b2", "grp_slot", "grp_mask",
+    # the kernel's compact tree lists (tree_lists): bodies by tree level,
+    # children per body, chain dofs per body, earlier chain dofs per dof,
+    # bodies per dof, motors per dof; each an offset table and a list. They
+    # stay last and in this order: the kernel copies them, nlist values
+    # from lvl_adr on, into shared memory as 16-bit ints
+    "lvl_adr", "lvl_body", "child_adr", "child", "bdof_adr", "bdof",
+    "pdof_adr", "pdof", "dbody_adr", "dbody", "dact_adr", "dact")
 FLOAT_TABLES = (
     "scal", "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
     "body_inertia", "body_subtreemass", "jnt_axis", "jnt_pos", "jnt_qpos0",
@@ -225,6 +243,49 @@ def _imp(solimp):
   return code, [d0, dw, dw - d0, width, mid, a, b, power, 0.5 * (d0 + dw)]
 
 
+def _csr(groups) -> tuple:
+  """(offsets, flat list) of a list of int lists: group g is
+  flat[offsets[g]:offsets[g + 1]]."""
+  adr = np.zeros(len(groups) + 1, dtype=np.int64)
+  adr[1:] = np.cumsum([len(g) for g in groups])
+  flat = np.concatenate([np.asarray(g, dtype=np.int64) for g in groups]) \
+      if len(groups) else np.zeros(0, np.int64)
+  return adr, flat
+
+
+def tree_lists(parent, anc, pred, act_dadr, nv: int) -> dict:
+  """The compact lists the kernel walks in place of dense masks: bodies by
+  tree level (the world alone at level 0, a body one level below its
+  parent, ascending ids within a level), each body's children in
+  descending id order (the order the serial reverse passes add them in),
+  each body's chain dofs (ancestor_mask's row), each dof's earlier chain
+  dofs (cdofdot_mask's row), the bodies whose chain holds each dof
+  (ancestor_mask's column) and each dof's joint motors, all ascending but
+  the children. Returns the tables by name and ``nlevel``."""
+  parent = np.asarray(parent)
+  nb = len(parent)
+  depth = np.zeros(nb, dtype=np.int64)
+  for b in range(1, nb):
+    depth[b] = depth[parent[b]] + 1
+  nlevel = int(depth.max()) + 1
+  out = {"nlevel": nlevel}
+  out["lvl_adr"], out["lvl_body"] = _csr(
+      [np.nonzero(depth == lv)[0] for lv in range(nlevel)])
+  out["child_adr"], out["child"] = _csr(
+      [[c for c in range(nb - 1, 0, -1) if parent[c] == b]
+       for b in range(nb)])
+  out["bdof_adr"], out["bdof"] = _csr(
+      [np.nonzero(anc[b])[0] for b in range(nb)])
+  out["pdof_adr"], out["pdof"] = _csr(
+      [np.nonzero(pred[v])[0] for v in range(nv)])
+  out["dbody_adr"], out["dbody"] = _csr(
+      [np.nonzero(anc[:, v])[0] for v in range(nv)])
+  act_dadr = np.asarray(act_dadr, dtype=np.int64)
+  out["dact_adr"], out["dact"] = _csr(
+      [np.nonzero(act_dadr == v)[0] for v in range(nv)])
+  return out
+
+
 class Tables:
   """Everything the step needs of a Model, on the host: ``counts`` (sizes,
   solver iterations and flag bits), ``ints`` (name → int32 array) and
@@ -360,6 +421,14 @@ class Tables:
         flo[name] = []
       ints["con_pow"] = []
 
+    lists = tree_lists(m.body_parentid, np.asarray(m.tree.ancestor_mask),
+                       np.asarray(m.tree.cdofdot_mask), ints["act_dadr"], nv)
+    nlevel = lists.pop("nlevel")
+    nlist = sum(len(v) for v in lists.values())
+    if max(int(np.max(v, initial=0)) for v in lists.values()) > 0xFFFF:
+      raise ValueError("megastep: a tree list holds an index above 65535")
+    ints.update(lists)
+
     dis = m.disabled
     use_damp = (m.has_dof_damping and not dis(DisableBit.EULERDAMP)
                 and not dis(DisableBit.DAMPER))
@@ -373,7 +442,8 @@ class Tables:
              + USE_DAMP * use_damp)
     self.counts = dict(nq=nq, nv=nv, nu=nu, nbody=nb, njnt=nj, nl=nl,
                        ncon=ncon, ngroup=len(firsts), nfree=len(free),
-                       nefc=m.efc.nefc, iterations=int(m.opt.iterations),
+                       nefc=m.efc.nefc, nlevel=nlevel, nlist=nlist,
+                       iterations=int(m.opt.iterations),
                        ls_iter=int(m.opt.ls_iterations), flags=int(flags))
     assert m.efc.nefc == nl + 4 * ncon
     self.ints = {k: np.asarray(ints[k], dtype=np.int32).reshape(-1)
@@ -854,9 +924,11 @@ def smem_bytes(m: Model, dtype) -> int:
 
 
 def _launch(lib, m: Model, state: dict, fresh: dict, nstep: int,
-            check: bool, stream: int) -> dict:
-  """Launch the kernel through ``lib`` (no device checks) and count the
-  launch; returns OUT. An empty batch launches nothing."""
+            check: bool, stream: int, stats=None) -> dict:
+  """Launch the kernel through ``lib`` (no device checks); returns OUT. An
+  empty batch launches nothing. With ``stats`` (B, STAT_WORDS) int64 the
+  stage-clock instantiation runs and fills it; otherwise the launch counts
+  in LAUNCHES."""
   global LAUNCHES
   q = state["qpos"]
   meta, _, ic, fc = packed(m, q.dtype, q.device)
@@ -864,21 +936,27 @@ def _launch(lib, m: Model, state: dict, fresh: dict, nstep: int,
   out = {k: torch.empty_like(state[k]) for k in OUT}
   if q.shape[0] == 0:
     return out
-  fn = lib.mjt_megastep_f32 if q.dtype == torch.float32 else \
-      lib.mjt_megastep_f64
+  f64 = q.dtype == torch.float64
+  if stats is not None and lib.mjt_megastep_stat_words() != STAT_WORDS:
+    raise RuntimeError("megastep: the kernel's stats row is not STAT_WORDS "
+                       "long")
+  if stats is None:
+    fn, extra = lib.mjt_megastep_f64 if f64 else lib.mjt_megastep_f32, ()
+  else:
+    fn = lib.mjt_megastep_timed_f64 if f64 else lib.mjt_megastep_timed_f32
+    extra = (stats.data_ptr(),)
   code = fn(meta.ctypes.data, len(meta), ic.data_ptr(), fc.data_ptr(),
             fresh_buf.data_ptr(), *(state[k].data_ptr() for k in STATE),
             *(out[k].data_ptr() for k in OUT), q.shape[0], int(nstep),
-            int(check), stream)
+            int(check), stream, *extra)
   cuda_build.check(code, "megastep")
-  LAUNCHES += 1
+  if stats is None:
+    LAUNCHES += 1
   return out
 
 
-def megastep_kernel(m: Model, state: dict, nstep: int, fresh: dict,
-                    check: bool = True) -> dict:
-  """Launch the CUDA kernel: one launch for all nstep steps (shapes and
-  result as ``megastep_plain``; contiguous CUDA tensors of one dtype)."""
+def _launch_checked(m: Model, state: dict, fresh: dict, nstep: int,
+                    check: bool, stats=None) -> dict:
   _check(m, state, fresh)
   if not state["qpos"].is_cuda:
     raise ValueError("megastep_kernel needs CUDA tensors")
@@ -890,7 +968,45 @@ def megastep_kernel(m: Model, state: dict, nstep: int, fresh: dict,
   with torch.cuda.device(state["qpos"].device):
     stream = torch.cuda.current_stream().cuda_stream
     return _launch(cuda_build.library(), m, state, fresh, nstep, check,
-                   stream)
+                   stream, stats)
+
+
+def megastep_kernel(m: Model, state: dict, nstep: int, fresh: dict,
+                    check: bool = True) -> dict:
+  """Launch the CUDA kernel: one launch for all nstep steps (shapes and
+  result as ``megastep_plain``; contiguous CUDA tensors of one dtype)."""
+  return _launch_checked(m, state, fresh, nstep, check)
+
+
+def megastep_timed(m: Model, state: dict, nstep: int, fresh: dict,
+                   check: bool = True) -> tuple:
+  """The kernel's stage-clock instantiation (``kTimed`` in
+  csrc/megastep.cu), a launch of its own that the main path never makes
+  and LAUNCHES does not count: (OUT as ``megastep_kernel``, stats). stats
+  is (B, STAT_WORDS) int64 on the card: per env, the SM cycles of each
+  stage of STAGES summed over the launch (thread 0's clock64() between the
+  barriers that end the stages), then the active-row counts STAT_WORDS
+  describes."""
+  q = state["qpos"]
+  stats = torch.zeros((q.shape[0], STAT_WORDS), dtype=torch.int64,
+                      device=q.device)
+  return _launch_checked(m, state, fresh, nstep, check, stats), stats
+
+
+def attributes(dtype, timed: bool = False) -> dict:
+  """``cudaFuncGetAttributes`` of the kernel's instantiation for dtype:
+  registers per thread, local (spilled) bytes per thread, static shared
+  bytes, and the block's threads."""
+  out = (ctypes.c_int * 4)()
+  cuda_build.check(cuda_build.library().mjt_megastep_attributes(
+      int(dtype == torch.float64), int(timed), out), "megastep attributes")
+  return dict(zip(("regs", "local_bytes", "static_smem", "threads"), out))
+
+
+def sm_clock_khz() -> int:
+  """The card's SM clock rate in kHz (``cudaDevAttrClockRate``), which turns
+  the stage clock's cycles into time."""
+  return cuda_build.library().mjt_sm_clock_khz()
 
 
 def blocks_per_sm(m: Model, dtype) -> int:

@@ -248,6 +248,72 @@ def test_megastep_kernel_matches_plain_f32(cuda, name):
     assert close.float().mean() >= 0.99, k
 
 
+def test_megastep_guard_resets_as_the_plain_version(cuda):
+  """Envs seeded with a NaN qpos or a qvel of ±1e11 come out of the kernel,
+  which solves over the active constraint rows only, reset to the fresh
+  state exactly as megastep_plain (dense rows) resets them; every env of
+  the batch agrees at the f64 tolerances over 3 steps."""
+  m = zoo.humanoid(torch.float64)
+  state, fresh = _posed(m, 64, 4)
+  state["qpos"][3, 5] = float("nan")
+  state["qpos"][17, 0] = float("nan")
+  state["qvel"][9, 2] = 1e11
+  state["qvel"][40, 7] = -1e11
+  out_k = megastep_cuda.megastep_kernel(m, state, 1, fresh)
+  out_p = megastep_cuda.megastep_plain(m, state, 1, fresh)
+  for out in (out_k, out_p):
+    for env in (3, 17):
+      torch.testing.assert_close(out["qpos"][env], fresh["qpos"], rtol=0,
+                                 atol=0)
+      torch.testing.assert_close(out["qvel"][env], fresh["qvel"], rtol=0,
+                                 atol=0)
+      assert out["time"][env] == 0 and (out["qacc"][env] == 0).all()
+  for env in (9, 40):
+    for k in ("qpos", "qvel", "warm", "qacc", "time"):
+      torch.testing.assert_close(out_k[k][env], out_p[k][env], rtol=1e-8,
+                                 atol=1e-8, msg=k)
+  out_k = megastep_cuda.megastep_kernel(m, state, 3, fresh)
+  out_p = megastep_cuda.megastep_plain(m, state, 3, fresh)
+  for k, tol in (("qpos", 1e-9), ("qvel", 1e-8), ("qacc", 1e-6),
+                 ("time", 1e-12)):
+    torch.testing.assert_close(out_k[k], out_p[k], rtol=tol, atol=tol,
+                               msg=k)
+
+
+def test_megastep_occupancy_holds_the_design(cuda):
+  """The redesign's reckoning at f32 on the humanoid: 64 threads per block,
+  at most 128 registers per thread and at most 28,160 B of shared memory
+  (an SM's 228 KB over 8 blocks, less the 1 KB the runtime keeps per
+  block), so 8 blocks per SM. A change that raises registers or the work
+  space drops the count and fails here."""
+  m = zoo.humanoid(torch.float32)
+  attrs = megastep_cuda.attributes(torch.float32)
+  assert attrs["threads"] == 64 and attrs["regs"] <= 128, attrs
+  assert megastep_cuda.smem_bytes(m, torch.float32) <= 28160
+  assert megastep_cuda.blocks_per_sm(m, torch.float32) >= 8
+
+
+def test_megastep_stage_clock(cuda):
+  """The timed instantiation returns the untimed kernel's result, a cycle
+  sum for every stage and the active-row counts, and counts no launch."""
+  m = zoo.humanoid(torch.float32)
+  state, fresh = _posed(m, 64, 5, lower=0.15)
+  nstep = 20
+  before = megastep_cuda.LAUNCHES
+  out, stats = megastep_cuda.megastep_timed(m, state, nstep, fresh)
+  assert megastep_cuda.LAUNCHES == before
+  ref = megastep_cuda.megastep_kernel(m, state, nstep, fresh)
+  for k in megastep_cuda.OUT:
+    assert torch.equal(out[k], ref[k]), k
+  nst = len(megastep_cuda.STAGES)
+  assert stats.shape == (64, megastep_cuda.STAT_WORDS)
+  assert (stats[:, :nst] > 0).all()
+  rows, most, slots = stats[:, nst], stats[:, nst + 1], stats[:, nst + 2]
+  assert (most <= m.efc.nefc).all() and (rows <= nstep * most).all()
+  assert (4 * slots <= rows).all() and rows.sum() > 0
+  assert megastep_cuda.sm_clock_khz() > 0
+
+
 def test_megastep_kernel_rejects_what_it_cannot_take(cuda):
   m = zoo.humanoid(torch.float32)
   state, fresh = _posed(m, 4, 0)

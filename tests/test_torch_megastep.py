@@ -8,8 +8,12 @@ numpy seed); the port's ``supported()`` answers as mujoco_tpu's on the
 gate's models at the default island gate; qfrc_applied and xfrc_applied,
 the divergence guard's lane semantics and a 2-step ``scan_batch`` against
 the stage path's ``scan_steps`` hold; CPU tensors never launch the kernel.
-The kernel itself is held against the plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+The kernel's premises are held here too: the Newton solve over only the
+active rows equals the dense one but for summation order, the compact tree
+lists expand back to the dense masks, and the Python lists of the kernel's
+Meta and stage clock match the CUDA source. The kernel itself is held
+against the plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
 import os
@@ -26,7 +30,7 @@ from mujoco_tpu.ops import megastep_tpu as jmega
 from mujoco_tpu_torch.models import io as tio
 from mujoco_tpu_torch.models import snapshot, zoo
 from mujoco_tpu_torch.models.types import DisableBit, Integrator
-from mujoco_tpu_torch.ops import forward
+from mujoco_tpu_torch.ops import forward, newton_cuda, solver
 from mujoco_tpu_torch.ops import megastep_cuda as mc
 from mujoco_tpu_torch.parallel import rollout
 
@@ -282,6 +286,120 @@ def test_meta_layout_matches_kernel_source():
   body = re.search(r"struct Meta \{(.*?)\};", src, re.S).group(1)
   names = re.findall(r"\w+", body.replace("int", " "))
   assert tuple(names) == mc.META_FIELDS
+
+
+def test_stage_names_match_kernel_source():
+  """The stage clock's STAGES name csrc/megastep.cu's kStageNames in order,
+  and a timed launch's stats row is one word per stage and three counts."""
+  with open(os.path.join(ROOT, "mujoco_tpu_torch", "csrc",
+                         "megastep.cu")) as f:
+    src = f.read()
+  body = re.search(r"kStageNames\[kNumStages\] = \{(.*?)\};", src,
+                   re.S).group(1)
+  assert tuple(re.findall(r'"(\w+)"', body)) == mc.STAGES
+  enum = re.search(r"enum Stage \{(.*?)\};", src, re.S).group(1)
+  assert len(re.findall(r"^\s*k\w+,", enum, re.M)) == len(mc.STAGES)
+  assert mc.STAT_WORDS == len(mc.STAGES) + 3
+
+
+@pytest.mark.parametrize("name", ["humanoid", "quadruped", "mixed",
+                                  "spherebox"])
+def test_tree_lists_expand_to_the_dense_masks(name):
+  """The kernel walks compact lists that Tables builds; each expands back
+  to the dense table it replaces in the kernel (the masks stay packed for
+  the plain version)."""
+  m = zoo.load(name, torch.float64, device="cpu")
+  t = mc.tables(m)
+  ints, nb, nv = t.ints, m.nbody, m.nv
+  def lists(name, n, adr=None):
+    adr = ints[adr or name + "_adr"]
+    return [ints[name][adr[i]:adr[i + 1]] for i in range(n)]
+
+  def dense(groups, shape):
+    out = np.zeros(shape, dtype=np.int64)
+    for i, g in enumerate(groups):
+      assert list(g) == sorted(g)
+      out[i, g] = 1
+    return out
+
+  anc = np.asarray(m.tree.ancestor_mask) != 0
+  np.testing.assert_array_equal(dense(lists("bdof", nb), (nb, nv)) > 0, anc)
+  np.testing.assert_array_equal(dense(lists("dbody", nv), (nv, nb)) > 0,
+                                anc.T)
+  np.testing.assert_array_equal(dense(lists("pdof", nv), (nv, nv)) > 0,
+                                np.asarray(m.tree.cdofdot_mask) != 0)
+  act = np.zeros((nv, m.nu), dtype=np.int64)
+  act[ints["act_dadr"], np.arange(m.nu)] = 1
+  np.testing.assert_array_equal(dense(lists("dact", nv), (nv, m.nu)), act)
+  # levels: the world alone at level 0, every body one level below its
+  # parent, each body once; children in descending id order
+  parent = np.asarray(m.body_parentid)
+  levels = lists("lvl_body", t.counts["nlevel"], "lvl_adr")
+  assert list(levels[0]) == [0]
+  assert sorted(np.concatenate(levels).tolist()) == list(range(nb))
+  level = {b: lv for lv, g in enumerate(levels) for b in g}
+  assert all(level[b] == level[parent[b]] + 1 for b in range(1, nb))
+  for b, kids in enumerate(lists("child", nb)):
+    assert list(kids) == sorted(np.nonzero(parent[1:] == b)[0] + 1,
+                                reverse=True)
+  # the kernel copies the lists as one range of nlist 16-bit values from
+  # lvl_adr on: they are the last int tables, in this order
+  names = mc.INT_TABLES[mc.INT_TABLES.index("lvl_adr"):]
+  assert names == ("lvl_adr", "lvl_body", "child_adr", "child", "bdof_adr",
+                   "bdof", "pdof_adr", "pdof", "dbody_adr", "dbody",
+                   "dact_adr", "dact")
+  assert t.counts["nlist"] == sum(len(ints[n]) for n in names)
+  assert max(int(ints[n].max(initial=0)) for n in names) <= 0xFFFF
+
+
+def _newton_inputs(name, nbatch, seed):
+  """The plain Newton solve's arguments for a posed, forward-evaluated
+  batch (rows as the stage path builds them), with a warmstart near the
+  smooth acceleration."""
+  m = zoo.load(name, torch.float64, device="cpu")
+  d = posed(m, nbatch, seed)
+  d = forward.fwd_acceleration(m, forward.fwd_actuation(
+      m, forward.fwd_velocity(m, forward.fwd_position(m, d))))
+  rng = np.random.default_rng(seed + 1)
+  warm = d.qacc_smooth + 0.1 * torch.tensor(
+      rng.standard_normal(tuple(d.qacc_smooth.shape)))
+  return m, solver.newton_args(m, d.replace(qacc_warmstart=warm))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["humanoid", "mixed"])
+def test_newton_over_the_active_rows_only(name, dtype):
+  """The premise of the kernel's active-row list (ListRows,
+  csrc/newton_common.cuh): the plain Newton solve on all rows and, env by
+  env, on only the rows with D ≠ 0 agree to 1e-10 in x and Jᵀf at f64, and
+  at f32 in ≥ 99 % of envs within 2e-4 of the env's largest |x| (the card
+  tests' criterion). The gap is the order of summation only: an inactive
+  row adds force −0·jar, cost 0 and w 0, exact zeros, to every sum."""
+  m, args = _newton_inputs(name, 32, 12)
+  J, aref, D, R, fl, fric, ones, M, a_s, warm, reg = [a.to(dtype)
+                                                      for a in args]
+  it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
+  x, _, qfrc, _ = newton_cuda.newton_plain(J, aref, D, R, fl, fric, ones, M,
+                                           a_s, warm, reg, it, ls)
+  active = D != 0
+  assert active.any() and (~active).any()
+  xs, qs = [], []
+  for b in range(J.shape[0]):
+    r = active[b]
+    xb, _, qb, _ = newton_cuda.newton_plain(
+        J[b:b + 1, r], aref[b:b + 1, r], D[b:b + 1, r], R[b:b + 1, r],
+        fl[b:b + 1, r], fric[r], ones[r], M[b:b + 1], a_s[b:b + 1],
+        warm[b:b + 1], reg[b:b + 1], it, ls)
+    xs.append(xb)
+    qs.append(qb)
+  x_act, q_act = torch.cat(xs), torch.cat(qs)
+  if dtype == torch.float64:
+    torch.testing.assert_close(x_act, x, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(q_act, qfrc, rtol=1e-10, atol=1e-10)
+  else:
+    scale = torch.clamp(x.abs().amax(1), min=1.0)
+    close = (x_act - x).abs().amax(1) < 2e-4 * scale
+    assert close.float().mean() >= 0.99
 
 
 def test_tables_pack_into_one_buffer():
