@@ -1022,10 +1022,7 @@ __device__ void step(const Meta& mt, const int* __restrict__ ic,
   // summed once and stored twice, and into H's lower triangle for a_s;
   // RNE forces and the xfrc wrenches per body
   for (int t = tid; t < nv * (nv + 1) / 2; t += kMT) {
-    int i = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
-    while ((i + 1) * (i + 2) / 2 <= t) ++i;
-    while (i * (i + 1) / 2 > t) --i;
-    const int j = t - i * (i + 1) / 2;
+    const int i = tri_row(t), j = t - i * (i + 1) / 2;
     T p = T(0);
     for (int a = 0; a < 6; ++a) p += s.u[6 * i + a] * s.cdof[6 * j + a];
     const bool da = ic[mt.i_danc + i * nv + j] != 0;

@@ -38,6 +38,15 @@ constexpr int kThreads = 128;  // threads of a Newton-kernel block
 constexpr int kStatRows = 32;
 constexpr double kMinVal = 1e-15;  // mjMINVAL
 
+// Row i of entry t of a row-major lower triangle, t = i(i + 1)/2 + j: the
+// float root's guess, corrected to the exact integer row.
+__device__ inline int tri_row(int t) {
+  int i = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+  while ((i + 1) * (i + 2) / 2 <= t) ++i;
+  while (i * (i + 1) / 2 > t) --i;
+  return i;
+}
+
 template <typename T>
 __device__ inline void row_update(T jar, T D, T R, T fl, T fric, T ones,
                                   T& force, T& cost, T& w) {
@@ -197,11 +206,8 @@ struct ListRows {
       T acc[kChunk];
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
-        // entry t of the row-major lower triangle: t = i(i + 1)/2 + j
         const int t = base + threadIdx.x + c * kNT;
-        int i = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
-        while ((i + 1) * (i + 2) / 2 <= t) ++i;
-        while (i * (i + 1) / 2 > t) --i;
+        const int i = tri_row(t);
         ii[c] = t < ntri ? i : -1;
         jj[c] = t - i * (i + 1) / 2;
         acc[c] = T(0);
