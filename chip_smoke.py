@@ -366,16 +366,18 @@ def megastep_flops(m, active=None) -> float:
   stage by stage (multiply-adds count 2): FK and frames ~250 per body,
   cinert ~250 per body, cdof ~30 per dof, CRB 36 per body, u 72 per dof,
   qM 24·nv², com_vel and cacc 4·6·nbody·nv plus cdof_dot 12·nv² + 30·nv,
-  RNE and xfrc forces ~190 per body and 24·nbody·nv projections, the two
-  LDL solves (a_s and the damped Euler), the narrowphase ~400 per group,
-  the limit rows ~30 each, then per contact slot its Jacobian ~50 per dof
-  and its velocity sums 6 per dof and its rows ~60, the Newton solve
-  (newton_flops) with Jᵀf, and Euler ~10 per dof. active = (rows, slots),
+  RNE and xfrc forces ~190 per body and 24·nbody·nv projections, the a_s
+  LDL solve and, only where the tables set USE_DAMP, the damped Euler's
+  (the humanoid disables eulerdamp), the narrowphase ~400 per group, the
+  limit rows ~30 each, then per contact slot its Jacobian ~50 per dof and
+  its velocity sums 6 per dof and its rows ~60, the Newton solve with its
+  final Jᵀf (newton_flops), and Euler ~10 per dof. active = (rows, slots),
   the mean active constraint rows and contact slots per env-step that a
   timed run measured, counts the work these inputs need: the Newton solve
   over those rows, each active slot's Jacobian once. None gives the
   dense count: every row and slot, the Jacobian twice, as the dense kernel
   computed it."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
   nb, nv, nefc = m.nbody, m.nv, m.efc.nefc
   ncon, nl = m.con.ncon, m.efc.nl
   if active is None:
@@ -383,13 +385,14 @@ def megastep_flops(m, active=None) -> float:
   else:
     (rows, slots), jac = active, 56
   ngroup = int(np.count_nonzero(m.con.con_first)) if ncon else 0
+  nldl = 1 + bool(mc.tables(m).counts["flags"] & mc.USE_DAMP)
   flops = (500 * nb + 30 * nv + 36 * nb + 72 * nv + 24 * nv * nv
            + 24 * nb * nv + 12 * nv * nv + 30 * nv + 190 * nb
-           + 24 * nb * nv + 2 * ldl_flops(nv) + 400 * ngroup + 30 * nl
+           + 24 * nb * nv + nldl * ldl_flops(nv) + 400 * ngroup + 30 * nl
            + slots * (jac * nv + 60) + 10 * nv)
   if nefc:
     flops += newton_flops(rows, nv, int(m.opt.iterations),
-                          int(m.opt.ls_iterations)) + 2 * rows * nv
+                          int(m.opt.ls_iterations))
   return flops
 
 

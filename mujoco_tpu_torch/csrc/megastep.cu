@@ -1421,8 +1421,6 @@ int mjt_megastep_attributes(int f64, int timed, int* out) {
                : mjt::megastep_attributes<float, false>(out);
 }
 
-int mjt_megastep_stat_words(void) { return mjt::kStatWords; }
-
 // the SM clock in kHz, which converts the stage clock's cycles to time
 int mjt_sm_clock_khz(void) {
   int dev = 0, khz = 0;

@@ -166,10 +166,13 @@ struct DenseRows {
 // elsewhere; then four pyramidal rows jn + μ·jt per active contact slot,
 // the slot's normal vector jn and tangent vectors jt1, jt2 stored one
 // after the other (3·nv values) at cv + ra[k], jt at cv + rb[k], μ = rc[k]
-// (+f0, −f0 with jt1, +f1, −f1 with jt2). Each entry is formed with the
-// same rounding as a row that was stored. Dropping the inactive rows (D =
-// 0: force −0·jar, cost and w 0) and a limit row's zeros leaves every sum
-// of the dense solve unchanged but for its order.
+// (+f0, −f0 with jt1, +f1, −f1 with jt2). Each entry is formed anew where
+// it is used (dot, build_h, jtf); the compiler may contract jn + μ·jt into
+// a fused multiply-add in one place and not in another, so an entry can
+// differ in its last bit from one use to the next and from a stored row.
+// Dropping the inactive rows (D = 0: force −0·jar, cost and w 0) and a
+// limit row's zeros leaves every sum of the dense solve unchanged but for
+// its order and that rounding.
 template <typename T>
 struct ListRows {
   const T* cv;

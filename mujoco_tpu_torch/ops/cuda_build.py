@@ -133,9 +133,8 @@ def bind_megastep(lib) -> None:
     fn.restype = i
   lib.mjt_megastep_attributes.argtypes = [i, i, p]
   lib.mjt_megastep_attributes.restype = i
-  for fn in (lib.mjt_megastep_stat_words, lib.mjt_sm_clock_khz):
-    fn.argtypes = []
-    fn.restype = i
+  lib.mjt_sm_clock_khz.argtypes = []
+  lib.mjt_sm_clock_khz.restype = i
 
 
 def check(code: int, what: str) -> None:

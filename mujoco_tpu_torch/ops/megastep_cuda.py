@@ -937,9 +937,6 @@ def _launch(lib, m: Model, state: dict, fresh: dict, nstep: int,
   if q.shape[0] == 0:
     return out
   f64 = q.dtype == torch.float64
-  if stats is not None and lib.mjt_megastep_stat_words() != STAT_WORDS:
-    raise RuntimeError("megastep: the kernel's stats row is not STAT_WORDS "
-                       "long")
   if stats is None:
     fn, extra = lib.mjt_megastep_f64 if f64 else lib.mjt_megastep_f32, ()
   else:

@@ -299,6 +299,8 @@ def test_stage_names_match_kernel_source():
   assert tuple(re.findall(r'"(\w+)"', body)) == mc.STAGES
   enum = re.search(r"enum Stage \{(.*?)\};", src, re.S).group(1)
   assert len(re.findall(r"^\s*k\w+,", enum, re.M)) == len(mc.STAGES)
+  extra = re.search(r"constexpr int kStatWords = kNumStages \+ (\d+);", src)
+  assert mc.STAT_WORDS == len(mc.STAGES) + int(extra.group(1))
   assert mc.STAT_WORDS == len(mc.STAGES) + 3
 
 
