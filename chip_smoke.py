@@ -11,14 +11,19 @@ Phases, each of which passes or ends the script with a nonzero exit:
    random SPD batches (n 9, 27, 64; B 3072) and the humanoid's qM, at f64
    (max relative error ≤ 1e-9) and f32 (≤ 1e-4); times the kernel (L2
    flushed before each launch, and L2-warm), the plain version and
-   ``torch.linalg.solve`` at the main path's shape;
+   ``torch.linalg.solve`` at the main path's shape, reads the kernel's envs
+   per block and resident blocks per SM and times one block per SM and one
+   full wave (the L2-warm times of phases 2 and 3 are the profiler's device
+   time of the kernel, ``device_ms``);
 3. kernel 2 (``newton_cuda``, whole Newton solve) against its plain version
    on the humanoid's rows as ``solver.newton_args`` builds them for the main
    path (B 3072, nefc 162, nv 27) at (iterations, ls_iterations) (1, 4) and
    (4, 4): elementwise at f64 (atol 1e-9 plus rtol 1e-9), and at f32 by the
    statistical criteria of tests/test_newton_kernel.py (≥ 99 % of envs for
    one iteration, ≥ 85 % above, mean objective gap < 2e-3); times kernel and
-   plain version at the main path's shape, reads the kernel's resident
+   plain version at the main path's shape, prints the kept rows per env
+   (``newton_cuda.kept_rows``, mean and most) and the bound over them with
+   the dense bound over every row beside it, reads the kernel's resident
    blocks per SM and times one block per SM and one full wave;
 4. kernel 3 (``megastep_cuda``, the whole rollout in one launch) against
    its plain version on the humanoid, quadruped, ``mixed`` and
@@ -81,6 +86,8 @@ NSTEP = 200
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 without tensor cores
 PEAK_FP64_FLOPS = 34e12         # H100 SXM fp64 without tensor cores
+# device kernels of the stage path's two hand-written kernels, by name
+HANDWRITTEN = ("ldl_regs_kernel", "ldl_shared_kernel", "newton_kernel")
 
 
 def card_line() -> str:
@@ -129,6 +136,29 @@ def cuda_ms_cold(fn, reps=30, warmup=3) -> float:
     events.append((start, end))
   torch.cuda.synchronize()
   return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def device_ms(fn, reps=30, warmup=3) -> float:
+  """Mean device time in ms of the hand-written kernel that fn launches
+  (its inputs warm in L2), from torch.profiler's CUDA activity: the
+  kernel's own duration, without the host time of its wrapper, which
+  events around back-to-back calls measure instead when the kernel is
+  shorter."""
+  from torch.profiler import ProfilerActivity, profile
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  times = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(k in e.name for k in HANDWRITTEN)]
+  if len(times) != reps:
+    raise AssertionError(f"the profiler saw {len(times)} kernel launches in "
+                         f"{reps} calls")
+  return sum(times) / reps / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -213,7 +243,7 @@ def phase_ldl(report, details):
   h, g = cases[-1][1], cases[-1][2]
   n = h.shape[1]
   kernel_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g))
-  warm_ms = cuda_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  warm_ms = device_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
   plain_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g))
   library_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g))
   # an SPD solve needs only H's lower triangle (all the kernel reads), g,
@@ -224,7 +254,23 @@ def phase_ldl(report, details):
         f"L2-warm {warm_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} (torch.linalg.solve) bound_ms {bound_ms:.5f} "
         f"({bound_by})", flush=True)
-  details["ldl_solve_l2_warm_ms"] = warm_ms
+  # what sets the time: envs per block, resident blocks per SM, and the
+  # time of one block per SM against one full wave
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  per_block, per_sm = linalg_cuda.occupancy(n, torch.float32)
+  waves = {}
+  for k in (sms * per_block, sms * per_block * per_sm):
+    hk, gk = h[:k].contiguous(), g[:k].contiguous()
+    waves[k] = device_ms(lambda: linalg_cuda.spd_solve_kernel(hk, gk))
+  one, wave = waves[sms * per_block], waves[sms * per_block * per_sm]
+  print(f"ldl_solve f32 occupancy: {per_block} envs per block, {per_sm} "
+        f"blocks/SM on {sms} SMs ({B / (sms * per_block * per_sm):.2f} waves "
+        f"at B{B}); one block per SM ({sms * per_block} envs) {one:.4f} ms, "
+        f"one full wave ({sms * per_block * per_sm} envs) {wave:.4f} ms",
+        flush=True)
+  details["ldl_solve"] = dict(l2_warm_ms=warm_ms, envs_per_block=per_block,
+                              blocks_per_sm=per_sm, sms=sms,
+                              one_block_per_sm_ms=one, one_wave_ms=wave)
   report["ldl_solve"] = dict(
       name="ldl_solve", route="cuda",
       source="mujoco_tpu_torch/csrc/ldl_solve.cu",
@@ -293,20 +339,30 @@ def phase_newton(report, details):
   # time at the main path's shape and type (f32, it 1, ls 4)
   it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
   kernel_ms = cuda_ms_cold(lambda: newton_cuda.newton_kernel(*args, it, ls))
-  warm_ms = cuda_ms(lambda: newton_cuda.newton_kernel(*args, it, ls))
+  warm_ms = device_ms(lambda: newton_cuda.newton_kernel(*args, it, ls))
   plain_ms = cuda_ms_cold(lambda: newton_cuda.newton_plain(*args, it, ls),
                           reps=5)
   nefc, nv = args[0].shape[1:]
-  # inputs J, aref/D/R/fl, the two masks, M's lower triangle (symmetric),
-  # a_s/warm and reg; outputs x, qfrc, force and stat (32 × 2)
-  nbytes = 4 * (B * nefc * nv + 4 * B * nefc + 2 * nefc
-                + B * nv * (nv + 1) // 2 + 2 * B * nv + B + 2 * B * nv
-                + B * nefc + B * 64)
-  bound_ms, bound_by = bound(nbytes, B * newton_flops(nefc, nv, it, ls),
+  # the rows these inputs need: the kernel solves over the kept rows only
+  kept = newton_cuda.kept_rows(args[2], args[5], args[4]).sum(1)
+  kept_mean, kept_max = kept.double().mean().item(), int(kept.max().item())
+  # read in full: D, fl and the two masks; for the kept rows only: J, aref
+  # and R; then M's lower triangle (symmetric), a_s, warm and reg; written:
+  # x, qfrc, every row's force and stat (32 × 2). The dense count reads J,
+  # aref and R of every row.
+  rest = (2 * B * nefc + 2 * nefc + B * nv * (nv + 1) // 2 + 2 * B * nv + B
+          + 2 * B * nv + B * nefc + B * 64)
+  nbytes = 4 * (rest + kept.sum().item() * (nv + 2))
+  bound_ms, bound_by = bound(nbytes, B * newton_flops(kept_mean, nv, it, ls),
+                             torch.float32)
+  dense_ms, dense_by = bound(4 * (rest + B * nefc * (nv + 2)),
+                             B * newton_flops(nefc, nv, it, ls),
                              torch.float32)
   print(f"newton_pyramidal f32 B{B} nefc{nefc} nv{nv} it{it} ls{ls}: "
         f"kernel_ms {kernel_ms:.4f} (L2 flushed; L2-warm {warm_ms:.4f}) "
-        f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})",
+        f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; kept "
+        f"rows per env mean {kept_mean:.2f}, most {kept_max}, of {nefc}) "
+        f"beside the dense bound_ms {dense_ms:.5f} ({dense_by}; every row)",
         flush=True)
   # what sets the kernel's time: resident blocks per SM, and the time of
   # one block per SM (a single env's latency) against one full wave
@@ -316,14 +372,17 @@ def phase_newton(report, details):
   for k in (sms, sms * per_sm):
     sub = [a if i in (5, 6) else a[:k].contiguous()     # 5, 6: row masks
            for i, a in enumerate(args)]
-    waves[k] = cuda_ms(lambda: newton_cuda.newton_kernel(*sub, it, ls))
+    waves[k] = device_ms(lambda: newton_cuda.newton_kernel(*sub, it, ls))
   print(f"newton_pyramidal f32 occupancy: {per_sm} blocks/SM on {sms} SMs "
         f"({-(-B // (sms * per_sm))} waves at B{B}); one block per SM "
         f"{waves[sms]:.4f} ms, one full wave ({sms * per_sm} envs) "
         f"{waves[sms * per_sm]:.4f} ms", flush=True)
   details["newton"] = dict(l2_warm_ms=warm_ms, blocks_per_sm=per_sm, sms=sms,
                            one_block_per_sm_ms=waves[sms],
-                           one_wave_ms=waves[sms * per_sm])
+                           one_wave_ms=waves[sms * per_sm],
+                           kept_rows_mean=kept_mean, kept_rows_max=kept_max,
+                           flops_per_env=newton_flops(kept_mean, nv, it, ls),
+                           dense_bound_ms=dense_ms)
   report["newton_pyramidal"] = dict(
       name="newton_pyramidal", route="cuda",
       source="mujoco_tpu_torch/csrc/newton.cu",
@@ -818,7 +877,7 @@ def phase_profile(details, nstep=10):
   out["unprofiled_wall_ms_per_step"] = plain_wall
   out["handwritten_kernels_ms_per_step"] = sum(
       t for name, (t, _) in by_name.items()
-      if "ldl_solve_kernel" in name or "newton_kernel" in name) / 1e3 / nstep
+      if any(k in name for k in HANDWRITTEN)) / 1e3 / nstep
   details["profile_stage"] = out
   print(f"profile, stage path: humanoid f32 B{B} {nstep} warm steps: wall "
         f"{out['wall_ms_per_step']:.3f} ms/step (unprofiled {plain_wall:.3f})"

@@ -1,6 +1,8 @@
 // In-place LDLᵀ factor-and-solve of one small dense SPD matrix by one warp,
-// shared by the LDL solve kernel (ldl_solve.cu) and the Newton kernel
-// (newton.cu). Same algorithm as the Pallas kernel it replaces
+// shared by the Newton kernel (newton.cu), the megastep kernel
+// (megastep.cu) and, for 32 < n ≤ 64, the LDL solve kernel (ldl_solve.cu),
+// which has its own register routine for n ≤ 32. Same algorithm as the
+// Pallas kernel it replaces
 // (mujoco_tpu/ops/linalg_tpu.py:34 _ldl_solve_kernel): symmetric Gaussian
 // elimination without square roots, forward solve, diagonal solve, back
 // solve. Only the lower triangle is read and written: after the factor,

@@ -1,5 +1,5 @@
-// Whole pyramidal Newton constraint solve, one thread block per env, float
-// and double.
+// Whole pyramidal Newton constraint solve, one warp per env, float and
+// double.
 //
 // Replaces the Pallas kernel _newton_kernel
 // (mujoco_tpu/ops/newton_tpu.py:155, launched by _newton_lanes :289).
@@ -10,20 +10,35 @@
 // linesearch of ls_iter steps, x += αp; then a final row update,
 // qfrc = Jᵀf and the [improvement, cost] row of each iteration.
 //
-// What bounds it on an H100: memory. Per env it must read J (nefc·nv), the
-// row vectors and M once; at the humanoid's nefc 162, nv 27 and one
-// iteration it does about 2.7e5 flops against about 2.3e4 values read,
-// ≈ 3 flops per byte at f32, below the card's fp32 balance. The TPU kernel
-// kept 128 envs resident in VMEM for the same reason. Here a block stages
-// its env's J, M and row vectors in shared memory (dynamic shared memory:
-// 62 KB at f64 for the humanoid, above the 48 KB static limit), so J is
-// read from device memory exactly once however many times the solve
-// multiplies by J or Jᵀ. Threads split the nefc rows for jar, the row
-// update and the linesearch sums, the nv columns for Jᵀf, M·x and the
-// gradient, and the lower triangle of H for Σ_r w_r J_rᵀJ_r, which the
-// kernel sums itself; one warp then factors H in place with the LDL of the
-// spd_solve kernel (ldl_common.cuh). The solve itself is block_newton
-// (newton_common.cuh), which the megastep kernel calls too.
+// What bounds it on an H100: one env's latency, not bytes. The solve is a
+// chain of dependent passes (objective, Jᵀf, JᵀWJ, a 27-pivot LDL, the
+// linesearch sums), each short, and the bytes an env must read are a few
+// KB. The TPU kernel put 128 envs on the lanes of its vector registers;
+// here the chain is cut to the work these inputs need and enough envs share
+// an SM to overlap their chains:
+//
+// - Only the rows that can act are solved over (newton_cuda.kept_rows: D ≠
+//   0, or a friction-loss row with fl ≠ 0; on the humanoid about 13 of
+//   162). The block reads D, fl and the masks of every row, ranks the kept
+//   rows by ballot in ascending order and copies only their J rows, aref
+//   and R; a dropped row's force is written as 0 (the plain version's ±0).
+//   Every sum over the kept rows is the dense sum without its exact zeros
+//   (PackedRows, newton_common.cuh).
+// - One warp per env: the passes over nv and over the kept rows fit one
+//   warp, the block sums are butterflies with no block barrier, and the
+//   warp that factors H is the whole block.
+// - Shared memory holds M, H, the row vectors of every row the env could
+//   keep, and the J rows of up to kRowCap kept rows: 17.9 KB at f32 for
+//   the humanoid, so 12 blocks share an SM. An env with more kept rows
+//   reads its J rows from device memory instead (a second instantiation
+//   of the same solve), so every env is solved in full without a host
+//   synchronisation.
+// - Every input copy is a cp.async, so an env's loads are all in flight
+//   at once and none passes through registers.
+//
+// The solve itself is block_newton (newton_common.cuh), which the megastep
+// kernel calls too with its own rows (ListRows).
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "newton_common.cuh"
@@ -31,23 +46,33 @@
 namespace mjt {
 namespace {
 
+constexpr int kNewtonThreads = 32;   // one warp per env
+constexpr int kNewtonMinBlocks = 12;
+constexpr int kRowCap = 48;          // J rows of kept rows in shared memory
+
 struct Shapes {
-  int nefc, nv, ld;
+  int nefc, nv, ld, cap;
 };
 
 template <typename T>
-__host__ __device__ inline size_t smem_values(const Shapes& s) {
-  return static_cast<size_t>(s.nefc) * s.nv   // J
-         + static_cast<size_t>(s.nv) * s.nv   // M
-         + static_cast<size_t>(s.nv) * s.ld   // H
-         + 10 * static_cast<size_t>(s.nefc)   // row vectors
-         + 6 * static_cast<size_t>(s.nv)      // dof vectors
-         + 64                                 // block reduction
-         + kStatRows + 1;                     // per-iteration costs
+__host__ __device__ inline size_t smem_bytes(const Shapes& s) {
+  const size_t values = static_cast<size_t>(s.nv) * s.nv   // M
+                        + static_cast<size_t>(s.nv) * s.ld  // H
+                        + static_cast<size_t>(s.cap) * s.nv // kept J rows
+                        + 8 * static_cast<size_t>(s.nefc)   // row vectors
+                        + 6 * static_cast<size_t>(s.nv)     // dof vectors
+                        + 64                                // block sums
+                        + kStatRows + 1;                    // costs
+  return values * sizeof(T) + static_cast<size_t>(s.nefc) * sizeof(int);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ inline void copy_async(T* dst, const T* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(T));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kNewtonThreads, kNewtonMinBlocks)
 newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
               const T* __restrict__ D, const T* __restrict__ R,
               const T* __restrict__ fl, const T* __restrict__ fric,
@@ -58,20 +83,19 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
               T* __restrict__ stat_out, Shapes s, int iterations,
               int ls_iter) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kNT = kNewtonThreads;
   const int nefc = s.nefc, nv = s.nv, ld = s.ld;
   const int tid = threadIdx.x;
   const long env = blockIdx.x;
 
-  T* sJ = reinterpret_cast<T*>(smem_raw);
-  T* sM = sJ + nefc * nv;
+  T* sM = reinterpret_cast<T*>(smem_raw);
   T* sH = sM + nv * nv;
-  T* sAref = sH + nv * ld;
+  T* sJ = sH + nv * ld;
+  T* sAref = sJ + s.cap * nv;
   T* sD = sAref + nefc;
   T* sR = sD + nefc;
   T* sFl = sR + nefc;
-  T* sFric = sFl + nefc;
-  T* sOnes = sFric + nefc;
-  T* sJar = sOnes + nefc;
+  T* sJar = sFl + nefc;
   T* sJp = sJar + nefc;
   T* sForce = sJp + nefc;
   T* sW = sForce + nefc;
@@ -83,39 +107,98 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   T* sY = sMdx + nv;   // right-hand side, then the direction p
   T* sRed = sY + nv;
   T* sCost = sRed + 64;
+  int* sInfo = reinterpret_cast<int*>(sCost + kStatRows + 1);
 
-  // ---- stage this env's inputs in shared memory (read once)
-  const T* Jg = J + env * nefc * nv;
-  for (int e = tid; e < nefc * nv; e += kThreads) sJ[e] = Jg[e];
+  // ---- every row's D and fl (masks staged in jar and jp), M, a_s, warm
+  const T* Dg = D + env * nefc;
+  const T* Flg = fl + env * nefc;
+  for (int r = tid; r < nefc; r += kNT) {
+    copy_async(sD + r, Dg + r);
+    copy_async(sFl + r, Flg + r);
+    copy_async(sJar + r, fric + r);
+    copy_async(sJp + r, ones + r);
+  }
   const T* Mg = M + env * nv * nv;
-  for (int e = tid; e < nv * nv; e += kThreads) sM[e] = Mg[e];
-  for (int r = tid; r < nefc; r += kThreads) {
-    sAref[r] = aref[env * nefc + r];
-    sD[r] = D[env * nefc + r];
-    sR[r] = R[env * nefc + r];
-    sFl[r] = fl[env * nefc + r];
-    sFric[r] = fric[r];
-    sOnes[r] = ones[r];
+  for (int e = tid; e < nv * nv; e += kNT) copy_async(sM + e, Mg + e);
+  for (int i = tid; i < nv; i += kNT) {
+    copy_async(sAs + i, a_s + env * nv + i);
+    copy_async(sWarm + i, warm + env * nv + i);
   }
-  for (int i = tid; i < nv; i += kThreads) {
-    sAs[i] = a_s[env * nv + i];
-    sWarm[i] = warm[env * nv + i];
-  }
+  __pipeline_commit();
   const T reg_e = reg[env];
+  __pipeline_wait_prior(0);
   __syncthreads();
 
-  const DenseRows<T> rows{sJ, sAref, sD, sR, sFl, sFric, sOnes, nefc, nv};
+  // ---- warp 0 ranks the kept rows in ascending order, packing D, fl and
+  // the masks in place (packed index k ≤ row r, and a chunk's rows are all
+  // read before any of its lanes writes)
+  __shared__ int s_nk;
+  if (tid < 32) {
+    int nk = 0;
+    for (int r0 = 0; r0 < nefc; r0 += 32) {
+      const int r = r0 + tid;
+      bool keep = false;
+      T d = T(0), f = T(0);
+      int bits = r;
+      if (r < nefc) {
+        d = sD[r];
+        f = sFl[r];
+        const bool fr = sJar[r] > T(0);
+        keep = d != T(0) || (fr && f != T(0));
+        bits |= (fr ? kFricBit : 0) | (sJp[r] > T(0) ? kOneBit : 0);
+      }
+      const unsigned ball = __ballot_sync(kFullMask, keep);
+      if (keep) {
+        const int k = nk + __popc(ball & ((1u << tid) - 1));
+        sD[k] = d;
+        sFl[k] = f;
+        sInfo[k] = bits;
+      } else if (r < nefc) {
+        f_out[env * nefc + r] = T(0);
+      }
+      nk += __popc(ball);
+    }
+    if (tid == 0) s_nk = nk;
+  }
+  __syncthreads();
+  const int nk = s_nk;
+
+  // ---- the kept rows' aref and R, and their J rows where they fit
+  const bool fits = nk <= s.cap;
+  const T* Jg = J + env * nefc * nv;
+  for (int k = tid; k < nk; k += kNT) {
+    const int r = sInfo[k] & kRowMask;
+    copy_async(sAref + k, aref + env * nefc + r);
+    copy_async(sR + k, R + env * nefc + r);
+  }
+  if (fits) {
+    for (int k = 0; k < nk; ++k) {
+      const T* Jr = Jg + static_cast<long>(sInfo[k] & kRowMask) * nv;
+      for (int j = tid; j < nv; j += kNT) copy_async(sJ + k * nv + j, Jr + j);
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
   const NewtonWork<T> work{sM,  sH,   sJar, sJp,  sForce, sW,   sX,  sAs,
                            sWarm, sDx, sMdx, sY,  sRed,   sCost, nv, ld};
-  block_newton<kThreads>(rows, work, reg_e, iterations, ls_iter, true);
-
-  // ---- outputs: x, the final forces, qfrc = Jᵀf, [improvement, cost]
-  for (int r = tid; r < nefc; r += kThreads) f_out[env * nefc + r] = sForce[r];
-  for (int i = tid; i < nv; i += kThreads) {
-    qfrc_out[env * nv + i] = rows.jtf(i, sForce);
-    x_out[env * nv + i] = sX[i];
+  T* q = qfrc_out + env * nv;
+  if (fits) {
+    const PackedRows<T, false> rows{sJ, sInfo, sAref, sD, sR, sFl, nk, nv};
+    block_newton<kNT>(rows, work, reg_e, iterations, ls_iter, true);
+    for (int i = tid; i < nv; i += kNT) q[i] = rows.jtf(i, sForce);
+  } else {
+    const PackedRows<T, true> rows{Jg, sInfo, sAref, sD, sR, sFl, nk, nv};
+    block_newton<kNT>(rows, work, reg_e, iterations, ls_iter, true);
+    for (int i = tid; i < nv; i += kNT) q[i] = rows.jtf(i, sForce);
   }
-  for (int e = tid; e < 2 * kStatRows; e += kThreads) {
+
+  // ---- outputs: the kept rows' forces, x, [improvement, cost]
+  for (int k = tid; k < nk; k += kNT)
+    f_out[env * nefc + (sInfo[k] & kRowMask)] = sForce[k];
+  for (int i = tid; i < nv; i += kNT) x_out[env * nv + i] = sX[i];
+  for (int e = tid; e < 2 * kStatRows; e += kNT) {
     const int it = e >> 1;
     T v = T(0);
     if (it < iterations)
@@ -124,24 +207,34 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   }
 }
 
+Shapes shapes(int nefc, int nv) {
+  return Shapes{nefc, nv, ldl_ld(nv), nefc < kRowCap ? nefc : kRowCap};
+}
+
+template <typename T>
+cudaError_t set_smem(size_t smem) {
+  return cudaFuncSetAttribute(newton_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem > 48 * 1024 ? smem
+                                                                : 48 * 1024));
+}
+
 template <typename T>
 int launch_newton(const T* J, const T* aref, const T* D, const T* R,
                   const T* fl, const T* fric, const T* ones, const T* M,
                   const T* a_s, const T* warm, const T* reg, T* x, T* force,
                   T* qfrc, T* stat, int B, int nefc, int nv, int iterations,
                   int ls_iter, cudaStream_t stream) {
-  if (B < 1 || nefc < 1 || nv < 1 || nv > 64 || iterations < 1 ||
-      iterations > kStatRows || ls_iter < 0)
+  if (B < 1 || nefc < 1 || nefc > kRowMask || nv < 1 || nv > 64 ||
+      iterations < 1 || iterations > kStatRows || ls_iter < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shapes s{nefc, nv, ldl_ld(nv)};
-  const size_t smem = smem_values<T>(s) * sizeof(T);
+  const Shapes s = shapes(nefc, nv);
+  const size_t smem = smem_bytes<T>(s);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        newton_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = set_smem<T>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  newton_kernel<T><<<B, kThreads, smem, stream>>>(
+  newton_kernel<T><<<B, kNewtonThreads, smem, stream>>>(
       J, aref, D, R, fl, fric, ones, M, a_s, warm, reg, x, force, qfrc, stat,
       s, iterations, ls_iter);
   return static_cast<int>(cudaGetLastError());
@@ -152,15 +245,12 @@ int launch_newton(const T* J, const T* aref, const T* D, const T* R,
 // error code.
 template <typename T>
 int newton_blocks_per_sm(int nefc, int nv) {
-  const Shapes s{nefc, nv, ldl_ld(nv)};
-  const size_t smem = smem_values<T>(s) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      newton_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem > 48 * 1024 ? smem : 48 * 1024));
+  const size_t smem = smem_bytes<T>(shapes(nefc, nv));
+  cudaError_t err = set_smem<T>(smem);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, newton_kernel<T>, kThreads, smem);
+        &blocks, newton_kernel<T>, kNewtonThreads, smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

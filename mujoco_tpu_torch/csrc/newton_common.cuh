@@ -1,8 +1,8 @@
 // The pyramidal Newton solve of one env by one thread block, over operands
 // already staged in shared memory. Shared by the Newton kernel (newton.cu),
-// which stages a dense J built by the stage path (DenseRows), and the
-// megastep kernel (megastep.cu), which builds the list of its active rows
-// in shared memory itself (ListRows).
+// which packs the kept rows of a dense J built by the stage path
+// (PackedRows), and the megastep kernel (megastep.cu), which builds the
+// list of its active rows in shared memory itself (ListRows).
 //
 // Semantics are those of the reference's XLA body _xla_newton
 // (mujoco_tpu/ops/newton_tpu.py:81) and _xla_linesearch (:126), which the
@@ -34,7 +34,6 @@
 
 namespace mjt {
 
-constexpr int kThreads = 128;  // threads of a Newton-kernel block
 constexpr int kStatRows = 32;
 constexpr double kMinVal = 1e-15;  // mjMINVAL
 
@@ -69,25 +68,37 @@ __device__ inline void row_update(T jar, T D, T R, T fl, T fric, T ones,
 }
 
 // Sum a and b over the block of kNT threads; every thread returns the same
-// totals.
+// totals. Shared-memory writes made before the call are visible to every
+// thread after it.
 template <int kNT, typename T>
 __device__ inline void block_sum2(T& a, T& b, T* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(kFullMask, a, off);
-    b += __shfl_down_sync(kFullMask, b, off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // earlier readers of red are done
-  if (lane == 0) {
-    red[warp] = a;
-    red[32 + warp] = b;
-  }
-  __syncthreads();
-  a = T(0);
-  b = T(0);
-  for (int w = 0; w < (kNT >> 5); ++w) {
-    a += red[w];
-    b += red[32 + w];
+  if constexpr (kNT == 32) {
+    // one warp: a butterfly, no shared memory and no block barrier. Each
+    // level adds the same two partial sums on both lanes of a pair, so
+    // every lane ends with the same bits.
+    __syncwarp(kFullMask);
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(kFullMask, a, off);
+      b += __shfl_xor_sync(kFullMask, b, off);
+    }
+  } else {
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_down_sync(kFullMask, a, off);
+      b += __shfl_down_sync(kFullMask, b, off);
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    __syncthreads();  // earlier readers of red are done
+    if (lane == 0) {
+      red[warp] = a;
+      red[32 + warp] = b;
+    }
+    __syncthreads();
+    a = T(0);
+    b = T(0);
+    for (int w = 0; w < (kNT >> 5); ++w) {
+      a += red[w];
+      b += red[32 + w];
+    }
   }
 }
 
@@ -120,43 +131,81 @@ struct NewtonWork {
 // kNT threads, each entry's JᵀWJ summed in row order; update(k, jar, ...),
 // the row update at jar. Two kinds:
 //
-// DenseRows (newton.cu): every row of a dense J (n × nv) in shared memory,
-// with friction-loss and two-sided rows (R, fl, fric, ones).
-template <typename T>
-struct DenseRows {
+// PackedRows (newton.cu): the kept rows of a dense row set (D ≠ 0, or a
+// friction-loss row with fl ≠ 0) in ascending order, general rows with
+// friction loss and two sides. Packed row k is dense row info[k] &
+// kRowMask, with the kFricBit and kOneBit flags of its masks; its aref, D,
+// R and fl are packed at k. Its J row lies at J + k·nv in shared memory,
+// or, for an env with more kept rows than the shared capacity
+// (kGlobalJ), at J + row·nv in the env's dense J in device memory. A
+// dropped row adds force −0·jar, cost 0 and w 0, exact zeros, to every
+// sum of the dense solve, so each sum here is the dense one, term for
+// term, without its zeros.
+constexpr int kRowMask = (1 << 29) - 1;
+constexpr int kFricBit = 1 << 29;
+constexpr int kOneBit = 1 << 30;
+
+template <typename T, bool kGlobalJ>
+struct PackedRows {
   const T* J;
+  const int* info;
   const T* aref;
   const T* D;
   const T* R;
   const T* fl;
-  const T* fric;
-  const T* ones;
   int n, nv;
+  __device__ const T* row(int k) const {
+    return J + static_cast<long>(kGlobalJ ? info[k] & kRowMask : k) * nv;
+  }
   __device__ T dot(int k, const T* v) const {
+    const T* Jk = row(k);
     T acc = T(0);
-    for (int j = 0; j < nv; ++j) acc += J[k * nv + j] * v[j];
+    for (int j = 0; j < nv; ++j) acc += Jk[j] * v[j];
     return acc;
   }
   __device__ T jtf(int i, const T* f) const {
     T acc = T(0);
-    for (int k = 0; k < n; ++k) acc += J[k * nv + i] * f[k];
+    for (int k = 0; k < n; ++k) acc += row(k)[i] * f[k];
     return acc;
   }
+  // Each thread keeps kChunk entries of the lower triangle in registers
+  // and walks the rows once for all of them (as ListRows::build_h).
   template <int kNT>
   __device__ void build_h(const NewtonWork<T>& s, T reg) const {
-    for (int e = threadIdx.x; e < nv * nv; e += kNT) {
-      const int i = e / nv, j = e - i * nv;
-      if (j > i) continue;
-      T acc = T(0);
-      for (int k = 0; k < n; ++k)
-        acc += (s.w[k] * J[k * nv + i]) * J[k * nv + j];
-      T hij = s.M[i * nv + j] + acc;
-      if (i == j) hij += reg;
-      s.H[i * s.ld + j] = hij;
+    constexpr int kChunk = 384 / kNT;   // one pass at nv 27
+    const int ntri = nv * (nv + 1) / 2;
+    for (int base = 0; base < ntri; base += kChunk * kNT) {
+      int ii[kChunk], jj[kChunk];
+      T acc[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int t = base + threadIdx.x + c * kNT;
+        const int i = tri_row(t);
+        ii[c] = t < ntri ? i : -1;
+        jj[c] = t - i * (i + 1) / 2;
+        acc[c] = T(0);
+      }
+      for (int k = 0; k < n; ++k) {
+        const T* Jk = row(k);
+        const T wk = s.w[k];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c)
+          if (ii[c] >= 0) acc[c] += (wk * Jk[ii[c]]) * Jk[jj[c]];
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        if (ii[c] < 0) continue;
+        const int i = ii[c], j = jj[c];
+        T hij = s.M[i * nv + j] + acc[c];
+        if (i == j) hij += reg;
+        s.H[i * s.ld + j] = hij;
+      }
     }
   }
   __device__ void update(int k, T jar, T& f, T& c, T& w) const {
-    row_update(jar, D[k], R[k], fl[k], fric[k], ones[k], f, c, w);
+    const int bits = info[k];
+    row_update(jar, D[k], R[k], fl[k], T((bits & kFricBit) != 0),
+               T((bits & kOneBit) != 0), f, c, w);
   }
 };
 

@@ -110,6 +110,8 @@ def library() -> ctypes.CDLL:
       fn.restype = ctypes.c_int
     lib.mjt_newton_blocks_per_sm.argtypes = [i, i, i]
     lib.mjt_newton_blocks_per_sm.restype = i
+    lib.mjt_ldl_occupancy.argtypes = [i, i, p]
+    lib.mjt_ldl_occupancy.restype = i
     bind_megastep(lib)
     lib.mjt_error_string.argtypes = [i]
     lib.mjt_error_string.restype = ctypes.c_char_p

@@ -3,9 +3,10 @@
 Replaces the Pallas kernel ``_ldl_solve_kernel``
 (mujoco_tpu/ops/linalg_tpu.py:34, launched by ``ldl_solve_lanes`` :80 and
 dispatched by ``_spd_solve_vmap`` :141; public entry ``spd_solve`` :126).
-The CUDA source is ``csrc/ldl_solve.cu`` (one warp per env, H resident in
-shared memory, in-place LDLᵀ without square roots, then the forward,
-diagonal and back solves).
+The CUDA source is ``csrc/ldl_solve.cu`` (one warp per env, LDLᵀ without
+square roots with the forward solve inside the factor, then the diagonal
+and back solves; rows of H in registers for n ≤ 32, in shared memory
+above).
 
 ``spd_solve(H, g)`` takes H (B, n, n) and g (B, n), batch first, the same
 as the reference's ``spd_solve`` under ``jax.vmap``. A CUDA tensor launches
@@ -15,6 +16,8 @@ grad raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -72,6 +75,18 @@ def spd_solve_kernel(H, g):
   cuda_build.check(code, "ldl_solve")
   LAUNCHES += 1
   return p
+
+
+def occupancy(n: int, dtype) -> tuple:
+  """(envs per block, resident blocks per SM) of the kernel at order n, as
+  the CUDA runtime's occupancy calculator reports it for the current
+  card."""
+  out = (ctypes.c_int * 2)()
+  code = cuda_build.library().mjt_ldl_occupancy(
+      n, int(dtype == torch.float64), out)
+  if code < 0:
+    cuda_build.check(-code, "ldl occupancy")
+  return out[0], out[1]
 
 
 def spd_solve(H, g):

@@ -3,7 +3,8 @@
 Replaces the Pallas kernel ``_newton_kernel``
 (mujoco_tpu/ops/newton_tpu.py:155, launched by ``_newton_lanes`` :289 and
 dispatched by ``_raw_vmap`` :370; public entry ``newton_pyramidal`` :422).
-The CUDA source is ``csrc/newton.cu``: one thread block per env runs
+The CUDA source is ``csrc/newton.cu``: one warp per env runs, over the
+rows that can act (``kept_rows``),
 
   warmstart-vs-smooth cost pick → [jar = Jx − aref → row update →
   grad = M(x − a_s) − Jᵀf → H = M + JᵀWJ + reg·I → in-place LDL →
@@ -51,6 +52,15 @@ def row_update(jar, D, R, fl, fric, ones):
   cost = torch.where(satisfied, 0.0, cost)
   w = torch.where(satisfied, 0.0, w)
   return force, cost, w
+
+
+def kept_rows(D, fric, fl):
+  """The rows that can act, (B, nefc) bool: D ≠ 0, or a friction-loss row
+  (fric > 0) with fl ≠ 0, which gives force ±fl outside ±R·fl even at
+  D = 0. Every other row gives force ±0, cost 0 and w 0 at any finite jar
+  (``row_update``), so the kernel solves over the kept rows only and writes
+  0 as a dropped row's force."""
+  return (D != 0) | ((fric > 0) & (fl != 0))
 
 
 def _mv(a, x):

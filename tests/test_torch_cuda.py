@@ -30,15 +30,19 @@ def cuda():
   return torch.device("cuda")
 
 
+@pytest.mark.parametrize("nbatch", [1000, 1001])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("n", [1, 9, 27, 33, 64])
-def test_ldl_kernel_matches_plain(cuda, dtype, tol, n):
+def test_ldl_kernel_matches_plain(cuda, dtype, tol, n, nbatch):
+  """1001 envs is a multiple of no block's envs (1, 5, 6 or 8 warps): the
+  last block's extra warps leave without writing."""
   rng = np.random.default_rng(n)
-  a = rng.standard_normal((1000, n, n))
+  a = rng.standard_normal((nbatch, n, n))
   h = torch.tensor(a @ a.transpose(0, 2, 1) + n * np.eye(n), dtype=dtype,
                    device=cuda)
-  g = torch.tensor(rng.standard_normal((1000, n)), dtype=dtype, device=cuda)
+  g = torch.tensor(rng.standard_normal((nbatch, n)), dtype=dtype,
+                   device=cuda)
   before = linalg_cuda.LAUNCHES
   out = linalg_cuda.spd_solve(h, g)
   torch.cuda.synchronize()
@@ -113,6 +117,66 @@ def test_newton_kernel_matches_plain_f64(cuda, iterations, ls_iter):
   # take the env's costs, |improvement| + |cost|, as their scale
   scale = out_p[3].abs().sum(-1, keepdim=True)
   assert ((out_k[3] - out_p[3]).abs() <= 1e-9 + 1e-9 * scale).all()
+
+
+def test_newton_kernel_keeps_the_rows_that_act_f64(cuda):
+  """Elementwise at f64 (atol and rtol 1e-9) on a synthetic batch of 60
+  rows, more than the kernel keeps in shared memory (48), with an env whose
+  rows are all kept (its J rows then stay in device memory), an env with no
+  kept row, and an env whose friction-loss rows have D = 0, one with fl > 0
+  (kept) and one with fl = 0 (dropped). A dropped row's force is 0."""
+  args = _synthetic(64, torch.float64, cuda, nefc=60, nv=27)
+  D, fl = args[2], args[4]
+  D[0] = 0.5 + D[0]
+  D[1] = 0.0
+  fl[1] = 0.0
+  D[2, 4:6] = 0.0
+  fl[2, 5] = 0.0
+  kept = newton_cuda.kept_rows(D, args[5], fl)
+  assert kept[0].all() and not kept[1].any()
+  assert kept[2, 4] and not kept[2, 5] and kept[2, 6]
+  out_k = newton_cuda.newton_kernel(*args, 1, 4)
+  out_p = newton_cuda.newton_plain(*args, 1, 4)
+  for name, a, b in zip(("x", "force", "qfrc"), out_p, out_k):
+    torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-9, msg=name)
+  assert (out_k[1][~kept] == 0).all()
+  scale = out_p[3].abs().sum(-1, keepdim=True)
+  assert ((out_k[3] - out_p[3]).abs() <= 1e-9 + 1e-9 * scale).all()
+
+
+def test_newton_kernel_keeps_a_diverged_env_non_finite(cuda):
+  """An env whose smooth acceleration is NaN (a diverged state) comes out
+  of the kernel with a non-finite x, which the divergence guard reads
+  through qvel, and a non-finite qfrc where it keeps a row, as from the
+  plain version. Its dropped rows' force is 0 where the plain version's is
+  NaN (−0·NaN). The other envs agree with the plain version at f64."""
+  args = _humanoid(16, cuda, torch.float64)
+  D, a_s = args[2], args[8]
+  a_s[3] = float("nan")
+  a_s[5] = float("nan")
+  D[5] = 0.0
+  kept = newton_cuda.kept_rows(D, args[5], args[4])
+  assert kept[3].any() and not kept[3].all() and not kept[5].any()
+  x, force, qfrc, _ = newton_cuda.newton_kernel(*args, 1, 4)
+  x_p, force_p, qfrc_p, _ = newton_cuda.newton_plain(*args, 1, 4)
+  for env in (3, 5):
+    assert not torch.isfinite(x[env]).any() and torch.isnan(x_p[env]).all()
+    assert torch.isnan(force_p[env]).all()
+    assert (force[env][~kept[env]] == 0).all()
+  assert not torch.isfinite(qfrc[3]).any() and torch.isnan(qfrc_p[3]).all()
+  ok = torch.ones(16, dtype=torch.bool, device=cuda)
+  ok[[3, 5]] = False
+  for name, a, b in (("x", x, x_p), ("force", force, force_p),
+                     ("qfrc", qfrc, qfrc_p)):
+    torch.testing.assert_close(a[ok], b[ok], rtol=1e-9, atol=1e-9, msg=name)
+
+
+def test_newton_occupancy_holds_the_design(cuda):
+  """The Newton kernel's design at f32 on the humanoid's rows (nefc 162,
+  nv 27): one warp per env, 17,884 B of shared memory (M, H, eight row
+  vectors of 162, the J rows of 48 kept rows), so 12 blocks per SM; a
+  change that grows the work space or the registers drops the count."""
+  assert newton_cuda.blocks_per_sm(162, 27, torch.float32) >= 12
 
 
 @pytest.mark.parametrize("iterations,ls_iter", [(1, 4), (2, 6), (4, 4)])

@@ -1,9 +1,10 @@
 """Import and device hygiene of the PyTorch port.
 
-The package and chip_smoke.py import neither jax nor mujoco_tpu, and
-importing them does not import the pip mujoco either (it is a model
-compiler, imported inside io.put_model only). Entry points default to the
-CUDA card and raise where there is none instead of running on the CPU.
+The package, chip_smoke.py and kernel_times.py import neither jax nor
+mujoco_tpu, and importing them does not import the pip mujoco either (it
+is a model compiler, imported inside io.put_model only). Entry points
+default to the CUDA card and raise where there is none instead of running
+on the CPU.
 """
 
 import os
@@ -54,6 +55,7 @@ def _sources():
       if f.endswith(".py"):
         yield os.path.join(dirpath, f)
   yield os.path.join(ROOT, "chip_smoke.py")
+  yield os.path.join(ROOT, "kernel_times.py")
 
 
 def test_sources_never_import_jax_or_reference():

@@ -140,6 +140,73 @@ def test_reference_diverges_from_itself_under_row_order():
   assert 0 < diverged.sum() < 0.25 * len(diverged)
 
 
+def kept_rows_cases(case):
+  """Row systems for the row-keeping rule. "synthetic": the synthetic
+  system with row 5, a friction-loss row, at D = 0 and fl > 0 (kept) and
+  row 6, a friction-loss row, at D = 0 and fl = 0 (dropped); "no_kept":
+  every D and fl 0; "all_kept": every D > 0; "humanoid": humanoid_rows."""
+  if case == "humanoid":
+    return humanoid_rows()
+  sys = synthetic()
+  D, fl = sys["D"].copy(), sys["fl"].copy()
+  D[:, 5] = 0.0
+  D[:, 6] = 0.0
+  fl[:, 6] = 0.0
+  if case == "no_kept":
+    D[:] = 0.0
+    fl[:] = 0.0
+  elif case == "all_kept":
+    D = np.random.default_rng(2).uniform(0.5, 5.0, D.shape)
+  return dict(sys, D=D, fl=fl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["synthetic", "no_kept", "all_kept",
+                                  "humanoid"])
+def test_newton_over_the_kept_rows_only(case, dtype):
+  """The premise of the Newton kernel's packed rows (PackedRows,
+  csrc/newton_common.cuh): the plain solve on each env's kept rows
+  (newton_cuda.kept_rows) equals the plain solve on the dense rows, and a
+  dropped row's force is 0. At f64 x, qfrc and the stat rows agree to 1e-10
+  (atol and rtol): a dropped row adds force ±0, cost 0 and w 0, exact zeros,
+  to every sum, so only the order of summation differs. At f32, ≥ 99 % of
+  envs within 2e-4 of the env's largest |x|, the card tests' criterion (a
+  linesearch kink can move an env by the last bit of a sum)."""
+  sys = kept_rows_cases(case)
+  it, ls = 1, 4
+  args = [torch.tensor(np.broadcast_to(sys[k], sys["D"].shape)
+                       if k in ("fric", "ones") else sys[k], dtype=dtype)
+          for k in ORDER]
+  J, aref, D, R, fl, fric, ones, M, a_s, warm, reg = args
+  kept = newton_cuda.kept_rows(D, fric, fl)
+  nkept = kept.sum(1)
+  if case == "synthetic":
+    assert kept[:, 5].all() and not kept[:, 6].any() and (nkept > 0).all()
+  else:
+    want = {"no_kept": 0, "all_kept": D.shape[1]}.get(case)
+    assert want is None or (nkept == want).all()
+  x, force, qfrc, stat = newton_cuda.newton_plain(*args, it, ls)
+  outs = []
+  for b in range(J.shape[0]):
+    r = kept[b]
+    outs.append(newton_cuda.newton_plain(
+        J[b:b + 1, r], aref[b:b + 1, r], D[b:b + 1, r], R[b:b + 1, r],
+        fl[b:b + 1, r], fric[b, r], ones[b, r], M[b:b + 1], a_s[b:b + 1],
+        warm[b:b + 1], reg[b:b + 1], it, ls))
+  x_k, qfrc_k, stat_k = (torch.cat([o[i] for o in outs]) for i in (0, 2, 3))
+  force_k = torch.zeros_like(force)
+  for b, o in enumerate(outs):
+    force_k[b, kept[b]] = o[1][0]
+  if dtype == torch.float64:
+    for name, a, b in (("x", x_k, x), ("force", force_k, force),
+                       ("qfrc", qfrc_k, qfrc), ("stat", stat_k, stat)):
+      torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10, msg=name)
+  else:
+    scale = torch.clamp(x.abs().amax(1), min=1.0)
+    close = (x_k - x).abs().amax(1) < 2e-4 * scale
+    assert close.float().mean() >= 0.99
+
+
 def test_solver_entry_takes_plain_path_on_cpu():
   sys = humanoid_rows(nbatch=2)
   before = newton_cuda.LAUNCHES
