@@ -61,10 +61,42 @@ Phases, each of which passes or ends the script with a nonzero exit:
 8. 25 steps at f64, B 64, on the card against the same run of the port on
    the CPU (qpos to 1e-8; the stage path on both, f64 does not dispatch to
    the megastep), which ties the GPU path to the CPU path the tests hold
-   against mujoco_tpu.
+   against mujoco_tpu;
+9. (a) the general solver core at full width: the humanoid at MuJoCo's
+   default solver options (iterations 100, ls_iterations 50, tolerance
+   1e-8; ``zoo.MUJOCO_DEFAULT_SOLVER``), f32, B 3072, 10 steps of
+   ``rollout.scan_steps(check=True)`` from the main path's start: every
+   env finite, no Newton-kernel or megastep launch, then the same steps one
+   at a time with each step's Newton iteration counts read back, where the
+   LDL launches must be at least one per step (qacc_smooth) plus one per
+   Newton iteration of the env that iterates most; env-steps/s, LDL
+   launches per step, Newton iterations per env-step (mean, most), device
+   kernel launches per step and the idle share of a profiled window; and 5
+   steps at f64, B 8, on the card against the CPU (qpos and qvel to 1e-8,
+   atol plus rtol);
+10. (b) the model class: each scene of ``zoo.GENERAL`` (equality,
+   friction-loss, ball-limit, condim 4/6 and explicit-pair rows, cameras
+   and lights) at its own options (100 Newton iterations), posed from a
+   numpy seed: f32, B 3072, 50 steps of ``scan_steps``, every env finite;
+   10 steps at f64, B 64, on the card against the CPU (1e-8);
+11. (c) the Newton kernel on each scene's rows as ``solver.newton_args``
+   builds them, f64, B 3072, 4 iterations: elementwise against its plain
+   version (1e-9 plus 1e-9 relative) on every env whose plain result holds
+   still when its input moves by 1e-15 relative; on the rest, at most 1 %,
+   the kernel's objective may differ from the plain version's by no more
+   than the plain version's own spread under those perturbations
+   (``newton_rows_gate``); printing ne, nf and the kept rows;
+   then each scene at 4 iterations, f32, B 3072, 5 steps of ``scan_steps``,
+   which must be five Newton-kernel launches on those rows;
+12. (d) the LDL kernel's backward (``linalg_cuda.SpdSolve``): gradients of
+   Σ w·p through the kernel against the same backward by the plain version
+   (ḡ = λ = H⁻¹w, H̄ = −λpᵀ), on the humanoid's qM at f64, B 3072 (1e-9
+   relative), with the kernel's two launches (forward, backward re-solve)
+   and both backward times.
 
 The kernels' ``launches`` are counted in the run of their own path: the
-megastep's in phase 5, the LDL's and the Newton kernel's in phase 6.
+megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
+kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -801,6 +833,8 @@ def phase_stage_path(report, details, nstep=20):
     raise AssertionError(f"stage path launches {launches} in {nstep} steps")
   for name in ("ldl_solve", "newton_pyramidal"):
     report[name]["launches"] = launches[name]
+    report[name].setdefault("launches_by_path", {})["stage_path"] = \
+        launches[name]
   details["stage_path"] = dict(batch=B, nstep=nstep, wall_s=wall,
                                env_steps_per_s=sps, launches=launches)
 
@@ -907,6 +941,323 @@ def phase_cross_check(details):
     raise AssertionError(f"card and CPU trajectories differ by {err}")
 
 
+GENERAL_NSTEP = 10
+
+
+def run_steps(m, d, nstep):
+  """scan_steps(check=True) one step at a time: the same state, plus each
+  step's Newton iteration counts (B, nstep), read back at the end."""
+  from mujoco_tpu_torch.models import io
+  from mujoco_tpu_torch.ops import forward
+  from mujoco_tpu_torch.parallel import rollout
+  fresh = io.make_data(m, dtype=d.qpos.dtype, device=d.qpos.device)
+  niters = []
+  for _ in range(nstep):
+    d = rollout.check_reset(m, forward.step(m, d), fresh)
+    niters.append(d.solver_niter)
+  return d, torch.stack(niters, dim=1).cpu()
+
+
+def general_batch(m, nbatch, seed, device="cuda"):
+  """A batch of m posed from a numpy seed: qpos0 + 0.05·N(0, 1), qvel
+  0.3·N(0, 1) (as tests/test_torch_general.py poses its scenes)."""
+  from mujoco_tpu_torch.parallel import rollout
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  t = lambda a: torch.tensor(a, dtype=m.dtype, device=device)
+  return d.replace(
+      qpos=d.qpos + t(0.05 * rng.standard_normal(tuple(d.qpos.shape))),
+      qvel=t(0.3 * rng.standard_normal(tuple(d.qvel.shape))))
+
+
+def card_vs_cpu(load, make, nstep, tag) -> float:
+  """nstep steps at f64 of make(m, device) on the card and on the CPU;
+  fails unless qpos and qvel agree to 1e-8 + 1e-8·|CPU|. Returns the
+  largest violation ratio."""
+  outs = {}
+  for dev in ("cuda", "cpu"):
+    m = load(torch.float64, dev)
+    d, niters = run_steps(m, make(m, dev), nstep)
+    outs[dev] = (d.qpos.cpu(), d.qvel.cpu(), niters)
+  worst = 0.0
+  for i, k in enumerate(("qpos", "qvel")):
+    a, b = outs["cuda"][i], outs["cpu"][i]
+    worst = max(worst, ((a - b).abs() / (1e-8 + 1e-8 * b.abs())).max().item())
+  same_niter = bool((outs["cuda"][2] == outs["cpu"][2]).all())
+  print(f"{tag}: {nstep} steps f64 B{outs['cpu'][0].shape[0]}, card vs CPU "
+        f"worst err / (1e-8 + 1e-8·|CPU|) {worst:.3f}, Newton iteration "
+        f"counts identical {same_niter}", flush=True)
+  if not worst <= 1.0:
+    raise AssertionError(f"{tag}: card and CPU differ ({worst} × limit)")
+  return worst
+
+
+def phase_general_core(report, details):
+  """(a) the general core at full width on the humanoid at MuJoCo's default
+  solver options."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import megastep_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  load = lambda dtype, dev="cuda": zoo.load(
+      "humanoid", dtype, dev, opt=zoo.MUJOCO_DEFAULT_SOLVER)
+  m = load(torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits the humanoid at 100 iterations")
+  d = main_path_batch(m)
+  torch.cuda.synchronize()
+  reset_counts()
+  t0 = time.perf_counter()
+  out = rollout.scan_steps(m, d, GENERAL_NSTEP, check=True)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = read_counts()
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  sps = B * GENERAL_NSTEP / wall
+  print(f"general core: humanoid at MuJoCo's default solver options f32 B{B} "
+        f"{GENERAL_NSTEP} steps check=True: wall {wall:.3f} s, {sps:.1f} "
+        f"env-steps/s, launches {launches}, LDL launches per step "
+        f"{launches['ldl_solve'] / GENERAL_NSTEP:.1f}, finite {finite}",
+        flush=True)
+  if not finite:
+    raise AssertionError("general core produced a non-finite state")
+  if launches["newton_pyramidal"] or launches["megastep"] or \
+      launches["ldl_solve"] < 2 * GENERAL_NSTEP:
+    raise AssertionError(f"general core launches {launches}")
+  # the same steps one at a time, with each step's Newton iteration counts
+  reset_counts()
+  _, niters = run_steps(m, d, GENERAL_NSTEP)
+  torch.cuda.synchronize()
+  counted = read_counts()
+  most_per_step = niters.max(0).values
+  need = GENERAL_NSTEP + int(most_per_step.sum())
+  mean_it = niters.double().mean().item()
+  print(f"general core Newton iterations per env-step: mean {mean_it:.3f}, "
+        f"most {int(niters.max())}; LDL launches {counted['ldl_solve']} in "
+        f"{GENERAL_NSTEP} steps (need ≥ {need}: one per step for qacc_smooth"
+        f" and one per iteration of the env that iterates most)", flush=True)
+  if counted["ldl_solve"] < need or counted["newton_pyramidal"]:
+    raise AssertionError(f"general core launches {counted}, need {need} LDL")
+
+  def window():
+    rollout.scan_steps(m, d, 3, check=True)
+    torch.cuda.synchronize()
+
+  window()
+  prof, _ = profile_window(window, 3)
+  print(f"profile, general core: humanoid f32 B{B} 3 steps: wall "
+        f"{prof['wall_ms_per_step']:.2f} ms/step, device busy "
+        f"{prof['device_busy_ms_per_step']:.2f} ms/step, idle "
+        f"{prof['device_idle_share']:.2%}, "
+        f"{prof['kernel_launches_per_step']:.0f} kernel launches/step",
+        flush=True)
+  worst = card_vs_cpu(load, lambda mm, dev: general_batch(mm, 8, 11, dev), 5,
+                      "general core humanoid")
+  details["general_core"] = dict(
+      batch=B, nstep=GENERAL_NSTEP, wall_s=wall, env_steps_per_s=sps,
+      launches=launches, ldl_launches_per_step=launches["ldl_solve"]
+      / GENERAL_NSTEP, newton_iterations_mean=mean_it,
+      newton_iterations_most=int(niters.max()),
+      most_per_step=most_per_step.tolist(), profile=prof,
+      card_vs_cpu_worst=worst)
+  report["ldl_solve"].setdefault("launches_by_path", {})[
+      "general_core"] = launches["ldl_solve"]
+
+
+def phase_model_class(report, details):
+  """(b) each scene of the general constraint class on the stage path."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  out_details, total = {}, 0
+  for name in zoo.GENERAL:
+    m = zoo.load(name, torch.float32)
+    d = general_batch(m, B, 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = rollout.scan_steps(m, d, 50, check=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    finite = bool(torch.isfinite(out.qpos).all()
+                  & torch.isfinite(out.qvel).all())
+    print(f"model class {name}: nefc {m.efc.nefc} (ne {m.efc.ne}, nf "
+          f"{m.efc.nf}, nl {m.efc.nl}), f32 B{B} 50 steps: wall {wall:.3f} "
+          f"s, {B * 50 / wall:.1f} env-steps/s, launches {launches}, finite "
+          f"{finite}", flush=True)
+    if not finite or launches["newton_pyramidal"] or launches["megastep"] \
+        or launches["ldl_solve"] < 100:
+      raise AssertionError(f"model class {name}: finite {finite}, "
+                           f"launches {launches}")
+    total += launches["ldl_solve"]
+    worst = card_vs_cpu(lambda dtype, dev, n=name: zoo.load(n, dtype, dev),
+                        lambda mm, dev: general_batch(mm, 64, 1, dev), 10,
+                        f"model class {name}")
+    out_details[name] = dict(wall_s=wall, env_steps_per_s=B * 50 / wall,
+                             launches=launches, card_vs_cpu_worst=worst)
+  details["model_class"] = out_details
+  report["ldl_solve"].setdefault("launches_by_path", {})[
+      "model_class"] = total
+
+
+def newton_rows_gate(args, out_k, out_p, ls, nperturb=8):
+  """Kernel against plain version at f64 on rows whose Newton problems
+  may be ill-conditioned (a stiff weld, 4 iterations): the plain version is
+  rerun on nperturb copies of its input with aref and M moved by 1e-15
+  relative (M kept symmetric). An env whose plain result moves beyond
+  1e-9 + 1e-9·|plain| there is sensitive: a linesearch that parks on a kink
+  the last bit decides, in the plain version itself. Every other env must
+  match the kernel elementwise to that tolerance; on a sensitive env the
+  kernel may differ from the plain version in objective by no more than
+  the plain version differs from itself there: its gap, relative, at most
+  the largest (highest − lowest perturbed objective) / |plain| over the
+  sensitive envs. Returns (sensitive (B,), worst violation on the rest,
+  the sensitive envs' [kernel, plain, lowest, highest perturbed]
+  objectives, the count of envs off elementwise)."""
+  from mujoco_tpu_torch.ops import newton_cuda
+  gen = torch.Generator(device="cuda").manual_seed(0)
+
+  def env_violation(out):
+    worst = torch.zeros(out_p[0].shape[0], dtype=torch.float64,
+                        device="cuda")
+    for name, a, b in zip(("x", "force", "qfrc", "stat"), out, out_p):
+      scale = b.abs()
+      if name == "stat":
+        scale = scale.sum(-1, keepdim=True)
+      v = (a - b).abs() / (1e-9 + 1e-9 * scale)
+      worst = torch.maximum(worst, v.reshape(v.shape[0], -1).amax(1))
+    return worst
+
+  cost = lambda out: newton_cuda.objective(args, out[0])
+  c_p = cost(out_p)
+  lo, hi = c_p.clone(), c_p.clone()
+  sensitive = torch.zeros_like(c_p, dtype=torch.bool)
+  for _ in range(nperturb):
+    moved = list(args)
+    noise = lambda t: 1 + 1e-15 * torch.randn(
+        t.shape, generator=gen, device="cuda", dtype=t.dtype)
+    moved[1] = args[1] * noise(args[1])
+    mm = args[7] * noise(args[7])
+    moved[7] = (0.5 * (mm + mm.transpose(1, 2))).contiguous()
+    out = newton_cuda.newton_plain(*moved, 4, ls)
+    sensitive |= env_violation(out) > 1
+    lo, hi = torch.minimum(lo, cost(out)), torch.maximum(hi, cost(out))
+  viol = env_violation(out_k)
+  worst = viol[~sensitive].max().item() if (~sensitive).any() else 0.0
+  c_k = cost(out_k)
+  table = torch.stack([c_k, c_p, lo, hi], dim=1)[sensitive].tolist()
+  return sensitive, worst, table, int((viol > 1).sum())
+
+
+def phase_newton_rows(report, details):
+  """(c) the Newton kernel on each scene's rows, then on the path."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward, newton_cuda, solver
+  from mujoco_tpu_torch.parallel import rollout
+  out_details, total = {}, 0
+  for name in zoo.GENERAL:
+    m = zoo.load(name, torch.float64)
+    d = general_batch(m, B, 2)
+    d = forward.fwd_acceleration(m, forward.fwd_actuation(
+        m, forward.fwd_velocity(m, forward.fwd_position(m, d))))
+    args = solver.newton_args(m, d.replace(
+        qacc_warmstart=0.9 * d.qacc_smooth))
+    ls = int(m.opt.ls_iterations)
+    out_k = newton_cuda.newton_kernel(*args, 4, ls)
+    torch.cuda.synchronize()
+    out_p = newton_cuda.newton_plain(*args, 4, ls)
+    viol = newton_violation(out_k, out_p)
+    kept = newton_cuda.kept_rows(args[2], args[5], args[4])
+    ne, nf = m.efc.ne, m.efc.nf
+    kept_eq = kept[:, :ne].sum(1).double().mean().item()
+    kept_fric = kept[:, ne:ne + nf].sum(1).double().mean().item()
+    sensitive, worst, table, n_off = newton_rows_gate(args, out_k, out_p,
+                                                      ls)
+    spread = max([1e-9] + [(hi - lo) / abs(c) for _, c, lo, hi in table])
+    gaps = [abs(k - c) / abs(c) for k, c, _, _ in table]
+    above = [g for g in gaps if not g <= spread]
+    print(f"newton rows {name}: ne {ne}, nf {nf}, nefc {m.efc.nefc}; kept "
+          f"rows per env mean {kept.sum(1).double().mean().item():.2f} "
+          f"(equality {kept_eq:.2f}, friction loss {kept_fric:.2f}), most "
+          f"{int(kept.sum(1).max())}; f64 B{B} it4 ls{ls} worst err / (1e-9 "
+          f"+ 1e-9·|plain|) " + " ".join(f"{k} {v:.3f}"
+                                          for k, v in viol.items())
+          + f"; {n_off} envs off elementwise, {int(sensitive.sum())} envs "
+          f"whose plain result moves under 1e-15 input perturbations "
+          f"(limit {B // 100}), worst err / limit on the others "
+          f"{worst:.3f}; objectives [kernel, plain, perturbed lowest, "
+          f"highest] on the sensitive envs {table}: kernel's relative gap "
+          f"most {max(gaps, default=0.0):.3e}, the plain version's own "
+          f"spread {spread:.3e}, envs beyond it {len(above)}", flush=True)
+    if int(sensitive.sum()) > B // 100 or not worst <= 1.0 or above:
+      raise AssertionError(f"newton rows {name}: kernel and plain disagree")
+    m4 = zoo.load(name, torch.float32, opt={"iterations": 4})
+    d4 = general_batch(m4, B, 2)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = rollout.scan_steps(m4, d4, 5, check=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"newton rows {name} on the path: iterations 4, f32 B{B} 5 steps, "
+          f"launches {launches}", flush=True)
+    if launches["newton_pyramidal"] != 5 or launches["megastep"] or not bool(
+        torch.isfinite(out.qpos).all()):
+      raise AssertionError(f"newton rows {name}: launches {launches}")
+    total += launches["newton_pyramidal"]
+    out_details[name] = dict(ne=ne, nf=nf, kept_mean=kept.sum(1).double()
+                             .mean().item(), kept_eq_mean=kept_eq,
+                             kept_fric_mean=kept_fric, violation=viol,
+                             sensitive_envs=int(sensitive.sum()),
+                             violation_stable_envs=worst,
+                             objectives_sensitive=table,
+                             path_launches=launches)
+  details["newton_rows"] = out_details
+  report["newton_pyramidal"].setdefault("launches_by_path", {})[
+      "general_scenes_iterations_4"] = total
+
+
+def phase_ldl_backward(report, details):
+  """(d) SpdSolve's backward through the kernel against the same backward
+  through the plain version: λ = H⁻¹ w re-solved, ḡ = λ, H̄ = −λ pᵀ."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import linalg_cuda
+  d = humanoid_state(zoo.humanoid(torch.float64), B, 4)
+  h, g = d.qM.contiguous(), d.qfrc_smooth.contiguous()
+  w = torch.tensor(np.random.default_rng(9).standard_normal(tuple(g.shape)),
+                   dtype=torch.float64, device="cuda")
+  H, G = h.clone().requires_grad_(), g.clone().requires_grad_()
+  before = linalg_cuda.LAUNCHES
+  loss = (w * linalg_cuda.spd_solve(H, G)).sum()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  loss.backward()
+  end.record()
+  torch.cuda.synchronize()
+  kernel_ms = start.elapsed_time(end)
+  launches = linalg_cuda.LAUNCHES - before
+  held = {}
+
+  def plain_backward():
+    p = linalg_cuda.spd_solve_plain(h, g)
+    lam = linalg_cuda.spd_solve_plain(h, w)
+    held["grads"] = (-lam[:, :, None] * p[:, None, :], lam)
+
+  plain_ms = cuda_ms(plain_backward, reps=1, warmup=1)
+  rel = max(((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip((H.grad, G.grad), held["grads"]))
+  print(f"ldl backward f64 B{B} n{h.shape[1]}: kernel launches {launches} "
+        f"(forward and backward re-solve); max rel err of dH, dg against "
+        f"the plain backward {rel:.3e} (limit 1e-9); backward ms kernel "
+        f"{kernel_ms:.4f}, plain (its two solves) {plain_ms:.4f}",
+        flush=True)
+  if launches != 2 or not rel <= 1e-9:
+    raise AssertionError(f"ldl backward: launches {launches}, rel err {rel}")
+  details["ldl_backward"] = dict(rel_err=rel, kernel_backward_ms=kernel_ms,
+                                 plain_backward_ms=plain_ms,
+                                 launches=launches)
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -931,6 +1282,10 @@ def main() -> int:
   phase_stage_path(report, details)
   phase_profile(details)
   phase_cross_check(details)
+  phase_general_core(report, details)
+  phase_model_class(report, details)
+  phase_newton_rows(report, details)
+  phase_ldl_backward(report, details)
 
   kernels = [report["ldl_solve"], report["newton_pyramidal"],
              report["megastep"]]

@@ -30,6 +30,7 @@ import torch
 from mujoco_tpu_torch.models.types import (BiasType, ConeType, Contact,
                                            ContactMeta, Data, DisableBit,
                                            DynType, EfcMeta, EnableBit,
+                                           EqType,
                                            GainType, GeomType, Integrator,
                                            JointType, Model, Option,
                                            SolverType, TreeTopology, TrnType)
@@ -110,28 +111,75 @@ def _tree_topology(parentid, body_dofadr, body_dofnum, dof_parentid, nv,
     elif jtype == JointType.FREE:
       cdofdot_mask[j, jnt_dofadr[jid] + 3:jnt_dofadr[jid] + 6] = False
 
+  # dof-tree depth levels and padded strict-ancestor chains (tree L'DL')
+  dof_depth = np.zeros(nv, dtype=np.int32)
+  for i in range(nv):
+    p = dof_parentid[i]
+    dof_depth[i] = 0 if p < 0 else dof_depth[p] + 1
+  dof_levels = tuple(
+      np.nonzero(dof_depth == lev)[0].astype(np.int32)
+      for lev in range(dof_depth.max() + 1 if nv else 0))
+  maxdepth = int(dof_depth.max()) if nv else 0
+  dof_anc_table = np.full((nv, max(maxdepth, 1)), nv, dtype=np.int32)
+  for i in range(nv):
+    p, k = dof_parentid[i], 0
+    while p >= 0:
+      dof_anc_table[i, k] = p
+      p = dof_parentid[p]
+      k += 1
+
   out = {"ancestor_mask": ancestor_mask, "subtree_mask": subtree_mask,
-         "dof_ancestor_mask": dof_anc, "cdofdot_mask": cdofdot_mask}
+         "dof_ancestor_mask": dof_anc, "cdofdot_mask": cdofdot_mask,
+         "dof_anc_table": dof_anc_table}
   for i, lev in enumerate(levels):
     out[f"levels.{i}"] = lev
+  for i, lev in enumerate(dof_levels):
+    out[f"dof_levels.{i}"] = lev
   return out
 
 
 def _contact_meta(mjm: Any) -> dict:
   """Candidate geom pairs and their fixed slots, mirroring mj_collision's
-  filtering (contype/conaffinity, same weld, parent-child weld, excludes).
-  Slot order is the reference's (mujoco_tpu/models/io.py:512-545): plane
-  pairs in enumeration order, then the other pairs grouped by sorted
-  (type1, type2, condim) signature."""
+  filtering (contype/conaffinity, same weld, parent-child weld, excludes)
+  and its explicit <pair>s. Slot order is the reference's
+  (mujoco_tpu/models/io.py:427-545): explicit pairs in pair order with
+  their own condim (``pair_dim``), then the other plane pairs in
+  enumeration order, then the rest grouped by sorted (type1, type2, condim)
+  signature."""
   filterparent = not (mjm.opt.disableflags & DisableBit.FILTERPARENT)
   exclude_sigs = {int(mjm.exclude_signature[i]) for i in range(mjm.nexclude)}
   weld = mjm.body_weldid
   weldparent = np.array([weld[mjm.body_parentid[weld[b]]]
                          for b in range(mjm.nbody)])
 
-  plane_pairs, staged = [], {}
+  def signature(a, b, pid):
+    t1, t2 = GeomType(mjm.geom_type[a]), GeomType(mjm.geom_type[b])
+    if (t1, t2) not in _PAIR_NCON:
+      raise NotImplementedError(
+          f"collision pair {t1.name}-{t2.name} (geoms {a},{b})")
+    if pid >= 0:
+      condim = int(mjm.pair_dim[pid])
+    else:
+      p1, p2 = int(mjm.geom_priority[a]), int(mjm.geom_priority[b])
+      if p1 != p2:
+        condim = int(mjm.geom_condim[a if p1 > p2 else b])
+      else:
+        condim = int(max(mjm.geom_condim[a], mjm.geom_condim[b]))
+    if condim not in (1, 3, 4, 6):
+      raise NotImplementedError(f"contact condim {condim}")
+    return int(t1), int(t2), condim
+
+  static_pairs, staged, explicit = [], {}, set()
+  for p in range(mjm.npair):
+    a, b = int(mjm.pair_geom1[p]), int(mjm.pair_geom2[p])
+    if mjm.geom_type[a] > mjm.geom_type[b]:
+      a, b = b, a
+    static_pairs.append((a, b, p, signature(a, b, p)))
+    explicit.add((min(a, b), max(a, b)))
   for g1 in range(mjm.ngeom):
     for g2 in range(g1 + 1, mjm.ngeom):
+      if (g1, g2) in explicit:
+        continue
       b1, b2 = int(mjm.geom_bodyid[g1]), int(mjm.geom_bodyid[g2])
       w1, w2 = int(weld[b1]), int(weld[b2])
       if w1 == w2:
@@ -145,59 +193,70 @@ def _contact_meta(mjm: Any) -> dict:
       if (min(b1, b2) << 16) + max(b1, b2) in exclude_sigs:
         continue
       a, b = (g1, g2) if mjm.geom_type[g1] <= mjm.geom_type[g2] else (g2, g1)
-      t1, t2 = GeomType(mjm.geom_type[a]), GeomType(mjm.geom_type[b])
-      if (t1, t2) not in _PAIR_NCON:
-        raise NotImplementedError(
-            f"collision pair {t1.name}-{t2.name} (geoms {a},{b})")
-      p1, p2 = int(mjm.geom_priority[a]), int(mjm.geom_priority[b])
-      if p1 != p2:
-        condim = int(mjm.geom_condim[a if p1 > p2 else b])
+      sig = signature(a, b, -1)
+      if sig[0] == GeomType.PLANE:
+        static_pairs.append((a, b, -1, sig))
       else:
-        condim = int(max(mjm.geom_condim[a], mjm.geom_condim[b]))
-      if condim not in (1, 3):
-        raise NotImplementedError(
-            f"contact condim {condim} (torsional/rolling friction)")
-      sig = (int(t1), int(t2), condim)
-      if t1 == GeomType.PLANE:
-        plane_pairs.append((a, b, sig))
-      else:
-        staged.setdefault(sig, []).append((a, b, sig))
-  pairs = list(plane_pairs)
+        staged.setdefault(sig, []).append((a, b, -1, sig))
+  pairs = list(static_pairs)
   for sig, group in sorted(staged.items()):
     if len(group) > _DYNAMIC_PAIRS:
       raise NotImplementedError(
           f"{len(group)} candidate pairs of one type (dynamic pair groups)")
     pairs.extend(group)
 
-  g1s, g2s, types, condims, first = [], [], [], [], []
-  for a, b, (t1, t2, condim) in pairs:
+  g1s, g2s, types, condims, first, pairids = [], [], [], [], [], []
+  for a, b, pid, (t1, t2, condim) in pairs:
     for k in range(_PAIR_NCON[t1, t2]):
       g1s.append(a)
       g2s.append(b)
       types.append((t1, t2))
       condims.append(condim)
       first.append(k == 0)
+      pairids.append(pid)
 
   si = lambda x: np.array(x, dtype=np.int32).reshape(-1)
   return {"ncon": len(g1s), "geom1": si(g1s), "geom2": si(g2s),
           "pair_type": np.array(types, dtype=np.int32).reshape(-1, 2),
-          "condim": si(condims), "con_first": np.array(first, dtype=bool)}
+          "condim": si(condims), "con_first": np.array(first, dtype=bool),
+          "pairid": si(pairids)}
+
+
+# rows of each equality type the port assembles (mujoco_tpu/models/io.py:
+# 1104-1109); TENDON waits for the tendon slice, FLEX/FLEXSTRAIN for flex
+_EQ_ROWS = {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1}
 
 
 def _efc_meta(mjm: Any, con: dict) -> dict:
-  """Fixed row layout: limits, then pyramidal contact rows (equality and
-  friction-loss rows are outside the slice and rejected earlier)."""
+  """Fixed row layout (mujoco_tpu/models/io.py:1074-1172): equality, dof
+  friction loss, limits (two sides per hinge/slide, one row per ball),
+  then contacts (one row for condim 1, 2·(condim − 1) pyramidal edges
+  otherwise)."""
+  eq_id, eq_row = [], []
+  for i in range(mjm.neq):
+    t = EqType(int(mjm.eq_type[i]))
+    if t not in _EQ_ROWS:
+      raise NotImplementedError(f"equality type {t.name}")
+    for r in range(_EQ_ROWS[t]):
+      eq_id.append(i)
+      eq_row.append(r)
+  ne = len(eq_id)
+
+  friction_dof = [i for i in range(mjm.nv) if mjm.dof_frictionloss[i] > 0]
+  nf = len(friction_dof)
+
   limit_jnt, limit_side = [], []
   for i in range(mjm.njnt):
     if not mjm.jnt_limited[i]:
       continue
-    for side in (-1, 1):
+    sides = (0,) if mjm.jnt_type[i] == JointType.BALL else (-1, 1)
+    for side in sides:
       limit_jnt.append(i)
       limit_side.append(side)
   nl = len(limit_jnt)
 
   con_id, con_row, con_efcadr, con_nrow = [], [], [], []
-  adr = nl
+  adr = ne + nf + nl
   for c in range(con["ncon"]):
     nrow = 1 if con["condim"][c] == 1 else 2 * (int(con["condim"][c]) - 1)
     con_efcadr.append(adr)
@@ -208,10 +267,13 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
     adr += nrow
 
   si = lambda x: np.array(x, dtype=np.int32).reshape(-1)
-  return {"nefc": adr, "ne": 0, "nf": 0, "nl": nl, "ncon_rows": len(con_id),
-          "limit_jnt": si(limit_jnt), "limit_side": si(limit_side),
-          "con_id": si(con_id), "con_row": si(con_row),
-          "con_efcadr": si(con_efcadr), "con_nrow": si(con_nrow)}
+  return {"nefc": adr, "ne": ne, "nf": nf, "nl": nl,
+          "ncon_rows": len(con_id), "eq_id": si(eq_id), "eq_row": si(eq_row),
+          "friction_dof": si(friction_dof), "friction_ten": si([-1] * nf),
+          "limit_jnt": si(limit_jnt), "limit_ten": si([-1] * nl),
+          "limit_side": si(limit_side), "con_id": si(con_id),
+          "con_row": si(con_row), "con_efcadr": si(con_efcadr),
+          "con_nrow": si(con_nrow)}
 
 
 def _names(mjm: Any) -> dict:
@@ -272,16 +334,14 @@ def _actuator_meta(mjm: Any):
 
 def _check_solver(mjm: Any, nefc: int) -> None:
   """The constraint solve runs only when the model has constraint rows;
-  then it must be the whole-Newton regime."""
+  then it must be Newton or CG on the pyramidal cone, without noslip."""
   opt = mjm.opt
   if nefc == 0 or opt.disableflags & DisableBit.CONSTRAINT:
     return
-  if int(opt.solver) != SolverType.NEWTON:
+  if int(opt.solver) not in (SolverType.NEWTON, SolverType.CG):
     raise NotImplementedError(f"solver {SolverType(int(opt.solver)).name}")
   if int(opt.cone) == ConeType.ELLIPTIC:
     raise NotImplementedError("elliptic friction cone")
-  if int(opt.iterations) > 4:
-    raise NotImplementedError("Newton iterations > 4 (general solver core)")
   if int(opt.noslip_iterations) > 0:
     raise NotImplementedError("noslip")
 
@@ -289,11 +349,8 @@ def _check_solver(mjm: Any, nefc: int) -> None:
 def _check_subset(mjm: Any) -> None:
   """Reject every feature the port does not implement yet."""
   counts = [("tendons", mjm.ntendon), ("sensors", mjm.nsensor),
-            ("equality constraints", mjm.neq),
             ("flex", getattr(mjm, "nflex", 0)), ("mocap bodies", mjm.nmocap),
-            ("history buffers", getattr(mjm, "nhistory", 0)),
-            ("explicit contact pairs", mjm.npair),
-            ("cameras and lights (camlight)", mjm.ncam + mjm.nlight)]
+            ("history buffers", getattr(mjm, "nhistory", 0))]
   for name, n in counts:
     if int(n):
       raise NotImplementedError(name)
@@ -309,13 +366,8 @@ def _check_subset(mjm: Any) -> None:
     raise NotImplementedError("fluid forces")
   if mjm.nv >= _ISLAND_MIN_NV and not (opt.disableflags & DisableBit.ISLAND):
     raise NotImplementedError("constraint islands")
-  if np.any(np.asarray(mjm.dof_frictionloss) > 0):
-    raise NotImplementedError("dof friction loss")
   if np.any(np.asarray(getattr(mjm, "jnt_actgravcomp", [0]))):
     raise NotImplementedError("actuator gravity compensation")
-  for j in range(mjm.njnt):
-    if mjm.jnt_limited[j] and int(mjm.jnt_type[j]) == JointType.BALL:
-      raise NotImplementedError("ball joint limits")
 
 
 # ---------------------------------------------------------------------------
@@ -361,10 +413,12 @@ def model_numpy(mjm: Any) -> dict:
   f = {
       "nq": mjm.nq, "nv": mjm.nv, "nu": mjm.nu, "na": mjm.na,
       "nbody": mjm.nbody, "njnt": mjm.njnt, "ngeom": mjm.ngeom,
-      "nsite": mjm.nsite,
+      "nsite": mjm.nsite, "neq": mjm.neq, "ncam": mjm.ncam,
+      "nlight": mjm.nlight,
       "has_dof_damping": bool(np.any(np.asarray(mjm.dof_damping) > 0)),
       "opt.timestep": jx(mjm.opt.timestep), "opt.gravity": jx(mjm.opt.gravity),
       "opt.impratio": jx(mjm.opt.impratio),
+      "opt.tolerance": jx(mjm.opt.tolerance),
       "opt.integrator": int(mjm.opt.integrator), "opt.cone": int(mjm.opt.cone),
       "opt.solver": int(mjm.opt.solver),
       "opt.iterations": int(mjm.opt.iterations),
@@ -389,7 +443,10 @@ def model_numpy(mjm: Any) -> dict:
                "geom_type", "geom_contype", "geom_conaffinity", "geom_condim",
                "geom_bodyid", "geom_priority", "site_bodyid",
                "actuator_trntype", "actuator_trnid", "actuator_ctrllimited",
-               "actuator_forcelimited"):
+               "actuator_forcelimited", "pair_dim", "pair_geom1",
+               "pair_geom2", "eq_type", "eq_obj1id", "eq_obj2id",
+               "eq_objtype", "cam_bodyid", "cam_targetbodyid", "cam_mode",
+               "light_bodyid", "light_targetbodyid", "light_mode"):
     f[name] = si(getattr(mjm, name))
   for name in ("body_pos", "body_quat", "body_ipos", "body_iquat",
                "body_mass", "body_subtreemass", "body_inertia",
@@ -400,8 +457,15 @@ def model_numpy(mjm: Any) -> dict:
                "geom_size", "geom_pos", "geom_quat", "geom_friction",
                "geom_margin", "site_pos", "site_quat", "actuator_gainprm",
                "actuator_biasprm", "actuator_ctrlrange", "actuator_forcerange",
-               "actuator_gear"):
+               "actuator_gear", "dof_frictionloss", "dof_solref",
+               "dof_solimp", "pair_friction", "pair_solref",
+               "pair_solreffriction", "pair_solimp", "pair_margin",
+               "pair_gap", "eq_solref", "eq_solimp", "eq_data", "cam_pos",
+               "cam_quat", "cam_pos0", "cam_poscom0", "light_pos",
+               "light_dir", "light_pos0", "light_poscom0", "light_dir0"):
     f[name] = jx(getattr(mjm, name))
+  f["cam_mat0"] = jx(mjm.cam_mat0).reshape(-1, 3, 3)
+  f["eq_active0"] = np.array(mjm.eq_active0, dtype=bool)
   f["actuator_dyntype"], f["actuator_gaintype"], f["actuator_biastype"] = (
       dyn, gain, bias)
   f["actuator_group"] = si(getattr(mjm, "actuator_group", np.zeros(mjm.nu)))
@@ -486,12 +550,17 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       time=z(), qpos=m.qpos0.to(device=dev, dtype=dtype)[None].clone(),
       qvel=z(nv), act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(nv),
       xfrc_applied=z(nb, 6), qacc_warmstart=z(nv),
+      eq_active=torch.as_tensor(m.eq_active0, dtype=torch.bool,
+                                device=dev).reshape(1, m.neq),
       xpos=z(nb, 3), xquat=tile([1.0, 0, 0, 0], nb), xmat=tile(eye3, nb),
       xipos=z(nb, 3), ximat=tile(eye3, nb), xanchor=z(m.njnt, 3),
       xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
       geom_xmat=tile(eye3, m.ngeom), site_xpos=z(m.nsite, 3),
-      site_xmat=tile(eye3, m.nsite), subtree_com=z(nb, 3),
+      site_xmat=tile(eye3, m.nsite), cam_xpos=z(m.ncam, 3),
+      cam_xmat=tile(eye3, m.ncam), light_xpos=z(m.nlight, 3),
+      light_xdir=z(m.nlight, 3), subtree_com=z(nb, 3),
       cinert=z(nb, 6, 6), cdof=z(nv, 6), crb=z(nb, 6, 6), qM=z(nv, nv),
+      qLD=z(nv, nv), qLDiagInv=z(nv),
       actuator_length=z(m.nu), actuator_moment=z(m.nu, nv), contact=contact,
       cvel=z(nb, 6), cdof_dot=z(nv, 6), qfrc_bias=z(nv),
       actuator_velocity=z(m.nu), qfrc_spring=z(nv), qfrc_damper=z(nv),

@@ -5,10 +5,14 @@
 compiles each model of ``zoo.SNAPSHOTS`` and saves the port's ``put_model``
 fields in flat numpy form (``io.model_numpy``, f64) to
 ``mujoco_tpu_torch/models/assets/<name>.npz``. ``humanoid`` and
-``quadruped`` come from ``mujoco_tpu/models/assets/*.xml``; ``mixed`` and
-``spherebox`` from the copies below of the scenes of tests/test_megastep.py
-(``_MIXED_XML`` :35 and ``_SPHEREBOX_XML`` :115), compiled with constraint
-islands disabled as that test compiles them. A test holds every committed
+``quadruped`` come from ``mujoco_tpu/models/assets/*.xml``; the scenes from
+the copies below: ``mixed`` and ``spherebox`` of tests/test_megastep.py
+(``_MIXED_XML`` :35 and ``_SPHEREBOX_XML`` :115), and the constraint-class
+scenes (equality, friction-loss, ball-limit, condim 4/6 and explicit-pair
+rows, cameras and lights) of tests/test_contact.py, tests/test_pgs.py and
+tests/test_collision2.py, plus ``weld_ball_chain``, written for this port's
+tests. Every scene is compiled with constraint islands disabled, as
+tests/test_megastep.py compiles its scenes. A test holds every committed
 file equal to a fresh compile, so rerun this after any change to the XMLs
 or to the fields the port's Model carries.
 """
@@ -78,7 +82,156 @@ SPHEREBOX_XML = """
 </mujoco>
 """
 
-_SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML}
+# tests/test_contact.py:38 (EQUALITY_XML): a connect and a joint coupling
+# with polycoef; MuJoCo's default solver options (Newton, 100 iterations)
+EQ_CONNECT_JOINT_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <body name="a" pos="0 0 1">
+      <joint name="j1" type="hinge" axis="0 1 0"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.4 0 0"/>
+    </body>
+    <body name="b" pos="0.4 0 1.3">
+      <joint name="j2" type="hinge" axis="0 1 0"/>
+      <joint name="j3" type="slide" axis="0 0 1"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0 0 -0.3"/>
+    </body>
+  </worldbody>
+  <equality>
+    <connect body1="a" body2="b" anchor="0.4 0 0"/>
+    <joint joint1="j2" joint2="j1" polycoef="0 0.5 0.1 0 0"/>
+  </equality>
+</mujoco>
+"""
+
+# tests/test_contact.py:20 (LIMITS_XML): hinge and slide limits, a slide
+# with friction loss
+LIMITS_FRICTIONLOSS_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint name="j1" type="hinge" axis="0 1 0" range="-0.4 0.5"
+             limited="true" damping="0.02"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.4 0 0"/>
+      <body pos="0.4 0 0">
+        <joint name="j2" type="slide" axis="1 0 0" range="-0.1 0.15"
+               limited="true" frictionloss="0.3"/>
+        <geom type="sphere" size="0.05" contype="0" conaffinity="0"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+# tests/test_pgs.py:20 (_ball_xml("")): a free sphere on the floor beside a
+# limited hinge with friction loss
+BALL_HINGE_FRIC_XML = """
+<mujoco>
+  <option timestep="0.002" />
+  <worldbody>
+    <geom name="floor" type="plane" size="4 4 0.1" friction="1 0.01 0.002"/>
+    <body pos="0 0 0.09">
+      <freejoint/>
+      <geom type="sphere" size="0.1" friction="0.8 0.008 0.001"/>
+    </body>
+    <body pos="0.15 0.02 0.3">
+      <joint type="hinge" axis="0 1 0" range="-50 50" limited="true"
+             frictionloss="0.2"/>
+      <geom type="capsule" size="0.04" fromto="0 0 0 0.3 0 0"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_collision2.py:225-239 (test_pair_override): an explicit
+# condim-6 <pair> with its own friction, solref, margin and gap
+PAIR_CONDIM6_XML = """
+  <mujoco>
+    <worldbody>
+      <geom name="floor" type="plane" size="3 3 .1" contype="0"
+            conaffinity="0"/>
+      <body pos="0 0 0.09"><freejoint/>
+        <geom name="ball" type="sphere" size="0.1" contype="0"
+              conaffinity="0"/></body>
+    </worldbody>
+    <contact>
+      <pair geom1="floor" geom2="ball" condim="6"
+            friction="1.4 1.2 0.01 0.002 0.003" solref="0.01 0.8"
+            margin="0.02" gap="0.005"/>
+    </contact>
+  </mujoco>"""
+
+# tests/test_pgs.py:116-127 (test_noslip_elliptic_condim4_vs_oracle), changed
+# to a variant the port and mujoco_tpu both run through the Newton solve:
+# the pyramidal cone (the default) instead of cone="elliptic", and no
+# noslip_iterations
+SPHERE_CONDIM4_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="4 4 0.1" friction="1 0.05 0.002"/>
+    <body pos="0 0 0.09">
+      <freejoint/>
+      <geom type="sphere" size="0.1" condim="4" friction="0.7 0.06 0.003"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+# a test model: two ball joints with cone limits (one row each) in a chain
+# ending in a limited hinge with friction loss, whose tip is welded to a free sphere (a body weld with torquescale) and
+# to a site on it (a site weld), lights and cameras in every camlight mode
+# (FIXED, TRACK, TRACKCOM, TARGETBODY, TARGETBODYCOM), placed as
+# tests/test_f32.py:116-123 places its light and camera
+WELD_BALL_CHAIN_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <light pos="1 1 3" dir="-.3 -.3 -1" diffuse=".8 .8 .8"/>
+    <light mode="targetbodycom" target="base" pos="0 -1 2"/>
+    <geom type="plane" size="3 3 .1"/>
+    <camera name="c" pos="0 -1.5 1" xyaxes="1 0 0 0 .5 .87"/>
+    <camera name="target" mode="targetbody" target="tip" pos="1 -1 2"/>
+    <body name="base" pos="0 0 1">
+      <joint name="shoulder" type="ball" range="0 40" damping="0.02"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+      <camera name="track" mode="track" pos="0 -1 0.3" xyaxes="1 0 0 0 0 1"/>
+      <light mode="track" pos="0 0 1" dir="0 0 -1"/>
+      <body name="mid" pos="0.3 0 0">
+        <joint name="elbow" type="ball" range="0 30"/>
+        <geom type="capsule" size="0.025" fromto="0 0 0 0.25 0 0"/>
+        <camera name="trackcom" mode="trackcom" pos="0 -0.8 0.2"
+                xyaxes="1 0 0 0 0 1"/>
+        <body name="tip" pos="0.25 0 0">
+          <joint name="wrist" type="hinge" axis="0 1 0" range="-1 1"
+                 frictionloss="0.05"/>
+          <geom type="capsule" size="0.02" fromto="0 0 0 0 0 -0.15"/>
+          <site name="tip_site" pos="0 0 -0.15" euler="0 20 0"/>
+        </body>
+      </body>
+    </body>
+    <body name="ball" pos="0.55 0.05 0.7">
+      <freejoint/>
+      <geom type="sphere" size="0.05"/>
+      <site name="ball_site" pos="0 0 0.03"/>
+      <camera name="targetcom" mode="targetbodycom" target="mid"
+              pos="0 -1 0"/>
+    </body>
+  </worldbody>
+  <equality>
+    <weld body1="ball" body2="tip" torquescale="0.5" solref="0.02 1"/>
+    <weld site1="ball_site" site2="tip_site" active="false"/>
+  </equality>
+</mujoco>
+"""
+
+_SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
+           "eq_connect_joint": EQ_CONNECT_JOINT_XML,
+           "limits_frictionloss": LIMITS_FRICTIONLOSS_XML,
+           "ball_hinge_fric": BALL_HINGE_FRIC_XML,
+           "pair_condim6": PAIR_CONDIM6_XML,
+           "sphere_condim4": SPHERE_CONDIM4_XML,
+           "weld_ball_chain": WELD_BALL_CHAIN_XML}
 
 
 def compile_mj(name: str):

@@ -3,8 +3,9 @@
 Enum values match the reference public API (mujoco_tpu/models/types.py:36-247).
 ``Option`` (:255), ``TreeTopology`` (:292), ``ContactMeta`` (:320),
 ``EfcMeta`` (:450), ``Model`` (:487), ``Contact`` (:913) and ``Data`` (:945)
-carry only the fields the humanoid stage path reads or writes; later slices
-add the rest with their modules. Field names are the reference's, so a
+carry only the fields the port's stages read or write: the rigid-body
+constraint class (equality, friction-loss, limit and contact rows, explicit
+pairs, cameras and lights); later slices add the rest with their modules. Field names are the reference's, so a
 field here and the same-named field of a ``mujoco_tpu`` Model or Data hold
 the same quantity.
 
@@ -41,6 +42,24 @@ class GeomType(enum.IntEnum):
   BOX = 6
   MESH = 7
   SDF = 8
+
+
+class EqType(enum.IntEnum):
+  CONNECT = 0
+  WELD = 1
+  JOINT = 2
+  TENDON = 3
+  FLEX = 4
+  FLEXVERT = 5
+  FLEXSTRAIN = 6
+
+
+class CamLightType(enum.IntEnum):
+  FIXED = 0
+  TRACK = 1
+  TRACKCOM = 2
+  TARGETBODY = 3
+  TARGETBODYCOM = 4
 
 
 class Integrator(enum.IntEnum):
@@ -139,6 +158,7 @@ class Option:
   timestep: torch.Tensor = field()
   gravity: torch.Tensor = field()          # (3,)
   impratio: torch.Tensor = field()
+  tolerance: torch.Tensor = field()
   integrator: int = static_field()
   cone: int = static_field()
   solver: int = static_field()
@@ -157,6 +177,10 @@ class TreeTopology:
   subtree_mask: np.ndarray = static_field()       # (nbody, nbody) bool
   levels: Tuple[np.ndarray, ...] = static_field()  # bodies by tree depth
   dof_ancestor_mask: np.ndarray = static_field()  # (nv, nv) bool
+  # dofs by dof-tree depth, and each dof's strict ancestors padded with nv
+  # (the tree L'DL' factor's tables)
+  dof_levels: Tuple[np.ndarray, ...] = static_field()
+  dof_anc_table: np.ndarray = static_field()      # (nv, maxdepth) int32
   cdofdot_mask: np.ndarray = static_field()       # (nv, nv) bool
 
 
@@ -170,6 +194,7 @@ class ContactMeta:
   pair_type: np.ndarray = static_field()          # (ncon, 2)
   condim: np.ndarray = static_field()             # (ncon,)
   con_first: np.ndarray = static_field()          # (ncon,) bool
+  pairid: np.ndarray = static_field()             # (ncon,) <pair> id or -1
 
 
 @dataclass
@@ -180,8 +205,13 @@ class EfcMeta:
   nf: int = static_field()
   nl: int = static_field()
   ncon_rows: int = static_field()
+  eq_id: np.ndarray = static_field()          # equality of each row
+  eq_row: np.ndarray = static_field()         # row within the equality
+  friction_dof: np.ndarray = static_field()   # dof of each friction row
+  friction_ten: np.ndarray = static_field()   # tendon (−1: no tendons yet)
   limit_jnt: np.ndarray = static_field()
-  limit_side: np.ndarray = static_field()
+  limit_ten: np.ndarray = static_field()      # −1: no tendons yet
+  limit_side: np.ndarray = static_field()     # −1 / +1, 0 for a ball
   con_id: np.ndarray = static_field()
   con_row: np.ndarray = static_field()
   con_efcadr: np.ndarray = static_field()
@@ -199,6 +229,9 @@ class Model:
   njnt: int = static_field()
   ngeom: int = static_field()
   nsite: int = static_field()
+  neq: int = static_field()
+  ncam: int = static_field()
+  nlight: int = static_field()
   has_dof_damping: bool = static_field()
 
   opt: Option = field()
@@ -248,6 +281,9 @@ class Model:
   dof_armature: torch.Tensor = field()
   dof_damping: torch.Tensor = field()
   dof_invweight0: torch.Tensor = field()
+  dof_frictionloss: torch.Tensor = field()
+  dof_solref: torch.Tensor = field()
+  dof_solimp: torch.Tensor = field()
 
   geom_type: np.ndarray = static_field()
   geom_contype: np.ndarray = static_field()
@@ -267,6 +303,42 @@ class Model:
   site_bodyid: np.ndarray = static_field()
   site_pos: torch.Tensor = field()
   site_quat: torch.Tensor = field()
+
+  pair_dim: np.ndarray = static_field()
+  pair_geom1: np.ndarray = static_field()
+  pair_geom2: np.ndarray = static_field()
+  pair_friction: torch.Tensor = field()
+  pair_solref: torch.Tensor = field()
+  pair_solreffriction: torch.Tensor = field()
+  pair_solimp: torch.Tensor = field()
+  pair_margin: torch.Tensor = field()
+  pair_gap: torch.Tensor = field()
+
+  eq_type: np.ndarray = static_field()
+  eq_obj1id: np.ndarray = static_field()
+  eq_obj2id: np.ndarray = static_field()
+  eq_objtype: np.ndarray = static_field()
+  eq_active0: np.ndarray = static_field()
+  eq_solref: torch.Tensor = field()
+  eq_solimp: torch.Tensor = field()
+  eq_data: torch.Tensor = field()
+
+  cam_bodyid: np.ndarray = static_field()
+  cam_targetbodyid: np.ndarray = static_field()
+  cam_mode: np.ndarray = static_field()
+  cam_pos: torch.Tensor = field()
+  cam_quat: torch.Tensor = field()
+  cam_pos0: torch.Tensor = field()
+  cam_poscom0: torch.Tensor = field()
+  cam_mat0: torch.Tensor = field()         # (ncam, 3, 3)
+  light_bodyid: np.ndarray = static_field()
+  light_targetbodyid: np.ndarray = static_field()
+  light_mode: np.ndarray = static_field()
+  light_pos: torch.Tensor = field()
+  light_dir: torch.Tensor = field()
+  light_pos0: torch.Tensor = field()
+  light_poscom0: torch.Tensor = field()
+  light_dir0: torch.Tensor = field()
 
   actuator_trntype: np.ndarray = static_field()
   actuator_dyntype: np.ndarray = static_field()
@@ -322,6 +394,7 @@ class Data:
   qfrc_applied: torch.Tensor    # (B, nv)
   xfrc_applied: torch.Tensor    # (B, nbody, 6)
   qacc_warmstart: torch.Tensor  # (B, nv)
+  eq_active: torch.Tensor       # (B, neq) bool
 
   # position stage
   xpos: torch.Tensor            # (B, nbody, 3)
@@ -335,11 +408,17 @@ class Data:
   geom_xmat: torch.Tensor
   site_xpos: torch.Tensor       # (B, nsite, 3)
   site_xmat: torch.Tensor
+  cam_xpos: torch.Tensor        # (B, ncam, 3)
+  cam_xmat: torch.Tensor        # (B, ncam, 3, 3)
+  light_xpos: torch.Tensor      # (B, nlight, 3)
+  light_xdir: torch.Tensor
   subtree_com: torch.Tensor     # (B, nbody, 3)
   cinert: torch.Tensor          # (B, nbody, 6, 6)
   cdof: torch.Tensor            # (B, nv, 6)
   crb: torch.Tensor             # (B, nbody, 6, 6)
   qM: torch.Tensor              # (B, nv, nv)
+  qLD: torch.Tensor             # (B, nv, nv) tree factor L (CG only)
+  qLDiagInv: torch.Tensor       # (B, nv) its inverse diagonal
   actuator_length: torch.Tensor  # (B, nu)
   actuator_moment: torch.Tensor  # (B, nu, nv)
   contact: Contact = field()

@@ -7,7 +7,11 @@ mujoco_tpu_torch.models.snapshot``. The machine with the card has no pip
 ``humanoid`` and ``quadruped`` are the reference zoo's XMLs
 (``mujoco_tpu/models/assets``); ``mixed`` and ``spherebox`` are the two
 test scenes of tests/test_megastep.py that, with the quadruped, reach every
-contact pair and the implicit-damping Euler branch of the megastep class.
+contact pair and the implicit-damping Euler branch of the megastep class;
+``GENERAL`` are the scenes of the general rigid-body constraint class
+(equality, friction-loss, ball-limit, condim 4/6 and explicit-pair rows,
+cameras and lights) at MuJoCo's default solver options, which the stage
+path's general solver core runs (``models/snapshot.py`` holds their XML).
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ _ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 # the zoo's XMLs live with the reference package; read-only, by path
 XML_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "mujoco_tpu", "models", "assets")
-SNAPSHOTS = ("humanoid", "quadruped", "mixed", "spherebox")
+GENERAL = ("eq_connect_joint", "limits_frictionloss", "ball_hinge_fric",
+           "pair_condim6", "sphere_condim4", "weld_ball_chain")
+SNAPSHOTS = ("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
 
 
 def snapshot_path(name: str) -> str:
@@ -37,10 +43,20 @@ def load_snapshot(name: str) -> dict:
     return {k: z[k] for k in z.files}
 
 
-def load(name: str, dtype: Optional[torch.dtype] = None,
-         device=None) -> Model:
-  """The port's Model of a committed snapshot (one of ``SNAPSHOTS``)."""
-  return io.model_from_numpy(load_snapshot(name), dtype=dtype, device=device)
+# MuJoCo's solver options for a model that sets none (mjOption defaults)
+MUJOCO_DEFAULT_SOLVER = {"iterations": 100, "ls_iterations": 50,
+                         "tolerance": 1e-8}
+
+
+def load(name: str, dtype: Optional[torch.dtype] = None, device=None,
+         opt: Optional[dict] = None) -> Model:
+  """The port's Model of a committed snapshot (one of ``SNAPSHOTS``); opt
+  overrides options in the flat fields before the Model is built (e.g.
+  ``MUJOCO_DEFAULT_SOLVER``)."""
+  fields = load_snapshot(name)
+  for k, v in (opt or {}).items():
+    fields[f"opt.{k}"] = np.asarray(v, dtype=fields[f"opt.{k}"].dtype)
+  return io.model_from_numpy(fields, dtype=dtype, device=device)
 
 
 def humanoid(dtype: Optional[torch.dtype] = None, device=None) -> Model:

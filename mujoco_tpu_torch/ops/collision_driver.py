@@ -7,7 +7,7 @@ Every candidate pair owns fixed slots (Model.con); each type-pair group is
 one batched collider call over (env, pair), and a slot whose dist exceeds
 its includemargin is inactive. Contact parameters combine as mj_contactParam
 does: priority override, solmix-weighted solref/solimp, elementwise-max
-friction, summed margins.
+friction, summed margins; an explicit <pair>'s slots take the pair's own.
 """
 
 from __future__ import annotations
@@ -79,7 +79,23 @@ def _combine_params(m: Model):
       [fri[:, 0], fri[:, 0], fri[:, 1], fri[:, 2], fri[:, 2]], dim=-1),
       min=mjm.MINVAL)
   margin = m.geom_margin[g1] + m.geom_margin[g2]
-  return margin, friction5, solref, torch.zeros_like(solref), solimp
+  solreffriction = torch.zeros_like(solref)
+
+  # an explicit <pair> replaces the combined parameters wholesale
+  # (mj_collideGeomPair): its own friction (all 5), solref, solreffriction,
+  # solimp and margin
+  pid = m.con.pairid
+  if np.any(pid >= 0):
+    pidx = index(np.maximum(pid, 0), dev)
+    is_pair = const(pid >= 0, dev)
+    col = is_pair[:, None]
+    solref = torch.where(col, m.pair_solref[pidx], solref)
+    solreffriction = torch.where(col, m.pair_solreffriction[pidx],
+                                 solreffriction)
+    solimp = torch.where(col, m.pair_solimp[pidx], solimp)
+    friction5 = torch.where(col, m.pair_friction[pidx], friction5)
+    margin = torch.where(is_pair, m.pair_margin[pidx], margin)
+  return margin, friction5, solref, solreffriction, solimp
 
 
 def collision(m: Model, d: Data) -> Data:

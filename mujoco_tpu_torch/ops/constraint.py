@@ -1,12 +1,16 @@
 """Constraint assembly: fixed efc rows, impedance, regularizer, aref.
 
 Port of mujoco_tpu/ops/constraint.py: ``_impedance`` (:34), ``_kb`` (:64),
-``_limit_rows`` (:371, hinge/slide limits), pyramidal ``_contact_rows``
-(:452, condim 1 and 3), ``make_constraint`` (:626) and
-``reference_acceleration`` (:731). Row layout is static (Model.efc): limits,
-then contacts. A row the reference would not instantiate this step (limit
-outside its margin, separated contact slot) stays in place with D, aref and
-frictionloss zeroed, so shapes never change and nothing syncs the host.
+``_point_jac_diff`` (:84), ``_jacdot_v`` (:104), ``_equality_rows`` (:135,
+CONNECT, WELD and JOINT), ``_friction_rows`` (:333, dof friction loss),
+``_limit_rows`` (:371, hinge/slide sides and ball cones), pyramidal
+``_contact_rows`` (:452, condim 1, 3, 4 and 6), ``make_constraint`` (:626)
+and ``reference_acceleration`` (:731) with ``_jdotv_correction`` (:748).
+Row layout is static (Model.efc): equality, friction loss, limits, then
+contacts. A row the reference would not instantiate this step (inactive
+equality, limit outside its margin, separated contact slot) stays in place
+with D, aref and frictionloss zeroed, so shapes never change and nothing
+syncs the host.
 """
 
 from __future__ import annotations
@@ -14,9 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import Data, DisableBit, Model
+from mujoco_tpu_torch.models.types import (Data, DisableBit, EqType,
+                                           JointType, Model)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
+
+_OBJ_SITE = 6   # mjOBJ_SITE
 
 
 def _impedance(solimp, pos, margin):
@@ -58,56 +65,279 @@ def _kb(solref, solimp):
   return k, b
 
 
-def _limit_rows(m: Model, d: Data):
-  """Hinge/slide limit rows: one per side; J is the constant −side at the
-  joint's dof."""
-  nbatch, meta, dev = d.qpos.shape[0], m.efc, m.device
-  nrows = meta.nl
-  jids, sides = meta.limit_jnt, meta.limit_side.astype(np.float64)
-  value = d.qpos[:, index(m.jnt_qposadr[jids], dev)]
-  lo_side = const(sides < 0, dev)
-  rng = m.jnt_range[index(jids, dev)]
-  lim = torch.where(lo_side, rng[:, 0], rng[:, 1])
-  pos = const(sides, dev, m.dtype) * (lim - value)
-  jmat = np.zeros((nrows, m.nv))
-  jmat[np.arange(nrows), m.jnt_dofadr[jids]] = -sides
-  J = const(jmat, dev, m.dtype).expand(nbatch, nrows, m.nv)
-  margin = m.jnt_margin[index(jids, dev)].expand(nbatch, nrows)
-  active = (pos < margin) & (not m.disabled(DisableBit.LIMIT))
+# ---------------------------------------------------------------------------
+# Jacobian building blocks
+# ---------------------------------------------------------------------------
+
+
+def _point_jac_diff(m: Model, d: Data, points, body1, body2, with_rot):
+  """Translational and rotational Jacobian differences (side 2 − side 1),
+  one point per row. points (B, n, 3); body1, body2 static (n,). Returns
+  jacp, jacr, each (B, n, 3, nv) (jacr None without with_rot)."""
+  dev = m.device
+  mask = (const(m.tree.ancestor_mask[body2], dev, m.dtype)
+          - const(m.tree.ancestor_mask[body1], dev, m.dtype))     # (n, nv)
+  o = d.subtree_com[:, index(m.body_rootid[m.dof_bodyid], dev)]  # (B, nv, 3)
+  ang, lin = d.cdof[..., :3], d.cdof[..., 3:]
+  off = points[:, :, None, :] - o[:, None, :, :]                 # (B,n,nv,3)
+  jacp = lin[:, None] + mjm.cross(ang[:, None].expand_as(off), off)
+  jacp = (jacp * mask[..., None]).transpose(-1, -2)
+  if not with_rot:
+    return jacp, None
+  jacr = (ang[:, None].expand_as(off) * mask[..., None]).transpose(-1, -2)
+  return jacp, jacr
+
+
+def _jac(m: Model, d: Data, point, bodyid: int):
+  """Point Jacobian (jacp, jacr), each (B, 3, nv), of a world point on a
+  body (mujoco_tpu/ops/support.py:21)."""
+  mask = const(m.tree.ancestor_mask[bodyid], m.device, m.dtype)[:, None]
+  offset = point - d.subtree_com[:, int(m.body_rootid[bodyid])]
+  ang, lin = d.cdof[..., :3], d.cdof[..., 3:]
+  jacp = (lin + mjm.cross(ang, offset[:, None, :].expand_as(ang))) * mask
+  return jacp.transpose(1, 2), (ang * mask).transpose(1, 2)
+
+
+def _jacdot_v(m: Model, d: Data, point, bodyid: int):
+  """(d/dt J)·qvel of a point on a body (mj_jacDot contracted with qvel).
+  point (B, 3); returns (jdv_p, jdv_r), each (B, 3)."""
+  dev = m.device
+  jtype = m.jnt_type[m.dof_jntid]
+  dof_in_jnt = np.arange(m.nv) - m.jnt_dofadr[m.dof_jntid]
+  is_quat = (jtype == JointType.BALL) | (
+      (jtype == JointType.FREE) & (dof_in_jnt >= 3))
+  # quaternion dofs' cdof_dot is cvel[dof body] × cdof
+  cd_q = mjm.motion_cross(d.cvel[:, index(m.dof_bodyid, dev)], d.cdof)
+  cdof_dot_q = torch.where(const(is_quat, dev)[:, None], cd_q, d.cdof_dot)
+
+  mask = const(m.tree.ancestor_mask[bodyid], dev, m.dtype)
+  mq = (mask * d.qvel)[:, None, :]
+  a = (mq @ cdof_dot_q)[:, 0]                         # (B, 6)
+  w = (mq @ d.cdof)[:, 0]                             # the body's cvel
+  offset = point - d.subtree_com[:, int(m.body_rootid[bodyid])]
+  cvel = d.cvel[:, bodyid]
+  pvel_lin = cvel[:, 3:] + mjm.cross(cvel[:, :3], offset)
+  jdv_p = (a[:, 3:] + mjm.cross(a[:, :3], offset)
+           + mjm.cross(w[:, :3], pvel_lin))
+  return jdv_p, a[:, :3]
+
+
+def _eq_points(m: Model, d: Data, i: int):
+  """The two bodies and world points of a CONNECT or WELD equality: its
+  sites, or its bodies' anchors (eq_data)."""
+  et = int(m.eq_type[i])
+  obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
+  if int(m.eq_objtype[i]) == _OBJ_SITE:
+    b1, b2 = int(m.site_bodyid[obj1]), int(m.site_bodyid[obj2])
+    return b1, b2, d.site_xpos[:, obj1], d.site_xpos[:, obj2]
+  data = m.eq_data[i]
+  if et == EqType.CONNECT:
+    anchor1, anchor2 = data[0:3], data[3:6]
+  else:
+    anchor1, anchor2 = data[3:6], data[0:3]
+  pos1 = d.xpos[:, obj1] + mjm.mat_vec(d.xmat[:, obj1], anchor1)
+  pos2 = d.xpos[:, obj2] + mjm.mat_vec(d.xmat[:, obj2], anchor2)
+  return obj1, obj2, pos1, pos2
+
+
+def _quat_axis(q, v):
+  """q ⊗ (0, v)."""
+  return mjm.mul_quat(q, torch.cat([torch.zeros_like(v[..., :1]), v], -1))
+
+
+# ---------------------------------------------------------------------------
+# row builders: each returns a dict of its rows (J, pos, margin,
+# frictionloss, active, diaga, solref, solreffriction, solimp, imp_pos),
+# every value with the env batch leading
+# ---------------------------------------------------------------------------
+
+
+def _rows(J, pos, active, diaga, solref, solimp, imp_pos,
+          margin=None, frictionloss=None):
+  zero = torch.zeros_like(pos)
+  return dict(J=J, pos=pos, margin=zero if margin is None else margin,
+              frictionloss=zero if frictionloss is None else frictionloss,
+              active=active, diaga=diaga, solref=solref,
+              solreffriction=solref.new_zeros(solref.shape), solimp=solimp,
+              imp_pos=imp_pos)
+
+
+def _equality_rows(m: Model, d: Data):
+  """CONNECT (3 rows), WELD (3 translational, 3 rotational) and JOINT (1
+  row, its polycoef coupling) equality rows."""
+  nbatch, nv, dev = d.qpos.shape[0], m.nv, m.device
+  enabled = not m.disabled(DisableBit.EQUALITY)
+  Js, poss, actives, diagas, solrefs, solimps, imp_poss = ([] for _ in
+                                                            range(7))
+
+  def add(J, pos, active, diaga, i, imp_pos):
+    Js.append(J)
+    poss.append(pos)
+    actives.append(active)
+    diagas.append(diaga.expand(nbatch))
+    solrefs.append(m.eq_solref[i].expand(nbatch, 2))
+    solimps.append(m.eq_solimp[i].expand(nbatch, 5))
+    imp_poss.append(imp_pos)
+
+  for i in range(m.neq):
+    et = int(m.eq_type[i])
+    data = m.eq_data[i]
+    active = d.eq_active[:, i] & enabled
+    if et in (EqType.CONNECT, EqType.WELD):
+      b1, b2, pos1, pos2 = _eq_points(m, d, i)
+      cpos3 = pos1 - pos2
+      jacp1, jacr1 = _jac(m, d, pos1, b1)
+      jacp2, jacr2 = _jac(m, d, pos2, b2)
+      jp = jacp1 - jacp2                                   # (B, 3, nv)
+      invw_t = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
+      if et == EqType.CONNECT:
+        imp_pos = mjm.norm_safe(cpos3)
+        for r in range(3):
+          add(jp[:, r], cpos3[:, r], active, invw_t, i, imp_pos)
+        continue
+      torquescale = data[10]
+      if int(m.eq_objtype[i]) == _OBJ_SITE:
+        obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
+        quat = mjm.mul_quat(d.xquat[:, b1], m.site_quat[obj1])
+        negq1 = mjm.conj_quat(mjm.mul_quat(d.xquat[:, b2],
+                                           m.site_quat[obj2]))
+      else:
+        quat = mjm.mul_quat(d.xquat[:, b1], data[6:10])
+        negq1 = mjm.conj_quat(d.xquat[:, b2])
+      crot = mjm.mul_quat(negq1, quat)[:, 1:] * torquescale
+      # rotation Jacobian: 0.5·(negq1 ⊗ (0, axis) ⊗ quat) per dof column
+      axis_cols = (jacr1 - jacr2).transpose(1, 2)          # (B, nv, 3)
+      q2cols = _quat_axis(negq1[:, None].expand(nbatch, nv, 4), axis_cols)
+      q3cols = mjm.mul_quat(q2cols, quat[:, None].expand(nbatch, nv, 4))
+      jrot = 0.5 * q3cols[..., 1:] * torquescale           # (B, nv, 3)
+      invw_r = m.body_invweight0[b1, 1] + m.body_invweight0[b2, 1]
+      imp_pos = mjm.norm_safe(torch.cat([cpos3, crot], dim=-1))
+      for r in range(3):
+        add(jp[:, r], cpos3[:, r], active, invw_t, i, imp_pos)
+      for r in range(3):
+        add(jrot[..., r], crot[:, r], active, invw_r, i, imp_pos)
+    elif et == EqType.JOINT:
+      obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
+
+      def joint(j):
+        qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
+        onehot = np.zeros(nv)
+        onehot[dadr] = 1.0
+        return (d.qpos[:, qadr], m.qpos0[qadr], const(onehot, dev, m.dtype),
+                m.dof_invweight0[dadr])
+
+      pos1v, ref1, j1, invw1 = joint(obj1)
+      if obj2 >= 0:
+        pos2v, ref2, j2, invw2 = joint(obj2)
+        dif = pos2v - ref2
+        cpos = (pos1v - ref1 - data[0]
+                - (data[1] * dif + data[2] * dif**2 + data[3] * dif**3
+                   + data[4] * dif**4))
+        deriv = (data[1] + 2 * data[2] * dif + 3 * data[3] * dif**2
+                 + 4 * data[4] * dif**3)
+        jrow = j1 - deriv[:, None] * j2
+        diaga = invw1 + invw2
+      else:
+        cpos = pos1v - ref1 - data[0]
+        jrow = j1.expand(nbatch, nv)
+        diaga = invw1
+      add(jrow, cpos, active, diaga, i, cpos)
+    else:
+      raise NotImplementedError(f"equality type {EqType(et).name}")
+
+  st = lambda xs: torch.stack(xs, dim=1)
+  return _rows(st(Js), st(poss), st(actives), st(diagas),
+               st(solrefs), st(solimps), st(imp_poss))
+
+
+def _friction_rows(m: Model, d: Data):
+  """Dof friction-loss rows: J the dof's unit row, frictionloss, the dof's
+  solref and solimp; active unless FRICTIONLOSS is disabled."""
+  nbatch, dev = d.qpos.shape[0], m.device
+  dofs = m.efc.friction_dof
+  jmat = np.zeros((len(dofs), m.nv))
+  jmat[np.arange(len(dofs)), dofs] = 1.0
   ex = lambda t: t.expand((nbatch,) + t.shape)
-  dadr = index(m.jnt_dofadr[jids], dev)
-  return dict(J=J, pos=pos, margin=margin, active=active,
-              diaga=ex(m.dof_invweight0[dadr]),
-              solref=ex(m.jnt_solref[index(jids, dev)]),
-              solreffriction=pos.new_zeros((nbatch, nrows, 2)),
-              solimp=ex(m.jnt_solimp[index(jids, dev)]), imp_pos=pos)
+  dix = index(dofs, dev)
+  zero = torch.zeros((nbatch, len(dofs)), dtype=m.dtype, device=dev)
+  active = torch.full((nbatch, len(dofs)),
+                      not m.disabled(DisableBit.FRICTIONLOSS),
+                      dtype=torch.bool, device=dev)
+  return _rows(ex(const(jmat, dev, m.dtype)), zero, active,
+               ex(m.dof_invweight0[dix]), ex(m.dof_solref[dix]),
+               ex(m.dof_solimp[dix]), zero,
+               frictionloss=ex(m.dof_frictionloss[dix]))
+
+
+def _limit_rows(m: Model, d: Data):
+  """Hinge/slide limit rows (one per side, J the constant −side at the
+  joint's dof) and ball limit rows (one per joint: the rotation angle
+  against the larger range bound, J −axis on the joint's three dofs)."""
+  nbatch, meta, dev = d.qpos.shape[0], m.efc, m.device
+  nrows, nv = meta.nl, m.nv
+  ix = lambda a: index(a, dev)
+  hs = np.nonzero(meta.limit_side != 0)[0]
+  balls = np.nonzero(meta.limit_side == 0)[0]
+  jids = meta.limit_jnt
+  J = torch.zeros((nbatch, nrows, nv), dtype=m.dtype, device=dev)
+  pos = torch.zeros((nbatch, nrows), dtype=m.dtype, device=dev)
+
+  if len(hs):
+    sides = meta.limit_side[hs].astype(np.float64)
+    jh = jids[hs]
+    value = d.qpos[:, ix(m.jnt_qposadr[jh])]
+    rng = m.jnt_range[ix(jh)]
+    lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
+    jmat = np.zeros((len(hs), nv))
+    jmat[np.arange(len(hs)), m.jnt_dofadr[jh]] = -sides
+    J[:, ix(hs)] = const(jmat, dev, m.dtype)
+    pos[:, ix(hs)] = const(sides, dev, m.dtype) * (lim - value)
+  for r in balls:
+    jid = int(jids[r])
+    qadr, dadr = int(m.jnt_qposadr[jid]), int(m.jnt_dofadr[jid])
+    aa = mjm.quat_to_vel(mjm.normalize(d.qpos[:, qadr:qadr + 4]))
+    angle = mjm.norm_safe(aa)
+    J[:, r, dadr:dadr + 3] = -(aa / angle[:, None])
+    pos[:, r] = torch.maximum(m.jnt_range[jid, 0], m.jnt_range[jid, 1]) - angle
+
+  dofs = m.jnt_dofadr[jids]
+  ex = lambda t: t.expand((nbatch,) + t.shape)
+  margin = ex(m.jnt_margin[ix(jids)])
+  active = (pos < margin) & (not m.disabled(DisableBit.LIMIT))
+  return _rows(J, pos, active, ex(m.dof_invweight0[ix(dofs)]),
+               ex(m.jnt_solref[ix(jids)]), ex(m.jnt_solimp[ix(jids)]), pos,
+               margin=margin)
 
 
 def _contact_rows(m: Model, d: Data):
-  """Pyramidal contact rows: normal ± μ·tangent edges of each slot's
+  """Pyramidal contact rows: one normal row for condim 1, else the normal
+  ± μ·(tangent, torsional or rolling axis) edge pairs of each slot's
   frame-rotated point Jacobian (mj_instantiateContact)."""
-  nbatch, meta, dev = d.qpos.shape[0], m.efc, m.device
+  meta, dev = m.efc, m.device
   ix = lambda a: index(a, dev)
   con = d.contact
   b1 = m.geom_bodyid[m.con.geom1]
   b2 = m.geom_bodyid[m.con.geom2]
-  # translational Jacobian difference (side 2 − side 1) at each slot's point
-  mask = (const(m.tree.ancestor_mask[b2], dev, m.dtype)
-          - const(m.tree.ancestor_mask[b1], dev, m.dtype))       # (ncon, nv)
-  o = d.subtree_com[:, ix(m.body_rootid[m.dof_bodyid])]         # (B, nv, 3)
-  ang, lin = d.cdof[..., :3], d.cdof[..., 3:]
-  off = con.pos[:, :, None, :] - o[:, None, :, :]               # (B,ncon,nv,3)
-  jacp = lin[:, None] + mjm.cross(ang[:, None].expand_as(off), off)
-  jacp = (jacp * mask[..., None]).transpose(-1, -2)             # (B,ncon,3,nv)
-  jt = con.frame @ jacp                                         # (B,ncon,3,nv)
+  # rotational Jacobians only where torsional or rolling friction acts
+  need_rot = bool(np.any(m.con.condim > 3))
+  jacp, jacr = _point_jac_diff(m, d, con.pos, b1, b2, need_rot)
+  jt = con.frame @ jacp                                    # (B, ncon, 3, nv)
+  jr = con.frame @ jacr if need_rot else jt
 
   cid, crow = meta.con_id, meta.con_row
   condim = m.con.condim[cid]
   frictionless = condim == 1
   fdim = np.where(frictionless, 0, crow // 2 + 1)
   sign = np.where(crow % 2 == 0, 1.0, -1.0)
+  # edge axis: fdim 1, 2 are the tangents (jt rows), 3, 4, 5 the torsional
+  # and rolling axes (jr rows 0, 1, 2)
+  use_rot = fdim >= 3
+  axis_idx = np.clip(np.where(use_rot, fdim - 3, fdim), 0, 2)
   jn = jt[:, ix(cid), 0]
-  jfr = jt[:, ix(cid), ix(np.clip(fdim, 0, 2))]
+  jfr = jt[:, ix(cid), ix(axis_idx)]
+  if need_rot:
+    jfr = torch.where(const(use_rot, dev)[:, None],
+                      jr[:, ix(cid), ix(axis_idx)], jfr)
   mu_row = con.friction[:, ix(cid), ix(np.clip(fdim - 1, 0, 4))]
   coeff = const(sign * ~frictionless, dev, m.dtype) * mu_row
   J = jn + coeff[..., None] * jfr
@@ -117,32 +347,37 @@ def _contact_rows(m: Model, d: Data):
 
   iw = m.body_invweight0
   tran = (iw[ix(b1), 0] + iw[ix(b2), 0])[ix(cid)]
+  rot = (iw[ix(b1), 1] + iw[ix(b2), 1])[ix(cid)]
+  base = torch.where(const(fdim <= 2, dev), tran, rot)
   diaga = torch.where(const(frictionless, dev), tran,
-                      tran + mu_row * mu_row * tran)
+                      tran + mu_row * mu_row * base)
   return dict(J=J, pos=pos, margin=con.includemargin[:, ix(cid)],
-              active=active, diaga=diaga, solref=con.solref[:, ix(cid)],
+              frictionloss=torch.zeros_like(pos), active=active, diaga=diaga,
+              solref=con.solref[:, ix(cid)],
               solreffriction=con.solreffriction[:, ix(cid)],
               solimp=con.solimp[:, ix(cid)], imp_pos=pos)
 
 
 def make_constraint(m: Model, d: Data) -> Data:
   """Assemble all efc rows, impedances and regularizers."""
-  meta = m.efc
-  parts = [p(m, d) for p, n in ((_limit_rows, meta.nl),
+  meta, dev = m.efc, m.device
+  parts = [p(m, d) for p, n in ((_equality_rows, meta.ne),
+                                (_friction_rows, meta.nf),
+                                (_limit_rows, meta.nl),
                                 (_contact_rows, meta.ncon_rows)) if n]
   cat = lambda k: torch.cat([p[k] for p in parts], dim=1)
   J, pos, margin, active = cat("J"), cat("pos"), cat("margin"), cat("active")
-  diaga, solref, solreffriction = cat("diaga"), cat("solref"), cat(
-      "solreffriction")
+  frictionloss, diaga = cat("frictionloss"), cat("diaga")
+  solref, solreffriction = cat("solref"), cat("solreffriction")
   solimp, imp_pos = cat("solimp"), cat("imp_pos")
 
   if not m.disabled(DisableBit.REFSAFE):
     # timeconst ≥ 2·timestep for standard solref (getsolparam)
     dt2 = 2 * m.opt.timestep
-    s0 = solref[..., 0]
-    solref = torch.stack(
-        [torch.where(s0 > 0, torch.clamp(s0, min=dt2), s0), solref[..., 1]],
-        dim=-1)
+    safe = lambda ref: torch.stack([
+        torch.where(ref[..., 0] > 0, torch.clamp(ref[..., 0], min=dt2),
+                    ref[..., 0]), ref[..., 1]], dim=-1)
+    solref, solreffriction = safe(solref), safe(solreffriction)
   minimp, maximp = 0.0001, 0.9999
   solimp = torch.stack([
       torch.clamp(solimp[..., 0], minimp, maximp),
@@ -155,34 +390,84 @@ def make_constraint(m: Model, d: Data) -> Data:
   imp, imp_p = _impedance(solimp, imp_pos, margin)
   r_ = torch.clamp((1 - imp) * diaga / imp, min=mjm.MINVAL)
   k, b = _kb(solref, solimp)
+  if meta.nf:
+    # friction-loss rows have no stiffness
+    is_fric = np.zeros(meta.nefc, dtype=bool)
+    is_fric[meta.ne:meta.ne + meta.nf] = True
+    k = torch.where(const(is_fric, dev), 0.0, k)
 
   mu = d.contact.mu
   if meta.ncon_rows:
     # pyramidal R and the regularized cone μ (mj_makeImpedance tail)
-    base = meta.nl
-    r0 = r_[:, index(meta.con_efcadr, m.device)]
+    base = meta.ne + meta.nf + meta.nl
+    r0 = r_[:, index(meta.con_efcadr, dev)]
     r1 = r0 / torch.clamp(m.opt.impratio, min=mjm.MINVAL)
     mu = d.contact.friction[..., 0] * torch.sqrt(
         r1 / torch.clamp(r0, min=mjm.MINVAL))
     rpy = 2.0 * mu * mu * r0
-    fless = const(m.con.condim[meta.con_id] == 1, m.device)
-    r_con = torch.where(fless, r_[:, base:],
-                        rpy[:, index(meta.con_id, m.device)])
+    fless = const(m.con.condim[meta.con_id] == 1, dev)
+    r_con = torch.where(fless, r_[:, base:], rpy[:, index(meta.con_id, dev)])
     r_ = torch.cat([r_[:, :base], r_con], dim=1)
 
   act_f = active.to(m.dtype)
   return d.replace(
       efc_J=J, efc_pos=pos, efc_margin=margin, efc_D=act_f / r_, efc_R=r_,
-      efc_frictionloss=torch.zeros_like(pos), efc_active=active,
+      efc_frictionloss=frictionloss * act_f, efc_active=active,
       efc_KBIP=torch.stack([k, b, imp, imp_p], dim=-1),
       contact=d.contact.replace(mu=mu))
 
 
+def _jdotv_correction(m: Model, d: Data, aref):
+  """Subtract Jdot·qvel from the connect and weld rows (mj_Jdotv)."""
+  row = 0
+  for i in range(m.neq):
+    et = int(m.eq_type[i])
+    if et == EqType.JOINT:
+      row += 1
+      continue
+    b1, b2, pos1, pos2 = _eq_points(m, d, i)
+    jdv1, jrdv1 = _jacdot_v(m, d, pos1, b1)
+    jdv2, jrdv2 = _jacdot_v(m, d, pos2, b2)
+    corr = [-(jdv1 - jdv2)]
+    if et == EqType.WELD:
+      data = m.eq_data[i]
+      torquescale = data[10]
+      deriv_quat = lambda q, w: 0.5 * _quat_axis(q, w)
+      omega1, omega2 = d.cvel[:, b1, :3], d.cvel[:, b2, :3]
+      domega = omega1 - omega2
+      if int(m.eq_objtype[i]) == _OBJ_SITE:
+        obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
+        q0r = mjm.mul_quat(d.xquat[:, b1], m.site_quat[obj1])
+        qfull1 = mjm.mul_quat(d.xquat[:, b2], m.site_quat[obj2])
+        negq1 = mjm.conj_quat(qfull1)
+        qdot0r = deriv_quat(q0r, omega1)
+        negqdot1 = mjm.conj_quat(deriv_quat(qfull1, omega2))
+      else:
+        q0r = mjm.mul_quat(d.xquat[:, b1], data[6:10])
+        negq1 = mjm.conj_quat(d.xquat[:, b2])
+        qdot0r = mjm.mul_quat(deriv_quat(d.xquat[:, b1], omega1),
+                              data[6:10])
+        negqdot1 = mjm.conj_quat(deriv_quat(d.xquat[:, b2], omega2))
+      t1 = mjm.mul_quat(_quat_axis(negqdot1, domega), q0r)
+      t2 = mjm.mul_quat(_quat_axis(negq1, jrdv1 - jrdv2), q0r)
+      t3 = mjm.mul_quat(_quat_axis(negq1, domega), qdot0r)
+      corr.append(-(0.5 * (t1[:, 1:] + t2[:, 1:] + t3[:, 1:]) * torquescale))
+    corr = torch.cat(corr, dim=1)
+    n = corr.shape[1]
+    aref = torch.cat([aref[:, :row], aref[:, row:row + n] + corr,
+                      aref[:, row + n:]], dim=1)
+    row += n
+  return aref
+
+
 def reference_acceleration(m: Model, d: Data) -> Data:
-  """aref = −B·(J qvel) − K·imp·(pos − margin), zeroed on inactive rows
+  """aref = −B·(J qvel) − K·imp·(pos − margin), less Jdot·qvel on the
+  connect and weld rows, zeroed on inactive rows
   (mj_referenceConstraint)."""
   vel = (d.efc_J @ d.qvel[..., None])[..., 0]
   kbip = d.efc_KBIP
   aref = (-kbip[..., 1] * vel
           - kbip[..., 0] * kbip[..., 2] * (d.efc_pos - d.efc_margin))
+  if m.efc.ne:
+    aref = _jdotv_correction(m, d, aref)
   return d.replace(efc_aref=aref * d.efc_active.to(aref.dtype))

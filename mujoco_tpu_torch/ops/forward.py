@@ -1,8 +1,10 @@
 """Forward dynamics and Euler integration on the stage path.
 
-Port of mujoco_tpu/ops/forward.py: ``fwd_position`` (:28), ``fwd_velocity``
-(:71), ``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose
-M⁻¹·qfrc goes through the CUDA LDL kernel), ``fwd_constraint`` (:134),
+Port of mujoco_tpu/ops/forward.py: ``fwd_position`` (:28, with camlight,
+and the tree factor of qM under CG), ``fwd_velocity`` (:71),
+``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose M⁻¹·qfrc goes
+through the CUDA LDL kernel, or under CG through the tree factor),
+``fwd_constraint`` (:134),
 ``forward`` (:152), ``integrate_pos`` (:210), ``euler`` (:416, with
 implicit joint damping) and ``step`` (:515). Sensors, energy, sleep,
 tendons, flex, RK4 and the implicit integrators are outside the slice;
@@ -14,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import Data, DisableBit, JointType, Model
+from mujoco_tpu_torch.models.types import (Data, DisableBit, JointType, Model,
+                                           SolverType)
 from mujoco_tpu_torch.ops import (actuation, collision_driver, constraint,
                                   linalg_cuda, passive, smooth, solver,
                                   support)
@@ -26,7 +29,12 @@ def fwd_position(m: Model, d: Data) -> Data:
   """Position-dependent stage (mj_fwdPosition)."""
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
+  d = smooth.camlight(m, d)
   d = smooth.crb(m, d)
+  # only CG reads the tree factor (its preconditioner and qacc_smooth); the
+  # Newton path solves with the LDL kernel instead
+  if int(m.opt.solver) == int(SolverType.CG):
+    d = smooth.factor_m(m, d)
   if m.con.ncon or m.efc.nefc:
     d = collision_driver.collision(m, d)
     d = constraint.make_constraint(m, d)
@@ -54,8 +62,11 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
   (mj_fwdAcceleration)."""
   qfrc = (d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator + d.qfrc_applied
           + support.xfrc_accumulate(m, d))
-  return d.replace(qfrc_smooth=qfrc,
-                   qacc_smooth=linalg_cuda.spd_solve(d.qM, qfrc))
+  if int(m.opt.solver) == int(SolverType.CG):
+    qacc_smooth = smooth.solve_m(m, d, qfrc)
+  else:
+    qacc_smooth = linalg_cuda.spd_solve(d.qM, qfrc)
+  return d.replace(qfrc_smooth=qfrc, qacc_smooth=qacc_smooth)
 
 
 def fwd_constraint(m: Model, d: Data) -> Data:

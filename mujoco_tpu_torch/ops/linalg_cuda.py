@@ -10,9 +10,11 @@ above).
 
 ``spd_solve(H, g)`` takes H (B, n, n) and g (B, n), batch first, the same
 as the reference's ``spd_solve`` under ``jax.vmap``. A CUDA tensor launches
-the kernel or raises; a CPU tensor takes ``spd_solve_plain``. Gradients
-through the kernel wait for a later slice, so a CUDA input that requires
-grad raises.
+the kernel or raises; a CPU tensor takes ``spd_solve_plain``. Where H or g
+needs a gradient the solve is the ``torch.autograd.Function`` ``SpdSolve``:
+its backward re-solves H λ = p̄ with the same kernel (or plain version)
+and returns ḡ = λ, H̄ = −λ pᵀ, the cotangents of the reference's
+``lax.custom_linear_solve(symmetric=True)`` (linalg_tpu.py:126-138).
 """
 
 from __future__ import annotations
@@ -51,17 +53,25 @@ def _check(H, g):
     raise ValueError("H and g on different devices")
   if not (H.is_contiguous() and g.is_contiguous()):
     raise ValueError("spd_solve kernel takes contiguous H and g")
-  if H.requires_grad or g.requires_grad:
-    raise NotImplementedError(
-        "gradients through the CUDA spd_solve kernel are not ported yet")
+
+
+def _needs_grad(H, g) -> bool:
+  return torch.is_grad_enabled() and (H.requires_grad or g.requires_grad)
 
 
 def spd_solve_kernel(H, g):
-  """Launch the CUDA kernel on H (B, n, n), g (B, n); returns p (B, n)."""
-  global LAUNCHES
+  """Launch the CUDA kernel on H (B, n, n), g (B, n); returns p (B, n),
+  through ``SpdSolve`` where H or g needs a gradient."""
   _check(H, g)
   if not H.is_cuda:
     raise ValueError("spd_solve_kernel needs CUDA tensors")
+  if _needs_grad(H, g):
+    return SpdSolve.apply(H, g)
+  return _launch(H, g)
+
+
+def _launch(H, g):
+  global LAUNCHES
   B, n = g.shape
   p = torch.empty_like(g)
   if B == 0 or n == 0:
@@ -89,9 +99,40 @@ def occupancy(n: int, dtype) -> tuple:
   return out[0], out[1]
 
 
+def _solve(H, g):
+  """The kernel for CUDA tensors, the plain version for CPU tensors, with
+  no autograd of its own."""
+  if H.is_cuda:
+    _check(H, g)
+    return _launch(H, g)
+  return spd_solve_plain(H, g)
+
+
+class SpdSolve(torch.autograd.Function):
+  """p = H⁻¹ g with the gradient of a symmetric linear solve: the backward
+  solves H λ = p̄ by the same route as the forward, then ḡ = λ and
+  H̄ = −λ pᵀ. Both go through ``spd_solve`` again, so a backward taken
+  with create_graph is differentiable in turn."""
+
+  @staticmethod
+  def forward(ctx, H, g):
+    p = _solve(H.detach(), g.detach())
+    ctx.save_for_backward(H, p)
+    return p
+
+  @staticmethod
+  def backward(ctx, p_bar):
+    H, p = ctx.saved_tensors
+    lam = spd_solve(H, p_bar.contiguous())
+    H_bar = -lam[:, :, None] * p[:, None, :] if ctx.needs_input_grad[0] \
+        else None
+    return H_bar, lam
+
+
 def spd_solve(H, g):
   """p = H⁻¹ g for a batch of dense SPD matrices: the CUDA kernel for CUDA
-  tensors, the plain Cholesky for CPU tensors."""
-  if H.is_cuda:
-    return spd_solve_kernel(H, g)
-  return spd_solve_plain(H, g)
+  tensors, the plain Cholesky for CPU tensors; ``SpdSolve`` where H or g
+  needs a gradient."""
+  if _needs_grad(H, g):
+    return SpdSolve.apply(H, g)
+  return _solve(H, g)

@@ -1,12 +1,14 @@
 """Smooth dynamics: FK, CoM frames, CRB inertia, RNE, transmission.
 
 Port of mujoco_tpu/ops/smooth.py: ``kinematics`` (:57), ``com_pos`` (:206),
-``crb`` (:260), ``com_vel`` (:361), ``rne`` (:378) and ``transmission``
-(:459, hinge/slide JOINT transmissions). Tree recursions are the
-reference's static dense masks (Model.tree) turned into batched matmuls;
-forward kinematics stays level-sequential, one vectorized block per tree
-level. ``camlight`` (:662) and ``tendon`` (:405) have no counterpart: models
-with cameras, lights or tendons are rejected by ``io.put_model``.
+``crb`` (:260), the tree L'DL' factor ``factor_tree`` / ``solve_tree``
+(:284/:319) with ``factor_m`` / ``solve_m`` (:349/:356), ``com_vel`` (:361),
+``rne`` (:378), ``transmission`` (:459, hinge/slide JOINT transmissions)
+and ``camlight`` (:662). Tree recursions are the reference's static dense
+masks (Model.tree) turned into batched matmuls; forward kinematics and the
+tree factor stay level-sequential, one vectorized block per tree level.
+``tendon`` (:405) has no counterpart: models with tendons are rejected by
+``io.put_model``.
 
 Every function takes batched Data (leading env axis) and returns it updated.
 """
@@ -16,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import Data, DisableBit, JointType, Model
+from mujoco_tpu_torch.models.types import (CamLightType, Data, DisableBit,
+                                           JointType, Model)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -212,6 +215,73 @@ def crb(m: Model, d: Data) -> Data:
   return d.replace(crb=crb_, qM=qm)
 
 
+def factor_tree(m: Model, mat):
+  """Fill-in-free tree L'DL' factor of a batch of matrices with qM's
+  sparsity (mj_factorM): mat = Lᵀ·diag(1/Dinv)·L, L unit-lower on the
+  strict dof-ancestor chains. Deepest dof level first; each level is one
+  gather, one outer product per dof and one scatter-add over the batch.
+  mat (B, nv, nv) → (L (B, nv, nv), Dinv (B, nv))."""
+  nv, nbatch = m.nv, mat.shape[0]
+  dev = mat.device
+  # row and column nv are scratch that absorb the chains' padding
+  mp = mat.new_zeros((nbatch, nv + 1, nv + 1))
+  mp[:, :nv, :nv] = mat
+  mp = mp.reshape(nbatch, -1)
+  lmat = mat.new_zeros((nbatch, (nv + 1) * (nv + 1)))
+  anc_all = m.tree.dof_anc_table
+  for ks in reversed(m.tree.dof_levels):
+    anc = anc_all[ks]                                    # (nk, A)
+    mkk = mp[:, index(ks * (nv + 2), dev)]               # (B, nk)
+    mk_anc = mp[:, index(ks[:, None] * (nv + 1) + anc, dev)]  # (B, nk, A)
+    a = mk_anc / mkk[..., None]
+    upd = a[..., :, None] * mk_anc[..., None, :]         # (B, nk, A, A)
+    flat = anc[:, :, None] * (nv + 1) + anc[:, None, :]
+    mp = mp.index_add(1, index(flat.ravel(), dev),
+                      -upd.reshape(nbatch, -1))
+    lmat[:, index((ks[:, None] * (nv + 1) + anc).ravel(), dev)] = (
+        a.reshape(nbatch, -1))
+  dinv = 1.0 / mp[:, index(np.arange(nv) * (nv + 2), dev)]
+  lmat = lmat.reshape(nbatch, nv + 1, nv + 1)[:, :nv, :nv]
+  return lmat, dinv
+
+
+def solve_tree(m: Model, lmat, dinv, y):
+  """Solve (Lᵀ·diag(1/Dinv)·L) x = y with factor_tree's output
+  (mj_solveLD): Lᵀ by levels from the deepest, the diagonal, then L by
+  levels from the root. lmat (B, nv, nv), dinv and y (B, nv)."""
+  nv, nbatch = m.nv, y.shape[0]
+  dev = y.device
+  anc_all = m.tree.dof_anc_table
+  # a zero column nv takes the chains' padding (the reference's clamped
+  # gather reads column nv − 1 there, which L never fills)
+  lpad = torch.cat([lmat, lmat.new_zeros((nbatch, nv, 1))], dim=2)
+  z = torch.cat([y, y.new_zeros((nbatch, 1))], dim=1)
+  for ks in reversed(m.tree.dof_levels):
+    anc = anc_all[ks]
+    lk = lpad[:, index(ks, dev)[:, None], index(anc, dev)]   # (B, nk, A)
+    contrib = lk * z[:, index(ks, dev), None]
+    z = z.index_add(1, index(anc.ravel(), dev),
+                    -contrib.reshape(nbatch, -1))
+  z = torch.cat([z[:, :nv] * dinv, z[:, nv:]], dim=1)
+  for ks in m.tree.dof_levels:
+    anc = anc_all[ks]
+    lk = lpad[:, index(ks, dev)[:, None], index(anc, dev)]
+    dot = (lk * z[:, index(anc, dev)]).sum(-1)
+    z = z.index_add(1, index(ks, dev), -dot)
+  return z[:, :nv]
+
+
+def factor_m(m: Model, d: Data) -> Data:
+  """Factor qM (mj_factorM) into (qLD, qLDiagInv) by factor_tree."""
+  lmat, dinv = factor_tree(m, d.qM)
+  return d.replace(qLD=lmat, qLDiagInv=dinv)
+
+
+def solve_m(m: Model, d: Data, y):
+  """M⁻¹ y by the factor factor_m left in d (mj_solveM); y (B, nv)."""
+  return solve_tree(m, d.qLD, d.qLDiagInv, y)
+
+
 def com_vel(m: Model, d: Data) -> Data:
   """Body spatial velocities and cdof time derivatives (mj_comVel)."""
   anc = const(m.tree.ancestor_mask, m.device, m.dtype)
@@ -249,3 +319,61 @@ def transmission(m: Model, d: Data) -> Data:
   moment = const(onehot, m.device, m.dtype) * gear[:, None]
   return d.replace(actuator_length=length,
                    actuator_moment=moment.expand(d.qpos.shape[0], -1, -1))
+
+
+def camlight(m: Model, d: Data) -> Data:
+  """Camera and light frames (mj_camlight) in the FIXED, TRACK, TRACKCOM,
+  TARGETBODY and TARGETBODYCOM modes, one object at a time as the
+  reference unrolls them."""
+  if m.ncam == 0 and m.nlight == 0:
+    return d
+  nbatch = d.qpos.shape[0]
+  up = const(np.array([0.0, 0.0, 1.0]), d.qpos.device, d.qpos.dtype)
+  cam_xpos, cam_xmat = [], []
+  for i in range(m.ncam):
+    bid, tid = int(m.cam_bodyid[i]), int(m.cam_targetbodyid[i])
+    mode = int(m.cam_mode[i])
+    pos = d.xpos[:, bid] + mjm.mat_vec(d.xmat[:, bid], m.cam_pos[i])
+    mat = mjm.quat_to_mat(mjm.mul_quat(d.xquat[:, bid], m.cam_quat[i]))
+    if mode in (CamLightType.TRACK, CamLightType.TRACKCOM):
+      mat = m.cam_mat0[i].expand(nbatch, 3, 3)
+      if mode == CamLightType.TRACK:
+        pos = d.xpos[:, bid] + m.cam_pos0[i]
+      else:
+        pos = d.subtree_com[:, bid] + m.cam_poscom0[i]
+    elif mode in (CamLightType.TARGETBODY,
+                  CamLightType.TARGETBODYCOM) and tid >= 0:
+      target = (d.xpos[:, tid] if mode == CamLightType.TARGETBODY
+                else d.subtree_com[:, tid])
+      z = mjm.normalize(pos - target)          # −view direction
+      x = mjm.normalize(mjm.cross(up, z))
+      y = mjm.normalize(mjm.cross(z, x))
+      mat = torch.stack([x, y, z], dim=-1)      # columns are the axes
+    cam_xpos.append(pos)
+    cam_xmat.append(mat)
+
+  light_xpos, light_xdir = [], []
+  for i in range(m.nlight):
+    bid, tid = int(m.light_bodyid[i]), int(m.light_targetbodyid[i])
+    mode = int(m.light_mode[i])
+    pos = d.xpos[:, bid] + mjm.mat_vec(d.xmat[:, bid], m.light_pos[i])
+    xdir = mjm.rot_vec_quat(m.light_dir[i], d.xquat[:, bid])
+    if mode in (CamLightType.TRACK, CamLightType.TRACKCOM):
+      xdir = m.light_dir0[i].expand(nbatch, 3)
+      if mode == CamLightType.TRACK:
+        pos = d.xpos[:, bid] + m.light_pos0[i]
+      else:
+        pos = d.subtree_com[:, bid] + m.light_poscom0[i]
+    elif mode in (CamLightType.TARGETBODY,
+                  CamLightType.TARGETBODYCOM) and tid >= 0:
+      target = (d.xpos[:, tid] if mode == CamLightType.TARGETBODY
+                else d.subtree_com[:, tid])
+      xdir = target - pos
+    light_xdir.append(mjm.normalize(xdir))
+    light_xpos.append(pos)
+
+  stack = lambda xs, old: torch.stack(xs, dim=1) if xs else old
+  return d.replace(cam_xpos=stack(cam_xpos, d.cam_xpos),
+                   cam_xmat=stack(cam_xmat, d.cam_xmat),
+                   light_xpos=stack(light_xpos, d.light_xpos),
+                   light_xdir=stack(light_xdir, d.light_xdir))

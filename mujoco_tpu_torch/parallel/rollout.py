@@ -22,10 +22,10 @@ from mujoco_tpu_torch.ops import forward, megastep_cuda
 
 # the integration state that crosses step boundaries; everything else in
 # Data is workspace that forward() recomputes from it (the reference's list
-# minus the fields of features the port does not carry yet: eq_active,
-# mocap, history, tree_asleep)
+# minus the fields of features the port does not carry yet: mocap,
+# history, tree_asleep)
 STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qacc_warmstart",
-                "qacc", "qfrc_applied", "xfrc_applied")
+                "qacc", "qfrc_applied", "xfrc_applied", "eq_active")
 
 
 def _expand(d: Data, nbatch: int) -> Data:

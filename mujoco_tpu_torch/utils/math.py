@@ -29,6 +29,11 @@ def dot(a, b):
   return (a * b).sum(-1)
 
 
+def mat_vec(mat, v):
+  """Batched matrix-vector product over the last two / last axes."""
+  return (mat @ v[..., None])[..., 0]
+
+
 def norm_safe(x, keepdim=False):
   """L2 norm over the last axis, clamped away from 0."""
   sq = (x * x).sum(-1, keepdim=keepdim)
@@ -90,6 +95,15 @@ def quat_integrate(q, omega, dt):
   angle = norm_safe(omega) * dt
   axis = normalize(omega)
   return normalize(mul_quat(q, axis_angle_to_quat(axis, angle)))
+
+
+def quat_to_vel(q):
+  """Quaternion to rotation vector (log map), axis · angle with the angle
+  wrapped to (−π, π] (mju_quat2Vel at dt = 1)."""
+  sin_half = norm_safe(q[..., 1:])
+  angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+  angle = torch.where(angle > math.pi, angle - 2.0 * math.pi, angle)
+  return normalize(q[..., 1:]) * angle[..., None]
 
 
 def quat_sub(qa, qb):

@@ -58,9 +58,33 @@ def test_ldl_kernel_rejects_what_it_cannot_take(cuda):
   h = torch.eye(3, device=cuda).expand(4, 3, 3)
   with pytest.raises(ValueError):
     linalg_cuda.spd_solve(h, torch.ones(4, 3, device=cuda))
-  h = torch.eye(3, device=cuda).repeat(4, 1, 1).requires_grad_()
-  with pytest.raises(NotImplementedError):
-    linalg_cuda.spd_solve(h, torch.ones(4, 3, device=cuda))
+  # a gradient goes through SpdSolve, whose forward is the kernel and
+  # refuses the same inputs
+  base = torch.eye(3, device=cuda).requires_grad_()
+  with pytest.raises(ValueError):
+    linalg_cuda.spd_solve(base.expand(4, 3, 3), torch.ones(4, 3, device=cuda))
+
+
+def test_ldl_kernel_gradient_matches_plain(cuda):
+  """SpdSolve on the card: the forward and the backward's re-solve are one
+  kernel launch each, and the gradients of Σ w·p equal the plain path's
+  (the same Function on CPU tensors) at f64 to 1e-9 relative."""
+  rng = np.random.default_rng(3)
+  a = rng.standard_normal((256, 27, 27))
+  h = a @ a.transpose(0, 2, 1) + 27 * np.eye(27)
+  g, w = rng.standard_normal((2, 256, 27))
+  grads = {}
+  for dev in (cuda, "cpu"):
+    H = torch.tensor(h, device=dev, requires_grad=True)
+    G = torch.tensor(g, device=dev, requires_grad=True)
+    before = linalg_cuda.LAUNCHES
+    p = linalg_cuda.spd_solve(H, G)
+    (torch.tensor(w, device=dev) * p).sum().backward()
+    grads[str(dev)] = (H.grad.cpu(), G.grad.cpu(),
+                       linalg_cuda.LAUNCHES - before)
+  assert grads["cuda"][2] == 2 and grads["cpu"][2] == 0
+  for a_k, a_p in zip(grads["cuda"][:2], grads["cpu"][:2]):
+    assert ((a_k - a_p).abs().max() <= 1e-9 * a_p.abs().max()).item()
 
 
 def _synthetic(nbatch, dtype, device, nefc=22, nv=9):
@@ -412,3 +436,57 @@ def test_model_needing_a_gradient_keeps_the_stage_path(cuda):
   with pytest.raises(NotImplementedError):
     rollout.scan_steps(mg, d, 1)
   assert megastep_cuda.LAUNCHES == 0
+
+
+def _general_batch(name, nbatch, device, dtype, seed=0, opt=None):
+  """A scene of zoo.GENERAL (or the humanoid) posed from a numpy seed:
+  qpos0 + 0.05·N(0, 1), qvel 0.3·N(0, 1)."""
+  m = zoo.load(name, dtype, device, opt=opt)
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+  return m, d.replace(qpos=d.qpos + t(0.05 * rng.standard_normal(
+      tuple(d.qpos.shape))), qvel=t(0.3 * rng.standard_normal(
+          tuple(d.qvel.shape))))
+
+
+@pytest.mark.parametrize("name", zoo.GENERAL)
+def test_newton_kernel_on_general_scene_rows_f64(cuda, name):
+  """The Newton kernel on each scene's rows (equality, friction-loss,
+  ball-limit, condim 4/6 rows) as solver.newton_args builds them, at 4
+  iterations: elementwise against its plain version at f64."""
+  m, d = _general_batch(name, 64, cuda, torch.float64)
+  d = forward.fwd_acceleration(m, forward.fwd_actuation(
+      m, forward.fwd_velocity(m, forward.fwd_position(m, d))))
+  args = solver.newton_args(m, d.replace(qacc_warmstart=0.9 * d.qacc_smooth))
+  out_k = newton_cuda.newton_kernel(*args, 4, int(m.opt.ls_iterations))
+  out_p = newton_cuda.newton_plain(*args, 4, int(m.opt.ls_iterations))
+  for name_, a, b in zip(("x", "force", "qfrc"), out_p, out_k):
+    torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-9, msg=name_)
+
+
+def test_general_core_solves_with_the_ldl_kernel(cuda):
+  """The humanoid at MuJoCo's default solver options takes the general
+  core: no Newton-kernel launch, and one LDL launch for qacc_smooth plus at
+  least one per Newton iteration of the env that iterates most."""
+  m, d = _general_batch("humanoid", 64, cuda, torch.float32,
+                        opt=zoo.MUJOCO_DEFAULT_SOLVER)
+  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
+  out = forward.step(m, d)
+  torch.cuda.synchronize()
+  most = int(out.solver_niter.max())
+  assert newton_cuda.LAUNCHES == 0 and megastep_cuda.LAUNCHES == 0
+  assert most >= 1 and linalg_cuda.LAUNCHES >= 1 + most
+  assert torch.isfinite(out.qpos).all()
+
+
+@pytest.mark.parametrize("name", zoo.GENERAL)
+def test_general_scene_card_matches_cpu_f64(cuda, name):
+  """10 steps at f64 on the card and on the CPU agree to 1e-8 (qpos)."""
+  outs = {}
+  for dev in (cuda, "cpu"):
+    m, d = _general_batch(name, 16, dev, torch.float64)
+    for _ in range(10):
+      d = forward.step(m, d)
+    outs[str(dev)] = d.qpos.cpu()
+  torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-8, atol=1e-8)

@@ -3,8 +3,12 @@
 On the CPU, the plain version (the port's CPU path) is held against
 mujoco_tpu's spd_solve under jax.vmap and against the Pallas kernel
 ldl_solve_lanes in interpret mode, at f64 to 1e-10, on random SPD batches
-(n ∈ {1, 9, 27, 64}) and on the humanoid's joint-space inertia. The CUDA
-kernel is held against the plain version by tests/test_torch_cuda.py.
+(n ∈ {1, 9, 27, 64}) and on the humanoid's joint-space inertia. The
+gradient of ``spd_solve`` (the ``SpdSolve`` autograd Function, which
+re-solves with the same route) is held against jax.grad through
+mujoco_tpu's custom_linear_solve at f64 to 1e-9, and by gradcheck and
+gradgradcheck. The CUDA kernel is held against the plain version by
+tests/test_torch_cuda.py.
 """
 
 import jax
@@ -70,3 +74,40 @@ def test_cpu_tensors_take_plain_path():
   assert linalg_cuda.LAUNCHES == before
   with pytest.raises(ValueError):
     linalg_cuda.spd_solve_kernel(torch.from_numpy(h), torch.from_numpy(g))
+
+
+@pytest.mark.parametrize("case", ["n9", "humanoid_qM"])
+def test_gradient_matches_reference(case):
+  """d/dH and d/dg of Σ w·p, p = spd_solve(H, g), against jax.grad."""
+  h, g = CASES[case]()
+  w = np.random.default_rng(7).standard_normal(g.shape)
+
+  def loss(hh, gg):
+    return jnp.sum(jnp.asarray(w) * jax.vmap(linalg_tpu.spd_solve)(hh, gg))
+
+  ref_h, ref_g = jax.grad(loss, argnums=(0, 1))(jnp.asarray(h),
+                                                jnp.asarray(g))
+  H = torch.from_numpy(h).requires_grad_()
+  G = torch.from_numpy(g).requires_grad_()
+  p = linalg_cuda.spd_solve(H, G)
+  assert type(p.grad_fn).__name__ == "SpdSolveBackward"
+  (torch.from_numpy(w) * p).sum().backward()
+  scale = lambda r: np.abs(np.asarray(r)).max()
+  np.testing.assert_allclose(H.grad.numpy(), np.asarray(ref_h), rtol=1e-9,
+                             atol=1e-9 * scale(ref_h))
+  np.testing.assert_allclose(G.grad.numpy(), np.asarray(ref_g), rtol=1e-9,
+                             atol=1e-9 * scale(ref_g))
+
+
+def test_gradient_passes_gradcheck():
+  """First and second derivatives of the Function against finite
+  differences (H symmetric by construction, as the solve assumes)."""
+  h, g = _spd_batch(4, nbatch=3)
+
+  def fn(a, gg):
+    return linalg_cuda.spd_solve(0.5 * (a + a.transpose(1, 2)), gg)
+
+  args = (torch.from_numpy(h).requires_grad_(),
+          torch.from_numpy(g).requires_grad_())
+  assert torch.autograd.gradcheck(fn, args)
+  assert torch.autograd.gradgradcheck(fn, args)

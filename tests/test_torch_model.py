@@ -129,15 +129,12 @@ _OUT_OF_SLICE = {
     "rk4": """<mujoco><option integrator="RK4"/><worldbody><body>
       <joint type="hinge"/><geom size="0.1" contype="0"/></body></worldbody>
       </mujoco>""",
-    "cg": """<mujoco><option solver="CG"/><worldbody><body>
-      <joint type="hinge" limited="true" range="-1 1"/>
-      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
     "implicitfast_damping": """<mujoco><option integrator="implicitfast"/>
       <worldbody><body><joint type="hinge" damping="1"/>
       <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
 }
 
-# models that raised before the megastep class widened the slice
+# models that raised before the slices that widened what the port runs
 _WIDENED = {
     "plane_box": """<mujoco><option iterations="2"/><worldbody>
       <geom type="plane" size="1 1 1"/><body><freejoint/>
@@ -145,6 +142,10 @@ _WIDENED = {
     "eulerdamp": """<mujoco><worldbody><body><joint type="hinge"
       damping="1"/><geom size="0.1" contype="0"/></body></worldbody>
       </mujoco>""",
+    # the general solver core runs CG
+    "cg": """<mujoco><option solver="CG"/><worldbody><body>
+      <joint type="hinge" limited="true" range="-1 1"/>
+      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
 }
 
 
