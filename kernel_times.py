@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times of the port's kernels in the checkout of the current directory.
 
-    python3 /path/to/kernel_times.py TAG [full]     (needs one card)
+    python3 /path/to/kernel_times.py TAG [full | stage]   (needs one card)
 
 Run from a checkout's root, it imports that checkout's ``chip_smoke.py``
 and ``mujoco_tpu_torch`` (so the same file times an older commit too) and
@@ -13,7 +13,10 @@ ls 4; L2 flushed, and L2-warm by events) with the share of envs within
 SM; the LDL kernel's ms at the humanoid's qM (L2 flushed, and L2-warm by
 events, which holds the wrapper's host time for a kernel this short). With
 ``full``, also the megastep's ms per 200-step launch (L2 flushed) and
-env-steps/s of three main-path ``scan_steps`` calls. Running it from two
+env-steps/s of three main-path ``scan_steps`` calls. With ``stage``,
+only the humanoid's stage path (MJTPU_MEGASTEP=0, f32, B 3072): env-steps/s
+of three 20-step ``scan_steps`` calls after a 20-step warm-up, and the
+device kernels per step in a profiled 10-step window. Running it from two
 checkouts in turn in one chip call (parent, change, change, parent)
 compares them on one card.
 """
@@ -37,6 +40,8 @@ def main() -> int:
     return 1
   cuda_build.library()
   m = zoo.humanoid(torch.float32)
+  if sys.argv[2:] == ["stage"]:
+    return stage_path(cs, m)
   args = solver.newton_args(m, cs.humanoid_state(m, cs.B, 2))
   it, ls = 1, 4
   out_k = newton_cuda.newton_kernel(*args, it, ls)
@@ -75,6 +80,32 @@ def main() -> int:
       torch.cuda.synchronize()
       walls.append(time.perf_counter() - t0)
     res["main_path_env_steps_per_s"] = [cs.B * cs.NSTEP / w for w in walls]
+  print(json.dumps(res), flush=True)
+  return 0
+
+
+def stage_path(cs, m) -> int:
+  import torch
+  from mujoco_tpu_torch.parallel import rollout
+  os.environ["MJTPU_MEGASTEP"] = "0"
+  res = dict(tag=sys.argv[1], card=cs.card_line())
+  d = rollout.scan_steps(m, cs.main_path_batch(m), 20, check=True)
+  torch.cuda.synchronize()
+  walls = []
+  for _ in range(3):
+    t0 = time.perf_counter()
+    rollout.scan_steps(m, d, 20, check=True)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+  res["stage_path_env_steps_per_s"] = [cs.B * 20 / w for w in walls]
+
+  def window():
+    rollout.scan_steps(m, d, 10, check=True)
+    torch.cuda.synchronize()
+
+  prof, _ = cs.profile_window(window, 10)
+  res["stage_path_kernel_launches_per_step"] = prof["kernel_launches_per_step"]
+  res["stage_path_idle_share"] = prof["device_idle_share"]
   print(json.dumps(res), flush=True)
   return 0
 

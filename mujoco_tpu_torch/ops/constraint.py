@@ -146,19 +146,16 @@ def _quat_axis(q, v):
 
 
 # ---------------------------------------------------------------------------
-# row builders: each returns a dict of its rows (J, pos, margin,
-# frictionloss, active, diaga, solref, solreffriction, solimp, imp_pos),
+# row builders: each returns a dict of its rows (J, pos, margin, active,
+# diaga, solref, solimp, imp_pos; the friction-loss rows also frictionloss),
 # every value with the env batch leading
 # ---------------------------------------------------------------------------
 
 
-def _rows(J, pos, active, diaga, solref, solimp, imp_pos,
-          margin=None, frictionloss=None):
-  zero = torch.zeros_like(pos)
-  return dict(J=J, pos=pos, margin=zero if margin is None else margin,
-              frictionloss=zero if frictionloss is None else frictionloss,
-              active=active, diaga=diaga, solref=solref,
-              solreffriction=solref.new_zeros(solref.shape), solimp=solimp,
+def _rows(J, pos, active, diaga, solref, solimp, imp_pos, margin=None):
+  return dict(J=J, pos=pos,
+              margin=torch.zeros_like(pos) if margin is None else margin,
+              active=active, diaga=diaga, solref=solref, solimp=solimp,
               imp_pos=imp_pos)
 
 
@@ -263,10 +260,10 @@ def _friction_rows(m: Model, d: Data):
   active = torch.full((nbatch, len(dofs)),
                       not m.disabled(DisableBit.FRICTIONLOSS),
                       dtype=torch.bool, device=dev)
-  return _rows(ex(const(jmat, dev, m.dtype)), zero, active,
-               ex(m.dof_invweight0[dix]), ex(m.dof_solref[dix]),
-               ex(m.dof_solimp[dix]), zero,
-               frictionloss=ex(m.dof_frictionloss[dix]))
+  return dict(_rows(ex(const(jmat, dev, m.dtype)), zero, active,
+                    ex(m.dof_invweight0[dix]), ex(m.dof_solref[dix]),
+                    ex(m.dof_solimp[dix]), zero),
+              frictionloss=ex(m.dof_frictionloss[dix]))
 
 
 def _limit_rows(m: Model, d: Data):
@@ -276,22 +273,18 @@ def _limit_rows(m: Model, d: Data):
   nbatch, meta, dev = d.qpos.shape[0], m.efc, m.device
   nrows, nv = meta.nl, m.nv
   ix = lambda a: index(a, dev)
-  hs = np.nonzero(meta.limit_side != 0)[0]
+  jids, sides = meta.limit_jnt, meta.limit_side.astype(np.float64)
+  # a ball row (side 0) gets pos 0 and J 0 here, then its own below
+  value = d.qpos[:, ix(m.jnt_qposadr[jids])]
+  rng = m.jnt_range[ix(jids)]
+  lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
+  pos = const(sides, dev, m.dtype) * (lim - value)
+  jmat = np.zeros((nrows, nv))
+  jmat[np.arange(nrows), m.jnt_dofadr[jids]] = -sides
+  J = const(jmat, dev, m.dtype).expand(nbatch, nrows, nv)
   balls = np.nonzero(meta.limit_side == 0)[0]
-  jids = meta.limit_jnt
-  J = torch.zeros((nbatch, nrows, nv), dtype=m.dtype, device=dev)
-  pos = torch.zeros((nbatch, nrows), dtype=m.dtype, device=dev)
-
-  if len(hs):
-    sides = meta.limit_side[hs].astype(np.float64)
-    jh = jids[hs]
-    value = d.qpos[:, ix(m.jnt_qposadr[jh])]
-    rng = m.jnt_range[ix(jh)]
-    lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
-    jmat = np.zeros((len(hs), nv))
-    jmat[np.arange(len(hs)), m.jnt_dofadr[jh]] = -sides
-    J[:, ix(hs)] = const(jmat, dev, m.dtype)
-    pos[:, ix(hs)] = const(sides, dev, m.dtype) * (lim - value)
+  if len(balls):
+    J = J.clone()
   for r in balls:
     jid = int(jids[r])
     qadr, dadr = int(m.jnt_qposadr[jid]), int(m.jnt_dofadr[jid])
@@ -347,14 +340,14 @@ def _contact_rows(m: Model, d: Data):
 
   iw = m.body_invweight0
   tran = (iw[ix(b1), 0] + iw[ix(b2), 0])[ix(cid)]
-  rot = (iw[ix(b1), 1] + iw[ix(b2), 1])[ix(cid)]
-  base = torch.where(const(fdim <= 2, dev), tran, rot)
+  base = tran
+  if need_rot:
+    rot = (iw[ix(b1), 1] + iw[ix(b2), 1])[ix(cid)]
+    base = torch.where(const(fdim <= 2, dev), tran, rot)
   diaga = torch.where(const(frictionless, dev), tran,
                       tran + mu_row * mu_row * base)
   return dict(J=J, pos=pos, margin=con.includemargin[:, ix(cid)],
-              frictionloss=torch.zeros_like(pos), active=active, diaga=diaga,
-              solref=con.solref[:, ix(cid)],
-              solreffriction=con.solreffriction[:, ix(cid)],
+              active=active, diaga=diaga, solref=con.solref[:, ix(cid)],
               solimp=con.solimp[:, ix(cid)], imp_pos=pos)
 
 
@@ -367,17 +360,16 @@ def make_constraint(m: Model, d: Data) -> Data:
                                 (_contact_rows, meta.ncon_rows)) if n]
   cat = lambda k: torch.cat([p[k] for p in parts], dim=1)
   J, pos, margin, active = cat("J"), cat("pos"), cat("margin"), cat("active")
-  frictionloss, diaga = cat("frictionloss"), cat("diaga")
-  solref, solreffriction = cat("solref"), cat("solreffriction")
+  diaga, solref = cat("diaga"), cat("solref")
   solimp, imp_pos = cat("solimp"), cat("imp_pos")
 
   if not m.disabled(DisableBit.REFSAFE):
     # timeconst ≥ 2·timestep for standard solref (getsolparam)
     dt2 = 2 * m.opt.timestep
-    safe = lambda ref: torch.stack([
-        torch.where(ref[..., 0] > 0, torch.clamp(ref[..., 0], min=dt2),
-                    ref[..., 0]), ref[..., 1]], dim=-1)
-    solref, solreffriction = safe(solref), safe(solreffriction)
+    s0 = solref[..., 0]
+    solref = torch.stack(
+        [torch.where(s0 > 0, torch.clamp(s0, min=dt2), s0), solref[..., 1]],
+        dim=-1)
   minimp, maximp = 0.0001, 0.9999
   solimp = torch.stack([
       torch.clamp(solimp[..., 0], minimp, maximp),
@@ -390,11 +382,15 @@ def make_constraint(m: Model, d: Data) -> Data:
   imp, imp_p = _impedance(solimp, imp_pos, margin)
   r_ = torch.clamp((1 - imp) * diaga / imp, min=mjm.MINVAL)
   k, b = _kb(solref, solimp)
+  frictionloss = torch.zeros_like(pos)
   if meta.nf:
     # friction-loss rows have no stiffness
     is_fric = np.zeros(meta.nefc, dtype=bool)
     is_fric[meta.ne:meta.ne + meta.nf] = True
     k = torch.where(const(is_fric, dev), 0.0, k)
+    fr = slice(meta.ne, meta.ne + meta.nf)
+    frictionloss[:, fr] = parts[int(meta.ne > 0)]["frictionloss"] * (
+        active[:, fr].to(m.dtype))
 
   mu = d.contact.mu
   if meta.ncon_rows:
@@ -412,7 +408,7 @@ def make_constraint(m: Model, d: Data) -> Data:
   act_f = active.to(m.dtype)
   return d.replace(
       efc_J=J, efc_pos=pos, efc_margin=margin, efc_D=act_f / r_, efc_R=r_,
-      efc_frictionloss=frictionloss * act_f, efc_active=active,
+      efc_frictionloss=frictionloss, efc_active=active,
       efc_KBIP=torch.stack([k, b, imp, imp_p], dim=-1),
       contact=d.contact.replace(mu=mu))
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mujoco_tpu_torch.models import zoo
+from mujoco_tpu_torch.models.types import SolverType
 from mujoco_tpu_torch.ops import forward, linalg_cuda, newton_cuda, solver
 from mujoco_tpu_torch.ops import megastep_cuda
 from mujoco_tpu_torch.parallel import rollout
@@ -490,3 +491,33 @@ def test_general_scene_card_matches_cpu_f64(cuda, name):
       d = forward.step(m, d)
     outs[str(dev)] = d.qpos.cpu()
   torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("iterations", [16, 100])
+@pytest.mark.parametrize("name", ["eq_connect_joint", "pair_condim6",
+                                  "sphere_condim4"])
+def test_cg_card_matches_cpu_f64(cuda, name, iterations):
+  """Scenes under CG, which runs the tree factor (factor_m in fwd_position,
+  solve_m in fwd_acceleration) and CG steps in solver._core, some envs to
+  the 16-iteration cap and the rest to the tolerance: 10 steps at f64 on
+  the card and on the CPU agree to 1e-8 (qpos, qvel) with the same
+  iteration counts, and launch neither the Newton nor the LDL kernel.
+  weld_ball_chain is not among them: under CG its stiff weld moves the
+  CPU's own 10-step trajectory far past 1e-8 when qvel moves by 1e-15."""
+  opt = {"solver": int(SolverType.CG), "iterations": iterations}
+  outs = {}
+  for dev in (cuda, "cpu"):
+    m, d = _general_batch(name, 16, dev, torch.float64, opt=opt)
+    linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = 0
+    niters = []
+    for _ in range(10):
+      d = forward.step(m, d)
+      niters.append(d.solver_niter.cpu())
+    outs[str(dev)] = (d.qpos.cpu(), d.qvel.cpu(), torch.stack(niters))
+    if dev == cuda:
+      assert linalg_cuda.LAUNCHES == 0 and newton_cuda.LAUNCHES == 0
+  assert int(outs["cpu"][2].max()) > 1
+  torch.testing.assert_close(outs["cuda"][2], outs["cpu"][2])
+  for i in (0, 1):
+    torch.testing.assert_close(outs["cuda"][i], outs["cpu"][i], rtol=1e-8,
+                               atol=1e-8)
