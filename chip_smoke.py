@@ -93,11 +93,39 @@ Phases, each of which passes or ends the script with a nonzero exit:
    Σ w·p through the kernel against the same backward by the plain version
    (ḡ = λ = H⁻¹w, H̄ = −λpᵀ), on the humanoid's qM at f64, B 3072 (1e-9
    relative), with the kernel's two launches (forward, backward re-solve);
-   both backwards timed alone by the same warmed timer.
+   both backwards timed alone by the same warmed timer;
+13. ``multi_humanoid3`` (nv 81, the reference's 3-humanoid scene), which the
+   megastep's gate keeps on the stage path: f32, B 3072, 20 steps of
+   ``scan_steps(check=True)``, every env finite, exactly one LDL and one
+   Newton launch per step and no megastep launch; 20 steps at f64, B 8, on
+   the card against the CPU (1e-8); the wide LDL at n 65, 81, 130 (shared
+   memory) and 200 (f64, device memory) against its plain version
+   elementwise (1e-9 + 1e-9·|plain|); the wide Newton kernel on the scene's
+   rows at f64 (B 3072, it 1, ls 4; envs past the 48 shared J rows among
+   them) under phase 11's rule; times (L2 flushed, and L2-warm by events
+   around back-to-back calls: these launches take 0.6 ms and more) with
+   their bounds: the Newton kernel at f32 on those rows, the LDL on the
+   scene's qM (n 81, f32, with ``torch.linalg.solve`` beside it) and at
+   n 200 (f64, the device-memory route);
+14. the Newton kernel's gradient (``newton_cuda.NewtonSolve``): the
+   humanoid at f64, B 8, feet in the floor, two differentiated
+   ``forward.step`` calls (the stage path), d Σ qpos / d (qvel, ctrl) on the
+   card against the CPU (1e-8 relative), one Newton launch per step and
+   none in the backward;
+15. the slice's scenes: ``humanoid_tendon`` (the humanoid with two limited
+   fixed tendons) at f32, B 3072, 20 steps from the main path's start,
+   which the megastep refuses: finite, one LDL and one Newton launch per
+   step, the tendon limit rows acting in some envs at the start,
+   env-steps/s and a profiled window (launches per step, idle share); every
+   scene of ``zoo.TENDON`` and ``humanoid_tendon`` 20 steps at f64, B 64, card
+   against CPU (1e-8); and on each such scene with rows the Newton kernel
+   at 4 iterations, f64, B 3072, under phase 11's rule.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
-kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11.
+kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
+and 13 to 15, and the LDL's and the Newton kernel's ``wide`` entries hold
+their phase-13 times at n = nv = 81.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -120,7 +148,8 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 without tensor cores
 PEAK_FP64_FLOPS = 34e12         # H100 SXM fp64 without tensor cores
 # device kernels of the stage path's two hand-written kernels, by name
-HANDWRITTEN = ("ldl_regs_kernel", "ldl_shared_kernel", "newton_kernel")
+HANDWRITTEN = ("ldl_regs_kernel", "ldl_shared_kernel", "ldl_global_kernel",
+               "newton_kernel")
 
 
 def card_line() -> str:
@@ -181,7 +210,9 @@ def device_ms(fn, reps=30, warmup=3) -> float:
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+  # acc_events: keep the events of every collection cycle of the window
+  # (the profiler warns that it clears them at the end of each cycle)
+  with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
     for _ in range(reps):
       fn()
     torch.cuda.synchronize()
@@ -210,6 +241,14 @@ def ldl_flops(n: int) -> int:
   return factor + 2 * n * (n - 1) + n
 
 
+def ldl_bound(nbatch: int, n: int, dtype) -> tuple:
+  """An SPD solve needs only H's lower triangle (all the kernel reads), g,
+  and writes p."""
+  item = 8 if dtype == torch.float64 else 4
+  return bound(nbatch * (n * (n + 1) // 2 + 2 * n) * item,
+               nbatch * ldl_flops(n), dtype)
+
+
 def newton_flops(nefc: int, nv: int, iterations: int, ls_iter: int) -> int:
   """Arithmetic of the whole Newton solve per env, counted from the
   algorithm: each objective evaluation is J·x (2·nefc·nv), the row update
@@ -224,17 +263,18 @@ def newton_flops(nefc: int, nv: int, iterations: int, ls_iter: int) -> int:
 
 
 def humanoid_state(m, nbatch, seed):
-  """A forward-evaluated batch of the humanoid, feet pushed into the floor,
-  with the solver inputs filled in (this launches the LDL kernel) and a
-  warmstart near the smooth acceleration, so the solve's cost pick is not
-  one-sided."""
+  """A forward-evaluated batch of the humanoid (or of several, each root
+  lowered alike), feet pushed into the floor, with the solver inputs
+  filled in (this launches the LDL kernel) and a warmstart near the smooth
+  acceleration, so the solve's cost pick is not one-sided."""
   from mujoco_tpu_torch.ops import forward
   from mujoco_tpu_torch.parallel import rollout
   gen = torch.Generator(device="cuda").manual_seed(seed)
   d = rollout.make_batch(m, nbatch)
   qpos = d.qpos + 0.03 * torch.randn(d.qpos.shape, generator=gen,
                                      device="cuda", dtype=d.qpos.dtype)
-  qpos[:, 2] -= 0.12
+  for j in np.nonzero(np.asarray(m.jnt_type) == 0)[0]:   # free roots
+    qpos[:, int(m.jnt_qposadr[j]) + 2] -= 0.12
   qvel = 0.5 * torch.randn(d.qvel.shape, generator=gen, device="cuda",
                            dtype=d.qvel.dtype)
   d = forward.fwd_acceleration(m, forward.fwd_actuation(
@@ -279,10 +319,7 @@ def phase_ldl(report, details):
   warm_ms = device_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
   plain_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g))
   library_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g))
-  # an SPD solve needs only H's lower triangle (all the kernel reads), g,
-  # and writes p
-  bound_ms, bound_by = bound(B * (n * (n + 1) // 2 + 2 * n) * 4,
-                             B * ldl_flops(n), torch.float32)
+  bound_ms, bound_by = ldl_bound(B, n, torch.float32)
   print(f"ldl_solve f32 B{B} n{n}: kernel_ms {kernel_ms:.4f} (L2 flushed; "
         f"L2-warm {warm_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} (torch.linalg.solve) bound_ms {bound_ms:.5f} "
@@ -323,6 +360,30 @@ def newton_violation(out_k, out_p, rtol=1e-9, atol=1e-9) -> dict:
       scale = scale.sum(-1, keepdim=True)
     worst[name] = ((a - b).abs() / (atol + rtol * scale)).max().item()
   return worst
+
+
+def newton_bound(args, it, ls) -> tuple:
+  """The Newton kernel's bound on these inputs: (bound ms, by, dense bound
+  ms, by, kept rows per env mean, most). The kernel solves over the kept
+  rows only: it reads in full D, fl and the two masks; for the kept rows
+  only J, aref and R; then M's lower triangle (symmetric), a_s, warm and
+  reg; it writes x, qfrc, every row's force and stat (32 × 2). The dense
+  count reads J, aref and R of every row."""
+  from mujoco_tpu_torch.ops import newton_cuda
+  nbatch, nefc, nv = args[0].shape
+  item = args[0].element_size()
+  kept = newton_cuda.kept_rows(args[2], args[5], args[4]).sum(1)
+  kept_mean, kept_max = kept.double().mean().item(), int(kept.max().item())
+  rest = (2 * nbatch * nefc + 2 * nefc + nbatch * nv * (nv + 1) // 2
+          + 2 * nbatch * nv + nbatch + 2 * nbatch * nv + nbatch * nefc
+          + nbatch * 64)
+  nbytes = item * (rest + kept.sum().item() * (nv + 2))
+  bound_ms, bound_by = bound(
+      nbytes, nbatch * newton_flops(kept_mean, nv, it, ls), args[0].dtype)
+  dense_ms, dense_by = bound(item * (rest + nbatch * nefc * (nv + 2)),
+                             nbatch * newton_flops(nefc, nv, it, ls),
+                             args[0].dtype)
+  return bound_ms, bound_by, dense_ms, dense_by, kept_mean, kept_max
 
 
 def phase_newton(report, details):
@@ -376,21 +437,8 @@ def phase_newton(report, details):
   plain_ms = cuda_ms_cold(lambda: newton_cuda.newton_plain(*args, it, ls),
                           reps=5)
   nefc, nv = args[0].shape[1:]
-  # the rows these inputs need: the kernel solves over the kept rows only
-  kept = newton_cuda.kept_rows(args[2], args[5], args[4]).sum(1)
-  kept_mean, kept_max = kept.double().mean().item(), int(kept.max().item())
-  # read in full: D, fl and the two masks; for the kept rows only: J, aref
-  # and R; then M's lower triangle (symmetric), a_s, warm and reg; written:
-  # x, qfrc, every row's force and stat (32 × 2). The dense count reads J,
-  # aref and R of every row.
-  rest = (2 * B * nefc + 2 * nefc + B * nv * (nv + 1) // 2 + 2 * B * nv + B
-          + 2 * B * nv + B * nefc + B * 64)
-  nbytes = 4 * (rest + kept.sum().item() * (nv + 2))
-  bound_ms, bound_by = bound(nbytes, B * newton_flops(kept_mean, nv, it, ls),
-                             torch.float32)
-  dense_ms, dense_by = bound(4 * (rest + B * nefc * (nv + 2)),
-                             B * newton_flops(nefc, nv, it, ls),
-                             torch.float32)
+  bound_ms, bound_by, dense_ms, dense_by, kept_mean, kept_max = \
+      newton_bound(args, it, ls)
   print(f"newton_pyramidal f32 B{B} nefc{nefc} nv{nv} it{it} ls{ls}: "
         f"kernel_ms {kernel_ms:.4f} (L2 flushed; L2-warm {warm_ms:.4f}) "
         f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; kept "
@@ -844,7 +892,7 @@ def profile_window(fn, nstep):
   """Wall, device busy time and the kernels of fn() under torch.profiler
   (CUDA activity), per step; fn ends in a synchronize."""
   from torch.profiler import ProfilerActivity, profile
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
     t0 = time.perf_counter()
     fn()
     wall_ms = (time.perf_counter() - t0) * 1e3 / nstep
@@ -1270,6 +1318,281 @@ def phase_ldl_backward(report, details):
                                  launches=launches)
 
 
+SLICE_NSTEP = 20
+WIDE_ORDERS = (65, 81, 130, 200)
+
+
+def stage_run(m, d, nstep):
+  """nstep steps of rollout.scan_steps(check=True) with the launch counts
+  zeroed just before and read just after; returns (out, wall s,
+  launches)."""
+  from mujoco_tpu_torch.parallel import rollout
+  torch.cuda.synchronize()
+  reset_counts()
+  t0 = time.perf_counter()
+  out = rollout.scan_steps(m, d, nstep, check=True)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  return out, wall, read_counts()
+
+
+def wide_ldl_case(n, dtype, seed):
+  """B SPD matrices of order n made on the card from a seed, and g."""
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  a = torch.randn((B, n, n), generator=gen, device="cuda", dtype=dtype)
+  h = a @ a.transpose(1, 2) + n * torch.eye(n, device="cuda", dtype=dtype)
+  g = torch.randn((B, n), generator=gen, device="cuda", dtype=dtype)
+  return h.contiguous(), g
+
+
+def time_ldl(h, g):
+  """(L2-flushed ms, L2-warm ms, plain ms, torch.linalg.solve ms, bound ms,
+  by) of the LDL kernel on (h, g). The wide route's launches take 0.6 ms
+  and more, far above the wrapper's host time, so events around
+  back-to-back calls time the kernel itself; late in a long run the
+  profiler has missed a third of such a window's launches (18 and 19 of
+  30, in two runs), so these times do not use it."""
+  from mujoco_tpu_torch.ops import linalg_cuda
+  bound_ms, by = ldl_bound(h.shape[0], h.shape[1], h.dtype)
+  return (cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g)),
+          cuda_ms(lambda: linalg_cuda.spd_solve_kernel(h, g)),
+          cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g)),
+          cuda_ms_cold(lambda: torch.linalg.solve(h, g)), bound_ms, by)
+
+
+def phase_multi_humanoid(report, details):
+  """13: multi_humanoid3 (nv 81) on the stage path, the wide LDL and Newton
+  routes against their plain versions, and their times."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import linalg_cuda, megastep_cuda, newton_cuda
+  from mujoco_tpu_torch.ops import solver
+  load = lambda dtype, dev="cuda": zoo.load("multi_humanoid3", dtype, dev)
+  m = load(torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits multi_humanoid3 (nv 81)")
+  out, wall, launches = stage_run(m, main_path_batch(m), SLICE_NSTEP)
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  sps = B * SLICE_NSTEP / wall
+  print(f"multi_humanoid3 (nv {m.nv}, nefc {m.efc.nefc}): f32 B{B} "
+        f"{SLICE_NSTEP} steps: wall {wall:.3f} s, {sps:.1f} env-steps/s, "
+        f"launches {launches}, finite {finite}", flush=True)
+  if not finite or launches != {"ldl_solve": SLICE_NSTEP, "newton_pyramidal":
+                                SLICE_NSTEP, "megastep": 0}:
+    raise AssertionError(f"multi_humanoid3: finite {finite}, launches "
+                         f"{launches}")
+  for name in ("ldl_solve", "newton_pyramidal"):
+    report[name].setdefault("launches_by_path", {})["multi_humanoid3"] = \
+        launches[name]
+  worst = card_vs_cpu(load, lambda mm, dev: general_batch(mm, 8, 13, dev),
+                      SLICE_NSTEP, "multi_humanoid3")
+
+  # the wide LDL at f64 against its plain version, elementwise
+  ldl = {}
+  for n in WIDE_ORDERS:
+    h, g = wide_ldl_case(n, torch.float64, n)
+    route = "device memory" if linalg_cuda.work_values(
+        n, torch.float64, h.device) else "shared memory"
+    p = linalg_cuda.spd_solve_kernel(h, g)
+    ref = linalg_cuda.spd_solve_plain(h, g)
+    viol = ((p - ref).abs() / (1e-9 + 1e-9 * ref.abs())).max().item()
+    print(f"wide ldl f64 B{B} n{n} ({route}): worst err / (1e-9 + "
+          f"1e-9·|plain|) {viol:.3e}", flush=True)
+    if not viol <= 1.0:
+      raise AssertionError(f"wide ldl n{n} disagrees with its plain version")
+    ldl[n] = dict(route=route, violation=viol,
+                  max_abs_err=(p - ref).abs().max().item())
+
+  # the wide Newton kernel on this scene's rows at f64, then timed at f32
+  newton = {}
+  for dtype in (torch.float64, torch.float32):
+    mm = load(dtype)
+    args = solver.newton_args(mm, humanoid_state(mm, B, 3))
+    kept = newton_cuda.kept_rows(args[2], args[5], args[4]).sum(1)
+    if dtype == torch.float64:
+      out_k = newton_cuda.newton_kernel(*args, 1, 4)
+      out_p = newton_cuda.newton_plain(*args, 1, 4)
+      viol = newton_violation(out_k, out_p)
+      off, worst_other, table = newton_rows_gate(args, out_k, out_p, 1, 4)
+      unmatched = [row for row in table if row[1] == 0]
+      print(f"wide newton f64 B{B} nefc{mm.efc.nefc} nv{mm.nv} it1 ls4: kept "
+            f"rows per env mean {kept.double().mean().item():.2f}, most "
+            f"{int(kept.max())}, envs past the 48 shared J rows "
+            f"{int((kept > 48).sum())}; worst err / (1e-9 + 1e-9·|plain|) "
+            + " ".join(f"{k} {v:.3f}" for k, v in viol.items())
+            + f"; {len(off)} envs off elementwise, replayed {table}",
+            flush=True)
+      if len(off) > B // 100 or not worst_other <= 1.0 or unmatched:
+        raise AssertionError("wide newton: kernel and plain disagree")
+      newton["f64"] = dict(violation=viol, off_envs=off, replay=table,
+                           kept_over_48=int((kept > 48).sum()),
+                           max_abs_err=(out_k[0] - out_p[0]).abs().max()
+                           .item())
+    else:
+      it, ls = 1, 4
+      bound_ms, by, dense_ms, _, kept_mean, kept_max = newton_bound(args, it,
+                                                                    ls)
+      times = dict(
+          ms=cuda_ms_cold(lambda: newton_cuda.newton_kernel(*args, it, ls)),
+          l2_warm_ms=cuda_ms(lambda: newton_cuda.newton_kernel(*args, it,
+                                                                ls)),
+          plain_ms=cuda_ms_cold(lambda: newton_cuda.newton_plain(*args, it,
+                                                                  ls),
+                                reps=5),
+          bound_ms=bound_ms, bound_by=by, dense_bound_ms=dense_ms,
+          kept_mean=kept_mean, kept_max=kept_max,
+          blocks_per_sm=newton_cuda.blocks_per_sm(mm.efc.nefc, mm.nv,
+                                                  torch.float32))
+      print(f"wide newton f32 B{B} nefc{mm.efc.nefc} nv{mm.nv} it1 ls4: "
+            f"kernel_ms {times['ms']:.4f} (L2 flushed; L2-warm "
+            f"{times['l2_warm_ms']:.4f}) plain_ms {times['plain_ms']:.4f} "
+            f"bound_ms {bound_ms:.5f} ({by}; kept rows mean {kept_mean:.2f}, "
+            f"most {kept_max}; dense {dense_ms:.5f}), "
+            f"{times['blocks_per_sm']} blocks/SM", flush=True)
+      newton["f32"] = times
+
+  # times of each LDL route: nv 81 (the scene's qM, f32, shared memory)
+  # with torch.linalg.solve beside it, and n 200 at f64 (device memory)
+  d = humanoid_state(m, B, 4)
+  times = {}
+  for tag, (h, g) in (("n81_f32", (d.qM.contiguous(),
+                                    d.qfrc_smooth.contiguous())),
+                      ("n200_f64", wide_ldl_case(200, torch.float64, 7))):
+    k_ms, w_ms, p_ms, lib_ms, b_ms, by = time_ldl(h, g)
+    per_block, per_sm = linalg_cuda.occupancy(h.shape[1], h.dtype)
+    times[tag] = dict(ms=k_ms, l2_warm_ms=w_ms, plain_ms=p_ms,
+                      library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+                      envs_per_block=per_block, blocks_per_sm=per_sm)
+    print(f"wide ldl {tag} B{B}: kernel_ms {k_ms:.4f} (L2 flushed; L2-warm "
+          f"{w_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} "
+          f"(torch.linalg.solve) bound_ms {b_ms:.5f} ({by}); {per_block} "
+          f"envs per block, {per_sm} blocks/SM", flush=True)
+  details["multi_humanoid3"] = dict(
+      batch=B, nstep=SLICE_NSTEP, wall_s=wall, env_steps_per_s=sps,
+      launches=launches, card_vs_cpu_worst=worst, wide_ldl=ldl,
+      wide_ldl_times=times, wide_newton=newton)
+  report["ldl_solve"]["wide"] = dict(n=81, **times["n81_f32"])
+  report["newton_pyramidal"]["wide"] = dict(nv=m.nv, nefc=m.efc.nefc,
+                                            **newton["f32"])
+
+
+def phase_newton_gradient(report, details):
+  """14: the Newton kernel's gradient (NewtonSolve) card against CPU."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward, newton_cuda
+  grads = {}
+  for dev in ("cuda", "cpu"):
+    m = zoo.humanoid(torch.float64, device=dev)
+    d = general_batch(m, 8, 17, dev)
+    qpos = d.qpos.clone()
+    qpos[:, 2] -= 0.12                     # feet in the floor
+    rng = np.random.default_rng(18)
+    qvel = torch.tensor(0.3 * rng.standard_normal(tuple(d.qvel.shape)),
+                        device=dev, requires_grad=True)
+    ctrl = torch.tensor(rng.uniform(-1, 1, tuple(d.ctrl.shape)),
+                        device=dev, requires_grad=True)
+    reset_counts()
+    out = forward.step(m, forward.step(m, d.replace(qpos=qpos, qvel=qvel,
+                                                    ctrl=ctrl)))
+    forward_launches = newton_cuda.LAUNCHES
+    out.qpos.sum().backward()
+    if dev == "cuda":
+      torch.cuda.synchronize()
+    grads[dev] = (qvel.grad.cpu(), ctrl.grad.cpu(), forward_launches,
+                  read_counts())
+  rel = max(((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(grads["cuda"][:2], grads["cpu"][:2]))
+  print(f"newton gradient: humanoid f64 B8, 2 differentiated steps, "
+        f"d Σ qpos / d (qvel, ctrl) card vs CPU max rel err {rel:.3e} "
+        f"(limit 1e-8); Newton launches in the forward "
+        f"{grads['cuda'][2]}, after the backward {grads['cuda'][3]}",
+        flush=True)
+  if not rel <= 1e-8 or grads["cuda"][2] != 2 or \
+      grads["cuda"][3]["newton_pyramidal"] != 2:
+    raise AssertionError(f"newton gradient: rel err {rel}, launches "
+                         f"{grads['cuda'][2:]}")
+  details["newton_gradient"] = dict(rel_err=rel, launches=grads["cuda"][3])
+  report["newton_pyramidal"].setdefault("launches_by_path", {})[
+      "gradient_2_steps"] = grads["cuda"][2]
+
+
+def phase_slice_scenes(report, details):
+  """15: humanoid_tendon at full width, every new scene card against CPU,
+  and the Newton kernel on the scenes' rows at 4 iterations."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward, megastep_cuda, newton_cuda
+  from mujoco_tpu_torch.ops import solver
+  from mujoco_tpu_torch.parallel import rollout
+  m = zoo.load("humanoid_tendon", torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits humanoid_tendon")
+  d0 = main_path_batch(m)
+  first = forward.fwd_position(m, d0)
+  meta = m.efc
+  ten_rows = meta.ne + meta.nf + np.nonzero(meta.limit_ten >= 0)[0]
+  acting = float(first.efc_active[:, ten_rows].any(1).double().mean())
+  out, wall, launches = stage_run(m, d0, SLICE_NSTEP)
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  sps = B * SLICE_NSTEP / wall
+
+  def window():
+    rollout.scan_steps(m, out, 5, check=True)
+    torch.cuda.synchronize()
+
+  window()
+  prof, _ = profile_window(window, 5)
+  print(f"humanoid_tendon: f32 B{B} {SLICE_NSTEP} steps: wall {wall:.3f} s, "
+        f"{sps:.1f} env-steps/s, launches {launches}, finite {finite}; "
+        f"tendon limit rows acting at the start in {acting:.2%} of envs; "
+        f"profiled 5 steps: wall {prof['wall_ms_per_step']:.3f} ms/step, "
+        f"device busy {prof['device_busy_ms_per_step']:.3f} ms/step, idle "
+        f"{prof['device_idle_share']:.2%}, "
+        f"{prof['kernel_launches_per_step']:.1f} kernel launches/step",
+        flush=True)
+  if not finite or launches != {"ldl_solve": SLICE_NSTEP, "newton_pyramidal":
+                                SLICE_NSTEP, "megastep": 0} or acting == 0:
+    raise AssertionError(f"humanoid_tendon: finite {finite}, launches "
+                         f"{launches}, tendon rows acting {acting}")
+  for name in ("ldl_solve", "newton_pyramidal"):
+    report[name].setdefault("launches_by_path", {})["humanoid_tendon"] = \
+        launches[name]
+  scenes = {}
+  for name in zoo.TENDON + ("humanoid_tendon",):
+    worst = card_vs_cpu(lambda dtype, dev, n=name: zoo.load(n, dtype, dev),
+                        lambda mm, dev: general_batch(mm, 64, 19, dev),
+                        SLICE_NSTEP, f"slice scene {name}")
+    scenes[name] = dict(card_vs_cpu_worst=worst)
+    mm = zoo.load(name, torch.float64)
+    if not mm.efc.nefc:
+      continue
+    dd = general_batch(mm, B, 20)
+    dd = forward.fwd_acceleration(mm, forward.fwd_actuation(
+        mm, forward.fwd_velocity(mm, forward.fwd_position(mm, dd))))
+    args = solver.newton_args(mm, dd.replace(
+        qacc_warmstart=0.9 * dd.qacc_smooth))
+    ls = int(mm.opt.ls_iterations)
+    out_k = newton_cuda.newton_kernel(*args, 4, ls)
+    out_p = newton_cuda.newton_plain(*args, 4, ls)
+    viol = newton_violation(out_k, out_p)
+    off, worst_other, table = newton_rows_gate(args, out_k, out_p, 4, ls)
+    unmatched = [row for row in table if row[1] == 0]
+    kept = newton_cuda.kept_rows(args[2], args[5], args[4]).sum(1)
+    print(f"newton rows {name}: ne {mm.efc.ne}, nf {mm.efc.nf}, nl "
+          f"{mm.efc.nl}, nefc {mm.efc.nefc}; kept rows mean "
+          f"{kept.double().mean().item():.2f}; f64 B{B} it4 ls{ls} worst "
+          f"err / (1e-9 + 1e-9·|plain|) " + " ".join(
+              f"{k} {v:.3f}" for k, v in viol.items())
+          + f"; {len(off)} envs off elementwise, replayed {table}",
+          flush=True)
+    if len(off) > B // 100 or not worst_other <= 1.0 or unmatched:
+      raise AssertionError(f"newton rows {name}: kernel and plain disagree")
+    scenes[name].update(newton_violation=viol, off_envs=off, replay=table)
+  details["slice_scenes"] = dict(
+      humanoid_tendon=dict(batch=B, nstep=SLICE_NSTEP, wall_s=wall,
+                           env_steps_per_s=sps, launches=launches,
+                           tendon_rows_acting_share=acting, profile=prof),
+      scenes=scenes)
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1298,6 +1621,9 @@ def main() -> int:
   phase_model_class(report, details)
   phase_newton_rows(report, details)
   phase_ldl_backward(report, details)
+  phase_multi_humanoid(report, details)
+  phase_newton_gradient(report, details)
+  phase_slice_scenes(report, details)
 
   kernels = [report["ldl_solve"], report["newton_pyramidal"],
              report["megastep"]]

@@ -1,6 +1,6 @@
 // In-place LDLᵀ factor-and-solve of one small dense SPD matrix by one warp,
 // shared by the Newton kernel (newton.cu), the megastep kernel
-// (megastep.cu) and, for 32 < n ≤ 64, the LDL solve kernel (ldl_solve.cu),
+// (megastep.cu) and, for n > 32, the LDL solve kernel (ldl_solve.cu),
 // which has its own register routine for n ≤ 32. Same algorithm as the
 // Pallas kernel it replaces
 // (mujoco_tpu/ops/linalg_tpu.py:34 _ldl_solve_kernel): symmetric Gaussian
@@ -25,29 +25,26 @@ __device__ inline double rcp_rn(double x) { return __drcp_rn(x); }
 // of a warp reading h[r*ld + j] for their own rows r fall in distinct banks.
 __host__ __device__ inline int ldl_ld(int n) { return n | 1; }
 
-// n ≤ 64 in shared memory: lane l owns rows l and l + 32 of h. Each
-// pivot step reads the unscaled column k while it updates the rows below,
-// so every step waits on shared-memory loads and stores in turn.
+// Any n, on a work space in shared or device memory: lane l owns rows l,
+// l + 32, l + 64, ... of h. Each pivot step first updates every owned row
+// below the pivot from the unscaled column k, then, once the warp has
+// finished reading that column, scales it into L (the multiplier is formed
+// the same way both times, so it is the same value). Every step waits on
+// the work space's loads and stores in turn. __syncwarp orders the lanes'
+// accesses to shared and device memory alike.
 template <typename T>
-__device__ void warp_ldl_solve_shared(T* h, int ld, T* y, int n, int lane) {
-  const int r0 = lane, r1 = lane + 32;
+__device__ void warp_ldl_solve_wide(T* h, int ld, T* y, int n, int lane) {
   for (int k = 0; k < n; ++k) {
     // trailing Schur update of the rows below the pivot, reading the
-    // unscaled column k; column k is scaled into L only after the warp has
-    // finished reading it
+    // unscaled column k
     const T inv = T(1) / h[k * ld + k];
-    const bool own0 = r0 > k && r0 < n, own1 = r1 > k && r1 < n;
-    const T l0 = own0 ? h[r0 * ld + k] * inv : T(0);
-    const T l1 = own1 ? h[r1 * ld + k] * inv : T(0);
-    if (own0) {
-      for (int j = k + 1; j <= r0; ++j) h[r0 * ld + j] -= l0 * h[j * ld + k];
-    }
-    if (own1) {
-      for (int j = k + 1; j <= r1; ++j) h[r1 * ld + j] -= l1 * h[j * ld + k];
+    for (int r = k + 1 + ((lane - k - 1) & 31); r < n; r += 32) {
+      const T l = h[r * ld + k] * inv;
+      for (int j = k + 1; j <= r; ++j) h[r * ld + j] -= l * h[j * ld + k];
     }
     __syncwarp(kFullMask);
-    if (own0) h[r0 * ld + k] = l0;
-    if (own1) h[r1 * ld + k] = l1;
+    for (int r = k + 1 + ((lane - k - 1) & 31); r < n; r += 32)
+      h[r * ld + k] = h[r * ld + k] * inv;
     __syncwarp(kFullMask);
   }
   // forward solve L z = y (unit lower L)
@@ -74,7 +71,7 @@ __device__ void warp_ldl_solve_shared(T* h, int ld, T* y, int n, int lane) {
 // the column entries a pivot step needs come from the other lanes by
 // shuffles, and the only shared-memory traffic is the load of h, the store
 // of the factor and the back solve's reads of it. The arithmetic is the
-// shared version's, operation for operation, so both give the same bits.
+// wide version's, operation for operation, so both give the same bits.
 // Rows n..31 are padded with the identity, so every loop runs to 32 with
 // no branch on n: a padded row's pivot is 1 and its multipliers are 0, it
 // changes no real row, and the warp issues a step's 31 − k independent
@@ -132,8 +129,9 @@ __device__ __noinline__ void warp_ldl_solve_regs(T* h, int ld, T* y, int n,
   __syncwarp(kFullMask);
 }
 
-// h: n×n SPD matrix, row stride ld, lower triangle valid; y: right-hand
-// side, overwritten with H⁻¹y; n ≤ 64. The whole warp must call this with h
+// h: n×n SPD matrix, row stride ld, lower triangle valid, in shared or
+// device memory; y: right-hand side, overwritten with H⁻¹y; any n. The
+// whole warp must call this with h
 // and y already visible to every lane (__syncwarp or __syncthreads before);
 // the results are visible to the warp on return, and h holds the factor.
 template <typename T>
@@ -141,7 +139,7 @@ __device__ void warp_ldl_solve(T* h, int ld, T* y, int n, int lane) {
   if (n <= 32) {
     warp_ldl_solve_regs(h, ld, y, n, lane);
   } else {
-    warp_ldl_solve_shared(h, ld, y, n, lane);
+    warp_ldl_solve_wide(h, ld, y, n, lane);
   }
 }
 

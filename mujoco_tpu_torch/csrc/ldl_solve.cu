@@ -1,4 +1,4 @@
-// Batched p = H⁻¹ g for small dense SPD H (n ≤ 64), float and double.
+// Batched p = H⁻¹ g for small dense SPD H (any n), float and double.
 //
 // Replaces the Pallas kernel _ldl_solve_kernel
 // (mujoco_tpu/ops/linalg_tpu.py:34, launched by ldl_solve_lanes :80).
@@ -26,9 +26,13 @@
 //   its chain of shuffles. At f32 __launch_bounds__ holds it to 85
 //   registers, so 3 blocks of 8 warps share an SM and B 3072 runs in one
 //   wave.
-// - 32 < n ≤ 64 (ldl_shared_kernel): H staged in shared memory and
-//   factored there by warp_ldl_solve (ldl_common.cuh), lane l owning rows
-//   l and l + 32.
+// - n > 32 (ldl_shared_kernel): H staged in shared memory and factored
+//   there by warp_ldl_solve_wide (ldl_common.cuh), lane l owning rows l,
+//   l + 32, l + 64, ...; one warp's n·(n|1) + n values must fit what a
+//   block may opt into (n ≤ 169 at f64, ≤ 240 at f32 on an H100).
+// - above that (ldl_global_kernel): the same routine on a per-env slice of
+//   a device-memory work space the caller allocates (mjt_ldl_work_values
+//   says how many values per env), the solution built in place in p.
 //
 // The ragged batch edge is masked (warps past B return) instead of padded
 // with identity matrices.
@@ -135,7 +139,7 @@ __device__ __forceinline__ void ldl_env(const T* __restrict__ Hg,
 template <typename T, int N, bool kExact>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, sizeof(T) == 4 ? 3 : 2)
 ldl_regs_kernel(const T* __restrict__ H, const T* __restrict__ g,
-                T* __restrict__ p, int B, int n) {
+                T* __restrict__ p, T* /*work*/, int B, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -149,7 +153,7 @@ ldl_regs_kernel(const T* __restrict__ H, const T* __restrict__ g,
 template <typename T>
 __global__ void ldl_shared_kernel(const T* __restrict__ H,
                                   const T* __restrict__ g, T* __restrict__ p,
-                                  int B, int n) {
+                                  T* /*work*/, int B, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int ld = ldl_ld(n);
@@ -170,41 +174,94 @@ __global__ void ldl_shared_kernel(const T* __restrict__ H,
   for (int i = lane; i < n; i += 32) p[env * n + i] = y[i];
 }
 
-// The kernel that solves order n, its shared bytes per warp, and its warps
-// per block (as many as fit 48 KB, at most kWarpsPerBlock).
+// H's lower triangle copied to the env's n × n slice of work, g to p, and
+// the solve done there in place
+template <typename T>
+__global__ void ldl_global_kernel(const T* __restrict__ H,
+                                  const T* __restrict__ g, T* p, T* work,
+                                  int B, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long env = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (env >= B) return;  // whole warp leaves together
+  T* h = work + env * n * n;
+  T* y = p + env * n;
+  const T* Hg = H + env * n * n;
+  for (int e = lane; e < n * n; e += 32) {
+    const int i = e / n, j = e - i * n;
+    if (j <= i) h[e] = Hg[e];
+  }
+  for (int i = lane; i < n; i += 32) y[i] = g[env * n + i];
+  __syncwarp(kFullMask);
+  warp_ldl_solve_wide(h, n, y, n, lane);
+}
+
+// Dynamic shared memory a block may opt into on the current device.
+inline size_t smem_optin() {
+  int dev = 0, v = 48 * 1024;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 48 * 1024;
+  return static_cast<size_t>(v);
+}
+
+// The kernel that solves order n, its shared bytes per warp, its warps per
+// block (as many as fit 48 KB, at most kWarpsPerBlock; one warp alone may
+// opt into more) and its device-memory work values per env.
 template <typename T>
 struct Plan {
-  void (*kernel)(const T*, const T*, T*, int, int);
+  void (*kernel)(const T*, const T*, T*, T*, int, int);
   size_t per_warp;
   int warps;
+  size_t work;
 };
 
 template <typename T>
 Plan<T> plan(int n) {
   Plan<T> pl;
-  if (n == 27) {
-    pl.kernel = ldl_regs_kernel<T, 27, true>;
-    pl.per_warp = regs_warp_values<27>() * sizeof(T);
-  } else if (n <= 32) {
-    pl.kernel = ldl_regs_kernel<T, 32, false>;
-    pl.per_warp = regs_warp_values<32>() * sizeof(T);
+  pl.work = 0;
+  if (n <= 32) {
+    pl.kernel = n == 27 ? ldl_regs_kernel<T, 27, true>
+                        : ldl_regs_kernel<T, 32, false>;
+    pl.per_warp = (n == 27 ? regs_warp_values<27>() : regs_warp_values<32>())
+                  * sizeof(T);
   } else {
-    pl.kernel = ldl_shared_kernel<T>;
     pl.per_warp = static_cast<size_t>(n * ldl_ld(n) + n) * sizeof(T);
+    pl.kernel = ldl_shared_kernel<T>;
+    if (pl.per_warp > smem_optin()) {
+      pl.kernel = ldl_global_kernel<T>;
+      pl.per_warp = 0;
+      pl.work = static_cast<size_t>(n) * n;
+    }
   }
-  const int fit = static_cast<int>((48 * 1024) / pl.per_warp);
+  const int fit = pl.per_warp ? static_cast<int>((48 * 1024) / pl.per_warp)
+                              : kWarpsPerBlock;
   pl.warps = fit < 1 ? 1 : (fit > kWarpsPerBlock ? kWarpsPerBlock : fit);
   return pl;
 }
 
 template <typename T>
-int launch_ldl(const T* H, const T* g, T* p, int B, int n,
+cudaError_t prepare(const Plan<T>& pl) {
+  const size_t smem = pl.warps * pl.per_warp;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(pl.kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T>
+int launch_ldl(const T* H, const T* g, T* p, T* work, int B, int n,
                cudaStream_t stream) {
-  if (n < 1 || n > 64 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Plan<T> pl = plan<T>(n);
+  if (pl.work && work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare(pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + pl.warps - 1) / pl.warps;
   pl.kernel<<<blocks, pl.warps * 32, pl.warps * pl.per_warp, stream>>>(
-      H, g, p, B, n);
+      H, g, p, work, B, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -212,11 +269,13 @@ int launch_ldl(const T* H, const T* g, T* p, int B, int n,
 // runtime's occupancy calculator; < 0 is an error code.
 template <typename T>
 int ldl_occupancy(int n, int* out) {
-  if (n < 1 || n > 64) return -static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1) return -static_cast<int>(cudaErrorInvalidValue);
   const Plan<T> pl = plan<T>(n);
   int blocks = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, pl.kernel, pl.warps * 32, pl.warps * pl.per_warp);
+  cudaError_t err = prepare(pl);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, pl.kernel, pl.warps * 32, pl.warps * pl.per_warp);
   out[0] = pl.warps;
   out[1] = blocks;
   return err == cudaSuccess ? 0 : -static_cast<int>(err);
@@ -232,19 +291,26 @@ int mjt_ldl_occupancy(int n, int f64, int* out) {
              : mjt::ldl_occupancy<float>(n, out);
 }
 
-int mjt_ldl_solve_f32(const void* H, const void* g, void* p, int B, int n,
-                      void* stream) {
-  return mjt::launch_ldl(static_cast<const float*>(H),
-                         static_cast<const float*>(g), static_cast<float*>(p),
-                         B, n, static_cast<cudaStream_t>(stream));
+// device-memory work values per env the solve of order n needs (0: none)
+long long mjt_ldl_work_values(int n, int f64) {
+  return static_cast<long long>(f64 ? mjt::plan<double>(n).work
+                                    : mjt::plan<float>(n).work);
 }
 
-int mjt_ldl_solve_f64(const void* H, const void* g, void* p, int B, int n,
-                      void* stream) {
+int mjt_ldl_solve_f32(const void* H, const void* g, void* p, void* work,
+                      int B, int n, void* stream) {
+  return mjt::launch_ldl(static_cast<const float*>(H),
+                         static_cast<const float*>(g), static_cast<float*>(p),
+                         static_cast<float*>(work), B, n,
+                         static_cast<cudaStream_t>(stream));
+}
+
+int mjt_ldl_solve_f64(const void* H, const void* g, void* p, void* work,
+                      int B, int n, void* stream) {
   return mjt::launch_ldl(static_cast<const double*>(H),
                          static_cast<const double*>(g),
-                         static_cast<double*>(p), B, n,
-                         static_cast<cudaStream_t>(stream));
+                         static_cast<double*>(p), static_cast<double*>(work),
+                         B, n, static_cast<cudaStream_t>(stream));
 }
 
 const char* mjt_error_string(int code) {

@@ -33,8 +33,14 @@
 //   reads its J rows from device memory instead (a second instantiation
 //   of the same solve), so every env is solved in full without a host
 //   synchronisation.
-// - Every input copy is a cp.async, so an env's loads are all in flight
-//   at once and none passes through registers.
+// - Any nv: H's factor goes through the wide warp LDL (ldl_common.cuh)
+//   above nv 32. Where the work space does not fit what a block may opt
+//   into (at f64 from about nv 110, fewer with many rows), the whole work
+//   space moves to a per-env slice of device memory that the caller
+//   allocates (kGlobalWork; mjt_newton_work_values says how many values
+//   per env) and every env reads its J rows from device memory.
+// - Every input copy into shared memory is a cp.async, so an env's loads
+//   are all in flight at once and none passes through registers.
 //
 // The solve itself is block_newton (newton_common.cuh), which the megastep
 // kernel calls too with its own rows (ListRows).
@@ -66,12 +72,23 @@ __host__ __device__ inline size_t smem_bytes(const Shapes& s) {
   return values * sizeof(T) + static_cast<size_t>(s.nefc) * sizeof(int);
 }
 
+// Values of one env's work-space slice in device memory: smem_bytes
+// rounded up to 16 bytes.
 template <typename T>
-__device__ inline void copy_async(T* dst, const T* src) {
-  __pipeline_memcpy_async(dst, src, sizeof(T));
+__host__ __device__ inline size_t work_values(const Shapes& s) {
+  return (smem_bytes<T>(s) + 15) / 16 * 16 / sizeof(T);
 }
 
-template <typename T>
+template <bool kGlobalWork, typename T>
+__device__ inline void copy_async(T* dst, const T* src) {
+  if constexpr (kGlobalWork) {
+    *dst = *src;
+  } else {
+    __pipeline_memcpy_async(dst, src, sizeof(T));
+  }
+}
+
+template <typename T, bool kGlobalWork>
 __global__ void __launch_bounds__(kNewtonThreads, kNewtonMinBlocks)
 newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
               const T* __restrict__ D, const T* __restrict__ R,
@@ -80,7 +97,7 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
               const T* __restrict__ a_s, const T* __restrict__ warm,
               const T* __restrict__ reg, T* __restrict__ x_out,
               T* __restrict__ f_out, T* __restrict__ qfrc_out,
-              T* __restrict__ stat_out, Shapes s, int iterations,
+              T* __restrict__ stat_out, T* gwork, Shapes s, int iterations,
               int ls_iter) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kNT = kNewtonThreads;
@@ -88,7 +105,8 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   const int tid = threadIdx.x;
   const long env = blockIdx.x;
 
-  T* sM = reinterpret_cast<T*>(smem_raw);
+  T* sM = kGlobalWork ? gwork + env * work_values<T>(s)
+                      : reinterpret_cast<T*>(smem_raw);
   T* sH = sM + nv * nv;
   T* sJ = sH + nv * ld;
   T* sAref = sJ + s.cap * nv;
@@ -113,16 +131,17 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   const T* Dg = D + env * nefc;
   const T* Flg = fl + env * nefc;
   for (int r = tid; r < nefc; r += kNT) {
-    copy_async(sD + r, Dg + r);
-    copy_async(sFl + r, Flg + r);
-    copy_async(sJar + r, fric + r);
-    copy_async(sJp + r, ones + r);
+    copy_async<kGlobalWork>(sD + r, Dg + r);
+    copy_async<kGlobalWork>(sFl + r, Flg + r);
+    copy_async<kGlobalWork>(sJar + r, fric + r);
+    copy_async<kGlobalWork>(sJp + r, ones + r);
   }
   const T* Mg = M + env * nv * nv;
-  for (int e = tid; e < nv * nv; e += kNT) copy_async(sM + e, Mg + e);
+  for (int e = tid; e < nv * nv; e += kNT)
+    copy_async<kGlobalWork>(sM + e, Mg + e);
   for (int i = tid; i < nv; i += kNT) {
-    copy_async(sAs + i, a_s + env * nv + i);
-    copy_async(sWarm + i, warm + env * nv + i);
+    copy_async<kGlobalWork>(sAs + i, a_s + env * nv + i);
+    copy_async<kGlobalWork>(sWarm + i, warm + env * nv + i);
   }
   __pipeline_commit();
   const T reg_e = reg[env];
@@ -168,13 +187,14 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   const T* Jg = J + env * nefc * nv;
   for (int k = tid; k < nk; k += kNT) {
     const int r = sInfo[k] & kRowMask;
-    copy_async(sAref + k, aref + env * nefc + r);
-    copy_async(sR + k, R + env * nefc + r);
+    copy_async<kGlobalWork>(sAref + k, aref + env * nefc + r);
+    copy_async<kGlobalWork>(sR + k, R + env * nefc + r);
   }
   if (fits) {
     for (int k = 0; k < nk; ++k) {
       const T* Jr = Jg + static_cast<long>(sInfo[k] & kRowMask) * nv;
-      for (int j = tid; j < nv; j += kNT) copy_async(sJ + k * nv + j, Jr + j);
+      for (int j = tid; j < nv; j += kNT)
+        copy_async<kGlobalWork>(sJ + k * nv + j, Jr + j);
     }
   }
   __pipeline_commit();
@@ -211,9 +231,44 @@ Shapes shapes(int nefc, int nv) {
   return Shapes{nefc, nv, ldl_ld(nv), nefc < kRowCap ? nefc : kRowCap};
 }
 
+// Dynamic shared memory a block of newton_kernel<T, false> may opt into on
+// the current device (the device's limit less the kernel's static shared
+// memory).
 template <typename T>
+size_t smem_limit() {
+  int dev = 0, v = 48 * 1024;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    v = 48 * 1024;
+  cudaFuncAttributes attr;
+  const size_t fixed =
+      cudaFuncGetAttributes(&attr, newton_kernel<T, false>) == cudaSuccess
+          ? attr.sharedSizeBytes
+          : 64;
+  return static_cast<size_t>(v) - fixed;
+}
+
+// The route at these shapes: the work space in shared memory where it
+// fits, else in device memory (no J rows copied: cap 0). Returns the
+// shapes and sets *smem (dynamic shared bytes) and *work (device-memory
+// values per env, 0 on the shared route).
+template <typename T>
+Shapes route(int nefc, int nv, size_t* smem, size_t* work) {
+  Shapes s = shapes(nefc, nv);
+  *smem = smem_bytes<T>(s);
+  *work = 0;
+  if (*smem > smem_limit<T>()) {
+    s.cap = 0;
+    *smem = 0;
+    *work = work_values<T>(s);
+  }
+  return s;
+}
+
+template <typename T, bool kGlobalWork>
 cudaError_t set_smem(size_t smem) {
-  return cudaFuncSetAttribute(newton_kernel<T>,
+  return cudaFuncSetAttribute(newton_kernel<T, kGlobalWork>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem > 48 * 1024 ? smem
                                                                 : 48 * 1024));
@@ -223,20 +278,27 @@ template <typename T>
 int launch_newton(const T* J, const T* aref, const T* D, const T* R,
                   const T* fl, const T* fric, const T* ones, const T* M,
                   const T* a_s, const T* warm, const T* reg, T* x, T* force,
-                  T* qfrc, T* stat, int B, int nefc, int nv, int iterations,
-                  int ls_iter, cudaStream_t stream) {
-  if (B < 1 || nefc < 1 || nefc > kRowMask || nv < 1 || nv > 64 ||
+                  T* qfrc, T* stat, T* work, int B, int nefc, int nv,
+                  int iterations, int ls_iter, cudaStream_t stream) {
+  if (B < 1 || nefc < 1 || nefc > kRowMask || nv < 1 ||
       iterations < 1 || iterations > kStatRows || ls_iter < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shapes s = shapes(nefc, nv);
-  const size_t smem = smem_bytes<T>(s);
+  size_t smem = 0, wv = 0;
+  const Shapes s = route<T>(nefc, nv, &smem, &wv);
+  if (wv) {
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    newton_kernel<T, true><<<B, kNewtonThreads, 0, stream>>>(
+        J, aref, D, R, fl, fric, ones, M, a_s, warm, reg, x, force, qfrc,
+        stat, work, s, iterations, ls_iter);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (smem > 48 * 1024) {
-    const cudaError_t err = set_smem<T>(smem);
+    const cudaError_t err = set_smem<T, false>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  newton_kernel<T><<<B, kNewtonThreads, smem, stream>>>(
+  newton_kernel<T, false><<<B, kNewtonThreads, smem, stream>>>(
       J, aref, D, R, fl, fric, ones, M, a_s, warm, reg, x, force, qfrc, stat,
-      s, iterations, ls_iter);
+      work, s, iterations, ls_iter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -245,12 +307,19 @@ int launch_newton(const T* J, const T* aref, const T* D, const T* R,
 // error code.
 template <typename T>
 int newton_blocks_per_sm(int nefc, int nv) {
-  const size_t smem = smem_bytes<T>(shapes(nefc, nv));
-  cudaError_t err = set_smem<T>(smem);
+  size_t smem = 0, wv = 0;
+  route<T>(nefc, nv, &smem, &wv);
+  cudaError_t err = cudaSuccess;
   int blocks = 0;
-  if (err == cudaSuccess)
+  if (wv) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, newton_kernel<T>, kNewtonThreads, smem);
+        &blocks, newton_kernel<T, true>, kNewtonThreads, 0);
+  } else {
+    err = set_smem<T, false>(smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, newton_kernel<T, false>, kNewtonThreads, smem);
+  }
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -262,13 +331,24 @@ extern "C" int mjt_newton_blocks_per_sm(int nefc, int nv, int f64) {
              : mjt::newton_blocks_per_sm<float>(nefc, nv);
 }
 
+// device-memory work values per env the solve at these shapes needs (0: it
+// runs in shared memory)
+extern "C" long long mjt_newton_work_values(int nefc, int nv, int f64) {
+  size_t smem = 0, wv = 0;
+  if (f64)
+    mjt::route<double>(nefc, nv, &smem, &wv);
+  else
+    mjt::route<float>(nefc, nv, &smem, &wv);
+  return static_cast<long long>(wv);
+}
+
 #define MJT_NEWTON_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* J, const void* aref, const void* D,          \
                       const void* R, const void* fl, const void* fric,         \
                       const void* ones, const void* M, const void* a_s,        \
                       const void* warm, const void* reg, void* x, void* force, \
-                      void* qfrc, void* stat, int B, int nefc, int nv,         \
-                      int iterations, int ls_iter, void* stream) {             \
+                      void* qfrc, void* stat, void* work, int B, int nefc,     \
+                      int nv, int iterations, int ls_iter, void* stream) {     \
     return mjt::launch_newton(                                                 \
         static_cast<const T*>(J), static_cast<const T*>(aref),                 \
         static_cast<const T*>(D), static_cast<const T*>(R),                    \
@@ -277,7 +357,8 @@ extern "C" int mjt_newton_blocks_per_sm(int nefc, int nv, int f64) {
         static_cast<const T*>(a_s), static_cast<const T*>(warm),               \
         static_cast<const T*>(reg), static_cast<T*>(x),                        \
         static_cast<T*>(force), static_cast<T*>(qfrc), static_cast<T*>(stat),  \
-        B, nefc, nv, iterations, ls_iter, static_cast<cudaStream_t>(stream));  \
+        static_cast<T*>(work), B, nefc, nv, iterations, ls_iter,               \
+        static_cast<cudaStream_t>(stream));                                    \
   }
 
 MJT_NEWTON_ENTRY(mjt_newton_f32, float)

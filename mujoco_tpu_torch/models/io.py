@@ -3,7 +3,8 @@
 Counterparts: ``put_model`` (mujoco_tpu/models/io.py:1357) with
 ``_tree_topology`` (:311, the pure-Python path), ``_contact_meta`` (:410),
 ``_efc_meta`` (:1074), ``_names`` (:1173) and ``_actuator_meta`` (:1205);
-``make_data`` (:1703).
+``make_data`` (:1703) with the mocap start pose of ``_mocap_init``
+(:1687).
 
 The model reaches the port as a flat dict of numpy arrays, name →
 ``np.asarray(value)``, with nested dataclasses flattened by dotted names
@@ -223,15 +224,18 @@ def _contact_meta(mjm: Any) -> dict:
 
 
 # rows of each equality type the port assembles (mujoco_tpu/models/io.py:
-# 1104-1109); TENDON waits for the tendon slice, FLEX/FLEXSTRAIN for flex
-_EQ_ROWS = {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1}
+# 1104-1109); FLEX/FLEXSTRAIN wait for flex
+_EQ_ROWS = {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1,
+            EqType.TENDON: 1}
 
 
 def _efc_meta(mjm: Any, con: dict) -> dict:
-  """Fixed row layout (mujoco_tpu/models/io.py:1074-1172): equality, dof
-  friction loss, limits (two sides per hinge/slide, one row per ball),
-  then contacts (one row for condim 1, 2·(condim − 1) pyramidal edges
-  otherwise)."""
+  """Fixed row layout (mujoco_tpu/models/io.py:1074-1172): equality,
+  friction loss (the dofs', then the tendons'), limits (two sides per
+  hinge/slide, one row per ball, then two sides per limited tendon), then
+  contacts (one row for condim 1, 2·(condim − 1) pyramidal edges
+  otherwise). A friction row's friction_ten and a joint limit row's
+  limit_ten are −1, as are a tendon row's friction_dof and limit_jnt."""
   eq_id, eq_row = [], []
   for i in range(mjm.neq):
     t = EqType(int(mjm.eq_type[i]))
@@ -243,15 +247,25 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
   ne = len(eq_id)
 
   friction_dof = [i for i in range(mjm.nv) if mjm.dof_frictionloss[i] > 0]
-  nf = len(friction_dof)
+  friction_ten = [i for i in range(mjm.ntendon)
+                  if mjm.tendon_frictionloss[i] > 0]
+  nf = len(friction_dof) + len(friction_ten)
 
-  limit_jnt, limit_side = [], []
+  limit_jnt, limit_ten, limit_side = [], [], []
   for i in range(mjm.njnt):
     if not mjm.jnt_limited[i]:
       continue
     sides = (0,) if mjm.jnt_type[i] == JointType.BALL else (-1, 1)
     for side in sides:
       limit_jnt.append(i)
+      limit_ten.append(-1)
+      limit_side.append(side)
+  for i in range(mjm.ntendon):
+    if not mjm.tendon_limited[i]:
+      continue
+    for side in (-1, 1):
+      limit_jnt.append(-1)
+      limit_ten.append(i)
       limit_side.append(side)
   nl = len(limit_jnt)
 
@@ -269,8 +283,9 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
   si = lambda x: np.array(x, dtype=np.int32).reshape(-1)
   return {"nefc": adr, "ne": ne, "nf": nf, "nl": nl,
           "ncon_rows": len(con_id), "eq_id": si(eq_id), "eq_row": si(eq_row),
-          "friction_dof": si(friction_dof), "friction_ten": si([-1] * nf),
-          "limit_jnt": si(limit_jnt), "limit_ten": si([-1] * nl),
+          "friction_dof": si(friction_dof + [-1] * len(friction_ten)),
+          "friction_ten": si([-1] * len(friction_dof) + friction_ten),
+          "limit_jnt": si(limit_jnt), "limit_ten": si(limit_ten),
           "limit_side": si(limit_side), "con_id": si(con_id),
           "con_row": si(con_row), "con_efcadr": si(con_efcadr),
           "con_nrow": si(con_nrow)}
@@ -302,7 +317,9 @@ def _names(mjm: Any) -> dict:
 
 def _actuator_meta(mjm: Any):
   """Actuator enums remapped to the v3.11 values by NAME (the pip package
-  may number them differently), restricted to the plain joint motor."""
+  may number them differently), restricted to stateless FIXED/AFFINE
+  actuators on a joint (any type), tendon, site or slider-crank
+  transmission."""
   import mujoco
   dyn_map = {int(v): DynType[k[len("mjDYN_"):]].value
              for k, v in mujoco.mjtDyn.__members__.items()}
@@ -323,12 +340,9 @@ def _actuator_meta(mjm: Any):
     if bias[i] not in (BiasType.NONE, BiasType.AFFINE):
       raise NotImplementedError(
           f"actuator {i}: bias type {BiasType(bias[i]).name}")
-    trn = int(mjm.actuator_trntype[i])
-    if trn not in (TrnType.JOINT, TrnType.JOINTINPARENT) or int(
-        mjm.jnt_type[mjm.actuator_trnid[i, 0]]) not in (JointType.HINGE,
-                                                        JointType.SLIDE):
-      raise NotImplementedError(
-          f"actuator {i}: transmission other than a hinge/slide joint")
+    trn = TrnType(int(mjm.actuator_trntype[i]))
+    if trn in (TrnType.BODY, TrnType.SO3):
+      raise NotImplementedError(f"actuator {i}: transmission {trn.name}")
   return dyn, gain, bias
 
 
@@ -348,8 +362,7 @@ def _check_solver(mjm: Any, nefc: int) -> None:
 
 def _check_subset(mjm: Any) -> None:
   """Reject every feature the port does not implement yet."""
-  counts = [("tendons", mjm.ntendon), ("sensors", mjm.nsensor),
-            ("flex", getattr(mjm, "nflex", 0)), ("mocap bodies", mjm.nmocap),
+  counts = [("sensors", mjm.nsensor), ("flex", getattr(mjm, "nflex", 0)),
             ("history buffers", getattr(mjm, "nhistory", 0))]
   for name, n in counts:
     if int(n):
@@ -414,8 +427,11 @@ def model_numpy(mjm: Any) -> dict:
       "nq": mjm.nq, "nv": mjm.nv, "nu": mjm.nu, "na": mjm.na,
       "nbody": mjm.nbody, "njnt": mjm.njnt, "ngeom": mjm.ngeom,
       "nsite": mjm.nsite, "neq": mjm.neq, "ncam": mjm.ncam,
-      "nlight": mjm.nlight,
+      "nlight": mjm.nlight, "ntendon": mjm.ntendon, "nwrap": mjm.nwrap,
+      "nmocap": mjm.nmocap,
       "has_dof_damping": bool(np.any(np.asarray(mjm.dof_damping) > 0)),
+      "has_tendon_armature": bool(np.any(np.asarray(getattr(
+          mjm, "tendon_armature", np.zeros(mjm.ntendon))) > 0)),
       "opt.timestep": jx(mjm.opt.timestep), "opt.gravity": jx(mjm.opt.gravity),
       "opt.impratio": jx(mjm.opt.impratio),
       "opt.tolerance": jx(mjm.opt.tolerance),
@@ -437,6 +453,8 @@ def model_numpy(mjm: Any) -> dict:
   f.update({f"con.{k}": v for k, v in con.items()})
   f.update({f"efc.{k}": v for k, v in efc.items()})
   for name in ("body_parentid", "body_rootid", "body_weldid", "body_jntnum",
+               "body_mocapid", "tendon_adr", "tendon_num", "tendon_limited",
+               "wrap_type", "wrap_objid",
                "body_jntadr", "body_dofnum", "body_dofadr", "jnt_type",
                "jnt_qposadr", "jnt_dofadr", "jnt_bodyid", "jnt_limited",
                "jnt_actfrclimited", "dof_bodyid", "dof_jntid", "dof_parentid",
@@ -462,8 +480,16 @@ def model_numpy(mjm: Any) -> dict:
                "pair_solreffriction", "pair_solimp", "pair_margin",
                "pair_gap", "eq_solref", "eq_solimp", "eq_data", "cam_pos",
                "cam_quat", "cam_pos0", "cam_poscom0", "light_pos",
-               "light_dir", "light_pos0", "light_poscom0", "light_dir0"):
+               "light_dir", "light_pos0", "light_poscom0", "light_dir0",
+               "actuator_cranklength", "tendon_solref_lim",
+               "tendon_solimp_lim", "tendon_solref_fri", "tendon_solimp_fri",
+               "tendon_range", "tendon_margin", "tendon_stiffness",
+               "tendon_damping", "tendon_frictionloss", "tendon_lengthspring",
+               "tendon_length0", "tendon_invweight0", "wrap_prm"):
     f[name] = jx(getattr(mjm, name))
+  f["tendon_armature"] = jx(getattr(mjm, "tendon_armature",
+                                    np.zeros(mjm.ntendon)))
+  f["wrap_sideid"] = np.round(np.asarray(mjm.wrap_prm)).astype(np.int32)
   f["cam_mat0"] = jx(mjm.cam_mat0).reshape(-1, 3, 3)
   f["eq_active0"] = np.array(mjm.eq_active0, dtype=bool)
   f["actuator_dyntype"], f["actuator_gaintype"], f["actuator_biastype"] = (
@@ -540,6 +566,12 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
 
   eye3 = torch.eye(3, dtype=dtype, device=dev)
   nb, nv, ncon, nefc = m.nbody, m.nv, m.con.ncon, m.efc.nefc
+  # mocap bodies start at their model pose, in mocapid order (mj_resetData,
+  # mujoco_tpu/models/io.py:1687 _mocap_init)
+  mocap_body = np.zeros(m.nmocap, dtype=np.int64)
+  for b in np.nonzero(np.asarray(m.body_mocapid) >= 0)[0]:
+    mocap_body[m.body_mocapid[b]] = b
+  mb = torch.as_tensor(mocap_body, device=m.device)
   contact = Contact(
       dist=torch.full((1, ncon), 1e10, dtype=dtype, device=dev),
       pos=z(ncon, 3), frame=tile(eye3, ncon), includemargin=z(ncon),
@@ -552,6 +584,8 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       xfrc_applied=z(nb, 6), qacc_warmstart=z(nv),
       eq_active=torch.as_tensor(m.eq_active0, dtype=torch.bool,
                                 device=dev).reshape(1, m.neq),
+      mocap_pos=m.body_pos[mb].to(device=dev, dtype=dtype)[None].clone(),
+      mocap_quat=m.body_quat[mb].to(device=dev, dtype=dtype)[None].clone(),
       xpos=z(nb, 3), xquat=tile([1.0, 0, 0, 0], nb), xmat=tile(eye3, nb),
       xipos=z(nb, 3), ximat=tile(eye3, nb), xanchor=z(m.njnt, 3),
       xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
@@ -560,10 +594,12 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       cam_xmat=tile(eye3, m.ncam), light_xpos=z(m.nlight, 3),
       light_xdir=z(m.nlight, 3), subtree_com=z(nb, 3),
       cinert=z(nb, 6, 6), cdof=z(nv, 6), crb=z(nb, 6, 6), qM=z(nv, nv),
-      qLD=z(nv, nv), qLDiagInv=z(nv),
+      qLD=z(nv, nv), qLDiagInv=z(nv), ten_length=z(m.ntendon),
+      ten_J=z(m.ntendon, nv),
       actuator_length=z(m.nu), actuator_moment=z(m.nu, nv), contact=contact,
       cvel=z(nb, 6), cdof_dot=z(nv, 6), qfrc_bias=z(nv),
-      actuator_velocity=z(m.nu), qfrc_spring=z(nv), qfrc_damper=z(nv),
+      actuator_velocity=z(m.nu), ten_velocity=z(m.ntendon),
+      qfrc_spring=z(nv), qfrc_damper=z(nv),
       qfrc_gravcomp=z(nv), qfrc_passive=z(nv), act_dot=z(m.na),
       actuator_force=z(m.nu), qfrc_actuator=z(nv), qfrc_smooth=z(nv),
       qacc_smooth=z(nv), efc_J=z(nefc, nv), efc_pos=z(nefc),

@@ -11,10 +11,15 @@ the copies below: ``mixed`` and ``spherebox`` of tests/test_megastep.py
 scenes (equality, friction-loss, ball-limit, condim 4/6 and explicit-pair
 rows, cameras and lights) of tests/test_contact.py, tests/test_pgs.py and
 tests/test_collision2.py, plus ``weld_ball_chain``, written for this port's
-tests. Every scene is compiled with constraint islands disabled, as
-tests/test_megastep.py compiles its scenes. A test holds every committed
-file equal to a fresh compile, so rerun this after any change to the XMLs
-or to the fields the port's Model carries.
+tests; the tendon and transmission scenes of tests/test_tendon.py, plus
+``tendon_rows`` and ``mocap_weld``; and ``humanoid_tendon``, the flagship
+humanoid with two limited fixed tendons. Every scene is compiled with
+constraint islands disabled, as tests/test_megastep.py compiles its
+scenes. A test holds every committed file equal to a fresh compile, so
+rerun this after any change to the XMLs or to the fields the port's Model
+carries. ``multi_humanoid3`` is not compiled here: it is the reference's
+3-humanoid scene carried across, and tests/test_torch_model.py writes and
+checks it.
 """
 
 from __future__ import annotations
@@ -225,20 +230,276 @@ WELD_BALL_CHAIN_XML = """
 </mujoco>
 """
 
+# tests/test_tendon.py:15 (STRAIGHT): a straight site-site-site spatial
+# tendon with a spring and damper, driven by a tendon motor
+TENDON_STRAIGHT_XML = """
+<mujoco>
+  <option timestep="0.003"/>
+  <worldbody>
+    <site name="a0" pos="0 0 1.5"/>
+    <body pos="0 0 1.2">
+      <joint name="j1" type="hinge" axis="0 1 0" damping="0.1"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.4 0 0"/>
+      <site name="s1" pos="0.2 0 0.04"/>
+      <body pos="0.4 0 0">
+        <joint name="j2" type="hinge" axis="0 1 0" damping="0.05"/>
+        <geom type="capsule" size="0.025" fromto="0 0 0 0.3 0 0"/>
+        <site name="s2" pos="0.3 0 0.03"/>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="t" stiffness="30" damping="0.4" springlength="0.5">
+      <site site="a0"/><site site="s1"/><site site="s2"/>
+    </spatial>
+  </tendon>
+  <actuator><motor tendon="t" gear="2"/></actuator>
+</mujoco>
+"""
+
+# tests/test_tendon.py:41 (SPHERE_WRAP): a sphere wrap with a sidesite
+TENDON_SPHERE_WRAP_XML = """
+<mujoco>
+  <option timestep="0.003"/>
+  <worldbody>
+    <site name="a0" pos="-0.4 0 1.5"/>
+    <geom name="pulleyg" type="sphere" size="0.1" pos="0 0 1.4"
+          contype="0" conaffinity="0"/>
+    <site name="side" pos="0 0 1.55"/>
+    <body pos="0.3 0 1.2">
+      <joint name="j1" type="hinge" axis="0 1 0" damping="0.08"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+      <site name="s1" pos="0.28 0 0.03"/>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="t" stiffness="25" damping="0.3" springlength="0.4">
+      <site site="a0"/>
+      <geom geom="pulleyg" sidesite="side"/>
+      <site site="s1"/>
+    </spatial>
+  </tendon>
+</mujoco>
+"""
+
+# tests/test_tendon.py:65 (CYL_WRAP): the same path around a cylinder
+TENDON_CYL_WRAP_XML = TENDON_SPHERE_WRAP_XML.replace(
+    'type="sphere" size="0.1"', 'type="cylinder" size="0.1 0.3" euler="90 0 0"')
+
+# tests/test_tendon.py:69 (PULLEY): a pulley with divisor 2; the two boxes
+# slide on vertical lines 0.5 apart and never touch, and their geoms are
+# taken out of collision (contype/conaffinity 0) because the port's
+# narrowphase has no box-box pair yet
+TENDON_PULLEY_XML = """
+<mujoco>
+  <option timestep="0.003"/>
+  <worldbody>
+    <site name="a0" pos="0 0 1.6"/>
+    <body pos="-0.25 0 1.2">
+      <joint name="j1" type="slide" axis="0 0 1" damping="0.4"/>
+      <geom type="box" size="0.05 0.05 0.05" density="600" contype="0"
+            conaffinity="0"/>
+      <site name="sl" pos="0 0 0.05"/>
+    </body>
+    <body pos="0.25 0 1.2">
+      <joint name="j2" type="slide" axis="0 0 1" damping="0.4"/>
+      <geom type="box" size="0.05 0.05 0.05" density="600" contype="0"
+            conaffinity="0"/>
+      <site name="sr" pos="0 0 0.05"/>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="t" stiffness="60" springlength="0.5">
+      <site site="sl"/><site site="a0"/>
+      <pulley divisor="2"/>
+      <site site="a0"/><site site="sr"/>
+    </spatial>
+  </tendon>
+</mujoco>
+"""
+
+# tests/test_tendon.py:145 (SITE_TRN): site transmissions with and without
+# a refsite, on a hinge and a ball joint
+SITE_TRN_XML = """
+<mujoco>
+  <option timestep="0.003"/>
+  <worldbody>
+    <body pos="0 0 1.2">
+      <joint name="j1" type="hinge" axis="0 1 0" damping="0.1"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.4 0 0"/>
+      <site name="tip" pos="0.4 0 0"/>
+      <body pos="0.4 0 0">
+        <joint name="j2" type="ball" damping="0.05"/>
+        <geom type="capsule" size="0.02" fromto="0 0 0 0.2 0 -0.1"/>
+        <site name="tip2" pos="0.2 0 -0.1" euler="10 20 5"/>
+      </body>
+    </body>
+    <site name="ref" pos="0.3 0 1.0" euler="0 30 0"/>
+  </worldbody>
+  <actuator>
+    <general site="tip2" gear="0 0 1 0 0 0"/>
+    <general site="tip2" gear="0.2 0 0.5 0.1 0.3 0" refsite="ref"/>
+    <general site="tip" gear="0 0 0 0 1 0"/>
+  </actuator>
+</mujoco>
+"""
+
+# tests/test_tendon.py:198-216 (test_slidercrank_transmission)
+SLIDERCRANK_XML = """
+  <mujoco>
+    <worldbody>
+      <body pos="0 0 1">
+        <joint name="crank" type="hinge" axis="0 1 0" damping="0.1"/>
+        <geom type="capsule" size="0.02" fromto="0 0 0 0.15 0 0"
+              contype="0" conaffinity="0"/>
+        <site name="cranktip" pos="0.15 0 0"/>
+      </body>
+      <body pos="0.5 0 1">
+        <joint name="push" type="slide" axis="1 0 0" damping="0.2"/>
+        <geom type="box" size="0.04 0.04 0.04" contype="0" conaffinity="0"/>
+        <site name="slider" pos="0 0 0" euler="0 -90 0"/>
+      </body>
+    </worldbody>
+    <actuator>
+      <general cranksite="cranktip" slidersite="slider" cranklength="0.4"
+               gear="2"/>
+    </actuator>
+  </mujoco>"""
+
+# a test model of every tendon row and force: a limited fixed tendon with
+# friction loss, armature and a spring with a deadband; a limited spatial
+# tendon with friction loss, armature (whose bias needs the time
+# derivative of its Jacobian), a spring and a damper, driven by a motor; and
+# a TENDON equality coupling a slider's fixed tendon to the first; free
+# and ball joints carried by JOINT and JOINTINPARENT motors; MuJoCo's
+# default solver options
+TENDON_ROWS_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <site name="anchor" pos="0 0 1.5"/>
+    <body name="a" pos="0 0 1.2">
+      <joint name="j1" type="hinge" axis="0 1 0" damping="0.05"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"
+            contype="0" conaffinity="0"/>
+      <site name="s1" pos="0.3 0 0.03"/>
+      <body name="b" pos="0.3 0 0">
+        <joint name="j2" type="hinge" axis="0 1 0"/>
+        <geom type="capsule" size="0.025" fromto="0 0 0 0.25 0 0"
+              contype="0" conaffinity="0"/>
+        <site name="s2" pos="0.25 0 0.02"/>
+        <body name="c" pos="0.25 0 0">
+          <joint name="j4" type="ball" damping="0.02"/>
+          <geom type="capsule" size="0.02" fromto="0 0 0 0 0 -0.15"
+                contype="0" conaffinity="0"/>
+        </body>
+      </body>
+    </body>
+    <body name="slider" pos="0.7 0 1.0">
+      <joint name="j3" type="slide" axis="0 0 1" damping="0.1"/>
+      <geom type="box" size="0.05 0.05 0.05" contype="0" conaffinity="0"/>
+    </body>
+    <body name="drone" pos="-0.5 0 1.0">
+      <freejoint name="drone"/>
+      <geom type="sphere" size="0.06" contype="0" conaffinity="0"/>
+    </body>
+  </worldbody>
+  <tendon>
+    <fixed name="coupled" limited="true" range="-0.3 0.4" frictionloss="0.05"
+           armature="0.02" stiffness="4" springlength="-0.1 0.1">
+      <joint joint="j1" coef="1"/><joint joint="j2" coef="-0.5"/>
+    </fixed>
+    <spatial name="cable" limited="true" range="0.2 0.62" frictionloss="0.02"
+             armature="0.01" stiffness="20" damping="0.2" springlength="0.5">
+      <site site="anchor"/><site site="s1"/><site site="s2"/>
+    </spatial>
+    <fixed name="lift"><joint joint="j3" coef="1"/></fixed>
+  </tendon>
+  <equality>
+    <tendon tendon1="lift" tendon2="coupled" polycoef="0 0.5 0 0 0"/>
+  </equality>
+  <actuator>
+    <motor tendon="cable" gear="3" ctrlrange="-1 1"/>
+    <motor joint="j4" gear="0.2 0.1 0.3"/>
+    <general jointinparent="drone" gear="0 0 4 0 0.1 0"/>
+  </actuator>
+</mujoco>
+"""
+
+# a test model of mocap bodies: a free sphere welded to a mocap target,
+# and a ball that falls on a mocap paddle (sphere-box contacts)
+MOCAP_WELD_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="2 2 .1"/>
+    <body name="target" mocap="true" pos="0.3 0 0.9" euler="0 20 10">
+      <geom type="sphere" size="0.02" contype="0" conaffinity="0"/>
+    </body>
+    <body name="held" pos="0.3 0 0.75">
+      <freejoint/>
+      <geom type="sphere" size="0.05"/>
+    </body>
+    <body name="paddle" mocap="true" pos="-0.3 0 0.2" euler="8 0 0">
+      <geom type="box" size="0.12 0.12 0.02"/>
+    </body>
+    <body name="ball" pos="-0.28 0.01 0.3">
+      <freejoint/>
+      <geom type="sphere" size="0.05"/>
+    </body>
+  </worldbody>
+  <equality>
+    <weld body1="held" body2="target" solref="0.02 1"/>
+  </equality>
+</mujoco>
+"""
+
+# the flagship humanoid with two limited fixed tendons, length
+# knee − hip_y on each leg, as MuJoCo's model/humanoid/humanoid.xml
+# couples hip and knee with its left_hipknee/right_hipknee tendons. The
+# range is [-1, 0.005] rad: the length is 0 at qpos0, so a start at qpos0
+# plus 0.01·N(0, 1) noise puts about a third of the envs past the upper
+# bound, where the tendon's limit row acts.
+HUMANOID_TENDONS = """
+  <tendon>
+    <fixed name="hipknee_r" limited="true" range="-1 0.005">
+      <joint joint="hip_r_y" coef="-1"/><joint joint="knee_r" coef="1"/>
+    </fixed>
+    <fixed name="hipknee_l" limited="true" range="-1 0.005">
+      <joint joint="hip_l_y" coef="-1"/><joint joint="knee_l" coef="1"/>
+    </fixed>
+  </tendon>
+"""
+
+
+def humanoid_tendon_xml() -> str:
+  with open(os.path.join(zoo.XML_DIR, "humanoid.xml")) as f:
+    xml = f.read()
+  return xml.replace("  <actuator>", HUMANOID_TENDONS + "  <actuator>", 1)
+
+
 _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "eq_connect_joint": EQ_CONNECT_JOINT_XML,
            "limits_frictionloss": LIMITS_FRICTIONLOSS_XML,
            "ball_hinge_fric": BALL_HINGE_FRIC_XML,
            "pair_condim6": PAIR_CONDIM6_XML,
            "sphere_condim4": SPHERE_CONDIM4_XML,
-           "weld_ball_chain": WELD_BALL_CHAIN_XML}
+           "weld_ball_chain": WELD_BALL_CHAIN_XML,
+           "tendon_straight": TENDON_STRAIGHT_XML,
+           "tendon_sphere_wrap": TENDON_SPHERE_WRAP_XML,
+           "tendon_cyl_wrap": TENDON_CYL_WRAP_XML,
+           "tendon_pulley": TENDON_PULLEY_XML, "site_trn": SITE_TRN_XML,
+           "slidercrank": SLIDERCRANK_XML, "tendon_rows": TENDON_ROWS_XML,
+           "mocap_weld": MOCAP_WELD_XML}
 
 
 def compile_mj(name: str):
   """The compiled ``mujoco.MjModel`` of a snapshot model."""
   import mujoco
-  if name in _SCENES:
-    mjm = mujoco.MjModel.from_xml_string(_SCENES[name])
+  if name in _SCENES or name == "humanoid_tendon":
+    xml = humanoid_tendon_xml() if name == "humanoid_tendon" else \
+        _SCENES[name]
+    mjm = mujoco.MjModel.from_xml_string(xml)
     mjm.opt.disableflags |= int(DisableBit.ISLAND)
     return mjm
   return mujoco.MjModel.from_xml_path(os.path.join(zoo.XML_DIR,

@@ -5,9 +5,10 @@ Enum values match the reference public API (mujoco_tpu/models/types.py:36-247).
 ``EfcMeta`` (:450), ``Model`` (:487), ``Contact`` (:913) and ``Data`` (:945)
 carry only the fields the port's stages read or write: the rigid-body
 constraint class (equality, friction-loss, limit and contact rows, explicit
-pairs, cameras and lights); later slices add the rest with their modules. Field names are the reference's, so a
-field here and the same-named field of a ``mujoco_tpu`` Model or Data hold
-the same quantity.
+pairs, cameras and lights), tendons, site and slider-crank transmissions
+and mocap bodies; later slices add the rest with their modules. Field
+names are the reference's, so a field here and the same-named field of a
+``mujoco_tpu`` Model or Data hold the same quantity.
 
 Every Data tensor carries an explicit leading batch dimension (the JAX
 package batches with ``jax.vmap``); a single env is a batch of 1. Model
@@ -120,6 +121,14 @@ class BiasType(enum.IntEnum):
   USER = 5
 
 
+class WrapType(enum.IntEnum):
+  JOINT = 1
+  PULLEY = 2
+  SITE = 3
+  SPHERE = 4
+  CYLINDER = 5
+
+
 class DisableBit(enum.IntFlag):
   CONSTRAINT = 1 << 0
   EQUALITY = 1 << 1
@@ -208,9 +217,9 @@ class EfcMeta:
   eq_id: np.ndarray = static_field()          # equality of each row
   eq_row: np.ndarray = static_field()         # row within the equality
   friction_dof: np.ndarray = static_field()   # dof of each friction row
-  friction_ten: np.ndarray = static_field()   # tendon (−1: no tendons yet)
-  limit_jnt: np.ndarray = static_field()
-  limit_ten: np.ndarray = static_field()      # −1: no tendons yet
+  friction_ten: np.ndarray = static_field()   # tendon (−1: a dof's row)
+  limit_jnt: np.ndarray = static_field()      # joint (−1: a tendon's row)
+  limit_ten: np.ndarray = static_field()      # tendon (−1: a joint's row)
   limit_side: np.ndarray = static_field()     # −1 / +1, 0 for a ball
   con_id: np.ndarray = static_field()
   con_row: np.ndarray = static_field()
@@ -232,7 +241,11 @@ class Model:
   neq: int = static_field()
   ncam: int = static_field()
   nlight: int = static_field()
+  ntendon: int = static_field()
+  nwrap: int = static_field()
+  nmocap: int = static_field()
   has_dof_damping: bool = static_field()
+  has_tendon_armature: bool = static_field()
 
   opt: Option = field()
   stat_meaninertia: torch.Tensor = field()
@@ -250,6 +263,7 @@ class Model:
   body_jntadr: np.ndarray = static_field()
   body_dofnum: np.ndarray = static_field()
   body_dofadr: np.ndarray = static_field()
+  body_mocapid: np.ndarray = static_field()
   body_pos: torch.Tensor = field()
   body_quat: torch.Tensor = field()
   body_ipos: torch.Tensor = field()
@@ -353,6 +367,28 @@ class Model:
   actuator_ctrlrange: torch.Tensor = field()
   actuator_forcerange: torch.Tensor = field()
   actuator_gear: torch.Tensor = field()
+  actuator_cranklength: torch.Tensor = field()
+  # tendons: path addresses and wrap objects (static), parameters (tensors)
+  tendon_adr: np.ndarray = static_field()
+  tendon_num: np.ndarray = static_field()
+  tendon_limited: np.ndarray = static_field()
+  tendon_solref_lim: torch.Tensor = field()
+  tendon_solimp_lim: torch.Tensor = field()
+  tendon_solref_fri: torch.Tensor = field()
+  tendon_solimp_fri: torch.Tensor = field()
+  tendon_range: torch.Tensor = field()
+  tendon_margin: torch.Tensor = field()
+  tendon_armature: torch.Tensor = field()
+  tendon_stiffness: torch.Tensor = field()
+  tendon_damping: torch.Tensor = field()
+  tendon_frictionloss: torch.Tensor = field()
+  tendon_lengthspring: torch.Tensor = field()   # (ntendon, 2)
+  tendon_length0: torch.Tensor = field()
+  tendon_invweight0: torch.Tensor = field()
+  wrap_type: np.ndarray = static_field()
+  wrap_objid: np.ndarray = static_field()
+  wrap_sideid: np.ndarray = static_field()   # static int copy of wrap_prm
+  wrap_prm: torch.Tensor = field()
 
   names: dict = static_field()
 
@@ -395,6 +431,8 @@ class Data:
   xfrc_applied: torch.Tensor    # (B, nbody, 6)
   qacc_warmstart: torch.Tensor  # (B, nv)
   eq_active: torch.Tensor       # (B, neq) bool
+  mocap_pos: torch.Tensor       # (B, nmocap, 3)
+  mocap_quat: torch.Tensor      # (B, nmocap, 4)
 
   # position stage
   xpos: torch.Tensor            # (B, nbody, 3)
@@ -419,6 +457,8 @@ class Data:
   qM: torch.Tensor              # (B, nv, nv)
   qLD: torch.Tensor             # (B, nv, nv) tree factor L (CG only)
   qLDiagInv: torch.Tensor       # (B, nv) its inverse diagonal
+  ten_length: torch.Tensor      # (B, ntendon)
+  ten_J: torch.Tensor           # (B, ntendon, nv)
   actuator_length: torch.Tensor  # (B, nu)
   actuator_moment: torch.Tensor  # (B, nu, nv)
   contact: Contact = field()
@@ -428,6 +468,7 @@ class Data:
   cdof_dot: torch.Tensor = field()       # (B, nv, 6)
   qfrc_bias: torch.Tensor = field()
   actuator_velocity: torch.Tensor = field()
+  ten_velocity: torch.Tensor = field()   # (B, ntendon)
   qfrc_spring: torch.Tensor = field()
   qfrc_damper: torch.Tensor = field()
   qfrc_gravcomp: torch.Tensor = field()

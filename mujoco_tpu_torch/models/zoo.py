@@ -12,6 +12,11 @@ contact pair and the implicit-damping Euler branch of the megastep class;
 (equality, friction-loss, ball-limit, condim 4/6 and explicit-pair rows,
 cameras and lights) at MuJoCo's default solver options, which the stage
 path's general solver core runs (``models/snapshot.py`` holds their XML).
+``TENDON`` are the scenes of tendons, site and slider-crank transmissions
+and mocap bodies; ``humanoid_tendon`` is the flagship humanoid with two
+limited fixed tendons (a stage-path model at the main path's options);
+``multi_humanoid3`` is the reference zoo's 3-humanoid scene (nv 81),
+carried across from ``mujoco_tpu`` by tests/test_torch_model.py.
 """
 
 from __future__ import annotations
@@ -31,7 +36,14 @@ XML_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "mujoco_tpu", "models", "assets")
 GENERAL = ("eq_connect_joint", "limits_frictionloss", "ball_hinge_fric",
            "pair_condim6", "sphere_condim4", "weld_ball_chain")
-SNAPSHOTS = ("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
+TENDON = ("tendon_straight", "tendon_sphere_wrap", "tendon_cyl_wrap",
+          "tendon_pulley", "site_trn", "slidercrank", "tendon_rows",
+          "mocap_weld")
+# compiled from MJCF by models/snapshot.py
+SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
+             + TENDON + ("humanoid_tendon",))
+# carried across from the reference's Model (tests/test_torch_model.py)
+CARRIED = ("multi_humanoid3",)
 
 
 def snapshot_path(name: str) -> str:
@@ -50,7 +62,8 @@ MUJOCO_DEFAULT_SOLVER = {"iterations": 100, "ls_iterations": 50,
 
 def load(name: str, dtype: Optional[torch.dtype] = None, device=None,
          opt: Optional[dict] = None) -> Model:
-  """The port's Model of a committed snapshot (one of ``SNAPSHOTS``); opt
+  """The port's Model of a committed snapshot (one of ``SNAPSHOTS`` or
+  ``CARRIED``); opt
   overrides options in the flat fields before the Model is built (e.g.
   ``MUJOCO_DEFAULT_SOLVER``)."""
   fields = load_snapshot(name)

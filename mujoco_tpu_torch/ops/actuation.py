@@ -1,10 +1,13 @@
-"""Actuator forces for the plain joint motor (port of the stateless branch of
+"""Actuator forces of stateless actuators (port of the stateless branch of
 mujoco_tpu/ops/actuation.py:80-429, ``fwd_actuation`` :235).
 
 Covers what ``io.put_model`` admits: no activation state (dyntype NONE),
 FIXED or AFFINE gain, NONE or AFFINE bias, ctrl clamping, the bad-ctrl
 guard, actuator-group disabling, force limits and joint actuator-force
-limits.
+limits (each limited joint's first dof, as the reference clamps it). The
+force reaches qfrc through ``actuator_moment``, whatever the transmission
+(``smooth.transmission``: joints, tendons, sites, slider-cranks), as
+``actuator_length`` and ``actuator_velocity`` come from it.
 """
 
 from __future__ import annotations

@@ -2,11 +2,12 @@
 
 Port of mujoco_tpu/ops/constraint.py: ``_impedance`` (:34), ``_kb`` (:64),
 ``_point_jac_diff`` (:84), ``_jacdot_v`` (:104), ``_equality_rows`` (:135,
-CONNECT, WELD and JOINT), ``_friction_rows`` (:333, dof friction loss),
-``_limit_rows`` (:371, hinge/slide sides and ball cones), pyramidal
-``_contact_rows`` (:452, condim 1, 3, 4 and 6), ``make_constraint`` (:626)
-and ``reference_acceleration`` (:731) with ``_jdotv_correction`` (:748).
-Row layout is static (Model.efc): equality, friction loss, limits, then
+CONNECT, WELD, JOINT and TENDON), ``_friction_rows`` (:333, dof and tendon
+friction loss), ``_limit_rows`` (:371, hinge/slide sides, ball cones and
+tendon sides), pyramidal ``_contact_rows`` (:452, condim 1, 3, 4 and 6),
+``make_constraint`` (:626) and ``reference_acceleration`` (:731) with
+``_jdotv_correction`` (:748). Row layout is static (Model.efc): equality,
+friction loss (dofs, then tendons), limits (joints, then tendons), then
 contacts. A row the reference would not instantiate this step (inactive
 equality, limit outside its margin, separated contact slot) stays in place
 with D, aref and frictionloss zeroed, so shapes never change and nothing
@@ -20,6 +21,7 @@ import torch
 
 from mujoco_tpu_torch.models.types import (Data, DisableBit, EqType,
                                            JointType, Model)
+from mujoco_tpu_torch.ops import support
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -88,16 +90,6 @@ def _point_jac_diff(m: Model, d: Data, points, body1, body2, with_rot):
   return jacp, jacr
 
 
-def _jac(m: Model, d: Data, point, bodyid: int):
-  """Point Jacobian (jacp, jacr), each (B, 3, nv), of a world point on a
-  body (mujoco_tpu/ops/support.py:21)."""
-  mask = const(m.tree.ancestor_mask[bodyid], m.device, m.dtype)[:, None]
-  offset = point - d.subtree_com[:, int(m.body_rootid[bodyid])]
-  ang, lin = d.cdof[..., :3], d.cdof[..., 3:]
-  jacp = (lin + mjm.cross(ang, offset[:, None, :].expand_as(ang))) * mask
-  return jacp.transpose(1, 2), (ang * mask).transpose(1, 2)
-
-
 def _jacdot_v(m: Model, d: Data, point, bodyid: int):
   """(d/dt J)·qvel of a point on a body (mj_jacDot contracted with qvel).
   point (B, 3); returns (jdv_p, jdv_r), each (B, 3)."""
@@ -160,8 +152,8 @@ def _rows(J, pos, active, diaga, solref, solimp, imp_pos, margin=None):
 
 
 def _equality_rows(m: Model, d: Data):
-  """CONNECT (3 rows), WELD (3 translational, 3 rotational) and JOINT (1
-  row, its polycoef coupling) equality rows."""
+  """CONNECT (3 rows), WELD (3 translational, 3 rotational), JOINT and
+  TENDON (1 row each, its polycoef coupling) equality rows."""
   nbatch, nv, dev = d.qpos.shape[0], m.nv, m.device
   enabled = not m.disabled(DisableBit.EQUALITY)
   Js, poss, actives, diagas, solrefs, solimps, imp_poss = ([] for _ in
@@ -183,8 +175,8 @@ def _equality_rows(m: Model, d: Data):
     if et in (EqType.CONNECT, EqType.WELD):
       b1, b2, pos1, pos2 = _eq_points(m, d, i)
       cpos3 = pos1 - pos2
-      jacp1, jacr1 = _jac(m, d, pos1, b1)
-      jacp2, jacr2 = _jac(m, d, pos2, b2)
+      jacp1, jacr1 = support.jac(m, d, pos1, b1)
+      jacp2, jacr2 = support.jac(m, d, pos2, b2)
       jp = jacp1 - jacp2                                   # (B, 3, nv)
       invw_t = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
       if et == EqType.CONNECT:
@@ -213,7 +205,7 @@ def _equality_rows(m: Model, d: Data):
         add(jp[:, r], cpos3[:, r], active, invw_t, i, imp_pos)
       for r in range(3):
         add(jrot[..., r], crot[:, r], active, invw_r, i, imp_pos)
-    elif et == EqType.JOINT:
+    elif et in (EqType.JOINT, EqType.TENDON):
       obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
 
       def joint(j):
@@ -223,9 +215,14 @@ def _equality_rows(m: Model, d: Data):
         return (d.qpos[:, qadr], m.qpos0[qadr], const(onehot, dev, m.dtype),
                 m.dof_invweight0[dadr])
 
-      pos1v, ref1, j1, invw1 = joint(obj1)
+      def tendon(t):
+        return (d.ten_length[:, t], m.tendon_length0[t], d.ten_J[:, t],
+                m.tendon_invweight0[t])
+
+      obj = joint if et == EqType.JOINT else tendon
+      pos1v, ref1, j1, invw1 = obj(obj1)
       if obj2 >= 0:
-        pos2v, ref2, j2, invw2 = joint(obj2)
+        pos2v, ref2, j2, invw2 = obj(obj2)
         dif = pos2v - ref2
         cpos = (pos1v - ref1 - data[0]
                 - (data[1] * dif + data[2] * dif**2 + data[3] * dif**3
@@ -248,58 +245,87 @@ def _equality_rows(m: Model, d: Data):
 
 
 def _friction_rows(m: Model, d: Data):
-  """Dof friction-loss rows: J the dof's unit row, frictionloss, the dof's
-  solref and solimp; active unless FRICTIONLOSS is disabled."""
-  nbatch, dev = d.qpos.shape[0], m.device
-  dofs = m.efc.friction_dof
+  """Friction-loss rows, the dofs' then the tendons': J the dof's unit row
+  or the tendon's ten_J, its frictionloss, solref and solimp; active unless
+  FRICTIONLOSS is disabled."""
+  nbatch, dev, meta = d.qpos.shape[0], m.device, m.efc
+  ex = lambda t: t.expand((nbatch,) + t.shape)
+  dofs = meta.friction_dof[meta.friction_dof >= 0]
+  tens = meta.friction_ten[meta.friction_ten >= 0]
   jmat = np.zeros((len(dofs), m.nv))
   jmat[np.arange(len(dofs)), dofs] = 1.0
-  ex = lambda t: t.expand((nbatch,) + t.shape)
-  dix = index(dofs, dev)
-  zero = torch.zeros((nbatch, len(dofs)), dtype=m.dtype, device=dev)
-  active = torch.full((nbatch, len(dofs)),
+  dix, tix = index(dofs, dev), index(tens, dev)
+  cat = lambda a, b: torch.cat([a, b], dim=0)
+  J = ex(const(jmat, dev, m.dtype))
+  if len(tens):
+    J = torch.cat([J, d.ten_J[:, tix]], dim=1)
+  zero = torch.zeros((nbatch, meta.nf), dtype=m.dtype, device=dev)
+  active = torch.full((nbatch, meta.nf),
                       not m.disabled(DisableBit.FRICTIONLOSS),
                       dtype=torch.bool, device=dev)
-  return dict(_rows(ex(const(jmat, dev, m.dtype)), zero, active,
-                    ex(m.dof_invweight0[dix]), ex(m.dof_solref[dix]),
-                    ex(m.dof_solimp[dix]), zero),
-              frictionloss=ex(m.dof_frictionloss[dix]))
+  return dict(
+      _rows(J, zero, active,
+            ex(cat(m.dof_invweight0[dix], m.tendon_invweight0[tix])),
+            ex(cat(m.dof_solref[dix], m.tendon_solref_fri[tix])),
+            ex(cat(m.dof_solimp[dix], m.tendon_solimp_fri[tix])), zero),
+      frictionloss=ex(cat(m.dof_frictionloss[dix],
+                          m.tendon_frictionloss[tix])))
 
 
 def _limit_rows(m: Model, d: Data):
   """Hinge/slide limit rows (one per side, J the constant −side at the
-  joint's dof) and ball limit rows (one per joint: the rotation angle
-  against the larger range bound, J −axis on the joint's three dofs)."""
+  joint's dof), ball limit rows (one per joint: the rotation angle
+  against the larger range bound, J −axis on the joint's three dofs), then
+  tendon limit rows (one per side, J −side·ten_J)."""
   nbatch, meta, dev = d.qpos.shape[0], m.efc, m.device
-  nrows, nv = meta.nl, m.nv
+  nv = m.nv
   ix = lambda a: index(a, dev)
-  jids, sides = meta.limit_jnt, meta.limit_side.astype(np.float64)
-  # a ball row (side 0) gets pos 0 and J 0 here, then its own below
-  value = d.qpos[:, ix(m.jnt_qposadr[jids])]
-  rng = m.jnt_range[ix(jids)]
-  lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
-  pos = const(sides, dev, m.dtype) * (lim - value)
-  jmat = np.zeros((nrows, nv))
-  jmat[np.arange(nrows), m.jnt_dofadr[jids]] = -sides
-  J = const(jmat, dev, m.dtype).expand(nbatch, nrows, nv)
-  balls = np.nonzero(meta.limit_side == 0)[0]
-  if len(balls):
-    J = J.clone()
-  for r in balls:
-    jid = int(jids[r])
-    qadr, dadr = int(m.jnt_qposadr[jid]), int(m.jnt_dofadr[jid])
-    aa = mjm.quat_to_vel(mjm.normalize(d.qpos[:, qadr:qadr + 4]))
-    angle = mjm.norm_safe(aa)
-    J[:, r, dadr:dadr + 3] = -(aa / angle[:, None])
-    pos[:, r] = torch.maximum(m.jnt_range[jid, 0], m.jnt_range[jid, 1]) - angle
-
-  dofs = m.jnt_dofadr[jids]
   ex = lambda t: t.expand((nbatch,) + t.shape)
-  margin = ex(m.jnt_margin[ix(jids)])
+  parts = []
+  jrows = np.nonzero(meta.limit_jnt >= 0)[0]
+  if len(jrows):
+    jids = meta.limit_jnt[jrows]
+    sides = meta.limit_side[jrows].astype(np.float64)
+    # a ball row (side 0) gets pos 0 and J 0 here, then its own below
+    value = d.qpos[:, ix(m.jnt_qposadr[jids])]
+    rng = m.jnt_range[ix(jids)]
+    lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
+    pos = const(sides, dev, m.dtype) * (lim - value)
+    jmat = np.zeros((len(jrows), nv))
+    jmat[np.arange(len(jrows)), m.jnt_dofadr[jids]] = -sides
+    J = const(jmat, dev, m.dtype).expand(nbatch, len(jrows), nv)
+    balls = np.nonzero(sides == 0)[0]
+    if len(balls):
+      J = J.clone()
+    for r in balls:
+      jid = int(jids[r])
+      qadr, dadr = int(m.jnt_qposadr[jid]), int(m.jnt_dofadr[jid])
+      aa = mjm.quat_to_vel(mjm.normalize(d.qpos[:, qadr:qadr + 4]))
+      angle = mjm.norm_safe(aa)
+      J[:, r, dadr:dadr + 3] = -(aa / angle[:, None])
+      pos[:, r] = (torch.maximum(m.jnt_range[jid, 0], m.jnt_range[jid, 1])
+                   - angle)
+    dofs = ix(m.jnt_dofadr[jids])
+    jx = ix(jids)
+    parts.append((J, pos, ex(m.jnt_margin[jx]), ex(m.dof_invweight0[dofs]),
+                  ex(m.jnt_solref[jx]), ex(m.jnt_solimp[jx])))
+  trows = np.nonzero(meta.limit_jnt < 0)[0]
+  if len(trows):
+    tens = meta.limit_ten[trows]
+    sides = meta.limit_side[trows].astype(np.float64)
+    tx = ix(tens)
+    rng = m.tendon_range[tx]
+    lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
+    side = const(sides, dev, m.dtype)
+    pos = side * (lim - d.ten_length[:, tx])
+    J = -side[:, None] * d.ten_J[:, tx]
+    parts.append((J, pos, ex(m.tendon_margin[tx]),
+                  ex(m.tendon_invweight0[tx]), ex(m.tendon_solref_lim[tx]),
+                  ex(m.tendon_solimp_lim[tx])))
+  J, pos, margin, diaga, solref, solimp = (
+      torch.cat(x, dim=1) if len(parts) > 1 else x[0] for x in zip(*parts))
   active = (pos < margin) & (not m.disabled(DisableBit.LIMIT))
-  return _rows(J, pos, active, ex(m.dof_invweight0[ix(dofs)]),
-               ex(m.jnt_solref[ix(jids)]), ex(m.jnt_solimp[ix(jids)]), pos,
-               margin=margin)
+  return _rows(J, pos, active, diaga, solref, solimp, pos, margin=margin)
 
 
 def _contact_rows(m: Model, d: Data):
@@ -414,11 +440,12 @@ def make_constraint(m: Model, d: Data) -> Data:
 
 
 def _jdotv_correction(m: Model, d: Data, aref):
-  """Subtract Jdot·qvel from the connect and weld rows (mj_Jdotv)."""
+  """Subtract Jdot·qvel from the connect and weld rows (mj_Jdotv); joint
+  and tendon rows have none."""
   row = 0
   for i in range(m.neq):
     et = int(m.eq_type[i])
-    if et == EqType.JOINT:
+    if et in (EqType.JOINT, EqType.TENDON):
       row += 1
       continue
     b1, b2, pos1, pos2 = _eq_points(m, d, i)

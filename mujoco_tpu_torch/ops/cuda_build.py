@@ -100,9 +100,9 @@ def library() -> ctypes.CDLL:
   if _LIB is None:
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mjt_ldl_solve_f32.argtypes = [p, p, p, i, i, p]
-    lib.mjt_ldl_solve_f64.argtypes = [p, p, p, i, i, p]
-    newton_args = [p] * 15 + [i] * 5 + [p]
+    lib.mjt_ldl_solve_f32.argtypes = [p, p, p, p, i, i, p]
+    lib.mjt_ldl_solve_f64.argtypes = [p, p, p, p, i, i, p]
+    newton_args = [p] * 16 + [i] * 5 + [p]
     lib.mjt_newton_f32.argtypes = newton_args
     lib.mjt_newton_f64.argtypes = newton_args
     for fn in (lib.mjt_ldl_solve_f32, lib.mjt_ldl_solve_f64,
@@ -112,6 +112,10 @@ def library() -> ctypes.CDLL:
     lib.mjt_newton_blocks_per_sm.restype = i
     lib.mjt_ldl_occupancy.argtypes = [i, i, p]
     lib.mjt_ldl_occupancy.restype = i
+    lib.mjt_ldl_work_values.argtypes = [i, i]
+    lib.mjt_newton_work_values.argtypes = [i, i, i]
+    for fn in (lib.mjt_ldl_work_values, lib.mjt_newton_work_values):
+      fn.restype = ctypes.c_longlong
     bind_megastep(lib)
     lib.mjt_error_string.argtypes = [i]
     lib.mjt_error_string.restype = ctypes.c_char_p

@@ -1,14 +1,14 @@
 """Forward dynamics and Euler integration on the stage path.
 
 Port of mujoco_tpu/ops/forward.py: ``fwd_position`` (:28, with camlight,
-and the tree factor of qM under CG), ``fwd_velocity`` (:71),
+tendons, and the tree factor of qM under CG), ``fwd_velocity`` (:71, with
+ten_velocity and the tendon-armature bias ``_tendon_bias`` :91),
 ``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose M⁻¹·qfrc goes
 through the CUDA LDL kernel, or under CG through the tree factor),
-``fwd_constraint`` (:134),
-``forward`` (:152), ``integrate_pos`` (:210), ``euler`` (:416, with
-implicit joint damping) and ``step`` (:515). Sensors, energy, sleep,
-tendons, flex, RK4 and the implicit integrators are outside the slice;
-``io.put_model`` rejects models that need them.
+``fwd_constraint`` (:134), ``forward`` (:152), ``integrate_pos`` (:210),
+``euler`` (:416, with implicit joint damping) and ``step`` (:515).
+Sensors, energy, sleep, flex, RK4 and the implicit integrators are outside
+the slice; ``io.put_model`` rejects models that need them.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ def fwd_position(m: Model, d: Data) -> Data:
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
   d = smooth.camlight(m, d)
+  d = smooth.tendon(m, d)
   d = smooth.crb(m, d)
   # only CG reads the tree factor (its preconditioner and qacc_smooth); the
   # Newton path solves with the LDL kernel instead
@@ -43,14 +44,55 @@ def fwd_position(m: Model, d: Data) -> Data:
 
 def fwd_velocity(m: Model, d: Data) -> Data:
   """Velocity-dependent stage (mj_fwdVelocity)."""
-  d = d.replace(actuator_velocity=(d.actuator_moment
-                                   @ d.qvel[..., None])[..., 0])
+  d = d.replace(actuator_velocity=mjm.mat_vec(d.actuator_moment, d.qvel))
+  if m.ntendon:
+    d = d.replace(ten_velocity=mjm.mat_vec(d.ten_J, d.qvel))
   d = smooth.com_vel(m, d)
   d = passive.passive(m, d)
-  d = d.replace(qfrc_bias=smooth.rne(m, d))
+  qfrc_bias = smooth.rne(m, d)
+  if m.has_tendon_armature:
+    qfrc_bias = qfrc_bias + _tendon_bias(m, d)
+  d = d.replace(qfrc_bias=qfrc_bias)
   if m.efc.nefc:
     d = constraint.reference_acceleration(m, d)
   return d
+
+
+def _tendon_bias(m: Model, d: Data):
+  """Tendon-armature bias (mj_tendonBias): qfrc += ten_Jᵀ · armature ·
+  (d/dt ten_J)·qvel. The time derivative of ten_J contracted with qvel is
+  the derivative of ε ↦ ten_J(q(ε))·qvel at ε = 0 along the position flow
+  q(ε) = integrate_pos(qpos, qvel, ε), through the port's own kinematics,
+  com_pos and tendon, as the reference takes it with ``jax.jvp``
+  (mujoco_tpu/ops/forward.py:91-108). Here the forward-mode derivative is
+  a double backward: with g(u) = uᵀ·∂y/∂ε, ∂g/∂u = ∂y/∂ε. (Forward-mode AD
+  in torch takes ~7× as long on these small tensors.)"""
+
+  def jqv_of(eps):
+    qpos = integrate_pos(m, d.qpos, d.qvel, eps)
+    dd = smooth.kinematics(m, d.replace(qpos=qpos))
+    dd = smooth.com_pos(m, dd)
+    dd = smooth.tendon(m, dd)
+    return mjm.mat_vec(dd.ten_J, d.qvel)                 # (B, ntendon)
+
+  # the derivative needs a graph of its own only where the caller
+  # differentiates through it: a state or Model tensor requires a gradient
+  outer = torch.is_grad_enabled() and any(
+      isinstance(t, torch.Tensor) and t.requires_grad
+      for t in (d.qpos, d.qvel, d.mocap_pos, d.mocap_quat,
+                *vars(m).values(), *vars(m.opt).values()))
+  with torch.enable_grad():
+    eps = d.qpos.new_zeros((), requires_grad=True)
+    y = jqv_of(eps)
+    u = torch.zeros_like(y, requires_grad=True)
+    # a fixed tendon's ten_J does not move with q (allow_unused)
+    g, = torch.autograd.grad(y, eps, u, create_graph=True, allow_unused=True)
+    jdot_qvel = torch.zeros_like(y) if g is None else torch.autograd.grad(
+        g, u, create_graph=outer)[0]
+  if not outer:
+    jdot_qvel = jdot_qvel.detach()
+  coef = m.tendon_armature * jdot_qvel
+  return mjm.mat_vec(d.ten_J.transpose(1, 2), coef)
 
 
 def fwd_actuation(m: Model, d: Data) -> Data:

@@ -6,7 +6,8 @@ dispatched by ``_spd_solve_vmap`` :141; public entry ``spd_solve`` :126).
 The CUDA source is ``csrc/ldl_solve.cu`` (one warp per env, LDLᵀ without
 square roots with the forward solve inside the factor, then the diagonal
 and back solves; rows of H in registers for n ≤ 32, in shared memory
-above).
+above, and in a device-memory work space this wrapper allocates where one
+env's H does not fit the shared memory a block may use). Any n is solved.
 
 ``spd_solve(H, g)`` takes H (B, n, n) and g (B, n), batch first, the same
 as the reference's ``spd_solve`` under ``jax.vmap``. A CUDA tensor launches
@@ -25,8 +26,8 @@ import torch
 
 from mujoco_tpu_torch.ops import cuda_build
 
-MAX_N = 64
 LAUNCHES = 0   # kernel launches by ``spd_solve`` (never by the plain path)
+_WORK: dict = {}   # (n, f64, device) → device-memory work values per env
 
 
 def spd_solve_plain(H, g):
@@ -46,9 +47,6 @@ def _check(H, g):
   if H.dim() != 3 or H.shape[1] != H.shape[2] or g.shape != H.shape[:2]:
     raise ValueError(f"spd_solve shapes: H {tuple(H.shape)}, g "
                      f"{tuple(g.shape)}; want (B, n, n) and (B, n)")
-  if H.shape[1] > MAX_N:
-    raise ValueError(f"spd_solve kernel supports n <= {MAX_N}, got "
-                     f"{H.shape[1]}")
   if g.device != H.device:
     raise ValueError("H and g on different devices")
   if not (H.is_contiguous() and g.is_contiguous()):
@@ -77,14 +75,30 @@ def _launch(H, g):
   if B == 0 or n == 0:
     return p
   lib = cuda_build.library()
-  fn = lib.mjt_ldl_solve_f32 if H.dtype == torch.float32 else \
-      lib.mjt_ldl_solve_f64
+  f64 = H.dtype == torch.float64
+  fn = lib.mjt_ldl_solve_f64 if f64 else lib.mjt_ldl_solve_f32
   with torch.cuda.device(H.device):
+    work = None
+    nwork = work_values(n, H.dtype, H.device)
+    if nwork:
+      work = torch.empty((B * nwork,), dtype=H.dtype, device=H.device)
     stream = torch.cuda.current_stream().cuda_stream
-    code = fn(H.data_ptr(), g.data_ptr(), p.data_ptr(), B, n, stream)
+    code = fn(H.data_ptr(), g.data_ptr(), p.data_ptr(),
+              None if work is None else work.data_ptr(), B, n, stream)
   cuda_build.check(code, "ldl_solve")
   LAUNCHES += 1
   return p
+
+
+def work_values(n: int, dtype, device) -> int:
+  """Device-memory work values per env the kernel needs at order n on this
+  card: 0 where H fits shared memory, n² where it does not."""
+  key = (n, dtype, str(device))
+  if key not in _WORK:
+    with torch.cuda.device(device):
+      _WORK[key] = int(cuda_build.library().mjt_ldl_work_values(
+          n, int(dtype == torch.float64)))
+  return _WORK[key]
 
 
 def occupancy(n: int, dtype) -> tuple:

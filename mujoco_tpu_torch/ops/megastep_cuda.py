@@ -44,7 +44,7 @@ from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.math import MINVAL
 
 MAXVAL = 1e10
-MAX_NV = 64              # the LDL's warp holds rows l and l + 32
+MAX_NV = 64              # the kernel's limit (csrc/megastep.cu launch_megastep)
 MAX_SMEM = 232448        # dynamic shared memory a block may use on an H100
 THREADS = 128
 # kernel launches by ``megastep_kernel`` (never by the plain path)
@@ -120,9 +120,10 @@ def enabled() -> bool:
 
 def supported(m: Model) -> bool:
   """Whether the kernel runs m: the reference's model class
-  (mujoco_tpu/ops/megastep_tpu.py:92-178). Fields the port's Model lacks
-  (sensors, tendons, equality, mocap, history, flex, fluid) belong to
-  models ``io.put_model`` refuses. Unlike the reference, a missing field
+  (mujoco_tpu/ops/megastep_tpu.py:92-178), within the kernel's own size
+  class (nv ≤ MAX_NV, its work space within MAX_SMEM). Fields the port's
+  Model lacks (sensors, history, flex, fluid) belong to models
+  ``io.put_model`` refuses. Unlike the reference, a missing field
   raises instead of answering False. The answer is computed once per Model
   and kept in the tables' cache entry, so a later call reads nothing back
   from the card."""
@@ -192,6 +193,16 @@ def _supported(m: Model) -> bool:
   # the lane step has no joint actuator-force clamp; the reference's gate
   # does not test for one (ROADMAP §C)
   if np.any(np.asarray(m.jnt_actfrclimited)):
+    return False
+  # tendons and mocap bodies (megastep_tpu.py:111-112), and limit rows of
+  # anything but a hinge or slide joint (:137-140); sensors, history and
+  # flex are refused by io.put_model before a Model exists
+  if m.ntendon or m.nmocap:
+    return False
+  if np.any(np.asarray(m.efc.limit_jnt) < 0):
+    return False
+  # the kernel's own size class: a model outside it keeps the stage path
+  if m.nv > MAX_NV or smem_bytes(m, torch.float32) > MAX_SMEM:
     return False
   return True
 
@@ -911,13 +922,31 @@ def _check(m: Model, state: dict, fresh: dict):
             "gradients through the CUDA megastep kernel are not ported")
   _refuse_model_grad(m)
   if m.nv > MAX_NV:
-    raise ValueError(f"megastep kernel supports nv <= {MAX_NV} (the LDL "
-                     f"warp's rows), got nv {m.nv}")
+    raise ValueError(f"megastep kernel supports nv <= {MAX_NV}, got nv "
+                     f"{m.nv}")
 
 
 def smem_bytes(m: Model, dtype) -> int:
-  """Dynamic shared memory of one block of the kernel for m, as the CUDA
-  source computes it."""
+  """Dynamic shared memory of one block of the kernel for m: the size of
+  csrc/megastep.cu's ``layout`` (the work space of the whole step, then the
+  smooth stages' and the constraint rows' spaces, which share one region),
+  computed on the host so that the gate needs no card."""
+  c = tables(m).counts
+  item = 8 if dtype == torch.float64 else 4
+  nq, nv, nb, nj = c["nq"], c["nv"], c["nbody"], c["njnt"]
+  nu, ncon, nefc = max(c["nu"], 1), c["ncon"], c["nefc"]
+  ints = lambda n, size=4: (n * size + item - 1) // item
+  whole = (nq + nu + 4 * nv + 6 * nb + 2 + 10 * nb + 6 * nv + nv * nv
+           + nv * (nv | 1) + 7 * nv + 64 + newton_cuda.STAT_ROWS + 1
+           + ints(c["nlist"], 2))
+  smooth = whole + 8 * nj + 111 * nb + 15 * nv + nu
+  rows = (whole + 13 * ncon + 3 * nv * ncon + 7 * nefc + 2 * ints(nefc)
+          + ints(ncon) + ints(2))
+  return max(smooth, rows) * item
+
+
+def smem_bytes_kernel(m: Model, dtype) -> int:
+  """``smem_bytes`` as the CUDA source computes it (the card's library)."""
   meta = tables(m).meta(dtype)[0]
   return cuda_build.library().mjt_megastep_smem_bytes(
       meta.ctypes.data, len(meta), int(dtype == torch.float64))

@@ -14,6 +14,15 @@ rows that can act (``kept_rows``),
 ``newton_plain`` is the line-for-line batched twin of the reference's XLA
 body (``_xla_newton`` :81 and ``_xla_linesearch`` :126); the CPU path and
 the tests run it, and it is what the kernel is held against on the card.
+Any nv is solved: above nv 32 H is factored by the wide warp LDL, and where
+one env's work space does not fit the shared memory a block may use, this
+wrapper allocates a device-memory work space for it.
+
+Where an input needs a gradient the kernel runs as ``NewtonSolve``, whose
+backward differentiates ``newton_plain`` at the same inputs: the
+reverse-mode counterpart of the reference's ``custom_jvp`` rule, whose
+tangent runs through the XLA body (``solver`` and ``_solver_jvp``
+:407-417).
 """
 
 from __future__ import annotations
@@ -25,10 +34,11 @@ from mujoco_tpu_torch.ops import cuda_build
 from mujoco_tpu_torch.utils.device import const
 from mujoco_tpu_torch.utils.math import MINVAL
 
-MAX_NV = 64
 STAT_ROWS = 32
-# kernel launches by ``newton_pyramidal`` (never by the plain path)
+# kernel launches by ``newton_pyramidal`` (never by the plain path, nor by
+# ``NewtonSolve``'s backward)
 LAUNCHES = 0
+_WORK: dict = {}   # (nefc, nv, dtype, device) → work values per env
 
 
 def row_update(jar, D, R, fl, fric, ones):
@@ -153,25 +163,45 @@ def _check(args, iterations, ls_iter):
       raise ValueError("newton_pyramidal: all inputs share J's dtype/device")
     if not t.is_contiguous():
       raise ValueError("newton_pyramidal kernel takes contiguous tensors")
-    if t.requires_grad:
-      raise NotImplementedError(
-          "gradients through the CUDA Newton kernel are not ported yet")
-  if nv > MAX_NV or nv < 1:
-    raise ValueError(f"newton kernel supports 1 <= nv <= {MAX_NV}, got {nv}")
+  if nv < 1:
+    raise ValueError(f"newton kernel needs nv >= 1, got {nv}")
   if not 1 <= iterations <= STAT_ROWS or ls_iter < 0:
     raise ValueError(f"newton kernel: iterations {iterations} not in "
                      f"[1, {STAT_ROWS}] or ls_iter {ls_iter} < 0")
 
 
+def _needs_grad(args) -> bool:
+  return torch.is_grad_enabled() and any(t.requires_grad for t in args)
+
+
 def newton_kernel(J, aref, D, R, fl, fric, ones, M, a_s, warm, reg,
                   iterations: int, ls_iter: int):
   """Launch the CUDA kernel (shapes as ``newton_plain``, masks (nefc,),
-  reg (B,), all contiguous CUDA tensors of one dtype)."""
-  global LAUNCHES
+  reg (B,), all contiguous CUDA tensors of one dtype), through
+  ``NewtonSolve`` where an input needs a gradient."""
   args = (J, aref, D, R, fl, fric, ones, M, a_s, warm, reg)
   _check(args, iterations, ls_iter)
   if not J.is_cuda:
     raise ValueError("newton_kernel needs CUDA tensors")
+  if _needs_grad(args):
+    return NewtonSolve.apply(int(iterations), int(ls_iter), *args)
+  return _launch(args, iterations, ls_iter)
+
+
+def work_values(nefc: int, nv: int, dtype, device) -> int:
+  """Device-memory work values per env the kernel needs at these shapes on
+  this card (0: the work space fits shared memory)."""
+  key = (nefc, nv, dtype, str(device))
+  if key not in _WORK:
+    with torch.cuda.device(device):
+      _WORK[key] = int(cuda_build.library().mjt_newton_work_values(
+          nefc, nv, int(dtype == torch.float64)))
+  return _WORK[key]
+
+
+def _launch(args, iterations: int, ls_iter: int):
+  global LAUNCHES
+  J, aref, a_s = args[0], args[1], args[8]
   nbatch, nefc, nv = J.shape
   x = torch.empty_like(a_s)
   force = torch.empty_like(aref)
@@ -182,12 +212,45 @@ def newton_kernel(J, aref, D, R, fl, fric, ones, M, a_s, warm, reg,
   lib = cuda_build.library()
   fn = lib.mjt_newton_f32 if J.dtype == torch.float32 else lib.mjt_newton_f64
   with torch.cuda.device(J.device):
+    nwork = work_values(nefc, nv, J.dtype, J.device)
+    work = (torch.empty((nbatch * nwork,), dtype=J.dtype, device=J.device)
+            if nwork else None)
     stream = torch.cuda.current_stream().cuda_stream
     code = fn(*(t.data_ptr() for t in args + (x, force, qfrc, stat)),
+              None if work is None else work.data_ptr(),
               nbatch, nefc, nv, int(iterations), int(ls_iter), stream)
   cuda_build.check(code, "newton_pyramidal")
   LAUNCHES += 1
   return x, force, qfrc, stat
+
+
+class NewtonSolve(torch.autograd.Function):
+  """The kernel's solve with the gradient of ``newton_plain``: the forward
+  launches the kernel once; the backward reruns ``newton_plain`` on
+  detached copies of the inputs under ``enable_grad`` and returns
+  ``torch.autograd.grad`` of its outputs. Masks and the regularizer are
+  inputs like any other; they get a gradient only where they need one."""
+
+  @staticmethod
+  def forward(ctx, iterations, ls_iter, *args):
+    ctx.iterations, ctx.ls_iter = iterations, ls_iter
+    ctx.save_for_backward(*args)
+    out = _launch(tuple(t.detach() for t in args), iterations, ls_iter)
+    ctx.mark_non_differentiable(out[3])
+    return out
+
+  @staticmethod
+  def backward(ctx, x_bar, force_bar, qfrc_bar, _stat_bar):
+    args = ctx.saved_tensors
+    need = ctx.needs_input_grad[2:]
+    with torch.enable_grad():
+      inputs = [t.detach().requires_grad_(n) for t, n in zip(args, need)]
+      x, force, qfrc, _ = newton_plain(*inputs, ctx.iterations, ctx.ls_iter)
+      wrt = [t for t, n in zip(inputs, need) if n]
+      grads = iter(torch.autograd.grad((x, force, qfrc),
+                                       wrt, (x_bar, force_bar, qfrc_bar),
+                                       allow_unused=True))
+    return (None, None) + tuple(next(grads) if n else None for n in need)
 
 
 def blocks_per_sm(nefc: int, nv: int, dtype) -> int:

@@ -1,8 +1,10 @@
-"""Passive forces: joint springs, joint dampers, gravity compensation.
+"""Passive forces: joint and tendon springs and dampers, gravity
+compensation.
 
 Port of mujoco_tpu/ops/passive.py:19-143 (``_joint_springs`` and
-``passive``). Springs are manifold-aware (quaternion log for ball/free
-rotations). Fluid, tendon and flex passive forces are outside the slice
+``passive``, with the tendon spring's deadband and the tendon damper
+:105-119). Springs are manifold-aware (quaternion log for ball/free
+rotations). Fluid and flex passive forces are outside the slice
 (``io.put_model`` rejects models that need them). With eulerdamp disabled,
 the humanoid's joint dampers act here.
 """
@@ -74,6 +76,18 @@ def passive(m: Model, d: Data) -> Data:
                  else _joint_springs(m, d))
   qfrc_damper = (zero if m.disabled(DisableBit.DAMPER)
                  else -m.dof_damping * d.qvel)
+  if m.ntendon:
+    # tendon spring outside its [lo, hi] deadband, and tendon damper
+    Jt = d.ten_J.transpose(1, 2)
+    length = d.ten_length
+    lo, hi = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    x = torch.where(length > hi, length - hi,
+                    torch.where(length < lo, length - lo, 0.0))
+    if not m.disabled(DisableBit.SPRING):
+      qfrc_spring = qfrc_spring + mjm.mat_vec(Jt, -m.tendon_stiffness * x)
+    if not m.disabled(DisableBit.DAMPER):
+      qfrc_damper = qfrc_damper + mjm.mat_vec(
+          Jt, -m.tendon_damping * d.ten_velocity)
   qfrc_gravcomp = zero
   if not m.disabled(DisableBit.GRAVITY):
     f = -(m.body_mass * m.body_gravcomp)[:, None] * m.opt.gravity[None, :]

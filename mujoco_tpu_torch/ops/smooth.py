@@ -1,14 +1,15 @@
 """Smooth dynamics: FK, CoM frames, CRB inertia, RNE, transmission.
 
-Port of mujoco_tpu/ops/smooth.py: ``kinematics`` (:57), ``com_pos`` (:206),
-``crb`` (:260), the tree L'DL' factor ``factor_tree`` / ``solve_tree``
+Port of mujoco_tpu/ops/smooth.py: ``kinematics`` (:57, with the mocap
+override :96-103), ``com_pos`` (:206), ``crb`` (:260, with tendon armature
+:277-280), the tree L'DL' factor ``factor_tree`` / ``solve_tree``
 (:284/:319) with ``factor_m`` / ``solve_m`` (:349/:356), ``com_vel`` (:361),
-``rne`` (:378), ``transmission`` (:459, hinge/slide JOINT transmissions)
-and ``camlight`` (:662). Tree recursions are the reference's static dense
-masks (Model.tree) turned into batched matmuls; forward kinematics and the
-tree factor stay level-sequential, one vectorized block per tree level.
-``tendon`` (:405) has no counterpart: models with tendons are rejected by
-``io.put_model``.
+``rne`` (:378), ``tendon`` (:405), ``transmission`` (:459: JOINT and
+JOINTINPARENT on all four joint types, TENDON, SITE with and without a
+refsite, SLIDERCRANK) and ``camlight`` (:662). Tree recursions are the
+reference's static dense masks (Model.tree) turned into batched matmuls;
+forward kinematics and the tree factor stay level-sequential, one
+vectorized block per tree level.
 
 Every function takes batched Data (leading env axis) and returns it updated.
 """
@@ -19,7 +20,9 @@ import numpy as np
 import torch
 
 from mujoco_tpu_torch.models.types import (CamLightType, Data, DisableBit,
-                                           JointType, Model)
+                                           JointType, Model, TrnType,
+                                           WrapType)
+from mujoco_tpu_torch.ops import support, tendon as tendon_mod
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -72,8 +75,17 @@ def kinematics(m: Model, d: Data) -> Data:
   for bids in m.tree.levels:
     pid_rows = ix(row_of[m.body_parentid[bids]])
     pq, pp = xq[:, pid_rows], xp[:, pid_rows]
-    bq = mjm.normalize(mjm.mul_quat(pq, m.body_quat[ix(bids)]))
-    bp = pp + mjm.rot_vec_quat(m.body_pos[ix(bids)], pq)
+    body_pos, body_quat = m.body_pos[ix(bids)], m.body_quat[ix(bids)]
+    mocapid = m.body_mocapid[bids]
+    if (mocapid >= 0).any():
+      # a mocap body's frame comes from d.mocap_pos/mocap_quat
+      is_mocap = const(mocapid >= 0, dev)[:, None]
+      midx = ix(np.maximum(mocapid, 0))
+      body_pos = torch.where(is_mocap, d.mocap_pos[:, midx], body_pos)
+      body_quat = torch.where(is_mocap, mjm.normalize(d.mocap_quat[:, midx]),
+                              body_quat)
+    bq = mjm.normalize(mjm.mul_quat(pq, body_quat))
+    bp = pp + mjm.rot_vec_quat(body_pos, pq)
 
     jnum = m.body_jntnum[bids]
     jadr = m.body_jntadr[bids]
@@ -212,6 +224,10 @@ def crb(m: Model, d: Data) -> Data:
   qm = qm + qm.transpose(1, 2) - torch.diag_embed(torch.diagonal(
       p, dim1=1, dim2=2))
   qm = qm + torch.diag(m.dof_armature)
+  if m.has_tendon_armature:
+    # M += armature · ten_Jᵀ ten_J (mj_tendonArmature), dense
+    qm = qm + torch.einsum("t,btv,btw->bvw", m.tendon_armature, d.ten_J,
+                           d.ten_J)
   return d.replace(crb=crb_, qM=qm)
 
 
@@ -306,19 +322,177 @@ def rne(m: Model, d: Data):
   return (tmp * d.cdof).sum(-1)
 
 
+def tendon(m: Model, d: Data) -> Data:
+  """Tendon lengths and Jacobians (mj_tendon): a fixed tendon is the sum
+  of its joints' coefficients times qpos (repeated joints add up), a
+  spatial tendon its site path (``tendon.spatial_tendon``)."""
+  if m.ntendon == 0:
+    return d
+  nbatch, dev = d.qpos.shape[0], m.device
+  lengths, rows = [], []
+  for t in range(m.ntendon):
+    adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+    if np.all(m.wrap_type[adr:adr + num] == WrapType.JOINT):
+      jids = m.wrap_objid[adr:adr + num]
+      coef = m.wrap_prm[adr:adr + num]
+      lengths.append((coef * d.qpos[:, index(m.jnt_qposadr[jids], dev)])
+                     .sum(-1))
+      row = torch.zeros(m.nv, dtype=coef.dtype, device=dev).index_add(
+          0, index(m.jnt_dofadr[jids], dev), coef)
+      rows.append(row.expand(nbatch, m.nv))
+    else:
+      length, row = tendon_mod.spatial_tendon(m, d, t)
+      lengths.append(length)
+      rows.append(row)
+  return d.replace(ten_length=torch.stack(lengths, dim=1),
+                   ten_J=torch.stack(rows, dim=1))
+
+
+def _ancestor_chain_mask(m: Model, bodyid: int, refbody: int) -> np.ndarray:
+  """Static dof mask clearing the dof chain the two bodies share from
+  their common ancestor up (1 keeps a column)."""
+  b0, b1 = int(m.body_weldid[bodyid]), int(m.body_weldid[refbody])
+  da0 = int(m.body_dofadr[b0] + m.body_dofnum[b0] - 1)
+  da1 = int(m.body_dofadr[b1] + m.body_dofnum[b1] - 1)
+  common = -1
+  if da0 >= 0 and da1 >= 0:
+    a, b = da0, da1
+    while a != b and a >= 0 and b >= 0:
+      if a < b:
+        b = int(m.dof_parentid[b])
+      else:
+        a = int(m.dof_parentid[a])
+    if a == b and a >= 0:
+      common = a
+  chain_mask = np.ones(m.nv, dtype=bool)
+  da = common
+  while da >= 0:
+    chain_mask[da] = False
+    da = int(m.dof_parentid[da])
+  return chain_mask
+
+
+def _vec_mat(v, mat):
+  """v (B, 3) times mat (B, 3, nv) → (B, nv)."""
+  return (v[:, None, :] @ mat)[:, 0]
+
+
+def _transmission_one(m: Model, d: Data, i: int):
+  """Length (B,) and moment row (B, nv) of actuator i, any transmission
+  but a hinge/slide joint."""
+  nbatch, nv, dev = d.qpos.shape[0], m.nv, m.device
+  trn = int(m.actuator_trntype[i])
+  gear = m.actuator_gear[i]
+  tid = int(m.actuator_trnid[i, 0])
+  zero = d.qpos.new_zeros((nbatch,))
+
+  def at_dofs(dadr, vals):
+    return torch.cat([vals.new_zeros(vals.shape[:-1] + (dadr,)), vals,
+                      vals.new_zeros(vals.shape[:-1] + (nv - dadr
+                                                        - vals.shape[-1],))],
+                     dim=-1)
+
+  if trn in (TrnType.JOINT, TrnType.JOINTINPARENT):
+    jt = int(m.jnt_type[tid])
+    qadr, dadr = int(m.jnt_qposadr[tid]), int(m.jnt_dofadr[tid])
+    if jt == JointType.BALL:
+      quat = mjm.normalize(d.qpos[:, qadr:qadr + 4])
+      axis = mjm.quat_to_vel(quat)
+      gear_axis = gear[:3].expand(nbatch, 3)
+      if trn == TrnType.JOINTINPARENT:
+        gear_axis = mjm.rot_vec_quat(gear[:3], mjm.conj_quat(quat))
+      return mjm.dot(axis, gear_axis), at_dofs(dadr, gear_axis)
+    # FREE: no length
+    gear_rot = gear[3:6].expand(nbatch, 3)
+    if trn == TrnType.JOINTINPARENT:
+      quat = mjm.normalize(d.qpos[:, qadr + 3:qadr + 7])
+      gear_rot = mjm.rot_vec_quat(gear[3:6], mjm.conj_quat(quat))
+    return zero, at_dofs(dadr, torch.cat([gear[:3].expand(nbatch, 3),
+                                          gear_rot], dim=-1))
+  if trn == TrnType.TENDON:
+    return d.ten_length[:, tid] * gear[0], d.ten_J[:, tid] * gear[0]
+  if trn == TrnType.SLIDERCRANK:
+    # length = a·v − √det, det = (a·v)² + rod² − v·v
+    idslider = int(m.actuator_trnid[i, 1])
+    rod = m.actuator_cranklength[i]
+    axis = d.site_xmat[:, idslider, :, 2]
+    vec = d.site_xpos[:, tid] - d.site_xpos[:, idslider]
+    av = mjm.dot(vec, axis)
+    det = av * av + rod * rod - mjm.dot(vec, vec)
+    ok = det > 0
+    sdet = torch.sqrt(torch.where(ok, det, 1.0))
+    leng = torch.where(ok, av - sdet, av)
+    dldv = torch.where(ok[:, None], axis * (1 - av / sdet)[:, None]
+                       + vec / sdet[:, None], axis)
+    dlda = torch.where(ok[:, None], vec * (1 - av / sdet)[:, None], vec)
+    jacp_s, jacr_s = support.jac(m, d, d.site_xpos[:, idslider],
+                                 int(m.site_bodyid[idslider]))
+    # column j of the axis Jacobian: jacr column j × axis
+    jac_a = mjm.cross(jacr_s.transpose(1, 2),
+                      axis[:, None, :]).transpose(1, 2)
+    jacp_site, _ = support.jac(m, d, d.site_xpos[:, tid],
+                               int(m.site_bodyid[tid]))
+    jac_v = jacp_site - jacp_s
+    return (leng * gear[0],
+            (_vec_mat(dlda, jac_a) + _vec_mat(dldv, jac_v)) * gear[0])
+  if trn == TrnType.SITE:
+    refid = int(m.actuator_trnid[i, 1])
+    bodyid = int(m.site_bodyid[tid])
+    jacp, jacr = support.jac(m, d, d.site_xpos[:, tid], bodyid)
+    if refid == -1:
+      wrench_t = mjm.mat_vec(d.site_xmat[:, tid], gear[:3])
+      wrench_r = mjm.mat_vec(d.site_xmat[:, tid], gear[3:6])
+      return zero, _vec_mat(wrench_t, jacp) + _vec_mat(wrench_r, jacr)
+    refbody = int(m.site_bodyid[refid])
+    chain = const(_ancestor_chain_mask(m, bodyid, refbody), dev, m.dtype)
+    jacp_r, jacr_r = support.jac(m, d, d.site_xpos[:, refid], refbody)
+    # translational part, in the refsite's frame
+    vec_t = mjm.mat_vec(d.site_xmat[:, refid].transpose(1, 2),
+                        d.site_xpos[:, tid] - d.site_xpos[:, refid])
+    leng = zero + mjm.dot(vec_t, gear[:3])
+    wrench_t = mjm.mat_vec(d.site_xmat[:, refid], gear[:3])
+    row = zero[:, None] + _vec_mat(wrench_t, (jacp - jacp_r) * chain)
+    # rotational part (site_quat ⊗ xquat, as the reference orders it)
+    quat = mjm.mul_quat(m.site_quat[tid], d.xquat[:, bodyid])
+    refquat = mjm.mul_quat(m.site_quat[refid], d.xquat[:, refbody])
+    vec_r = mjm.quat_sub(quat, refquat)
+    leng = leng + mjm.dot(vec_r, gear[3:6])
+    wrench_r = mjm.mat_vec(d.site_xmat[:, refid], gear[3:6])
+    row = row + _vec_mat(wrench_r, (jacr - jacr_r) * chain)
+    return leng, row
+  raise NotImplementedError(f"transmission {TrnType(trn).name}")
+
+
 def transmission(m: Model, d: Data) -> Data:
-  """Actuator lengths and moment arms (mj_transmission) for hinge/slide
-  joint transmissions: length = q·gear, moment = gear at the joint's dof."""
+  """Actuator lengths and moment arms (mj_transmission). Hinge/slide joint
+  transmissions in one batch (length = q·gear, moment = gear at the
+  joint's dof); every other actuator one at a time."""
   if m.nu == 0:
     return d
+  nbatch, dev = d.qpos.shape[0], m.device
+  trn = np.asarray(m.actuator_trntype)
   jid = m.actuator_trnid[:, 0]
-  gear = m.actuator_gear[:, 0]
-  length = d.qpos[:, index(m.jnt_qposadr[jid], m.device)] * gear
-  onehot = np.zeros((m.nu, m.nv))
-  onehot[np.arange(m.nu), m.jnt_dofadr[jid]] = 1.0
-  moment = const(onehot, m.device, m.dtype) * gear[:, None]
-  return d.replace(actuator_length=length,
-                   actuator_moment=moment.expand(d.qpos.shape[0], -1, -1))
+  is_joint = (trn == TrnType.JOINT) | (trn == TrnType.JOINTINPARENT)
+  hs = np.nonzero(is_joint & np.isin(
+      m.jnt_type[np.where(is_joint, jid, 0)],
+      [JointType.HINGE, JointType.SLIDE]))[0]
+  rest = np.setdiff1d(np.arange(m.nu), hs)
+  gear = (m.actuator_gear[index(hs, dev), 0] if len(rest)
+          else m.actuator_gear[:, 0])
+  length = d.qpos[:, index(m.jnt_qposadr[jid[hs]], dev)] * gear
+  onehot = np.zeros((len(hs), m.nv))
+  onehot[np.arange(len(hs)), m.jnt_dofadr[jid[hs]]] = 1.0
+  moment = (const(onehot, dev, m.dtype) * gear[:, None]).expand(
+      nbatch, -1, -1)
+  if len(rest):
+    parts = [_transmission_one(m, d, int(i)) for i in rest]
+    inv = np.empty(m.nu, dtype=np.int64)
+    inv[np.concatenate([hs, rest])] = np.arange(m.nu)
+    length = torch.cat([length, torch.stack([p[0] for p in parts], dim=1)],
+                       dim=1)[:, index(inv, dev)]
+    moment = torch.cat([moment, torch.stack([p[1] for p in parts], dim=1)],
+                       dim=1)[:, index(inv, dev)]
+  return d.replace(actuator_length=length, actuator_moment=moment)
 
 
 def camlight(m: Model, d: Data) -> Data:

@@ -1,6 +1,7 @@
 """Batched rollouts on one device (port of mujoco_tpu/parallel/rollout.py:
-``make_batch`` :25, ``STATE_FIELDS`` :59, ``scan_steps`` :64 with the
-single-device dispatch of ``_scan_steps_local`` :133, ``check_reset`` :231).
+``make_batch`` :25, ``batched_step`` :32, ``rollout`` :37,
+``STATE_FIELDS`` :59, ``scan_steps`` :64 with the single-device dispatch of
+``_scan_steps_local`` :133, ``check_reset`` :231).
 
 The env batch is the leading axis of every Data tensor. A batched f32
 rollout on the card of a model in the megastep class runs as one launch of
@@ -12,7 +13,7 @@ card.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -22,10 +23,11 @@ from mujoco_tpu_torch.ops import forward, megastep_cuda
 
 # the integration state that crosses step boundaries; everything else in
 # Data is workspace that forward() recomputes from it (the reference's list
-# minus the fields of features the port does not carry yet: mocap,
-# history, tree_asleep)
+# minus the fields of features the port does not carry yet: history,
+# tree_asleep)
 STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qacc_warmstart",
-                "qacc", "qfrc_applied", "xfrc_applied", "eq_active")
+                "qacc", "qfrc_applied", "xfrc_applied", "eq_active",
+                "mocap_pos", "mocap_quat")
 
 
 def _expand(d: Data, nbatch: int) -> Data:
@@ -41,6 +43,35 @@ def make_batch(m: Model, nbatch: int, dtype: Optional[torch.dtype] = None,
                device=None) -> Data:
   """A Data of nbatch envs, each a copy of make_data's initial state."""
   return _expand(io.make_data(m, dtype=dtype, device=device), nbatch)
+
+
+def batched_step(m: Model) -> Callable[[Data], Data]:
+  """A callable that steps a batched Data once (the counterpart of the
+  reference's ``jit(vmap(step))``; the port's Data is batched already and
+  the step runs op by op, with no graph capture)."""
+  return lambda d: forward.step(m, d)
+
+
+def rollout(m: Model, d: Data, nstep: int,
+            ctrl: Optional[torch.Tensor] = None):
+  """nstep physics steps of the batch, each starting from the whole Data
+  the previous one returned (the reference's ``lax.scan`` over the full
+  Data); with ctrl (nstep, B, nu), step t runs at ctrl[t] and nstep is
+  ctrl's length. Returns the final Data and the (nstep, B, nq) qpos
+  trajectory, qpos after each step (rollout.rollout, python/mujoco/
+  rollout.py)."""
+  step = batched_step(m)
+  if ctrl is not None:
+    nstep = ctrl.shape[0]
+  traj = []
+  for t in range(nstep):
+    if ctrl is not None:
+      d = d.replace(ctrl=ctrl[t])
+    d = step(d)
+    traj.append(d.qpos)
+  qpos = (torch.stack(traj) if traj else
+          d.qpos.new_zeros((0,) + tuple(d.qpos.shape)))
+  return d, qpos
 
 
 def check_reset(m: Model, d: Data, d_fresh: Data) -> Data:

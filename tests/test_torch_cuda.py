@@ -52,10 +52,23 @@ def test_ldl_kernel_matches_plain(cuda, dtype, tol, n, nbatch):
                              rtol=tol, atol=tol)
 
 
+def _spd(n, nbatch, dtype, device, seed=0):
+  rng = np.random.default_rng(seed)
+  a = rng.standard_normal((nbatch, n, n))
+  h = torch.tensor(a @ a.transpose(0, 2, 1) + n * np.eye(n), dtype=dtype,
+                   device=device)
+  g = torch.tensor(rng.standard_normal((nbatch, n)), dtype=dtype,
+                   device=device)
+  return h, g
+
+
 def test_ldl_kernel_rejects_what_it_cannot_take(cuda):
-  h = torch.eye(65, device=cuda).expand(4, 65, 65).contiguous()
-  with pytest.raises(ValueError):
-    linalg_cuda.spd_solve(h, torch.ones(4, 65, device=cuda))
+  # n = 65 is past the two rows per lane the kernel once stopped at: the
+  # wide routine solves it
+  h, g = _spd(65, 4, torch.float64, cuda)
+  torch.testing.assert_close(linalg_cuda.spd_solve(h, g),
+                             linalg_cuda.spd_solve_plain(h, g), rtol=1e-10,
+                             atol=1e-10)
   h = torch.eye(3, device=cuda).expand(4, 3, 3)
   with pytest.raises(ValueError):
     linalg_cuda.spd_solve(h, torch.ones(4, 3, device=cuda))
@@ -64,6 +77,26 @@ def test_ldl_kernel_rejects_what_it_cannot_take(cuda):
   base = torch.eye(3, device=cuda).requires_grad_()
   with pytest.raises(ValueError):
     linalg_cuda.spd_solve(base.expand(4, 3, 3), torch.ones(4, 3, device=cuda))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+@pytest.mark.parametrize("n", [65, 81, 130, 200])
+def test_ldl_kernel_wide_matches_plain(cuda, dtype, tol, n):
+  """Orders past 64 through the wide routine: in shared memory where one
+  env's H fits (n ≤ 169 at f64, ≤ 240 at f32), else in the device-memory
+  work space (n 200 at f64); 257 envs end in a partial block."""
+  h, g = _spd(n, 257, dtype, cuda, seed=n)
+  on_device = n == 200 and dtype == torch.float64
+  assert linalg_cuda.work_values(n, dtype, cuda) == (n * n if on_device
+                                                     else 0)
+  before = linalg_cuda.LAUNCHES
+  out = linalg_cuda.spd_solve(h, g)
+  torch.cuda.synchronize()
+  assert linalg_cuda.LAUNCHES == before + 1
+  ref = linalg_cuda.spd_solve_plain(h.double(), g.double())
+  assert ((out.double() - ref).abs().amax(1)
+          <= tol * ref.abs().amax(1)).all()
 
 
 def test_ldl_kernel_gradient_matches_plain(cuda):
@@ -194,6 +227,65 @@ def test_newton_kernel_keeps_a_diverged_env_non_finite(cuda):
   for name, a, b in (("x", x, x_p), ("force", force, force_p),
                      ("qfrc", qfrc, qfrc_p)):
     torch.testing.assert_close(a[ok], b[ok], rtol=1e-9, atol=1e-9, msg=name)
+
+
+def _wide_rows(nbatch, dtype, device, nefc, nv, seed=0):
+  """A synthetic row system at nv > 64 whose envs keep from a few rows to
+  every row: env e keeps about (e mod 8 + 1)/8 of its rows, so some envs
+  keep fewer and some more than the 48 J rows of shared memory."""
+  args = _synthetic(nbatch, dtype, device, nefc=nefc, nv=nv)
+  D = args[2]
+  gen = torch.Generator().manual_seed(seed)
+  u = torch.rand(D.shape, generator=gen, dtype=torch.float64).to(device)
+  share = (torch.arange(nbatch, device=device) % 8 + 1)[:, None] / 8.0
+  D.mul_((u < share).to(dtype))
+  return args
+
+
+@pytest.mark.parametrize("nefc,nv", [(120, 81), (200, 130)])
+def test_newton_kernel_wide_matches_plain_f64(cuda, nefc, nv):
+  """nv past 64: H through the wide warp LDL; at nv 81 the work space in
+  shared memory with both J routes (envs keeping fewer and more than 48
+  rows), at nv 130 (f64) the whole work space in device memory.
+  Elementwise against the plain version at one iteration."""
+  args = _wide_rows(96, torch.float64, cuda, nefc, nv)
+  kept = newton_cuda.kept_rows(args[2], args[5], args[4]).sum(1)
+  assert (kept < 48).any() and (kept > 48).any()
+  nwork = newton_cuda.work_values(nefc, nv, torch.float64, cuda)
+  assert (nwork > 0) == (nv == 130)
+  before = newton_cuda.LAUNCHES
+  out_k = newton_cuda.newton_kernel(*args, 1, 4)
+  torch.cuda.synchronize()
+  assert newton_cuda.LAUNCHES == before + 1
+  out_p = newton_cuda.newton_plain(*args, 1, 4)
+  for name, a, b in zip(("x", "force", "qfrc"), out_p, out_k):
+    torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-9, msg=name)
+
+
+def test_newton_kernel_gradient_matches_plain(cuda):
+  """NewtonSolve on the card: one kernel launch for the forward, none for
+  the backward, and the gradients of Σ w·x + Σ v·qfrc with respect to J,
+  aref, M and a_s equal those of newton_plain on the CPU at f64 (1e-8
+  relative)."""
+  args = _humanoid(32, cuda, torch.float64)
+  rng = np.random.default_rng(5)
+  w = rng.standard_normal(tuple(args[8].shape))
+  v = rng.standard_normal(tuple(args[8].shape))
+  grads = {}
+  for dev in (cuda, "cpu"):
+    leaves = [a.detach().to(dev).clone() for a in args]
+    for i in (0, 1, 7, 8):
+      leaves[i].requires_grad_()
+    before = newton_cuda.LAUNCHES
+    x, _, qfrc, _ = newton_cuda.run(tuple(leaves), 1, 4)
+    loss = ((torch.tensor(w, device=dev) * x).sum()
+            + (torch.tensor(v, device=dev) * qfrc).sum())
+    loss.backward()
+    grads[str(dev)] = ([leaves[i].grad.cpu() for i in (0, 1, 7, 8)],
+                       newton_cuda.LAUNCHES - before)
+  assert grads["cuda"][1] == 1 and grads["cpu"][1] == 0
+  for a_k, a_p in zip(grads["cuda"][0], grads["cpu"][0]):
+    assert ((a_k - a_p).abs().max() <= 1e-8 * a_p.abs().max()).item()
 
 
 def test_newton_occupancy_holds_the_design(cuda):
@@ -427,16 +519,65 @@ def test_megastep_kernel_rejects_what_it_cannot_take(cuda):
 
 
 def test_model_needing_a_gradient_keeps_the_stage_path(cuda):
-  """scan_steps sends a Model that requires a gradient to the stage path,
-  whose CUDA kernels refuse gradients loudly; the megastep is not
-  launched."""
+  """scan_steps sends a Model that requires a gradient to the stage path:
+  the megastep is not launched, the LDL and Newton kernels are (their
+  autograd Functions), and the gradient of the final qpos reaches the
+  Model's masses, finite."""
   m = zoo.humanoid(torch.float32)
-  mg = m.replace(body_mass=m.body_mass.clone().requires_grad_())
+  mass = m.body_mass.clone().requires_grad_()
+  mg = m.replace(body_mass=mass)
   d = rollout.make_batch(m, 4)
-  megastep_cuda.LAUNCHES = 0
-  with pytest.raises(NotImplementedError):
-    rollout.scan_steps(mg, d, 1)
+  megastep_cuda.LAUNCHES = newton_cuda.LAUNCHES = linalg_cuda.LAUNCHES = 0
+  out = rollout.scan_steps(mg, d, 1)
+  out.qpos.sum().backward()
   assert megastep_cuda.LAUNCHES == 0
+  assert newton_cuda.LAUNCHES == 1 and linalg_cuda.LAUNCHES >= 1
+  assert torch.isfinite(mass.grad).all() and mass.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("name", ["multi_humanoid3", "humanoid_tendon",
+                                  "mocap_weld"])
+def test_megastep_gate_refuses_the_slice_models(cuda, name):
+  """The megastep's class gate keeps nv 81, tendons and mocap bodies on the
+  stage path: a batched f32 scan_steps on the card launches one LDL and
+  one Newton kernel per step and no megastep, and stays finite."""
+  m = zoo.load(name, torch.float32)
+  assert not megastep_cuda.supported(m)
+  d = rollout.make_batch(m, 64)
+  megastep_cuda.LAUNCHES = newton_cuda.LAUNCHES = linalg_cuda.LAUNCHES = 0
+  out = rollout.scan_steps(m, d, 3)
+  torch.cuda.synchronize()
+  assert megastep_cuda.LAUNCHES == 0
+  if int(m.opt.iterations) <= 4:
+    assert newton_cuda.LAUNCHES == 3 and linalg_cuda.LAUNCHES == 3
+  assert torch.isfinite(out.qpos).all()
+
+
+@pytest.mark.parametrize("name", ["humanoid", "quadruped", "mixed",
+                                  "spherebox"])
+def test_megastep_smem_bytes_matches_kernel_source(cuda, name):
+  """The gate's host count of the megastep's shared memory equals the CUDA
+  source's layout."""
+  m = zoo.load(name, torch.float32)
+  for dtype in (torch.float32, torch.float64):
+    assert megastep_cuda.smem_bytes(m, dtype) == \
+        megastep_cuda.smem_bytes_kernel(m, dtype)
+
+
+@pytest.mark.parametrize("name", zoo.TENDON + ("humanoid_tendon",
+                                               "multi_humanoid3"))
+def test_slice_scene_card_matches_cpu_f64(cuda, name):
+  """10 steps at f64 on the card and on the CPU agree to 1e-8 (qpos,
+  qvel), posed from a numpy seed."""
+  outs = {}
+  for dev in (cuda, "cpu"):
+    m, d = _general_batch(name, 8, dev, torch.float64)
+    for _ in range(10):
+      d = forward.step(m, d)
+    outs[str(dev)] = (d.qpos.cpu(), d.qvel.cpu())
+  for i in (0, 1):
+    torch.testing.assert_close(outs["cuda"][i], outs["cpu"][i], rtol=1e-8,
+                               atol=1e-8)
 
 
 def _general_batch(name, nbatch, device, dtype, seed=0, opt=None):

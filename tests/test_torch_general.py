@@ -389,9 +389,12 @@ def test_megastep_gate_refuses_as_reference(name):
 
 
 _STILL_RAISE = {
-    "tendons": """<mujoco><worldbody><body><joint name="a" type="slide"/>
-      <geom size="0.1"/></body></worldbody><tendon><fixed name="t">
-      <joint joint="a" coef="1"/></fixed></tendon></mujoco>""",
+    "transmission BODY": """<mujoco><worldbody><body name="b"><freejoint/>
+      <geom size="0.1"/></body></worldbody><actuator>
+      <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
+    "sensors": """<mujoco><worldbody><body><joint name="a" type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor>
+      <jointpos joint="a"/></sensor></mujoco>""",
     "elliptic friction cone": """<mujoco><option cone="elliptic"/>
       <worldbody><geom type="plane" size="1 1 1"/><body><freejoint/>
       <geom size="0.1"/></body></worldbody></mujoco>""",
@@ -401,9 +404,6 @@ _STILL_RAISE = {
     "noslip": """<mujoco><option noslip_iterations="3"/><worldbody>
       <geom type="plane" size="1 1 1"/><body><freejoint/>
       <geom size="0.1"/></body></worldbody></mujoco>""",
-    "mocap bodies": """<mujoco><worldbody><body mocap="true">
-      <geom size="0.1" contype="0"/></body><body><joint type="hinge"/>
-      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
     "dynamic pair groups": "<mujoco><worldbody>" + "".join(
         f'<body pos="{0.3 * i} 0 1"><freejoint/><geom size="0.1"/></body>'
         for i in range(11)) + "</worldbody></mujoco>",
@@ -415,3 +415,22 @@ def test_gates_outside_the_slice_raise_by_name(feature):
   mjm = mujoco.MjModel.from_xml_string(_STILL_RAISE[feature])
   with pytest.raises(NotImplementedError, match=feature):
     tio.put_model(mjm, dtype=torch.float64, device="cpu")
+
+
+# features that raised by name before the slice that ported them
+_WIDENED = {
+    "tendons": """<mujoco><worldbody><body><joint name="a" type="slide"/>
+      <geom size="0.1"/></body></worldbody><tendon><fixed name="t">
+      <joint joint="a" coef="1"/></fixed></tendon></mujoco>""",
+    "mocap bodies": """<mujoco><worldbody><body mocap="true">
+      <geom size="0.1" contype="0"/></body><body><joint type="hinge"/>
+      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+}
+
+
+@pytest.mark.parametrize("feature", sorted(_WIDENED))
+def test_widened_gates_load(feature):
+  mjm = mujoco.MjModel.from_xml_string(_WIDENED[feature])
+  m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
+  assert (m.ntendon, m.nmocap) == (int(mjm.ntendon), int(mjm.nmocap))
+  assert not megastep_cuda.supported(m)

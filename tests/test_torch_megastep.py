@@ -122,6 +122,32 @@ def test_supported_gate_matches_reference(multi_humanoid, monkeypatch):
                      "humanoid_rk4": False}
 
 
+@pytest.mark.parametrize("name", ["multi_humanoid3", "humanoid_tendon",
+                                  "mocap_weld", "tendon_limit_only"])
+def test_supported_refuses_the_slice_models(name):
+  """The class gate keeps off the kernel: nv above MAX_NV (the reference
+  admits multi_humanoid3, whose nv 81 the port's kernel does not take),
+  tendons and mocap bodies (refused as the reference refuses them,
+  megastep_tpu.py:111-112), and a limit row that is not a hinge or slide
+  joint's (:137-140), here a humanoid whose only tendon is a limited one
+  and whose gate would otherwise pass."""
+  if name == "tendon_limit_only":
+    fields = zoo.load_snapshot("humanoid_tendon")
+    m = tio.model_from_numpy(dict(fields, ntendon=np.asarray(0)),
+                             torch.float64, "cpu")
+    assert np.any(m.efc.limit_jnt < 0) and m.ntendon == 0
+    assert not mc.supported(m)
+    return
+  m = zoo.load(name, torch.float64, "cpu")
+  assert not mc.supported(m)
+  if name == "multi_humanoid3":
+    assert m.nv == 81 > mc.MAX_NV
+    assert mc.smem_bytes(m, torch.float32) > 0
+    return
+  mjm = snapshot.compile_mj(name)
+  assert jmega.supported(jio.put_model(mjm)) is False
+
+
 def test_supported_raises_instead_of_guessing():
   m = zoo.humanoid(torch.float64, "cpu")
   with pytest.raises(AttributeError):

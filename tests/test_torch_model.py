@@ -1,8 +1,11 @@
 """The PyTorch port's model bridge against mujoco_tpu's, at f64 on CPU.
 
-put_model / make_data on the flagship humanoid and on a contact-free
-pendulum equal the reference field for field (integers and masks exactly,
-floats to 1e-12); the committed snapshots equal a fresh compile;
+put_model / make_data on the flagship humanoid, a contact-free pendulum
+and the tendon and mocap scenes equal the reference field for field
+(integers and masks exactly, floats to 1e-12); the committed snapshots
+equal a fresh compile, and ``multi_humanoid3`` a fresh carry-across of the
+reference's 3-humanoid scene (``python tests/test_torch_model.py`` writes
+it);
 a mujoco_tpu Model carried across with model_from_numpy equals the port's
 own put_model; models outside the slice raise NotImplementedError, and the
 models the megastep class admitted (plane-box, eulerdamp) load.
@@ -14,8 +17,10 @@ import pytest
 import torch
 
 from mujoco_tpu.models import io as jio
+from mujoco_tpu.models import zoo as jzoo
 from mujoco_tpu_torch.models import io as tio
 from mujoco_tpu_torch.models import snapshot, zoo
+from mujoco_tpu_torch.models.types import DisableBit
 
 PENDULUM = """
 <mujoco>
@@ -43,7 +48,24 @@ PENDULUM = """
 def _mjmodel(name):
   if name == "humanoid":
     return mujoco.MjModel.from_xml_path(f"{zoo.XML_DIR}/humanoid.xml")
-  return mujoco.MjModel.from_xml_string(PENDULUM)
+  if name == "pendulum":
+    return mujoco.MjModel.from_xml_string(PENDULUM)
+  return snapshot.compile_mj(name)
+
+
+def multi_humanoid3_fields() -> dict:
+  """The ``multi_humanoid3`` snapshot: mujoco_tpu's 3-humanoid scene
+  (``zoo.multi_humanoid(3)``, nv 81, monolithic below the island gate)
+  with islands disabled, carried across with ``flatten``; the port's Model
+  fields only."""
+  compiled = jzoo.multi_humanoid(3)
+  jm = compiled.replace(opt=compiled.opt.replace(
+      disableflags=int(compiled.opt.disableflags)
+      | int(DisableBit.ISLAND)))
+  fields = tio.flatten(jm)
+  port = tio.flatten(tio.model_from_numpy(fields, dtype=torch.float64,
+                                          device="cpu"))
+  return {k: np.asarray(fields[k]) for k in port}
 
 
 def assert_fields_match(port: dict, ref: dict, prefix=""):
@@ -59,7 +81,8 @@ def assert_fields_match(port: dict, ref: dict, prefix=""):
       np.testing.assert_allclose(b, a, rtol=0, atol=1e-12, err_msg=k)
 
 
-@pytest.fixture(scope="module", params=["humanoid", "pendulum"])
+@pytest.fixture(scope="module", params=["humanoid", "pendulum",
+                                        "tendon_rows", "mocap_weld"])
 def models(request):
   mjm = _mjmodel(request.param)
   return (request.param, mjm, jio.put_model(mjm),
@@ -112,10 +135,22 @@ def test_snapshot_is_current():
   assert len(pairs) == 7, pairs
 
 
+def test_carried_snapshot_is_current():
+  """The committed multi_humanoid3 equals a fresh carry-across, and loads
+  as the §C 1 case: nv 81, three humanoids' 162 rows each."""
+  committed = zoo.load_snapshot("multi_humanoid3")
+  fresh = multi_humanoid3_fields()
+  assert sorted(committed) == sorted(fresh)
+  for k in fresh:
+    np.testing.assert_array_equal(committed[k], fresh[k], err_msg=k)
+  m = zoo.load("multi_humanoid3", torch.float64, device="cpu")
+  assert (m.nv, m.efc.nefc, m.nu) == (81, 3 * 162, 63)
+
+
 _OUT_OF_SLICE = {
-    "tendon": """<mujoco><worldbody><body><joint name="a" type="slide"/>
-      <geom size="0.1"/></body></worldbody><tendon><fixed name="t">
-      <joint joint="a" coef="1"/></fixed></tendon></mujoco>""",
+    "body_transmission": """<mujoco><worldbody><body name="b"><freejoint/>
+      <geom size="0.1"/></body></worldbody><actuator>
+      <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
     "sensor": """<mujoco><worldbody><body><joint name="a" type="slide"/>
       <geom size="0.1"/></body></worldbody><sensor>
       <jointpos joint="a"/></sensor></mujoco>""",
@@ -136,6 +171,9 @@ _OUT_OF_SLICE = {
 
 # models that raised before the slices that widened what the port runs
 _WIDENED = {
+    "tendon": """<mujoco><worldbody><body><joint name="a" type="slide"/>
+      <geom size="0.1"/></body></worldbody><tendon><fixed name="t">
+      <joint joint="a" coef="1"/></fixed></tendon></mujoco>""",
     "plane_box": """<mujoco><option iterations="2"/><worldbody>
       <geom type="plane" size="1 1 1"/><body><freejoint/>
       <geom type="box" size="0.1 0.1 0.1"/></body></worldbody></mujoco>""",
@@ -162,3 +200,14 @@ def test_widened_slice_loads(name):
   m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
   assert m.con.ncon == (4 if name == "plane_box" else 0)
   assert m.has_dof_damping == (name == "eulerdamp")
+
+
+if __name__ == "__main__":
+  # writes the carried snapshot (needs mujoco_tpu, so it lives here and not
+  # in mujoco_tpu_torch/models/snapshot.py)
+  import jax
+  jax.config.update("jax_platforms", "cpu")
+  jax.config.update("jax_enable_x64", True)
+  path = zoo.snapshot_path("multi_humanoid3")
+  np.savez_compressed(path, **multi_humanoid3_fields())
+  print(f"wrote {path}")

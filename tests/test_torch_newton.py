@@ -219,3 +219,71 @@ def test_solver_entry_takes_plain_path_on_cpu():
   assert torch.all(out[3][:, 1:] == 0)
   m = zoo.humanoid(torch.float64, device="cpu")
   assert solver._use_newton_kernel(m)
+
+
+@pytest.mark.parametrize("iterations,ls_iter", [(1, 4), (4, 4)])
+def test_plain_gradient_matches_reference(iterations, ls_iter):
+  """The gradient NewtonSolve's backward takes: newton_plain's gradient of
+  Σ w·x + Σ v·qfrc with respect to J, aref, M and a_s on the humanoid's
+  rows equals jax.grad through mujoco_tpu's newton_pyramidal (whose AD
+  rule runs the XLA body, newton_tpu.py:407-417) at f64 to 1e-8
+  relative. M is symmetric, so only its gradient's symmetric part is
+  defined: the two libraries' Cholesky rules split the cotangent of H
+  between H[i, j] and H[j, i] differently, and G + Gᵀ is compared."""
+  sys = humanoid_rows(nbatch=4)
+  rng = np.random.default_rng(7)
+  w, v = rng.standard_normal((2,) + sys["a_s"].shape)
+
+  def loss_ref(J, aref, M, a_s):
+    solve = lambda J, aref, D, R, fl, M, a_s, warm, reg: \
+        newton_tpu.newton_pyramidal(J, aref, D, R, fl, sys["fric"],
+                                    sys["ones"], M, a_s, warm, reg,
+                                    iterations, ls_iter)
+    x, _, qfrc, _ = jax.vmap(solve)(
+        J, aref, jnp.asarray(sys["D"]), jnp.asarray(sys["R"]),
+        jnp.asarray(sys["fl"]), M, a_s, jnp.asarray(sys["warm"]),
+        jnp.asarray(sys["reg"]))
+    return jnp.sum(w * x) + jnp.sum(v * qfrc)
+
+  wrt = ("J", "aref", "M", "a_s")
+  ref = jax.grad(loss_ref, argnums=(0, 1, 2, 3))(
+      *(jnp.asarray(sys[k]) for k in wrt))
+  args = [torch.tensor(np.broadcast_to(sys[k], sys["D"].shape)
+                       if k in ("fric", "ones") else sys[k],
+                       requires_grad=k in wrt) for k in ORDER]
+  x, _, qfrc, _ = newton_cuda.newton_plain(*args, iterations, ls_iter)
+  ((torch.from_numpy(w) * x).sum()
+   + (torch.from_numpy(v) * qfrc).sum()).backward()
+  for k, g in zip(wrt, ref):
+    got = args[ORDER.index(k)].grad.numpy()
+    g = np.asarray(g)
+    if k == "M":
+      got, g = got + got.transpose(0, 2, 1), g + g.transpose(0, 2, 1)
+    assert np.abs(got - g).max() <= 1e-8 * np.abs(g).max(), k
+
+
+def test_newton_solve_backward_is_newton_plain(monkeypatch):
+  """NewtonSolve, the kernel's autograd Function, on CPU tensors with the
+  kernel's launch replaced by newton_plain: its outputs and its gradients
+  (a backward that reruns newton_plain) equal autograd straight through
+  newton_plain, and only the inputs that need a gradient get one."""
+  monkeypatch.setattr(newton_cuda, "_launch", lambda args, it, ls:
+                      newton_cuda.newton_plain(*args, it, ls))
+  sys = humanoid_rows(nbatch=3)
+  w = torch.from_numpy(np.random.default_rng(8).standard_normal(
+      sys["a_s"].shape))
+  grads = []
+  for through_function in (True, False):
+    args = [torch.tensor(sys[k], requires_grad=k in ("J", "M", "a_s"))
+            for k in ORDER]
+    if through_function:
+      out = newton_cuda.NewtonSolve.apply(1, 4, *args)
+      assert not out[3].requires_grad
+    else:
+      out = newton_cuda.newton_plain(*args, 1, 4)
+    ((w * out[0]).sum() + (w * out[2]).sum() + out[1].sum()).backward()
+    grads.append([None if a.grad is None else a.grad.clone() for a in args])
+  for k, a, b in zip(ORDER, *grads):
+    assert (a is None) == (b is None) == (k not in ("J", "M", "a_s")), k
+    if a is not None:
+      torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12, msg=k)

@@ -5,7 +5,10 @@ the port's Data carries; a 25-step scan_steps(check=True) trajectory of 3
 humanoids (qpos perturbed by 0.02·N(0, 1) from a numpy seed) agrees with
 mujoco_tpu.parallel.rollout.scan_steps at qpos 1e-9 and qvel 1e-8; a state
 resumed from mujoco_tpu mid-way continues identically; check_reset resets
-a diverged env to d_fresh and leaves the others alone.
+a diverged env to d_fresh and leaves the others alone; the gradient of
+Σ qpos after one differentiated step with respect to qvel and ctrl equals
+jax.grad of mujoco_tpu's step (the Newton solve's gradient, which on the
+card is NewtonSolve's backward through newton_plain).
 """
 
 import jax
@@ -107,3 +110,33 @@ def test_check_reset_resets_only_diverged_env(models):
   torch.testing.assert_close(out.qpos[0], qpos[0])
   torch.testing.assert_close(out.qvel[0], qvel[0])
   assert out.time[0] == 3.0
+
+
+def test_step_gradient_matches_reference(models):
+  """One step of 2 humanoids with their feet in the floor, differentiated:
+  d Σ qpos' / d (qvel, ctrl) through the port's stage path (the LDL and
+  Newton solves' autograd) equals jax.grad through mujoco_tpu's step to
+  1e-8 relative."""
+  jm, tm = models
+  rng = np.random.default_rng(11)
+  d = j_roll.make_batch(jm, 2)
+  qpos = np.asarray(d.qpos) + 0.02 * rng.standard_normal(d.qpos.shape)
+  qpos[:, 2] -= 0.12
+  qvel = 0.3 * rng.standard_normal(d.qvel.shape)
+  ctrl = rng.uniform(-1, 1, d.ctrl.shape)
+  jd = d.replace(qpos=jnp.asarray(qpos))
+
+  def loss(qv, c):
+    out = jax.vmap(lambda dd: j_fwd.step(jm, dd))(jd.replace(qvel=qv,
+                                                             ctrl=c))
+    return jnp.sum(out.qpos)
+
+  ref = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(qvel),
+                                               jnp.asarray(ctrl))
+  td = tio.data_from_numpy(tm, tio.flatten(jd))
+  qv = torch.tensor(qvel, requires_grad=True)
+  c = torch.tensor(ctrl, requires_grad=True)
+  t_fwd.step(tm, td.replace(qvel=qv, ctrl=c)).qpos.sum().backward()
+  for got, want in ((qv.grad, ref[0]), (c.grad, ref[1])):
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= 1e-8 * np.abs(want).max()
