@@ -119,12 +119,39 @@ Phases, each of which passes or ends the script with a nonzero exit:
    env-steps/s and a profiled window (launches per step, idle share); every
    scene of ``zoo.TENDON`` and ``humanoid_tendon`` 20 steps at f64, B 64, card
    against CPU (1e-8); and on each such scene with rows the Newton kernel
-   at 4 iterations, f64, B 3072, under phase 11's rule.
+   at 4 iterations, f64, B 3072, under phase 11's rule;
+16. ``humanoid_elliptic`` (the flagship at the elliptic cone, impratio 100,
+   and implicitfast; the megastep must refuse it): the LDL kernel on the
+   general core's first Newton system (M + JᵀWJ + the cone's Hessian
+   blocks + reg·I, n 27) against its plain version at f64 (1e-9
+   relative), and at f32, where that H is ill-conditioned, by its
+   backward error (per env at most 1e-5, the plain version's beside it); f32, B 3072, 20 steps of ``scan_steps(check=True)``
+   from the main path's start with the feet pushed 0.12 into the floor
+   (at the main path's own start they hang 0.10 above it for ~25 steps):
+   finite, exactly two LDL launches per step (qacc_smooth and the one
+   Newton iteration) and no other; the envs the guard reset, the active
+   frictional slots per env and their share in the cone's middle zone at
+   the start and the end, env-steps/s and a profiled window; 10 steps at
+   f64, B 16, card against CPU (1e-8); d Σ qpos / d ctrl of one step at
+   f64, B 8, card against CPU (1e-8 relative), through ``SpdSolve``'s
+   backward (two LDL launches forward, more in the backward);
+17. the flagship under RK4 (four forward passes a step): f32, B 3072, 20
+   steps from the main path's start, finite, exactly four LDL and four
+   Newton launches per step; a profiled window; 10 steps at f64, B 16,
+   card against CPU (1e-8); the Newton kernel on the rows of each of the
+   first step's four forward passes (f64, B 3072) under phase 11's rule;
+18. every scene of ``zoo.OPTIONS`` (PGS pyramidal and elliptic, noslip
+   after the general core, after the Newton kernel and on the elliptic
+   cone at condim 3 and 4, the elliptic cone, RK4, implicit and
+   implicitfast): card against CPU at f64, B 64 (20 steps, fewer where a
+   step takes seconds: ``SCENE_NSTEP``), then at f32, B 3072, finite, its
+   env-steps/s, kernel launches and a profiled step (the slowest scenes
+   timed on that profiled step alone).
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 15, and the LDL's and the Newton kernel's ``wide`` entries hold
+and 13 to 18, and the LDL's and the Newton kernel's ``wide`` entries hold
 their phase-13 times at n = nv = 81.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -200,29 +227,40 @@ def cuda_ms_cold(fn, reps=30, warmup=3) -> float:
   return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def device_ms(fn, reps=30, warmup=3) -> float:
+def device_ms(fn, reps=30, warmup=3, attempts=5) -> float:
   """Mean device time in ms of the hand-written kernel that fn launches
   (its inputs warm in L2), from torch.profiler's CUDA activity: the
   kernel's own duration, without the host time of its wrapper, which
   events around back-to-back calls measure instead when the kernel is
-  shorter."""
+  shorter. A window counts only if the profiler saw every one of the
+  reps launches; the profiler sometimes delivers fewer (7 of 30 in one
+  run of phase 3 on an H100), so a window that misses some is run
+  again, up to ``attempts`` times, and the script fails if none is
+  whole."""
   from torch.profiler import ProfilerActivity, profile
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
-  # acc_events: keep the events of every collection cycle of the window
-  # (the profiler warns that it clears them at the end of each cycle)
-  with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  times = [e.time_range.elapsed_us() for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and any(k in e.name for k in HANDWRITTEN)]
-  if len(times) != reps:
-    raise AssertionError(f"the profiler saw {len(times)} kernel launches in "
-                         f"{reps} calls")
-  return sum(times) / reps / 1e3
+  seen = []
+  for _ in range(attempts):
+    # acc_events: keep the events of every collection cycle of the window
+    # (the profiler warns that it clears them at the end of each cycle)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.name for k in HANDWRITTEN)]
+    seen.append(len(times))
+    if len(times) == reps:
+      if len(seen) > 1:
+        print(f"device_ms: the profiler saw {seen} of {reps} launches in "
+              f"its windows; the last one is whole", flush=True)
+      return sum(times) / reps / 1e3
+  raise AssertionError(f"the profiler saw {seen} kernel launches in "
+                       f"{attempts} windows of {reps} calls")
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -1593,6 +1631,338 @@ def phase_slice_scenes(report, details):
       scenes=scenes)
 
 
+# --- phases 16-18: the solver and integrator options -----------------------
+
+OPTIONS_NSTEP = 20
+RK4 = 1
+# steps of phase 18's card-against-CPU run, cut from 50 to keep the phase
+# near 90 s: the row-serial sweeps (PGS, noslip's QCQPs) and the elliptic
+# core at 100 iterations run 10⁴-10⁵ launches a step on the card (0.2-9 s
+# a step, PERF.md §5); the integrator scenes 20
+SCENE_NSTEP = {"pgs_pyramidal": 10, "pgs_elliptic": 1,
+               "noslip_pyramidal": 5, "noslip_pyramidal_it4": 20,
+               "noslip_elliptic": 2, "noslip_condim4": 2,
+               "balls_elliptic": 3}
+# scenes whose B 3072 step takes seconds: timed on one profiled step
+SLOW_SCENES = ("pgs_elliptic", "noslip_elliptic", "noslip_condim4",
+               "balls_elliptic")
+
+
+def start_batch(m, nbatch, seed, device="cuda", lower=0.0):
+  """make_batch with 0.01·N(0, 1) qpos from a numpy seed, the root lowered
+  by ``lower``: the main path's start at a small batch, the same on the
+  card and the CPU."""
+  from mujoco_tpu_torch.parallel import rollout
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  qpos = d.qpos + torch.tensor(0.01 * rng.standard_normal(
+      tuple(d.qpos.shape)), dtype=m.dtype, device=device)
+  qpos[:, 2] -= lower
+  return d.replace(qpos=qpos)
+
+
+# the elliptic humanoid's start: the main path's, feet pushed into the
+# floor so that the cone acts from the first step (at the main path's own
+# start the feet hang 0.10 above the floor for ~25 steps)
+FEET_IN_FLOOR = 0.12
+
+
+def lowered(d, lower=FEET_IN_FLOOR):
+  qpos = d.qpos.clone()
+  qpos[:, 2] -= lower
+  return d.replace(qpos=qpos)
+
+
+def option_batch(name, m, nbatch, seed, device="cuda"):
+  """general_batch of a zoo.OPTIONS scene, its zoo.ON_FLOOR bodies on the
+  floor."""
+  from mujoco_tpu_torch.models import zoo
+  d = general_batch(m, nbatch, seed, device)
+  qpos = d.qpos.clone()
+  for i, z in zoo.ON_FLOOR.get(name, {}).items():
+    qpos[:, i] = z
+  return d.replace(qpos=qpos)
+
+
+def cone_state(m, d):
+  """(share of the active frictional slots whose solve ends in the
+  elliptic cone's middle zone, active frictional slots per env) after the
+  forward pass of d."""
+  from mujoco_tpu_torch.ops import forward, solver
+  from mujoco_tpu_torch.utils.device import const
+  dd = forward.forward(m, d)
+  jar = (dd.efc_J @ dd.qacc[..., None])[..., 0] - dd.efc_aref
+  cone = solver._update(m, dd, jar, with_cost=False)[3]
+  active = ((dd.contact.dist < dd.contact.includemargin)
+            & const(m.con.condim > 1, m.device))
+  n = int(active.sum())
+  return (int((cone.mid & active).sum()) / max(n, 1),
+          n / active.shape[0])
+
+
+def profiled(m, d, nstep):
+  """A warm window of nstep scan_steps under the profiler."""
+  from mujoco_tpu_torch.parallel import rollout
+
+  def window():
+    rollout.scan_steps(m, d, nstep, check=True)
+    torch.cuda.synchronize()
+
+  window()
+  return profile_window(window, nstep)[0]
+
+
+def print_profile(tag, prof):
+  print(f"profile, {tag}: wall {prof['wall_ms_per_step']:.3f} ms/step, "
+        f"device busy {prof['device_busy_ms_per_step']:.3f} ms/step, idle "
+        f"{prof['device_idle_share']:.2%}, "
+        f"{prof['kernel_launches_per_step']:.1f} kernel launches/step",
+        flush=True)
+
+
+def backward_error(h, g, p):
+  """Per env ‖H·p − g‖∞ / (‖H‖∞‖p‖∞ + ‖g‖∞), in f64 (0 where g and p are
+  0)."""
+  h, g, p = h.double(), g.double(), p.double()
+  r = (h @ p[..., None])[..., 0] - g
+  scale = h.abs().sum(2).amax(1) * p.abs().amax(1) + g.abs().amax(1)
+  return r.abs().amax(1) / scale.clamp(min=1e-300)
+
+
+def ldl_on_newton_system(tag, m, d):
+  """The LDL kernel on the general core's first Newton system of d
+  (H = M + JᵀWJ + the elliptic cone's blocks + reg·I at the warmstart
+  pick) against its plain version. At f64 elementwise, 1e-9 relative. At
+  f32 the stiff contact rows leave H ill-conditioned, so that two
+  backward-stable solves differ by cond(H)·eps: each is held by its
+  backward error instead, per env ‖H·p − g‖∞ / (‖H‖∞‖p‖∞ + ‖g‖∞) in f64
+  on the f32 inputs, the kernel's at most 1e-5 (n·eps is 1.6e-6), the
+  plain version's printed beside it. Returns the largest
+  |kernel − plain|."""
+  from mujoco_tpu_torch.ops import forward, linalg_cuda, solver
+  d = forward.fwd_acceleration(m, forward.fwd_actuation(
+      m, forward.fwd_velocity(m, forward.fwd_position(m, d))))
+  h, grad, _, _ = solver.newton_system(m, d, solver.warmstart(m, d)[0])
+  p = linalg_cuda.spd_solve_kernel(h, grad)
+  torch.cuda.synchronize()
+  ref = linalg_cuda.spd_solve_plain(h, grad)
+  abs_err = (p - ref).abs().max().item()
+  offdiag = (h - torch.diag_embed(torch.diagonal(h, dim1=1, dim2=2))).abs()
+  head = (f"ldl_solve on {tag}'s Newton system {str(m.dtype)[6:]} B"
+          f"{h.shape[0]} n{h.shape[1]} (largest off-diagonal |H| "
+          f"{offdiag.max().item():.3e}):")
+  if m.dtype == torch.float64:
+    rel = abs_err / ref.abs().max().item()
+    print(f"{head} max rel err {rel:.3e} (limit 1e-9)", flush=True)
+    ok = rel <= 1e-9
+  else:
+    ek, ep = backward_error(h, grad, p), backward_error(h, grad, ref)
+    fwd = (p - ref).abs().amax(1) / ref.abs().amax(1).clamp(min=1e-30)
+    print(f"{head} backward error per env: kernel most {ek.max().item():.3e}"
+          f" (limit 1e-5), median {ek.median().item():.3e}; plain most "
+          f"{ep.max().item():.3e}, median {ep.median().item():.3e}; "
+          f"|kernel − plain| / |plain| per env most {fwd.max().item():.3e}",
+          flush=True)
+    ok = ek.max().item() <= 1e-5
+  if not ok:
+    raise AssertionError(f"ldl_solve disagrees on {tag}'s Newton system")
+  return abs_err
+
+
+def phase_humanoid_elliptic(report, details):
+  """16: humanoid_elliptic (the elliptic cone at impratio 100, implicitfast)
+  at full width through the general core and the LDL kernel."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward, megastep_cuda
+  load = lambda dtype, dev="cuda": zoo.load("humanoid_elliptic", dtype, dev)
+  m = load(torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits humanoid_elliptic")
+  ldl_err = {str(dtype)[6:]: ldl_on_newton_system(
+      "humanoid_elliptic", load(dtype), lowered(main_path_batch(load(dtype))))
+      for dtype in (torch.float64, torch.float32)}
+  d0 = lowered(main_path_batch(m))
+  mid_start, slots_start = cone_state(m, d0)
+  out, wall, launches = stage_run(m, d0, OPTIONS_NSTEP)
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  # the guard puts a diverged env back at d_fresh, whose time is 0
+  reset = int((out.time < OPTIONS_NSTEP * float(m.opt.timestep) * 0.999)
+              .sum())
+  mid_end, slots_end = cone_state(m, out)
+  sps = B * OPTIONS_NSTEP / wall
+  print(f"humanoid_elliptic: f32 B{B} {OPTIONS_NSTEP} steps from the main "
+        f"path's start lowered {FEET_IN_FLOOR}: wall {wall:.3f} s, {sps:.1f} "
+        f"env-steps/s, launches {launches} "
+        f"({launches['ldl_solve'] / OPTIONS_NSTEP:.1f} LDL per step), finite "
+        f"{finite}, envs the guard reset {reset}; active frictional slots "
+        f"per env {slots_start:.2f} at the start, {slots_end:.2f} at the end, "
+        f"of them in the cone's middle zone {mid_start:.2%} and "
+        f"{mid_end:.2%}", flush=True)
+  if not finite or launches != {"ldl_solve": 2 * OPTIONS_NSTEP,
+                                "newton_pyramidal": 0, "megastep": 0}:
+    raise AssertionError(f"humanoid_elliptic: finite {finite}, launches "
+                         f"{launches}")
+  prof = profiled(m, out, 3)
+  print_profile(f"humanoid_elliptic f32 B{B} 3 steps", prof)
+  worst = card_vs_cpu(load, lambda mm, dev: start_batch(
+      mm, 16, 21, dev, FEET_IN_FLOOR), 10, "humanoid_elliptic")
+  # d Σ qpos(one step) / d ctrl through SpdSolve's backward
+  grads = {}
+  for dev in ("cuda", "cpu"):
+    mm = load(torch.float64, dev)
+    dd = start_batch(mm, 8, 22, dev, FEET_IN_FLOOR)
+    rng = np.random.default_rng(23)
+    ctrl = torch.tensor(0.2 * rng.uniform(-1, 1, tuple(dd.ctrl.shape)),
+                        device=dev, requires_grad=True)
+    reset_counts()
+    out1 = forward.step(mm, dd.replace(ctrl=ctrl))
+    fwd = read_counts()
+    out1.qpos.sum().backward()
+    if dev == "cuda":
+      torch.cuda.synchronize()
+    grads[dev] = (ctrl.grad.cpu(), fwd, read_counts())
+  rel = ((grads["cuda"][0] - grads["cpu"][0]).abs().max()
+         / grads["cpu"][0].abs().max()).item()
+  print(f"humanoid_elliptic gradient: f64 B8, one step, d Σ qpos / d ctrl "
+        f"card vs CPU max rel err {rel:.3e} (limit 1e-8); launches in the "
+        f"forward {grads['cuda'][1]}, after the backward {grads['cuda'][2]}",
+        flush=True)
+  if not rel <= 1e-8 or grads["cuda"][1]["ldl_solve"] != 2 or \
+      grads["cuda"][2]["ldl_solve"] <= 2:
+    raise AssertionError(f"humanoid_elliptic gradient: rel err {rel}, "
+                         f"launches {grads['cuda'][1:]}")
+  details["humanoid_elliptic"] = dict(
+      batch=B, nstep=OPTIONS_NSTEP, wall_s=wall, env_steps_per_s=sps,
+      launches=launches, ldl_launches_per_step=launches["ldl_solve"]
+      / OPTIONS_NSTEP, profile=prof, middle_zone_share_start=mid_start,
+      middle_zone_share_end=mid_end, frictional_slots_start=slots_start,
+      frictional_slots_end=slots_end, card_vs_cpu_worst=worst,
+      envs_reset=reset, gradient_rel_err=rel,
+      gradient_launches=grads["cuda"][2],
+      ldl_newton_system_abs_err=ldl_err)
+  report["ldl_solve"].setdefault("launches_by_path", {})[
+      "humanoid_elliptic"] = launches["ldl_solve"]
+
+
+def phase_rk4(report, details):
+  """17: the flagship humanoid under RK4: four forward passes a step,
+  each through the LDL and the Newton kernel."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward, megastep_cuda, newton_cuda
+  load = lambda dtype, dev="cuda": zoo.load("humanoid", dtype, dev,
+                                            opt={"integrator": RK4})
+  m = load(torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits the humanoid under RK4")
+  out, wall, launches = stage_run(m, main_path_batch(m), OPTIONS_NSTEP)
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  sps = B * OPTIONS_NSTEP / wall
+  print(f"humanoid RK4: f32 B{B} {OPTIONS_NSTEP} steps: wall {wall:.3f} s, "
+        f"{sps:.1f} env-steps/s, launches {launches}, finite {finite}",
+        flush=True)
+  if not finite or launches != {"ldl_solve": 4 * OPTIONS_NSTEP,
+                                "newton_pyramidal": 4 * OPTIONS_NSTEP,
+                                "megastep": 0}:
+    raise AssertionError(f"humanoid RK4: finite {finite}, launches "
+                         f"{launches}")
+  prof = profiled(m, out, 3)
+  print_profile(f"humanoid RK4 f32 B{B} 3 steps", prof)
+  worst = card_vs_cpu(load, lambda mm, dev: start_batch(mm, 16, 24, dev), 10,
+                      "humanoid RK4")
+  # the Newton kernel on each forward pass's rows of the first step, f64
+  mm = load(torch.float64)
+  captured, run = [], newton_cuda.run
+
+  def recording(args, iterations, ls_iter):
+    captured.append(args)
+    return run(args, iterations, ls_iter)
+
+  newton_cuda.run = recording
+  try:
+    forward.step(mm, main_path_batch(mm))
+  finally:
+    newton_cuda.run = run
+  it, ls = int(mm.opt.iterations), int(mm.opt.ls_iterations)
+  passes = []
+  for k, args in enumerate(captured):
+    out_k = newton_cuda.newton_kernel(*args, it, ls)
+    torch.cuda.synchronize()
+    out_p = newton_cuda.newton_plain(*args, it, ls)
+    viol = newton_violation(out_k, out_p)
+    off, worst_other, table = newton_rows_gate(args, out_k, out_p, it, ls)
+    unmatched = [row for row in table if row[1] == 0]
+    print(f"newton rows, RK4 forward pass {k + 1} of the first step: f64 "
+          f"B{B} it{it} ls{ls} worst err / (1e-9 + 1e-9·|plain|) "
+          + " ".join(f"{n} {v:.3f}" for n, v in viol.items())
+          + f"; {len(off)} envs off elementwise, replayed {table}",
+          flush=True)
+    if len(off) > B // 100 or not worst_other <= 1.0 or unmatched:
+      raise AssertionError(f"RK4 pass {k + 1}: kernel and plain disagree")
+    passes.append(dict(violation=viol, off_envs=off, replay=table))
+  if len(captured) != 4:
+    raise AssertionError(f"RK4 step made {len(captured)} Newton solves")
+  details["rk4"] = dict(batch=B, nstep=OPTIONS_NSTEP, wall_s=wall,
+                        env_steps_per_s=sps, launches=launches, profile=prof,
+                        card_vs_cpu_worst=worst, newton_passes=passes)
+  for name in ("ldl_solve", "newton_pyramidal"):
+    report[name].setdefault("launches_by_path", {})["rk4"] = launches[name]
+
+
+def phase_option_scenes(report, details):
+  """18: every scene of zoo.OPTIONS (PGS, noslip, the elliptic cone,
+  RK4, implicit, implicitfast): card against CPU at f64, B 64, then its
+  rate, launches and idle share at f32, B 3072."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import megastep_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  scenes = {}
+  for name in zoo.OPTIONS:
+    t0 = time.perf_counter()
+    nstep = SCENE_NSTEP.get(name, 20)
+    worst = card_vs_cpu(lambda dtype, dev, n=name: zoo.load_scene(n, dtype,
+                                                                  dev),
+                        lambda mm, dev, n=name: option_batch(n, mm, 64, 25,
+                                                             dev),
+                        nstep, f"option scene {name}")
+    m = zoo.load_scene(name, torch.float32)
+    if megastep_cuda.supported(m):
+      raise AssertionError(f"the megastep admits {name}")
+    d = option_batch(name, m, B, 26)
+    slow = name in SLOW_SCENES
+    if slow:
+      # one step, counted and profiled at once (the profiler's cost is
+      # ~0.3 % of such a step)
+      torch.cuda.synchronize()
+      reset_counts()
+      holder = {}
+      prof = profile_window(lambda: (holder.update(out=rollout.scan_steps(
+          m, d, 1, check=True)), torch.cuda.synchronize()), 1)[0]
+      launches, out = read_counts(), holder["out"]
+      rate_nstep, wall = 1, prof["wall_ms_per_step"] / 1e3
+    else:
+      rollout.scan_steps(m, d, 1, check=True)           # warm
+      rate_nstep = 5
+      out, wall, launches = stage_run(m, d, rate_nstep)
+      prof = profiled(m, out, 1)
+    finite = bool(torch.isfinite(out.qpos).all()
+                  & torch.isfinite(out.qvel).all())
+    sps = B * rate_nstep / wall
+    print(f"option scene {name}: nefc {m.efc.nefc}, f32 B{B} {rate_nstep} "
+          f"steps{' (profiled)' if slow else ''}: wall {wall:.3f} s, "
+          f"{sps:.1f} env-steps/s, launches {launches}, finite {finite}; "
+          f"scene done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_profile(f"option scene {name} f32 B{B} 1 step", prof)
+    if not finite:
+      raise AssertionError(f"option scene {name}: non-finite state")
+    scenes[name] = dict(card_vs_cpu_nstep=nstep, card_vs_cpu_worst=worst,
+                        rate_nstep=rate_nstep, wall_s=wall,
+                        env_steps_per_s=sps, launches=launches, profile=prof)
+  details["option_scenes"] = scenes
+  for name in ("ldl_solve", "newton_pyramidal"):
+    report[name].setdefault("launches_by_path", {})["option_scenes"] = sum(
+        s["launches"][name] for s in scenes.values())
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1624,6 +1994,9 @@ def main() -> int:
   phase_multi_humanoid(report, details)
   phase_newton_gradient(report, details)
   phase_slice_scenes(report, details)
+  phase_humanoid_elliptic(report, details)
+  phase_rk4(report, details)
+  phase_option_scenes(report, details)
 
   kernels = [report["ldl_solve"], report["newton_pyramidal"],
              report["megastep"]]

@@ -31,10 +31,9 @@ import torch
 from mujoco_tpu_torch.models.types import (BiasType, ConeType, Contact,
                                            ContactMeta, Data, DisableBit,
                                            DynType, EfcMeta, EnableBit,
-                                           EqType,
-                                           GainType, GeomType, Integrator,
+                                           EqType, GainType, GeomType,
                                            JointType, Model, Option,
-                                           SolverType, TreeTopology, TrnType)
+                                           TreeTopology, TrnType)
 from mujoco_tpu_torch.utils.device import default_device
 from mujoco_tpu_torch.utils.struct import is_static
 
@@ -233,9 +232,11 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
   """Fixed row layout (mujoco_tpu/models/io.py:1074-1172): equality,
   friction loss (the dofs', then the tendons'), limits (two sides per
   hinge/slide, one row per ball, then two sides per limited tendon), then
-  contacts (one row for condim 1, 2·(condim − 1) pyramidal edges
-  otherwise). A friction row's friction_ten and a joint limit row's
-  limit_ten are −1, as are a tendon row's friction_dof and limit_jnt."""
+  contacts: one row for condim 1; otherwise 2·(condim − 1) pyramidal
+  edges, or under the elliptic cone condim rows (the normal, the two
+  tangents, then the torsional and rolling axes). A friction row's
+  friction_ten and a joint limit row's limit_ten are −1, as are a tendon
+  row's friction_dof and limit_jnt."""
   eq_id, eq_row = [], []
   for i in range(mjm.neq):
     t = EqType(int(mjm.eq_type[i]))
@@ -271,8 +272,10 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
 
   con_id, con_row, con_efcadr, con_nrow = [], [], [], []
   adr = ne + nf + nl
+  pyramidal = int(mjm.opt.cone) == ConeType.PYRAMIDAL
   for c in range(con["ncon"]):
-    nrow = 1 if con["condim"][c] == 1 else 2 * (int(con["condim"][c]) - 1)
+    dim = int(con["condim"][c])
+    nrow = 1 if dim == 1 else (2 * (dim - 1) if pyramidal else dim)
     con_efcadr.append(adr)
     con_nrow.append(nrow)
     for r in range(nrow):
@@ -346,20 +349,6 @@ def _actuator_meta(mjm: Any):
   return dyn, gain, bias
 
 
-def _check_solver(mjm: Any, nefc: int) -> None:
-  """The constraint solve runs only when the model has constraint rows;
-  then it must be Newton or CG on the pyramidal cone, without noslip."""
-  opt = mjm.opt
-  if nefc == 0 or opt.disableflags & DisableBit.CONSTRAINT:
-    return
-  if int(opt.solver) not in (SolverType.NEWTON, SolverType.CG):
-    raise NotImplementedError(f"solver {SolverType(int(opt.solver)).name}")
-  if int(opt.cone) == ConeType.ELLIPTIC:
-    raise NotImplementedError("elliptic friction cone")
-  if int(opt.noslip_iterations) > 0:
-    raise NotImplementedError("noslip")
-
-
 def _check_subset(mjm: Any) -> None:
   """Reject every feature the port does not implement yet."""
   counts = [("sensors", mjm.nsensor), ("flex", getattr(mjm, "nflex", 0)),
@@ -368,9 +357,6 @@ def _check_subset(mjm: Any) -> None:
     if int(n):
       raise NotImplementedError(name)
   opt = mjm.opt
-  if int(opt.integrator) != Integrator.EULER:
-    raise NotImplementedError(
-        f"integrator {Integrator(int(opt.integrator)).name}")
   if int(opt.enableflags) & EnableBit.SLEEP:
     raise NotImplementedError("sleep")
   if int(opt.enableflags) & EnableBit.ENERGY:
@@ -422,7 +408,6 @@ def model_numpy(mjm: Any) -> dict:
   dyn, gain, bias = _actuator_meta(mjm)
   con = _contact_meta(mjm)
   efc = _efc_meta(mjm, con)
-  _check_solver(mjm, efc["nefc"])
   f = {
       "nq": mjm.nq, "nv": mjm.nv, "nu": mjm.nu, "na": mjm.na,
       "nbody": mjm.nbody, "njnt": mjm.njnt, "ngeom": mjm.ngeom,

@@ -12,8 +12,11 @@ scenes (equality, friction-loss, ball-limit, condim 4/6 and explicit-pair
 rows, cameras and lights) of tests/test_contact.py, tests/test_pgs.py and
 tests/test_collision2.py, plus ``weld_ball_chain``, written for this port's
 tests; the tendon and transmission scenes of tests/test_tendon.py, plus
-``tendon_rows`` and ``mocap_weld``; and ``humanoid_tendon``, the flagship
-humanoid with two limited fixed tendons. Every scene is compiled with
+``tendon_rows`` and ``mocap_weld``; ``humanoid_tendon``, the flagship
+humanoid with two limited fixed tendons; the scenes of the solver and
+integrator options (``zoo.OPTIONS``) of tests/test_pgs.py,
+tests/test_implicit.py and tests/models.py; and ``humanoid_elliptic``,
+the flagship humanoid at the elliptic cone and implicitfast. Every scene is compiled with
 constraint islands disabled, as tests/test_megastep.py compiles its
 scenes. A test holds every committed file equal to a fresh compile, so
 rerun this after any change to the XMLs or to the fields the port's Model
@@ -478,6 +481,129 @@ def humanoid_tendon_xml() -> str:
   return xml.replace("  <actuator>", HUMANOID_TENDONS + "  <actuator>", 1)
 
 
+# the solver and integrator options' scenes (zoo.OPTIONS). tests/test_pgs.py
+# :20 (_ball_xml) under the elliptic cone: BALL_HINGE_FRIC_XML with
+# cone="elliptic"
+BALL_HINGE_FRIC_ELLIPTIC_XML = BALL_HINGE_FRIC_XML.replace(
+    '<option timestep="0.002" />',
+    '<option timestep="0.002" cone="elliptic"/>')
+
+# tests/test_pgs.py:113-130 (test_noslip_elliptic_condim4_vs_oracle): a
+# condim-4 sphere on the floor, elliptic, noslip through the QCQP3 branch
+SPHERE_CONDIM4_ELLIPTIC_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton" cone="elliptic"
+          noslip_iterations="25"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="4 4 0.1" friction="1 0.05 0.002"/>
+    <body pos="0 0 0.09">
+      <freejoint/>
+      <geom type="sphere" size="0.1" condim="4" friction="0.7 0.06 0.003"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_implicit.py:20 (SERVO_XML) at integrator="implicit": a damped
+# double pendulum with a position and a velocity servo
+SERVO_XML = """
+<mujoco>
+  <option timestep="0.004" integrator="implicit"/>
+  <worldbody>
+    <body pos="0 0 1.2">
+      <joint name="j1" type="hinge" axis="0 1 0" damping="0.3"/>
+      <geom type="capsule" size="0.04" fromto="0 0 0 0 0 -0.5"/>
+      <body pos="0 0 -0.5">
+        <joint name="j2" type="hinge" axis="0 1 0" damping="0.12"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 -0.3"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <position joint="j1" kp="40" kv="3"/>
+    <velocity joint="j2" kv="1.5"/>
+  </actuator>
+</mujoco>
+"""
+
+# tests/test_implicit.py:41 (FREEBODY_XML) at integrator="implicit": a
+# standalone tumbling free body, the free_mhat path
+FREEBODY_XML = """
+<mujoco>
+  <option timestep="0.004" integrator="implicit" gravity="0 0 0"/>
+  <worldbody>
+    <body pos="0 0 1">
+      <freejoint/>
+      <geom type="box" size="0.2 0.05 0.03" density="800" contype="0"
+            conaffinity="0"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+# tests/models.py:48 (CHAIN_3D) at integrator="implicit": a free joint with
+# children (ball, hinge and slide joints, offset anchors, damping)
+CHAIN_3D_XML = """
+<mujoco>
+  <option timestep="0.003" integrator="implicit"/>
+  <worldbody>
+    <body pos="0.1 -0.05 1.4" quat="0.96 0.1 0.2 0.12">
+      <freejoint/>
+      <geom type="box" size="0.08 0.05 0.03" density="700" contype="0"
+            conaffinity="0"/>
+      <body pos="0.09 0.01 -0.02" quat="0.9 0.17 0 0.4">
+        <joint type="ball" pos="0.01 0.005 0.02" damping="0.01"/>
+        <geom type="capsule" size="0.025" fromto="0 0 0 0.22 0.05 -0.18"
+              contype="0" conaffinity="0"/>
+        <body pos="0.22 0.05 -0.18">
+          <joint type="hinge" axis="0.3 0.9 0.4" pos="0.01 -0.01 0.0"/>
+          <joint type="slide" axis="1 0.2 0" damping="0.03"/>
+          <geom type="sphere" size="0.045" pos="0.1 0 0" contype="0"
+                conaffinity="0"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+# tests/models.py:73 (BALLS) under the elliptic cone, as
+# tests/test_contact.py:152 runs it: a sphere and a capsule, each free,
+# falling on the floor
+BALLS_ELLIPTIC_XML = """
+<mujoco>
+  <option timestep="0.002" cone="elliptic"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="4 4 0.1" friction="1 0.01 0.002"/>
+    <body pos="0 0 0.35">
+      <freejoint/>
+      <geom type="sphere" size="0.1" friction="0.8 0.008 0.001"/>
+    </body>
+    <body pos="0.15 0.02 0.8">
+      <freejoint/>
+      <geom type="capsule" size="0.06" fromto="-0.12 0 0 0.12 0 0"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+# the flagship humanoid at the options MuJoCo Menagerie's robots set: the
+# elliptic cone with impratio 100 (its legged robots, e.g. unitree_go2)
+# and the implicitfast integrator (its arms, e.g. franka_emika_panda); the
+# Newton solver at iterations 1, ls_iterations 4, eulerdamp off, as the
+# flagship
+HUMANOID_ELLIPTIC_OPTION = ('<option timestep="0.005" iterations="1" '
+                            'ls_iterations="4" cone="elliptic" '
+                            'impratio="100" integrator="implicitfast">')
+
+
+def humanoid_elliptic_xml() -> str:
+  with open(os.path.join(zoo.XML_DIR, "humanoid.xml")) as f:
+    xml = f.read()
+  old = '<option timestep="0.005" iterations="1" ls_iterations="4">'
+  assert old in xml
+  return xml.replace(old, HUMANOID_ELLIPTIC_OPTION, 1)
+
+
 _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "eq_connect_joint": EQ_CONNECT_JOINT_XML,
            "limits_frictionloss": LIMITS_FRICTIONLOSS_XML,
@@ -490,15 +616,20 @@ _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "tendon_cyl_wrap": TENDON_CYL_WRAP_XML,
            "tendon_pulley": TENDON_PULLEY_XML, "site_trn": SITE_TRN_XML,
            "slidercrank": SLIDERCRANK_XML, "tendon_rows": TENDON_ROWS_XML,
-           "mocap_weld": MOCAP_WELD_XML}
+           "mocap_weld": MOCAP_WELD_XML,
+           "ball_hinge_fric_elliptic": BALL_HINGE_FRIC_ELLIPTIC_XML,
+           "sphere_condim4_elliptic": SPHERE_CONDIM4_ELLIPTIC_XML,
+           "servo": SERVO_XML, "freebody": FREEBODY_XML,
+           "chain_3d": CHAIN_3D_XML, "balls_elliptic": BALLS_ELLIPTIC_XML}
+_FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
+              "humanoid_elliptic": humanoid_elliptic_xml}
 
 
 def compile_mj(name: str):
   """The compiled ``mujoco.MjModel`` of a snapshot model."""
   import mujoco
-  if name in _SCENES or name == "humanoid_tendon":
-    xml = humanoid_tendon_xml() if name == "humanoid_tendon" else \
-        _SCENES[name]
+  if name in _SCENES or name in _FROM_FILE:
+    xml = _FROM_FILE[name]() if name in _FROM_FILE else _SCENES[name]
     mjm = mujoco.MjModel.from_xml_string(xml)
     mjm.opt.disableflags |= int(DisableBit.ISLAND)
     return mjm

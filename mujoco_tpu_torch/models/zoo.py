@@ -17,6 +17,11 @@ and mocap bodies; ``humanoid_tendon`` is the flagship humanoid with two
 limited fixed tendons (a stage-path model at the main path's options);
 ``multi_humanoid3`` is the reference zoo's 3-humanoid scene (nv 81),
 carried across from ``mujoco_tpu`` by tests/test_torch_model.py.
+``OPTIONS`` are the scenes of the solver and integrator options (PGS,
+noslip, the elliptic cone, RK4, implicit and implicitfast), each a
+snapshot and the options ``load`` sets on it (``load_scene``);
+``humanoid_elliptic`` is the flagship humanoid at the elliptic cone
+(impratio 100) and implicitfast.
 """
 
 from __future__ import annotations
@@ -39,9 +44,39 @@ GENERAL = ("eq_connect_joint", "limits_frictionloss", "ball_hinge_fric",
 TENDON = ("tendon_straight", "tendon_sphere_wrap", "tendon_cyl_wrap",
           "tendon_pulley", "site_trn", "slidercrank", "tendon_rows",
           "mocap_weld")
+# solver and integrator options (models/types.py enum values)
+_PGS, _RK4, _IMPLICIT, _IMPLICITFAST = 0, 1, 2, 3
+# scene → (snapshot, options set on it); the scenes of tests/test_pgs.py,
+# tests/test_implicit.py, tests/models.py and tests/test_contact.py
+OPTIONS = {
+    "pgs_pyramidal": ("ball_hinge_fric", {"solver": _PGS}),
+    "pgs_elliptic": ("ball_hinge_fric_elliptic", {"solver": _PGS}),
+    "noslip_pyramidal": ("ball_hinge_fric", {"noslip_iterations": 20}),
+    # noslip after the Newton kernel's solve
+    "noslip_pyramidal_it4": ("ball_hinge_fric", {"iterations": 4,
+                                                 "noslip_iterations": 20}),
+    "noslip_elliptic": ("ball_hinge_fric_elliptic",
+                        {"noslip_iterations": 20}),
+    "noslip_condim4": ("sphere_condim4_elliptic", {}),
+    "balls_elliptic": ("balls_elliptic", {}),
+    "servo_rk4": ("servo", {"integrator": _RK4}),
+    "servo_implicit": ("servo", {}),
+    "servo_implicitfast": ("servo", {"integrator": _IMPLICITFAST}),
+    "freebody_implicit": ("freebody", {}),
+    "freebody_implicitfast": ("freebody", {"integrator": _IMPLICITFAST}),
+    "chain_3d_implicit": ("chain_3d", {}),
+    "chain_3d_implicitfast": ("chain_3d", {"integrator": _IMPLICITFAST}),
+}
+# free bodies that the tests and chip_smoke.py start on the floor, so
+# that the scene's contacts act from the first step: scene → {qpos index:
+# height}
+ON_FLOOR = {"balls_elliptic": {2: 0.095, 9: 0.058},
+            "noslip_condim4": {2: 0.095}}
 # compiled from MJCF by models/snapshot.py
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
-             + TENDON + ("humanoid_tendon",))
+             + TENDON + ("humanoid_tendon",)
+             + tuple(sorted({s for s, _ in OPTIONS.values()}))
+             + ("humanoid_elliptic",))
 # carried across from the reference's Model (tests/test_torch_model.py)
 CARRIED = ("multi_humanoid3",)
 
@@ -70,6 +105,14 @@ def load(name: str, dtype: Optional[torch.dtype] = None, device=None,
   for k, v in (opt or {}).items():
     fields[f"opt.{k}"] = np.asarray(v, dtype=fields[f"opt.{k}"].dtype)
   return io.model_from_numpy(fields, dtype=dtype, device=device)
+
+
+def load_scene(name: str, dtype: Optional[torch.dtype] = None,
+               device=None) -> Model:
+  """The Model of a scene of ``OPTIONS``: its snapshot with its
+  options."""
+  snap, opt = OPTIONS[name]
+  return load(snap, dtype=dtype, device=device, opt=opt)
 
 
 def humanoid(dtype: Optional[torch.dtype] = None, device=None) -> Model:

@@ -4,8 +4,9 @@ Port of mujoco_tpu/ops/constraint.py: ``_impedance`` (:34), ``_kb`` (:64),
 ``_point_jac_diff`` (:84), ``_jacdot_v`` (:104), ``_equality_rows`` (:135,
 CONNECT, WELD, JOINT and TENDON), ``_friction_rows`` (:333, dof and tendon
 friction loss), ``_limit_rows`` (:371, hinge/slide sides, ball cones and
-tendon sides), pyramidal ``_contact_rows`` (:452, condim 1, 3, 4 and 6),
-``make_constraint`` (:626) and ``reference_acceleration`` (:731) with
+tendon sides), ``_contact_rows`` (:452, condim 1, 3, 4 and 6, pyramidal
+edges or elliptic axes), ``make_constraint`` (:626, with the elliptic
+rows' solreffriction and R) and ``reference_acceleration`` (:731) with
 ``_jdotv_correction`` (:748). Row layout is static (Model.efc): equality,
 friction loss (dofs, then tendons), limits (joints, then tendons), then
 contacts. A row the reference would not instantiate this step (inactive
@@ -19,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import (Data, DisableBit, EqType,
-                                           JointType, Model)
+from mujoco_tpu_torch.models.types import (ConeType, Data, DisableBit,
+                                           EqType, JointType, Model)
 from mujoco_tpu_torch.ops import support
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
@@ -329,9 +330,12 @@ def _limit_rows(m: Model, d: Data):
 
 
 def _contact_rows(m: Model, d: Data):
-  """Pyramidal contact rows: one normal row for condim 1, else the normal
-  ± μ·(tangent, torsional or rolling axis) edge pairs of each slot's
-  frame-rotated point Jacobian (mj_instantiateContact)."""
+  """Contact rows of each slot's frame-rotated point Jacobian
+  (mj_instantiateContact). Pyramidal: one normal row for condim 1, else
+  the normal ± μ·(tangent, torsional or rolling axis) edge pairs. Elliptic:
+  the normal, the tangents, then the torsional and rolling axes, one row
+  each; only the normal row has pos and margin, and the impedance of every
+  row is taken at the slot's distance."""
   meta, dev = m.efc, m.device
   ix = lambda a: index(a, dev)
   con = d.contact
@@ -346,35 +350,47 @@ def _contact_rows(m: Model, d: Data):
   cid, crow = meta.con_id, meta.con_row
   condim = m.con.condim[cid]
   frictionless = condim == 1
-  fdim = np.where(frictionless, 0, crow // 2 + 1)
-  sign = np.where(crow % 2 == 0, 1.0, -1.0)
-  # edge axis: fdim 1, 2 are the tangents (jt rows), 3, 4, 5 the torsional
-  # and rolling axes (jr rows 0, 1, 2)
-  use_rot = fdim >= 3
-  axis_idx = np.clip(np.where(use_rot, fdim - 3, fdim), 0, 2)
-  jn = jt[:, ix(cid), 0]
-  jfr = jt[:, ix(cid), ix(axis_idx)]
-  if need_rot:
-    jfr = torch.where(const(use_rot, dev)[:, None],
-                      jr[:, ix(cid), ix(axis_idx)], jfr)
-  mu_row = con.friction[:, ix(cid), ix(np.clip(fdim - 1, 0, 4))]
-  coeff = const(sign * ~frictionless, dev, m.dtype) * mu_row
-  J = jn + coeff[..., None] * jfr
-  pos = con.dist[:, ix(cid)]
-  active = ((con.dist < con.includemargin)
-            & (not m.disabled(DisableBit.CONTACT)))[:, ix(cid)]
-
   iw = m.body_invweight0
   tran = (iw[ix(b1), 0] + iw[ix(b2), 0])[ix(cid)]
-  base = tran
-  if need_rot:
-    rot = (iw[ix(b1), 1] + iw[ix(b2), 1])[ix(cid)]
-    base = torch.where(const(fdim <= 2, dev), tran, rot)
-  diaga = torch.where(const(frictionless, dev), tran,
-                      tran + mu_row * mu_row * base)
-  return dict(J=J, pos=pos, margin=con.includemargin[:, ix(cid)],
-              active=active, diaga=diaga, solref=con.solref[:, ix(cid)],
-              solimp=con.solimp[:, ix(cid)], imp_pos=pos)
+  rot = (iw[ix(b1), 1] + iw[ix(b2), 1])[ix(cid)] if need_rot else tran
+  dist = con.dist[:, ix(cid)]
+  margin = con.includemargin[:, ix(cid)]
+  if int(m.opt.cone) == int(ConeType.PYRAMIDAL):
+    fdim = np.where(frictionless, 0, crow // 2 + 1)
+    sign = np.where(crow % 2 == 0, 1.0, -1.0)
+    # edge axis: fdim 1, 2 are the tangents (jt rows), 3, 4, 5 the
+    # torsional and rolling axes (jr rows 0, 1, 2)
+    use_rot = fdim >= 3
+    axis_idx = np.clip(np.where(use_rot, fdim - 3, fdim), 0, 2)
+    jn = jt[:, ix(cid), 0]
+    jfr = jt[:, ix(cid), ix(axis_idx)]
+    if need_rot:
+      jfr = torch.where(const(use_rot, dev)[:, None],
+                        jr[:, ix(cid), ix(axis_idx)], jfr)
+    mu_row = con.friction[:, ix(cid), ix(np.clip(fdim - 1, 0, 4))]
+    coeff = const(sign * ~frictionless, dev, m.dtype) * mu_row
+    J = jn + coeff[..., None] * jfr
+    pos = dist
+    base = torch.where(const(fdim <= 2, dev), tran, rot) if need_rot \
+        else tran
+    diaga = torch.where(const(frictionless, dev), tran,
+                        tran + mu_row * mu_row * base)
+  else:
+    use_rot = crow >= 3
+    axis_idx = np.clip(np.where(use_rot, crow - 3, crow), 0, 2)
+    J = jt[:, ix(cid), ix(axis_idx)]
+    if need_rot:
+      J = torch.where(const(use_rot, dev)[:, None],
+                      jr[:, ix(cid), ix(axis_idx)], J)
+    normal = const(crow == 0, dev)
+    pos = torch.where(normal, dist, 0.0)
+    margin = torch.where(normal, margin, 0.0)
+    diaga = torch.where(const(crow < 3, dev), tran, rot).expand_as(dist)
+  active = ((con.dist < con.includemargin)
+            & (not m.disabled(DisableBit.CONTACT)))[:, ix(cid)]
+  return dict(J=J, pos=pos, margin=margin, active=active, diaga=diaga,
+              solref=con.solref[:, ix(cid)], solimp=con.solimp[:, ix(cid)],
+              imp_pos=dist, solreffriction=con.solreffriction[:, ix(cid)])
 
 
 def make_constraint(m: Model, d: Data) -> Data:
@@ -389,9 +405,9 @@ def make_constraint(m: Model, d: Data) -> Data:
   diaga, solref = cat("diaga"), cat("solref")
   solimp, imp_pos = cat("solimp"), cat("imp_pos")
 
+  dt2 = 2 * m.opt.timestep
   if not m.disabled(DisableBit.REFSAFE):
     # timeconst ≥ 2·timestep for standard solref (getsolparam)
-    dt2 = 2 * m.opt.timestep
     s0 = solref[..., 0]
     solref = torch.stack(
         [torch.where(s0 > 0, torch.clamp(s0, min=dt2), s0), solref[..., 1]],
@@ -405,9 +421,27 @@ def make_constraint(m: Model, d: Data) -> Data:
       torch.clamp(solimp[..., 4], min=1.0),
   ], dim=-1)
 
+  elliptic = int(m.opt.cone) == int(ConeType.ELLIPTIC)
+  if elliptic and meta.ncon_rows:
+    # an elliptic contact's friction rows take the slot's solreffriction
+    # where it is set (mj_makeImpedance)
+    base = meta.ne + meta.nf + meta.nl
+    srf = parts[-1]["solreffriction"]
+    if not m.disabled(DisableBit.REFSAFE):
+      s0 = srf[..., 0]
+      srf = torch.stack([torch.where(s0 > 0, torch.clamp(s0, min=dt2), s0),
+                         srf[..., 1]], dim=-1)
+    use_srf = const(meta.con_row > 0, dev) & (srf != 0).any(-1)
+    solref = torch.cat([solref[:, :base], torch.where(
+        use_srf[..., None], srf, solref[:, base:])], dim=1)
+
   imp, imp_p = _impedance(solimp, imp_pos, margin)
   r_ = torch.clamp((1 - imp) * diaga / imp, min=mjm.MINVAL)
   k, b = _kb(solref, solimp)
+  if elliptic and meta.ncon_rows:
+    # elliptic friction rows have no stiffness
+    k = torch.cat([k[:, :base], torch.where(
+        const(meta.con_row > 0, dev), 0.0, k[:, base:])], dim=1)
   frictionloss = torch.zeros_like(pos)
   if meta.nf:
     # friction-loss rows have no stiffness
@@ -420,15 +454,27 @@ def make_constraint(m: Model, d: Data) -> Data:
 
   mu = d.contact.mu
   if meta.ncon_rows:
-    # pyramidal R and the regularized cone μ (mj_makeImpedance tail)
+    # the contact rows' R and the regularized cone μ (mj_makeImpedance
+    # tail), from each slot's first-row R0 and R1 = R0 / impratio
     base = meta.ne + meta.nf + meta.nl
+    cid = index(meta.con_id, dev)
     r0 = r_[:, index(meta.con_efcadr, dev)]
     r1 = r0 / torch.clamp(m.opt.impratio, min=mjm.MINVAL)
-    mu = d.contact.friction[..., 0] * torch.sqrt(
-        r1 / torch.clamp(r0, min=mjm.MINVAL))
-    rpy = 2.0 * mu * mu * r0
-    fless = const(m.con.condim[meta.con_id] == 1, dev)
-    r_con = torch.where(fless, r_[:, base:], rpy[:, index(meta.con_id, dev)])
+    fri0 = d.contact.friction[..., 0]
+    mu = fri0 * torch.sqrt(r1 / torch.clamp(r0, min=mjm.MINVAL))
+    if elliptic:
+      # the normal row keeps R0, row 1 gets R1, row j R1·fri0² / fri_j²
+      crow = meta.con_row
+      frij = d.contact.friction[:, cid, index(np.clip(crow - 1, 0, 4), dev)]
+      r_fric = (r1[:, cid] * fri0[:, cid] ** 2
+                / torch.clamp(frij ** 2, min=mjm.MINVAL))
+      r_con = torch.where(const(crow == 0, dev), r0[:, cid],
+                          torch.where(const(crow == 1, dev), r1[:, cid],
+                                      r_fric))
+    else:
+      rpy = 2.0 * mu * mu * r0
+      fless = const(m.con.condim[meta.con_id] == 1, dev)
+      r_con = torch.where(fless, r_[:, base:], rpy[:, cid])
     r_ = torch.cat([r_[:, :base], r_con], dim=1)
 
   act_f = active.to(m.dtype)

@@ -1,0 +1,138 @@
+"""Velocity derivatives for the implicit integrators (port of
+mujoco_tpu/ops/derivative.py: ``actuator_vel`` :27, ``passive_vel`` :121,
+``rne_vel`` :152, ``smooth_vel`` :165, ``free_body_joints`` :173 and
+``free_mhat`` :190).
+
+qDeriv = ∂(qfrc_actuator + qfrc_passive − qfrc_bias)/∂qvel, dense
+(B, nv, nv). The actuator and passive terms are closed forms over what
+``io.put_model`` admits: FIXED/AFFINE gains and NONE/AFFINE biases without
+activation state, dof and tendon damping. The RNE term is the derivative
+of the port's own ``smooth.com_vel`` and ``smooth.rne`` with respect to
+qvel, by automatic differentiation as the reference takes it with
+``jax.jacfwd``: here reverse mode over a batch grown k-fold, one
+cotangent e_i per copy, which gives k rows of the Jacobian from one
+forward and one backward pass.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_tpu_torch.models.types import (BiasType, Data, DisableBit,
+                                           GainType, JointType, Model)
+from mujoco_tpu_torch.ops import smooth
+from mujoco_tpu_torch.utils.device import const
+
+
+def wants_graph(m: Model, d: Data) -> bool:
+  """Whether a derivative taken inside a step needs a graph of its own:
+  gradients are on and a state or Model tensor requires one (else a
+  rollout's graph would grow step by step)."""
+  return torch.is_grad_enabled() and any(
+      isinstance(t, torch.Tensor) and t.requires_grad
+      for t in (d.qpos, d.qvel, d.mocap_pos, d.mocap_quat,
+                *vars(m).values(), *vars(m.opt).values()))
+
+
+def actuator_vel(m: Model, d: Data):
+  """∂qfrc_actuator/∂qvel (mjd_actuator_vel): momentᵀ·diag(gain_vel·ctrl
+  + bias_vel)·moment, zero for an actuator whose force sits at its
+  limit."""
+  nbatch = d.qpos.shape[0]
+  if m.nu == 0 or m.disabled(DisableBit.ACTUATION):
+    return d.qpos.new_zeros((nbatch, m.nv, m.nv))
+  dev = m.device
+  bias_vel = torch.where(const(m.actuator_biastype == BiasType.AFFINE, dev),
+                         m.actuator_biasprm[:, 2], 0.0)
+  gain_vel = torch.where(const(m.actuator_gaintype == GainType.AFFINE, dev),
+                         m.actuator_gainprm[:, 2], 0.0)
+  ctrl = d.ctrl
+  if not m.disabled(DisableBit.CLAMPCTRL):
+    rng = m.actuator_ctrlrange
+    ctrl = torch.where(const(m.actuator_ctrllimited.astype(bool), dev),
+                       torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
+  coef = bias_vel + gain_vel * ctrl
+  f, frange = d.actuator_force, m.actuator_forcerange
+  clamped = (const(m.actuator_forcelimited.astype(bool), dev)
+             & ((f <= frange[:, 0]) | (f >= frange[:, 1])))
+  coef = torch.where(clamped, 0.0, coef)
+  moment = d.actuator_moment
+  return moment.transpose(1, 2) @ (coef[..., None] * moment)
+
+
+def passive_vel(m: Model, d: Data):
+  """∂qfrc_passive/∂qvel (mjd_passive_vel): −diag(dof damping) −
+  ten_Jᵀ·diag(tendon damping)·ten_J."""
+  nbatch = d.qpos.shape[0]
+  out = d.qpos.new_zeros((nbatch, m.nv, m.nv))
+  if m.disabled(DisableBit.DAMPER):
+    return out
+  out = out - torch.diag(m.dof_damping)
+  if m.ntendon:
+    out = out - d.ten_J.transpose(1, 2) @ (m.tendon_damping[:, None]
+                                           * d.ten_J)
+  return out
+
+
+def bias_vel_rows(m: Model, d: Data, rows):
+  """Rows ``rows`` (static) of ∂qfrc_bias/∂qvel, (B, len(rows), nv), by
+  reverse mode through ``smooth.com_vel`` and ``smooth.rne`` on a batch
+  of len(rows) copies of each env."""
+  nbatch, k, nv = d.qpos.shape[0], len(rows), m.nv
+  rep = lambda t: t.repeat_interleave(k, dim=0)
+  outer = wants_graph(m, d)
+  cot = np.zeros((k, nv))
+  cot[np.arange(k), rows] = 1.0
+  cot = const(cot, m.device, d.qvel.dtype).repeat(nbatch, 1)
+  with torch.enable_grad():
+    qvel = rep(d.qvel if outer else d.qvel.detach())
+    if not qvel.requires_grad:
+      qvel.requires_grad_(True)
+    dd = d.replace(qvel=qvel, cdof=rep(d.cdof), cinert=rep(d.cinert))
+    bias = smooth.rne(m, smooth.com_vel(m, dd))
+    jac, = torch.autograd.grad(bias, qvel, cot, create_graph=outer)
+  if not outer:
+    jac = jac.detach()
+  return jac.reshape(nbatch, k, nv)
+
+
+def rne_vel(m: Model, d: Data):
+  """∂qfrc_bias/∂qvel (mjd_rne_vel), (B, nv, nv): out[:, i, j] =
+  ∂bias_i/∂qvel_j."""
+  return bias_vel_rows(m, d, np.arange(m.nv))
+
+
+def smooth_vel(m: Model, d: Data, flg_bias: bool):
+  """qDeriv (mjd_smooth_vel), dense (B, nv, nv)."""
+  out = actuator_vel(m, d) + passive_vel(m, d)
+  if flg_bias:
+    out = out - rne_vel(m, d)
+  return out
+
+
+def free_body_joints(m: Model) -> list:
+  """Free joints of standalone free bodies (mj_isFreeBody): the body's
+  only joint, and no child body."""
+  out = []
+  for j in range(m.njnt):
+    if int(m.jnt_type[j]) != int(JointType.FREE):
+      continue
+    b = int(m.jnt_bodyid[j])
+    if int(m.body_jntnum[b]) != 1 or m.tree.subtree_mask[b].sum() != 1:
+      continue
+    out.append(j)
+  return out
+
+
+def free_mhat(m: Model, d: Data, jnt: int, qderiv):
+  """The 6×6 block M − h·qDeriv of a standalone free body, plus h times
+  its gyroscopic bias derivative restricted to the angular-velocity
+  columns (mjd_freeMhat), (B, 6, 6)."""
+  h = m.opt.timestep
+  adr = int(m.jnt_dofadr[jnt])
+  sl = slice(adr, adr + 6)
+  a = d.qM[:, sl, sl] - h * qderiv[:, sl, sl]
+  db = bias_vel_rows(m, d, np.arange(adr, adr + 6))[:, :, sl]
+  db = torch.cat([torch.zeros_like(db[..., :3]), db[..., 3:]], dim=-1)
+  return a + h * db

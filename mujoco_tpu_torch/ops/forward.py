@@ -6,9 +6,10 @@ ten_velocity and the tendon-armature bias ``_tendon_bias`` :91),
 ``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose M⁻¹·qfrc goes
 through the CUDA LDL kernel, or under CG through the tree factor),
 ``fwd_constraint`` (:134), ``forward`` (:152), ``integrate_pos`` (:210),
-``euler`` (:416, with implicit joint damping) and ``step`` (:515).
-Sensors, energy, sleep, flex, RK4 and the implicit integrators are outside
-the slice; ``io.put_model`` rejects models that need them.
+``_advance`` (:300), ``euler`` (:416, with implicit joint damping),
+``rungekutta4`` (:437), ``implicit`` (:472, IMPLICIT and IMPLICITFAST, with
+``ops/derivative.py``) and ``step`` (:515). Sensors, energy, sleep and flex
+are outside the slice; ``io.put_model`` rejects models that need them.
 """
 
 from __future__ import annotations
@@ -16,13 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import (Data, DisableBit, JointType, Model,
-                                           SolverType)
+from mujoco_tpu_torch.models.types import (Data, DisableBit, Integrator,
+                                           JointType, Model, SolverType)
 from mujoco_tpu_torch.ops import (actuation, collision_driver, constraint,
-                                  linalg_cuda, passive, smooth, solver,
-                                  support)
+                                  derivative, linalg_cuda, passive, smooth,
+                                  solver, support)
 from mujoco_tpu_torch.utils import math as mjm
-from mujoco_tpu_torch.utils.device import index
+from mujoco_tpu_torch.utils.device import const, index
 
 
 def fwd_position(m: Model, d: Data) -> Data:
@@ -76,11 +77,8 @@ def _tendon_bias(m: Model, d: Data):
     return mjm.mat_vec(dd.ten_J, d.qvel)                 # (B, ntendon)
 
   # the derivative needs a graph of its own only where the caller
-  # differentiates through it: a state or Model tensor requires a gradient
-  outer = torch.is_grad_enabled() and any(
-      isinstance(t, torch.Tensor) and t.requires_grad
-      for t in (d.qpos, d.qvel, d.mocap_pos, d.mocap_quat,
-                *vars(m).values(), *vars(m.opt).values()))
+  # differentiates through it
+  outer = derivative.wants_graph(m, d)
   with torch.enable_grad():
     eps = d.qpos.new_zeros((), requires_grad=True)
     y = jqv_of(eps)
@@ -172,6 +170,17 @@ def integrate_pos(m: Model, qpos, qvel, dt):
   return out
 
 
+def _advance(m: Model, d: Data, qacc, qvel_pos=None) -> Data:
+  """The state advance every integrator ends with (mj_advance): qvel +=
+  h·qacc, qpos by integrate_pos, time += h; d.qacc, and so the next
+  warmstart, stays the solver's acceleration."""
+  h = m.opt.timestep
+  qvel = d.qvel + h * qacc
+  qpos = integrate_pos(m, d.qpos, qvel if qvel_pos is None else qvel_pos, h)
+  return d.replace(qvel=qvel, qpos=qpos, time=d.time + h,
+                   qacc_warmstart=d.qacc)
+
+
 def euler(m: Model, d: Data) -> Data:
   """Semi-implicit Euler (mj_Euler, engine_forward.c:1401): qvel += h·a,
   then qpos by integrate_pos. With joint damping (and neither eulerdamp nor
@@ -180,7 +189,7 @@ def euler(m: Model, d: Data) -> Data:
   reference factors that matrix on qM's tree sparsity (factor_tree /
   solve_tree); the port solves the same matrix densely with
   ``linalg_cuda.spd_solve`` (the LDL kernel on the card, Cholesky on the
-  CPU). d.qacc, and so the next warmstart, stays the solver's acceleration."""
+  CPU)."""
   h = m.opt.timestep
   acc = d.qacc
   if (m.has_dof_damping and not m.disabled(DisableBit.EULERDAMP)
@@ -188,11 +197,84 @@ def euler(m: Model, d: Data) -> Data:
     acc = linalg_cuda.spd_solve(
         d.qM + torch.diag(h * m.dof_damping),
         (d.qfrc_smooth + d.qfrc_constraint).contiguous())
-  qvel = d.qvel + h * acc
-  return d.replace(qvel=qvel, qpos=integrate_pos(m, d.qpos, qvel, h),
-                   time=d.time + h, qacc_warmstart=d.qacc)
+  return _advance(m, d, acc)
+
+
+_RK4_A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
+_RK4_B = (1 / 6, 1 / 3, 1 / 3, 1 / 6)
+
+
+def rungekutta4(m: Model, d: Data) -> Data:
+  """Classic RK4 over (qpos, qvel) (mj_RungeKutta, engine_forward.c:1502):
+  d is the step's forward pass, and three more forward passes run at the
+  stages' states, each built from the state at the step's start. The
+  result keeps d's workspace with the combined state, time + h and
+  qacc_warmstart = d.qacc."""
+  h = m.opt.timestep
+  qvels, qaccs = [d.qvel], [d.qacc]
+  for i in range(3):
+    a = _RK4_A[i]
+    dqvel = sum(a[j] * qvels[j] for j in range(i + 1))
+    dqacc = sum(a[j] * qaccs[j] for j in range(i + 1))
+    di = forward(m, d.replace(qpos=integrate_pos(m, d.qpos, dqvel, h),
+                              qvel=d.qvel + h * dqacc,
+                              time=d.time + h * sum(a)))
+    qvels.append(di.qvel)
+    qaccs.append(di.qacc)
+  dqvel = sum(_RK4_B[j] * qvels[j] for j in range(4))
+  dqacc = sum(_RK4_B[j] * qaccs[j] for j in range(4))
+  return d.replace(qpos=integrate_pos(m, d.qpos, dqvel, h),
+                   qvel=d.qvel + h * dqacc, time=d.time + h,
+                   qacc_warmstart=d.qacc)
+
+
+def implicit(m: Model, d: Data) -> Data:
+  """The implicit-in-velocity integrators (mj_implicit): solve
+  (M − h·qDeriv)·qacc = qfrc_smooth + qfrc_constraint, qDeriv masked to
+  the dof tree's coupling. IMPLICIT keeps the RNE bias derivative and
+  solves the unsymmetric matrix with ``torch.linalg.solve_ex`` (the
+  reference's ``jnp.linalg.solve``, outside any Pallas kernel);
+  IMPLICITFAST drops it, zeroes the rows and columns of standalone free
+  bodies, factors on the tree (factor_tree / solve_tree), then solves
+  each such body's 6×6 ``free_mhat`` block."""
+  h = m.opt.timestep
+  dev = m.device
+  qfrc = d.qfrc_smooth + d.qfrc_constraint
+  anc = np.asarray(m.tree.dof_ancestor_mask)
+  sym = const(anc | anc.T, dev)
+  if int(m.opt.integrator) == Integrator.IMPLICIT:
+    qderiv = derivative.smooth_vel(m, d, flg_bias=True)
+    qlu = d.qM - h * torch.where(sym, qderiv, 0.0)
+    qacc = torch.linalg.solve_ex(qlu, qfrc[..., None])[0][..., 0]
+    return _advance(m, d, qacc)
+  qderiv0 = torch.where(sym, derivative.smooth_vel(m, d, flg_bias=False),
+                        0.0)
+  free = derivative.free_body_joints(m)
+  free_dof = np.zeros(m.nv, dtype=bool)
+  for j in free:
+    free_dof[int(m.jnt_dofadr[j]):int(m.jnt_dofadr[j]) + 6] = True
+  qderiv = qderiv0
+  if free:
+    keep = ~(free_dof[:, None] | free_dof[None, :])
+    qderiv = torch.where(const(keep, dev), qderiv0, 0.0)
+  lmat, dinv = smooth.factor_tree(m, d.qM - h * qderiv)
+  qacc = smooth.solve_tree(m, lmat, dinv, qfrc)
+  for j in free:
+    adr = int(m.jnt_dofadr[j])
+    a = derivative.free_mhat(m, d, j, qderiv0)
+    block = torch.linalg.solve_ex(a, qfrc[:, adr:adr + 6, None])[0][..., 0]
+    qacc = torch.cat([qacc[:, :adr], block, qacc[:, adr + 6:]], dim=1)
+  return _advance(m, d, qacc)
 
 
 def step(m: Model, d: Data) -> Data:
-  """One physics step (mj_step): forward, then Euler."""
-  return euler(m, forward(m, d))
+  """One physics step (mj_step): forward, then the model's integrator."""
+  d = forward(m, d)
+  integ = int(m.opt.integrator)
+  if integ == Integrator.EULER:
+    return euler(m, d)
+  if integ == Integrator.RK4:
+    return rungekutta4(m, d)
+  if integ in (Integrator.IMPLICIT, Integrator.IMPLICITFAST):
+    return implicit(m, d)
+  raise NotImplementedError(f"integrator {integ}")

@@ -264,27 +264,30 @@ def factor_tree(m: Model, mat):
 def solve_tree(m: Model, lmat, dinv, y):
   """Solve (Lᵀ·diag(1/Dinv)·L) x = y with factor_tree's output
   (mj_solveLD): Lᵀ by levels from the deepest, the diagonal, then L by
-  levels from the root. lmat (B, nv, nv), dinv and y (B, nv)."""
+  levels from the root. lmat (B, nv, nv), dinv (B, nv), y (B, nv) or
+  (B, k, nv) for k right-hand sides per env."""
   nv, nbatch = m.nv, y.shape[0]
   dev = y.device
   anc_all = m.tree.dof_anc_table
   # a zero column nv takes the chains' padding (the reference's clamped
   # gather reads column nv − 1 there, which L never fills)
   lpad = torch.cat([lmat, lmat.new_zeros((nbatch, nv, 1))], dim=2)
-  z = torch.cat([y, y.new_zeros((nbatch, 1))], dim=1)
+  z = y.reshape(nbatch, -1, nv)
+  nrhs = z.shape[1]
+  z = torch.cat([z, z.new_zeros((nbatch, nrhs, 1))], dim=2)
   for ks in reversed(m.tree.dof_levels):
     anc = anc_all[ks]
     lk = lpad[:, index(ks, dev)[:, None], index(anc, dev)]   # (B, nk, A)
-    contrib = lk * z[:, index(ks, dev), None]
-    z = z.index_add(1, index(anc.ravel(), dev),
-                    -contrib.reshape(nbatch, -1))
-  z = torch.cat([z[:, :nv] * dinv, z[:, nv:]], dim=1)
+    contrib = lk[:, None] * z[:, :, index(ks, dev), None]
+    z = z.index_add(2, index(anc.ravel(), dev),
+                    -contrib.reshape(nbatch, nrhs, -1))
+  z = torch.cat([z[..., :nv] * dinv[:, None], z[..., nv:]], dim=2)
   for ks in m.tree.dof_levels:
     anc = anc_all[ks]
     lk = lpad[:, index(ks, dev)[:, None], index(anc, dev)]
-    dot = (lk * z[:, index(anc, dev)]).sum(-1)
-    z = z.index_add(1, index(ks, dev), -dot)
-  return z[:, :nv]
+    dot = (lk[:, None] * z[:, :, index(anc, dev)]).sum(-1)
+    z = z.index_add(2, index(ks, dev), -dot)
+  return z[..., :nv].reshape(y.shape)
 
 
 def factor_m(m: Model, d: Data) -> Data:
@@ -294,7 +297,8 @@ def factor_m(m: Model, d: Data) -> Data:
 
 
 def solve_m(m: Model, d: Data, y):
-  """M⁻¹ y by the factor factor_m left in d (mj_solveM); y (B, nv)."""
+  """M⁻¹ y by the factor factor_m left in d (mj_solveM); y (B, nv) or
+  (B, k, nv)."""
   return solve_tree(m, d.qLD, d.qLDiagInv, y)
 
 

@@ -662,3 +662,107 @@ def test_cg_card_matches_cpu_f64(cuda, name, iterations):
   for i in (0, 1):
     torch.testing.assert_close(outs["cuda"][i], outs["cpu"][i], rtol=1e-8,
                                atol=1e-8)
+
+
+def _options_batch(scene, nbatch, device, dtype, seed=0):
+  """A scene of zoo.OPTIONS posed as tests/test_torch_options.py poses it:
+  qpos0 + 0.05·N(0, 1), qvel 0.3·N(0, 1), ctrl U(−1, 1), the free bodies
+  of zoo.ON_FLOOR on the floor."""
+  m = zoo.load_scene(scene, dtype, device)
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+  qpos = d.qpos.cpu().numpy() + 0.05 * rng.standard_normal(
+      tuple(d.qpos.shape))
+  for i, z in zoo.ON_FLOOR.get(scene, {}).items():
+    qpos[:, i] = z
+  return m, d.replace(qpos=t(qpos),
+                      qvel=t(0.3 * rng.standard_normal(tuple(d.qvel.shape))),
+                      ctrl=t(rng.uniform(-1, 1, tuple(d.ctrl.shape))))
+
+
+@pytest.mark.parametrize("scene", sorted(zoo.OPTIONS))
+def test_option_scene_card_matches_cpu_f64(cuda, scene):
+  """Each scene of the solver and integrator options (PGS, noslip after
+  the general core and after the Newton kernel, the elliptic core, RK4,
+  implicit, implicitfast): 10 steps at f64 on the card and on the CPU
+  agree to 1e-8 (qpos, qvel) with the same iteration counts."""
+  outs = {}
+  for dev in (cuda, "cpu"):
+    m, d = _options_batch(scene, 16, dev, torch.float64)
+    niters = []
+    for _ in range(10):
+      d = forward.step(m, d)
+      niters.append(d.solver_niter.cpu())
+    outs[str(dev)] = (d.qpos.cpu(), d.qvel.cpu(), torch.stack(niters))
+  torch.testing.assert_close(outs["cuda"][2], outs["cpu"][2])
+  for i in (0, 1):
+    torch.testing.assert_close(outs["cuda"][i], outs["cpu"][i], rtol=1e-8,
+                               atol=1e-8)
+
+
+@pytest.mark.parametrize("name, opt, ldl, newton", [
+    ("humanoid_elliptic", {}, 2, 0),
+    ("humanoid", {"integrator": 1}, 4, 4),
+    ("ball_hinge_fric", {"iterations": 4, "noslip_iterations": 20}, 2, 1)])
+def test_option_launches_per_step(cuda, name, opt, ldl, newton):
+  """Kernel launches of one step: the elliptic humanoid's qacc_smooth and
+  one Newton iteration of the general core (LDL), never the Newton
+  kernel; RK4's four forward passes, one LDL and one Newton launch each;
+  noslip's re-solve of M after the Newton kernel. 10 steps of the
+  elliptic humanoid on the card agree with the CPU to 1e-8 at f64."""
+  m = zoo.load(name, torch.float64, cuda, opt=opt)
+  d = rollout.make_batch(m, 64)
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  d = d.replace(qpos=d.qpos + 0.01 * torch.randn(
+      tuple(d.qpos.shape), generator=gen, device="cuda", dtype=d.qpos.dtype))
+  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
+  out = forward.step(m, d)
+  torch.cuda.synchronize()
+  assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
+          megastep_cuda.LAUNCHES) == (ldl, newton, 0)
+  assert torch.isfinite(out.qpos).all()
+  if name == "humanoid_elliptic":
+    cpu = zoo.load(name, torch.float64, "cpu")
+    dc = rollout.make_batch(cpu, 64, device="cpu").replace(
+        qpos=d.qpos.cpu())
+    for _ in range(10):
+      d, dc = forward.step(m, d), forward.step(cpu, dc)
+    for k in ("qpos", "qvel"):
+      torch.testing.assert_close(getattr(d, k).cpu(), getattr(dc, k),
+                                 rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ldl_kernel_on_the_elliptic_newton_system(cuda, dtype):
+  """The LDL kernel on the elliptic core's H (M + JᵀWJ + the cone's
+  off-diagonal Hessian blocks + reg·I, n 27) on a humanoid_elliptic state
+  with contacts in the cone's middle zone: at f64 against its plain
+  version (1e-9 relative); at f32, where the stiff contact rows leave H
+  ill-conditioned and two backward-stable solves differ by cond(H)·eps,
+  by its backward error ‖H·p − g‖∞ / (‖H‖∞‖p‖∞ + ‖g‖∞), at most 1e-5
+  per env (n·eps is 1.6e-6)."""
+  m = zoo.load("humanoid_elliptic", dtype, cuda)
+  d = rollout.make_batch(m, 1024)
+  gen = torch.Generator(device="cuda").manual_seed(1)
+  qpos = d.qpos + 0.03 * torch.randn(tuple(d.qpos.shape), generator=gen,
+                                     device="cuda", dtype=dtype)
+  qpos[:, 2] -= 0.12
+  qvel = 0.5 * torch.randn(tuple(d.qvel.shape), generator=gen,
+                           device="cuda", dtype=dtype)
+  d = forward.fwd_acceleration(m, forward.fwd_actuation(
+      m, forward.fwd_velocity(m, forward.fwd_position(
+          m, d.replace(qpos=qpos, qvel=qvel)))))
+  h, grad, jar, _ = solver.newton_system(m, d, d.qacc_smooth)
+  cone = solver._update(m, d, jar, with_cost=False)[3]
+  assert cone.mid.any()
+  out = linalg_cuda.spd_solve_kernel(h, grad)
+  if dtype == torch.float64:
+    ref = linalg_cuda.spd_solve_plain(h, grad)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-9, rel
+    return
+  hd, gd, pd = h.double(), grad.double(), out.double()
+  res = ((hd @ pd[..., None])[..., 0] - gd).abs().amax(1)
+  scale = hd.abs().sum(2).amax(1) * pd.abs().amax(1) + gd.abs().amax(1)
+  assert (res / scale.clamp(min=1e-300)).max().item() <= 1e-5

@@ -395,18 +395,17 @@ _STILL_RAISE = {
     "sensors": """<mujoco><worldbody><body><joint name="a" type="slide"/>
       <geom size="0.1"/></body></worldbody><sensor>
       <jointpos joint="a"/></sensor></mujoco>""",
-    "elliptic friction cone": """<mujoco><option cone="elliptic"/>
-      <worldbody><geom type="plane" size="1 1 1"/><body><freejoint/>
-      <geom size="0.1"/></body></worldbody></mujoco>""",
-    "solver PGS": """<mujoco><option solver="PGS"/><worldbody><body>
-      <joint type="hinge" limited="true" range="-1 1"/>
-      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
-    "noslip": """<mujoco><option noslip_iterations="3"/><worldbody>
-      <geom type="plane" size="1 1 1"/><body><freejoint/>
-      <geom size="0.1"/></body></worldbody></mujoco>""",
     "dynamic pair groups": "<mujoco><worldbody>" + "".join(
         f'<body pos="{0.3 * i} 0 1"><freejoint/><geom size="0.1"/></body>'
         for i in range(11)) + "</worldbody></mujoco>",
+    # 43 free bodies: nv 258, above the reference's island gate
+    "constraint islands": "<mujoco><worldbody>" + "".join(
+        f'<body pos="{0.3 * i} 0 1"><freejoint/><geom size="0.1" '
+        f'contype="0"/></body>' for i in range(43)) + "</worldbody></mujoco>",
+    "activation dynamics": """<mujoco><worldbody><body>
+      <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
+      </worldbody><actuator><general joint="a" dyntype="filter"
+      dynprm="0.1"/></actuator></mujoco>""",
 }
 
 
@@ -425,6 +424,15 @@ _WIDENED = {
     "mocap bodies": """<mujoco><worldbody><body mocap="true">
       <geom size="0.1" contype="0"/></body><body><joint type="hinge"/>
       <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+    "elliptic friction cone": """<mujoco><option cone="elliptic"/>
+      <worldbody><geom type="plane" size="1 1 1"/><body><freejoint/>
+      <geom size="0.1"/></body></worldbody></mujoco>""",
+    "solver PGS": """<mujoco><option solver="PGS"/><worldbody><body>
+      <joint type="hinge" limited="true" range="-1 1"/>
+      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+    "noslip": """<mujoco><option noslip_iterations="3"/><worldbody>
+      <geom type="plane" size="1 1 1"/><body><freejoint/>
+      <geom size="0.1"/></body></worldbody></mujoco>""",
 }
 
 
@@ -433,4 +441,6 @@ def test_widened_gates_load(feature):
   mjm = mujoco.MjModel.from_xml_string(_WIDENED[feature])
   m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
   assert (m.ntendon, m.nmocap) == (int(mjm.ntendon), int(mjm.nmocap))
+  assert (m.opt.cone, m.opt.solver, m.opt.noslip_iterations) == (
+      int(mjm.opt.cone), int(mjm.opt.solver), int(mjm.opt.noslip_iterations))
   assert not megastep_cuda.supported(m)

@@ -85,6 +85,8 @@ def test_entry_points_default_to_cuda():
     return
   with pytest.raises(RuntimeError, match="CUDA"):
     zoo.humanoid()
+  with pytest.raises(RuntimeError, match="CUDA"):
+    zoo.load_scene("servo_implicit")
   m = zoo.humanoid(device="cpu")
   with pytest.raises(RuntimeError, match="CUDA"):
     io.make_data(m)

@@ -8,7 +8,8 @@ reference's 3-humanoid scene (``python tests/test_torch_model.py`` writes
 it);
 a mujoco_tpu Model carried across with model_from_numpy equals the port's
 own put_model; models outside the slice raise NotImplementedError, and the
-models the megastep class admitted (plane-box, eulerdamp) load.
+models of features ported since (plane-box, eulerdamp, CG, tendons, the
+elliptic cone, RK4, implicitfast) load.
 """
 
 import mujoco
@@ -158,15 +159,6 @@ _OUT_OF_SLICE = {
       <body><freejoint/><geom type="box" size="0.1 0.1 0.1"/></body>
       <body pos="0 0 0.3"><freejoint/><geom type="box" size="0.1 0.1 0.1"/>
       </body></worldbody></mujoco>""",
-    "elliptic": """<mujoco><option cone="elliptic"/><worldbody>
-      <geom type="plane" size="1 1 1"/><body><freejoint/>
-      <geom size="0.1"/></body></worldbody></mujoco>""",
-    "rk4": """<mujoco><option integrator="RK4"/><worldbody><body>
-      <joint type="hinge"/><geom size="0.1" contype="0"/></body></worldbody>
-      </mujoco>""",
-    "implicitfast_damping": """<mujoco><option integrator="implicitfast"/>
-      <worldbody><body><joint type="hinge" damping="1"/>
-      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
 }
 
 # models that raised before the slices that widened what the port runs
@@ -184,6 +176,15 @@ _WIDENED = {
     "cg": """<mujoco><option solver="CG"/><worldbody><body>
       <joint type="hinge" limited="true" range="-1 1"/>
       <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+    "elliptic": """<mujoco><option cone="elliptic"/><worldbody>
+      <geom type="plane" size="1 1 1"/><body><freejoint/>
+      <geom size="0.1"/></body></worldbody></mujoco>""",
+    "rk4": """<mujoco><option integrator="RK4"/><worldbody><body>
+      <joint type="hinge"/><geom size="0.1" contype="0"/></body></worldbody>
+      </mujoco>""",
+    "implicitfast_damping": """<mujoco><option integrator="implicitfast"/>
+      <worldbody><body><joint type="hinge" damping="1"/>
+      <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
 }
 
 
@@ -198,8 +199,11 @@ def test_out_of_slice_raises(name):
 def test_widened_slice_loads(name):
   mjm = mujoco.MjModel.from_xml_string(_WIDENED[name])
   m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
-  assert m.con.ncon == (4 if name == "plane_box" else 0)
-  assert m.has_dof_damping == (name == "eulerdamp")
+  assert m.con.ncon == {"plane_box": 4, "elliptic": 1}.get(name, 0)
+  assert m.has_dof_damping == (name in ("eulerdamp",
+                                        "implicitfast_damping"))
+  assert (m.opt.cone, m.opt.integrator) == (int(mjm.opt.cone),
+                                            int(mjm.opt.integrator))
 
 
 if __name__ == "__main__":
