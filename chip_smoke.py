@@ -77,7 +77,8 @@ Phases, each of which passes or ends the script with a nonzero exit:
 10. (b) the model class: each scene of ``zoo.GENERAL`` (equality,
    friction-loss, ball-limit, condim 4/6 and explicit-pair rows, cameras
    and lights) at its own options (100 Newton iterations), posed from a
-   numpy seed: f32, B 3072, 50 steps of ``scan_steps``, every env finite;
+   numpy seed: f32, B 3072, 25 steps of ``scan_steps``, every env
+   finite, at least two LDL launches a step;
    10 steps at f64, B 64, on the card against the CPU (1e-8);
 11. (c) the Newton kernel on each scene's rows as ``solver.newton_args``
    builds them, f64, B 3072, 4 iterations: elementwise against its plain
@@ -148,11 +149,48 @@ Phases, each of which passes or ends the script with a nonzero exit:
    env-steps/s, kernel launches and a profiled step (the slowest scenes
    timed on that profiled step alone).
 
+19. ``multi_humanoid10`` (ten humanoids in one scene, nv 270, nefc
+   1,620, ten trees) through the island solve, and with islands disabled
+   (the Newton kernel at nv 270): f32, B 3072 (halved while one step
+   peaks above 60 % of the card's memory; the B used is printed), every
+   foot in the floor, 20 steps of ``scan_steps(check=True)`` each: finite,
+   exactly two LDL launches per step and no other on the island path (its
+   qacc_smooth at n 270 and the one Newton iteration's B·10 island
+   systems of order 27), one LDL and one Newton launch per step on the
+   monolithic path; env-steps/s, launches and idle share of a profiled
+   2-step window and peak memory of each, and the island path's rate
+   over the monolithic one; the LDL kernel on a step's island Newton
+   systems (``island.newton_systems``) against its plain version, f64
+   elementwise (B 256) and f32 by backward error, as phase 16 does, and
+   timed at f32 (L2 flushed, and L2-warm by the profiler) with its bound,
+   the plain version and ``torch.linalg.solve``; the n-270 LDL (the
+   device-memory route) timed at f32 and f64 on the scene's qM, and the
+   Newton kernel at nv 270 on the monolithic path's rows at f32, each
+   beside its plain version and bound; 5 steps at f64, B 4, on the card
+   against the CPU on the island path (1e-8);
+20. ``replicate4`` (four self-colliding humanoids, nv 108, three dynamic
+   pair groups of 24 pairs): f32, B 3072, feet in the floor, 20 steps:
+   finite, exactly 1 + iterations + 1 (eulerdamp) LDL launches per step
+   and no other, env-steps/s, launches and idle share, the candidate
+   pairs each env drops beyond the budget (``Data.warning``, mean and
+   most, at the start and the end); 5 steps at f64, B 4, card against CPU
+   (1e-8) with the selected geom pairs (``Contact.geomids``) identical at
+   every step;
+21. sleep: ``sleep_stack`` 100 steps at f64, B 3 (one env at rest, one
+   rolling its ball into the stack, one pushing the box), card against
+   CPU: ``tree_asleep`` identical at every step, qpos to 1e-8, the resting
+   env's trees all asleep at the end; ``multi_humanoid10_sleep`` at f32,
+   B 3072, 200 steps: finite, two LDL launches per step, env-steps/s,
+   launches, idle share, and the share of trees asleep at the end
+   (printed, not gated).
+
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 18, and the LDL's and the Newton kernel's ``wide`` entries hold
-their phase-13 times at n = nv = 81.
+and 13 to 21, and the LDL's and the Newton kernel's ``wide`` entries hold
+their phase-13 times at n = nv = 81; the LDL's ``island`` and ``n270``
+entries and the Newton kernel's ``nv270`` entry hold phase 19's times.
+Each phase's seconds are printed as it ends.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1150,6 +1188,12 @@ def phase_general_core(report, details):
       "general_core"] = launches["ldl_solve"]
 
 
+# steps of phase 10's full-width run, cut from 50 to keep the script near
+# 600 s beside phases 19-21; its gate still asks for at least two LDL
+# launches a step (qacc_smooth and a Newton iteration)
+MODEL_CLASS_NSTEP = 25
+
+
 def phase_model_class(report, details):
   """(b) each scene of the general constraint class on the stage path."""
   from mujoco_tpu_torch.models import zoo
@@ -1161,26 +1205,28 @@ def phase_model_class(report, details):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    out = rollout.scan_steps(m, d, 50, check=True)
+    out = rollout.scan_steps(m, d, MODEL_CLASS_NSTEP, check=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     finite = bool(torch.isfinite(out.qpos).all()
                   & torch.isfinite(out.qvel).all())
+    sps = B * MODEL_CLASS_NSTEP / wall
     print(f"model class {name}: nefc {m.efc.nefc} (ne {m.efc.ne}, nf "
-          f"{m.efc.nf}, nl {m.efc.nl}), f32 B{B} 50 steps: wall {wall:.3f} "
-          f"s, {B * 50 / wall:.1f} env-steps/s, launches {launches}, finite "
-          f"{finite}", flush=True)
+          f"{m.efc.nf}, nl {m.efc.nl}), f32 B{B} {MODEL_CLASS_NSTEP} steps: "
+          f"wall {wall:.3f} s, {sps:.1f} env-steps/s, launches {launches}, "
+          f"finite {finite}", flush=True)
     if not finite or launches["newton_pyramidal"] or launches["megastep"] \
-        or launches["ldl_solve"] < 100:
+        or launches["ldl_solve"] < 2 * MODEL_CLASS_NSTEP:
       raise AssertionError(f"model class {name}: finite {finite}, "
                            f"launches {launches}")
     total += launches["ldl_solve"]
     worst = card_vs_cpu(lambda dtype, dev, n=name: zoo.load(n, dtype, dev),
                         lambda mm, dev: general_batch(mm, 64, 1, dev), 10,
                         f"model class {name}")
-    out_details[name] = dict(wall_s=wall, env_steps_per_s=B * 50 / wall,
-                             launches=launches, card_vs_cpu_worst=worst)
+    out_details[name] = dict(wall_s=wall, env_steps_per_s=sps,
+                             nstep=MODEL_CLASS_NSTEP, launches=launches,
+                             card_vs_cpu_worst=worst)
   details["model_class"] = out_details
   report["ldl_solve"].setdefault("launches_by_path", {})[
       "model_class"] = total
@@ -1739,19 +1785,28 @@ def ldl_on_newton_system(tag, m, d):
   on the f32 inputs, the kernel's at most 1e-5 (n·eps is 1.6e-6), the
   plain version's printed beside it. Returns the largest
   |kernel − plain|."""
-  from mujoco_tpu_torch.ops import forward, linalg_cuda, solver
+  from mujoco_tpu_torch.ops import forward, solver
   d = forward.fwd_acceleration(m, forward.fwd_actuation(
       m, forward.fwd_velocity(m, forward.fwd_position(m, d))))
   h, grad, _, _ = solver.newton_system(m, d, solver.warmstart(m, d)[0])
+  return ldl_gate(f"{tag}'s Newton system", h, grad)
+
+
+def ldl_gate(tag, h, grad):
+  """The LDL kernel on (h, grad) against its plain version: at f64
+  elementwise, 1e-9 relative; at f32 by the backward error of each env,
+  at most 1e-5 (``ldl_on_newton_system`` says why). Returns the largest
+  |kernel − plain|."""
+  from mujoco_tpu_torch.ops import linalg_cuda
   p = linalg_cuda.spd_solve_kernel(h, grad)
   torch.cuda.synchronize()
   ref = linalg_cuda.spd_solve_plain(h, grad)
   abs_err = (p - ref).abs().max().item()
   offdiag = (h - torch.diag_embed(torch.diagonal(h, dim1=1, dim2=2))).abs()
-  head = (f"ldl_solve on {tag}'s Newton system {str(m.dtype)[6:]} B"
+  head = (f"ldl_solve on {tag} {str(h.dtype)[6:]} B"
           f"{h.shape[0]} n{h.shape[1]} (largest off-diagonal |H| "
           f"{offdiag.max().item():.3e}):")
-  if m.dtype == torch.float64:
+  if h.dtype == torch.float64:
     rel = abs_err / ref.abs().max().item()
     print(f"{head} max rel err {rel:.3e} (limit 1e-9)", flush=True)
     ok = rel <= 1e-9
@@ -1765,7 +1820,7 @@ def ldl_on_newton_system(tag, m, d):
           flush=True)
     ok = ek.max().item() <= 1e-5
   if not ok:
-    raise AssertionError(f"ldl_solve disagrees on {tag}'s Newton system")
+    raise AssertionError(f"ldl_solve disagrees on {tag}")
   return abs_err
 
 
@@ -1963,6 +2018,303 @@ def phase_option_scenes(report, details):
         s["launches"][name] for s in scenes.values())
 
 
+# the numbers this docstring gives main()'s phases, in their order
+PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
+                 "12", "13", "14", "15", "16", "17", "18", "19", "20", "21")
+MANY_NSTEP = 20
+SLEEP_NSTEP = 200
+# the sleep scene's card-against-CPU run: long enough for its stack (step
+# 79) and its ball (step 48) to fall asleep
+SLEEP_CHECK_NSTEP = 100
+
+
+def free_roots_lowered(m, d, lower):
+  """d with every free root lowered by ``lower`` (the humanoids' feet into
+  the floor)."""
+  qpos = d.qpos.clone()
+  for j in np.nonzero(np.asarray(m.jnt_type) == 0)[0]:
+    qpos[:, int(m.jnt_qposadr[j]) + 2] -= lower
+  return d.replace(qpos=qpos)
+
+
+def many_batch(m, nbatch, seed, device="cuda"):
+  """start_batch with every humanoid's feet in the floor."""
+  return free_roots_lowered(m, start_batch(m, nbatch, seed, device),
+                            FEET_IN_FLOOR)
+
+
+def fitting_batch(m, make):
+  """The batch of the full-width run: B, or B/2 where one step at B peaks
+  above 60 % of the card's memory (printed)."""
+  from mujoco_tpu_torch.ops import forward
+  total = torch.cuda.get_device_properties(0).total_memory
+  nbatch = B
+  while True:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+      forward.step(m, make(m, nbatch))
+      torch.cuda.synchronize()
+      peak = torch.cuda.max_memory_allocated()
+    except torch.cuda.OutOfMemoryError:
+      peak = float("inf")
+    print(f"one step at B{nbatch}: peak memory {peak / 2**30:.2f} GiB of "
+          f"{total / 2**30:.2f}", flush=True)
+    if peak <= 0.6 * total or nbatch <= 256:
+      torch.cuda.empty_cache()
+      return nbatch
+    nbatch //= 2
+
+
+def mass_matrix_case(m, nbatch, seed):
+  """(qM, g) of nbatch posed states of m on the card: qM from the smooth
+  stages alone (no constraint rows, whose f64 Jacobian alone would take
+  10.7 GB at B 3072 and nv 270), g ~ N(0, 1)."""
+  from mujoco_tpu_torch.ops import smooth
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  d = start_batch(m, nbatch, seed)
+  d = smooth.crb(m, smooth.com_pos(m, smooth.kinematics(m, d)))
+  g = torch.randn(d.qvel.shape, generator=gen, device="cuda", dtype=m.dtype)
+  return d.qM.contiguous(), g
+
+
+def many_run(tag, m, d, nstep, expect):
+  """stage_run of nstep steps with the peak memory, then a profiled window
+  of 2 steps; fails unless finite with the launch counts expect per step.
+  Returns the details."""
+  torch.cuda.reset_peak_memory_stats()
+  out, wall, launches = stage_run(m, d, nstep)
+  peak = torch.cuda.max_memory_allocated()
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  nbatch = d.qpos.shape[0]
+  sps = nbatch * nstep / wall
+  per_step = {k: v / nstep for k, v in launches.items()}
+  print(f"{tag}: f32 B{nbatch} {nstep} steps: wall {wall:.3f} s, {sps:.1f} "
+        f"env-steps/s, kernel launches per step {per_step}, finite {finite}, "
+        f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+  if not finite or per_step != expect:
+    raise AssertionError(f"{tag}: finite {finite}, launches per step "
+                         f"{per_step}, want {expect}")
+  prof = profiled(m, out, 2)
+  print_profile(f"{tag} f32 B{nbatch} 2 steps", prof)
+  return out, dict(batch=nbatch, nstep=nstep, wall_s=wall,
+                   env_steps_per_s=sps, launches=launches,
+                   launches_per_step=per_step, peak_memory_bytes=peak,
+                   profile=prof)
+
+
+def phase_islands(report, details):
+  """19: multi_humanoid10 (ten humanoids in one scene, nv 270) through
+  the island solve, whose Newton systems go to the LDL kernel at n 27,
+  then with islands disabled (the Newton kernel at nv 270)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import DisableBit
+  from mujoco_tpu_torch.ops import island, linalg_cuda, megastep_cuda
+  from mujoco_tpu_torch.ops import newton_cuda, solver
+  load = lambda dtype, dev="cuda": zoo.load("multi_humanoid10", dtype, dev)
+  m = load(torch.float32)
+  mono = m.replace(opt=m.opt.replace(
+      disableflags=int(m.opt.disableflags) | int(DisableBit.ISLAND)))
+  if not island.use_islands(m) or island.use_islands(mono):
+    raise AssertionError("the island gate does not split multi_humanoid10")
+  if megastep_cuda.supported(m) or megastep_cuda.supported(mono):
+    raise AssertionError("the megastep admits multi_humanoid10")
+  nbatch = fitting_batch(m, lambda mm, n: many_batch(mm, n, 30))
+  d0 = many_batch(m, nbatch, 30)
+  out, isl = many_run("multi_humanoid10 islands", m, d0, MANY_NSTEP,
+                      {"ldl_solve": 2.0, "newton_pyramidal": 0.0,
+                       "megastep": 0.0})
+  del out
+  out, mon = many_run("multi_humanoid10 monolithic (ISLAND disabled)", mono,
+                      d0, MANY_NSTEP, {"ldl_solve": 1.0,
+                                       "newton_pyramidal": 1.0,
+                                       "megastep": 0.0})
+  del out
+  print(f"islands against monolithic at nv {m.nv}: "
+        f"{isl['env_steps_per_s'] / mon['env_steps_per_s']:.3f}x "
+        f"env-steps/s", flush=True)
+
+  # the LDL kernel at the island shape: one step's first Newton systems,
+  # B·10 of order 27
+  ldl = {}
+  for dtype, nb in ((torch.float64, 256), (torch.float32, nbatch)):
+    mm = load(dtype)
+    h, g = island.newton_systems(mm, humanoid_state(mm, nb, 31))
+    ldl[str(dtype)[6:]] = ldl_gate("multi_humanoid10's island Newton "
+                                   "systems", h, g)
+  k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  w_ms = device_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g))
+  lib_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g))
+  b_ms, by = ldl_bound(h.shape[0], h.shape[1], h.dtype)
+  island_times = dict(n=h.shape[1], systems=h.shape[0], ms=k_ms,
+                      l2_warm_ms=w_ms, plain_ms=p_ms, library_ms=lib_ms,
+                      bound_ms=b_ms, bound_by=by)
+  print(f"ldl_solve at the island shape f32 {h.shape[0]} systems n"
+        f"{h.shape[1]}: kernel_ms {k_ms:.4f} (L2 flushed; L2-warm "
+        f"{w_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} "
+        f"(torch.linalg.solve) bound_ms {b_ms:.5f} ({by})", flush=True)
+  del h, g
+
+  # the n 270 solve of qacc_smooth (the device-memory route), f32 and f64,
+  # and the Newton kernel at nv 270 on the monolithic path's rows
+  wide = {}
+  for dtype in (torch.float32, torch.float64):
+    h, g = mass_matrix_case(load(dtype), nbatch, 32)
+    route = "device memory" if linalg_cuda.work_values(
+        h.shape[1], dtype, h.device) else "shared memory"
+    k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g), reps=3,
+                        warmup=1)
+    p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g), reps=3,
+                        warmup=1)
+    lib_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g), reps=3,
+                          warmup=1)
+    b_ms, by = ldl_bound(nbatch, h.shape[1], dtype)
+    wide[str(dtype)[6:]] = dict(n=h.shape[1], route=route, ms=k_ms,
+                                plain_ms=p_ms, library_ms=lib_ms,
+                                bound_ms=b_ms, bound_by=by)
+    print(f"ldl_solve {str(dtype)[6:]} B{nbatch} n{h.shape[1]} ({route}): "
+          f"kernel_ms {k_ms:.4f} (L2 flushed) plain_ms {p_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (torch.linalg.solve) bound_ms "
+          f"{b_ms:.5f} ({by})", flush=True)
+    del h, g
+  args = solver.newton_args(mono, humanoid_state(mono, nbatch, 33))
+  bound_ms, by, dense_ms, _, kept_mean, kept_max = newton_bound(args, 1, 4)
+  newton = dict(nv=m.nv, nefc=m.efc.nefc, bound_ms=bound_ms, bound_by=by,
+                dense_bound_ms=dense_ms, kept_mean=kept_mean,
+                kept_max=kept_max,
+                ms=cuda_ms_cold(lambda: newton_cuda.newton_kernel(*args, 1, 4),
+                                reps=3, warmup=1),
+                plain_ms=cuda_ms_cold(
+                    lambda: newton_cuda.newton_plain(*args, 1, 4), reps=2,
+                    warmup=1))
+  print(f"newton f32 B{nbatch} nefc{m.efc.nefc} nv{m.nv} it1 ls4: kernel_ms "
+        f"{newton['ms']:.4f} (L2 flushed) plain_ms {newton['plain_ms']:.4f} "
+        f"bound_ms {bound_ms:.5f} ({by}; kept rows mean {kept_mean:.2f}, "
+        f"most {kept_max}; dense {dense_ms:.5f})", flush=True)
+  del args
+  torch.cuda.empty_cache()
+
+  worst = card_vs_cpu(load, lambda mm, dev: many_batch(mm, 4, 34, dev), 5,
+                      "multi_humanoid10 islands")
+  details["multi_humanoid10"] = dict(
+      islands=isl, monolithic=mon, ldl_island_gate_abs_err=ldl,
+      ldl_island=island_times, ldl_n270=wide, newton_nv270=newton,
+      card_vs_cpu_worst=worst)
+  report["ldl_solve"]["island"] = island_times
+  report["ldl_solve"]["n270"] = wide
+  report["newton_pyramidal"]["nv270"] = newton
+  report["ldl_solve"].setdefault("launches_by_path", {}).update(
+      multi_humanoid10_islands=isl["launches"]["ldl_solve"],
+      multi_humanoid10_monolithic=mon["launches"]["ldl_solve"])
+  report["newton_pyramidal"].setdefault("launches_by_path", {})[
+      "multi_humanoid10_monolithic"] = mon["launches"]["newton_pyramidal"]
+
+
+def phase_dynamic_pairs(report, details):
+  """20: replicate4 (four self-colliding humanoids, three dynamic pair
+  groups) through the general core at 8 iterations."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import DisableBit
+  from mujoco_tpu_torch.ops import forward, megastep_cuda
+  load = lambda dtype, dev="cuda": zoo.load("replicate4", dtype, dev)
+  m = load(torch.float32)
+  if megastep_cuda.supported(m) or len(m.con.dyngroups) != 3:
+    raise AssertionError("replicate4: the megastep admits it, or its "
+                         "groups are not three")
+  eulerdamp = (m.has_dof_damping and not m.disabled(DisableBit.EULERDAMP)
+               and not m.disabled(DisableBit.DAMPER))
+  ldl_per_step = 1 + int(m.opt.iterations) + int(eulerdamp)
+  nbatch = fitting_batch(m, lambda mm, n: many_batch(mm, n, 40))
+  d0 = many_batch(m, nbatch, 40)
+  out, run = many_run("replicate4", m, d0, MANY_NSTEP,
+                      {"ldl_solve": float(ldl_per_step),
+                       "newton_pyramidal": 0.0, "megastep": 0.0})
+  dropped = {}
+  for tag, dd in (("start", d0), ("end", out)):
+    w = forward.fwd_position(m, dd).warning[:, 1].double()
+    dropped[tag] = dict(mean=w.mean().item(), most=int(w.max().item()))
+  print(f"replicate4 candidate pairs dropped by the budget per env: "
+        f"{dropped}", flush=True)
+  del out
+
+  # card against CPU at f64: trajectories and the selected geom pairs
+  outs = {}
+  for dev in ("cuda", "cpu"):
+    mm = load(torch.float64, dev)
+    d = many_batch(mm, 4, 41, dev)
+    ids = []
+    for _ in range(5):
+      d = forward.step(mm, d)
+      ids.append(d.contact.geomids.cpu())
+    outs[dev] = (d.qpos.cpu(), d.qvel.cpu(), torch.stack(ids))
+  worst = max(((outs["cuda"][i] - outs["cpu"][i]).abs()
+               / (1e-8 + 1e-8 * outs["cpu"][i].abs())).max().item()
+              for i in (0, 1))
+  same_ids = bool(torch.equal(outs["cuda"][2], outs["cpu"][2]))
+  print(f"replicate4: 5 steps f64 B4, card vs CPU worst err / (1e-8 + "
+        f"1e-8·|CPU|) {worst:.3f}, selected geom pairs identical "
+        f"{same_ids}", flush=True)
+  if not worst <= 1.0 or not same_ids:
+    raise AssertionError(f"replicate4: card and CPU differ ({worst} × "
+                         f"limit, geom pairs identical {same_ids})")
+  details["replicate4"] = dict(run, dropped_pairs=dropped,
+                               card_vs_cpu_worst=worst)
+  report["ldl_solve"].setdefault("launches_by_path", {})["replicate4"] = \
+      run["launches"]["ldl_solve"]
+
+
+def phase_sleep(report, details):
+  """21: sleep: the stack scene card against CPU at f64 until its trees
+  sleep, then multi_humanoid10_sleep at full width."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward, megastep_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  outs = {}
+  for dev in ("cuda", "cpu"):
+    m = zoo.load("sleep_stack", torch.float64, dev)
+    d = rollout.make_batch(m, 3, device=dev)
+    # env 1 rolls its ball (qvel 12) into the stack, env 2 pushes it
+    qvel = d.qvel.clone()
+    qvel[1, 12] = 3.0
+    qvel[2, 0] = 0.5
+    d = d.replace(qvel=qvel)
+    asleep = []
+    for _ in range(SLEEP_CHECK_NSTEP):
+      d = forward.step(m, d)
+      asleep.append(d.tree_asleep.cpu())
+    outs[dev] = (d.qpos.cpu(), torch.stack(asleep))
+  worst = ((outs["cuda"][0] - outs["cpu"][0]).abs()
+           / (1e-8 + 1e-8 * outs["cpu"][0].abs())).max().item()
+  same = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+  final = outs["cpu"][1][-1]
+  print(f"sleep_stack: {SLEEP_CHECK_NSTEP} steps f64 B3, card vs CPU qpos "
+        f"worst err / (1e-8 + 1e-8·|CPU|) {worst:.3f}, tree_asleep identical "
+        f"at every step {same}; tree_asleep at the end {final.tolist()}",
+        flush=True)
+  if not worst <= 1.0 or not same or not bool((final[0] >= 0).all()):
+    raise AssertionError(f"sleep_stack: card and CPU differ ({worst} × "
+                         f"limit, tree_asleep identical {same}) or the "
+                         f"resting stack is awake")
+
+  m = zoo.load("multi_humanoid10_sleep", torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits multi_humanoid10_sleep")
+  nbatch = fitting_batch(m, lambda mm, n: many_batch(mm, n, 50))
+  out, run = many_run("multi_humanoid10_sleep", m, many_batch(m, nbatch, 50),
+                      SLEEP_NSTEP, {"ldl_solve": 2.0, "newton_pyramidal": 0.0,
+                                    "megastep": 0.0})
+  share = (out.tree_asleep >= 0).double().mean().item()
+  print(f"multi_humanoid10_sleep: share of trees asleep after {SLEEP_NSTEP} "
+        f"steps {share:.4f}", flush=True)
+  details["sleep"] = dict(sleep_stack_card_vs_cpu_worst=worst,
+                          sleep_stack_final=final.tolist(),
+                          multi_humanoid10_sleep=dict(run,
+                                                      asleep_share=share))
+  report["ldl_solve"].setdefault("launches_by_path", {})[
+      "multi_humanoid10_sleep"] = run["launches"]["ldl_solve"]
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1978,25 +2330,21 @@ def main() -> int:
   build_s = time.perf_counter() - t0
   print(f"kernels built and loaded in {build_s:.1f} s", flush=True)
 
-  report, details = {}, {"card": card, "build_s": build_s}
-  phase_ldl(report, details)
-  phase_newton(report, details)
-  phase_megastep(report, details)
-  phase_stage_clock(details)
-  phase_main_path(report, details)
-  phase_stage_path(report, details)
-  phase_profile(details)
-  phase_cross_check(details)
-  phase_general_core(report, details)
-  phase_model_class(report, details)
-  phase_newton_rows(report, details)
-  phase_ldl_backward(report, details)
-  phase_multi_humanoid(report, details)
-  phase_newton_gradient(report, details)
-  phase_slice_scenes(report, details)
-  phase_humanoid_elliptic(report, details)
-  phase_rk4(report, details)
-  phase_option_scenes(report, details)
+  report, details = {}, {"card": card, "build_s": build_s, "phase_s": {}}
+  phases = (phase_ldl, phase_newton, phase_megastep,
+            lambda r, d: phase_stage_clock(d), phase_main_path,
+            phase_stage_path, lambda r, d: phase_profile(d),
+            lambda r, d: phase_cross_check(d), phase_general_core,
+            phase_model_class, phase_newton_rows, phase_ldl_backward,
+            phase_multi_humanoid, phase_newton_gradient, phase_slice_scenes,
+            phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
+            phase_islands, phase_dynamic_pairs, phase_sleep)
+  for number, phase in zip(PHASE_NUMBERS, phases):
+    t0 = time.perf_counter()
+    phase(report, details)
+    details["phase_s"][number] = time.perf_counter() - t0
+    print(f"phase {number} done in {details['phase_s'][number]:.1f} s",
+          flush=True)
 
   kernels = [report["ldl_solve"], report["newton_pyramidal"],
              report["megastep"]]

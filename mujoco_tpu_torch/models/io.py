@@ -2,7 +2,8 @@
 
 Counterparts: ``put_model`` (mujoco_tpu/models/io.py:1357) with
 ``_tree_topology`` (:311, the pure-Python path), ``_contact_meta`` (:410),
-``_efc_meta`` (:1074), ``_names`` (:1173) and ``_actuator_meta`` (:1205);
+``_efc_meta`` (:1074), ``_names`` (:1173), ``_actuator_meta`` (:1205)
+and the tree tables of ``_sleep_meta`` (:1628);
 ``make_data`` (:1703) with the mocap start pose of ``_mocap_init``
 (:1687).
 
@@ -23,6 +24,7 @@ naming the feature, as the reference does for its own gaps.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -47,15 +49,6 @@ _PAIR_NCON = {
     (GeomType.SPHERE, GeomType.BOX): 1,
     (GeomType.CAPSULE, GeomType.CAPSULE): 2,
 }
-
-# above this many non-plane pairs of one type the reference culls them with
-# a dynamic top-K broadphase (mujoco_tpu/models/io.py:518-530, pair budget
-# 24); the port keeps static slots only
-_DYNAMIC_PAIRS = 48
-
-# the reference engages constraint islands only from this many dofs up
-# (mujoco_tpu/ops/island.py:217-227); the port has no island solve yet
-_ISLAND_MIN_NV = 256
 
 
 # ---------------------------------------------------------------------------
@@ -142,10 +135,13 @@ def _contact_meta(mjm: Any) -> dict:
   """Candidate geom pairs and their fixed slots, mirroring mj_collision's
   filtering (contype/conaffinity, same weld, parent-child weld, excludes)
   and its explicit <pair>s. Slot order is the reference's
-  (mujoco_tpu/models/io.py:427-545): explicit pairs in pair order with
-  their own condim (``pair_dim``), then the other plane pairs in
+  (mujoco_tpu/models/io.py:427-545, 693-712): explicit pairs in pair order
+  with their own condim (``pair_dim``), then the other plane pairs in
   enumeration order, then the rest grouped by sorted (type1, type2, condim)
-  signature."""
+  signature, and last the dynamic pair groups: a signature of more than
+  max(2·budget, 16) candidates owns ``budget`` pair slots (fewer if it has
+  fewer pairs), whose geom ids name its first candidate and are chosen per
+  env and step (``collision_driver``)."""
   filterparent = not (mjm.opt.disableflags & DisableBit.FILTERPARENT)
   exclude_sigs = {int(mjm.exclude_signature[i]) for i in range(mjm.nexclude)}
   weld = mjm.body_weldid
@@ -198,12 +194,16 @@ def _contact_meta(mjm: Any) -> dict:
         static_pairs.append((a, b, -1, sig))
       else:
         staged.setdefault(sig, []).append((a, b, -1, sig))
-  pairs = list(static_pairs)
+  # a dynamic group's pair slots, read when a model is compiled, as the
+  # reference reads it (mujoco_tpu/models/io.py:515-530)
+  budget = int(os.environ.get("MJTPU_PAIR_BUDGET", "24"))
+  threshold = max(2 * budget, 16)
+  pairs, dyn = list(static_pairs), []
   for sig, group in sorted(staged.items()):
-    if len(group) > _DYNAMIC_PAIRS:
-      raise NotImplementedError(
-          f"{len(group)} candidate pairs of one type (dynamic pair groups)")
-    pairs.extend(group)
+    if len(group) > threshold:
+      dyn.append((sig, group))
+    else:
+      pairs.extend(group)
 
   g1s, g2s, types, condims, first, pairids = [], [], [], [], [], []
   for a, b, pid, (t1, t2, condim) in pairs:
@@ -214,12 +214,31 @@ def _contact_meta(mjm: Any) -> dict:
       condims.append(condim)
       first.append(k == 0)
       pairids.append(pid)
+  dynslot = [False] * len(g1s)
+  groups = []
+  for (t1, t2, condim), group in dyn:
+    k = _PAIR_NCON[t1, t2]
+    npair = min(budget, len(group))
+    groups.append({
+        "g1": np.array([p[0] for p in group], dtype=np.int32),
+        "g2": np.array([p[1] for p in group], dtype=np.int32),
+        "adr": len(g1s), "npair": npair, "k": k, "t1": t1, "t2": t2,
+        "did1": -1, "did2": -1})
+    for _ in range(npair * k):
+      g1s.append(group[0][0])
+      g2s.append(group[0][1])
+      types.append((t1, t2))
+      condims.append(condim)
+      first.append(False)
+      pairids.append(-1)
+      dynslot.append(True)
 
   si = lambda x: np.array(x, dtype=np.int32).reshape(-1)
   return {"ncon": len(g1s), "geom1": si(g1s), "geom2": si(g2s),
           "pair_type": np.array(types, dtype=np.int32).reshape(-1, 2),
           "condim": si(condims), "con_first": np.array(first, dtype=bool),
-          "pairid": si(pairids)}
+          "pairid": si(pairids), "dynslot": np.array(dynslot, dtype=bool),
+          "dyngroups": tuple(groups)}
 
 
 # rows of each equality type the port assembles (mujoco_tpu/models/io.py:
@@ -357,14 +376,10 @@ def _check_subset(mjm: Any) -> None:
     if int(n):
       raise NotImplementedError(name)
   opt = mjm.opt
-  if int(opt.enableflags) & EnableBit.SLEEP:
-    raise NotImplementedError("sleep")
   if int(opt.enableflags) & EnableBit.ENERGY:
     raise NotImplementedError("energy")
   if opt.density > 0 or opt.viscosity > 0:
     raise NotImplementedError("fluid forces")
-  if mjm.nv >= _ISLAND_MIN_NV and not (opt.disableflags & DisableBit.ISLAND):
-    raise NotImplementedError("constraint islands")
   if np.any(np.asarray(getattr(mjm, "jnt_actgravcomp", [0]))):
     raise NotImplementedError("actuator gravity compensation")
 
@@ -413,13 +428,14 @@ def model_numpy(mjm: Any) -> dict:
       "nbody": mjm.nbody, "njnt": mjm.njnt, "ngeom": mjm.ngeom,
       "nsite": mjm.nsite, "neq": mjm.neq, "ncam": mjm.ncam,
       "nlight": mjm.nlight, "ntendon": mjm.ntendon, "nwrap": mjm.nwrap,
-      "nmocap": mjm.nmocap,
+      "nmocap": mjm.nmocap, "ntree": int(mjm.ntree),
       "has_dof_damping": bool(np.any(np.asarray(mjm.dof_damping) > 0)),
       "has_tendon_armature": bool(np.any(np.asarray(getattr(
           mjm, "tendon_armature", np.zeros(mjm.ntendon))) > 0)),
       "opt.timestep": jx(mjm.opt.timestep), "opt.gravity": jx(mjm.opt.gravity),
       "opt.impratio": jx(mjm.opt.impratio),
       "opt.tolerance": jx(mjm.opt.tolerance),
+      "opt.sleep_tolerance": jx(mjm.opt.sleep_tolerance),
       "opt.integrator": int(mjm.opt.integrator), "opt.cone": int(mjm.opt.cone),
       "opt.solver": int(mjm.opt.solver),
       "opt.iterations": int(mjm.opt.iterations),
@@ -435,8 +451,12 @@ def model_numpy(mjm: Any) -> dict:
                         mjm.dof_parentid, mjm.nv, mjm.dof_jntid, mjm.jnt_type,
                         mjm.jnt_dofadr)
   f.update({f"tree.{k}": v for k, v in tree.items()})
+  groups = con.pop("dyngroups")
   f.update({f"con.{k}": v for k, v in con.items()})
+  f.update({f"con.dyngroups.{i}.{k}": v for i, grp in enumerate(groups)
+            for k, v in grp.items()})
   f.update({f"efc.{k}": v for k, v in efc.items()})
+  f.update(_tree_meta(mjm))
   for name in ("body_parentid", "body_rootid", "body_weldid", "body_jntnum",
                "body_mocapid", "tendon_adr", "tendon_num", "tendon_limited",
                "wrap_type", "wrap_objid",
@@ -458,7 +478,7 @@ def model_numpy(mjm: Any) -> dict:
                "jnt_actfrcrange", "jnt_margin", "dof_armature", "dof_damping",
                "dof_invweight0", "geom_solmix", "geom_solref", "geom_solimp",
                "geom_size", "geom_pos", "geom_quat", "geom_friction",
-               "geom_margin", "site_pos", "site_quat", "actuator_gainprm",
+               "geom_margin", "geom_rbound", "dof_length", "site_pos", "site_quat", "actuator_gainprm",
                "actuator_biasprm", "actuator_ctrlrange", "actuator_forcerange",
                "actuator_gear", "dof_frictionloss", "dof_solref",
                "dof_solimp", "pair_friction", "pair_solref",
@@ -484,6 +504,35 @@ def model_numpy(mjm: Any) -> dict:
   return {k: np.asarray(v) for k, v in f.items()}
 
 
+def _tree_meta(mjm: Any) -> dict:
+  """Kinematic-tree tables (mujoco_tpu/models/io.py:1628 ``_sleep_meta``):
+  tree ids, dense per-tree dof and body masks, sleep policies and the
+  trees each tendon spans."""
+  si = lambda x: np.asarray(x, dtype=np.int32)
+  ntree = int(mjm.ntree)
+  body_treeid = si(mjm.body_treeid).reshape(-1)
+  dof_treeid = si(mjm.dof_treeid).reshape(-1)
+  trees = np.arange(ntree)[:, None]
+  return {"body_treeid": body_treeid, "dof_treeid": dof_treeid,
+          "tree_sleep_policy": si(mjm.tree_sleep_policy).reshape(-1),
+          "tree_dof_mask": dof_treeid[None, :] == trees,
+          "tree_body_mask": body_treeid[None, :] == trees,
+          "tendon_treenum": si(mjm.tendon_treenum).reshape(-1),
+          "tendon_treeid": si(mjm.tendon_treeid).reshape(-1, 2)}
+
+
+def _groups(fields: dict, name: str) -> tuple:
+  """A tuple of dicts flattened as ``name.i.key`` (ContactMeta.dyngroups):
+  0-d values become ints, arrays int32 arrays."""
+  out = []
+  while any(k.startswith(f"{name}.{len(out)}.") for k in fields):
+    pre = f"{name}.{len(out)}."
+    out.append({k[len(pre):]: (int(v) if np.ndim(v) == 0
+                               else np.asarray(v, dtype=np.int32))
+                for k, v in fields.items() if k.startswith(pre)})
+  return tuple(out)
+
+
 def _build(cls, fields: dict, prefix: str, device, dtype):
   """Instantiate dataclass ``cls`` from flat fields under ``prefix``."""
   nested = {"Option": Option, "TreeTopology": TreeTopology,
@@ -501,6 +550,8 @@ def _build(cls, fields: dict, prefix: str, device, dtype):
           kind, obj = k[len(pre):].split(".", 1)
           table.setdefault(kind, {})[obj] = int(v)
       kw[f.name] = table
+    elif f.type == "tuple":
+      kw[f.name] = _groups(fields, name)
     elif f.type.startswith("Tuple"):
       items = []
       while f"{name}.{len(items)}" in fields:
@@ -562,7 +613,10 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       pos=z(ncon, 3), frame=tile(eye3, ncon), includemargin=z(ncon),
       friction=tile([1, 1, 0.005, 0.0001, 0.0001], ncon),
       solref=tile([0.02, 1.0], ncon), solreffriction=z(ncon, 2),
-      solimp=tile([0.9, 0.95, 0.001, 0.5, 2.0], ncon), mu=z(ncon))
+      solimp=tile([0.9, 0.95, 0.001, 0.5, 2.0], ncon), mu=z(ncon),
+      geomids=torch.as_tensor(np.stack([m.con.geom1, m.con.geom2], -1),
+                              dtype=torch.int32, device=dev).reshape(
+                                  1, ncon, 2))
   return Data(
       time=z(), qpos=m.qpos0.to(device=dev, dtype=dtype)[None].clone(),
       qvel=z(nv), act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(nv),
@@ -593,7 +647,11 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       efc_active=torch.zeros((1, nefc), dtype=torch.bool, device=dev),
       efc_force=z(nefc), qfrc_constraint=z(nv), qacc=z(nv),
       solver_stat=z(32, 2),
-      solver_niter=torch.zeros((1,), dtype=torch.int32, device=dev))
+      solver_niter=torch.zeros((1,), dtype=torch.int32, device=dev),
+      warning=torch.zeros((1, 2), dtype=torch.int32, device=dev),
+      # fully awake (mj_resetData; mujoco_tpu/models/io.py:1782-1786)
+      tree_asleep=torch.full((1, m.ntree), -11, dtype=torch.int32,
+                             device=dev))
 
 
 def data_from_numpy(m: Model, fields: dict) -> Data:

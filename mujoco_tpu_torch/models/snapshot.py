@@ -604,6 +604,102 @@ def humanoid_elliptic_xml() -> str:
   return xml.replace(old, HUMANOID_ELLIPTIC_OPTION, 1)
 
 
+# tests/test_sleep.py:50-63 (SCENE) with the upper box made a sphere (the
+# port has no box-box collider yet) and the ball 1 m from the stack instead
+# of 3 m (it reaches the stack in fewer steps): a box on the floor, a
+# sphere resting on it, and a low-friction ball
+SLEEP_STACK_XML = """
+<mujoco>
+  <option timestep="0.002" sleep_tolerance="1e-4">
+    <flag sleep="enable"/>
+  </option>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body pos="0 0 0.1"><freejoint/><geom type="box" size=".1 .1 .1"/></body>
+    <body pos="0 0 0.3"><freejoint/><geom type="sphere" size=".1"/></body>
+    <body pos="-1 0 0.12">
+      <freejoint/><geom type="sphere" size=".12" friction="0.1"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_sleep.py:127-139 (test_equality_island) with the box-box pair
+# excluded (the port has no box-box collider yet; the boxes never meet):
+# two boxes on the floor coupled by a connect equality
+SLEEP_EQUALITY_XML = """
+<mujoco>
+  <option timestep="0.002" sleep_tolerance="1e-4">
+    <flag sleep="enable"/>
+  </option>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body name="a" pos="0 0 0.15"><freejoint/>
+      <geom type="box" size=".1 .1 .1" mass="1"/></body>
+    <body name="b" pos="0.4 0 0.15"><freejoint/>
+      <geom type="box" size=".1 .1 .1" mass="1"/></body>
+  </worldbody>
+  <contact><exclude body1="a" body2="b"/></contact>
+  <equality><connect body1="a" body2="b" anchor="0.2 0 0"/></equality>
+</mujoco>"""
+
+
+def multi_humanoid_mj(n: int, spacing: float = 3.0, sleep: bool = False):
+  """mujoco_tpu's ``zoo.multi_humanoid(n)`` scene
+  (mujoco_tpu/models/zoo.py:38-62) built with the pip mujoco's MjSpec: n
+  flagship humanoids in one scene, the floor kept once, humanoid i > 0
+  prefixed ``h{i}_`` with its root at (spacing·row, spacing·col, 1.35),
+  (row, col) = divmod(i, round(√n)). The humanoid's own contype scheme
+  keeps the humanoids from colliding with each other, so each is a
+  constraint island of its own. With sleep, the scene enables it."""
+  import mujoco
+  with open(os.path.join(zoo.XML_DIR, "humanoid.xml")) as f:
+    xml = f.read()
+  scene = mujoco.MjSpec.from_string(xml)
+  for i in range(1, n):
+    part = mujoco.MjSpec.from_string(xml)
+    part.delete(part.geom("floor"))
+    root = scene.worldbody.add_frame().attach_body(part.body("root"),
+                                                   f"h{i}_", "")
+    row, col = divmod(i, max(1, int(round(n ** 0.5))))
+    root.pos = [spacing * row, spacing * col, 1.35]
+  if sleep:
+    scene.option.enableflags |= int(mujoco.mjtEnableBit.mjENBL_SLEEP)
+  return scene.compile()
+
+
+def replicate_mj(n: int, spacing: float = 1.5):
+  """tests/test_bigscene.py:58-74 ``_replicate_humanoids(n)``: n flagship
+  humanoids in a row, every geom colliding with every other (self and
+  cross collisions), Newton at 8 iterations and 8 linesearch steps, a
+  4 ms step; thousands of candidate pairs in three dynamic groups."""
+  import mujoco
+  parent = mujoco.MjSpec.from_string("""
+<mujoco>
+  <option timestep="0.004" iterations="8" ls_iterations="8"/>
+  <worldbody><geom name="floor" type="plane" size="10 10 .1"/></worldbody>
+</mujoco>""")
+  for i in range(n):
+    child = mujoco.MjSpec.from_file(os.path.join(zoo.XML_DIR,
+                                                 "humanoid.xml"))
+    for g in child.geoms:
+      g.contype = 1
+      g.conaffinity = 1
+    # the parent's options win on attach; equal ones spare the warning
+    child.option.timestep = parent.option.timestep
+    child.option.iterations = parent.option.iterations
+    child.option.ls_iterations = parent.option.ls_iterations
+    frame = parent.worldbody.add_frame(pos=[spacing * i, 0, 0])
+    frame.attach_body(child.worldbody.first_body(), f"h{i}_", "")
+  return parent.compile()
+
+
+# the many-body scenes keep constraint islands enabled
+_MANY_BODY = {"multi_humanoid10": lambda: multi_humanoid_mj(10),
+              "multi_humanoid10_sleep": lambda: multi_humanoid_mj(
+                  10, sleep=True),
+              "replicate4": lambda: replicate_mj(4)}
+
+
 _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "eq_connect_joint": EQ_CONNECT_JOINT_XML,
            "limits_frictionloss": LIMITS_FRICTIONLOSS_XML,
@@ -620,7 +716,9 @@ _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "ball_hinge_fric_elliptic": BALL_HINGE_FRIC_ELLIPTIC_XML,
            "sphere_condim4_elliptic": SPHERE_CONDIM4_ELLIPTIC_XML,
            "servo": SERVO_XML, "freebody": FREEBODY_XML,
-           "chain_3d": CHAIN_3D_XML, "balls_elliptic": BALLS_ELLIPTIC_XML}
+           "chain_3d": CHAIN_3D_XML, "balls_elliptic": BALLS_ELLIPTIC_XML,
+           "sleep_stack": SLEEP_STACK_XML,
+           "sleep_equality": SLEEP_EQUALITY_XML}
 _FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
               "humanoid_elliptic": humanoid_elliptic_xml}
 
@@ -628,6 +726,8 @@ _FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
 def compile_mj(name: str):
   """The compiled ``mujoco.MjModel`` of a snapshot model."""
   import mujoco
+  if name in _MANY_BODY:
+    return _MANY_BODY[name]()
   if name in _SCENES or name in _FROM_FILE:
     xml = _FROM_FILE[name]() if name in _FROM_FILE else _SCENES[name]
     mjm = mujoco.MjModel.from_xml_string(xml)

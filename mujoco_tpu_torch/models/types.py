@@ -5,8 +5,9 @@ Enum values match the reference public API (mujoco_tpu/models/types.py:36-247).
 ``EfcMeta`` (:450), ``Model`` (:487), ``Contact`` (:913) and ``Data`` (:945)
 carry only the fields the port's stages read or write: the rigid-body
 constraint class (equality, friction-loss, limit and contact rows, explicit
-pairs, cameras and lights), tendons, site and slider-crank transmissions
-and mocap bodies; later slices add the rest with their modules. Field
+pairs, cameras and lights), tendons, site and slider-crank transmissions,
+mocap bodies, and the many-body fields (kinematic trees, dynamic pair
+groups, sleep); later slices add the rest with their modules. Field
 names are the reference's, so a field here and the same-named field of a
 ``mujoco_tpu`` Model or Data hold the same quantity.
 
@@ -168,6 +169,7 @@ class Option:
   gravity: torch.Tensor = field()          # (3,)
   impratio: torch.Tensor = field()
   tolerance: torch.Tensor = field()
+  sleep_tolerance: torch.Tensor = field()
   integrator: int = static_field()
   cone: int = static_field()
   solver: int = static_field()
@@ -204,6 +206,13 @@ class ContactMeta:
   condim: np.ndarray = static_field()             # (ncon,)
   con_first: np.ndarray = static_field()          # (ncon,) bool
   pairid: np.ndarray = static_field()             # (ncon,) <pair> id or -1
+  # dynamic pair groups (mujoco_tpu/models/types.py:343-354): a group of
+  # more same-signature candidate pairs than the static budget owns npair
+  # pair slots of k contacts each, appended last, filled per env and step
+  # by a bounding-sphere top-K; the slots' geom ids are Contact.geomids.
+  # Tuple of dicts: {g1, g2: (ncand,), adr, npair, k, t1, t2, did1, did2}
+  dyngroups: tuple = static_field()
+  dynslot: np.ndarray = static_field()            # (ncon,) bool
 
 
 @dataclass
@@ -244,6 +253,7 @@ class Model:
   ntendon: int = static_field()
   nwrap: int = static_field()
   nmocap: int = static_field()
+  ntree: int = static_field()
   has_dof_damping: bool = static_field()
   has_tendon_armature: bool = static_field()
 
@@ -298,6 +308,16 @@ class Model:
   dof_frictionloss: torch.Tensor = field()
   dof_solref: torch.Tensor = field()
   dof_solimp: torch.Tensor = field()
+  dof_length: torch.Tensor = field()      # (nv,) sleep tolerance weights
+
+  # kinematic trees (mujoco_tpu/models/types.py:590-601; the sleep and
+  # island tables): each body's and dof's tree (−1: the world), dense
+  # per-tree dof and body masks, the sleep policy (mjtSleepPolicy)
+  body_treeid: np.ndarray = static_field()        # (nbody,)
+  dof_treeid: np.ndarray = static_field()         # (nv,)
+  tree_sleep_policy: np.ndarray = static_field()  # (ntree,)
+  tree_dof_mask: np.ndarray = static_field()      # (ntree, nv) bool
+  tree_body_mask: np.ndarray = static_field()     # (ntree, nbody) bool
 
   geom_type: np.ndarray = static_field()
   geom_contype: np.ndarray = static_field()
@@ -313,6 +333,7 @@ class Model:
   geom_quat: torch.Tensor = field()
   geom_friction: torch.Tensor = field()
   geom_margin: torch.Tensor = field()
+  geom_rbound: torch.Tensor = field()
 
   site_bodyid: np.ndarray = static_field()
   site_pos: torch.Tensor = field()
@@ -372,6 +393,8 @@ class Model:
   tendon_adr: np.ndarray = static_field()
   tendon_num: np.ndarray = static_field()
   tendon_limited: np.ndarray = static_field()
+  tendon_treenum: np.ndarray = static_field()     # trees a tendon spans
+  tendon_treeid: np.ndarray = static_field()      # (ntendon, 2), −1 padded
   tendon_solref_lim: torch.Tensor = field()
   tendon_solimp_lim: torch.Tensor = field()
   tendon_solref_fri: torch.Tensor = field()
@@ -395,6 +418,9 @@ class Model:
   def disabled(self, bit: DisableBit) -> bool:
     return bool(self.opt.disableflags & bit)
 
+  def enabled(self, bit: EnableBit) -> bool:
+    return bool(self.opt.enableflags & bit)
+
   @property
   def dtype(self) -> torch.dtype:
     return self.qpos0.dtype
@@ -416,6 +442,9 @@ class Contact:
   solreffriction: torch.Tensor  # (B, ncon, 2)
   solimp: torch.Tensor          # (B, ncon, 5)
   mu: torch.Tensor              # (B, ncon)
+  # each slot's geom pair (mjContact.geom): Model.con's static ids, but
+  # per env and step on a dynamic pair group's slots
+  geomids: torch.Tensor         # (B, ncon, 2) int32
 
 
 @dataclass
@@ -498,3 +527,8 @@ class Data:
   qacc: torch.Tensor = field()
   solver_stat: torch.Tensor = field()    # (B, 32, 2)
   solver_niter: torch.Tensor = field()   # (B,) int32
+  # [contacts dropped, candidate pairs dropped] by the slot budgets
+  warning: torch.Tensor = field()        # (B, 2) int32
+  # per-tree sleep state (mujoco_tpu/models/types.py:1054-1059): < 0 awake
+  # countdown (−11 fully awake), ≥ 0 asleep, holding the island's label
+  tree_asleep: torch.Tensor = field()    # (B, ntree) int32

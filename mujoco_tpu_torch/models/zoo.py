@@ -21,7 +21,11 @@ carried across from ``mujoco_tpu`` by tests/test_torch_model.py.
 noslip, the elliptic cone, RK4, implicit and implicitfast), each a
 snapshot and the options ``load`` sets on it (``load_scene``);
 ``humanoid_elliptic`` is the flagship humanoid at the elliptic cone
-(impratio 100) and implicitfast.
+(impratio 100) and implicitfast. ``MANY_BODY`` are the scenes of
+constraint islands, dynamic pair groups and sleep: ``multi_humanoid10``
+(ten humanoids in one scene, islands enabled), ``multi_humanoid10_sleep``
+(the same with sleep), ``replicate4`` (four self-colliding humanoids) and
+two small sleep scenes.
 """
 
 from __future__ import annotations
@@ -73,10 +77,16 @@ OPTIONS = {
 ON_FLOOR = {"balls_elliptic": {2: 0.095, 9: 0.058},
             "noslip_condim4": {2: 0.095}}
 # compiled from MJCF by models/snapshot.py
+# the many-body scenes (BASELINE.json configs[4], the multi-humanoid
+# replicate scene): ten flagship humanoids in one scene, with islands
+# (nv 270, 10 trees), and with sleep; four self-colliding humanoids
+# (dynamic pair groups); and the small sleep scenes
+MANY_BODY = ("multi_humanoid10", "multi_humanoid10_sleep", "replicate4",
+             "sleep_stack", "sleep_equality")
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
-             + ("humanoid_elliptic",))
+             + ("humanoid_elliptic",) + MANY_BODY)
 # carried across from the reference's Model (tests/test_torch_model.py)
 CARRIED = ("multi_humanoid3",)
 

@@ -5,7 +5,8 @@ Port of mujoco_tpu/ops/constraint.py: ``_impedance`` (:34), ``_kb`` (:64),
 CONNECT, WELD, JOINT and TENDON), ``_friction_rows`` (:333, dof and tendon
 friction loss), ``_limit_rows`` (:371, hinge/slide sides, ball cones and
 tendon sides), ``_contact_rows`` (:452, condim 1, 3, 4 and 6, pyramidal
-edges or elliptic axes), ``make_constraint`` (:626, with the elliptic
+edges or elliptic axes, a dynamic pair group's slots at each env's
+bodies), ``make_constraint`` (:626, with the elliptic
 rows' solreffriction and R) and ``reference_acceleration`` (:731) with
 ``_jdotv_correction`` (:748). Row layout is static (Model.efc): equality,
 friction loss (dofs, then tendons), limits (joints, then tendons), then
@@ -80,6 +81,13 @@ def _point_jac_diff(m: Model, d: Data, points, body1, body2, with_rot):
   dev = m.device
   mask = (const(m.tree.ancestor_mask[body2], dev, m.dtype)
           - const(m.tree.ancestor_mask[body1], dev, m.dtype))     # (n, nv)
+  return _point_jac_masked(m, d, points, mask, with_rot)
+
+
+def _point_jac_masked(m: Model, d: Data, points, mask, with_rot):
+  """_point_jac_diff with the dof mask (side 2's ancestors less side
+  1's) given: (n, nv), or (B, n, nv) where the bodies differ per env."""
+  dev = m.device
   o = d.subtree_com[:, index(m.body_rootid[m.dof_bodyid], dev)]  # (B, nv, 3)
   ang, lin = d.cdof[..., :3], d.cdof[..., 3:]
   off = points[:, :, None, :] - o[:, None, :, :]                 # (B,n,nv,3)
@@ -339,20 +347,33 @@ def _contact_rows(m: Model, d: Data):
   meta, dev = m.efc, m.device
   ix = lambda a: index(a, dev)
   con = d.contact
-  b1 = m.geom_bodyid[m.con.geom1]
-  b2 = m.geom_bodyid[m.con.geom2]
   # rotational Jacobians only where torsional or rolling friction acts
   need_rot = bool(np.any(m.con.condim > 3))
-  jacp, jacr = _point_jac_diff(m, d, con.pos, b1, b2, need_rot)
+  iw = m.body_invweight0
+  cid, crow = meta.con_id, meta.con_row
+  if np.any(m.con.dynslot):
+    # a dynamic pair group's slots contact other bodies in each env: the
+    # dof masks and invweights by gathers at Contact.geomids
+    # (mujoco_tpu/ops/constraint.py:478-525)
+    gb = index(m.geom_bodyid, dev)
+    b1 = gb[con.geomids[..., 0].long()]                   # (B, ncon)
+    b2 = gb[con.geomids[..., 1].long()]
+    amask = const(m.tree.ancestor_mask, dev, m.dtype)
+    jacp, jacr = _point_jac_masked(m, d, con.pos, amask[b2] - amask[b1],
+                                   need_rot)
+    tran = (iw[b1, 0] + iw[b2, 0])[:, ix(cid)]            # (B, nrows)
+    rot = (iw[b1, 1] + iw[b2, 1])[:, ix(cid)] if need_rot else tran
+  else:
+    b1 = m.geom_bodyid[m.con.geom1]
+    b2 = m.geom_bodyid[m.con.geom2]
+    jacp, jacr = _point_jac_diff(m, d, con.pos, b1, b2, need_rot)
+    tran = (iw[ix(b1), 0] + iw[ix(b2), 0])[ix(cid)]
+    rot = (iw[ix(b1), 1] + iw[ix(b2), 1])[ix(cid)] if need_rot else tran
   jt = con.frame @ jacp                                    # (B, ncon, 3, nv)
   jr = con.frame @ jacr if need_rot else jt
 
-  cid, crow = meta.con_id, meta.con_row
   condim = m.con.condim[cid]
   frictionless = condim == 1
-  iw = m.body_invweight0
-  tran = (iw[ix(b1), 0] + iw[ix(b2), 0])[ix(cid)]
-  rot = (iw[ix(b1), 1] + iw[ix(b2), 1])[ix(cid)] if need_rot else tran
   dist = con.dist[:, ix(cid)]
   margin = con.includemargin[:, ix(cid)]
   if int(m.opt.cone) == int(ConeType.PYRAMIDAL):

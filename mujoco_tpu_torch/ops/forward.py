@@ -8,8 +8,12 @@ through the CUDA LDL kernel, or under CG through the tree factor),
 ``fwd_constraint`` (:134), ``forward`` (:152), ``integrate_pos`` (:210),
 ``_advance`` (:300), ``euler`` (:416, with implicit joint damping),
 ``rungekutta4`` (:437), ``implicit`` (:472, IMPLICIT and IMPLICITFAST, with
-``ops/derivative.py``) and ``step`` (:515). Sensors, energy, sleep and flex
-are outside the slice; ``io.put_model`` rejects models that need them.
+``ops/derivative.py``) and ``step`` (:515), with the sleep hooks
+(:53-65, :143-147, :327-332) into ``ops/sleep.py``: the wake pass after
+collision, the rows of sleeping trees masked after ``make_constraint``,
+sleeping dofs' qacc zeroed after the solve and the countdown at the top of
+the advance. Sensors, energy and flex are outside the slice;
+``io.put_model`` rejects models that need them.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ import torch
 from mujoco_tpu_torch.models.types import (Data, DisableBit, Integrator,
                                            JointType, Model, SolverType)
 from mujoco_tpu_torch.ops import (actuation, collision_driver, constraint,
-                                  derivative, linalg_cuda, passive, smooth,
-                                  solver, support)
+                                  derivative, linalg_cuda, passive, sleep,
+                                  smooth, solver, support)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -39,7 +43,12 @@ def fwd_position(m: Model, d: Data) -> Data:
     d = smooth.factor_m(m, d)
   if m.con.ncon or m.efc.nefc:
     d = collision_driver.collision(m, d)
+    # the wake pass sees this step's contacts before the rows do
+    d = sleep.wake(m, d)
     d = constraint.make_constraint(m, d)
+    d = sleep.mask_sleeping_rows(m, d)
+  else:
+    d = sleep.wake(m, d)
   return smooth.transmission(m, d)
 
 
@@ -112,10 +121,15 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
 def fwd_constraint(m: Model, d: Data) -> Data:
   """Constraint solve → qacc (mj_fwdConstraint)."""
   if not m.efc.nefc or m.disabled(DisableBit.CONSTRAINT):
-    return d.replace(qacc=d.qacc_smooth,
-                     qfrc_constraint=torch.zeros_like(d.qfrc_constraint),
-                     efc_force=torch.zeros_like(d.efc_force))
-  return solver.solve(m, d)
+    d = d.replace(qacc=d.qacc_smooth,
+                  qfrc_constraint=torch.zeros_like(d.qfrc_constraint),
+                  efc_force=torch.zeros_like(d.efc_force))
+  else:
+    d = solver.solve(m, d)
+  if sleep.sleep_active(m):
+    # sleeping dofs keep qacc 0 (mj_fwdAcceleration's sleep filter)
+    d = d.replace(qacc=d.qacc * sleep.dof_awake_mask(m, d))
+  return d
 
 
 def forward(m: Model, d: Data) -> Data:
@@ -175,6 +189,8 @@ def _advance(m: Model, d: Data, qacc, qvel_pos=None) -> Data:
   h·qacc, qpos by integrate_pos, time += h; d.qacc, and so the next
   warmstart, stays the solver's acceleration."""
   h = m.opt.timestep
+  # the sleep countdown first: trees that fall asleep keep qvel 0
+  d, qacc = sleep.sleep_step(m, d, qacc)
   qvel = d.qvel + h * qacc
   qpos = integrate_pos(m, d.qpos, qvel if qvel_pos is None else qvel_pos, h)
   return d.replace(qvel=qvel, qpos=qpos, time=d.time + h,

@@ -38,8 +38,8 @@ from mujoco_tpu_torch.models import io
 from mujoco_tpu_torch.models.types import (ConeType, Data, DisableBit,
                                            GeomType, Integrator, JointType,
                                            Model, SolverType, TrnType)
-from mujoco_tpu_torch.ops import (collision_driver, cuda_build, linalg_cuda,
-                                  newton_cuda)
+from mujoco_tpu_torch.ops import (collision_driver, cuda_build, island,
+                                  linalg_cuda, newton_cuda)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.math import MINVAL
 
@@ -159,9 +159,9 @@ def _supported(m: Model) -> bool:
   if m.na:
     return False
   # the reference leaves models its stage path would island-decompose on
-  # that path (first test of island.use_islands, island.py:217-227); the
-  # port has no island solve and io.put_model refuses such models
-  if m.nv >= io._ISLAND_MIN_NV and not m.disabled(DisableBit.ISLAND):
+  # that path (megastep_tpu.py:118-120), and models with dynamic pair
+  # groups (:143-145); sleep is refused with every enable flag above
+  if island.use_islands(m) or m.con.dyngroups:
     return False
   jt = np.asarray(m.jnt_type)
   if not np.all(np.isin(jt, [JointType.FREE, JointType.HINGE,

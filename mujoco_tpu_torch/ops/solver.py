@@ -1,7 +1,8 @@
 """Constraint solve for the stage path (port of mujoco_tpu/ops/solver.py:
-``solve`` :273 → ``_monolithic_solve`` :333, dispatching as
-``_use_newton_kernel`` :301-311 says to ``_kernel_solve`` :314 or to the
-general core ``_core`` :354-481 with ``_update`` :39,
+``solve`` :273, which sends Newton and CG to ``ops/island.py`` where
+``island.use_islands`` holds and otherwise to ``_monolithic_solve`` :333,
+dispatching as ``_use_newton_kernel`` :301-311 says to ``_kernel_solve``
+:314 or to the general core ``_core`` :354-481 with ``_update`` :39,
 ``_cone_hessian_blocks`` :156, ``_eval_phi`` :199 and ``_linesearch``
 :238; ``solve_pgs`` :507 with ``_row_bounds`` :489; ``_qcqp`` :627 and
 the noslip post-pass ``_noslip`` :666).
@@ -37,7 +38,7 @@ import torch
 
 from mujoco_tpu_torch.models.types import (ConeType, Data, DisableBit, Model,
                                            SolverType)
-from mujoco_tpu_torch.ops import linalg_cuda, newton_cuda, smooth
+from mujoco_tpu_torch.ops import island, linalg_cuda, newton_cuda, smooth
 from mujoco_tpu_torch.utils.device import const, index
 from mujoco_tpu_torch.utils.math import MINVAL, dot, mat_vec
 
@@ -660,11 +661,16 @@ def _noslip(m: Model, d: Data, f):
 
 def solve(m: Model, d: Data) -> Data:
   """Constraint solve → qacc, efc_force, qfrc_constraint, solver stats;
-  noslip after Newton and CG re-solves qacc = qacc_smooth + M⁻¹·Jᵀf with
-  the LDL kernel (mujoco_tpu/ops/solver.py:333-352)."""
+  Newton and CG go to the island solve where ``island.use_islands`` holds
+  (mujoco_tpu/ops/solver.py:273-292); noslip after Newton and CG re-solves
+  qacc = qacc_smooth + M⁻¹·Jᵀf with the LDL kernel
+  (mujoco_tpu/ops/solver.py:333-352)."""
   if int(m.opt.solver) == int(SolverType.PGS):
     return solve_pgs(m, d)
-  if _use_newton_kernel(m):
+  if island.use_islands(m):
+    x, force, niter, stat = island.solve_core(m, d)
+    qfrc = None
+  elif _use_newton_kernel(m):
     x, force, qfrc, stat = newton_cuda.run(
         newton_args(m, d), int(m.opt.iterations), int(m.opt.ls_iterations))
     niter = torch.full_like(d.solver_niter, int(m.opt.iterations))

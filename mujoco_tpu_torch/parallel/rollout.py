@@ -23,11 +23,10 @@ from mujoco_tpu_torch.ops import forward, megastep_cuda
 
 # the integration state that crosses step boundaries; everything else in
 # Data is workspace that forward() recomputes from it (the reference's list
-# minus the fields of features the port does not carry yet: history,
-# tree_asleep)
+# less history, which the port does not carry yet)
 STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qacc_warmstart",
                 "qacc", "qfrc_applied", "xfrc_applied", "eq_active",
-                "mocap_pos", "mocap_quat")
+                "mocap_pos", "mocap_quat", "tree_asleep")
 
 
 def _expand(d: Data, nbatch: int) -> Data:

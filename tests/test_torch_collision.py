@@ -26,6 +26,11 @@ from mujoco_tpu_torch.models import snapshot
 from mujoco_tpu_torch.ops import collision_primitive as t_cp
 from mujoco_tpu_torch.ops import forward as t_fwd
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 NPAIR = 64
 
 

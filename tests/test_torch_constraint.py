@@ -27,6 +27,11 @@ from mujoco_tpu_torch.models import zoo
 from mujoco_tpu_torch.ops import constraint as t_con
 from mujoco_tpu_torch.ops import forward as t_fwd
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 CONTACT_FIELDS = ("dist", "pos", "frame", "includemargin", "friction",
                   "solref", "solimp", "mu")
 EFC_FIELDS = ("efc_J", "efc_pos", "efc_margin", "efc_D", "efc_R",

@@ -44,9 +44,14 @@ from mujoco_tpu_torch.models import io as tio
 from mujoco_tpu_torch.models import snapshot, zoo
 from mujoco_tpu_torch.models.types import SolverType
 from mujoco_tpu_torch.ops import forward as t_fwd
-from mujoco_tpu_torch.ops import megastep_cuda, newton_cuda, smooth
+from mujoco_tpu_torch.ops import megastep_cuda, newton_cuda, sleep, smooth
 from mujoco_tpu_torch.ops import solver as t_solver
 from mujoco_tpu_torch.parallel import rollout as t_roll
+
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
 
 NBATCH, NSTEP = 2, 50
 CAMLIGHT_FIELDS = ("cam_xpos", "cam_xmat", "light_xpos", "light_xdir")
@@ -395,13 +400,6 @@ _STILL_RAISE = {
     "sensors": """<mujoco><worldbody><body><joint name="a" type="slide"/>
       <geom size="0.1"/></body></worldbody><sensor>
       <jointpos joint="a"/></sensor></mujoco>""",
-    "dynamic pair groups": "<mujoco><worldbody>" + "".join(
-        f'<body pos="{0.3 * i} 0 1"><freejoint/><geom size="0.1"/></body>'
-        for i in range(11)) + "</worldbody></mujoco>",
-    # 43 free bodies: nv 258, above the reference's island gate
-    "constraint islands": "<mujoco><worldbody>" + "".join(
-        f'<body pos="{0.3 * i} 0 1"><freejoint/><geom size="0.1" '
-        f'contype="0"/></body>' for i in range(43)) + "</worldbody></mujoco>",
     "activation dynamics": """<mujoco><worldbody><body>
       <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
       </worldbody><actuator><general joint="a" dyntype="filter"
@@ -433,7 +431,22 @@ _WIDENED = {
     "noslip": """<mujoco><option noslip_iterations="3"/><worldbody>
       <geom type="plane" size="1 1 1"/><body><freejoint/>
       <geom size="0.1"/></body></worldbody></mujoco>""",
+    # 55 sphere-sphere candidates: one group of 24 pair slots
+    "dynamic pair groups": "<mujoco><worldbody>" + "".join(
+        f'<body pos="{0.3 * i} 0 1"><freejoint/><geom size="0.1"/></body>'
+        for i in range(11)) + "</worldbody></mujoco>",
+    # 43 free bodies: nv 258, above the reference's island gate
+    "constraint islands": "<mujoco><worldbody>" + "".join(
+        f'<body pos="{0.3 * i} 0 1"><freejoint/><geom size="0.1" '
+        f'contype="0"/></body>' for i in range(43)) + "</worldbody></mujoco>",
+    "sleep": """<mujoco><option><flag sleep="enable"/></option><worldbody>
+      <geom type="plane" size="1 1 1"/><body><freejoint/>
+      <geom size="0.1"/></body></worldbody></mujoco>""",
 }
+# what each many-body case holds once loaded: (dynamic groups, trees,
+# sleep enabled)
+_MANY_BODY = {"dynamic pair groups": (1, 11, False),
+              "constraint islands": (0, 43, False), "sleep": (0, 1, True)}
 
 
 @pytest.mark.parametrize("feature", sorted(_WIDENED))
@@ -444,3 +457,6 @@ def test_widened_gates_load(feature):
   assert (m.opt.cone, m.opt.solver, m.opt.noslip_iterations) == (
       int(mjm.opt.cone), int(mjm.opt.solver), int(mjm.opt.noslip_iterations))
   assert not megastep_cuda.supported(m)
+  if feature in _MANY_BODY:
+    assert (len(m.con.dyngroups), m.ntree, sleep.sleep_active(m)) == \
+        _MANY_BODY[feature]

@@ -20,6 +20,11 @@ import mujoco_tpu_torch
 from mujoco_tpu_torch.models import io, zoo
 from mujoco_tpu_torch.parallel import rollout
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mujoco_tpu_torch")
 

@@ -23,6 +23,11 @@ from mujoco_tpu_torch.models import zoo
 from mujoco_tpu_torch.ops import forward, linalg_cuda
 from mujoco_tpu_torch.parallel import rollout
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 LANES = 128
 
 

@@ -34,6 +34,11 @@ from mujoco_tpu_torch.ops import forward, newton_cuda, solver
 from mujoco_tpu_torch.ops import megastep_cuda as mc
 from mujoco_tpu_torch.parallel import rollout
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NBATCH = 6
 
@@ -45,10 +50,11 @@ def _with_flags(m, bits):
 
 @pytest.fixture(scope="module")
 def multi_humanoid():
-  """mujoco_tpu's 2-humanoid scene carried across (the port has no MjSpec
-  compiler yet): (reference Model, port Model) with islands disabled, and
-  the reference Model as compiled."""
-  compiled = jzoo.multi_humanoid(2)
+  """mujoco_tpu's 2-humanoid scene (``zoo.multi_humanoid(2)``'s layout,
+  built with the pip mujoco's MjSpec) carried across: (reference Model,
+  port Model) with islands disabled, and the reference Model as
+  compiled."""
+  compiled = jio.put_model(snapshot.multi_humanoid_mj(2))
   jm = compiled.replace(opt=compiled.opt.replace(
       disableflags=int(compiled.opt.disableflags) | int(DisableBit.ISLAND)))
   return jm, tio.model_from_numpy(tio.flatten(jm), dtype=torch.float64,
@@ -120,6 +126,39 @@ def test_supported_gate_matches_reference(multi_humanoid, monkeypatch):
   assert answers == {"humanoid": True, "quadruped": True, "mixed": True,
                      "multi_humanoid": True, "multi_humanoid_noisland": True,
                      "humanoid_rk4": False}
+
+
+# 7 spheres on a floor: 21 sphere-sphere candidates, a dynamic group under
+# a pair budget of 4 (threshold 16), static slots under the default (48)
+_SPHERES7 = ("<mujoco><option iterations='4'/><worldbody>"
+             "<geom type='plane' size='3 3 .1'/>" + "".join(
+                 f'<body pos="{0.3 * i} 0 0.3"><freejoint/>'
+                 '<geom size="0.1"/></body>' for i in range(7))
+             + "</worldbody></mujoco>")
+
+
+@pytest.mark.parametrize("case", ["islands", "dyngroups", "dyngroups_off",
+                                  "sleep"])
+def test_supported_gate_matches_reference_many_body(case, multi_humanoid,
+                                                    monkeypatch):
+  """The gate refuses what the reference's refuses on the many-body
+  models: islands (the 2-humanoid scene under MJTPU_ISLAND_MIN_NV=0, which
+  the kernel would otherwise take), a dynamic pair group (nv 42, in the
+  kernel's class but for the group), and sleep."""
+  import mujoco
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "0" if case == "islands"
+                     else "256")
+  if case == "islands":
+    jm = multi_humanoid[2]
+  else:
+    if case == "dyngroups":
+      monkeypatch.setenv("MJTPU_PAIR_BUDGET", "4")
+    xml = snapshot.SLEEP_STACK_XML if case == "sleep" else _SPHERES7
+    jm = jio.put_model(mujoco.MjModel.from_xml_string(xml))
+  tm = tio.model_from_numpy(tio.flatten(jm), dtype=torch.float64,
+                            device="cpu")
+  assert len(tm.con.dyngroups) == (case == "dyngroups")
+  assert mc.supported(tm) == jmega.supported(jm) == (case == "dyngroups_off")
 
 
 @pytest.mark.parametrize("name", ["multi_humanoid3", "humanoid_tendon",

@@ -18,10 +18,15 @@ import pytest
 import torch
 
 from mujoco_tpu.models import io as jio
-from mujoco_tpu.models import zoo as jzoo
 from mujoco_tpu_torch.models import io as tio
 from mujoco_tpu_torch.models import snapshot, zoo
 from mujoco_tpu_torch.models.types import DisableBit
+from mujoco_tpu_torch.ops import island, sleep
+
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
 
 PENDULUM = """
 <mujoco>
@@ -56,10 +61,11 @@ def _mjmodel(name):
 
 def multi_humanoid3_fields() -> dict:
   """The ``multi_humanoid3`` snapshot: mujoco_tpu's 3-humanoid scene
-  (``zoo.multi_humanoid(3)``, nv 81, monolithic below the island gate)
-  with islands disabled, carried across with ``flatten``; the port's Model
-  fields only."""
-  compiled = jzoo.multi_humanoid(3)
+  (``zoo.multi_humanoid(3)``'s layout, nv 81, monolithic below the island
+  gate, built with the pip mujoco's MjSpec) through mujoco_tpu's
+  put_model with islands disabled, carried across with ``flatten``; the
+  port's Model fields only."""
+  compiled = jio.put_model(snapshot.multi_humanoid_mj(3))
   jm = compiled.replace(opt=compiled.opt.replace(
       disableflags=int(compiled.opt.disableflags)
       | int(DisableBit.ISLAND)))
@@ -146,6 +152,25 @@ def test_carried_snapshot_is_current():
     np.testing.assert_array_equal(committed[k], fresh[k], err_msg=k)
   m = zoo.load("multi_humanoid3", torch.float64, device="cpu")
   assert (m.nv, m.efc.nefc, m.nu) == (81, 3 * 162, 63)
+
+
+def test_many_body_snapshots_load(monkeypatch):
+  """The many-body scenes load from their snapshots as the slice needs
+  them: ten humanoids with islands (nv 270, 10 trees, nefc 1,620, one
+  humanoid per island), with sleep, and replicate4's three dynamic
+  groups of 24 pairs over 2,178 candidates."""
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "256")
+  for name in ("multi_humanoid10", "multi_humanoid10_sleep"):
+    m = zoo.load(name, torch.float64, device="cpu")
+    assert (m.nv, m.ntree, m.efc.nefc, m.con.ncon, m.nu) == (
+        270, 10, 1620, 300, 210)
+    assert island.use_islands(m) and island._budgets(m) == (27, 162, False)
+    assert sleep.sleep_active(m) == (name == "multi_humanoid10_sleep")
+  m = zoo.load("replicate4", torch.float64, device="cpu")
+  assert (m.nv, m.ntree, m.efc.nefc, m.con.ncon) == (108, 4, 1032, 216)
+  assert [(len(g["g1"]), g["npair"]) for g in m.con.dyngroups] == [
+      (116, 24), (784, 24), (1278, 24)]
+  assert not island.use_islands(m)
 
 
 _OUT_OF_SLICE = {

@@ -39,6 +39,11 @@ from mujoco_tpu_torch.ops import forward as t_fwd
 from mujoco_tpu_torch.ops import megastep_cuda
 from mujoco_tpu_torch.ops import solver as t_solver
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 NBATCH, NSTEP = 2, 50
 SCENES = tuple(zoo.OPTIONS)
 ROW_FIELDS = ("efc_J", "efc_pos", "efc_margin", "efc_aref", "efc_D",
@@ -73,16 +78,17 @@ def initial(jm, scene, nbatch=NBATCH, seed=0):
                    ctrl=jnp.asarray(rng.uniform(-1, 1, d.ctrl.shape)))
 
 
-def _final_force_state(scene, tm, td):
+def _final_force_state(scene, tm, td, want_mid=True, want_moved=True):
   """(any slot in the cone's middle zone at the primal solve, any force
   moved by noslip) at the step that made td (a step keeps its forward
-  pass's rows, qacc and forces)."""
+  pass's rows, qacc and forces); a flag not wanted (already seen at an
+  earlier step) is not computed and reads False."""
   jar_of = lambda x: (td.efc_J @ x[..., None])[..., 0] - td.efc_aref
   mid = moved = False
-  if scene in _MIDDLE_ZONE:
+  if want_mid and scene in _MIDDLE_ZONE:
     x = t_solver._core(tm, td)[0]
     mid = bool(t_solver._update(tm, td, jar_of(x), False)[3].mid.any())
-  if int(tm.opt.noslip_iterations):
+  if want_moved and int(tm.opt.noslip_iterations):
     force = t_solver._update(tm, td, jar_of(td.qacc), False)[0]
     moved = bool((force - td.efc_force).abs().max() > 1e-9)
   return mid, moved
@@ -102,7 +108,7 @@ def run(scene):
       jd, td = step(jd), t_fwd.step(tm, td)
       if i == 0:
         first = (tio.flatten(jd), tio.flatten(td))
-      m_i, n_i = _final_force_state(scene, tm, td)
+      m_i, n_i = _final_force_state(scene, tm, td, not mid, not moved)
       mid, moved = mid or m_i, moved or n_i
       traj.append([(np.asarray(getattr(jd, k)), getattr(td, k).numpy())
                    for k in ("qpos", "qvel", "solver_niter")])

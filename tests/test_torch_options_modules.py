@@ -20,6 +20,11 @@ from mujoco_tpu_torch.ops import derivative
 from mujoco_tpu_torch.ops import solver as t_solver
 from tests.test_torch_options import _forward_batch, models
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 
 def _zoned_jar(tm, td, rng):
   """jar with each contact slot put in its cone's top, bottom or middle

@@ -24,6 +24,11 @@ from mujoco_tpu_torch.ops import actuation as t_act
 from mujoco_tpu_torch.ops import passive as t_passive
 from mujoco_tpu_torch.ops import smooth as t_smooth
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 NBATCH = 3
 
 # stage name → the Data fields it writes

@@ -26,6 +26,11 @@ from mujoco_tpu_torch.models import zoo
 from mujoco_tpu_torch.ops import forward as t_fwd
 from mujoco_tpu_torch.parallel import rollout as t_roll
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 NBATCH, NSTEP = 3, 25
 
 

@@ -30,6 +30,11 @@ from mujoco_tpu_torch.ops import forward as t_fwd
 from mujoco_tpu_torch.ops import smooth as t_smooth
 from mujoco_tpu_torch.parallel import rollout as t_roll
 
+# one intra-op thread per process: pytest runs several workers on a
+# few cores, and each worker's idle OpenMP threads would spin against
+# the others' (the tensors here are too small to gain from threads)
+torch.set_num_threads(1)
+
 SCENES = zoo.TENDON + ("humanoid_tendon",)
 NBATCH, NSTEP = 3, 50
 # Newton at its default 100 iterations stops at a tolerance, so its
