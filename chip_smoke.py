@@ -164,10 +164,13 @@ Phases, each of which passes or ends the script with a nonzero exit:
    elementwise (B 256) and f32 by backward error, as phase 16 does, and
    timed at f32 (L2 flushed, and L2-warm by the profiler) with its bound,
    the plain version and ``torch.linalg.solve``; the n-270 LDL (the
-   device-memory route) timed at f32 and f64 on the scene's qM, and the
-   Newton kernel at nv 270 on the monolithic path's rows at f32, each
-   beside its plain version and bound; 5 steps at f64, B 4, on the card
-   against the CPU on the island path (1e-8);
+   device-memory route) on the scene's qM at the full width against its
+   plain version, f32 by backward error and f64 elementwise, and timed
+   at both; the Newton kernel at nv 270 on the monolithic path's rows
+   against its plain version, f64 at B 256 under phase 11's rule and f32
+   at the full width under phase 6's (it1), and timed at f32, each beside
+   its plain version and bound; 5 steps at f64, B 4, on the card against
+   the CPU on the island path (1e-8);
 20. ``replicate4`` (four self-colliding humanoids, nv 108, three dynamic
    pair groups of 24 pairs): f32, B 3072, feet in the floor, 20 steps:
    finite, exactly 1 + iterations + 1 (eulerdamp) LDL launches per step
@@ -179,10 +182,14 @@ Phases, each of which passes or ends the script with a nonzero exit:
 21. sleep: ``sleep_stack`` 100 steps at f64, B 3 (one env at rest, one
    rolling its ball into the stack, one pushing the box), card against
    CPU: ``tree_asleep`` identical at every step, qpos to 1e-8, the resting
-   env's trees all asleep at the end; ``multi_humanoid10_sleep`` at f32,
-   B 3072, 200 steps: finite, two LDL launches per step, env-steps/s,
-   launches, idle share, and the share of trees asleep at the end
-   (printed, not gated).
+   env's trees all asleep at the end; ``sleep_stack`` at f32, B 3072, the
+   same three starts by thirds, 100 steps: finite, LDL launches and no
+   megastep, env-steps/s, launches, the share of trees asleep at the end
+   (more than 0: the sleeping branches run at full width) by start, and
+   the idle share of a profiled 2-step window of the partly sleeping
+   batch; ``multi_humanoid10_sleep`` at f32, B 3072, 20 steps: finite,
+   two LDL launches per step, env-steps/s, launches, idle share, and the
+   share of trees asleep at the end (printed, not gated).
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
@@ -438,6 +445,28 @@ def newton_violation(out_k, out_p, rtol=1e-9, atol=1e-9) -> dict:
   return worst
 
 
+def newton_f32_gate(tag, args, out_k, out_p, need) -> dict:
+  """The Newton kernel against its plain version at f32: at least the
+  share ``need`` of envs match x to 2e-4 relative to the env's largest
+  |x| (the humanoid's accelerations reach O(1e3), where f32 rounding alone
+  exceeds an absolute 2e-4), and the mean gap of the two objectives,
+  evaluated in f64, is under 2e-3 relative. Returns both numbers."""
+  from mujoco_tpu_torch.ops import newton_cuda
+  gap = (out_k[0] - out_p[0]).abs().amax(1)
+  scale = torch.clamp(out_p[0].abs().amax(1), min=1.0)
+  close = (gap < 2e-4 * scale).float().mean().item()
+  args64 = [a.double() for a in args]
+  c_k = newton_cuda.objective(args64, out_k[0].double())
+  c_p = newton_cuda.objective(args64, out_p[0].double())
+  rel = ((c_k - c_p) / torch.clamp(c_p.abs(), min=1.0)).mean().item()
+  print(f"{tag}: {close:.4%} of envs match to 2e-4 rel (need "
+        f"{need:.0%}), mean objective gap {rel:.3e} (limit 2e-3)",
+        flush=True)
+  if close < need or not abs(rel) < 2e-3:
+    raise AssertionError(f"{tag}: kernel and plain version disagree")
+  return dict(close_share=close, objective_gap=rel)
+
+
 def newton_bound(args, it, ls) -> tuple:
   """The Newton kernel's bound on these inputs: (bound ms, by, dense bound
   ms, by, kept rows per env mean, most). The kernel solves over the kept
@@ -474,7 +503,6 @@ def phase_newton(report, details):
       out_k = newton_cuda.newton_kernel(*args, iterations, ls_iter)
       torch.cuda.synchronize()
       out_p = newton_cuda.newton_plain(*args, iterations, ls_iter)
-      gap = (out_k[0] - out_p[0]).abs().amax(1)
       tag = f"newton {str(dtype)[6:]} it{iterations} ls{ls_iter}"
       if dtype == torch.float64:
         errs = {k: (a - b).abs().max().item() for k, a, b in zip(
@@ -491,21 +519,8 @@ def phase_newton(report, details):
                                  f"1e-9·|plain|)")
         worst64 = max(worst64, errs["x"])
       else:
-        # 2e-4 relative to the env's largest |x|: the humanoid's
-        # accelerations reach O(1e3), where f32 rounding alone exceeds an
-        # absolute 2e-4
-        scale = torch.clamp(out_p[0].abs().amax(1), min=1.0)
-        close = (gap < 2e-4 * scale).float().mean().item()
-        args64 = [a.double() for a in args]
-        c_k = newton_cuda.objective(args64, out_k[0].double())
-        c_p = newton_cuda.objective(args64, out_p[0].double())
-        rel = ((c_k - c_p) / torch.clamp(c_p.abs(), min=1.0)).mean().item()
-        need = 0.99 if iterations == 1 else 0.85
-        print(f"{tag}: {close:.4%} of envs match to 2e-4 rel (need "
-              f"{need:.0%}), mean objective gap {rel:.3e} (limit 2e-3)",
-              flush=True)
-        if close < need or not abs(rel) < 2e-3:
-          raise AssertionError(f"{tag}: kernel and plain version disagree")
+        newton_f32_gate(tag, args, out_k, out_p,
+                        0.99 if iterations == 1 else 0.85)
   # time at the main path's shape and type (f32, it 1, ls 4)
   it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
   kernel_ms = cuda_ms_cold(lambda: newton_cuda.newton_kernel(*args, it, ls))
@@ -2022,7 +2037,6 @@ def phase_option_scenes(report, details):
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21")
 MANY_NSTEP = 20
-SLEEP_NSTEP = 200
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
 SLEEP_CHECK_NSTEP = 100
@@ -2157,12 +2171,13 @@ def phase_islands(report, details):
   del h, g
 
   # the n 270 solve of qacc_smooth (the device-memory route), f32 and f64,
-  # and the Newton kernel at nv 270 on the monolithic path's rows
+  # held against its plain version as ldl_gate holds it, and timed
   wide = {}
   for dtype in (torch.float32, torch.float64):
     h, g = mass_matrix_case(load(dtype), nbatch, 32)
     route = "device memory" if linalg_cuda.work_values(
         h.shape[1], dtype, h.device) else "shared memory"
+    err = ldl_gate(f"multi_humanoid10's mass matrix ({route})", h, g)
     k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g), reps=3,
                         warmup=1)
     p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g), reps=3,
@@ -2172,13 +2187,45 @@ def phase_islands(report, details):
     b_ms, by = ldl_bound(nbatch, h.shape[1], dtype)
     wide[str(dtype)[6:]] = dict(n=h.shape[1], route=route, ms=k_ms,
                                 plain_ms=p_ms, library_ms=lib_ms,
-                                bound_ms=b_ms, bound_by=by)
+                                bound_ms=b_ms, bound_by=by, max_abs_err=err)
     print(f"ldl_solve {str(dtype)[6:]} B{nbatch} n{h.shape[1]} ({route}): "
           f"kernel_ms {k_ms:.4f} (L2 flushed) plain_ms {p_ms:.4f} "
           f"library_ms {lib_ms:.4f} (torch.linalg.solve) bound_ms "
           f"{b_ms:.5f} ({by})", flush=True)
     del h, g
+
+  # the Newton kernel at nv 270 on the monolithic path's rows: at f64
+  # (B 256) elementwise under phase 11's rule, then at f32 and the full
+  # width under phase 6's, and timed there
+  mono64 = load(torch.float64)
+  mono64 = mono64.replace(opt=mono64.opt.replace(
+      disableflags=int(mono64.opt.disableflags) | int(DisableBit.ISLAND)))
+  nb64 = 256
+  args = solver.newton_args(mono64, humanoid_state(mono64, nb64, 33))
+  out_k = newton_cuda.newton_kernel(*args, 1, 4)
+  torch.cuda.synchronize()
+  out_p = newton_cuda.newton_plain(*args, 1, 4)
+  viol = newton_violation(out_k, out_p)
+  off, worst_other, table = newton_rows_gate(args, out_k, out_p, 1, 4)
+  unmatched = [row for row in table if row[1] == 0]
+  print(f"newton f64 B{nb64} nefc{m.efc.nefc} nv{m.nv} it1 ls4: worst err "
+        f"/ (1e-9 + 1e-9·|plain|) " + " ".join(f"{k} {v:.3f}"
+                                                for k, v in viol.items())
+        + f"; {len(off)} envs off elementwise (limit {nb64 // 100}), worst "
+        f"err / limit on the others {worst_other:.3f}, replayed {table}",
+        flush=True)
+  if len(off) > nb64 // 100 or not worst_other <= 1.0 or unmatched:
+    raise AssertionError("newton at nv 270: kernel and plain disagree")
+  newton_f64 = dict(batch=nb64, violation=viol, off_envs=off, replay=table,
+                    max_abs_err=(out_k[0] - out_p[0]).abs().max().item())
+  del args, out_k, out_p, mono64
   args = solver.newton_args(mono, humanoid_state(mono, nbatch, 33))
+  out_k = newton_cuda.newton_kernel(*args, 1, 4)
+  torch.cuda.synchronize()
+  out_p = newton_cuda.newton_plain(*args, 1, 4)
+  f32_gate = newton_f32_gate(f"newton f32 B{nbatch} nv{m.nv} it1 ls4", args,
+                             out_k, out_p, 0.99)
+  del out_k, out_p
   bound_ms, by, dense_ms, _, kept_mean, kept_max = newton_bound(args, 1, 4)
   newton = dict(nv=m.nv, nefc=m.efc.nefc, bound_ms=bound_ms, bound_by=by,
                 dense_bound_ms=dense_ms, kept_mean=kept_mean,
@@ -2187,7 +2234,8 @@ def phase_islands(report, details):
                                 reps=3, warmup=1),
                 plain_ms=cuda_ms_cold(
                     lambda: newton_cuda.newton_plain(*args, 1, 4), reps=2,
-                    warmup=1))
+                    warmup=1),
+                max_abs_err=newton_f64["max_abs_err"])
   print(f"newton f32 B{nbatch} nefc{m.efc.nefc} nv{m.nv} it1 ls4: kernel_ms "
         f"{newton['ms']:.4f} (L2 flushed) plain_ms {newton['plain_ms']:.4f} "
         f"bound_ms {bound_ms:.5f} ({by}; kept rows mean {kept_mean:.2f}, "
@@ -2200,6 +2248,7 @@ def phase_islands(report, details):
   details["multi_humanoid10"] = dict(
       islands=isl, monolithic=mon, ldl_island_gate_abs_err=ldl,
       ldl_island=island_times, ldl_n270=wide, newton_nv270=newton,
+      newton_nv270_f64_gate=newton_f64, newton_nv270_f32_gate=f32_gate,
       card_vs_cpu_worst=worst)
   report["ldl_solve"]["island"] = island_times
   report["ldl_solve"]["n270"] = wide
@@ -2297,22 +2346,59 @@ def phase_sleep(report, details):
                          f"limit, tree_asleep identical {same}) or the "
                          f"resting stack is awake")
 
+  # the stack at full width, f32: a third of the envs left at rest, a
+  # third rolling the ball into the stack, a third pushing the stack, so
+  # that at the end some trees sleep and others are awake in one batch
+  # (masked rows, the awake mask on qacc, the countdown's zeroing)
+  m = zoo.load("sleep_stack", torch.float32)
+  d = rollout.make_batch(m, B)
+  qvel = d.qvel.clone()
+  qvel[1::3, 12] = 3.0
+  qvel[2::3, 0] = 0.5
+  out, wall, launches = stage_run(m, d.replace(qvel=qvel), SLEEP_CHECK_NSTEP)
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  asleep = out.tree_asleep >= 0
+  stack_share = asleep.double().mean().item()
+  by_start = [asleep[k::3].double().mean().item() for k in range(3)]
+  per_step = {k: v / SLEEP_CHECK_NSTEP for k, v in launches.items()}
+  stack_sps = B * SLEEP_CHECK_NSTEP / wall
+  print(f"sleep_stack: f32 B{B} {SLEEP_CHECK_NSTEP} steps: wall {wall:.3f} "
+        f"s, {stack_sps:.1f} env-steps/s, kernel launches per step "
+        f"{per_step}, finite {finite}; share of trees asleep at the end "
+        f"{stack_share:.4f} (at rest {by_start[0]:.4f}, ball rolled "
+        f"{by_start[1]:.4f}, stack pushed {by_start[2]:.4f})", flush=True)
+  if (not finite or not launches["ldl_solve"] or launches["megastep"]
+      or not stack_share > 0):
+    raise AssertionError(f"sleep_stack f32 B{B}: finite {finite}, launches "
+                         f"{launches}, share asleep {stack_share}")
+  prof = profiled(m, out, 2)
+  print_profile(f"sleep_stack f32 B{B} 2 steps, {stack_share:.4f} of trees "
+                f"asleep", prof)
+  stack = dict(batch=B, nstep=SLEEP_CHECK_NSTEP, wall_s=wall,
+               env_steps_per_s=stack_sps, launches=launches,
+               launches_per_step=per_step, asleep_share=stack_share,
+               asleep_share_by_start=by_start, profile=prof)
+  del out
+
+  # ten humanoids with sleep enabled: a rate (none settles in a few steps)
   m = zoo.load("multi_humanoid10_sleep", torch.float32)
   if megastep_cuda.supported(m):
     raise AssertionError("the megastep admits multi_humanoid10_sleep")
   nbatch = fitting_batch(m, lambda mm, n: many_batch(mm, n, 50))
   out, run = many_run("multi_humanoid10_sleep", m, many_batch(m, nbatch, 50),
-                      SLEEP_NSTEP, {"ldl_solve": 2.0, "newton_pyramidal": 0.0,
-                                    "megastep": 0.0})
+                      MANY_NSTEP, {"ldl_solve": 2.0, "newton_pyramidal": 0.0,
+                                   "megastep": 0.0})
   share = (out.tree_asleep >= 0).double().mean().item()
-  print(f"multi_humanoid10_sleep: share of trees asleep after {SLEEP_NSTEP} "
+  print(f"multi_humanoid10_sleep: share of trees asleep after {MANY_NSTEP} "
         f"steps {share:.4f}", flush=True)
   details["sleep"] = dict(sleep_stack_card_vs_cpu_worst=worst,
                           sleep_stack_final=final.tolist(),
+                          sleep_stack_full_width=stack,
                           multi_humanoid10_sleep=dict(run,
                                                       asleep_share=share))
-  report["ldl_solve"].setdefault("launches_by_path", {})[
-      "multi_humanoid10_sleep"] = run["launches"]["ldl_solve"]
+  report["ldl_solve"].setdefault("launches_by_path", {}).update(
+      sleep_stack=launches["ldl_solve"],
+      multi_humanoid10_sleep=run["launches"]["ldl_solve"])
 
 
 def main() -> int:

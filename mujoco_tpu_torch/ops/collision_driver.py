@@ -142,8 +142,10 @@ def collision(m: Model, d: Data) -> Data:
   params = [p.expand((nbatch,) + p.shape) for p in _combine_params(m)]
   geomids = const(np.stack([m.con.geom1, m.con.geom2], -1).astype(np.int32),
                   dev).expand(nbatch, ncon, 2)
-  dropped = torch.zeros((nbatch,), dtype=torch.int32, device=dev)
+  # [ncon_dropped, npair_dropped]: only a dynamic group drops pairs
+  warning = const(np.zeros((1, 2), dtype=np.int32), dev).expand(nbatch, 2)
   if m.con.dyngroups:
+    dropped = torch.zeros((nbatch,), dtype=torch.int32, device=dev)
     adr0 = int(m.con.dyngroups[0]["adr"])
     parts = [[p[:, :adr0]] for p in params]
     id_parts = [geomids[:, :adr0]]
@@ -155,13 +157,13 @@ def collision(m: Model, d: Data) -> Data:
       dropped = dropped + ndrop
     params = [torch.cat(part, dim=1) for part in parts]
     geomids = torch.cat(id_parts, dim=1)
+    warning = torch.stack([torch.zeros_like(dropped), dropped], dim=-1)
   margin, friction5, solref, solreffriction, solimp = params
   contact = Contact(dist=dist, pos=pos, frame=frame, includemargin=margin,
                     friction=friction5, solref=solref,
                     solreffriction=solreffriction, solimp=solimp,
                     mu=dist.new_zeros((nbatch, ncon)), geomids=geomids)
-  return d.replace(contact=contact, warning=torch.stack(
-      [torch.zeros_like(dropped), dropped], dim=-1))
+  return d.replace(contact=contact, warning=warning)
 
 
 def _dynamic_group(m: Model, d: Data, grp: dict, dist, pos, frame):

@@ -151,17 +151,39 @@ def _static_row_component(m: Model, comp: np.ndarray) -> np.ndarray:
   return rc
 
 
+# per-Model cache of the static analysis, identity-checked as
+# megastep_cuda's: id(m) alone could be recycled by another Model once m is
+# collected, so the entry keeps m alive and a lookup checks that it is the
+# same object. Every field the analysis reads is static, and a Model is
+# immutable, so the step path reads it instead of redoing it.
+_CACHE: dict = {}
+
+
+def _analysis(m: Model) -> dict:
+  """The sound budgets ``sound_b`` and ``sound_r`` (the largest static
+  component's dofs and rows), ``rep`` (``_row_rep_tree_static``) and
+  ``pairs`` (``_tendon_pairs``) of m, made once per Model."""
+  entry = _CACHE.get(id(m))
+  if entry is None or entry["model"] is not m:
+    comp = _static_components(m)
+    rc = _static_row_component(m, comp)
+    nv_of_tree = m.tree_dof_mask.sum(axis=1)
+    sound_b = sound_r = 0
+    for c in np.unique(comp):
+      sound_b = max(sound_b, int(nv_of_tree[comp == c].sum()))
+      sound_r = max(sound_r, int((rc == c).sum()))
+    entry = {"model": m, "sound_b": sound_b, "sound_r": sound_r,
+             "rep": _row_rep_tree_static(m), "pairs": _tendon_pairs(m)}
+    _CACHE[id(m)] = entry
+  return entry
+
+
 def _budgets(m: Model):
   """(dofs B, rows R, need_fallback) per island. The defaults are sound
-  bounds; MJTPU_ISLAND_NV / MJTPU_ISLAND_EFC ask for tighter ones, with
-  the monolithic fallback."""
-  comp = _static_components(m)
-  rc = _static_row_component(m, comp)
-  nv_of_tree = m.tree_dof_mask.sum(axis=1)
-  sound_b = sound_r = 0
-  for c in np.unique(comp):
-    sound_b = max(sound_b, int(nv_of_tree[comp == c].sum()))
-    sound_r = max(sound_r, int((rc == c).sum()))
+  bounds; MJTPU_ISLAND_NV / MJTPU_ISLAND_EFC, read at each call, ask for
+  tighter ones, with the monolithic fallback."""
+  a = _analysis(m)
+  sound_b, sound_r = a["sound_b"], a["sound_r"]
   b = int(os.environ.get("MJTPU_ISLAND_NV", "0")) or sound_b
   r = int(os.environ.get("MJTPU_ISLAND_EFC", "0")) or sound_r
   b, r = min(b, m.nv), min(r, m.efc.nefc)
@@ -196,14 +218,14 @@ def use_islands(m: Model) -> bool:
 
 
 def _solver_labels(m: Model, d: Data):
-  return sleep._island_labels(m, d, extra_pairs=_tendon_pairs(m) or None)
+  return sleep._island_labels(m, d, extra_pairs=_analysis(m)["pairs"] or None)
 
 
 def _row_islands(m: Model, d: Data, labels):
   """(B, nefc) island of each row."""
   meta, dev = m.efc, d.qpos.device
   nbatch = d.qpos.shape[0]
-  rep = const(_row_rep_tree_static(m).astype(np.int64), dev).expand(
+  rep = const(_analysis(m)["rep"].astype(np.int64), dev).expand(
       nbatch, meta.nefc)
   base = meta.ne + meta.nf + meta.nl
   if meta.ncon_rows:

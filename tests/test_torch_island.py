@@ -23,7 +23,9 @@ On each, at the state before the solve:
   ``jax.vmap`` of the reference's step to 1e-9 (qpos, qvel);
 - with the tight budgets, the env whose spheres touch overflows and takes
   the monolithic core (``solver._core``) and the other keeps the island
-  solve, as the reference's vmapped ``lax.cond`` selects.
+  solve, as the reference's vmapped ``lax.cond`` selects;
+- the static analysis is made once per Model, and the budgets' variables
+  are read at each call.
 """
 
 import jax
@@ -232,3 +234,26 @@ def test_trajectory_matches_reference(models):
   assert int(td.efc_active.sum()) > 0
   for k in ("qpos", "qvel"):
     _close(getattr(td, k), getattr(jd, k), 1e-9, k)
+
+
+def test_static_analysis_is_made_once_per_model(models, monkeypatch):
+  """The step path reads the static analysis from a per-Model cache: two
+  steps of one Model make it once, budgets asked for after it was made
+  still take effect, and a new Model (here from ``replace``) makes its
+  own."""
+  jm, tm = models("two_sphere")
+  made = []
+  analyse = t_island._static_components
+  monkeypatch.setattr(t_island, "_static_components",
+                      lambda m: made.append(m) or analyse(m))
+  fresh = tm.replace(opt=tm.opt.replace())
+  sound = t_island._budgets(fresh)
+  td = tio.data_from_numpy(fresh, tio.flatten(_start(jm, "two_sphere")))
+  for _ in range(2):
+    td = t_fwd.step(fresh, td)
+  assert len(made) == 1 and made[0] is fresh
+  monkeypatch.setenv("MJTPU_ISLAND_NV", "6")
+  monkeypatch.setenv("MJTPU_ISLAND_EFC", "8")
+  assert t_island._budgets(fresh) == (6, 8, True) != sound
+  other = tm.replace(opt=tm.opt.replace())
+  assert t_island._budgets(other) == (6, 8, True) and len(made) == 2

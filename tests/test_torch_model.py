@@ -231,12 +231,45 @@ def test_widened_slice_loads(name):
                                             int(mjm.opt.integrator))
 
 
+def native_builder_differences(n: int) -> list:
+  """mujoco_tpu's put_model of ``snapshot.multi_humanoid_mj(n)`` against
+  mujoco_tpu's own ``zoo.multi_humanoid(n)`` (its native compiler, ~60 s
+  at n 3, so no test runs it), field by field through ``flatten``: one
+  line per field that is on one side only or differs (integers exactly,
+  floats beyond 1e-12)."""
+  from mujoco_tpu.models import zoo as jzoo
+  mine = tio.flatten(jio.put_model(snapshot.multi_humanoid_mj(n)))
+  ref = tio.flatten(jzoo.multi_humanoid(n))
+  lines = [f"{k}: only in {side}" for side, a, b in (
+      ("the MjSpec build", mine, ref), ("zoo.multi_humanoid", ref, mine))
+           for k in sorted(set(a) - set(b))]
+  for k in sorted(set(mine) & set(ref)):
+    a, b = np.asarray(mine[k]), np.asarray(ref[k])
+    if a.shape != b.shape:
+      lines.append(f"{k}: shapes {a.shape} and {b.shape}")
+    elif a.dtype.kind in "fc":
+      if not np.allclose(a, b, rtol=0, atol=1e-12, equal_nan=True):
+        lines.append(f"{k}: largest |difference| "
+                     f"{np.nanmax(np.abs(a - b)):.3e}")
+    elif not np.array_equal(a, b):
+      lines.append(f"{k}: {int(np.sum(a != b))} entries differ")
+  return lines
+
+
 if __name__ == "__main__":
   # writes the carried snapshot (needs mujoco_tpu, so it lives here and not
-  # in mujoco_tpu_torch/models/snapshot.py)
+  # in mujoco_tpu_torch/models/snapshot.py); with --against-native N, prints
+  # instead how the MjSpec build of the N-humanoid scene differs from
+  # mujoco_tpu's zoo.multi_humanoid(N)
+  import sys
+
   import jax
   jax.config.update("jax_platforms", "cpu")
   jax.config.update("jax_enable_x64", True)
+  if sys.argv[1:2] == ["--against-native"]:
+    diff = native_builder_differences(int(sys.argv[2]))
+    print("\n".join(diff) or "no field differs")
+    sys.exit(0)
   path = zoo.snapshot_path("multi_humanoid3")
   np.savez_compressed(path, **multi_humanoid3_fields())
   print(f"wrote {path}")
