@@ -189,14 +189,45 @@ Phases, each of which passes or ends the script with a nonzero exit:
    the idle share of a profiled 2-step window of the partly sleeping
    batch; ``multi_humanoid10_sleep`` at f32, B 3072, 20 steps: finite,
    two LDL launches per step, env-steps/s, launches, idle share, and the
-   share of trees asleep at the end (printed, not gated).
+   share of trees asleep at the end (printed, not gated);
+22. the colliders of the collision breadth slice (``collider_cases``:
+   plane-cylinder, plane-ellipsoid, sphere-cylinder, capsule-box, box-box,
+   MPR on two ellipsoids and on a box and the rock's mesh, plane-, sphere-
+   and capsule-mesh on the rock, and the height-field sphere, capsule,
+   box, cylinder, ellipsoid and mesh on the bowl), each on 4,096 seeded
+   poses (touching, separated and deep) at f64 on the card against the
+   CPU, elementwise to 1e-10 absolute plus relative; an env that misses
+   passes only if 2,048 copies of its input moved at the last bit
+   (``last_bits``), rerun on the CPU or on the card, give the other
+   side's result, move as far themselves, or bracket it where they
+   disagree (``judge_envs``; at most 2 % of envs, 5 % for MPR); printing
+   per collider the f32 distances' gap to the f64 ones (median, p99,
+   most, and the slots a contact at one precision only) and its ms and
+   kernel launches per call at f32;
+23. the slice at full width: ``rock`` (the 1,000-vertex mesh scene, nv
+   18, which the megastep refuses), f32, B 3072, its bodies at rest on
+   each other, 50 steps of ``scan_steps(check=True)`` on the stage path:
+   finite, at least two LDL launches per step and no other kernel's; its
+   env-steps/s, launches per step, Newton iterations per env-step (10
+   steps one at a time, with the LDL launches at least one per step plus
+   one per iteration of the env that iterates most), the share of envs
+   the guard reset, peak memory and the idle share of a profiled 2-step
+   window; the LDL kernel on the rock's Newton systems at n 18 against its
+   plain version (f32 by backward error, f64 elementwise) and timed
+   beside its bound, the plain version and ``torch.linalg.solve``;
+   ``box_pile``, ``grasp`` and ``hfield_bowl`` at f32, B 3072, 10 steps
+   each with env-steps/s; and 20 steps at f64, B 4, of each of the four
+   scenes on the card against the CPU, each step from the CPU's state
+   (qpos and qvel to 1e-8 absolute plus relative, ``judge_envs`` with 256
+   copies).
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 21, and the LDL's and the Newton kernel's ``wide`` entries hold
+and 13 to 23, and the LDL's and the Newton kernel's ``wide`` entries hold
 their phase-13 times at n = nv = 81; the LDL's ``island`` and ``n270``
-entries and the Newton kernel's ``nv270`` entry hold phase 19's times.
+entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
+and the LDL's ``n18`` entry phase 23's.
 Each phase's seconds are printed as it ends.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -2035,7 +2066,8 @@ def phase_option_scenes(report, details):
 
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
-                 "12", "13", "14", "15", "16", "17", "18", "19", "20", "21")
+                 "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
+                 "22", "23")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -2401,6 +2433,448 @@ def phase_sleep(report, details):
       multi_humanoid10_sleep=run["launches"]["ldl_solve"])
 
 
+# ---- collision breadth: phases 22 and 23
+
+COLLIDER_PAIRS = 4096
+COLLIDER_COPIES = 2048
+COLLIDER_TOL = 1e-10    # card against CPU at f64, absolute plus relative
+SCENE_COPIES = 256
+
+
+def collider_poses(kind, seed, device, dtype):
+  """(p1, m1, s1, p2, m2, s2) of COLLIDER_PAIRS pairs from a numpy seed,
+  shaped as the collision driver gives them (poses (1, P, ...), sizes
+  (P, 3)): centers up to 0.2 apart, a third of them at a tenth of that
+  (deep), sizes 0.05-0.15; for a plane (geom 1) a tilted one at the
+  origin, for the height field the bowl of hfield_bowl unrotated with the
+  other geom from 0.1 below its surface to 0.15 above."""
+  rng = np.random.default_rng(seed)
+  n = COLLIDER_PAIRS
+
+  def rot(k):
+    q = rng.standard_normal((k, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                    -1).reshape(k, 3, 3)
+
+  spread = 0.12 if kind == "mpr" else 0.2
+  p1 = rng.uniform(-spread, spread, (n, 3))
+  p2 = rng.uniform(-spread, spread, (n, 3))
+  p2[: n // 3] = p1[: n // 3] + 0.1 * (p2[: n // 3] - p1[: n // 3])
+  m1, m2 = rot(n), rot(n)
+  s1 = rng.uniform(0.05, 0.15, (n, 3))
+  s2 = rng.uniform(0.05, 0.15, (n, 3))
+  if kind in ("plane", "terrain"):
+    p1[:] = 0.0
+    m1[:] = np.eye(3) if kind == "terrain" else rot(1)
+  if kind == "terrain":
+    p2[:, :2] = rng.uniform(-1.3, 1.3, (n, 2))
+    p2[:, 2] = 0.1 * (p2[:, 0] ** 2 / 1.44 + p2[:, 1] ** 2) \
+        + rng.uniform(-0.1, 0.15, n)
+  t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+  return (t(p1)[None], t(m1)[None], t(s1), t(p2)[None], t(m2)[None], t(s2))
+
+
+def collider_cases():
+  """name → (model, pose kind, make(m) → collider): every collider
+  function this slice adds, on the rock's mesh and the bowl's terrain."""
+  from mujoco_tpu_torch.models.types import GeomType as G
+  from mujoco_tpu_torch.ops import collision_box, collision_convex
+  from mujoco_tpu_torch.ops import collision_hfield as hf
+  from mujoco_tpu_torch.ops import collision_mesh as cm
+  from mujoco_tpu_torch.ops import collision_primitive as cp
+  fixed = lambda fn: (lambda m: fn)
+  cases = {
+      "plane_cylinder": (None, "plane", fixed(cp.plane_cylinder)),
+      "plane_ellipsoid": (None, "plane", fixed(cp.plane_ellipsoid)),
+      "sphere_cylinder": (None, "free", fixed(cp.sphere_cylinder)),
+      "capsule_box": (None, "free", fixed(cp.capsule_box)),
+      "box_box": (None, "free", fixed(collision_box.box_box)),
+      "mpr_ellipsoid_ellipsoid": (None, "mpr", lambda m: (
+          collision_convex.make_convex_convex(m, G.ELLIPSOID, G.ELLIPSOID,
+                                              -1, -1))),
+      "mpr_box_mesh": ("rock", "mpr", lambda m: (
+          collision_convex.make_convex_convex(m, G.BOX, G.MESH, -1, 0))),
+      "plane_mesh": ("rock", "plane", lambda m: cm.make_plane_mesh(m, 0)),
+      "sphere_mesh": ("rock", "free", lambda m: cm.make_sphere_mesh(m, 0)),
+      "capsule_mesh": ("rock", "free", lambda m: cm.make_capsule_mesh(m, 0)),
+      "hfield_sphere": ("hfield_bowl", "terrain",
+                        lambda m: hf.make_hfield_sphere(m, 0)),
+      "hfield_capsule": ("hfield_bowl", "terrain",
+                         lambda m: hf.make_hfield_capsule(m, 0)),
+  }
+  for t2, did in ((G.BOX, -1), (G.CYLINDER, -1), (G.ELLIPSOID, -1),
+                  (G.MESH, 0)):
+    cases[f"hfield_{t2.name.lower()}"] = (
+        "hfield_bowl", "terrain",
+        lambda m, t2=t2, did=did: hf.make_hfield_convex(m, 0, t2, did))
+  return cases
+
+
+def last_bits(shape, gen):
+  """Relative moves of a last-bit copy: 1e-15·N(0, 1)."""
+  return 1e-15 * torch.randn(shape, generator=gen, dtype=torch.float64)
+
+
+def explained(mine, theirs, copies, tol):
+  """Per env (dim 0 of each output), whether copies (per output (env,
+  copy, ...)), the other side rerun on last-bit copies of each env's
+  input, account for mine where it misses theirs: some copy gives mine
+  (every output within tol, absolute plus relative), or the copies move
+  by as much themselves (for every output, |mine − theirs| within tol of
+  the largest |copy − theirs|), or, where the copies disagree among
+  themselves, they bracket mine (every element within the copies' range
+  widened by its own width)."""
+  n, k = copies[0].shape[:2]
+  hit = torch.ones((n, k), dtype=torch.bool)
+  within = torch.ones(n, dtype=torch.bool)
+  inside = torch.ones(n, dtype=torch.bool)
+  chaotic = torch.zeros(n, dtype=torch.bool)
+  for a, b, r in zip(mine, theirs, copies):
+    a, b, r = a.cpu().double(), b.cpu().double(), r.cpu().double()
+    hit &= ((r - a[:, None]).abs() <= tol + tol * r.abs()).reshape(
+        n, k, -1).all(-1)
+    spread = (r - b[:, None]).abs().reshape(n, -1).amax(-1)
+    within &= (a - b).abs().reshape(n, -1).amax(-1) <= spread + tol
+    lo, hi = r.amin(1), r.amax(1)
+    width = hi - lo
+    gate = tol + tol * a.abs()
+    inside &= ((a >= lo - width - gate) & (a <= hi + width + gate)).reshape(
+        n, -1).all(-1)
+    chaotic |= width.reshape(n, -1).amax(-1) > tol
+  return hit.any(1) | within | (inside & chaotic)
+
+
+def judge_envs(card, cpu, rerun, rerun_card, copies_of, tol, share):
+  """Envs (dim 1 of each output, dim 0 of size 1) where the card misses
+  the CPU by more than tol (absolute plus relative), each judged as the
+  tests judge a degenerate env: it passes if the CPU, rerun on last-bit
+  copies of its input (``rerun(idx)``), accounts for the card's result
+  (``explained``), or the card, rerun on the same copies
+  (``rerun_card(idx)``), accounts for the CPU's: the env's result is then
+  decided by the last bit, on one side at least (the card rounds inside
+  a step otherwise than the CPU does: fused multiply-adds, reduction
+  orders). Fails when an env is unexplained or more than ``share`` of the
+  envs miss. Returns the count judged."""
+  nenv = card[0].shape[1]
+  miss = torch.zeros(nenv, dtype=torch.bool)
+  for a, b in zip(card, cpu):
+    a, b = a.cpu().double(), b.cpu().double()
+    bad = (a - b).abs() > tol + tol * b.abs()
+    miss |= bad.reshape(bad.shape[0], nenv, -1).any(-1).any(0)
+  idx = torch.nonzero(miss)[:, 0]
+  if len(idx) > share * nenv:
+    raise AssertionError(f"{len(idx)} of {nenv} envs differ (limit "
+                         f"{share:.0%})")
+  if not len(idx):
+    return 0
+  pick = lambda outs, i: [o.cpu()[0, i] for o in outs]
+  ok = explained(pick(card, idx), pick(cpu, idx), rerun(idx), tol)
+  if not bool(ok.all()):
+    rest = idx[~ok]
+    ok[~ok] = explained(pick(cpu, rest), pick(card, rest), rerun_card(rest),
+                        tol)
+  if not bool(ok.all()):
+    for j in torch.nonzero(~ok)[:3, 0].tolist():
+      for o, (a, b) in enumerate(zip(card, cpu)):
+        print(f"env {int(idx[j])} output {o}: card "
+              f"{a.cpu()[0, idx[j]].flatten().tolist()} CPU "
+              f"{b.cpu()[0, idx[j]].flatten().tolist()}", flush=True)
+    raise AssertionError(f"envs {idx[~ok].tolist()} differ beyond both "
+                         f"sides' last-bit spread")
+  return len(idx)
+
+
+def collider_family(name: str) -> str:
+  """primitive, box, convex (MPR), mesh or hfield."""
+  if name == "box_box":
+    return "box"
+  if name.startswith("mpr"):
+    return "convex"
+  if name.startswith("hfield"):
+    return "hfield"
+  return "mesh" if name.endswith("mesh") else "primitive"
+
+
+def collider_check(name, seed, models):
+  """The collider ``name`` of collider_cases at f64 on the card against
+  the CPU on COLLIDER_PAIRS seeded poses, judged by judge_envs (2 % of
+  envs, 5 % for MPR). models[(scene, device, dtype)] holds the Models;
+  returns (the collider and its poses by (device, dtype), the envs
+  judged)."""
+  model, kind, make = collider_cases()[name]
+  keys = (("cuda", torch.float64), ("cpu", torch.float64),
+          ("cuda", torch.float32))
+  fns = {key: make(models.get((model,) + key)) for key in keys}
+  args = {key: collider_poses(kind, seed, *key) for key in keys}
+  card = fns["cuda", torch.float64](*args["cuda", torch.float64])
+  cpu = fns["cpu", torch.float64](*args["cpu", torch.float64])
+
+  def rerun(idx, key):
+    k = COLLIDER_COPIES
+    gen = torch.Generator().manual_seed(0)
+    sel = idx.repeat_interleave(k)
+    moved = []
+    for j, x in enumerate(args["cpu", torch.float64]):
+      x = x[sel] if j in (2, 5) else x[:, sel]
+      if j in (0, 1, 3, 4):
+        x = x * (1 + last_bits(x.shape, gen))
+      moved.append(x.to(key[0]))
+    return [r[0].reshape((len(idx), k) + r.shape[2:])
+            for r in fns[key](*moved)]
+
+  share = 0.05 if collider_family(name) == "convex" else 0.02
+  judged = judge_envs(card, cpu,
+                      lambda idx: rerun(idx, ("cpu", torch.float64)),
+                      lambda idx: rerun(idx, ("cuda", torch.float64)),
+                      COLLIDER_COPIES, COLLIDER_TOL, share)
+  return fns, args, card, judged
+
+
+def collider_models(device_dtypes) -> dict:
+  """The Models of the colliders' mesh and height field (rock,
+  hfield_bowl) on each (device, dtype)."""
+  from mujoco_tpu_torch.models import zoo
+  return {(name,) + key: zoo.load(name, key[1], key[0])
+          for name in ("rock", "hfield_bowl") for key in device_dtypes}
+
+
+def collider_launches(fn, attempts=3):
+  """Kernel launches per call of fn (three collider calls) from the
+  profiler, or None where it records no device kernel in any of
+  ``attempts`` windows (it dropped a whole window of one call late in a
+  full run): a count the script prints, not a gate."""
+  for _ in range(attempts):
+    try:
+      return profile_window(fn, 3)[0]["kernel_launches_per_step"]
+    except AssertionError:
+      continue
+  return None
+
+
+def phase_colliders(report, details):
+  """22: each new collider at f64 on the card against the CPU on 4,096
+  seeded poses, the f32 distances against the f64 ones, and its ms per
+  call at f32."""
+  models = collider_models((("cuda", torch.float64), ("cpu", torch.float64),
+                            ("cuda", torch.float32)))
+  out = {}
+  for i, name in enumerate(collider_cases()):
+    fns, args, card, judged = collider_check(name, 100 + i, models)
+    d32 = fns["cuda", torch.float32](*args["cuda", torch.float32])[0]
+    d64 = card[0]
+    # a slot holds a contact where its dist is not the 1e10 of an empty or
+    # dropped one; f32 and f64 may disagree on that (MPR's dedup)
+    real32, real64 = d32.abs() < 1.0, d64.abs() < 1.0
+    both = real32 & real64
+    flips = int((real32 != real64).sum())
+    gap = (d32.double() - d64)[both].abs()
+    q = torch.quantile(gap.cpu(), torch.tensor([0.5, 0.99], dtype=gap.dtype))
+    fn32, a32 = fns["cuda", torch.float32], args["cuda", torch.float32]
+    ms = cuda_ms(lambda: fn32(*a32), reps=5, warmup=1)
+
+    def thrice():
+      for _ in range(3):
+        fn32(*a32)
+      torch.cuda.synchronize()
+
+    launches = collider_launches(thrice)
+    out[name] = dict(envs_judged_by_copies=judged,
+                     f32_dist_gap_median=q[0].item(),
+                     f32_dist_gap_p99=q[1].item(),
+                     f32_dist_gap_max=gap.max().item(),
+                     contacts=int(both.sum()), f32_slot_flips=flips,
+                     ms_f32=ms, launches_per_call=launches)
+    print(f"collider {name}: {COLLIDER_PAIRS} pairs, card = CPU at f64 "
+          f"({judged} envs judged by last-bit copies); f32 − f64 |dist| "
+          f"median {q[0].item():.3e}, p99 {q[1].item():.3e}, most "
+          f"{gap.max().item():.3e} over {int(both.sum())} contacts ("
+          f"{flips} slots a contact at one precision only); {ms:.3f} ms "
+          f"and {'not measured' if launches is None else f'{launches:.0f}'}"
+          f" kernel launches per call at f32", flush=True)
+  details["colliders"] = out
+
+
+# the rock scene posed at rest: the rock on the floor, the sphere on the
+# rock, the box on the sphere (qpos index → height); the bowl's six bodies
+# 0.005 into the terrain under each
+CONVEX_REST = {"rock": {2: 0.15, 9: 0.385, 16: 0.505},
+               "hfield_bowl": {2: 0.115, 9: 0.081, 16: 0.075, 23: 0.105,
+                               30: 0.061, 37: 0.025}}
+CONVEX_FULL = ("box_pile", "grasp", "hfield_bowl")
+ROCK_NSTEP = 50
+CONVEX_NSTEP = 10
+CONVEX_CHECK_NSTEP = 20
+
+
+def convex_batch(name, m, nbatch, seed, device="cuda"):
+  """start_batch of a zoo.CONVEX scene with its bodies at CONVEX_REST
+  (noise kept) and every control at 1 (the grasp's fingers close)."""
+  d = start_batch(m, nbatch, seed, device)
+  qpos = d.qpos.clone()
+  for i, z in CONVEX_REST.get(name, {}).items():
+    qpos[:, i] += z - float(m.qpos0[i])
+  return d.replace(qpos=qpos, ctrl=torch.ones_like(d.ctrl))
+
+
+def take_envs(d, idx):
+  """The envs idx of a Data (every field batched, Contact too)."""
+  import dataclasses
+  kw = {}
+  for f in dataclasses.fields(d):
+    v = getattr(d, f.name)
+    kw[f.name] = take_envs(v, idx) if dataclasses.is_dataclass(v) else v[idx]
+  return type(d)(**kw)
+
+
+def convex_card_vs_cpu(name):
+  """CONVEX_CHECK_NSTEP steps at f64, B 4: each step of the CPU's state on
+  the card and on the CPU, qpos and qvel within 1e-8 absolute plus
+  relative, an env that misses judged by last-bit copies of its state on
+  both sides (judge_envs). Returns the env-steps judged."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward
+  mc = zoo.load(name, torch.float64, "cuda")
+  mh = zoo.load(name, torch.float64, "cpu")
+  d = convex_batch(name, mh, 4, 61, "cpu")
+  judged = 0
+  for _ in range(CONVEX_CHECK_NSTEP):
+    out_h = forward.step(mh, d)
+    out_c = forward.step(mc, d.to("cuda"))
+
+    def rerun(idx, m, d=d):
+      k = SCENE_COPIES
+      gen = torch.Generator().manual_seed(0)
+      copies = take_envs(d, idx.repeat_interleave(k))
+      moved = {f: getattr(copies, f) * (1 + last_bits(
+          getattr(copies, f).shape, gen)) for f in ("qpos", "qvel")}
+      r = forward.step(m, copies.replace(**moved).to(m.device))
+      return [x.reshape((len(idx), k) + x.shape[1:]) for x in (r.qpos,
+                                                                r.qvel)]
+
+    judged += judge_envs([out_c.qpos[None], out_c.qvel[None]],
+                         [out_h.qpos[None], out_h.qvel[None]],
+                         lambda idx: rerun(idx, mh),
+                         lambda idx: rerun(idx, mc), SCENE_COPIES, 1e-8,
+                         1.0)
+    d = out_h
+  return judged
+
+
+def phase_convex_scenes(report, details):
+  """23: the slice at full width: rock (f32, B 3072, 50 steps of
+  scan_steps on the stage path), box_pile, grasp and hfield_bowl (10
+  steps each), card against CPU at f64, and the LDL kernel at the rock's
+  n 18."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import linalg_cuda, megastep_cuda, solver
+  m = zoo.load("rock", torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits the rock scene")
+  d0 = convex_batch("rock", m, B, 60)
+  torch.cuda.reset_peak_memory_stats()
+  out, wall, launches = stage_run(m, d0, ROCK_NSTEP)
+  peak = torch.cuda.max_memory_allocated()
+  finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
+  # the guard puts a diverged env back at d_fresh, whose time is 0
+  reset = (out.time < ROCK_NSTEP * float(m.opt.timestep) * 0.999)
+  reset_share = reset.double().mean().item()
+  per_step = {k: v / ROCK_NSTEP for k, v in launches.items()}
+  sps = B * ROCK_NSTEP / wall
+  from mujoco_tpu_torch.ops import forward
+  con = forward.fwd_position(m, out).contact
+  active = (con.dist < con.includemargin).double().sum(1)
+  del con
+  print(f"rock (nv {m.nv}, 1,000-vertex mesh, ncon {m.con.ncon}): f32 B{B} "
+        f"{ROCK_NSTEP} steps: wall {wall:.3f} s, {sps:.1f} env-steps/s, "
+        f"kernel launches per step {per_step}, finite {finite}, share of "
+        f"envs the guard reset {reset_share:.4f}, peak memory "
+        f"{peak / 2**30:.2f} GiB, active contacts per env at the end mean "
+        f"{active.mean().item():.2f}", flush=True)
+  if (not finite or launches["newton_pyramidal"] or launches["megastep"]
+      or launches["ldl_solve"] < 2 * ROCK_NSTEP):
+    raise AssertionError(f"rock: finite {finite}, launches {launches}")
+  reset_counts()
+  _, niters = run_steps(m, out, CONVEX_NSTEP)
+  torch.cuda.synchronize()
+  counted = read_counts()
+  need = CONVEX_NSTEP + int(niters.max(0).values.sum())
+  mean_it = niters.double().mean().item()
+  print(f"rock Newton iterations per env-step: mean {mean_it:.3f}, most "
+        f"{int(niters.max())}; LDL launches {counted['ldl_solve']} in "
+        f"{CONVEX_NSTEP} steps (need ≥ {need})", flush=True)
+  if counted["ldl_solve"] < need:
+    raise AssertionError(f"rock launches {counted}, need {need} LDL")
+  prof = profiled(m, out, 2)
+  print_profile(f"rock f32 B{B} 2 steps", prof)
+  rock = dict(batch=B, nstep=ROCK_NSTEP, wall_s=wall, env_steps_per_s=sps,
+              launches=launches, launches_per_step=per_step,
+              newton_iterations_mean=mean_it,
+              newton_iterations_most=int(niters.max()),
+              peak_memory_bytes=peak, guard_reset_share=reset_share,
+              profile=prof)
+
+  # the LDL kernel on the rock's Newton systems at n 18, f32 by backward
+  # error and f64 elementwise, and timed at f32
+  ldl = ldl_on_newton_system("rock", m, out)
+  m64 = zoo.load("rock", torch.float64)
+  ldl64 = ldl_on_newton_system("rock", m64, convex_batch("rock", m64, B, 60))
+  dd = forward.fwd_acceleration(m, forward.fwd_actuation(
+      m, forward.fwd_velocity(m, forward.fwd_position(m, out))))
+  h, g, _, _ = solver.newton_system(m, dd, solver.warmstart(m, dd)[0])
+  h = h.contiguous()
+  k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  # L2-warm by events around back-to-back calls (the wrapper's host time
+  # where the kernel is shorter): device_ms's profiler saw 29 of 30
+  # launches in each of five windows at this shape
+  w_ms = cuda_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g))
+  lib_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g))
+  b_ms, by = ldl_bound(h.shape[0], h.shape[1], h.dtype)
+  n18 = dict(n=h.shape[1], systems=h.shape[0], ms=k_ms, l2_warm_ms=w_ms,
+             plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+             launches_per_step=per_step["ldl_solve"],
+             max_abs_err_f32=ldl, max_abs_err_f64=ldl64)
+  print(f"ldl_solve at the rock's shape f32 B{h.shape[0]} n{h.shape[1]}: "
+        f"kernel_ms {k_ms:.4f} (L2 flushed; L2-warm by events {w_ms:.4f}) "
+        f"plain_ms "
+        f"{p_ms:.4f} library_ms {lib_ms:.4f} (torch.linalg.solve) bound_ms "
+        f"{b_ms:.5f} ({by})", flush=True)
+  del out, dd, h, g
+
+  scenes = {}
+  for name in CONVEX_FULL:
+    mm = zoo.load(name, torch.float32)
+    o, wall, launches = stage_run(mm, convex_batch(name, mm, B, 62),
+                                  CONVEX_NSTEP)
+    finite = bool(torch.isfinite(o.qpos).all() & torch.isfinite(o.qvel).all())
+    sps = B * CONVEX_NSTEP / wall
+    print(f"{name}: f32 B{B} {CONVEX_NSTEP} steps: wall {wall:.3f} s, "
+          f"{sps:.1f} env-steps/s, launches {launches}, finite {finite}",
+          flush=True)
+    if not finite or not launches["ldl_solve"] or launches["megastep"]:
+      raise AssertionError(f"{name}: finite {finite}, launches {launches}")
+    scenes[name] = dict(wall_s=wall, env_steps_per_s=sps, launches=launches)
+    del o
+
+  judged = {}
+  for name in ("rock",) + CONVEX_FULL:
+    judged[name] = convex_card_vs_cpu(name)
+    print(f"{name}: {CONVEX_CHECK_NSTEP} steps f64 B4, each from the CPU's "
+          f"state, card = CPU (qpos, qvel 1e-8; {judged[name]} env-steps "
+          f"judged by last-bit copies)", flush=True)
+  details["convex_scenes"] = dict(rock=rock, full_width=scenes,
+                                  card_vs_cpu_judged=judged, ldl_n18=n18)
+  report["ldl_solve"]["n18"] = n18
+  report["ldl_solve"].setdefault("launches_by_path", {}).update(
+      rock=rock["launches"]["ldl_solve"],
+      **{name: s["launches"]["ldl_solve"] for name, s in scenes.items()})
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2424,7 +2898,8 @@ def main() -> int:
             phase_model_class, phase_newton_rows, phase_ldl_backward,
             phase_multi_humanoid, phase_newton_gradient, phase_slice_scenes,
             phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
-            phase_islands, phase_dynamic_pairs, phase_sleep)
+            phase_islands, phase_dynamic_pairs, phase_sleep,
+            phase_colliders, phase_convex_scenes)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

@@ -36,19 +36,77 @@ from mujoco_tpu_torch.models.types import (BiasType, ConeType, Contact,
                                            EqType, GainType, GeomType,
                                            JointType, Model, Option,
                                            TreeTopology, TrnType)
+from mujoco_tpu_torch.ops.collision_convex import CONVEX_NCON
 from mujoco_tpu_torch.utils.device import default_device
 from mujoco_tpu_torch.utils.struct import is_static
 
-# contact slots per supported (type1, type2) pair (mujoco_tpu/models/io.py:29)
+# contact slots per (type1, type2) pair with a collider of its own
+# (mujoco_tpu/models/io.py:29-51); every other pair of two convex geoms
+# takes the MPR collider's CONVEX_NCON
 _PAIR_NCON = {
     (GeomType.PLANE, GeomType.SPHERE): 1,
     (GeomType.PLANE, GeomType.CAPSULE): 2,
+    (GeomType.PLANE, GeomType.ELLIPSOID): 1,
+    (GeomType.PLANE, GeomType.CYLINDER): 4,
     (GeomType.PLANE, GeomType.BOX): 4,
     (GeomType.SPHERE, GeomType.SPHERE): 1,
     (GeomType.SPHERE, GeomType.CAPSULE): 1,
+    (GeomType.SPHERE, GeomType.CYLINDER): 1,
     (GeomType.SPHERE, GeomType.BOX): 1,
     (GeomType.CAPSULE, GeomType.CAPSULE): 2,
+    (GeomType.CAPSULE, GeomType.BOX): 3,
+    (GeomType.BOX, GeomType.BOX): 8,
+    (GeomType.HFIELD, GeomType.SPHERE): 3,
+    (GeomType.HFIELD, GeomType.CAPSULE): 3,
+    (GeomType.HFIELD, GeomType.BOX): 4,
+    (GeomType.HFIELD, GeomType.CYLINDER): 4,
+    (GeomType.HFIELD, GeomType.ELLIPSOID): 4,
+    (GeomType.HFIELD, GeomType.MESH): 4,
+    (GeomType.PLANE, GeomType.MESH): 4,
+    (GeomType.SPHERE, GeomType.MESH): 1,
+    (GeomType.CAPSULE, GeomType.MESH): 3,
 }
+_CONVEX = {GeomType.SPHERE, GeomType.CAPSULE, GeomType.ELLIPSOID,
+           GeomType.CYLINDER, GeomType.BOX, GeomType.MESH}
+
+
+def pair_ncon(t1: int, t2: int) -> int:
+  """Contact slots of a (type1, type2) pair, type1 ≤ type2; raises for a
+  pair no collider takes (SDF geoms wait for the SDF slice)."""
+  t1, t2 = GeomType(t1), GeomType(t2)
+  if (t1, t2) in _PAIR_NCON:
+    return _PAIR_NCON[t1, t2]
+  if t1 in _CONVEX and t2 in _CONVEX:
+    return CONVEX_NCON
+  raise NotImplementedError(f"collision pair {t1.name}-{t2.name}")
+
+
+def _mesh_hulls(mjm: Any) -> tuple:
+  """Per mesh, the global mesh_vert rows of its convex hull (scipy's
+  ConvexHull; every vertex of a flat mesh), decimated to
+  MJTPU_MAX_HULL_VERT by farthest-point sampling from the vertex of
+  largest x (mujoco_tpu/models/io.py:54-80)."""
+  from scipy.spatial import ConvexHull, QhullError
+  cap = int(os.environ.get("MJTPU_MAX_HULL_VERT", "64"))
+  verts_all = np.asarray(mjm.mesh_vert, dtype=np.float64)
+  hulls = []
+  for i in range(len(np.asarray(mjm.mesh_vertadr))):
+    va, vn = int(mjm.mesh_vertadr[i]), int(mjm.mesh_vertnum[i])
+    v = verts_all[va:va + vn]
+    try:
+      idx = np.unique(np.asarray(ConvexHull(v).vertices, dtype=np.int64))
+    except QhullError:  # a flat or degenerate mesh
+      idx = np.arange(vn, dtype=np.int64)
+    if len(idx) > cap:
+      pts = v[idx]
+      keep = [int(np.argmax(pts[:, 0]))]
+      dist = np.full(len(pts), np.inf)
+      for _ in range(cap - 1):
+        dist = np.minimum(dist, np.linalg.norm(pts - pts[keep[-1]], axis=1))
+        keep.append(int(np.argmax(dist)))
+      idx = idx[np.array(sorted(set(keep)), dtype=np.int64)]
+    hulls.append((va + idx).astype(np.int32))
+  return tuple(hulls)
 
 
 # ---------------------------------------------------------------------------
@@ -136,12 +194,13 @@ def _contact_meta(mjm: Any) -> dict:
   filtering (contype/conaffinity, same weld, parent-child weld, excludes)
   and its explicit <pair>s. Slot order is the reference's
   (mujoco_tpu/models/io.py:427-545, 693-712): explicit pairs in pair order
-  with their own condim (``pair_dim``), then the other plane pairs in
-  enumeration order, then the rest grouped by sorted (type1, type2, condim)
-  signature, and last the dynamic pair groups: a signature of more than
-  max(2·budget, 16) candidates owns ``budget`` pair slots (fewer if it has
-  fewer pairs), whose geom ids name its first candidate and are chosen per
-  env and step (``collision_driver``)."""
+  with their own condim (``pair_dim``), then the other plane and height
+  field pairs in enumeration order, then the rest grouped by sorted
+  (type1, type2, data id1, data id2, condim) signature (the data id of a
+  mesh or height field, else −1), and last the dynamic pair groups: a
+  signature of more than max(2·budget, 16) candidates owns ``budget`` pair
+  slots (fewer if it has fewer pairs), whose geom ids name its first
+  candidate and are chosen per env and step (``collision_driver``)."""
   filterparent = not (mjm.opt.disableflags & DisableBit.FILTERPARENT)
   exclude_sigs = {int(mjm.exclude_signature[i]) for i in range(mjm.nexclude)}
   weld = mjm.body_weldid
@@ -149,10 +208,11 @@ def _contact_meta(mjm: Any) -> dict:
                          for b in range(mjm.nbody)])
 
   def signature(a, b, pid):
-    t1, t2 = GeomType(mjm.geom_type[a]), GeomType(mjm.geom_type[b])
-    if (t1, t2) not in _PAIR_NCON:
-      raise NotImplementedError(
-          f"collision pair {t1.name}-{t2.name} (geoms {a},{b})")
+    t1, t2 = int(mjm.geom_type[a]), int(mjm.geom_type[b])
+    try:
+      pair_ncon(t1, t2)
+    except NotImplementedError as e:
+      raise NotImplementedError(f"{e} (geoms {a},{b})") from None
     if pid >= 0:
       condim = int(mjm.pair_dim[pid])
     else:
@@ -163,7 +223,11 @@ def _contact_meta(mjm: Any) -> dict:
         condim = int(max(mjm.geom_condim[a], mjm.geom_condim[b]))
     if condim not in (1, 3, 4, 6):
       raise NotImplementedError(f"contact condim {condim}")
-    return int(t1), int(t2), condim
+    # a mesh or height field collider closes over its asset's data
+    did1 = int(mjm.geom_dataid[a]) if t1 in (GeomType.HFIELD,
+                                             GeomType.MESH) else -1
+    did2 = int(mjm.geom_dataid[b]) if t2 == GeomType.MESH else -1
+    return t1, t2, did1, did2, condim
 
   static_pairs, staged, explicit = [], {}, set()
   for p in range(mjm.npair):
@@ -190,7 +254,7 @@ def _contact_meta(mjm: Any) -> dict:
         continue
       a, b = (g1, g2) if mjm.geom_type[g1] <= mjm.geom_type[g2] else (g2, g1)
       sig = signature(a, b, -1)
-      if sig[0] == GeomType.PLANE:
+      if sig[0] in (GeomType.PLANE, GeomType.HFIELD):
         static_pairs.append((a, b, -1, sig))
       else:
         staged.setdefault(sig, []).append((a, b, -1, sig))
@@ -206,8 +270,8 @@ def _contact_meta(mjm: Any) -> dict:
       pairs.extend(group)
 
   g1s, g2s, types, condims, first, pairids = [], [], [], [], [], []
-  for a, b, pid, (t1, t2, condim) in pairs:
-    for k in range(_PAIR_NCON[t1, t2]):
+  for a, b, pid, (t1, t2, _, _, condim) in pairs:
+    for k in range(pair_ncon(t1, t2)):
       g1s.append(a)
       g2s.append(b)
       types.append((t1, t2))
@@ -216,14 +280,14 @@ def _contact_meta(mjm: Any) -> dict:
       pairids.append(pid)
   dynslot = [False] * len(g1s)
   groups = []
-  for (t1, t2, condim), group in dyn:
-    k = _PAIR_NCON[t1, t2]
+  for (t1, t2, did1, did2, condim), group in dyn:
+    k = pair_ncon(t1, t2)
     npair = min(budget, len(group))
     groups.append({
         "g1": np.array([p[0] for p in group], dtype=np.int32),
         "g2": np.array([p[1] for p in group], dtype=np.int32),
         "adr": len(g1s), "npair": npair, "k": k, "t1": t1, "t2": t2,
-        "did1": -1, "did2": -1})
+        "did1": did1, "did2": did2})
     for _ in range(npair * k):
       g1s.append(group[0][0])
       g2s.append(group[0][1])
@@ -429,6 +493,7 @@ def model_numpy(mjm: Any) -> dict:
       "nsite": mjm.nsite, "neq": mjm.neq, "ncam": mjm.ncam,
       "nlight": mjm.nlight, "ntendon": mjm.ntendon, "nwrap": mjm.nwrap,
       "nmocap": mjm.nmocap, "ntree": int(mjm.ntree),
+      "nhfield": int(mjm.nhfield),
       "has_dof_damping": bool(np.any(np.asarray(mjm.dof_damping) > 0)),
       "has_tendon_armature": bool(np.any(np.asarray(getattr(
           mjm, "tendon_armature", np.zeros(mjm.ntendon))) > 0)),
@@ -464,7 +529,7 @@ def model_numpy(mjm: Any) -> dict:
                "jnt_qposadr", "jnt_dofadr", "jnt_bodyid", "jnt_limited",
                "jnt_actfrclimited", "dof_bodyid", "dof_jntid", "dof_parentid",
                "geom_type", "geom_contype", "geom_conaffinity", "geom_condim",
-               "geom_bodyid", "geom_priority", "site_bodyid",
+               "geom_bodyid", "geom_priority", "geom_dataid", "site_bodyid",
                "actuator_trntype", "actuator_trnid", "actuator_ctrllimited",
                "actuator_forcelimited", "pair_dim", "pair_geom1",
                "pair_geom2", "eq_type", "eq_obj1id", "eq_obj2id",
@@ -496,12 +561,31 @@ def model_numpy(mjm: Any) -> dict:
                                     np.zeros(mjm.ntendon)))
   f["wrap_sideid"] = np.round(np.asarray(mjm.wrap_prm)).astype(np.int32)
   f["cam_mat0"] = jx(mjm.cam_mat0).reshape(-1, 3, 3)
+  f.update(_asset_fields(mjm))
   f["eq_active0"] = np.array(mjm.eq_active0, dtype=bool)
   f["actuator_dyntype"], f["actuator_gaintype"], f["actuator_biastype"] = (
       dyn, gain, bias)
   f["actuator_group"] = si(getattr(mjm, "actuator_group", np.zeros(mjm.nu)))
   f.update({f"names.{k}": np.asarray(v) for k, v in _names(mjm).items()})
   return {k: np.asarray(v) for k, v in f.items()}
+
+
+def _asset_fields(mjm: Any) -> dict:
+  """Mesh and height-field fields (mujoco_tpu/models/io.py:1567-1583)."""
+  si = lambda x: np.asarray(x, dtype=np.int32)
+  f = {name: si(getattr(mjm, name)) for name in (
+      "mesh_vertadr", "mesh_vertnum", "mesh_faceadr", "mesh_facenum",
+      "mesh_normaladr", "mesh_normalnum", "hfield_adr", "hfield_nrow",
+      "hfield_ncol")}
+  f["mesh_face"] = si(mjm.mesh_face).reshape(-1, 3)
+  f["mesh_vert"] = np.asarray(mjm.mesh_vert, np.float64).reshape(-1, 3)
+  f["mesh_normal"] = np.asarray(mjm.mesh_normal, np.float64).reshape(-1, 3)
+  f["hfield_size_np"] = np.asarray(mjm.hfield_size,
+                                   np.float64).reshape(-1, 4)
+  f["hfield_data"] = np.asarray(mjm.hfield_data, np.float64)
+  for i, hull in enumerate(_mesh_hulls(mjm)):
+    f[f"mesh_hull_idx.{i}"] = hull
+  return f
 
 
 def _tree_meta(mjm: Any) -> dict:

@@ -643,6 +643,276 @@ SLEEP_EQUALITY_XML = """
 </mujoco>"""
 
 
+# ---- collision breadth (zoo.CONVEX): the reference's own scenes of the
+# box, MPR, mesh and height-field colliders, each XML as its test writes it
+
+
+def rock_xml(nvert: int = 1000) -> str:
+  """tests/test_bigmesh.py:21-44 ``_rock_xml``: a 1,000-vertex bumpy ball
+  (its hull decimated to 64 vertices, 584 faces past the 64-face midphase
+  budget) on a plane, with a sphere and a box dropped on it."""
+  rng = np.random.RandomState(0)
+  pts = rng.randn(nvert, 3)
+  pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+  pts *= 0.15 * (1 + 0.08 * rng.rand(nvert, 1))
+  vert = " ".join(f"{x:.6f}" for x in pts.ravel())
+  return f"""
+<mujoco>
+  <option timestep="0.002" solver="Newton"/>
+  <asset><mesh name="rock" vertex="{vert}"/></asset>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <body pos="0 0 0.3"><freejoint/>
+      <geom type="mesh" mesh="rock" mass="0.4"/>
+    </body>
+    <body pos="0.02 0.01 0.7"><freejoint/>
+      <geom type="sphere" size="0.08" mass="0.2"/>
+    </body>
+    <body pos="-0.02 0.03 1.0"><freejoint/>
+      <geom type="box" size="0.06 0.05 0.04" mass="0.2"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+
+# tests/test_manifold.py:122-145 (test_box_on_box_pile_rest): three
+# stacked boxes on a plane
+BOX_PILE_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <body pos="0 0 0.1"><freejoint/>
+      <geom type="box" size=".12 .12 .1" mass="1"/></body>
+    <body pos="0.02 0.01 0.29" euler="0 0 15"><freejoint/>
+      <geom type="box" size=".09 .09 .09" mass="0.5"/></body>
+    <body pos="0 0.02 0.46" euler="0 0 40"><freejoint/>
+      <geom type="box" size=".06 .06 .06" mass="0.2"/></body>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_manifold.py:147-175 (test_articulated_grasp_holds): two
+# sliding box fingers squeezing a free capsule
+GRASP_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <body pos="0 0 0.5">
+      <body pos="-0.09 0 0">
+        <joint name="f1" type="slide" axis="1 0 0" range="-0.02 0.06"
+               limited="true" damping="3"/>
+        <geom type="box" size=".02 .05 .1" friction="1.2 .01 .002"/>
+      </body>
+      <body pos="0.09 0 0">
+        <joint name="f2" type="slide" axis="-1 0 0" range="-0.02 0.06"
+               limited="true" damping="3"/>
+        <geom type="box" size=".02 .05 .1" friction="1.2 .01 .002"/>
+      </body>
+    </body>
+    <body pos="0 0 0.5"><freejoint/>
+      <geom type="capsule" size=".045 .06" mass="0.2"
+            friction="1.2 .01 .002"/></body>
+  </worldbody>
+  <actuator>
+    <motor joint="f1" gear="30"/><motor joint="f2" gear="30"/>
+  </actuator>
+</mujoco>"""
+
+# tests/test_manifold.py:22-24 (CUBE) and :59-66 at yaw 25: a cube mesh
+# on a box slab (box-mesh through MPR)
+CUBE_MESH = ('<mesh name="cube" vertex="-.05 -.05 -.05  .05 -.05 -.05  '
+             '-.05 .05 -.05  .05 .05 -.05  -.05 -.05 .05  .05 -.05 .05  '
+             '-.05 .05 .05  .05 .05 .05"/>')
+CUBE_MESH_ON_BOX_XML = f"""
+<mujoco><option timestep="0.002" solver="Newton"/>
+  <asset>{CUBE_MESH}</asset>
+  <worldbody>
+    <geom name="slab" type="box" size="1 1 0.1" pos="0 0 0.1"/>
+    <body pos="0 0 0.28" euler="0 0 25"><freejoint/>
+      <geom type="mesh" mesh="cube" mass="0.2"/></body>
+  </worldbody></mujoco>"""
+
+# tests/test_manifold.py:38-45: a cylinder on its side on a box slab
+CYLINDER_ON_BOX_XML = """
+<mujoco><option timestep="0.002" solver="Newton"/>
+  <worldbody>
+    <geom name="slab" type="box" size="1 1 0.1" pos="0 0 0.1"/>
+    <body pos="0 0 0.27" euler="90 0 0"><freejoint/>
+      <geom type="cylinder" size="0.06 0.15" mass="0.3"/></body>
+  </worldbody></mujoco>"""
+
+# tests/test_collision2.py:394-412 (CONVEX_CASES, each at its first
+# position) in the scene of test_mpr_convex_dist (:414-421)
+CONVEX_CASES = [
+    ('<geom type="ellipsoid" size="0.15 0.1 0.08" contype="1" '
+     'conaffinity="1"/>',
+     '<geom type="ellipsoid" size="0.1 0.12 0.07"/>', "0.2 0 1.0"),
+    ('<geom type="cylinder" size="0.1 0.15" contype="1" conaffinity="1"/>',
+     '<geom type="box" size="0.08 0.07 0.06"/>', "0.15 0.1 1.18"),
+    ('<geom type="cylinder" size="0.1 0.15" euler="30 20 0" contype="1" '
+     'conaffinity="1"/>',
+     '<geom type="cylinder" size="0.08 0.1" euler="0 45 0"/>', "0.2 0 1.05"),
+    ('<geom type="ellipsoid" size="0.15 0.1 0.08" contype="1" '
+     'conaffinity="1"/>',
+     '<geom type="capsule" size="0.05 0.1" euler="20 60 0"/>', "0.2 0 1.02"),
+]
+CONVEX_CASE_XML = """
+  <mujoco><worldbody>
+    <body pos="0 0 1">{g1}</body>
+    <body pos="{p}"><freejoint/>{g2}</body>
+  </worldbody></mujoco>"""
+
+# tests/test_collision2.py:36-73 (CYL_PLANE, ELL_PLANE, SPH_CYL, BOX_BOX),
+# each at a pose of its test (:75-117) where the pair touches
+CYL_PLANE_XML = """
+<mujoco><worldbody>
+  <geom type="plane" size="3 3 .1"/>
+  <body pos="0 0 {z}" euler="{e}">
+    <freejoint/><geom type="cylinder" size="0.1 0.25"/>
+  </body>
+</worldbody></mujoco>
+""".format(z=0.23, e="20 15 0")
+ELL_PLANE_XML = """
+<mujoco><worldbody>
+  <geom type="plane" size="3 3 .1"/>
+  <body pos="0.02 -0.01 {z}" euler="{e}">
+    <freejoint/><geom type="ellipsoid" size="0.12 0.2 0.07"/>
+  </body>
+</worldbody></mujoco>
+""".format(z=0.1, e="45 20 10")
+SPH_CYL_XML = """
+<mujoco><worldbody>
+  <body pos="0 0 1"><geom type="cylinder" size="0.15 0.3"
+    euler="{e}" contype="1" conaffinity="1"/></body>
+  <body pos="{p}">
+    <freejoint/><geom type="sphere" size="0.1"/>
+  </body>
+</worldbody></mujoco>
+""".format(p="0.25 0.05 1.1", e="30 40 0")
+BOX_BOX_XML = """
+<mujoco><worldbody>
+  <body pos="0 0 1"><geom type="box" size="0.3 0.25 0.2" euler="{e1}"
+    contype="1" conaffinity="1"/></body>
+  <body pos="{p}" euler="{e2}">
+    <freejoint/><geom type="box" size="0.15 0.1 0.12"/>
+  </body>
+</worldbody></mujoco>
+""".format(p="0.05 -0.08 1.3", e1="10 5 0", e2="25 -15 40")
+
+# tests/test_collision2.py:322-339 (MESH_XML): a tetrahedron and a wedge
+# mesh and a sphere over a plane
+MESH_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <asset>
+    <mesh name="tet" vertex="0 0 0  0.2 0 0  0 0.2 0  0 0 0.2"/>
+    <mesh name="wedge" vertex="-0.15 -0.1 0  0.15 -0.1 0  0.15 0.1 0
+                               -0.15 0.1 0  0 0 0.18"/>
+  </asset>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <body pos="0 0 0.4" euler="10 25 40"><freejoint/>
+      <geom type="mesh" mesh="tet" contype="1" conaffinity="0"/></body>
+    <body pos="0.6 0 0.4" euler="5 -15 70"><freejoint/>
+      <geom type="mesh" mesh="wedge" contype="1" conaffinity="0"/></body>
+    <body pos="-0.6 0 0.6"><freejoint/>
+      <geom type="sphere" size="0.08" contype="1" conaffinity="0"/></body>
+  </worldbody>
+</mujoco>
+"""
+
+
+def hfield_bowl_xml() -> str:
+  """tests/test_collision2.py:254-274 ``_hfield_xml``: the bowl terrain,
+  with the geoms of its six settle tests (sphere :276, capsule :305, box
+  :520, cylinder :564, ellipsoid :577 and the wedge mesh :590) as they
+  are there, their bodies spread 0.45 apart around the bowl and colliding
+  only with the terrain (contype 2, conaffinity 1), so that every pair is
+  a height-field pair."""
+  nrow, ncol = 9, 11
+  yy, xx = np.meshgrid(np.linspace(-1, 1, nrow), np.linspace(-1, 1, ncol),
+                       indexing="ij")
+  data = (0.25 * (xx ** 2 + yy ** 2)).reshape(-1)
+  datastr = " ".join("%.4f" % v for v in data)
+  geoms = [
+      '<geom type="sphere" size="0.09" condim="6" friction="1 0.02 0.01"',
+      '<geom type="capsule" size="0.07" fromto="-0.2 0 0 0.2 0 0" '
+      'condim="6" friction="1 0.02 0.01"',
+      '<geom type="box" size="0.12 0.08 0.05" condim="6" '
+      'friction="1 0.02 0.01"',
+      '<geom type="cylinder" size="0.08 0.15" condim="6" '
+      'friction="1 0.02 0.01"',
+      '<geom type="ellipsoid" size="0.1 0.08 0.05" condim="6" '
+      'friction="1 0.05 0.02"',
+      '<geom type="mesh" mesh="wedge" condim="6" friction="1 0.02 0.01"']
+  places = [("-0.45 -0.4 0.45", "0 0 0"), ("0 -0.4 0.45", "0 0 30"),
+            ("0.45 -0.4 0.5", "0 0 20"), ("-0.45 0.4 0.5", "90 0 15"),
+            ("0 0.4 0.5", "0 0 0"), ("0.45 0.4 0.5", "5 10 30")]
+  body = "\n".join(
+      f'      <body pos="{p}" euler="{e}"><freejoint/>'
+      f'{g} contype="2" conaffinity="1"/></body>'
+      for g, (p, e) in zip(geoms, places))
+  return f"""
+  <mujoco>
+    <option timestep="0.002"/>
+    <asset><mesh name="wedge" vertex="-0.15 -0.1 0  0.15 -0.1 0  0.15 0.1 0
+                                      -0.15 0.1 0  0 0 0.18"/>
+      <hfield name="terrain" nrow="{nrow}" ncol="{ncol}"
+              size="1.2 1.0 0.4 0.1" elevation="{datastr}"/>
+    </asset>
+    <worldbody>
+      <geom type="hfield" hfield="terrain"/>
+{body}
+    </worldbody>
+  </mujoco>"""
+
+
+# tests/test_sleep.py:50-63 (SCENE): two stacked boxes on the floor and a
+# low-friction ball 3 m away
+SLEEP_BOX_STACK_XML = """
+<mujoco>
+  <option timestep="0.002" sleep_tolerance="1e-4">
+    <flag sleep="enable"/>
+  </option>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body pos="0 0 0.1"><freejoint/><geom type="box" size=".1 .1 .1"/></body>
+    <body pos="0 0 0.31"><freejoint/><geom type="box" size=".09 .09 .1"/></body>
+    <body pos="-3 0 0.25">
+      <freejoint/><geom type="sphere" size=".12" friction="0.1"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_island.py:44-53 (TWO_BOX_OPEN): two boxes on a plane, free to
+# meet
+TWO_BOX_OPEN_XML = """
+<mujoco>
+  <option solver="Newton" cone="pyramidal" iterations="20" tolerance="1e-12"/>
+  <worldbody>
+    <geom type="plane" size="10 10 1"/>
+    <body pos="-.5 0 0.1"><freejoint/><geom type="box" size=".1 .1 .1"/></body>
+    <body pos=".5 0 0.1"><freejoint/><geom type="box" size=".1 .12 .09"/></body>
+  </worldbody>
+</mujoco>
+"""
+
+_CONVEX = {"rock": rock_xml, "box_pile": lambda: BOX_PILE_XML,
+           "grasp": lambda: GRASP_XML,
+           "cube_mesh_on_box": lambda: CUBE_MESH_ON_BOX_XML,
+           "cylinder_on_box": lambda: CYLINDER_ON_BOX_XML,
+           "cyl_plane": lambda: CYL_PLANE_XML,
+           "ell_plane": lambda: ELL_PLANE_XML,
+           "sph_cyl": lambda: SPH_CYL_XML, "box_box": lambda: BOX_BOX_XML,
+           "mesh_plane": lambda: MESH_XML, "hfield_bowl": hfield_bowl_xml,
+           "sleep_box_stack": lambda: SLEEP_BOX_STACK_XML,
+           "two_box_open": lambda: TWO_BOX_OPEN_XML}
+_CONVEX.update({f"convex_case{i}": (lambda g1=g1, g2=g2, p=p:
+                                     CONVEX_CASE_XML.format(g1=g1, g2=g2,
+                                                            p=p))
+                for i, (g1, g2, p) in enumerate(CONVEX_CASES)})
+
+
 def multi_humanoid_mj(n: int, spacing: float = 3.0, sleep: bool = False):
   """mujoco_tpu's ``zoo.multi_humanoid(n)`` scene
   (mujoco_tpu/models/zoo.py:38-62) built with the pip mujoco's MjSpec: n
@@ -720,7 +990,7 @@ _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "sleep_stack": SLEEP_STACK_XML,
            "sleep_equality": SLEEP_EQUALITY_XML}
 _FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
-              "humanoid_elliptic": humanoid_elliptic_xml}
+              "humanoid_elliptic": humanoid_elliptic_xml, **_CONVEX}
 
 
 def compile_mj(name: str):

@@ -6,8 +6,9 @@ Enum values match the reference public API (mujoco_tpu/models/types.py:36-247).
 carry only the fields the port's stages read or write: the rigid-body
 constraint class (equality, friction-loss, limit and contact rows, explicit
 pairs, cameras and lights), tendons, site and slider-crank transmissions,
-mocap bodies, and the many-body fields (kinematic trees, dynamic pair
-groups, sleep); later slices add the rest with their modules. Field
+mocap bodies, the many-body fields (kinematic trees, dynamic pair
+groups, sleep), and the meshes and height fields of the narrowphase
+(:720-736, :751-755); later slices add the rest with their modules. Field
 names are the reference's, so a field here and the same-named field of a
 ``mujoco_tpu`` Model or Data hold the same quantity.
 
@@ -254,6 +255,7 @@ class Model:
   nwrap: int = static_field()
   nmocap: int = static_field()
   ntree: int = static_field()
+  nhfield: int = static_field()
   has_dof_damping: bool = static_field()
   has_tendon_armature: bool = static_field()
 
@@ -325,6 +327,7 @@ class Model:
   geom_condim: np.ndarray = static_field()
   geom_bodyid: np.ndarray = static_field()
   geom_priority: np.ndarray = static_field()
+  geom_dataid: np.ndarray = static_field()        # mesh / hfield id or −1
   geom_solmix: torch.Tensor = field()
   geom_solref: torch.Tensor = field()
   geom_solimp: torch.Tensor = field()
@@ -412,6 +415,27 @@ class Model:
   wrap_objid: np.ndarray = static_field()
   wrap_sideid: np.ndarray = static_field()   # static int copy of wrap_prm
   wrap_prm: torch.Tensor = field()
+
+  # meshes (mujoco_tpu/models/types.py:720-736): topology static, vertex
+  # data a tensor; mesh_face holds each mesh's own (local) vertex ids.
+  # mesh_hull_idx: per mesh, the GLOBAL rows of mesh_vert on its convex
+  # hull, decimated to MJTPU_MAX_HULL_VERT (the MPR supports' vertices)
+  mesh_vertadr: np.ndarray = static_field()
+  mesh_vertnum: np.ndarray = static_field()
+  mesh_faceadr: np.ndarray = static_field()
+  mesh_facenum: np.ndarray = static_field()
+  mesh_normaladr: np.ndarray = static_field()
+  mesh_normalnum: np.ndarray = static_field()
+  mesh_face: np.ndarray = static_field()          # (nmeshface, 3)
+  mesh_hull_idx: Tuple[np.ndarray, ...] = static_field()
+  mesh_vert: torch.Tensor = field()               # (nmeshvert, 3)
+  mesh_normal: torch.Tensor = field()             # (nmeshnormal, 3)
+  # height fields (:751-755): the grid static, the elevations a tensor
+  hfield_adr: np.ndarray = static_field()
+  hfield_nrow: np.ndarray = static_field()
+  hfield_ncol: np.ndarray = static_field()
+  hfield_size_np: np.ndarray = static_field()     # (nhfield, 4)
+  hfield_data: torch.Tensor = field()             # (nhfielddata,)
 
   names: dict = static_field()
 

@@ -25,7 +25,8 @@ snapshot and the options ``load`` sets on it (``load_scene``);
 constraint islands, dynamic pair groups and sleep: ``multi_humanoid10``
 (ten humanoids in one scene, islands enabled), ``multi_humanoid10_sleep``
 (the same with sleep), ``replicate4`` (four self-colliding humanoids) and
-two small sleep scenes.
+two small sleep scenes. ``CONVEX`` are the scenes of the box-box, MPR,
+mesh and height-field colliders, ``rock`` (a 1,000-vertex mesh) first.
 """
 
 from __future__ import annotations
@@ -83,10 +84,21 @@ ON_FLOOR = {"balls_elliptic": {2: 0.095, 9: 0.058},
 # (dynamic pair groups); and the small sleep scenes
 MANY_BODY = ("multi_humanoid10", "multi_humanoid10_sleep", "replicate4",
              "sleep_stack", "sleep_equality")
+# collision breadth: the reference's scenes of the box-box, MPR, mesh and
+# height-field colliders (models/snapshot.py cites each): the 1,000-vertex
+# rock (the slice's full-width model), the box pile, the grasp, a cube
+# mesh and a cylinder on a box slab, the four MPR pairs of
+# tests/test_collision2.py, plane-cylinder, plane-ellipsoid,
+# sphere-cylinder and box-box, meshes on a plane, the height-field bowl
+# with six geom types, the box sleep stack and two boxes that may meet
+CONVEX = ("rock", "box_pile", "grasp", "cube_mesh_on_box", "cylinder_on_box",
+          "convex_case0", "convex_case1", "convex_case2", "convex_case3",
+          "cyl_plane", "ell_plane", "sph_cyl", "box_box", "mesh_plane",
+          "hfield_bowl", "sleep_box_stack", "two_box_open")
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
-             + ("humanoid_elliptic",) + MANY_BODY)
+             + ("humanoid_elliptic",) + MANY_BODY + CONVEX)
 # carried across from the reference's Model (tests/test_torch_model.py)
 CARRIED = ("multi_humanoid3",)
 

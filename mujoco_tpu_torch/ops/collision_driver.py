@@ -1,12 +1,16 @@
 """Narrowphase driver over the contact-slot table (port of
-mujoco_tpu/ops/collision_driver.py: ``_COLLIDERS`` :28 for the seven
-primitive pairs, ``make_frame`` :44, ``_combine_params`` :61,
-``collision`` :194 with the dynamic pair groups :262-308, and
-``_combine_params_traced`` :312).
+mujoco_tpu/ops/collision_driver.py: ``_COLLIDERS`` :28, ``make_frame``
+:44, ``_combine_params`` :61, ``_collider_for`` :162-191, ``collision``
+:194 with the dynamic pair groups :262-308, and ``_combine_params_traced``
+:312).
 
-Every static candidate pair owns fixed slots (Model.con); each type-pair
-group is one batched collider call over (env, pair), and a slot whose dist
-exceeds its includemargin is inactive. A dynamic pair group's slots are
+Every static candidate pair owns fixed slots (Model.con); the pairs of one
+(type1, type2, data id1, data id2) signature (the data id of a mesh or
+height field, else −1) are one batched collider call over (env, pair), and
+a slot whose dist exceeds its includemargin is inactive. ``_collider_for``
+resolves a signature to its collider: the table's analytic pairs, the
+height-field and mesh colliders closed over their asset, and MPR for every
+other convex pair. A dynamic pair group's slots are
 filled per env: each env scores the group's candidates by bounding-sphere
 distance, keeps the npair closest (a stable sort, so ties keep the lower
 candidate, as ``lax.top_k`` does) and runs the group's collider on them;
@@ -24,6 +28,8 @@ import torch
 
 from mujoco_tpu_torch.models.types import (Contact, Data, DisableBit,
                                            GeomType, Model)
+from mujoco_tpu_torch.ops import collision_box, collision_convex
+from mujoco_tpu_torch.ops import collision_hfield, collision_mesh
 from mujoco_tpu_torch.ops import collision_primitive as cp
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
@@ -31,12 +37,47 @@ from mujoco_tpu_torch.utils.device import const, index
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): (cp.plane_sphere, 1),
     (GeomType.PLANE, GeomType.CAPSULE): (cp.plane_capsule, 2),
+    (GeomType.PLANE, GeomType.ELLIPSOID): (cp.plane_ellipsoid, 1),
+    (GeomType.PLANE, GeomType.CYLINDER): (cp.plane_cylinder, 4),
     (GeomType.PLANE, GeomType.BOX): (cp.plane_box, 4),
     (GeomType.SPHERE, GeomType.SPHERE): (cp.sphere_sphere, 1),
     (GeomType.SPHERE, GeomType.CAPSULE): (cp.sphere_capsule, 1),
+    (GeomType.SPHERE, GeomType.CYLINDER): (cp.sphere_cylinder, 1),
     (GeomType.SPHERE, GeomType.BOX): (cp.sphere_box, 1),
     (GeomType.CAPSULE, GeomType.CAPSULE): (cp.capsule_capsule, 2),
+    (GeomType.CAPSULE, GeomType.BOX): (cp.capsule_box, 3),
+    (GeomType.BOX, GeomType.BOX): (collision_box.box_box, 8),
 }
+
+
+def _collider_for(m: Model, t1: int, t2: int, did1: int, did2: int):
+  """(collider, contacts per pair) of a signature (mjCOLLISIONFUNC)."""
+  t1, t2 = GeomType(t1), GeomType(t2)
+  if t1 == GeomType.HFIELD:
+    if t2 == GeomType.SPHERE:
+      return collision_hfield.make_hfield_sphere(m, did1), 3
+    if t2 == GeomType.CAPSULE:
+      return collision_hfield.make_hfield_capsule(m, did1), 3
+    return collision_hfield.make_hfield_convex(m, did1, t2, did2), 4
+  if t2 == GeomType.MESH and t1 == GeomType.PLANE:
+    return collision_mesh.make_plane_mesh(m, did2), 4
+  if t2 == GeomType.MESH and t1 == GeomType.SPHERE:
+    return collision_mesh.make_sphere_mesh(m, did2), 1
+  if t2 == GeomType.MESH and t1 == GeomType.CAPSULE:
+    return collision_mesh.make_capsule_mesh(m, did2), 3
+  if (t1, t2) in _COLLIDERS:
+    return _COLLIDERS[t1, t2]
+  return (collision_convex.make_convex_convex(m, t1, t2, did1, did2),
+          collision_convex.CONVEX_NCON)
+
+
+def _signature(m: Model, c: int) -> tuple:
+  """(type1, type2, data id1, data id2) of contact slot c."""
+  t1, t2 = int(m.con.pair_type[c, 0]), int(m.con.pair_type[c, 1])
+  did1 = int(m.geom_dataid[m.con.geom1[c]]) if t1 in (
+      GeomType.HFIELD, GeomType.MESH) else -1
+  did2 = int(m.geom_dataid[m.con.geom2[c]]) if t2 == GeomType.MESH else -1
+  return t1, t2, did1, did2
 
 
 def make_frame(normal, tangent):
@@ -122,10 +163,9 @@ def collision(m: Model, d: Data) -> Data:
 
   groups = {}
   for c in np.nonzero(m.con.con_first)[0]:
-    key = (int(m.con.pair_type[c, 0]), int(m.con.pair_type[c, 1]))
-    groups.setdefault(key, []).append(c)
+    groups.setdefault(_signature(m, c), []).append(c)
   for key, first in groups.items():
-    fn, k = _COLLIDERS[GeomType(key[0]), GeomType(key[1])]
+    fn, k = _collider_for(m, *key)
     first = np.asarray(first)
     g1 = index(m.con.geom1[first], dev)
     g2 = index(m.con.geom2[first], dev)
@@ -173,7 +213,7 @@ def _dynamic_group(m: Model, d: Data, grp: dict, dist, pos, frame):
   slots' combined parameters, and the candidates per env that overlap
   beyond the budget (mujoco_tpu/ops/collision_driver.py:262-308)."""
   nbatch, dev = dist.shape[0], dist.device
-  fn, k = _COLLIDERS[GeomType(grp["t1"]), GeomType(grp["t2"])]
+  fn, k = _collider_for(m, grp["t1"], grp["t2"], grp["did1"], grp["did2"])
   npair, adr = int(grp["npair"]), int(grp["adr"])
   g1 = index(grp["g1"], dev)
   g2 = index(grp["g2"], dev)

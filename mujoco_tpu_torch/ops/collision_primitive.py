@@ -1,8 +1,9 @@
 """Primitive colliders, batched over envs and pairs (port of
 mujoco_tpu/ops/collision_primitive.py: ``plane_sphere`` :30,
 ``plane_capsule`` :46, ``plane_box`` :59, ``_sphere_sphere_pts`` :76,
-``sphere_sphere`` :91, ``sphere_capsule`` :97, ``capsule_capsule`` :106 and
-``sphere_box`` :180).
+``sphere_sphere`` :91, ``sphere_capsule`` :97, ``capsule_capsule`` :106,
+``sphere_box`` :180, ``plane_cylinder`` :215, ``plane_ellipsoid`` :261,
+``sphere_cylinder`` :277 and ``capsule_box`` :322).
 
 Each collider takes (pos1, mat1, size1, pos2, mat2, size2) with any leading
 batch dims and returns (dist (..., k), pos (..., k, 3), normal (..., k, 3),
@@ -14,6 +15,7 @@ candidates keep their positive distance and are masked downstream.
 from __future__ import annotations
 
 import itertools
+import math
 
 import torch
 
@@ -195,3 +197,148 @@ def sphere_box(p1, m1, s1, p2, m2, s2):
   normal = -(m2 @ n_box[..., None])[..., 0]
   pos = p1 + normal * (r1 + dist / 2)[..., None]
   return _one(dist, pos, normal)
+
+
+def plane_cylinder(p1, m1, s1, p2, m2, s2):
+  """Plane vs cylinder (mjc_PlaneCylinder): the rim points nearest and
+  farthest along the axis, and two points of a triangle on the near cap."""
+  n = m1[..., :, 2]
+  axis0 = m2[..., :, 2]
+  prjaxis0 = mjm.dot(n, axis0)
+  # the axis points towards the plane
+  flip = prjaxis0 > 0
+  axis = torch.where(flip[..., None], -axis0, axis0)
+  prjaxis = torch.where(flip, -prjaxis0, prjaxis0)
+  dist0 = mjm.dot(p2 - p1, n)
+
+  # the radial direction of −normal
+  vec = axis * prjaxis[..., None] - n
+  len_sqr = mjm.dot(vec, vec)
+  degenerate = len_sqr < mjm.MINVAL ** 2
+  scl = s2[..., 0] / torch.sqrt(torch.where(degenerate, 1.0, len_sqr))
+  vec = torch.where(degenerate[..., None], m2[..., :, 0] * s2[..., 0:1],
+                    vec * scl[..., None])
+  prjvec = mjm.dot(vec, n)
+  axis_h = axis * s2[..., 1:2]
+  prjaxis_h = prjaxis * s2[..., 1]
+  half = lambda d: n * (d * 0.5)[..., None]
+
+  d1 = dist0 + prjaxis_h + prjvec
+  pos1 = p2 + vec + axis_h - half(d1)
+  d2 = dist0 - prjaxis_h + prjvec
+  pos2 = p2 + vec - axis_h - half(d2)
+  d34 = dist0 + prjaxis_h - prjvec * 0.5
+  vec1 = mjm.normalize(mjm.cross(vec, axis)) * (
+      s2[..., 0] * math.sqrt(3.0) / 2)[..., None]
+  base = p2 + axis_h - vec * 0.5 - half(d34)
+
+  dist = torch.stack([d1, d2, d34, d34], dim=-1)
+  pos = torch.stack([pos1, pos2, base + vec1, base - vec1], dim=-2)
+  normal = n[..., None, :].expand(pos.shape)
+  return dist, pos, normal, torch.zeros_like(normal)
+
+
+def plane_ellipsoid(p1, m1, s1, p2, m2, s2):
+  """Plane vs ellipsoid: the ellipsoid's support point against the plane
+  normal."""
+  n = m1[..., :, 2]
+  n_l = mjm.mat_vec(m2.transpose(-1, -2), n)
+  sn = s2[..., :3] * n_l
+  sp = p2 + mjm.mat_vec(m2, -(s2[..., :3] * sn)
+                        / mjm.norm_safe(sn, keepdim=True))
+  dist = mjm.dot(sp - p1, n)
+  return _one(dist, sp - n * (dist * 0.5)[..., None], n)
+
+
+def sphere_cylinder(p1, m1, s1, p2, m2, s2):
+  """Sphere vs cylinder (mjc_SphereCylinder): the side, cap or rim case,
+  whichever the center's position selects."""
+  radius, height = s2[..., 0], s2[..., 1]
+  r1 = s1[..., 0]
+  axis = m2[..., :, 2]
+  vec = p1 - p2
+  x = mjm.dot(axis, vec)
+  a_proj = axis * x[..., None]
+  p_proj = vec - a_proj
+  p_proj_sqr = mjm.dot(p_proj, p_proj)
+
+  collide_side = x.abs() < height
+  collide_cap = p_proj_sqr < radius * radius
+  both = collide_side & collide_cap
+  dist_cap = height - x.abs()
+  dist_radius = radius - torch.sqrt(torch.clamp(p_proj_sqr, min=0.0))
+  collide_side = collide_side & ~(both & (dist_cap < dist_radius))
+  collide_cap = collide_cap & ~(both & (dist_cap >= dist_radius))
+
+  # side: sphere-sphere against the axis point
+  side_d, side_p, side_n = _sphere_sphere_pts(p1, r1, p2 + a_proj, radius,
+                                              m1[..., :, 2], axis)
+  # cap: plane-sphere against the near cap, its normal turned to point from
+  # the sphere into the cylinder
+  cap_sign = ((x > 0).to(x.dtype) * 2 - 1)[..., None]
+  cap_n = axis * cap_sign
+  cap_pos = p2 + axis * (cap_sign * height[..., None])
+  cap_d = mjm.dot(p1 - cap_pos, cap_n) - r1
+  cap_p = p1 + cap_n * (-cap_d / 2 - r1)[..., None]
+  # rim: sphere against the rim point
+  p_safe = torch.sqrt(torch.clamp(p_proj_sqr, min=mjm.MINVAL))
+  corner = (p2 + p_proj * (radius / p_safe)[..., None]
+            + axis * (cap_sign * height[..., None]))
+  rim_d, rim_p, rim_n = _sphere_sphere_pts(p1, r1, corner,
+                                           torch.zeros_like(r1),
+                                           m1[..., :, 2], axis)
+
+  side, cap = collide_side[..., None], collide_cap[..., None]
+  dist = torch.where(collide_side, side_d,
+                     torch.where(collide_cap, cap_d, rim_d))
+  pos = torch.where(side, side_p, torch.where(cap, cap_p, rim_p))
+  normal = torch.where(side, side_n, torch.where(cap, -cap_n, rim_n))
+  return _one(dist, pos, normal)
+
+
+def capsule_box(p1, m1, s1, p2, m2, s2):
+  """Capsule vs box: sphere-box tests at both capsule ends and at the
+  segment point nearest the box, found by 12 rounds of alternating
+  projection (segment point → box clamp → segment); the interior
+  candidate is dropped where it coincides with an end."""
+  r, h = s1[..., 0], s1[..., 1]
+  axis = m1[..., :, 2]
+  half = s2[..., :3]
+  m2t = m2.transpose(-1, -2)
+
+  def sphere_at(t):
+    center = p1 + axis * t[..., None]
+    c = mjm.mat_vec(m2t, center - p2)
+    clamped = torch.minimum(torch.maximum(c, -half), half)
+    inside = (c.abs() < half).all(-1)
+    dif = c - clamped
+    len_out = mjm.norm_safe(dif)
+    n_out = dif / len_out[..., None]
+    face = half - c.abs()
+    ax = torch.argmin(face, dim=-1, keepdim=True)
+    cax = torch.gather(c, -1, ax)
+    sign = torch.sign(cax) + (cax == 0).to(c.dtype)
+    onehot = torch.zeros_like(c).scatter_(-1, ax, 1.0) > 0
+    n_in = torch.where(onehot, sign, 0.0)
+    dist = torch.where(inside, -(torch.gather(face, -1, ax)[..., 0] + r),
+                       len_out - r)
+    n_box = torch.where(inside[..., None], n_in, n_out)
+    normal = -mjm.mat_vec(m2, n_box)
+    return dist, center + normal * (r + dist / 2)[..., None], normal
+
+  t = torch.zeros_like(r)
+  for _ in range(12):
+    q_local = mjm.mat_vec(m2t, p1 + axis * t[..., None] - p2)
+    q = p2 + mjm.mat_vec(m2, torch.minimum(torch.maximum(q_local, -half),
+                                           half))
+    t = torch.minimum(torch.maximum(mjm.dot(q - p1, axis), -h), h)
+
+  d_lo, p_lo, n_lo = sphere_at(-h)
+  d_hi, p_hi, n_hi = sphere_at(h)
+  d_in, p_in, n_in = sphere_at(t)
+  dup = torch.minimum((t - h).abs(), (t + h).abs()) < 1e-6 * (h + 1e-12)
+  d_in = torch.where(dup, _BIG, d_in)
+  normal = torch.stack([n_lo, n_hi, n_in], dim=-2)
+  return (torch.stack([d_lo, d_hi, d_in], dim=-1),
+          torch.stack([p_lo, p_hi, p_in], dim=-2), normal,
+          torch.zeros_like(normal))

@@ -766,3 +766,21 @@ def test_ldl_kernel_on_the_elliptic_newton_system(cuda, dtype):
   res = ((hd @ pd[..., None])[..., 0] - gd).abs().amax(1)
   scale = hd.abs().sum(2).amax(1) * pd.abs().amax(1) + gd.abs().amax(1)
   assert (res / scale.clamp(min=1e-300)).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("family", ["primitive", "box", "convex", "mesh",
+                                    "hfield"])
+def test_collider_card_matches_cpu_f64(cuda, family):
+  """Each collider of the family (chip_smoke.collider_cases) at f64 on the
+  card against the CPU on 4,096 seeded poses, elementwise to 1e-10; an env
+  that misses passes only within the CPU's own last-bit spread
+  (chip_smoke.judge_envs)."""
+  import chip_smoke as cs
+  models = cs.collider_models((("cuda", torch.float64),
+                               ("cpu", torch.float64),
+                               ("cuda", torch.float32)))
+  names = [n for n in cs.collider_cases() if cs.collider_family(n) == family]
+  assert names
+  for i, name in enumerate(names):
+    _, _, card, _ = cs.collider_check(name, 200 + i, models)
+    assert card[0].is_cuda

@@ -8,8 +8,8 @@ reference's 3-humanoid scene (``python tests/test_torch_model.py`` writes
 it);
 a mujoco_tpu Model carried across with model_from_numpy equals the port's
 own put_model; models outside the slice raise NotImplementedError, and the
-models of features ported since (plane-box, eulerdamp, CG, tendons, the
-elliptic cone, RK4, implicitfast) load.
+models of features ported since (plane-box, box-box, eulerdamp, CG,
+tendons, the elliptic cone, RK4, implicitfast) load.
 """
 
 import mujoco
@@ -180,10 +180,12 @@ _OUT_OF_SLICE = {
     "sensor": """<mujoco><worldbody><body><joint name="a" type="slide"/>
       <geom size="0.1"/></body></worldbody><sensor>
       <jointpos joint="a"/></sensor></mujoco>""",
+    # a box against a flex (box-box contact loads since the collision
+    # breadth slice)
     "box_contact": """<mujoco><option iterations="2"/><worldbody>
       <body><freejoint/><geom type="box" size="0.1 0.1 0.1"/></body>
-      <body pos="0 0 0.3"><freejoint/><geom type="box" size="0.1 0.1 0.1"/>
-      </body></worldbody></mujoco>""",
+      <flexcomp name="f" type="grid" count="2 2 1" spacing=".1 .1 .1"
+      pos="0 0 .3" dim="2"/></worldbody></mujoco>""",
 }
 
 # models that raised before the slices that widened what the port runs
@@ -194,6 +196,10 @@ _WIDENED = {
     "plane_box": """<mujoco><option iterations="2"/><worldbody>
       <geom type="plane" size="1 1 1"/><body><freejoint/>
       <geom type="box" size="0.1 0.1 0.1"/></body></worldbody></mujoco>""",
+    "box_box": """<mujoco><option iterations="2"/><worldbody>
+      <body><freejoint/><geom type="box" size="0.1 0.1 0.1"/></body>
+      <body pos="0 0 0.3"><freejoint/><geom type="box" size="0.1 0.1 0.1"/>
+      </body></worldbody></mujoco>""",
     "eulerdamp": """<mujoco><worldbody><body><joint type="hinge"
       damping="1"/><geom size="0.1" contype="0"/></body></worldbody>
       </mujoco>""",
@@ -224,7 +230,8 @@ def test_out_of_slice_raises(name):
 def test_widened_slice_loads(name):
   mjm = mujoco.MjModel.from_xml_string(_WIDENED[name])
   m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
-  assert m.con.ncon == {"plane_box": 4, "elliptic": 1}.get(name, 0)
+  assert m.con.ncon == {"plane_box": 4, "elliptic": 1,
+                        "box_box": 8}.get(name, 0)
   assert m.has_dof_damping == (name in ("eulerdamp",
                                         "implicitfast_damping"))
   assert (m.opt.cone, m.opt.integrator) == (int(mjm.opt.cone),
