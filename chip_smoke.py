@@ -77,7 +77,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
 10. (b) the model class: each scene of ``zoo.GENERAL`` (equality,
    friction-loss, ball-limit, condim 4/6 and explicit-pair rows, cameras
    and lights) at its own options (100 Newton iterations), posed from a
-   numpy seed: f32, B 3072, 25 steps of ``scan_steps``, every env
+   numpy seed: f32, B 3072, 10 steps of ``scan_steps``, every env
    finite, at least two LDL launches a step;
    10 steps at f64, B 64, on the card against the CPU (1e-8);
 11. (c) the Newton kernel on each scene's rows as ``solver.newton_args``
@@ -206,7 +206,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
    kernel launches per call at f32;
 23. the slice at full width: ``rock`` (the 1,000-vertex mesh scene, nv
    18, which the megastep refuses), f32, B 3072, its bodies at rest on
-   each other, 50 steps of ``scan_steps(check=True)`` on the stage path:
+   each other, 25 steps of ``scan_steps(check=True)`` on the stage path:
    finite, at least two LDL launches per step and no other kernel's; its
    env-steps/s, launches per step, Newton iterations per env-step (10
    steps one at a time, with the LDL launches at least one per step plus
@@ -219,12 +219,29 @@ Phases, each of which passes or ends the script with a nonzero exit:
    each with env-steps/s; and 20 steps at f64, B 4, of each of the four
    scenes on the card against the CPU, each step from the CPU's state
    (qpos and qvel to 1e-8 absolute plus relative, ``judge_envs`` with 256
-   copies).
+   copies);
+24. sensors and activation state: ``humanoid_sensors`` (the flagship with
+   87 sensors, 126 values, and 21 FILTEREXACT actuators, which the
+   megastep must refuse), f32, B 3072, the main path's start with the
+   feet 0.02 in the floor and ctrl 0.5·N(0, 1), 50 steps of
+   ``scan_steps(check=True)``: qpos, qvel, act and the sensordata of the
+   final state finite, exactly one LDL and one Newton launch per step and
+   no megastep launch, a touch above 0 in some env; env-steps/s, peak
+   memory, launches per step and the idle share of a profiled 2-step
+   window, the same with ``DisableBit.SENSOR`` set (their difference the
+   sensor stages' launches per step) and of the flagship from the same
+   start on the stage path (the activations' share), and the device
+   kernels of one call of each sensor stage (the most of 5 profiled
+   calls); 20 steps at f64, B 8, and the five small scenes
+   of ``zoo.SENSORS`` 10 steps at f64, B 64, each step from the CPU's
+   state on the card and the CPU: qpos, qvel, act and sensordata within
+   1e-8 absolute plus relative, an env that misses judged by last-bit
+   copies (``judge_envs``, 256 copies).
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 23, and the LDL's and the Newton kernel's ``wide`` entries hold
+and 13 to 24, and the LDL's and the Newton kernel's ``wide`` entries hold
 their phase-13 times at n = nv = 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
 and the LDL's ``n18`` entry phase 23's.
@@ -1237,7 +1254,7 @@ def phase_general_core(report, details):
 # steps of phase 10's full-width run, cut from 50 to keep the script near
 # 600 s beside phases 19-21; its gate still asks for at least two LDL
 # launches a step (qacc_smooth and a Newton iteration)
-MODEL_CLASS_NSTEP = 25
+MODEL_CLASS_NSTEP = 10
 
 
 def phase_model_class(report, details):
@@ -2067,7 +2084,7 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23")
+                 "22", "23", "24")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -2706,7 +2723,7 @@ CONVEX_REST = {"rock": {2: 0.15, 9: 0.385, 16: 0.505},
                "hfield_bowl": {2: 0.115, 9: 0.081, 16: 0.075, 23: 0.105,
                                30: 0.061, 37: 0.025}}
 CONVEX_FULL = ("box_pile", "grasp", "hfield_bowl")
-ROCK_NSTEP = 50
+ROCK_NSTEP = 25
 CONVEX_NSTEP = 10
 CONVEX_CHECK_NSTEP = 20
 
@@ -2766,7 +2783,7 @@ def convex_card_vs_cpu(name):
 
 
 def phase_convex_scenes(report, details):
-  """23: the slice at full width: rock (f32, B 3072, 50 steps of
+  """23: the slice at full width: rock (f32, B 3072, 25 steps of
   scan_steps on the stage path), box_pile, grasp and hfield_bowl (10
   steps each), card against CPU at f64, and the LDL kernel at the rock's
   n 18."""
@@ -2875,6 +2892,177 @@ def phase_convex_scenes(report, details):
       **{name: s["launches"]["ldl_solve"] for name, s in scenes.items()})
 
 
+# ---- sensors and activation state: phase 24
+
+SENSOR_NSTEP = 50
+SENSOR_CHECK_NSTEP = 20
+SENSOR_SMALL_NSTEP = 10
+
+
+def sensor_batch(m, nbatch, seed, device="cuda", lower=None):
+  """The main path's start with the root lowered by ``lower`` (a
+  humanoid), else general_batch (a small scene), with ctrl 0.5·N(0, 1)
+  and act 0.2·N(0, 1) from the seed (the filters and muscles move from
+  the first step)."""
+  d = (general_batch(m, nbatch, seed, device) if lower is None
+       else start_batch(m, nbatch, seed, device, lower))
+  rng = np.random.default_rng(seed + 1)
+  t = lambda a: torch.tensor(a, dtype=m.dtype, device=device)
+  return d.replace(ctrl=t(0.5 * rng.standard_normal(tuple(d.ctrl.shape))),
+                   act=t(0.2 * rng.standard_normal(tuple(d.act.shape))))
+
+
+def kernel_count(fn, attempts=5) -> int:
+  """Device kernels of one warm call of fn: the most the profiler saw in
+  ``attempts`` windows of one call each (it misses events now and then,
+  so a window's count is a lower bound)."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  most = 0
+  for _ in range(attempts):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+      fn()
+      torch.cuda.synchronize()
+    most = max(most, sum(1 for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA))
+  return most
+
+
+def sensor_card_vs_cpu(name, nbatch, nstep, make):
+  """nstep steps at f64 of make(m, device): each step of the CPU's state
+  on the card and on the CPU; qpos, qvel, act and sensordata within 1e-8
+  absolute plus relative, an env that misses judged by last-bit copies
+  of its state (qpos, qvel, act) on both sides (judge_envs). Returns the
+  env-steps judged."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward
+  mc = zoo.load(name, torch.float64, "cuda")
+  mh = zoo.load(name, torch.float64, "cpu")
+  d = make(mh, "cpu")
+  fields = tuple(f for f in ("qpos", "qvel", "act", "sensordata")
+                 if getattr(d, f).shape[1])
+  judged = 0
+  for _ in range(nstep):
+    out_h = forward.step(mh, d)
+    out_c = forward.step(mc, d.to("cuda"))
+
+    def rerun(idx, m, d=d):
+      k = SCENE_COPIES
+      gen = torch.Generator().manual_seed(0)
+      copies = take_envs(d, idx.repeat_interleave(k))
+      moved = {f: getattr(copies, f) * (1 + last_bits(
+          getattr(copies, f).shape, gen)) for f in ("qpos", "qvel", "act")}
+      r = forward.step(m, copies.replace(**moved).to(m.device))
+      return [getattr(r, f).reshape((len(idx), k) + getattr(r, f).shape[1:])
+              for f in fields]
+
+    judged += judge_envs([getattr(out_c, f)[None] for f in fields],
+                         [getattr(out_h, f)[None] for f in fields],
+                         lambda idx: rerun(idx, mh),
+                         lambda idx: rerun(idx, mc), SCENE_COPIES, 1e-8,
+                         1.0)
+    d = out_h
+  return judged
+
+
+def phase_sensors(report, details):
+  """24: sensors and activation state: humanoid_sensors (the flagship
+  with 87 sensors and 21 filtered actuators; the megastep must refuse it)
+  at f32, B 3072, 50 steps on the stage path; its sensor stages' launches;
+  card against CPU at f64 for it and the five small scenes."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import DisableBit, SensorType
+  from mujoco_tpu_torch.ops import forward, megastep_cuda, sensor
+  m = zoo.load("humanoid_sensors", torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits humanoid_sensors")
+  d0 = sensor_batch(m, B, 70, lower=FEET_IN_FLOOR)
+  torch.cuda.reset_peak_memory_stats()
+  out, wall, launches = stage_run(m, d0, SENSOR_NSTEP)
+  peak = torch.cuda.max_memory_allocated()
+  finite = all(bool(torch.isfinite(getattr(out, f)).all())
+               for f in ("qpos", "qvel", "act"))
+  # scan_steps keeps the state alone: the last step's sensors are those
+  # of a forward pass from the final state
+  fwd = forward.forward(m, out)
+  finite &= bool(torch.isfinite(fwd.sensordata).all())
+  touch = np.nonzero(np.asarray(m.sensor_type) == SensorType.TOUCH)[0]
+  touch_share = (fwd.sensordata[:, m.sensor_adr[touch]] > 0).any(
+      -1).double().mean().item()
+  run_launches = {k: v / SENSOR_NSTEP for k, v in launches.items()}
+  sps = B * SENSOR_NSTEP / wall
+  print(f"humanoid_sensors (nv {m.nv}, na {m.na}, {m.nsensor} sensors, "
+        f"{m.nsensordata} values): f32 B{B} {SENSOR_NSTEP} steps from the "
+        f"main path's start lowered {FEET_IN_FLOOR}: wall {wall:.3f} s, "
+        f"{sps:.1f} env-steps/s, kernel launches per step {run_launches}, "
+        f"finite {finite}, share of envs with a touch above 0 "
+        f"{touch_share:.4f}, peak memory {peak / 2**30:.2f} GiB",
+        flush=True)
+  if (not finite or launches["ldl_solve"] != SENSOR_NSTEP
+      or launches["newton_pyramidal"] != SENSOR_NSTEP
+      or launches["megastep"] or not touch_share > 0):
+    raise AssertionError(f"humanoid_sensors: finite {finite}, launches "
+                         f"{launches}, touch share {touch_share}")
+  prof = profiled(m, out, 2)
+  print_profile(f"humanoid_sensors f32 B{B} 2 steps", prof)
+  m_off = m.replace(opt=m.opt.replace(
+      disableflags=int(m.opt.disableflags) | int(DisableBit.SENSOR)))
+  prof_off = profiled(m_off, out, 2)
+  print_profile(f"humanoid_sensors, sensors disabled, f32 B{B} 2 steps",
+                prof_off)
+  # the kernels of one forward.step (no scan_steps set-up in the count):
+  # with sensors, without (their difference the sensor stages'), and the
+  # flagship from the same start (the activations' share against the
+  # sensor-less step)
+  hum = zoo.humanoid(torch.float32)
+  d_hum = sensor_batch(hum, B, 70, lower=FEET_IN_FLOOR)
+  per_step = {tag: kernel_count(lambda mm=mm, dd=dd: forward.step(mm, dd))
+              for tag, mm, dd in (("sensors", m, out), ("no_sensors", m_off,
+                                                        out),
+                                  ("flagship", hum, d_hum))}
+  stages = {f"sensor_{k}": kernel_count(lambda fn=fn: fn(m, fwd))
+            for k, fn in (("pos", sensor.sensor_pos),
+                          ("vel", sensor.sensor_vel),
+                          ("acc", sensor.sensor_acc))}
+  sensor_launches = per_step["sensors"] - per_step["no_sensors"]
+  act_launches = per_step["no_sensors"] - per_step["flagship"]
+  print(f"humanoid_sensors: device kernels of one step {per_step}: the "
+        f"sensor stages' {sensor_launches} (one call each: {stages}), the "
+        f"activations' {act_launches} (sensors disabled against the "
+        f"flagship)", flush=True)
+  run = dict(batch=B, nstep=SENSOR_NSTEP, wall_s=wall, env_steps_per_s=sps,
+              launches=launches, launches_per_step=run_launches,
+              touch_share=touch_share, peak_memory_bytes=peak, profile=prof,
+              profile_sensors_disabled=prof_off,
+              step_kernels=per_step,
+              sensor_launches_per_step=sensor_launches,
+              activation_launches_per_step=act_launches,
+              sensor_stage_launches=stages)
+  del out, fwd
+
+  judged = {"humanoid_sensors": sensor_card_vs_cpu(
+      "humanoid_sensors", 8, SENSOR_CHECK_NSTEP,
+      lambda mm, dev: sensor_batch(mm, 8, 71, dev, FEET_IN_FLOOR))}
+  print(f"humanoid_sensors: {SENSOR_CHECK_NSTEP} steps f64 B8, each from "
+        f"the CPU's state, card = CPU (qpos, qvel, act, sensordata 1e-8; "
+        f"{judged['humanoid_sensors']} env-steps judged by last-bit copies)",
+        flush=True)
+  # the five small scenes of zoo.SENSORS, after humanoid_sensors
+  for name in zoo.SENSORS[1:]:
+    judged[name] = sensor_card_vs_cpu(
+        name, 64, SENSOR_SMALL_NSTEP,
+        lambda mm, dev: sensor_batch(mm, 64, 72, dev))
+    print(f"{name}: {SENSOR_SMALL_NSTEP} steps f64 B64, card = CPU (qpos, "
+          f"qvel, act, sensordata 1e-8; {judged[name]} env-steps judged)",
+          flush=True)
+  details["sensors"] = dict(humanoid_sensors=run, card_vs_cpu_judged=judged)
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})["humanoid_sensors"] = (
+        launches[k])
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2899,7 +3087,7 @@ def main() -> int:
             phase_multi_humanoid, phase_newton_gradient, phase_slice_scenes,
             phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
             phase_islands, phase_dynamic_pairs, phase_sleep,
-            phase_colliders, phase_convex_scenes)
+            phase_colliders, phase_convex_scenes, phase_sensors)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

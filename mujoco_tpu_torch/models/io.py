@@ -2,8 +2,10 @@
 
 Counterparts: ``put_model`` (mujoco_tpu/models/io.py:1357) with
 ``_tree_topology`` (:311, the pure-Python path), ``_contact_meta`` (:410),
-``_efc_meta`` (:1074), ``_names`` (:1173), ``_actuator_meta`` (:1205)
-and the tree tables of ``_sleep_meta`` (:1628);
+``_efc_meta`` (:1074), ``_names`` (:1173), ``_actuator_meta`` (:1205,
+with the wrap periods), the sensor tables (:1608-1625, their enums
+remapped by name in ``_sensor_meta``) and the tree tables of
+``_sleep_meta`` (:1628);
 ``make_data`` (:1703) with the mocap start pose of ``_mocap_init``
 (:1687).
 
@@ -31,11 +33,12 @@ import numpy as np
 import torch
 
 from mujoco_tpu_torch.models.types import (BiasType, ConeType, Contact,
-                                           ContactMeta, Data, DisableBit,
-                                           DynType, EfcMeta, EnableBit,
+                                           ContactMeta, Data, DataType,
+                                           DisableBit, DynType, EfcMeta,
                                            EqType, GainType, GeomType,
-                                           JointType, Model, Option,
-                                           TreeTopology, TrnType)
+                                           JointType, Model, ObjType, Option,
+                                           SensorType, Stage, TreeTopology,
+                                           TrnType)
 from mujoco_tpu_torch.ops.collision_convex import CONVEX_NCON
 from mujoco_tpu_torch.utils.device import default_device
 from mujoco_tpu_torch.utils.struct import is_static
@@ -403,9 +406,11 @@ def _names(mjm: Any) -> dict:
 
 def _actuator_meta(mjm: Any):
   """Actuator enums remapped to the v3.11 values by NAME (the pip package
-  may number them differently), restricted to stateless FIXED/AFFINE
-  actuators on a joint (any type), tendon, site or slider-crank
-  transmission."""
+  may number them differently), restricted to dyn NONE, INTEGRATOR,
+  FILTER, FILTEREXACT and MUSCLE, gains and biases FIXED/AFFINE/MUSCLE (or
+  no bias), on a joint (any type), tendon, site or slider-crank
+  transmission; and the setpoint wrap period of each rotational servo
+  (wrapPeriod; mujoco_tpu/models/io.py:1283-1300)."""
   import mujoco
   dyn_map = {int(v): DynType[k[len("mjDYN_"):]].value
              for k, v in mujoco.mjtDyn.__members__.items()}
@@ -416,32 +421,110 @@ def _actuator_meta(mjm: Any):
   dyn = np.array([dyn_map[int(t)] for t in mjm.actuator_dyntype], np.int32)
   gain = np.array([gain_map[int(t)] for t in mjm.actuator_gaintype], np.int32)
   bias = np.array([bias_map[int(t)] for t in mjm.actuator_biastype], np.int32)
+  delay = np.asarray(getattr(mjm, "actuator_delay", np.zeros(mjm.nu)))
   for i in range(mjm.nu):
-    if dyn[i] != DynType.NONE:
+    if dyn[i] not in _DYN:
       raise NotImplementedError(
           f"actuator {i}: activation dynamics {DynType(dyn[i]).name}")
-    if gain[i] not in (GainType.FIXED, GainType.AFFINE):
+    if gain[i] not in _GAIN:
       raise NotImplementedError(
           f"actuator {i}: gain type {GainType(gain[i]).name}")
-    if bias[i] not in (BiasType.NONE, BiasType.AFFINE):
+    if bias[i] not in _BIAS:
       raise NotImplementedError(
           f"actuator {i}: bias type {BiasType(bias[i]).name}")
     trn = TrnType(int(mjm.actuator_trntype[i]))
     if trn in (TrnType.BODY, TrnType.SO3):
       raise NotImplementedError(f"actuator {i}: transmission {trn.name}")
-  return dyn, gain, bias
+    if float(delay[i]) != 0.0:
+      raise NotImplementedError(f"actuator {i}: actuator delay")
+  gainprm = np.asarray(mjm.actuator_gainprm, dtype=np.float64)
+  biasprm = np.asarray(mjm.actuator_biasprm, dtype=np.float64)
+  gear = np.asarray(mjm.actuator_gear, dtype=np.float64)
+  wrapprd = np.zeros(mjm.nu, dtype=np.float64)
+  for i in range(mjm.nu):
+    servo = (gain[i] == GainType.FIXED and bias[i] == BiasType.AFFINE
+             and gainprm[i, 0] == -biasprm[i, 1]
+             and dyn[i] in (DynType.NONE, DynType.INTEGRATOR))
+    if not servo:
+      continue
+    trn = int(mjm.actuator_trntype[i])
+    if (trn == TrnType.SITE and int(mjm.actuator_trnid[i, 1]) >= 0
+        and not gear[i, :3].any()):
+      wrapprd[i] = 2 * np.pi * np.linalg.norm(gear[i, 3:6])
+    elif trn in (TrnType.JOINT, TrnType.JOINTINPARENT) and int(
+        mjm.jnt_type[mjm.actuator_trnid[i, 0]]) == JointType.BALL:
+      wrapprd[i] = 2 * np.pi * np.linalg.norm(gear[i, :3])
+  return dyn, gain, bias, wrapprd
+
+
+# the activation dynamics, gains and biases the port computes
+# (ops/actuation.py); the DC motor, PID, SO3 and USER types wait for A8's
+# rest
+_DYN = (DynType.NONE, DynType.INTEGRATOR, DynType.FILTER,
+        DynType.FILTEREXACT, DynType.MUSCLE)
+_GAIN = (GainType.FIXED, GainType.AFFINE, GainType.MUSCLE)
+_BIAS = (BiasType.NONE, BiasType.AFFINE, BiasType.MUSCLE)
+# sensors ops/sensor.py does not compute: the ray and geom-distance
+# sensors, contact and tactile sensors, plugins and user callbacks
+_SENSOR_REFUSED = (SensorType.RANGEFINDER, SensorType.GEOMDIST,
+                   SensorType.GEOMNORMAL, SensorType.GEOMFROMTO,
+                   SensorType.CONTACT, SensorType.TACTILE,
+                   SensorType.PLUGIN, SensorType.USER)
+
+
+def _sensor_meta(mjm: Any) -> dict:
+  """Sensor tables with the mjtSensor, mjtObj, mjtDataType and mjtStage
+  values remapped to the port's by NAME, as ``_actuator_meta`` remaps the
+  actuator enums; a sensor outside the port's set, a delayed or
+  interval sensor raises by name."""
+  import mujoco
+
+  def remap(enum_cls, mj_enum, prefix, values):
+    table = {int(v): enum_cls[k[len(prefix):]].value
+             for k, v in mj_enum.__members__.items()
+             if k[len(prefix):] in enum_cls.__members__}
+    return np.array([table[int(t)] if int(t) in table else int(t)
+                     for t in values], np.int32).reshape(-1)
+
+  n = int(mjm.nsensor)
+  stype = remap(SensorType, mujoco.mjtSensor, "mjSENS_", mjm.sensor_type)
+  delay = np.asarray(getattr(mjm, "sensor_delay", np.zeros(n)))
+  interval = np.asarray(getattr(mjm, "sensor_interval",
+                                np.zeros((n, 2)))).reshape(n, 2)
+  for i in range(n):
+    t = SensorType(int(stype[i]))
+    if t in _SENSOR_REFUSED:
+      raise NotImplementedError(f"sensor {i}: sensor {t.name}")
+    if float(delay[i]) != 0.0:
+      raise NotImplementedError(f"sensor {i}: sensor delay")
+    if float(interval[i, 0]) != 0.0:
+      raise NotImplementedError(f"sensor {i}: sensor interval")
+  si = lambda x: np.asarray(x, dtype=np.int32).reshape(-1)
+  return {
+      "sensor_type": stype,
+      "sensor_datatype": remap(DataType, mujoco.mjtDataType, "mjDATATYPE_",
+                               mjm.sensor_datatype),
+      "sensor_needstage": remap(Stage, mujoco.mjtStage, "mjSTAGE_",
+                                mjm.sensor_needstage),
+      "sensor_objtype": remap(ObjType, mujoco.mjtObj, "mjOBJ_",
+                              mjm.sensor_objtype),
+      "sensor_reftype": remap(ObjType, mujoco.mjtObj, "mjOBJ_",
+                              mjm.sensor_reftype),
+      "sensor_objid": si(mjm.sensor_objid),
+      "sensor_refid": si(mjm.sensor_refid),
+      "sensor_adr": si(mjm.sensor_adr), "sensor_dim": si(mjm.sensor_dim),
+      "sensor_cutoff": np.asarray(mjm.sensor_cutoff,
+                                  np.float64).reshape(-1)}
 
 
 def _check_subset(mjm: Any) -> None:
   """Reject every feature the port does not implement yet."""
-  counts = [("sensors", mjm.nsensor), ("flex", getattr(mjm, "nflex", 0)),
+  counts = [("flex", getattr(mjm, "nflex", 0)),
             ("history buffers", getattr(mjm, "nhistory", 0))]
   for name, n in counts:
     if int(n):
       raise NotImplementedError(name)
   opt = mjm.opt
-  if int(opt.enableflags) & EnableBit.ENERGY:
-    raise NotImplementedError("energy")
   if opt.density > 0 or opt.viscosity > 0:
     raise NotImplementedError("fluid forces")
   if np.any(np.asarray(getattr(mjm, "jnt_actgravcomp", [0]))):
@@ -484,7 +567,7 @@ def model_numpy(mjm: Any) -> dict:
   _check_subset(mjm)
   jx = lambda x: np.asarray(x, dtype=np.float64)
   si = lambda x: np.asarray(x, dtype=np.int32)
-  dyn, gain, bias = _actuator_meta(mjm)
+  dyn, gain, bias, wrapprd = _actuator_meta(mjm)
   con = _contact_meta(mjm)
   efc = _efc_meta(mjm, con)
   f = {
@@ -493,11 +576,13 @@ def model_numpy(mjm: Any) -> dict:
       "nsite": mjm.nsite, "neq": mjm.neq, "ncam": mjm.ncam,
       "nlight": mjm.nlight, "ntendon": mjm.ntendon, "nwrap": mjm.nwrap,
       "nmocap": mjm.nmocap, "ntree": int(mjm.ntree),
-      "nhfield": int(mjm.nhfield),
+      "nhfield": int(mjm.nhfield), "nsensor": int(mjm.nsensor),
+      "nsensordata": int(mjm.nsensordata),
       "has_dof_damping": bool(np.any(np.asarray(mjm.dof_damping) > 0)),
       "has_tendon_armature": bool(np.any(np.asarray(getattr(
           mjm, "tendon_armature", np.zeros(mjm.ntendon))) > 0)),
       "opt.timestep": jx(mjm.opt.timestep), "opt.gravity": jx(mjm.opt.gravity),
+      "opt.magnetic": jx(mjm.opt.magnetic),
       "opt.impratio": jx(mjm.opt.impratio),
       "opt.tolerance": jx(mjm.opt.tolerance),
       "opt.sleep_tolerance": jx(mjm.opt.sleep_tolerance),
@@ -530,6 +615,8 @@ def model_numpy(mjm: Any) -> dict:
                "jnt_actfrclimited", "dof_bodyid", "dof_jntid", "dof_parentid",
                "geom_type", "geom_contype", "geom_conaffinity", "geom_condim",
                "geom_bodyid", "geom_priority", "geom_dataid", "site_bodyid",
+               "site_type", "actuator_actadr", "actuator_actnum",
+               "actuator_actlimited", "actuator_actearly",
                "actuator_trntype", "actuator_trnid", "actuator_ctrllimited",
                "actuator_forcelimited", "pair_dim", "pair_geom1",
                "pair_geom2", "eq_type", "eq_obj1id", "eq_obj2id",
@@ -543,7 +630,10 @@ def model_numpy(mjm: Any) -> dict:
                "jnt_actfrcrange", "jnt_margin", "dof_armature", "dof_damping",
                "dof_invweight0", "geom_solmix", "geom_solref", "geom_solimp",
                "geom_size", "geom_pos", "geom_quat", "geom_friction",
-               "geom_margin", "geom_rbound", "dof_length", "site_pos", "site_quat", "actuator_gainprm",
+               "geom_margin", "geom_rbound", "dof_length", "site_pos",
+               "site_quat", "site_size", "cam_fovy", "cam_intrinsic",
+               "cam_sensorsize", "actuator_dynprm", "actuator_actrange",
+               "actuator_lengthrange", "actuator_acc0", "actuator_gainprm",
                "actuator_biasprm", "actuator_ctrlrange", "actuator_forcerange",
                "actuator_gear", "dof_frictionloss", "dof_solref",
                "dof_solimp", "pair_friction", "pair_solref",
@@ -561,6 +651,9 @@ def model_numpy(mjm: Any) -> dict:
                                     np.zeros(mjm.ntendon)))
   f["wrap_sideid"] = np.round(np.asarray(mjm.wrap_prm)).astype(np.int32)
   f["cam_mat0"] = jx(mjm.cam_mat0).reshape(-1, 3, 3)
+  f["cam_resolution"] = si(mjm.cam_resolution).reshape(-1, 2)
+  f["actuator_wrapprd"] = wrapprd
+  f.update(_sensor_meta(mjm))
   f.update(_asset_fields(mjm))
   f["eq_active0"] = np.array(mjm.eq_active0, dtype=bool)
   f["actuator_dyntype"], f["actuator_gaintype"], f["actuator_biastype"] = (
@@ -735,7 +828,10 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       warning=torch.zeros((1, 2), dtype=torch.int32, device=dev),
       # fully awake (mj_resetData; mujoco_tpu/models/io.py:1782-1786)
       tree_asleep=torch.full((1, m.ntree), -11, dtype=torch.int32,
-                             device=dev))
+                             device=dev),
+      cacc=z(nb, 6), cfrc_int=z(nb, 6), cfrc_ext=z(nb, 6),
+      subtree_linvel=z(nb, 3), subtree_angmom=z(nb, 3),
+      sensordata=z(m.nsensordata), energy=z(2))
 
 
 def data_from_numpy(m: Model, fields: dict) -> Data:

@@ -963,6 +963,272 @@ def replicate_mj(n: int, spacing: float = 1.5):
   return parent.compile()
 
 
+# the sensor and activation scenes (zoo.SENSORS). tests/test_sensor.py:21
+# (SENSOR_XML) as it is: a pendulum with every position- and velocity-stage
+# family that needs no contact, and force, torque and accelerometer
+SENSOR_SUITE_XML = """
+<mujoco>
+  <option timestep="0.002" gravity="0 0 -9.81"/>
+  <worldbody>
+    <body name="b1" pos="0 0 1.2">
+      <joint name="swing" type="hinge" axis="0 1 0" damping="0.08"/>
+      <geom name="g1" type="capsule" size="0.04" fromto="0 0 0 0 0 -0.55"
+            density="900"/>
+      <site name="tip" pos="0 0 -0.55"/>
+      <body name="b2" pos="0 0 -0.55">
+        <joint name="elbow" type="hinge" axis="0 1 0" stiffness="1.5"
+               springref="0.3" damping="0.02"/>
+        <geom name="g2" type="capsule" size="0.03" fromto="0 0 0 0.02 0 -0.4"/>
+        <site name="tip2" pos="0.02 0 -0.4"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor name="mot" joint="swing" gear="12"/>
+  </actuator>
+  <sensor>
+    <jointpos joint="swing"/>
+    <jointvel joint="elbow"/>
+    <actuatorpos actuator="mot"/>
+    <actuatorvel actuator="mot"/>
+    <actuatorfrc actuator="mot"/>
+    <jointactuatorfrc joint="swing"/>
+    <framepos objtype="site" objname="tip"/>
+    <framepos objtype="body" objname="b2" reftype="site" refname="tip"/>
+    <framequat objtype="body" objname="b2"/>
+    <framequat objtype="xbody" objname="b2" reftype="xbody" refname="b1"/>
+    <framexaxis objtype="site" objname="tip"/>
+    <framezaxis objtype="geom" objname="g2" reftype="body" refname="b1"/>
+    <framelinvel objtype="site" objname="tip2"/>
+    <frameangvel objtype="body" objname="b2"/>
+    <framelinvel objtype="site" objname="tip2" reftype="body" refname="b1"/>
+    <framelinacc objtype="site" objname="tip2"/>
+    <frameangacc objtype="body" objname="b2"/>
+    <subtreecom body="b1"/>
+    <subtreelinvel body="b1"/>
+    <subtreeangmom body="b1"/>
+    <velocimeter site="tip2"/>
+    <gyro site="tip2"/>
+    <accelerometer site="tip2"/>
+    <force site="tip"/>
+    <torque site="tip"/>
+    <magnetometer site="tip"/>
+    <e_potential/>
+    <e_kinetic/>
+    <clock/>
+  </sensor>
+</mujoco>
+"""
+
+# tests/test_sensor.py:76 (CONTACT_SENSOR_XML) with its <rangefinder> line
+# removed (the ray sensors wait for the ray slice): a ball on the floor
+# with a touch zone, and a limited hinge's limit sensors
+CONTACT_SENSORS_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="4 4 0.1"/>
+    <body pos="0 0 0.08">
+      <freejoint/>
+      <geom name="ball" type="sphere" size="0.1"/>
+      <site name="zone" type="sphere" size="0.15"/>
+      <site name="rf" pos="0 0 0.0" zaxis="0 0 -1"/>
+    </body>
+    <body pos="1 0 0.5">
+      <joint name="lim" type="hinge" axis="0 1 0" range="-0.2 0.2"
+             limited="true"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+    </body>
+  </worldbody>
+  <sensor>
+    <touch site="zone"/>
+    <jointlimitpos joint="lim"/>
+    <jointlimitvel joint="lim"/>
+    <jointlimitfrc joint="lim"/>
+  </sensor>
+</mujoco>
+"""
+
+# tests/test_sensor.py:174 (CAMERA_XML): frame sensors of a camera and a
+# camera projection
+CAMERA_SENSORS_XML = """
+<mujoco>
+  <worldbody>
+    <body name="b1" pos="0 0 1">
+      <joint type="hinge" axis="0 1 0"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.4 0 0"/>
+      <site name="tip" pos="0.4 0 0"/>
+      <camera name="onbody" pos="0.1 0.2 0.05" euler="30 10 0"/>
+    </body>
+    <camera name="tracker" mode="trackcom" target="b1" pos="1 1 2"/>
+    <camera name="targeter" mode="targetbody" target="b1" pos="1.5 -1 1.8"/>
+    <light name="l1" mode="targetbodycom" target="b1" pos="0 0 3"/>
+  </worldbody>
+  <sensor>
+    <framepos objtype="camera" objname="onbody"/>
+    <framequat objtype="camera" objname="onbody"/>
+    <framelinvel objtype="camera" objname="onbody"/>
+    <camprojection site="tip" camera="targeter"/>
+  </sensor>
+</mujoco>
+"""
+
+# tests/test_muscle.py:13 (MUSCLE_XML): two muscles on a limited hinge
+MUSCLE_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint name="j1" type="hinge" axis="0 1 0" range="-60 60"
+             limited="true" damping="0.05"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.4 0 0" contype="0"
+            conaffinity="0"/>
+      <site name="s1" pos="0.38 0 0.03"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <muscle name="m1" joint="j1" force="120"/>
+    <muscle name="m2" joint="j1" scale="180" lmin="0.4" lmax="1.7"
+            vmax="1.2" fpmax="1.1" fvmax="1.3" timeconst="0.012 0.045"/>
+  </actuator>
+</mujoco>
+"""
+
+# one actuator of each admitted activation dynamics, written for the
+# port's tests: an integrated-velocity servo (INTEGRATOR, actrange), a
+# FILTER, a FILTEREXACT with actearly, and a MUSCLE on a spatial tendon,
+# with the sensors of their activations' effects
+ACTIVATIONS_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint name="j1" type="hinge" axis="0 1 0" range="-1 1"
+             limited="true" damping="0.1"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0" contype="0"
+            conaffinity="0"/>
+      <site name="s0" pos="0.02 0 0.05"/>
+      <body pos="0.3 0 0">
+        <joint name="j2" type="hinge" axis="0 1 0" damping="0.05"/>
+        <geom type="capsule" size="0.025" fromto="0 0 0 0.25 0 0"
+              contype="0" conaffinity="0"/>
+        <site name="s1" pos="0.2 0 0.03"/>
+        <body pos="0.25 0 0">
+          <joint name="j3" type="slide" axis="1 0 0" damping="0.5"/>
+          <geom type="sphere" size="0.04" contype="0" conaffinity="0"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="t1"><site site="s0"/><site site="s1"/></spatial>
+  </tendon>
+  <actuator>
+    <intvelocity name="iv" joint="j1" kp="20" actrange="-0.8 0.8"/>
+    <general name="flt" joint="j2" dyntype="filter" dynprm="0.05"
+             gainprm="3"/>
+    <general name="fex" joint="j3" dyntype="filterexact" dynprm="0.03"
+             gainprm="5" actearly="true"/>
+    <muscle name="mus" tendon="t1" force="40"/>
+  </actuator>
+  <sensor>
+    <actuatorfrc actuator="iv"/>
+    <actuatorfrc actuator="mus"/>
+    <tendonpos tendon="t1"/>
+    <tendonvel tendon="t1"/>
+    <tendonactuatorfrc tendon="t1"/>
+    <actuatorpos actuator="fex"/>
+    <actuatorvel actuator="fex"/>
+  </sensor>
+</mujoco>
+"""
+
+# the humanoid's 21 hinges (humanoid.xml order)
+_HUMANOID_HINGES = (
+    "waist_twist", "waist_bend", "waist_side", "hip_r_x", "hip_r_z",
+    "hip_r_y", "knee_r", "ankle_r_y", "ankle_r_x", "hip_l_x", "hip_l_z",
+    "hip_l_y", "knee_l", "ankle_l_y", "ankle_l_x", "shoulder_r_1",
+    "shoulder_r_2", "elbow_r", "shoulder_l_1", "shoulder_l_2", "elbow_l")
+
+
+def humanoid_sensors_mj():
+  """The flagship humanoid at full width (nv 27, its contacts and
+  options: Newton at 1 iteration and 4 linesearch steps, Euler) with a
+  sensor suite in the style of the DeepMind Control Suite humanoid and
+  filtered actuators, built with the pip mujoco's MjSpec from
+  ``mujoco_tpu/models/assets/humanoid.xml`` (the file is not edited).
+  The changes from humanoid.xml:
+
+  - each of the 21 motors gets dyntype FILTEREXACT with dynprm[0] = 0.02,
+    a 20 ms action filter (na 21), and its joint's name;
+  - sites: ``torso`` at the root body's origin, ``ankle_r``/``ankle_l``
+    at the feet's origins, ``hand_r``/``hand_l`` at the fists' centers
+    on the lower arms, and ``foot_r_touch``/``foot_l_touch``, boxes that
+    enclose each foot's sole capsule by 0.02;
+  - sensors (87, 126 values): jointpos and jointvel of the 21 hinges and
+    actuatorfrc of the 21 actuators; framepos, framequat and framezaxis of
+    the root's body frame, framelinvel, frameangvel, framelinacc and
+    frameangacc of its joint frame (xbody); subtreecom, subtreelinvel and
+    subtreeangmom of the root; accelerometer, velocimeter and gyro at
+    ``torso``; force and torque at both ankles; touch on both feet;
+    framepos of both hands relative to ``torso``; jointlimitfrc of both
+    knees; clock."""
+  import mujoco
+  spec = mujoco.MjSpec.from_file(os.path.join(zoo.XML_DIR, "humanoid.xml"))
+  for act in spec.actuators:
+    act.name = act.target
+    act.dyntype = mujoco.mjtDyn.mjDYN_FILTEREXACT
+    act.dynprm[0] = 0.02
+  box = mujoco.mjtGeom.mjGEOM_BOX
+  spec.body("root").add_site(name="torso")
+  for side in ("r", "l"):
+    foot = spec.body(f"foot_{side}")
+    foot.add_site(name=f"ankle_{side}")
+    # the sole capsule runs x −0.045..0.13 at radius 0.0465
+    foot.add_site(name=f"foot_{side}_touch", type=box, pos=[0.0425, 0, 0],
+                  size=[0.0875 + 0.0465 + 0.02, 0.0465 + 0.02,
+                        0.0465 + 0.02])
+    sgn = 1 if side == "r" else -1
+    spec.body(f"larm_{side}").add_site(
+        name=f"hand_{side}", pos=[0.185, sgn * 0.185, 0.185])
+  S, O = mujoco.mjtSensor, mujoco.mjtObj
+
+  def add(stype, objtype=O.mjOBJ_UNKNOWN, objname="", reftype=None,
+          refname=""):
+    sen = spec.add_sensor(type=stype, objtype=objtype, objname=objname)
+    if reftype is not None:
+      sen.reftype, sen.refname = reftype, refname
+
+  for stype in (S.mjSENS_JOINTPOS, S.mjSENS_JOINTVEL):
+    for j in _HUMANOID_HINGES:
+      add(stype, O.mjOBJ_JOINT, j)
+  for act in spec.actuators:
+    add(S.mjSENS_ACTUATORFRC, O.mjOBJ_ACTUATOR, act.name)
+  for stype in (S.mjSENS_FRAMEPOS, S.mjSENS_FRAMEQUAT, S.mjSENS_FRAMEZAXIS):
+    add(stype, O.mjOBJ_BODY, "root")
+  for stype in (S.mjSENS_FRAMELINVEL, S.mjSENS_FRAMEANGVEL,
+                S.mjSENS_FRAMELINACC, S.mjSENS_FRAMEANGACC):
+    add(stype, O.mjOBJ_XBODY, "root")
+  for stype in (S.mjSENS_SUBTREECOM, S.mjSENS_SUBTREELINVEL,
+                S.mjSENS_SUBTREEANGMOM):
+    add(stype, O.mjOBJ_BODY, "root")
+  for stype in (S.mjSENS_ACCELEROMETER, S.mjSENS_VELOCIMETER,
+                S.mjSENS_GYRO):
+    add(stype, O.mjOBJ_SITE, "torso")
+  for side in ("r", "l"):
+    add(S.mjSENS_FORCE, O.mjOBJ_SITE, f"ankle_{side}")
+    add(S.mjSENS_TORQUE, O.mjOBJ_SITE, f"ankle_{side}")
+  for side in ("r", "l"):
+    add(S.mjSENS_TOUCH, O.mjOBJ_SITE, f"foot_{side}_touch")
+  for side in ("r", "l"):
+    add(S.mjSENS_FRAMEPOS, O.mjOBJ_SITE, f"hand_{side}", O.mjOBJ_SITE,
+        "torso")
+  for side in ("r", "l"):
+    add(S.mjSENS_JOINTLIMITFRC, O.mjOBJ_JOINT, f"knee_{side}")
+  add(S.mjSENS_CLOCK)
+  return spec.compile()
+
+
 # the many-body scenes keep constraint islands enabled
 _MANY_BODY = {"multi_humanoid10": lambda: multi_humanoid_mj(10),
               "multi_humanoid10_sleep": lambda: multi_humanoid_mj(
@@ -988,7 +1254,11 @@ _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "servo": SERVO_XML, "freebody": FREEBODY_XML,
            "chain_3d": CHAIN_3D_XML, "balls_elliptic": BALLS_ELLIPTIC_XML,
            "sleep_stack": SLEEP_STACK_XML,
-           "sleep_equality": SLEEP_EQUALITY_XML}
+           "sleep_equality": SLEEP_EQUALITY_XML,
+           "sensor_suite": SENSOR_SUITE_XML,
+           "contact_sensors": CONTACT_SENSORS_XML,
+           "camera_sensors": CAMERA_SENSORS_XML, "muscle": MUSCLE_XML,
+           "activations": ACTIVATIONS_XML}
 _FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
               "humanoid_elliptic": humanoid_elliptic_xml, **_CONVEX}
 
@@ -998,6 +1268,10 @@ def compile_mj(name: str):
   import mujoco
   if name in _MANY_BODY:
     return _MANY_BODY[name]()
+  if name == "humanoid_sensors":
+    mjm = humanoid_sensors_mj()
+    mjm.opt.disableflags |= int(DisableBit.ISLAND)
+    return mjm
   if name in _SCENES or name in _FROM_FILE:
     xml = _FROM_FILE[name]() if name in _FROM_FILE else _SCENES[name]
     mjm = mujoco.MjModel.from_xml_string(xml)

@@ -7,8 +7,10 @@ carry only the fields the port's stages read or write: the rigid-body
 constraint class (equality, friction-loss, limit and contact rows, explicit
 pairs, cameras and lights), tendons, site and slider-crank transmissions,
 mocap bodies, the many-body fields (kinematic trees, dynamic pair
-groups, sleep), and the meshes and height fields of the narrowphase
-(:720-736, :751-755); later slices add the rest with their modules. Field
+groups, sleep), the meshes and height fields of the narrowphase
+(:720-736, :751-755), and the sensors and activation state (:687-718,
+:851-869; Data :1034-1042); later slices add the rest with their
+modules. Field
 names are the reference's, so a field here and the same-named field of a
 ``mujoco_tpu`` Model or Data hold the same quantity.
 
@@ -123,6 +125,101 @@ class BiasType(enum.IntEnum):
   USER = 5
 
 
+class SensorType(enum.IntEnum):
+  """mjtSensor (mujoco_tpu/models/types.py:174)."""
+  TOUCH = 0
+  ACCELEROMETER = 1
+  VELOCIMETER = 2
+  GYRO = 3
+  FORCE = 4
+  TORQUE = 5
+  MAGNETOMETER = 6
+  RANGEFINDER = 7
+  CAMPROJECTION = 8
+  JOINTPOS = 9
+  JOINTVEL = 10
+  TENDONPOS = 11
+  TENDONVEL = 12
+  ACTUATORPOS = 13
+  ACTUATORVEL = 14
+  ACTUATORFRC = 15
+  JOINTACTFRC = 16
+  TENDONACTFRC = 17
+  BALLQUAT = 18
+  BALLANGVEL = 19
+  JOINTLIMITPOS = 20
+  JOINTLIMITVEL = 21
+  JOINTLIMITFRC = 22
+  TENDONLIMITPOS = 23
+  TENDONLIMITVEL = 24
+  TENDONLIMITFRC = 25
+  FRAMEPOS = 26
+  FRAMEQUAT = 27
+  FRAMEXAXIS = 28
+  FRAMEYAXIS = 29
+  FRAMEZAXIS = 30
+  FRAMELINVEL = 31
+  FRAMEANGVEL = 32
+  FRAMELINACC = 33
+  FRAMEANGACC = 34
+  SUBTREECOM = 35
+  SUBTREELINVEL = 36
+  SUBTREEANGMOM = 37
+  INSIDESITE = 38
+  GEOMDIST = 39
+  GEOMNORMAL = 40
+  GEOMFROMTO = 41
+  CONTACT = 42
+  E_POTENTIAL = 43
+  E_KINETIC = 44
+  CLOCK = 45
+  TACTILE = 46
+  PLUGIN = 47
+  USER = 48
+
+
+class ObjType(enum.IntEnum):
+  """mjtObj, the part sensors and equalities name (mujoco_tpu/models/
+  types.py:227)."""
+  UNKNOWN = 0
+  BODY = 1
+  XBODY = 2
+  JOINT = 3
+  DOF = 4
+  GEOM = 5
+  SITE = 6
+  CAMERA = 7
+  LIGHT = 8
+  FLEX = 9
+  MESH = 10
+  SKIN = 11
+  HFIELD = 12
+  TEXTURE = 13
+  MATERIAL = 14
+  PAIR = 15
+  EXCLUDE = 16
+  EQUALITY = 17
+  TENDON = 18
+  ACTUATOR = 19
+  SENSOR = 20
+
+
+class DataType(enum.IntEnum):
+  """mjtDataType: how a sensor's cutoff applies."""
+  REAL = 0
+  POSITIVE = 1
+  AXIS = 2
+  QUATERNION = 3
+
+
+class Stage(enum.IntEnum):
+  """mjtStage: the forward stage a sensor needs."""
+  NONE = 0
+  POS = 1
+  VEL = 2
+  ACC = 3
+
+
 class WrapType(enum.IntEnum):
   JOINT = 1
   PULLEY = 2
@@ -168,6 +265,7 @@ class Option:
   """Physics options (mjOption subset)."""
   timestep: torch.Tensor = field()
   gravity: torch.Tensor = field()          # (3,)
+  magnetic: torch.Tensor = field()         # (3,)
   impratio: torch.Tensor = field()
   tolerance: torch.Tensor = field()
   sleep_tolerance: torch.Tensor = field()
@@ -256,6 +354,8 @@ class Model:
   nmocap: int = static_field()
   ntree: int = static_field()
   nhfield: int = static_field()
+  nsensor: int = static_field()
+  nsensordata: int = static_field()
   has_dof_damping: bool = static_field()
   has_tendon_armature: bool = static_field()
 
@@ -339,8 +439,10 @@ class Model:
   geom_rbound: torch.Tensor = field()
 
   site_bodyid: np.ndarray = static_field()
+  site_type: np.ndarray = static_field()
   site_pos: torch.Tensor = field()
   site_quat: torch.Tensor = field()
+  site_size: torch.Tensor = field()
 
   pair_dim: np.ndarray = static_field()
   pair_geom1: np.ndarray = static_field()
@@ -369,6 +471,10 @@ class Model:
   cam_pos0: torch.Tensor = field()
   cam_poscom0: torch.Tensor = field()
   cam_mat0: torch.Tensor = field()         # (ncam, 3, 3)
+  cam_resolution: np.ndarray = static_field()  # (ncam, 2) pixels
+  cam_fovy: torch.Tensor = field()
+  cam_intrinsic: torch.Tensor = field()    # (ncam, 4)
+  cam_sensorsize: torch.Tensor = field()   # (ncam, 2)
   light_bodyid: np.ndarray = static_field()
   light_targetbodyid: np.ndarray = static_field()
   light_mode: np.ndarray = static_field()
@@ -392,6 +498,20 @@ class Model:
   actuator_forcerange: torch.Tensor = field()
   actuator_gear: torch.Tensor = field()
   actuator_cranklength: torch.Tensor = field()
+  # activation state (mujoco_tpu/models/types.py:687-718): each actuator's
+  # slots in act (actnum 0 for a stateless one), the dynamics parameters,
+  # the activation clamp, actearly (the force reads the next step's act),
+  # the muscle's length range and acc0, and the setpoint wrap period of a
+  # rotational servo (0: none)
+  actuator_actadr: np.ndarray = static_field()
+  actuator_actnum: np.ndarray = static_field()
+  actuator_actlimited: np.ndarray = static_field()
+  actuator_actearly: np.ndarray = static_field()
+  actuator_wrapprd: np.ndarray = static_field()
+  actuator_dynprm: torch.Tensor = field()
+  actuator_actrange: torch.Tensor = field()
+  actuator_lengthrange: torch.Tensor = field()
+  actuator_acc0: torch.Tensor = field()
   # tendons: path addresses and wrap objects (static), parameters (tensors)
   tendon_adr: np.ndarray = static_field()
   tendon_num: np.ndarray = static_field()
@@ -436,6 +556,20 @@ class Model:
   hfield_ncol: np.ndarray = static_field()
   hfield_size_np: np.ndarray = static_field()     # (nhfield, 4)
   hfield_data: torch.Tensor = field()             # (nhfielddata,)
+
+  # sensors (mujoco_tpu/models/types.py:851-869): mjtSensor, mjtDataType,
+  # mjtStage and mjtObj values, each sensor's object and reference (−1:
+  # none) and its span of sensordata
+  sensor_type: np.ndarray = static_field()
+  sensor_datatype: np.ndarray = static_field()
+  sensor_needstage: np.ndarray = static_field()
+  sensor_objtype: np.ndarray = static_field()
+  sensor_objid: np.ndarray = static_field()
+  sensor_reftype: np.ndarray = static_field()
+  sensor_refid: np.ndarray = static_field()
+  sensor_adr: np.ndarray = static_field()
+  sensor_dim: np.ndarray = static_field()
+  sensor_cutoff: torch.Tensor = field()
 
   names: dict = static_field()
 
@@ -528,7 +662,7 @@ class Data:
   qfrc_passive: torch.Tensor = field()
 
   # actuation stage
-  act_dot: torch.Tensor = field()
+  act_dot: torch.Tensor = field()        # (B, na)
   actuator_force: torch.Tensor = field()
   qfrc_actuator: torch.Tensor = field()
 
@@ -556,3 +690,14 @@ class Data:
   # per-tree sleep state (mujoco_tpu/models/types.py:1054-1059): < 0 awake
   # countdown (−11 fully awake), ≥ 0 asleep, holding the island's label
   tree_asleep: torch.Tensor = field()    # (B, ntree) int32
+
+  # sensor stages (mujoco_tpu/models/types.py:1034-1042): the bodies'
+  # post-constraint accelerations and forces, subtree momenta, the
+  # sensor values and [potential, kinetic] energy
+  cacc: torch.Tensor = field()           # (B, nbody, 6)
+  cfrc_int: torch.Tensor = field()       # (B, nbody, 6)
+  cfrc_ext: torch.Tensor = field()       # (B, nbody, 6)
+  subtree_linvel: torch.Tensor = field()  # (B, nbody, 3)
+  subtree_angmom: torch.Tensor = field()  # (B, nbody, 3)
+  sensordata: torch.Tensor = field()     # (B, nsensordata)
+  energy: torch.Tensor = field()         # (B, 2)

@@ -27,6 +27,9 @@ constraint islands, dynamic pair groups and sleep: ``multi_humanoid10``
 (the same with sleep), ``replicate4`` (four self-colliding humanoids) and
 two small sleep scenes. ``CONVEX`` are the scenes of the box-box, MPR,
 mesh and height-field colliders, ``rock`` (a 1,000-vertex mesh) first.
+``SENSORS`` are the scenes of sensors and activation state,
+``humanoid_sensors`` (the flagship with a sensor suite and 20 ms action
+filters) first.
 """
 
 from __future__ import annotations
@@ -95,10 +98,16 @@ CONVEX = ("rock", "box_pile", "grasp", "cube_mesh_on_box", "cylinder_on_box",
           "convex_case0", "convex_case1", "convex_case2", "convex_case3",
           "cyl_plane", "ell_plane", "sph_cyl", "box_box", "mesh_plane",
           "hfield_bowl", "sleep_box_stack", "two_box_open")
+# sensors and activation state: the flagship humanoid with a sensor suite
+# and 20 ms action filters (the slice's full-width model), the
+# reference's sensor, contact-sensor, camera-sensor and muscle scenes, and
+# one actuator of each admitted activation dynamics
+SENSORS = ("humanoid_sensors", "sensor_suite", "contact_sensors",
+           "camera_sensors", "muscle", "activations")
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
-             + ("humanoid_elliptic",) + MANY_BODY + CONVEX)
+             + ("humanoid_elliptic",) + MANY_BODY + CONVEX + SENSORS)
 # carried across from the reference's Model (tests/test_torch_model.py)
 CARRIED = ("multi_humanoid3",)
 

@@ -5,8 +5,8 @@ mujoco_tpu/ops/derivative.py: ``actuator_vel`` :27, ``passive_vel`` :121,
 
 qDeriv = ∂(qfrc_actuator + qfrc_passive − qfrc_bias)/∂qvel, dense
 (B, nv, nv). The actuator and passive terms are closed forms over what
-``io.put_model`` admits: FIXED/AFFINE gains and NONE/AFFINE biases without
-activation state, dof and tendon damping. The RNE term is the derivative
+``io.put_model`` admits: FIXED, AFFINE and MUSCLE gains times ctrl or the
+activation, AFFINE biases, dof and tendon damping. The RNE term is the derivative
 of the port's own ``smooth.com_vel`` and ``smooth.rne`` with respect to
 qvel, by automatic differentiation as the reference takes it with
 ``jax.jacfwd``: here reverse mode over a batch grown k-fold, one
@@ -21,8 +21,8 @@ import torch
 
 from mujoco_tpu_torch.models.types import (BiasType, Data, DisableBit,
                                            GainType, JointType, Model)
-from mujoco_tpu_torch.ops import smooth
-from mujoco_tpu_torch.utils.device import const
+from mujoco_tpu_torch.ops import actuation, muscle, smooth
+from mujoco_tpu_torch.utils.device import const, index
 
 
 def wants_graph(m: Model, d: Data) -> bool:
@@ -36,9 +36,11 @@ def wants_graph(m: Model, d: Data) -> bool:
 
 
 def actuator_vel(m: Model, d: Data):
-  """∂qfrc_actuator/∂qvel (mjd_actuator_vel): momentᵀ·diag(gain_vel·ctrl
-  + bias_vel)·moment, zero for an actuator whose force sits at its
-  limit."""
+  """∂qfrc_actuator/∂qvel (mjd_actuator_vel): momentᵀ·diag(gain_vel·input
+  + bias_vel)·moment, the input ctrl for a stateless actuator, else its
+  activation (the next step's under actearly), and the MUSCLE gain's
+  velocity derivative (mjd_muscleGain_vel); zero for an actuator whose
+  force sits at its limit."""
   nbatch = d.qpos.shape[0]
   if m.nu == 0 or m.disabled(DisableBit.ACTUATION):
     return d.qpos.new_zeros((nbatch, m.nv, m.nv))
@@ -47,12 +49,22 @@ def actuator_vel(m: Model, d: Data):
                          m.actuator_biasprm[:, 2], 0.0)
   gain_vel = torch.where(const(m.actuator_gaintype == GainType.AFFINE, dev),
                          m.actuator_gainprm[:, 2], 0.0)
+  cols = np.nonzero(m.actuator_gaintype == GainType.MUSCLE)[0]
+  if len(cols):
+    c = index(cols, dev)
+    gain_vel = gain_vel.expand(nbatch, -1).index_copy(1, c, muscle.gain_vel(
+        d.actuator_length[:, c], d.actuator_velocity[:, c],
+        m.actuator_lengthrange[c], m.actuator_acc0[c],
+        m.actuator_gainprm[c]))
   ctrl = d.ctrl
   if not m.disabled(DisableBit.CLAMPCTRL):
     rng = m.actuator_ctrlrange
     ctrl = torch.where(const(m.actuator_ctrllimited.astype(bool), dev),
                        torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
-  coef = bias_vel + gain_vel * ctrl
+  inp = ctrl
+  if m.na:
+    inp = actuation.actuator_input(m, d, ctrl, d.act_dot)
+  coef = bias_vel + gain_vel * inp
   f, frange = d.actuator_force, m.actuator_forcerange
   clamped = (const(m.actuator_forcelimited.astype(bool), dev)
              & ((f <= frange[:, 0]) | (f >= frange[:, 1])))

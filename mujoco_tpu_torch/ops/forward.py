@@ -5,15 +5,17 @@ tendons, and the tree factor of qM under CG), ``fwd_velocity`` (:71, with
 ten_velocity and the tendon-armature bias ``_tendon_bias`` :91),
 ``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose M⁻¹·qfrc goes
 through the CUDA LDL kernel, or under CG through the tree factor),
-``fwd_constraint`` (:134), ``forward`` (:152), ``integrate_pos`` (:210),
-``_advance`` (:300), ``euler`` (:416, with implicit joint damping),
-``rungekutta4`` (:437), ``implicit`` (:472, IMPLICIT and IMPLICITFAST, with
+``fwd_constraint`` (:134), ``forward`` (:152, with the energy and sensor
+stages of ``ops/sensor.py``), ``integrate_pos`` (:210), ``_advance``
+(:300, with the activations' advance and the INTEGRATOR setpoint wrap),
+``euler`` (:416, with implicit joint damping), ``rungekutta4`` (:437,
+act in each stage), ``implicit`` (:472, IMPLICIT and IMPLICITFAST, with
 ``ops/derivative.py``) and ``step`` (:515), with the sleep hooks
 (:53-65, :143-147, :327-332) into ``ops/sleep.py``: the wake pass after
 collision, the rows of sleeping trees masked after ``make_constraint``,
 sleeping dofs' qacc zeroed after the solve and the countdown at the top of
-the advance. Sensors, energy and flex are outside the slice;
-``io.put_model`` rejects models that need them.
+the advance. Flex and history are outside the slice; ``io.put_model``
+rejects models that need them.
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import (Data, DisableBit, Integrator,
-                                           JointType, Model, SolverType)
+from mujoco_tpu_torch.models.types import (Data, DisableBit, EnableBit,
+                                           Integrator, JointType, Model,
+                                           SolverType)
 from mujoco_tpu_torch.ops import (actuation, collision_driver, constraint,
-                                  derivative, linalg_cuda, passive, sleep,
-                                  smooth, solver, support)
+                                  derivative, linalg_cuda, passive, sensor,
+                                  sleep, smooth, solver, support)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -133,12 +136,22 @@ def fwd_constraint(m: Model, d: Data) -> Data:
 
 
 def forward(m: Model, d: Data) -> Data:
-  """Full forward dynamics (mj_forward)."""
+  """Full forward dynamics (mj_forward), with the energy and the three
+  sensor stages where the reference runs them (mujoco_tpu/ops/
+  forward.py:158-181)."""
+  energy = m.enabled(EnableBit.ENERGY)
   d = fwd_position(m, d)
+  if energy:
+    d = sensor.energy_pos(m, d)
+  d = sensor.sensor_pos(m, d)
   d = fwd_velocity(m, d)
+  if energy:
+    d = sensor.energy_vel(m, d)
+  d = sensor.sensor_vel(m, d)
   d = fwd_actuation(m, d)
   d = fwd_acceleration(m, d)
-  return fwd_constraint(m, d)
+  d = fwd_constraint(m, d)
+  return sensor.sensor_acc(m, d)
 
 
 def _dof_to_qpos_map(m: Model) -> np.ndarray:
@@ -184,16 +197,20 @@ def integrate_pos(m: Model, qpos, qvel, dt):
   return out
 
 
-def _advance(m: Model, d: Data, qacc, qvel_pos=None) -> Data:
-  """The state advance every integrator ends with (mj_advance): qvel +=
-  h·qacc, qpos by integrate_pos, time += h; d.qacc, and so the next
-  warmstart, stays the solver's acceleration."""
+def _advance(m: Model, d: Data, act_dot, qacc, qvel_pos=None) -> Data:
+  """The state advance every integrator ends with (mj_advance): act by
+  ``next_activation`` with the INTEGRATOR setpoint wrap, qvel += h·qacc,
+  qpos by integrate_pos, time += h; d.qacc, and so the next warmstart,
+  stays the solver's acceleration."""
   h = m.opt.timestep
+  act = actuation.next_activation(m, d.act, act_dot)
   # the sleep countdown first: trees that fall asleep keep qvel 0
   d, qacc = sleep.sleep_step(m, d, qacc)
+  if m.na:
+    act = actuation.wrap_integrators(m, act, d.actuator_length)
   qvel = d.qvel + h * qacc
   qpos = integrate_pos(m, d.qpos, qvel if qvel_pos is None else qvel_pos, h)
-  return d.replace(qvel=qvel, qpos=qpos, time=d.time + h,
+  return d.replace(act=act, qvel=qvel, qpos=qpos, time=d.time + h,
                    qacc_warmstart=d.qacc)
 
 
@@ -213,7 +230,7 @@ def euler(m: Model, d: Data) -> Data:
     acc = linalg_cuda.spd_solve(
         d.qM + torch.diag(h * m.dof_damping),
         (d.qfrc_smooth + d.qfrc_constraint).contiguous())
-  return _advance(m, d, acc)
+  return _advance(m, d, d.act_dot, acc)
 
 
 _RK4_A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
@@ -221,27 +238,33 @@ _RK4_B = (1 / 6, 1 / 3, 1 / 3, 1 / 6)
 
 
 def rungekutta4(m: Model, d: Data) -> Data:
-  """Classic RK4 over (qpos, qvel) (mj_RungeKutta, engine_forward.c:1502):
-  d is the step's forward pass, and three more forward passes run at the
-  stages' states, each built from the state at the step's start. The
-  result keeps d's workspace with the combined state, time + h and
-  qacc_warmstart = d.qacc."""
+  """Classic RK4 over (qpos, qvel, act) (mj_RungeKutta,
+  engine_forward.c:1502): d is the step's forward pass, and three more
+  forward passes run at the stages' states, each built from the state at
+  the step's start. The result keeps d's workspace with the combined
+  state (act by the weighted act_dot, with no clamp, as the reference
+  does), time + h and qacc_warmstart = d.qacc."""
   h = m.opt.timestep
-  qvels, qaccs = [d.qvel], [d.qacc]
+  qvels, qaccs, adots = [d.qvel], [d.qacc], [d.act_dot]
   for i in range(3):
     a = _RK4_A[i]
     dqvel = sum(a[j] * qvels[j] for j in range(i + 1))
     dqacc = sum(a[j] * qaccs[j] for j in range(i + 1))
+    dadot = sum(a[j] * adots[j] for j in range(i + 1))
     di = forward(m, d.replace(qpos=integrate_pos(m, d.qpos, dqvel, h),
                               qvel=d.qvel + h * dqacc,
+                              act=d.act + h * dadot,
                               time=d.time + h * sum(a)))
     qvels.append(di.qvel)
     qaccs.append(di.qacc)
+    adots.append(di.act_dot)
   dqvel = sum(_RK4_B[j] * qvels[j] for j in range(4))
   dqacc = sum(_RK4_B[j] * qaccs[j] for j in range(4))
+  dadot = sum(_RK4_B[j] * adots[j] for j in range(4))
   return d.replace(qpos=integrate_pos(m, d.qpos, dqvel, h),
-                   qvel=d.qvel + h * dqacc, time=d.time + h,
-                   qacc_warmstart=d.qacc)
+                   qvel=d.qvel + h * dqacc,
+                   act=d.act + h * dadot if m.na else d.act,
+                   time=d.time + h, qacc_warmstart=d.qacc)
 
 
 def implicit(m: Model, d: Data) -> Data:
@@ -262,7 +285,7 @@ def implicit(m: Model, d: Data) -> Data:
     qderiv = derivative.smooth_vel(m, d, flg_bias=True)
     qlu = d.qM - h * torch.where(sym, qderiv, 0.0)
     qacc = torch.linalg.solve_ex(qlu, qfrc[..., None])[0][..., 0]
-    return _advance(m, d, qacc)
+    return _advance(m, d, d.act_dot, qacc)
   qderiv0 = torch.where(sym, derivative.smooth_vel(m, d, flg_bias=False),
                         0.0)
   free = derivative.free_body_joints(m)
@@ -280,7 +303,7 @@ def implicit(m: Model, d: Data) -> Data:
     a = derivative.free_mhat(m, d, j, qderiv0)
     block = torch.linalg.solve_ex(a, qfrc[:, adr:adr + 6, None])[0][..., 0]
     qacc = torch.cat([qacc[:, :adr], block, qacc[:, adr + 6:]], dim=1)
-  return _advance(m, d, qacc)
+  return _advance(m, d, d.act_dot, qacc)
 
 
 def step(m: Model, d: Data) -> Data:

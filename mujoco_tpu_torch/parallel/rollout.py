@@ -21,9 +21,10 @@ from mujoco_tpu_torch.models import io
 from mujoco_tpu_torch.models.types import Data, Model
 from mujoco_tpu_torch.ops import forward, megastep_cuda
 
-# the integration state that crosses step boundaries; everything else in
-# Data is workspace that forward() recomputes from it (the reference's list
-# less history, which the port does not carry yet)
+# the integration state that crosses step boundaries, act (the actuators'
+# activations) with it; everything else in Data, sensordata too, is
+# workspace that forward() recomputes from it (the reference's list less
+# history, which the port does not carry yet)
 STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qacc_warmstart",
                 "qacc", "qfrc_applied", "xfrc_applied", "eq_active",
                 "mocap_pos", "mocap_quat", "tree_asleep")

@@ -1,5 +1,5 @@
 """Quaternion and spatial (6D) algebra on tensors with any leading batch
-dims (port of mujoco_tpu/utils/math.py:1-202).
+dims (port of mujoco_tpu/utils/math.py:1-231).
 
 Conventions are the reference's: quaternions (w, x, y, z); spatial vectors
 angular-first, v = (omega; v_lin), f = (torque; force).
@@ -149,3 +149,19 @@ def spatial_inertia(mass, inertia_diag, imat, offset):
   top = torch.cat([icom + m * (cx @ cx.transpose(-1, -2)), m * cx], dim=-1)
   bot = torch.cat([m * cx.transpose(-1, -2), m * eye], dim=-1)
   return torch.cat([top, bot], dim=-2)
+
+
+def transform_spatial(vec, flg_force: bool, newpos, oldpos, rotnew2old=None):
+  """A spatial motion or force vector (angular first) moved from the frame
+  at oldpos to the frame at newpos, and rotated into it where rotnew2old
+  is given (mju_transformSpatial; mujoco_tpu/utils/math.py:217)."""
+  dif = newpos - oldpos
+  ang, lin = vec[..., :3], vec[..., 3:]
+  if flg_force:
+    ang = ang - cross(dif, lin)
+  else:
+    lin = lin - cross(dif, ang)
+  if rotnew2old is not None:
+    ang = (ang[..., None, :] @ rotnew2old)[..., 0, :]
+    lin = (lin[..., None, :] @ rotnew2old)[..., 0, :]
+  return torch.cat([ang, lin], dim=-1)

@@ -784,3 +784,34 @@ def test_collider_card_matches_cpu_f64(cuda, family):
   for i, name in enumerate(names):
     _, _, card, _ = cs.collider_check(name, 200 + i, models)
     assert card[0].is_cuda
+
+
+@pytest.mark.parametrize("name", zoo.SENSORS)
+def test_sensor_scene_card_matches_cpu_f64(cuda, name):
+  """Sensors and activation state: 10 steps at f64 on the card and on the
+  CPU agree to 1e-8 on qpos, qvel, act and sensordata, posed from a numpy
+  seed with random controls and activations (the humanoid's feet 0.02 in
+  the floor, so its contacts and touch sensors act); on the card a step
+  is one LDL and one Newton launch and no megastep."""
+  outs = []
+  for dev in (cuda, torch.device("cpu")):
+    m, d = _general_batch(name, 8, dev, torch.float64)
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    qpos = d.qpos.clone()
+    if name == "humanoid_sensors":
+      qpos[:, 2] -= 0.12
+    d = d.replace(qpos=qpos,
+                  ctrl=t(0.5 * rng.standard_normal(tuple(d.ctrl.shape))),
+                  act=t(0.2 * rng.standard_normal(tuple(d.act.shape))))
+    linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
+    for _ in range(10):
+      d = forward.step(m, d)
+    if dev.type == "cuda" and name == "humanoid_sensors":
+      torch.cuda.synchronize()
+      assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
+              megastep_cuda.LAUNCHES) == (10, 10, 0)
+    outs.append([getattr(d, k).cpu()
+                 for k in ("qpos", "qvel", "act", "sensordata")])
+  for a, b in zip(*outs):
+    torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-8)

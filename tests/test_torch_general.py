@@ -397,13 +397,16 @@ _STILL_RAISE = {
     "transmission BODY": """<mujoco><worldbody><body name="b"><freejoint/>
       <geom size="0.1"/></body></worldbody><actuator>
       <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
-    "sensors": """<mujoco><worldbody><body><joint name="a" type="slide"/>
-      <geom size="0.1"/></body></worldbody><sensor>
-      <jointpos joint="a"/></sensor></mujoco>""",
+    # the ray sensors wait for the ray slice
+    "sensor RANGEFINDER": """<mujoco><worldbody><body>
+      <joint type="slide"/><geom size="0.1"/><site name="s"/></body>
+      </worldbody><sensor><rangefinder site="s"/></sensor></mujoco>""",
+    # the DC motor waits for A8's rest (filter dynamics load since the
+    # sensor and activation slice)
     "activation dynamics": """<mujoco><worldbody><body>
       <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
-      </worldbody><actuator><general joint="a" dyntype="filter"
-      dynprm="0.1"/></actuator></mujoco>""",
+      </worldbody><actuator><dcmotor joint="a" motorconst="0.05"
+      resistance="2"/></actuator></mujoco>""",
 }
 
 
@@ -442,6 +445,13 @@ _WIDENED = {
     "sleep": """<mujoco><option><flag sleep="enable"/></option><worldbody>
       <geom type="plane" size="1 1 1"/><body><freejoint/>
       <geom size="0.1"/></body></worldbody></mujoco>""",
+    "sensors": """<mujoco><worldbody><body><joint name="a" type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor>
+      <jointpos joint="a"/></sensor></mujoco>""",
+    "activation dynamics": """<mujoco><worldbody><body>
+      <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
+      </worldbody><actuator><general joint="a" dyntype="filter"
+      dynprm="0.1"/></actuator></mujoco>""",
 }
 # what each many-body case holds once loaded: (dynamic groups, trees,
 # sleep enabled)
@@ -453,7 +463,8 @@ _MANY_BODY = {"dynamic pair groups": (1, 11, False),
 def test_widened_gates_load(feature):
   mjm = mujoco.MjModel.from_xml_string(_WIDENED[feature])
   m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
-  assert (m.ntendon, m.nmocap) == (int(mjm.ntendon), int(mjm.nmocap))
+  assert (m.ntendon, m.nmocap, m.nsensor, m.na) == (
+      int(mjm.ntendon), int(mjm.nmocap), int(mjm.nsensor), int(mjm.na))
   assert (m.opt.cone, m.opt.solver, m.opt.noslip_iterations) == (
       int(mjm.opt.cone), int(mjm.opt.solver), int(mjm.opt.noslip_iterations))
   assert not megastep_cuda.supported(m)

@@ -61,6 +61,7 @@ def _sources():
         yield os.path.join(dirpath, f)
   yield os.path.join(ROOT, "chip_smoke.py")
   yield os.path.join(ROOT, "kernel_times.py")
+  yield os.path.join(ROOT, "op_counts.py")
 
 
 def test_sources_never_import_jax_or_reference():

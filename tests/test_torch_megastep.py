@@ -161,6 +161,29 @@ def test_supported_gate_matches_reference_many_body(case, multi_humanoid,
   assert mc.supported(tm) == jmega.supported(jm) == (case == "dyngroups_off")
 
 
+@pytest.mark.parametrize("name", ["humanoid_sensors", "sensor_suite",
+                                  "activations", "muscle"])
+def test_supported_gate_matches_reference_sensors(name, monkeypatch):
+  """Sensors and activation state keep a model off the kernel, which
+  computes neither sensordata nor act, as the reference's gate refuses
+  them (megastep_tpu.py:111-113): the pendulum of sensor_suite (nv 2, a
+  plain motor, no contact) at the kernel's 4 iterations is in its class
+  but for its sensors."""
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "256")
+  jm = jio.put_model(snapshot.compile_mj(name))
+  tm = zoo.load(name, torch.float64, "cpu")
+  assert not mc.supported(tm) and not jmega.supported(jm)
+  if name == "sensor_suite":
+    fields = zoo.load_snapshot(name)
+    fields["opt.iterations"] = np.asarray(4)
+    it4 = tio.model_from_numpy(fields, torch.float64, "cpu")
+    jm4 = jm.replace(opt=jm.opt.replace(iterations=4))
+    assert not mc.supported(it4) and not jmega.supported(jm4)
+    fields["nsensor"] = np.asarray(0)
+    assert mc.supported(tio.model_from_numpy(fields, torch.float64, "cpu"))
+    assert jmega.supported(jm4.replace(nsensor=0))
+
+
 @pytest.mark.parametrize("name", ["multi_humanoid3", "humanoid_tendon",
                                   "mocap_weld", "tendon_limit_only"])
 def test_supported_refuses_the_slice_models(name):

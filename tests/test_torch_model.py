@@ -177,9 +177,12 @@ _OUT_OF_SLICE = {
     "body_transmission": """<mujoco><worldbody><body name="b"><freejoint/>
       <geom size="0.1"/></body></worldbody><actuator>
       <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
-    "sensor": """<mujoco><worldbody><body><joint name="a" type="slide"/>
-      <geom size="0.1"/></body></worldbody><sensor>
-      <jointpos joint="a"/></sensor></mujoco>""",
+    # the geom-distance sensors wait for A8's rest (other sensors load
+    # since the sensor and activation slice)
+    "geomdist_sensor": """<mujoco><worldbody><body><joint type="slide"/>
+      <geom name="g1" size="0.1" contype="0"/></body><geom name="g2"
+      size="0.1" pos="1 0 0" contype="0"/></worldbody><sensor>
+      <distance geom1="g1" geom2="g2"/></sensor></mujoco>""",
     # a box against a flex (box-box contact loads since the collision
     # breadth slice)
     "box_contact": """<mujoco><option iterations="2"/><worldbody>
@@ -190,6 +193,9 @@ _OUT_OF_SLICE = {
 
 # models that raised before the slices that widened what the port runs
 _WIDENED = {
+    "sensor": """<mujoco><worldbody><body><joint name="a" type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor>
+      <jointpos joint="a"/></sensor></mujoco>""",
     "tendon": """<mujoco><worldbody><body><joint name="a" type="slide"/>
       <geom size="0.1"/></body></worldbody><tendon><fixed name="t">
       <joint joint="a" coef="1"/></fixed></tendon></mujoco>""",
