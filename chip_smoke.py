@@ -236,12 +236,37 @@ Phases, each of which passes or ends the script with a nonzero exit:
    of ``zoo.SENSORS`` 10 steps at f64, B 64, each step from the CPU's
    state on the card and the CPU: qpos, qvel, act and sensordata within
    1e-8 absolute plus relative, an env that misses judged by last-bit
-   copies (``judge_envs``, 256 copies).
+   copies (``judge_envs``, 256 copies);
+25. the rest of the actuators, sensors and passive forces:
+   ``quadruped_sim2real`` (the quadruped's 12 motors as DC motors in
+   position mode behind an 8 ms action delay, a delayed IMU, foot contact
+   sensors and a 15-ray height scan, 77 sensor values; the megastep must
+   refuse it), f32, B 3072, from the stand keyframe lowered 0.2 m onto the
+   floor with 0.01·N(0, 1) qpos noise and ctrl the keyframe's joints plus
+   0.1·N(0, 1), 50 steps of ``scan_steps(check=True)``: qpos, qvel, act,
+   history and the final state's sensordata finite, exactly one LDL and
+   one Newton launch per step and no megastep launch, every rangefinder
+   above 0 in every env, a foot contact in some env; env-steps/s, peak
+   memory, launches per step and the idle share of a profiled 2-step
+   window, and the same with ``DisableBit.SENSOR`` set and with the delays
+   0; one step's device kernels (the most of 3 profiled calls) as built,
+   with the sensors disabled, with the delays 0 and with no history buffer
+   in use (the differences the sensor stages', the delays' and the
+   history's); the LDL
+   and Newton kernels on the arguments one step at f64, B 3072, gives
+   them, against their plain versions (the LDL at f64 elementwise and at
+   f32 by backward error, the Newton kernel by phase 11's rule); 20 steps
+   at f64, B 8, of it and 10 steps at f64, B 64, of each of the ten small
+   scenes of ``zoo.ACTUATION`` and the four SO3 and PID scenes of
+   ``zoo.ACTUATION_CARRIED``, each step from the CPU's state on the
+   card and the CPU: qpos, qvel, act, history and sensordata within 1e-8
+   absolute plus relative, an env that misses judged by last-bit copies
+   (``judge_envs``, 256 copies).
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 24, and the LDL's and the Newton kernel's ``wide`` entries hold
+and 13 to 25, and the LDL's and the Newton kernel's ``wide`` entries hold
 their phase-13 times at n = nv = 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
 and the LDL's ``n18`` entry phase 23's.
@@ -2084,7 +2109,7 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23", "24")
+                 "22", "23", "24", "25")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -2930,19 +2955,19 @@ def kernel_count(fn, attempts=5) -> int:
   return most
 
 
-def sensor_card_vs_cpu(name, nbatch, nstep, make):
+def sensor_card_vs_cpu(name, nbatch, nstep, make,
+                       compared=("qpos", "qvel", "act", "sensordata")):
   """nstep steps at f64 of make(m, device): each step of the CPU's state
-  on the card and on the CPU; qpos, qvel, act and sensordata within 1e-8
-  absolute plus relative, an env that misses judged by last-bit copies
-  of its state (qpos, qvel, act) on both sides (judge_envs). Returns the
-  env-steps judged."""
+  on the card and on the CPU; the ``compared`` fields (qpos, qvel, act and
+  sensordata) within 1e-8 absolute plus relative, an env that misses
+  judged by last-bit copies of its state (qpos, qvel, act) on both sides
+  (judge_envs). Returns the env-steps judged."""
   from mujoco_tpu_torch.models import zoo
   from mujoco_tpu_torch.ops import forward
   mc = zoo.load(name, torch.float64, "cuda")
   mh = zoo.load(name, torch.float64, "cpu")
   d = make(mh, "cpu")
-  fields = tuple(f for f in ("qpos", "qvel", "act", "sensordata")
-                 if getattr(d, f).shape[1])
+  fields = tuple(f for f in compared if getattr(d, f).shape[1])
   judged = 0
   for _ in range(nstep):
     out_h = forward.step(mh, d)
@@ -3063,6 +3088,199 @@ def phase_sensors(report, details):
         launches[k])
 
 
+# ---- the rest of the actuators, sensors and passive forces: phase 25
+
+ACTUATION_NSTEP = 50
+ACTUATION_CHECK_NSTEP = 20
+ACTUATION_SMALL_NSTEP = 10
+# the stand keyframe's trunk is this far above where the quadruped stands
+# with its joints at the keyframe's angles (0.2393 m; quadruped_stand.py)
+QUAD_DROP = 0.2
+ACTUATION_FIELDS = ("qpos", "qvel", "act", "history", "sensordata")
+
+
+def quadruped_batch(m, nbatch, seed, device="cuda"):
+  """The stand keyframe lowered by QUAD_DROP onto the floor (its contacts
+  act from the first step), 0.01·N(0, 1) qpos noise, and ctrl the
+  keyframe's joint angles plus 0.1·N(0, 1), from a numpy seed."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  stand = np.array(zoo.QUADRUPED_STAND)
+  stand[2] -= QUAD_DROP
+  t = lambda a: torch.tensor(a, dtype=m.dtype, device=device)
+  return d.replace(
+      qpos=t(stand + 0.01 * rng.standard_normal(tuple(d.qpos.shape))),
+      ctrl=t(stand[7:] + 0.1 * rng.standard_normal(tuple(d.ctrl.shape))))
+
+
+def without_delays(m, history=True):
+  """A copy of m with every actuator and sensor delay 0 (the buffers stay
+  and are still filled), or, with history False, no buffer in use (Data
+  keeps its history words, which nothing reads or writes)."""
+  zero = lambda a: np.zeros_like(np.asarray(a))
+  m = m.replace(actuator_delay=zero(m.actuator_delay),
+                sensor_delay=zero(m.sensor_delay))
+  if history:
+    return m
+  return m.replace(actuator_history=zero(m.actuator_history),
+                   sensor_history=zero(m.sensor_history),
+                   sensor_interval=zero(m.sensor_interval))
+
+
+def path_kernels_gate(m64):
+  """The LDL and Newton kernels on the arguments one stage-path step of
+  m64 (f64) gives them at B 3072, from the phase's start, against their
+  plain versions: the LDL elementwise at f64 and by backward error at f32
+  (``ldl_gate``), the Newton kernel at the model's iterations by phase
+  11's rule (``newton_rows_gate``)."""
+  from mujoco_tpu_torch.ops import forward, linalg_cuda, newton_cuda
+  ldl_args, newton_args = [], []
+  spd, run = linalg_cuda.spd_solve, newton_cuda.run
+
+  def spd_rec(h, g):
+    ldl_args.append((h, g))
+    return spd(h, g)
+
+  def run_rec(args, iterations, ls_iter):
+    newton_args.append(args)
+    return run(args, iterations, ls_iter)
+
+  linalg_cuda.spd_solve, newton_cuda.run = spd_rec, run_rec
+  try:
+    forward.step(m64, quadruped_batch(m64, B, 83))
+  finally:
+    linalg_cuda.spd_solve, newton_cuda.run = spd, run
+  if (len(ldl_args), len(newton_args)) != (1, 1):
+    raise AssertionError(f"a step made {len(ldl_args)} LDL and "
+                         f"{len(newton_args)} Newton solves")
+  h, g = ldl_args[0]
+  ldl_err = {str(dt)[6:]: ldl_gate("quadruped_sim2real's qM",
+                                   h.to(dt), g.to(dt))
+             for dt in (torch.float64, torch.float32)}
+  args = newton_args[0]
+  it, ls = int(m64.opt.iterations), int(m64.opt.ls_iterations)
+  out_k = newton_cuda.newton_kernel(*args, it, ls)
+  torch.cuda.synchronize()
+  out_p = newton_cuda.newton_plain(*args, it, ls)
+  viol = newton_violation(out_k, out_p)
+  off, worst_other, table = newton_rows_gate(args, out_k, out_p, it, ls)
+  unmatched = [row for row in table if row[1] == 0]
+  print(f"newton rows quadruped_sim2real: nefc {m64.efc.nefc}, nv "
+        f"{m64.nv}; f64 B{B} it{it} ls{ls} worst err / (1e-9 + "
+        f"1e-9·|plain|) " + " ".join(f"{k} {v:.3f}" for k, v in viol.items())
+        + f"; {len(off)} envs off elementwise, replayed {table}", flush=True)
+  if len(off) > B // 100 or not worst_other <= 1.0 or unmatched:
+    raise AssertionError("newton rows quadruped_sim2real: kernel and plain "
+                         "disagree")
+  return dict(ldl_abs_err=ldl_err, newton_violation=viol, off_envs=off,
+              replay=table)
+
+
+def phase_actuation(report, details):
+  """25: the rest of the actuators, sensors and passive forces:
+  quadruped_sim2real (DC motors in position mode behind an 8 ms action
+  delay, a delayed IMU, foot contact sensors, a 15-ray height scan; the
+  megastep must refuse it) at f32, B 3072, 50 steps on the stage path;
+  the launches of its sensor stages and of the history; card against CPU
+  at f64 for it, the ten small scenes of zoo.ACTUATION and the SO3 and
+  PID scenes of zoo.ACTUATION_CARRIED."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import DisableBit, SensorType
+  from mujoco_tpu_torch.ops import forward, megastep_cuda
+  m = zoo.load("quadruped_sim2real", torch.float32)
+  if megastep_cuda.supported(m):
+    raise AssertionError("the megastep admits quadruped_sim2real")
+  d0 = quadruped_batch(m, B, 80)
+  torch.cuda.reset_peak_memory_stats()
+  out, wall, launches = stage_run(m, d0, ACTUATION_NSTEP)
+  peak = torch.cuda.max_memory_allocated()
+  finite = all(bool(torch.isfinite(getattr(out, f)).all())
+               for f in ("qpos", "qvel", "act", "history"))
+  # scan_steps keeps the state alone: the sensors of the final state are
+  # a forward pass's
+  fwd = forward.forward(m, out)
+  finite &= bool(torch.isfinite(fwd.sensordata).all())
+  st, adr = np.asarray(m.sensor_type), np.asarray(m.sensor_adr)
+  scan = fwd.sensordata[:, adr[st == SensorType.RANGEFINDER]]
+  rays_hit = bool((scan > 0).all())
+  found = fwd.sensordata[:, adr[st == SensorType.CONTACT]]
+  contact_share = (found > 0).any(-1).double().mean().item()
+  height = fwd.qpos[:, 2].double()
+  run_launches = {k: v / ACTUATION_NSTEP for k, v in launches.items()}
+  sps = B * ACTUATION_NSTEP / wall
+  print(f"quadruped_sim2real (nv {m.nv}, na {m.na}, nhistory {m.nhistory}, "
+        f"{m.nsensor} sensors, {m.nsensordata} values): f32 B{B} "
+        f"{ACTUATION_NSTEP} steps from the stand keyframe lowered "
+        f"{QUAD_DROP}: wall {wall:.3f} s, {sps:.1f} env-steps/s, kernel "
+        f"launches per step {run_launches}, finite {finite}, every ray hit "
+        f"{rays_hit} (shortest {scan.min().item():.4f} m), share of envs "
+        f"with a foot contact {contact_share:.4f}, trunk height mean "
+        f"{height.mean().item():.4f} m, lowest {height.min().item():.4f} m, "
+        f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+  if (not finite or launches["ldl_solve"] != ACTUATION_NSTEP
+      or launches["newton_pyramidal"] != ACTUATION_NSTEP
+      or launches["megastep"] or not rays_hit or not contact_share > 0):
+    raise AssertionError(f"quadruped_sim2real: finite {finite}, launches "
+                         f"{launches}, rays hit {rays_hit}, contact share "
+                         f"{contact_share}")
+  m_off = m.replace(opt=m.opt.replace(
+      disableflags=int(m.opt.disableflags) | int(DisableBit.SENSOR)))
+  variants = (("as built", m), ("sensors disabled", m_off),
+              ("delays 0", without_delays(m)),
+              ("no history", without_delays(m, history=False)))
+  profiles, per_step = {}, {}
+  for tag, mm in variants:
+    # a profiled window as built, with the sensors off and with the delays
+    # 0; one step's kernels for all four, the most of 3 profiled calls
+    # (the phase stays within 60 s)
+    if tag != "no history":
+      profiles[tag] = profiled(mm, out, 2)
+      print_profile(f"quadruped_sim2real, {tag}, f32 B{B} 2 steps",
+                    profiles[tag])
+    per_step[tag] = kernel_count(lambda mm=mm: forward.step(mm, out),
+                                 attempts=3)
+  sensor_launches = per_step["as built"] - per_step["sensors disabled"]
+  delay_launches = per_step["as built"] - per_step["delays 0"]
+  history_launches = per_step["as built"] - per_step["no history"]
+  print(f"quadruped_sim2real: device kernels of one step {per_step}: the "
+        f"sensor stages' {sensor_launches}, the delays' {delay_launches}, "
+        f"the history buffers' with the delays {history_launches}",
+        flush=True)
+  run = dict(batch=B, nstep=ACTUATION_NSTEP, wall_s=wall,
+             env_steps_per_s=sps, launches=launches,
+             launches_per_step=run_launches, contact_share=contact_share,
+             rays_hit=rays_hit, peak_memory_bytes=peak, profiles=profiles,
+             step_kernels=per_step,
+             sensor_launches_per_step=sensor_launches,
+             delay_launches_per_step=delay_launches,
+             history_launches_per_step=history_launches)
+  del out, fwd
+  run["path_kernels"] = path_kernels_gate(
+      zoo.load("quadruped_sim2real", torch.float64))
+
+  judged = {"quadruped_sim2real": sensor_card_vs_cpu(
+      "quadruped_sim2real", 8, ACTUATION_CHECK_NSTEP,
+      lambda mm, dev: quadruped_batch(mm, 8, 81, dev), ACTUATION_FIELDS)}
+  print(f"quadruped_sim2real: {ACTUATION_CHECK_NSTEP} steps f64 B8, each "
+        f"from the CPU's state, card = CPU (qpos, qvel, act, history, "
+        f"sensordata 1e-8; {judged['quadruped_sim2real']} env-steps judged "
+        f"by last-bit copies)", flush=True)
+  for name in zoo.ACTUATION[1:] + zoo.ACTUATION_CARRIED:
+    judged[name] = sensor_card_vs_cpu(
+        name, 64, ACTUATION_SMALL_NSTEP,
+        lambda mm, dev: sensor_batch(mm, 64, 82, dev), ACTUATION_FIELDS)
+    print(f"{name}: {ACTUATION_SMALL_NSTEP} steps f64 B64, card = CPU "
+          f"(qpos, qvel, act, history, sensordata 1e-8; {judged[name]} "
+          f"env-steps judged)", flush=True)
+  details["actuation"] = dict(quadruped_sim2real=run,
+                              card_vs_cpu_judged=judged)
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})["quadruped_sim2real"] = (
+        launches[k])
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3087,7 +3305,8 @@ def main() -> int:
             phase_multi_humanoid, phase_newton_gradient, phase_slice_scenes,
             phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
             phase_islands, phase_dynamic_pairs, phase_sleep,
-            phase_colliders, phase_convex_scenes, phase_sensors)
+            phase_colliders, phase_convex_scenes, phase_sensors,
+            phase_actuation)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

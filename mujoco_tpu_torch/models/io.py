@@ -7,7 +7,8 @@ with the wrap periods), the sensor tables (:1608-1625, their enums
 remapped by name in ``_sensor_meta``) and the tree tables of
 ``_sleep_meta`` (:1628);
 ``make_data`` (:1703) with the mocap start pose of ``_mocap_init``
-(:1687).
+(:1687), the neutral controls of ``_neutral_ctrl`` (:1675) and the
+history buffers of ``_init_history`` (:1790).
 
 The model reaches the port as a flat dict of numpy arrays, name →
 ``np.asarray(value)``, with nested dataclasses flattened by dotted names
@@ -33,7 +34,8 @@ import numpy as np
 import torch
 
 from mujoco_tpu_torch.models.types import (BiasType, ConeType, Contact,
-                                           ContactMeta, Data, DataType,
+                                           ContactMeta, CtrlChart, Data,
+                                           DataType,
                                            DisableBit, DynType, EfcMeta,
                                            EqType, GainType, GeomType,
                                            JointType, Model, ObjType, Option,
@@ -406,11 +408,13 @@ def _names(mjm: Any) -> dict:
 
 def _actuator_meta(mjm: Any):
   """Actuator enums remapped to the v3.11 values by NAME (the pip package
-  may number them differently), restricted to dyn NONE, INTEGRATOR,
-  FILTER, FILTEREXACT and MUSCLE, gains and biases FIXED/AFFINE/MUSCLE (or
-  no bias), on a joint (any type), tendon, site or slider-crank
-  transmission; and the setpoint wrap period of each rotational servo
-  (wrapPeriod; mujoco_tpu/models/io.py:1283-1300)."""
+  may number them differently); every dyn, gain and bias type but USER,
+  on any transmission. Also the DC-motor and PID activation slots
+  (mj_dcmotorSlots), the setpoint wrap period of each rotational servo
+  and PID (wrapPeriod), and the control and output blocks
+  (mujoco_tpu/models/io.py:1205-1354): an SO3 gain resolves its site or
+  ball-joint transmission to TrnType.SO3 and owns 3 controls (4 under the
+  quaternion chart) and 3 outputs; every other actuator one of each."""
   import mujoco
   dyn_map = {int(v): DynType[k[len("mjDYN_"):]].value
              for k, v in mujoco.mjtDyn.__members__.items()}
@@ -418,65 +422,87 @@ def _actuator_meta(mjm: Any):
               for k, v in mujoco.mjtGain.__members__.items()}
   bias_map = {int(v): BiasType[k[len("mjBIAS_"):]].value
               for k, v in mujoco.mjtBias.__members__.items()}
+  nu = int(mjm.nu)
   dyn = np.array([dyn_map[int(t)] for t in mjm.actuator_dyntype], np.int32)
   gain = np.array([gain_map[int(t)] for t in mjm.actuator_gaintype], np.int32)
   bias = np.array([bias_map[int(t)] for t in mjm.actuator_biastype], np.int32)
-  delay = np.asarray(getattr(mjm, "actuator_delay", np.zeros(mjm.nu)))
-  for i in range(mjm.nu):
-    if dyn[i] not in _DYN:
-      raise NotImplementedError(
-          f"actuator {i}: activation dynamics {DynType(dyn[i]).name}")
-    if gain[i] not in _GAIN:
-      raise NotImplementedError(
-          f"actuator {i}: gain type {GainType(gain[i]).name}")
-    if bias[i] not in _BIAS:
-      raise NotImplementedError(
-          f"actuator {i}: bias type {BiasType(bias[i]).name}")
-    trn = TrnType(int(mjm.actuator_trntype[i]))
-    if trn in (TrnType.BODY, TrnType.SO3):
-      raise NotImplementedError(f"actuator {i}: transmission {trn.name}")
-    if float(delay[i]) != 0.0:
-      raise NotImplementedError(f"actuator {i}: actuator delay")
+  for i in range(nu):
+    if (dyn[i] == DynType.USER or gain[i] == GainType.USER
+        or bias[i] == BiasType.USER):
+      raise NotImplementedError(f"actuator {i}: USER dyn, gain or bias")
+  dynprm = np.asarray(mjm.actuator_dynprm, dtype=np.float64)
   gainprm = np.asarray(mjm.actuator_gainprm, dtype=np.float64)
   biasprm = np.asarray(mjm.actuator_biasprm, dtype=np.float64)
+  slots = np.full((nu, 7), -1, dtype=np.int32)
+  for i in range(nu):
+    n = 0
+    if dyn[i] == DynType.DCMOTOR:
+      # slew, integral, temperature, bristle, current
+      for col, on in enumerate((dynprm[i, 7] > 0, gainprm[i, 5] > 0,
+                                dynprm[i, 2] > 0, dynprm[i, 5] > 0,
+                                dynprm[i, 0] > 0)):
+        if on:
+          slots[i, col] = n
+          n += 1
+      slots[i, 6] = int(gainprm[i, 8])
+      if n != int(mjm.actuator_actnum[i]):
+        raise ValueError(
+            f"actuator {i}: DC motor state size {mjm.actuator_actnum[i]} "
+            f"does not match its parameter slots ({n})")
+    elif dyn[i] == DynType.PID:
+      # slew, integral
+      for col, on in enumerate((dynprm[i, 1] > 0, gainprm[i, 0] > 0)):
+        if on:
+          slots[i, col] = n
+          n += 1
+    slots[i, 5] = n
   gear = np.asarray(mjm.actuator_gear, dtype=np.float64)
-  wrapprd = np.zeros(mjm.nu, dtype=np.float64)
-  for i in range(mjm.nu):
+  trntype = np.asarray(mjm.actuator_trntype, dtype=np.int32).copy()
+  wrapprd = np.zeros(nu, dtype=np.float64)
+  for i in range(nu):
     servo = (gain[i] == GainType.FIXED and bias[i] == BiasType.AFFINE
              and gainprm[i, 0] == -biasprm[i, 1]
              and dyn[i] in (DynType.NONE, DynType.INTEGRATOR))
-    if not servo:
+    if not servo and gain[i] != GainType.PID:
       continue
-    trn = int(mjm.actuator_trntype[i])
+    trn = int(trntype[i])
     if (trn == TrnType.SITE and int(mjm.actuator_trnid[i, 1]) >= 0
         and not gear[i, :3].any()):
       wrapprd[i] = 2 * np.pi * np.linalg.norm(gear[i, 3:6])
     elif trn in (TrnType.JOINT, TrnType.JOINTINPARENT) and int(
         mjm.jnt_type[mjm.actuator_trnid[i, 0]]) == JointType.BALL:
       wrapprd[i] = 2 * np.pi * np.linalg.norm(gear[i, :3])
-  return dyn, gain, bias, wrapprd
+  ctrlspec = np.array(getattr(mjm, "actuator_ctrlspec", np.zeros(nu)),
+                      dtype=np.int32).reshape(nu)
+  ctrlnum = np.ones(nu, dtype=np.int32)
+  outnum = np.ones(nu, dtype=np.int32)
+  for i in np.nonzero(gain == GainType.SO3)[0]:
+    if int(trntype[i]) in (TrnType.SITE, TrnType.JOINT,
+                           TrnType.JOINTINPARENT):
+      trntype[i] = TrnType.SO3
+    if ctrlspec[i] == 0:
+      ctrlspec[i] = CtrlChart.EXPMAP
+    ctrlnum[i] = 4 if ctrlspec[i] == CtrlChart.QUAT else 3
+    outnum[i] = 3
+  adr = lambda num: np.concatenate([[0], np.cumsum(num)[:-1]]).astype(
+      np.int32) if nu else np.zeros(0, np.int32)
+  blocks = {"actuator_ctrladr": adr(ctrlnum), "actuator_ctrlnum": ctrlnum,
+            "actuator_outadr": adr(outnum), "actuator_outnum": outnum,
+            "actuator_ctrlspec": ctrlspec, "actuator_trntype": trntype,
+            "nctrl": int(ctrlnum.sum()), "nout": int(outnum.sum())}
+  return dyn, gain, bias, slots, wrapprd, blocks
 
 
-# the activation dynamics, gains and biases the port computes
-# (ops/actuation.py); the DC motor, PID, SO3 and USER types wait for A8's
-# rest
-_DYN = (DynType.NONE, DynType.INTEGRATOR, DynType.FILTER,
-        DynType.FILTEREXACT, DynType.MUSCLE)
-_GAIN = (GainType.FIXED, GainType.AFFINE, GainType.MUSCLE)
-_BIAS = (BiasType.NONE, BiasType.AFFINE, BiasType.MUSCLE)
-# sensors ops/sensor.py does not compute: the ray and geom-distance
-# sensors, contact and tactile sensors, plugins and user callbacks
-_SENSOR_REFUSED = (SensorType.RANGEFINDER, SensorType.GEOMDIST,
-                   SensorType.GEOMNORMAL, SensorType.GEOMFROMTO,
-                   SensorType.CONTACT, SensorType.TACTILE,
-                   SensorType.PLUGIN, SensorType.USER)
+# sensors ops/sensor.py does not compute: plugins and user callbacks
+_SENSOR_REFUSED = (SensorType.PLUGIN, SensorType.USER)
 
 
 def _sensor_meta(mjm: Any) -> dict:
   """Sensor tables with the mjtSensor, mjtObj, mjtDataType and mjtStage
   values remapped to the port's by NAME, as ``_actuator_meta`` remaps the
-  actuator enums; a sensor outside the port's set, a delayed or
-  interval sensor raises by name."""
+  actuator enums, and the contact sensors' integer parameters and the
+  history buffers' tables (mujoco_tpu/models/io.py:1608-1624); a plugin
+  or user sensor raises by name."""
   import mujoco
 
   def remap(enum_cls, mj_enum, prefix, values):
@@ -488,17 +514,10 @@ def _sensor_meta(mjm: Any) -> dict:
 
   n = int(mjm.nsensor)
   stype = remap(SensorType, mujoco.mjtSensor, "mjSENS_", mjm.sensor_type)
-  delay = np.asarray(getattr(mjm, "sensor_delay", np.zeros(n)))
-  interval = np.asarray(getattr(mjm, "sensor_interval",
-                                np.zeros((n, 2)))).reshape(n, 2)
   for i in range(n):
     t = SensorType(int(stype[i]))
     if t in _SENSOR_REFUSED:
       raise NotImplementedError(f"sensor {i}: sensor {t.name}")
-    if float(delay[i]) != 0.0:
-      raise NotImplementedError(f"sensor {i}: sensor delay")
-    if float(interval[i, 0]) != 0.0:
-      raise NotImplementedError(f"sensor {i}: sensor interval")
   si = lambda x: np.asarray(x, dtype=np.int32).reshape(-1)
   return {
       "sensor_type": stype,
@@ -514,21 +533,28 @@ def _sensor_meta(mjm: Any) -> dict:
       "sensor_refid": si(mjm.sensor_refid),
       "sensor_adr": si(mjm.sensor_adr), "sensor_dim": si(mjm.sensor_dim),
       "sensor_cutoff": np.asarray(mjm.sensor_cutoff,
-                                  np.float64).reshape(-1)}
+                                  np.float64).reshape(-1),
+      "sensor_intprm": _opt(mjm, "sensor_intprm", (n, 3), np.int32),
+      "sensor_history": _opt(mjm, "sensor_history", (n, 2), np.int32),
+      "sensor_historyadr": _opt(mjm, "sensor_historyadr", (n,), np.int32,
+                                -1),
+      "sensor_delay": _opt(mjm, "sensor_delay", (n,), np.float64),
+      "sensor_interval": _opt(mjm, "sensor_interval", (n, 2), np.float64)}
+
+
+def _opt(mjm: Any, name: str, shape: tuple, dtype, fill=0) -> np.ndarray:
+  """An optional model field as ``dtype``, or ``fill`` where the compiled
+  model lacks it (mujoco_tpu/models/io.py:1782 ``_opt_i``/``_opt_f``)."""
+  v = getattr(mjm, name, None)
+  if v is None:
+    return np.full(shape, fill, dtype=dtype)
+  return np.asarray(v, dtype=dtype).reshape(shape)
 
 
 def _check_subset(mjm: Any) -> None:
   """Reject every feature the port does not implement yet."""
-  counts = [("flex", getattr(mjm, "nflex", 0)),
-            ("history buffers", getattr(mjm, "nhistory", 0))]
-  for name, n in counts:
-    if int(n):
-      raise NotImplementedError(name)
-  opt = mjm.opt
-  if opt.density > 0 or opt.viscosity > 0:
-    raise NotImplementedError("fluid forces")
-  if np.any(np.asarray(getattr(mjm, "jnt_actgravcomp", [0]))):
-    raise NotImplementedError("actuator gravity compensation")
+  if int(getattr(mjm, "nflex", 0)):
+    raise NotImplementedError("flex")
 
 
 # ---------------------------------------------------------------------------
@@ -567,7 +593,7 @@ def model_numpy(mjm: Any) -> dict:
   _check_subset(mjm)
   jx = lambda x: np.asarray(x, dtype=np.float64)
   si = lambda x: np.asarray(x, dtype=np.int32)
-  dyn, gain, bias, wrapprd = _actuator_meta(mjm)
+  dyn, gain, bias, slots, wrapprd, blocks = _actuator_meta(mjm)
   con = _contact_meta(mjm)
   efc = _efc_meta(mjm, con)
   f = {
@@ -581,8 +607,14 @@ def model_numpy(mjm: Any) -> dict:
       "has_dof_damping": bool(np.any(np.asarray(mjm.dof_damping) > 0)),
       "has_tendon_armature": bool(np.any(np.asarray(getattr(
           mjm, "tendon_armature", np.zeros(mjm.ntendon))) > 0)),
+      "has_fluid": bool(mjm.opt.density > 0 or mjm.opt.viscosity > 0),
+      "has_actgravcomp": bool(np.any(np.asarray(getattr(
+          mjm, "jnt_actgravcomp", np.zeros(mjm.njnt))))),
+      "nhistory": int(getattr(mjm, "nhistory", 0)),
       "opt.timestep": jx(mjm.opt.timestep), "opt.gravity": jx(mjm.opt.gravity),
-      "opt.magnetic": jx(mjm.opt.magnetic),
+      "opt.magnetic": jx(mjm.opt.magnetic), "opt.wind": jx(mjm.opt.wind),
+      "opt.density": jx(mjm.opt.density),
+      "opt.viscosity": jx(mjm.opt.viscosity),
       "opt.impratio": jx(mjm.opt.impratio),
       "opt.tolerance": jx(mjm.opt.tolerance),
       "opt.sleep_tolerance": jx(mjm.opt.sleep_tolerance),
@@ -608,7 +640,8 @@ def model_numpy(mjm: Any) -> dict:
   f.update({f"efc.{k}": v for k, v in efc.items()})
   f.update(_tree_meta(mjm))
   for name in ("body_parentid", "body_rootid", "body_weldid", "body_jntnum",
-               "body_mocapid", "tendon_adr", "tendon_num", "tendon_limited",
+               "body_mocapid", "body_geomadr", "body_geomnum", "tendon_adr",
+               "tendon_num", "tendon_limited",
                "wrap_type", "wrap_objid",
                "body_jntadr", "body_dofnum", "body_dofadr", "jnt_type",
                "jnt_qposadr", "jnt_dofadr", "jnt_bodyid", "jnt_limited",
@@ -617,7 +650,7 @@ def model_numpy(mjm: Any) -> dict:
                "geom_bodyid", "geom_priority", "geom_dataid", "site_bodyid",
                "site_type", "actuator_actadr", "actuator_actnum",
                "actuator_actlimited", "actuator_actearly",
-               "actuator_trntype", "actuator_trnid", "actuator_ctrllimited",
+               "actuator_trnid", "actuator_ctrllimited",
                "actuator_forcelimited", "pair_dim", "pair_geom1",
                "pair_geom2", "eq_type", "eq_obj1id", "eq_obj2id",
                "eq_objtype", "cam_bodyid", "cam_targetbodyid", "cam_mode",
@@ -645,14 +678,24 @@ def model_numpy(mjm: Any) -> dict:
                "tendon_solimp_lim", "tendon_solref_fri", "tendon_solimp_fri",
                "tendon_range", "tendon_margin", "tendon_stiffness",
                "tendon_damping", "tendon_frictionloss", "tendon_lengthspring",
-               "tendon_length0", "tendon_invweight0", "wrap_prm"):
+               "tendon_length0", "tendon_invweight0", "wrap_prm",
+               "geom_fluid"):
     f[name] = jx(getattr(mjm, name))
+  f["geom_has_fluid"] = f["geom_fluid"][:, 0] > 0
+  f["jnt_actgravcomp"] = _opt(mjm, "jnt_actgravcomp", (mjm.njnt,), np.int32)
   f["tendon_armature"] = jx(getattr(mjm, "tendon_armature",
                                     np.zeros(mjm.ntendon)))
   f["wrap_sideid"] = np.round(np.asarray(mjm.wrap_prm)).astype(np.int32)
   f["cam_mat0"] = jx(mjm.cam_mat0).reshape(-1, 3, 3)
   f["cam_resolution"] = si(mjm.cam_resolution).reshape(-1, 2)
   f["actuator_wrapprd"] = wrapprd
+  f["actuator_slots"] = slots
+  f.update(blocks)
+  f["actuator_history"] = _opt(mjm, "actuator_history", (mjm.nu, 2),
+                               np.int32)
+  f["actuator_historyadr"] = _opt(mjm, "actuator_historyadr", (mjm.nu,),
+                                  np.int32, -1)
+  f["actuator_delay"] = _opt(mjm, "actuator_delay", (mjm.nu,), np.float64)
   f.update(_sensor_meta(mjm))
   f.update(_asset_fields(mjm))
   f["eq_active0"] = np.array(mjm.eq_active0, dtype=bool)
@@ -796,7 +839,9 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
                                   1, ncon, 2))
   return Data(
       time=z(), qpos=m.qpos0.to(device=dev, dtype=dtype)[None].clone(),
-      qvel=z(nv), act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(nv),
+      qvel=z(nv), act=z(m.na),
+      ctrl=torch.as_tensor(_neutral_ctrl(m), dtype=dtype,
+                           device=dev)[None].clone(), qfrc_applied=z(nv),
       xfrc_applied=z(nb, 6), qacc_warmstart=z(nv),
       eq_active=torch.as_tensor(m.eq_active0, dtype=torch.bool,
                                 device=dev).reshape(1, m.neq),
@@ -812,12 +857,13 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       cinert=z(nb, 6, 6), cdof=z(nv, 6), crb=z(nb, 6, 6), qM=z(nv, nv),
       qLD=z(nv, nv), qLDiagInv=z(nv), ten_length=z(m.ntendon),
       ten_J=z(m.ntendon, nv),
-      actuator_length=z(m.nu), actuator_moment=z(m.nu, nv), contact=contact,
-      cvel=z(nb, 6), cdof_dot=z(nv, 6), qfrc_bias=z(nv),
-      actuator_velocity=z(m.nu), ten_velocity=z(m.ntendon),
+      actuator_length=z(m.nout), actuator_moment=z(m.nout, nv),
+      contact=contact, cvel=z(nb, 6), cdof_dot=z(nv, 6), qfrc_bias=z(nv),
+      actuator_velocity=z(m.nout), ten_velocity=z(m.ntendon),
       qfrc_spring=z(nv), qfrc_damper=z(nv),
-      qfrc_gravcomp=z(nv), qfrc_passive=z(nv), act_dot=z(m.na),
-      actuator_force=z(m.nu), qfrc_actuator=z(nv), qfrc_smooth=z(nv),
+      qfrc_gravcomp=z(nv), qfrc_fluid=z(nv), qfrc_passive=z(nv),
+      act_dot=z(m.na), actuator_force=z(m.nout), qfrc_actuator=z(nv),
+      qfrc_smooth=z(nv),
       qacc_smooth=z(nv), efc_J=z(nefc, nv), efc_pos=z(nefc),
       efc_margin=z(nefc), efc_D=z(nefc), efc_R=z(nefc), efc_aref=z(nefc),
       efc_frictionloss=z(nefc), efc_KBIP=z(nefc, 4),
@@ -831,7 +877,55 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
                              device=dev),
       cacc=z(nb, 6), cfrc_int=z(nb, 6), cfrc_ext=z(nb, 6),
       subtree_linvel=z(nb, 3), subtree_angmom=z(nb, 3),
-      sensordata=z(m.nsensordata), energy=z(2))
+      sensordata=z(m.nsensordata), energy=z(2),
+      history=torch.as_tensor(_init_history(m), dtype=dtype,
+                              device=dev)[None].clone())
+
+
+def _neutral_ctrl(m: Model) -> np.ndarray:
+  """Zero controls, but 1 as the leading component of each SO3 actuator's
+  quaternion block, the identity (mj_resetData; mujoco_tpu/models/
+  io.py:1675)."""
+  ctrl = np.zeros(m.nctrl)
+  quat = ((np.asarray(m.actuator_gaintype) == GainType.SO3)
+          & (np.asarray(m.actuator_ctrlspec) == CtrlChart.QUAT))
+  ctrl[np.asarray(m.actuator_ctrladr)[quat]] = 1.0
+  return ctrl
+
+
+def _init_history(m: Model) -> np.ndarray:
+  """The history buffers at reset (mj_resetData; mujoco_tpu/models/
+  io.py:1790-1846): per buffer [user, cursor n − 1, times, zero values],
+  its times seeded in the past (one timestep apart, or an interval
+  sensor's ticks rounded up to the timestep) and its user slot the time
+  of an interval sensor's previous tick (−dt for the others)."""
+  buf = np.zeros(m.nhistory)
+  if m.nhistory == 0:
+    return buf
+  dt = float(m.opt.timestep)
+  for i in range(m.nu):
+    n = int(m.actuator_history[i, 0])
+    if n <= 0:
+      continue
+    adr = int(m.actuator_historyadr[i])
+    buf[adr + 1] = n - 1
+    buf[adr + 2:adr + 2 + n] = [-(n - j) * dt for j in range(n)]
+  for i in range(m.nsensor):
+    n = int(m.sensor_history[i, 0])
+    if n <= 0:
+      continue
+    adr = int(m.sensor_historyadr[i])
+    period, phase = (float(m.sensor_interval[i, 0]),
+                     float(m.sensor_interval[i, 1]))
+    t0 = -period if phase == 0 else phase
+    buf[adr] = t0 if period > 0 else -dt
+    buf[adr + 1] = n - 1
+    if period > 0:
+      buf[adr + 2:adr + 2 + n] = [
+          np.ceil((t0 - (n - 1 - j) * period) / dt) * dt for j in range(n)]
+    else:
+      buf[adr + 2:adr + 2 + n] = [-(n - j) * dt for j in range(n)]
+  return buf
 
 
 def data_from_numpy(m: Model, fields: dict) -> Data:

@@ -1229,6 +1229,400 @@ def humanoid_sensors_mj():
   return spec.compile()
 
 
+# the actuator, sensor and passive scenes (zoo.ACTUATION). tests/
+# test_history.py:21 (PENDULUM) with two delayed motors (zero-order hold
+# and linear) and delayed, sampled and interval sensors (cubic, plain,
+# interval, interval with a delay)
+HISTORY_XML = """
+<mujoco>
+  <option timestep="0.005"/>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint name="j" type="hinge" axis="0 1 0" damping="0.02"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="j" delay="0.017" nsample="6" interp="zoh"/>
+    <motor joint="j" gear="0.5" delay="0.01" nsample="8" interp="linear"/>
+  </actuator>
+  <sensor>
+    <jointpos joint="j" delay="0.012" nsample="5" interp="cubic"/>
+    <jointvel joint="j" nsample="4"/>
+    <jointpos joint="j" nsample="6" interval="0.02"/>
+    <jointvel joint="j" nsample="4" interval="0.035" delay="0.01"/>
+  </sensor>
+</mujoco>
+"""
+
+
+def _dcmotor_joint(i: int, dynprm, gainprm, biasprm, actdim: int) -> tuple:
+  """A pendulum body and its DC motor, tests/test_actuator.py:24
+  (_motor_xml) as one of several."""
+  prm = lambda v: " ".join(str(x) for x in v)
+  body = f"""
+    <body pos="{i} 0 0.5">
+      <joint name="j{i}" type="hinge" axis="0 1 0" damping="0.02"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0" contype="0"
+            conaffinity="0"/>
+    </body>"""
+  act = f"""
+    <general joint="j{i}" actearly="true" actdim="{actdim}"
+             dyntype="dcmotor" gaintype="dcmotor" biastype="dcmotor"
+             dynprm="{prm(dynprm)}" gainprm="{prm(gainprm)}"
+             biasprm="{prm(biasprm)}"/>"""
+  return body, act
+
+
+_Z10 = [0.0] * 10
+# tests/test_actuator.py:45 DCMOTOR_CASES: [dynprm, gainprm, biasprm, actdim]
+DCMOTOR_CASES = {
+    "current": ([0.01] + _Z10[1:], [2.0, 0.5] + _Z10[2:], _Z10, 1),
+    "stateless_backemf": (_Z10, [2.0, 0.5] + _Z10[2:], _Z10, 0),
+    "temperature": ([0.01, 0, 5.0, 0.8, 25.0] + _Z10[5:],
+                    [2.0, 0.5, 0.004, 20.0] + _Z10[4:], _Z10, 2),
+    "bristle": ([0.01, 0, 0, 0, 0, 50.0, 0.3] + _Z10[7:],
+                [2.0, 0.5] + _Z10[2:],
+                [0, 0, 0, 0.4, 0.6, 0.05] + _Z10[6:], 2),
+    "cogging": ([0.01] + _Z10[1:], [2.0, 0.5] + _Z10[2:],
+                [0.2, 7.0, 0.3] + _Z10[3:], 1),
+    "slew": ([0.01, 0, 0, 0, 0, 0, 0, 4.0] + _Z10[8:],
+             [2.0, 0.5] + _Z10[2:], _Z10, 2),
+    "pi_position": ([0.01, 0, 0, 0, 0, 0, 0, 0, 1.5] + _Z10[9:],
+                    [2.0, 0.5, 0, 0, 8.0, 3.0, 0.4, 24.0, 1] + _Z10[9:],
+                    _Z10, 2),
+    "current_limited": ([0.01, 30.0] + _Z10[2:], [2.0, 0.5] + _Z10[2:],
+                        _Z10, 1),
+}
+
+
+def dcmotor_xml(delay: float = 0.0) -> str:
+  """Every DC motor case of tests/test_actuator.py on its own pendulum,
+  each motor with a ctrl delay where ``delay`` > 0."""
+  parts = [_dcmotor_joint(i, *cfg) for i, cfg in enumerate(
+      DCMOTOR_CASES[k] for k in sorted(DCMOTOR_CASES))]
+  acts = "".join(a for _, a in parts)
+  if delay:
+    acts = acts.replace('actearly="true"',
+                        f'actearly="true" delay="{delay}" nsample="4"')
+  return f"""
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>{"".join(b for b, _ in parts)}
+  </worldbody>
+  <actuator>{acts}
+  </actuator>
+</mujoco>"""
+
+
+# tests/test_actuator.py:175 (test_actgravcomp_vs_oracle) with a second,
+# plain gravcomp pendulum
+ACTGRAVCOMP_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <body pos="0 0 0.5" gravcomp="1">
+      <joint name="j1" type="hinge" axis="0 1 0" actuatorgravcomp="true"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+    </body>
+    <body pos="1 0 0.5" gravcomp="0.5">
+      <joint name="j2" type="hinge" axis="0 1 0"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+    </body>
+  </worldbody>
+  <actuator><motor joint="j1" gear="2"/><motor joint="j2"/></actuator>
+</mujoco>
+"""
+
+# tests/test_forward.py:140 and :175: the inertia-box model on a tumbling
+# box and the ellipsoid model on an ellipsoid and a capsule, with wind
+FLUID_XML = """
+<mujoco>
+  <option timestep="0.003" viscosity="0.9" density="80" wind="0.4 -0.2 0.1"/>
+  <worldbody>
+    <body pos="0 0 1.5">
+      <freejoint/>
+      <geom type="box" size="0.12 0.06 0.04" density="300" contype="0"
+            conaffinity="0"/>
+    </body>
+    <body pos="1 0 2">
+      <freejoint/>
+      <geom type="ellipsoid" size="0.1 0.05 0.03" density="400"
+            fluidshape="ellipsoid" fluidcoef="0.5 0.25 1.5 1.7 1.0"
+            contype="0" conaffinity="0"/>
+      <geom type="capsule" size="0.03 0.1" pos="0.15 0 0" density="300"
+            fluidshape="ellipsoid" contype="0" conaffinity="0"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+# tests/test_adhesion.py:18 (GRIPPER) at the pyramidal cone, condim 3
+ADHESION_XML = """
+<mujoco>
+  <option timestep="0.002" cone="%s"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 0.1"/>
+    <body name="grip" pos="0 0 0.35">
+      <joint name="lift" type="slide" axis="0 0 1" damping="5"/>
+      <geom name="pad" type="box" size="0.12 0.12 0.02" mass="0.5"/>
+    </body>
+    <body name="obj" pos="0 0 0.12">
+      <freejoint/>
+      <geom name="cube" type="box" size="0.1 0.1 0.1" mass="0.2" condim="%d"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <adhesion body="grip" ctrlrange="0 5" gain="30"/>
+    <motor joint="lift" gear="20"/>
+  </actuator>
+</mujoco>
+"""
+
+# tests/test_contact_sensor.py:35 (SCENE) with the contact sensors of its
+# tests: every field under reduce none, mindist, maxforce, netforce over a
+# subtree, a site zone, and the flipped normals
+CONTACT_SENSOR_SUITE_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="4 4 0.1"/>
+    <body name="b1" pos="0 0 0.08">
+      <freejoint/>
+      <geom name="g1" type="sphere" size="0.1"/>
+      <body name="b2" pos="0.35 0 0">
+        <joint type="hinge" axis="0 1 0" damping="0.1"/>
+        <geom name="g2" type="sphere" size="0.09"/>
+      </body>
+    </body>
+    <site name="zone" type="sphere" size="0.3" pos="0 0 0"/>
+  </worldbody>
+  <sensor>
+    <contact geom1="g1" data="found force torque dist pos normal tangent"
+             num="2" reduce="none"/>
+    <contact geom1="g1" geom2="floor" data="force dist" num="1"
+             reduce="mindist"/>
+    <contact body1="b1" data="found force" num="2" reduce="maxforce"/>
+    <contact subtree1="b1" data="found force torque pos" reduce="netforce"/>
+    <contact site="zone" data="found dist" num="2" reduce="mindist"/>
+    <contact geom1="floor" geom2="g2" data="force normal"/>
+    <contact geom2="g1" data="found normal" num="1" reduce="mindist"/>
+  </sensor>
+</mujoco>
+"""
+
+# tests/test_tactile.py:18 (PAD) with the sphere of test_tactile_sphere_press
+TACTILE_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <asset><mesh name="pad" vertex="0 0 0  0.1 0 0  0 0.1 0  0.1 0.1 0
+    0 0 0.05  0.1 0 0.05  0 0.1 0.05  0.1 0.1 0.05"/></asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="1 1 .1"/>
+    <body pos="0 0 0.035" euler="5 3 0"><freejoint/>
+      <geom name="padgeom" type="box" size="0.05 0.05 0.04"/>
+    </body>
+    <body pos="0.02 0.01 0.2"><freejoint/>
+      <geom type="sphere" size="0.04"/></body>
+  </worldbody>
+  <sensor><tactile mesh="pad" geom="padgeom"/></sensor>
+</mujoco>
+"""
+
+# tests/test_sensor.py:225 (test_geomdist_inside_tendonactfrc) with a
+# capsule beside the second sphere and the body-to-body forms
+GEOM_DISTANCE_XML = """
+<mujoco>
+  <worldbody>
+    <body name="b1" pos="0 0 1">
+      <joint name="j1" type="slide" axis="0 0 1"/>
+      <geom name="ga" type="sphere" size="0.1" contype="0" conaffinity="0"/>
+      <site name="zone" type="box" size="0.3 0.3 0.3"/>
+    </body>
+    <body name="b2" pos="0.35 0 1">
+      <joint name="j2" type="slide" axis="1 0 0"/>
+      <geom name="gb" type="sphere" size="0.08" contype="0" conaffinity="0"/>
+      <geom name="gc" type="capsule" size="0.03 0.1" pos="0.1 0 0.1"
+            contype="0" conaffinity="0"/>
+      <site name="probe" pos="0 0 0"/>
+    </body>
+  </worldbody>
+  <tendon>
+    <fixed name="t1">
+      <joint joint="j1" coef="1"/><joint joint="j2" coef="-0.5"/>
+    </fixed>
+  </tendon>
+  <actuator>
+    <motor tendon="t1" gear="3"/>
+    <motor tendon="t1" gear="-1"/>
+  </actuator>
+  <sensor>
+    <distance geom1="ga" geom2="gb" cutoff="2"/>
+    <normal geom1="ga" geom2="gb" cutoff="2"/>
+    <fromto geom1="ga" geom2="gb" cutoff="2"/>
+    <distance body1="b1" body2="b2" cutoff="0.5"/>
+    <fromto body1="b2" body2="b1" cutoff="2"/>
+    <insidesite site="zone" objtype="site" objname="probe"/>
+    <tendonactuatorfrc tendon="t1"/>
+  </sensor>
+</mujoco>
+"""
+
+# tests/test_sensor.py:76 (CONTACT_SENSOR_XML): a ball on the floor with a
+# rangefinder, touch and limit sensors; and rangefinders over a mesh and a
+# height field
+RANGEFINDER_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <asset>
+    <mesh name="wedge" vertex="-.1 -.1 0  .1 -.1 0  .1 .1 0  -.1 .1 0
+      0 0 .08"/>
+    <hfield name="bump" nrow="5" ncol="6" size=".3 .3 .05 .02"
+      elevation="0 0 0 0 0 0  0 .3 .5 .3 0 0  0 .5 1 .6 .2 0
+                 0 .2 .4 .3 .1 0  0 0 0 0 0 0"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="4 4 0.1"/>
+    <geom type="mesh" mesh="wedge" pos="2 0 0"/>
+    <geom type="hfield" hfield="bump" pos="-2 0 0"/>
+    <site name="over_mesh" pos="2.02 0.01 1" zaxis="0 0 -1"/>
+    <site name="over_hfield" pos="-2.05 0.03 1" zaxis="0.1 0 -1"/>
+    <body pos="0 0 0.08">
+      <freejoint/>
+      <geom name="ball" type="sphere" size="0.1"/>
+      <site name="zone" type="sphere" size="0.15"/>
+      <site name="rf" pos="0 0 0.0" zaxis="0 0 -1"/>
+      <site name="rf_side" pos="0 0 0.05" zaxis="1 0 -0.2"/>
+    </body>
+    <body pos="1 0 0.5">
+      <joint name="lim" type="hinge" axis="0 1 0" range="-0.2 0.2"
+             limited="true"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+    </body>
+  </worldbody>
+  <sensor>
+    <touch site="zone"/>
+    <rangefinder site="rf"/>
+    <rangefinder site="rf_side"/>
+    <rangefinder site="over_mesh"/>
+    <rangefinder site="over_hfield"/>
+    <jointlimitpos joint="lim"/>
+    <jointlimitvel joint="lim"/>
+    <jointlimitfrc joint="lim"/>
+  </sensor>
+</mujoco>
+"""
+
+# tests/test_actuator.py:237 (test_pid_actuator_reference_formulas): the
+# pendulum whose motor tests/test_torch_model.py patches into a v3.11 PID
+# (the ``pid`` snapshot of zoo.ACTUATION_CARRIED)
+PID_XML = """
+<mujoco>
+  <option timestep="0.002" gravity="0 0 -9.81"/>
+  <worldbody>
+    <body pos="0 0 0.5">
+      <joint name="j" type="hinge" axis="0 1 0" damping="0.05"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0" contype="0"
+            conaffinity="0"/>
+    </body>
+  </worldbody>
+  <actuator><motor joint="j"/></actuator>
+</mujoco>
+"""
+
+# the full-width path: the quadruped's joints, the DC motors' tuning
+_QUAD_LEGS = ("fl", "fr", "rl", "rr")
+QUAD_KP, QUAD_KD = 30.0, 0.1
+
+
+def quadruped_sim2real_mj():
+  """The repo's quadruped (``mujoco_tpu/models/assets/quadruped.xml``, not
+  edited) at its full width (nv 18, its floor contacts and options:
+  Newton at 2 iterations and 6 linesearch steps, Euler, dt 0.004) as a
+  legged-robot RL task models it before a sim-to-real transfer, built with
+  the pip mujoco's MjSpec. The changes:
+
+  - each of the 12 motors is a DC motor in position mode, the on-board PD
+    of a real actuator: dyn, gain and bias DCMOTOR, actdim 1 (the winding
+    current), actearly; dynprm[0] = 0.004 s (the electrical time
+    constant); gainprm = [R 0.5, K 0.1·gear, 0, 0, kp, 0, kd, Vmax 24,
+    input mode 1]. The gear is folded into K and set to 1, so the
+    controller reads the joint angle and ctrl is the joint target;
+    ctrlrange −3 to 3;
+  - every actuator a 0.008 s action delay (two steps), 4 samples,
+    zero-order hold;
+  - sensors (77 values) at a site ``imu`` at the trunk's origin: gyro and
+    accelerometer delayed 0.004 s, 3 samples, linear interpolation;
+    framequat of the trunk; jointpos and jointvel of the 12 hinges;
+    actuatorfrc of the 12 actuators; one CONTACT sensor per foot against
+    the floor (found and force, netforce, num 1); a height scan of 15
+    rangefinders at sites in a 5 × 3 grid under the trunk (x −0.3 to 0.3,
+    y −0.15 to 0.15, z −0.07), pointing down.
+
+  kp = 30 and kd = 0.1 (``QUAD_KP``, ``QUAD_KD``), tuned with the pip
+  mujoco from the ``stand`` keyframe at ctrl = the keyframe's joint
+  angles (``python3 quadruped_stand.py`` prints these numbers). That
+  keyframe puts the trunk at 0.44 m, 0.20 m above where it rests with the
+  joints held at the keyframe's angles (0.2393 m under ideal position
+  servos), so no gain keeps it above 0.35 m: it drops to the floor and
+  stands. At kp 30, kd 0.1 the trunk stays at 0.2373-0.2384 m from 0.3 s
+  to 2 s, within 2.6 degrees of upright; with 0.01·N(0, 1) qpos noise and
+  0.1·N(0, 1) ctrl noise (seeds 0-4) at 0.2325-0.2487 m, within 5.1
+  degrees. At kp 60, kd 1.5 it hops and tips over (up to 103 degrees)."""
+  import mujoco
+  spec = mujoco.MjSpec.from_file(os.path.join(zoo.XML_DIR, "quadruped.xml"))
+  for act in spec.actuators:
+    gear = float(act.gear[0])
+    act.name = act.target
+    act.dyntype = mujoco.mjtDyn.mjDYN_DCMOTOR
+    act.gaintype = mujoco.mjtGain.mjGAIN_DCMOTOR
+    act.biastype = mujoco.mjtBias.mjBIAS_DCMOTOR
+    act.actdim = 1
+    act.actearly = True
+    act.dynprm = [0.004] + [0.0] * 9
+    act.gainprm = [0.5, 0.1 * gear, 0, 0, QUAD_KP, 0, QUAD_KD, 24, 1, 0]
+    act.biasprm = [0.0] * 10
+    act.gear = [1, 0, 0, 0, 0, 0]
+    act.ctrlrange = [-3, 3]
+    act.ctrllimited = True
+    act.delay, act.nsample, act.interp = 0.008, 4, 0
+  trunk = spec.body("trunk")
+  trunk.add_site(name="imu")
+  down = [0, 1, 0, 0]                         # zaxis 0 0 −1
+  for i, x in enumerate(np.linspace(-0.3, 0.3, 5)):
+    for j, y in enumerate(np.linspace(-0.15, 0.15, 3)):
+      trunk.add_site(name=f"scan_{i}_{j}", pos=[x, y, -0.07], quat=down)
+  S, O = mujoco.mjtSensor, mujoco.mjtObj
+
+  def add(stype, objtype, objname, **kw):
+    sen = spec.add_sensor(type=stype, objtype=objtype, objname=objname)
+    for k, v in kw.items():
+      setattr(sen, k, v)
+    return sen
+
+  for stype in (S.mjSENS_GYRO, S.mjSENS_ACCELEROMETER):
+    add(stype, O.mjOBJ_SITE, "imu", delay=0.004, nsample=3, interp=1)
+  add(S.mjSENS_FRAMEQUAT, O.mjOBJ_BODY, "trunk")
+  joints = [f"{leg}_{j}" for leg in _QUAD_LEGS
+            for j in ("abd", "hip_y", "knee")]
+  for stype in (S.mjSENS_JOINTPOS, S.mjSENS_JOINTVEL):
+    for j in joints:
+      add(stype, O.mjOBJ_JOINT, j)
+  for act in spec.actuators:
+    add(S.mjSENS_ACTUATORFRC, O.mjOBJ_ACTUATOR, act.name)
+  for leg in _QUAD_LEGS:
+    sen = add(S.mjSENS_CONTACT, O.mjOBJ_GEOM, f"{leg}_foot")
+    sen.reftype, sen.refname = O.mjOBJ_GEOM, "floor"
+    # found and force, netforce, num 1 (the list as a whole: a slice
+    # assignment does not reach the compiler)
+    sen.intprm = [3, 3, 1]
+  for i in range(5):
+    for j in range(3):
+      add(S.mjSENS_RANGEFINDER, O.mjOBJ_SITE, f"scan_{i}_{j}",
+          intprm=[1, 0, 0])
+  return spec.compile()
+
+
 # the many-body scenes keep constraint islands enabled
 _MANY_BODY = {"multi_humanoid10": lambda: multi_humanoid_mj(10),
               "multi_humanoid10_sleep": lambda: multi_humanoid_mj(
@@ -1258,8 +1652,15 @@ _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "sensor_suite": SENSOR_SUITE_XML,
            "contact_sensors": CONTACT_SENSORS_XML,
            "camera_sensors": CAMERA_SENSORS_XML, "muscle": MUSCLE_XML,
-           "activations": ACTIVATIONS_XML}
+           "activations": ACTIVATIONS_XML, "history": HISTORY_XML,
+           "actgravcomp": ACTGRAVCOMP_XML, "fluid": FLUID_XML,
+           "adhesion": ADHESION_XML % ("pyramidal", 3),
+           "contact_sensor_suite": CONTACT_SENSOR_SUITE_XML,
+           "tactile": TACTILE_XML, "geom_distance": GEOM_DISTANCE_XML,
+           "rangefinder": RANGEFINDER_XML}
 _FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
+              "dcmotor": dcmotor_xml, "dcmotor_delay": lambda: dcmotor_xml(
+                  0.004),
               "humanoid_elliptic": humanoid_elliptic_xml, **_CONVEX}
 
 
@@ -1268,8 +1669,9 @@ def compile_mj(name: str):
   import mujoco
   if name in _MANY_BODY:
     return _MANY_BODY[name]()
-  if name == "humanoid_sensors":
-    mjm = humanoid_sensors_mj()
+  if name in ("humanoid_sensors", "quadruped_sim2real"):
+    mjm = (humanoid_sensors_mj() if name == "humanoid_sensors"
+           else quadruped_sim2real_mj())
     mjm.opt.disableflags |= int(DisableBit.ISLAND)
     return mjm
   if name in _SCENES or name in _FROM_FILE:

@@ -8,9 +8,12 @@ constraint class (equality, friction-loss, limit and contact rows, explicit
 pairs, cameras and lights), tendons, site and slider-crank transmissions,
 mocap bodies, the many-body fields (kinematic trees, dynamic pair
 groups, sleep), the meshes and height fields of the narrowphase
-(:720-736, :751-755), and the sensors and activation state (:687-718,
-:851-869; Data :1034-1042); later slices add the rest with their
-modules. Field
+(:720-736, :751-755), the sensors and activation state (:687-718,
+:851-869; Data :1034-1042), and the history buffers, the actuators'
+control and output blocks, DC-motor and PID slots, fluid and actuator
+gravity-compensation fields (:264-267, :514-516, :613-614, :667-708,
+:861-868; Data ``qfrc_fluid`` :1006 and ``history`` :1064); later slices
+add the rest with their modules. Field
 names are the reference's, so a field here and the same-named field of a
 ``mujoco_tpu`` Model or Data hold the same quantity.
 
@@ -93,6 +96,12 @@ class TrnType(enum.IntEnum):
   SITE = 4
   BODY = 5
   SO3 = 6
+
+
+class CtrlChart(enum.IntEnum):
+  """mjtCtrlChart: an SO3 actuator's input signature."""
+  EXPMAP = 1
+  QUAT = 2
 
 
 class DynType(enum.IntEnum):
@@ -266,6 +275,9 @@ class Option:
   timestep: torch.Tensor = field()
   gravity: torch.Tensor = field()          # (3,)
   magnetic: torch.Tensor = field()         # (3,)
+  wind: torch.Tensor = field()             # (3,)
+  density: torch.Tensor = field()
+  viscosity: torch.Tensor = field()
   impratio: torch.Tensor = field()
   tolerance: torch.Tensor = field()
   sleep_tolerance: torch.Tensor = field()
@@ -358,6 +370,16 @@ class Model:
   nsensordata: int = static_field()
   has_dof_damping: bool = static_field()
   has_tendon_armature: bool = static_field()
+  # fluid forces (opt.density or opt.viscosity above 0) and joints whose
+  # gravity compensation goes through qfrc_actuator
+  has_fluid: bool = static_field()
+  has_actgravcomp: bool = static_field()
+  # control inputs and force outputs of all actuators: nu counts
+  # actuators, and an SO3 actuator owns 3-4 controls and 3 outputs
+  nctrl: int = static_field()
+  nout: int = static_field()
+  # the ctrl/sensor history buffers' total length (Data.history)
+  nhistory: int = static_field()
 
   opt: Option = field()
   stat_meaninertia: torch.Tensor = field()
@@ -385,6 +407,8 @@ class Model:
   body_inertia: torch.Tensor = field()
   body_invweight0: torch.Tensor = field()
   body_gravcomp: torch.Tensor = field()
+  body_geomadr: np.ndarray = static_field()
+  body_geomnum: np.ndarray = static_field()
 
   jnt_type: np.ndarray = static_field()
   jnt_qposadr: np.ndarray = static_field()
@@ -392,6 +416,7 @@ class Model:
   jnt_bodyid: np.ndarray = static_field()
   jnt_limited: np.ndarray = static_field()
   jnt_actfrclimited: np.ndarray = static_field()
+  jnt_actgravcomp: np.ndarray = static_field()
   jnt_solref: torch.Tensor = field()
   jnt_solimp: torch.Tensor = field()
   jnt_pos: torch.Tensor = field()
@@ -437,6 +462,10 @@ class Model:
   geom_friction: torch.Tensor = field()
   geom_margin: torch.Tensor = field()
   geom_rbound: torch.Tensor = field()
+  # the ellipsoid fluid model's coefficients (ngeom, 12); a geom takes part
+  # where the first is above 0
+  geom_fluid: torch.Tensor = field()
+  geom_has_fluid: np.ndarray = static_field()
 
   site_bodyid: np.ndarray = static_field()
   site_type: np.ndarray = static_field()
@@ -492,6 +521,22 @@ class Model:
   actuator_ctrllimited: np.ndarray = static_field()
   actuator_forcelimited: np.ndarray = static_field()
   actuator_group: np.ndarray = static_field()
+  # each actuator's block of ctrl and of the force outputs
+  # (actuator_length/moment/velocity/force), and its SO3 input chart
+  actuator_ctrladr: np.ndarray = static_field()
+  actuator_ctrlnum: np.ndarray = static_field()
+  actuator_outadr: np.ndarray = static_field()
+  actuator_outnum: np.ndarray = static_field()
+  actuator_ctrlspec: np.ndarray = static_field()
+  # DC-motor and PID activation slots (mj_dcmotorSlots): columns [slew,
+  # integral, temperature, bristle, current, number of slots, input mode],
+  # −1 where a slot is absent
+  actuator_slots: np.ndarray = static_field()
+  # ctrl history buffers: [nsample, interp] per actuator, the buffer's
+  # address in Data.history and the delay in seconds
+  actuator_history: np.ndarray = static_field()     # (nu, 2)
+  actuator_historyadr: np.ndarray = static_field()  # (nu,)
+  actuator_delay: np.ndarray = static_field()       # (nu,)
   actuator_gainprm: torch.Tensor = field()
   actuator_biasprm: torch.Tensor = field()
   actuator_ctrlrange: torch.Tensor = field()
@@ -570,6 +615,13 @@ class Model:
   sensor_adr: np.ndarray = static_field()
   sensor_dim: np.ndarray = static_field()
   sensor_cutoff: torch.Tensor = field()
+  # contact sensors' [dataspec, reduce, num]; the sensors' history buffers
+  # as the actuators', with each interval sensor's [period, phase]
+  sensor_intprm: np.ndarray = static_field()        # (nsensor, 3)
+  sensor_history: np.ndarray = static_field()       # (nsensor, 2)
+  sensor_historyadr: np.ndarray = static_field()    # (nsensor,)
+  sensor_delay: np.ndarray = static_field()         # (nsensor,)
+  sensor_interval: np.ndarray = static_field()      # (nsensor, 2)
 
   names: dict = static_field()
 
@@ -613,7 +665,7 @@ class Data:
   qpos: torch.Tensor            # (B, nq)
   qvel: torch.Tensor            # (B, nv)
   act: torch.Tensor             # (B, na)
-  ctrl: torch.Tensor            # (B, nu)
+  ctrl: torch.Tensor            # (B, nctrl)
   qfrc_applied: torch.Tensor    # (B, nv)
   xfrc_applied: torch.Tensor    # (B, nbody, 6)
   qacc_warmstart: torch.Tensor  # (B, nv)
@@ -646,8 +698,8 @@ class Data:
   qLDiagInv: torch.Tensor       # (B, nv) its inverse diagonal
   ten_length: torch.Tensor      # (B, ntendon)
   ten_J: torch.Tensor           # (B, ntendon, nv)
-  actuator_length: torch.Tensor  # (B, nu)
-  actuator_moment: torch.Tensor  # (B, nu, nv)
+  actuator_length: torch.Tensor  # (B, nout)
+  actuator_moment: torch.Tensor  # (B, nout, nv)
   contact: Contact = field()
 
   # velocity stage
@@ -659,6 +711,7 @@ class Data:
   qfrc_spring: torch.Tensor = field()
   qfrc_damper: torch.Tensor = field()
   qfrc_gravcomp: torch.Tensor = field()
+  qfrc_fluid: torch.Tensor = field()
   qfrc_passive: torch.Tensor = field()
 
   # actuation stage
@@ -701,3 +754,6 @@ class Data:
   subtree_angmom: torch.Tensor = field()  # (B, nbody, 3)
   sensordata: torch.Tensor = field()     # (B, nsensordata)
   energy: torch.Tensor = field()         # (B, 2)
+  # ctrl and sensor history ring buffers, each [user, cursor, times(n),
+  # values(n·dim)] as the reference lays it out (mju_historyInit)
+  history: torch.Tensor = field()        # (B, nhistory)

@@ -29,7 +29,12 @@ two small sleep scenes. ``CONVEX`` are the scenes of the box-box, MPR,
 mesh and height-field colliders, ``rock`` (a 1,000-vertex mesh) first.
 ``SENSORS`` are the scenes of sensors and activation state,
 ``humanoid_sensors`` (the flagship with a sensor suite and 20 ms action
-filters) first.
+filters) first. ``ACTUATION`` are the scenes of history buffers, DC
+motors, actuator gravity compensation, fluid forces, adhesion and the
+contact, tactile, geom-distance and rangefinder sensors,
+``quadruped_sim2real`` first; ``ACTUATION_CARRIED`` are the SO3 and PID
+scenes, carried across from the reference's Models as
+``multi_humanoid3`` is.
 """
 
 from __future__ import annotations
@@ -104,12 +109,29 @@ CONVEX = ("rock", "box_pile", "grasp", "cube_mesh_on_box", "cylinder_on_box",
 # one actuator of each admitted activation dynamics
 SENSORS = ("humanoid_sensors", "sensor_suite", "contact_sensors",
            "camera_sensors", "muscle", "activations")
+# the rest of the actuators, sensors and passive forces: the sim-to-real
+# quadruped (DC motors in position mode behind an action delay, a delayed
+# IMU, foot contact sensors and a height scan; the slice's full-width
+# model), then the reference's scenes of history buffers, DC motors (with
+# and without a ctrl delay), actuator gravity compensation, fluid forces,
+# adhesion, contact, tactile, geom-distance and rangefinder sensors
+ACTUATION = ("quadruped_sim2real", "history", "dcmotor", "dcmotor_delay",
+             "actgravcomp", "fluid", "adhesion", "contact_sensor_suite",
+             "tactile", "geom_distance", "rangefinder")
+# the quadruped's ``stand`` keyframe (quadruped.xml; the snapshots carry no
+# keyframes): the trunk 0.44 m up, each leg at abduction 0, hip −0.5 and
+# knee −1.1
+QUADRUPED_STAND = (0.0, 0.0, 0.44, 1.0, 0.0, 0.0, 0.0) + (0.0, -0.5, -1.1) * 4
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
-             + ("humanoid_elliptic",) + MANY_BODY + CONVEX + SENSORS)
+             + ("humanoid_elliptic",) + MANY_BODY + CONVEX + SENSORS
+             + ACTUATION)
+# the SO3 scenes of tests/test_so3.py and tests/test_actuator.py's PID,
+# which the pip compiler predates
+ACTUATION_CARRIED = ("so3_refsite", "so3_ball", "so3_integrator", "pid")
 # carried across from the reference's Model (tests/test_torch_model.py)
-CARRIED = ("multi_humanoid3",)
+CARRIED = ("multi_humanoid3",) + ACTUATION_CARRIED
 
 
 def snapshot_path(name: str) -> str:

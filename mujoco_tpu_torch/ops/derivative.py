@@ -4,9 +4,9 @@ mujoco_tpu/ops/derivative.py: ``actuator_vel`` :27, ``passive_vel`` :121,
 ``free_mhat`` :190).
 
 qDeriv = ∂(qfrc_actuator + qfrc_passive − qfrc_bias)/∂qvel, dense
-(B, nv, nv). The actuator and passive terms are closed forms over what
-``io.put_model`` admits: FIXED, AFFINE and MUSCLE gains times ctrl or the
-activation, AFFINE biases, dof and tendon damping. The RNE term is the derivative
+(B, nv, nv). The actuator and passive terms are closed forms: AFFINE and
+MUSCLE gains times ctrl or the activation, AFFINE and SO3 biases, the DC
+motor's terms, dof and tendon damping. The RNE term is the derivative
 of the port's own ``smooth.com_vel`` and ``smooth.rne`` with respect to
 qvel, by automatic differentiation as the reference takes it with
 ``jax.jacfwd``: here reverse mode over a batch grown k-fold, one
@@ -22,7 +22,9 @@ import torch
 from mujoco_tpu_torch.models.types import (BiasType, Data, DisableBit,
                                            GainType, JointType, Model)
 from mujoco_tpu_torch.ops import actuation, muscle, smooth
+from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
+from mujoco_tpu_torch.utils.math import MINVAL
 
 
 def wants_graph(m: Model, d: Data) -> bool:
@@ -37,38 +39,81 @@ def wants_graph(m: Model, d: Data) -> bool:
 
 def actuator_vel(m: Model, d: Data):
   """∂qfrc_actuator/∂qvel (mjd_actuator_vel): momentᵀ·diag(gain_vel·input
-  + bias_vel)·moment, the input ctrl for a stateless actuator, else its
-  activation (the next step's under actearly), and the MUSCLE gain's
-  velocity derivative (mjd_muscleGain_vel); zero for an actuator whose
-  force sits at its limit."""
+  + bias_vel)·moment over the force outputs, the input ctrl for a
+  stateless actuator, else its last activation (the next step's under
+  actearly); the MUSCLE gain's velocity derivative (mjd_muscleGain_vel),
+  an SO3 servo's kv on each of its rows, and the DC motor's back-EMF,
+  controller damping (through the current filter's one-step response
+  where it has a current slot) and LuGre micro-damping; zero for an
+  actuator whose force sits at its limit (an SO3 torque's norm)."""
   nbatch = d.qpos.shape[0]
   if m.nu == 0 or m.disabled(DisableBit.ACTUATION):
     return d.qpos.new_zeros((nbatch, m.nv, m.nv))
   dev = m.device
-  bias_vel = torch.where(const(m.actuator_biastype == BiasType.AFFINE, dev),
-                         m.actuator_biasprm[:, 2], 0.0)
-  gain_vel = torch.where(const(m.actuator_gaintype == GainType.AFFINE, dev),
-                         m.actuator_gainprm[:, 2], 0.0)
-  cols = np.nonzero(m.actuator_gaintype == GainType.MUSCLE)[0]
+  gt, bt = np.asarray(m.actuator_gaintype), np.asarray(m.actuator_biastype)
+  slots = np.asarray(m.actuator_slots)
+  g, dp = m.actuator_gainprm, m.actuator_dynprm
+  bias_vel = torch.where(const(np.isin(bt, [BiasType.AFFINE, BiasType.SO3]),
+                               dev), m.actuator_biasprm[:, 2], 0.0)
+  r = torch.clamp(g[:, 0], min=MINVAL)
+  k = g[:, 1]
+  backemf = (bt == BiasType.DCMOTOR) & (slots[:, 4] < 0)
+  if backemf.any():
+    bias_vel = torch.where(const(backemf, dev), bias_vel - k * k / r,
+                           bias_vel)
+  dc = gt == GainType.DCMOTOR
+  if dc.any():
+    mode = slots[:, 6]
+    dvdw = torch.where(const(mode == 1, dev), -g[:, 6],
+                       torch.where(const(mode == 2, dev), -g[:, 4], 0.0))
+    s = 1.0 - torch.exp(-m.opt.timestep / dp[:, 0])
+    cur = slots[:, 4] >= 0
+    term = torch.where(const(cur, dev), k * (dvdw - k) * s / r,
+                       k * dvdw / r)
+    bias_vel = torch.where(const(dc & (cur | (mode == 1) | (mode == 2)), dev),
+                           bias_vel + term, bias_vel)
+    brist = dc & (slots[:, 3] >= 0)
+    if brist.any():
+      bias_vel = torch.where(const(brist, dev), bias_vel - dp[:, 6],
+                             bias_vel)
+  gain_vel = torch.where(const(gt == GainType.AFFINE, dev), g[:, 2], 0.0)
+  outadr = np.asarray(m.actuator_outadr)
+  cols = np.nonzero(gt == GainType.MUSCLE)[0]
   if len(cols):
     c = index(cols, dev)
+    o = index(outadr[cols], dev)
     gain_vel = gain_vel.expand(nbatch, -1).index_copy(1, c, muscle.gain_vel(
-        d.actuator_length[:, c], d.actuator_velocity[:, c],
-        m.actuator_lengthrange[c], m.actuator_acc0[c],
-        m.actuator_gainprm[c]))
-  ctrl = d.ctrl
+        d.actuator_length[:, o], d.actuator_velocity[:, o],
+        m.actuator_lengthrange[c], m.actuator_acc0[c], g[c]))
+  inp = d.ctrl[:, index(np.asarray(m.actuator_ctrladr), dev)]
   if not m.disabled(DisableBit.CLAMPCTRL):
     rng = m.actuator_ctrlrange
-    ctrl = torch.where(const(m.actuator_ctrllimited.astype(bool), dev),
-                       torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
-  inp = ctrl
+    inp = torch.where(const(m.actuator_ctrllimited.astype(bool), dev),
+                      torch.clamp(inp, rng[:, 0], rng[:, 1]), inp)
   if m.na:
-    inp = actuation.actuator_input(m, d, ctrl, d.act_dot)
+    act = d.act
+    early = np.asarray(m.actuator_actearly).astype(bool)
+    a = actuation._act_of_actuator(m, act)
+    if early.any():
+      nxt = actuation._act_of_actuator(m, actuation.next_activation(
+          m, d.act, d.act_dot, d.actuator_velocity))
+      a = torch.where(const(early, dev), nxt, a)
+    inp = torch.where(const(np.asarray(m.actuator_actnum) > 0, dev), a, inp)
   coef = bias_vel + gain_vel * inp
   f, frange = d.actuator_force, m.actuator_forcerange
-  clamped = (const(m.actuator_forcelimited.astype(bool), dev)
-             & ((f <= frange[:, 0]) | (f >= frange[:, 1])))
-  coef = torch.where(clamped, 0.0, coef)
+  fo = f[:, index(outadr, dev)]
+  clamped = (fo <= frange[:, 0]) | (fo >= frange[:, 1])
+  so3 = np.nonzero(gt == GainType.SO3)[0]
+  if len(so3):
+    norm = mjm.norm_safe(f[:, index(outadr[so3][:, None] + np.arange(3),
+                                    dev)])
+    clamped = clamped.index_copy(
+        1, index(so3, dev), norm >= frange[index(so3, dev), 1])
+  coef = torch.where(const(m.actuator_forcelimited.astype(bool), dev)
+                     & clamped, 0.0, coef)
+  if m.nout != m.nu:
+    coef = coef[:, index(np.repeat(np.arange(m.nu),
+                                   np.asarray(m.actuator_outnum)), dev)]
   moment = d.actuator_moment
   return moment.transpose(1, 2) @ (coef[..., None] * moment)
 

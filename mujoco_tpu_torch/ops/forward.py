@@ -7,15 +7,16 @@ ten_velocity and the tendon-armature bias ``_tendon_bias`` :91),
 through the CUDA LDL kernel, or under CG through the tree factor),
 ``fwd_constraint`` (:134), ``forward`` (:152, with the energy and sensor
 stages of ``ops/sensor.py``), ``integrate_pos`` (:210), ``_advance``
-(:300, with the activations' advance and the INTEGRATOR setpoint wrap),
+(:300, with the history buffers' advance ``_advance_history`` :365, the
+activations' advance and the INTEGRATOR and SO3 setpoint wraps),
 ``euler`` (:416, with implicit joint damping), ``rungekutta4`` (:437,
 act in each stage), ``implicit`` (:472, IMPLICIT and IMPLICITFAST, with
 ``ops/derivative.py``) and ``step`` (:515), with the sleep hooks
 (:53-65, :143-147, :327-332) into ``ops/sleep.py``: the wake pass after
 collision, the rows of sleeping trees masked after ``make_constraint``,
 sleeping dofs' qacc zeroed after the solve and the countdown at the top of
-the advance. Flex and history are outside the slice; ``io.put_model``
-rejects models that need them.
+the advance. As the reference's, RK4 advances no history buffer. Flex is
+outside the slice; ``io.put_model`` rejects models that need it.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ from mujoco_tpu_torch.models.types import (Data, DisableBit, EnableBit,
                                            Integrator, JointType, Model,
                                            SolverType)
 from mujoco_tpu_torch.ops import (actuation, collision_driver, constraint,
-                                  derivative, linalg_cuda, passive, sensor,
-                                  sleep, smooth, solver, support)
+                                  derivative, history, linalg_cuda, passive,
+                                  sensor, sleep, smooth, solver, support)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -197,13 +198,55 @@ def integrate_pos(m: Model, qpos, qvel, dt):
   return out
 
 
+def _advance_history(m: Model, d: Data) -> Data:
+  """Each ctrl and sensor sample inserted into its history buffer at the
+  step's time (mj_advance's history block; mujoco_tpu/ops/forward.py:
+  365-413), one insert per buffer group: ctrl as given, a delayed sensor's
+  value before its delayed read (``sensor.raw_sensordata``: its group
+  alone, from the forward pass's fields, where the reference runs the
+  three stages again), every other sensor's sensordata; an interval
+  sensor only when its tick fires, its user word then moving on by one
+  period."""
+  plan = history.plan(m)
+  dev = m.device
+  buf, t = d.history, d.time[:, None]
+  for g in plan["ctrl"]:
+    ctrl = d.ctrl[:, index(np.asarray(m.actuator_ctrladr)[g.ids], dev)]
+    buf = history.insert_group(buf, g, t.expand(-1, len(g.ids)),
+                               ctrl[..., None])
+  raw = None
+  for g in plan["sensor"]:
+    cols = index(history.sensor_columns(m, g), dev)
+    delayed = np.asarray(m.sensor_delay)[g.ids] > 0
+    val = d.sensordata[:, cols]
+    if delayed.any():
+      if raw is None:
+        raw = sensor.raw_sensordata(m, d)
+      val = torch.where(const(delayed[:, None], dev), raw[:, cols], val)
+    block = history.gather_block(buf, g)
+    tg = t.expand(-1, len(g.ids))
+    new = history.insert_block(block, g.n, g.dim, tg, val)
+    period = np.asarray(m.sensor_interval).reshape(-1, 2)[g.ids, 0]
+    if np.any(period > 0):
+      p = const(period, dev, block.dtype)
+      prev = block[..., 0]
+      fire = (prev + p <= tg) | const(period <= 0, dev)
+      new = torch.cat([torch.where(const(period > 0, dev), prev + p,
+                                   new[..., 0])[..., None], new[..., 1:]], -1)
+      new = torch.where(fire[..., None], new, block)
+    buf = history.scatter_block(buf, g, new)
+  return d.replace(history=buf)
+
+
 def _advance(m: Model, d: Data, act_dot, qacc, qvel_pos=None) -> Data:
-  """The state advance every integrator ends with (mj_advance): act by
-  ``next_activation`` with the INTEGRATOR setpoint wrap, qvel += h·qacc,
-  qpos by integrate_pos, time += h; d.qacc, and so the next warmstart,
-  stays the solver's acceleration."""
+  """The state advance every integrator but RK4 ends with (mj_advance):
+  the history buffers, act by ``next_activation`` with the INTEGRATOR and
+  SO3 setpoint wraps, qvel += h·qacc, qpos by integrate_pos, time += h;
+  d.qacc, and so the next warmstart, stays the solver's acceleration."""
   h = m.opt.timestep
-  act = actuation.next_activation(m, d.act, act_dot)
+  if m.nhistory:
+    d = _advance_history(m, d)
+  act = actuation.next_activation(m, d.act, act_dot, d.actuator_velocity)
   # the sleep countdown first: trees that fall asleep keep qvel 0
   d, qacc = sleep.sleep_step(m, d, qacc)
   if m.na:

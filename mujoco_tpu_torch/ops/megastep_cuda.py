@@ -122,8 +122,8 @@ def supported(m: Model) -> bool:
   """Whether the kernel runs m: the reference's model class
   (mujoco_tpu/ops/megastep_tpu.py:92-178), within the kernel's own size
   class (nv ≤ MAX_NV, its work space within MAX_SMEM). Fields the port's
-  Model lacks (history, flex, fluid, actuator delays) belong to models
-  ``io.put_model`` refuses. Unlike the reference, a missing field
+  Model lacks (flex, SDF groups) belong to models ``io.put_model``
+  refuses. Unlike the reference, a missing field
   raises instead of answering False. The answer is computed once per Model
   and kept in the tables' cache entry, so a later call reads nothing back
   from the card."""
@@ -156,9 +156,12 @@ def _supported(m: Model) -> bool:
     return False
   if m.disabled(DisableBit.CONSTRAINT) or m.disabled(DisableBit.REFSAFE):
     return False
-  # sensors and activation state (megastep_tpu.py:111-113): the kernel
-  # computes no sensordata and no act
-  if m.nsensor or m.na:
+  # fluid forces (megastep_tpu.py:109): the kernel computes none
+  if float(opt.viscosity) != 0.0 or float(opt.density) != 0.0:
+    return False
+  # sensors, history buffers and activation state (megastep_tpu.py:
+  # 111-113): the kernel computes no sensordata, no history and no act
+  if m.nsensor or m.nhistory or m.na:
     return False
   # the reference leaves models its stage path would island-decompose on
   # that path (megastep_tpu.py:118-120), and models with dynamic pair
@@ -192,14 +195,16 @@ def _supported(m: Model) -> bool:
     if int(m.jnt_type[int(m.actuator_trnid[i, 0])]) not in (
         JointType.HINGE, JointType.SLIDE):
       return False
+    # a delayed ctrl (megastep_tpu.py:176): the kernel reads ctrl as given
+    if float(m.actuator_delay[i]) != 0.0:
+      return False
   # the lane step has no joint actuator-force clamp; the reference's gate
   # does not test for one (ROADMAP §C)
   if np.any(np.asarray(m.jnt_actfrclimited)):
     return False
   # tendons and mocap bodies (megastep_tpu.py:111-112), and limit rows of
-  # anything but a hinge or slide joint (:137-140); history, flex, fluid
-  # forces and actuator delays are refused by io.put_model before a Model
-  # exists
+  # anything but a hinge or slide joint (:137-140); flex and SDF groups
+  # are refused by io.put_model before a Model exists
   if m.ntendon or m.nmocap:
     return False
   if np.any(np.asarray(m.efc.limit_jnt) < 0):

@@ -1,11 +1,15 @@
-"""Rays against primitive geoms (port of the primitive part of
-mujoco_tpu/ops/ray.py:25-150 and ``ray_geom`` :240: ray_plane, ray_sphere,
-ray_capsule, ray_ellipsoid, ray_cylinder, ray_box and mju_rayGeom), which
-the touch sensor casts against its site. Every candidate intersection is
-computed and masked, as the reference does; the arguments broadcast over
-any leading dims (pos, pnt, vec (..., 3), mat (..., 3, 3), size (..., 3)).
-"No hit" is inf. The ray over every geom of a model, meshes, height
-fields, flex and skin wait for the ray and render slice.
+"""Rays against geoms (port of mujoco_tpu/ops/ray.py: the primitives
+:25-150 ray_plane, ray_sphere, ray_capsule, ray_ellipsoid, ray_cylinder
+and ray_box, ``_ray_triangles`` :150, ``make_ray_mesh`` :169,
+``make_ray_hfield`` :186, ``ray_geom`` :240 and ``ray`` :249), which the
+touch sensor casts against its site and the rangefinder against the
+scene. Every candidate intersection is computed and masked, as the
+reference does; the arguments broadcast over any leading dims (pos, pnt,
+vec (..., 3), mat (..., 3, 3), size (..., 3)). "No hit" is inf. ``ray``
+takes any number of rays at once and evaluates each group of geoms of one
+type (a mesh's or height field's per asset) as one (B, nray, ngeom)
+computation. ``multi_ray``, flex and skin rays wait for the ray and render
+slice.
 """
 
 from __future__ import annotations
@@ -15,9 +19,9 @@ import math
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import GeomType
-from mujoco_tpu_torch.utils.device import const
-from mujoco_tpu_torch.utils.math import MINVAL, dot
+from mujoco_tpu_torch.models.types import Data, GeomType, Model
+from mujoco_tpu_torch.utils.device import const, index
+from mujoco_tpu_torch.utils.math import MINVAL, cross, dot
 
 _INF = math.inf
 
@@ -150,3 +154,120 @@ def ray_geom(pos, mat, size, pnt, vec, geomtype: int):
   if fn is None:
     raise NotImplementedError(f"ray vs geom type {geomtype}")
   return fn(pos, mat, size, pnt, vec)
+
+
+def _ray_triangles(lpnt, lvec, v0, v1, v2):
+  """Möller–Trumbore over every triangle (F, 3) at once: the nearest hit
+  along each ray (..., 3), or inf (the all-triangle form of mj_rayMesh's
+  tree walk)."""
+  lpnt, lvec = lpnt[..., None, :], lvec[..., None, :]
+  e1, e2 = v1 - v0, v2 - v0
+  h = cross(lvec, e2)
+  a = dot(e1, h)
+  ok_a = a.abs() > MINVAL
+  safe_a = torch.where(ok_a, a, 1.0)
+  sv = lpnt - v0
+  u = dot(sv, h) / safe_a
+  q = cross(sv, e1)
+  v = dot(lvec, q) / safe_a
+  t = dot(e2, q) / safe_a
+  ok = ok_a & (u >= 0) & (v >= 0) & (u + v <= 1) & (t >= 0)
+  return torch.where(ok, t, _INF).amin(-1)
+
+
+def make_ray_mesh(m: Model, meshid: int):
+  """The ray collider of one mesh (mj_rayMesh): all its triangles in the
+  geom's frame."""
+  vadr, fadr = int(m.mesh_vertadr[meshid]), int(m.mesh_faceadr[meshid])
+  fnum = int(m.mesh_facenum[meshid])
+  faces = np.asarray(m.mesh_face)[fadr:fadr + fnum] + vadr
+
+  def fn(pos, mat, size, pnt, vec):
+    lpnt, lvec = _ray_map(pos, mat, pnt, vec)
+    v = [m.mesh_vert[index(faces[:, k], m.device)] for k in range(3)]
+    return _ray_triangles(lpnt, lvec, *v)
+  return fn
+
+
+def make_ray_hfield(m: Model, hid: int):
+  """The ray collider of one height field (mj_rayHfield): every grid
+  triangle (the cell diagonal as the colliders cut it) and the base
+  prism's box."""
+  adr, nrow = int(m.hfield_adr[hid]), int(m.hfield_nrow[hid])
+  ncol = int(m.hfield_ncol[hid])
+  size = np.asarray(m.hfield_size_np)[hid]
+  xs = np.linspace(-size[0], size[0], ncol)
+  ys = np.linspace(-size[1], size[1], nrow)
+  r, c = np.meshgrid(np.arange(nrow - 1), np.arange(ncol - 1), indexing="ij")
+  r, c = r.ravel(), c.ravel()
+  base = np.array([size[0], size[1], size[3] * 0.5])
+  shift = np.array([0.0, 0.0, -size[3] * 0.5])
+
+  def fn(pos, mat, gsize, pnt, vec):
+    lpnt, lvec = _ray_map(pos, mat, pnt, vec)
+    dev, dt = lpnt.device, lpnt.dtype
+    z = m.hfield_data[adr:adr + nrow * ncol].reshape(nrow, ncol) * size[2]
+
+    def corner(rr, cc):
+      return torch.stack([const(xs[cc], dev, dt), const(ys[rr], dev, dt),
+                          z[index(rr, dev), index(cc, dev)]], -1)
+    p00, p01 = corner(r, c), corner(r, c + 1)
+    p10, p11 = corner(r + 1, c), corner(r + 1, c + 1)
+    best = _ray_triangles(lpnt, lvec, torch.cat([p00, p00]),
+                          torch.cat([p01, p11]), torch.cat([p11, p10]))
+    eye = const(np.eye(3), dev, dt)
+    b = ray_box(const(shift, dev, dt), eye, const(base, dev, dt), lpnt, lvec)
+    return torch.minimum(best, b)
+  return fn
+
+
+def _groups(m: Model) -> list:
+  """The geoms a ray can hit, grouped by (type, mesh or height-field
+  id) in geom order: (collider, geom ids)."""
+  keyed = {}
+  for g in range(m.ngeom):
+    t = int(m.geom_type[g])
+    if t in (GeomType.MESH, GeomType.HFIELD):
+      keyed.setdefault((t, int(m.geom_dataid[g])), []).append(g)
+    elif t in _RAY_FUNC:
+      keyed.setdefault((t, -1), []).append(g)
+  out = []
+  for (t, did), geoms in sorted(keyed.items()):
+    fn = (make_ray_mesh(m, did) if t == GeomType.MESH else
+          make_ray_hfield(m, did) if t == GeomType.HFIELD else _RAY_FUNC[t])
+    out.append((fn, np.array(geoms, dtype=np.int64)))
+  return out
+
+
+def ray(m: Model, d: Data, pnt, vec, bodyexclude=None):
+  """Rays (B, R, 3) from pnt along vec against every geom (mj_ray, with
+  its static geoms and no group filter): (distance (B, R), geom id
+  (B, R)), −1 and −1 where a ray hits nothing. bodyexclude (R,): a body
+  whose geoms each ray passes through (−1: none). Ties go to the lower
+  geom id, as the reference's argmin."""
+  dev = m.device
+  nray = pnt.shape[1]
+  parts, order = [], []
+  for fn, geoms in _groups(m):
+    gi = index(geoms, dev)
+    x = fn(d.geom_xpos[:, None, gi], d.geom_xmat[:, None, gi],
+           m.geom_size[gi], pnt[:, :, None], vec[:, :, None])   # (B, R, G)
+    if bodyexclude is not None:
+      own = (np.asarray(m.geom_bodyid)[geoms][None, :]
+             == np.asarray(bodyexclude)[:, None])
+      x = torch.where(const(own, dev), _INF, x)
+    parts.append(x)
+    order.append(geoms)
+  if not parts:
+    return (pnt.new_full(pnt.shape[:2], -1.0),
+            torch.full(pnt.shape[:2], -1, dtype=torch.long, device=dev))
+  dists = torch.cat(parts, -1)
+  # back to geom order, so that argmin breaks ties as the reference does
+  geoms = np.concatenate(order)
+  dists = dists[..., index(np.argsort(geoms, kind="stable"), dev)]
+  arg = dists.argmin(-1)
+  best = torch.gather(dists, -1, arg[..., None])[..., 0]
+  hit = torch.isfinite(best)
+  gid = index(np.sort(geoms), dev)[arg]
+  return (torch.where(hit, best, -1.0),
+          torch.where(hit, gid, -1).reshape(-1, nray))

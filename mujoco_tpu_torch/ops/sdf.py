@@ -1,8 +1,10 @@
-"""Signed distances of the box, cylinder and ellipsoid, with their
-gradients, for the height-field colliders (port of the three SDFs of
-mujoco_tpu/ops/sdf.py that ``collision_hfield`` reaches: ``sd_cylinder``
-:36, ``sd_ellipsoid`` :44 and ``sd_box`` :53; the rest of that module
-waits for the SDF slice).
+"""Signed distances of the primitives: the box, cylinder and ellipsoid
+with their gradients, for the height-field colliders, and every
+primitive's distance for the tactile sensor (port of mujoco_tpu/ops/
+sdf.py: ``sd_plane`` :22, ``sd_sphere`` :26, ``sd_capsule`` :30,
+``sd_cylinder`` :36, ``sd_ellipsoid`` :44, ``sd_box`` :53 and
+``geom_distance`` :463; the mesh, plugin and grid SDFs wait for the SDF
+slice).
 
 Points x (..., 3) are in the geom's frame; size broadcasts against them.
 ``value_and_grad(kind, x, size)`` gives what the reference's
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from mujoco_tpu_torch.models.types import GeomType
 from mujoco_tpu_torch.utils import math as mjm
 
 
@@ -146,3 +149,28 @@ def value_and_grad(kind: str, x, size):
   """(signed distance (...,), gradient (..., 3)) of the geom ``kind`` at
   local points x."""
   return _FNS[kind](x, size)
+
+
+def _capsule(x, size):
+  z = x[..., 2] - torch.minimum(torch.maximum(x[..., 2], -size[..., 1]),
+                                size[..., 1])
+  return mjm.norm_safe(torch.stack([x[..., 0], x[..., 1], z], -1)) \
+      - size[..., 0]
+
+
+_DIST = {int(GeomType.PLANE): lambda x, size: x[..., 2],
+         int(GeomType.SPHERE): lambda x, size: mjm.norm_safe(x) - size[..., 0],
+         int(GeomType.CAPSULE): _capsule,
+         int(GeomType.CYLINDER): lambda x, size: _cylinder(x, size)[0],
+         int(GeomType.ELLIPSOID): lambda x, size: _ellipsoid(x, size)[0],
+         int(GeomType.BOX): lambda x, size: _box(x, size)[0]}
+
+
+def has_sdf(geomtype: int) -> bool:
+  return int(geomtype) in _DIST
+
+
+def distance(geomtype: int, x, size):
+  """Signed distance (...,) of local points x (..., 3) to a primitive of
+  static type, negative inside (geomDistance)."""
+  return _DIST[int(geomtype)](x, size)

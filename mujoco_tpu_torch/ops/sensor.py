@@ -1,9 +1,12 @@
 """Sensors, energy and the post-constraint body dynamics they read (port
 of mujoco_tpu/ops/sensor.py: ``object_pos_mat`` :34, ``object_quat`` :51,
 ``object_velocity`` :79, ``object_acceleration`` :93, ``contact_force``
-:115, ``subtree_vel`` :383, ``rne_postconstraint`` :418, ``energy_pos``
-/``energy_vel`` :526/:560, ``sensor_pos``/``sensor_vel``/``sensor_acc``
-:629/:772/:845 with the cutoff :571, ``_touch`` :922 and ``inside_geom``
+:115, the contact sensor's ``_con_bodies`` :154, ``_check_match`` :168,
+``_match_contacts`` :186 and ``_contact_sensor`` :222, ``_tactile`` :310,
+``subtree_vel`` :383, ``rne_postconstraint`` :418, ``energy_pos``
+/``energy_vel`` :526/:560, ``_history_adjust`` :595,
+``sensor_pos``/``sensor_vel``/``sensor_acc`` :629/:772/:845 with the
+cutoff :571, ``_touch`` :922, ``geom_distance`` :953 and ``inside_geom``
 :983).
 
 The reference loops over sensors in Python and writes each one into
@@ -16,10 +19,20 @@ write of all its values into sensordata through a static index table. A
 stage's launches therefore grow with its number of groups, not of
 sensors.
 
-Every sensor type the reference computes is here, but the rangefinder,
-the geom-distance sensors (GEOMDIST, GEOMNORMAL, GEOMFROMTO), contact and
-tactile sensors, plugins and user sensors, which ``io.put_model``
-refuses, as it refuses delays, intervals and history buffers.
+Every sensor type the reference computes is here but plugins and user
+sensors, which ``io.put_model`` refuses. The rangefinders of a group are
+one ``ray.ray`` over the scene; the geom-distance sensors' geom pairs are
+one collider call per pair type; the contact sensors of a group (one
+match, reduction and data layout) are one match over (B, k, ncon) and one
+stable sort; the tactile sensors of a group are one signed-distance
+evaluation per geom type over all their taxels. Contact slots are fixed,
+so under ``reduce="none"`` a sensor reports its contacts in slot order
+(ROADMAP "Known deviations"). Each stage ends with the delayed and
+interval sensors' reads of their history buffers (``_history_adjust``);
+the advance inserts a delayed sensor's value before that read, which
+``raw_sensordata`` computes again from the forward pass's fields for the
+delayed sensors' groups alone, where the reference runs the three stages
+again.
 """
 
 from __future__ import annotations
@@ -31,7 +44,7 @@ from mujoco_tpu_torch.models.types import (ConeType, Data, DataType,
                                            DisableBit, EqType, GeomType,
                                            JointType, Model, ObjType,
                                            SensorType, Stage, TrnType)
-from mujoco_tpu_torch.ops import ray
+from mujoco_tpu_torch.ops import history, ray, sdf
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -326,7 +339,13 @@ _NEED_ENERGY_POS = (ST.E_POTENTIAL,)
 _NEED_SUBTREE = (ST.SUBTREELINVEL, ST.SUBTREEANGMOM)
 _NEED_RNEPOST = (ST.ACCELEROMETER, ST.FORCE, ST.TORQUE, ST.FRAMELINACC,
                  ST.FRAMEANGACC, ST.TOUCH)
+_NEED_CONTACT_FORCE = (ST.TOUCH, ST.CONTACT)
 _SITE_GEOM = (ST.TOUCH, ST.INSIDESITE)
+_GEOM_DIST = (ST.GEOMDIST, ST.GEOMNORMAL, ST.GEOMFROMTO)
+_ACTUATOR_SENSORS = (ST.ACTUATORPOS, ST.ACTUATORVEL, ST.ACTUATORFRC)
+# a contact sensor's per-field widths in dataspec bit order: found,
+# force, torque, dist, pos, normal, tangent (mjCONDATA_SIZE)
+_CONDATA_SIZE = (1, 3, 3, 1, 3, 3, 3)
 
 _CACHE: dict = {}
 
@@ -344,52 +363,74 @@ def _limit_rows(m: Model, objid: np.ndarray, tendon: bool) -> np.ndarray:
   return out
 
 
+def _stage_plan(m: Model, sids: np.ndarray) -> dict:
+  """The groups of sensors ``sids`` (one stage's) and the static tables of
+  their write."""
+  stype = np.asarray(m.sensor_type)
+  groups = {}
+  for i in sids:
+    t = int(stype[i])
+    refid = int(m.sensor_refid[i])
+    reftype = int(m.sensor_reftype[i]) if refid >= 0 else -1
+    sub = -1
+    if t in _SITE_GEOM:
+      site = int(m.sensor_objid[i] if t == ST.TOUCH else refid)
+      sub = int(m.site_type[site])
+    elif t in _ACTUATOR_SENSORS:
+      # an SO3 actuator's sensor has its three outputs
+      sub = int(m.actuator_outnum[m.sensor_objid[i]])
+    elif t == ST.CONTACT:
+      # one match, reduction and layout per group
+      site = (int(m.site_type[m.sensor_objid[i]])
+              if int(m.sensor_objtype[i]) == ObjType.SITE else -1)
+      sub = tuple(int(x) for x in m.sensor_intprm[i]) + (site,)
+    elif t == ST.TACTILE:
+      mesh = int(m.sensor_objid[i])
+      vnum = int(m.mesh_vertnum[mesh])
+      sub = (int(m.sensor_dim[i]) // vnum, vnum,
+             int(m.mesh_normalnum[mesh]) == 3 * vnum)
+    key = (t, int(m.sensor_objtype[i]), reftype, sub)
+    groups.setdefault(key, []).append(int(i))
+  glist, cols, col_sensor = [], [], []
+  for key, members in sorted(groups.items()):
+    ids = np.array(members, dtype=np.int64)
+    dim = int(m.sensor_dim[ids[0]])
+    glist.append({"type": ST(key[0]), "objtype": key[1],
+                  "reftype": key[2], "subtype": key[3], "sensors": ids,
+                  "objid": np.asarray(m.sensor_objid)[ids],
+                  "refid": np.asarray(m.sensor_refid)[ids], "dim": dim})
+    adr = np.asarray(m.sensor_adr)[ids]
+    cols.append((adr[:, None] + np.arange(dim)).ravel())
+    col_sensor.append(np.repeat(ids, dim))
+  col_sensor = (np.concatenate(col_sensor) if col_sensor
+                else np.zeros(0, np.int64))
+  dtype_of = np.asarray(m.sensor_datatype)[col_sensor]
+  cutoff = m.sensor_cutoff.detach().cpu().numpy()[col_sensor]
+  return {"groups": glist,
+          "cols": np.concatenate(cols) if cols else np.zeros(0, np.int64),
+          "col_sensor": col_sensor,
+          "real": dtype_of == DataType.REAL,
+          "positive": dtype_of == DataType.POSITIVE,
+          "has_cutoff": bool(np.any(cutoff > 0)),
+          "types": {g["type"] for g in glist}}
+
+
 def _plan(m: Model) -> dict:
-  """Per stage, the sensors' groups and the static tables of its write:
-  made once per Model, identity-checked as ``island._analysis`` is."""
+  """Per stage, the sensors' groups and the static tables of its write,
+  and the same for the delayed sensors alone: made once per Model,
+  identity-checked as ``island._analysis`` is."""
   entry = _CACHE.get(id(m))
   if entry is not None and entry["model"] is m:
     return entry
-  stype = np.asarray(m.sensor_type)
-  stages = {}
-  for stage in (Stage.POS, Stage.VEL, Stage.ACC):
-    sids = np.nonzero(np.asarray(m.sensor_needstage) == stage)[0]
-    groups = {}
-    for i in sids:
-      t = int(stype[i])
-      refid = int(m.sensor_refid[i])
-      reftype = int(m.sensor_reftype[i]) if refid >= 0 else -1
-      sub = -1
-      if t in _SITE_GEOM:
-        site = int(m.sensor_objid[i] if t == ST.TOUCH else refid)
-        sub = int(m.site_type[site])
-      key = (t, int(m.sensor_objtype[i]), reftype, sub)
-      groups.setdefault(key, []).append(int(i))
-    glist, cols, col_sensor = [], [], []
-    for key, members in sorted(groups.items()):
-      ids = np.array(members, dtype=np.int64)
-      dim = int(m.sensor_dim[ids[0]])
-      glist.append({"type": ST(key[0]), "objtype": key[1],
-                    "reftype": key[2], "subtype": key[3], "sensors": ids,
-                    "objid": np.asarray(m.sensor_objid)[ids],
-                    "refid": np.asarray(m.sensor_refid)[ids], "dim": dim})
-      adr = np.asarray(m.sensor_adr)[ids]
-      cols.append((adr[:, None] + np.arange(dim)).ravel())
-      col_sensor.append(np.repeat(ids, dim))
-    col_sensor = (np.concatenate(col_sensor) if col_sensor
-                  else np.zeros(0, np.int64))
-    dtype_of = np.asarray(m.sensor_datatype)[col_sensor]
-    cutoff = m.sensor_cutoff.detach().cpu().numpy()[col_sensor]
-    stages[int(stage)] = {
-        "groups": glist,
-        "cols": np.concatenate(cols) if cols else np.zeros(0, np.int64),
-        "col_sensor": col_sensor,
-        "real": dtype_of == DataType.REAL,
-        "positive": dtype_of == DataType.POSITIVE,
-        "has_cutoff": bool(np.any(cutoff > 0)),
-        "types": {g["type"] for g in glist}}
-  entry = {"model": m, "stages": stages,
-           "types": {ST(int(t)) for t in stype}}
+  stage = np.asarray(m.sensor_needstage)
+  delayed = ((np.asarray(m.sensor_delay) > 0)
+             & (np.asarray(m.sensor_history)[:, 0] > 0))
+  stages, raw = {}, {}
+  for s in (Stage.POS, Stage.VEL, Stage.ACC):
+    stages[int(s)] = _stage_plan(m, np.nonzero(stage == s)[0])
+    raw[int(s)] = _stage_plan(m, np.nonzero((stage == s) & delayed)[0])
+  entry = {"model": m, "stages": stages, "raw": raw,
+           "types": {ST(int(t)) for t in np.asarray(m.sensor_type)}}
   _CACHE[id(m)] = entry
   return entry
 
@@ -488,6 +529,285 @@ def _touch(m: Model, d: Data, g, cf):
   return torch.where(ok, fn[:, None, :], 0.0).sum(-1)
 
 
+def _geom_distance(m: Model, d: Data, g):
+  """(B, k) distance and (B, k, 6) fromto of each geom-distance sensor
+  (mj_geomDistance over the pairs of its geoms or its bodies' geoms):
+  each pair by the narrowphase collider of its type pair (the nearest of
+  its contacts; a pair no collider takes is at the cutoff), the first
+  pair at the least distance below the cutoff, else the cutoff and a zero
+  fromto (mujoco_tpu/ops/sensor.py:729-746, 953-980)."""
+  from mujoco_tpu_torch.ops import collision_driver
+  dev, nbatch = m.device, d.qpos.shape[0]
+  tab = g.get("pairs")
+  if tab is None:
+    def geoms(objtype, oid):
+      if int(objtype) == ObjType.GEOM:
+        return [int(oid)]
+      a = int(m.body_geomadr[oid])
+      return list(range(a, a + int(m.body_geomnum[oid])))
+    rows = [(j, ga, gb) for j, (o, r) in enumerate(zip(g["objid"],
+                                                        g["refid"]))
+            for ga in geoms(g["objtype"], o) for gb in geoms(g["reftype"], r)]
+    member = np.array([r[0] for r in rows], dtype=np.int64)
+    calls = {}
+    for k, (_, ga, gb) in enumerate(rows):
+      t1, t2 = int(m.geom_type[ga]), int(m.geom_type[gb])
+      a, b = (gb, ga) if t1 > t2 else (ga, gb)
+      key = (GeomType(min(t1, t2)), GeomType(max(t1, t2)))
+      if key in collision_driver._COLLIDERS:
+        calls.setdefault(key, []).append((k, a, b, t1 > t2))
+    width = max(np.bincount(member))
+    table = np.full((len(g["objid"]), width), len(rows), dtype=np.int64)
+    for j in range(len(g["objid"])):
+      ks = np.nonzero(member == j)[0]
+      table[j, :len(ks)] = ks
+    tab = g["pairs"] = {"member": member, "calls": calls, "table": table,
+                        "nrow": len(rows)}
+  cutoff = m.sensor_cutoff[index(g["sensors"][tab["member"]], dev)]
+  dist = cutoff.expand(nbatch, -1)
+  ft = d.qpos.new_zeros((nbatch, tab["nrow"], 6))
+  for key, call in tab["calls"].items():
+    fn = collision_driver._COLLIDERS[key][0]
+    rows = index([c[0] for c in call], dev)
+    a, b = index([c[1] for c in call], dev), index([c[2] for c in call], dev)
+    dd, pp, nn, _ = fn(d.geom_xpos[:, a], d.geom_xmat[:, a], m.geom_size[a],
+                       d.geom_xpos[:, b], d.geom_xmat[:, b], m.geom_size[b])
+    i = dd.argmin(-1)[..., None]
+    dmin = torch.gather(dd, -1, i)[..., 0]
+    pos = torch.gather(pp, -2, i[..., None].expand(i.shape + (3,)))[..., 0, :]
+    nrm = torch.gather(nn, -2, i[..., None].expand(i.shape + (3,)))[..., 0, :]
+    swap = const(np.array([c[3] for c in call]), dev)
+    nrm = torch.where(swap[:, None], -nrm, nrm)
+    half = (dmin * 0.5)[..., None]
+    cut = cutoff[rows]
+    ok = dmin < cut
+    dist = dist.index_copy(1, rows, torch.minimum(dmin, cut))
+    ft = ft.index_copy(1, rows, torch.where(
+        ok[..., None], torch.cat([pos - nrm * half, pos + nrm * half], -1),
+        0.0))
+  pad = lambda x, v: torch.cat([x, torch.full_like(x[:, :1], v)], 1)
+  table = index(tab["table"], dev)
+  dist = pad(dist, float("inf"))[:, table]                 # (B, k, width)
+  arg = dist.argmin(-1)
+  dmin = torch.gather(dist, -1, arg[..., None])[..., 0]
+  cut = m.sensor_cutoff[index(g["sensors"], dev)]
+  best = torch.minimum(dmin, cut)
+  ftk = torch.cat([ft, ft.new_zeros((nbatch, 1, 6))], 1)[:, table]
+  fromto = torch.gather(ftk, -2, arg[..., None, None].expand(
+      arg.shape + (1, 6)))[..., 0, :]
+  return best, torch.where((dmin < cut)[..., None], fromto, 0.0)
+
+
+def _check_match(m: Model, gids, bodies, objtype: int, ids, side: int):
+  """(B, k, ncon) whether each contact's side ``side`` matches each
+  sensor's object (checkMatch): any contact for no object or a site, the
+  geom, the body, or a body of the subtree (XBODY)."""
+  t = ObjType(max(int(objtype), 0))
+  nbatch, ncon = gids.shape[:2]
+  dev = gids.device
+  if t in (ObjType.UNKNOWN, ObjType.SITE):
+    return torch.ones((nbatch, len(ids), ncon), dtype=torch.bool, device=dev)
+  obj = index(ids, dev)[None, :, None]
+  if t == ObjType.GEOM:
+    return gids[:, None, :, side] == obj
+  if t == ObjType.BODY:
+    return bodies[:, None, :, side] == obj
+  if t == ObjType.XBODY:
+    sub = const(np.asarray(m.tree.subtree_mask)[np.asarray(ids)], dev)
+    return sub[:, bodies[..., side]].permute(1, 0, 2)
+  raise NotImplementedError(f"contact sensor match objtype {t.name}")
+
+
+def _match_contacts(m: Model, d: Data, g):
+  """(matched, flip), each (B, k, ncon), of each contact sensor of a
+  group (matchContact): filled contacts whose sides match its objects,
+  and whether its normal is reported flipped."""
+  gids = d.contact.geomids.long()
+  bodies = index(m.geom_bodyid, m.device)[gids.clamp(min=0)]
+  filled = (d.contact.dist < d.contact.includemargin)[:, None]
+  t1 = max(int(g["objtype"]), 0)
+  t2 = max(int(g["reftype"]), 0)
+  k = len(g["objid"])
+  if t1 == ObjType.UNKNOWN and t2 == ObjType.UNKNOWN:
+    matched = filled.expand(-1, k, -1)
+    return matched, torch.zeros_like(matched)
+  ok = True
+  if t1 == ObjType.SITE:
+    dev, site = m.device, g["objid"]
+    ok = inside_geom(_take(d.site_xpos, site, dev)[:, :, None],
+                     _take(d.site_xmat, site, dev)[:, :, None],
+                     m.site_size[index(site, dev)][:, None],
+                     g["subtype"][3], d.contact.pos[:, None]) > 0.5
+  m11 = _check_match(m, gids, bodies, t1, g["objid"], 0)
+  m12 = _check_match(m, gids, bodies, t1, g["objid"], 1)
+  m21 = _check_match(m, gids, bodies, t2, g["refid"], 0)
+  m22 = _check_match(m, gids, bodies, t2, g["refid"], 1)
+  ok = ok & (m11 | m12) & (m21 | m22)
+  if t1 != ObjType.UNKNOWN and t2 != ObjType.UNKNOWN:
+    regular, reverse = m11 & m22, m12 & m21
+    ok = ok & (regular | reverse)
+    flip = reverse & ~regular
+  elif t1 != ObjType.UNKNOWN:
+    flip = ~m11
+  else:
+    flip = ~m22
+  return ok & filled, flip
+
+
+def _contact_sensor(m: Model, d: Data, g, cf):
+  """(B, k, dim) values of a group of contact sensors (mjSENS_CONTACT):
+  the matched contacts reduced (netforce: one wrench about the force
+  centroid; mindist, maxforce or none: the first num by a stable sort) and
+  packed field by field in dataspec order; found counts every match."""
+  dataspec, reduce, num, _ = g["subtype"]
+  nbatch, k, ncon = d.qpos.shape[0], len(g["objid"]), m.con.ncon
+  if ncon == 0:
+    return d.qpos.new_zeros((nbatch, k, g["dim"]))
+  fields = [j for j in range(7) if dataspec & (1 << j)]
+  matched, flip = _match_contacts(m, d, g)
+  nmatch = matched.sum(-1).to(m.dtype)                      # (B, k)
+  con = d.contact
+  if reduce == 3:
+    sgn = torch.where(flip, -1.0, 1.0).to(m.dtype)
+    wrench = cf[:, None] * (sgn * matched.to(m.dtype))[..., None]
+    weight = mjm.norm_safe(wrench[..., :3])
+    total = torch.clamp(weight.sum(-1), min=mjm.MINVAL)
+    point = (weight[..., None] * con.pos[:, None]).sum(-2) / total[..., None]
+    frame = con.frame[:, None]
+    force_g = _mtv(frame, wrench[..., :3])
+    torque_g = _mtv(frame, wrench[..., 3:])
+    induced = mjm.cross(con.pos[:, None] - point[..., None, :], force_g)
+    axis = lambda a: const(np.eye(3)[a], m.device, m.dtype).expand(
+        nbatch, k, 3)
+    vals = {0: nmatch[..., None], 1: force_g.sum(-2),
+            2: (torque_g + induced).sum(-2), 3: nmatch.new_zeros((nbatch, k,
+                                                                  1)),
+            4: point, 5: axis(0), 6: axis(1)}
+    slot = torch.cat([vals[j] for j in fields], -1)[..., None, :]
+    nslot = 1
+  else:
+    if reduce == 1:
+      crit = con.dist
+    elif reduce == 2:
+      crit = -(cf[..., :3] ** 2).sum(-1)
+    else:
+      crit = torch.arange(ncon, device=m.device, dtype=m.dtype).expand(
+          nbatch, -1)
+    key = torch.where(matched, crit[:, None], float("inf"))
+    nslot = min(num, ncon)
+    order = torch.argsort(key, dim=-1, stable=True)[..., :nslot]  # (B, k, s)
+    valid = nmatch[..., None] > torch.arange(nslot, device=m.device)
+    sg = torch.where(torch.gather(flip, -1, order), -1.0, 1.0).to(m.dtype)
+    take = lambda x: torch.gather(
+        x[:, None].expand((nbatch, k) + x.shape[1:]), 2,
+        order.reshape(order.shape + (1,) * (x.dim() - 2)).expand(
+            order.shape + x.shape[2:]))
+    cfo = take(cf)
+    zsign = torch.stack([torch.ones_like(sg), torch.ones_like(sg), sg], -1)
+    frame = take(con.frame)
+    vals = {0: nmatch[..., None, None].expand(-1, -1, nslot, 1),
+            1: cfo[..., :3] * zsign, 2: cfo[..., 3:] * zsign,
+            3: take(con.dist)[..., None], 4: take(con.pos),
+            5: frame[..., 0, :] * sg[..., None],
+            6: frame[..., 1, :] * sg[..., None]}
+    slot = torch.cat([vals[j] for j in fields], -1)
+    slot = torch.where(valid[..., None], slot, 0.0)
+  out = slot.reshape(nbatch, k, -1)
+  if out.shape[-1] < g["dim"]:
+    out = torch.cat([out, out.new_zeros((nbatch, k, g["dim"]
+                                         - out.shape[-1]))], -1)
+  return out
+
+
+def _tactile(m: Model, d: Data, g):
+  """(B, k, nchannel·ntaxel) values of a group of tactile sensors
+  (mjSENS_TACTILE): each mesh vertex a taxel in the bound geom's frame,
+  channel 0 its deepest penetration into a primitive in contact with the
+  geom's weld body, channels 1-2 the tangential relative speeds along the
+  mesh's per-vertex frames where it has them (mujoco_tpu/ops/sensor.py:
+  310-380). The taxels of all sensors of the group and the geoms of each
+  primitive type are evaluated at once."""
+  nch, vnum, has_frame = g["subtype"]
+  dev, dtype = m.device, m.dtype
+  nbatch, k = d.qpos.shape[0], len(g["objid"])
+  mesh, geom = np.asarray(g["objid"]), np.asarray(g["refid"])
+  weld = np.asarray(m.body_weldid)
+  gbody = np.asarray(m.geom_bodyid)
+  pw = weld[gbody[geom]]                                     # (k,)
+  vadr = np.asarray(m.mesh_vertadr)[mesh]
+  local = m.mesh_vert[index(vadr[:, None] + np.arange(vnum), dev)]
+  xpos = (_take(d.geom_xpos, geom, dev)[:, :, None]
+          + mjm.mat_vec(_take(d.geom_xmat, geom, dev)[:, :, None], local))
+  # geoms in a live contact with each sensor's weld body
+  gids = d.contact.geomids.long()
+  welds = index(weld[gbody], dev)[gids.clamp(min=0)]         # (B, ncon, 2)
+  live = ((d.contact.dist < d.contact.includemargin)
+          & (gids >= 0).all(-1))[:, None]
+  pwt = index(pw, dev)[None, :, None]
+  onehot = lambda side: torch.nn.functional.one_hot(
+      gids[..., side].clamp(0, m.ngeom - 1), m.ngeom).to(dtype)
+  rel = ((live & (welds[:, None, :, 0] == pwt)).to(dtype) @ onehot(1)
+         + (live & (welds[:, None, :, 1] == pwt)).to(dtype) @ onehot(0)) > 0
+  out = [d.qpos.new_zeros((nbatch, k, vnum)) for _ in range(min(nch, 3))]
+  if has_frame:
+    nadr = np.asarray(m.mesh_normaladr)[mesh]
+    frames = m.mesh_normal[index(nadr[:, None] + np.arange(3 * vnum), dev)]
+    frames = frames.reshape(k, vnum, 3, 3)
+    root = np.asarray(m.body_rootid)
+    vel_s = mjm.transform_spatial(
+        _take(d.cvel, pw, dev)[:, :, None], False, xpos,
+        _take(d.subtree_com, root[pw], dev)[:, :, None])[..., 3:]
+  types = np.asarray(m.geom_type)
+  for t in sorted(set(types.tolist())):
+    if not sdf.has_sdf(t):
+      continue
+    others = np.nonzero(types == t)[0]
+    valid = ((others[None, :] != geom[:, None])
+             & (weld[gbody[others]][None, :] != pw[:, None]))  # (k, G)
+    if not valid.any():
+      continue
+    go = index(others, dev)
+    lp = _mtv(d.geom_xmat[:, None, None, go],
+              xpos[:, :, :, None] - d.geom_xpos[:, None, None, go])
+    depth = torch.clamp(sdf.distance(t, lp, m.geom_size[go]), max=0.0)
+    active = (rel[:, :, go] & const(valid, dev))[:, :, None]  # (B, k, 1, G)
+    pen = torch.where(active, -depth, 0.0).amax(-1)
+    out[0] = torch.maximum(out[0], pen)
+    if has_frame and nch >= 3:
+      bo = gbody[others]
+      vel_o = mjm.transform_spatial(
+          d.cvel[:, index(bo, dev)], False, d.geom_xpos[:, go],
+          _take(d.subtree_com, root[bo], dev))[..., 3:]
+      vrel = vel_s[:, :, :, None] - vel_o[:, None, None]
+      w = (active & (depth < 0)).to(dtype)
+      for c in (1, 2):
+        tc = frames[None, :, :, None, c]
+        out[c] = out[c] + (w * (vrel * tc).sum(-1).abs()).sum(-1)
+  out += [torch.zeros_like(out[0])] * (nch - len(out))
+  return torch.stack(out, 2).reshape(nbatch, k, nch * vnum)
+
+
+def _history_adjust(m: Model, d: Data, sd, stage: int):
+  """sd with this stage's delayed sensors read from their buffers at time
+  − delay, and each interval sensor's value held (read at the time) but
+  at the tick of its period (compute_or_read_sensor)."""
+  dev = m.device
+  for g in history.plan(m)["stage"][stage]:
+    cols = index(history.sensor_columns(m, g), dev)
+    delay = np.asarray(m.sensor_delay)[g.ids]
+    block = history.gather_block(d.history, g)
+    t = d.time[:, None]
+    val = history.read_block(block, g.n, g.dim,
+                             t - const(delay, dev, t.dtype), g.interp)
+    if np.any(delay <= 0):
+      period = const(np.asarray(m.sensor_interval).reshape(-1, 2)[g.ids, 0],
+                     dev, t.dtype)
+      fire = (block[..., 0] + period <= t) & const(delay <= 0, dev)
+      val = torch.where(fire[..., None], sd[:, cols], val)
+    sd = sd.index_copy(1, cols.reshape(-1), val.reshape(sd.shape[0], -1))
+  return sd
+
+
 def _frame_pos_axes(m: Model, d: Data, g):
   t = g["type"]
   xpos, xmat = object_pos_mat(m, d, g["objtype"], g["objid"])
@@ -523,12 +843,12 @@ def _force_torque(m: Model, d: Data, g):
 
 def _tendon_actfrc(m: Model, d: Data, g):
   """Each tendon's sum of the forces of the actuators that pull it."""
-  onto = np.zeros((m.nu, len(g["objid"])))
+  onto = np.zeros((m.nout, len(g["objid"])))
   for j, ten in enumerate(g["objid"]):
     for a in range(m.nu):
       if (int(m.actuator_trntype[a]) == int(TrnType.TENDON)
           and int(m.actuator_trnid[a, 0]) == int(ten)):
-        onto[a, j] = 1.0
+        onto[int(m.actuator_outadr[a]), j] = 1.0
   return d.actuator_force @ const(onto, m.device, m.dtype)
 
 
@@ -550,12 +870,14 @@ def _value(m: Model, d: Data, g, cf=None):
     return _take(d.ten_length, objid, dev)
   if t == ST.TENDONVEL:
     return _take(d.ten_velocity, objid, dev)
-  if t == ST.ACTUATORPOS:
-    return _take(d.actuator_length, objid, dev)
-  if t == ST.ACTUATORVEL:
-    return _take(d.actuator_velocity, objid, dev)
-  if t == ST.ACTUATORFRC:
-    return _take(d.actuator_force, objid, dev)
+  if t in _ACTUATOR_SENSORS:
+    src = {ST.ACTUATORPOS: d.actuator_length,
+           ST.ACTUATORVEL: d.actuator_velocity,
+           ST.ACTUATORFRC: d.actuator_force}[t]
+    out = np.asarray(m.actuator_outadr)[objid]
+    if g["dim"] == 1:
+      return _take(src, out, dev)
+    return _take(src, out[:, None] + np.arange(g["dim"]), dev)
   if t == ST.JOINTACTFRC:
     return _take(d.qfrc_actuator, jd(), dev)
   if t == ST.TENDONACTFRC:
@@ -604,6 +926,27 @@ def _value(m: Model, d: Data, g, cf=None):
                        m.site_size[index(site, dev)], g["subtype"], xpos)
   if t == ST.TOUCH:
     return _touch(m, d, g, contact_force(m, d) if cf is None else cf)
+  if t == ST.CONTACT:
+    return _contact_sensor(m, d, g, contact_force(m, d) if cf is None
+                           else cf)
+  if t == ST.TACTILE:
+    return _tactile(m, d, g)
+  if t == ST.RANGEFINDER:
+    site = g["objid"]
+    dist, _ = ray.ray(m, d, _take(d.site_xpos, site, dev),
+                      _take(d.site_xmat, site, dev)[..., :, 2],
+                      bodyexclude=np.asarray(m.site_bodyid)[site])
+    return dist
+  if t in _GEOM_DIST:
+    best, fromto = _geom_distance(m, d, g)
+    if t == ST.GEOMDIST:
+      return best
+    if t == ST.GEOMFROMTO:
+      return fromto
+    n = fromto[..., 3:] - fromto[..., :3]
+    nrm = mjm.norm_safe(n)
+    return torch.where((nrm > mjm.MINVAL)[..., None], n / nrm[..., None],
+                       0.0)
   k = len(objid)
   if t == ST.E_POTENTIAL:
     return d.energy[:, :1].expand(-1, k)
@@ -614,12 +957,10 @@ def _value(m: Model, d: Data, g, cf=None):
   raise NotImplementedError(f"sensor {t.name}")
 
 
-def _write(m: Model, d: Data, st: dict, cf=None) -> Data:
-  """All values of one stage, each sensor's cutoff applied (apply_cutoff:
-  REAL values clamped to ±cutoff, POSITIVE ones from above, where cutoff >
-  0), written into sensordata at once."""
-  if not st["groups"]:
-    return d
+def _values(m: Model, d: Data, st: dict, cf=None):
+  """(B, ncol) values of a stage plan's groups, each sensor's cutoff
+  applied (apply_cutoff: REAL values clamped to ±cutoff, POSITIVE ones
+  from above, where cutoff > 0)."""
   nbatch = d.qpos.shape[0]
   vals = torch.cat([_value(m, d, g, cf).reshape(nbatch, -1).to(m.dtype)
                     for g in st["groups"]], -1)
@@ -631,8 +972,37 @@ def _write(m: Model, d: Data, st: dict, cf=None) -> Data:
                           torch.where(const(st["positive"], dev),
                                       torch.minimum(vals, c), vals))
     vals = torch.where(c > 0, clamped, vals)
-  sd = d.sensordata.index_copy(1, index(st["cols"], dev), vals)
-  return d.replace(sensordata=sd)
+  return vals
+
+
+def _write(m: Model, d: Data, st: dict, stage: int, cf=None) -> Data:
+  """All values of one stage written into sensordata at once, then the
+  delayed and interval sensors' reads of their buffers."""
+  if not st["groups"]:
+    return d
+  sd = d.sensordata.index_copy(1, index(st["cols"], m.device),
+                               _values(m, d, st, cf))
+  return d.replace(sensordata=_history_adjust(m, d, sd, stage))
+
+
+def raw_sensordata(m: Model, d: Data):
+  """(B, nsensordata) sensordata with each delayed sensor's value before
+  its delayed read, computed again from the fields of d (a forward pass's
+  output) for the delayed sensors' groups alone: what the reference's
+  advance gets by running the three stages again
+  (mujoco_tpu/ops/forward.py:385-389)."""
+  plan = _plan(m)
+  sd = d.sensordata
+  if _off(m):
+    return sd
+  for stage in (Stage.POS, Stage.VEL, Stage.ACC):
+    st = plan["raw"][int(stage)]
+    if st["groups"]:
+      cf = (contact_force(m, d) if m.con.ncon
+            and st["types"] & set(_NEED_CONTACT_FORCE) else None)
+      sd = sd.index_copy(1, index(st["cols"], m.device),
+                         _values(m, d, st, cf))
+  return sd
 
 
 def _off(m: Model) -> bool:
@@ -650,7 +1020,7 @@ def sensor_pos(m: Model, d: Data) -> Data:
   st = plan["stages"][int(Stage.POS)]
   if ST.E_KINETIC in st["types"]:
     d = energy_vel(m, d)
-  return _write(m, d, st)
+  return _write(m, d, st, int(Stage.POS))
 
 
 def sensor_vel(m: Model, d: Data) -> Data:
@@ -661,7 +1031,7 @@ def sensor_vel(m: Model, d: Data) -> Data:
   plan = _plan(m)
   if plan["types"] & set(_NEED_SUBTREE):
     d = subtree_vel(m, d)
-  return _write(m, d, plan["stages"][int(Stage.VEL)])
+  return _write(m, d, plan["stages"][int(Stage.VEL)], int(Stage.VEL))
 
 
 def sensor_acc(m: Model, d: Data) -> Data:
@@ -672,8 +1042,8 @@ def sensor_acc(m: Model, d: Data) -> Data:
   plan = _plan(m)
   st = plan["stages"][int(Stage.ACC)]
   cf = None
-  if m.con.ncon and ST.TOUCH in st["types"]:
+  if m.con.ncon and st["types"] & set(_NEED_CONTACT_FORCE):
     cf = contact_force(m, d)
   if plan["types"] & set(_NEED_RNEPOST):
     d = rne_postconstraint(m, d, cf)
-  return _write(m, d, st, cf)
+  return _write(m, d, st, int(Stage.ACC), cf)

@@ -6,7 +6,8 @@ override :96-103), ``com_pos`` (:206), ``crb`` (:260, with tendon armature
 (:284/:319) with ``factor_m`` / ``solve_m`` (:349/:356), ``com_vel`` (:361),
 ``rne`` (:378), ``tendon`` (:405), ``transmission`` (:459: JOINT and
 JOINTINPARENT on all four joint types, TENDON, SITE with and without a
-refsite, SLIDERCRANK) and ``camlight`` (:662). Tree recursions are the
+refsite, SLIDERCRANK, SO3 :538-605 and BODY, the adhesion row :606-648)
+and ``camlight`` (:662). Tree recursions are the
 reference's static dense masks (Model.tree) turned into batched matmuls;
 forward kinematics and the tree factor stay level-sequential, one
 vectorized block per tree level.
@@ -19,9 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mujoco_tpu_torch.models.types import (CamLightType, Data, DisableBit,
-                                           JointType, Model, TrnType,
-                                           WrapType)
+from mujoco_tpu_torch.models.types import (CamLightType, ConeType, Data,
+                                           DisableBit, JointType, Model,
+                                           TrnType, WrapType)
 from mujoco_tpu_torch.ops import support, tendon as tendon_mod
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
@@ -381,9 +382,36 @@ def _vec_mat(v, mat):
   return (v[:, None, :] @ mat)[:, 0]
 
 
+def _adhesion(m: Model, d: Data, bodyid: int):
+  """The BODY (adhesion) transmission's moment row (B, nv): minus the mean
+  normal Jacobian of the active contacts that touch the body, read from
+  efc_J (an elliptic or frictionless contact's normal row, a pyramidal
+  contact's edge rows each at 0.5/(condim − 1)); 0 where none touches
+  (mujoco_tpu/ops/smooth.py:606-648)."""
+  nbatch, dev = d.qpos.shape[0], m.device
+  if m.con.ncon == 0 or m.efc.ncon_rows == 0:
+    return d.qpos.new_zeros((nbatch, m.nv))
+  gids = d.contact.geomids.long()
+  bodies = index(m.geom_bodyid, dev)[gids.clamp(min=0)]
+  rel = ((d.contact.dist < d.contact.includemargin) & (gids >= 0).all(-1)
+         & ((bodies[..., 0] == bodyid) | (bodies[..., 1] == bodyid)))
+  counter = rel.sum(-1).to(m.dtype)
+  con_id = np.asarray(m.efc.con_id)
+  dim = np.asarray(m.con.condim)[con_id]
+  row = np.asarray(m.efc.con_row)
+  elliptic = int(m.opt.cone) == int(ConeType.ELLIPTIC)
+  weight = np.where((dim == 1) | elliptic, (row == 0).astype(np.float64),
+                    0.5 / np.maximum(dim - 1, 1))
+  rows = np.asarray(m.efc.con_efcadr)[con_id] + row
+  w = rel[:, index(con_id, dev)].to(m.dtype) * const(weight, dev, m.dtype)
+  jac = _vec_mat(w, d.efc_J[:, index(rows, dev)])
+  return torch.where((counter > 0)[:, None],
+                     -jac / torch.clamp(counter, min=1.0)[:, None], 0.0)
+
+
 def _transmission_one(m: Model, d: Data, i: int):
-  """Length (B,) and moment row (B, nv) of actuator i, any transmission
-  but a hinge/slide joint."""
+  """Lengths (B, k) and moment rows (B, k, nv) of actuator i's k outputs,
+  any transmission but a hinge/slide joint."""
   nbatch, nv, dev = d.qpos.shape[0], m.nv, m.device
   trn = int(m.actuator_trntype[i])
   gear = m.actuator_gear[i]
@@ -413,6 +441,27 @@ def _transmission_one(m: Model, d: Data, i: int):
       gear_rot = mjm.rot_vec_quat(gear[3:6], mjm.conj_quat(quat))
     return zero, at_dofs(dadr, torch.cat([gear[:3].expand(nbatch, 3),
                                           gear_rot], dim=-1))
+  if trn == TrnType.SO3:
+    refid = int(m.actuator_trnid[i, 1])
+    if refid == -1:
+      # a ball joint: its exponential map, the identity at its dofs
+      qadr, dadr = int(m.jnt_qposadr[tid]), int(m.jnt_dofadr[tid])
+      eye = torch.eye(3, dtype=m.dtype, device=dev).expand(nbatch, 3, 3)
+      return (mjm.quat_to_vel(mjm.normalize(d.qpos[:, qadr:qadr + 4])),
+              at_dofs(dadr, eye))
+    # site and refsite: the relative exponential map in the refsite's
+    # frame; the site's axes on the relative rotational Jacobian, the dof
+    # chain the two bodies share cleared
+    bodyid, refbody = int(m.site_bodyid[tid]), int(m.site_bodyid[refid])
+    quat = mjm.mul_quat(m.site_quat[tid], d.xquat[:, bodyid])
+    refquat = mjm.mul_quat(m.site_quat[refid], d.xquat[:, refbody])
+    _, jacr = support.jac(m, d, d.site_xpos[:, tid], bodyid)
+    _, jacr_r = support.jac(m, d, d.site_xpos[:, refid], refbody)
+    chain = const(_ancestor_chain_mask(m, bodyid, refbody), dev, m.dtype)
+    rows = d.site_xmat[:, tid].transpose(1, 2) @ ((jacr - jacr_r) * chain)
+    return mjm.quat_sub(quat, refquat), rows
+  if trn == TrnType.BODY:
+    return zero, _adhesion(m, d, tid)
   if trn == TrnType.TENDON:
     return d.ten_length[:, tid] * gear[0], d.ten_J[:, tid] * gear[0]
   if trn == TrnType.SLIDERCRANK:
@@ -468,9 +517,10 @@ def _transmission_one(m: Model, d: Data, i: int):
 
 
 def transmission(m: Model, d: Data) -> Data:
-  """Actuator lengths and moment arms (mj_transmission). Hinge/slide joint
-  transmissions in one batch (length = q·gear, moment = gear at the
-  joint's dof); every other actuator one at a time."""
+  """Actuator lengths and moment arms (mj_transmission), one row per
+  force output. Hinge/slide joint transmissions in one batch (length =
+  q·gear, moment = gear at the joint's dof); every other actuator one at
+  a time (an SO3 transmission's three rows)."""
   if m.nu == 0:
     return d
   nbatch, dev = d.qpos.shape[0], m.device
@@ -490,12 +540,16 @@ def transmission(m: Model, d: Data) -> Data:
       nbatch, -1, -1)
   if len(rest):
     parts = [_transmission_one(m, d, int(i)) for i in rest]
-    inv = np.empty(m.nu, dtype=np.int64)
-    inv[np.concatenate([hs, rest])] = np.arange(m.nu)
-    length = torch.cat([length, torch.stack([p[0] for p in parts], dim=1)],
+    outadr, outnum = m.actuator_outadr, m.actuator_outnum
+    # the outputs in order: the hinges' and sliders', then the rest's
+    src = np.concatenate([outadr[hs]] + [outadr[i] + np.arange(outnum[i])
+                                         for i in rest])
+    inv = np.empty(m.nout, dtype=np.int64)
+    inv[src] = np.arange(m.nout)
+    length = torch.cat([length] + [p[0].reshape(nbatch, -1) for p in parts],
                        dim=1)[:, index(inv, dev)]
-    moment = torch.cat([moment, torch.stack([p[1] for p in parts], dim=1)],
-                       dim=1)[:, index(inv, dev)]
+    moment = torch.cat([moment] + [p[1].reshape(nbatch, -1, m.nv)
+                                   for p in parts], dim=1)[:, index(inv, dev)]
   return d.replace(actuator_length=length, actuator_moment=moment)
 
 

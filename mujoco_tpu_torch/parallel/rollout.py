@@ -22,12 +22,12 @@ from mujoco_tpu_torch.models.types import Data, Model
 from mujoco_tpu_torch.ops import forward, megastep_cuda
 
 # the integration state that crosses step boundaries, act (the actuators'
-# activations) with it; everything else in Data, sensordata too, is
-# workspace that forward() recomputes from it (the reference's list less
-# history, which the port does not carry yet)
+# activations) and the ctrl and sensor history buffers with it; everything
+# else in Data, sensordata too, is workspace that forward() recomputes
+# from it (the reference's list)
 STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qacc_warmstart",
                 "qacc", "qfrc_applied", "xfrc_applied", "eq_active",
-                "mocap_pos", "mocap_quat", "tree_asleep")
+                "mocap_pos", "mocap_quat", "history", "tree_asleep")
 
 
 def _expand(d: Data, nbatch: int) -> Data:
@@ -85,9 +85,11 @@ def check_reset(m: Model, d: Data, d_fresh: Data) -> Data:
     b = bad.reshape(bad.shape + (1,) * (cur.dim() - 1))
     return torch.where(b, fresh, cur)
 
+  keys = ("time", "qpos", "qvel", "act", "ctrl", "qacc_warmstart", "qacc")
+  if d.history.shape[-1]:
+    keys += ("history",)
   return d.replace(**{k: pick(getattr(d_fresh, k), getattr(d, k))
-                      for k in ("time", "qpos", "qvel", "act", "ctrl",
-                                "qacc_warmstart", "qacc")})
+                      for k in keys})
 
 
 def megastep_eligible(m: Model, d: Data, d_fresh: Data) -> bool:

@@ -90,6 +90,16 @@ def axis_angle_to_quat(axis, angle):
   return torch.cat([torch.cos(half)[..., None], axis * s], dim=-1)
 
 
+def expmap_to_quat(v):
+  """Exponential-map (axis · angle) 3-vector to quaternion (expmap2Quat);
+  zero maps to the identity."""
+  angle = norm_safe(v)
+  q = axis_angle_to_quat(normalize(v), angle)
+  ident = torch.cat([torch.ones_like(angle)[..., None],
+                     torch.zeros_like(v)], -1)
+  return torch.where(angle[..., None] < MINVAL, ident, q)
+
+
 def quat_integrate(q, omega, dt):
   """q ⊗ exp(omega·dt/2), renormalized (mju_quatIntegrate)."""
   angle = norm_safe(omega) * dt

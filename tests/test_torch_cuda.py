@@ -815,3 +815,36 @@ def test_sensor_scene_card_matches_cpu_f64(cuda, name):
                  for k in ("qpos", "qvel", "act", "sensordata")])
   for a, b in zip(*outs):
     torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("name", zoo.ACTUATION + zoo.ACTUATION_CARRIED)
+def test_actuation_scene_card_matches_cpu_f64(cuda, name):
+  """The rest of the actuators, sensors and passive forces (the SO3 and
+  PID scenes too): 10 steps at f64 on the card and on the CPU agree to
+  1e-8 on qpos, qvel, act, history and sensordata, posed from a numpy
+  seed with random controls;
+  the quadruped from its stand keyframe lowered onto the floor, where a
+  step is one LDL and one Newton launch and no megastep."""
+  outs = []
+  for dev in (cuda, torch.device("cpu")):
+    m, d = _general_batch(name, 8, dev, torch.float64)
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    ctrl = 0.5 * rng.standard_normal(tuple(d.ctrl.shape))
+    if name == "quadruped_sim2real":
+      stand = np.array(zoo.QUADRUPED_STAND)
+      stand[2] -= 0.2
+      d = d.replace(qpos=t(np.broadcast_to(stand, tuple(d.qpos.shape))))
+      ctrl = ctrl + stand[7:]
+    d = d.replace(ctrl=t(ctrl))
+    linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
+    for _ in range(10):
+      d = forward.step(m, d)
+    if dev.type == "cuda" and name == "quadruped_sim2real":
+      torch.cuda.synchronize()
+      assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
+              megastep_cuda.LAUNCHES) == (10, 10, 0)
+    outs.append([getattr(d, k).cpu()
+                 for k in ("qpos", "qvel", "act", "history", "sensordata")])
+  for a, b in zip(*outs):
+    torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-8)

@@ -394,19 +394,18 @@ def test_megastep_gate_refuses_as_reference(name):
 
 
 _STILL_RAISE = {
-    "transmission BODY": """<mujoco><worldbody><body name="b"><freejoint/>
-      <geom size="0.1"/></body></worldbody><actuator>
-      <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
-    # the ray sensors wait for the ray slice
-    "sensor RANGEFINDER": """<mujoco><worldbody><body>
-      <joint type="slide"/><geom size="0.1"/><site name="s"/></body>
-      </worldbody><sensor><rangefinder site="s"/></sensor></mujoco>""",
-    # the DC motor waits for A8's rest (filter dynamics load since the
-    # sensor and activation slice)
-    "activation dynamics": """<mujoco><worldbody><body>
+    # flex waits for its slice (A11)
+    "flex": """<mujoco><worldbody><flexcomp name="f" type="grid"
+      count="2 2 1" spacing=".1 .1 .1" pos="0 0 .3" dim="2"/></worldbody>
+      </mujoco>""",
+    # user sensors and actuator callbacks wait for plugin.py (A14)
+    "sensor USER": """<mujoco><worldbody><body><joint type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor><user dim="1"
+      needstage="pos"/></sensor></mujoco>""",
+    "USER dyn": """<mujoco><worldbody><body>
       <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
-      </worldbody><actuator><dcmotor joint="a" motorconst="0.05"
-      resistance="2"/></actuator></mujoco>""",
+      </worldbody><actuator><general joint="a" dyntype="user"/>
+      </actuator></mujoco>""",
 }
 
 
@@ -452,6 +451,18 @@ _WIDENED = {
       <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
       </worldbody><actuator><general joint="a" dyntype="filter"
       dynprm="0.1"/></actuator></mujoco>""",
+    # the adhesion transmission, the rangefinder and the DC motor load
+    # since the slice of the rest of the actuators and sensors
+    "transmission BODY": """<mujoco><worldbody><body name="b"><freejoint/>
+      <geom size="0.1"/></body></worldbody><actuator>
+      <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
+    "sensor RANGEFINDER": """<mujoco><worldbody><body>
+      <joint type="slide"/><geom size="0.1"/><site name="s"/></body>
+      </worldbody><sensor><rangefinder site="s"/></sensor></mujoco>""",
+    "DC motor": """<mujoco><worldbody><body>
+      <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
+      </worldbody><actuator><dcmotor joint="a" motorconst="0.05"
+      resistance="2"/></actuator></mujoco>""",
 }
 # what each many-body case holds once loaded: (dynamic groups, trees,
 # sleep enabled)

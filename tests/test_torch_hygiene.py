@@ -1,6 +1,7 @@
 """Import and device hygiene of the PyTorch port.
 
-The package, chip_smoke.py and kernel_times.py import neither jax nor
+The package and the port's scripts (chip_smoke.py, kernel_times.py,
+op_counts.py, quadruped_stand.py) import neither jax nor
 mujoco_tpu, and importing them does not import the pip mujoco either (it
 is a model compiler, imported inside io.put_model only). Entry points
 default to the CUDA card and raise where there is none instead of running
@@ -62,6 +63,7 @@ def _sources():
   yield os.path.join(ROOT, "chip_smoke.py")
   yield os.path.join(ROOT, "kernel_times.py")
   yield os.path.join(ROOT, "op_counts.py")
+  yield os.path.join(ROOT, "quadruped_stand.py")
 
 
 def test_sources_never_import_jax_or_reference():

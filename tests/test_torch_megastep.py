@@ -5,7 +5,8 @@ packed tables) agrees with the port's ``forward.step`` on the 8 models of
 tests/test_megastep.py:140-153 at qpos 1e-9, qvel 1e-8, qacc 1e-6, and with
 mujoco_tpu's ``_lane_step`` on the humanoid and ``mixed`` (inputs from a
 numpy seed); the port's ``supported()`` answers as mujoco_tpu's on the
-gate's models at the default island gate; qfrc_applied and xfrc_applied,
+gate's models at the default island gate, and on the quadruped with fluid
+forces, history buffers or an action delay (ROADMAP §C 11); qfrc_applied and xfrc_applied,
 the divergence guard's lane semantics and a 2-step ``scan_batch`` against
 the stage path's ``scan_steps`` hold; CPU tensors never launch the kernel.
 The kernel's premises are held here too: the Newton solve over only the
@@ -182,6 +183,53 @@ def test_supported_gate_matches_reference_sensors(name, monkeypatch):
     fields["nsensor"] = np.asarray(0)
     assert mc.supported(tio.model_from_numpy(fields, torch.float64, "cpu"))
     assert jmega.supported(jm4.replace(nsensor=0))
+
+
+def _quadruped_variant(case):
+  """The quadruped (in the kernel's class) with one of this slice's
+  features: fluid forces, an interval sensor (a history buffer, no
+  delay), motors sampled into history buffers with no delay, or an action
+  delay."""
+  import mujoco
+  spec = mujoco.MjSpec.from_file(os.path.join(zoo.XML_DIR,
+                                              "quadruped.xml"))
+  spec.option.iterations = 4
+  if case == "fluid":
+    spec.option.viscosity = 0.2
+  elif case == "interval_sensor":
+    spec.add_sensor(type=mujoco.mjtSensor.mjSENS_JOINTPOS,
+                    objtype=mujoco.mjtObj.mjOBJ_JOINT, objname="fl_knee",
+                    nsample=3, interval=[0.02, 0.0])
+  for act in spec.actuators:
+    if case == "sampled_ctrl":
+      act.nsample = 3
+    elif case == "action_delay":
+      act.delay, act.nsample = 0.008, 4
+  return spec.compile()
+
+
+@pytest.mark.parametrize("case", ["plain", "fluid", "interval_sensor",
+                                  "sampled_ctrl", "action_delay"])
+def test_supported_gate_matches_reference_actuation(case, monkeypatch):
+  """ROADMAP §C 11: the gate refuses fluid forces, history buffers and
+  action delays as the reference's does (megastep_tpu.py:109, :111,
+  :176), each on the quadruped, which it admits as it is; an action delay
+  alone (its buffers' count set to 0) is refused too."""
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "256")
+  mjm = _quadruped_variant(case)
+  jm = jio.put_model(mjm)
+  tm = tio.put_model(mjm, torch.float64, "cpu")
+  assert mc.supported(tm) == jmega.supported(jm) == (case == "plain")
+  assert (tm.nhistory > 0) == (case in ("interval_sensor", "sampled_ctrl",
+                                        "action_delay"))
+  if case == "action_delay":
+    fields = tio.model_numpy(mjm)
+    fields["nhistory"] = np.asarray(0)
+    assert not mc.supported(tio.model_from_numpy(fields, torch.float64,
+                                                 "cpu"))
+    assert not jmega.supported(jm.replace(nhistory=0))
+  if case == "sampled_ctrl":
+    assert not np.any(np.asarray(tm.actuator_delay))
 
 
 @pytest.mark.parametrize("name", ["multi_humanoid3", "humanoid_tendon",

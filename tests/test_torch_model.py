@@ -3,13 +3,14 @@
 put_model / make_data on the flagship humanoid, a contact-free pendulum
 and the tendon and mocap scenes equal the reference field for field
 (integers and masks exactly, floats to 1e-12); the committed snapshots
-equal a fresh compile, and ``multi_humanoid3`` a fresh carry-across of the
-reference's 3-humanoid scene (``python tests/test_torch_model.py`` writes
-it);
+equal a fresh compile, and ``multi_humanoid3`` and the SO3 and PID
+scenes (``zoo.ACTUATION_CARRIED``) a fresh carry-across of the reference's
+Models (``python tests/test_torch_model.py`` writes them);
 a mujoco_tpu Model carried across with model_from_numpy equals the port's
 own put_model; models outside the slice raise NotImplementedError, and the
 models of features ported since (plane-box, box-box, eulerdamp, CG,
-tendons, the elliptic cone, RK4, implicitfast) load.
+tendons, the elliptic cone, RK4, implicitfast, the adhesion transmission,
+the geom-distance sensors) load.
 """
 
 import mujoco
@@ -69,10 +70,35 @@ def multi_humanoid3_fields() -> dict:
   jm = compiled.replace(opt=compiled.opt.replace(
       disableflags=int(compiled.opt.disableflags)
       | int(DisableBit.ISLAND)))
+  return _port_fields(jm)
+
+
+def _port_fields(jm) -> dict:
+  """A reference Model's flat fields that the port's Model carries."""
   fields = tio.flatten(jm)
   port = tio.flatten(tio.model_from_numpy(fields, dtype=torch.float64,
                                           device="cpu"))
   return {k: np.asarray(fields[k]) for k in port}
+
+
+def actuation_carried_fields(name: str) -> dict:
+  """The snapshots of ``zoo.ACTUATION_CARRIED``: the SO3 scenes of
+  tests/test_so3.py through ``mujoco_tpu.compiler`` and the PID of
+  tests/test_actuator.py (a motor patched into a v3.11 PID with a slew
+  and an integral slot), through mujoco_tpu's put_model, carried across
+  (the pip compiler predates both)."""
+  from mujoco_tpu import compiler
+  from tests import test_actuator, test_so3
+  if name == "pid":
+    mjm = mujoco.MjModel.from_xml_string(snapshot.PID_XML)
+    jm = test_actuator._patch_pid(jio.put_model(mjm), [0.8, 6.0] + [0.0] * 8,
+                                  [4.0] + [0.0] * 9,
+                                  [0.0, -12.0, -1.5] + [0.0] * 7)
+  else:
+    xml = {"so3_refsite": test_so3.REFSITE_XML, "so3_ball": test_so3.BALL_XML,
+           "so3_integrator": test_so3.INT_XML}[name]
+    jm = jio.put_model(compiler.load_xml(xml))
+  return _port_fields(jm)
 
 
 def assert_fields_match(port: dict, ref: dict, prefix=""):
@@ -154,6 +180,22 @@ def test_carried_snapshot_is_current():
   assert (m.nv, m.efc.nefc, m.nu) == (81, 3 * 162, 63)
 
 
+@pytest.mark.parametrize("name", zoo.ACTUATION_CARRIED)
+def test_actuation_carried_snapshot_is_current(name):
+  """The committed SO3 and PID snapshots equal a fresh carry-across, and
+  load with their SO3 outputs and PID slots."""
+  committed = zoo.load_snapshot(name)
+  fresh = actuation_carried_fields(name)
+  assert sorted(committed) == sorted(fresh)
+  for k in fresh:
+    np.testing.assert_array_equal(committed[k], fresh[k], err_msg=k)
+  m = zoo.load(name, torch.float64, device="cpu")
+  if name == "pid":
+    assert m.na == 2 and (m.actuator_slots[0, :2] == [0, 1]).all()
+  else:
+    assert m.nout > m.nu
+
+
 def test_many_body_snapshots_load(monkeypatch):
   """The many-body scenes load from their snapshots as the slice needs
   them: ten humanoids with islands (nv 270, 10 trees, nefc 1,620, one
@@ -174,15 +216,14 @@ def test_many_body_snapshots_load(monkeypatch):
 
 
 _OUT_OF_SLICE = {
-    "body_transmission": """<mujoco><worldbody><body name="b"><freejoint/>
-      <geom size="0.1"/></body></worldbody><actuator>
-      <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
-    # the geom-distance sensors wait for A8's rest (other sensors load
-    # since the sensor and activation slice)
-    "geomdist_sensor": """<mujoco><worldbody><body><joint type="slide"/>
-      <geom name="g1" size="0.1" contype="0"/></body><geom name="g2"
-      size="0.1" pos="1 0 0" contype="0"/></worldbody><sensor>
-      <distance geom1="g1" geom2="g2"/></sensor></mujoco>""",
+    # plugin and user sensors wait for plugin.py (every other sensor loads
+    # since the slice of the rest of the actuators and sensors)
+    "user_sensor": """<mujoco><worldbody><body><joint type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor><user dim="2"
+      needstage="vel"/></sensor></mujoco>""",
+    "user_gain": """<mujoco><worldbody><body><joint name="a"/>
+      <geom size="0.1" contype="0"/></body></worldbody><actuator>
+      <general joint="a" gaintype="user"/></actuator></mujoco>""",
     # a box against a flex (box-box contact loads since the collision
     # breadth slice)
     "box_contact": """<mujoco><option iterations="2"/><worldbody>
@@ -193,6 +234,13 @@ _OUT_OF_SLICE = {
 
 # models that raised before the slices that widened what the port runs
 _WIDENED = {
+    "body_transmission": """<mujoco><worldbody><body name="b"><freejoint/>
+      <geom size="0.1"/></body></worldbody><actuator>
+      <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
+    "geomdist_sensor": """<mujoco><worldbody><body><joint type="slide"/>
+      <geom name="g1" size="0.1" contype="0"/></body><geom name="g2"
+      size="0.1" pos="1 0 0" contype="0"/></worldbody><sensor>
+      <distance geom1="g1" geom2="g2"/></sensor></mujoco>""",
     "sensor": """<mujoco><worldbody><body><joint name="a" type="slide"/>
       <geom size="0.1"/></body></worldbody><sensor>
       <jointpos joint="a"/></sensor></mujoco>""",
@@ -270,7 +318,7 @@ def native_builder_differences(n: int) -> list:
 
 
 if __name__ == "__main__":
-  # writes the carried snapshot (needs mujoco_tpu, so it lives here and not
+  # writes the carried snapshots (need mujoco_tpu, so they live here and not
   # in mujoco_tpu_torch/models/snapshot.py); with --against-native N, prints
   # instead how the MjSpec build of the N-humanoid scene differs from
   # mujoco_tpu's zoo.multi_humanoid(N)
@@ -283,6 +331,9 @@ if __name__ == "__main__":
     diff = native_builder_differences(int(sys.argv[2]))
     print("\n".join(diff) or "no field differs")
     sys.exit(0)
-  path = zoo.snapshot_path("multi_humanoid3")
-  np.savez_compressed(path, **multi_humanoid3_fields())
-  print(f"wrote {path}")
+  for name in zoo.CARRIED:
+    path = zoo.snapshot_path(name)
+    np.savez_compressed(path, **(multi_humanoid3_fields()
+                                 if name == "multi_humanoid3"
+                                 else actuation_carried_fields(name)))
+    print(f"wrote {path}")
