@@ -99,15 +99,18 @@ Phases, each of which passes or ends the script with a nonzero exit:
    megastep's gate keeps on the stage path: f32, B 3072, 20 steps of
    ``scan_steps(check=True)``, every env finite, exactly one LDL and one
    Newton launch per step and no megastep launch; 20 steps at f64, B 8, on
-   the card against the CPU (1e-8); the wide LDL at n 65, 81, 130 (shared
-   memory) and 200 (f64, device memory) against its plain version
-   elementwise (1e-9 + 1e-9·|plain|); the wide Newton kernel on the scene's
-   rows at f64 (B 3072, it 1, ls 4; envs past the 48 shared J rows among
-   them) under phase 11's rule; times (L2 flushed, and L2-warm by events
-   around back-to-back calls: these launches take 0.6 ms and more) with
-   their bounds: the Newton kernel at f32 on those rows, the LDL on the
-   scene's qM (n 81, f32, with ``torch.linalg.solve`` beside it) and at
-   n 200 (f64, the device-memory route);
+   the card against the CPU (1e-8); the blocked LDL at every order of
+   ``WIDE_ORDERS`` (65, 81, 130, 200, 270) at f64 and f32, B 3072, on
+   random SPD matrices, against its plain version (f64 elementwise,
+   1e-9 + 1e-9·|plain|; f32 by backward error, as ``ldl_gate``) and timed
+   (L2 flushed, and L2-warm by events around back-to-back calls) beside
+   ``torch.linalg.solve``, its plain version and its bound, with its route
+   (shared or device memory), threads, envs per block and blocks per SM;
+   the same on the scene's qM (n 81, f32); the wide Newton kernel (a block
+   of warps per env) on the scene's rows at f64 (B 3072, it 1, ls 4; envs
+   past the J rows it holds in shared memory among them) under phase 11's
+   rule, then timed at f32 on those rows with its bound, threads and
+   blocks per SM;
 14. the Newton kernel's gradient (``newton_cuda.NewtonSolve``): the
    humanoid at f64, B 8, feet in the floor, two differentiated
    ``forward.step`` calls (the stage path), d Σ qpos / d (qvel, ctrl) on the
@@ -162,9 +165,10 @@ Phases, each of which passes or ends the script with a nonzero exit:
    over the monolithic one; the LDL kernel on a step's island Newton
    systems (``island.newton_systems``) against its plain version, f64
    elementwise (B 256) and f32 by backward error, as phase 16 does, and
-   timed at f32 (L2 flushed, and L2-warm by the profiler) with its bound,
-   the plain version and ``torch.linalg.solve``; the n-270 LDL (the
-   device-memory route) on the scene's qM at the full width against its
+   timed at f32 (L2 flushed, and L2-warm by events) with its bound,
+   the plain version and ``torch.linalg.solve``; the n-270 LDL (shared
+   memory at f32, device memory at f64) on the scene's qM at the full
+   width against its
    plain version, f32 by backward error and f64 elementwise, and timed
    at both; the Newton kernel at nv 270 on the monolithic path's rows
    against its plain version, f64 at B 256 under phase 11's rule and f32
@@ -266,8 +270,9 @@ Phases, each of which passes or ends the script with a nonzero exit:
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 25, and the LDL's and the Newton kernel's ``wide`` entries hold
-their phase-13 times at n = nv = 81; the LDL's ``island`` and ``n270``
+and 13 to 25; the LDL's ``wide`` entry holds phase 13's table (each order
+of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
+Newton kernel's its phase-13 times at nv 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
 and the LDL's ``n18`` entry phase 23's.
 Each phase's seconds are printed as it ends.
@@ -293,8 +298,7 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 without tensor cores
 PEAK_FP64_FLOPS = 34e12         # H100 SXM fp64 without tensor cores
 # device kernels of the stage path's two hand-written kernels, by name
-HANDWRITTEN = ("ldl_regs_kernel", "ldl_shared_kernel", "ldl_global_kernel",
-               "newton_kernel")
+HANDWRITTEN = ("ldl_regs_kernel", "ldl_block_kernel", "newton_kernel")
 
 
 def card_line() -> str:
@@ -483,7 +487,8 @@ def phase_ldl(report, details):
   # what sets the time: envs per block, resident blocks per SM, and the
   # time of one block per SM against one full wave
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  per_block, per_sm = linalg_cuda.occupancy(n, torch.float32)
+  occ = linalg_cuda.occupancy(n, torch.float32)
+  per_block, per_sm = occ["envs_per_block"], occ["blocks_per_sm"]
   waves = {}
   for k in (sms * per_block, sms * per_block * per_sm):
     hk, gk = h[:k].contiguous(), g[:k].contiguous()
@@ -612,13 +617,18 @@ def phase_newton(report, details):
   # what sets the kernel's time: resident blocks per SM, and the time of
   # one block per SM (a single env's latency) against one full wave
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  per_sm = newton_cuda.blocks_per_sm(nefc, nv, torch.float32)
+  occ = newton_cuda.occupancy(nefc, nv, torch.float32)
+  per_sm = occ["blocks_per_sm"]
+  if occ["threads"] != 32:
+    raise AssertionError(f"the Newton kernel at nv {nv} runs {occ['threads']}"
+                         f" threads per env, not one warp")
   waves = {}
   for k in (sms, sms * per_sm):
     sub = [a if i in (5, 6) else a[:k].contiguous()     # 5, 6: row masks
            for i, a in enumerate(args)]
     waves[k] = device_ms(lambda: newton_cuda.newton_kernel(*sub, it, ls))
-  print(f"newton_pyramidal f32 occupancy: {per_sm} blocks/SM on {sms} SMs "
+  print(f"newton_pyramidal f32 occupancy: 32 threads per env, {per_sm} "
+        f"blocks/SM on {sms} SMs "
         f"({-(-B // (sms * per_sm))} waves at B{B}); one block per SM "
         f"{waves[sms]:.4f} ms, one full wave ({sms * per_sm} envs) "
         f"{waves[sms * per_sm]:.4f} ms", flush=True)
@@ -1491,7 +1501,9 @@ def phase_ldl_backward(report, details):
 
 
 SLICE_NSTEP = 20
-WIDE_ORDERS = (65, 81, 130, 200)
+# orders of phase 13's wide LDL table, timed at f32 and f64 (n 270 is
+# multi_humanoid10's qM; phase 19 times that solve on its mass matrices)
+WIDE_ORDERS = (65, 81, 130, 200, 270)
 
 
 def stage_run(m, d, nstep):
@@ -1517,7 +1529,7 @@ def wide_ldl_case(n, dtype, seed):
   return h.contiguous(), g
 
 
-def time_ldl(h, g):
+def time_ldl(h, g, reps=30):
   """(L2-flushed ms, L2-warm ms, plain ms, torch.linalg.solve ms, bound ms,
   by) of the LDL kernel on (h, g). The wide route's launches take 0.6 ms
   and more, far above the wrapper's host time, so events around
@@ -1526,10 +1538,45 @@ def time_ldl(h, g):
   30, in two runs), so these times do not use it."""
   from mujoco_tpu_torch.ops import linalg_cuda
   bound_ms, by = ldl_bound(h.shape[0], h.shape[1], h.dtype)
-  return (cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g)),
-          cuda_ms(lambda: linalg_cuda.spd_solve_kernel(h, g)),
-          cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g)),
-          cuda_ms_cold(lambda: torch.linalg.solve(h, g)), bound_ms, by)
+  return (cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g), reps),
+          cuda_ms(lambda: linalg_cuda.spd_solve_kernel(h, g), reps),
+          cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g), reps),
+          cuda_ms_cold(lambda: torch.linalg.solve(h, g), reps), bound_ms, by)
+
+
+def wide_ldl_row(tag, h, g):
+  """The LDL kernel on (h, g) against its plain version (f64 elementwise,
+  1e-9 + 1e-9·|plain|; f32 by ldl_gate's backward error), then timed
+  beside torch.linalg.solve and its bound, with its route, threads, envs
+  per block and blocks per SM; printed and returned."""
+  from mujoco_tpu_torch.ops import linalg_cuda
+  n = h.shape[1]
+  if h.dtype == torch.float64:
+    p = linalg_cuda.spd_solve_kernel(h, g)
+    ref = linalg_cuda.spd_solve_plain(h, g)
+    gate = ((p - ref).abs() / (1e-9 + 1e-9 * ref.abs())).max().item()
+    err = (p - ref).abs().max().item()
+    del p, ref
+    if not gate <= 1.0:
+      raise AssertionError(f"wide ldl {tag} disagrees with its plain "
+                           f"version: {gate} of the limit")
+  else:
+    err = ldl_gate(f"wide ldl {tag}", h, g)
+    gate = None
+  k_ms, w_ms, p_ms, lib_ms, b_ms, by = time_ldl(h, g, 30 if n < 200 else 10)
+  occ = linalg_cuda.occupancy(n, h.dtype)
+  row = dict(n=n, dtype=str(h.dtype)[6:], ms=k_ms, l2_warm_ms=w_ms,
+             plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+             max_abs_err=err, gate_f64=gate, **occ)
+  print(f"wide ldl {tag} B{h.shape[0]}: kernel_ms {k_ms:.4f} (L2 flushed; "
+        f"L2-warm {w_ms:.4f}) library_ms {lib_ms:.4f} (torch.linalg.solve; "
+        f"kernel / library {k_ms / lib_ms:.3f}) plain_ms {p_ms:.4f} "
+        f"bound_ms {b_ms:.5f} ({by}); route {occ['route']}, "
+        f"{occ['threads']} threads, {occ['envs_per_block']} envs per block, "
+        f"{occ['blocks_per_sm']} blocks/SM"
+        + ("" if gate is None else f"; worst err / (1e-9 + 1e-9·|plain|) "
+           f"{gate:.3e}"), flush=True)
+  return row
 
 
 def phase_multi_humanoid(report, details):
@@ -1558,21 +1605,16 @@ def phase_multi_humanoid(report, details):
   worst = card_vs_cpu(load, lambda mm, dev: general_batch(mm, 8, 13, dev),
                       SLICE_NSTEP, "multi_humanoid3")
 
-  # the wide LDL at f64 against its plain version, elementwise
+  # the wide LDL at every order of WIDE_ORDERS, f64 and f32, against its
+  # plain version and timed beside torch.linalg.solve
   ldl = {}
   for n in WIDE_ORDERS:
-    h, g = wide_ldl_case(n, torch.float64, n)
-    route = "device memory" if linalg_cuda.work_values(
-        n, torch.float64, h.device) else "shared memory"
-    p = linalg_cuda.spd_solve_kernel(h, g)
-    ref = linalg_cuda.spd_solve_plain(h, g)
-    viol = ((p - ref).abs() / (1e-9 + 1e-9 * ref.abs())).max().item()
-    print(f"wide ldl f64 B{B} n{n} ({route}): worst err / (1e-9 + "
-          f"1e-9·|plain|) {viol:.3e}", flush=True)
-    if not viol <= 1.0:
-      raise AssertionError(f"wide ldl n{n} disagrees with its plain version")
-    ldl[n] = dict(route=route, violation=viol,
-                  max_abs_err=(p - ref).abs().max().item())
+    for dtype in (torch.float64, torch.float32):
+      h, g = wide_ldl_case(n, dtype, n)
+      ldl[f"n{n}_{str(dtype)[6:]}"] = wide_ldl_row(
+          f"{str(dtype)[6:]} n{n}", h, g)
+      del h, g
+  torch.cuda.empty_cache()
 
   # the wide Newton kernel on this scene's rows at f64, then timed at f32
   newton = {}
@@ -1580,23 +1622,26 @@ def phase_multi_humanoid(report, details):
     mm = load(dtype)
     args = solver.newton_args(mm, humanoid_state(mm, B, 3))
     kept = newton_cuda.kept_rows(args[2], args[5], args[4]).sum(1)
+    occ = newton_cuda.occupancy(mm.efc.nefc, mm.nv, dtype)
     if dtype == torch.float64:
       out_k = newton_cuda.newton_kernel(*args, 1, 4)
       out_p = newton_cuda.newton_plain(*args, 1, 4)
       viol = newton_violation(out_k, out_p)
       off, worst_other, table = newton_rows_gate(args, out_k, out_p, 1, 4)
       unmatched = [row for row in table if row[1] == 0]
-      print(f"wide newton f64 B{B} nefc{mm.efc.nefc} nv{mm.nv} it1 ls4: kept "
+      cap = occ["row_cap"]
+      print(f"wide newton f64 B{B} nefc{mm.efc.nefc} nv{mm.nv} it1 ls4 "
+            f"({occ['threads']} threads per env): kept "
             f"rows per env mean {kept.double().mean().item():.2f}, most "
-            f"{int(kept.max())}, envs past the 48 shared J rows "
-            f"{int((kept > 48).sum())}; worst err / (1e-9 + 1e-9·|plain|) "
+            f"{int(kept.max())}, envs past the {cap} shared J rows "
+            f"{int((kept > cap).sum())}; worst err / (1e-9 + 1e-9·|plain|) "
             + " ".join(f"{k} {v:.3f}" for k, v in viol.items())
             + f"; {len(off)} envs off elementwise, replayed {table}",
             flush=True)
       if len(off) > B // 100 or not worst_other <= 1.0 or unmatched:
         raise AssertionError("wide newton: kernel and plain disagree")
       newton["f64"] = dict(violation=viol, off_envs=off, replay=table,
-                           kept_over_48=int((kept > 48).sum()),
+                           kept_over_cap=int((kept > cap).sum()),
                            max_abs_err=(out_k[0] - out_p[0]).abs().max()
                            .item())
     else:
@@ -1611,38 +1656,26 @@ def phase_multi_humanoid(report, details):
                                                                   ls),
                                 reps=5),
           bound_ms=bound_ms, bound_by=by, dense_bound_ms=dense_ms,
-          kept_mean=kept_mean, kept_max=kept_max,
-          blocks_per_sm=newton_cuda.blocks_per_sm(mm.efc.nefc, mm.nv,
-                                                  torch.float32))
+          kept_mean=kept_mean, kept_max=kept_max, **occ)
       print(f"wide newton f32 B{B} nefc{mm.efc.nefc} nv{mm.nv} it1 ls4: "
             f"kernel_ms {times['ms']:.4f} (L2 flushed; L2-warm "
             f"{times['l2_warm_ms']:.4f}) plain_ms {times['plain_ms']:.4f} "
             f"bound_ms {bound_ms:.5f} ({by}; kept rows mean {kept_mean:.2f}, "
-            f"most {kept_max}; dense {dense_ms:.5f}), "
-            f"{times['blocks_per_sm']} blocks/SM", flush=True)
+            f"most {kept_max}; dense {dense_ms:.5f}), {occ['threads']} "
+            f"threads per env, {occ['row_cap']} shared J rows, "
+            f"{occ['blocks_per_sm']} blocks/SM", flush=True)
       newton["f32"] = times
 
-  # times of each LDL route: nv 81 (the scene's qM, f32, shared memory)
-  # with torch.linalg.solve beside it, and n 200 at f64 (device memory)
+  # the LDL at the scene's own solve: qM of nv 81, f32
   d = humanoid_state(m, B, 4)
-  times = {}
-  for tag, (h, g) in (("n81_f32", (d.qM.contiguous(),
-                                    d.qfrc_smooth.contiguous())),
-                      ("n200_f64", wide_ldl_case(200, torch.float64, 7))):
-    k_ms, w_ms, p_ms, lib_ms, b_ms, by = time_ldl(h, g)
-    per_block, per_sm = linalg_cuda.occupancy(h.shape[1], h.dtype)
-    times[tag] = dict(ms=k_ms, l2_warm_ms=w_ms, plain_ms=p_ms,
-                      library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
-                      envs_per_block=per_block, blocks_per_sm=per_sm)
-    print(f"wide ldl {tag} B{B}: kernel_ms {k_ms:.4f} (L2 flushed; L2-warm "
-          f"{w_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} "
-          f"(torch.linalg.solve) bound_ms {b_ms:.5f} ({by}); {per_block} "
-          f"envs per block, {per_sm} blocks/SM", flush=True)
+  ldl["qM_n81_f32"] = wide_ldl_row("f32 n81 (multi_humanoid3's qM)",
+                                   d.qM.contiguous(),
+                                   d.qfrc_smooth.contiguous())
   details["multi_humanoid3"] = dict(
       batch=B, nstep=SLICE_NSTEP, wall_s=wall, env_steps_per_s=sps,
       launches=launches, card_vs_cpu_worst=worst, wide_ldl=ldl,
-      wide_ldl_times=times, wide_newton=newton)
-  report["ldl_solve"]["wide"] = dict(n=81, **times["n81_f32"])
+      wide_newton=newton)
+  report["ldl_solve"]["wide"] = ldl
   report["newton_pyramidal"]["wide"] = dict(nv=m.nv, nefc=m.efc.nefc,
                                             **newton["f32"])
 
@@ -2231,7 +2264,10 @@ def phase_islands(report, details):
     ldl[str(dtype)[6:]] = ldl_gate("multi_humanoid10's island Newton "
                                    "systems", h, g)
   k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g))
-  w_ms = device_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
+  # L2-warm by events around back-to-back calls: each launch (~0.07 ms)
+  # outlasts the wrapper's host time, and device_ms's profiler saw 29 of
+  # 30 launches in each of five windows at this shape
+  w_ms = cuda_ms(lambda: linalg_cuda.spd_solve_kernel(h, g))
   p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g))
   lib_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g))
   b_ms, by = ldl_bound(h.shape[0], h.shape[1], h.dtype)
@@ -2239,25 +2275,21 @@ def phase_islands(report, details):
                       l2_warm_ms=w_ms, plain_ms=p_ms, library_ms=lib_ms,
                       bound_ms=b_ms, bound_by=by)
   print(f"ldl_solve at the island shape f32 {h.shape[0]} systems n"
-        f"{h.shape[1]}: kernel_ms {k_ms:.4f} (L2 flushed; L2-warm "
+        f"{h.shape[1]}: kernel_ms {k_ms:.4f} (L2 flushed; L2-warm by events "
         f"{w_ms:.4f}) plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} "
         f"(torch.linalg.solve) bound_ms {b_ms:.5f} ({by})", flush=True)
   del h, g
 
-  # the n 270 solve of qacc_smooth (the device-memory route), f32 and f64,
-  # held against its plain version as ldl_gate holds it, and timed
+  # the n 270 solve of qacc_smooth (shared memory at f32, device memory at
+  # f64), held against its plain version as ldl_gate holds it, and timed
   wide = {}
   for dtype in (torch.float32, torch.float64):
     h, g = mass_matrix_case(load(dtype), nbatch, 32)
-    route = "device memory" if linalg_cuda.work_values(
-        h.shape[1], dtype, h.device) else "shared memory"
+    route = linalg_cuda.occupancy(h.shape[1], dtype)["route"]
     err = ldl_gate(f"multi_humanoid10's mass matrix ({route})", h, g)
-    k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g), reps=3,
-                        warmup=1)
-    p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g), reps=3,
-                        warmup=1)
-    lib_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g), reps=3,
-                          warmup=1)
+    k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g), reps=10)
+    p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g), reps=10)
+    lib_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g), reps=10)
     b_ms, by = ldl_bound(nbatch, h.shape[1], dtype)
     wide[str(dtype)[6:]] = dict(n=h.shape[1], route=route, ms=k_ms,
                                 plain_ms=p_ms, library_ms=lib_ms,
@@ -2301,11 +2333,12 @@ def phase_islands(report, details):
                              out_k, out_p, 0.99)
   del out_k, out_p
   bound_ms, by, dense_ms, _, kept_mean, kept_max = newton_bound(args, 1, 4)
+  occ = newton_cuda.occupancy(m.efc.nefc, m.nv, torch.float32)
   newton = dict(nv=m.nv, nefc=m.efc.nefc, bound_ms=bound_ms, bound_by=by,
                 dense_bound_ms=dense_ms, kept_mean=kept_mean,
-                kept_max=kept_max,
+                kept_max=kept_max, **occ,
                 ms=cuda_ms_cold(lambda: newton_cuda.newton_kernel(*args, 1, 4),
-                                reps=3, warmup=1),
+                                reps=10),
                 plain_ms=cuda_ms_cold(
                     lambda: newton_cuda.newton_plain(*args, 1, 4), reps=2,
                     warmup=1),
@@ -2313,7 +2346,10 @@ def phase_islands(report, details):
   print(f"newton f32 B{nbatch} nefc{m.efc.nefc} nv{m.nv} it1 ls4: kernel_ms "
         f"{newton['ms']:.4f} (L2 flushed) plain_ms {newton['plain_ms']:.4f} "
         f"bound_ms {bound_ms:.5f} ({by}; kept rows mean {kept_mean:.2f}, "
-        f"most {kept_max}; dense {dense_ms:.5f})", flush=True)
+        f"most {kept_max}; dense {dense_ms:.5f}); {occ['threads']} threads "
+        f"per env, {occ['blocks_per_sm']} blocks/SM, work space in "
+        f"{'device' if occ['row_cap'] == 0 else 'shared'} memory",
+        flush=True)
   del args
   torch.cuda.empty_cache()
 

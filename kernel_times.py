@@ -53,8 +53,12 @@ def main() -> int:
   newton = lambda: newton_cuda.newton_kernel(*args, it, ls)
   res["newton_ms"] = cs.cuda_ms_cold(newton)
   res["newton_warm_ms"] = cs.cuda_ms(newton)
-  res["newton_blocks_per_sm"] = newton_cuda.blocks_per_sm(162, 27,
-                                                          torch.float32)
+  if hasattr(newton_cuda, "occupancy"):
+    res["newton_blocks_per_sm"] = newton_cuda.occupancy(
+        162, 27, torch.float32)["blocks_per_sm"]
+  else:   # a checkout from before the wide route's redesign
+    res["newton_blocks_per_sm"] = newton_cuda.blocks_per_sm(162, 27,
+                                                            torch.float32)
   if hasattr(cs, "device_ms"):
     res["newton_device_ms"] = cs.device_ms(newton)
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -26,16 +26,36 @@
 //   its chain of shuffles. At f32 __launch_bounds__ holds it to 85
 //   registers, so 3 blocks of 8 warps share an SM and B 3072 runs in one
 //   wave.
-// - n > 32 (ldl_shared_kernel): H staged in shared memory and factored
-//   there by warp_ldl_solve_wide (ldl_common.cuh), lane l owning rows l,
-//   l + 32, l + 64, ...; one warp's n·(n|1) + n values must fit what a
-//   block may opt into (n ≤ 169 at f64, ≤ 240 at f32 on an H100).
-// - above that (ldl_global_kernel): the same routine on a per-env slice of
-//   a device-memory work space the caller allocates (mjt_ldl_work_values
-//   says how many values per env), the solution built in place in p.
+// - n > 32 (ldl_block_kernel): one block of warps per env runs the blocked
+//   LDLᵀ of ldl_common.cuh (block_ldl_solve): 32-column panels, the
+//   diagonal tile by one warp in registers, the rows below by every
+//   thread, the trailing tiles by every warp from register tiles. The
+//   lower triangle is staged from the row-major input, 32-value row runs
+//   by cp.async with every load in flight, into tiles of shared memory
+//   where they fit one block (n ≤ 320 at f32, ≤ 224 at f64 on an H100);
+//   above that the tiles go to a per-env slice of a device-memory work
+//   space the caller allocates (mjt_ldl_work_values says how many values
+//   per env), laid out tile by tile, and each panel is staged in shared
+//   memory while it is factored (route b of the design: one wave of
+//   envs' tiles, 132 × 360 KB = 47.5 MB at f64 n 270, about fills the
+//   50 MB L2, and every access to it is a row run of a tile). There the
+//   bound is operations (~n³/3 multiply-adds per env: 0.31 ms at f32 and
+//   n 270, B 3072), and the time is each env's chain of panels: the
+//   diagonal tile is one warp's serial chain, the rows below are one per
+//   thread, and the trailing tiles one per warp (block_kernel);
+//   one env per block, as many blocks per SM as the shared memory and
+//   registers hold (small blocks, so that an env's barriers stall only
+//   its own warps; several envs in one block were not tried). Threads per
+//   block by measurement (thread_counts.py: 64, 128, 256 and 512 at every
+//   order, B 3072, an H100), by panels nt = ⌈n/32⌉:
+//     nt ≤ 3 (n ≤ 96)                     64 threads, f32 and f64;
+//     f32, nt 4-5 (n ≤ 160)               128;  f32 above            512;
+//     f64, nt 4 (n ≤ 128)                 128;  f64, nt 5-7 (n ≤ 224) 256;
+//     f64 in device memory (n > 224)      128.
 //
 // The ragged batch edge is masked (warps past B return) instead of padded
 // with identity matrices.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "ldl_common.cuh"
@@ -44,30 +64,6 @@ namespace mjt {
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-
-// 16 bytes of shared memory as values
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ static void load(float* v, const float* p) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  }
-};
-template <>
-struct Vec16<double> {
-  static constexpr int kN = 2;
-  __device__ static void load(double* v, const double* p) {
-    const double2 q = *reinterpret_cast<const double2*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-  }
-};
 
 // Shared values per warp of ldl_regs_kernel<T, N>: two column buffers of
 // 32 (16-byte aligned, double-buffered so that one barrier a step
@@ -150,50 +146,53 @@ ldl_regs_kernel(const T* __restrict__ H, const T* __restrict__ g,
                         col + 64, lane);
 }
 
+// Values of shared memory per env of ldl_block_kernel: the tiles (or, in
+// device memory, the stage of one panel), aux and y.
 template <typename T>
-__global__ void ldl_shared_kernel(const T* __restrict__ H,
-                                  const T* __restrict__ g, T* __restrict__ p,
-                                  T* /*work*/, int B, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int ld = ldl_ld(n);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long env = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (env >= B) return;  // whole warp leaves together
-  T* h = smem + static_cast<long>(warp) * (n * ld + n);
-  T* y = h + n * ld;
-  const T* Hg = H + env * n * n;
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e - i * n;
-    if (j <= i) h[i * ld + j] = Hg[e];
-  }
-  for (int i = lane; i < n; i += 32) y[i] = g[env * n + i];
-  __syncwarp(kFullMask);
-  warp_ldl_solve(h, ld, y, n, lane);
-  for (int i = lane; i < n; i += 32) p[env * n + i] = y[i];
+__host__ __device__ inline int block_smem_values(int n, bool global) {
+  const int nt = ldl_tiles_per_side(n);
+  return (global ? nt : ldl_tile_count(n)) * kTileValues + kLdlAuxValues +
+         32 * nt;
 }
 
-// H's lower triangle copied to the env's n × n slice of work, g to p, and
-// the solve done there in place
-template <typename T>
-__global__ void ldl_global_kernel(const T* __restrict__ H,
-                                  const T* __restrict__ g, T* p, T* work,
-                                  int B, int n) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long env = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (env >= B) return;  // whole warp leaves together
-  T* h = work + env * n * n;
-  T* y = p + env * n;
+template <int kNT, bool kGlobal, typename T>
+__global__ void __launch_bounds__(kNT)
+ldl_block_kernel(const T* __restrict__ H, const T* __restrict__ g,
+                 T* __restrict__ p, T* work, int B, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int nt = ldl_tiles_per_side(n);
+  const int tid = threadIdx.x;
+  const long env = blockIdx.x;
+  T* tiles = kGlobal ? work + env * ldl_tile_count(n) * kTileValues : smem;
+  T* stage = smem;
+  T* aux = smem + (kGlobal ? nt : ldl_tile_count(n)) * kTileValues;
+  T* y = aux + kLdlAuxValues;
   const T* Hg = H + env * n * n;
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e - i * n;
-    if (j <= i) h[e] = Hg[e];
+  // the lower triangle, padded, tile by tile: consecutive threads take
+  // consecutive columns of a tile row, so each warp reads a run of an H row
+  const auto h = [&](int i, int j) { return Hg[i * n + j]; };
+  for (int J = 0, t = 0; J < nt; ++J) {
+    for (int I = J; I < nt; ++I, ++t) {
+      T* tile = tiles + static_cast<long>(t) * kTileValues;
+      for (int w = tid; w < kTileValues; w += kNT) {
+        const int r = w >> 5, c = w & 31;
+        const int i = 32 * I + r, j = 32 * J + c;
+        T* dst = tile + tile_at<T>(r, c);
+        if (!kGlobal && i < n && j < n && (I != J || c <= r)) {
+          __pipeline_memcpy_async(dst, Hg + i * n + j, sizeof(T));
+        } else {
+          *dst = ldl_tile_value<T>(I, J, r, c, n, h);
+        }
+      }
+    }
   }
-  for (int i = lane; i < n; i += 32) y[i] = g[env * n + i];
-  __syncwarp(kFullMask);
-  warp_ldl_solve_wide(h, n, y, n, lane);
+  for (int i = tid; i < 32 * nt; i += kNT) y[i] = i < n ? g[env * n + i] : T(0);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  block_ldl_solve<kNT, kGlobal>(tiles, stage, y, aux, n);
+  for (int i = tid; i < n; i += kNT) p[env * n + i] = y[i];
 }
 
 // Dynamic shared memory a block may opt into on the current device.
@@ -206,48 +205,77 @@ inline size_t smem_optin() {
   return static_cast<size_t>(v);
 }
 
-// The kernel that solves order n, its shared bytes per warp, its warps per
-// block (as many as fit 48 KB, at most kWarpsPerBlock; one warp alone may
-// opt into more) and its device-memory work values per env.
+// The kernel that solves order n, its shared bytes per block, its envs
+// (warps for the register route) per block, its threads per block, its
+// device-memory work values per env and its route (0 registers, 1 shared
+// memory, 2 device memory).
 template <typename T>
 struct Plan {
   void (*kernel)(const T*, const T*, T*, T*, int, int);
-  size_t per_warp;
-  int warps;
+  size_t smem;
+  int envs;
+  int threads;
   size_t work;
+  int route;
 };
+
+// Threads per block of ldl_block_kernel at order n on its route (the
+// table at the top), and the instantiation: only the pairs the table
+// names are built.
+template <typename T>
+void block_kernel(Plan<T>& pl, int n) {
+  const int nt = ldl_tiles_per_side(n);
+  if constexpr (sizeof(T) == 4) {
+    pl.threads = nt <= 3 ? 64 : (nt <= 5 ? 128 : 512);
+    pl.kernel = pl.route == 2        ? ldl_block_kernel<512, true, T>
+                : pl.threads == 64  ? ldl_block_kernel<64, false, T>
+                : pl.threads == 128 ? ldl_block_kernel<128, false, T>
+                                    : ldl_block_kernel<512, false, T>;
+  } else {
+    pl.threads = nt <= 3 ? 64 : (pl.route == 2 || nt <= 4 ? 128 : 256);
+    pl.kernel = pl.route == 2        ? ldl_block_kernel<128, true, T>
+                : pl.threads == 64  ? ldl_block_kernel<64, false, T>
+                : pl.threads == 128 ? ldl_block_kernel<128, false, T>
+                                    : ldl_block_kernel<256, false, T>;
+  }
+}
 
 template <typename T>
 Plan<T> plan(int n) {
   Plan<T> pl;
   pl.work = 0;
   if (n <= 32) {
+    // as many warps as fit 48 KB, at most kWarpsPerBlock
     pl.kernel = n == 27 ? ldl_regs_kernel<T, 27, true>
                         : ldl_regs_kernel<T, 32, false>;
-    pl.per_warp = (n == 27 ? regs_warp_values<27>() : regs_warp_values<32>())
-                  * sizeof(T);
-  } else {
-    pl.per_warp = static_cast<size_t>(n * ldl_ld(n) + n) * sizeof(T);
-    pl.kernel = ldl_shared_kernel<T>;
-    if (pl.per_warp > smem_optin()) {
-      pl.kernel = ldl_global_kernel<T>;
-      pl.per_warp = 0;
-      pl.work = static_cast<size_t>(n) * n;
-    }
+    const size_t per_warp =
+        (n == 27 ? regs_warp_values<27>() : regs_warp_values<32>()) *
+        sizeof(T);
+    const int fit = static_cast<int>((48 * 1024) / per_warp);
+    pl.envs = fit > kWarpsPerBlock ? kWarpsPerBlock : fit;
+    pl.threads = pl.envs * 32;
+    pl.smem = pl.envs * per_warp;
+    pl.route = 0;
+    return pl;
   }
-  const int fit = pl.per_warp ? static_cast<int>((48 * 1024) / pl.per_warp)
-                              : kWarpsPerBlock;
-  pl.warps = fit < 1 ? 1 : (fit > kWarpsPerBlock ? kWarpsPerBlock : fit);
+  pl.envs = 1;
+  pl.route = 1;
+  pl.smem = static_cast<size_t>(block_smem_values<T>(n, false)) * sizeof(T);
+  if (pl.smem > smem_optin()) {
+    pl.route = 2;
+    pl.smem = static_cast<size_t>(block_smem_values<T>(n, true)) * sizeof(T);
+    pl.work = static_cast<size_t>(ldl_tile_count(n)) * kTileValues;
+  }
+  block_kernel(pl, n);
   return pl;
 }
 
 template <typename T>
 cudaError_t prepare(const Plan<T>& pl) {
-  const size_t smem = pl.warps * pl.per_warp;
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (pl.smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(pl.kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+                              static_cast<int>(pl.smem));
 }
 
 template <typename T>
@@ -259,14 +287,14 @@ int launch_ldl(const T* H, const T* g, T* p, T* work, int B, int n,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = prepare(pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + pl.warps - 1) / pl.warps;
-  pl.kernel<<<blocks, pl.warps * 32, pl.warps * pl.per_warp, stream>>>(
-      H, g, p, work, B, n);
+  const int blocks = (B + pl.envs - 1) / pl.envs;
+  pl.kernel<<<blocks, pl.threads, pl.smem, stream>>>(H, g, p, work, B, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Envs (warps) per block and resident blocks per SM at order n, from the
-// runtime's occupancy calculator; < 0 is an error code.
+// At order n: envs per block, resident blocks per SM (from the runtime's
+// occupancy calculator), threads per block and the route (0 registers, 1
+// shared memory, 2 device memory); < 0 is an error code.
 template <typename T>
 int ldl_occupancy(int n, int* out) {
   if (n < 1) return -static_cast<int>(cudaErrorInvalidValue);
@@ -275,9 +303,11 @@ int ldl_occupancy(int n, int* out) {
   cudaError_t err = prepare(pl);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, pl.kernel, pl.warps * 32, pl.warps * pl.per_warp);
-  out[0] = pl.warps;
+        &blocks, pl.kernel, pl.threads, pl.smem);
+  out[0] = pl.envs;
   out[1] = blocks;
+  out[2] = pl.threads;
+  out[3] = pl.route;
   return err == cudaSuccess ? 0 : -static_cast<int>(err);
 }
 

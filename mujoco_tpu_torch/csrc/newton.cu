@@ -1,5 +1,5 @@
-// Whole pyramidal Newton constraint solve, one warp per env, float and
-// double.
+// Whole pyramidal Newton constraint solve, one warp per env up to nv 32 and
+// one block of eight warps per env above, float and double.
 //
 // Replaces the Pallas kernel _newton_kernel
 // (mujoco_tpu/ops/newton_tpu.py:155, launched by _newton_lanes :289).
@@ -24,21 +24,33 @@
 //   and R; a dropped row's force is written as 0 (the plain version's ±0).
 //   Every sum over the kept rows is the dense sum without its exact zeros
 //   (PackedRows, newton_common.cuh).
-// - One warp per env: the passes over nv and over the kept rows fit one
-//   warp, the block sums are butterflies with no block barrier, and the
-//   warp that factors H is the whole block.
+// - nv ≤ 32, one warp per env: the passes over nv and over the kept rows
+//   fit one warp, the block sums are butterflies with no block barrier, and
+//   the warp that factors H (in registers) is the whole block.
 // - Shared memory holds M, H, the row vectors of every row the env could
 //   keep, and the J rows of up to kRowCap kept rows: 17.9 KB at f32 for
 //   the humanoid, so 12 blocks share an SM. An env with more kept rows
 //   reads its J rows from device memory instead (a second instantiation
 //   of the same solve), so every env is solved in full without a host
 //   synchronisation.
-// - Any nv: H's factor goes through the wide warp LDL (ldl_common.cuh)
-//   above nv 32. Where the work space does not fit what a block may opt
-//   into (at f64 from about nv 110, fewer with many rows), the whole work
-//   space moves to a per-env slice of device memory that the caller
-//   allocates (kGlobalWork; mjt_newton_work_values says how many values
-//   per env) and every env reads its J rows from device memory.
+// - nv > 32 (kWide), one block of kWideThreads per env: at nv 81 one warp
+//   would walk 3,321 entries of H and 81 serial pivots alone. H is built
+//   as the 32×32 tiles of the blocked LDLᵀ (block_ldl_solve,
+//   ldl_common.cuh) in the order the factor walks them and factored by the
+//   whole block; a row's product with a dof vector is one warp's, M·v reads
+//   M by columns; up to kWideRowCap kept J rows stay in shared memory
+//   (multi_humanoid3 keeps ~40). Where the work space does not fit what a
+//   block may opt into (nv 270 at f32 and from about nv 110 at f64), H's
+//   tiles, M, the J rows and the row vectors move to a per-env slice of
+//   device memory that the caller allocates (kGlobalWork;
+//   mjt_newton_work_values says how many values per env); the factor
+//   stages each panel in shared memory, and every other pass reads runs of
+//   consecutive values. 256 threads by measurement (thread_counts.py:
+//   128 took 49 % longer at nv 270 and 3 % at nv 81, f32); at f32
+//   __launch_bounds__ holds it to 128 registers, so two blocks may share
+//   an SM.
+// - nv ≤ 32 where the work space does not fit (many rows at f64): the
+//   whole work space in device memory, as above, one warp per env.
 // - Every input copy into shared memory is a cp.async, so an env's loads
 //   are all in flight at once and none passes through registers.
 //
@@ -52,31 +64,69 @@
 namespace mjt {
 namespace {
 
-constexpr int kNewtonThreads = 32;   // one warp per env
+constexpr int kNewtonThreads = 32;   // nv ≤ 32: one warp per env
 constexpr int kNewtonMinBlocks = 12;
 constexpr int kRowCap = 48;          // J rows of kept rows in shared memory
+constexpr int kWideThreads = 256;    // nv > 32: eight warps per env
+constexpr int kWideRowCap = 96;
+
+
 
 struct Shapes {
   int nefc, nv, ld, cap;
+  bool wide;    // nv > 32: H as tiles, factored by block_ldl_solve
+  bool global;  // the work space in device memory
 };
 
+// The wide solve's values that stay in shared memory on either route: the
+// factor's aux, y padded to 32·nt, five dof vectors, block sums and costs.
+__host__ __device__ inline size_t wide_small_values(const Shapes& s) {
+  return kLdlAuxValues + 32 * static_cast<size_t>(ldl_tiles_per_side(s.nv)) +
+         5 * static_cast<size_t>(s.nv) + 64 + kStatRows + 1;
+}
+
+// The values that move to device memory on the global route: M, the kept
+// J rows, the row vectors (and, wide, H's tiles before them).
+__host__ __device__ inline size_t big_values(const Shapes& s) {
+  return static_cast<size_t>(s.nv) * s.nv                    // M
+         + static_cast<size_t>(s.cap) * s.nv                  // kept J rows
+         + 8 * static_cast<size_t>(s.nefc);                   // row vectors
+}
+
+// Dynamic shared memory of one block.
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(const Shapes& s) {
-  const size_t values = static_cast<size_t>(s.nv) * s.nv   // M
+  if (s.wide) {
+    const size_t tiles =
+        static_cast<size_t>(s.global ? ldl_tiles_per_side(s.nv)
+                                     : ldl_tile_count(s.nv)) * kTileValues;
+    const size_t values = tiles + wide_small_values(s) +
+                          (s.global ? 0 : big_values(s));
+    return values * sizeof(T) +
+           (s.global ? 0 : static_cast<size_t>(s.nefc) * sizeof(int));
+  }
+  if (s.global) return 0;
+  const size_t values = big_values(s)
                         + static_cast<size_t>(s.nv) * s.ld  // H
-                        + static_cast<size_t>(s.cap) * s.nv // kept J rows
-                        + 8 * static_cast<size_t>(s.nefc)   // row vectors
                         + 6 * static_cast<size_t>(s.nv)     // dof vectors
                         + 64                                // block sums
                         + kStatRows + 1;                    // costs
   return values * sizeof(T) + static_cast<size_t>(s.nefc) * sizeof(int);
 }
 
-// Values of one env's work-space slice in device memory: smem_bytes
-// rounded up to 16 bytes.
+// Values of one env's work-space slice in device memory (global route),
+// rounded up to 16 bytes: the narrow solve's whole work space, the wide
+// solve's tiles and big values.
 template <typename T>
 __host__ __device__ inline size_t work_values(const Shapes& s) {
-  return (smem_bytes<T>(s) + 15) / 16 * 16 / sizeof(T);
+  Shapes all = s;
+  all.global = false;
+  const size_t bytes =
+      s.wide ? (static_cast<size_t>(ldl_tile_count(s.nv)) * kTileValues +
+                big_values(s)) * sizeof(T) +
+                   static_cast<size_t>(s.nefc) * sizeof(int)
+             : smem_bytes<T>(all);
+  return (bytes + 15) / 16 * 16 / sizeof(T);
 }
 
 template <bool kGlobalWork, typename T>
@@ -88,8 +138,13 @@ __device__ inline void copy_async(T* dst, const T* src) {
   }
 }
 
-template <typename T, bool kGlobalWork>
-__global__ void __launch_bounds__(kNewtonThreads, kNewtonMinBlocks)
+// The wide route asks for two resident blocks at f32 (128 registers a
+// thread) and one at f64, whose solve spills under 128 (thread_counts.py,
+// nv 81: 1.53 against 2.42 ms).
+template <typename T, bool kGlobalWork, bool kWide>
+__global__ void __launch_bounds__(kWide ? kWideThreads : kNewtonThreads,
+                                  kWide ? (sizeof(T) == 4 ? 2 : 1)
+                                        : kNewtonMinBlocks)
 newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
               const T* __restrict__ D, const T* __restrict__ R,
               const T* __restrict__ fl, const T* __restrict__ fric,
@@ -100,15 +155,48 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
               T* __restrict__ stat_out, T* gwork, Shapes s, int iterations,
               int ls_iter) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kNT = kNewtonThreads;
+  constexpr int kNT = kWide ? kWideThreads : kNewtonThreads;
   const int nefc = s.nefc, nv = s.nv, ld = s.ld;
   const int tid = threadIdx.x;
   const long env = blockIdx.x;
 
-  T* sM = kGlobalWork ? gwork + env * work_values<T>(s)
-                      : reinterpret_cast<T*>(smem_raw);
-  T* sH = sM + nv * nv;
-  T* sJ = sH + nv * ld;
+  T* sM;
+  T* sH;
+  T* sX;
+  T* sY;   // right-hand side, then the direction p
+  T* sRed;
+  T* sCost;
+  T* stage = nullptr;
+  T* aux = nullptr;
+  if constexpr (kWide) {
+    // shared: [tiles, or the stage of one panel][aux][y][x as warm dx mdx]
+    // [red][cost], then on the shared route the big values; device: [tiles]
+    // [big values]
+    const int nt = ldl_tiles_per_side(nv);
+    T* sh = reinterpret_cast<T*>(smem_raw);
+    T* big = kGlobalWork ? gwork + env * work_values<T>(s) : nullptr;
+    const long tiles = static_cast<long>(ldl_tile_count(nv)) * kTileValues;
+    if constexpr (kGlobalWork) {
+      stage = sh;
+      sH = big;
+      sh += nt * kTileValues;
+      big += tiles;
+    } else {
+      sH = sh;
+      sh += tiles;
+    }
+    aux = sh;
+    sY = aux + kLdlAuxValues;
+    sX = sY + 32 * nt;
+    sRed = sX + 5 * nv;
+    sCost = sRed + 64;
+    sM = kGlobalWork ? big : sCost + kStatRows + 1;
+  } else {
+    sM = kGlobalWork ? gwork + env * work_values<T>(s)
+                     : reinterpret_cast<T*>(smem_raw);
+    sH = sM + nv * nv;
+  }
+  T* sJ = kWide ? sM + nv * nv : sH + nv * ld;
   T* sAref = sJ + s.cap * nv;
   T* sD = sAref + nefc;
   T* sR = sD + nefc;
@@ -117,15 +205,18 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
   T* sJp = sJar + nefc;
   T* sForce = sJp + nefc;
   T* sW = sForce + nefc;
-  T* sX = sW + nefc;
+  if constexpr (!kWide) {
+    sX = sW + nefc;
+    sY = sX + 5 * nv;
+    sRed = sY + nv;
+    sCost = sRed + 64;
+  }
   T* sAs = sX + nv;
   T* sWarm = sAs + nv;
   T* sDx = sWarm + nv;
   T* sMdx = sDx + nv;
-  T* sY = sMdx + nv;   // right-hand side, then the direction p
-  T* sRed = sY + nv;
-  T* sCost = sRed + 64;
-  int* sInfo = reinterpret_cast<int*>(sCost + kStatRows + 1);
+  int* sInfo = reinterpret_cast<int*>(kWide ? sW + nefc
+                                            : sCost + kStatRows + 1);
 
   // ---- every row's D and fl (masks staged in jar and jp), M, a_s, warm
   const T* Dg = D + env * nefc;
@@ -203,14 +294,19 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
 
   const NewtonWork<T> work{sM,  sH,   sJar, sJp,  sForce, sW,   sX,  sAs,
                            sWarm, sDx, sMdx, sY,  sRed,   sCost, nv, ld};
+  const TileWork<T> tw{stage, aux};
   T* q = qfrc_out + env * nv;
-  if (fits) {
+  // the wide solve on device memory holds no J rows (cap 0): an env with
+  // no kept row takes the device-J instantiation too
+  if (fits && !(kWide && kGlobalWork)) {
     const PackedRows<T, false> rows{sJ, sInfo, sAref, sD, sR, sFl, nk, nv};
-    block_newton<kNT>(rows, work, reg_e, iterations, ls_iter, true);
+    block_newton<kNT, T, PackedRows<T, false>, kWide, kGlobalWork>(
+        rows, work, reg_e, iterations, ls_iter, true, tw);
     for (int i = tid; i < nv; i += kNT) q[i] = rows.jtf(i, sForce);
   } else {
     const PackedRows<T, true> rows{Jg, sInfo, sAref, sD, sR, sFl, nk, nv};
-    block_newton<kNT>(rows, work, reg_e, iterations, ls_iter, true);
+    block_newton<kNT, T, PackedRows<T, true>, kWide, kGlobalWork>(
+        rows, work, reg_e, iterations, ls_iter, true, tw);
     for (int i = tid; i < nv; i += kNT) q[i] = rows.jtf(i, sForce);
   }
 
@@ -228,13 +324,14 @@ newton_kernel(const T* __restrict__ J, const T* __restrict__ aref,
 }
 
 Shapes shapes(int nefc, int nv) {
-  return Shapes{nefc, nv, ldl_ld(nv), nefc < kRowCap ? nefc : kRowCap};
+  const bool wide = nv > 32;
+  const int cap = wide ? kWideRowCap : kRowCap;
+  return Shapes{nefc, nv, ldl_ld(nv), nefc < cap ? nefc : cap, wide, false};
 }
 
-// Dynamic shared memory a block of newton_kernel<T, false> may opt into on
-// the current device (the device's limit less the kernel's static shared
-// memory).
-template <typename T>
+// Dynamic shared memory a block of the kernel may opt into on the current
+// device (the device's limit less the kernel's static shared memory).
+template <typename T, bool kWide>
 size_t smem_limit() {
   int dev = 0, v = 48 * 1024;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -243,35 +340,77 @@ size_t smem_limit() {
     v = 48 * 1024;
   cudaFuncAttributes attr;
   const size_t fixed =
-      cudaFuncGetAttributes(&attr, newton_kernel<T, false>) == cudaSuccess
+      cudaFuncGetAttributes(&attr, newton_kernel<T, false, kWide>) ==
+              cudaSuccess
           ? attr.sharedSizeBytes
           : 64;
   return static_cast<size_t>(v) - fixed;
 }
 
 // The route at these shapes: the work space in shared memory where it
-// fits, else in device memory (no J rows copied: cap 0). Returns the
-// shapes and sets *smem (dynamic shared bytes) and *work (device-memory
-// values per env, 0 on the shared route).
+// fits, else in device memory (no J rows copied: cap 0), where the wide
+// solve keeps its small values and the stage of one panel in shared
+// memory. Returns the shapes and sets *smem (dynamic shared bytes) and
+// *work (device-memory values per env, 0 on the shared route).
 template <typename T>
 Shapes route(int nefc, int nv, size_t* smem, size_t* work) {
   Shapes s = shapes(nefc, nv);
   *smem = smem_bytes<T>(s);
   *work = 0;
-  if (*smem > smem_limit<T>()) {
+  const size_t limit =
+      s.wide ? smem_limit<T, true>() : smem_limit<T, false>();
+  if (*smem > limit) {
     s.cap = 0;
-    *smem = 0;
+    s.global = true;
+    *smem = smem_bytes<T>(s);
     *work = work_values<T>(s);
   }
   return s;
 }
 
-template <typename T, bool kGlobalWork>
+template <typename T, bool kGlobalWork, bool kWide>
 cudaError_t set_smem(size_t smem) {
-  return cudaFuncSetAttribute(newton_kernel<T, kGlobalWork>,
+  return cudaFuncSetAttribute(newton_kernel<T, kGlobalWork, kWide>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem > 48 * 1024 ? smem
                                                                 : 48 * 1024));
+}
+
+// The kernel instantiation, its threads per block and its dynamic shared
+// memory at these shapes (after route), with the opt-in set.
+template <typename T>
+struct Launch {
+  void (*kernel)(const T*, const T*, const T*, const T*, const T*, const T*,
+                 const T*, const T*, const T*, const T*, const T*, T*, T*,
+                 T*, T*, T*, Shapes, int, int);
+  int threads;
+  cudaError_t err;
+};
+
+template <typename T>
+Launch<T> launch_of(const Shapes& s, size_t smem) {
+  Launch<T> l;
+  if (s.wide) {
+    l.threads = kWideThreads;
+    if (s.global) {
+      l.kernel = newton_kernel<T, true, true>;
+      l.err = set_smem<T, true, true>(smem);
+    } else {
+      l.kernel = newton_kernel<T, false, true>;
+      l.err = set_smem<T, false, true>(smem);
+    }
+  } else {
+    l.threads = kNewtonThreads;
+    if (s.global) {
+      l.kernel = newton_kernel<T, true, false>;
+      l.err = cudaSuccess;
+    } else {
+      l.kernel = newton_kernel<T, false, false>;
+      l.err = smem > 48 * 1024 ? set_smem<T, false, false>(smem)
+                               : cudaSuccess;
+    }
+  }
+  return l;
 }
 
 template <typename T>
@@ -285,50 +424,42 @@ int launch_newton(const T* J, const T* aref, const T* D, const T* R,
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0, wv = 0;
   const Shapes s = route<T>(nefc, nv, &smem, &wv);
-  if (wv) {
-    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    newton_kernel<T, true><<<B, kNewtonThreads, 0, stream>>>(
-        J, aref, D, R, fl, fric, ones, M, a_s, warm, reg, x, force, qfrc,
-        stat, work, s, iterations, ls_iter);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (smem > 48 * 1024) {
-    const cudaError_t err = set_smem<T, false>(smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  newton_kernel<T, false><<<B, kNewtonThreads, smem, stream>>>(
-      J, aref, D, R, fl, fric, ones, M, a_s, warm, reg, x, force, qfrc, stat,
-      work, s, iterations, ls_iter);
+  if (wv && work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch<T> l = launch_of<T>(s, smem);
+  if (l.err != cudaSuccess) return static_cast<int>(l.err);
+  l.kernel<<<B, l.threads, smem, stream>>>(J, aref, D, R, fl, fric, ones, M,
+                                          a_s, warm, reg, x, force, qfrc,
+                                          stat, work, s, iterations, ls_iter);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM at these shapes, from the runtime's occupancy
-// calculator (shared memory, registers and threads together); < 0 is an
-// error code.
+// At these shapes: threads per block (one env each), the J rows of kept
+// rows held in shared memory (0 on the device-memory route) and resident
+// blocks per SM from the runtime's occupancy calculator (shared memory,
+// registers and threads together); < 0 is an error code.
 template <typename T>
-int newton_blocks_per_sm(int nefc, int nv) {
+int newton_occupancy(int nefc, int nv, int* out) {
+  if (nefc < 1 || nv < 1) return -static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0, wv = 0;
-  route<T>(nefc, nv, &smem, &wv);
-  cudaError_t err = cudaSuccess;
+  const Shapes s = route<T>(nefc, nv, &smem, &wv);
+  const Launch<T> l = launch_of<T>(s, smem);
   int blocks = 0;
-  if (wv) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, newton_kernel<T, true>, kNewtonThreads, 0);
-  } else {
-    err = set_smem<T, false>(smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, newton_kernel<T, false>, kNewtonThreads, smem);
-  }
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+  cudaError_t err = l.err;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel,
+                                                        l.threads, smem);
+  out[0] = l.threads;
+  out[1] = s.cap;
+  out[2] = blocks;
+  return err == cudaSuccess ? 0 : -static_cast<int>(err);
 }
 
 }  // namespace
 }  // namespace mjt
 
-extern "C" int mjt_newton_blocks_per_sm(int nefc, int nv, int f64) {
-  return f64 ? mjt::newton_blocks_per_sm<double>(nefc, nv)
-             : mjt::newton_blocks_per_sm<float>(nefc, nv);
+extern "C" int mjt_newton_occupancy(int nefc, int nv, int f64, int* out) {
+  return f64 ? mjt::newton_occupancy<double>(nefc, nv, out)
+             : mjt::newton_occupancy<float>(nefc, nv, out);
 }
 
 // device-memory work values per env the solve at these shapes needs (0: it

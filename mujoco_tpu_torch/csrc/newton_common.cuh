@@ -19,6 +19,14 @@
 // the same totals, so the linesearch's scalar state (lo, hi, has_hi, α) is
 // identical in all threads without a broadcast.
 //
+// The wide solve (kWide, the Newton kernel above nv 32, a block of several
+// warps): H is built as the tiles of block_ldl_solve (ldl_common.cuh),
+// tile by tile in the order the factor walks them (PackedRows::
+// build_h_tiles), and factored by the whole block; a row's product with a
+// dof vector is one warp's (lanes over the dofs, a butterfly sum), and
+// M·v reads M by columns (M is symmetric), so that every pass over a work
+// space in device memory reads runs of consecutive values.
+//
 // Kinks: the linesearch stops where φ'(α) changes sign, and φ' is piecewise
 // linear with a kink wherever a row crosses jar = 0 (or ±R·fl). At f32 an
 // env can land on either side of a kink depending on the last bit of a sum,
@@ -202,6 +210,72 @@ struct PackedRows {
       }
     }
   }
+  // row k's product with v by one warp: every lane gets the sum
+  __device__ T dot_warp(int k, const T* v, int lane) const {
+    const T* Jk = row(k);
+    T acc = T(0);
+    for (int j = lane; j < nv; j += 32) acc += Jk[j] * v[j];
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(kFullMask, acc, off);
+    return acc;
+  }
+  // H = M + JᵀWJ + reg·I as the tiles of block_ldl_solve (padded with the
+  // identity, 0 above a diagonal tile's diagonal). One warp per tile, the
+  // tiles in panel order; lane (ry, cx) = (lane / 4, lane % 4) owns rows
+  // ry + 8q (q < 4) and columns cx + 4u (u < 8) of its tile, as
+  // trailing_tile does, so each kept row's J values come as one 8-value
+  // and one 4-value run per warp and feed 32 multiply-adds per lane. Each
+  // entry's JᵀWJ is summed in row order, (w_k·J_ki)·J_kj, as build_h.
+  template <int kNT>
+  __device__ void build_h_tiles(const NewtonWork<T>& s, T reg, T* tiles,
+                                int nt) const {
+    const int lane = threadIdx.x & 31, ry = lane >> 2, cx = lane & 3;
+    const int ntiles = nt * (nt + 1) / 2;
+    for (int t = threadIdx.x >> 5; t < ntiles; t += kNT / 32) {
+      int J = 0, base = 0;
+      while (base + nt - J <= t) {
+        base += nt - J;
+        ++J;
+      }
+      const int I = J + t - base;
+      T acc[4][8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc[q][u] = T(0);
+      for (int k = 0; k < n; ++k) {
+        const T* Jk = row(k);
+        const T wk = s.w[k];
+        T a[4], b[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 32 * I + ry + 8 * q;
+          a[q] = i < nv ? wk * Jk[i] : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = 32 * J + cx + 4 * u;
+          b[u] = j < nv ? Jk[j] : T(0);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc[q][u] += a[q] * b[u];
+      }
+      T* tile = tiles + static_cast<long>(t) * kTileValues;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int r = ry + 8 * q, c = cx + 4 * u;
+          const auto h = [&](int i, int j) {
+            const T hij = s.M[i * nv + j] + acc[q][u];
+            return i == j ? hij + reg : hij;
+          };
+          tile[tile_at<T>(r, c)] = ldl_tile_value<T>(I, J, r, c, nv, h);
+        }
+    }
+  }
   __device__ void update(int k, T jar, T& f, T& c, T& w) const {
     const int bits = info[k];
     row_update(jar, D[k], R[k], fl[k], T((bits & kFricBit) != 0),
@@ -315,28 +389,55 @@ struct ListRows {
 };
 
 
+// (M·v)_i, M symmetric: by row i, or (kWide) by column i, which threads i,
+// i + 1, ... read as one run
+template <bool kWide, typename T>
+__device__ inline T m_dot(const T* M, int nv, int i, const T* v) {
+  T acc = T(0);
+  if constexpr (kWide) {
+    for (int j = 0; j < nv; ++j) acc += M[j * nv + i] * v[j];
+  } else {
+    for (int j = 0; j < nv; ++j) acc += M[i * nv + j] * v[j];
+  }
+  return acc;
+}
+
 // Σ_r cost_r(Jv − aref) + 0.5·(v − a_s)ᵀM(v − a_s) for v in shared memory;
 // stores jar, force and w per row and dx, M·dx per dof. Every thread calls
 // it and gets the total.
-template <int kNT, typename T, class Rows>
+template <int kNT, bool kWide, typename T, class Rows>
 __device__ T newton_objective(const Rows& rows, const NewtonWork<T>& s,
                               const T* v) {
   const int tid = threadIdx.x, nv = s.nv;
   T sum_rows = T(0), quad = T(0);
-  for (int k = tid; k < rows.n; k += kNT) {
-    const T jar = rows.dot(k, v) - rows.aref[k];
-    T f, c, w;
-    rows.update(k, jar, f, c, w);
-    s.jar[k] = jar;
-    s.force[k] = f;
-    s.w[k] = w;
-    sum_rows += c;
+  if constexpr (kWide) {
+    const int lane = tid & 31;
+    for (int k = tid >> 5; k < rows.n; k += kNT / 32) {
+      const T jar = rows.dot_warp(k, v, lane) - rows.aref[k];
+      if (lane == 0) {
+        T f, c, w;
+        rows.update(k, jar, f, c, w);
+        s.jar[k] = jar;
+        s.force[k] = f;
+        s.w[k] = w;
+        sum_rows += c;
+      }
+    }
+  } else {
+    for (int k = tid; k < rows.n; k += kNT) {
+      const T jar = rows.dot(k, v) - rows.aref[k];
+      T f, c, w;
+      rows.update(k, jar, f, c, w);
+      s.jar[k] = jar;
+      s.force[k] = f;
+      s.w[k] = w;
+      sum_rows += c;
+    }
   }
   for (int i = tid; i < nv; i += kNT) s.dx[i] = v[i] - s.as[i];
   __syncthreads();
   for (int i = tid; i < nv; i += kNT) {
-    T acc = T(0);
-    for (int j = 0; j < nv; ++j) acc += s.M[i * nv + j] * s.dx[j];
+    const T acc = m_dot<kWide>(s.M, nv, i, s.dx);
     s.mdx[i] = acc;
     quad += s.dx[i] * acc;
   }
@@ -344,15 +445,29 @@ __device__ T newton_objective(const Rows& rows, const NewtonWork<T>& s,
   return sum_rows + T(0.5) * quad;
 }
 
+// Shared memory of the wide solve's factor (block_ldl_solve): the stage of
+// one panel where H's tiles are in device memory (else unused), and aux.
+template <typename T>
+struct TileWork {
+  T* stage;
+  T* aux;
+};
+
 // The whole solve by a block of kNT threads: on return s.x holds the
 // solution, s.force the forces of its final row update and
 // s.cost[0..iterations] the objective before each iteration and after the
 // last. use_warm = false starts from a_s without the pick
 // (DisableBit.WARMSTART in the megastep). Every thread of the block must
 // call it; the results are visible to all threads on return.
-template <int kNT, typename T, class Rows>
+//
+// kWide (block_ldl_solve over tiles, kGlobalH: the tiles at s.H in device
+// memory): s.y holds 32·⌈nv/32⌉ values, the tiles and tw are as
+// block_ldl_solve takes them.
+template <int kNT, typename T, class Rows, bool kWide = false,
+          bool kGlobalH = false>
 __device__ void block_newton(const Rows& rows, const NewtonWork<T>& s, T reg,
-                             int iterations, int ls_iter, bool use_warm) {
+                             int iterations, int ls_iter, bool use_warm,
+                             TileWork<T> tw = {}) {
   const int tid = threadIdx.x, n = rows.n, nv = s.nv, ld = s.ld;
   const T* start = s.as;
   // the objective at the warmstart is evaluated last, so that when the
@@ -361,8 +476,8 @@ __device__ void block_newton(const Rows& rows, const NewtonWork<T>& s, T reg,
   bool have_start = false;
   T cost_start = T(0);
   if (use_warm) {
-    const T cost_smooth = newton_objective<kNT>(rows, s, s.as);
-    const T cost_warm = newton_objective<kNT>(rows, s, s.warm);
+    const T cost_smooth = newton_objective<kNT, kWide>(rows, s, s.as);
+    const T cost_warm = newton_objective<kNT, kWide>(rows, s, s.warm);
     if (cost_warm < cost_smooth) {
       start = s.warm;
       have_start = true;
@@ -370,28 +485,46 @@ __device__ void block_newton(const Rows& rows, const NewtonWork<T>& s, T reg,
     }
   }
   for (int i = tid; i < nv; i += kNT) s.x[i] = start[i];
+  if constexpr (kWide) {
+    for (int i = nv + tid; i < 32 * ldl_tiles_per_side(nv); i += kNT)
+      s.y[i] = T(0);
+  }
   __syncthreads();
 
   for (int it = 0; it < iterations; ++it) {
     // jar, row update, M·(x − a_s) and the objective at x
     const T cost = it == 0 && have_start
                        ? cost_start
-                       : newton_objective<kNT>(rows, s, s.x);
+                       : newton_objective<kNT, kWide>(rows, s, s.x);
     if (tid == 0) s.cost[it] = cost;
     // right-hand side −grad = −(M(x − a_s) − Jᵀf)
     for (int i = tid; i < nv; i += kNT)
       s.y[i] = -(s.mdx[i] - rows.jtf(i, s.force));
     // H = M + Σ_r w_r J_rᵀ J_r + reg·I, lower triangle
-    rows.template build_h<kNT>(s, reg);
-    __syncthreads();
-    if (tid < 32) warp_ldl_solve(s.H, ld, s.y, nv, tid);
-    __syncthreads();
+    if constexpr (kWide) {
+      const int nt = ldl_tiles_per_side(nv);
+      rows.template build_h_tiles<kNT>(s, reg, s.H, nt);
+      __syncthreads();
+      block_ldl_solve<kNT, kGlobalH>(s.H, tw.stage, s.y, tw.aux, nv);
+    } else {
+      rows.template build_h<kNT>(s, reg);
+      __syncthreads();
+      if (tid < 32) warp_ldl_solve(s.H, ld, s.y, nv, tid);
+      __syncthreads();
+    }
     // linesearch inputs: jp = J p, gx0 = pᵀM(x − a_s), pmp = pᵀMp
-    for (int k = tid; k < n; k += kNT) s.jp[k] = rows.dot(k, s.y);
+    if constexpr (kWide) {
+      const int lane = tid & 31;
+      for (int k = tid >> 5; k < n; k += kNT / 32) {
+        const T jp = rows.dot_warp(k, s.y, lane);
+        if (lane == 0) s.jp[k] = jp;
+      }
+    } else {
+      for (int k = tid; k < n; k += kNT) s.jp[k] = rows.dot(k, s.y);
+    }
     T gx0 = T(0), pmp = T(0);
     for (int i = tid; i < nv; i += kNT) {
-      T acc = T(0);
-      for (int j = 0; j < nv; ++j) acc += s.M[i * nv + j] * s.y[j];
+      const T acc = m_dot<kWide>(s.M, nv, i, s.y);
       gx0 += s.y[i] * s.mdx[i];
       pmp += s.y[i] * acc;
     }
@@ -429,7 +562,7 @@ __device__ void block_newton(const Rows& rows, const NewtonWork<T>& s, T reg,
   }
 
   // final row update at the solution
-  const T cost_final = newton_objective<kNT>(rows, s, s.x);
+  const T cost_final = newton_objective<kNT, kWide>(rows, s, s.x);
   if (tid == 0) s.cost[iterations] = cost_final;
   __syncthreads();
 }

@@ -108,8 +108,8 @@ def library() -> ctypes.CDLL:
     for fn in (lib.mjt_ldl_solve_f32, lib.mjt_ldl_solve_f64,
                lib.mjt_newton_f32, lib.mjt_newton_f64):
       fn.restype = ctypes.c_int
-    lib.mjt_newton_blocks_per_sm.argtypes = [i, i, i]
-    lib.mjt_newton_blocks_per_sm.restype = i
+    lib.mjt_newton_occupancy.argtypes = [i, i, i, p]
+    lib.mjt_newton_occupancy.restype = i
     lib.mjt_ldl_occupancy.argtypes = [i, i, p]
     lib.mjt_ldl_occupancy.restype = i
     lib.mjt_ldl_work_values.argtypes = [i, i]

@@ -3,11 +3,12 @@
 Replaces the Pallas kernel ``_ldl_solve_kernel``
 (mujoco_tpu/ops/linalg_tpu.py:34, launched by ``ldl_solve_lanes`` :80 and
 dispatched by ``_spd_solve_vmap`` :141; public entry ``spd_solve`` :126).
-The CUDA source is ``csrc/ldl_solve.cu`` (one warp per env, LDLᵀ without
-square roots with the forward solve inside the factor, then the diagonal
-and back solves; rows of H in registers for n ≤ 32, in shared memory
-above, and in a device-memory work space this wrapper allocates where one
-env's H does not fit the shared memory a block may use). Any n is solved.
+The CUDA source is ``csrc/ldl_solve.cu`` (LDLᵀ without square roots with
+the forward solve inside the factor, then the diagonal and back solves:
+for n ≤ 32 one warp per env with the rows of H in registers; above, one
+block of warps per env running a blocked LDLᵀ over 32×32 tiles of H, in
+shared memory where they fit one block and otherwise in a device-memory
+work space this wrapper allocates). Any n is solved.
 
 ``spd_solve(H, g)`` takes H (B, n, n) and g (B, n), batch first, the same
 as the reference's ``spd_solve`` under ``jax.vmap``. A CUDA tensor launches
@@ -92,7 +93,8 @@ def _launch(H, g):
 
 def work_values(n: int, dtype, device) -> int:
   """Device-memory work values per env the kernel needs at order n on this
-  card: 0 where H fits shared memory, n² where it does not."""
+  card: 0 where H's tiles fit shared memory, the tiles of its padded lower
+  triangle (1,024 values each) where they do not."""
   key = (n, dtype, str(device))
   if key not in _WORK:
     with torch.cuda.device(device):
@@ -101,16 +103,20 @@ def work_values(n: int, dtype, device) -> int:
   return _WORK[key]
 
 
-def occupancy(n: int, dtype) -> tuple:
-  """(envs per block, resident blocks per SM) of the kernel at order n, as
-  the CUDA runtime's occupancy calculator reports it for the current
-  card."""
-  out = (ctypes.c_int * 2)()
+ROUTES = ("registers", "shared memory", "device memory")
+
+
+def occupancy(n: int, dtype) -> dict:
+  """The kernel's design at order n on the current card: envs per block,
+  resident blocks per SM (the CUDA runtime's occupancy calculator),
+  threads per block and the route (one of ``ROUTES``)."""
+  out = (ctypes.c_int * 4)()
   code = cuda_build.library().mjt_ldl_occupancy(
       n, int(dtype == torch.float64), out)
   if code < 0:
     cuda_build.check(-code, "ldl occupancy")
-  return out[0], out[1]
+  return dict(envs_per_block=out[0], blocks_per_sm=out[1], threads=out[2],
+              route=ROUTES[out[3]])
 
 
 def _solve(H, g):

@@ -3,8 +3,8 @@
 Replaces the Pallas kernel ``_newton_kernel``
 (mujoco_tpu/ops/newton_tpu.py:155, launched by ``_newton_lanes`` :289 and
 dispatched by ``_raw_vmap`` :370; public entry ``newton_pyramidal`` :422).
-The CUDA source is ``csrc/newton.cu``: one warp per env runs, over the
-rows that can act (``kept_rows``),
+The CUDA source is ``csrc/newton.cu``: one warp per env (a block of eight
+warps above nv 32) runs, over the rows that can act (``kept_rows``),
 
   warmstart-vs-smooth cost pick → [jar = Jx − aref → row update →
   grad = M(x − a_s) − Jᵀf → H = M + JᵀWJ + reg·I → in-place LDL →
@@ -14,9 +14,10 @@ rows that can act (``kept_rows``),
 ``newton_plain`` is the line-for-line batched twin of the reference's XLA
 body (``_xla_newton`` :81 and ``_xla_linesearch`` :126); the CPU path and
 the tests run it, and it is what the kernel is held against on the card.
-Any nv is solved: above nv 32 H is factored by the wide warp LDL, and where
-one env's work space does not fit the shared memory a block may use, this
-wrapper allocates a device-memory work space for it.
+Any nv is solved: above nv 32 H is built as 32×32 tiles and factored by
+the blocked LDLᵀ of the whole block, and where one env's work space does
+not fit the shared memory a block may use, this wrapper allocates a
+device-memory work space for it.
 
 Where an input needs a gradient the kernel runs as ``NewtonSolve``, whose
 backward differentiates ``newton_plain`` at the same inputs: the
@@ -26,6 +27,8 @@ tangent runs through the XLA body (``solver`` and ``_solver_jvp``
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -253,14 +256,18 @@ class NewtonSolve(torch.autograd.Function):
     return (None, None) + tuple(next(grads) if n else None for n in need)
 
 
-def blocks_per_sm(nefc: int, nv: int, dtype) -> int:
-  """Blocks of the kernel resident per SM at these shapes, as the CUDA
-  runtime's occupancy calculator reports it for the current card."""
-  n = cuda_build.library().mjt_newton_blocks_per_sm(
-      nefc, nv, int(dtype == torch.float64))
-  if n < 0:
-    cuda_build.check(-n, "newton occupancy")
-  return n
+def occupancy(nefc: int, nv: int, dtype) -> dict:
+  """The kernel's design at these shapes on the current card: threads per
+  block (one env each: 32 up to nv 32, a block of warps above), the J rows
+  of kept rows it holds in shared memory (0 where the work space is in
+  device memory) and resident blocks per SM, as the CUDA runtime's
+  occupancy calculator reports it."""
+  out = (ctypes.c_int * 3)()
+  code = cuda_build.library().mjt_newton_occupancy(
+      nefc, nv, int(dtype == torch.float64), out)
+  if code < 0:
+    cuda_build.check(-code, "newton occupancy")
+  return dict(threads=out[0], row_cap=out[1], blocks_per_sm=out[2])
 
 
 def kernel_args(J, aref, D, R, fl, fric_mask, oneside_mask, M, a_s, warm,

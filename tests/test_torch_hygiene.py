@@ -1,7 +1,7 @@
 """Import and device hygiene of the PyTorch port.
 
 The package and the port's scripts (chip_smoke.py, kernel_times.py,
-op_counts.py, quadruped_stand.py) import neither jax nor
+op_counts.py, quadruped_stand.py, thread_counts.py) import neither jax nor
 mujoco_tpu, and importing them does not import the pip mujoco either (it
 is a model compiler, imported inside io.put_model only). Entry points
 default to the CUDA card and raise where there is none instead of running
@@ -64,6 +64,7 @@ def _sources():
   yield os.path.join(ROOT, "kernel_times.py")
   yield os.path.join(ROOT, "op_counts.py")
   yield os.path.join(ROOT, "quadruped_stand.py")
+  yield os.path.join(ROOT, "thread_counts.py")
 
 
 def test_sources_never_import_jax_or_reference():
