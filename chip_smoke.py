@@ -266,11 +266,31 @@ Phases, each of which passes or ends the script with a nonzero exit:
    card and the CPU: qpos, qvel, act, history and sensordata within 1e-8
    absolute plus relative, an env that misses judged by last-bit copies
    (``judge_envs``, 256 copies).
+26. the control loop: the quadruped at f32, B 3072, reset to its ``stand``
+   keyframe (``state.reset_data_keyframe``, its id by ``name2id``) and a
+   ``get_state``/``set_state`` round trip under INTEGRATION, exact and
+   card = CPU bit for bit, with µs per call; ``inverse`` of the humanoid
+   at f64, B 3072, from a numpy seed, card against CPU (1e-8), then under
+   implicitfast with INVDISCRETE (one LDL launch, ``discrete_acc``),
+   and ``compare_fwd_inv``'s two norms after a forward pass; the
+   humanoid's ``transition`` (its 75 tangent directions laid along the
+   batch, one step of B·75 copies through the LDL and Newton kernels and
+   their forward-mode rules) at f32, B 256, finite with both kernels
+   launched and its ms per env, at f64 on 8 envs card against CPU
+   (1e-7), and its A at f64, B 256, against its own centered
+   ``transition_fd`` (eps 1e-6, 1e-4); the humanoid with all ten
+   randomizable leaves drawn per env from a seed (``randomize_model``,
+   ``step_randomized``), 20 steps at f64, B 3072, card against CPU
+   (1e-8), four envs each against a plain Model holding its leaves (1e-8),
+   then at f32, B 3072, 20 steps with one LDL and one Newton launch per
+   step and no megastep, env-steps/s and device kernels per step beside
+   the plain stage path's in the same call.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 25; the LDL's ``wide`` entry holds phase 13's table (each order
+and 13 to 26 (phase 26's ``discrete_acc``, ``transition`` and
+``randomized``); the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
 Newton kernel's its phase-13 times at nv 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
@@ -2142,7 +2162,7 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23", "24", "25")
+                 "22", "23", "24", "25", "26")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -3317,6 +3337,283 @@ def phase_actuation(report, details):
         launches[k])
 
 
+CONTROL_NSTEP = 20
+TRANSITION_B = 256
+TRANSITION_CHECK_B = 8
+
+
+def control_state(m, nbatch, seed, device="cuda"):
+  """The humanoid at the main path's start made from a numpy seed (qpos
+  0.01·N(0, 1) from qpos0, qvel 0.1·N(0, 1), ctrl 0.2·N(0, 1), qacc
+  2·N(0, 1)): the same values on any device."""
+  from mujoco_tpu_torch.parallel import rollout
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  t = lambda a: torch.tensor(a, dtype=m.dtype, device=device)
+  shape = lambda f: tuple(getattr(d, f).shape)
+  return d.replace(
+      qpos=d.qpos + t(0.01 * rng.standard_normal(shape("qpos"))),
+      qvel=t(0.1 * rng.standard_normal(shape("qvel"))),
+      ctrl=t(0.2 * rng.standard_normal(shape("ctrl"))),
+      qacc=t(2.0 * rng.standard_normal(shape("qacc"))))
+
+
+def host_us(fn, reps=20) -> float:
+  """Host-clock µs per synchronized call of fn (after one warm call)."""
+  fn()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(reps):
+    fn()
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) / reps * 1e6
+
+
+def gate_close(tag, a, b, tol):
+  """|a − b| ≤ tol + tol·|b| elementwise (b the CPU's); returns the worst
+  violation ratio."""
+  a, b = a.cpu().double(), b.cpu().double()
+  if a.shape != b.shape:
+    raise AssertionError(f"{tag}: shapes {tuple(a.shape)}, {tuple(b.shape)}")
+  if not a.numel():
+    return 0.0
+  worst = ((a - b).abs() / (tol + tol * b.abs())).max().item()
+  if not worst <= 1.0:
+    raise AssertionError(f"{tag}: card and CPU differ ({worst} × limit)")
+  return worst
+
+
+def control_state_phase():
+  """26a: reset to the quadruped's stand keyframe and a state-vector round
+  trip under INTEGRATION at f32, B 3072, card against CPU bit for bit."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import state
+  from mujoco_tpu_torch.parallel import rollout
+  spec = int(state.StateBit.INTEGRATION)
+  vecs, times = {}, {}
+  for dev in ("cuda", "cpu"):
+    m = zoo.quadruped(torch.float32, device=dev)
+    key = state.name2id(m, "key", "stand")
+    d = state.reset_data_keyframe(m, rollout.make_batch(m, B, device=dev),
+                                  key)
+    stand = torch.tensor(zoo.QUADRUPED_STAND, dtype=torch.float32,
+                         device=dev)
+    if d.qpos.device.type != dev or not bool((d.qpos == stand).all()):
+      raise AssertionError(f"reset_data_keyframe on {dev}: device "
+                           f"{d.qpos.device}, qpos {d.qpos[0].tolist()}")
+    rng = np.random.default_rng(90)
+    d = d.replace(qvel=torch.tensor(rng.standard_normal(
+        tuple(d.qvel.shape)), dtype=torch.float32, device=dev))
+    vec = state.get_state(m, d, spec)
+    back = state.set_state(m, state.reset_data(m, d), spec, vec)
+    for bit, name, _ in state._COMPONENTS:
+      if not torch.equal(getattr(back, name), getattr(d, name)):
+        raise AssertionError(f"set_state(get_state) on {dev}: {name}")
+    vecs[dev] = vec.cpu()
+    if dev == "cuda":
+      times = dict(
+          reset_data_keyframe_us=host_us(
+              lambda: state.reset_data_keyframe(m, d, key)),
+          get_state_us=host_us(lambda: state.get_state(m, d, spec)),
+          set_state_us=host_us(lambda: state.set_state(m, d, spec, vec)))
+  if not torch.equal(vecs["cuda"], vecs["cpu"]):
+    raise AssertionError("get_state: card and CPU vectors differ")
+  print(f"state: quadruped f32 B{B}, reset to keyframe 'stand' "
+        f"(id {key}), INTEGRATION vector of {vecs['cpu'].shape[1]} values "
+        f"per env: round trip exact, card = CPU bit for bit; µs per call "
+        + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in times.items()),
+        flush=True)
+  return dict(size=int(vecs["cpu"].shape[1]), **times)
+
+
+def control_inverse_phase(report):
+  """26b: inverse dynamics of the humanoid at f64, B 3072, card against
+  CPU (1e-8), compare_fwd_inv's norms after a forward pass, and the
+  discrete inverse (INVDISCRETE, implicitfast) through the LDL kernel."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import EnableBit, Integrator
+  from mujoco_tpu_torch.ops import forward, inverse
+  out, worst = {}, {}
+  discrete = {"integrator": int(Integrator.IMPLICITFAST),
+              "enableflags": int(EnableBit.INVDISCRETE)}
+  for tag, opt in (("euler", None), ("implicitfast_invdiscrete", discrete)):
+    res = {}
+    for dev in ("cuda", "cpu"):
+      m = zoo.load("humanoid", torch.float64, device=dev, opt=opt)
+      d = control_state(m, B, 91, dev)
+      torch.cuda.synchronize()
+      reset_counts()
+      res[dev] = inverse.inverse(m, d)
+      torch.cuda.synchronize()
+      if dev == "cuda":
+        launches = read_counts()
+    worst[tag] = gate_close(f"inverse {tag}", res["cuda"].qfrc_inverse,
+                            res["cpu"].qfrc_inverse, 1e-8)
+    want_ldl = 1 if opt else 0
+    if (launches["ldl_solve"] != want_ldl or launches["newton_pyramidal"]
+        or launches["megastep"]):
+      raise AssertionError(f"inverse {tag}: launches {launches}")
+    out[tag] = dict(worst=worst[tag], launches=launches)
+    if opt:
+      report["ldl_solve"].setdefault("launches_by_path", {})[
+          "discrete_acc"] = launches["ldl_solve"]
+  m = zoo.humanoid(torch.float64)
+  d = forward.forward(m, control_state(m, B, 92))
+  dif1, dif2 = inverse.compare_fwd_inv(m, d)
+  norms = {k: dict(max=v.max().item(), median=v.median().item())
+           for k, v in (("constraint", dif1), ("force", dif2))}
+  print(f"inverse: humanoid f64 B{B}, card vs CPU worst err / (1e-8 + "
+        f"1e-8·|CPU|) {worst['euler']:.3f}; implicitfast with INVDISCRETE "
+        f"{worst['implicitfast_invdiscrete']:.3f}, LDL launches "
+        f"{out['implicitfast_invdiscrete']['launches']['ldl_solve']}; "
+        f"compare_fwd_inv after forward: constraint "
+        f"{norms['constraint']['max']:.3e} (median "
+        f"{norms['constraint']['median']:.3e}), force "
+        f"{norms['force']['max']:.3e} (median "
+        f"{norms['force']['median']:.3e})", flush=True)
+  return dict(cases=out, compare_fwd_inv=norms)
+
+
+def control_transition_phase(report):
+  """26c: transition Jacobians of the humanoid: the LDL and Newton
+  kernels' launches and ms per env at f32, B 256; f64 card against CPU on
+  8 envs (1e-7); the card's A against its own centered transition_fd at
+  f64 (eps 1e-6, 1e-4)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import derivative_fd
+  m = zoo.humanoid(torch.float32)
+  d = control_state(m, TRANSITION_B, 93)
+  torch.cuda.synchronize()
+  reset_counts()
+  t0 = time.perf_counter()
+  a, b, _, _ = derivative_fd.transition(m, d)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = read_counts()
+  finite = bool(torch.isfinite(a).all() & torch.isfinite(b).all())
+  if (not finite or not launches["ldl_solve"] > 0
+      or not launches["newton_pyramidal"] > 0 or launches["megastep"]):
+    raise AssertionError(f"transition f32: finite {finite}, launches "
+                         f"{launches}")
+  wall2 = host_us(lambda: derivative_fd.transition(m, d), reps=2) / 1e6
+  ndir = 2 * m.nv + m.na + m.nctrl
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})["transition"] = launches[k]
+  outs = {}
+  for dev in ("cuda", "cpu"):
+    m64 = zoo.humanoid(torch.float64, device=dev)
+    outs[dev] = derivative_fd.transition(
+        m64, control_state(m64, TRANSITION_CHECK_B, 94, dev))
+  worst = max(gate_close(f"transition {n}", x, y, 1e-7)
+              for n, x, y in zip("ABCD", outs["cuda"], outs["cpu"]))
+  m64 = zoo.humanoid(torch.float64)
+  d64 = control_state(m64, TRANSITION_B, 93)
+  a64 = derivative_fd.transition(m64, d64)[0]
+  a_fd = derivative_fd.transition_fd(m64, d64, eps=1e-6, centered=True)[0]
+  fd_err = (a64 - a_fd).abs().max().item()
+  print(f"transition: humanoid ({ndir} directions: B·{ndir} copies in one "
+        f"step) f32 B{TRANSITION_B}: first call {wall:.3f} s, then "
+        f"{wall2:.3f} s, {wall2 / TRANSITION_B * 1e3:.3f} ms per env, "
+        f"launches {launches}; f64 B{TRANSITION_CHECK_B} card vs CPU worst "
+        f"err / (1e-7 + 1e-7·|CPU|) {worst:.3f}; f64 B{TRANSITION_B} A "
+        f"against centered transition_fd (eps 1e-6) max |diff| "
+        f"{fd_err:.3e} (limit 1e-4)", flush=True)
+  if not fd_err <= 1e-4:
+    raise AssertionError(f"transition: A and its FD differ by {fd_err}")
+  return dict(batch=TRANSITION_B, directions=ndir, first_wall_s=wall,
+              wall_s=wall2, ms_per_env=wall2 / TRANSITION_B * 1e3,
+              launches=launches, card_vs_cpu_worst=worst,
+              fd_max_abs_diff=fd_err)
+
+
+def control_leaves(m, nbatch, seed):
+  """Each admitted per-env leaf: the model's value times a factor in
+  [0.7, 1.3] per entry, drawn from a numpy seed."""
+  from mujoco_tpu_torch.models.types import ENV_LEAVES
+  rng = np.random.default_rng(seed)
+  return {k: m.leaf(k)[None] * torch.tensor(
+      rng.uniform(0.7, 1.3, (nbatch,) + tuple(m.leaf(k).shape)),
+      dtype=m.dtype, device=m.device) for k in ENV_LEAVES}
+
+
+def control_randomized_phase(report):
+  """26d: all ten leaves per env on the humanoid, B 3072: 20 steps f64
+  card = CPU (1e-8); 4 envs each equal to a plain Model that holds its
+  leaves (1e-8); env-steps/s at f32 beside the plain stage path's."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward, megastep_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  runs = {}
+  for dev in ("cuda", "cpu"):
+    m = zoo.humanoid(torch.float64, device=dev)
+    bm, axes = rollout.randomize_model(m, control_leaves(m, B, 95))
+    d = control_state(m, B, 96, dev)
+    for _ in range(CONTROL_NSTEP):
+      d = rollout.step_randomized(bm, axes, d)
+    runs[dev] = (m, bm, d)
+  worst = max(gate_close(f"randomized {k}", getattr(runs["cuda"][2], k),
+                         getattr(runs["cpu"][2], k), 1e-8)
+              for k in ("qpos", "qvel"))
+  m, bm, d_rand = runs["cuda"]
+  start = control_state(m, B, 96)
+  single = 0.0
+  for i in (0, 1, B // 3, B - 1):
+    plain = m.replace(opt=m.opt.replace(gravity=bm.opt.gravity[i]), **{
+        k: bm.leaf(k)[i] for k in bm.env_leaves if not k.startswith("opt.")})
+    di = take_envs(start, torch.tensor([i], device="cuda"))
+    for _ in range(CONTROL_NSTEP):
+      di = forward.step(plain, di)
+    single = max(single, max(gate_close(
+        f"randomized env {i} {k}", getattr(di, k)[0],
+        getattr(d_rand, k)[i], 1e-8) for k in ("qpos", "qvel")))
+  del runs
+  m32 = zoo.humanoid(torch.float32)
+  bm32, axes = rollout.randomize_model(m32, control_leaves(m32, B, 95))
+  if megastep_cuda.supported(bm32):
+    raise AssertionError("the megastep admits a per-env Model")
+  d32 = main_path_batch(m32)
+  out_r, wall_r, launches_r = stage_run(bm32, d32, CONTROL_NSTEP)
+  with stage_path():
+    out_p, wall_p, launches_p = stage_run(m32, d32, CONTROL_NSTEP)
+  finite = all(bool(torch.isfinite(o.qpos).all()) for o in (out_r, out_p))
+  if (not finite or launches_r != {"ldl_solve": CONTROL_NSTEP,
+                                   "newton_pyramidal": CONTROL_NSTEP,
+                                   "megastep": 0}):
+    raise AssertionError(f"randomized f32: finite {finite}, launches "
+                         f"{launches_r}")
+  kernels_r = kernel_count(lambda: rollout.step_randomized(bm32, axes,
+                                                           out_r), 3)
+  kernels_p = kernel_count(lambda: forward.step(m32, out_p), 3)
+  sps_r, sps_p = B * CONTROL_NSTEP / wall_r, B * CONTROL_NSTEP / wall_p
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})["randomized"] = (
+        launches_r[k])
+  print(f"randomized: humanoid, all {len(bm32.env_leaves)} leaves per env, "
+        f"f64 B{B} {CONTROL_NSTEP} steps card vs CPU worst err / (1e-8 + "
+        f"1e-8·|CPU|) {worst:.3f}, 4 envs against a plain Model of their "
+        f"leaves {single:.3f}; f32 B{B} {CONTROL_NSTEP} steps: randomized "
+        f"{sps_r:.1f} env-steps/s ({launches_r['ldl_solve'] / CONTROL_NSTEP}"
+        f" LDL and {launches_r['newton_pyramidal'] / CONTROL_NSTEP} Newton "
+        f"launches and {kernels_r} device kernels per step), plain stage "
+        f"path {sps_p:.1f} ({kernels_p} device kernels per step)",
+        flush=True)
+  return dict(card_vs_cpu_worst=worst, single_env_worst=single,
+              env_steps_per_s=sps_r, plain_env_steps_per_s=sps_p,
+              launches=launches_r, plain_launches=launches_p,
+              kernels_per_step=kernels_r, plain_kernels_per_step=kernels_p)
+
+
+def phase_control_loop(report, details):
+  """26: the control-loop API: state vectors and keyframe resets,
+  inverse dynamics, transition Jacobians by forward-mode AD through the
+  LDL and Newton kernels, and a per-env (domain-randomized) Model."""
+  details["control_loop"] = dict(
+      state=control_state_phase(),
+      inverse=control_inverse_phase(report),
+      transition=control_transition_phase(report),
+      randomized=control_randomized_phase(report))
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3342,7 +3639,7 @@ def main() -> int:
             phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
-            phase_actuation)
+            phase_actuation, phase_control_loop)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

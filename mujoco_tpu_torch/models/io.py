@@ -8,13 +8,15 @@ remapped by name in ``_sensor_meta``) and the tree tables of
 ``_sleep_meta`` (:1628);
 ``make_data`` (:1703) with the mocap start pose of ``_mocap_init``
 (:1687), the neutral controls of ``_neutral_ctrl`` (:1675) and the
-history buffers of ``_init_history`` (:1790).
+history buffers of ``_init_history`` (:1790); the keyframes (:1603-1606);
+``get_data_into`` (:1823) and ``get_data`` (:1857).
 
 The model reaches the port as a flat dict of numpy arrays, name →
 ``np.asarray(value)``, with nested dataclasses flattened by dotted names
 (``opt.timestep``, ``tree.levels.0``, ``names.body.root``). ``model_numpy``
-builds that dict from a compiled ``mujoco.MjModel`` (the only place the pip
-``mujoco`` is imported, as a model compiler); ``model_from_numpy`` turns it
+builds that dict from a compiled ``mujoco.MjModel`` (the pip ``mujoco`` is
+imported there, as a model compiler, and in ``get_data``/``get_data_into``,
+which hand one env back to the C engine); ``model_from_numpy`` turns it
 into the port's Model on a device and dtype. The same form carries a
 ``mujoco_tpu`` Model or Data into the port (``flatten`` + ``model_from_numpy``
 / ``data_from_numpy``), and ``models/assets/humanoid.npz`` is this dict for
@@ -601,7 +603,7 @@ def model_numpy(mjm: Any) -> dict:
       "nbody": mjm.nbody, "njnt": mjm.njnt, "ngeom": mjm.ngeom,
       "nsite": mjm.nsite, "neq": mjm.neq, "ncam": mjm.ncam,
       "nlight": mjm.nlight, "ntendon": mjm.ntendon, "nwrap": mjm.nwrap,
-      "nmocap": mjm.nmocap, "ntree": int(mjm.ntree),
+      "nmocap": mjm.nmocap, "nkey": int(mjm.nkey), "ntree": int(mjm.ntree),
       "nhfield": int(mjm.nhfield), "nsensor": int(mjm.nsensor),
       "nsensordata": int(mjm.nsensordata),
       "has_dof_damping": bool(np.any(np.asarray(mjm.dof_damping) > 0)),
@@ -679,7 +681,8 @@ def model_numpy(mjm: Any) -> dict:
                "tendon_range", "tendon_margin", "tendon_stiffness",
                "tendon_damping", "tendon_frictionloss", "tendon_lengthspring",
                "tendon_length0", "tendon_invweight0", "wrap_prm",
-               "geom_fluid"):
+               "geom_fluid", "key_time", "key_qpos", "key_qvel", "key_act",
+               "key_ctrl", "key_mpos", "key_mquat"):
     f[name] = jx(getattr(mjm, name))
   f["geom_has_fluid"] = f["geom_fluid"][:, 0] > 0
   f["jnt_actgravcomp"] = _opt(mjm, "jnt_actgravcomp", (mjm.njnt,), np.int32)
@@ -869,7 +872,7 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       efc_frictionloss=z(nefc), efc_KBIP=z(nefc, 4),
       efc_active=torch.zeros((1, nefc), dtype=torch.bool, device=dev),
       efc_force=z(nefc), qfrc_constraint=z(nv), qacc=z(nv),
-      solver_stat=z(32, 2),
+      qfrc_inverse=z(nv), solver_stat=z(32, 2),
       solver_niter=torch.zeros((1,), dtype=torch.int32, device=dev),
       warning=torch.zeros((1, 2), dtype=torch.int32, device=dev),
       # fully awake (mj_resetData; mujoco_tpu/models/io.py:1782-1786)
@@ -946,3 +949,44 @@ def data_from_numpy(m: Model, fields: dict) -> Data:
     return cls(**kw)
 
   return build(Data, "")
+
+
+def get_data_into(mjd: Any, mjm: Any, d: Data, env: int = 0) -> None:
+  """Copy env ``env`` of a Data into a ``mujoco.MjData`` (mujoco_tpu/
+  models/io.py:1823, the counterpart of mjx.get_data_into), for viewers
+  and for hand-off to the C engine: the state and the user inputs are
+  copied, then ``mujoco.mj_forward`` fills everything downstream, so a
+  renderer sees a consistent MjData."""
+  import mujoco
+
+  def h(x):
+    return x[env].detach().to("cpu", torch.float64).numpy()
+
+  mjd.time = float(h(d.time))
+  mjd.qpos[:] = h(d.qpos)
+  mjd.qvel[:] = h(d.qvel)
+  if mjm.na:
+    mjd.act[:] = h(d.act)
+  if mjm.nu:
+    mjd.ctrl[:] = h(d.ctrl)
+  mjd.qacc[:] = h(d.qacc)
+  mjd.qacc_warmstart[:] = h(d.qacc_warmstart)
+  mjd.qfrc_applied[:] = h(d.qfrc_applied)
+  mjd.xfrc_applied[:] = h(d.xfrc_applied)
+  if getattr(mjm, "nhistory", 0) and d.history.shape[-1] == mjm.nhistory:
+    mjd.history[:] = h(d.history)
+  if mjm.nmocap:
+    mjd.mocap_pos[:] = h(d.mocap_pos)
+    mjd.mocap_quat[:] = h(d.mocap_quat)
+  if mjm.neq:
+    mjd.eq_active[:] = d.eq_active[env].cpu().numpy().astype(np.uint8)
+  mujoco.mj_forward(mjm, mjd)
+
+
+def get_data(mjm: Any, d: Data, env: int = 0):
+  """A new ``mujoco.MjData`` holding env ``env`` of a Data (mujoco_tpu/
+  models/io.py:1857; see ``get_data_into``)."""
+  import mujoco
+  mjd = mujoco.MjData(mjm)
+  get_data_into(mjd, mjm, d, env)
+  return mjd

@@ -12,14 +12,17 @@ groups, sleep), the meshes and height fields of the narrowphase
 :851-869; Data :1034-1042), and the history buffers, the actuators'
 control and output blocks, DC-motor and PID slots, fluid and actuator
 gravity-compensation fields (:264-267, :514-516, :613-614, :667-708,
-:861-868; Data ``qfrc_fluid`` :1006 and ``history`` :1064); later slices
-add the rest with their modules. Field
+:861-868; Data ``qfrc_fluid`` :1006 and ``history`` :1064), and the
+keyframes (:508, :839-845) and ``qfrc_inverse`` (:1031); later slices add
+the rest with their modules. Field
 names are the reference's, so a field here and the same-named field of a
 ``mujoco_tpu`` Model or Data hold the same quantity.
 
 Every Data tensor carries an explicit leading batch dimension (the JAX
 package batches with ``jax.vmap``); a single env is a batch of 1. Model
-tensors have no batch dimension and broadcast against Data.
+tensors have no batch dimension and broadcast against Data, but for the
+leaves of ``ENV_LEAVES``, which a domain-randomized Model carries per env
+(the reference maps such leaves with ``vmap``).
 """
 
 from __future__ import annotations
@@ -347,9 +350,20 @@ class EfcMeta:
   con_nrow: np.ndarray = static_field()
 
 
+# the numeric leaves ``parallel.rollout.randomize_model`` may give a leading
+# env axis (domain randomization), each with its rank without that axis
+ENV_LEAVES = {"opt.gravity": 1, "geom_friction": 2, "body_mass": 1,
+              "body_ipos": 2, "body_inertia": 2, "dof_damping": 1,
+              "dof_armature": 1, "dof_frictionloss": 1,
+              "actuator_gainprm": 2, "actuator_biasprm": 2}
+
+
 @dataclass
 class Model:
-  """Immutable model: sizes and topology (static), parameters (tensors)."""
+  """Immutable model: sizes and topology (static), parameters (tensors).
+  The leaves of ``ENV_LEAVES`` may carry a leading env axis (B, …); every
+  other tensor is one value for all envs. Stages read those leaves through
+  ``per_env``."""
   nq: int = static_field()
   nv: int = static_field()
   nu: int = static_field()
@@ -364,6 +378,7 @@ class Model:
   ntendon: int = static_field()
   nwrap: int = static_field()
   nmocap: int = static_field()
+  nkey: int = static_field()
   ntree: int = static_field()
   nhfield: int = static_field()
   nsensor: int = static_field()
@@ -623,10 +638,40 @@ class Model:
   sensor_delay: np.ndarray = static_field()         # (nsensor,)
   sensor_interval: np.ndarray = static_field()      # (nsensor, 2)
 
+  # keyframes (mujoco_tpu/models/types.py:839-845): (nkey, ·) each, the
+  # mocap poses flattened per key as the compiled model holds them
+  key_time: torch.Tensor = field()
+  key_qpos: torch.Tensor = field()
+  key_qvel: torch.Tensor = field()
+  key_act: torch.Tensor = field()
+  key_ctrl: torch.Tensor = field()
+  key_mpos: torch.Tensor = field()
+  key_mquat: torch.Tensor = field()
+
   names: dict = static_field()
 
   def disabled(self, bit: DisableBit) -> bool:
     return bool(self.opt.disableflags & bit)
+
+  def leaf(self, name: str) -> torch.Tensor:
+    """A tensor leaf by its dotted name (``opt.gravity``)."""
+    v = self
+    for part in name.split("."):
+      v = getattr(v, part)
+    return v
+
+  def per_env(self, name: str) -> torch.Tensor:
+    """Leaf ``name`` of ``ENV_LEAVES`` with a leading env axis: (B, …)
+    where it is randomized per env, else a view (1, …) that broadcasts
+    against every env."""
+    v = self.leaf(name)
+    return v if v.dim() > ENV_LEAVES[name] else v[None]
+
+  @property
+  def env_leaves(self) -> tuple:
+    """The leaves that carry an env axis (empty for a plain Model)."""
+    return tuple(k for k, rank in ENV_LEAVES.items()
+                 if self.leaf(k).dim() > rank)
 
   def enabled(self, bit: EnableBit) -> bool:
     return bool(self.opt.enableflags & bit)
@@ -736,6 +781,7 @@ class Data:
   efc_force: torch.Tensor = field()
   qfrc_constraint: torch.Tensor = field()
   qacc: torch.Tensor = field()
+  qfrc_inverse: torch.Tensor = field()   # (B, nv) inverse dynamics
   solver_stat: torch.Tensor = field()    # (B, 32, 2)
   solver_niter: torch.Tensor = field()   # (B,) int32
   # [contacts dropped, candidate pairs dropped] by the slot budgets

@@ -118,10 +118,6 @@ SENSORS = ("humanoid_sensors", "sensor_suite", "contact_sensors",
 ACTUATION = ("quadruped_sim2real", "history", "dcmotor", "dcmotor_delay",
              "actgravcomp", "fluid", "adhesion", "contact_sensor_suite",
              "tactile", "geom_distance", "rangefinder")
-# the quadruped's ``stand`` keyframe (quadruped.xml; the snapshots carry no
-# keyframes): the trunk 0.44 m up, each leg at abduction 0, hip −0.5 and
-# knee −1.1
-QUADRUPED_STAND = (0.0, 0.0, 0.44, 1.0, 0.0, 0.0, 0.0) + (0.0, -0.5, -1.1) * 4
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
@@ -142,6 +138,17 @@ def load_snapshot(name: str) -> dict:
   with np.load(snapshot_path(name), allow_pickle=False) as z:
     return {k: z[k] for k in z.files}
 
+
+def keyframe_qpos(name: str, key: str) -> tuple:
+  """qpos of keyframe ``key`` of snapshot ``name``, as Python floats."""
+  fields = load_snapshot(name)
+  return tuple(float(x) for x in fields["key_qpos"][int(
+      fields[f"names.key.{key}"])])
+
+
+# the quadruped's ``stand`` keyframe (quadruped.xml): the trunk 0.44 m up,
+# each leg at abduction 0, hip −0.5 and knee −1.1
+QUADRUPED_STAND = keyframe_qpos("quadruped", "stand")
 
 # MuJoCo's solver options for a model that sets none (mjOption defaults)
 MUJOCO_DEFAULT_SOLVER = {"iterations": 100, "ls_iterations": 50,

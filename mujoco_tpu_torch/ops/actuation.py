@@ -171,9 +171,9 @@ def _dcmotor_voltage(m: Model, ci, length, velocity, x_i):
   """(B, nu) control voltage (dcmotorVoltage): PI(D) on position (input
   mode 1) or velocity (2), else ctrl itself; clamped to ±Vmax where Vmax
   > 0."""
-  g = m.actuator_gainprm
+  g = m.per_env("actuator_gainprm")
   mode = np.asarray(m.actuator_slots)[:, _MODE]
-  kp, ki, kd, vmax = g[:, 4], g[:, 5], g[:, 6], g[:, 7]
+  kp, ki, kd, vmax = g[..., 4], g[..., 5], g[..., 6], g[..., 7]
   v = torch.where(const(mode == 1, m.device),
                   kp * (ci - length) + ki * x_i - kd * velocity,
                   torch.where(const(mode == 2, m.device),
@@ -198,13 +198,13 @@ def _antiwindup(x, acc, imax):
 def _dc_resistance(m: Model, act):
   """(B, nu) winding resistance, raised by the temperature slot where
   there is one."""
-  g, dp = m.actuator_gainprm, m.actuator_dynprm
-  r = g[:, 0].expand(act.shape[0], -1)
+  g, dp = m.per_env("actuator_gainprm"), m.actuator_dynprm
+  r = g[..., 0].expand(act.shape[0], -1)
   if np.any(np.asarray(m.actuator_slots)[:, _TEMP] >= 0):
     t_rise = _slot_value(m, act, _TEMP)
     has = const(np.asarray(m.actuator_slots)[:, _TEMP] >= 0, m.device)
-    r = torch.where(has, r * (1 + g[:, 2] * (t_rise + dp[:, 4] - g[:, 3])),
-                    r)
+    r = torch.where(
+        has, r * (1 + g[..., 2] * (t_rise + dp[:, 4] - g[..., 3])), r)
   return r
 
 
@@ -222,7 +222,8 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
   length = _per_actuator(m, d.actuator_length, np.asarray(m.actuator_outadr))
   velocity = _per_actuator(m, d.actuator_velocity,
                            np.asarray(m.actuator_outadr))
-  dp, gp, bp = m.actuator_dynprm, m.actuator_gainprm, m.actuator_biasprm
+  dp, gp, bp = (m.actuator_dynprm, m.per_env("actuator_gainprm"),
+                m.per_env("actuator_biasprm"))
   is_pid, is_dc = dyn == DynType.PID, dyn == DynType.DCMOTOR
   period = np.where(is_pid, np.asarray(m.actuator_wrapprd, np.float64), 0.0)
   cols = {}
@@ -250,7 +251,7 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
   if np.any(is_dc):
     volt = _dcmotor_voltage(m, ci, length, velocity, x_i)
     r = _dc_resistance(m, d.act)
-    k = gp[:, 1]
+    k = gp[..., 1]
     if np.any(slots[:, _TEMP] >= 0):
       has_cur = const(slots[:, _CUR] >= 0, dev)
       current = torch.where(has_cur, _slot_value(m, d.act, _CUR),
@@ -258,7 +259,7 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
       t_rise = _slot_value(m, d.act, _TEMP)
       cols[_TEMP] = (r * current * current - t_rise / dp[:, 2]) / dp[:, 3]
     if np.any(slots[:, _BRIST] >= 0):
-      g = _lugre_stribeck(velocity, bp[:, 3], bp[:, 4], bp[:, 5])
+      g = _lugre_stribeck(velocity, bp[..., 3], bp[..., 4], bp[..., 5])
       a = -dp[:, 5] * velocity.abs() / torch.clamp(g, min=MINVAL)
       cols[_BRIST] = a * _slot_value(m, d.act, _BRIST) + velocity
     if np.any(slots[:, _CUR] >= 0):
@@ -322,8 +323,8 @@ def next_activation(m: Model, act, adot, velocity=None):
   brist = (dyn == DynType.DCMOTOR) & (role == _BRIST)
   if brist.any():
     vel = velocity[:, index(np.asarray(m.actuator_outadr)[sa], dev)]
-    bp = m.actuator_biasprm[index(sa, dev)]
-    g = _lugre_stribeck(vel, bp[:, 3], bp[:, 4], bp[:, 5])
+    bp = m.per_env("actuator_biasprm")[:, index(sa, dev)]
+    g = _lugre_stribeck(vel, bp[..., 3], bp[..., 4], bp[..., 5])
     rate = -dp[:, 5] * vel.abs() / torch.clamp(g, min=MINVAL)
     exp_ah = torch.exp(rate * h)
     int_h = torch.where(rate.abs() > MINVAL,
@@ -447,9 +448,10 @@ def _so3_forces(m: Model, d: Data, ctrl, adot):
   q_cur = mjm.expmap_to_quat(d.actuator_length[:, index(oadr, dev)])
   e = mjm.quat_sub(q_tgt, q_cur)
   s = index(so3, dev)
-  gp, bp = m.actuator_gainprm[s], m.actuator_biasprm[s]
-  f3 = (gp[:, :1] * e + bp[:, :1]
-        + bp[:, 2:3] * d.actuator_velocity[:, index(oadr, dev)])
+  gp = m.per_env("actuator_gainprm")[:, s]
+  bp = m.per_env("actuator_biasprm")[:, s]
+  f3 = (gp[..., :1] * e + bp[..., :1]
+        + bp[..., 2:3] * d.actuator_velocity[:, index(oadr, dev)])
   f3 = torch.where(const(_disabled_actuators(m)[so3][:, None], dev), 0.0,
                    f3)
   lim = np.asarray(m.actuator_forcelimited)[so3].astype(bool)
@@ -488,20 +490,21 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   velocity = _per_actuator(m, d.actuator_velocity, outadr)
   gt, bt = np.asarray(m.actuator_gaintype), np.asarray(m.actuator_biastype)
   slots = np.asarray(m.actuator_slots)
-  g, b = m.actuator_gainprm, m.actuator_biasprm
+  g, b = m.per_env("actuator_gainprm"), m.per_env("actuator_biasprm")
   gain = torch.where(_is(m, gt, GainType.AFFINE),
-                     g[:, 0] + g[:, 1] * length + g[:, 2] * velocity, g[:, 0])
+                     g[..., 0] + g[..., 1] * length + g[..., 2] * velocity,
+                     g[..., 0])
   cols = np.nonzero(gt == GainType.MUSCLE)[0]
   if len(cols):
     c = index(cols, dev)
     gain = gain.index_copy(1, c, muscle.gain(
         length[:, c], velocity[:, c], m.actuator_lengthrange[c],
-        m.actuator_acc0[c], g[c]))
+        m.actuator_acc0[c], g[:, c]))
   dc = gt == GainType.DCMOTOR
   if dc.any():
     r = _dc_resistance(m, d.act)
-    dc_gain = torch.where(const(slots[:, _CUR] >= 0, dev), g[:, 1],
-                          g[:, 1] / torch.clamp(r, min=MINVAL))
+    dc_gain = torch.where(const(slots[:, _CUR] >= 0, dev), g[..., 1],
+                          g[..., 1] / torch.clamp(r, min=MINVAL))
     gain = torch.where(const(dc, dev), dc_gain, gain)
   pid = gt == GainType.PID
   if pid.any():
@@ -514,20 +517,20 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     if np.any(early & pid):
       z = torch.where(const(early, dev), _slot_value(
           m, next_activation(m, d.act, adot, d.actuator_velocity), _INTEG), z)
-    force = torch.where(const(pid, dev), -b[:, 1] * qref + g[:, 0] * z,
+    force = torch.where(const(pid, dev), -b[..., 1] * qref + g[..., 0] * z,
                         force)
   force = torch.where(_is(m, bt, BiasType.AFFINE),
-                      force + b[:, 0] + b[:, 1] * length + b[:, 2] * velocity,
-                      force)
+                      force + b[..., 0] + b[..., 1] * length
+                      + b[..., 2] * velocity, force)
   cols = np.nonzero(bt == BiasType.MUSCLE)[0]
   if len(cols):
     c = index(cols, dev)
     force = force.index_copy(1, c, force[:, c] + muscle.bias(
-        length[:, c], m.actuator_lengthrange[c], m.actuator_acc0[c], b[c]))
+        length[:, c], m.actuator_lengthrange[c], m.actuator_acc0[c], b[:, c]))
   backemf = (bt == BiasType.DCMOTOR) & (slots[:, _CUR] < 0)
   if backemf.any():
     force = torch.where(const(backemf, dev),
-                        force - gain * g[:, 1] * velocity, force)
+                        force - gain * g[..., 1] * velocity, force)
   off = _disabled_actuators(m)
   force = torch.where(const(off, dev), 0.0, force)
   flimited = const(m.actuator_forcelimited.astype(bool), dev)
@@ -537,7 +540,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   # the DC motor's cogging torque and LuGre friction, past the force limit
   mech = (bt == BiasType.DCMOTOR) & ~off
   if mech.any():
-    add = b[:, 0] * torch.sin(b[:, 1] * length + b[:, 2])
+    add = b[..., 0] * torch.sin(b[..., 1] * length + b[..., 2])
     if np.any(slots[:, _BRIST] >= 0):
       dp = m.actuator_dynprm
       add = add - torch.where(

@@ -93,10 +93,23 @@ def make_frame(normal, tangent):
   return torch.stack([n, y, mjm.cross(n, y)], dim=-2)
 
 
+def _env_rows(leaf, g1, g2):
+  """Rows g1 and g2 of a per-env geom leaf (1 or B, ngeom, ·): (1 or B,
+  n, ·) for static ids (n,), (B, n, ·) for per-env ids (B, n)."""
+  if g1.dim() == 1:
+    return leaf[:, g1], leaf[:, g2]
+  if leaf.shape[0] == 1:
+    return leaf[0][g1], leaf[0][g2]
+  env = torch.arange(leaf.shape[0], device=g1.device)[:, None]
+  return leaf[env, g1], leaf[env, g2]
+
+
 def _mix(m: Model, g1, g2, hi1, hi2):
-  """mj_contactParam's combination of geoms g1 and g2 (index tensors of any
-  shape; hi1, hi2: g1's or g2's priority is the higher, shaped g1[..., None])
-  → (margin, friction5, solref, solreffriction, solimp)."""
+  """mj_contactParam's combination of geoms g1 and g2 (index tensors (n,)
+  or per env (B, n); hi1, hi2: g1's or g2's priority is the higher, shaped
+  g1[..., None]) → (margin, friction5, solref, solreffriction, solimp),
+  friction5 with a leading env axis (1 or B) where the ids are static, as
+  ``geom_friction`` may be randomized per env."""
   solmix1, solmix2 = m.geom_solmix[g1], m.geom_solmix[g2]
   both = (solmix1 >= mjm.MINVAL) & (solmix2 >= mjm.MINVAL)
   neither = (solmix1 < mjm.MINVAL) & (solmix2 < mjm.MINVAL)
@@ -107,7 +120,7 @@ def _mix(m: Model, g1, g2, hi1, hi2):
 
   ref1, ref2 = m.geom_solref[g1], m.geom_solref[g2]
   imp1, imp2 = m.geom_solimp[g1], m.geom_solimp[g2]
-  fri1, fri2 = m.geom_friction[g1], m.geom_friction[g2]
+  fri1, fri2 = _env_rows(m.per_env("geom_friction"), g1, g2)
   std = (ref1[..., :1] > 0) & (ref2[..., :1] > 0)
   solref_mixed = torch.where(std, mix * ref1 + (1 - mix) * ref2,
                              torch.minimum(ref1, ref2))
@@ -126,7 +139,8 @@ def _mix(m: Model, g1, g2, hi1, hi2):
 
 def _combine_params(m: Model):
   """Per-slot (includemargin, friction5, solref, solreffriction, solimp),
-  unbatched (ncon, ...), from the slots' static geom ids."""
+  each (1, ncon, ...), friction5 (B, ncon, 5) where ``geom_friction`` is
+  randomized per env, from the slots' static geom ids."""
   dev = m.device
   p1 = m.geom_priority[m.con.geom1]
   p2 = m.geom_priority[m.con.geom2]
@@ -148,7 +162,8 @@ def _combine_params(m: Model):
     solimp = torch.where(col, m.pair_solimp[pidx], solimp)
     friction5 = torch.where(col, m.pair_friction[pidx], friction5)
     margin = torch.where(is_pair, m.pair_margin[pidx], margin)
-  return margin, friction5, solref, solreffriction, solimp
+  return (margin[None], friction5, solref[None], solreffriction[None],
+          solimp[None])
 
 
 def collision(m: Model, d: Data) -> Data:
@@ -179,7 +194,7 @@ def collision(m: Model, d: Data) -> Data:
 
   # static slots' parameters broadcast over envs; a dynamic group's slots
   # (last in the table) take their env's selected pairs
-  params = [p.expand((nbatch,) + p.shape) for p in _combine_params(m)]
+  params = [p.expand((nbatch,) + p.shape[1:]) for p in _combine_params(m)]
   geomids = const(np.stack([m.con.geom1, m.con.geom2], -1).astype(np.int32),
                   dev).expand(nbatch, ncon, 2)
   # [ncon_dropped, npair_dropped]: only a dynamic group drops pairs

@@ -277,8 +277,9 @@ def _friction_rows(m: Model, d: Data):
             ex(cat(m.dof_invweight0[dix], m.tendon_invweight0[tix])),
             ex(cat(m.dof_solref[dix], m.tendon_solref_fri[tix])),
             ex(cat(m.dof_solimp[dix], m.tendon_solimp_fri[tix])), zero),
-      frictionloss=ex(cat(m.dof_frictionloss[dix],
-                          m.tendon_frictionloss[tix])))
+      frictionloss=torch.cat([
+          m.per_env("dof_frictionloss")[:, dix].expand(nbatch, -1),
+          ex(m.tendon_frictionloss[tix])], dim=1))
 
 
 def _limit_rows(m: Model, d: Data):

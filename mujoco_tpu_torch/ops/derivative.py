@@ -52,11 +52,12 @@ def actuator_vel(m: Model, d: Data):
   dev = m.device
   gt, bt = np.asarray(m.actuator_gaintype), np.asarray(m.actuator_biastype)
   slots = np.asarray(m.actuator_slots)
-  g, dp = m.actuator_gainprm, m.actuator_dynprm
+  g, dp = m.per_env("actuator_gainprm"), m.actuator_dynprm
   bias_vel = torch.where(const(np.isin(bt, [BiasType.AFFINE, BiasType.SO3]),
-                               dev), m.actuator_biasprm[:, 2], 0.0)
-  r = torch.clamp(g[:, 0], min=MINVAL)
-  k = g[:, 1]
+                               dev), m.per_env("actuator_biasprm")[..., 2],
+                         0.0)
+  r = torch.clamp(g[..., 0], min=MINVAL)
+  k = g[..., 1]
   backemf = (bt == BiasType.DCMOTOR) & (slots[:, 4] < 0)
   if backemf.any():
     bias_vel = torch.where(const(backemf, dev), bias_vel - k * k / r,
@@ -64,8 +65,8 @@ def actuator_vel(m: Model, d: Data):
   dc = gt == GainType.DCMOTOR
   if dc.any():
     mode = slots[:, 6]
-    dvdw = torch.where(const(mode == 1, dev), -g[:, 6],
-                       torch.where(const(mode == 2, dev), -g[:, 4], 0.0))
+    dvdw = torch.where(const(mode == 1, dev), -g[..., 6],
+                       torch.where(const(mode == 2, dev), -g[..., 4], 0.0))
     s = 1.0 - torch.exp(-m.opt.timestep / dp[:, 0])
     cur = slots[:, 4] >= 0
     term = torch.where(const(cur, dev), k * (dvdw - k) * s / r,
@@ -76,7 +77,7 @@ def actuator_vel(m: Model, d: Data):
     if brist.any():
       bias_vel = torch.where(const(brist, dev), bias_vel - dp[:, 6],
                              bias_vel)
-  gain_vel = torch.where(const(gt == GainType.AFFINE, dev), g[:, 2], 0.0)
+  gain_vel = torch.where(const(gt == GainType.AFFINE, dev), g[..., 2], 0.0)
   outadr = np.asarray(m.actuator_outadr)
   cols = np.nonzero(gt == GainType.MUSCLE)[0]
   if len(cols):
@@ -84,7 +85,7 @@ def actuator_vel(m: Model, d: Data):
     o = index(outadr[cols], dev)
     gain_vel = gain_vel.expand(nbatch, -1).index_copy(1, c, muscle.gain_vel(
         d.actuator_length[:, o], d.actuator_velocity[:, o],
-        m.actuator_lengthrange[c], m.actuator_acc0[c], g[c]))
+        m.actuator_lengthrange[c], m.actuator_acc0[c], g[:, c]))
   inp = d.ctrl[:, index(np.asarray(m.actuator_ctrladr), dev)]
   if not m.disabled(DisableBit.CLAMPCTRL):
     rng = m.actuator_ctrlrange
@@ -125,7 +126,7 @@ def passive_vel(m: Model, d: Data):
   out = d.qpos.new_zeros((nbatch, m.nv, m.nv))
   if m.disabled(DisableBit.DAMPER):
     return out
-  out = out - torch.diag(m.dof_damping)
+  out = out - torch.diag_embed(m.per_env("dof_damping"))
   if m.ntendon:
     out = out - d.ten_J.transpose(1, 2) @ (m.tendon_damping[:, None]
                                            * d.ten_J)

@@ -271,7 +271,7 @@ def euler(m: Model, d: Data) -> Data:
   if (m.has_dof_damping and not m.disabled(DisableBit.EULERDAMP)
       and not m.disabled(DisableBit.DAMPER)):
     acc = linalg_cuda.spd_solve(
-        d.qM + torch.diag(h * m.dof_damping),
+        d.qM + torch.diag_embed(h * m.per_env("dof_damping")),
         (d.qfrc_smooth + d.qfrc_constraint).contiguous())
   return _advance(m, d, d.act_dot, acc)
 

@@ -13,10 +13,13 @@ work space this wrapper allocates). Any n is solved.
 ``spd_solve(H, g)`` takes H (B, n, n) and g (B, n), batch first, the same
 as the reference's ``spd_solve`` under ``jax.vmap``. A CUDA tensor launches
 the kernel or raises; a CPU tensor takes ``spd_solve_plain``. Where H or g
-needs a gradient the solve is the ``torch.autograd.Function`` ``SpdSolve``:
-its backward re-solves H λ = p̄ with the same kernel (or plain version)
-and returns ḡ = λ, H̄ = −λ pᵀ, the cotangents of the reference's
-``lax.custom_linear_solve(symmetric=True)`` (linalg_tpu.py:126-138).
+needs a gradient, or carries a forward-mode tangent
+(``torch.autograd.forward_ad``), the solve is the ``torch.autograd.Function``
+``SpdSolve``: its backward re-solves H λ = p̄ with the same kernel (or
+plain version) and returns ḡ = λ, H̄ = −λ pᵀ, and its jvp solves
+H ṗ = ġ − Ḣ p the same way: the derivative rules of the reference's
+``lax.custom_linear_solve(symmetric=True)`` (linalg_tpu.py:126-138). On
+the card each is one more launch of the kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from mujoco_tpu_torch.ops import cuda_build
 
@@ -54,13 +58,20 @@ def _check(H, g):
     raise ValueError("spd_solve kernel takes contiguous H and g")
 
 
+def has_tangent(*ts) -> bool:
+  """Whether a tensor carries a forward-mode tangent at the current
+  ``torch.autograd.forward_ad`` level."""
+  return any(fwAD.unpack_dual(t).tangent is not None for t in ts)
+
+
 def _needs_grad(H, g) -> bool:
-  return torch.is_grad_enabled() and (H.requires_grad or g.requires_grad)
+  return ((torch.is_grad_enabled() and (H.requires_grad or g.requires_grad))
+          or has_tangent(H, g))
 
 
 def spd_solve_kernel(H, g):
   """Launch the CUDA kernel on H (B, n, n), g (B, n); returns p (B, n),
-  through ``SpdSolve`` where H or g needs a gradient."""
+  through ``SpdSolve`` where H or g needs a gradient or has a tangent."""
   _check(H, g)
   if not H.is_cuda:
     raise ValueError("spd_solve_kernel needs CUDA tensors")
@@ -129,19 +140,33 @@ def _solve(H, g):
 
 
 class SpdSolve(torch.autograd.Function):
-  """p = H⁻¹ g with the gradient of a symmetric linear solve: the backward
-  solves H λ = p̄ by the same route as the forward, then ḡ = λ and
-  H̄ = −λ pᵀ. Both go through ``spd_solve`` again, so a backward taken
-  with create_graph is differentiable in turn."""
+  """p = H⁻¹ g with the derivatives of a symmetric linear solve. The
+  backward solves H λ = p̄ by the same route as the forward, then ḡ = λ
+  and H̄ = −λ pᵀ; both go through ``spd_solve`` again, so a backward taken
+  with create_graph is differentiable in turn. The jvp (forward mode)
+  solves H ṗ = ġ − Ḣ p by the same route: one more kernel launch for a
+  CUDA tensor, never the plain version."""
 
   @staticmethod
   def forward(ctx, H, g):
+    ctx.set_materialize_grads(False)
     p = _solve(H.detach(), g.detach())
     ctx.save_for_backward(H, p)
+    ctx.save_for_forward(H, p)
     return p
 
   @staticmethod
+  def jvp(ctx, H_dot, g_dot):
+    H, p = ctx.saved_tensors
+    rhs = torch.zeros_like(p) if g_dot is None else g_dot
+    if H_dot is not None:
+      rhs = rhs - (H_dot @ p[..., None])[..., 0]
+    return _solve(H.detach(), rhs.contiguous())
+
+  @staticmethod
   def backward(ctx, p_bar):
+    if p_bar is None:
+      return None, None
     H, p = ctx.saved_tensors
     lam = spd_solve(H, p_bar.contiguous())
     H_bar = -lam[:, :, None] * p[:, None, :] if ctx.needs_input_grad[0] \
@@ -152,7 +177,7 @@ class SpdSolve(torch.autograd.Function):
 def spd_solve(H, g):
   """p = H⁻¹ g for a batch of dense SPD matrices: the CUDA kernel for CUDA
   tensors, the plain Cholesky for CPU tensors; ``SpdSolve`` where H or g
-  needs a gradient."""
+  needs a gradient or carries a forward-mode tangent."""
   if _needs_grad(H, g):
     return SpdSolve.apply(H, g)
   return _solve(H, g)

@@ -149,6 +149,10 @@ def _refuse_model_grad(m: Model):
 
 def _supported(m: Model) -> bool:
   opt = m.opt
+  # a per-env Model (parallel.rollout.randomize_model): the kernel packs
+  # one value of each leaf per Model
+  if m.env_leaves:
+    return False
   if (int(opt.solver) != SolverType.NEWTON
       or int(opt.cone) != ConeType.PYRAMIDAL
       or int(opt.iterations) > 4 or int(opt.integrator) != Integrator.EULER
@@ -420,7 +424,7 @@ class Tables:
     if ncon:
       # mj_contactParam as the stage path combines it, at f64
       margin, fri, csolref, _, csolimp = (
-          x.numpy() for x in collision_driver._combine_params(
+          x[0].numpy() for x in collision_driver._combine_params(
               m.to(device="cpu", dtype=torch.float64)))
       biw = f(m.body_invweight0)
       tran = biw[gb[m.con.geom1], 0] + biw[gb[m.con.geom2], 0]
@@ -1094,7 +1098,7 @@ def scan_batch(m: Model, d: Data, nstep: int, d_fresh: Optional[Data] = None,
   fresh = {k: getattr(d_fresh, k)[0].to(dtype).contiguous()
            for k in ("qpos", "qvel", "ctrl")}
   out = run(m, state_of(d), nstep, fresh, check)
-  template = rollout._expand(d_fresh, nbatch)
+  template = rollout.expand(d_fresh, nbatch)
   return template.replace(qpos=out["qpos"], qvel=out["qvel"],
                           ctrl=out["ctrl"], qacc_warmstart=out["warm"],
                           qacc=out["qacc"], time=out["time"],

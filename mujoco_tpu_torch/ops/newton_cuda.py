@@ -19,11 +19,14 @@ the blocked LDLᵀ of the whole block, and where one env's work space does
 not fit the shared memory a block may use, this wrapper allocates a
 device-memory work space for it.
 
-Where an input needs a gradient the kernel runs as ``NewtonSolve``, whose
-backward differentiates ``newton_plain`` at the same inputs: the
-reverse-mode counterpart of the reference's ``custom_jvp`` rule, whose
-tangent runs through the XLA body (``solver`` and ``_solver_jvp``
-:407-417).
+Where an input needs a gradient or carries a forward-mode tangent
+(``torch.autograd.forward_ad``) the kernel runs as ``NewtonSolve``. The
+forward launches the kernel once. Its jvp is the reference's own rule:
+the reference's ``custom_jvp`` takes ``jax.jvp`` of the XLA body
+(``solver`` and ``_solver_jvp`` :407-417), and the jvp here runs
+``newton_plain`` under forward-mode AD at the same inputs. Its backward
+differentiates ``newton_plain`` in reverse mode, the same rule's
+transpose.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from mujoco_tpu_torch.ops import cuda_build
+from mujoco_tpu_torch.ops.linalg_cuda import has_tangent
 from mujoco_tpu_torch.utils.device import const
 from mujoco_tpu_torch.utils.math import MINVAL
 
@@ -174,14 +179,15 @@ def _check(args, iterations, ls_iter):
 
 
 def _needs_grad(args) -> bool:
-  return torch.is_grad_enabled() and any(t.requires_grad for t in args)
+  return ((torch.is_grad_enabled() and any(t.requires_grad for t in args))
+          or has_tangent(*args))
 
 
 def newton_kernel(J, aref, D, R, fl, fric, ones, M, a_s, warm, reg,
                   iterations: int, ls_iter: int):
   """Launch the CUDA kernel (shapes as ``newton_plain``, masks (nefc,),
   reg (B,), all contiguous CUDA tensors of one dtype), through
-  ``NewtonSolve`` where an input needs a gradient."""
+  ``NewtonSolve`` where an input needs a gradient or has a tangent."""
   args = (J, aref, D, R, fl, fric, ones, M, a_s, warm, reg)
   _check(args, iterations, ls_iter)
   if not J.is_cuda:
@@ -227,20 +233,46 @@ def _launch(args, iterations: int, ls_iter: int):
   return x, force, qfrc, stat
 
 
+def _solve(args, iterations: int, ls_iter: int):
+  """The kernel for CUDA tensors, the plain version for CPU tensors, with
+  no autograd of its own."""
+  if args[0].is_cuda:
+    return _launch(args, iterations, ls_iter)
+  with torch.no_grad():
+    return newton_plain(*args, iterations, ls_iter)
+
+
 class NewtonSolve(torch.autograd.Function):
-  """The kernel's solve with the gradient of ``newton_plain``: the forward
-  launches the kernel once; the backward reruns ``newton_plain`` on
-  detached copies of the inputs under ``enable_grad`` and returns
-  ``torch.autograd.grad`` of its outputs. Masks and the regularizer are
-  inputs like any other; they get a gradient only where they need one."""
+  """The kernel's solve with the derivatives of ``newton_plain``: the
+  forward launches the kernel once; the jvp reruns ``newton_plain`` on
+  the inputs made dual with their tangents (forward-mode AD, as the
+  reference's ``custom_jvp`` takes ``jax.jvp`` of its XLA body) and
+  returns the outputs' tangents; the backward reruns it under
+  ``enable_grad`` and returns ``torch.autograd.grad`` of its outputs.
+  Masks and the regularizer are inputs like any other; they get a
+  derivative only where they carry one."""
 
   @staticmethod
   def forward(ctx, iterations, ls_iter, *args):
     ctx.iterations, ctx.ls_iter = iterations, ls_iter
     ctx.save_for_backward(*args)
-    out = _launch(tuple(t.detach() for t in args), iterations, ls_iter)
+    ctx.save_for_forward(*args)
+    out = _solve(tuple(t.detach() for t in args), iterations, ls_iter)
     ctx.mark_non_differentiable(out[3])
     return out
+
+  @staticmethod
+  def jvp(ctx, _iterations, _ls_iter, *arg_dots):
+    args = ctx.saved_tensors
+    # jvp runs with forward-mode AD switched off; the plain version's
+    # tangents are taken at the same level, switched back on
+    with fwAD._set_fwd_grad_enabled(True):
+      duals = [t.detach() if dt is None else fwAD.make_dual(t.detach(), dt)
+               for t, dt in zip(args, arg_dots)]
+      out = newton_plain(*duals, ctx.iterations, ctx.ls_iter)
+      tangents = [fwAD.unpack_dual(o).tangent for o in out[:3]]
+    return tuple(torch.zeros_like(fwAD.unpack_dual(o).primal) if t is None
+                 else t for o, t in zip(out[:3], tangents)) + (None,)
 
   @staticmethod
   def backward(ctx, x_bar, force_bar, qfrc_bar, _stat_bar):

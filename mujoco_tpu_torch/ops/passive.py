@@ -81,7 +81,7 @@ def passive(m: Model, d: Data) -> Data:
   qfrc_spring = (zero if m.disabled(DisableBit.SPRING)
                  else _joint_springs(m, d))
   qfrc_damper = (zero if m.disabled(DisableBit.DAMPER)
-                 else -m.dof_damping * d.qvel)
+                 else -m.per_env("dof_damping") * d.qvel)
   if m.ntendon:
     # tendon spring outside its [lo, hi] deadband, and tendon damper
     Jt = d.ten_J.transpose(1, 2)
@@ -96,7 +96,8 @@ def passive(m: Model, d: Data) -> Data:
           Jt, -m.tendon_damping * d.ten_velocity)
   qfrc_gravcomp = zero
   if not m.disabled(DisableBit.GRAVITY):
-    f = -(m.body_mass * m.body_gravcomp)[:, None] * m.opt.gravity[None, :]
+    f = (-(m.per_env("body_mass") * m.body_gravcomp)[..., None]
+         * m.per_env("opt.gravity")[:, None, :])           # (1 or B, nbody, 3)
     qfrc_gravcomp = support.apply_ft_all_bodies(m, d, f, torch.zeros_like(f),
                                                 d.xipos)
   qfrc_fluid = _fluid(m, d) if m.has_fluid else zero
@@ -125,13 +126,13 @@ def _fluid(m: Model, d: Data):
   geoms = _fluid_geoms(m)
   ell = np.zeros(m.nbody, dtype=bool)
   ell[np.asarray(m.geom_bodyid)[geoms]] = True
-  inertia = m.body_inertia
-  mass = torch.clamp(m.body_mass, min=mjm.MINVAL)
+  inertia = m.per_env("body_inertia")                    # (1 or B, nbody, 3)
+  body_mass = m.per_env("body_mass")
+  mass = torch.clamp(body_mass, min=mjm.MINVAL)
+  i0, i1, i2 = inertia.unbind(-1)
   box = torch.sqrt(torch.clamp(torch.stack(
-      [inertia[:, 1] + inertia[:, 2] - inertia[:, 0],
-       inertia[:, 0] + inertia[:, 2] - inertia[:, 1],
-       inertia[:, 0] + inertia[:, 1] - inertia[:, 2]], -1)
-      / mass[:, None] * 6.0, min=mjm.MINVAL))
+      [i1 + i2 - i0, i0 + i2 - i1, i0 + i1 - i2], -1)
+      / mass[..., None] * 6.0, min=mjm.MINVAL))
   com = d.subtree_com[:, index(m.body_rootid, dev)]
   lvel = mjm.transform_spatial(d.cvel, False, d.xipos, com, d.ximat)
   wind = torch.cat([torch.zeros_like(m.opt.wind), m.opt.wind])
@@ -141,14 +142,14 @@ def _fluid(m: Model, d: Data):
   visc, dens = m.opt.viscosity, m.opt.density
   diam = box.mean(-1)
   b0, b1, b2 = box.unbind(-1)
-  torque_l = -np.pi * (diam ** 3)[:, None] * visc * w
-  force_l = -3.0 * np.pi * diam[:, None] * visc * v
+  torque_l = -np.pi * (diam ** 3)[..., None] * visc * w
+  force_l = -3.0 * np.pi * diam[..., None] * visc * v
   quad = torch.stack([b1 * b2, b0 * b2, b0 * b1], -1)
   force_l = force_l - 0.5 * dens * quad * v.abs() * v
   quart = torch.stack([b0 * (b1 ** 4 + b2 ** 4), b1 * (b0 ** 4 + b2 ** 4),
                        b2 * (b0 ** 4 + b1 ** 4)], -1)
   torque_l = torque_l - dens * quart * w.abs() * w / 64.0
-  live = ((m.body_mass >= mjm.MINVAL) & const(~ell, dev))[:, None]
+  live = ((body_mass >= mjm.MINVAL) & const(~ell, dev))[..., None]
   torque = torch.where(live, mjm.mat_vec(d.ximat, torque_l), 0.0)
   force = torch.where(live, mjm.mat_vec(d.ximat, force_l), 0.0)
   qfrc = support.apply_ft_all_bodies(m, d, force, torque, d.xipos)

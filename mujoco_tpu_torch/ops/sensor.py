@@ -44,7 +44,7 @@ from mujoco_tpu_torch.models.types import (ConeType, Data, DataType,
                                            DisableBit, EqType, GeomType,
                                            JointType, Model, ObjType,
                                            SensorType, Stage, TrnType)
-from mujoco_tpu_torch.ops import history, ray, sdf
+from mujoco_tpu_torch.ops import history, ray, sdf, smooth
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -207,10 +207,10 @@ def subtree_vel(m: Model, d: Data) -> Data:
   com = _take(d.subtree_com, m.body_rootid, dev)
   vel = mjm.transform_spatial(d.cvel, False, d.xipos, com)
   w, v = vel[..., :3], vel[..., 3:]
-  mass = m.body_mass[:, None]
+  mass = m.per_env("body_mass")[..., None]
   p = sub @ (mass * v)
   linvel = p / torch.clamp(m.body_subtreemass, min=mjm.MINVAL)[:, None]
-  iw = mjm.mat_vec(d.ximat, m.body_inertia * _mtv(d.ximat, w))
+  iw = mjm.mat_vec(d.ximat, m.per_env("body_inertia") * _mtv(d.ximat, w))
   s1 = sub @ (iw + mass * mjm.cross(d.xipos, v))
   angmom = s1 - mjm.cross(d.subtree_com, p)
   return d.replace(subtree_linvel=linvel, subtree_angmom=angmom)
@@ -270,10 +270,8 @@ def rne_postconstraint(m: Model, d: Data, cf=None) -> Data:
       cfrc_ext = cfrc_ext + onehot[:, None] * (sgn * v)[:, None, :]
 
   anc = const(m.tree.ancestor_mask, dev, dtype)
-  base = torch.zeros(6, dtype=dtype, device=dev)
-  if not m.disabled(DisableBit.GRAVITY):
-    base = torch.cat([base[:3], -m.opt.gravity])
-  cacc = (base + (anc * d.qvel[:, None, :]) @ d.cdof_dot
+  cacc = (smooth.gravity_base(m, dtype)
+          + (anc * d.qvel[:, None, :]) @ d.cdof_dot
           + (anc * d.qacc[:, None, :]) @ d.cdof)
   icvel = mjm.mat_vec(d.cinert, d.cvel)
   cfrc_body = mjm.mat_vec(d.cinert, cacc) + mjm.force_cross(d.cvel, icvel)
@@ -293,8 +291,11 @@ def energy_pos(m: Model, d: Data) -> Data:
   dev = m.device
   e = d.qpos.new_zeros(d.qpos.shape[:1])
   if not m.disabled(DisableBit.GRAVITY):
-    e = e - (m.body_mass[1:] * mjm.mat_vec(d.xipos[:, 1:],
-                                           m.opt.gravity)).sum(-1)
+    g = m.opt.gravity
+    # a per-env gravity (B, 3) meets each env's positions
+    height = (mjm.mat_vec(d.xipos[:, 1:], g) if g.dim() == 1
+              else (d.xipos[:, 1:] * g[:, None, :]).sum(-1))
+    e = e - (m.per_env("body_mass")[:, 1:] * height).sum(-1)
   if not m.disabled(DisableBit.SPRING):
     k = m.jnt_stiffness
     lin = _joints_of(m, JointType.HINGE, JointType.SLIDE)

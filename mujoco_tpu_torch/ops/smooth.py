@@ -158,7 +158,7 @@ def kinematics(m: Model, d: Data) -> Data:
     xanchor = xaxis = torch.zeros((nbatch, 0, 3), dtype=dtype, device=dev)
 
   xmat = mjm.quat_to_mat(xquat)
-  xipos = xpos + mjm.rot_vec_quat(m.body_ipos, xquat)
+  xipos = xpos + mjm.rot_vec_quat(m.per_env("body_ipos"), xquat)
   ximat = mjm.quat_to_mat(mjm.mul_quat(xquat, m.body_iquat))
   gb = ix(m.geom_bodyid)
   geom_xpos = xpos[:, gb] + mjm.rot_vec_quat(m.geom_pos, xquat[:, gb])
@@ -175,14 +175,16 @@ def kinematics(m: Model, d: Data) -> Data:
 def com_pos(m: Model, d: Data) -> Data:
   """Subtree CoM, c-frame spatial inertias and dof motion axes (mj_comPos)."""
   sub = const(m.tree.subtree_mask, m.device, m.dtype)
-  moment = m.body_mass[:, None] * d.xipos
+  body_mass = m.per_env("body_mass")                     # (1 or B, nbody)
+  moment = body_mass[..., None] * d.xipos
   mass = m.body_subtreemass
   subtree_com = sub @ moment / torch.clamp(mass, min=mjm.MINVAL)[:, None]
   subtree_com = torch.where((mass > mjm.MINVAL)[:, None], subtree_com,
                             d.xipos)
   ix = lambda a: index(a, m.device)
   offset = d.xipos - subtree_com[:, ix(m.body_rootid)]
-  cinert = mjm.spatial_inertia(m.body_mass, m.body_inertia, d.ximat, offset)
+  cinert = mjm.spatial_inertia(body_mass, m.per_env("body_inertia"),
+                               d.ximat, offset)
   cinert = torch.cat([torch.zeros_like(cinert[:, :1]), cinert[:, 1:]], dim=1)
 
   jnt = m.dof_jntid
@@ -224,7 +226,7 @@ def crb(m: Model, d: Data) -> Data:
   qm = torch.where(danc, p, 0.0)
   qm = qm + qm.transpose(1, 2) - torch.diag_embed(torch.diagonal(
       p, dim1=1, dim2=2))
-  qm = qm + torch.diag(m.dof_armature)
+  qm = qm + torch.diag_embed(m.per_env("dof_armature"))
   if m.has_tendon_armature:
     # M += armature · ten_Jᵀ ten_J (mj_tendonArmature), dense
     qm = qm + torch.einsum("t,btv,btw->bvw", m.tendon_armature, d.ten_J,
@@ -312,14 +314,20 @@ def com_vel(m: Model, d: Data) -> Data:
   return d.replace(cvel=cvel, cdof_dot=mjm.motion_cross(v_pred, d.cdof))
 
 
+def gravity_base(m: Model, dtype):
+  """The world's spatial acceleration [0; −gravity] (0 where gravity is
+  disabled) that RNE starts every body from, (1 or B, 1, 6)."""
+  g = m.per_env("opt.gravity").to(dtype)
+  if m.disabled(DisableBit.GRAVITY):
+    return g.new_zeros((1, 1, 6))
+  return torch.cat([torch.zeros_like(g), -g], dim=-1)[:, None, :]
+
+
 def rne(m: Model, d: Data):
   """Recursive Newton-Euler bias force qfrc_bias (mj_rne), as masked dense
   contractions."""
   anc = const(m.tree.ancestor_mask, m.device, m.dtype)
-  base = torch.zeros(6, dtype=m.dtype, device=m.device)
-  if not m.disabled(DisableBit.GRAVITY):
-    base = torch.cat([base[:3], -m.opt.gravity])
-  cacc = base + (anc * d.qvel[:, None, :]) @ d.cdof_dot
+  cacc = gravity_base(m, m.dtype) + (anc * d.qvel[:, None, :]) @ d.cdof_dot
   icvel = torch.einsum("nbij,nbj->nbi", d.cinert, d.cvel)
   f = (torch.einsum("nbij,nbj->nbi", d.cinert, cacc)
        + mjm.force_cross(d.cvel, icvel))

@@ -1,25 +1,30 @@
-"""Batched rollouts on one device (port of mujoco_tpu/parallel/rollout.py:
-``make_batch`` :25, ``batched_step`` :32, ``rollout`` :37,
-``STATE_FIELDS`` :59, ``scan_steps`` :64 with the single-device dispatch of
-``_scan_steps_local`` :133, ``check_reset`` :231).
+"""Batched, randomized and split rollouts (port of
+mujoco_tpu/parallel/rollout.py: ``make_batch`` :25, ``batched_step`` :32,
+``rollout`` :37, ``STATE_FIELDS`` :59, ``scan_steps`` :64 with the
+single-device dispatch of ``_scan_steps_local`` :133, ``make_mesh`` :173,
+``sharded_step`` :177, ``randomize_model`` :195, ``step_randomized`` :224,
+``check_reset`` :231).
 
 The env batch is the leading axis of every Data tensor. A batched f32
 rollout on the card of a model in the megastep class runs as one launch of
 the megastep kernel (``ops/megastep_cuda.py``); everything else takes the
 stage path, where a Python loop takes the place of ``lax.scan``. Neither
 reads a value back to the host, so a rollout only enqueues work on the
-card.
+card. A domain-randomized Model carries a leading env axis on the leaves
+of ``types.ENV_LEAVES`` and takes the stage path; a split rollout steps one
+chunk of the env axis on each device of a list.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from mujoco_tpu_torch.models import io
-from mujoco_tpu_torch.models.types import Data, Model
+from mujoco_tpu_torch.models.types import ENV_LEAVES, Data, Model
 from mujoco_tpu_torch.ops import forward, megastep_cuda
+from mujoco_tpu_torch.ops.linalg_cuda import has_tangent
 
 # the integration state that crosses step boundaries, act (the actuators'
 # activations) and the ctrl and sensor history buffers with it; everything
@@ -30,7 +35,7 @@ STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qacc_warmstart",
                 "mocap_pos", "mocap_quat", "history", "tree_asleep")
 
 
-def _expand(d: Data, nbatch: int) -> Data:
+def expand(d: Data, nbatch: int) -> Data:
   """Broadcast a batch-of-1 Data to nbatch envs (contiguous copies)."""
   def grow(v):
     if isinstance(v, torch.Tensor):
@@ -42,7 +47,7 @@ def _expand(d: Data, nbatch: int) -> Data:
 def make_batch(m: Model, nbatch: int, dtype: Optional[torch.dtype] = None,
                device=None) -> Data:
   """A Data of nbatch envs, each a copy of make_data's initial state."""
-  return _expand(io.make_data(m, dtype=dtype, device=device), nbatch)
+  return expand(io.make_data(m, dtype=dtype, device=device), nbatch)
 
 
 def batched_step(m: Model) -> Callable[[Data], Data]:
@@ -94,12 +99,14 @@ def check_reset(m: Model, d: Data, d_fresh: Data) -> Data:
 
 def megastep_eligible(m: Model, d: Data, d_fresh: Data) -> bool:
   """The megastep dispatch's conditions other than the device: a batched
-  f32 rollout whose state and Model need no gradient, d_fresh a batch of 1,
-  ``megastep_cuda.enabled()`` (the MJTPU_MEGASTEP switch) and
-  ``megastep_cuda.supported(m)`` (reference ``_scan_steps_local``
-  :141-150)."""
+  f32 rollout whose state and Model need no gradient and carry no
+  forward-mode tangent, d_fresh a batch of 1, ``megastep_cuda.enabled()``
+  (the MJTPU_MEGASTEP switch) and ``megastep_cuda.supported(m)``, which
+  refuses a per-env Model (reference ``_scan_steps_local`` :141-150)."""
+  state = [getattr(d, k) for k in STATE_FIELDS]
   return (d.qpos.dtype == torch.float32
-          and not any(getattr(d, k).requires_grad for k in STATE_FIELDS)
+          and not any(t.requires_grad for t in state)
+          and not has_tangent(*state)
           and d_fresh.qpos.shape[0] == 1 and megastep_cuda.enabled()
           and megastep_cuda.supported(m)
           and not megastep_cuda.model_requires_grad(m))
@@ -121,7 +128,7 @@ def scan_steps(m: Model, d: Data, nstep: int, d_fresh: Optional[Data] = None,
   if d.qpos.is_cuda and megastep_eligible(m, d, d_fresh):
     return megastep_cuda.scan_batch(m, d, nstep, d_fresh=d_fresh,
                                     check=check)
-  template = _expand(d_fresh, d.qpos.shape[0])
+  template = expand(d_fresh, d.qpos.shape[0])
   st = {k: getattr(d, k) for k in STATE_FIELDS}
   for _ in range(nstep):
     dd = forward.step(m, template.replace(**st))
@@ -129,3 +136,113 @@ def scan_steps(m: Model, d: Data, nstep: int, d_fresh: Optional[Data] = None,
       dd = check_reset(m, dd, d_fresh)
     st = {k: getattr(dd, k) for k in STATE_FIELDS}
   return template.replace(**st)
+
+
+def randomize_model(m: Model, leaf_updates: dict):
+  """A per-env (domain-randomized) Model: each leaf named in
+  ``leaf_updates`` (dotted, ``opt.gravity``) takes its value (B, …), one
+  row per env, and every other leaf stays one value for all envs. Returns
+  (batched Model, axes), axes the names of the per-env leaves, as the
+  reference returns its vmap axis spec:
+
+      bm, axes = randomize_model(m, {"geom_friction": fric})   # (B, ngeom, 3)
+      d = step_randomized(bm, axes, d)
+
+  The leaves of ``types.ENV_LEAVES`` are admitted; any other raises
+  NotImplementedError. As in the reference, derived fields are not
+  recomputed (``body_subtreemass`` keeps the model's masses), and a static
+  choice the compiler made (rows only for dofs with friction loss, joint
+  damping only where the model has some) stays the model's."""
+  nbatch = None
+  updates = {}
+  for name, value in leaf_updates.items():
+    if name not in ENV_LEAVES:
+      raise NotImplementedError(
+          f"randomizing Model.{name} per env is not ported; the admitted "
+          f"leaves are {', '.join(ENV_LEAVES)}")
+    old = m.leaf(name)
+    value = torch.as_tensor(value, dtype=old.dtype, device=old.device)
+    if value.shape[1:] != old.shape or value.dim() != old.dim() + 1:
+      raise ValueError(f"randomize_model: {name} has shape "
+                       f"{tuple(value.shape)}, want (B,) + "
+                       f"{tuple(old.shape)}")
+    if nbatch not in (None, value.shape[0]):
+      raise ValueError("randomize_model: leaves with different env counts")
+    nbatch = value.shape[0]
+    updates[name] = value.contiguous()
+  opt = {k[4:]: v for k, v in updates.items() if k.startswith("opt.")}
+  top = {k: v for k, v in updates.items() if not k.startswith("opt.")}
+  bm = m.replace(opt=m.opt.replace(**opt), **top)
+  return bm, tuple(updates)
+
+
+def step_randomized(m_batched: Model, axes, d: Data) -> Data:
+  """One step of a per-env Model (``randomize_model``) and a Data of as
+  many envs: the stage path, each env at its own leaves."""
+  nbatch = d.qpos.shape[0]
+  for name in axes:
+    if m_batched.leaf(name).shape[0] != nbatch:
+      raise ValueError(f"step_randomized: {name} holds "
+                       f"{m_batched.leaf(name).shape[0]} envs, Data "
+                       f"{nbatch}")
+  return forward.step(m_batched, d)
+
+
+def make_mesh(devices=None) -> list:
+  """The devices a split rollout uses, in order: ``devices`` as given (a
+  list of devices or names), its first n CUDA devices for an int, every
+  CUDA device by default."""
+  if devices is None or isinstance(devices, int):
+    if not torch.cuda.is_available():
+      raise RuntimeError("no CUDA device is available; pass a list of "
+                         "devices, e.g. ['cpu', 'cpu']")
+    n = torch.cuda.device_count() if devices is None else devices
+    return [torch.device("cuda", i) for i in range(n)]
+  return [torch.device(dev) for dev in devices]
+
+
+def _split(d: Data, devices: Sequence[torch.device]) -> list:
+  """d's env axis in len(devices) contiguous chunks, each on its device."""
+  nbatch = d.qpos.shape[0]
+  bounds = [nbatch * i // len(devices) for i in range(len(devices) + 1)]
+
+  def chunk(v, lo, hi, dev):
+    if isinstance(v, torch.Tensor):
+      return v[lo:hi].to(dev)
+    return v.replace(**{k: chunk(getattr(v, k), lo, hi, dev)
+                        for k in v.__dataclass_fields__})
+
+  return [chunk(d, lo, hi, dev)
+          for lo, hi, dev in zip(bounds, bounds[1:], devices)]
+
+
+def sharded_step(m: Model, mesh: Sequence[torch.device]):
+  """A step with the env axis split over the devices of ``mesh``
+  (``make_mesh``). Returns (step_fn, shard_data): shard_data splits a
+  Data into one chunk of envs per device; step_fn steps each chunk on its
+  own device, each device with a copy of the Model and its own stream, and
+  reads nothing back, so the devices run at once. Physics steps are
+  independent across envs: the split needs no communication."""
+  devices = [torch.device(dev) for dev in mesh]
+  models = [m.to(dev) for dev in devices]
+  streams = [torch.cuda.Stream(dev) if dev.type == "cuda" else None
+             for dev in devices]
+
+  def shard_data(d: Data) -> list:
+    return _split(d, devices)
+
+  def step_fn(shards: Sequence[Data]) -> list:
+    out = []
+    for mm, shard, stream in zip(models, shards, streams):
+      if stream is None:
+        out.append(forward.step(mm, shard))
+        continue
+      # the chunk was written on the device's current stream
+      stream.wait_stream(torch.cuda.current_stream(stream.device))
+      with torch.cuda.stream(stream):
+        nxt = forward.step(mm, shard)
+      torch.cuda.current_stream(stream.device).wait_stream(stream)
+      out.append(nxt)
+    return out
+
+  return step_fn, shard_data

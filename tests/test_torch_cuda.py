@@ -1001,3 +1001,98 @@ def test_actuation_scene_card_matches_cpu_f64(cuda, name):
                  for k in ("qpos", "qvel", "act", "history", "sensordata")])
   for a, b in zip(*outs):
     torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [27, 81])
+def test_ldl_kernel_jvp_matches_plain(cuda, dtype, n):
+  """SpdSolve's forward-mode rule on the card: a solve whose H and g carry
+  tangents is two kernel launches (the forward and the jvp's solve of
+  ġ − Ḣ p), and the tangent equals the plain version's on the same
+  inputs: at f64 elementwise; at f32 by backward error against
+  H ṗ = ġ − Ḣ p, as phase 2 of chip_smoke.py holds the solve."""
+  import torch.autograd.forward_ad as fwAD
+  h, g = _spd(n, 512, dtype, cuda, seed=n)
+  ht, gt = _spd(n, 512, dtype, cuda, seed=n + 1)
+  before = linalg_cuda.LAUNCHES
+  with fwAD.dual_level():
+    p = linalg_cuda.spd_solve(fwAD.make_dual(h, ht), fwAD.make_dual(g, gt))
+    p_prim, p_dot = fwAD.unpack_dual(p)
+  torch.cuda.synchronize()
+  assert linalg_cuda.LAUNCHES == before + 2
+  _, plain = torch.func.jvp(linalg_cuda.spd_solve_plain, (h, g), (ht, gt))
+  if dtype == torch.float64:
+    torch.testing.assert_close(p_dot, plain, rtol=1e-9, atol=1e-9)
+  else:
+    rhs = gt - (ht @ p_prim[..., None])[..., 0]
+    assert _backward_error(h, rhs, p_dot).max().item() <= 1e-5
+
+
+def test_newton_kernel_forward_ad_launches_once(cuda):
+  """NewtonSolve under forward-mode AD on the card: one kernel launch for
+  the forward (never the plain version), the tangent by newton_plain,
+  equal at f64 to the CPU's forward-mode tangent of newton_plain (1e-8
+  relative)."""
+  import torch.autograd.forward_ad as fwAD
+  args = _humanoid(32, cuda, torch.float64)
+  rng = np.random.default_rng(9)
+  tans = [torch.tensor(rng.standard_normal(tuple(a.shape)), device=cuda)
+          if i in (0, 1, 7, 8) else None for i, a in enumerate(args)]
+  tans[7] = tans[7] + tans[7].transpose(1, 2)
+  out = {}
+  for dev in (cuda, "cpu"):
+    before = newton_cuda.LAUNCHES
+    with fwAD.dual_level():
+      duals = tuple(a.to(dev) if t is None else fwAD.make_dual(a.to(dev),
+                                                             t.to(dev))
+                    for a, t in zip(args, tans))
+      x, _, qfrc, _ = newton_cuda.run(duals, 1, 4)
+      out[str(dev)] = ([fwAD.unpack_dual(o).tangent.cpu() for o in (x, qfrc)],
+                       newton_cuda.LAUNCHES - before)
+  assert out["cuda"][1] == 1 and out["cpu"][1] == 0
+  for a_k, a_p in zip(out["cuda"][0], out["cpu"][0]):
+    assert ((a_k - a_p).abs().max() <= 1e-8 * a_p.abs().max()).item()
+
+
+def test_transition_card_matches_cpu_f64(cuda):
+  """The humanoid's transition Jacobians on the card (one step of 4·75
+  copies through the LDL and Newton kernels and their forward-mode
+  rules) equal the CPU's at f64."""
+  from mujoco_tpu_torch.ops import derivative_fd
+  outs = []
+  for dev in (cuda, torch.device("cpu")):
+    m = zoo.humanoid(torch.float64, device=dev)
+    d = rollout.make_batch(m, 4, device=dev)
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    d = d.replace(qpos=d.qpos + t(0.01 * rng.standard_normal(
+        tuple(d.qpos.shape))), qvel=t(0.1 * rng.standard_normal(
+            tuple(d.qvel.shape))))
+    linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = 0
+    outs.append([o.cpu() for o in derivative_fd.transition(m, d)])
+    if dev.type == "cuda":
+      torch.cuda.synchronize()
+      assert linalg_cuda.LAUNCHES >= 2 and newton_cuda.LAUNCHES >= 1
+  for a, b in zip(*outs):
+    torch.testing.assert_close(a, b, rtol=1e-7, atol=1e-7)
+
+
+def test_randomized_step_card_matches_cpu_f64(cuda):
+  """All ten per-env leaves on the humanoid, 10 steps at f64: card =
+  CPU to 1e-8, and the megastep refuses the per-env Model."""
+  from mujoco_tpu_torch.models.types import ENV_LEAVES
+  outs = []
+  for dev in (cuda, torch.device("cpu")):
+    m = zoo.humanoid(torch.float64, device=dev)
+    rng = np.random.default_rng(3)
+    values = {k: m.leaf(k)[None] * torch.tensor(rng.uniform(
+        0.7, 1.3, (8,) + tuple(m.leaf(k).shape)), device=dev)
+              for k in ENV_LEAVES}
+    bm, axes = rollout.randomize_model(m, values)
+    assert not megastep_cuda.supported(bm)
+    d = rollout.make_batch(m, 8, device=dev)
+    for _ in range(10):
+      d = rollout.step_randomized(bm, axes, d)
+    outs.append([d.qpos.cpu(), d.qvel.cpu()])
+  for a, b in zip(*outs):
+    torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-8)

@@ -2,12 +2,15 @@
 
 The package and the port's scripts (chip_smoke.py, kernel_times.py,
 op_counts.py, quadruped_stand.py, thread_counts.py) import neither jax nor
-mujoco_tpu, and importing them does not import the pip mujoco either (it
-is a model compiler, imported inside io.put_model only). Entry points
-default to the CUDA card and raise where there is none instead of running
-on the CPU.
+mujoco_tpu, and importing them does not import the pip mujoco either: it
+is imported inside functions only, in models/io.py by the compile side of
+put_model and by get_data/get_data_into, which hand one env back to the C
+engine, and in models/snapshot.py, which writes the snapshots. Entry
+points default to the CUDA card and raise where there is none instead of
+running on the CPU.
 """
 
+import ast
 import os
 import pkgutil
 import re
@@ -75,6 +78,65 @@ def test_sources_never_import_jax_or_reference():
     assert not _FORBIDDEN.search(text), path
     seen += 1
   assert seen >= 20
+
+
+def _mujoco_imports(path):
+  """(enclosing function or None, line) of each import of the pip mujoco
+  in a source file."""
+  with open(path) as f:
+    tree = ast.parse(f.read())
+  out = []
+
+  def walk(node, fn):
+    for child in ast.iter_child_nodes(node):
+      name = fn
+      if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+        name = child.name
+      if isinstance(child, ast.Import):
+        out.extend((fn, child.lineno) for a in child.names
+                   if a.name.split(".")[0] == "mujoco")
+      elif isinstance(child, ast.ImportFrom) and child.module and \
+          child.module.split(".")[0] == "mujoco" and not child.level:
+        out.append((fn, child.lineno))
+      walk(child, name)
+
+  walk(tree, None)
+  return out
+
+
+def test_pip_mujoco_is_imported_inside_functions_only():
+  """No module of the port imports the pip mujoco at import time; in
+  models/io.py only the compile side of put_model and the get_data bridge
+  import it, and in the rest of the package only the snapshot writer."""
+  io_allowed = {"_names", "_actuator_meta", "_sensor_meta", "get_data",
+                "get_data_into"}
+  seen = set()
+  for path in _sources():
+    for fn, line in _mujoco_imports(path):
+      assert fn is not None, f"{path}:{line} imports mujoco at module level"
+      rel = os.path.relpath(path, ROOT)
+      if rel == os.path.join("mujoco_tpu_torch", "models", "io.py"):
+        assert fn in io_allowed, f"{rel}:{line} in {fn}"
+        seen.add(fn)
+      elif rel.startswith("mujoco_tpu_torch"):
+        assert rel == os.path.join("mujoco_tpu_torch", "models",
+                                   "snapshot.py"), f"{rel}:{line}"
+  assert {"get_data", "get_data_into"} <= seen
+
+
+def test_public_api_names_the_ported_modules():
+  """The package exports the reference's public names for the modules it
+  has (mujoco_tpu/__init__.py:19-53)."""
+  for name in ("put_model", "make_data", "get_data", "get_data_into",
+               "step", "forward", "inverse", "compare_fwd_inv",
+               "transition", "transition_fd", "inverse_derivatives",
+               "get_state", "set_state", "StateBit", "state_size",
+               "reset_data", "reset_data_keyframe", "name2id", "id2name",
+               "make_batch", "rollout", "check_reset", "make_mesh",
+               "sharded_step", "randomize_model", "step_randomized", "ray",
+               "ray_geom", "init_sleep", "contact_force", "smooth",
+               "support", "Model", "Data"):
+    assert hasattr(mujoco_tpu_torch, name), name
 
 
 def test_forbidden_import_pattern():

@@ -267,13 +267,12 @@ def test_plain_gradient_matches_reference(iterations, ls_iter):
     assert np.abs(got - g).max() <= 1e-8 * np.abs(g).max(), k
 
 
-def test_newton_solve_backward_is_newton_plain(monkeypatch):
-  """NewtonSolve, the kernel's autograd Function, on CPU tensors with the
-  kernel's launch replaced by newton_plain: its outputs and its gradients
-  (a backward that reruns newton_plain) equal autograd straight through
-  newton_plain, and only the inputs that need a gradient get one."""
-  monkeypatch.setattr(newton_cuda, "_launch", lambda args, it, ls:
-                      newton_cuda.newton_plain(*args, it, ls))
+def test_newton_solve_backward_is_newton_plain():
+  """NewtonSolve, the kernel's autograd Function, on CPU tensors, where
+  its forward runs newton_plain in the kernel's place: its outputs and its
+  gradients (a backward that reruns newton_plain) equal autograd straight
+  through newton_plain, and only the inputs that need a gradient get
+  one."""
   sys = humanoid_rows(nbatch=3)
   w = torch.from_numpy(np.random.default_rng(8).standard_normal(
       sys["a_s"].shape))
