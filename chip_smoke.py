@@ -220,7 +220,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
    plain version (f32 by backward error, f64 elementwise) and timed
    beside its bound, the plain version and ``torch.linalg.solve``;
    ``box_pile``, ``grasp`` and ``hfield_bowl`` at f32, B 3072, 10 steps
-   each with env-steps/s; and 20 steps at f64, B 4, of each of the four
+   each with env-steps/s; and 10 steps at f64, B 4, of each of the four
    scenes on the card against the CPU, each step from the CPU's state
    (qpos and qvel to 1e-8 absolute plus relative, ``judge_envs`` with 256
    copies);
@@ -285,16 +285,33 @@ Phases, each of which passes or ends the script with a nonzero exit:
    then at f32, B 3072, 20 steps with one LDL and one Newton launch per
    step and no megastep, env-steps/s and device kernels per step beside
    the plain stage path's in the same call.
+27. the flexes (``zoo.FLEX``): the megastep's gate and
+   ``rollout.megastep_eligible`` refuse every scene; each scene at f64,
+   B 8, 10 steps from a start in contact (``FLEX_START``), each step from
+   the CPU's state on the card and the CPU: qpos and qvel within 1e-8 and
+   the vertices of the slots in contact equal (``flex_picks``), an env
+   that misses judged by last-bit copies (``judge_envs``); the LDL kernel
+   on ``humanoid_hammock``'s qM at n 258 (f32 by backward error, f64
+   elementwise 1e-9 relative; the full batch) and the Newton kernel on
+   its rows at nv 258 (f64 B 256 by phase 11's rule, f32 at the full
+   batch by phase 6's), each timed beside its plain version, its bound and
+   ``torch.linalg.solve``; the hammock at f32 and the full batch (B 3072,
+   or halved where one step would pass 60 % of the card's memory), 20
+   steps on the stage path: exactly one LDL and one Newton launch per
+   step, finite, env-steps/s, the envs the guard reset, peak memory, the
+   idle share of a profiled 2-step window and the device kernels of one
+   step's flex stage, flex passive forces and flex collisions.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 26 (phase 26's ``discrete_acc``, ``transition`` and
-``randomized``); the LDL's ``wide`` entry holds phase 13's table (each order
+and 13 to 27 (phase 26's ``discrete_acc``, ``transition`` and
+``randomized``; phase 27's ``humanoid_hammock``); the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
 Newton kernel's its phase-13 times at nv 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
-and the LDL's ``n18`` entry phase 23's.
+the LDL's ``n18`` entry phase 23's, and the LDL's ``n258`` and the Newton
+kernel's ``nv258`` entries phase 27's.
 Each phase's seconds are printed as it ends.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -1825,11 +1842,13 @@ RK4 = 1
 # steps of phase 18's card-against-CPU run, cut from 50 to keep the phase
 # near 90 s: the row-serial sweeps (PGS, noslip's QCQPs) and the elliptic
 # core at 100 iterations run 10⁴-10⁵ launches a step on the card (0.2-9 s
-# a step, PERF.md §5); the integrator scenes 20
+# a step, PERF.md §5); the integrator scenes 20. The elliptic sweeps cut
+# again (from 2, 2 and 3) when phase 27 came, to keep the script in its
+# time
 SCENE_NSTEP = {"pgs_pyramidal": 10, "pgs_elliptic": 1,
                "noslip_pyramidal": 5, "noslip_pyramidal_it4": 20,
-               "noslip_elliptic": 2, "noslip_condim4": 2,
-               "balls_elliptic": 3}
+               "noslip_elliptic": 1, "noslip_condim4": 1,
+               "balls_elliptic": 2}
 # scenes whose B 3072 step takes seconds: timed on one profiled step
 SLOW_SCENES = ("pgs_elliptic", "noslip_elliptic", "noslip_condim4",
                "balls_elliptic")
@@ -2162,7 +2181,7 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23", "24", "25", "26")
+                 "22", "23", "24", "25", "26", "27")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -2806,7 +2825,9 @@ CONVEX_REST = {"rock": {2: 0.15, 9: 0.385, 16: 0.505},
 CONVEX_FULL = ("box_pile", "grasp", "hfield_bowl")
 ROCK_NSTEP = 25
 CONVEX_NSTEP = 10
-CONVEX_CHECK_NSTEP = 20
+# card against CPU, cut from 20 when phase 27 came, to keep the script in
+# its time
+CONVEX_CHECK_NSTEP = 10
 
 
 def convex_batch(name, m, nbatch, seed, device="cuda"):
@@ -3614,6 +3635,284 @@ def phase_control_loop(report, details):
       randomized=control_randomized_phase(report))
 
 
+FLEX_CHECK_NSTEP = 10
+FLEX_NSTEP = 20
+FLEX_CHECK_B = 8
+# scene → (flex z shift, free bodies' z, qpos noise): a start whose
+# contacts act within the run (tests/test_torch_flex_scenes.py START)
+FLEX_START = {
+    "humanoid_hammock": (0.0, 0.68, 0.01),
+    "cloth_pinned": (0.0, None, 0.01),
+    "cloth_bodies": (0.0, 0.38, 0.01),
+    "cloth_plane_drop": (-0.79, None, 0.005),
+    "cable_springs": (0.0, None, 0.02),
+    "rope_floor": (-0.14, None, 0.005),
+    "rope_bodies": (0.0, 0.18, 0.01),
+    "cloth_elastic": (0.0, None, 0.01),
+    "gel_plane_drop": (-0.17, None, 0.003),
+    "gel_trilinear": (-0.15, None, 0.005),
+    "gel_strain": (0.0, None, 0.005),
+    "rope_self": (-0.28, None, 0.06),
+    "strip_self": (-0.03, None, 0.03),
+    "gel_internal": (0.0, 0.17, 0.01),
+    "cloth_sleep": (-0.05, None, 0.005),
+}
+
+
+def flex_batch(name, m, nbatch, seed, device="cuda"):
+  """make_batch of a zoo.FLEX scene at its FLEX_START from a numpy seed:
+  the flex's vertical slides moved by the shift, free roots set to the
+  height, qpos noise; the same on the card and the CPU."""
+  from mujoco_tpu_torch.parallel import rollout
+  shift, drop, noise = FLEX_START[name]
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  qpos = (d.qpos.cpu().double()
+          + torch.as_tensor(noise * rng.standard_normal(tuple(d.qpos.shape))))
+  flexbody = np.isin(np.asarray(m.jnt_bodyid), np.concatenate(
+      [m.flx.vertbodyid, m.flx.nodebodyid]))
+  axis = m.jnt_axis.detach().cpu().numpy()
+  for j in range(m.njnt):
+    adr = int(m.jnt_qposadr[j])
+    if int(m.jnt_type[j]) == 0 and drop is not None:          # free root
+      qpos[:, adr + 2] = drop
+    elif (int(m.jnt_type[j]) == 2 and flexbody[j]
+          and np.allclose(axis[j], [0, 0, 1])):
+      qpos[:, adr] += shift
+  return d.replace(qpos=qpos.to(device=device, dtype=m.dtype))
+
+
+def flex_picks(m, d) -> torch.Tensor:
+  """(1, B, slots, 8): per env the vertices (flexvert1, flexvert) of each
+  flex slot group's slots in contact, in a canonical order (a group's
+  equal-distance candidates fill its slots in an order the last bit
+  decides), −2 past them; what phase 27 holds card = CPU."""
+  con = m.con
+  groups = ([(int(a), con.flex_budget) for a in con.flexpair_adr]
+            + [(g["adr"], g["npair"]) for g in con.selfgroups]
+            + [(g["adr"], g["nslots"])
+               for g in con.intgroups + con.evgroups])
+  c = d.contact
+  live = (c.dist < c.includemargin).cpu().numpy()
+  verts = torch.cat([c.flexvert1, c.flexvert], -1).cpu().numpy()
+  out = []
+  for adr, n in groups:
+    sl = slice(adr, adr + n)
+    v = np.where(live[:, sl, None], verts[:, sl], 2 ** 20)
+    rows = []
+    for b in range(v.shape[0]):
+      order = np.lexsort(v[b].T[::-1])
+      rows.append(np.where(v[b][order] == 2 ** 20, -2, v[b][order]))
+    out.append(np.stack(rows))
+  if not out:                                   # no flex slot
+    return torch.zeros((1, live.shape[0], 0, 8), dtype=torch.float64)
+  return torch.as_tensor(np.concatenate(out, 1), dtype=torch.float64)[None]
+
+
+def flex_card_vs_cpu(name):
+  """FLEX_CHECK_NSTEP steps at f64, B FLEX_CHECK_B: each step of the CPU's
+  state on the card and on the CPU, qpos and qvel within 1e-8 absolute
+  plus relative and the vertices of the slots in contact equal
+  (``flex_picks``), an env that misses judged by last-bit copies of its
+  state on both sides (judge_envs). Returns (env-steps judged, slots in
+  contact over the run)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward
+  mc = zoo.load(name, torch.float64, "cuda")
+  mh = zoo.load(name, torch.float64, "cpu")
+  d = flex_batch(name, mh, FLEX_CHECK_B, 71, "cpu")
+  judged = live = 0
+  for _ in range(FLEX_CHECK_NSTEP):
+    out_h = forward.step(mh, d)
+    out_c = forward.step(mc, d.to("cuda"))
+    live += int((out_h.contact.dist < out_h.contact.includemargin).sum())
+
+    def rerun(idx, m, d=d):
+      k = SCENE_COPIES
+      gen = torch.Generator().manual_seed(0)
+      copies = take_envs(d, idx.repeat_interleave(k))
+      moved = {f: getattr(copies, f) * (1 + last_bits(
+          getattr(copies, f).shape, gen)) for f in ("qpos", "qvel")}
+      r = forward.step(m, copies.replace(**moved).to(m.device))
+      return [x.reshape((len(idx), k) + x.shape[1:])
+              for x in (r.qpos, r.qvel, flex_picks(m, r)[0])]
+
+    judged += judge_envs(
+        [out_c.qpos[None], out_c.qvel[None], flex_picks(mc, out_c)],
+        [out_h.qpos[None], out_h.qvel[None], flex_picks(mh, out_h)],
+        lambda idx: rerun(idx, mh), lambda idx: rerun(idx, mc),
+        SCENE_COPIES, 1e-8, 1.0)
+    d = out_h
+  return judged, live
+
+
+def phase_flex(report, details):
+  """27: the flex scenes (zoo.FLEX): the megastep's gate refuses each;
+  card = CPU at f64; the LDL kernel on humanoid_hammock's qM at n 258 and
+  the Newton kernel on its rows at nv 258 against their plain versions;
+  the hammock at full width on the stage path."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import (collision_flex, flex, forward,
+                                    linalg_cuda, megastep_cuda, newton_cuda,
+                                    smooth, solver)
+  from mujoco_tpu_torch.parallel import rollout
+  name = "humanoid_hammock"
+  load = lambda dtype, dev="cuda": zoo.load(name, dtype, dev)
+
+  # the megastep's gate: every flex scene keeps the stage path
+  for scene in zoo.FLEX:
+    mm = zoo.load(scene, torch.float32, "cuda")
+    dd = rollout.make_batch(mm, 2)
+    if megastep_cuda.supported(mm) or rollout.megastep_eligible(
+        mm, dd, rollout.make_batch(mm, 1)):
+      raise AssertionError(f"the megastep admits {scene}")
+  print(f"megastep gate: refuses all {len(zoo.FLEX)} flex scenes",
+        flush=True)
+
+  # card = CPU at f64, every scene
+  check = {}
+  for scene in zoo.FLEX:
+    t0 = time.perf_counter()
+    judged, live = flex_card_vs_cpu(scene)
+    check[scene] = dict(judged_env_steps=judged, live_slots=live,
+                        s=time.perf_counter() - t0)
+    print(f"{scene} card vs CPU f64 B{FLEX_CHECK_B} {FLEX_CHECK_NSTEP} "
+          f"steps: qpos, qvel within 1e-8 and the vertices of the slots in "
+          f"contact equal ({live} slot-steps in contact), env-steps judged "
+          f"by last-bit copies {judged} ({check[scene]['s']:.1f} s)",
+          flush=True)
+
+  m = load(torch.float32)
+  nbatch = fitting_batch(m, lambda mm, n: flex_batch(name, mm, n, 72))
+
+  # the LDL kernel on the hammock's own qM, n 258 (shared memory at f32,
+  # the device-memory work space at f64)
+  wide = {}
+  for dtype in (torch.float32, torch.float64):
+    mm = load(dtype)
+    d = flex_batch(name, mm, nbatch, 73)
+    d = smooth.crb(mm, smooth.com_pos(mm, smooth.kinematics(mm, d)))
+    h = d.qM.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(74)
+    g = torch.randn(d.qvel.shape, generator=gen, device="cuda", dtype=dtype)
+    del d
+    route = linalg_cuda.occupancy(h.shape[1], dtype)["route"]
+    err = ldl_gate(f"humanoid_hammock's mass matrix ({route})", h, g)
+    k_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g), reps=10)
+    p_ms = cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g), reps=10)
+    lib_ms = cuda_ms_cold(lambda: torch.linalg.solve(h, g), reps=10)
+    b_ms, by = ldl_bound(nbatch, h.shape[1], dtype)
+    wide[str(dtype)[6:]] = dict(n=h.shape[1], route=route, ms=k_ms,
+                                plain_ms=p_ms, library_ms=lib_ms,
+                                bound_ms=b_ms, bound_by=by, max_abs_err=err)
+    print(f"ldl_solve {str(dtype)[6:]} B{nbatch} n{h.shape[1]} ({route}) "
+          f"on the hammock's qM: kernel_ms {k_ms:.4f} (L2 flushed) plain_ms "
+          f"{p_ms:.4f} library_ms {lib_ms:.4f} (torch.linalg.solve) "
+          f"bound_ms {b_ms:.5f} ({by})", flush=True)
+    del h, g
+
+  # the Newton kernel on the hammock's rows (its cloth, floor and limit
+  # rows): f64 B 256 under phase 11's rule, f32 at the full width under
+  # phase 6's
+  def rows_state(mm, nb, seed):
+    d = flex_batch(name, mm, nb, seed)
+    d = forward.fwd_acceleration(mm, forward.fwd_actuation(
+        mm, forward.fwd_velocity(mm, forward.fwd_position(mm, d))))
+    return d.replace(qacc_warmstart=0.9 * d.qacc_smooth)
+
+  m64 = load(torch.float64)
+  nb64 = 256
+  args = solver.newton_args(m64, rows_state(m64, nb64, 75))
+  out_k = newton_cuda.newton_kernel(*args, 1, 4)
+  torch.cuda.synchronize()
+  out_p = newton_cuda.newton_plain(*args, 1, 4)
+  viol = newton_violation(out_k, out_p)
+  off, worst_other, table = newton_rows_gate(args, out_k, out_p, 1, 4)
+  unmatched = [row for row in table if row[1] == 0]
+  print(f"newton f64 B{nb64} nefc{m.efc.nefc} nv{m.nv} it1 ls4 on the "
+        f"hammock's rows: worst err / (1e-9 + 1e-9·|plain|) "
+        + " ".join(f"{k} {v:.3f}" for k, v in viol.items())
+        + f"; {len(off)} envs off elementwise (limit {nb64 // 100}), worst "
+        f"err / limit on the others {worst_other:.3f}, replayed {table}",
+        flush=True)
+  if len(off) > nb64 // 100 or not worst_other <= 1.0 or unmatched:
+    raise AssertionError("newton at nv 258: kernel and plain disagree")
+  newton_f64 = dict(batch=nb64, violation=viol, off_envs=off, replay=table,
+                    max_abs_err=(out_k[0] - out_p[0]).abs().max().item())
+  del args, out_k, out_p, m64
+  args = solver.newton_args(m, rows_state(m, nbatch, 76))
+  out_k = newton_cuda.newton_kernel(*args, 1, 4)
+  torch.cuda.synchronize()
+  out_p = newton_cuda.newton_plain(*args, 1, 4)
+  f32_gate = newton_f32_gate(f"newton f32 B{nbatch} nv{m.nv} it1 ls4 on "
+                             f"the hammock's rows", args, out_k, out_p, 0.99)
+  del out_k, out_p
+  bound_ms, by, dense_ms, _, kept_mean, kept_max = newton_bound(args, 1, 4)
+  occ = newton_cuda.occupancy(m.efc.nefc, m.nv, torch.float32)
+  newton = dict(nv=m.nv, nefc=m.efc.nefc, bound_ms=bound_ms, bound_by=by,
+                dense_bound_ms=dense_ms, kept_mean=kept_mean,
+                kept_max=kept_max, **occ,
+                ms=cuda_ms_cold(lambda: newton_cuda.newton_kernel(*args, 1, 4),
+                                reps=10),
+                plain_ms=cuda_ms_cold(
+                    lambda: newton_cuda.newton_plain(*args, 1, 4), reps=2,
+                    warmup=1),
+                max_abs_err=newton_f64["max_abs_err"])
+  print(f"newton f32 B{nbatch} nefc{m.efc.nefc} nv{m.nv} it1 ls4 on the "
+        f"hammock's rows: kernel_ms {newton['ms']:.4f} (L2 flushed) plain_ms "
+        f"{newton['plain_ms']:.4f} bound_ms {bound_ms:.5f} ({by}; kept rows "
+        f"mean {kept_mean:.2f}, most {kept_max}; dense {dense_ms:.5f}); "
+        f"{occ['threads']} threads per env, {occ['blocks_per_sm']} "
+        f"blocks/SM", flush=True)
+  del args
+  torch.cuda.empty_cache()
+
+  # the full width: 20 steps on the stage path, one LDL and one Newton
+  # launch per step
+  d0 = flex_batch(name, m, nbatch, 72)
+  out, run = many_run(f"{name} (nv {m.nv}, {m.con.ncon} slots, "
+                      f"{m.efc.nefc} rows)", m, d0, FLEX_NSTEP,
+                      {"ldl_solve": 1.0, "newton_pyramidal": 1.0,
+                       "megastep": 0.0})
+  reset = int((out.time < FLEX_NSTEP * float(m.opt.timestep) * 0.999)
+              .sum().item())
+  # scan_steps hands back its input's contacts: the position stage's are
+  # the final state's
+  dd = forward.fwd_velocity(m, forward.fwd_position(m, out))
+  live = dd.contact.dist < dd.contact.includemargin
+  cloth = torch.as_tensor(m.con.flex2 >= 0, device="cuda")
+  print(f"{name}: envs the guard reset {reset}; slots in contact per env "
+        f"{live.float().sum(1).mean().item():.2f}, of them with the cloth "
+        f"{(live & cloth).float().sum(1).mean().item():.2f}", flush=True)
+  # the flex stages' device kernels in one step, counted apart
+  flex_kernels = dict(
+      flex_stage=kernel_count(lambda: flex.flex(m, dd)),
+      flex_passive=kernel_count(lambda: (
+          flex.edge_passive(m, dd),
+          flex.elasticity_passive(m, dd, True, True))),
+      collision_flex=kernel_count(lambda: collision_flex.flex_collision(
+          m, dd, (dd.contact.dist.clone(), dd.contact.pos.clone(),
+                  dd.contact.frame.clone(), dd.contact.flexvert.clone(),
+                  dd.contact.flexvert1.clone(),
+                  torch.zeros_like(dd.warning[:, 0])))))
+  per_step = run["profile"]["kernel_launches_per_step"]
+  print(f"{name}: device kernels per step {per_step:.1f}, of them the flex "
+        f"stage {flex_kernels['flex_stage']}, flex passive "
+        f"{flex_kernels['flex_passive']}, collision_flex "
+        f"{flex_kernels['collision_flex']}", flush=True)
+  del dd, out
+  details["flex"] = dict(card_vs_cpu=check, ldl_n258=wide,
+                         newton_nv258=newton, newton_nv258_f64_gate=newton_f64,
+                         newton_nv258_f32_gate=f32_gate, hammock=run,
+                         guard_resets=reset, flex_kernels=flex_kernels)
+  report["ldl_solve"]["n258"] = wide
+  report["newton_pyramidal"]["nv258"] = newton
+  report["ldl_solve"].setdefault("launches_by_path", {})[
+      "humanoid_hammock"] = run["launches"]["ldl_solve"]
+  report["newton_pyramidal"].setdefault("launches_by_path", {})[
+      "humanoid_hammock"] = run["launches"]["newton_pyramidal"]
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3639,7 +3938,7 @@ def main() -> int:
             phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
-            phase_actuation, phase_control_loop)
+            phase_actuation, phase_control_loop, phase_flex)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

@@ -5,7 +5,11 @@ Counterparts: ``put_model`` (mujoco_tpu/models/io.py:1357) with
 ``_efc_meta`` (:1074), ``_names`` (:1173), ``_actuator_meta`` (:1205,
 with the wrap periods), the sensor tables (:1608-1625, their enums
 remapped by name in ``_sensor_meta``) and the tree tables of
-``_sleep_meta`` (:1628);
+``_sleep_meta`` (:1628); the flex tables of ``_flex_meta`` (:742),
+``_strain_entries`` (:898), ``_interp_meta`` (:949),
+``_flex_stiffness_dense`` (:1040) and ``_flex_bending_dense`` (:1057)
+(``_flex_fields``), with the flex slots of ``_contact_meta`` (:560-730,
+``_flex_slots``);
 ``make_data`` (:1703) with the mocap start pose of ``_mocap_init``
 (:1687), the neutral controls of ``_neutral_ctrl`` (:1675) and the
 history buffers of ``_init_history`` (:1790); the keyframes (:1603-1606);
@@ -39,7 +43,8 @@ from mujoco_tpu_torch.models.types import (BiasType, ConeType, Contact,
                                            ContactMeta, CtrlChart, Data,
                                            DataType,
                                            DisableBit, DynType, EfcMeta,
-                                           EqType, GainType, GeomType,
+                                           EnableBit, EqType, FlexMeta,
+                                           GainType, GeomType,
                                            JointType, Model, ObjType, Option,
                                            SensorType, Stage, TreeTopology,
                                            TrnType)
@@ -204,7 +209,8 @@ def _contact_meta(mjm: Any) -> dict:
   with their own condim (``pair_dim``), then the other plane and height
   field pairs in enumeration order, then the rest grouped by sorted
   (type1, type2, data id1, data id2, condim) signature (the data id of a
-  mesh or height field, else −1), and last the dynamic pair groups: a
+  mesh or height field, else −1), then the flex slots (``_flex_slots``),
+  and last the dynamic pair groups: a
   signature of more than max(2·budget, 16) candidates owns ``budget`` pair
   slots (fewer if it has fewer pairs), whose geom ids name its first
   candidate and are chosen per env and step (``collision_driver``)."""
@@ -285,6 +291,7 @@ def _contact_meta(mjm: Any) -> dict:
       condims.append(condim)
       first.append(k == 0)
       pairids.append(pid)
+  flex = _flex_slots(mjm, g1s, g2s, types, condims, first, pairids)
   dynslot = [False] * len(g1s)
   groups = []
   for (t1, t2, did1, did2, condim), group in dyn:
@@ -303,23 +310,143 @@ def _contact_meta(mjm: Any) -> dict:
       first.append(False)
       pairids.append(-1)
       dynslot.append(True)
+      flex["flex2"].append(-1)
+      flex["flex1"].append(-1)
 
   si = lambda x: np.array(x, dtype=np.int32).reshape(-1)
   return {"ncon": len(g1s), "geom1": si(g1s), "geom2": si(g2s),
           "pair_type": np.array(types, dtype=np.int32).reshape(-1, 2),
           "condim": si(condims), "con_first": np.array(first, dtype=bool),
           "pairid": si(pairids), "dynslot": np.array(dynslot, dtype=bool),
-          "dyngroups": tuple(groups)}
+          "dyngroups": tuple(groups), "flex2": si(flex["flex2"]),
+          "flex1": si(flex["flex1"]),
+          "flexpair_geom": si(flex["flexpair_geom"]),
+          "flexpair_flex": si(flex["flexpair_flex"]),
+          "flexpair_adr": si(flex["flexpair_adr"]),
+          "flex_budget": flex["flex_budget"],
+          "selfgroups": tuple(flex["selfgroups"]),
+          "intgroups": tuple(flex["intgroups"]),
+          "evgroups": tuple(flex["evgroups"])}
 
 
-# rows of each equality type the port assembles (mujoco_tpu/models/io.py:
-# 1104-1109); FLEX/FLEXSTRAIN wait for flex
+# geom types a flex collides with (mujoco_tpu/models/io.py:568-569)
+_FLEX_GEOMS = (GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE,
+               GeomType.BOX)
+
+
+def _flex_slots(mjm: Any, g1s, g2s, types, condims, first, pairids) -> dict:
+  """Append the flex slots to the slot lists, in the reference's order
+  (mujoco_tpu/models/io.py:560-677): flex_budget (``MJTPU_FLEX_BUDGET``,
+  default 8) slots per (geom, flex) pair that contype/conaffinity admit,
+  then per flex its self-collision slots (``MJTPU_SELF_BUDGET``, default
+  16, over the element pairs that share no vertex body; a solid's
+  surface layers only), its internal face-vertex slots
+  (``MJTPU_INT_BUDGET``, default 64) and its element-vertex slots. A self
+  or internal slot's geom1 is 0 and its geom2 −1."""
+  nflex = int(mjm.nflex)
+  before = len(g1s)
+  out = {"flex2": [-1] * before, "flex1": [-1] * before,
+         "flexpair_geom": [], "flexpair_flex": [], "flexpair_adr": [],
+         "flex_budget": int(os.environ.get("MJTPU_FLEX_BUDGET", "8")),
+         "selfgroups": [], "intgroups": [], "evgroups": []}
+
+  def add(n, g1, t1, condim, f2, f1, first_one):
+    for k in range(n):
+      g1s.append(g1)
+      g2s.append(-1)
+      types.append((t1, -1))
+      condims.append(condim)
+      first.append(first_one and k == 0)
+      pairids.append(-1)
+      out["flex2"].append(f2)
+      out["flex1"].append(f1)
+
+  budget = out["flex_budget"]
+  for f in range(nflex):
+    va, vn = int(mjm.flex_vertadr[f]), int(mjm.flex_vertnum[f])
+    vbody = {int(b) for b in np.asarray(mjm.flex_vertbodyid[va:va + vn])}
+    for g in range(mjm.ngeom):
+      if not (mjm.geom_contype[g] & mjm.flex_conaffinity[f]
+              or mjm.flex_contype[f] & mjm.geom_conaffinity[g]):
+        continue
+      if int(mjm.flex_dim[f]) not in (1, 2, 3):
+        raise NotImplementedError(f"flex {f}: dim {int(mjm.flex_dim[f])}")
+      t = GeomType(int(mjm.geom_type[g]))
+      if t not in _FLEX_GEOMS:
+        raise NotImplementedError(f"flex vs geom type {t.name}")
+      # a geom on the flex's own vertex bodies never meets a one-element
+      # flex
+      if (t != GeomType.PLANE and int(mjm.geom_bodyid[g]) in vbody
+          and int(mjm.flex_elemnum[f]) <= 1):
+        continue
+      p1, p2 = int(mjm.geom_priority[g]), int(mjm.flex_priority[f])
+      if p1 != p2:
+        condim = int(mjm.geom_condim[g] if p1 > p2 else mjm.flex_condim[f])
+      else:
+        condim = int(max(mjm.geom_condim[g], mjm.flex_condim[f]))
+      out["flexpair_geom"].append(g)
+      out["flexpair_flex"].append(f)
+      out["flexpair_adr"].append(len(g1s))
+      add(budget, g, int(t), condim, f, -1, True)
+
+  self_budget = int(os.environ.get("MJTPU_SELF_BUDGET", "16"))
+  int_budget = int(os.environ.get("MJTPU_INT_BUDGET", "64"))
+  layer = np.asarray(mjm.flex_elemlayer, dtype=np.int64)
+  vb_all = np.asarray(mjm.flex_vertbodyid, dtype=np.int64)
+  for f in range(nflex):
+    dm = int(mjm.flex_dim[f])
+    ca, cn = int(mjm.flex_elemadr[f]), int(mjm.flex_elemnum[f])
+    if cn == 0:
+      continue
+    da = int(mjm.flex_elemdataadr[f])
+    edata = np.asarray(mjm.flex_elem[da:da + cn * (dm + 1)]).reshape(
+        cn, dm + 1)
+    vb = vb_all[int(mjm.flex_vertadr[f]) + edata]          # (cn, dm + 1)
+    condim_f = int(mjm.flex_condim[f])
+    if int(mjm.flex_selfcollide[f]) != 0 and cn >= 2:
+      coll = (layer[ca:ca + cn] < int(mjm.flex_activelayers[f])
+              if dm == 3 else np.ones(cn, dtype=bool))
+      els = np.nonzero(coll)[0]
+      ii, jj = np.triu_indices(len(els), k=1)
+      e1, e2 = els[ii], els[jj]
+      shared = ((vb[e1][:, :, None] == vb[e2][:, None, :])
+                & (vb[e1][:, :, None] >= 0)).any(axis=(1, 2))
+      e1, e2 = e1[~shared], e2[~shared]
+      if len(e1):
+        npair = min(self_budget, len(e1))
+        out["selfgroups"].append({
+            "flex": f, "adr": len(g1s), "npair": npair,
+            "e1": (ca + e1).astype(np.int32),
+            "e2": (ca + e2).astype(np.int32), "dim": dm})
+        add(npair, 0, -1, condim_f, f, f, False)
+    if bool(mjm.flex_internal[f]) and dm == 3:
+      nslots = min(4 * cn, int_budget)
+      out["intgroups"].append({"flex": f, "adr": len(g1s),
+                               "nslots": nslots})
+      # an internal contact's condim is 1
+      add(nslots, 0, -1, 1, f, f, False)
+    if bool(mjm.flex_internal[f]) and int(mjm.flex_evpairnum[f]) > 0:
+      a, n = int(mjm.flex_evpairadr[f]), int(mjm.flex_evpairnum[f])
+      ev = np.asarray(mjm.flex_evpair[2 * a:2 * (a + n)],
+                      dtype=np.int32).reshape(-1, 2)
+      nslots = min(len(ev), int_budget)
+      out["evgroups"].append({"flex": f, "adr": len(g1s),
+                              "nslots": nslots, "ev": ev})
+      add(nslots, 0, -1, condim_f, f, f, False)
+  return out
+
+
+# rows of each equality type of fixed size (mujoco_tpu/models/io.py:
+# 1104-1109); a FLEX equality has one row per non-rigid edge of its flex,
+# a FLEXSTRAIN one per retained eigenmode of its cell (:1083-1103)
 _EQ_ROWS = {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1,
             EqType.TENDON: 1}
 
 
 def _efc_meta(mjm: Any, con: dict) -> dict:
-  """Fixed row layout (mujoco_tpu/models/io.py:1074-1172): equality,
+  """Fixed row layout (mujoco_tpu/models/io.py:1074-1172): equality (a
+  FLEX equality's row carries its edge's id, a FLEXSTRAIN's its
+  eigenmode),
   friction loss (the dofs', then the tendons'), limits (two sides per
   hinge/slide, one row per ball, then two sides per limited tendon), then
   contacts: one row for condim 1; otherwise 2·(condim − 1) pyramidal
@@ -328,13 +455,25 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
   friction_ten and a joint limit row's limit_ten are −1, as are a tendon
   row's friction_dof and limit_jnt."""
   eq_id, eq_row = [], []
+  rigid = np.asarray(mjm.flexedge_rigid, dtype=bool)
+  neig = {s["eq"]: s["neig"] for s in _strain_entries(mjm)}
   for i in range(mjm.neq):
     t = EqType(int(mjm.eq_type[i]))
-    if t not in _EQ_ROWS:
+    if t == EqType.FLEX:
+      # eq_row: the edge's global id
+      f = int(mjm.eq_obj1id[i])
+      ea, en = int(mjm.flex_edgeadr[f]), int(mjm.flex_edgenum[f])
+      rows = [e for e in range(ea, ea + en) if not rigid[e]]
+    elif t == EqType.FLEXSTRAIN:
+      rows = list(range(neig.get(i, 0)))
+    elif t == EqType.FLEXVERT:
+      raise NotImplementedError("flex vertex equality (FLEXVERT)")
+    elif t in _EQ_ROWS:
+      rows = list(range(_EQ_ROWS[t]))
+    else:
       raise NotImplementedError(f"equality type {t.name}")
-    for r in range(_EQ_ROWS[t]):
-      eq_id.append(i)
-      eq_row.append(r)
+    eq_id += [i] * len(rows)
+    eq_row += rows
   ne = len(eq_id)
 
   friction_dof = [i for i in range(mjm.nv) if mjm.dof_frictionloss[i] > 0]
@@ -385,8 +524,10 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
 
 
 def _names(mjm: Any) -> dict:
-  """name → id per object type (mj_name2id analog)."""
+  """name → id per object type (mj_name2id analog); a FLEXSTRAIN view
+  (``models/strain.py``) names what its compiled model names."""
   import mujoco
+  mjm = getattr(mjm, "mjmodel", mjm)
   types = {
       "body": (mujoco.mjtObj.mjOBJ_BODY, mjm.nbody),
       "joint": (mujoco.mjtObj.mjOBJ_JOINT, mjm.njnt),
@@ -553,10 +694,237 @@ def _opt(mjm: Any, name: str, shape: tuple, dtype, fill=0) -> np.ndarray:
   return np.asarray(v, dtype=dtype).reshape(shape)
 
 
-def _check_subset(mjm: Any) -> None:
-  """Reject every feature the port does not implement yet."""
-  if int(getattr(mjm, "nflex", 0)):
-    raise NotImplementedError("flex")
+def _strain_entries(mjm: Any) -> tuple:
+  """One dict per FLEXSTRAIN equality, one interpolated cell each
+  (mujoco_tpu/models/io.py:898): eq, flex, order, npe, gind (the cell's
+  nodes in the flex's node block, x slowest), neig, eigvecs (neig,
+  3·npe; flex_stiffness holds [neig | √λ·v …] per cell, as
+  ``models/strain.py`` writes it) and diaga (the mean invweight0 of the
+  nodes' bodies)."""
+  eqt = np.asarray(mjm.eq_type, dtype=np.int64)
+  if not (eqt == EqType.FLEXSTRAIN).any():
+    return ()
+  interp = np.asarray(mjm.flex_interp, dtype=int)
+  cellnum = np.asarray(mjm.flex_cellnum).reshape(-1, 3).astype(int)
+  stiffadr = np.asarray(mjm.flex_stiffnessadr, dtype=np.int64)
+  stiff = np.asarray(mjm.flex_stiffness, dtype=np.float64)
+  nodeadr = np.asarray(mjm.flex_nodeadr, dtype=np.int64)
+  nodebody = np.asarray(mjm.flex_nodebodyid, dtype=np.int64)
+  invw = np.asarray(mjm.body_invweight0, dtype=np.float64).reshape(-1, 2)
+  eq_data = np.asarray(mjm.eq_data, dtype=np.float64).reshape(len(eqt), -1)
+  out = []
+  for i in np.nonzero(eqt == EqType.FLEXSTRAIN)[0]:
+    f = int(mjm.eq_obj1id[i])
+    order = int(interp[f])
+    if order < 1:
+      raise NotImplementedError(
+          "FLEXSTRAIN on a shell or a flex that is not interpolated")
+    npe = (order + 1) ** 3
+    ndof = 3 * npe
+    _, cy, cz = (int(x) for x in cellnum[f])
+    ci, cj, ck = (int(x) for x in eq_data[i, :3])
+    a = stiffadr[f] + (ci * cy * cz + cj * cz + ck) * ndof * ndof
+    block = stiff[a:a + ndof * ndof]
+    neig = int(block[0])
+    ny, nz = cy * order + 1, cz * order + 1
+    gind = np.array([((ci * order + li) * ny + (cj * order + lj)) * nz
+                     + (ck * order + lk) for li in range(order + 1)
+                     for lj in range(order + 1) for lk in range(order + 1)],
+                    dtype=np.int64)
+    out.append({"eq": int(i), "flex": f, "order": order, "npe": npe,
+                "gind": gind, "neig": neig,
+                "eigvecs": block[1:1 + neig * ndof].reshape(neig, ndof),
+                "diaga": float(invw[nodebody[nodeadr[f] + gind], 0].mean())})
+  return tuple(out)
+
+
+def _interp_meta(mjm: Any, interp, vertadr) -> dict:
+  """Node tables and each vertex's fixed node ids and basis weights of the
+  interpolated flexes (mujoco_tpu/models/io.py:949): flex_vert0 holds a
+  vertex's rest grid coordinates in [0, 1]³; the linear or quadratic
+  Lagrange basis (mju_flexPhi) over its cell gives 8 or 27 weights.
+  Also the cells of each flex's FEM stiffness that hold a block."""
+  nflex, nvert = int(mjm.nflex), int(mjm.nflexvert)
+  nnode = int(mjm.nflexnode)
+  nodeadr = np.asarray(mjm.flex_nodeadr, dtype=np.int32)
+  node = np.asarray(mjm.flex_node).reshape(nnode, 3)
+  cellnum = np.asarray(mjm.flex_cellnum).reshape(nflex, 3).astype(np.int32)
+  vert0 = np.asarray(mjm.flex_vert0, dtype=np.float64).reshape(nvert, 3)
+  kmax = 27 if (interp == 2).any() else 8
+  vert_node = np.zeros((nvert, kmax), dtype=np.int32)
+  vert_nodew = np.zeros((nvert, kmax))
+  for f in range(nflex):
+    order = int(interp[f])
+    if order == 0:
+      continue
+    va, vn = int(vertadr[f]), int(mjm.flex_vertnum[f])
+    cn = cellnum[f].astype(np.float64)
+    ny, nz = int(cn[1]) * order + 1, int(cn[2]) * order + 1
+    coord = vert0[va:va + vn]
+    ci = np.clip(np.floor(coord * cn).astype(int), 0,
+                 np.maximum(cn.astype(int) - 1, 0))
+    s = np.clip(coord * cn - ci, 0.0, 1.0)
+    p = (np.stack([1.0 - s, s], axis=-1) if order == 1 else
+         np.stack([2 * s * s - 3 * s + 1, 4 * (s - s * s), 2 * s * s - s],
+                  axis=-1))
+    k = 0
+    for i0 in range(order + 1):
+      for i1 in range(order + 1):
+        for i2 in range(order + 1):
+          vert_node[va:va + vn, k] = nodeadr[f] + (
+              ((ci[:, 0] * order + i0) * ny + (ci[:, 1] * order + i1)) * nz
+              + (ci[:, 2] * order + i2))
+          vert_nodew[va:va + vn, k] = p[:, 0, i0] * p[:, 1, i1] * p[:, 2, i2]
+          k += 1
+  stiffadr = np.asarray(mjm.flex_stiffnessadr, dtype=np.int64)
+  stiff = np.asarray(mjm.flex_stiffness, dtype=np.float64)
+  # a strain-constrained flex's table is the eigen form its FLEXSTRAIN rows
+  # read; it has no passive FEM force
+  edgeeq = np.asarray(mjm.flex_edgeequality, dtype=int)
+  interp_stiffadr = np.where((interp >= 1) & (edgeeq != 3), stiffadr, -1)
+  out = {"interp": interp.astype(np.int32), "nnode": nnode,
+         "nodeadr": nodeadr,
+         "nodenum": np.asarray(mjm.flex_nodenum, dtype=np.int32),
+         "nodebodyid": np.asarray(mjm.flex_nodebodyid, dtype=np.int32),
+         "node_iszero": (node == 0).all(axis=1), "cellnum": cellnum,
+         "vert0": vert0, "vert_node": vert_node, "vert_nodew": vert_nodew,
+         "interp_stiffadr": interp_stiffadr}
+  for f in range(nflex):
+    active = np.zeros(0, dtype=bool)
+    if interp[f] >= 1 and interp_stiffadr[f] >= 0 and stiff.size:
+      ndof = 3 * (int(interp[f]) + 1) ** 3
+      ncell = int(np.prod(cellnum[f]))
+      a = interp_stiffadr[f]
+      active = stiff[a:a + ncell * ndof * ndof].reshape(ncell, -1)[:, 0] != 0
+    out[f"interp_cell_active.{f}"] = active
+  return out
+
+
+def _flex_fields(mjm: Any) -> dict:
+  """The flex topology (``flx.*``, mujoco_tpu/models/io.py:742
+  ``_flex_meta`` with ``_interp_meta`` and ``_strain_entries``) and
+  leaves (:1422-1455, with the dense element stretch metrics and edge
+  bending operators of ``_flex_stiffness_dense`` :1040 and
+  ``_flex_bending_dense`` :1057), flat. Shells (flex_interp < 0) and
+  FLEXVERT equalities raise, as in the reference."""
+  nflex = int(mjm.nflex)
+  nvert, nedge, nelem = (int(mjm.nflexvert), int(mjm.nflexedge),
+                         int(mjm.nflexelem))
+  si = lambda x: np.asarray(x, dtype=np.int32).reshape(-1)
+  interp = np.asarray(mjm.flex_interp, dtype=int).reshape(-1)
+  if ((interp < 0) | (interp > 2)).any():
+    raise NotImplementedError("flex shell interpolation (flex_interp < 0)")
+  if (np.asarray(mjm.flex_edgeequality) == 2).any():
+    raise NotImplementedError("flex vertex equality (FLEXVERT)")
+  if (interp >= 1).any() and (int(mjm.opt.enableflags) & EnableBit.SLEEP):
+    raise NotImplementedError("sleep with interpolated flexes")
+  dim = si(mjm.flex_dim)
+  vertadr, edgeadr, elemadr = (si(mjm.flex_vertadr), si(mjm.flex_edgeadr),
+                               si(mjm.flex_elemadr))
+  edgenum, elemnum = si(mjm.flex_edgenum), si(mjm.flex_elemnum)
+  edge_flexid = np.zeros(nedge, dtype=np.int32)
+  elem_flexid = np.zeros(nelem, dtype=np.int32)
+  edge = np.zeros((nedge, 2), dtype=np.int32)
+  elem = np.full((nelem, 4), -1, dtype=np.int32)
+  elemedge = np.zeros((nelem, 6), dtype=np.int32)
+  edgeflap = np.full((nedge, 2), -1, dtype=np.int32)
+  flap = np.asarray(mjm.flex_edgeflap, dtype=np.int32).reshape(nedge, 2)
+  stiffadr = np.asarray(mjm.flex_stiffnessadr, dtype=np.int64)
+  bendadr = np.asarray(mjm.flex_bendingadr, dtype=np.int64)
+  eeadr = np.asarray(mjm.flex_elemedgeadr, dtype=np.int64)
+  stiff = np.asarray(mjm.flex_stiffness, dtype=np.float64)
+  bend = np.asarray(mjm.flex_bending, dtype=np.float64)
+  rigid = np.asarray(mjm.flex_rigid, dtype=bool).reshape(-1)
+  has_stretch = np.zeros(nflex, dtype=bool)
+  has_bending = np.zeros(nflex, dtype=bool)
+  stretch_dense = np.zeros((nelem, 21))
+  bend_dense = np.zeros((nedge, 17))
+  for f in range(nflex):
+    ea, en, dm = edgeadr[f], edgenum[f], int(dim[f])
+    ca, cn = elemadr[f], elemnum[f]
+    edge_flexid[ea:ea + en] = f
+    edge[ea:ea + en] = (np.asarray(mjm.flex_edge[ea:ea + en]).reshape(-1, 2)
+                        + vertadr[f])
+    edgeflap[ea:ea + en] = np.where(flap[ea:ea + en] >= 0,
+                                    flap[ea:ea + en] + vertadr[f], -1)
+    elem_flexid[ca:ca + cn] = f
+    da = int(mjm.flex_elemdataadr[f])
+    elem[ca:ca + cn, :dm + 1] = (np.asarray(
+        mjm.flex_elem[da:da + cn * (dm + 1)]).reshape(cn, dm + 1)
+        + vertadr[f])
+    has_stretch[f] = (dm >= 2 and stiffadr[f] >= 0 and interp[f] == 0
+                      and stiff[stiffadr[f]] != 0 and not rigid[f])
+    has_bending[f] = dm == 2 and bendadr[f] >= 0 and not rigid[f]
+    ne_loc = {2: 3, 3: 6}.get(dm, 0)
+    if eeadr[f] >= 0 and int(mjm.nflexelemedge) and ne_loc:
+      elemedge[ca:ca + cn, :ne_loc] = np.asarray(mjm.flex_elemedge[
+          eeadr[f]:eeadr[f] + cn * ne_loc]).reshape(cn, ne_loc) + ea
+    # interpolated flexes keep their raw FEM blocks in flex_stiffness
+    if stiffadr[f] >= 0 and stiff.size and interp[f] == 0:
+      stretch_dense[ca:ca + cn] = stiff[stiffadr[f]:stiffadr[f]
+                                        + cn * 21].reshape(cn, 21)
+    if bendadr[f] >= 0 and bend.size:
+      bend_dense[ea:ea + en] = bend[bendadr[f]:bendadr[f]
+                                    + en * 17].reshape(en, 17)
+  vertbody = si(mjm.flex_vertbodyid)
+  body_dofnum = si(mjm.body_dofnum)
+  layer = si(mjm.flex_elemlayer)
+  collidable = np.ones(nelem, dtype=bool)
+  for f in range(nflex):
+    if int(dim[f]) == 3:
+      ca, cn = elemadr[f], elemnum[f]
+      collidable[ca:ca + cn] = layer[ca:ca + cn] < int(
+          mjm.flex_activelayers[f])
+  vert = np.asarray(mjm.flex_vert, dtype=np.float64).reshape(nvert, 3)
+  flx = {
+      "nflex": nflex, "nvert": nvert, "nedge": nedge, "nelem": nelem,
+      "dim": dim, "vertadr": vertadr, "vertnum": si(mjm.flex_vertnum),
+      "edgeadr": edgeadr, "edgenum": edgenum, "elemadr": elemadr,
+      "elemnum": elemnum, "vertbodyid": vertbody,
+      "centered": np.asarray(mjm.flex_centered, dtype=bool).reshape(-1),
+      "vert_iszero": (vert == 0).all(axis=1), "edge": edge,
+      "edge_flexid": edge_flexid,
+      # an interpolated flex's edges carry no force and no Jacobian
+      "edge_rigid": (np.asarray(mjm.flexedge_rigid, dtype=bool).reshape(-1)
+                     | (interp[edge_flexid] != 0)),
+      "elem": elem, "elem_flexid": elem_flexid, "rigid": rigid,
+      "edgeequality": si(mjm.flex_edgeequality), "condim": si(mjm.flex_condim),
+      "priority": si(mjm.flex_priority), "contype": si(mjm.flex_contype),
+      "conaffinity": si(mjm.flex_conaffinity), "elemedge": elemedge,
+      "edgeflap": edgeflap, "has_stretch": has_stretch,
+      "has_bending": has_bending,
+      "vert_simple": np.asarray(mjm.body_simple, dtype=np.int32)[vertbody]
+      == 2,
+      "vert_free": body_dofnum[vertbody] == 3,
+      "vert_dofadr": np.where(body_dofnum[vertbody] > 0,
+                              si(mjm.body_dofadr)[vertbody], -1).astype(
+                                  np.int32),
+      "elem_collidable": collidable, "elem_layer": layer}
+  flx.update(_interp_meta(mjm, interp, vertadr))
+  out = {f"flx.{k}": v for k, v in flx.items()}
+  for i, ent in enumerate(_strain_entries(mjm)):
+    out.update({f"flx.strain.{i}.{k}": v for k, v in ent.items()})
+  jx = lambda x, *shape: np.asarray(x, dtype=np.float64).reshape(shape or -1)
+  out.update({
+      "has_flex": nflex > 0,
+      "flex_vert": jx(mjm.flex_vert, -1, 3),
+      "flex_node": jx(mjm.flex_node, -1, 3),
+      "flex_node0": jx(mjm.flex_node0, -1, 3),
+      "flex_stiffness_interp": (jx(mjm.flex_stiffness)
+                                if (interp >= 1).any() else np.zeros(0)),
+      "flex_radius": jx(mjm.flex_radius),
+      "flexedge_length0": jx(mjm.flexedge_length0),
+      "flexedge_invweight0": jx(mjm.flexedge_invweight0),
+      "flex_edgestiffness": jx(mjm.flex_edgestiffness),
+      "flex_edgedamping": jx(mjm.flex_edgedamping),
+      "flex_damping": jx(mjm.flex_damping),
+      "flex_friction": jx(mjm.flex_friction, -1, 3),
+      "flex_solref": jx(mjm.flex_solref, -1, 2),
+      "flex_solimp": jx(mjm.flex_solimp, -1, 5),
+      "flex_margin": jx(mjm.flex_margin), "flex_gap": jx(mjm.flex_gap),
+      "flex_solmix": jx(mjm.flex_solmix),
+      "flex_stiffness": stretch_dense, "flex_bending": bend_dense})
+  return out
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +960,6 @@ def flatten(obj: Any, prefix: str = "") -> dict:
 def model_numpy(mjm: Any) -> dict:
   """The port's Model of a compiled ``mujoco.MjModel`` in flat numpy form
   (floats at f64)."""
-  _check_subset(mjm)
   jx = lambda x: np.asarray(x, dtype=np.float64)
   si = lambda x: np.asarray(x, dtype=np.int32)
   dyn, gain, bias, slots, wrapprd, blocks = _actuator_meta(mjm)
@@ -635,11 +1002,12 @@ def model_numpy(mjm: Any) -> dict:
                         mjm.dof_parentid, mjm.nv, mjm.dof_jntid, mjm.jnt_type,
                         mjm.jnt_dofadr)
   f.update({f"tree.{k}": v for k, v in tree.items()})
-  groups = con.pop("dyngroups")
+  for gname in ("dyngroups", "selfgroups", "intgroups", "evgroups"):
+    f.update({f"con.{gname}.{i}.{k}": v
+              for i, grp in enumerate(con.pop(gname)) for k, v in grp.items()})
   f.update({f"con.{k}": v for k, v in con.items()})
-  f.update({f"con.dyngroups.{i}.{k}": v for i, grp in enumerate(groups)
-            for k, v in grp.items()})
   f.update({f"efc.{k}": v for k, v in efc.items()})
+  f.update(_flex_fields(mjm))
   f.update(_tree_meta(mjm))
   for name in ("body_parentid", "body_rootid", "body_weldid", "body_jntnum",
                "body_mocapid", "body_geomadr", "body_geomnum", "tendon_adr",
@@ -745,21 +1113,30 @@ def _tree_meta(mjm: Any) -> dict:
 
 
 def _groups(fields: dict, name: str) -> tuple:
-  """A tuple of dicts flattened as ``name.i.key`` (ContactMeta.dyngroups):
-  0-d values become ints, arrays int32 arrays."""
+  """A tuple of dicts flattened as ``name.i.key`` (ContactMeta.dyngroups,
+  FlexMeta.strain): integer values become ints or int32 arrays, float
+  values floats or float64 arrays."""
+
+  def value(v):
+    v = np.asarray(v)
+    integer = v.dtype.kind in "biu"
+    if v.ndim == 0:
+      return int(v) if integer else float(v)
+    return v.astype(np.int32 if integer else np.float64)
+
   out = []
   while any(k.startswith(f"{name}.{len(out)}.") for k in fields):
     pre = f"{name}.{len(out)}."
-    out.append({k[len(pre):]: (int(v) if np.ndim(v) == 0
-                               else np.asarray(v, dtype=np.int32))
-                for k, v in fields.items() if k.startswith(pre)})
+    out.append({k[len(pre):]: value(v) for k, v in fields.items()
+                if k.startswith(pre)})
   return tuple(out)
 
 
 def _build(cls, fields: dict, prefix: str, device, dtype):
   """Instantiate dataclass ``cls`` from flat fields under ``prefix``."""
   nested = {"Option": Option, "TreeTopology": TreeTopology,
-            "ContactMeta": ContactMeta, "EfcMeta": EfcMeta}
+            "ContactMeta": ContactMeta, "EfcMeta": EfcMeta,
+            "FlexMeta": FlexMeta}
   kw = {}
   for f in dataclasses.fields(cls):
     name = prefix + f.name
@@ -839,7 +1216,9 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       solimp=tile([0.9, 0.95, 0.001, 0.5, 2.0], ncon), mu=z(ncon),
       geomids=torch.as_tensor(np.stack([m.con.geom1, m.con.geom2], -1),
                               dtype=torch.int32, device=dev).reshape(
-                                  1, ncon, 2))
+                                  1, ncon, 2),
+      flexvert=torch.full((1, ncon, 4), -1, dtype=torch.int32, device=dev),
+      flexvert1=torch.full((1, ncon, 4), -1, dtype=torch.int32, device=dev))
   return Data(
       time=z(), qpos=m.qpos0.to(device=dev, dtype=dtype)[None].clone(),
       qvel=z(nv), act=z(m.na),
@@ -859,7 +1238,9 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       light_xdir=z(m.nlight, 3), subtree_com=z(nb, 3),
       cinert=z(nb, 6, 6), cdof=z(nv, 6), crb=z(nb, 6, 6), qM=z(nv, nv),
       qLD=z(nv, nv), qLDiagInv=z(nv), ten_length=z(m.ntendon),
-      ten_J=z(m.ntendon, nv),
+      ten_J=z(m.ntendon, nv), flexvert_xpos=z(m.flx.nvert, 3),
+      flexedge_length=z(m.flx.nedge), flexedge_velocity=z(m.flx.nedge),
+      flexedge_J=z(m.flx.nedge, nv),
       actuator_length=z(m.nout), actuator_moment=z(m.nout, nv),
       contact=contact, cvel=z(nb, 6), cdof_dot=z(nv, 6), qfrc_bias=z(nv),
       actuator_velocity=z(m.nout), ten_velocity=z(m.ntendon),

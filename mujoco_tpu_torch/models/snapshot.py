@@ -16,7 +16,13 @@ tests; the tendon and transmission scenes of tests/test_tendon.py, plus
 humanoid with two limited fixed tendons; the scenes of the solver and
 integrator options (``zoo.OPTIONS``) of tests/test_pgs.py,
 tests/test_implicit.py and tests/models.py; and ``humanoid_elliptic``,
-the flagship humanoid at the elliptic cone and implicitfast. Every scene is compiled with
+the flagship humanoid at the elliptic cone and implicitfast; the flex
+scenes (``zoo.FLEX``) of tests/test_flex.py, test_strain.py,
+test_flex_self.py and test_sleep.py, and ``humanoid_hammock``, the
+flagship lying in a pinned cloth. A snapshot records the flex slot
+budgets it was compiled at (``con.flex_budget``, the self and internal
+groups' sizes): ``flex_budgets`` sets each scene's (the defaults but for
+the small flex scenes) whatever the environment holds. Every scene is compiled with
 constraint islands disabled, as tests/test_megastep.py compiles its
 scenes. A test holds every committed file equal to a fresh compile, so
 rerun this after any change to the XMLs or to the fields the port's Model
@@ -1623,6 +1629,293 @@ def quadruped_sim2real_mj():
   return spec.compile()
 
 
+# flexes: the scenes of tests/test_flex.py, test_strain.py,
+# test_flex_self.py and test_sleep.py, and the humanoid lying in a cloth
+def cloth_xml(body: str = "", pins: str = "0 4 20 24",
+              edge: str = '<edge equality="true" solref="0.004 1"/>') -> str:
+  """tests/test_flex.py:25 ``_cloth_xml``: a 5×5 cloth over a floor, its
+  corners pinned, edge equalities (FLEX rows)."""
+  pin = f'<pin id="{pins}"/>' if pins else ""
+  return f"""
+<mujoco>
+  <option timestep="0.002" solver="Newton"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 .1" pos="0 0 -0.5"/>
+    <flexcomp name="cloth" type="grid" count="5 5 1" spacing="0.1 0.1 0.1"
+              radius="0.02" dim="2" mass="0.4" pos="0 0 0.35">
+      {pin}
+      {edge}
+      <contact selfcollide="none" internal="false"/>
+    </flexcomp>
+    {body}
+  </worldbody>
+</mujoco>"""
+
+
+# tests/test_flex.py:71-79: a sphere, a capsule and a box dropped on the
+# pinned cloth (the test drops each alone)
+CLOTH_BODIES = (
+    '<body pos="0.05 0.03 0.7"><freejoint/>'
+    '<geom type="sphere" size="0.06" mass="0.2"/></body>'
+    '<body pos="-0.12 -0.1 0.85"><freejoint/>'
+    '<geom type="capsule" size="0.035" fromto="-0.08 0 0 0.08 0 0"'
+    ' mass="0.15"/></body>'
+    '<body pos="0.1 -0.12 1.0"><freejoint/>'
+    '<geom type="box" size="0.05 0.04 0.03" mass="0.15"/></body>')
+
+CABLE_SPRINGS_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton"/>
+  <worldbody>
+    <flexcomp name="cable" type="grid" count="8 1 1" spacing="0.08 0.08 0.08"
+              radius="0.01" dim="1" mass="0.2" pos="0 0 0.6">
+      <pin id="0"/>
+      <edge equality="false" stiffness="60" damping="0.5"/>
+      <contact contype="0" conaffinity="0" selfcollide="none"
+               internal="false"/>
+    </flexcomp>
+  </worldbody>
+</mujoco>"""
+
+ROPE_FLOOR_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <flexcomp name="rope" type="grid" count="4 1 1" spacing="0.1 0.1 0.1"
+              pos="0 0 0.15" dim="1" mass="0.4" radius="0.02">
+      <edge equality="true"/>
+      <contact selfcollide="none"/>
+    </flexcomp>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_flex.py:235 with a box added: sphere, capsule and box on a
+# pinned rope (the three segment colliders)
+ROPE_BODIES_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <flexcomp name="rope" type="grid" count="6 1 1" spacing="0.1 0.1 0.1"
+              pos="0 0 0.15" dim="1" mass="0.6" radius="0.02">
+      <edge equality="true"/>
+      <pin id="0 5"/>
+      <contact selfcollide="none"/>
+    </flexcomp>
+    <body pos="-0.1 0 0.35"><freejoint/><geom type="sphere" size="0.05"/></body>
+    <body pos="0.15 0 0.45"><freejoint/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.1 0 0"/></body>
+    <body pos="0.05 0 0.6"><freejoint/>
+      <geom type="box" size="0.04 0.03 0.02"/></body>
+  </worldbody>
+</mujoco>"""
+
+CLOTH_ELASTIC_XML = """
+<mujoco>
+  <worldbody>
+    <flexcomp type="grid" count="5 5 1" spacing=".1 .1 .1" name="cloth"
+              dim="2" mass="1" pos="0 0 1">
+      <elasticity young="1e4" poisson="0.3" thickness="1e-2"
+                  elastic2d="both" damping="0.02"/>
+      <edge equality="false"/>
+      <contact selfcollide="none" contype="0" conaffinity="0"/>
+    </flexcomp>
+  </worldbody>
+</mujoco>"""
+
+GEL_PLANE_DROP_XML = """
+<mujoco>
+  <option timestep="0.001" solver="Newton"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 .1"/>
+    <flexcomp type="grid" count="3 3 3" spacing=".08 .08 .08" name="gel"
+              dim="3" mass="2" pos="0 0 0.25" radius="0.005">
+      <elasticity young="2e3" poisson="0.2" damping="0.002"/>
+      <edge equality="false" damping="1"/>
+      <contact selfcollide="none" internal="false"/>
+    </flexcomp>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_flex.py:530, with the FEM elasticity of :626 (trilinear,
+# young 2e4) so the corotational forces act
+GEL_TRILINEAR_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="4 4 .1"/>
+    <flexcomp name="gel" type="grid" dim="3" count="3 3 3"
+              spacing="0.1 0.1 0.1" pos="0 0 0.25" mass="1" dof="trilinear">
+      <elasticity young="2e4" poisson="0.2" damping="0.01"/>
+      <contact selfcollide="none" internal="false"/>
+    </flexcomp>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_strain.py XML (trilinear), through strain.with_strain_constraints
+GEL_STRAIN_XML = """
+<mujoco>
+<option integrator="implicitfast" jacobian="dense"/>
+<worldbody>
+  <body name="parent">
+    <joint type="free"/>
+    <geom type="box" size=".01 .01 .01" mass=".1"/>
+    <flexcomp name="test" type="box"
+              spacing=".1 .1 .1" radius="0.001"
+              dof="trilinear" pos="0 0 .5" mass="1" dim="3">
+      <contact selfcollide="none"/>
+      <elasticity young="10" poisson="0.3"/>
+    </flexcomp>
+  </body>
+</worldbody>
+</mujoco>
+"""
+
+ROPE_SELF_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1" pos="0 0 0"/>
+    <flexcomp name="rope" type="grid" count="13 1 1" spacing="0.05 0.05 0.05"
+              radius="0.02" dim="1" mass="0.2" pos="0 0 0.3">
+      <edge equality="true" solref="0.004 1"/>
+      <contact selfcollide="auto" internal="false"/>
+    </flexcomp>
+    <body pos="0.0 0.0 0.5"><freejoint/>
+      <geom type="capsule" size="0.02" fromto="-0.3 0.001 0 0.3 0.001 0"
+            mass="0.1"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+STRIP_SELF_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1" pos="0 0 -0.5"/>
+    <geom type="capsule" size="0.03" fromto="-0.02 -0.2 0.3 -0.02 0.2 0.3"/>
+    <flexcomp name="strip" type="grid" count="9 3 1" spacing="0.07 0.07 0.07"
+              radius="0.012" dim="2" mass="0.3" pos="0 0 0.37">
+      <edge equality="true" solref="0.004 1"/>
+      <contact selfcollide="auto" internal="false"/>
+    </flexcomp>
+  </worldbody>
+</mujoco>"""
+
+GEL_INTERNAL_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1" pos="0 0 0"/>
+    <flexcomp name="gel" type="grid" count="3 3 3" spacing="0.08 0.08 0.08"
+              radius="0.005" dim="3" mass="0.5" pos="0 0 0.12">
+      <edge equality="true" solref="0.01 1"/>
+      <contact selfcollide="none" internal="true"/>
+    </flexcomp>
+    <body pos="0 0 0.35"><freejoint/>
+      <geom type="box" size="0.15 0.15 0.04" mass="2.0"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+CLOTH_SLEEP_XML = """
+<mujoco>
+  <option timestep="0.002" sleep_tolerance="1e-3">
+    <flag sleep="enable"/>
+  </option>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <flexcomp name="cloth" type="grid" dim="2" count="3 3 1"
+              spacing="0.12 0.12 0.12" pos="0 0 0.05" mass="0.45">
+      <edge equality="true" damping="0.3"/>
+      <contact selfcollide="none"/>
+    </flexcomp>
+  </worldbody>
+</mujoco>"""
+
+HAMMOCK_CLOTH = """
+    <flexcomp name="hammock" type="grid" count="9 9 1"
+              spacing="0.22 0.22 0.22" radius="0.02" dim="2" mass="2"
+              pos="0 0 0.6">
+      <pin id="0 8 72 80"/>
+      <elasticity young="3e4" poisson="0.3" thickness="5e-3"
+                  elastic2d="stretch" damping="0.01"/>
+      <edge equality="false"/>
+      <contact selfcollide="none" internal="false"/>
+    </flexcomp>
+"""
+
+
+def humanoid_hammock_xml() -> str:
+  """The flagship humanoid lying in a 9×9 cloth pinned at its corners:
+  ``humanoid.xml`` with its joint default's limited="true" as "auto" (the
+  cloth's vertex slide joints then compile; every humanoid hinge has a
+  range, so its 21 stay limited), the root at 1.0 m turned onto its back,
+  and the cloth (stretch elasticity, no bending: the pip compiler refuses
+  bending with pins). The flagship's options stay: timestep 0.005, Newton
+  at 1 iteration and 4 linesearch steps, eulerdamp off. nv 258."""
+  with open(os.path.join(zoo.XML_DIR, "humanoid.xml")) as f:
+    xml = f.read()
+  xml = xml.replace('limited="true"/>', 'limited="auto"/>', 1)
+  xml = xml.replace('<body name="root" pos="0 0 1.35">',
+                    HAMMOCK_CLOTH + '    <body name="root" pos="0 0 1.0" '
+                    'quat="0.7071068 0 0.7071068 0">', 1)
+  return xml
+
+
+# scene → (XML builder, {budget variable: value} set while it compiles): the
+# small scenes at the flex budget their tests use (32; the strip 64 and 32
+# self slots, tests/test_flex_self.py:103), the hammock at the default 8
+_FLEX = {
+    "humanoid_hammock": (humanoid_hammock_xml, {}),
+    "cloth_pinned": (cloth_xml, {"MJTPU_FLEX_BUDGET": "32"}),
+    "cloth_bodies": (lambda: cloth_xml(body=CLOTH_BODIES),
+                     {"MJTPU_FLEX_BUDGET": "32"}),
+    "cloth_plane_drop": (lambda: cloth_xml(pins="").replace(
+        'pos="0 0 0.35"', 'pos="0 0 0.3" euler="12 7 0"'),
+        {"MJTPU_FLEX_BUDGET": "32"}),
+    "cable_springs": (lambda: CABLE_SPRINGS_XML, {}),
+    "rope_floor": (lambda: ROPE_FLOOR_XML, {"MJTPU_FLEX_BUDGET": "32"}),
+    "rope_bodies": (lambda: ROPE_BODIES_XML, {"MJTPU_FLEX_BUDGET": "32"}),
+    "cloth_elastic": (lambda: CLOTH_ELASTIC_XML, {}),
+    "gel_plane_drop": (lambda: GEL_PLANE_DROP_XML,
+                       {"MJTPU_FLEX_BUDGET": "32"}),
+    "gel_trilinear": (lambda: GEL_TRILINEAR_XML,
+                      {"MJTPU_FLEX_BUDGET": "32"}),
+    "gel_strain": (lambda: GEL_STRAIN_XML, {"MJTPU_FLEX_BUDGET": "32"}),
+    "rope_self": (lambda: ROPE_SELF_XML, {"MJTPU_FLEX_BUDGET": "32"}),
+    "strip_self": (lambda: STRIP_SELF_XML, {"MJTPU_FLEX_BUDGET": "64",
+                                            "MJTPU_SELF_BUDGET": "32"}),
+    "gel_internal": (lambda: GEL_INTERNAL_XML, {"MJTPU_FLEX_BUDGET": "32"}),
+    "cloth_sleep": (lambda: CLOTH_SLEEP_XML, {}),
+}
+_FLEX_VARS = ("MJTPU_FLEX_BUDGET", "MJTPU_SELF_BUDGET", "MJTPU_INT_BUDGET")
+
+
+class flex_budgets:
+  """Within the block, the flex budget variables are those of scene
+  ``name`` (unset, so at their defaults, where it sets none, as for every
+  scene without a flex) whatever the environment holds: a snapshot
+  records its budgets (``con.flex_budget``)."""
+
+  def __init__(self, name: str):
+    self.values = _FLEX[name][1] if name in _FLEX else {}
+
+  def __enter__(self):
+    self.saved = {k: os.environ.get(k) for k in _FLEX_VARS}
+    for k in _FLEX_VARS:
+      os.environ.pop(k, None)
+    os.environ.update(self.values)
+    return self
+
+  def __exit__(self, *exc):
+    for k, v in self.saved.items():
+      os.environ.pop(k, None)
+      if v is not None:
+        os.environ[k] = v
+
+
 # the many-body scenes keep constraint islands enabled
 _MANY_BODY = {"multi_humanoid10": lambda: multi_humanoid_mj(10),
               "multi_humanoid10_sleep": lambda: multi_humanoid_mj(
@@ -1665,8 +1958,16 @@ _FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
 
 
 def compile_mj(name: str):
-  """The compiled ``mujoco.MjModel`` of a snapshot model."""
+  """The compiled ``mujoco.MjModel`` of a snapshot model (``gel_strain``:
+  its FLEXSTRAIN view, ``models/strain.py``)."""
   import mujoco
+  if name in _FLEX:
+    mjm = mujoco.MjModel.from_xml_string(_FLEX[name][0]())
+    mjm.opt.disableflags |= int(DisableBit.ISLAND)
+    if name == "gel_strain":
+      from mujoco_tpu_torch.models import strain
+      mjm = strain.with_strain_constraints(mjm)
+    return mjm
   if name in _MANY_BODY:
     return _MANY_BODY[name]()
   if name in ("humanoid_sensors", "quadruped_sim2real"):
@@ -1684,7 +1985,8 @@ def compile_mj(name: str):
 
 
 def compile_numpy(name: str) -> dict:
-  return io.model_numpy(compile_mj(name))
+  with flex_budgets(name):
+    return io.model_numpy(compile_mj(name))
 
 
 def main() -> None:

@@ -9,7 +9,8 @@ pairs, cameras and lights), tendons, site and slider-crank transmissions,
 mocap bodies, the many-body fields (kinematic trees, dynamic pair
 groups, sleep), the meshes and height fields of the narrowphase
 (:720-736, :751-755), the sensors and activation state (:687-718,
-:851-869; Data :1034-1042), and the history buffers, the actuators'
+:851-869; Data :1034-1042), the flexes (:380-447, :871-898; Contact
+:930-936; Data :989-992), and the history buffers, the actuators'
 control and output blocks, DC-motor and PID slots, fluid and actuator
 gravity-compensation fields (:264-267, :514-516, :613-614, :667-708,
 :861-868; Data ``qfrc_fluid`` :1006 and ``history`` :1064), and the
@@ -327,6 +328,85 @@ class ContactMeta:
   # Tuple of dicts: {g1, g2: (ncand,), adr, npair, k, t1, t2, did1, did2}
   dyngroups: tuple = static_field()
   dynslot: np.ndarray = static_field()            # (ncon,) bool
+  # flex slots (mujoco_tpu/models/types.py:337-369), after the geom pairs'
+  # and before the dynamic groups': flex2 is a slot's flex (−1 on a geom
+  # pair's slot, whose geom2 is then valid), flex1 the first side's flex
+  # on a self or internal slot. Each (geom, flex) pair owns flex_budget
+  # slots, filled per env by the deepest candidates (flexpair_*: its
+  # geom, flex and first slot). Self groups: {flex, adr, npair, e1, e2,
+  # dim}, a flex's candidate element pairs; internal groups {flex, adr,
+  # nslots}, a solid's face-vertex slots; element-vertex groups {flex,
+  # adr, nslots, ev}, its predefined (element, vertex) pairs
+  flex2: np.ndarray = static_field()              # (ncon,)
+  flex1: np.ndarray = static_field()              # (ncon,)
+  flexpair_geom: np.ndarray = static_field()      # (nflexpair,)
+  flexpair_flex: np.ndarray = static_field()
+  flexpair_adr: np.ndarray = static_field()
+  flex_budget: int = static_field()
+  selfgroups: tuple = static_field()
+  intgroups: tuple = static_field()
+  evgroups: tuple = static_field()
+
+
+@dataclass
+class FlexMeta:
+  """Static flex topology (mujoco_tpu/models/types.py:380-447). Vertex,
+  edge and element ids are GLOBAL (offset by each flex's address), so the
+  stages index the flat arrays directly."""
+  nflex: int = static_field()
+  nvert: int = static_field()
+  nedge: int = static_field()
+  nelem: int = static_field()
+  dim: np.ndarray = static_field()          # (nflex,)
+  vertadr: np.ndarray = static_field()
+  vertnum: np.ndarray = static_field()
+  edgeadr: np.ndarray = static_field()
+  edgenum: np.ndarray = static_field()
+  elemadr: np.ndarray = static_field()
+  elemnum: np.ndarray = static_field()
+  vertbodyid: np.ndarray = static_field()   # (nvert,)
+  centered: np.ndarray = static_field()     # (nflex,) bool
+  vert_iszero: np.ndarray = static_field()  # (nvert,) bool: zero offset
+  edge: np.ndarray = static_field()         # (nedge, 2) vertex ids
+  edge_flexid: np.ndarray = static_field()
+  edge_rigid: np.ndarray = static_field()   # (nedge,) bool
+  elem: np.ndarray = static_field()         # (nelem, 4) vertex ids, −1 pad
+  elem_flexid: np.ndarray = static_field()
+  rigid: np.ndarray = static_field()        # (nflex,) bool
+  edgeequality: np.ndarray = static_field()
+  condim: np.ndarray = static_field()
+  priority: np.ndarray = static_field()
+  contype: np.ndarray = static_field()
+  conaffinity: np.ndarray = static_field()
+  # element elasticity: each element's edges (0 pad) and each edge's two
+  # flap vertices (−1: a boundary edge)
+  elemedge: np.ndarray = static_field()     # (nelem, 6)
+  edgeflap: np.ndarray = static_field()     # (nedge, 2)
+  has_stretch: np.ndarray = static_field()  # (nflex,) bool
+  has_bending: np.ndarray = static_field()  # (nflex,) bool
+  vert_simple: np.ndarray = static_field()  # (nvert,) bool: body_simple 2
+  vert_free: np.ndarray = static_field()    # (nvert,) bool: 3 dofs
+  vert_dofadr: np.ndarray = static_field()  # (nvert,) −1 without dofs
+  # a solid's elements collide only in its surface layers
+  elem_collidable: np.ndarray = static_field()
+  elem_layer: np.ndarray = static_field()
+  # interpolated flexes: vertices blended from node bodies with weights
+  # fixed by the rest grid (8 nodes, 27 for the quadratic order)
+  interp: np.ndarray = static_field()       # (nflex,) 0, 1 or 2
+  nnode: int = static_field()
+  nodeadr: np.ndarray = static_field()
+  nodenum: np.ndarray = static_field()
+  nodebodyid: np.ndarray = static_field()   # (nnode,)
+  node_iszero: np.ndarray = static_field()
+  cellnum: np.ndarray = static_field()      # (nflex, 3)
+  vert0: np.ndarray = static_field()        # (nvert, 3) rest grid coords
+  vert_node: np.ndarray = static_field()    # (nvert, 8 or 27) node ids
+  vert_nodew: np.ndarray = static_field()   # (nvert, 8 or 27) weights
+  interp_stiffadr: np.ndarray = static_field()  # (nflex,) −1 when none
+  interp_cell_active: Tuple[np.ndarray, ...] = static_field()
+  # FLEXSTRAIN equalities, one per interpolated cell: {eq, flex, order,
+  # npe, gind, neig, eigvecs (neig, 3·npe), diaga}
+  strain: tuple = static_field()
 
 
 @dataclass
@@ -389,6 +469,7 @@ class Model:
   # gravity compensation goes through qfrc_actuator
   has_fluid: bool = static_field()
   has_actgravcomp: bool = static_field()
+  has_flex: bool = static_field()
   # control inputs and force outputs of all actuators: nu counts
   # actuators, and an SO3 actuator owns 3-4 controls and 3 outputs
   nctrl: int = static_field()
@@ -401,6 +482,7 @@ class Model:
   tree: TreeTopology = static_field()
   con: ContactMeta = static_field()
   efc: EfcMeta = static_field()
+  flx: FlexMeta = static_field()
 
   qpos0: torch.Tensor = field()
   qpos_spring: torch.Tensor = field()
@@ -648,6 +730,29 @@ class Model:
   key_mpos: torch.Tensor = field()
   key_mquat: torch.Tensor = field()
 
+  # flexes (mujoco_tpu/models/types.py:871-898): topology in flx
+  flex_vert: torch.Tensor = field()             # (nvert, 3) local offsets
+  flex_node: torch.Tensor = field()             # (nnode, 3)
+  flex_node0: torch.Tensor = field()            # (nnode, 3) rest nodes
+  # an interpolated flex's per-cell FEM stiffness as compiled (−K)
+  flex_stiffness_interp: torch.Tensor = field()
+  flex_radius: torch.Tensor = field()           # (nflex,)
+  flexedge_length0: torch.Tensor = field()      # (nedge,)
+  flexedge_invweight0: torch.Tensor = field()
+  flex_edgestiffness: torch.Tensor = field()    # (nflex,)
+  flex_edgedamping: torch.Tensor = field()
+  flex_damping: torch.Tensor = field()
+  flex_friction: torch.Tensor = field()         # (nflex, 3)
+  flex_solref: torch.Tensor = field()           # (nflex, 2)
+  flex_solimp: torch.Tensor = field()           # (nflex, 5)
+  flex_margin: torch.Tensor = field()
+  flex_gap: torch.Tensor = field()
+  flex_solmix: torch.Tensor = field()
+  # per element, the stretch metric's 21 upper-triangle coefficients; per
+  # edge, the bending operator (4×4 and the curved-reference coefficient)
+  flex_stiffness: torch.Tensor = field()        # (nelem, 21)
+  flex_bending: torch.Tensor = field()          # (nedge, 17)
+
   names: dict = static_field()
 
   def disabled(self, bit: DisableBit) -> bool:
@@ -700,6 +805,11 @@ class Contact:
   # each slot's geom pair (mjContact.geom): Model.con's static ids, but
   # per env and step on a dynamic pair group's slots
   geomids: torch.Tensor         # (B, ncon, 2) int32
+  # a flex slot's contacting element (or vertex), global vertex ids, −1
+  # padded, chosen per env and step; flexvert1 the first side's on a self
+  # or internal slot (−1 elsewhere)
+  flexvert: torch.Tensor        # (B, ncon, 4) int32
+  flexvert1: torch.Tensor       # (B, ncon, 4) int32
 
 
 @dataclass
@@ -743,6 +853,10 @@ class Data:
   qLDiagInv: torch.Tensor       # (B, nv) its inverse diagonal
   ten_length: torch.Tensor      # (B, ntendon)
   ten_J: torch.Tensor           # (B, ntendon, nv)
+  flexvert_xpos: torch.Tensor   # (B, nflexvert, 3)
+  flexedge_length: torch.Tensor  # (B, nflexedge)
+  flexedge_velocity: torch.Tensor  # (B, nflexedge)
+  flexedge_J: torch.Tensor      # (B, nflexedge, nv)
   actuator_length: torch.Tensor  # (B, nout)
   actuator_moment: torch.Tensor  # (B, nout, nv)
   contact: Contact = field()

@@ -34,7 +34,9 @@ motors, actuator gravity compensation, fluid forces, adhesion and the
 contact, tactile, geom-distance and rangefinder sensors,
 ``quadruped_sim2real`` first; ``ACTUATION_CARRIED`` are the SO3 and PID
 scenes, carried across from the reference's Models as
-``multi_humanoid3`` is.
+``multi_humanoid3`` is. ``FLEX`` are the flex scenes,
+``humanoid_hammock`` (the flagship humanoid lying in a pinned cloth)
+first.
 """
 
 from __future__ import annotations
@@ -118,11 +120,23 @@ SENSORS = ("humanoid_sensors", "sensor_suite", "contact_sensors",
 ACTUATION = ("quadruped_sim2real", "history", "dcmotor", "dcmotor_delay",
              "actgravcomp", "fluid", "adhesion", "contact_sensor_suite",
              "tactile", "geom_distance", "rangefinder")
+# flexes: the humanoid lying in a pinned 9×9 cloth (nv 258; the slice's
+# full-width model), then the reference's flex scenes (models/snapshot.py
+# cites each): the pinned cloth (edge equalities), the cloth with a
+# sphere, a capsule and a box dropped on it, the cloth on the floor, a
+# cable of edge springs, ropes on the floor and under bodies, cloth
+# stretch and bending, a solid gel, an interpolated gel with its FEM, a
+# FLEXSTRAIN gel, the self-colliding rope and strip, the internal gel and
+# the sleeping cloth
+FLEX = ("humanoid_hammock", "cloth_pinned", "cloth_bodies",
+        "cloth_plane_drop", "cable_springs", "rope_floor", "rope_bodies",
+        "cloth_elastic", "gel_plane_drop", "gel_trilinear", "gel_strain",
+        "rope_self", "strip_self", "gel_internal", "cloth_sleep")
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
              + ("humanoid_elliptic",) + MANY_BODY + CONVEX + SENSORS
-             + ACTUATION)
+             + ACTUATION + FLEX)
 # the SO3 scenes of tests/test_so3.py and tests/test_actuator.py's PID,
 # which the pip compiler predates
 ACTUATION_CARRIED = ("so3_refsite", "so3_ball", "so3_integrator", "pid")

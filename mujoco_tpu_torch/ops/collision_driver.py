@@ -15,7 +15,10 @@ filled per env: each env scores the group's candidates by bounding-sphere
 distance, keeps the npair closest (a stable sort, so ties keep the lower
 candidate, as ``lax.top_k`` does) and runs the group's collider on them;
 their geom ids go to ``Contact.geomids`` and the candidates that overlap
-beyond the budget to ``Data.warning``. Contact parameters combine as
+beyond the budget to ``Data.warning``. The flex slots (the flex branches
+:64-141, :211, :238-250) are ``collision_flex``'s, their contacting
+vertices ``Contact.flexvert``/``flexvert1``; a flex side's contact
+parameters are its flex's. Contact parameters combine as
 mj_contactParam does: priority override, solmix-weighted solref/solimp,
 elementwise-max friction, summed margins; an explicit <pair>'s slots take
 the pair's own.
@@ -28,7 +31,7 @@ import torch
 
 from mujoco_tpu_torch.models.types import (Contact, Data, DisableBit,
                                            GeomType, Model)
-from mujoco_tpu_torch.ops import collision_box, collision_convex
+from mujoco_tpu_torch.ops import collision_box, collision_convex, collision_flex
 from mujoco_tpu_torch.ops import collision_hfield, collision_mesh
 from mujoco_tpu_torch.ops import collision_primitive as cp
 from mujoco_tpu_torch.utils import math as mjm
@@ -104,13 +107,27 @@ def _env_rows(leaf, g1, g2):
   return leaf[env, g1], leaf[env, g2]
 
 
+def _geom_side(m: Model, g, friction) -> dict:
+  return {"solmix": m.geom_solmix[g], "solref": m.geom_solref[g],
+          "solimp": m.geom_solimp[g], "friction": friction,
+          "margin": m.geom_margin[g]}
+
+
 def _mix(m: Model, g1, g2, hi1, hi2):
   """mj_contactParam's combination of geoms g1 and g2 (index tensors (n,)
   or per env (B, n); hi1, hi2: g1's or g2's priority is the higher, shaped
   g1[..., None]) → (margin, friction5, solref, solreffriction, solimp),
   friction5 with a leading env axis (1 or B) where the ids are static, as
   ``geom_friction`` may be randomized per env."""
-  solmix1, solmix2 = m.geom_solmix[g1], m.geom_solmix[g2]
+  fri1, fri2 = _env_rows(m.per_env("geom_friction"), g1, g2)
+  return _mix_sides(_geom_side(m, g1, fri1), _geom_side(m, g2, fri2), hi1,
+                    hi2)
+
+
+def _mix_sides(s1: dict, s2: dict, hi1, hi2):
+  """``_mix`` of two sides' parameters (``_geom_side``; a flex side takes
+  its flex's)."""
+  solmix1, solmix2 = s1["solmix"], s2["solmix"]
   both = (solmix1 >= mjm.MINVAL) & (solmix2 >= mjm.MINVAL)
   neither = (solmix1 < mjm.MINVAL) & (solmix2 < mjm.MINVAL)
   mix = torch.where(
@@ -118,9 +135,9 @@ def _mix(m: Model, g1, g2, hi1, hi2):
       torch.where(neither, 0.5, torch.where(solmix1 < mjm.MINVAL, 0.0, 1.0)))
   mix = mix[..., None]
 
-  ref1, ref2 = m.geom_solref[g1], m.geom_solref[g2]
-  imp1, imp2 = m.geom_solimp[g1], m.geom_solimp[g2]
-  fri1, fri2 = _env_rows(m.per_env("geom_friction"), g1, g2)
+  ref1, ref2 = s1["solref"], s2["solref"]
+  imp1, imp2 = s1["solimp"], s2["solimp"]
+  fri1, fri2 = s1["friction"], s2["friction"]
   std = (ref1[..., :1] > 0) & (ref2[..., :1] > 0)
   solref_mixed = torch.where(std, mix * ref1 + (1 - mix) * ref2,
                              torch.minimum(ref1, ref2))
@@ -133,20 +150,61 @@ def _mix(m: Model, g1, g2, hi1, hi2):
   friction5 = torch.clamp(torch.stack(
       [fri[..., 0], fri[..., 0], fri[..., 1], fri[..., 2], fri[..., 2]],
       dim=-1), min=mjm.MINVAL)
-  margin = m.geom_margin[g1] + m.geom_margin[g2]
+  margin = s1["margin"] + s2["margin"]
   return margin, friction5, solref, torch.zeros_like(solref), solimp
+
+
+def _flex_sides(m: Model):
+  """Both sides' parameters of every slot, a flex slot's flex side from
+  its flex (mj_contactParam with a flex, mujoco_tpu/ops/collision_driver.
+  py:61-141), and each side's priority."""
+  dev, con, flx = m.device, m.con, m.flx
+  # a model of flexes alone: one zero geom row stands in (its slots are
+  # all flex-flex, both sides overridden)
+  pad = (lambda t: t) if m.ngeom else (
+      lambda t: t.new_zeros((1,) + t.shape[1:]))
+  g1 = np.minimum(con.geom1, max(m.ngeom - 1, 0))
+  g2 = np.minimum(np.maximum(con.geom2, 0), max(m.ngeom - 1, 0))
+  fri = m.per_env("geom_friction")
+  fri = fri if m.ngeom else fri.new_zeros((1, 1, 3))
+  sides, prios = [], []
+  for g, fx in ((g1, con.flex1), (g2, con.flex2)):
+    gi = index(g, dev)
+    side = {"solmix": pad(m.geom_solmix)[gi],
+            "solref": pad(m.geom_solref)[gi],
+            "solimp": pad(m.geom_solimp)[gi], "friction": fri[:, gi],
+            "margin": pad(m.geom_margin)[gi]}
+    is_f = const(fx >= 0, dev)
+    fi = index(np.maximum(fx, 0), dev)
+    for k, leaf in (("solmix", m.flex_solmix), ("solref", m.flex_solref),
+                    ("solimp", m.flex_solimp), ("friction", m.flex_friction),
+                    ("margin", m.flex_margin)):
+      mask = is_f if side[k].dim() == 1 else is_f[:, None]
+      side[k] = torch.where(mask, leaf[fi], side[k])
+    sides.append(side)
+    gp = np.asarray(m.geom_priority)[g] if m.ngeom else np.zeros(len(g))
+    prios.append(np.where(fx >= 0, np.asarray(flx.priority)[
+        np.maximum(fx, 0)] if flx.nflex else 0, gp))
+  return sides, prios
 
 
 def _combine_params(m: Model):
   """Per-slot (includemargin, friction5, solref, solreffriction, solimp),
   each (1, ncon, ...), friction5 (B, ncon, 5) where ``geom_friction`` is
-  randomized per env, from the slots' static geom ids."""
+  randomized per env, from the slots' static geom ids (and flexes)."""
   dev = m.device
-  p1 = m.geom_priority[m.con.geom1]
-  p2 = m.geom_priority[m.con.geom2]
-  margin, friction5, solref, solreffriction, solimp = _mix(
-      m, index(m.con.geom1, dev), index(m.con.geom2, dev),
-      const(p1 > p2, dev)[:, None], const(p2 > p1, dev)[:, None])
+  if np.any(m.con.flex2 >= 0):
+    (s1, s2), (p1, p2) = _flex_sides(m)
+    margin, friction5, solref, solreffriction, solimp = _mix_sides(
+        s1, s2, const(p1 > p2, dev)[:, None], const(p2 > p1, dev)[:, None])
+    # self and internal contacts ignore margins
+    margin = torch.where(const(m.con.flex1 >= 0, dev), 0.0, margin)
+  else:
+    p1 = m.geom_priority[m.con.geom1]
+    p2 = m.geom_priority[m.con.geom2]
+    margin, friction5, solref, solreffriction, solimp = _mix(
+        m, index(m.con.geom1, dev), index(m.con.geom2, dev),
+        const(p1 > p2, dev)[:, None], const(p2 > p1, dev)[:, None])
 
   # an explicit <pair> replaces the combined parameters wholesale
   # (mj_collideGeomPair): its own friction (all 5), solref, solreffriction,
@@ -177,7 +235,8 @@ def collision(m: Model, d: Data) -> Data:
   frame = torch.eye(3, dtype=dtype, device=dev).repeat(nbatch, ncon, 1, 1)
 
   groups = {}
-  for c in np.nonzero(m.con.con_first)[0]:
+  # the flex slots are collision_flex's
+  for c in np.nonzero(m.con.con_first & (m.con.flex2 < 0))[0]:
     groups.setdefault(_signature(m, c), []).append(c)
   for key, first in groups.items():
     fn, k = _collider_for(m, *key)
@@ -192,13 +251,25 @@ def collision(m: Model, d: Data) -> Data:
     pos[:, slots] = pp.reshape(nbatch, -1, 3)
     frame[:, slots] = make_frame(nn, tt).reshape(nbatch, -1, 3, 3)
 
+  flexvert = torch.full((nbatch, ncon, 4), -1, dtype=torch.int32,
+                        device=dev)
+  flexvert1 = flexvert.clone()
+  ncon_dropped = torch.zeros((nbatch,), dtype=torch.int32, device=dev)
+  flex_out = (dist, pos, frame, flexvert, flexvert1, ncon_dropped)
+  if len(m.con.flexpair_geom):
+    flex_out = collision_flex.flex_collision(m, d, flex_out)
+  if m.con.selfgroups or m.con.intgroups or m.con.evgroups:
+    flex_out = collision_flex.flex_flex_collision(m, d, flex_out)
+  dist, pos, frame, flexvert, flexvert1, ncon_dropped = flex_out
+
   # static slots' parameters broadcast over envs; a dynamic group's slots
   # (last in the table) take their env's selected pairs
   params = [p.expand((nbatch,) + p.shape[1:]) for p in _combine_params(m)]
   geomids = const(np.stack([m.con.geom1, m.con.geom2], -1).astype(np.int32),
                   dev).expand(nbatch, ncon, 2)
-  # [ncon_dropped, npair_dropped]: only a dynamic group drops pairs
-  warning = const(np.zeros((1, 2), dtype=np.int32), dev).expand(nbatch, 2)
+  # [ncon_dropped, npair_dropped]: the flex slots drop contacts, a dynamic
+  # group drops pairs
+  warning = torch.stack([ncon_dropped, torch.zeros_like(ncon_dropped)], -1)
   if m.con.dyngroups:
     dropped = torch.zeros((nbatch,), dtype=torch.int32, device=dev)
     adr0 = int(m.con.dyngroups[0]["adr"])
@@ -212,12 +283,13 @@ def collision(m: Model, d: Data) -> Data:
       dropped = dropped + ndrop
     params = [torch.cat(part, dim=1) for part in parts]
     geomids = torch.cat(id_parts, dim=1)
-    warning = torch.stack([torch.zeros_like(dropped), dropped], dim=-1)
+    warning = torch.stack([ncon_dropped, dropped], dim=-1)
   margin, friction5, solref, solreffriction, solimp = params
   contact = Contact(dist=dist, pos=pos, frame=frame, includemargin=margin,
                     friction=friction5, solref=solref,
                     solreffriction=solreffriction, solimp=solimp,
-                    mu=dist.new_zeros((nbatch, ncon)), geomids=geomids)
+                    mu=dist.new_zeros((nbatch, ncon)), geomids=geomids,
+                    flexvert=flexvert, flexvert1=flexvert1)
   return d.replace(contact=contact, warning=warning)
 
 

@@ -23,7 +23,7 @@ import torch
 
 from mujoco_tpu_torch.models.types import (ConeType, Data, DisableBit,
                                            EqType, JointType, Model)
-from mujoco_tpu_torch.ops import support
+from mujoco_tpu_torch.ops import flex, support
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -162,19 +162,26 @@ def _rows(J, pos, active, diaga, solref, solimp, imp_pos, margin=None):
 
 def _equality_rows(m: Model, d: Data):
   """CONNECT (3 rows), WELD (3 translational, 3 rotational), JOINT and
-  TENDON (1 row each, its polycoef coupling) equality rows."""
+  TENDON (1 row each, its polycoef coupling), FLEX (a row per non-rigid
+  edge, diagA its flexedge_invweight0) and FLEXSTRAIN (a row per
+  eigenmode, ``flex.strain_rows``; diagA the nodes' mean invweight0)
+  equality rows (mujoco_tpu/ops/constraint.py:278-302)."""
   nbatch, nv, dev = d.qpos.shape[0], m.nv, m.device
   enabled = not m.disabled(DisableBit.EQUALITY)
   Js, poss, actives, diagas, solrefs, solimps, imp_poss = ([] for _ in
                                                             range(7))
 
   def add(J, pos, active, diaga, i, imp_pos):
+    """One row (J (B, nv)) or a block of k rows (J (B, k, nv))."""
+    if J.dim() == 2:
+      J, pos, imp_pos = J[:, None], pos[:, None], imp_pos[:, None]
+    k = J.shape[1]
     Js.append(J)
     poss.append(pos)
-    actives.append(active)
-    diagas.append(diaga.expand(nbatch))
-    solrefs.append(m.eq_solref[i].expand(nbatch, 2))
-    solimps.append(m.eq_solimp[i].expand(nbatch, 5))
+    actives.append(active[:, None].expand(nbatch, k))
+    diagas.append(diaga.expand(nbatch, k))
+    solrefs.append(m.eq_solref[i].expand(nbatch, k, 2))
+    solimps.append(m.eq_solimp[i].expand(nbatch, k, 5))
     imp_poss.append(imp_pos)
 
   for i in range(m.neq):
@@ -245,12 +252,27 @@ def _equality_rows(m: Model, d: Data):
         jrow = j1.expand(nbatch, nv)
         diaga = invw1
       add(jrow, cpos, active, diaga, i, cpos)
+    elif et == EqType.FLEX:
+      # a row per non-rigid edge: length − length0, the edge Jacobian
+      edges = index(np.nonzero((m.flx.edge_flexid == int(m.eq_obj1id[i]))
+                               & ~m.flx.edge_rigid)[0], dev)
+      if len(edges):
+        cpos = d.flexedge_length[:, edges] - m.flexedge_length0[edges]
+        add(d.flexedge_J[:, edges], cpos, active,
+            m.flexedge_invweight0[edges], i, cpos)
+    elif et == EqType.FLEXSTRAIN:
+      # a row per retained eigenmode of the cell's stiffness
+      ent = next(s for s in m.flx.strain if s["eq"] == i)
+      if ent["neig"]:
+        cpos, J = flex.strain_rows(m, d, ent)
+        add(J, cpos, active, const(np.asarray(ent["diaga"]), dev, m.dtype),
+            i, cpos)
     else:
       raise NotImplementedError(f"equality type {EqType(et).name}")
 
-  st = lambda xs: torch.stack(xs, dim=1)
-  return _rows(st(Js), st(poss), st(actives), st(diagas),
-               st(solrefs), st(solimps), st(imp_poss))
+  cat = lambda xs: torch.cat(xs, dim=1)
+  return _rows(cat(Js), cat(poss), cat(actives), cat(diagas),
+               cat(solrefs), cat(solimps), cat(imp_poss))
 
 
 def _friction_rows(m: Model, d: Data):
@@ -338,6 +360,18 @@ def _limit_rows(m: Model, d: Data):
   return _rows(J, pos, active, diaga, solref, solimp, pos, margin=margin)
 
 
+def _flex_side(m: Model, d: Data, vids, conflex, pos):
+  """A flex contact side's dof mask (B, ncon, nv) and translational and
+  rotational invweights (B, ncon): its bodies' (``flex.contact_body_
+  weights``) weighted (mj_elemBodyWeight, engine_core_constraint.c:221)."""
+  dev = m.device
+  bodies, w = flex.contact_body_weights(m, d, vids, conflex, pos)
+  wb = w.new_zeros(w.shape[:2] + (m.nbody,)).scatter_add_(2, bodies, w)
+  iw = m.body_invweight0
+  return (wb @ const(m.tree.ancestor_mask, dev, m.dtype), wb @ iw[:, 0],
+          wb @ iw[:, 1])
+
+
 def _contact_rows(m: Model, d: Data):
   """Contact rows of each slot's frame-rotated point Jacobian
   (mj_instantiateContact). Pyramidal: one normal row for condim 1, else
@@ -352,18 +386,35 @@ def _contact_rows(m: Model, d: Data):
   need_rot = bool(np.any(m.con.condim > 3))
   iw = m.body_invweight0
   cid, crow = meta.con_id, meta.con_row
-  if np.any(m.con.dynslot):
-    # a dynamic pair group's slots contact other bodies in each env: the
-    # dof masks and invweights by gathers at Contact.geomids
-    # (mujoco_tpu/ops/constraint.py:478-525)
-    gb = index(m.geom_bodyid, dev)
-    b1 = gb[con.geomids[..., 0].long()]                   # (B, ncon)
-    b2 = gb[con.geomids[..., 1].long()]
+  is_flex = m.con.flex2 >= 0
+  if np.any(m.con.dynslot) or np.any(is_flex):
+    # a dynamic pair group's slots contact other bodies in each env, a
+    # flex slot its contacting element's bodies: the dof masks and
+    # invweights by gathers at Contact.geomids, and a flex side's
+    # weighted over its bodies (mujoco_tpu/ops/constraint.py:469-525)
+    gb = index(m.geom_bodyid if m.ngeom else np.zeros(1, np.int64), dev)
+    b1 = gb[con.geomids[..., 0].long().clamp(0, len(gb) - 1)]  # (B, ncon)
+    b2 = gb[con.geomids[..., 1].long().clamp(0, len(gb) - 1)]
     amask = const(m.tree.ancestor_mask, dev, m.dtype)
-    jacp, jacr = _point_jac_masked(m, d, con.pos, amask[b2] - amask[b1],
-                                   need_rot)
-    tran = (iw[b1, 0] + iw[b2, 0])[:, ix(cid)]            # (B, nrows)
-    rot = (iw[b1, 1] + iw[b2, 1])[:, ix(cid)] if need_rot else tran
+    mask1, mask2 = amask[b1], amask[b2]
+    tran1, tran2 = iw[b1, 0], iw[b2, 0]
+    rot1, rot2 = iw[b1, 1], iw[b2, 1]
+    for side, slots, vids in ((2, m.con.flex2, con.flexvert),
+                              (1, m.con.flex1, con.flexvert1)):
+      on = slots >= 0
+      if not on.any():
+        continue
+      wm, wt, wr = _flex_side(m, d, vids, slots, con.pos)
+      f = const(on, dev)
+      if side == 2:
+        mask2 = torch.where(f[:, None], wm, mask2)
+        tran2, rot2 = torch.where(f, wt, tran2), torch.where(f, wr, rot2)
+      else:
+        mask1 = torch.where(f[:, None], wm, mask1)
+        tran1, rot1 = torch.where(f, wt, tran1), torch.where(f, wr, rot1)
+    jacp, jacr = _point_jac_masked(m, d, con.pos, mask2 - mask1, need_rot)
+    tran = (tran1 + tran2)[:, ix(cid)]                     # (B, nrows)
+    rot = (rot1 + rot2)[:, ix(cid)] if need_rot else tran
   else:
     b1 = m.geom_bodyid[m.con.geom1]
     b2 = m.geom_bodyid[m.con.geom2]
@@ -509,12 +560,16 @@ def make_constraint(m: Model, d: Data) -> Data:
 
 def _jdotv_correction(m: Model, d: Data, aref):
   """Subtract Jdot·qvel from the connect and weld rows (mj_Jdotv); joint
-  and tendon rows have none."""
+  and tendon rows have none. A FLEX or FLEXSTRAIN equality is passed
+  over without advancing the row, as the reference does
+  (mujoco_tpu/ops/constraint.py:762-765; ROADMAP §C 13)."""
   row = 0
   for i in range(m.neq):
     et = int(m.eq_type[i])
     if et in (EqType.JOINT, EqType.TENDON):
       row += 1
+      continue
+    if et not in (EqType.CONNECT, EqType.WELD):
       continue
     b1, b2, pos1, pos2 = _eq_points(m, d, i)
     jdv1, jrdv1 = _jacdot_v(m, d, pos1, b1)

@@ -6,7 +6,8 @@ mujoco_tpu/ops/derivative.py: ``actuator_vel`` :27, ``passive_vel`` :121,
 qDeriv = ∂(qfrc_actuator + qfrc_passive − qfrc_bias)/∂qvel, dense
 (B, nv, nv). The actuator and passive terms are closed forms: AFFINE and
 MUSCLE gains times ctrl or the activation, AFFINE and SO3 biases, the DC
-motor's terms, dof and tendon damping. The RNE term is the derivative
+motor's terms, dof, tendon and flex edge damping; the interpolated
+flexes' FEM damper is linear in qvel, and taken column by column. The RNE term is the derivative
 of the port's own ``smooth.com_vel`` and ``smooth.rne`` with respect to
 qvel, by automatic differentiation as the reference takes it with
 ``jax.jacfwd``: here reverse mode over a batch grown k-fold, one
@@ -15,6 +16,8 @@ forward and one backward pass.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -121,7 +124,9 @@ def actuator_vel(m: Model, d: Data):
 
 def passive_vel(m: Model, d: Data):
   """∂qfrc_passive/∂qvel (mjd_passive_vel): −diag(dof damping) −
-  ten_Jᵀ·diag(tendon damping)·ten_J."""
+  ten_Jᵀ·diag(tendon damping)·ten_J − flexedge_Jᵀ·diag(edge damping)·
+  flexedge_J, and the interpolated flexes' FEM damper (mjd_flexInterp_
+  kernel; mujoco_tpu/ops/derivative.py:134-145)."""
   nbatch = d.qpos.shape[0]
   out = d.qpos.new_zeros((nbatch, m.nv, m.nv))
   if m.disabled(DisableBit.DAMPER):
@@ -130,7 +135,30 @@ def passive_vel(m: Model, d: Data):
   if m.ntendon:
     out = out - d.ten_J.transpose(1, 2) @ (m.tendon_damping[:, None]
                                            * d.ten_J)
+  flx = m.flx
+  if m.has_flex and flx.nedge:
+    c = m.flex_edgedamping[index(flx.edge_flexid, m.device)] * const(
+        ~(flx.rigid[flx.edge_flexid] | flx.edge_rigid), m.device, m.dtype)
+    out = out - d.flexedge_J.transpose(1, 2) @ (c[:, None] * d.flexedge_J)
+  if m.has_flex and (np.asarray(flx.interp_stiffadr) >= 0).any():
+    out = out + _interp_damper_vel(m, d)
   return out
+
+
+def _interp_damper_vel(m: Model, d: Data):
+  """∂/∂qvel of the interpolated flexes' FEM damper, (B, nv, nv). The
+  damper is linear in qvel at fixed positions, so column j is the damper
+  at qvel = e_j: one evaluation over nv copies of each env (the reference
+  takes ``jax.jacfwd`` of the same function)."""
+  from mujoco_tpu_torch.ops import flex
+  nbatch, nv = d.qpos.shape[0], m.nv
+  rep = {f.name: getattr(d, f.name).repeat_interleave(nv, dim=0)
+         for f in dataclasses.fields(d) if f.name != "contact"}
+  rep["qvel"] = torch.eye(nv, dtype=d.qvel.dtype,
+                          device=d.qvel.device).repeat(nbatch, 1)
+  dd = smooth.com_vel(m, d.replace(**rep))
+  _, fd = flex.interp_passive(m, dd, False, True)
+  return fd.reshape(nbatch, nv, nv).transpose(1, 2)
 
 
 def bias_vel_rows(m: Model, d: Data, rows):

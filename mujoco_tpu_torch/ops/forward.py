@@ -15,8 +15,9 @@ act in each stage), ``implicit`` (:472, IMPLICIT and IMPLICITFAST, with
 (:53-65, :143-147, :327-332) into ``ops/sleep.py``: the wake pass after
 collision, the rows of sleeping trees masked after ``make_constraint``,
 sleeping dofs' qacc zeroed after the solve and the countdown at the top of
-the advance. As the reference's, RK4 advances no history buffer. Flex is
-outside the slice; ``io.put_model`` rejects models that need it.
+the advance, and the flex stage (``ops/flex.py``, :35-38) after camlight
+with the edge velocities in the velocity stage (:76). As the
+reference's, RK4 advances no history buffer.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ from mujoco_tpu_torch.models.types import (Data, DisableBit, EnableBit,
                                            Integrator, JointType, Model,
                                            SolverType)
 from mujoco_tpu_torch.ops import (actuation, collision_driver, constraint,
-                                  derivative, history, linalg_cuda, passive,
-                                  sensor, sleep, smooth, solver, support)
+                                  derivative, flex, history, linalg_cuda,
+                                  passive, sensor, sleep, smooth, solver,
+                                  support)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -39,6 +41,8 @@ def fwd_position(m: Model, d: Data) -> Data:
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
   d = smooth.camlight(m, d)
+  if m.has_flex:
+    d = flex.flex(m, d)
   d = smooth.tendon(m, d)
   d = smooth.crb(m, d)
   # only CG reads the tree factor (its preconditioner and qacc_smooth); the
@@ -61,6 +65,8 @@ def fwd_velocity(m: Model, d: Data) -> Data:
   d = d.replace(actuator_velocity=mjm.mat_vec(d.actuator_moment, d.qvel))
   if m.ntendon:
     d = d.replace(ten_velocity=mjm.mat_vec(d.ten_J, d.qvel))
+  if m.has_flex:
+    d = d.replace(flexedge_velocity=mjm.mat_vec(d.flexedge_J, d.qvel))
   d = smooth.com_vel(m, d)
   d = passive.passive(m, d)
   qfrc_bias = smooth.rne(m, d)

@@ -89,7 +89,9 @@ def _static_components(m: Model) -> np.ndarray:
       parent[max(ra, rb)] = min(ra, rb)
 
   for c in range(m.con.ncon):
-    if not m.con.dynslot[c]:
+    # flex slots stay out (use_islands refuses a model with a flex)
+    if not (m.con.dynslot[c] or m.con.flex2[c] >= 0
+            or m.con.flex1[c] >= 0):
       union(_tree_of_geom(m, int(m.con.geom1[c])),
             _tree_of_geom(m, int(m.con.geom2[c])))
   for grp in m.con.dyngroups:
@@ -194,8 +196,8 @@ def use_islands(m: Model) -> bool:
   """The dispatch test (islands_supported): at least MJTPU_ISLAND_MIN_NV
   dofs (default 256, the reference package's size gate), islands and
   constraints enabled, Newton or CG on the pyramidal cone, more than one
-  tree, rows, no equality beyond CONNECT, WELD and JOINT, and a budget
-  below nv."""
+  tree, rows, no flex, no equality beyond CONNECT, WELD and JOINT, and a
+  budget below nv (mujoco_tpu/ops/island.py:237)."""
   if m.nv < int(os.environ.get("MJTPU_ISLAND_MIN_NV", "256")):
     return False
   if m.disabled(DisableBit.ISLAND) or m.disabled(DisableBit.CONSTRAINT):
@@ -205,6 +207,9 @@ def use_islands(m: Model) -> bool:
   if int(m.opt.cone) != ConeType.PYRAMIDAL:
     return False
   if m.ntree <= 1 or m.efc.nefc == 0:
+    return False
+  # a model with a flex keeps the monolithic solve, as mj_flexCG does
+  if m.flx.nvert:
     return False
   if any(int(t) not in (EqType.CONNECT, EqType.WELD, EqType.JOINT)
          for t in m.eq_type):

@@ -121,9 +121,10 @@ def enabled() -> bool:
 def supported(m: Model) -> bool:
   """Whether the kernel runs m: the reference's model class
   (mujoco_tpu/ops/megastep_tpu.py:92-178), within the kernel's own size
-  class (nv ≤ MAX_NV, its work space within MAX_SMEM). Fields the port's
-  Model lacks (flex, SDF groups) belong to models ``io.put_model``
-  refuses. Unlike the reference, a missing field
+  class (nv ≤ MAX_NV, its work space within MAX_SMEM); a flex or a flex
+  slot keeps a model off it. Fields the port's Model lacks (SDF groups)
+  belong to models ``io.put_model`` refuses. Unlike the reference, a
+  missing field
   raises instead of answering False. The answer is computed once per Model
   and kept in the tables' cache entry, so a later call reads nothing back
   from the card."""
@@ -163,9 +164,13 @@ def _supported(m: Model) -> bool:
   # fluid forces (megastep_tpu.py:109): the kernel computes none
   if float(opt.viscosity) != 0.0 or float(opt.density) != 0.0:
     return False
-  # sensors, history buffers and activation state (megastep_tpu.py:
-  # 111-113): the kernel computes no sensordata, no history and no act
-  if m.nsensor or m.nhistory or m.na:
+  # sensors, history buffers, activation state and flexes
+  # (megastep_tpu.py:111-113): the kernel computes no sensordata, no
+  # history, no act and no flex
+  if m.nsensor or m.nhistory or m.na or m.has_flex:
+    return False
+  # flex contact slots (:146-147)
+  if np.any(m.con.flex2 >= 0) or np.any(m.con.flex1 >= 0):
     return False
   # the reference leaves models its stage path would island-decompose on
   # that path (megastep_tpu.py:118-120), and models with dynamic pair
@@ -207,8 +212,8 @@ def _supported(m: Model) -> bool:
   if np.any(np.asarray(m.jnt_actfrclimited)):
     return False
   # tendons and mocap bodies (megastep_tpu.py:111-112), and limit rows of
-  # anything but a hinge or slide joint (:137-140); flex and SDF groups
-  # are refused by io.put_model before a Model exists
+  # anything but a hinge or slide joint (:137-140); SDF groups are refused
+  # by io.put_model before a Model exists
   if m.ntendon or m.nmocap:
     return False
   if np.any(np.asarray(m.efc.limit_jnt) < 0):

@@ -5,13 +5,13 @@ Port of mujoco_tpu/ops/passive.py:19-143 (``_joint_springs`` and
 ``passive``, with the tendon spring's deadband and the tendon damper
 :105-119, and the gravity compensation of joints that route it through
 their actuators :129-135), ``_fluid`` :146 (the inertia-box model, with
-wind), ``_semi_axes`` :210 and ``_ellipsoid_fluid_body`` :224. Springs are
+wind), ``_semi_axes`` :210 and ``_ellipsoid_fluid_body`` :224, with the
+flex edge, element and interpolated forces of ``ops/flex.py`` (:80-104).
+Springs are
 manifold-aware (quaternion log for ball/free rotations). The ellipsoid
 fluid model is one expression over every geom that carries fluid
-coefficients, the inertia-box model one over the other bodies. Flex
-passive forces are outside the slice (``io.put_model`` rejects models
-that need them). With eulerdamp disabled, the humanoid's joint dampers act
-here.
+coefficients, the inertia-box model one over the other bodies. With
+eulerdamp disabled, the humanoid's joint dampers act here.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from mujoco_tpu_torch.models.types import (Data, DisableBit, GeomType,
                                            JointType, Model, ObjType)
-from mujoco_tpu_torch.ops import support
+from mujoco_tpu_torch.ops import flex, support
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -82,6 +82,25 @@ def passive(m: Model, d: Data) -> Data:
                  else _joint_springs(m, d))
   qfrc_damper = (zero if m.disabled(DisableBit.DAMPER)
                  else -m.per_env("dof_damping") * d.qvel)
+  enbl_spring = not m.disabled(DisableBit.SPRING)
+  enbl_damper = not m.disabled(DisableBit.DAMPER)
+  flx = m.flx
+  if m.has_flex and flx.nedge:
+    fs, fd = flex.edge_passive(m, d)
+    if enbl_spring:
+      qfrc_spring = qfrc_spring + fs
+    if enbl_damper:
+      qfrc_damper = qfrc_damper + fd
+  # the element stretch runs whenever springs or dampers do (its damping is
+  # folded into the elastic force); bending gates each part
+  if (m.has_flex and (flx.has_stretch.any() or flx.has_bending.any())
+      and (enbl_spring or enbl_damper)):
+    fs, fd = flex.elasticity_passive(m, d, enbl_spring, enbl_damper)
+    qfrc_spring, qfrc_damper = qfrc_spring + fs, qfrc_damper + fd
+  if (m.has_flex and (np.asarray(flx.interp_stiffadr) >= 0).any()
+      and (enbl_spring or enbl_damper)):
+    fs, fd = flex.interp_passive(m, d, enbl_spring, enbl_damper)
+    qfrc_spring, qfrc_damper = qfrc_spring + fs, qfrc_damper + fd
   if m.ntendon:
     # tendon spring outside its [lo, hi] deadband, and tendon damper
     Jt = d.ten_J.transpose(1, 2)

@@ -8,7 +8,8 @@ reference does; the arguments broadcast over any leading dims (pos, pnt,
 vec (..., 3), mat (..., 3, 3), size (..., 3)). "No hit" is inf. ``ray``
 takes any number of rays at once and evaluates each group of geoms of one
 type (a mesh's or height field's per asset) as one (B, nray, ngeom)
-computation. ``multi_ray``, flex and skin rays wait for the ray and render
+computation. ``ray_flex`` (:295) casts against one flex's faces, edges
+or vertices. ``multi_ray`` and skin rays wait for the ray and render
 slice.
 """
 
@@ -271,3 +272,101 @@ def ray(m: Model, d: Data, pnt, vec, bodyexclude=None):
   gid = index(np.sort(geoms), dev)[arg]
   return (torch.where(hit, best, -1.0),
           torch.where(hit, gid, -1).reshape(-1, nray))
+
+
+def ray_flex(m: Model, d: Data, flexid: int, pnt, vec, flex_layer: int = 0,
+             flg_vert: bool = False, flg_edge: bool = True,
+             flg_face: bool = True, flg_skin: bool = True):
+  """The ray against one flex (mj_rayFlex; mujoco_tpu/ops/ray.py:295):
+  per env the nearest distance and the nearest LOCAL vertex id, (−1, −1)
+  on a miss; pnt, vec (B, 3) or (3,). The default flags are mjVisual's:
+  faces (a solid's skin, layer 0) and edges as capsules of the flex
+  radius, no vertex spheres. Every candidate is computed and the nearest
+  kept."""
+  flx = m.flx
+  dev, dtype = m.device, d.qpos.dtype
+  dim = int(flx.dim[flexid])
+  vadr, vnum = int(flx.vertadr[flexid]), int(flx.vertnum[flexid])
+  radius = m.flex_radius[flexid]
+  nbatch = d.qpos.shape[0]
+  pnt = torch.as_tensor(pnt, dtype=dtype, device=dev).expand(nbatch, 3)
+  vec = torch.as_tensor(vec, dtype=dtype, device=dev).expand(nbatch, 3)
+  verts = d.flexvert_xpos[:, vadr:vadr + vnum]             # (B, vnum, 3)
+  norm = lambda x: torch.sqrt(torch.clamp((x * x).sum(-1), min=1e-30))
+  dists, vids = [], []
+  if dim > 1 and (flg_face or flg_skin):
+    tris = []
+    for e in range(int(flx.elemadr[flexid]),
+                   int(flx.elemadr[flexid]) + int(flx.elemnum[flexid])):
+      if dim == 3:
+        lay = int(flx.elem_layer[e])
+        if (flg_skin and lay > 0) or (not flg_skin and lay != flex_layer):
+          continue
+      ev = flx.elem[e] - vadr
+      for c in ([(0, 1, 2)] if dim == 2 else
+                [(0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)]):
+        tris.append([ev[c[0]], ev[c[1]], ev[c[2]]])
+    if tris:
+      t = np.asarray(tris, dtype=np.int64)
+      tv = [verts[:, index(t[:, k], dev)] for k in range(3)]
+      p, v = pnt[:, None], vec[:, None]
+      e1, e2 = tv[1] - tv[0], tv[2] - tv[0]
+      h = cross(v, e2)
+      a = dot(e1, h)
+      ok_a = a.abs() > 1e-12
+      f = torch.where(ok_a, 1.0 / torch.where(ok_a, a, 1.0), 0.0)
+      s = p - tv[0]
+      u = f * dot(s, h)
+      q = cross(s, e1)
+      vv = f * dot(v, q)
+      tt = f * dot(e2, q)
+      ok = ok_a & (u >= 0) & (vv >= 0) & (u + vv <= 1) & (tt >= 0)
+      dist = torch.where(ok, tt, _INF)
+      hit = p + dist[..., None] * v
+      near = torch.argmin(torch.stack([norm(hit - tv[k]) for k in range(3)],
+                                      -1), dim=-1, keepdim=True)
+      dists.append(dist)
+      vids.append(torch.gather(index(t, dev).expand(nbatch, -1, -1), -1,
+                               near)[..., 0])
+  if flg_edge or (dim > 1 and flg_skin):
+    ea, en = int(flx.edgeadr[flexid]), int(flx.edgenum[flexid])
+    ed = flx.edge[ea:ea + en] - vadr
+    p1, p2 = verts[:, index(ed[:, 0], dev)], verts[:, index(ed[:, 1], dev)]
+    seg = p2 - p1
+    length = torch.clamp(torch.sqrt((seg * seg).sum(-1)), min=1e-15)
+    z = seg / length[..., None]
+    ex = const(np.array([1.0, 0.0, 0.0]), dev, dtype)
+    ey = const(np.array([0.0, 1.0, 0.0]), dev, dtype)
+    alt = torch.where(z[..., :1].abs() < 0.9, ex, ey)
+    x = cross(alt, z)
+    x = x / torch.clamp(torch.sqrt((x * x).sum(-1, keepdim=True)),
+                        min=1e-15)
+    mat = torch.stack([x, cross(z, x), z], -1)
+    size = torch.stack([radius.expand_as(length), 0.5 * length,
+                        torch.zeros_like(length)], -1)
+    dist = ray_capsule(0.5 * (p1 + p2), mat, size, pnt[:, None],
+                       vec[:, None])
+    dist = torch.where(torch.isfinite(dist) & (dist >= 0), dist, _INF)
+    hit = pnt[:, None] + dist[..., None] * vec[:, None]
+    near0 = norm(hit - p1) < norm(hit - p2)
+    dists.append(dist)
+    vids.append(torch.where(near0, index(ed[:, 0], dev),
+                            index(ed[:, 1], dev)))
+  elif flg_vert:
+    dif = pnt[:, None] - verts
+    dist = _quad(dot(vec, vec)[:, None], dot(vec[:, None], dif),
+                 dot(dif, dif) - radius * radius)
+    dists.append(torch.where(torch.isfinite(dist) & (dist >= 0), dist,
+                             _INF))
+    vids.append(torch.arange(vnum, device=dev).expand(nbatch, vnum))
+  if not dists:
+    return (torch.full((nbatch,), -1.0, dtype=dtype, device=dev),
+            torch.full((nbatch,), -1, dtype=torch.int32, device=dev))
+  alld = torch.cat(dists, -1)
+  allv = torch.cat(vids, -1)
+  best = torch.argmin(alld, dim=-1, keepdim=True)
+  bd = torch.gather(alld, -1, best)[..., 0]
+  hit = torch.isfinite(bd)
+  return (torch.where(hit, bd, -1.0),
+          torch.where(hit, torch.gather(allv, -1, best)[..., 0], -1).to(
+              torch.int32))

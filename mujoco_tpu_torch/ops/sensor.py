@@ -27,7 +27,9 @@ match, reduction and data layout) are one match over (B, k, ncon) and one
 stable sort; the tactile sensors of a group are one signed-distance
 evaluation per geom type over all their taxels. Contact slots are fixed,
 so under ``reduce="none"`` a sensor reports its contacts in slot order
-(ROADMAP "Known deviations"). Each stage ends with the delayed and
+(ROADMAP "Known deviations"). A flex contact's side is the body of its
+first vertex for matching (``_flex_bodies``), and its force reaches
+cfrc_ext through the bodies its Jacobian weights (:436-472). Each stage ends with the delayed and
 interval sensors' reads of their history buffers (``_history_adjust``);
 the advance inserts a delayed sensor's value before that read, which
 ``raw_sensordata`` computes again from the forward pass's fields for the
@@ -44,7 +46,7 @@ from mujoco_tpu_torch.models.types import (ConeType, Data, DataType,
                                            DisableBit, EqType, GeomType,
                                            JointType, Model, ObjType,
                                            SensorType, Stage, TrnType)
-from mujoco_tpu_torch.ops import history, ray, sdf, smooth
+from mujoco_tpu_torch.ops import flex, history, ray, sdf, smooth
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 
@@ -186,6 +188,17 @@ def contact_force(m: Model, d: Data):
   return torch.where(active[..., None], out, 0.0)
 
 
+def _flex_bodies(m: Model, d: Data, bodies):
+  """bodies (B, ncon, 2) of the geom sides, a flex side's (geom id −1) the
+  body of its first contacting vertex (mj_flexBody; mujoco_tpu/ops/
+  sensor.py:154-164)."""
+  if not m.flx.nvert:
+    return bodies
+  vb = index(m.flx.vertbodyid, m.device)
+  fb = vb[d.contact.flexvert[..., 0].long().clamp(min=0)]
+  return torch.where(d.contact.geomids < 0, fb[..., None], bodies)
+
+
 def _contact_bodies(m: Model, d: Data):
   """(B, ncon) bodies of each slot's two geoms (the second clamped to a
   valid geom)."""
@@ -238,11 +251,21 @@ def rne_postconstraint(m: Model, d: Data, cf=None) -> Data:
     t_w = _mtv(frame, cf[..., 3:])
     cfrc = torch.cat([t_w, f_w], -1)
     b1, b2 = _contact_bodies(m, d)
-    for bodies, sgn in ((b1, -1.0), (b2, 1.0)):
+    is_flex = m.con.flex2 >= 0
+    sides = [(b1, -1.0, None), (b2, 1.0, const(~is_flex, dev, dtype))]
+    if is_flex.any():
+      # a flex side acts on the bodies its contact Jacobian weights
+      bodies, w = flex.contact_body_weights(m, d, d.contact.flexvert,
+                                            m.con.flex2, d.contact.pos)
+      fl = const(is_flex, dev, dtype)
+      sides += [(bodies[..., j], 1.0, fl * w[..., j])
+                for j in range(bodies.shape[-1])]
+    for bodies, sgn, live in sides:
       com = torch.gather(d.subtree_com, 1,
                          rootid[bodies][..., None].expand(-1, -1, 3))
       v = mjm.transform_spatial(cfrc, True, com, d.contact.pos)
-      v = v * torch.where(bodies != 0, sgn, 0.0).to(dtype)[..., None]
+      scale = torch.where(bodies != 0, sgn, 0.0).to(dtype)
+      v = v * (scale if live is None else scale * live)[..., None]
       cfrc_ext = cfrc_ext.scatter_add(1, bodies[..., None].expand(-1, -1, 6),
                                       v)
 
@@ -624,7 +647,8 @@ def _match_contacts(m: Model, d: Data, g):
   group (matchContact): filled contacts whose sides match its objects,
   and whether its normal is reported flipped."""
   gids = d.contact.geomids.long()
-  bodies = index(m.geom_bodyid, m.device)[gids.clamp(min=0)]
+  bodies = _flex_bodies(m, d, index(m.geom_bodyid, m.device)[
+      gids.clamp(min=0)])
   filled = (d.contact.dist < d.contact.includemargin)[:, None]
   t1 = max(int(g["objtype"]), 0)
   t2 = max(int(g["reftype"]), 0)

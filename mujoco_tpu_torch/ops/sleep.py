@@ -1,6 +1,8 @@
 """Tree sleep and wake (mjENBL_SLEEP): port of mujoco_tpu/ops/sleep.py.
 
-Counterparts: ``sleep_active`` (:40), ``dof_awake_mask`` (:44),
+Counterparts: ``sleep_active`` (:40), ``dof_awake_mask`` (:44), the
+flex-vertex bodies of contacts (:88, :199) and the flex-equality wake
+(:244),
 ``_can_sleep`` (:57), ``_island_labels`` (:74), ``_equality_trees``
 (:131), ``_tendon_limit`` (:149), ``wake`` (:161), ``sleep_step`` (:288),
 ``mask_sleeping_rows`` (:324) and ``init_sleep`` (:335).
@@ -72,10 +74,16 @@ def _can_sleep(m: Model, d: Data, tol):
 
 
 def _contact_trees(m: Model, d: Data):
-  """(B, ncon, 2) trees of each slot's two geoms, and (B, ncon) whether the
-  slot is within its margin."""
+  """(B, ncon, 2) trees of each slot's two sides (a flex side's: its
+  first contacting vertex's body), and (B, ncon) whether the slot is
+  within its margin."""
   gb = index(m.geom_bodyid, d.qpos.device)
-  bodies = gb[torch.clamp(d.contact.geomids.long(), min=0)]
+  gids = d.contact.geomids.long()
+  bodies = gb[torch.clamp(gids, min=0)]
+  if m.flx.nvert:
+    vb = index(m.flx.vertbodyid, d.qpos.device)
+    fb = vb[d.contact.flexvert[..., 0].long().clamp(min=0)]
+    bodies = torch.where(gids < 0, fb[..., None], bodies)
   live = d.contact.dist < d.contact.includemargin
   return _tree_of_bodies(m, bodies), bodies, live
 
@@ -221,6 +229,26 @@ def wake(m: Model, d: Data) -> Data:
     diff = on & s1 & s2 & (label[:, t1] != label[:, t2])
     request_tree(t1, diff, k_awake[:, 0])
     request_tree(t2, diff, k_awake[:, 0])
+
+  for i in range(m.neq):
+    # a FLEX (or FLEXVERT) equality: an awake tree of the flex wakes its
+    # sleeping ones with the first awake one's countdown
+    # (engine_sleep.c:443-480)
+    if int(m.eq_type[i]) not in (EqType.FLEX, EqType.FLEXVERT):
+      continue
+    f = int(m.eq_obj1id[i])
+    adr, num = int(m.flx.vertadr[f]), int(m.flx.vertnum[f])
+    tf = np.unique(np.asarray(m.body_treeid)[
+        np.asarray(m.flx.vertbodyid)[adr:adr + num]])
+    tf = tf[tf >= 0]
+    if len(tf) < 2:
+      continue
+    ti = index(tf, dev)
+    aw = awake[:, ti]
+    first = torch.argmax(aw.to(torch.int32), dim=1, keepdim=True)
+    wv = counter[:, ti].gather(1, first)
+    want = (d.eq_active[:, i] & aw.any(1))[:, None] & asleep[:, ti]
+    request(ti.expand(nbatch, -1), want, wv.expand(-1, len(tf)))
 
   for t in range(m.ntendon):
     if int(m.tendon_treenum[t]) != 2:

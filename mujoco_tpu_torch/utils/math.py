@@ -175,3 +175,31 @@ def transform_spatial(vec, flg_force: bool, newpos, oldpos, rotnew2old=None):
     ang = (ang[..., None, :] @ rotnew2old)[..., 0, :]
     lin = (lin[..., None, :] @ rotnew2old)[..., 0, :]
   return torch.cat([ang, lin], dim=-1)
+
+
+def mat_to_rot_quat(mat, iters: int = 128):
+  """The rotational part of 3×3 matrices (..., 3, 3), possibly not
+  orthogonal, as quaternions (mju_mat2Rot; mujoco_tpu/utils/math.py:377):
+  the fixed-point iteration from the identity, each matrix frozen once
+  its correction falls below 1e-9, for ``iters`` iterations. On the CPU
+  the loop stops once every matrix is frozen (the result is the same); on
+  the card it runs them all, so nothing is read back to the host."""
+  cols_m = mat.transpose(-1, -2)                  # rows: the columns
+  quat = torch.zeros(mat.shape[:-2] + (4,), dtype=mat.dtype,
+                     device=mat.device)
+  quat[..., 0] = 1.0
+  done = torch.zeros(mat.shape[:-2], dtype=torch.bool, device=mat.device)
+  for it in range(iters):
+    cols_r = quat_to_mat(quat).transpose(-1, -2)
+    omega = cross(cols_r, cols_m).sum(-2)
+    omega = omega / ((cols_r * cols_m).sum((-1, -2)).abs() + MINVAL)[
+        ..., None]
+    w = norm_safe(omega)
+    stop = w < 1e-9
+    qnew = normalize(mul_quat(axis_angle_to_quat(omega / w[..., None], w),
+                              quat))
+    quat = torch.where((done | stop)[..., None], quat, qnew)
+    done = done | stop
+    if not mat.is_cuda and it % 8 == 7 and bool(done.all()):
+      break
+  return quat

@@ -26,7 +26,8 @@ mujoco_tpu, at f64 on the CPU.
 - seven boxes over a pair budget of 4 form one box-box dynamic group and
   step as the reference does;
 - the megastep's gate refuses every scene, as the reference's does;
-- an SDF geom and a flex still raise NotImplementedError.
+- an SDF geom and a flex's vertex equality (FLEXVERT) still raise
+  NotImplementedError.
 """
 
 import jax
@@ -131,9 +132,12 @@ def scenes():
 
   def get(name):
     if name not in cache:
-      mjm = snapshot.compile_mj(name)
-      jm = jio.put_model(mjm)
-      tm = tio.put_model(mjm, dtype=torch.float64, device="cpu")
+      # at the snapshot's flex budgets, which it records
+      # (tests/conftest.py sets MJTPU_FLEX_BUDGET)
+      with snapshot.flex_budgets(name):
+        mjm = snapshot.compile_mj(name)
+        jm = jio.put_model(mjm)
+        tm = tio.put_model(mjm, dtype=torch.float64, device="cpu")
       step = jax.jit(jax.vmap(lambda d: j_fwd.step(jm, d)))
       cache[name] = (mjm, jm, tm, step)
     return cache[name]
@@ -291,9 +295,11 @@ _OUT_OF_SLICE = {
       <worldbody><geom type="plane" size="1 1 1"/><body pos="0 0 1">
       <freejoint/><geom type="sdf" mesh="torus"><plugin instance="torus"/>
       </geom></body></worldbody></mujoco>""",
+    # a flex loads since the flex slice; its vertex equality does not
     "flex": """<mujoco><worldbody><geom type="box" size="1 1 .1"/>
       <flexcomp name="f" type="grid" count="2 2 1" spacing=".1 .1 .1"
-      pos="0 0 .5" dim="2"/></worldbody></mujoco>""",
+      pos="0 0 .5" dim="2"><edge equality="vert"/></flexcomp></worldbody>
+      </mujoco>""",
 }
 
 

@@ -1096,3 +1096,26 @@ def test_randomized_step_card_matches_cpu_f64(cuda):
     outs.append([d.qpos.cpu(), d.qvel.cpu()])
   for a, b in zip(*outs):
     torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("name", zoo.FLEX)
+def test_flex_scene_card_matches_cpu_f64(cuda, name):
+  """The flex scenes: 10 steps at f64, B 8, each step from the CPU's state
+  on the card and the CPU, qpos and qvel within 1e-8 and the vertices of
+  the slots in contact equal, an env that misses judged by last-bit copies
+  (chip_smoke.flex_card_vs_cpu); the megastep refuses each; on the card a
+  hammock step is one LDL and one Newton launch."""
+  import chip_smoke as cs
+  cs.flex_card_vs_cpu(name)
+  m = zoo.load(name, torch.float32, cuda)
+  assert not megastep_cuda.supported(m)
+  if name == "humanoid_hammock":
+    m = zoo.load(name, torch.float64, cuda)
+    d = cs.flex_batch(name, m, 8, 3, cuda)
+    linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
+    for _ in range(3):
+      d = forward.step(m, d)
+    torch.cuda.synchronize()
+    assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
+            megastep_cuda.LAUNCHES) == (3, 3, 0)
+    assert torch.isfinite(d.qpos).all()

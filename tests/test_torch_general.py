@@ -69,8 +69,11 @@ _RUNS = {}
 
 
 def _models(name):
-  mjm = snapshot.compile_mj(name)
-  return mjm, jio.put_model(mjm), zoo.load(name, torch.float64, "cpu")
+  # at the snapshot's flex budgets, which it records (tests/conftest.py
+  # sets MJTPU_FLEX_BUDGET)
+  with snapshot.flex_budgets(name):
+    mjm = snapshot.compile_mj(name)
+    return mjm, jio.put_model(mjm), zoo.load(name, torch.float64, "cpu")
 
 
 def _initial(jm, seed=0):
@@ -111,7 +114,8 @@ def test_put_model_matches_reference(name):
   from tests.test_torch_model import assert_fields_match
   r = run(name)
   assert_fields_match(tio.flatten(r["tm"]), tio.flatten(r["jm"]))
-  fresh = tio.put_model(r["mjm"], dtype=torch.float64, device="cpu")
+  with snapshot.flex_budgets(name):
+    fresh = tio.put_model(r["mjm"], dtype=torch.float64, device="cpu")
   assert_fields_match(tio.flatten(fresh), tio.flatten(r["tm"]))
 
 
@@ -394,10 +398,11 @@ def test_megastep_gate_refuses_as_reference(name):
 
 
 _STILL_RAISE = {
-    # flex waits for its slice (A11)
+    # a flex loads since its slice (A11); its vertex equality (FLEXVERT)
+    # does not
     "flex": """<mujoco><worldbody><flexcomp name="f" type="grid"
-      count="2 2 1" spacing=".1 .1 .1" pos="0 0 .3" dim="2"/></worldbody>
-      </mujoco>""",
+      count="2 2 1" spacing=".1 .1 .1" pos="0 0 .3" dim="2">
+      <edge equality="vert"/></flexcomp></worldbody></mujoco>""",
     # user sensors and actuator callbacks wait for plugin.py (A14)
     "sensor USER": """<mujoco><worldbody><body><joint type="slide"/>
       <geom size="0.1"/></body></worldbody><sensor><user dim="1"

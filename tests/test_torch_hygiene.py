@@ -139,6 +139,31 @@ def test_public_api_names_the_ported_modules():
     assert hasattr(mujoco_tpu_torch, name), name
 
 
+# each port module of a reference module whose public functions it carries
+# in full, read from the reference's source (no import of it here)
+_FULL_MODULES = {"ops/flex.py": "mujoco_tpu_torch.ops.flex",
+                 "ops/collision_flex.py": "mujoco_tpu_torch.ops.collision_flex",
+                 "models/strain.py": "mujoco_tpu_torch.models.strain"}
+
+
+@pytest.mark.parametrize("ref", sorted(_FULL_MODULES))
+def test_flex_modules_name_the_reference_functions(ref):
+  """The flex modules define every public function of their reference
+  module (mujoco_tpu/ops/flex.py, collision_flex.py, models/strain.py),
+  and ``ops.ray`` its ``ray_flex``."""
+  import importlib
+  with open(os.path.join(ROOT, "mujoco_tpu", ref)) as f:
+    tree = ast.parse(f.read())
+  names = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+           and not n.name.startswith("_")]
+  assert names
+  port = importlib.import_module(_FULL_MODULES[ref])
+  for name in names:
+    assert callable(getattr(port, name, None)), (ref, name)
+  from mujoco_tpu_torch.ops import ray
+  assert callable(ray.ray_flex)
+
+
 def test_forbidden_import_pattern():
   for line in ("import jax", "from jax import numpy", "import mujoco_tpu",
                "from mujoco_tpu.ops import smooth"):

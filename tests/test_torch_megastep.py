@@ -185,6 +185,20 @@ def test_supported_gate_matches_reference_sensors(name, monkeypatch):
     assert jmega.supported(jm4.replace(nsensor=0))
 
 
+@pytest.mark.parametrize("name", zoo.FLEX)
+def test_supported_gate_matches_reference_flex(name, monkeypatch):
+  """A flex keeps a model off the kernel, as the reference's gate refuses
+  has_flex and flex slots (megastep_tpu.py:112, 146-147): every zoo.FLEX
+  scene, at the kernel's 4 iterations too."""
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "256")
+  from tests.test_torch_flex import compile_pair
+  _, jm, tm = compile_pair(name)
+  assert mc.supported(tm) == bool(jmega.supported(jm)) is False
+  it4 = tm.replace(opt=tm.opt.replace(iterations=4))
+  jm4 = jm.replace(opt=jm.opt.replace(iterations=4))
+  assert mc.supported(it4) == bool(jmega.supported(jm4)) is False
+
+
 def _quadruped_variant(case):
   """The quadruped (in the kernel's class) with one of this slice's
   features: fluid forces, an interval sensor (a history buffer, no

@@ -66,7 +66,8 @@ def multi_humanoid3_fields() -> dict:
   gate, built with the pip mujoco's MjSpec) through mujoco_tpu's
   put_model with islands disabled, carried across with ``flatten``; the
   port's Model fields only."""
-  compiled = jio.put_model(snapshot.multi_humanoid_mj(3))
+  with snapshot.flex_budgets("multi_humanoid3"):
+    compiled = jio.put_model(snapshot.multi_humanoid_mj(3))
   jm = compiled.replace(opt=compiled.opt.replace(
       disableflags=int(compiled.opt.disableflags)
       | int(DisableBit.ISLAND)))
@@ -89,6 +90,12 @@ def actuation_carried_fields(name: str) -> dict:
   (the pip compiler predates both)."""
   from mujoco_tpu import compiler
   from tests import test_actuator, test_so3
+  with snapshot.flex_budgets(name):
+    return _port_fields(_actuation_carried(name, compiler, test_actuator,
+                                           test_so3))
+
+
+def _actuation_carried(name, compiler, test_actuator, test_so3):
   if name == "pid":
     mjm = mujoco.MjModel.from_xml_string(snapshot.PID_XML)
     jm = test_actuator._patch_pid(jio.put_model(mjm), [0.8, 6.0] + [0.0] * 8,
@@ -98,7 +105,7 @@ def actuation_carried_fields(name: str) -> dict:
     xml = {"so3_refsite": test_so3.REFSITE_XML, "so3_ball": test_so3.BALL_XML,
            "so3_integrator": test_so3.INT_XML}[name]
     jm = jio.put_model(compiler.load_xml(xml))
-  return _port_fields(jm)
+  return jm
 
 
 def assert_fields_match(port: dict, ref: dict, prefix=""):
@@ -224,12 +231,14 @@ _OUT_OF_SLICE = {
     "user_gain": """<mujoco><worldbody><body><joint name="a"/>
       <geom size="0.1" contype="0"/></body></worldbody><actuator>
       <general joint="a" gaintype="user"/></actuator></mujoco>""",
-    # a box against a flex (box-box contact loads since the collision
-    # breadth slice)
+    # a box against a flex under a vertex equality (box-box contact loads
+    # since the collision breadth slice, a flex since the flex slice; its
+    # FLEXVERT equality does not)
     "box_contact": """<mujoco><option iterations="2"/><worldbody>
       <body><freejoint/><geom type="box" size="0.1 0.1 0.1"/></body>
       <flexcomp name="f" type="grid" count="2 2 1" spacing=".1 .1 .1"
-      pos="0 0 .3" dim="2"/></worldbody></mujoco>""",
+      pos="0 0 .3" dim="2"><edge equality="vert"/></flexcomp></worldbody>
+      </mujoco>""",
 }
 
 # models that raised before the slices that widened what the port runs
@@ -270,6 +279,11 @@ _WIDENED = {
     "implicitfast_damping": """<mujoco><option integrator="implicitfast"/>
       <worldbody><body><joint type="hinge" damping="1"/>
       <geom size="0.1" contype="0"/></body></worldbody></mujoco>""",
+    # a box against a flex: one (geom, flex) pair of flex_budget slots
+    "flex_box_contact": """<mujoco><option iterations="2"/><worldbody>
+      <body><freejoint/><geom type="box" size="0.1 0.1 0.1"/></body>
+      <flexcomp name="f" type="grid" count="2 2 1" spacing=".1 .1 .1"
+      pos="0 0 .3" dim="2"/></worldbody></mujoco>""",
 }
 
 
@@ -284,8 +298,8 @@ def test_out_of_slice_raises(name):
 def test_widened_slice_loads(name):
   mjm = mujoco.MjModel.from_xml_string(_WIDENED[name])
   m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
-  assert m.con.ncon == {"plane_box": 4, "elliptic": 1,
-                        "box_box": 8}.get(name, 0)
+  assert m.con.ncon == {"plane_box": 4, "elliptic": 1, "box_box": 8,
+                        "flex_box_contact": m.con.flex_budget}.get(name, 0)
   assert m.has_dof_damping == (name in ("eulerdamp",
                                         "implicitfast_damping"))
   assert (m.opt.cone, m.opt.integrator) == (int(mjm.opt.cone),

@@ -121,9 +121,12 @@ def run(scene):
     {s for s, _ in zoo.OPTIONS.values()}))
 def test_put_model_matches_reference(name):
   from tests.test_torch_model import assert_fields_match
-  mjm = snapshot.compile_mj(name)
+  # at the snapshot's flex budgets, which it records (tests/conftest.py
+  # sets MJTPU_FLEX_BUDGET)
+  with snapshot.flex_budgets(name):
+    jm = jio.put_model(snapshot.compile_mj(name))
   assert_fields_match(tio.flatten(zoo.load(name, torch.float64, "cpu")),
-                      tio.flatten(jio.put_model(mjm)))
+                      tio.flatten(jm))
 
 
 def test_elliptic_row_layout():
