@@ -77,7 +77,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
 10. (b) the model class: each scene of ``zoo.GENERAL`` (equality,
    friction-loss, ball-limit, condim 4/6 and explicit-pair rows, cameras
    and lights) at its own options (100 Newton iterations), posed from a
-   numpy seed: f32, B 3072, 10 steps of ``scan_steps``, every env
+   numpy seed: f32, B 3072, 5 steps of ``scan_steps``, every env
    finite, at least two LDL launches a step;
    10 steps at f64, B 64, on the card against the CPU (1e-8);
 11. (c) the Newton kernel on each scene's rows as ``solver.newton_args``
@@ -96,9 +96,9 @@ Phases, each of which passes or ends the script with a nonzero exit:
    relative), with the kernel's two launches (forward, backward re-solve);
    both backwards timed alone by the same warmed timer;
 13. ``multi_humanoid3`` (nv 81, the reference's 3-humanoid scene), which the
-   megastep's gate keeps on the stage path: f32, B 3072, 20 steps of
+   megastep's gate keeps on the stage path: f32, B 3072, 10 steps of
    ``scan_steps(check=True)``, every env finite, exactly one LDL and one
-   Newton launch per step and no megastep launch; 20 steps at f64, B 8, on
+   Newton launch per step and no megastep launch; 10 steps at f64, B 8, on
    the card against the CPU (1e-8); the blocked LDL at every order of
    ``WIDE_ORDERS`` (65, 81, 130, 200, 270) at f64 and f32, B 3072, on
    random SPD matrices, against its plain version (f64 elementwise,
@@ -117,11 +117,11 @@ Phases, each of which passes or ends the script with a nonzero exit:
    card against the CPU (1e-8 relative), one Newton launch per step and
    none in the backward;
 15. the slice's scenes: ``humanoid_tendon`` (the humanoid with two limited
-   fixed tendons) at f32, B 3072, 20 steps from the main path's start,
+   fixed tendons) at f32, B 3072, 10 steps from the main path's start,
    which the megastep refuses: finite, one LDL and one Newton launch per
    step, the tendon limit rows acting in some envs at the start,
    env-steps/s and a profiled window (launches per step, idle share); every
-   scene of ``zoo.TENDON`` and ``humanoid_tendon`` 20 steps at f64, B 64, card
+   scene of ``zoo.TENDON`` and ``humanoid_tendon`` 10 steps at f64, B 64, card
    against CPU (1e-8); and on each such scene with rows the Newton kernel
    at 4 iterations, f64, B 3072, under phase 11's rule;
 16. ``humanoid_elliptic`` (the flagship at the elliptic cone, impratio 100,
@@ -147,7 +147,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
 18. every scene of ``zoo.OPTIONS`` (PGS pyramidal and elliptic, noslip
    after the general core, after the Newton kernel and on the elliptic
    cone at condim 3 and 4, the elliptic cone, RK4, implicit and
-   implicitfast): card against CPU at f64, B 64 (20 steps, fewer where a
+   implicitfast): card against CPU at f64, B 64 (10 steps, fewer where a
    step takes seconds: ``SCENE_NSTEP``), then at f32, B 3072, finite, its
    env-steps/s, kernel launches and a profiled step (the slowest scenes
    timed on that profiled step alone).
@@ -220,7 +220,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
    plain version (f32 by backward error, f64 elementwise) and timed
    beside its bound, the plain version and ``torch.linalg.solve``;
    ``box_pile``, ``grasp`` and ``hfield_bowl`` at f32, B 3072, 10 steps
-   each with env-steps/s; and 10 steps at f64, B 4, of each of the four
+   each with env-steps/s; and 5 steps at f64, B 4, of each of the four
    scenes on the card against the CPU, each step from the CPU's state
    (qpos and qvel to 1e-8 absolute plus relative, ``judge_envs`` with 256
    copies);
@@ -260,7 +260,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
    and Newton kernels on the arguments one step at f64, B 3072, gives
    them, against their plain versions (the LDL at f64 elementwise and at
    f32 by backward error, the Newton kernel by phase 11's rule); 20 steps
-   at f64, B 8, of it and 10 steps at f64, B 64, of each of the ten small
+   at f64, B 8, of it and 5 steps at f64, B 64, of each of the ten small
    scenes of ``zoo.ACTUATION`` and the four SO3 and PID scenes of
    ``zoo.ACTUATION_CARRIED``, each step from the CPU's state on the
    card and the CPU: qpos, qvel, act, history and sensordata within 1e-8
@@ -287,7 +287,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
    the plain stage path's in the same call.
 27. the flexes (``zoo.FLEX``): the megastep's gate and
    ``rollout.megastep_eligible`` refuse every scene; each scene at f64,
-   B 8, 10 steps from a start in contact (``FLEX_START``), each step from
+   B 8, 5 steps from a start in contact (``FLEX_START``), each step from
    the CPU's state on the card and the CPU: qpos and qvel within 1e-8 and
    the vertices of the slots in contact equal (``flex_picks``), an env
    that misses judged by last-bit copies (``judge_envs``); the LDL kernel
@@ -301,12 +301,43 @@ Phases, each of which passes or ends the script with a nonzero exit:
    step, finite, env-steps/s, the envs the guard reset, peak memory, the
    idle share of a profiled 2-step window and the device kernels of one
    step's flex stage, flex passive forces and flex collisions.
+28. ray and render: every ``zoo.RENDER`` scene with a camera at f64, B 8,
+   32×32 (shadows on for the spot-lit scenes), card against CPU from the
+   same state: depth and RGB within 1e-8 absolute plus relative where seg
+   agrees, a pixel that misses (seg, depth or RGB) passed only if 64
+   copies of its ray moved by at most 1e-13 relative, rerun on the CPU,
+   give the card's result or, rerun on the card, the CPU's
+   (``pixel_judge``, at most 1 % of pixels); ``update_scene`` and
+   ``skin_update`` within 1e-10; then the pixel loop of
+   ``humanoid_pixels`` (the flagship with dm_control's visuals) at f32,
+   B 3072 (halved while a frame's estimated peak passes 60 % of the
+   card's memory; printed), 64×64 from the ``side`` camera: 10 control
+   steps, each ctrl uniform in ctrlrange from a numpy seed, 5 steps of
+   ``scan_steps(check=True)``, the frames rebuilt (kinematics, com_pos,
+   camlight) and a frame of every env: exactly one megastep launch per
+   control step and no other, every frame finite, RGB in [0, 1], depth >
+   0 where seg ≥ 0, the humanoid in the frame of at least 99 % of envs;
+   env-frames/s, the megastep's and the frames' device ms, peak memory
+   beside its estimate; one frame's ms with and without shadows beside
+   the bound of the bytes it writes, device kernels (the ray pass's
+   apart) and the idle share of a profiled frame; ms per megastep launch
+   of 5 steps; the same loop at f64 (the stage path), B 256, each
+   control step's state framed at f64 and, cast to f32, rebuilt and
+   rendered at f32: seg equal on ≥ 99 % of pixels, depth within 1e-4
+   relative where seg agrees, and every pixel that misses on a seg edge
+   of one of the two images or, at most 1e-4 of the pixels, decided by
+   f32 rounding: 64 copies of its ray moved by at most 1e-6 relative,
+   cast at one precision, give the other's pixel on one copy
+   (``precision_loop``); a witness, not a gate: the envs each control
+   step run at f32 through the megastep from the f64 state leaves off by
+   the megastep's f32 rule; ``skin_update`` ms on the sleeve at B 3072.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
 and 13 to 27 (phase 26's ``discrete_acc``, ``transition`` and
-``randomized``; phase 27's ``humanoid_hammock``); the LDL's ``wide`` entry holds phase 13's table (each order
+``randomized``; phase 27's ``humanoid_hammock``; the megastep's phase
+28 ``humanoid_pixels``); the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
 Newton kernel's its phase-13 times at nv 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
@@ -1326,7 +1357,8 @@ def phase_general_core(report, details):
 # steps of phase 10's full-width run, cut from 50 to keep the script near
 # 600 s beside phases 19-21; its gate still asks for at least two LDL
 # launches a step (qacc_smooth and a Newton iteration)
-MODEL_CLASS_NSTEP = 10
+# cut from 10 when phase 28 came, to keep the script in its time
+MODEL_CLASS_NSTEP = 5
 
 
 def phase_model_class(report, details):
@@ -1537,7 +1569,8 @@ def phase_ldl_backward(report, details):
                                  launches=launches)
 
 
-SLICE_NSTEP = 20
+# cut from 20 when phase 28 came, to keep the script in its time
+SLICE_NSTEP = 10
 # orders of phase 13's wide LDL table, timed at f32 and f64 (n 270 is
 # multi_humanoid10's qM; phase 19 times that solve on its mass matrices)
 WIDE_ORDERS = (65, 81, 130, 200, 270)
@@ -1844,11 +1877,12 @@ RK4 = 1
 # core at 100 iterations run 10⁴-10⁵ launches a step on the card (0.2-9 s
 # a step, PERF.md §5); the integrator scenes 20. The elliptic sweeps cut
 # again (from 2, 2 and 3) when phase 27 came, to keep the script in its
-# time
-SCENE_NSTEP = {"pgs_pyramidal": 10, "pgs_elliptic": 1,
-               "noslip_pyramidal": 5, "noslip_pyramidal_it4": 20,
+# time; phase 28 cut PGS pyramidal from 10 to 5, balls_elliptic from 2 to
+# 1 and the rest from 20 to 10
+SCENE_NSTEP = {"pgs_pyramidal": 5, "pgs_elliptic": 1,
+               "noslip_pyramidal": 5, "noslip_pyramidal_it4": 10,
                "noslip_elliptic": 1, "noslip_condim4": 1,
-               "balls_elliptic": 2}
+               "balls_elliptic": 1}
 # scenes whose B 3072 step takes seconds: timed on one profiled step
 SLOW_SCENES = ("pgs_elliptic", "noslip_elliptic", "noslip_condim4",
                "balls_elliptic")
@@ -2133,7 +2167,7 @@ def phase_option_scenes(report, details):
   scenes = {}
   for name in zoo.OPTIONS:
     t0 = time.perf_counter()
-    nstep = SCENE_NSTEP.get(name, 20)
+    nstep = SCENE_NSTEP.get(name, 10)
     worst = card_vs_cpu(lambda dtype, dev, n=name: zoo.load_scene(n, dtype,
                                                                   dev),
                         lambda mm, dev, n=name: option_batch(n, mm, 64, 25,
@@ -2181,7 +2215,7 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23", "24", "25", "26", "27")
+                 "22", "23", "24", "25", "26", "27", "28")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -2827,7 +2861,8 @@ ROCK_NSTEP = 25
 CONVEX_NSTEP = 10
 # card against CPU, cut from 20 when phase 27 came, to keep the script in
 # its time
-CONVEX_CHECK_NSTEP = 10
+# cut from 20 when phase 27 came and from 10 when phase 28 came
+CONVEX_CHECK_NSTEP = 5
 
 
 def convex_batch(name, m, nbatch, seed, device="cuda"):
@@ -3169,7 +3204,8 @@ def phase_sensors(report, details):
 
 ACTUATION_NSTEP = 50
 ACTUATION_CHECK_NSTEP = 20
-ACTUATION_SMALL_NSTEP = 10
+# cut from 10 when phase 28 came, to keep the script in its time
+ACTUATION_SMALL_NSTEP = 5
 # the stand keyframe's trunk is this far above where the quadruped stands
 # with its joints at the keyframe's angles (0.2393 m; quadruped_stand.py)
 QUAD_DROP = 0.2
@@ -3636,6 +3672,9 @@ def phase_control_loop(report, details):
 
 
 FLEX_CHECK_NSTEP = 10
+# phase 27's own card-against-CPU depth, cut from FLEX_CHECK_NSTEP when
+# phase 28 came, to keep the script in its time (the card tests keep 10)
+FLEX_PHASE_NSTEP = 5
 FLEX_NSTEP = 20
 FLEX_CHECK_B = 8
 # scene → (flex z shift, free bodies' z, qpos noise): a start whose
@@ -3709,8 +3748,8 @@ def flex_picks(m, d) -> torch.Tensor:
   return torch.as_tensor(np.concatenate(out, 1), dtype=torch.float64)[None]
 
 
-def flex_card_vs_cpu(name):
-  """FLEX_CHECK_NSTEP steps at f64, B FLEX_CHECK_B: each step of the CPU's
+def flex_card_vs_cpu(name, nstep=FLEX_CHECK_NSTEP):
+  """nstep steps at f64, B FLEX_CHECK_B: each step of the CPU's
   state on the card and on the CPU, qpos and qvel within 1e-8 absolute
   plus relative and the vertices of the slots in contact equal
   (``flex_picks``), an env that misses judged by last-bit copies of its
@@ -3722,7 +3761,7 @@ def flex_card_vs_cpu(name):
   mh = zoo.load(name, torch.float64, "cpu")
   d = flex_batch(name, mh, FLEX_CHECK_B, 71, "cpu")
   judged = live = 0
-  for _ in range(FLEX_CHECK_NSTEP):
+  for _ in range(nstep):
     out_h = forward.step(mh, d)
     out_c = forward.step(mc, d.to("cuda"))
     live += int((out_h.contact.dist < out_h.contact.includemargin).sum())
@@ -3773,10 +3812,10 @@ def phase_flex(report, details):
   check = {}
   for scene in zoo.FLEX:
     t0 = time.perf_counter()
-    judged, live = flex_card_vs_cpu(scene)
+    judged, live = flex_card_vs_cpu(scene, FLEX_PHASE_NSTEP)
     check[scene] = dict(judged_env_steps=judged, live_slots=live,
                         s=time.perf_counter() - t0)
-    print(f"{scene} card vs CPU f64 B{FLEX_CHECK_B} {FLEX_CHECK_NSTEP} "
+    print(f"{scene} card vs CPU f64 B{FLEX_CHECK_B} {FLEX_PHASE_NSTEP} "
           f"steps: qpos, qvel within 1e-8 and the vertices of the slots in "
           f"contact equal ({live} slot-steps in contact), env-steps judged "
           f"by last-bit copies {judged} ({check[scene]['s']:.1f} s)",
@@ -3913,6 +3952,402 @@ def phase_flex(report, details):
       "humanoid_hammock"] = run["launches"]["newton_pyramidal"]
 
 
+RENDER_CHECK_B = 8
+RENDER_CHECK_SIZE = 32
+RENDER_COPIES = 64
+RENDER_TOL = 1e-8          # card against CPU at f64, absolute plus relative
+PIXEL_SIZE = 64
+PIXEL_CONTROL = 10         # control steps of the pixel loop
+PIXEL_NSTEP = 5            # physics steps per control step (0.025 s)
+PIXEL_F64_B = 256
+# a render scene whose casting light sees an occluder: shadows on
+SHADOW_SCENES = ("render_lit", "render_lit_oblique")
+
+
+def render_batch(mh, nbatch, seed):
+  """make_batch of a CPU f64 Model at qpos0 plus 0.01·N(0, 1) from a
+  numpy seed, forward-evaluated: the state both sides render."""
+  from mujoco_tpu_torch.ops import forward
+  from mujoco_tpu_torch.parallel import rollout
+  d = rollout.make_batch(mh, nbatch, device="cpu")
+  rng = np.random.default_rng(seed)
+  q = d.qpos + torch.as_tensor(0.01 * rng.standard_normal(
+      tuple(d.qpos.shape)))
+  return forward.forward(mh, d.replace(qpos=q))
+
+
+def render_along(m, d, orgs, dirs, **kw):
+  """The port's render of a one-env Data along the rays (n, 3): its
+  camera's rays replaced by these, an image of 1 × n pixels."""
+  from mujoco_tpu_torch.ops import render
+  saved = render._camera_origins_dirs
+  render._camera_origins_dirs = lambda *a: (orgs[None], dirs[None])
+  try:
+    rgb, depth, seg = render.render(m, d, 0, orgs.shape[0], 1, **kw)
+  finally:
+    render._camera_origins_dirs = saved
+  return rgb[0, 0], depth[0, 0], seg[0, 0]
+
+
+def pixels_close(a, b, tol):
+  a, b = a.cpu().double(), b.cpu().double()
+  return ((a - b).abs() <= tol + tol * b.abs()) | (a == b)
+
+
+def pixel_judge(card, cpu, mc, mh, dc, dh, camid, size, tol, **kw):
+  """The pixels where the card misses the CPU (seg, depth where both hit,
+  RGB): each passes only if RENDER_COPIES copies of its ray (origin and
+  direction moved by at most 1e-13 relative), rerun on the CPU, give the
+  card's result on one copy, or rerun on the card give the CPU's; at most
+  1 % of pixels. Returns the pixels judged."""
+  from mujoco_tpu_torch.ops import render
+  (cr, cd, cs), (hr, hd, hs) = card, cpu
+  cs, hs = cs.cpu(), hs.cpu()
+  seg_ok = cs == hs
+  hit = seg_ok & (hs >= 0)
+  good = (seg_ok & pixels_close(cr, hr, tol).all(-1)
+          & (~hit | pixels_close(cd, hd, tol)))
+  bad = (~good).nonzero().tolist()
+  if not bad:
+    return 0
+  if len(bad) > 0.01 * hs.numel():
+    raise AssertionError(f"{len(bad)} pixels off, over 1 % of {hs.numel()}")
+  orgs, dirs = render._camera_origins_dirs(mh, dh, camid, size, size,
+                                           torch.float64)
+  gen = torch.Generator().manual_seed(0)
+  for b, y, x in bad:
+    k = y * size + x
+    move = 1 + 1e-13 * (2 * torch.rand((RENDER_COPIES, 3), generator=gen,
+                                       dtype=torch.float64) - 1)
+    move[0] = 1.0
+    o, v = orgs[b, k] * move, dirs[b, k] * move
+
+    def matches(m, d, dev, other):
+      r, dd, sg = render_along(m, take_envs(d, [b]), o.to(dev, m.dtype),
+                               v.to(dev, m.dtype), **kw)
+      want_r, want_d, want_s = (t[b, y, x] for t in other)
+      same = sg.cpu() == want_s.cpu()
+      same &= pixels_close(r, want_r.expand_as(r), tol).all(-1)
+      same &= (sg.cpu() < 0) | pixels_close(dd, want_d.expand_as(dd), tol)
+      return bool(same.any())
+
+    if not (matches(mh, dh, "cpu", card) or matches(mc, dc, "cuda", cpu)):
+      raise AssertionError(f"pixel (env {b}, row {y}, col {x}): card seg "
+                           f"{int(cs[b, y, x])}, CPU {int(hs[b, y, x])}, "
+                           f"not a last-bit case")
+  return len(bad)
+
+
+def render_card_vs_cpu(name):
+  """A zoo.RENDER scene at f64, B RENDER_CHECK_B, 32×32, from the same
+  state: render (shadows on for SHADOW_SCENES) card against CPU by
+  pixel_judge; skin_update and update_scene within 1e-10. Returns
+  (pixels judged, pixels hit)."""
+  from mujoco_tpu_torch import vis
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import render, skin
+  mh = zoo.load(name, torch.float64, "cpu")
+  mc = zoo.load(name, torch.float64, "cuda")
+  dh = render_batch(mh, RENDER_CHECK_B, 81)
+  dc = dh.to("cuda")
+  kw = dict(shadows=name in SHADOW_SCENES)
+  n = RENDER_CHECK_SIZE
+  cpu = render.render(mh, dh, 0, n, n, **kw)
+  card = render.render(mc, dc, 0, n, n, **kw)
+  judged = pixel_judge(card, cpu, mc, mh, dc, dh, 0, n, RENDER_TOL, **kw)
+  pairs = [(vis.update_scene(mc, dc, contact_forces=True),
+            vis.update_scene(mh, dh, contact_forces=True))]
+  if mh.nskin:
+    pairs.append((skin.skin_update(mc, dc), skin.skin_update(mh, dh)))
+  for a, b in pairs:
+    fields = ([getattr(a, f) for f in ("pos", "mat", "size", "rgba")],
+              [getattr(b, f) for f in ("pos", "mat", "size", "rgba")]) \
+        if isinstance(a, vis.Scene) else (a, b)
+    for x, y in zip(*fields):
+      err = (x.cpu() - y).abs().max().item() if x.numel() else 0.0
+      if not err <= 1e-10:
+        raise AssertionError(f"{name}: card against CPU {err:.3e} > 1e-10")
+  return judged, int((cpu[2] >= 0).sum())
+
+
+def rebuild_frames(m, d):
+  """The frames the render reads, from the state scan_steps returns (it
+  carries only STATE_FIELDS), in fwd_position's order."""
+  from mujoco_tpu_torch.ops import smooth
+  return smooth.camlight(m, smooth.com_pos(m, smooth.kinematics(m, d)))
+
+
+def pixel_controls(m, nbatch, seed):
+  """One control per control step and env, uniform in ctrlrange."""
+  rng = np.random.default_rng(seed)
+  lo, hi = m.actuator_ctrlrange.cpu().double().numpy().T
+  return [rng.uniform(lo, hi, (nbatch, m.nu)) for _ in range(PIXEL_CONTROL)]
+
+
+def pixel_loop(m, d, controls, camid, gate):
+  """The pixel-RL loop: per control step, ctrl set, PIXEL_NSTEP steps of
+  scan_steps(check=True), the frames rebuilt, a frame of every env.
+  gate(m, frame) checks each frame and returns the share of envs that see
+  the humanoid; returns (the least such share, device ms of the steps and
+  of the frames, host wall s)."""
+  from mujoco_tpu_torch.models import io
+  from mujoco_tpu_torch.ops import render
+  from mujoco_tpu_torch.parallel import rollout
+  fresh = io.make_data(m)
+  events, seen = [], 1.0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for ctrl in controls:
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    d = d.replace(ctrl=torch.as_tensor(ctrl, dtype=m.dtype, device="cuda"))
+    ev[0].record()
+    d = rollout.scan_steps(m, d, PIXEL_NSTEP, fresh, check=True)
+    ev[1].record()
+    frame = render.render(m, rebuild_frames(m, d), camid, PIXEL_SIZE,
+                          PIXEL_SIZE)
+    ev[2].record()
+    events.append(ev)
+    seen = min(seen, gate(m, frame))
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  step_ms = sum(e[0].elapsed_time(e[1]) for e in events)
+  frame_ms = sum(e[1].elapsed_time(e[2]) for e in events)
+  return seen, step_ms, frame_ms, wall
+
+
+def pixel_gate(m, frame):
+  """Finite frames, RGB in [0, 1], depth > 0 where seg ≥ 0, the humanoid
+  (geoms 1..ngeom−1) in the frame of at least 99 % of envs; returns
+  that share."""
+  rgb, depth, seg = frame
+  hit = seg >= 0
+  if not (torch.isfinite(rgb).all() and torch.isfinite(depth[hit]).all()):
+    raise AssertionError("pixel loop: a frame is not finite")
+  if not (rgb.min() >= 0 and rgb.max() <= 1 and (depth[hit] > 0).all()):
+    raise AssertionError("pixel loop: RGB outside [0, 1] or depth ≤ 0")
+  seen = ((seg >= 1) & (seg < m.ngeom)).flatten(1).any(1).float().mean()
+  if seen < 0.99:
+    raise AssertionError(f"pixel loop: the humanoid in {seen:.2%} of envs")
+  return float(seen)
+
+
+def seg_edge(seg):
+  """(B, H, W) bool: pixels with a 4-neighbour of another seg id."""
+  pad = torch.nn.functional.pad(seg[:, None].float(), (1, 1, 1, 1),
+                                mode="replicate")[:, 0]
+  c = pad[:, 1:-1, 1:-1]
+  return ((pad[:, :-2, 1:-1] != c) | (pad[:, 2:, 1:-1] != c)
+          | (pad[:, 1:-1, :-2] != c) | (pad[:, 1:-1, 2:] != c))
+
+
+PRECISION_MOVE = 1e-6     # relative moves of the f32 rule's ray copies
+
+
+def precision_judge(frames, states, b, y, x, camid):
+  """Whether pixel (b, y, x), which misses between the f32 and the f64
+  frame of one state, is decided by f32 rounding: RENDER_COPIES copies of
+  its ray (origin and direction moved by at most PRECISION_MOVE
+  relative, about eight f32 ulps), cast at f32, give the f64 pixel (seg
+  equal, depth within 1e-4 relative) on one copy, or cast at f64 give
+  the f32 pixel."""
+  from mujoco_tpu_torch.ops import render
+  (m32, f32), (m64, f64) = states
+  orgs, dirs = render._camera_origins_dirs(m64, take_envs(f64, [b]), camid,
+                                           PIXEL_SIZE, PIXEL_SIZE,
+                                           torch.float64)
+  k = y * PIXEL_SIZE + x
+  gen = torch.Generator(device="cuda").manual_seed(k)
+  move = 1 + PRECISION_MOVE * (2 * torch.rand(
+      (RENDER_COPIES, 3), generator=gen, device="cuda",
+      dtype=torch.float64) - 1)
+  move[0] = 1.0
+  o, v = orgs[0, k] * move, dirs[0, k] * move
+  for (m, fr), (_, depth, seg) in (((m32, f32), frames[1]),
+                                   ((m64, f64), frames[0])):
+    _, dd, sg = render_along(m, take_envs(fr, [b]), o.to(m.dtype),
+                             v.to(m.dtype))
+    want_d, want_s = depth[b, y, x].double(), seg[b, y, x]
+    ok = (sg == want_s) & ((sg < 0) | ((dd.double() - want_d).abs()
+                                       <= 1e-4 * want_d.abs()))
+    if bool(ok.any()):
+      return True
+  return False
+
+
+def precision_loop(name, nbatch, controls, camid):
+  """The pixel loop at f64 (the stage path), each control step's state
+  framed at f64 and, cast to f32, rebuilt and rendered at f32: seg equal
+  on ≥ 99 % of pixels, depth within 1e-4 relative where seg agrees, and
+  every pixel that misses on a seg edge of one of the two images or
+  decided by f32 rounding (``precision_judge``, at most 1e-4 of the
+  pixels). As a witness, not a gate, each control step also runs at f32
+  through the megastep from the f64 state before it. Returns the worst
+  share of equal seg, the pixels off, those judged, and the most envs
+  the f32 step leaves off by the megastep's f32 rule (qpos within 2e-4
+  of the env's largest |value|)."""
+  from mujoco_tpu_torch.models import io, zoo
+  from mujoco_tpu_torch.ops import render
+  from mujoco_tpu_torch.parallel import rollout
+  m64, m32 = zoo.load(name, torch.float64), zoo.load(name, torch.float32)
+  fresh64, fresh32 = io.make_data(m64), io.make_data(m32)
+  d = start_batch(m64, nbatch, 93)
+  worst, nbad, judged, drifted = 1.0, 0, 0, 0
+  for step, ctrl in enumerate(controls):
+    d = d.replace(ctrl=torch.as_tensor(ctrl, dtype=torch.float64,
+                                       device="cuda"))
+    step32 = rollout.scan_steps(m32, d.to(dtype=torch.float32), PIXEL_NSTEP,
+                                fresh32, check=True)
+    d = rollout.scan_steps(m64, d, PIXEL_NSTEP, fresh64, check=True)
+    gap = ((step32.qpos.double() - d.qpos).abs().amax(1)
+           / torch.clamp(d.qpos.abs().amax(1), min=1.0))
+    drifted = max(drifted, int((gap >= 2e-4).sum()))
+    states = [(m, rebuild_frames(m, d.to(dtype=m.dtype))) for m in (m32, m64)]
+    frames = [render.render(m, f, camid, PIXEL_SIZE, PIXEL_SIZE)
+              for m, f in states]
+    (_, d32, s32), (_, d64, s64) = frames
+    same = s32 == s64
+    share = same.float().mean().item()
+    hit = same & (s64 >= 0)
+    off = ~same | (hit & ((d32.double() - d64).abs() > 1e-4 * d64.abs()))
+    inside = (off & ~(seg_edge(s32) | seg_edge(s64))).nonzero().tolist()
+    if len(inside) > 1e-4 * s64.numel():
+      raise AssertionError(f"f32 against f64, control step {step}: "
+                           f"{len(inside)} off pixels inside a region")
+    for b, y, x in inside:
+      if not precision_judge(frames, states, b, y, x, camid):
+        raise AssertionError(
+            f"f32 against f64, control step {step}: pixel (env {b}, row "
+            f"{y}, col {x}) inside a region: seg {int(s32[b, y, x])} and "
+            f"{int(s64[b, y, x])}, depth {float(d32[b, y, x])} and "
+            f"{float(d64[b, y, x])}, not decided by f32 rounding")
+    if share < 0.99:
+      raise AssertionError(f"f32 against f64, control step {step}: seg "
+                           f"equal on {share:.4%}")
+    worst, nbad, judged = (min(worst, share), nbad + int(off.sum()),
+                           judged + len(inside))
+  return worst, nbad, judged, drifted
+
+
+def phase_pixels(report, details):
+  """28: ray and render. Every zoo.RENDER scene with a camera card
+  against CPU at f64; the pixel loop of humanoid_pixels at f32, B 3072,
+  64×64, 10 control steps of 5 physics steps (one megastep launch each);
+  the same loop f32 against f64 at B 256; frame, loop and skin timings."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import megastep_cuda, ray, render, skin
+  from mujoco_tpu_torch.parallel import rollout
+
+  # card = CPU at f64 on the render, skin, vis and USD scenes
+  check = {}
+  for name in zoo.RENDER:
+    if not zoo.load(name, torch.float64, "cpu").ncam:
+      continue
+    judged, hits = render_card_vs_cpu(name)
+    check[name] = dict(judged=judged, hits=hits)
+    print(f"{name} card vs CPU f64 B{RENDER_CHECK_B} {RENDER_CHECK_SIZE}²"
+          f"{' shadows' if name in SHADOW_SCENES else ''}: depth and RGB "
+          f"within {RENDER_TOL:g} where seg agrees, {hits} pixels hit, "
+          f"{judged} judged by last-bit copies; update_scene"
+          f"{' and skin_update' if name.startswith('skin') else ''} within "
+          f"1e-10", flush=True)
+
+  name = "humanoid_pixels"
+  m = zoo.load(name, torch.float32)
+  if not megastep_cuda.supported(m):
+    raise AssertionError("the megastep refuses humanoid_pixels")
+  side = m.names["camera"]["side"]
+  npix = PIXEL_SIZE * PIXEL_SIZE
+  nbatch = B
+  while render.env_chunk(m, rollout.make_batch(m, nbatch), npix) < nbatch:
+    nbatch //= 2
+  estimate = nbatch * render.frame_bytes_per_env(m, npix, m.dtype)
+  print(f"pixel loop batch {nbatch} (a frame's peak estimated at "
+        f"{estimate / 2**30:.2f} GiB)", flush=True)
+  controls = pixel_controls(m, nbatch, 90)
+  d0 = start_batch(m, nbatch, 91)
+  # warm: one control step, not counted
+  pixel_loop(m, d0, controls[:1], side, pixel_gate)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_counts()
+  seen, step_ms, frame_ms, wall = pixel_loop(m, d0, controls, side,
+                                             pixel_gate)
+  launches = read_counts()
+  peak = torch.cuda.max_memory_allocated()
+  if launches != {"ldl_solve": 0, "newton_pyramidal": 0,
+                  "megastep": PIXEL_CONTROL}:
+    raise AssertionError(f"pixel loop launches {launches}: want one megastep "
+                         f"launch per control step and no other")
+  rate = nbatch * PIXEL_CONTROL / wall
+  print(f"pixel loop {name} f32 B{nbatch} {PIXEL_SIZE}² {PIXEL_CONTROL} "
+        f"control steps of {PIXEL_NSTEP}: launches {launches}, "
+        f"{rate:.1f} env-frames/s (wall {wall:.3f} s), device: megastep "
+        f"{step_ms:.3f} ms, frames {frame_ms:.3f} ms (share "
+        f"{frame_ms / (step_ms + frame_ms):.2%}), peak memory "
+        f"{peak / 2**30:.2f} GiB, the humanoid in at least {seen:.2%} of "
+        f"envs", flush=True)
+
+  # one frame of the whole batch: ms, kernels, idle share
+  f = rebuild_frames(m, rollout.scan_steps(m, d0, PIXEL_NSTEP, check=True))
+  frame = lambda sh=False: render.render(m, f, side, PIXEL_SIZE, PIXEL_SIZE,
+                                         shadows=sh)
+  ms = cuda_ms(frame, reps=3, warmup=1)
+  ms_shadows = cuda_ms(lambda: frame(True), reps=3, warmup=1)
+  kernels = kernel_count(frame, attempts=2)
+  orgs, dirs = render._camera_origins_dirs(m, f, side, PIXEL_SIZE,
+                                           PIXEL_SIZE, m.dtype)
+  ray_kernels = kernel_count(lambda: ray.ray(m, f, orgs, dirs), attempts=2)
+  del orgs, dirs
+  prof = profile_window(lambda: (frame(), torch.cuda.synchronize()), 1)[0]
+  step5_ms = cuda_ms(lambda: rollout.scan_steps(m, d0, PIXEL_NSTEP,
+                                                check=True), reps=5)
+  # the least a frame could take: its RGB, depth and seg written once
+  written = nbatch * npix * (4 * m.qpos0.element_size() + 4)
+  frame_bound_ms = written / PEAK_BYTES_PER_S * 1e3
+  print(f"frame {name} B{nbatch} {PIXEL_SIZE}²: {ms:.3f} ms, shadows "
+        f"{ms_shadows:.3f} ms, {kernels} device kernels ({ray_kernels} of "
+        f"them the camera rays' ray.ray), idle "
+        f"{prof['device_idle_share']:.2%} of a profiled frame "
+        f"({prof['device_busy_ms_per_step']:.3f} busy of "
+        f"{prof['wall_ms_per_step']:.3f} ms); bound by the bytes a frame "
+        f"writes {frame_bound_ms:.4f} ms ({written / 2**20:.1f} MiB); a "
+        f"megastep launch of {PIXEL_NSTEP} steps {step5_ms:.3f} ms",
+        flush=True)
+  print_profile(f"frame {name}", prof)
+  del f, d0
+
+  # f32 against f64 on the card, B 256: the frames of the f64 loop's
+  # states at both precisions
+  share, nbad, judged, drifted = precision_loop(
+      name, PIXEL_F64_B, pixel_controls(m, PIXEL_F64_B, 92), side)
+  print(f"pixel loop f64 B{PIXEL_F64_B}, its states' frames at f32 against "
+        f"f64: seg equal on at least {share:.4%} of pixels, {nbad} pixels "
+        f"off, on a seg edge but {judged} decided by f32 rounding "
+        f"(copies of the ray); witness, not a gate: the same control steps "
+        f"at f32 through the megastep leave at most {drifted} envs off by "
+        f"the megastep's f32 rule (qpos within 2e-4)", flush=True)
+
+  # skin_update at the full batch
+  mm = zoo.load("skin", torch.float32)
+  ds = rebuild_frames(mm, rollout.make_batch(mm, B))
+  ms_skin = cuda_ms(lambda: skin.skin_update(mm, ds), reps=20)
+  print(f"skin_update skin f32 B{B}: {ms_skin:.4f} ms", flush=True)
+
+  details["pixels"] = dict(
+      card_vs_cpu=check, batch=nbatch, launches=launches,
+      env_frames_per_s=rate, wall_s=wall, megastep_device_ms=step_ms,
+      frames_device_ms=frame_ms, peak_gib=peak / 2**30,
+      frame_ms=ms, frame_shadows_ms=ms_shadows, frame_kernels=kernels,
+      ray_kernels=ray_kernels, frame_bound_ms=frame_bound_ms,
+      frame_profile=prof, megastep_5_steps_ms=step5_ms,
+      peak_estimate_gib=estimate / 2**30, humanoid_seen=seen,
+      f32_f64_drifted_envs=drifted, f32_f64_seg_share=share,
+      f32_f64_off_pixels=nbad, f32_f64_judged_pixels=judged,
+      skin_update_ms=ms_skin)
+  report["megastep"].setdefault("launches_by_path", {})[name] = \
+      launches["megastep"]
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3938,7 +4373,7 @@ def main() -> int:
             phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
-            phase_actuation, phase_control_loop, phase_flex)
+            phase_actuation, phase_control_loop, phase_flex, phase_pixels)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

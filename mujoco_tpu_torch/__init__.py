@@ -25,6 +25,11 @@ module the port has):
   transition                             # mjd_transitionFD by forward AD
   randomize_model / step_randomized      # per-env (domain-randomized) Model
   ray                                    # mj_ray
+  render / render_scene                  # batched RGB, depth and seg
+  skin_update / vis / export_usd         # skins, scene table, USD stage
+
+``record`` and ``viewer`` are modules of their own (``python -m
+mujoco_tpu_torch.record``, ``python -m mujoco_tpu_torch.viewer``).
 """
 
 import torch
@@ -51,6 +56,11 @@ from mujoco_tpu_torch.ops.inverse import compare_fwd_inv, inverse
 from mujoco_tpu_torch.ops.derivative_fd import (inverse_derivatives,
                                                 transition, transition_fd)
 from mujoco_tpu_torch.ops.ray import ray, ray_geom
+from mujoco_tpu_torch import vis
+from mujoco_tpu_torch import usd_export
+from mujoco_tpu_torch.ops.skin import skin_update
+from mujoco_tpu_torch.usd_export import export_usd
+from mujoco_tpu_torch.ops.render import render, render_scene
 from mujoco_tpu_torch.ops.sleep import init_sleep
 from mujoco_tpu_torch.ops.history import (init_ctrl_history,
                                           init_sensor_history, read_ctrl,

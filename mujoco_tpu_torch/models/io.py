@@ -913,6 +913,7 @@ def _flex_fields(mjm: Any) -> dict:
       "flex_stiffness_interp": (jx(mjm.flex_stiffness)
                                 if (interp >= 1).any() else np.zeros(0)),
       "flex_radius": jx(mjm.flex_radius),
+      "flex_rgba": jx(mjm.flex_rgba, -1, 4),
       "flexedge_length0": jx(mjm.flexedge_length0),
       "flexedge_invweight0": jx(mjm.flexedge_invweight0),
       "flex_edgestiffness": jx(mjm.flex_edgestiffness),
@@ -1069,6 +1070,9 @@ def model_numpy(mjm: Any) -> dict:
   f["actuator_delay"] = _opt(mjm, "actuator_delay", (mjm.nu,), np.float64)
   f.update(_sensor_meta(mjm))
   f.update(_asset_fields(mjm))
+  f.update(_render_fields(mjm))
+  f.update({f"vis_meta.{k}": v for k, v in _flat_tuples(
+      _vis_meta_of(mjm)).items()})
   f["eq_active0"] = np.array(mjm.eq_active0, dtype=bool)
   f["actuator_dyntype"], f["actuator_gaintype"], f["actuator_biastype"] = (
       dyn, gain, bias)
@@ -1092,6 +1096,95 @@ def _asset_fields(mjm: Any) -> dict:
   f["hfield_data"] = np.asarray(mjm.hfield_data, np.float64)
   for i, hull in enumerate(_mesh_hulls(mjm)):
     f[f"mesh_hull_idx.{i}"] = hull
+  return f
+
+
+def _vis_meta_of(mjm: Any) -> dict:
+  """The mjVisual and mjStatistic values of the scene glyphs and the
+  headlight (mujoco_tpu/models/io.py:84-117)."""
+  vis, stat = mjm.vis, mjm.stat
+  three = lambda x: tuple(np.broadcast_to(np.asarray(x, np.float64),
+                                          3).tolist())
+  four = lambda x: tuple(np.asarray(x, np.float64).tolist())
+  return dict(
+      meansize=float(stat.meansize), meanmass=float(stat.meanmass),
+      contactwidth=float(vis.scale.contactwidth),
+      contactheight=float(vis.scale.contactheight),
+      forcewidth=float(vis.scale.forcewidth),
+      map_force=float(vis.map.force),
+      rgba_contactpoint=four(vis.rgba.contactpoint),
+      rgba_contactforce=four(vis.rgba.contactforce),
+      headlight_active=int(vis.headlight.active),
+      headlight_ambient=three(vis.headlight.ambient),
+      headlight_diffuse=three(vis.headlight.diffuse),
+      headlight_specular=three(vis.headlight.specular))
+
+
+def _flat_tuples(table: dict) -> dict:
+  """A dict of scalars and tuples as ``flatten`` lays it out: a tuple's
+  items under ``key.i``."""
+  out = {}
+  for k, v in table.items():
+    if isinstance(v, tuple):
+      out.update({f"{k}.{i}": np.asarray(x) for i, x in enumerate(v)})
+    else:
+      out[k] = np.asarray(v)
+  return out
+
+
+def _render_fields(mjm: Any) -> dict:
+  """Geom colors and groups, camera projections, light photometry,
+  materials, textures and skins (mujoco_tpu/models/io.py:119-235, :1492,
+  :1495, :1592): tex_data is every texture's texels as RGB in [0, 1], a
+  texture of 1 or 2 channels broadcast from its first, of 4 cut to 3."""
+  jx = lambda x, *shape: np.asarray(x, dtype=np.float64).reshape(shape or -1)
+  si = lambda x, *shape: np.asarray(x, dtype=np.int32).reshape(shape or -1)
+  f = {"geom_group": si(mjm.geom_group), "geom_rgba": jx(mjm.geom_rgba, -1, 4),
+       "cam_projection": si(mjm.cam_projection),
+       "light_type": si(mjm.light_type),
+       "light_active": np.asarray(mjm.light_active, bool).reshape(-1),
+       "light_castshadow": np.asarray(mjm.light_castshadow, bool).reshape(-1),
+       "nmat": int(mjm.nmat), "ntex": int(mjm.ntex),
+       "geom_matid": si(mjm.geom_matid),
+       "mat_texuniform": np.asarray(mjm.mat_texuniform, bool).reshape(-1),
+       "mat_texrepeat": jx(mjm.mat_texrepeat, -1, 2),
+       "mat_rgba": jx(mjm.mat_rgba, -1, 4),
+       "nskin": int(mjm.nskin), "skin_rgba": jx(mjm.skin_rgba, -1, 4),
+       "skin_vert": jx(mjm.skin_vert, -1, 3),
+       "skin_face": si(mjm.skin_face, -1, 3),
+       "skin_bonebindpos": jx(mjm.skin_bonebindpos, -1, 3),
+       "skin_bonebindquat": jx(mjm.skin_bonebindquat, -1, 4)}
+  for name in ("ambient", "diffuse", "specular", "attenuation"):
+    f[f"light_{name}"] = jx(getattr(mjm, f"light_{name}"), -1, 3)
+  for name in ("light_cutoff", "light_exponent", "mat_emission",
+               "mat_specular", "mat_shininess", "mat_reflectance",
+               "skin_inflate", "skin_bonevertweight"):
+    f[name] = jx(getattr(mjm, name))
+  for name in ("skin_matid", "skin_group", "skin_vertadr", "skin_vertnum",
+               "skin_faceadr", "skin_facenum", "skin_boneadr",
+               "skin_bonenum", "skin_bonevertadr", "skin_bonevertnum",
+               "skin_bonebodyid", "skin_bonevertid"):
+    f[name] = si(getattr(mjm, name))
+  # the RGB role's texture where a material has one per role (mjNTEXROLE)
+  texid = np.asarray(mjm.mat_texid)
+  f["mat_texid"] = si(texid[:, 1] if texid.ndim == 2 else texid)
+  ntex = int(mjm.ntex)
+  width, height = si(mjm.tex_width), si(mjm.tex_height)
+  nchan, src_adr = si(mjm.tex_nchannel), np.asarray(mjm.tex_adr)
+  src = np.asarray(mjm.tex_data)
+  if src.dtype == np.uint8:
+    src = src.astype(np.float64) / 255.0
+  adr, chunks, off = np.zeros(ntex, dtype=np.int64), [], 0
+  for t in range(ntex):
+    npix, c = int(width[t]) * int(height[t]), int(nchan[t])
+    block = src[int(src_adr[t]):int(src_adr[t]) + npix * c].reshape(npix, c)
+    block = block[:, :3] if c >= 3 else np.repeat(block[:, :1], 3, axis=1)
+    adr[t] = off
+    chunks.append(block.ravel())
+    off += npix * 3
+  f.update(tex_type=si(mjm.tex_type), tex_adr=adr, tex_width=width,
+           tex_height=height,
+           tex_data=np.concatenate(chunks) if chunks else np.zeros(0))
   return f
 
 
@@ -1132,6 +1225,24 @@ def _groups(fields: dict, name: str) -> tuple:
   return tuple(out)
 
 
+def _vis_meta(fields: dict, pre: str) -> dict:
+  """``vis_meta`` from its flat ``vis_meta.key[.i]`` fields: tuples of
+  floats, the headlight's on/off an int, every other value a float."""
+  items = {}
+  for k, v in fields.items():
+    if k.startswith(pre):
+      key, _, i = k[len(pre):].partition(".")
+      items.setdefault(key, {})[int(i) if i else None] = v
+  out = {}
+  for key, parts in items.items():
+    if None in parts:
+      v = np.asarray(parts[None])
+      out[key] = int(v) if v.dtype.kind in "biu" else float(v)
+    else:
+      out[key] = tuple(float(parts[i]) for i in range(len(parts)))
+  return out
+
+
 def _build(cls, fields: dict, prefix: str, device, dtype):
   """Instantiate dataclass ``cls`` from flat fields under ``prefix``."""
   nested = {"Option": Option, "TreeTopology": TreeTopology,
@@ -1142,6 +1253,8 @@ def _build(cls, fields: dict, prefix: str, device, dtype):
     name = prefix + f.name
     if f.type in nested:
       kw[f.name] = _build(nested[f.type], fields, name + ".", device, dtype)
+    elif f.type == "dict" and f.name == "vis_meta":
+      kw[f.name] = _vis_meta(fields, name + ".")
     elif f.type == "dict":
       pre = name + "."
       table = {}

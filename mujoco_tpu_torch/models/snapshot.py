@@ -19,7 +19,10 @@ tests/test_implicit.py and tests/models.py; and ``humanoid_elliptic``,
 the flagship humanoid at the elliptic cone and implicitfast; the flex
 scenes (``zoo.FLEX``) of tests/test_flex.py, test_strain.py,
 test_flex_self.py and test_sleep.py, and ``humanoid_hammock``, the
-flagship lying in a pinned cloth. A snapshot records the flex slot
+flagship lying in a pinned cloth; the render, skin, vis and USD scenes
+(``zoo.RENDER``) of tests/test_render.py, test_skin.py, test_vis.py and
+test_usd.py, and ``humanoid_pixels``, the flagship with dm_control's
+humanoid visuals. A snapshot records the flex slot
 budgets it was compiled at (``con.flex_budget``, the self and internal
 groups' sizes): ``flex_budgets`` sets each scene's (the defaults but for
 the small flex scenes) whatever the environment holds. Every scene is compiled with
@@ -1864,6 +1867,276 @@ def humanoid_hammock_xml() -> str:
   return xml
 
 
+# ---------------------------------------------------------------------------
+# ray and render: the reference's render, skin, vis and USD test scenes
+# (zoo.RENDER) and the pixel-RL humanoid
+# ---------------------------------------------------------------------------
+
+# tests/test_render.py:21 ``SCENE``: the five primitives on a plane
+RENDER_PRIMITIVES_XML = """
+<mujoco>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1" rgba="0.5 0.5 0.5 1"/>
+    <body pos="0 0 0.5"><freejoint/>
+      <geom type="sphere" size="0.3" rgba="1 0 0 1"/></body>
+    <body pos="1 0 0.3"><freejoint/>
+      <geom type="box" size="0.2 0.2 0.3" euler="0 0 30" rgba="0 1 0 1"/>
+    </body>
+    <body pos="-1 0.5 0.4"><freejoint/>
+      <geom type="capsule" size="0.15" fromto="0 0 0 0 0 0.4"
+            rgba="0 0 1 1"/></body>
+    <body pos="0.2 1 0.8"><freejoint/>
+      <geom type="ellipsoid" size="0.2 0.3 0.15"/></body>
+    <body pos="-0.8 -0.5 0.3"><freejoint/>
+      <geom type="cylinder" size="0.15 0.2" euler="30 0 0"/></body>
+    <camera name="cam" pos="0 -3 1.5" xyaxes="1 0 0 0 0.4 0.9"/>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_render.py:73 ``LIT_SCENE``: a checker floor, a skybox, a
+# material sphere, an emissive box and a spot light
+RENDER_LIT_XML = """
+<mujoco>
+  <visual><headlight active="0"/></visual>
+  <asset>
+    <texture name="grid" type="2d" builtin="checker" rgb1="1 0 0"
+             rgb2="0 0 1" width="8" height="8"/>
+    <texture name="sky" type="skybox" builtin="flat" rgb1=".3 .5 .7"
+             width="4" height="4"/>
+    <material name="floor" texture="grid" texrepeat="2 2"/>
+    <material name="glow" emission="1" rgba="0 1 0 1"/>
+    <material name="plain" rgba="1 0 1 1"/>
+  </asset>
+  <worldbody>
+    <light name="top" pos="0 0 4" dir="0 0 -1" diffuse="1 1 1"
+           ambient=".1 .1 .1" cutoff="80" exponent="0"/>
+    <geom name="floor" type="plane" size="2 2 .1" material="floor"/>
+    <geom name="ball" type="sphere" size=".3" pos="0 0 .6"
+          material="plain"/>
+    <geom name="glowbox" type="box" size=".1 .1 .1" pos="1.2 0 .1"
+          material="glow"/>
+    <camera name="down" pos="0 0 3" xyaxes="1 0 0 0 1 0"/>
+  </worldbody>
+</mujoco>"""
+
+_LIT_LIGHT = ('<light name="top" pos="0 0 4" dir="0 0 -1" diffuse="1 1 1"\n'
+              '           ambient=".1 .1 .1" cutoff="80" exponent="0"/>')
+_LIT_BALL = ('<geom name="ball" type="sphere" size=".3" pos="0 0 .6"\n'
+             '          material="plain"/>')
+
+
+def _lit_variant(old: str, new: str, xml: str = RENDER_LIT_XML) -> str:
+  assert old in xml, old
+  return xml.replace(old, new)
+
+
+# its variants in tests/test_render.py: the geom rgba over the material
+# (:165), the directional light (:197), the narrow spot without the ball
+# (:215), the oblique light of the shadow test (:232) and the side camera
+# that sees the skybox (:183)
+RENDER_LIT_VARIANTS = {
+    "render_lit_rgba": ('material="plain"', 'material="plain" rgba="1 1 0 1"'),
+    "render_lit_directional": (_LIT_LIGHT, '<light name="side" '
+                               'type="directional" dir="-1 0 -.2" '
+                               'diffuse="1 1 1"/>'),
+    "render_lit_spot": None,
+    "render_lit_oblique": ('<light name="top" pos="0 0 4"',
+                           '<light name="top" pos="2 0 4"'),
+    "render_lit_side": ('pos="0 0 3" xyaxes="1 0 0 0 1 0"',
+                        'pos="0 -4 1" xyaxes="1 0 0 0 .3 .95"'),
+}
+
+
+def render_lit_xml(name: str) -> str:
+  if name == "render_lit":
+    return RENDER_LIT_XML
+  if name == "render_lit_spot":
+    return _lit_variant(_LIT_BALL, "", _lit_variant(
+        'cutoff="80" exponent="0"', 'cutoff="10" exponent="0"'))
+  return _lit_variant(*RENDER_LIT_VARIANTS[name])
+
+
+# tests/test_render.py:156 (test_hfield_and_mesh): a height field whose
+# elevations the test sets to a ramp after compiling, and a tetrahedron
+RENDER_HFIELD_MESH_XML = """
+<mujoco>
+  <asset>
+    <hfield name="hf" nrow="6" ncol="6" size="2 2 0.5 0.1"/>
+    <mesh name="tet" vertex="0 0 0  0.4 0 0  0 0.4 0  0 0 0.4"/>
+  </asset>
+  <worldbody>
+    <geom type="hfield" hfield="hf" pos="0 0 0" contype="0" conaffinity="0"/>
+    <body pos="0 0 1"><freejoint/>
+      <geom type="mesh" mesh="tet" rgba="1 1 0 1" contype="0" conaffinity="0"/></body>
+    <camera name="c" pos="0 -2.5 1.8" xyaxes="1 0 0 0 0.5 0.87"/>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_render.py:312 (test_orthographic_camera) at the height its
+# native-compiler check uses
+RENDER_ORTHO_XML = """
+<mujoco>
+  <worldbody>
+    <geom type="plane" size="6 6 .1"/>
+    <body pos="0 0 1.0"><freejoint/><geom type="sphere" size=".3"/></body>
+    <camera name="c" projection="orthographic" fovy="2" pos="0 0 4"
+            xyaxes="1 0 0 0 1 0"/>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_skin.py:22 ``SKIN_XML``: a two-bone arm in an 8-vertex sleeve
+SKIN_XML = """
+<mujoco>
+  <asset>
+    <skin name="sleeve" inflate="0.01" rgba=".8 .3 .3 1"
+      vertex="0 -.1 -.1   0 .1 -.1   0 .1 .1   0 -.1 .1
+              .4 -.1 -.1  .4 .1 -.1  .4 .1 .1  .4 -.1 .1"
+      face="0 1 2  0 2 3  4 6 5  4 7 6  0 4 5  0 5 1
+            1 5 6  1 6 2  2 6 7  2 7 3  3 7 4  3 4 0">
+      <bone body="upper" bindpos="0 0 0" bindquat="1 0 0 0"
+            vertid="0 1 2 3 4 5 6 7"
+            vertweight=".9 .9 .9 .9 .3 .3 .3 .3"/>
+      <bone body="lower" bindpos="0.4 0 0" bindquat="1 0 0 0"
+            vertid="0 1 2 3 4 5 6 7"
+            vertweight=".1 .1 .1 .1 .7 .7 .7 .7"/>
+    </skin>
+  </asset>
+  <worldbody>
+    <body name="upper" pos="0 0 1">
+      <joint name="shoulder" type="hinge" axis="0 1 0" damping=".1"/>
+      <geom type="capsule" size=".05" fromto="0 0 0 .4 0 0"/>
+      <body name="lower" pos="0.4 0 0">
+        <joint name="elbow" type="hinge" axis="0 1 0" damping=".1"/>
+        <geom type="capsule" size=".04" fromto="0 0 0 .3 0 0"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_skin.py:180 (test_render_composites_skin_and_flex): the
+# sleeve with a 3×3 cloth pad and a camera above
+SKIN_FLEX_XML = SKIN_XML.replace(
+    "</worldbody>",
+    """<flexcomp name="pad" type="grid" dim="2" count="3 3 1"
+           spacing="0.15 0.15 0.15" pos="0.2 0.6 1" mass="0.3" rgba="0 0 1 1">
+           <contact selfcollide="none"/></flexcomp>
+         <camera name="c" pos="0.2 0.3 3" xyaxes="1 0 0 0 1 0"/>
+      </worldbody>""")
+
+# tests/test_vis.py:19 ``_XML``: a box settling on a plane
+VIS_BOX_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 .1"/>
+    <body pos="0 0 0.3"><freejoint/>
+      <geom type="box" size="0.1 0.08 0.06" mass="0.5" rgba="0.8 0.2 0.2 1"/>
+    </body>
+    <camera name="cam" pos="0.8 0 0.5" xyaxes="0 -1 0 -0.4 0 0.9"/>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_usd.py:20 ``XML``: a material ball, a mesh, a capsule, two
+# lights and a camera
+USD_SCENE_XML = """
+<mujoco>
+  <asset>
+    <mesh name="tet" vertex="0 0 0  .2 0 0  0 .2 0  0 0 .2"/>
+    <material name="red" rgba="1 0 0 1"/>
+  </asset>
+  <worldbody>
+    <light pos="0 0 3" dir="0 0 -1"/>
+    <light directional="true" pos="1 0 3" dir="0 0 -1"/>
+    <geom name="floor" type="plane" size="3 3 .1"/>
+    <body pos="0 0 1"><freejoint/>
+      <geom name="ball" type="sphere" size=".25" material="red"/></body>
+    <body pos="1 0 1"><freejoint/>
+      <geom name="chunk" type="mesh" mesh="tet"/></body>
+    <body pos="-1 0 .5"><freejoint/>
+      <geom name="pill" type="capsule" size=".1 .2"/></body>
+    <camera name="cam" pos="0 -3 1" xyaxes="1 0 0 0 .3 .95"/>
+  </worldbody>
+</mujoco>"""
+
+# tests/test_usd.py:103 (test_usd_flex_and_skin_meshes): a skinned flag on
+# a hinged pole and a falling cloth pad
+USD_FLEX_SKIN_XML = """
+<mujoco>
+  <asset>
+    <skin name="flag" rgba=".9 .2 .2 1"
+      vertex="0 0 0  .2 0 0  .2 .2 0  0 .2 0"
+      face="0 1 2  0 2 3">
+      <bone body="pole" bindpos="0 0 0" bindquat="1 0 0 0"
+            vertid="0 1 2 3" vertweight="1 1 1 1"/>
+    </skin>
+  </asset>
+  <worldbody>
+    <geom type="plane" size="2 2 .1"/>
+    <body name="pole" pos="0 0 1"><joint type="hinge" axis="0 1 0"/>
+      <geom type="capsule" size=".02" fromto="0 0 0 .3 0 0"/></body>
+    <flexcomp name="pad" type="grid" dim="2" count="3 3 1"
+              spacing="0.1 0.1 0.1" pos="0.5 0 0.5" mass="0.2"
+              rgba="0 0 1 1">
+      <contact selfcollide="none"/></flexcomp>
+  </worldbody>
+</mujoco>"""
+
+_RENDER = {"render_primitives": lambda: RENDER_PRIMITIVES_XML,
+           **{n: (lambda n=n: render_lit_xml(n))
+              for n in ("render_lit",) + tuple(RENDER_LIT_VARIANTS)},
+           "render_hfield_mesh": lambda: RENDER_HFIELD_MESH_XML,
+           "render_ortho": lambda: RENDER_ORTHO_XML,
+           "skin": lambda: SKIN_XML, "skin_flex": lambda: SKIN_FLEX_XML,
+           "vis_box": lambda: VIS_BOX_XML, "usd_scene": lambda: USD_SCENE_XML,
+           "usd_flex_skin": lambda: USD_FLEX_SKIN_XML}
+
+# dm_control's humanoid visuals (suite/humanoid.xml with
+# suite/common/skybox.xml, visual.xml and materials.xml), the skybox and
+# the grid cut from 800 and 300 texels to 64 and the skybox's random
+# marks left out, so that the snapshot stays small
+PIXELS_ASSETS = """
+  <visual>
+    <headlight ambient=".4 .4 .4" diffuse=".8 .8 .8" specular=".1 .1 .1"/>
+  </visual>
+  <asset>
+    <texture name="skybox" type="skybox" builtin="gradient" rgb1=".4 .6 .8"
+             rgb2="0 0 0" width="64" height="64"/>
+    <texture name="grid" type="2d" builtin="checker" rgb1=".1 .2 .3"
+             rgb2=".2 .3 .4" width="64" height="64" mark="edge"
+             markrgb=".2 .3 .4"/>
+    <material name="grid" texture="grid" texrepeat="1 1" texuniform="true"
+              reflectance=".2"/>
+    <material name="self" rgba=".7 .5 .3 1"/>
+  </asset>
+"""
+PIXELS_ROOT = """
+      <light name="top" pos="0 0 2" mode="trackcom"/>
+      <camera name="back" pos="-3 0 1" xyaxes="0 -1 0 1 0 2" mode="trackcom"/>
+      <camera name="side" pos="0 -3 1" xyaxes="1 0 0 0 1 2" mode="trackcom"/>"""
+
+
+def humanoid_pixels_xml() -> str:
+  """The flagship humanoid (physics unchanged: nv 27, 21 motors, Newton
+  at 1 iteration and 4 linesearch steps, Euler, eulerdamp off) with
+  dm_control's humanoid visuals: its headlight, a gradient skybox, the
+  checker floor material, the body material on every body geom, and a
+  light and the back and side cameras tracking the center of mass."""
+  with open(os.path.join(zoo.XML_DIR, "humanoid.xml")) as f:
+    xml = f.read()
+  edits = (('<worldbody>', PIXELS_ASSETS + '  <worldbody>'),
+           ('contype="1" conaffinity="0" density="980"/>',
+            'contype="1" conaffinity="0" density="980" material="self"/>'),
+           ('contype="1" conaffinity="1" friction="1.0 0.009 0.0012"/>',
+            'contype="1" conaffinity="1" friction="1.0 0.009 0.0012"\n'
+            '          material="grid"/>'),
+           ('<freejoint name="rootjoint"/>',
+            '<freejoint name="rootjoint"/>' + PIXELS_ROOT))
+  for old, new in edits:
+    assert xml.count(old) == 1, old
+    xml = xml.replace(old, new)
+  return xml
+
+
 # scene → (XML builder, {budget variable: value} set while it compiles): the
 # small scenes at the flex budget their tests use (32; the strip 64 and 32
 # self slots, tests/test_flex_self.py:103), the hammock at the default 8
@@ -1970,6 +2243,15 @@ def compile_mj(name: str):
     return mjm
   if name in _MANY_BODY:
     return _MANY_BODY[name]()
+  if name == "humanoid_pixels":
+    # the flagship's physics, islands as the flagship's
+    return mujoco.MjModel.from_xml_string(humanoid_pixels_xml())
+  if name in _RENDER:
+    mjm = mujoco.MjModel.from_xml_string(_RENDER[name]())
+    mjm.opt.disableflags |= int(DisableBit.ISLAND)
+    if name == "render_hfield_mesh":
+      mjm.hfield_data[:] = np.linspace(0, 1, 36)
+    return mjm
   if name in ("humanoid_sensors", "quadruped_sim2real"):
     mjm = (humanoid_sensors_mj() if name == "humanoid_sensors"
            else quadruped_sim2real_mj())

@@ -3,7 +3,7 @@
 Enum values match the reference public API (mujoco_tpu/models/types.py:36-247).
 ``Option`` (:255), ``TreeTopology`` (:292), ``ContactMeta`` (:320),
 ``EfcMeta`` (:450), ``Model`` (:487), ``Contact`` (:913) and ``Data`` (:945)
-carry only the fields the port's stages read or write: the rigid-body
+carry only the fields the port's stages and its renderer read or write: the rigid-body
 constraint class (equality, friction-loss, limit and contact rows, explicit
 pairs, cameras and lights), tendons, site and slider-crank transmissions,
 mocap bodies, the many-body fields (kinematic trees, dynamic pair
@@ -14,8 +14,10 @@ groups, sleep), the meshes and height fields of the narrowphase
 control and output blocks, DC-motor and PID slots, fluid and actuator
 gravity-compensation fields (:264-267, :514-516, :613-614, :667-708,
 :861-868; Data ``qfrc_fluid`` :1006 and ``history`` :1064), and the
-keyframes (:508, :839-845) and ``qfrc_inverse`` (:1031); later slices add
-the rest with their modules. Field
+keyframes (:508, :839-845) and ``qfrc_inverse`` (:1031), and the render
+fields: geom colors and groups, camera projections, light photometry,
+materials, textures, skins, flex colors and ``vis_meta`` (:590-602, :747,
+:768, :782-836, :875); later slices add the rest with their modules. Field
 names are the reference's, so a field here and the same-named field of a
 ``mujoco_tpu`` Model or Data hold the same quantity.
 
@@ -563,6 +565,10 @@ class Model:
   # where the first is above 0
   geom_fluid: torch.Tensor = field()
   geom_has_fluid: np.ndarray = static_field()
+  # render fields (mujoco_tpu/models/types.py:590, :602): the visibility
+  # group (ray's geomgroup filter) and the color
+  geom_group: np.ndarray = static_field()
+  geom_rgba: torch.Tensor = field()               # (ngeom, 4)
 
   site_bodyid: np.ndarray = static_field()
   site_type: np.ndarray = static_field()
@@ -601,6 +607,7 @@ class Model:
   cam_fovy: torch.Tensor = field()
   cam_intrinsic: torch.Tensor = field()    # (ncam, 4)
   cam_sensorsize: torch.Tensor = field()   # (ncam, 2)
+  cam_projection: np.ndarray = static_field()  # (ncam,) mjtProjection
   light_bodyid: np.ndarray = static_field()
   light_targetbodyid: np.ndarray = static_field()
   light_mode: np.ndarray = static_field()
@@ -609,6 +616,17 @@ class Model:
   light_pos0: torch.Tensor = field()
   light_poscom0: torch.Tensor = field()
   light_dir0: torch.Tensor = field()
+  # light photometry (mujoco_tpu/models/types.py:782-790), which
+  # ops/render.py shades with
+  light_type: np.ndarray = static_field()        # (nlight,) mjtLightType
+  light_active: np.ndarray = static_field()      # (nlight,) bool
+  light_castshadow: np.ndarray = static_field()  # (nlight,) bool
+  light_ambient: torch.Tensor = field()          # (nlight, 3)
+  light_diffuse: torch.Tensor = field()          # (nlight, 3)
+  light_specular: torch.Tensor = field()         # (nlight, 3)
+  light_attenuation: torch.Tensor = field()      # (nlight, 3) K0 K1 K2
+  light_cutoff: torch.Tensor = field()           # (nlight,) spot, degrees
+  light_exponent: torch.Tensor = field()         # (nlight,) spot
 
   actuator_trntype: np.ndarray = static_field()
   actuator_dyntype: np.ndarray = static_field()
@@ -699,6 +717,49 @@ class Model:
   hfield_size_np: np.ndarray = static_field()     # (nhfield, 4)
   hfield_data: torch.Tensor = field()             # (nhfielddata,)
 
+  # materials and textures (mujoco_tpu/models/types.py:796-811; the
+  # setMaterial rule resolves a geom's color): tex_data is every texture's
+  # RGB rows in [0, 1], one flat stream
+  nmat: int = static_field()
+  ntex: int = static_field()
+  geom_matid: np.ndarray = static_field()        # (ngeom,) −1 if none
+  mat_texid: np.ndarray = static_field()         # (nmat,) RGB-role texture
+  mat_texuniform: np.ndarray = static_field()    # (nmat,) bool
+  mat_texrepeat: torch.Tensor = field()          # (nmat, 2)
+  mat_rgba: torch.Tensor = field()               # (nmat, 4)
+  mat_emission: torch.Tensor = field()           # (nmat,)
+  mat_specular: torch.Tensor = field()           # (nmat,)
+  mat_shininess: torch.Tensor = field()          # (nmat,)
+  mat_reflectance: torch.Tensor = field()        # (nmat,)
+  tex_type: np.ndarray = static_field()          # (ntex,) mjtTexture
+  tex_adr: np.ndarray = static_field()           # (ntex,) into tex_data
+  tex_width: np.ndarray = static_field()         # (ntex,)
+  tex_height: np.ndarray = static_field()        # (ntex,)
+  tex_data: torch.Tensor = field()               # (ntexdata,)
+
+  # skins (mujoco_tpu/models/types.py:817-836; posed by ops/skin.py):
+  # topology static, rest vertices, bind poses and weights tensors
+  nskin: int = static_field()
+  skin_matid: np.ndarray = static_field()        # (nskin,)
+  skin_group: np.ndarray = static_field()        # (nskin,)
+  skin_rgba: torch.Tensor = field()              # (nskin, 4)
+  skin_inflate: torch.Tensor = field()           # (nskin,)
+  skin_vertadr: np.ndarray = static_field()      # (nskin,)
+  skin_vertnum: np.ndarray = static_field()
+  skin_faceadr: np.ndarray = static_field()
+  skin_facenum: np.ndarray = static_field()
+  skin_boneadr: np.ndarray = static_field()
+  skin_bonenum: np.ndarray = static_field()
+  skin_vert: torch.Tensor = field()              # (nskinvert, 3) rest pose
+  skin_face: np.ndarray = static_field()         # (nskinface, 3)
+  skin_bonevertadr: np.ndarray = static_field()  # (nskinbone,)
+  skin_bonevertnum: np.ndarray = static_field()
+  skin_bonebodyid: np.ndarray = static_field()
+  skin_bonebindpos: torch.Tensor = field()       # (nskinbone, 3)
+  skin_bonebindquat: torch.Tensor = field()      # (nskinbone, 4)
+  skin_bonevertid: np.ndarray = static_field()   # (nskinbonevert,)
+  skin_bonevertweight: torch.Tensor = field()    # (nskinbonevert,)
+
   # sensors (mujoco_tpu/models/types.py:851-869): mjtSensor, mjtDataType,
   # mjtStage and mjtObj values, each sensor's object and reference (−1:
   # none) and its span of sensordata
@@ -737,6 +798,7 @@ class Model:
   # an interpolated flex's per-cell FEM stiffness as compiled (−K)
   flex_stiffness_interp: torch.Tensor = field()
   flex_radius: torch.Tensor = field()           # (nflex,)
+  flex_rgba: torch.Tensor = field()             # (nflex, 4) render color
   flexedge_length0: torch.Tensor = field()      # (nedge,)
   flexedge_invweight0: torch.Tensor = field()
   flex_edgestiffness: torch.Tensor = field()    # (nflex,)
@@ -754,6 +816,10 @@ class Model:
   flex_bending: torch.Tensor = field()          # (nedge, 17)
 
   names: dict = static_field()
+  # the mjVisual and mjStatistic values the scene glyphs and the headlight
+  # read (mujoco_tpu/models/io.py:84 ``_vis_meta_of``): floats, the
+  # headlight's on/off an int, colors tuples
+  vis_meta: dict = static_field()
 
   def disabled(self, bit: DisableBit) -> bool:
     return bool(self.opt.disableflags & bit)

@@ -36,7 +36,11 @@ contact, tactile, geom-distance and rangefinder sensors,
 scenes, carried across from the reference's Models as
 ``multi_humanoid3`` is. ``FLEX`` are the flex scenes,
 ``humanoid_hammock`` (the flagship humanoid lying in a pinned cloth)
-first.
+first. ``RENDER`` are the reference's render, skin, vis and USD scenes;
+``humanoid_pixels`` is the flagship with dm_control's humanoid visuals
+(a headlight, a gradient skybox, a checker floor, a body material, a
+light and the ``back`` and ``side`` cameras tracking the center of mass),
+the pixel-RL scene.
 """
 
 from __future__ import annotations
@@ -132,11 +136,19 @@ FLEX = ("humanoid_hammock", "cloth_pinned", "cloth_bodies",
         "cloth_plane_drop", "cable_springs", "rope_floor", "rope_bodies",
         "cloth_elastic", "gel_plane_drop", "gel_trilinear", "gel_strain",
         "rope_self", "strip_self", "gel_internal", "cloth_sleep")
+# ray and render: the reference's render scenes (the primitives, the lit
+# scene with its geom-rgba, directional, spot, oblique-light and side-camera
+# variants, the height field and mesh, the orthographic camera), its skin,
+# skin-and-flex, vis and USD scenes (models/snapshot.py cites each)
+RENDER = ("render_primitives", "render_lit", "render_lit_rgba",
+          "render_lit_directional", "render_lit_spot", "render_lit_oblique",
+          "render_lit_side", "render_hfield_mesh", "render_ortho", "skin",
+          "skin_flex", "vis_box", "usd_scene", "usd_flex_skin")
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
              + ("humanoid_elliptic",) + MANY_BODY + CONVEX + SENSORS
-             + ACTUATION + FLEX)
+             + ACTUATION + FLEX + RENDER + ("humanoid_pixels",))
 # the SO3 scenes of tests/test_so3.py and tests/test_actuator.py's PID,
 # which the pip compiler predates
 ACTUATION_CARRIED = ("so3_refsite", "so3_ball", "so3_integrator", "pid")

@@ -1119,3 +1119,19 @@ def test_flex_scene_card_matches_cpu_f64(cuda, name):
     assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
             megastep_cuda.LAUNCHES) == (3, 3, 0)
     assert torch.isfinite(d.qpos).all()
+
+
+@pytest.mark.parametrize("name", ["render_lit_oblique", "skin_flex"])
+def test_render_card_matches_cpu_f64(cuda, name):
+  """A render scene at f64, B 8, 32×32 (shadows on for the oblique
+  light; the skin and flex composite): the card's frame against the
+  CPU's, depth and RGB within 1e-8 where seg agrees, a pixel that misses
+  judged by last-bit copies of its ray on both sides
+  (chip_smoke.render_card_vs_cpu); skin_update and update_scene within
+  1e-10; no kernel of the port is launched by a frame."""
+  import chip_smoke as cs
+  linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = megastep_cuda.LAUNCHES = 0
+  judged, hits = cs.render_card_vs_cpu(name)
+  assert hits > 0 and judged <= 0.01 * 8 * 32 * 32
+  assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
+          megastep_cuda.LAUNCHES) == (0, 0, 0)

@@ -107,21 +107,32 @@ def _mujoco_imports(path):
 def test_pip_mujoco_is_imported_inside_functions_only():
   """No module of the port imports the pip mujoco at import time; in
   models/io.py only the compile side of put_model and the get_data bridge
-  import it, and in the rest of the package only the snapshot writer."""
-  io_allowed = {"_names", "_actuator_meta", "_sensor_meta", "get_data",
-                "get_data_into"}
+  import it; the viewer bridges (vis.update_scene_into, viewer.launch)
+  and record's XML loader import it as the reference's do; and in the
+  rest of the package only the snapshot writer."""
+  allowed = {
+      os.path.join("models", "io.py"): {"_names", "_actuator_meta",
+                                        "_sensor_meta", "get_data",
+                                        "get_data_into"},
+      "vis.py": {"update_scene_into"}, "viewer.py": {"launch"},
+      "record.py": {"load_model"}}
   seen = set()
   for path in _sources():
     for fn, line in _mujoco_imports(path):
       assert fn is not None, f"{path}:{line} imports mujoco at module level"
       rel = os.path.relpath(path, ROOT)
-      if rel == os.path.join("mujoco_tpu_torch", "models", "io.py"):
-        assert fn in io_allowed, f"{rel}:{line} in {fn}"
-        seen.add(fn)
-      elif rel.startswith("mujoco_tpu_torch"):
-        assert rel == os.path.join("mujoco_tpu_torch", "models",
-                                   "snapshot.py"), f"{rel}:{line}"
-  assert {"get_data", "get_data_into"} <= seen
+      if not rel.startswith("mujoco_tpu_torch"):
+        continue
+      sub = os.path.relpath(rel, "mujoco_tpu_torch")
+      if sub in allowed:
+        assert fn in allowed[sub], f"{rel}:{line} in {fn}"
+        seen.add((sub, fn))
+      else:
+        assert sub == os.path.join("models", "snapshot.py"), f"{rel}:{line}"
+  assert {(os.path.join("models", "io.py"), "get_data"),
+          (os.path.join("models", "io.py"), "get_data_into"),
+          ("vis.py", "update_scene_into"), ("viewer.py", "launch"),
+          ("record.py", "load_model")} <= seen
 
 
 def test_public_api_names_the_ported_modules():
@@ -135,7 +146,8 @@ def test_public_api_names_the_ported_modules():
                "make_batch", "rollout", "check_reset", "make_mesh",
                "sharded_step", "randomize_model", "step_randomized", "ray",
                "ray_geom", "init_sleep", "contact_force", "smooth",
-               "support", "Model", "Data"):
+               "support", "Model", "Data", "vis", "usd_export",
+               "export_usd", "skin_update", "render", "render_scene"):
     assert hasattr(mujoco_tpu_torch, name), name
 
 
@@ -143,19 +155,32 @@ def test_public_api_names_the_ported_modules():
 # in full, read from the reference's source (no import of it here)
 _FULL_MODULES = {"ops/flex.py": "mujoco_tpu_torch.ops.flex",
                  "ops/collision_flex.py": "mujoco_tpu_torch.ops.collision_flex",
-                 "models/strain.py": "mujoco_tpu_torch.models.strain"}
+                 "models/strain.py": "mujoco_tpu_torch.models.strain",
+                 "ops/render.py": "mujoco_tpu_torch.ops.render",
+                 "ops/skin.py": "mujoco_tpu_torch.ops.skin",
+                 "ops/ray.py": "mujoco_tpu_torch.ops.ray",
+                 "vis.py": "mujoco_tpu_torch.vis",
+                 "usd_export.py": "mujoco_tpu_torch.usd_export",
+                 "record.py": "mujoco_tpu_torch.record",
+                 "viewer.py": "mujoco_tpu_torch.viewer"}
+
+
+# modules whose private helpers the port keeps too, by the same names
+_PRIVATE_TOO = ("ops/render.py", "usd_export.py", "viewer.py")
 
 
 @pytest.mark.parametrize("ref", sorted(_FULL_MODULES))
 def test_flex_modules_name_the_reference_functions(ref):
-  """The flex modules define every public function of their reference
-  module (mujoco_tpu/ops/flex.py, collision_flex.py, models/strain.py),
-  and ``ops.ray`` its ``ray_flex``."""
+  """The flex, ray and render modules define every public function of
+  their reference module (mujoco_tpu/ops/flex.py, collision_flex.py,
+  models/strain.py, ops/ray.py, ops/render.py, ops/skin.py, vis.py,
+  usd_export.py, record.py, viewer.py), and ``ops.ray`` its
+  ``ray_flex``."""
   import importlib
   with open(os.path.join(ROOT, "mujoco_tpu", ref)) as f:
     tree = ast.parse(f.read())
   names = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)
-           and not n.name.startswith("_")]
+           and (ref in _PRIVATE_TOO or not n.name.startswith("_"))]
   assert names
   port = importlib.import_module(_FULL_MODULES[ref])
   for name in names:

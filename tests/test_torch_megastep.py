@@ -199,6 +199,17 @@ def test_supported_gate_matches_reference_flex(name, monkeypatch):
   assert mc.supported(it4) == bool(jmega.supported(jm4)) is False
 
 
+def test_supported_gate_admits_humanoid_pixels(monkeypatch):
+  """The pixel-RL humanoid (the flagship with dm_control's visuals: a
+  material, textures, a tracking light and cameras) stays in the
+  kernel's class at both gates, as the flagship does."""
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "256")
+  jm = jio.put_model(snapshot.compile_mj("humanoid_pixels"))
+  tm = zoo.load("humanoid_pixels", torch.float64, "cpu")
+  assert mc.supported(tm) and jmega.supported(jm)
+  assert mc.supported(zoo.load("humanoid_pixels", torch.float32, "cpu"))
+
+
 def _quadruped_variant(case):
   """The quadruped (in the kernel's class) with one of this slice's
   features: fluid forces, an interval sensor (a history buffer, no

@@ -155,6 +155,30 @@ def test_model_from_numpy_roundtrips_reference(models):
   assert carried.tree.levels[0].dtype == tm.tree.levels[0].dtype
 
 
+@pytest.mark.parametrize("name", ["humanoid_pixels", "render_lit",
+                                  "render_hfield_mesh", "render_ortho",
+                                  "skin_flex", "usd_scene"])
+def test_render_fields_match_reference(name):
+  """The render fields (vis_meta, geom colors and groups, camera
+  projections, light photometry, materials, textures, skins, flex colors)
+  of put_model equal the reference's, and cross over from its Model."""
+  mjm = snapshot.compile_mj(name)
+  with snapshot.flex_budgets(name):
+    jm = jio.put_model(mjm)
+    tm = tio.put_model(mjm, dtype=torch.float64, device="cpu")
+  port = tio.flatten(tm)
+  render = [k for k in port if k.startswith(
+      ("vis_meta.", "geom_rgba", "geom_group", "cam_projection", "light_",
+       "mat_", "tex_", "skin_", "flex_rgba", "nmat", "ntex", "nskin",
+       "geom_matid"))]
+  assert len(render) > 40
+  assert_fields_match({k: port[k] for k in render}, tio.flatten(jm))
+  carried = tio.model_from_numpy(tio.flatten(jm), dtype=torch.float64,
+                                 device="cpu")
+  assert carried.vis_meta == tm.vis_meta
+  assert_fields_match(tio.flatten(carried), port)
+
+
 def test_snapshot_is_current():
   """Every committed snapshot equals what put_model gives from its XML."""
   for name in zoo.SNAPSHOTS:
