@@ -95,8 +95,9 @@ Phases, each of which passes or ends the script with a nonzero exit:
    (ḡ = λ = H⁻¹w, H̄ = −λpᵀ), on the humanoid's qM at f64, B 3072 (1e-9
    relative), with the kernel's two launches (forward, backward re-solve);
    both backwards timed alone by the same warmed timer;
-13. ``multi_humanoid3`` (nv 81, the reference's 3-humanoid scene), which the
-   megastep's gate keeps on the stage path: f32, B 3072, 10 steps of
+13. ``multi_humanoid3`` (nv 81, the reference's 3-humanoid scene) on the
+   stage path (``MJTPU_MEGASTEP=0``; the megastep admits it, phase 29):
+   f32, B 3072, 10 steps of
    ``scan_steps(check=True)``, every env finite, exactly one LDL and one
    Newton launch per step and no megastep launch; 10 steps at f64, B 8, on
    the card against the CPU (1e-8); the blocked LDL at every order of
@@ -154,7 +155,8 @@ Phases, each of which passes or ends the script with a nonzero exit:
 
 19. ``multi_humanoid10`` (ten humanoids in one scene, nv 270, nefc
    1,620, ten trees) through the island solve, and with islands disabled
-   (the Newton kernel at nv 270): f32, B 3072 (halved while one step
+   on the stage path (``MJTPU_MEGASTEP=0``; the Newton kernel at nv 270;
+   the megastep admits that scene, phase 29): f32, B 3072 (halved while one step
    peaks above 60 % of the card's memory; the B used is printed), every
    foot in the floor, 20 steps of ``scan_steps(check=True)`` each: finite,
    exactly two LDL launches per step and no other on the island path (its
@@ -331,13 +333,35 @@ Phases, each of which passes or ends the script with a nonzero exit:
    (``precision_loop``); a witness, not a gate: the envs each control
    step run at f32 through the megastep from the f64 state leaves off by
    the megastep's f32 rule; ``skin_update`` ms on the sleeve at B 3072.
+29. the wide megastep (nv > 64; ``megastep_cuda.route``): ``multi_humanoid3``
+   (nv 81, the wide route in shared memory at f32) and ``multi_humanoid10``
+   with islands disabled (nv 270, the wide route in device memory) at f32,
+   B 3072, 20 steps of ``scan_steps(check=True)`` from the main path's
+   start: finite, exactly one megastep launch and no LDL or Newton launch,
+   env-steps/s (first and second call) beside the same scene's stage path
+   (``MJTPU_MEGASTEP=0``, 3 warm steps) and peak memory; the kernel's time
+   (20 steps, L2 flushed) beside its bound (``megastep_flops`` over the
+   active rows the stage clock counts) and the plain version's time per
+   step, the stage clock per stage, registers, spills, shared and device
+   memory per env and blocks per SM at f32 and f64; the kernel against its
+   plain version at f32, B 3072, one step by phase 4's f32 rule (the plain
+   version timed on that call), at f64, B 256, 3 steps under phase 11's rule (an
+   env off elementwise passes only if the other side, rerun on 64 last-bit
+   copies of its state, accounts for it: ``megastep_gate_f64``), and
+   ``multi_humanoid3``'s kernel on the card against ``megastep_plain`` on
+   the CPU at f64 (B 8, 5 steps, 1e-8) and its f64 time at B 3072 beside
+   its bound and the plain version's; the humanoid set on the wide route
+   at f64 (one tile) under the same rule; the host's shared-memory count
+   of every route against the kernel's own (``layout_counts``).
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 27 (phase 26's ``discrete_acc``, ``transition`` and
+and 13 to 29 (phase 26's ``discrete_acc``, ``transition`` and
 ``randomized``; phase 27's ``humanoid_hammock``; the megastep's phase
-28 ``humanoid_pixels``); the LDL's ``wide`` entry holds phase 13's table (each order
+28 ``humanoid_pixels`` and phase 29's ``multi_humanoid3`` and
+``multi_humanoid10_monolithic``); the megastep's ``wide`` entry holds phase
+29's times per scene; the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
 Newton kernel's its phase-13 times at nv 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
@@ -715,6 +739,10 @@ def phase_newton(report, details):
 
 
 MEGASTEP_MODELS = ("humanoid", "quadruped", "mixed", "spherebox")
+# the humanoid's megastep kernel_ms (f32, B 3072, 200 steps, L2 flushed)
+# as measured before the wide routes joined its source, for comparison
+NARROW_MS_BEFORE = 41.550
+NARROW_MS_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
 def posed_state(m, nbatch, seed, lower=0.3):
@@ -830,18 +858,38 @@ def f32_floor_witness(m, nbatch) -> dict:
   return out
 
 
-def occupancy(m) -> dict:
-  """What sets the megastep's envs per SM for m's dtype, printed: the
-  untimed kernel's registers and local (spilled) bytes per thread, its
-  dynamic shared memory per block, resident blocks per SM and the waves of
-  a B-env launch."""
+def megastep_bytes(m, nbatch) -> int:
+  """Bytes a megastep launch must move: the state read once and written
+  once (qpos, qvel, ctrl, warm, qacc, time, qfrc_applied, xfrc in; the
+  first six out) and the packed tables once."""
   from mujoco_tpu_torch.ops import megastep_cuda as mc
-  attrs = mc.attributes(m.dtype)
+  item = 8 if m.dtype == torch.float64 else 4
+  nstate_in = m.nq + 4 * m.nv + m.nu + 1 + 6 * m.nbody
+  nstate_out = m.nq + 3 * m.nv + m.nu + 1
+  return item * nbatch * (nstate_in + nstate_out) + mc.packed(
+      m, m.dtype, "cuda")[1].numel()
+
+
+def occupancy(m) -> dict:
+  """What sets the megastep's envs per SM for m's dtype on its route,
+  printed: the untimed kernel's registers and local (spilled) bytes per
+  thread, its dynamic shared memory per block, the device-memory work
+  space per env (the wide route's), resident blocks per SM and the
+  waves of a B-env launch."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  route = mc.route(m, m.dtype)
+  attrs = mc.attributes(m.dtype, route_name=route)
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  out = dict(attrs, smem_bytes=mc.smem_bytes(m, m.dtype),
+  item = 8 if m.dtype == torch.float64 else 4
+  out = dict(attrs, route=route, smem_bytes=mc.smem_bytes(m, m.dtype),
+             work_bytes_per_env=(mc.work_values_kernel(m, m.dtype) * item
+                                 if route == "wide_device" else 0),
              blocks_per_sm=mc.blocks_per_sm(m, m.dtype), sms=sms)
   out["waves"] = B / (sms * out["blocks_per_sm"])
-  print(f"megastep {str(m.dtype)[6:]} occupancy: {out['threads']} threads "
+  print(f"megastep {str(m.dtype)[6:]} occupancy ({route} route"
+        + (f", {out['work_bytes_per_env']} B of device memory per env"
+           if out["work_bytes_per_env"] else "")
+        + f"): {out['threads']} threads "
         f"per block, {out['regs']} registers and {out['local_bytes']} local "
         f"bytes per thread, {out['smem_bytes']} B dynamic shared memory per "
         f"block, {out['blocks_per_sm']} blocks/SM on {sms} SMs, "
@@ -849,16 +897,16 @@ def occupancy(m) -> dict:
   return out
 
 
-def stage_clock(m, state, fresh, tag) -> dict:
-  """One NSTEP launch of the kernel's stage-clock instantiation on state:
+def stage_clock(m, state, fresh, tag, nstep=NSTEP) -> dict:
+  """One nstep launch of the kernel's stage-clock instantiation on state:
   each stage's share of the summed cycles and its µs per env-step (cycles
   at the card's SM clock), the mean and largest active constraint rows per
   env-step and the mean active contact slots, printed."""
   from mujoco_tpu_torch.ops import megastep_cuda as mc
-  _, stats = mc.megastep_timed(m, state, NSTEP, fresh)
+  _, stats = mc.megastep_timed(m, state, nstep, fresh)
   st = stats.double().cpu()
   nst = len(mc.STAGES)
-  cycles = st[:, :nst].mean(0) / NSTEP                 # per env-step
+  cycles = st[:, :nst].mean(0) / nstep                 # per env-step
   mhz = mc.sm_clock_khz() / 1e3
   us = cycles / mhz
   total = us.sum().item()
@@ -866,12 +914,13 @@ def stage_clock(m, state, fresh, tag) -> dict:
              stages={name: dict(share=(us[i] / total).item(),
                                 us_per_env_step=us[i].item())
                      for i, name in enumerate(mc.STAGES)},
-             mean_active_rows=(st[:, nst].mean() / NSTEP).item(),
+             mean_active_rows=(st[:, nst].mean() / nstep).item(),
              max_active_rows=int(st[:, nst + 1].max().item()),
-             mean_active_slots=(st[:, nst + 2].mean() / NSTEP).item(),
-             timed_attributes=mc.attributes(m.dtype, timed=True))
+             mean_active_slots=(st[:, nst + 2].mean() / nstep).item(),
+             timed_attributes=mc.attributes(
+                 m.dtype, timed=True, route_name=mc.route(m, m.dtype)))
   print(f"megastep stage clock, {tag}, {str(m.dtype)[6:]} B"
-        f"{state['qpos'].shape[0]} {NSTEP} steps: {total:.3f} µs per "
+        f"{state['qpos'].shape[0]} {nstep} steps: {total:.3f} µs per "
         f"env-step at {mhz:.0f} MHz; " + ", ".join(
             f"{k} {v['share']:.1%} {v['us_per_env_step']:.3f} µs"
             for k, v in out["stages"].items()), flush=True)
@@ -971,10 +1020,7 @@ def phase_megastep(report, details):
   # count beside
   clock = stage_clock(m, state, fresh, "timing inputs")
   active = (clock["mean_active_rows"], clock["mean_active_slots"])
-  nstate_in = m.nq + 4 * m.nv + m.nu + 1 + 6 * m.nbody
-  nstate_out = m.nq + 3 * m.nv + m.nu + 1
-  nbytes = 4 * B * (nstate_in + nstate_out) + mc.packed(
-      m, torch.float32, "cuda")[1].numel()
+  nbytes = megastep_bytes(m, B)
   bound_ms, bound_by = bound(nbytes, B * NSTEP * megastep_flops(m, active),
                              torch.float32)
   dense_ms, dense_by = bound(nbytes, B * NSTEP * megastep_flops(m),
@@ -991,7 +1037,8 @@ def phase_megastep(report, details):
                               for n, v in state.items()}, fresh,
                           "timing inputs, one block per SM")
   print(f"megastep f32 B{B} {NSTEP} steps: kernel_ms {kernel_ms:.3f} (L2 "
-        f"flushed; L2-warm {warm_ms:.3f}) plain_ms {plain_ms:.3f} per step "
+        f"flushed; L2-warm {warm_ms:.3f}; {NARROW_MS_BEFORE} before the "
+        f"wide routes were added, {NARROW_MS_CARD}) plain_ms {plain_ms:.3f} per step "
         f"bound_ms {bound_ms:.4f} ({bound_by}; "
         f"{megastep_flops(m, active):.0f} operations per env-step over "
         f"{active[0]:.2f} active rows and {active[1]:.2f} active slots) "
@@ -1650,20 +1697,22 @@ def wide_ldl_row(tag, h, g):
 
 
 def phase_multi_humanoid(report, details):
-  """13: multi_humanoid3 (nv 81) on the stage path, the wide LDL and Newton
-  routes against their plain versions, and their times."""
+  """13: multi_humanoid3 (nv 81) on the stage path (MJTPU_MEGASTEP=0; the
+  megastep admits it, phase 29), the wide LDL and Newton routes against
+  their plain versions, and their times."""
   from mujoco_tpu_torch.models import zoo
   from mujoco_tpu_torch.ops import linalg_cuda, megastep_cuda, newton_cuda
   from mujoco_tpu_torch.ops import solver
   load = lambda dtype, dev="cuda": zoo.load("multi_humanoid3", dtype, dev)
   m = load(torch.float32)
-  if megastep_cuda.supported(m):
-    raise AssertionError("the megastep admits multi_humanoid3 (nv 81)")
-  out, wall, launches = stage_run(m, main_path_batch(m), SLICE_NSTEP)
+  if not megastep_cuda.supported(m):
+    raise AssertionError("the megastep refuses multi_humanoid3 (nv 81)")
+  with stage_path():
+    out, wall, launches = stage_run(m, main_path_batch(m), SLICE_NSTEP)
   finite = bool(torch.isfinite(out.qpos).all() & torch.isfinite(out.qvel).all())
   sps = B * SLICE_NSTEP / wall
-  print(f"multi_humanoid3 (nv {m.nv}, nefc {m.efc.nefc}): f32 B{B} "
-        f"{SLICE_NSTEP} steps: wall {wall:.3f} s, {sps:.1f} env-steps/s, "
+  print(f"multi_humanoid3 (nv {m.nv}, nefc {m.efc.nefc}) on the stage path: "
+        f"f32 B{B} {SLICE_NSTEP} steps: wall {wall:.3f} s, {sps:.1f} env-steps/s, "
         f"launches {launches}, finite {finite}", flush=True)
   if not finite or launches != {"ldl_solve": SLICE_NSTEP, "newton_pyramidal":
                                 SLICE_NSTEP, "megastep": 0}:
@@ -2215,7 +2264,7 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23", "24", "25", "26", "27", "28")
+                 "22", "23", "24", "25", "26", "27", "28", "29")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -2311,18 +2360,20 @@ def phase_islands(report, details):
       disableflags=int(m.opt.disableflags) | int(DisableBit.ISLAND)))
   if not island.use_islands(m) or island.use_islands(mono):
     raise AssertionError("the island gate does not split multi_humanoid10")
-  if megastep_cuda.supported(m) or megastep_cuda.supported(mono):
-    raise AssertionError("the megastep admits multi_humanoid10")
+  if megastep_cuda.supported(m) or not megastep_cuda.supported(mono):
+    raise AssertionError("the megastep's gate must refuse multi_humanoid10 "
+                         "with islands and admit it without (phase 29)")
   nbatch = fitting_batch(m, lambda mm, n: many_batch(mm, n, 30))
   d0 = many_batch(m, nbatch, 30)
   out, isl = many_run("multi_humanoid10 islands", m, d0, MANY_NSTEP,
                       {"ldl_solve": 2.0, "newton_pyramidal": 0.0,
                        "megastep": 0.0})
   del out
-  out, mon = many_run("multi_humanoid10 monolithic (ISLAND disabled)", mono,
-                      d0, MANY_NSTEP, {"ldl_solve": 1.0,
-                                       "newton_pyramidal": 1.0,
-                                       "megastep": 0.0})
+  with stage_path():
+    out, mon = many_run("multi_humanoid10 monolithic (ISLAND disabled, "
+                        "stage path)", mono, d0, MANY_NSTEP,
+                        {"ldl_solve": 1.0, "newton_pyramidal": 1.0,
+                         "megastep": 0.0})
   del out
   print(f"islands against monolithic at nv {m.nv}: "
         f"{isl['env_steps_per_s'] / mon['env_steps_per_s']:.3f}x "
@@ -4348,6 +4399,248 @@ def phase_pixels(report, details):
       launches["megastep"]
 
 
+WIDE_NSTEP = 20            # steps of phase 29's rollouts and timings
+WIDE_CHECK_B = 256         # phase 29's f64 batch
+WIDE_COPIES = 64           # last-bit copies of an env that misses at f64
+WIDE_SCENES = ("multi_humanoid3", "multi_humanoid10")
+
+
+def wide_model(name, dtype, device="cuda"):
+  """A scene of phase 29: multi_humanoid3 as it is (nv 81, below the
+  island gate), multi_humanoid10 with islands disabled (nv 270), as a
+  multi-tree model opts into the megastep (megastep_tpu.py:114-120)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import DisableBit
+  m = zoo.load(name, dtype, device)
+  if name == "multi_humanoid10":
+    m = zoo.load(name, dtype, device, opt={"disableflags": int(
+        m.opt.disableflags) | int(DisableBit.ISLAND)})
+  return m
+
+
+def megastep_copies(state, idx, ncopy):
+  """ncopy copies of each env idx of a megastep state, qpos, qvel and the
+  warmstart moved at the last bit (``last_bits``), from a fixed seed, so
+  that the kernel and the plain version see the same copies."""
+  gen = torch.Generator().manual_seed(0)
+  out = {}
+  for k, v in state.items():
+    rep = v[idx].repeat_interleave(ncopy, 0)
+    if k in ("qpos", "qvel", "warm"):
+      rep = rep * (1 + last_bits(rep.shape, gen).to(rep.device, rep.dtype))
+    out[k] = rep.contiguous()
+  return out
+
+
+def megastep_gate_f64(tag, m, state, fresh, nstep):
+  """The kernel against its plain version at f64 under phase 11's rule:
+  every env elementwise, 1e-9 + 1e-9·|plain| on qpos and qvel, but at
+  most 1 %, each of which passes only if the plain version or the kernel,
+  rerun on WIDE_COPIES last-bit copies of that env's state, accounts for
+  the other side's result (``judge_envs``). Returns (worst violation,
+  envs judged, max abs qpos error)."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  out_k = mc.megastep_kernel(m, state, nstep, fresh)
+  torch.cuda.synchronize()
+  out_p = mc.megastep_plain(m, state, nstep, fresh)
+  keys = ("qpos", "qvel")
+  worst = max(((out_k[k] - out_p[k]).abs() / (1e-9 + 1e-9 * out_p[k].abs()))
+              .max().item() for k in keys)
+
+  def rerun(fn):
+    def run(idx):
+      idx = idx.to(state["qpos"].device)
+      out = fn(m, megastep_copies(state, idx, WIDE_COPIES), nstep, fresh)
+      return [out[k].reshape(len(idx), WIDE_COPIES, -1) for k in keys]
+    return run
+
+  judged = judge_envs([out_k[k][None] for k in keys],
+                      [out_p[k][None] for k in keys],
+                      rerun(mc.megastep_plain), rerun(mc.megastep_kernel),
+                      None, 1e-9, 0.01)
+  err = (out_k["qpos"] - out_p["qpos"]).abs().max().item()
+  print(f"wide megastep f64 {tag} B{state['qpos'].shape[0]} {nstep} steps "
+        f"({mc.route(m, m.dtype)} route): worst err / (1e-9 + 1e-9·|plain|) "
+        f"{worst:.3e}, {judged} envs off elementwise and explained by "
+        f"last-bit copies, max abs qpos err {err:.3e}", flush=True)
+  return worst, judged, err
+
+
+def megastep_card_vs_cpu(name, nbatch=8, nstep=5):
+  """The wide megastep kernel on the card against megastep_plain on the
+  CPU at f64, from the same numpy-seeded state: qpos and qvel within
+  1e-8 + 1e-8·|CPU|."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  outs = {}
+  for dev in ("cuda", "cpu"):
+    m = wide_model(name, torch.float64, dev)
+    state, fresh = posed_state(m, nbatch, 11)
+    state = {k: v.to(dev) for k, v in state.items()}
+    fresh = {k: v.to(dev) for k, v in fresh.items()}
+    outs[dev] = mc.run(m, state, nstep, fresh)
+  worst = max(((outs["cuda"][k].cpu() - outs["cpu"][k]).abs()
+               / (1e-8 + 1e-8 * outs["cpu"][k].abs())).max().item()
+              for k in ("qpos", "qvel"))
+  print(f"wide megastep {name}: {nstep} steps f64 B{nbatch}, the card's "
+        f"kernel against the CPU's plain version, worst err / (1e-8 + "
+        f"1e-8·|CPU|) {worst:.3f}", flush=True)
+  if not worst <= 1.0:
+    raise AssertionError(f"wide megastep {name}: card and CPU differ")
+  return worst
+
+
+def wide_f64_times(m64, clock) -> dict:
+  """The kernel at f64 on the full batch (B 3072, WIDE_NSTEP steps, L2
+  flushed) beside its f64 bound over the f32 run's active rows (clock)
+  and the plain version's time per step, printed."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  state, fresh = posed_state(m64, B, 3, lower=0.15)
+  ms = cuda_ms_cold(lambda: mc.megastep_kernel(m64, state, WIDE_NSTEP,
+                                               fresh), reps=2, warmup=1)
+  active = (clock["mean_active_rows"], clock["mean_active_slots"])
+  bound_ms, bound_by = bound(megastep_bytes(m64, B), B * WIDE_NSTEP
+                             * megastep_flops(m64, active), torch.float64)
+  t = time.perf_counter()
+  mc.megastep_plain(m64, state, 1, fresh)
+  torch.cuda.synchronize()
+  plain_ms = (time.perf_counter() - t) * 1e3
+  print(f"wide megastep f64 B{B} {WIDE_NSTEP} steps "
+        f"({mc.route(m64, torch.float64)} route): kernel_ms {ms:.3f} (L2 "
+        f"flushed) plain_ms {plain_ms:.3f} per step, bound_ms "
+        f"{bound_ms:.4f} ({bound_by})", flush=True)
+  return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by)
+
+
+def layout_counts(models) -> dict:
+  """The host's shared-memory count (``smem_bytes``, which picks the route)
+  against the CUDA source's (``smem_bytes_kernel``, which the launch
+  asks for) for each model on both routes at both dtypes, beside the wide
+  route's device values per env (``work_values_kernel``, which the launch
+  allocates), printed; raises where the two shared counts differ."""
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  out = {}
+  for name, m in models.items():
+    for dtype in (torch.float32, torch.float64):
+      for r in mc.ROUTES:
+        host, card = mc.smem_bytes(m, dtype, r), mc.smem_bytes_kernel(
+            m, dtype, r)
+        out[f"{name} {str(dtype)[6:]} {r}"] = dict(
+            host=host, card=card, work_values=(
+                mc.work_values_kernel(m, dtype) if r == "wide_device"
+                else 0))
+        if host != card:
+          raise AssertionError(f"megastep shared memory {name} {dtype} {r}: "
+                               f"host {host} B, card {card} B")
+  print(f"megastep layout: host = card on the shared bytes of {len(out)} "
+        f"(model, dtype, route)", flush=True)
+  return out
+
+
+def phase_wide_megastep(report, details):
+  """29: the megastep's wide route (nv > 64) at full width on
+  multi_humanoid3 and the ten-humanoid scene without islands."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import megastep_cuda as mc
+  out_details, wide = {}, {}
+  for name in WIDE_SCENES:
+    m = wide_model(name, torch.float32)
+    route = mc.route(m, torch.float32)
+    if not mc.supported(m) or route == "narrow":
+      raise AssertionError(f"{name}: supported {mc.supported(m)}, route "
+                           f"{route}")
+    # the main path: scan_steps, one megastep launch, no LDL or Newton
+    d = main_path_batch(m)
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = stage_run(m, d, WIDE_NSTEP)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out.qpos).all()
+                  & torch.isfinite(out.qvel).all())
+    if not finite or launches != {"ldl_solve": 0, "newton_pyramidal": 0,
+                                  "megastep": 1}:
+      raise AssertionError(f"{name} scan_steps: finite {finite}, launches "
+                           f"{launches}")
+    _, wall2, _ = stage_run(m, d, WIDE_NSTEP)
+    with stage_path():
+      stage_run(m, d, 1)
+      _, swall, slaunch = stage_run(m, d, 3)
+    sps, sps2, stage_sps = (B * WIDE_NSTEP / wall, B * WIDE_NSTEP / wall2,
+                            B * 3 / swall)
+    print(f"wide megastep {name} (nv {m.nv}, nefc {m.efc.nefc}, {route} "
+          f"route) f32 B{B} {WIDE_NSTEP} steps of scan_steps: wall "
+          f"{wall:.4f} s, {sps:.1f} env-steps/s (second call {sps2:.1f}), "
+          f"launches {launches}, finite {finite}, peak memory "
+          f"{peak / 2**30:.2f} GiB; the stage path (MJTPU_MEGASTEP=0) "
+          f"{stage_sps:.1f} env-steps/s ({slaunch}, 3 steps); megastep / "
+          f"stage {sps2 / stage_sps:.2f}x", flush=True)
+    report["megastep"].setdefault("launches_by_path", {})[
+        name if name == "multi_humanoid3" else name + "_monolithic"] = \
+        launches["megastep"]
+
+    # the kernel's time at the full width, its bound and where it goes
+    state, fresh = posed_state(m, B, 3, lower=0.15)
+    ms = cuda_ms_cold(lambda: mc.megastep_kernel(m, state, WIDE_NSTEP,
+                                                 fresh), reps=3, warmup=1)
+    clock = stage_clock(m, state, fresh, f"{name} timing inputs",
+                        nstep=WIDE_NSTEP)
+    active = (clock["mean_active_rows"], clock["mean_active_slots"])
+    bound_ms, bound_by = bound(megastep_bytes(m, B), B * WIDE_NSTEP
+                               * megastep_flops(m, active), torch.float32)
+    occ = occupancy(m)
+    # the kernel against its plain version at f32, full width, one step
+    # (phase 4's f32 rule), the plain version timed on the same call
+    out_k = mc.megastep_kernel(m, state, 1, fresh)
+    t = time.perf_counter()
+    out_p = mc.megastep_plain(m, state, 1, fresh)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    gate32 = check_f32(f"{name} B{B} 1 step", out_k, out_p)
+    del out_k, out_p
+    print(f"wide megastep {name} f32 B{B} {WIDE_NSTEP} steps: kernel_ms "
+          f"{ms:.3f} (L2 flushed; {ms / WIDE_NSTEP:.4f} per step) plain_ms "
+          f"{plain_ms:.3f} per step, bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"{megastep_flops(m, active):.0f} operations per env-step over "
+          f"{active[0]:.2f} active rows and {active[1]:.2f} active slots); "
+          f"kernel / bound {ms / bound_ms:.1f}", flush=True)
+    del state, out
+    torch.cuda.empty_cache()
+
+    # f64 at B 256 under phase 11's rule, on the card against the CPU
+    m64 = wide_model(name, torch.float64)
+    s64, f64 = posed_state(m64, WIDE_CHECK_B, 7)
+    worst, judged, err = megastep_gate_f64(name, m64, s64, f64, 3)
+    cpu_worst = f64_times = None
+    if name == "multi_humanoid3":
+      cpu_worst = megastep_card_vs_cpu(name)
+      f64_times = wide_f64_times(m64, clock)
+    wide[name] = dict(route=route, nv=m.nv, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      launches=launches["megastep"], max_abs_err=err,
+                      env_steps_per_s=sps2, stage_env_steps_per_s=stage_sps,
+                      f64_route=mc.route(m64, torch.float64),
+                      f64=f64_times)
+    out_details[name] = dict(
+        wide[name], first_call_env_steps_per_s=sps, peak_memory_bytes=peak,
+        stage_launches=slaunch, stage_clock=clock, occupancy=occ,
+        occupancy_f64=occupancy(m64), f32_gate=gate32, f64_worst=worst,
+        f64_judged=judged, card_vs_cpu_worst=cpu_worst,
+        flops_per_env_step=megastep_flops(m, active))
+    del m64, s64
+    torch.cuda.empty_cache()
+
+  # the humanoid set on the wide route (one tile), under the same rule
+  m64 = zoo.humanoid(torch.float64)
+  mc._entry(m64).setdefault("route", {})[torch.float64] = "wide_device"
+  s64, f64 = posed_state(m64, WIDE_CHECK_B, 8)
+  out_details["humanoid_wide_device_f64"] = megastep_gate_f64(
+      "humanoid set on the wide route", m64, s64, f64, 3)
+  out_details["layout_counts"] = layout_counts(dict(
+      {n: wide_model(n, torch.float32) for n in WIDE_SCENES},
+      **{n: zoo.load(n, torch.float32) for n in MEGASTEP_MODELS}))
+  details["wide_megastep"] = out_details
+  report["megastep"]["wide"] = wide
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4373,7 +4666,8 @@ def main() -> int:
             phase_humanoid_elliptic, phase_rk4, phase_option_scenes,
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
-            phase_actuation, phase_control_loop, phase_flex, phase_pixels)
+            phase_actuation, phase_control_loop, phase_flex, phase_pixels,
+            phase_wide_megastep)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

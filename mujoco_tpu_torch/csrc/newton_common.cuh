@@ -19,10 +19,11 @@
 // the same totals, so the linesearch's scalar state (lo, hi, has_hi, α) is
 // identical in all threads without a broadcast.
 //
-// The wide solve (kWide, the Newton kernel above nv 32, a block of several
-// warps): H is built as the tiles of block_ldl_solve (ldl_common.cuh),
-// tile by tile in the order the factor walks them (PackedRows::
-// build_h_tiles), and factored by the whole block; a row's product with a
+// The wide solve (kWide, the Newton kernel above nv 32 and the megastep's
+// wide routes, a block of several warps): H is built as the tiles of
+// block_ldl_solve (ldl_common.cuh), tile by tile in the order the factor
+// walks them (build_h_tiles), and factored by the whole block; a row's
+// product with a
 // dof vector is one warp's (lanes over the dofs, a butterfly sum), and
 // M·v reads M by columns (M is symmetric), so that every pass over a work
 // space in device memory reads runs of consecutive values.
@@ -382,6 +383,104 @@ struct ListRows {
     T acc = T(0);
     for (int j = 0; j < nv; ++j) acc += (jn[j] + mu * jt[j]) * v[j];
     return acc;
+  }
+  // row k's product with v by one warp (lanes over the dofs, a butterfly
+  // sum): every lane gets the sum
+  __device__ T dot_warp(int k, const T* v, int lane) const {
+    const int a = ra[k];
+    const T mu = rc[k];
+    if (a < 0) return mu * v[-1 - a];
+    const T* jn = cv + a;
+    const T* jt = cv + rb[k];
+    T acc = T(0);
+    for (int j = lane; j < nv; j += 32) acc += (jn[j] + mu * jt[j]) * v[j];
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(kFullMask, acc, off);
+    return acc;
+  }
+  // H = M + JᵀWJ + reg·I as the tiles of block_ldl_solve, one warp per
+  // tile in panel order, lane (ry, cx) owning rows ry + 8q and columns
+  // cx + 4u of its tile (as PackedRows::build_h_tiles). Each entry's JᵀWJ
+  // is summed as build_h sums it: the limit rows first (a diagonal tile's
+  // entry at the row's dof), then each slot's four rows, formed from its
+  // three vectors where they are used.
+  template <int kNT>
+  __device__ void build_h_tiles(const NewtonWork<T>& s, T reg, T* tiles,
+                                int nt) const {
+    const int lane = threadIdx.x & 31, ry = lane >> 2, cx = lane & 3;
+    const int ntiles = nt * (nt + 1) / 2;
+    for (int t = threadIdx.x >> 5; t < ntiles; t += kNT / 32) {
+      int J = 0, base = 0;
+      while (base + nt - J <= t) {
+        base += nt - J;
+        ++J;
+      }
+      const int I = J + t - base;
+      T acc[4][8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc[q][u] = T(0);
+      if (I == J) {
+        for (int k = 0; k < nlim; ++k) {
+          const int dof = -1 - ra[k] - 32 * I;
+          const T mu = rc[k];
+          const T wmu = s.w[k] * mu;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (ry + 8 * q == dof && cx + 4 * u == dof) acc[q][u] += wmu * mu;
+        }
+      }
+      for (int k = nlim; k < n; k += 4) {
+        const T* jn = cv + ra[k];
+        T ni[4], t1i[4], t2i[4], nj[8], t1j[8], t2j[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 32 * I + ry + 8 * q;
+          const bool in = i < nv;
+          ni[q] = in ? jn[i] : T(0);
+          t1i[q] = in ? jn[nv + i] : T(0);
+          t2i[q] = in ? jn[2 * nv + i] : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = 32 * J + cx + 4 * u;
+          const bool in = j < nv;
+          nj[u] = in ? jn[j] : T(0);
+          t1j[u] = in ? jn[nv + j] : T(0);
+          t2j[u] = in ? jn[2 * nv + j] : T(0);
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const T mu = rc[k + p], w = s.w[k + p];
+          T a[4], b[8];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[q] = w * (ni[q] + mu * (p < 2 ? t1i[q] : t2i[q]));
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            b[u] = nj[u] + mu * (p < 2 ? t1j[u] : t2j[u]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int u = 0; u < 8; ++u) acc[q][u] += a[q] * b[u];
+        }
+      }
+      T* tile = tiles + static_cast<long>(t) * kTileValues;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int r = ry + 8 * q, c = cx + 4 * u;
+          const auto h = [&](int i, int j) {
+            const T hij = s.M[i * nv + j] + acc[q][u];
+            return i == j ? hij + reg : hij;
+          };
+          tile[tile_at<T>(r, c)] = ldl_tile_value<T>(I, J, r, c, nv, h);
+        }
+    }
   }
   __device__ void update(int k, T jar, T& f, T& c, T& w) const {
     row_update(jar, D[k], T(0), T(0), T(0), T(1), f, c, w);

@@ -124,7 +124,8 @@ def library() -> ctypes.CDLL:
 
 
 def bind_megastep(lib) -> None:
-  """argtypes of the megastep kernel's C interface (csrc/megastep.cu)."""
+  """argtypes of the megastep kernel's C interface (csrc/megastep.cu: the
+  narrow route and the entries both routes share; the wide route's)."""
   p, i = ctypes.c_void_p, ctypes.c_int
   args = [p, i, p, p, p] + [p] * 14 + [i, i, i, p]
   for fn in (lib.mjt_megastep_f32, lib.mjt_megastep_f64):
@@ -134,9 +135,21 @@ def bind_megastep(lib) -> None:
   for fn in (lib.mjt_megastep_timed_f32, lib.mjt_megastep_timed_f64):
     fn.argtypes = args + [p]
     fn.restype = i
-  for fn in (lib.mjt_megastep_smem_bytes, lib.mjt_megastep_blocks_per_sm):
-    fn.argtypes = [p, i, i]
-    fn.restype = i
+  # the wide route per dtype (csrc/megastep_wide_device_*.cu): the same
+  # arguments, then its work space and the timed launch's stats
+  for dt in ("f32", "f64"):
+    for name, argtypes in (("", args + [p]), ("timed_", args + [p, p]),
+                           ("blocks_per_sm_", [p, i]),
+                           ("attributes_", [i, p])):
+      fn = getattr(lib, f"mjt_megastep_wide_device_{name}{dt}")
+      fn.argtypes = argtypes
+      fn.restype = i
+  lib.mjt_megastep_smem_bytes.argtypes = [p, i, i, i]
+  lib.mjt_megastep_smem_bytes.restype = i
+  lib.mjt_megastep_work_values.argtypes = [p, i, i]
+  lib.mjt_megastep_work_values.restype = ctypes.c_longlong
+  lib.mjt_megastep_blocks_per_sm.argtypes = [p, i, i]
+  lib.mjt_megastep_blocks_per_sm.restype = i
   lib.mjt_megastep_attributes.argtypes = [i, i, p]
   lib.mjt_megastep_attributes.restype = i
   lib.mjt_sm_clock_khz.argtypes = []

@@ -5,8 +5,14 @@ Replaces the Pallas kernel ``_scan_kernel``
 API ``scan_batch`` :1473, gate ``supported`` :92). One launch runs ``nstep``
 whole physics steps per env, each of them ``_lane_step`` (:707) followed by
 the divergence guard ``_check_reset_lane`` (:1365), and reads and writes the
-integration state once. The CUDA source is ``csrc/megastep.cu``: one thread
-block per env, the model given as data (the tables below), not code.
+integration state once. The CUDA sources are ``csrc/megastep.cu`` (the
+narrow route) and ``csrc/megastep_wide_device_*.cu`` (the wide route),
+over ``csrc/megastep_common.cuh``: one thread block per env, the model given
+as data (the tables below), not code. ``route(m, dtype)`` names the route a
+model runs: ``narrow`` (nv ≤ 64, two warps per env, the register LDL, the
+work space in shared memory) or ``wide_device`` (eight warps per env, the
+blocked LDLᵀ and tiled Newton solve, its large arrays in a per-env slice of
+device memory that ``_launch`` allocates).
 
 The model's constants are built once per (Model, dtype, device) on the host
 at f64, the way the reference's ``_Meta`` (:188) and ``make_consts`` (:665)
@@ -44,9 +50,10 @@ from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.math import MINVAL
 
 MAXVAL = 1e10
-MAX_NV = 64              # the kernel's limit (csrc/megastep.cu launch_megastep)
-MAX_SMEM = 232448        # dynamic shared memory a block may use on an H100
-THREADS = 128
+NARROW_NV = 64           # the narrow route's largest nv
+MAX_SMEM = 232448        # shared memory a block may use on an H100
+# the kernel's routes, in csrc/megastep_common.cuh's Route order
+ROUTES = ("narrow", "wide_device")
 # kernel launches by ``megastep_kernel`` (never by the plain path)
 LAUNCHES = 0
 
@@ -64,7 +71,7 @@ PAIRS = ((GeomType.PLANE, GeomType.SPHERE), (GeomType.PLANE, GeomType.CAPSULE),
          (GeomType.CAPSULE, GeomType.CAPSULE))
 PAIR_SLOTS = (1, 2, 4, 1, 1, 1, 2)
 
-# the stage clock's stages in step() order, as csrc/megastep.cu's
+# the stage clock's stages in step() order, as csrc/megastep_common.cuh's
 # kStageNames (a test holds the two lists equal)
 STAGES = ("fk", "com", "cinert", "vel", "rne", "force", "smooth", "rows",
           "newton", "euler")
@@ -77,8 +84,8 @@ STAT_WORDS = len(STAGES) + 3
 SPRING_OFF, DAMPER_OFF, ACTUATION_OFF, CLAMPCTRL_OFF = 1, 2, 4, 8
 LIMIT_OFF, CONTACT_OFF, USE_WARM, USE_DAMP = 16, 32, 64, 128
 
-# the packed tables; csrc/megastep.cu's ``struct Meta`` has one int per
-# name of META_FIELDS, in this order (a test holds the two lists equal)
+# the packed tables; csrc/megastep_common.cuh's ``struct Meta`` has one int
+# per name of META_FIELDS, in this order (a test holds the two lists equal)
 _COUNTS = ("nq", "nv", "nu", "nbody", "njnt", "nl", "ncon", "ngroup",
            "nfree", "nefc", "nlevel", "nlist", "iterations", "ls_iter",
            "flags")
@@ -120,14 +127,13 @@ def enabled() -> bool:
 
 def supported(m: Model) -> bool:
   """Whether the kernel runs m: the reference's model class
-  (mujoco_tpu/ops/megastep_tpu.py:92-178), within the kernel's own size
-  class (nv ≤ MAX_NV, its work space within MAX_SMEM); a flex or a flex
-  slot keeps a model off it. Fields the port's Model lacks (SDF groups)
-  belong to models ``io.put_model`` refuses. Unlike the reference, a
-  missing field
-  raises instead of answering False. The answer is computed once per Model
-  and kept in the tables' cache entry, so a later call reads nothing back
-  from the card."""
+  (mujoco_tpu/ops/megastep_tpu.py:92-178), at any nv (the route follows
+  the size, ``route``); a flex or a flex slot keeps a model off it. Fields
+  the port's Model lacks (SDF groups) belong to models ``io.put_model``
+  refuses. Unlike the reference, a missing field raises instead of
+  answering False. The answer is computed once per Model and kept in the
+  tables' cache entry, so a later call reads nothing back from the
+  card."""
   entry = _entry(m)
   if "supported" not in entry:
     entry["supported"] = _supported(m)
@@ -218,10 +224,10 @@ def _supported(m: Model) -> bool:
     return False
   if np.any(np.asarray(m.efc.limit_jnt) < 0):
     return False
-  # the kernel's own size class: a model outside it keeps the stage path
-  if m.nv > MAX_NV or smem_bytes(m, torch.float32) > MAX_SMEM:
-    return False
-  return True
+  # the shared part of the wide device route grows with the bodies and
+  # dofs only; a model whose part passes a block's shared memory (none the
+  # repository holds) keeps the stage path
+  return _fits(smem_bytes(m, torch.float32, route(m, torch.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -915,6 +921,24 @@ def megastep_plain(m: Model, state: dict, nstep: int, fresh: dict,
 # ---------------------------------------------------------------------------
 
 
+def _fits(nbytes: int) -> bool:
+  """Whether a block's dynamic shared memory of nbytes fits beside the
+  timed instantiation's static stage-clock sums."""
+  return nbytes + 8 * STAT_WORDS <= MAX_SMEM
+
+
+def route(m: Model, dtype) -> str:
+  """The kernel's route for m at dtype, one of ROUTES: ``narrow`` where nv ≤
+  NARROW_NV and its work space fits a block's shared memory, else
+  ``wide_device``. Decided on the host and kept in the tables' cache
+  entry."""
+  routes = _entry(m).setdefault("route", {})
+  if dtype not in routes:
+    narrow = m.nv <= NARROW_NV and _fits(smem_bytes(m, dtype, "narrow"))
+    routes[dtype] = "narrow" if narrow else "wide_device"
+  return routes[dtype]
+
+
 def _check(m: Model, state: dict, fresh: dict):
   q = state["qpos"]
   if q.dtype not in (torch.float32, torch.float64):
@@ -938,43 +962,88 @@ def _check(m: Model, state: dict, fresh: dict):
         raise NotImplementedError(
             "gradients through the CUDA megastep kernel are not ported")
   _refuse_model_grad(m)
-  if m.nv > MAX_NV:
-    raise ValueError(f"megastep kernel supports nv <= {MAX_NV}, got nv "
-                     f"{m.nv}")
 
 
-def smem_bytes(m: Model, dtype) -> int:
-  """Dynamic shared memory of one block of the kernel for m: the size of
-  csrc/megastep.cu's ``layout`` (the work space of the whole step, then the
-  smooth stages' and the constraint rows' spaces, which share one region),
-  computed on the host so that the gate needs no card."""
+TILE = 1024              # values of one 32×32 tile of the blocked LDLᵀ
+LDL_AUX = 96             # its aux: D, 1/D and z of one panel
+
+
+def smem_bytes(m: Model, dtype, route_name: Optional[str] = None) -> int:
+  """Dynamic shared memory of one block of the kernel for m on a route
+  (``route(m, dtype)``'s by default): the shared part of
+  csrc/megastep_common.cuh's ``layout``, field for field in its order (the
+  work space of the whole step, then the larger of the smooth stages' and
+  the constraints' spaces, which share one region; on ``wide_device`` the
+  fields ``layout`` takes with ``take_big`` are in device memory). Computed
+  on the host so that the route and the gate need no card; the launch
+  takes its sizes from the kernel's own ``layout``."""
+  name = route_name or route(m, dtype)
   c = tables(m).counts
   item = 8 if dtype == torch.float64 else 4
   nq, nv, nb, nj = c["nq"], c["nv"], c["nbody"], c["njnt"]
   nu, ncon, nefc = max(c["nu"], 1), c["ncon"], c["nefc"]
+  wide = name != "narrow"
+  nt = -(-nv // 32)
+  nvpad = 32 * nt if wide else nv
   ints = lambda n, size=4: (n * size + item - 1) // item
-  whole = (nq + nu + 4 * nv + 6 * nb + 2 + 10 * nb + 6 * nv + nv * nv
-           + nv * (nv | 1) + 7 * nv + 64 + newton_cuda.STAT_ROWS + 1
-           + ints(c["nlist"], 2))
-  smooth = whole + 8 * nj + 111 * nb + 15 * nv + nu
-  rows = (whole + 13 * ncon + 3 * nv * ncon + 7 * nefc + 2 * ints(nefc)
-          + ints(ncon) + ints(2))
-  return max(smooth, rows) * item
+  whole = sum((nq, nv, nu, nv, nv, nv, 6 * nb, 2, 3 * nb, 4 * nb, 3 * nb,
+               6 * nv, nv, nvpad, nv, nv, nv, nv, nvpad, 64,
+               newton_cuda.STAT_ROWS + 1, ints(c["nlist"], 2)))
+  smooth = sum((2 * nj, 3 * nb, 9 * nb, 3 * nj, 3 * nj, 3 * nb, 6 * nv,
+                6 * nb, 6 * nb, 6 * nb, 6 * nb, 6 * nv, nv, nv, nv, nu))
+  rows = ints(ncon) + ints(2)
+  if wide:
+    whole += LDL_AUX
+    align = 16 // item
+    rows += -(-whole // align) * align - whole + nt * TILE   # the stage
+  else:
+    whole += nv * nv + nv * (nv | 1)                         # qM, H
+    smooth += 72 * nb                                        # cinert, crb
+    rows += (ncon + 3 * ncon + 9 * ncon + 3 * nv * ncon + 7 * nefc
+             + 2 * ints(nefc))
+  return (whole + max(smooth, rows)) * item
 
 
-def smem_bytes_kernel(m: Model, dtype) -> int:
-  """``smem_bytes`` as the CUDA source computes it (the card's library)."""
+def smem_bytes_kernel(m: Model, dtype, route_name: Optional[str] = None
+                      ) -> int:
+  """``smem_bytes`` as the CUDA source computes it (the card's library),
+  the size the launch asks for."""
   meta = tables(m).meta(dtype)[0]
   return cuda_build.library().mjt_megastep_smem_bytes(
-      meta.ctypes.data, len(meta), int(dtype == torch.float64))
+      meta.ctypes.data, len(meta), int(dtype == torch.float64),
+      ROUTES.index(route_name or route(m, dtype)))
+
+
+def _work_values_of(lib, m: Model, dtype) -> int:
+  """The wide device route's values per env as ``lib``'s
+  ``mjt_megastep_work_values`` computes them, kept in the tables' cache
+  entry: the launch sizes the work space by the count the kernel indexes
+  with."""
+  counts = _entry(m).setdefault("work_values", {})
+  if dtype not in counts:
+    meta = tables(m).meta(dtype)[0]
+    n = lib.mjt_megastep_work_values(meta.ctypes.data, len(meta),
+                                     int(dtype == torch.float64))
+    if n < 0:
+      raise ValueError("megastep: the kernel refused the model's tables")
+    counts[dtype] = n
+  return counts[dtype]
+
+
+def work_values_kernel(m: Model, dtype) -> int:
+  """The wide device route's values per env as the CUDA source computes
+  them (``mjt_megastep_work_values``), the count the launch allocates."""
+  return _work_values_of(cuda_build.library(), m, dtype)
 
 
 def _launch(lib, m: Model, state: dict, fresh: dict, nstep: int,
             check: bool, stream: int, stats=None) -> dict:
-  """Launch the kernel through ``lib`` (no device checks); returns OUT. An
-  empty batch launches nothing. With ``stats`` (B, STAT_WORDS) int64 the
-  stage-clock instantiation runs and fills it; otherwise the launch counts
-  in LAUNCHES."""
+  """Launch the kernel through ``lib`` (no device checks) on m's route;
+  returns OUT. An empty batch launches nothing. The wide route's work
+  space is a tensor of B·``work_values_kernel`` values on the state's
+  device. With ``stats`` (B, STAT_WORDS) int64 the stage-clock
+  instantiation runs and fills it; otherwise the launch counts in
+  LAUNCHES."""
   global LAUNCHES
   q = state["qpos"]
   meta, _, ic, fc = packed(m, q.dtype, q.device)
@@ -983,11 +1052,23 @@ def _launch(lib, m: Model, state: dict, fresh: dict, nstep: int,
   if q.shape[0] == 0:
     return out
   f64 = q.dtype == torch.float64
-  if stats is None:
-    fn, extra = lib.mjt_megastep_f64 if f64 else lib.mjt_megastep_f32, ()
+  name = route(m, q.dtype)
+  if name == "narrow":
+    if stats is None:
+      fn, extra = lib.mjt_megastep_f64 if f64 else lib.mjt_megastep_f32, ()
+    else:
+      fn = lib.mjt_megastep_timed_f64 if f64 else lib.mjt_megastep_timed_f32
+      extra = (stats.data_ptr(),)
   else:
-    fn = lib.mjt_megastep_timed_f64 if f64 else lib.mjt_megastep_timed_f32
-    extra = (stats.data_ptr(),)
+    work = torch.empty(q.shape[0] * _work_values_of(lib, m, q.dtype),
+                       dtype=q.dtype, device=q.device)
+    extra = (work.data_ptr(),)
+    if stats is None:
+      fn = (lib.mjt_megastep_wide_device_f64 if f64
+            else lib.mjt_megastep_wide_device_f32)
+    else:
+      fn = lib.mjt_megastep_wide_device_timed_f32
+      extra += (stats.data_ptr(),)
   code = fn(meta.ctypes.data, len(meta), ic.data_ptr(), fc.data_ptr(),
             fresh_buf.data_ptr(), *(state[k].data_ptr() for k in STATE),
             *(out[k].data_ptr() for k in OUT), q.shape[0], int(nstep),
@@ -1003,11 +1084,16 @@ def _launch_checked(m: Model, state: dict, fresh: dict, nstep: int,
   _check(m, state, fresh)
   if not state["qpos"].is_cuda:
     raise ValueError("megastep_kernel needs CUDA tensors")
-  need = smem_bytes(m, state["qpos"].dtype)
-  if need > MAX_SMEM:
+  dtype = state["qpos"].dtype
+  need = smem_bytes(m, dtype)
+  if not _fits(need):
     raise ValueError(f"megastep kernel: the model needs {need} bytes of "
                      f"shared memory per block, over the {MAX_SMEM} a block "
                      f"may use")
+  if (stats is not None and dtype == torch.float64
+      and route(m, dtype) != "narrow"):
+    raise ValueError("megastep_timed: the wide route's stage clock is "
+                     "built at float32 only")
   with torch.cuda.device(state["qpos"].device):
     stream = torch.cuda.current_stream().cuda_stream
     return _launch(cuda_build.library(), m, state, fresh, nstep, check,
@@ -1024,7 +1110,8 @@ def megastep_kernel(m: Model, state: dict, nstep: int, fresh: dict,
 def megastep_timed(m: Model, state: dict, nstep: int, fresh: dict,
                    check: bool = True) -> tuple:
   """The kernel's stage-clock instantiation (``kTimed`` in
-  csrc/megastep.cu), a launch of its own that the main path never makes
+  csrc/megastep_common.cuh; on the wide route built at float32 only), a
+  launch of its own that the main path never makes
   and LAUNCHES does not count: (OUT as ``megastep_kernel``, stats). stats
   is (B, STAT_WORDS) int64 on the card: per env, the SM cycles of each
   stage of STAGES summed over the launch (thread 0's clock64() between the
@@ -1036,13 +1123,20 @@ def megastep_timed(m: Model, state: dict, nstep: int, fresh: dict,
   return _launch_checked(m, state, fresh, nstep, check, stats), stats
 
 
-def attributes(dtype, timed: bool = False) -> dict:
-  """``cudaFuncGetAttributes`` of the kernel's instantiation for dtype:
-  registers per thread, local (spilled) bytes per thread, static shared
-  bytes, and the block's threads."""
+def attributes(dtype, timed: bool = False, route_name: str = "narrow"
+               ) -> dict:
+  """``cudaFuncGetAttributes`` of the kernel's instantiation for dtype on a
+  route: registers per thread, local (spilled) bytes per thread, static
+  shared bytes, and the block's threads (the wide route's timed
+  instantiation exists at float32 only)."""
   out = (ctypes.c_int * 4)()
-  cuda_build.check(cuda_build.library().mjt_megastep_attributes(
-      int(dtype == torch.float64), int(timed), out), "megastep attributes")
+  lib, f64 = cuda_build.library(), int(dtype == torch.float64)
+  if route_name == "narrow":
+    code = lib.mjt_megastep_attributes(f64, int(timed), out)
+  else:
+    code = getattr(lib, f"mjt_megastep_{route_name}_attributes_"
+                   f"{'f64' if f64 else 'f32'}")(int(timed), out)
+  cuda_build.check(code, "megastep attributes")
   return dict(zip(("regs", "local_bytes", "static_smem", "threads"), out))
 
 
@@ -1053,11 +1147,16 @@ def sm_clock_khz() -> int:
 
 
 def blocks_per_sm(m: Model, dtype) -> int:
-  """Resident blocks of the kernel per SM for m, as the CUDA runtime's
-  occupancy calculator reports it for the current card."""
+  """Resident blocks of the kernel per SM for m on its route, as the CUDA
+  runtime's occupancy calculator reports it for the current card."""
   meta = tables(m).meta(dtype)[0]
-  n = cuda_build.library().mjt_megastep_blocks_per_sm(
-      meta.ctypes.data, len(meta), int(dtype == torch.float64))
+  lib, f64, name = cuda_build.library(), int(dtype == torch.float64), route(
+      m, dtype)
+  if name == "narrow":
+    n = lib.mjt_megastep_blocks_per_sm(meta.ctypes.data, len(meta), f64)
+  else:
+    n = getattr(lib, f"mjt_megastep_{name}_blocks_per_sm_"
+                f"{'f64' if f64 else 'f32'}")(meta.ctypes.data, len(meta))
   if n < 0:
     cuda_build.check(-n, "megastep occupancy")
   return n

@@ -704,12 +704,11 @@ def test_model_needing_a_gradient_keeps_the_stage_path(cuda):
   assert torch.isfinite(mass.grad).all() and mass.grad.abs().sum() > 0
 
 
-@pytest.mark.parametrize("name", ["multi_humanoid3", "humanoid_tendon",
-                                  "mocap_weld"])
+@pytest.mark.parametrize("name", ["humanoid_tendon", "mocap_weld"])
 def test_megastep_gate_refuses_the_slice_models(cuda, name):
-  """The megastep's class gate keeps nv 81, tendons and mocap bodies on the
-  stage path: a batched f32 scan_steps on the card launches one LDL and
-  one Newton kernel per step and no megastep, and stays finite."""
+  """The megastep's class gate keeps tendons and mocap bodies on the stage
+  path: a batched f32 scan_steps on the card launches one LDL and one
+  Newton kernel per step and no megastep, and stays finite."""
   m = zoo.load(name, torch.float32)
   assert not megastep_cuda.supported(m)
   d = rollout.make_batch(m, 64)
@@ -723,14 +722,86 @@ def test_megastep_gate_refuses_the_slice_models(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["humanoid", "quadruped", "mixed",
-                                  "spherebox"])
+                                  "spherebox", "multi_humanoid3",
+                                  "multi_humanoid10"])
 def test_megastep_smem_bytes_matches_kernel_source(cuda, name):
-  """The gate's host count of the megastep's shared memory equals the CUDA
-  source's layout."""
-  m = zoo.load(name, torch.float32)
+  """The host's count of the megastep's shared memory, which picks the
+  route, equals the CUDA source's layout on both routes, and the wide
+  route asks for a device work space."""
+  m = _wide_or_zoo(name, torch.float32)
   for dtype in (torch.float32, torch.float64):
-    assert megastep_cuda.smem_bytes(m, dtype) == \
-        megastep_cuda.smem_bytes_kernel(m, dtype)
+    for route in megastep_cuda.ROUTES:
+      assert megastep_cuda.smem_bytes(m, dtype, route) == \
+          megastep_cuda.smem_bytes_kernel(m, dtype, route), (dtype, route)
+    assert megastep_cuda.work_values_kernel(m, dtype) > 0
+
+
+def _wide_or_zoo(name, dtype):
+  """A zoo scene; the ten-humanoid scene with islands disabled, as it
+  takes the megastep (monolithic)."""
+  from mujoco_tpu_torch.models.types import DisableBit
+  m = zoo.load(name, dtype)
+  if name == "multi_humanoid10":
+    m = zoo.load(name, dtype, opt={"disableflags": int(
+        m.opt.disableflags) | int(DisableBit.ISLAND)})
+  return m
+
+
+@pytest.mark.parametrize("name", ["multi_humanoid3", "multi_humanoid10",
+                                  "humanoid"])
+def test_megastep_wide_routes_match_plain_f64(cuda, name):
+  """The wide route (a block of 8 warps per env, the blocked LDLᵀ and tiled
+  Newton solve, the work space in device memory) against megastep_plain at
+  f64, 64 envs, 3 steps, under chip_smoke's phase 11 rule: every env within
+  1e-9 + 1e-9·|plain| on qpos and qvel, but at most 1 %, each of which
+  passes only if the plain version or the kernel, rerun on last-bit copies
+  of its state, accounts for the other side (chip_smoke.megastep_gate_f64).
+  The scenes above nv 64 take the route; the humanoid (one tile) is set
+  on it."""
+  import chip_smoke as cs
+  m = _wide_or_zoo(name, torch.float64)
+  megastep_cuda._entry(m).setdefault("route", {})[torch.float64] = \
+      "wide_device"
+  state, fresh = _posed(m, 64, 6)
+  before = megastep_cuda.LAUNCHES
+  cs.megastep_gate_f64(name, m, state, fresh, 3)     # raises on a miss
+  assert megastep_cuda.LAUNCHES > before
+
+
+@pytest.mark.parametrize("name", ["multi_humanoid3", "multi_humanoid10"])
+def test_megastep_wide_routes_match_plain_f32(cuda, name):
+  """The wide route at f32: ≥ 99 % of envs within 2e-4 of the env's
+  largest |value| after one step, as the narrow route's f32 test."""
+  m = _wide_or_zoo(name, torch.float32)
+  assert megastep_cuda.route(m, torch.float32) == "wide_device"
+  state, fresh = _posed(m, 512, 2, lower=0.15)
+  out_k = megastep_cuda.megastep_kernel(m, state, 1, fresh)
+  out_p = megastep_cuda.megastep_plain(m, state, 1, fresh)
+  for k in ("qpos", "qvel"):
+    scale = torch.clamp(out_p[k].abs().amax(1), min=1.0)
+    close = (out_k[k] - out_p[k]).abs().amax(1) < 2e-4 * scale
+    assert close.float().mean() >= 0.99, k
+
+
+@pytest.mark.parametrize("name", ["multi_humanoid3", "multi_humanoid10"])
+def test_scan_steps_is_one_megastep_launch_above_nv_64(cuda, name,
+                                                       monkeypatch):
+  """A batched f32 scan_steps of a model above nv 64 in the megastep's
+  class is one megastep launch per call and no LDL or Newton launch, and
+  stays finite; the stage path (MJTPU_MEGASTEP=0) agrees to 1e-3 after 3
+  steps from rest."""
+  m = _wide_or_zoo(name, torch.float32)
+  d = rollout.make_batch(m, 64)
+  megastep_cuda.LAUNCHES = newton_cuda.LAUNCHES = linalg_cuda.LAUNCHES = 0
+  out = rollout.scan_steps(m, d, 3)
+  torch.cuda.synchronize()
+  assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
+          megastep_cuda.LAUNCHES) == (0, 0, 1)
+  assert torch.isfinite(out.qpos).all() and torch.isfinite(out.qvel).all()
+  monkeypatch.setenv("MJTPU_MEGASTEP", "0")
+  ref = rollout.scan_steps(m, d, 3)
+  assert megastep_cuda.LAUNCHES == 1
+  torch.testing.assert_close(out.qpos, ref.qpos, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("name", zoo.TENDON + ("humanoid_tendon",

@@ -6,7 +6,10 @@ tests/test_megastep.py:140-153 at qpos 1e-9, qvel 1e-8, qacc 1e-6, and with
 mujoco_tpu's ``_lane_step`` on the humanoid and ``mixed`` (inputs from a
 numpy seed); the port's ``supported()`` answers as mujoco_tpu's on the
 gate's models at the default island gate, and on the quadruped with fluid
-forces, history buffers or an action delay (ROADMAP §C 11); qfrc_applied and xfrc_applied,
+forces, history buffers or an action delay (ROADMAP §C 11), and on the
+models above nv 64 that the kernel's wide route takes (``multi_humanoid3``,
+nv 81, and the ten-humanoid scene without islands, nv 270), whose routes
+are held here too; qfrc_applied and xfrc_applied,
 the divergence guard's lane semantics and a 2-step ``scan_batch`` against
 the stage path's ``scan_steps`` hold; CPU tensors never launch the kernel.
 The kernel's premises are held here too: the Newton solve over only the
@@ -65,6 +68,8 @@ def multi_humanoid():
 def _model(name, multi_humanoid):
   if name == "multi_humanoid":
     return multi_humanoid[1]
+  if name == "multi_humanoid3":
+    return zoo.load(name, torch.float64, device="cpu")
   base, _, flag = name.partition("_no")
   m = zoo.load(base, torch.float64, device="cpu")
   bits = {"": 0, "limit": DisableBit.LIMIT, "clampctrl": DisableBit.CLAMPCTRL,
@@ -257,15 +262,15 @@ def test_supported_gate_matches_reference_actuation(case, monkeypatch):
     assert not np.any(np.asarray(tm.actuator_delay))
 
 
-@pytest.mark.parametrize("name", ["multi_humanoid3", "humanoid_tendon",
-                                  "mocap_weld", "tendon_limit_only"])
+@pytest.mark.parametrize("name", ["humanoid_tendon", "mocap_weld",
+                                  "tendon_limit_only"])
 def test_supported_refuses_the_slice_models(name):
-  """The class gate keeps off the kernel: nv above MAX_NV (the reference
-  admits multi_humanoid3, whose nv 81 the port's kernel does not take),
-  tendons and mocap bodies (refused as the reference refuses them,
-  megastep_tpu.py:111-112), and a limit row that is not a hinge or slide
-  joint's (:137-140), here a humanoid whose only tendon is a limited one
-  and whose gate would otherwise pass."""
+  """The class gate keeps off the kernel tendons and mocap bodies
+  (refused as the reference refuses them, megastep_tpu.py:111-112), and a
+  limit row that is not a hinge or slide joint's (:137-140), here a
+  humanoid whose only tendon is a limited one and whose gate would
+  otherwise pass. (multi_humanoid3, nv 81, is admitted now: see
+  test_supported_admits_the_wide_models.)"""
   if name == "tendon_limit_only":
     fields = zoo.load_snapshot("humanoid_tendon")
     m = tio.model_from_numpy(dict(fields, ntendon=np.asarray(0)),
@@ -275,12 +280,61 @@ def test_supported_refuses_the_slice_models(name):
     return
   m = zoo.load(name, torch.float64, "cpu")
   assert not mc.supported(m)
-  if name == "multi_humanoid3":
-    assert m.nv == 81 > mc.MAX_NV
-    assert mc.smem_bytes(m, torch.float32) > 0
-    return
   mjm = snapshot.compile_mj(name)
   assert jmega.supported(jio.put_model(mjm)) is False
+
+
+def _wide_model(name, dtype=torch.float64):
+  """(reference Model, port Model) of a scene above nv 64: the reference's
+  3-humanoid or 10-humanoid scene (snapshot.multi_humanoid_mj) with
+  islands disabled, as a multi-tree model opts into the megastep
+  (megastep_tpu.py:114-120), and the port's snapshot with the same
+  flags."""
+  n = {"multi_humanoid3": 3, "multi_humanoid10": 10}[name]
+  compiled = jio.put_model(snapshot.multi_humanoid_mj(n))
+  flags = int(compiled.opt.disableflags) | int(DisableBit.ISLAND)
+  jm = compiled.replace(opt=compiled.opt.replace(disableflags=flags))
+  return jm, zoo.load(name, dtype, "cpu", opt={"disableflags": flags})
+
+
+@pytest.mark.parametrize("name", ["multi_humanoid3", "multi_humanoid10"])
+def test_supported_admits_the_wide_models(name, monkeypatch):
+  """The gate admits what the reference's admits above nv 64: the
+  3-humanoid scene (nv 81, below the island gate) and the ten-humanoid
+  scene with islands disabled (nv 270), at the default island gate."""
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "256")
+  jm, tm = _wide_model(name)
+  assert tm.nv == {"multi_humanoid3": 81, "multi_humanoid10": 270}[name]
+  assert mc.supported(tm) is True and bool(jmega.supported(jm)) is True
+
+
+_ROUTES = [("humanoid", torch.float32, "narrow"),
+           ("humanoid", torch.float64, "narrow"),
+           ("multi_humanoid3", torch.float32, "wide_device"),
+           ("multi_humanoid3", torch.float64, "wide_device"),
+           ("multi_humanoid10", torch.float32, "wide_device"),
+           ("multi_humanoid10", torch.float64, "wide_device")]
+
+
+@pytest.mark.parametrize("name,dtype,route", _ROUTES)
+def test_route_follows_the_size(name, dtype, route, monkeypatch):
+  """megastep_cuda.route: the humanoid on the narrow route at both
+  dtypes; multi_humanoid3 (nv 81) and the ten-humanoid scene without
+  islands (nv 270) on the wide route, whose large arrays are in device
+  memory, at both. Each route's shared part fits a block with the stage
+  clock's sums, and the 16-bit tree lists of the largest scene (nlist
+  6,556) hold their values."""
+  monkeypatch.setenv("MJTPU_ISLAND_MIN_NV", "256")
+  m = (_wide_model(name)[1] if name == "multi_humanoid10"
+       else zoo.load(name, torch.float64, "cpu"))
+  assert mc.route(m, dtype) == route
+  assert (m.nv > mc.NARROW_NV) == (route == "wide_device")
+  assert mc.smem_bytes(m, dtype) + 8 * mc.STAT_WORDS <= mc.MAX_SMEM
+  t = mc.tables(m)
+  names = mc.INT_TABLES[mc.INT_TABLES.index("lvl_adr"):]
+  assert max(int(t.ints[n].max(initial=0)) for n in names) <= 0xFFFF
+  if name == "multi_humanoid10":
+    assert t.counts["nlist"] == 6556
 
 
 def test_supported_raises_instead_of_guessing():
@@ -291,7 +345,8 @@ def test_supported_raises_instead_of_guessing():
 
 @pytest.mark.parametrize("name", [
     "humanoid", "quadruped", "multi_humanoid", "mixed", "spherebox",
-    "mixed_nolimit", "mixed_noclampctrl", "mixed_nogravity"])
+    "mixed_nolimit", "mixed_noclampctrl", "mixed_nogravity",
+    "multi_humanoid3"])
 def test_plain_matches_port_step(name, multi_humanoid):
   m = _model(name, multi_humanoid)
   assert mc.supported(m), name
@@ -316,11 +371,14 @@ def _lane(m_ref, d):
   return qp.T, qv.T, qa.T
 
 
-@pytest.mark.parametrize("name", ["humanoid", "mixed"])
+@pytest.mark.parametrize("name", ["humanoid", "mixed", "multi_humanoid3"])
 def test_plain_matches_reference_lane_step(name):
   m = zoo.load(name, torch.float64, device="cpu")
-  m_ref = (jzoo.humanoid() if name == "humanoid"
-           else jio.put_model(snapshot.compile_mj(name)))
+  if name == "multi_humanoid3":
+    m_ref, m = _wide_model(name)
+  else:
+    m_ref = (jzoo.humanoid() if name == "humanoid"
+             else jio.put_model(snapshot.compile_mj(name)))
   d = posed(m, 4, 5)
   rng = np.random.default_rng(6)
   d = d.replace(qacc_warmstart=torch.tensor(
@@ -440,9 +498,9 @@ def test_dispatch_keeps_a_model_that_needs_a_gradient_off_the_megastep(
 
 
 def test_meta_layout_matches_kernel_source():
-  """csrc/megastep.cu's struct Meta lists META_FIELDS in order."""
+  """csrc/megastep_common.cuh's struct Meta lists META_FIELDS in order."""
   with open(os.path.join(ROOT, "mujoco_tpu_torch", "csrc",
-                         "megastep.cu")) as f:
+                         "megastep_common.cuh")) as f:
     src = f.read()
   body = re.search(r"struct Meta \{(.*?)\};", src, re.S).group(1)
   names = re.findall(r"\w+", body.replace("int", " "))
@@ -450,10 +508,11 @@ def test_meta_layout_matches_kernel_source():
 
 
 def test_stage_names_match_kernel_source():
-  """The stage clock's STAGES name csrc/megastep.cu's kStageNames in order,
-  and a timed launch's stats row is one word per stage and three counts."""
+  """The stage clock's STAGES name csrc/megastep_common.cuh's kStageNames
+  in order, and a timed launch's stats row is one word per stage and three
+  counts."""
   with open(os.path.join(ROOT, "mujoco_tpu_torch", "csrc",
-                         "megastep.cu")) as f:
+                         "megastep_common.cuh")) as f:
     src = f.read()
   body = re.search(r"kStageNames\[kNumStages\] = \{(.*?)\};", src,
                    re.S).group(1)
