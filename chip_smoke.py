@@ -280,13 +280,24 @@ Phases, each of which passes or ends the script with a nonzero exit:
    their forward-mode rules) at f32, B 256, finite with both kernels
    launched and its ms per env, at f64 on 8 envs card against CPU
    (1e-7), and its A at f64, B 256, against its own centered
-   ``transition_fd`` (eps 1e-6, 1e-4); the humanoid with all ten
-   randomizable leaves drawn per env from a seed (``randomize_model``,
-   ``step_randomized``), 20 steps at f64, B 3072, card against CPU
-   (1e-8), four envs each against a plain Model holding its leaves (1e-8),
-   then at f32, B 3072, 20 steps with one LDL and one Newton launch per
-   step and no megastep, env-steps/s and device kernels per step beside
-   the plain stage path's in the same call.
+   ``transition_fd`` (eps 1e-6, 1e-4); the same of the humanoid with
+   every admitted leaf per env (f32, B 256, ms per env and launches;
+   f64, B 8, card against CPU, 1e-7) and of ``tendon_rows`` (its
+   tendon-armature bias carries the tangents; f32, B 256, and f64, B 8);
+   the humanoid with all eighteen randomizable leaves drawn per env from a
+   seed (``rollout.draw_leaves``, ``randomize_model``,
+   ``step_randomized``), 20 steps at f64, B 3072, each step of the CPU's
+   state on the card and the CPU (1e-8, an env that misses judged by
+   last-bit copies with its leaves on both sides, ``judge_envs``), four
+   envs of the card's own 20 steps each against a plain Model holding its
+   leaves (1e-8), the megastep's refusal, then at f32, B 3072, 20 steps
+   with one LDL and one Newton launch per step and no megastep,
+   env-steps/s and device kernels per step beside the plain stage path's
+   in the same call; ``quadruped_sim2real`` at implicitfast with the
+   twelve leaves a sim-to-real user draws per env, 20 steps of
+   ``step_randomized`` at
+   f32, B 3072 (finite, launches per step, env-steps/s beside its plain
+   stage path), and 10 steps at f64, B 8, card against CPU as above.
 27. the flexes (``zoo.FLEX``): the megastep's gate and
    ``rollout.megastep_eligible`` refuse every scene; each scene at f64,
    B 8, 5 steps from a start in contact (``FLEX_START``), each step from
@@ -3628,53 +3639,164 @@ def control_transition_phase(report):
         f"{fd_err:.3e} (limit 1e-4)", flush=True)
   if not fd_err <= 1e-4:
     raise AssertionError(f"transition: A and its FD differ by {fd_err}")
-  return dict(batch=TRANSITION_B, directions=ndir, first_wall_s=wall,
-              wall_s=wall2, ms_per_env=wall2 / TRANSITION_B * 1e3,
-              launches=launches, card_vs_cpu_worst=worst,
-              fd_max_abs_diff=fd_err)
+  out = dict(batch=TRANSITION_B, directions=ndir, first_wall_s=wall,
+             wall_s=wall2, ms_per_env=wall2 / TRANSITION_B * 1e3,
+             launches=launches, card_vs_cpu_worst=worst,
+             fd_max_abs_diff=fd_err)
+  out["per_env_model"] = transition_case(report, "humanoid", True)
+  out["tendon_rows"] = transition_case(report, "tendon_rows", False)
+  return out
 
 
-def control_leaves(m, nbatch, seed):
-  """Each admitted per-env leaf: the model's value times a factor in
-  [0.7, 1.3] per entry, drawn from a numpy seed."""
-  from mujoco_tpu_torch.models.types import ENV_LEAVES
-  rng = np.random.default_rng(seed)
-  return {k: m.leaf(k)[None] * torch.tensor(
-      rng.uniform(0.7, 1.3, (nbatch,) + tuple(m.leaf(k).shape)),
-      dtype=m.dtype, device=m.device) for k in ENV_LEAVES}
+def transition_case(report, name, per_env):
+  """``transition`` of the scene ``name``, its Model per env (every
+  admitted leaf, ``control_leaves``) where asked: f32, B 256, finite, its
+  launches and ms per env; f64, B 8, card against CPU (1e-7)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import derivative_fd
+  from mujoco_tpu_torch.parallel import rollout
+  tag = f"{name}{' per env' if per_env else ''}"
+
+  def model(dtype, nbatch, dev="cuda"):
+    m = zoo.load(name, dtype, device=dev)
+    if per_env:
+      m = rollout.randomize_model(m, control_leaves(m, nbatch, 97))[0]
+    return m
+
+  m = model(torch.float32, TRANSITION_B)
+  d = control_state(m, TRANSITION_B, 93)
+  torch.cuda.synchronize()
+  reset_counts()
+  a, b, _, _ = derivative_fd.transition(m, d)
+  torch.cuda.synchronize()
+  launches = read_counts()
+  finite = bool(torch.isfinite(a).all() & torch.isfinite(b).all())
+  if not finite or not launches["ldl_solve"] > 0 or launches["megastep"]:
+    raise AssertionError(f"transition {tag} f32: finite {finite}, "
+                         f"launches {launches}")
+  wall = host_us(lambda: derivative_fd.transition(m, d), reps=2) / 1e6
+  outs = {}
+  for dev in ("cuda", "cpu"):
+    m64 = model(torch.float64, TRANSITION_CHECK_B, dev)
+    outs[dev] = derivative_fd.transition(
+        m64, control_state(m64, TRANSITION_CHECK_B, 94, dev))
+  worst = max(gate_close(f"transition {tag} {n}", x, y, 1e-7)
+              for n, x, y in zip("ABCD", outs["cuda"], outs["cpu"]))
+  key = "transition_per_env" if per_env else f"transition_{name}"
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})[key] = launches[k]
+  print(f"transition: {tag} (nv {m.nv}, "
+        f"{len(m.env_leaves)} per-env leaves) f32 B{TRANSITION_B}: "
+        f"{wall:.3f} s, {wall / TRANSITION_B * 1e3:.3f} ms per env, "
+        f"launches {launches}; f64 B{TRANSITION_CHECK_B} card vs CPU worst "
+        f"err / (1e-7 + 1e-7·|CPU|) {worst:.3f}", flush=True)
+  return dict(batch=TRANSITION_B, wall_s=wall,
+              ms_per_env=wall / TRANSITION_B * 1e3, launches=launches,
+              card_vs_cpu_worst=worst)
+
+
+# the leaves a sim-to-real user draws per env on quadruped_sim2real
+SIM2REAL_LEAVES = ("geom_friction", "geom_solref", "body_mass", "body_ipos",
+                   "actuator_gear", "actuator_gainprm", "actuator_biasprm",
+                   "dof_damping", "dof_armature", "dof_frictionloss", "qpos0",
+                   "opt.timestep")
+SIM2REAL_CHECK_NSTEP = 10
+
+
+def control_leaves(m, nbatch, seed, leaves=None):
+  """Per-env values of the admitted leaves (every one by default), drawn
+  from a numpy seed by ``rollout.draw_leaves``'s rule for each, as tensors
+  on m's device."""
+  from mujoco_tpu_torch.parallel import rollout
+  return {k: torch.tensor(v, dtype=m.dtype, device=m.device)
+          for k, v in rollout.draw_leaves(m, nbatch, seed, leaves).items()}
+
+
+def take_model_envs(bm, idx):
+  """The per-env Model bm at its envs idx (its per-env leaves' rows)."""
+  return bm.replace_leaves({k: bm.leaf(k)[idx.to(bm.device)]
+                            for k in bm.env_leaves})
+
+
+def randomized_card_vs_cpu(bm_card, bm_cpu, d, nstep, fields):
+  """nstep steps at f64 of a per-env Model (bm_card on the card, bm_cpu
+  its copy on the CPU), each step of the CPU's state on both: ``fields``
+  within 1e-8 absolute plus relative, an env that misses judged by
+  last-bit copies of its state (qpos, qvel, act), each copy with its
+  env's leaves, on both sides (judge_envs). Returns the env-steps
+  judged."""
+  from mujoco_tpu_torch.ops import forward
+  judged = 0
+  for _ in range(nstep):
+    out_h = forward.step(bm_cpu, d)
+    out_c = forward.step(bm_card, d.to("cuda"))
+
+    def rerun(idx, bm, d=d):
+      k = SCENE_COPIES
+      rep = idx.repeat_interleave(k)
+      gen = torch.Generator().manual_seed(0)
+      copies = take_envs(d, rep)
+      moved = {f: getattr(copies, f) * (1 + last_bits(
+          getattr(copies, f).shape, gen)) for f in ("qpos", "qvel", "act")}
+      r = forward.step(take_model_envs(bm, rep),
+                       copies.replace(**moved).to(bm.device))
+      return [getattr(r, f).reshape((len(idx), k) + getattr(r, f).shape[1:])
+              for f in fields]
+
+    judged += judge_envs([getattr(out_c, f)[None] for f in fields],
+                         [getattr(out_h, f)[None] for f in fields],
+                         lambda idx: rerun(idx, bm_cpu),
+                         lambda idx: rerun(idx, bm_card), SCENE_COPIES, 1e-8,
+                         1.0)
+    d = out_h
+  return judged
+
+
+def step_loop(fn, d, nstep):
+  """nstep steps d = fn(d) with the launch counts zeroed just before and
+  read just after; returns (out, wall s, launches)."""
+  torch.cuda.synchronize()
+  reset_counts()
+  t0 = time.perf_counter()
+  for _ in range(nstep):
+    d = fn(d)
+  torch.cuda.synchronize()
+  return d, time.perf_counter() - t0, read_counts()
 
 
 def control_randomized_phase(report):
-  """26d: all ten leaves per env on the humanoid, B 3072: 20 steps f64
-  card = CPU (1e-8); 4 envs each equal to a plain Model that holds its
-  leaves (1e-8); env-steps/s at f32 beside the plain stage path's."""
+  """26d: all eighteen leaves per env on the humanoid, B 3072: 20 steps
+  f64 card = CPU (1e-8, each step from the CPU's state, envs judged by
+  last-bit copies); 4 envs of the card's own 20 steps each equal to a
+  plain Model that holds its leaves (1e-8); env-steps/s at f32 beside the
+  plain stage path's."""
   from mujoco_tpu_torch.models import zoo
   from mujoco_tpu_torch.ops import forward, megastep_cuda
   from mujoco_tpu_torch.parallel import rollout
-  runs = {}
+  bms = {}
   for dev in ("cuda", "cpu"):
     m = zoo.humanoid(torch.float64, device=dev)
-    bm, axes = rollout.randomize_model(m, control_leaves(m, B, 95))
-    d = control_state(m, B, 96, dev)
-    for _ in range(CONTROL_NSTEP):
-      d = rollout.step_randomized(bm, axes, d)
-    runs[dev] = (m, bm, d)
-  worst = max(gate_close(f"randomized {k}", getattr(runs["cuda"][2], k),
-                         getattr(runs["cpu"][2], k), 1e-8)
-              for k in ("qpos", "qvel"))
-  m, bm, d_rand = runs["cuda"]
+    bms[dev], axes = rollout.randomize_model(m, control_leaves(m, B, 95))
+  judged = randomized_card_vs_cpu(bms["cuda"], bms["cpu"],
+                                  control_state(m, B, 96, "cpu"),
+                                  CONTROL_NSTEP, ("qpos", "qvel"))
+  m, bm = zoo.humanoid(torch.float64), bms["cuda"]
   start = control_state(m, B, 96)
+  d_rand = start
+  for _ in range(CONTROL_NSTEP):
+    d_rand = rollout.step_randomized(bm, axes, d_rand)
   single = 0.0
   for i in (0, 1, B // 3, B - 1):
-    plain = m.replace(opt=m.opt.replace(gravity=bm.opt.gravity[i]), **{
-        k: bm.leaf(k)[i] for k in bm.env_leaves if not k.startswith("opt.")})
+    plain = take_model_envs(bm, torch.tensor(i))
+    if plain.env_leaves:
+      raise AssertionError(f"env {i}'s Model keeps per-env leaves")
     di = take_envs(start, torch.tensor([i], device="cuda"))
     for _ in range(CONTROL_NSTEP):
       di = forward.step(plain, di)
     single = max(single, max(gate_close(
         f"randomized env {i} {k}", getattr(di, k)[0],
         getattr(d_rand, k)[i], 1e-8) for k in ("qpos", "qvel")))
-  del runs
+  del bms, bm, d_rand
   m32 = zoo.humanoid(torch.float32)
   bm32, axes = rollout.randomize_model(m32, control_leaves(m32, B, 95))
   if megastep_cuda.supported(bm32):
@@ -3697,29 +3819,98 @@ def control_randomized_phase(report):
     report[k].setdefault("launches_by_path", {})["randomized"] = (
         launches_r[k])
   print(f"randomized: humanoid, all {len(bm32.env_leaves)} leaves per env, "
-        f"f64 B{B} {CONTROL_NSTEP} steps card vs CPU worst err / (1e-8 + "
-        f"1e-8·|CPU|) {worst:.3f}, 4 envs against a plain Model of their "
-        f"leaves {single:.3f}; f32 B{B} {CONTROL_NSTEP} steps: randomized "
+        f"f64 B{B} {CONTROL_NSTEP} steps card = CPU (1e-8; {judged} "
+        f"env-steps judged by last-bit copies), 4 envs against a plain "
+        f"Model of their leaves, worst err / (1e-8 + 1e-8·|value|) "
+        f"{single:.3f}; f32 B{B} {CONTROL_NSTEP} steps: randomized "
         f"{sps_r:.1f} env-steps/s ({launches_r['ldl_solve'] / CONTROL_NSTEP}"
         f" LDL and {launches_r['newton_pyramidal'] / CONTROL_NSTEP} Newton "
         f"launches and {kernels_r} device kernels per step), plain stage "
         f"path {sps_p:.1f} ({kernels_p} device kernels per step)",
         flush=True)
-  return dict(card_vs_cpu_worst=worst, single_env_worst=single,
-              env_steps_per_s=sps_r, plain_env_steps_per_s=sps_p,
-              launches=launches_r, plain_launches=launches_p,
-              kernels_per_step=kernels_r, plain_kernels_per_step=kernels_p)
+  return dict(leaves=len(bm32.env_leaves), card_vs_cpu_judged=judged,
+              single_env_worst=single, env_steps_per_s=sps_r,
+              plain_env_steps_per_s=sps_p, launches=launches_r,
+              plain_launches=launches_p, kernels_per_step=kernels_r,
+              plain_kernels_per_step=kernels_p)
+
+
+def control_sim2real_phase(report):
+  """26e: quadruped_sim2real at implicitfast with the leaves of
+  SIM2REAL_LEAVES drawn per env: 20 steps of ``step_randomized`` at f32,
+  B 3072, from the phase 25 start (finite, one LDL and one Newton launch
+  per step, env-steps/s beside the plain stage path's); 10 steps at f64,
+  B 8, card = CPU. Implicitfast is the integrator of MuJoCo's own
+  quadruped models. Under the scene's Euler a draw of ×[0.7, 1.3] on the
+  motors' gear or gain or on the timestep makes the back-EMF damping's
+  explicit step unstable: 20-51 of 64 envs diverge within 20 steps (27
+  still at ×[0.9, 1.1]), the same envs in the reference as in the port
+  (tests/torch_sim2real_euler.py, f64 on the CPU)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import Integrator
+  from mujoco_tpu_torch.ops import forward, megastep_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  opt = {"integrator": int(Integrator.IMPLICITFAST)}
+  m = zoo.load("quadruped_sim2real", torch.float32, opt=opt)
+  bm, axes = rollout.randomize_model(m, control_leaves(m, B, 98,
+                                                       SIM2REAL_LEAVES))
+  if megastep_cuda.supported(bm):
+    raise AssertionError("the megastep admits a per-env quadruped")
+  d0 = quadruped_batch(m, B, 99)
+  step_r = lambda d: rollout.step_randomized(bm, axes, d)
+  out_r, wall_r, launches_r = step_loop(step_r, d0, CONTROL_NSTEP)
+  out_p, wall_p, launches_p = step_loop(lambda d: forward.step(m, d), d0,
+                                        CONTROL_NSTEP)
+  finite = all(bool(torch.isfinite(getattr(o, f)).all())
+               for o in (out_r, out_p) for f in ("qpos", "qvel", "act"))
+  want = {"ldl_solve": CONTROL_NSTEP, "newton_pyramidal": CONTROL_NSTEP,
+          "megastep": 0}
+  if not finite or launches_r != want or launches_p != want:
+    raise AssertionError(f"sim2real f32: finite {finite}, launches "
+                         f"{launches_r}, plain {launches_p}")
+  kernels_r = kernel_count(lambda: step_r(out_r), 3)
+  kernels_p = kernel_count(lambda: forward.step(m, out_p), 3)
+  sps_r, sps_p = B * CONTROL_NSTEP / wall_r, B * CONTROL_NSTEP / wall_p
+  bms = {}
+  for dev in ("cuda", "cpu"):
+    m64 = zoo.load("quadruped_sim2real", torch.float64, device=dev, opt=opt)
+    bms[dev] = rollout.randomize_model(m64, control_leaves(
+        m64, 8, 98, SIM2REAL_LEAVES))[0]
+  judged = randomized_card_vs_cpu(
+      bms["cuda"], bms["cpu"], quadruped_batch(m64, 8, 99, "cpu"),
+      SIM2REAL_CHECK_NSTEP, ACTUATION_FIELDS)
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})["randomized_sim2real"] = (
+        launches_r[k])
+  print(f"randomized: quadruped_sim2real at implicitfast, "
+        f"{len(bm.env_leaves)} leaves per "
+        f"env ({', '.join(bm.env_leaves)}), f32 B{B} {CONTROL_NSTEP} steps "
+        f"of step_randomized: {sps_r:.1f} env-steps/s "
+        f"({launches_r['ldl_solve'] / CONTROL_NSTEP} LDL and "
+        f"{launches_r['newton_pyramidal'] / CONTROL_NSTEP} Newton launches "
+        f"and {kernels_r} device kernels per step), plain stage path "
+        f"{sps_p:.1f} ({kernels_p} device kernels per step), finite "
+        f"{finite}; f64 B8 {SIM2REAL_CHECK_NSTEP} steps card = CPU (1e-8 "
+        f"on {', '.join(ACTUATION_FIELDS)}; {judged} env-steps judged by "
+        f"last-bit copies)", flush=True)
+  return dict(leaves=list(bm.env_leaves), env_steps_per_s=sps_r,
+              plain_env_steps_per_s=sps_p, launches=launches_r,
+              plain_launches=launches_p, kernels_per_step=kernels_r,
+              plain_kernels_per_step=kernels_p, card_vs_cpu_judged=judged)
 
 
 def phase_control_loop(report, details):
   """26: the control-loop API: state vectors and keyframe resets,
   inverse dynamics, transition Jacobians by forward-mode AD through the
-  LDL and Newton kernels, and a per-env (domain-randomized) Model."""
+  LDL and Newton kernels (of a per-env Model and through tendon armature
+  too), and a per-env (domain-randomized) Model on the humanoid and the
+  sim-to-real quadruped."""
   details["control_loop"] = dict(
       state=control_state_phase(),
       inverse=control_inverse_phase(report),
       transition=control_transition_phase(report),
-      randomized=control_randomized_phase(report))
+      randomized=control_randomized_phase(report),
+      sim2real=control_sim2real_phase(report))
 
 
 FLEX_CHECK_NSTEP = 10

@@ -1304,7 +1304,9 @@ def put_model(mjm: Any, dtype: Optional[torch.dtype] = None,
 
 def make_data(m: Model, dtype: Optional[torch.dtype] = None,
               device=None) -> Data:
-  """A zero-initialized Data at qpos0 with a batch of 1 (mj_makeData)."""
+  """A zero-initialized Data at qpos0 with a batch of 1 (mj_makeData). Of
+  a per-env Model, qpos and the mocap poses hold each env's qpos0 and body
+  pose, (B, …), and broadcast against the rest (``rollout.expand``)."""
   dtype = dtype or m.dtype
   dev = default_device(device)
   z = lambda *shape: torch.zeros((1,) + shape, dtype=dtype, device=dev)
@@ -1333,15 +1335,17 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       flexvert=torch.full((1, ncon, 4), -1, dtype=torch.int32, device=dev),
       flexvert1=torch.full((1, ncon, 4), -1, dtype=torch.int32, device=dev))
   return Data(
-      time=z(), qpos=m.qpos0.to(device=dev, dtype=dtype)[None].clone(),
+      time=z(), qpos=m.per_env("qpos0").to(device=dev, dtype=dtype).clone(),
       qvel=z(nv), act=z(m.na),
       ctrl=torch.as_tensor(_neutral_ctrl(m), dtype=dtype,
                            device=dev)[None].clone(), qfrc_applied=z(nv),
       xfrc_applied=z(nb, 6), qacc_warmstart=z(nv),
       eq_active=torch.as_tensor(m.eq_active0, dtype=torch.bool,
                                 device=dev).reshape(1, m.neq),
-      mocap_pos=m.body_pos[mb].to(device=dev, dtype=dtype)[None].clone(),
-      mocap_quat=m.body_quat[mb].to(device=dev, dtype=dtype)[None].clone(),
+      mocap_pos=m.per_env("body_pos")[:, mb].to(device=dev,
+                                                 dtype=dtype).clone(),
+      mocap_quat=m.per_env("body_quat")[:, mb].to(device=dev,
+                                                   dtype=dtype).clone(),
       xpos=z(nb, 3), xquat=tile([1.0, 0, 0, 0], nb), xmat=tile(eye3, nb),
       xipos=z(nb, 3), ximat=tile(eye3, nb), xanchor=z(m.njnt, 3),
       xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3),
@@ -1375,8 +1379,11 @@ def make_data(m: Model, dtype: Optional[torch.dtype] = None,
       cacc=z(nb, 6), cfrc_int=z(nb, 6), cfrc_ext=z(nb, 6),
       subtree_linvel=z(nb, 3), subtree_angmom=z(nb, 3),
       sensordata=z(m.nsensordata), energy=z(2),
-      history=torch.as_tensor(_init_history(m), dtype=dtype,
-                              device=dev)[None].clone())
+      # seeded at each env's own timestep, of a per-env Model
+      history=torch.as_tensor(np.stack([
+          _init_history(m, dt) for dt in
+          m.per_env("opt.timestep").detach().cpu().tolist()]), dtype=dtype,
+          device=dev) if m.nhistory else z(0))
 
 
 def _neutral_ctrl(m: Model) -> np.ndarray:
@@ -1390,16 +1397,14 @@ def _neutral_ctrl(m: Model) -> np.ndarray:
   return ctrl
 
 
-def _init_history(m: Model) -> np.ndarray:
+def _init_history(m: Model, dt: float) -> np.ndarray:
   """The history buffers at reset (mj_resetData; mujoco_tpu/models/
   io.py:1790-1846): per buffer [user, cursor n − 1, times, zero values],
   its times seeded in the past (one timestep apart, or an interval
   sensor's ticks rounded up to the timestep) and its user slot the time
-  of an interval sensor's previous tick (−dt for the others)."""
+  of an interval sensor's previous tick (−dt for the others), dt the
+  timestep."""
   buf = np.zeros(m.nhistory)
-  if m.nhistory == 0:
-    return buf
-  dt = float(m.opt.timestep)
   for i in range(m.nu):
     n = int(m.actuator_history[i, 0])
     if n <= 0:

@@ -437,7 +437,10 @@ class EfcMeta:
 ENV_LEAVES = {"opt.gravity": 1, "geom_friction": 2, "body_mass": 1,
               "body_ipos": 2, "body_inertia": 2, "dof_damping": 1,
               "dof_armature": 1, "dof_frictionloss": 1,
-              "actuator_gainprm": 2, "actuator_biasprm": 2}
+              "actuator_gainprm": 2, "actuator_biasprm": 2,
+              "geom_solref": 2, "geom_solimp": 2, "jnt_stiffness": 1,
+              "actuator_gear": 2, "body_pos": 2, "body_quat": 2, "qpos0": 1,
+              "opt.timestep": 0}
 
 
 @dataclass
@@ -838,11 +841,42 @@ class Model:
     v = self.leaf(name)
     return v if v.dim() > ENV_LEAVES[name] else v[None]
 
+  def timestep(self, ndim: int) -> torch.Tensor:
+    """``opt.timestep`` shaped to meet a (B, …) tensor of ndim dims: the
+    0-d tensor itself on a plain Model, (B, 1, …) where it is randomized
+    per env."""
+    h = self.opt.timestep
+    return h if h.dim() == 0 else h.reshape((-1,) + (1,) * (ndim - 1))
+
   @property
   def env_leaves(self) -> tuple:
     """The leaves that carry an env axis (empty for a plain Model)."""
     return tuple(k for k, rank in ENV_LEAVES.items()
                  if self.leaf(k).dim() > rank)
+
+  @property
+  def nenv(self) -> int:
+    """The env count of a per-env Model's leaves, 1 for a plain Model."""
+    leaves = self.env_leaves
+    return self.leaf(leaves[0]).shape[0] if leaves else 1
+
+  def replace_leaves(self, updates: dict) -> "Model":
+    """The Model with the leaves named in ``updates`` (dotted names,
+    ``opt.gravity``) replaced."""
+    opt = {k[4:]: v for k, v in updates.items() if k.startswith("opt.")}
+    top = {k: v for k, v in updates.items() if not k.startswith("opt.")}
+    return self.replace(opt=self.opt.replace(**opt), **top)
+
+  def repeat_envs(self, k: int) -> "Model":
+    """A per-env Model's leaves with each env repeated k times in a row,
+    to meet a Data whose envs are repeated so (``repeat_interleave``): copy
+    j of env i sees env i's leaves. A plain Model is returned itself, so
+    that its per-Model tables (``struct.cached``) are made once."""
+    leaves = self.env_leaves
+    if not leaves:
+      return self
+    return self.replace_leaves({name: self.leaf(name).repeat_interleave(
+        k, dim=0) for name in leaves})
 
   def enabled(self, bit: EnableBit) -> bool:
     return bool(self.opt.enableflags & bit)

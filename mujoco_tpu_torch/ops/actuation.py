@@ -38,6 +38,7 @@ from mujoco_tpu_torch.ops import history, muscle
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
 from mujoco_tpu_torch.utils.math import MINVAL
+from mujoco_tpu_torch.utils.struct import cached
 
 _MAXVAL = 1e10  # mjMAXVAL
 # actuator_slots columns
@@ -55,14 +56,15 @@ def _disabled_actuators(m: Model) -> np.ndarray:
 
 
 def _tables(m: Model) -> dict:
-  """Static per-Model tables, made once per Model (identity-checked as
-  ``sensor._plan`` is): each activation slot's actuator and role (−1 the
-  last slot of a simple dynamics, a slot column for the DC motor and PID,
-  10 + k the k-th slot of an SO3 integrator), the delayed actuators'
-  history groups and the SO3 actuators."""
-  entry = _CACHE.get(id(m))
-  if entry is not None and entry["model"] is m:
-    return entry
+  """Static per-Model tables, made once per Model (``struct.cached``):
+  each activation slot's actuator and role (−1 the last slot of a simple
+  dynamics, a slot column for the DC motor and PID, 10 + k the k-th slot
+  of an SO3 integrator), the delayed actuators' history groups and the SO3
+  actuators."""
+  return cached(_CACHE, m, _make_tables)
+
+
+def _make_tables(m: Model) -> dict:
   dyn = np.asarray(m.actuator_dyntype)
   gain = np.asarray(m.actuator_gaintype)
   adr0 = np.asarray(m.actuator_actadr)
@@ -86,15 +88,13 @@ def _tables(m: Model) -> dict:
                        & (np.asarray(m.actuator_history)[:, 0] > 0))[0]
   if np.any(np.asarray(m.actuator_ctrlnum)[delayed] != 1):
     raise NotImplementedError("ctrl delay on a multi-input (SO3) actuator")
-  entry = {"model": m, "slot_act": slot_act, "slot_role": slot_role,
+  return {"slot_act": slot_act, "slot_role": slot_role,
            "roles": sorted(set(slot_role.tolist())),
            "delayed": history.groups(m.actuator_historyadr,
                                      m.actuator_history,
                                      np.ones(m.nu, np.int64), delayed),
            "so3": np.nonzero(gain == GainType.SO3)[0],
            "scalar": np.nonzero(gain != GainType.SO3)[0]}
-  _CACHE[id(m)] = entry
-  return entry
 
 
 def _is(m: Model, table, *types) -> torch.Tensor:
@@ -212,7 +212,7 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
   """(B, nu) effective ctrl of each actuator (a DC motor's or PID's
   slew-limited setpoint; the force phase reads it) and (B, na) act_dot
   (mujoco_tpu/ops/actuation.py:80)."""
-  dev, h = m.device, m.opt.timestep
+  dev, h = m.device, m.timestep(2)
   ci = _per_actuator(m, ctrl, np.asarray(m.actuator_ctrladr))
   if m.na == 0:
     return ci, d.act.new_zeros(d.act.shape)
@@ -308,7 +308,7 @@ def next_activation(m: Model, act, adot, velocity=None):
   if m.na == 0:
     return act
   tab = _tables(m)
-  h, dev = m.opt.timestep, m.device
+  h, dev = m.timestep(2), m.device
   owned = tab["slot_act"] >= 0
   sa, role = np.maximum(tab["slot_act"], 0), tab["slot_role"]
   dyn = np.where(owned, np.asarray(m.actuator_dyntype)[sa], -1)

@@ -107,26 +107,27 @@ def _env_rows(leaf, g1, g2):
   return leaf[env, g1], leaf[env, g2]
 
 
-def _geom_side(m: Model, g, friction) -> dict:
-  return {"solmix": m.geom_solmix[g], "solref": m.geom_solref[g],
-          "solimp": m.geom_solimp[g], "friction": friction,
-          "margin": m.geom_margin[g]}
+# the geom leaves of a contact's parameters that may be randomized per env
+_ENV_GEOM = (("friction", "geom_friction"), ("solref", "geom_solref"),
+             ("solimp", "geom_solimp"))
 
 
 def _mix(m: Model, g1, g2, hi1, hi2):
   """mj_contactParam's combination of geoms g1 and g2 (index tensors (n,)
   or per env (B, n); hi1, hi2: g1's or g2's priority is the higher, shaped
   g1[..., None]) → (margin, friction5, solref, solreffriction, solimp),
-  friction5 with a leading env axis (1 or B) where the ids are static, as
-  ``geom_friction`` may be randomized per env."""
-  fri1, fri2 = _env_rows(m.per_env("geom_friction"), g1, g2)
-  return _mix_sides(_geom_side(m, g1, fri1), _geom_side(m, g2, fri2), hi1,
-                    hi2)
+  friction5, solref, solreffriction and solimp with a leading env axis (1
+  or B) where the ids are static, as ``geom_friction``, ``geom_solref``
+  and ``geom_solimp`` may be randomized per env."""
+  s1 = {"solmix": m.geom_solmix[g1], "margin": m.geom_margin[g1]}
+  s2 = {"solmix": m.geom_solmix[g2], "margin": m.geom_margin[g2]}
+  for key, name in _ENV_GEOM:
+    s1[key], s2[key] = _env_rows(m.per_env(name), g1, g2)
+  return _mix_sides(s1, s2, hi1, hi2)
 
 
 def _mix_sides(s1: dict, s2: dict, hi1, hi2):
-  """``_mix`` of two sides' parameters (``_geom_side``; a flex side takes
-  its flex's)."""
+  """``_mix`` of two sides' parameters (a flex side takes its flex's)."""
   solmix1, solmix2 = s1["solmix"], s2["solmix"]
   both = (solmix1 >= mjm.MINVAL) & (solmix2 >= mjm.MINVAL)
   neither = (solmix1 < mjm.MINVAL) & (solmix2 < mjm.MINVAL)
@@ -165,15 +166,15 @@ def _flex_sides(m: Model):
       lambda t: t.new_zeros((1,) + t.shape[1:]))
   g1 = np.minimum(con.geom1, max(m.ngeom - 1, 0))
   g2 = np.minimum(np.maximum(con.geom2, 0), max(m.ngeom - 1, 0))
-  fri = m.per_env("geom_friction")
-  fri = fri if m.ngeom else fri.new_zeros((1, 1, 3))
+  env = {k: m.per_env(name) for k, name in _ENV_GEOM}
+  if not m.ngeom:
+    env = {k: v.new_zeros((1, 1) + v.shape[2:]) for k, v in env.items()}
   sides, prios = [], []
   for g, fx in ((g1, con.flex1), (g2, con.flex2)):
     gi = index(g, dev)
     side = {"solmix": pad(m.geom_solmix)[gi],
-            "solref": pad(m.geom_solref)[gi],
-            "solimp": pad(m.geom_solimp)[gi], "friction": fri[:, gi],
             "margin": pad(m.geom_margin)[gi]}
+    side.update({k: v[:, gi] for k, v in env.items()})
     is_f = const(fx >= 0, dev)
     fi = index(np.maximum(fx, 0), dev)
     for k, leaf in (("solmix", m.flex_solmix), ("solref", m.flex_solref),
@@ -190,8 +191,9 @@ def _flex_sides(m: Model):
 
 def _combine_params(m: Model):
   """Per-slot (includemargin, friction5, solref, solreffriction, solimp),
-  each (1, ncon, ...), friction5 (B, ncon, 5) where ``geom_friction`` is
-  randomized per env, from the slots' static geom ids (and flexes)."""
+  each (1, ncon, ...), or (B, ncon, ...) where the geom leaves it mixes
+  are randomized per env, from the slots' static geom ids (and
+  flexes)."""
   dev = m.device
   if np.any(m.con.flex2 >= 0):
     (s1, s2), (p1, p2) = _flex_sides(m)
@@ -220,8 +222,7 @@ def _combine_params(m: Model):
     solimp = torch.where(col, m.pair_solimp[pidx], solimp)
     friction5 = torch.where(col, m.pair_friction[pidx], friction5)
     margin = torch.where(is_pair, m.pair_margin[pidx], margin)
-  return (margin[None], friction5, solref[None], solreffriction[None],
-          solimp[None])
+  return margin[None], friction5, solref, solreffriction, solimp
 
 
 def collision(m: Model, d: Data) -> Data:

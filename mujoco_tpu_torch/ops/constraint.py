@@ -228,7 +228,8 @@ def _equality_rows(m: Model, d: Data):
         qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
         onehot = np.zeros(nv)
         onehot[dadr] = 1.0
-        return (d.qpos[:, qadr], m.qpos0[qadr], const(onehot, dev, m.dtype),
+        return (d.qpos[:, qadr], m.per_env("qpos0")[:, qadr],
+                const(onehot, dev, m.dtype),
                 m.dof_invweight0[dadr])
 
       def tendon(t):
@@ -478,7 +479,7 @@ def make_constraint(m: Model, d: Data) -> Data:
   diaga, solref = cat("diaga"), cat("solref")
   solimp, imp_pos = cat("solimp"), cat("imp_pos")
 
-  dt2 = 2 * m.opt.timestep
+  dt2 = 2 * m.timestep(2)
   if not m.disabled(DisableBit.REFSAFE):
     # timeconst ≥ 2·timestep for standard solref (getsolparam)
     s0 = solref[..., 0]

@@ -70,7 +70,7 @@ def actuator_vel(m: Model, d: Data):
     mode = slots[:, 6]
     dvdw = torch.where(const(mode == 1, dev), -g[..., 6],
                        torch.where(const(mode == 2, dev), -g[..., 4], 0.0))
-    s = 1.0 - torch.exp(-m.opt.timestep / dp[:, 0])
+    s = 1.0 - torch.exp(-m.timestep(2) / dp[:, 0])
     cur = slots[:, 4] >= 0
     term = torch.where(const(cur, dev), k * (dvdw - k) * s / r,
                        k * dvdw / r)
@@ -157,7 +157,7 @@ def _interp_damper_vel(m: Model, d: Data):
   rep["qvel"] = torch.eye(nv, dtype=d.qvel.dtype,
                           device=d.qvel.device).repeat(nbatch, 1)
   dd = smooth.com_vel(m, d.replace(**rep))
-  _, fd = flex.interp_passive(m, dd, False, True)
+  _, fd = flex.interp_passive(m.repeat_envs(nv), dd, False, True)
   return fd.reshape(nbatch, nv, nv).transpose(1, 2)
 
 
@@ -176,7 +176,7 @@ def bias_vel_rows(m: Model, d: Data, rows):
     if not qvel.requires_grad:
       qvel.requires_grad_(True)
     dd = d.replace(qvel=qvel, cdof=rep(d.cdof), cinert=rep(d.cinert))
-    bias = smooth.rne(m, smooth.com_vel(m, dd))
+    bias = smooth.rne(m.repeat_envs(k), smooth.com_vel(m, dd))
     jac, = torch.autograd.grad(bias, qvel, cot, create_graph=outer)
   if not outer:
     jac = jac.detach()
@@ -215,7 +215,7 @@ def free_mhat(m: Model, d: Data, jnt: int, qderiv):
   """The 6×6 block M − h·qDeriv of a standalone free body, plus h times
   its gyroscopic bias derivative restricted to the angular-velocity
   columns (mjd_freeMhat), (B, 6, 6)."""
-  h = m.opt.timestep
+  h = m.timestep(3)
   adr = int(m.jnt_dofadr[jnt])
   sl = slice(adr, adr + 6)
   a = d.qM[:, sl, sl] - h * qderiv[:, sl, sl]

@@ -68,27 +68,13 @@ def _next_state(m: Model, d: Data, qpos_next0, w):
   return dq, out.qvel, out.act, out.sensordata
 
 
-def _refuse(m: Model):
-  if m.env_leaves:
-    # the copies repeat the envs of d, not a per-env Model's leaves
-    raise NotImplementedError(
-        "transition and inverse_derivatives of a per-env Model "
-        "(randomize_model) are not ported")
-  if m.has_tendon_armature:
-    # forward._tendon_bias takes a double backward, which forward-mode AD
-    # does not pass through
-    raise NotImplementedError(
-        "transition and inverse_derivatives through the tendon-armature "
-        "bias (a double backward) are not ported")
-
-
 def _tangents(d: Data, ndir: int, fn):
   """Forward-mode Jacobians of ``fn`` at d along the ndir unit directions:
   d's envs repeated ndir times, copy j of each env given direction j as
   the tangent of a zero displacement w (B·ndir, ndir); ``fn(dr, w)``, dr
-  the repeated envs, returns a tuple of (B·ndir, k) outputs. Returns each
-  output's tangents as (B, ndir, k): row j the derivative along direction
-  j."""
+  the repeated envs, returns a tuple of (B·ndir, k) outputs (``fn`` steps
+  a Model repeated alike, ``Model.repeat_envs``). Returns each output's
+  tangents as (B, ndir, k): row j the derivative along direction j."""
   nbatch = d.qpos.shape[0]
   eye = torch.eye(ndir, dtype=d.qpos.dtype, device=d.qpos.device)
   seeds = eye.repeat(nbatch, 1)
@@ -106,14 +92,15 @@ def _tangents(d: Data, ndir: int, fn):
 def transition(m: Model, d: Data):
   """(A, B, C, D) of one step at the state d holds (qpos, qvel, act,
   ctrl), by forward-mode AD: A (B, nx, nx), B (B, nx, nctrl), C (B,
-  nsensordata, nx), D (B, nsensordata, nctrl)."""
-  _refuse(m)
+  nsensordata, nx), D (B, nsensordata, nctrl). m may be a per-env Model
+  (``parallel.rollout.randomize_model``) of d's envs."""
   nv, na, nu, nx = _sizes(m)
   ndir = nx + nu
   qpos_next0 = forward.step(m, d).qpos.repeat_interleave(ndir, dim=0)
+  mr = m.repeat_envs(ndir)
 
   def fn(dr, w):
-    return _next_state(m, dr, qpos_next0, w)
+    return _next_state(mr, dr, qpos_next0, w)
 
   tq, tv, ta, ts = _tangents(d, ndir, fn)
   # (B, ndir, k) → (B, k, ndir): rows outputs, columns directions
@@ -139,7 +126,8 @@ def transition_fd(m: Model, d: Data, eps: float = 1e-6,
   w = torch.cat(disp).repeat(nbatch, 1)
   ncopy = w.shape[0] // nbatch
   qpos_next0 = forward.step(m, d).qpos.repeat_interleave(ncopy, dim=0)
-  dq, v, a, _ = _next_state(m, _repeat(d, ncopy), qpos_next0, w)
+  dq, v, a, _ = _next_state(m.repeat_envs(ncopy), _repeat(d, ncopy),
+                            qpos_next0, w)
   x = torch.cat([dq, v, a], dim=-1).reshape(nbatch, ncopy, nx)
   base, hi = x[:, :1], x[:, 1:1 + ndir]
   cols_a = ((hi[:, :nx] - x[:, 1 + ndir:]) / (2 * eps) if centered
@@ -154,18 +142,19 @@ def inverse_derivatives(m: Model, d: Data, flg_actuation: bool = True):
   the reference's transposed layout, DfDq[b, i, j] = ∂qfrc_inverse_j /
   ∂qpos_i along tangent direction i. Returns (DfDq, DfDv, DfDa, DsDq,
   DsDv, DsDa), (B, nv, nv) ×3 and (B, nv, nsensordata) ×3. flg_actuation
-  subtracts qfrc_actuator from qfrc_inverse, as the reference's flag."""
-  _refuse(m)
+  subtracts qfrc_actuator from qfrc_inverse, as the reference's flag. m
+  may be a per-env Model of d's envs."""
   nv = m.nv
+  mr = m.repeat_envs(3 * nv)
 
   def fn(dr, w):
     zero_a = w.new_zeros((w.shape[0], m.na))
     zero_u = w.new_zeros((w.shape[0], m.nctrl))
-    dd = _apply_tangent(m, dr, w[:, :nv], w[:, nv:2 * nv], zero_a, zero_u)
-    out = inverse.inverse(m, dd.replace(qacc=dr.qacc + w[:, 2 * nv:]))
+    dd = _apply_tangent(mr, dr, w[:, :nv], w[:, nv:2 * nv], zero_a, zero_u)
+    out = inverse.inverse(mr, dd.replace(qacc=dr.qacc + w[:, 2 * nv:]))
     qfrc = out.qfrc_inverse
     if flg_actuation:
-      qfrc = qfrc - actuation.fwd_actuation(m, out).qfrc_actuator
+      qfrc = qfrc - actuation.fwd_actuation(mr, out).qfrc_actuator
     return qfrc, out.sensordata
 
   tf, ts = _tangents(d, 3 * nv, fn)

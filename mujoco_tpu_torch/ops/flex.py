@@ -174,7 +174,7 @@ def elasticity_passive(m: Model, d: Data, enbl_spring: bool,
   nbatch = d.qpos.shape[0]
   spring_add = torch.zeros_like(d.qvel)
   damper_add = torch.zeros_like(d.qvel)
-  dt = m.opt.timestep
+  dt = m.timestep(3)
 
   if flx.has_stretch.any():
     fvert = d.qpos.new_zeros((nbatch, flx.nvert, 3))
@@ -189,12 +189,12 @@ def elasticity_passive(m: Model, d: Data, enbl_spring: bool,
       verts = flx.elem[els, :dm + 1]
       eidx = index(flx.elemedge[els, :nloc], dev)
       fid = index(flx.elem_flexid[els], dev)
-      kd = torch.where(dt > 0, m.flex_damping[fid] / dt, 0.0)
+      kd = torch.where(dt > 0, m.flex_damping[fid][:, None] / dt, 0.0)
       length = d.flexedge_length[:, eidx]
       length0 = m.flexedge_length0[eidx]
       prev = length - d.flexedge_velocity[:, eidx] * dt
       elong = (length * length - length0 * length0
-               + (length * length - prev * prev) * kd[:, None])
+               + (length * length - prev * prev) * kd)
       metric = m.flex_stiffness[index(els, dev)][
           :, index(_triu_index(nloc), dev)]              # (E, nloc, nloc)
       c = (elong[..., None, :] @ metric)[..., 0, :]        # (B, E, nloc)

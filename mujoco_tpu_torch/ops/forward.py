@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from mujoco_tpu_torch.models.types import (Data, DisableBit, EnableBit,
                                            Integrator, JointType, Model,
@@ -78,37 +79,59 @@ def fwd_velocity(m: Model, d: Data) -> Data:
   return d
 
 
+def _jvp_by_vjp(y, x, tangent, create_graph: bool):
+  """∂y/∂x · tangent by two reverse passes: with g(u) = uᵀ·∂y/∂x, ∂g/∂u
+  = ∂y/∂x, so the derivative of g·tangent by u is the forward-mode
+  derivative. x and tangent are tuples; y needs x's graph."""
+  u = torch.zeros_like(y, requires_grad=True)
+  # a fixed tendon's ten_J does not move with q (allow_unused)
+  gs = torch.autograd.grad(y, x, u, create_graph=True, allow_unused=True)
+  s = sum((g * t).sum() for g, t in zip(gs, tangent) if g is not None)
+  if not isinstance(s, torch.Tensor) or not s.requires_grad:
+    return torch.zeros_like(y)
+  return torch.autograd.grad(s, u, create_graph=create_graph)[0]
+
+
 def _tendon_bias(m: Model, d: Data):
   """Tendon-armature bias (mj_tendonBias): qfrc += ten_Jᵀ · armature ·
   (d/dt ten_J)·qvel. The time derivative of ten_J contracted with qvel is
   the derivative of ε ↦ ten_J(q(ε))·qvel at ε = 0 along the position flow
   q(ε) = integrate_pos(qpos, qvel, ε), through the port's own kinematics,
   com_pos and tendon, as the reference takes it with ``jax.jvp``
-  (mujoco_tpu/ops/forward.py:91-108). Here the forward-mode derivative is
-  a double backward: with g(u) = uᵀ·∂y/∂ε, ∂g/∂u = ∂y/∂ε. (Forward-mode AD
-  in torch takes ~7× as long on these small tensors.)"""
+  (mujoco_tpu/ops/forward.py:91-108). Here that forward-mode derivative
+  is taken by two reverse passes (``_jvp_by_vjp``; forward-mode AD in
+  torch takes ~7× as long on these small tensors). Where qpos or qvel
+  carry a forward-mode tangent (``derivative_fd``, whose level torch
+  cannot nest a second one in), the bias's own tangent is taken the same
+  way, one order up, and returned as a dual."""
+  tq = fwAD.unpack_dual(d.qpos).tangent
+  tv = fwAD.unpack_dual(d.qvel).tangent
 
-  def jqv_of(eps):
-    qpos = integrate_pos(m, d.qpos, d.qvel, eps)
-    dd = smooth.kinematics(m, d.replace(qpos=qpos))
-    dd = smooth.com_pos(m, dd)
-    dd = smooth.tendon(m, dd)
-    return mjm.mat_vec(dd.ten_J, d.qvel)                 # (B, ntendon)
+  def jdot_qvel(qpos, qvel, create_graph):
+    eps = qpos.new_zeros((), requires_grad=True)
+    dd = smooth.kinematics(m, d.replace(
+        qpos=integrate_pos(m, qpos, qvel, eps), qvel=qvel))
+    dd = smooth.tendon(m, smooth.com_pos(m, dd))
+    y = mjm.mat_vec(dd.ten_J, qvel)                      # (B, ntendon)
+    return _jvp_by_vjp(y, (eps,), (torch.ones_like(eps),), create_graph)
 
   # the derivative needs a graph of its own only where the caller
   # differentiates through it
   outer = derivative.wants_graph(m, d)
   with torch.enable_grad():
-    eps = d.qpos.new_zeros((), requires_grad=True)
-    y = jqv_of(eps)
-    u = torch.zeros_like(y, requires_grad=True)
-    # a fixed tendon's ten_J does not move with q (allow_unused)
-    g, = torch.autograd.grad(y, eps, u, create_graph=True, allow_unused=True)
-    jdot_qvel = torch.zeros_like(y) if g is None else torch.autograd.grad(
-        g, u, create_graph=outer)[0]
-  if not outer:
-    jdot_qvel = jdot_qvel.detach()
-  coef = m.tendon_armature * jdot_qvel
+    if tq is None and tv is None:
+      jqv = jdot_qvel(d.qpos, d.qvel, outer)
+      if not outer:
+        jqv = jqv.detach()
+    else:
+      q = fwAD.unpack_dual(d.qpos).primal.detach().requires_grad_()
+      v = fwAD.unpack_dual(d.qvel).primal.detach().requires_grad_()
+      y = jdot_qvel(q, v, True)
+      tangent = tuple(torch.zeros_like(p) if t is None else t
+                      for p, t in ((q, tq), (v, tv)))
+      jqv = fwAD.make_dual(y.detach(),
+                           _jvp_by_vjp(y, (q, v), tangent, False).detach())
+  coef = m.tendon_armature * jqv
   return mjm.mat_vec(d.ten_J.transpose(1, 2), coef)
 
 
@@ -176,7 +199,8 @@ def _dof_to_qpos_map(m: Model) -> np.ndarray:
 
 def integrate_pos(m: Model, qpos, qvel, dt):
   """Manifold-aware position integration (mj_integratePos): quaternions by
-  the exponential map, everything else linearly."""
+  the exponential map, everything else linearly. dt is a number, a 0-d
+  tensor or one value per env (B, 1) (``Model.timestep(2)``)."""
   dev = qpos.device
   dof_of_q = np.full(m.nq, m.nv, dtype=np.int64)
   for v, qi in enumerate(_dof_to_qpos_map(m)):
@@ -249,7 +273,7 @@ def _advance(m: Model, d: Data, act_dot, qacc, qvel_pos=None) -> Data:
   the history buffers, act by ``next_activation`` with the INTEGRATOR and
   SO3 setpoint wraps, qvel += h·qacc, qpos by integrate_pos, time += h;
   d.qacc, and so the next warmstart, stays the solver's acceleration."""
-  h = m.opt.timestep
+  h = m.timestep(2)
   if m.nhistory:
     d = _advance_history(m, d)
   act = actuation.next_activation(m, d.act, act_dot, d.actuator_velocity)
@@ -258,9 +282,10 @@ def _advance(m: Model, d: Data, act_dot, qacc, qvel_pos=None) -> Data:
   if m.na:
     act = actuation.wrap_integrators(m, act, d.actuator_length)
   qvel = d.qvel + h * qacc
-  qpos = integrate_pos(m, d.qpos, qvel if qvel_pos is None else qvel_pos, h)
-  return d.replace(act=act, qvel=qvel, qpos=qpos, time=d.time + h,
-                   qacc_warmstart=d.qacc)
+  qpos = integrate_pos(m, d.qpos, qvel if qvel_pos is None else qvel_pos,
+                       h)
+  return d.replace(act=act, qvel=qvel, qpos=qpos,
+                   time=d.time + m.opt.timestep, qacc_warmstart=d.qacc)
 
 
 def euler(m: Model, d: Data) -> Data:
@@ -272,7 +297,7 @@ def euler(m: Model, d: Data) -> Data:
   solve_tree); the port solves the same matrix densely with
   ``linalg_cuda.spd_solve`` (the LDL kernel on the card, Cholesky on the
   CPU)."""
-  h = m.opt.timestep
+  h = m.timestep(2)
   acc = d.qacc
   if (m.has_dof_damping and not m.disabled(DisableBit.EULERDAMP)
       and not m.disabled(DisableBit.DAMPER)):
@@ -293,7 +318,7 @@ def rungekutta4(m: Model, d: Data) -> Data:
   the step's start. The result keeps d's workspace with the combined
   state (act by the weighted act_dot, with no clamp, as the reference
   does), time + h and qacc_warmstart = d.qacc."""
-  h = m.opt.timestep
+  h = m.timestep(2)
   qvels, qaccs, adots = [d.qvel], [d.qacc], [d.act_dot]
   for i in range(3):
     a = _RK4_A[i]
@@ -303,7 +328,7 @@ def rungekutta4(m: Model, d: Data) -> Data:
     di = forward(m, d.replace(qpos=integrate_pos(m, d.qpos, dqvel, h),
                               qvel=d.qvel + h * dqacc,
                               act=d.act + h * dadot,
-                              time=d.time + h * sum(a)))
+                              time=d.time + m.opt.timestep * sum(a)))
     qvels.append(di.qvel)
     qaccs.append(di.qacc)
     adots.append(di.act_dot)
@@ -313,7 +338,7 @@ def rungekutta4(m: Model, d: Data) -> Data:
   return d.replace(qpos=integrate_pos(m, d.qpos, dqvel, h),
                    qvel=d.qvel + h * dqacc,
                    act=d.act + h * dadot if m.na else d.act,
-                   time=d.time + h, qacc_warmstart=d.qacc)
+                   time=d.time + m.opt.timestep, qacc_warmstart=d.qacc)
 
 
 def implicit(m: Model, d: Data) -> Data:
@@ -325,7 +350,7 @@ def implicit(m: Model, d: Data) -> Data:
   IMPLICITFAST drops it, zeroes the rows and columns of standalone free
   bodies, factors on the tree (factor_tree / solve_tree), then solves
   each such body's 6×6 ``free_mhat`` block."""
-  h = m.opt.timestep
+  h = m.timestep(3)
   dev = m.device
   qfrc = d.qfrc_smooth + d.qfrc_constraint
   anc = np.asarray(m.tree.dof_ancestor_mask)

@@ -24,6 +24,7 @@ import torch
 from mujoco_tpu_torch.models.types import Data, Model
 from mujoco_tpu_torch.utils.device import index
 from mujoco_tpu_torch.utils.math import MINVAL
+from mujoco_tpu_torch.utils.struct import cached
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,29 +213,27 @@ _CACHE: dict = {}
 
 
 def plan(m: Model) -> dict:
-  """A Model's buffer groups, made once per Model (identity-checked as
-  ``sensor._plan`` is): every actuator's and every sensor's buffer (the
-  advance inserts into each), and per sensor stage the delayed and
-  interval sensors' (that stage reads them back)."""
-  entry = _CACHE.get(id(m))
-  if entry is not None and entry["model"] is m:
-    return entry
+  """A Model's buffer groups, made once per Model (``struct.cached``):
+  every actuator's and every sensor's buffer (the advance inserts into
+  each), and per sensor stage the delayed and interval sensors' (that
+  stage reads them back)."""
+  return cached(_CACHE, m, _make_plan)
+
+
+def _make_plan(m: Model) -> dict:
   ahist, shist = np.asarray(m.actuator_history), np.asarray(m.sensor_history)
   sens = np.nonzero(shist[:, 0] > 0)[0] if m.nsensor else np.zeros(0, int)
   timed = (np.asarray(m.sensor_delay) > 0) | (
       np.asarray(m.sensor_interval).reshape(-1, 2)[:, 0] > 0)
   stage = np.asarray(m.sensor_needstage)
-  entry = {"model": m,
-           "ctrl": groups(m.actuator_historyadr, ahist,
-                          np.ones(m.nu, np.int64),
-                          np.nonzero(ahist[:, 0] > 0)[0] if m.nu
-                          else np.zeros(0, int)),
-           "sensor": groups(m.sensor_historyadr, shist, m.sensor_dim, sens),
-           "stage": {s: groups(m.sensor_historyadr, shist, m.sensor_dim,
-                               sens[timed[sens] & (stage[sens] == s)])
-                     for s in (1, 2, 3)}}
-  _CACHE[id(m)] = entry
-  return entry
+  return {"ctrl": groups(m.actuator_historyadr, ahist,
+                         np.ones(m.nu, np.int64),
+                         np.nonzero(ahist[:, 0] > 0)[0] if m.nu
+                         else np.zeros(0, int)),
+          "sensor": groups(m.sensor_historyadr, shist, m.sensor_dim, sens),
+          "stage": {s: groups(m.sensor_historyadr, shist, m.sensor_dim,
+                              sens[timed[sens] & (stage[sens] == s)])
+                    for s in (1, 2, 3)}}
 
 
 def sensor_columns(m: Model, g: Group) -> np.ndarray:

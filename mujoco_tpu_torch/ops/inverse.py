@@ -41,7 +41,7 @@ def discrete_acc(m: Model, d: Data):
   integrator's velocity derivative (Euler's joint damping, IMPLICIT's
   full derivative, IMPLICITFAST's without the RNE bias and with each
   standalone free body's 6×6 block); RK4 raises, as the reference."""
-  h = m.opt.timestep
+  h = m.timestep(3)
   integ = int(m.opt.integrator)
   if integ == Integrator.RK4:
     raise NotImplementedError(
@@ -50,7 +50,8 @@ def discrete_acc(m: Model, d: Data):
     if m.disabled(DisableBit.EULERDAMP) or not m.has_dof_damping:
       return d.qacc
     qfrc = (mat_vec(d.qM, d.qacc)
-            + h * m.per_env("dof_damping") * d.qacc)
+            + m.timestep(2) * m.per_env("dof_damping")
+            * d.qacc)
     return linalg_cuda.spd_solve(d.qM, qfrc.contiguous())
   anc = np.asarray(m.tree.dof_ancestor_mask)
   sym = const(anc | anc.T, m.device)

@@ -42,6 +42,7 @@ from mujoco_tpu_torch.models.types import (ConeType, Data, DisableBit, EqType,
 from mujoco_tpu_torch.ops import linalg_cuda, sleep
 from mujoco_tpu_torch.utils.device import const, index
 from mujoco_tpu_torch.utils.math import MINVAL, dot, mat_vec
+from mujoco_tpu_torch.utils.struct import cached
 
 
 # ---------------------------------------------------------------------------
@@ -153,11 +154,9 @@ def _static_row_component(m: Model, comp: np.ndarray) -> np.ndarray:
   return rc
 
 
-# per-Model cache of the static analysis, identity-checked as
-# megastep_cuda's: id(m) alone could be recycled by another Model once m is
-# collected, so the entry keeps m alive and a lookup checks that it is the
-# same object. Every field the analysis reads is static, and a Model is
-# immutable, so the step path reads it instead of redoing it.
+# per-Model cache of the static analysis (``struct.cached``). Every field
+# the analysis reads is static, and a Model is immutable, so the step path
+# reads it instead of redoing it.
 _CACHE: dict = {}
 
 
@@ -165,19 +164,19 @@ def _analysis(m: Model) -> dict:
   """The sound budgets ``sound_b`` and ``sound_r`` (the largest static
   component's dofs and rows), ``rep`` (``_row_rep_tree_static``) and
   ``pairs`` (``_tendon_pairs``) of m, made once per Model."""
-  entry = _CACHE.get(id(m))
-  if entry is None or entry["model"] is not m:
-    comp = _static_components(m)
-    rc = _static_row_component(m, comp)
-    nv_of_tree = m.tree_dof_mask.sum(axis=1)
-    sound_b = sound_r = 0
-    for c in np.unique(comp):
-      sound_b = max(sound_b, int(nv_of_tree[comp == c].sum()))
-      sound_r = max(sound_r, int((rc == c).sum()))
-    entry = {"model": m, "sound_b": sound_b, "sound_r": sound_r,
-             "rep": _row_rep_tree_static(m), "pairs": _tendon_pairs(m)}
-    _CACHE[id(m)] = entry
-  return entry
+  return cached(_CACHE, m, _make_analysis)
+
+
+def _make_analysis(m: Model) -> dict:
+  comp = _static_components(m)
+  rc = _static_row_component(m, comp)
+  nv_of_tree = m.tree_dof_mask.sum(axis=1)
+  sound_b = sound_r = 0
+  for c in np.unique(comp):
+    sound_b = max(sound_b, int(nv_of_tree[comp == c].sum()))
+    sound_r = max(sound_r, int((rc == c).sum()))
+  return {"sound_b": sound_b, "sound_r": sound_r,
+          "rep": _row_rep_tree_static(m), "pairs": _tendon_pairs(m)}
 
 
 def _budgets(m: Model):

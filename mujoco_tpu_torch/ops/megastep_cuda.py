@@ -48,6 +48,7 @@ from mujoco_tpu_torch.ops import (collision_driver, cuda_build, island,
                                   linalg_cuda, newton_cuda)
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.math import MINVAL
+from mujoco_tpu_torch.utils.struct import cached
 
 MAXVAL = 1e10
 NARROW_NV = 64           # the narrow route's largest nv
@@ -508,20 +509,14 @@ class Tables:
             flo)
 
 
-# identity-checked cache, as the reference's _META_CACHE (:356-366): id(m)
-# alone could be recycled by another Model once m is collected, so the
-# entry keeps m alive and a lookup checks that it is the same object. An
-# entry holds the gate's answer, the host tables and the packed buffers,
-# each made at its first use.
+# per-Model cache, as the reference's _META_CACHE (:356-366), by
+# ``struct.cached``: an entry holds the gate's answer, the host tables and
+# the packed buffers, each made at its first use.
 _CACHE: dict = {}
 
 
 def _entry(m: Model) -> dict:
-  entry = _CACHE.get(id(m))
-  if entry is None or entry["model"] is not m:
-    entry = {"model": m, "packed": {}}
-    _CACHE[id(m)] = entry
-  return entry
+  return cached(_CACHE, m, lambda m: {"packed": {}})
 
 
 def tables(m: Model) -> Tables:

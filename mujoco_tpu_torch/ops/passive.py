@@ -32,6 +32,7 @@ def _joint_springs(m: Model, d: Data):
   nbatch = d.qpos.shape[0]
   ix = lambda a: index(a, m.device)
   jt_all = np.asarray(m.jnt_type)
+  stiffness = m.per_env("jnt_stiffness")                   # (1 or B, njnt)
   parts = []
   dof_map = np.full(m.nv, -1, dtype=np.int64)
   pos = 0
@@ -39,7 +40,7 @@ def _joint_springs(m: Model, d: Data):
   lin = np.nonzero((jt_all == JointType.SLIDE) | (jt_all == JointType.HINGE))[0]
   if len(lin):
     qadr = ix(m.jnt_qposadr[lin])
-    parts.append(-m.jnt_stiffness[ix(lin)]
+    parts.append(-stiffness[:, ix(lin)]
                  * (d.qpos[:, qadr] - m.qpos_spring[qadr]))
     dof_map[m.jnt_dofadr[lin]] = pos + np.arange(len(lin))
     pos += len(lin)
@@ -47,7 +48,7 @@ def _joint_springs(m: Model, d: Data):
   ball = np.nonzero(jt_all == JointType.BALL)[0]
   if len(ball):
     qadr = ix(m.jnt_qposadr[ball][:, None] + np.arange(4))
-    k = m.jnt_stiffness[ix(ball)][:, None]
+    k = stiffness[:, ix(ball), None]
     dif = mjm.quat_sub(mjm.normalize(d.qpos[:, qadr]), m.qpos_spring[qadr])
     parts.append((-k * dif).reshape(nbatch, -1))
     dadr = m.jnt_dofadr[ball][:, None]
@@ -57,7 +58,7 @@ def _joint_springs(m: Model, d: Data):
   free = np.nonzero(jt_all == JointType.FREE)[0]
   if len(free):
     qadr = m.jnt_qposadr[free][:, None]
-    k = m.jnt_stiffness[ix(free)][:, None]
+    k = stiffness[:, ix(free), None]
     trn = -k * (d.qpos[:, ix(qadr + np.arange(3))]
                 - m.qpos_spring[ix(qadr + np.arange(3))])
     qq = ix(qadr + 3 + np.arange(4))

@@ -49,6 +49,7 @@ from mujoco_tpu_torch.models.types import (ConeType, Data, DataType,
 from mujoco_tpu_torch.ops import flex, history, ray, sdf, smooth
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
+from mujoco_tpu_torch.utils.struct import cached
 
 ST = SensorType
 
@@ -320,17 +321,17 @@ def energy_pos(m: Model, d: Data) -> Data:
               else (d.xipos[:, 1:] * g[:, None, :]).sum(-1))
     e = e - (m.per_env("body_mass")[:, 1:] * height).sum(-1)
   if not m.disabled(DisableBit.SPRING):
-    k = m.jnt_stiffness
+    k = m.per_env("jnt_stiffness")                       # (1 or B, njnt)
     lin = _joints_of(m, JointType.HINGE, JointType.SLIDE)
     if len(lin):
       qa = index(m.jnt_qposadr[lin], dev)
       x = d.qpos[:, qa] - m.qpos_spring[qa]
-      e = e + (0.5 * k[index(lin, dev)] * x * x).sum(-1)
+      e = e + (0.5 * k[:, index(lin, dev)] * x * x).sum(-1)
     free = _joints_of(m, JointType.FREE)
     if len(free):
       qa = np.asarray(m.jnt_qposadr)[free][:, None] + np.arange(3)
       dif = _take(d.qpos, qa, dev) - m.qpos_spring[index(qa, dev)]
-      e = e + (0.5 * k[index(free, dev)] * (dif * dif).sum(-1)).sum(-1)
+      e = e + (0.5 * k[:, index(free, dev)] * (dif * dif).sum(-1)).sum(-1)
     rot = np.concatenate([free, _joints_of(m, JointType.BALL)])
     if len(rot):
       qadr = np.asarray(m.jnt_qposadr)[rot] + np.where(
@@ -338,7 +339,7 @@ def energy_pos(m: Model, d: Data) -> Data:
       qa = qadr[:, None] + np.arange(4)
       dq = mjm.quat_sub(mjm.normalize(_take(d.qpos, qa, dev)),
                         m.qpos_spring[index(qa, dev)])
-      e = e + (0.5 * k[index(rot, dev)] * (dq * dq).sum(-1)).sum(-1)
+      e = e + (0.5 * k[:, index(rot, dev)] * (dq * dq).sum(-1)).sum(-1)
     if m.ntendon:
       lo = m.tendon_lengthspring[:, 0]
       hi = m.tendon_lengthspring[:, 1]
@@ -441,11 +442,12 @@ def _stage_plan(m: Model, sids: np.ndarray) -> dict:
 
 def _plan(m: Model) -> dict:
   """Per stage, the sensors' groups and the static tables of its write,
-  and the same for the delayed sensors alone: made once per Model,
-  identity-checked as ``island._analysis`` is."""
-  entry = _CACHE.get(id(m))
-  if entry is not None and entry["model"] is m:
-    return entry
+  and the same for the delayed sensors alone: made once per Model
+  (``struct.cached``)."""
+  return cached(_CACHE, m, _make_plan)
+
+
+def _make_plan(m: Model) -> dict:
   stage = np.asarray(m.sensor_needstage)
   delayed = ((np.asarray(m.sensor_delay) > 0)
              & (np.asarray(m.sensor_history)[:, 0] > 0))
@@ -453,10 +455,8 @@ def _plan(m: Model) -> dict:
   for s in (Stage.POS, Stage.VEL, Stage.ACC):
     stages[int(s)] = _stage_plan(m, np.nonzero(stage == s)[0])
     raw[int(s)] = _stage_plan(m, np.nonzero((stage == s) & delayed)[0])
-  entry = {"model": m, "stages": stages, "raw": raw,
-           "types": {ST(int(t)) for t in np.asarray(m.sensor_type)}}
-  _CACHE[id(m)] = entry
-  return entry
+  return {"stages": stages, "raw": raw,
+          "types": {ST(int(t)) for t in np.asarray(m.sensor_type)}}
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,8 @@ def kinematics(m: Model, d: Data) -> Data:
   nbatch = d.qpos.shape[0]
   dtype, dev = d.qpos.dtype, d.qpos.device
   qpos = normalize_qpos(m, d.qpos)
-  qpos0 = m.qpos0
+  qpos0 = m.per_env("qpos0")
+  body_pos_all, body_quat_all = m.per_env("body_pos"), m.per_env("body_quat")
 
   row_of = np.zeros(m.nbody, dtype=np.int64)
   next_row = 1
@@ -76,7 +77,8 @@ def kinematics(m: Model, d: Data) -> Data:
   for bids in m.tree.levels:
     pid_rows = ix(row_of[m.body_parentid[bids]])
     pq, pp = xq[:, pid_rows], xp[:, pid_rows]
-    body_pos, body_quat = m.body_pos[ix(bids)], m.body_quat[ix(bids)]
+    body_pos = body_pos_all[:, ix(bids)]
+    body_quat = body_quat_all[:, ix(bids)]
     mocapid = m.body_mocapid[bids]
     if (mocapid >= 0).any():
       # a mocap body's frame comes from d.mocap_pos/mocap_quat
@@ -115,7 +117,7 @@ def kinematics(m: Model, d: Data) -> Data:
           axis_w = mjm.rot_vec_quat(jaxis, bq_s)
           anchor = bp_s + mjm.rot_vec_quat(jpos, bq_s)
           if jt == JointType.SLIDE:
-            dq = qpos[:, ix(qadr)] - qpos0[ix(qadr)]
+            dq = qpos[:, ix(qadr)] - qpos0[:, ix(qadr)]
             new_bp = bp_s + axis_w * dq[..., None]
             new_bq = bq_s
           else:
@@ -123,7 +125,7 @@ def kinematics(m: Model, d: Data) -> Data:
               qloc = mjm.normalize(_take_qpos(qpos, qadr, 4, m.nq))
             else:
               qloc = mjm.axis_angle_to_quat(
-                  jaxis, qpos[:, ix(qadr)] - qpos0[ix(qadr)])
+                  jaxis, qpos[:, ix(qadr)] - qpos0[:, ix(qadr)])
             new_bq = mjm.mul_quat(bq_s, qloc)
             new_bp = anchor - mjm.rot_vec_quat(jpos, new_bq)
           axis_out = axis_w
@@ -422,7 +424,7 @@ def _transmission_one(m: Model, d: Data, i: int):
   any transmission but a hinge/slide joint."""
   nbatch, nv, dev = d.qpos.shape[0], m.nv, m.device
   trn = int(m.actuator_trntype[i])
-  gear = m.actuator_gear[i]
+  gear = m.per_env("actuator_gear")[:, i]               # (1 or B, 6)
   tid = int(m.actuator_trnid[i, 0])
   zero = d.qpos.new_zeros((nbatch,))
 
@@ -438,16 +440,16 @@ def _transmission_one(m: Model, d: Data, i: int):
     if jt == JointType.BALL:
       quat = mjm.normalize(d.qpos[:, qadr:qadr + 4])
       axis = mjm.quat_to_vel(quat)
-      gear_axis = gear[:3].expand(nbatch, 3)
+      gear_axis = gear[:, :3].expand(nbatch, 3)
       if trn == TrnType.JOINTINPARENT:
-        gear_axis = mjm.rot_vec_quat(gear[:3], mjm.conj_quat(quat))
+        gear_axis = mjm.rot_vec_quat(gear[:, :3], mjm.conj_quat(quat))
       return mjm.dot(axis, gear_axis), at_dofs(dadr, gear_axis)
     # FREE: no length
-    gear_rot = gear[3:6].expand(nbatch, 3)
+    gear_rot = gear[:, 3:6].expand(nbatch, 3)
     if trn == TrnType.JOINTINPARENT:
       quat = mjm.normalize(d.qpos[:, qadr + 3:qadr + 7])
-      gear_rot = mjm.rot_vec_quat(gear[3:6], mjm.conj_quat(quat))
-    return zero, at_dofs(dadr, torch.cat([gear[:3].expand(nbatch, 3),
+      gear_rot = mjm.rot_vec_quat(gear[:, 3:6], mjm.conj_quat(quat))
+    return zero, at_dofs(dadr, torch.cat([gear[:, :3].expand(nbatch, 3),
                                           gear_rot], dim=-1))
   if trn == TrnType.SO3:
     refid = int(m.actuator_trnid[i, 1])
@@ -471,7 +473,8 @@ def _transmission_one(m: Model, d: Data, i: int):
   if trn == TrnType.BODY:
     return zero, _adhesion(m, d, tid)
   if trn == TrnType.TENDON:
-    return d.ten_length[:, tid] * gear[0], d.ten_J[:, tid] * gear[0]
+    return (d.ten_length[:, tid] * gear[:, 0],
+            d.ten_J[:, tid] * gear[:, :1])
   if trn == TrnType.SLIDERCRANK:
     # length = a·v − √det, det = (a·v)² + rod² − v·v
     idslider = int(m.actuator_trnid[i, 1])
@@ -494,15 +497,15 @@ def _transmission_one(m: Model, d: Data, i: int):
     jacp_site, _ = support.jac(m, d, d.site_xpos[:, tid],
                                int(m.site_bodyid[tid]))
     jac_v = jacp_site - jacp_s
-    return (leng * gear[0],
-            (_vec_mat(dlda, jac_a) + _vec_mat(dldv, jac_v)) * gear[0])
+    return (leng * gear[:, 0],
+            (_vec_mat(dlda, jac_a) + _vec_mat(dldv, jac_v)) * gear[:, :1])
   if trn == TrnType.SITE:
     refid = int(m.actuator_trnid[i, 1])
     bodyid = int(m.site_bodyid[tid])
     jacp, jacr = support.jac(m, d, d.site_xpos[:, tid], bodyid)
     if refid == -1:
-      wrench_t = mjm.mat_vec(d.site_xmat[:, tid], gear[:3])
-      wrench_r = mjm.mat_vec(d.site_xmat[:, tid], gear[3:6])
+      wrench_t = mjm.mat_vec(d.site_xmat[:, tid], gear[:, :3])
+      wrench_r = mjm.mat_vec(d.site_xmat[:, tid], gear[:, 3:6])
       return zero, _vec_mat(wrench_t, jacp) + _vec_mat(wrench_r, jacr)
     refbody = int(m.site_bodyid[refid])
     chain = const(_ancestor_chain_mask(m, bodyid, refbody), dev, m.dtype)
@@ -510,15 +513,15 @@ def _transmission_one(m: Model, d: Data, i: int):
     # translational part, in the refsite's frame
     vec_t = mjm.mat_vec(d.site_xmat[:, refid].transpose(1, 2),
                         d.site_xpos[:, tid] - d.site_xpos[:, refid])
-    leng = zero + mjm.dot(vec_t, gear[:3])
-    wrench_t = mjm.mat_vec(d.site_xmat[:, refid], gear[:3])
+    leng = zero + mjm.dot(vec_t, gear[:, :3])
+    wrench_t = mjm.mat_vec(d.site_xmat[:, refid], gear[:, :3])
     row = zero[:, None] + _vec_mat(wrench_t, (jacp - jacp_r) * chain)
     # rotational part (site_quat ⊗ xquat, as the reference orders it)
     quat = mjm.mul_quat(m.site_quat[tid], d.xquat[:, bodyid])
     refquat = mjm.mul_quat(m.site_quat[refid], d.xquat[:, refbody])
     vec_r = mjm.quat_sub(quat, refquat)
-    leng = leng + mjm.dot(vec_r, gear[3:6])
-    wrench_r = mjm.mat_vec(d.site_xmat[:, refid], gear[3:6])
+    leng = leng + mjm.dot(vec_r, gear[:, 3:6])
+    wrench_r = mjm.mat_vec(d.site_xmat[:, refid], gear[:, 3:6])
     row = row + _vec_mat(wrench_r, (jacr - jacr_r) * chain)
     return leng, row
   raise NotImplementedError(f"transmission {TrnType(trn).name}")
@@ -539,12 +542,12 @@ def transmission(m: Model, d: Data) -> Data:
       m.jnt_type[np.where(is_joint, jid, 0)],
       [JointType.HINGE, JointType.SLIDE]))[0]
   rest = np.setdiff1d(np.arange(m.nu), hs)
-  gear = (m.actuator_gear[index(hs, dev), 0] if len(rest)
-          else m.actuator_gear[:, 0])
+  gear = m.per_env("actuator_gear")                       # (1 or B, nu, 6)
+  gear = gear[:, index(hs, dev), 0] if len(rest) else gear[..., 0]
   length = d.qpos[:, index(m.jnt_qposadr[jid[hs]], dev)] * gear
   onehot = np.zeros((len(hs), m.nv))
   onehot[np.arange(len(hs)), m.jnt_dofadr[jid[hs]]] = 1.0
-  moment = (const(onehot, dev, m.dtype) * gear[:, None]).expand(
+  moment = (const(onehot, dev, m.dtype) * gear[..., None]).expand(
       nbatch, -1, -1)
   if len(rest):
     parts = [_transmission_one(m, d, int(i)) for i in rest]

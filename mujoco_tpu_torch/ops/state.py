@@ -102,11 +102,13 @@ def set_state(m: Model, d: Data, spec: int, vec) -> Data:
 
 
 def reset_data(m: Model, d: Data) -> Data:
-  """mj_resetData for every env of d: the state back to qpos0, every other
-  field as make_data leaves it, on d's device and dtype. As the reference
-  (and MuJoCo's C engine), a model with SLEEP_INIT trees runs a forward
-  pass here and puts those trees to sleep; other models pay nothing."""
-  fresh = io.make_data(m, dtype=d.qpos.dtype, device=d.qpos.device)
+  """mj_resetData for every env of d: the state back to qpos0 (each env's
+  own, of a per-env Model), every other field as make_data leaves it, on
+  d's device and dtype. As the reference (and MuJoCo's C engine), a model
+  with SLEEP_INIT trees runs a forward pass here and puts those trees to
+  sleep; other models pay nothing."""
+  fresh = expand(io.make_data(m, dtype=d.qpos.dtype, device=d.qpos.device),
+                 m.nenv)
   if m.ntree and np.any(np.asarray(m.tree_sleep_policy) == 5):
     fresh = sleep.init_sleep(m, fresh)
   return expand(fresh, d.qpos.shape[0])

@@ -11,7 +11,8 @@ the megastep kernel (``ops/megastep_cuda.py``); everything else takes the
 stage path, where a Python loop takes the place of ``lax.scan``. Neither
 reads a value back to the host, so a rollout only enqueues work on the
 card. A domain-randomized Model carries a leading env axis on the leaves
-of ``types.ENV_LEAVES`` and takes the stage path; a split rollout steps one
+of ``types.ENV_LEAVES`` and takes the stage path (``draw_leaves``, the
+port's own, draws such values from a seed); a split rollout steps one
 chunk of the env axis on each device of a list.
 """
 
@@ -19,10 +20,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from mujoco_tpu_torch.models import io
-from mujoco_tpu_torch.models.types import ENV_LEAVES, Data, Model
+from mujoco_tpu_torch.models.types import ENV_LEAVES, Data, JointType, Model
 from mujoco_tpu_torch.ops import forward, megastep_cuda
 from mujoco_tpu_torch.ops.linalg_cuda import has_tangent
 
@@ -150,9 +152,11 @@ def randomize_model(m: Model, leaf_updates: dict):
 
   The leaves of ``types.ENV_LEAVES`` are admitted; any other raises
   NotImplementedError. As in the reference, derived fields are not
-  recomputed (``body_subtreemass`` keeps the model's masses), and a static
-  choice the compiler made (rows only for dofs with friction loss, joint
-  damping only where the model has some) stays the model's."""
+  recomputed (``body_subtreemass``, ``dof_invweight0`` and
+  ``tendon_length0`` keep the model's values), and a static choice the
+  compiler made (rows only for dofs with friction loss, joint damping only
+  where the model has some) stays the model's. ``draw_leaves`` draws such
+  values from a seed."""
   nbatch = None
   updates = {}
   for name, value in leaf_updates.items():
@@ -170,10 +174,70 @@ def randomize_model(m: Model, leaf_updates: dict):
       raise ValueError("randomize_model: leaves with different env counts")
     nbatch = value.shape[0]
     updates[name] = value.contiguous()
-  opt = {k[4:]: v for k, v in updates.items() if k.startswith("opt.")}
-  top = {k: v for k, v in updates.items() if not k.startswith("opt.")}
-  bm = m.replace(opt=m.opt.replace(**opt), **top)
-  return bm, tuple(updates)
+  return m.replace_leaves(updates), tuple(updates)
+
+
+def _turn(q, rng, angle):
+  """Quaternions q (…, 4) each turned by up to ``angle`` rad about a random
+  axis (q ⊗ δ, δ a unit quaternion)."""
+  axis = rng.standard_normal(q.shape[:-1] + (3,))
+  axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+  half = 0.5 * rng.uniform(0.0, angle, q.shape[:-1] + (1,))
+  w2, v2 = np.cos(half)[..., 0], np.sin(half) * axis
+  w1, v1 = q[..., 0], q[..., 1:]
+  return np.concatenate([
+      (w1 * w2 - (v1 * v2).sum(-1))[..., None],
+      w1[..., None] * v2 + w2[..., None] * v1 + np.cross(v1, v2)], axis=-1)
+
+
+def draw_leaves(m: Model, nbatch: int, seed: int, leaves=None) -> dict:
+  """Per-env values of ``leaves`` (every leaf of ``types.ENV_LEAVES`` by
+  default), nbatch rows each, as numpy arrays for ``randomize_model``,
+  drawn from a numpy seed by one rule per leaf:
+
+  - ``body_pos``: the model's plus an offset in [−0.02, 0.02] per entry;
+    ``qpos0``: plus one in [−0.05, 0.05] at a hinge or slide and in
+    [−0.02, 0.02] at a free joint's position (a zero entry does not move
+    under a factor);
+  - ``body_quat`` and the ball and free joints' quaternions in ``qpos0``:
+    turned by up to 0.05 rad about a random axis;
+  - ``geom_solimp`` kept valid: dmin^[1, 1.5] ≤ dmin ≤ dmax ≤
+    dmax^[0.7, 1], all in (0, 1), width ×[0.7, 1.3], midpoint^[0.7, 1.3],
+    power 1 + (power − 1)·[0.7, 1.3] ≥ 1;
+  - every other leaf: the model's times a factor in [0.7, 1.3] per entry,
+    which keeps each sign, so ``geom_solref`` keeps its mode (standard
+    where positive, direct where negative)."""
+  rng = np.random.default_rng(seed)
+  out = {}
+  for name in ENV_LEAVES if leaves is None else leaves:
+    base = m.leaf(name).detach().cpu().numpy().astype(np.float64)
+    val = np.repeat(base[None], nbatch, axis=0)
+    u = lambda a, b, shape=val.shape: rng.uniform(a, b, shape)
+    if name == "body_pos":
+      val = val + u(-0.02, 0.02)
+    elif name == "body_quat":
+      val = _turn(val, rng, 0.05)
+    elif name == "qpos0":
+      for j in range(m.njnt):
+        adr, jt = int(m.jnt_qposadr[j]), int(m.jnt_type[j])
+        if jt in (JointType.HINGE, JointType.SLIDE):
+          val[:, adr] += u(-0.05, 0.05, (nbatch,))
+        else:
+          if jt == JointType.FREE:
+            val[:, adr:adr + 3] += u(-0.02, 0.02, (nbatch, 3))
+            adr += 3
+          val[:, adr:adr + 4] = _turn(val[:, adr:adr + 4], rng, 0.05)
+    elif name == "geom_solimp":
+      shape = val.shape[:-1]
+      val = np.stack([val[..., 0] ** u(1.0, 1.5, shape),
+                      val[..., 1] ** u(0.7, 1.0, shape),
+                      val[..., 2] * u(0.7, 1.3, shape),
+                      val[..., 3] ** u(0.7, 1.3, shape),
+                      1 + (val[..., 4] - 1) * u(0.7, 1.3, shape)], axis=-1)
+    else:
+      val = val * u(0.7, 1.3)
+    out[name] = val
+  return out
 
 
 def step_randomized(m_batched: Model, axes, d: Data) -> Data:

@@ -14,7 +14,8 @@ recurses into nested dataclasses.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, TypeVar
+import weakref
+from typing import Any, Callable, TypeVar
 
 import torch
 
@@ -66,3 +67,18 @@ def dataclass(cls: type[T]) -> type[T]:
   cls.replace = replace
   cls.to = to
   return cls
+
+
+def cached(cache: dict, obj, make: Callable[[Any], Any]):
+  """make(obj), made once per object and kept in cache under id(obj). The
+  entry holds obj weakly and leaves cache when obj is collected: id alone
+  could be recycled by another object once obj is gone, and a strong
+  reference would keep every object ever passed alive (a Model made for
+  one call, ``Model.repeat_envs``, with its tensors)."""
+  hit = cache.get(id(obj))
+  if hit is not None and hit[0]() is obj:
+    return hit[1]
+  value = make(obj)
+  cache[id(obj)] = (weakref.ref(obj), value)
+  weakref.finalize(obj, cache.pop, id(obj), None)
+  return value

@@ -1149,16 +1149,14 @@ def test_transition_card_matches_cpu_f64(cuda):
 
 
 def test_randomized_step_card_matches_cpu_f64(cuda):
-  """All ten per-env leaves on the humanoid, 10 steps at f64: card =
-  CPU to 1e-8, and the megastep refuses the per-env Model."""
-  from mujoco_tpu_torch.models.types import ENV_LEAVES
+  """Every admitted per-env leaf on the humanoid (``rollout.draw_leaves``),
+  10 steps at f64: card = CPU to 1e-8, and the megastep refuses the
+  per-env Model."""
   outs = []
   for dev in (cuda, torch.device("cpu")):
     m = zoo.humanoid(torch.float64, device=dev)
-    rng = np.random.default_rng(3)
-    values = {k: m.leaf(k)[None] * torch.tensor(rng.uniform(
-        0.7, 1.3, (8,) + tuple(m.leaf(k).shape)), device=dev)
-              for k in ENV_LEAVES}
+    values = {k: torch.tensor(v, device=dev)
+              for k, v in rollout.draw_leaves(m, 8, 3).items()}
     bm, axes = rollout.randomize_model(m, values)
     assert not megastep_cuda.supported(bm)
     d = rollout.make_batch(m, 8, device=dev)

@@ -4,18 +4,21 @@ against mujoco_tpu's, at f64 on the CPU.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_parallel.py -q
 
-- Each of the ten admitted leaves, per env on a small scene that reaches
-  every consumer (contacts, joint damping, armature and friction loss, a
-  position servo and a motor, gravity and its compensation, fluid forces,
-  the energy, subtree-momentum and accelerometer sensors), steps 5 times
-  equal to the reference's ``step_randomized`` to 1e-9 (state, sensors and
-  energy): one reference run of 20 envs
-  where envs 2k and 2k + 1 draw leaf k from a seed, one port run per leaf
-  with that leaf alone per env;
-- the flagship humanoid with all ten leaves drawn per env, B 4, 5 steps,
-  to 1e-9, and each env equal to a plain Model holding its leaves;
-- an eleventh leaf is refused by name; the megastep refuses a per-env
-  Model;
+- Each of the eighteen admitted leaves, per env on a small scene that
+  reaches every consumer (contacts whose geoms mix their solref and
+  solimp, joint damping, armature, friction loss and a spring, a slide
+  joint, a position servo and a geared motor, gravity and its
+  compensation, fluid forces, the energy, subtree-momentum and
+  accelerometer sensors, the timestep), steps 5 times equal to the
+  reference's ``step_randomized`` to 1e-9 (state, sensors and energy): one
+  reference run of 36 envs where envs 2k and 2k + 1 draw leaf k from a
+  seed (``rollout.draw_leaves``), one port run per leaf with that leaf
+  alone per env;
+- the flagship humanoid with all eighteen leaves drawn per env, B 4, 5
+  steps, to 1e-9, and each env equal to a plain Model holding its leaves;
+  the small scene with all eighteen at implicitfast, B 4, to 1e-9;
+- ``geom_size`` is refused by name; the megastep refuses a per-env Model
+  of any admitted leaf;
 - ``sharded_step`` over ``["cpu", "cpu"]`` equals the unsplit step to
   1e-12.
 """
@@ -41,20 +44,24 @@ torch.set_num_threads(1)
 
 LEAVES = tuple(ENV_LEAVES)
 
-# a box sliding on the floor and a damped two-link arm with armature,
+# a box sliding on the floor, the two mixing their solref and solimp, and
+# a damped arm of a hinge and a sprung hinge and slide, with armature,
 # friction loss and gravity compensation, driven by a position servo and a
-# motor, in a viscous medium, with the energy and the sensors that read
-# body masses, inertias and gravity (subtree momenta, an accelerometer)
+# geared motor, in a viscous medium, with the energy and the sensors that
+# read body masses, inertias and gravity (subtree momenta, an
+# accelerometer)
 SCENE = """
 <mujoco>
   <option timestep="0.005" density="1.2" viscosity="0.00002">
     <flag energy="enable"/>
   </option>
   <worldbody>
-    <geom name="floor" type="plane" size="3 3 .1" friction="0.8 0.01 0.001"/>
+    <geom name="floor" type="plane" size="3 3 .1" friction="0.8 0.01 0.001"
+          solref="0.02 1" solimp="0.9 0.95 0.001 0.5 2" solmix="1"/>
     <body name="box" pos="0 0 0.049">
       <freejoint/>
-      <geom type="box" size="0.1 0.08 0.05" friction="0.6 0.02 0.002"/>
+      <geom type="box" size="0.1 0.08 0.05" friction="0.6 0.02 0.002"
+            solref="0.03 0.8" solimp="0.85 0.97 0.002 0.4 3" solmix="2"/>
       <site name="imu" pos="0.02 0 0.03"/>
     </body>
     <body name="arm" pos="0.6 0 0.5" gravcomp="0.3">
@@ -63,7 +70,9 @@ SCENE = """
       <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
       <body pos="0.3 0 0">
         <joint name="h2" type="hinge" axis="0 1 0" damping="0.1"
-               armature="0.02" frictionloss="0.02"/>
+               armature="0.02" frictionloss="0.02" stiffness="3"/>
+        <joint name="s2" type="slide" axis="1 0 0" damping="0.5"
+               stiffness="20"/>
         <geom type="sphere" size="0.05" pos="0.1 0 0"/>
       </body>
     </body>
@@ -81,17 +90,6 @@ SCENE = """
 """
 
 
-def draws(m, nbatch, seed, leaves=LEAVES):
-  """Per-env values of each leaf: the model's own times a seeded factor in
-  [0.7, 1.3] per entry (gravity per component)."""
-  rng = np.random.default_rng(seed)
-  out = {}
-  for name in leaves:
-    base = m.leaf(name).cpu().numpy()
-    out[name] = base[None] * rng.uniform(0.7, 1.3, (nbatch,) + base.shape)
-  return out
-
-
 def _reference_model(jm, values):
   """The reference's randomize_model of the same per-env values."""
   opt = {k[4:]: jnp.asarray(v) for k, v in values.items()
@@ -104,11 +102,14 @@ def _reference_model(jm, values):
 
 
 def _start(jm, nbatch, seed):
+  """qvel and ctrl 0.5·N(0, 1), the first (free) body's vertical velocity
+  downward, so that the box's contacts act in every env."""
   rng = np.random.default_rng(seed)
   jd = j_roll.make_batch(jm, nbatch)
-  return jd.replace(qvel=jnp.asarray(0.5 * rng.standard_normal(
-      jd.qvel.shape)), ctrl=jnp.asarray(0.5 * rng.standard_normal(
-          jd.ctrl.shape)))
+  qvel = 0.5 * rng.standard_normal(jd.qvel.shape)
+  qvel[:, 2] = -np.abs(qvel[:, 2])
+  return jd.replace(qvel=jnp.asarray(qvel), ctrl=jnp.asarray(
+      0.5 * rng.standard_normal(jd.ctrl.shape)))
 
 
 def _reference_run(jm, values, jd, nstep):
@@ -136,12 +137,12 @@ def _assert_state(td, jd, rows, atol, what):
 
 @pytest.fixture(scope="module")
 def small_scene():
-  """The reference's 20 envs, envs 2k and 2k + 1 with leaf k drawn."""
+  """The reference's 36 envs, envs 2k and 2k + 1 with leaf k drawn."""
   mjm = mujoco.MjModel.from_xml_string(SCENE)
   jm = jio.put_model(mjm)
   tm = tio.put_model(mjm, dtype=torch.float64, device="cpu")
   nbatch = 2 * len(LEAVES)
-  drawn = draws(tm, nbatch, 0)
+  drawn = t_roll.draw_leaves(tm, nbatch, 0)
   values = {}
   for k, name in enumerate(LEAVES):
     nominal = tm.leaf(name).numpy()
@@ -172,22 +173,22 @@ def test_each_leaf_matches_reference(small_scene, leaf):
 
 
 def test_humanoid_all_leaves_match_reference():
-  """All ten leaves per env on the flagship humanoid at B 4 over 5 steps;
-  each env also equals a plain Model that holds its own leaves."""
+  """All eighteen leaves per env on the flagship humanoid at B 4 over 5
+  steps; each env also equals a plain Model that holds its own leaves,
+  ``opt.timestep`` included."""
   jm = jio.put_model(mujoco.MjModel.from_xml_path(
       f"{zoo.XML_DIR}/humanoid.xml"))
   tm = zoo.humanoid(torch.float64, device="cpu")
-  values = draws(tm, 4, 2)
+  values = t_roll.draw_leaves(tm, 4, 2)
   jd0 = _start(jm, 4, 3)
   ref = _reference_run(jm, values, jd0, 5)
   td0 = tio.data_from_numpy(tm, tio.flatten(jd0))
   td = _port_run(tm, values, td0, 5)
   _assert_state(td, ref, slice(None), 1e-9, "humanoid")
+  assert len(values) == 18
   for i in (0, 3):
-    plain = tm.replace(opt=tm.opt.replace(gravity=torch.as_tensor(
-        values["opt.gravity"][i])), **{
-            k: torch.as_tensor(v[i]) for k, v in values.items()
-            if not k.startswith("opt.")})
+    plain = tm.replace_leaves({k: torch.as_tensor(v[i])
+                               for k, v in values.items()})
     assert plain.env_leaves == ()
     d = t_roll.expand(tio.data_from_numpy(
         tm, tio.flatten(jax.tree.map(lambda x: x[i], jd0))), 1)
@@ -197,6 +198,21 @@ def test_humanoid_all_leaves_match_reference():
       np.testing.assert_allclose(getattr(d, k)[0].numpy(),
                                  getattr(td, k)[i].numpy(), rtol=0,
                                  atol=1e-12, err_msg=f"env {i} {k}")
+
+
+def test_implicitfast_all_leaves_match_reference():
+  """All eighteen leaves per env on the small scene at implicitfast (the
+  per-env timestep in the tree solve and the free box's 6×6 block), B 4,
+  5 steps, to 1e-9."""
+  mjm = mujoco.MjModel.from_xml_string(SCENE)
+  mjm.opt.integrator = mujoco.mjtIntegrator.mjINT_IMPLICITFAST
+  jm = jio.put_model(mjm)
+  tm = tio.put_model(mjm, dtype=torch.float64, device="cpu")
+  values = t_roll.draw_leaves(tm, 4, 7)
+  jd0 = _start(jm, 4, 8)
+  ref = _reference_run(jm, values, jd0, 5)
+  td = _port_run(tm, values, tio.data_from_numpy(tm, tio.flatten(jd0)), 5)
+  _assert_state(td, ref, slice(None), 1e-9, "implicitfast")
 
 
 def test_randomize_refuses_other_leaves_and_shapes():
@@ -220,10 +236,11 @@ def test_megastep_refuses_per_env_model():
   d = t_roll.make_batch(tm, 4, device="cpu")
   fresh = tio.make_data(tm, device="cpu")
   assert t_roll.megastep_eligible(tm, d, fresh)
-  bm, _ = t_roll.randomize_model(tm, draws(tm, 4, 5, ("geom_friction",)))
-  assert bm.env_leaves == ("geom_friction",)
-  assert not megastep_cuda.supported(bm)
-  assert not t_roll.megastep_eligible(bm, d, fresh)
+  for name, value in t_roll.draw_leaves(tm, 4, 5).items():
+    bm, _ = t_roll.randomize_model(tm, {name: value})
+    assert bm.env_leaves == (name,)
+    assert not megastep_cuda.supported(bm), name
+    assert not t_roll.megastep_eligible(bm, d, fresh), name
 
 
 def test_sharded_step_matches_unsharded():

@@ -11,8 +11,12 @@ mujoco_tpu's and the C engine, at f64 on the CPU.
   1e-5; ``inverse_derivatives`` equals the reference's to 1e-8 and
   ``mjd_inverseFD`` to 5e-5; one humanoid env equals the reference to
   1e-7;
-- a model with tendon armature is refused by name: the bias is a double
-  backward, whose tangent forward-mode AD drops; so is a per-env Model;
+- ``tendon_rows`` (tendon armature on a fixed and a spatial tendon: the
+  bias's tangent taken by reverse passes one order up) and a per-env
+  Model (every admitted leaf drawn per env, B 2) equal the reference's
+  ``transition`` and ``inverse_derivatives``, vmapped over the per-env
+  leaves, to 1e-7; calls of a per-env Model again and again leave the
+  per-Model caches no larger;
 - ``SpdSolve.jvp`` and ``NewtonSolve.jvp`` equal ``torch.func.jvp`` of the
   plain versions and ``jax.jvp`` of the reference's ``spd_solve`` and
   ``newton_pyramidal`` to 1e-8.
@@ -30,11 +34,16 @@ from mujoco_tpu.models import io as jio
 from mujoco_tpu.ops import derivative_fd as j_fd
 from mujoco_tpu.ops import linalg_tpu, newton_tpu
 from mujoco_tpu_torch.models import io as tio
-from mujoco_tpu_torch.models import zoo
+from mujoco_tpu_torch.models import snapshot, zoo
+from mujoco_tpu_torch.ops import actuation, history, island, megastep_cuda
 from mujoco_tpu_torch.ops import derivative_fd as t_fd
-from mujoco_tpu_torch.ops import linalg_cuda, newton_cuda
+from mujoco_tpu_torch.ops import forward as t_fwd
+from mujoco_tpu_torch.ops import linalg_cuda, newton_cuda, sensor
+from mujoco_tpu_torch.parallel import rollout as t_roll
 from tests import models as scenes
 from tests.test_torch_newton import ORDER, humanoid_rows
+from tests.test_torch_parallel import SCENE as RANDOMIZED_SCENE
+from tests.test_torch_parallel import _reference_model
 
 # one intra-op thread per process (tests/test_torch_tendon.py)
 torch.set_num_threads(1)
@@ -166,24 +175,77 @@ def test_humanoid_transition_matches_reference():
   _close([g[0] for g in got], ref, 1e-7, "humanoid A, B, C, D")
 
 
-def test_transition_refuses_tendon_armature():
-  tm = zoo.load("tendon_rows", torch.float64, device="cpu")
+def test_transition_tendon_armature_matches_reference(monkeypatch):
+  """``transition`` and ``inverse_derivatives`` of ``tendon_rows``, two
+  envs, equal the reference's jacfwd to 1e-7; with
+  the tendon-armature bias's own tangent dropped (as a double backward
+  drops it), A and DfDq would miss the reference by 100 times more than
+  they do."""
+  mjm = snapshot.compile_mj("tendon_rows")
+  jm, jd, tm, td = _pair(mjm, _states(mjm, 2, seed=2))
   assert tm.has_tendon_armature
-  td = tio.make_data(tm, device="cpu")
-  with pytest.raises(NotImplementedError, match="tendon-armature"):
-    t_fd.transition(tm, td)
-  with pytest.raises(NotImplementedError, match="tendon-armature"):
-    t_fd.inverse_derivatives(tm, td)
+  cases = (("A, B, C, D", t_fd.transition, j_fd.transition),
+           ("DfDq, DfDv, DfDa, DsDq, DsDv, DsDa", t_fd.inverse_derivatives,
+            j_fd.inverse_derivatives))
+  refs = []
+  for what, t_fn, j_fn in cases:
+    refs.append(jax.jit(jax.vmap(lambda d, j_fn=j_fn: j_fn(jm, d)))(jd))
+    got = t_fn(tm, td)
+    _close(got, refs[-1], 1e-7, f"tendon_rows {what}")
+    refs[-1] = (np.asarray(refs[-1][0]),
+                np.abs(got[0].numpy() - np.asarray(refs[-1][0])).max())
+  bias = t_fwd._tendon_bias
+  monkeypatch.setattr(t_fwd, "_tendon_bias", lambda m, d: bias(
+      m, d.replace(qpos=fwAD.unpack_dual(d.qpos).primal,
+                   qvel=fwAD.unpack_dual(d.qvel).primal)))
+  for (what, t_fn, _), (ref, err) in zip(cases, refs):
+    dropped = t_fn(tm, td)[0].numpy()
+    assert np.abs(dropped - ref).max() > 100 * err, what
 
 
-def test_transition_refuses_per_env_model():
-  from mujoco_tpu_torch.parallel import rollout
-  tm = zoo.humanoid(torch.float64, device="cpu")
-  bm, _ = rollout.randomize_model(tm, {"body_mass": tm.body_mass.expand(
-      2, -1)})
-  td = rollout.make_batch(tm, 2, device="cpu")
-  with pytest.raises(NotImplementedError, match="per-env Model"):
-    t_fd.transition(bm, td)
+def test_transition_per_env_model_matches_reference():
+  """``transition`` and ``inverse_derivatives`` of a per-env Model, every
+  admitted leaf drawn per env
+  (``rollout.draw_leaves``) on tests/test_torch_parallel.py's scene, B 2,
+  equal the reference's vmapped over the same per-env leaves to 1e-7, and
+  differ from the plain Model's."""
+  mjm = mujoco.MjModel.from_xml_string(RANDOMIZED_SCENE)
+  jm, jd, tm, td = _pair(mjm, _states(mjm, 2, seed=3))
+  values = t_roll.draw_leaves(tm, 2, 4)
+  bm, axes = t_roll.randomize_model(tm, values)
+  assert len(axes) == 18
+  jbm, jaxes = _reference_model(jm, values)
+  for name, t_fn, j_fn in (
+      ("transition", t_fd.transition, j_fd.transition),
+      ("inverse_derivatives", t_fd.inverse_derivatives,
+       j_fd.inverse_derivatives)):
+    ref = jax.jit(jax.vmap(j_fn, in_axes=(jaxes, 0)))(jbm, jd)
+    got = t_fn(bm, td)
+    _close(got, ref, 1e-7, f"per-env {name}")
+    plain = t_fn(tm, td)
+    assert max((a - b).abs().max() for a, b in zip(got, plain)) > 1e-6
+
+
+def test_transition_of_per_env_model_caches_no_model():
+  """``transition``, ``transition_fd`` and ``inverse_derivatives`` of a
+  per-env Model, called again and again, as an MPC loop calls them, leave
+  the per-Model caches (``struct.cached``) no larger than one call does:
+  the Model that each call repeats for its copies (``Model.repeat_envs``)
+  goes with its entries. A plain Model's repeat is the Model itself."""
+  mjm = mujoco.MjModel.from_xml_string(RANDOMIZED_SCENE)
+  tm = tio.put_model(mjm, dtype=torch.float64, device="cpu")
+  td = t_roll.make_batch(tm, 2, device="cpu")
+  assert tm.repeat_envs(3) is tm
+  bm, _ = t_roll.randomize_model(tm, t_roll.draw_leaves(tm, 2, 4))
+  caches = (actuation._CACHE, history._CACHE, island._CACHE,
+            megastep_cuda._CACHE, sensor._CACHE)
+  sizes = []
+  for _ in range(3):
+    for fn in (t_fd.transition, t_fd.transition_fd,
+               t_fd.inverse_derivatives):
+      fn(bm, td)
+    sizes.append([len(c) for c in caches])
+  assert sizes[0] == sizes[1] == sizes[2], sizes
 
 
 def test_spd_solve_jvp_matches_plain_and_reference():
