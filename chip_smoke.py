@@ -364,6 +364,26 @@ Phases, each of which passes or ends the script with a nonzero exit:
    its bound and the plain version's; the humanoid set on the wide route
    at f64 (one tile) under the same rule; the host's shared-memory count
    of every route against the kernel's own (``layout_counts``).
+30. SDF collision and the plugin callbacks: the megastep's gate refuses
+   every ``zoo.SDF`` scene; ``sdf_nutbolt`` (a free nut threaded on a
+   fixed bolt, two SDF groups of 40 descent starts, 320 rows) at f32,
+   B 3072, ctrl uniform in [-2, 2] per env from a numpy seed, 20 steps of
+   ``scan_steps(check=True)`` on the stage path: finite, exactly one LDL
+   and one Newton launch per step and no megastep launch; env-steps/s,
+   peak memory, device kernels per step and the idle share of a profiled
+   2-step window, and the SDF collision pass's device ms and kernels in
+   one step; the LDL kernel on its qM (n 6) at f64 and f32 against its
+   plain version (phase 2's tolerances) and the Newton kernel on its rows
+   (nv 6, 320 rows, 4 iterations, 8 linesearch steps) at f64 under phase
+   11's rule and at f32 by phase 3's criteria, each timed beside its
+   bound, its plain version and ``torch.linalg.solve``; every ``zoo.SDF``
+   scene 10 steps at f64, B 64, each step of the CPU's state on the card
+   and the CPU: qpos, qvel and every slot's dist within 1e-8, an env that
+   misses judged by last-bit copies on both sides (``judge_envs``; moves
+   of 1e-15 relative, then up to 1e-12 where a box's corner start keeps
+   its bits); the USER gain, bias, sensor and passive callbacks of
+   tests/test_plugin.py as torch functions on ``sensor_suite``
+   (``callback_model``), 20 steps at f64, B 64, card = CPU.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
@@ -371,13 +391,15 @@ kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
 and 13 to 29 (phase 26's ``discrete_acc``, ``transition`` and
 ``randomized``; phase 27's ``humanoid_hammock``; the megastep's phase
 28 ``humanoid_pixels`` and phase 29's ``multi_humanoid3`` and
-``multi_humanoid10_monolithic``); the megastep's ``wide`` entry holds phase
+``multi_humanoid10_monolithic``; phase 30's ``sdf_nutbolt``); the
+megastep's ``wide`` entry holds phase
 29's times per scene; the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
 Newton kernel's its phase-13 times at nv 81; the LDL's ``island`` and ``n270``
 entries and the Newton kernel's ``nv270`` entry hold phase 19's times,
-the LDL's ``n18`` entry phase 23's, and the LDL's ``n258`` and the Newton
-kernel's ``nv258`` entries phase 27's.
+the LDL's ``n18`` entry phase 23's, the LDL's ``n258`` and the Newton
+kernel's ``nv258`` entries phase 27's, and the LDL's ``n6_sdf`` and the
+Newton kernel's ``nv6_sdf`` entries phase 30's.
 Each phase's seconds are printed as it ends.
 It prints one JSON line describing each kernel, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -2275,7 +2297,7 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23", "24", "25", "26", "27", "28", "29")
+                 "22", "23", "24", "25", "26", "27", "28", "29", "30")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -4832,6 +4854,335 @@ def phase_wide_megastep(report, details):
   report["megastep"]["wide"] = wide
 
 
+SDF_NSTEP = 20             # phase 30's full-width rollout
+SDF_CHECK_B = 64           # phase 30's f64 card-against-CPU batch
+SDF_CHECK_NSTEP = 10
+SDF_NEWTON_B64 = 256
+# last-bit moves of a judged env's copies, the larger ones where the
+# smaller leave the deciding bits of a box's corner start alone
+# (tests/test_torch_sdf_scenes.py)
+SDF_MOVES = (1e-15, 1e-14, 1e-13, 1e-12)
+SDF_COPIES = 16
+CALLBACK_NSTEP = 20
+
+
+def sdf_batch(name, m, nbatch, seed, device="cuda"):
+  """make_batch of a zoo.SDF scene at its start in contact
+  (zoo.SDF_START) from a numpy seed: the free body's position moved by
+  0.003·N(0, 1), qvel 0.05·N(0, 1), ctrl uniform in [-2, 2] per env; the
+  same on the card and the CPU."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  d = rollout.make_batch(m, nbatch, device=device)
+  rng = np.random.default_rng(seed)
+  qpos = d.qpos.cpu().double().numpy().copy()
+  for k, v in zoo.SDF_START[name].items():
+    qpos[:, k] = v
+  qpos[:, :3] += 0.003 * rng.standard_normal((nbatch, 3))
+  qvel = 0.05 * rng.standard_normal((nbatch, m.nv))
+  ctrl = rng.uniform(-2.0, 2.0, (nbatch, m.nu))
+  as_t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=device)
+  return d.replace(qpos=as_t(qpos), qvel=as_t(qvel), ctrl=as_t(ctrl))
+
+
+def sdf_card_vs_cpu(name, nstep=SDF_CHECK_NSTEP):
+  """nstep steps at f64, B SDF_CHECK_B, each step of the CPU's state on
+  the card and on the CPU: qpos, qvel and every slot's dist within 1e-8
+  absolute plus relative, an env that misses judged by last-bit copies of
+  its state on both sides (judge_envs), the moves of SDF_MOVES tried in
+  turn. Returns (env-steps judged, the largest move used, SDF slots in
+  contact over the run)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import forward
+  mc = zoo.load(name, torch.float64, "cuda")
+  mh = zoo.load(name, torch.float64, "cpu")
+  d = sdf_batch(name, mh, SDF_CHECK_B, 81, "cpu")
+  judged, largest, live = 0, 0.0, 0
+  for _ in range(nstep):
+    out_h = forward.step(mh, d)
+    out_c = forward.step(mc, d.to("cuda"))
+    live += int((out_h.contact.dist < out_h.contact.includemargin).sum())
+    card = [out_c.qpos[None], out_c.qvel[None], out_c.contact.dist[None]]
+    cpu = [out_h.qpos[None], out_h.qvel[None], out_h.contact.dist[None]]
+
+    def rerun(idx, m, scale, d=d):
+      k = SDF_COPIES
+      gen = torch.Generator().manual_seed(0)
+      copies = take_envs(d, idx.repeat_interleave(k))
+      moved = {f: getattr(copies, f) * (1 + scale / 1e-15 * last_bits(
+          getattr(copies, f).shape, gen)) for f in ("qpos", "qvel")}
+      r = forward.step(m, copies.replace(**moved).to(m.device))
+      return [x.reshape((len(idx), k) + x.shape[1:])
+              for x in (r.qpos, r.qvel, r.contact.dist)]
+
+    for scale in SDF_MOVES:
+      try:
+        judged += judge_envs(card, cpu, lambda idx: rerun(idx, mh, scale),
+                             lambda idx: rerun(idx, mc, scale), SDF_COPIES,
+                             1e-8, 1.0)
+        largest = max(largest, scale)
+        break
+      except AssertionError:
+        if scale == SDF_MOVES[-1]:
+          raise
+    d = out_h
+  return judged, largest, live
+
+
+def callback_model(dtype, device="cuda"):
+  """``sensor_suite`` (two hinges, a motor, 29 sensors) with tests/
+  test_plugin.py's callbacks as torch functions on the batched Data: the
+  motor's gain and bias USER (gain 3, bias −0.5·velocity), its first
+  sensor (a jointpos) a USER sensor reading the lower body's height, and
+  a passive spring −4·(qpos − 0.3); built from the snapshot's fields with
+  the callbacks registered, then the registry cleared."""
+  from mujoco_tpu_torch import plugin
+  from mujoco_tpu_torch.models import io, zoo
+  from mujoco_tpu_torch.models.types import BiasType, GainType, SensorType
+  fields = zoo.load_snapshot("sensor_suite")
+  for key, value in (("actuator_gaintype", GainType.USER),
+                     ("actuator_biastype", BiasType.USER),
+                     ("sensor_type", SensorType.USER)):
+    fields[key] = fields[key].copy()
+    fields[key][0] = int(value)
+  plugin.set_actuator_callbacks(
+      gain=lambda m, d, i: torch.tensor(3.0, dtype=d.qpos.dtype),
+      bias=lambda m, d, i: -0.5 * d.actuator_velocity[:, i])
+  plugin.set_sensor_callback(lambda m, d, i: d.xpos[:, 2, 2][:, None])
+  plugin.set_passive_callback(lambda m, d: -4.0 * (d.qpos - 0.3))
+  try:
+    return io.model_from_numpy(fields, dtype, device)
+  finally:
+    plugin.set_actuator_callbacks()
+    plugin.set_sensor_callback(None)
+    plugin.set_passive_callback(None)
+
+
+def callback_check():
+  """The callback scene, B SDF_CHECK_B at f64 from a numpy seed (qpos
+  0.3·N(0, 1), ctrl N(0, 1)), CALLBACK_NSTEP steps, each of the CPU's
+  state on the card and the CPU: qpos, qvel and sensordata within 1e-8
+  absolute plus relative, every state finite, the USER sensor equal to
+  the height it reads. Returns the largest |card − CPU|."""
+  from mujoco_tpu_torch.ops import forward, megastep_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  mc, mh = callback_model(torch.float64), callback_model(
+      torch.float64, "cpu")
+  if megastep_cuda.supported(callback_model(torch.float32)):
+    raise AssertionError("the megastep admits the callback scene")
+  rng = np.random.default_rng(91)
+  d = rollout.make_batch(mh, SDF_CHECK_B, device="cpu")
+  d = d.replace(qpos=d.qpos + torch.as_tensor(
+      0.3 * rng.standard_normal(tuple(d.qpos.shape))),
+      ctrl=torch.as_tensor(rng.standard_normal(tuple(d.ctrl.shape))))
+  worst = 0.0
+  for _ in range(CALLBACK_NSTEP):
+    out_h = forward.step(mh, d)
+    out_c = forward.step(mc, d.to("cuda"))
+    for f in ("qpos", "qvel", "sensordata"):
+      a, b = getattr(out_c, f).cpu(), getattr(out_h, f)
+      if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"callback scene: {f} not finite on the card")
+      err = ((a - b).abs() / (1 + b.abs())).max().item()
+      worst = max(worst, err)
+      if err > 1e-8:
+        raise AssertionError(f"callback scene: card and CPU differ in {f} "
+                             f"by {err:.3e}")
+    # a sensor's value is the forward pass's: the USER sensor reads the
+    # height of the state before the step
+    height = forward.fwd_position(mh, d).xpos[:, 2, 2]
+    if not torch.equal(out_h.sensordata[:, 0], height):
+      raise AssertionError("callback scene: the USER sensor is not the "
+                           "height it reads")
+    d = out_h
+  return worst
+
+
+def sdf_pass(m, d):
+  """The SDF collision pass of one step at d (positions from
+  fwd_position): (device ms, kernels, wall ms) from one profiled warm
+  call."""
+  from mujoco_tpu_torch.ops import collision_sdf, forward
+  dd = forward.fwd_position(m, d)
+
+  def once():
+    c = dd.contact
+    collision_sdf.sdf_collision(m, dd, c.dist.clone(), c.pos.clone(),
+                                c.frame.clone())
+    torch.cuda.synchronize()
+
+  once()
+  prof = profile_window(once, 1)[0]
+  return (prof["device_busy_ms_per_step"], prof["kernel_launches_per_step"],
+          prof["wall_ms_per_step"])
+
+
+def phase_sdf(report, details):
+  """30: SDF collision and the plugin callbacks: the megastep's gate
+  refuses every zoo.SDF scene; sdf_nutbolt at f32, B 3072, 20 steps on the
+  stage path with exactly one LDL and one Newton launch per step; the LDL
+  kernel on its qM (n 6) and the Newton kernel on its rows (nv 6, 320
+  rows) against their plain versions at f64 and f32, timed beside their
+  bounds; every zoo.SDF scene card = CPU at f64; the callback scene card =
+  CPU at f64."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import (forward, linalg_cuda, megastep_cuda,
+                                    newton_cuda, smooth, solver)
+  from mujoco_tpu_torch.parallel import rollout
+  name = "sdf_nutbolt"
+  for scene in zoo.SDF:
+    mm = zoo.load(scene, torch.float32, "cuda")
+    if megastep_cuda.supported(mm) or rollout.megastep_eligible(
+        mm, rollout.make_batch(mm, 2), rollout.make_batch(mm, 1)):
+      raise AssertionError(f"the megastep admits {scene}")
+  print(f"megastep gate: refuses all {len(zoo.SDF)} SDF scenes", flush=True)
+
+  # the full width: 20 steps on the stage path
+  m = zoo.load(name, torch.float32, "cuda")
+  d0 = sdf_batch(name, m, B, 82)
+  out, run = many_run(f"{name} (nv {m.nv}, {m.con.ncon} slots in "
+                      f"{len(m.con.sdfgroups)} SDF groups, {m.efc.nefc} "
+                      f"rows)", m, d0, SDF_NSTEP,
+                      {"ldl_solve": 1.0, "newton_pyramidal": 1.0,
+                       "megastep": 0.0})
+  reset = int((out.time < SDF_NSTEP * float(m.opt.timestep) * 0.999)
+              .sum().item())
+  dd = forward.fwd_position(m, out)
+  live = (dd.contact.dist < dd.contact.includemargin).float().sum(1)
+  sdf_ms, sdf_kernels, sdf_wall = sdf_pass(m, out)
+  step_ms = run["profile"]["device_busy_ms_per_step"]
+  print(f"{name}: envs the guard reset {reset}; slots in contact per env at "
+        f"the end {live.mean().item():.2f} (most {int(live.max().item())}); "
+        f"the SDF collision pass per step: device {sdf_ms:.3f} ms of "
+        f"{step_ms:.3f}, {sdf_kernels:.0f} device kernels, wall "
+        f"{sdf_wall:.3f} ms", flush=True)
+  del dd, out
+
+  # the LDL kernel on the scene's qM (n 6), phase 2's tolerances
+  ldl = {}
+  for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+    mm = zoo.load(name, dtype, "cuda")
+    d = smooth.crb(mm, smooth.com_pos(mm, smooth.kinematics(
+        mm, sdf_batch(name, mm, B, 83))))
+    h = d.qM.contiguous()
+    g = torch.randn(d.qvel.shape, generator=torch.Generator(
+        device="cuda").manual_seed(84), device="cuda", dtype=dtype)
+    p = linalg_cuda.spd_solve_kernel(h, g)
+    torch.cuda.synchronize()
+    ref = linalg_cuda.spd_solve_plain(h, g)
+    err = (p - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    print(f"ldl_solve {str(dtype)[6:]} B{B} n{h.shape[1]} on {name}'s qM: "
+          f"max rel err {rel:.3e} (limit {tol:g})", flush=True)
+    if not rel <= tol:
+      raise AssertionError(f"ldl_solve disagrees on {name}'s qM")
+    b_ms, by = ldl_bound(B, h.shape[1], dtype)
+    ldl[str(dtype)[6:]] = dict(
+        n=h.shape[1], max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms_cold(lambda: linalg_cuda.spd_solve_kernel(h, g)),
+        l2_warm_ms=device_ms(lambda: linalg_cuda.spd_solve_kernel(h, g)),
+        plain_ms=cuda_ms_cold(lambda: linalg_cuda.spd_solve_plain(h, g)),
+        library_ms=cuda_ms_cold(lambda: torch.linalg.solve(h, g)),
+        bound_ms=b_ms, bound_by=by)
+    e = ldl[str(dtype)[6:]]
+    print(f"ldl_solve {str(dtype)[6:]} B{B} n{h.shape[1]}: kernel_ms "
+          f"{e['ms']:.4f} (L2 flushed; L2-warm {e['l2_warm_ms']:.4f}) "
+          f"plain_ms {e['plain_ms']:.4f} library_ms {e['library_ms']:.4f} "
+          f"(torch.linalg.solve) bound_ms {b_ms:.5f} ({by})", flush=True)
+    del h, g, d
+
+  # the Newton kernel on the scene's rows at the scene's options (4
+  # iterations, 8 linesearch steps): f64 B 256 under phase 11's rule, f32
+  # at the full width by phase 3's statistical criteria
+  it, ls = int(m.opt.iterations), int(m.opt.ls_iterations)
+
+  def rows_state(mm, nb, seed):
+    d = sdf_batch(name, mm, nb, seed)
+    d = forward.fwd_acceleration(mm, forward.fwd_actuation(
+        mm, forward.fwd_velocity(mm, forward.fwd_position(mm, d))))
+    return d.replace(qacc_warmstart=0.9 * d.qacc_smooth)
+
+  m64 = zoo.load(name, torch.float64, "cuda")
+  args = solver.newton_args(m64, rows_state(m64, SDF_NEWTON_B64, 85))
+  out_k = newton_cuda.newton_kernel(*args, it, ls)
+  torch.cuda.synchronize()
+  out_p = newton_cuda.newton_plain(*args, it, ls)
+  viol = newton_violation(out_k, out_p)
+  off, worst_other, table = newton_rows_gate(args, out_k, out_p, it, ls)
+  unmatched = [row for row in table if row[1] == 0]
+  print(f"newton f64 B{SDF_NEWTON_B64} nefc{m.efc.nefc} nv{m.nv} it{it} "
+        f"ls{ls} on {name}'s rows: worst err / (1e-9 + 1e-9·|plain|) "
+        + " ".join(f"{k} {v:.3f}" for k, v in viol.items())
+        + f"; {len(off)} envs off elementwise (limit "
+        f"{SDF_NEWTON_B64 // 100}), worst err / limit on the others "
+        f"{worst_other:.3f}, replayed {table}", flush=True)
+  if (len(off) > SDF_NEWTON_B64 // 100 or not worst_other <= 1.0
+      or unmatched):
+    raise AssertionError(f"newton on {name}'s rows: kernel and plain "
+                         f"disagree")
+  newton_f64 = dict(batch=SDF_NEWTON_B64, violation=viol, off_envs=off,
+                    replay=table,
+                    max_abs_err=(out_k[0] - out_p[0]).abs().max().item())
+  del args, out_k, out_p, m64
+  args = solver.newton_args(m, rows_state(m, B, 86))
+  out_k = newton_cuda.newton_kernel(*args, it, ls)
+  torch.cuda.synchronize()
+  out_p = newton_cuda.newton_plain(*args, it, ls)
+  f32_gate = newton_f32_gate(f"newton f32 B{B} nv{m.nv} it{it} ls{ls} on "
+                             f"{name}'s rows", args, out_k, out_p, 0.85)
+  del out_k, out_p
+  bound_ms, by, dense_ms, _, kept_mean, kept_max = newton_bound(args, it, ls)
+  occ = newton_cuda.occupancy(m.efc.nefc, m.nv, torch.float32)
+  newton = dict(nv=m.nv, nefc=m.efc.nefc, iterations=it, ls_iterations=ls,
+                bound_ms=bound_ms, bound_by=by, dense_bound_ms=dense_ms,
+                kept_mean=kept_mean, kept_max=kept_max, **occ,
+                ms=cuda_ms_cold(lambda: newton_cuda.newton_kernel(
+                    *args, it, ls)),
+                plain_ms=cuda_ms_cold(lambda: newton_cuda.newton_plain(
+                    *args, it, ls), reps=5, warmup=1),
+                max_abs_err=newton_f64["max_abs_err"])
+  print(f"newton f32 B{B} nefc{m.efc.nefc} nv{m.nv} it{it} ls{ls} on "
+        f"{name}'s rows: kernel_ms {newton['ms']:.4f} (L2 flushed) plain_ms "
+        f"{newton['plain_ms']:.4f} bound_ms {bound_ms:.5f} ({by}; kept rows "
+        f"mean {kept_mean:.2f}, most {kept_max}; dense {dense_ms:.5f}); "
+        f"{occ['threads']} threads per env, {occ['blocks_per_sm']} "
+        f"blocks/SM", flush=True)
+  del args
+  torch.cuda.empty_cache()
+
+  # card = CPU at f64, every SDF scene
+  check = {}
+  for scene in zoo.SDF:
+    t0 = time.perf_counter()
+    judged, largest, live = sdf_card_vs_cpu(scene)
+    check[scene] = dict(judged_env_steps=judged, largest_move=largest,
+                        live_slots=live, s=time.perf_counter() - t0)
+    print(f"{scene} card vs CPU f64 B{SDF_CHECK_B} {SDF_CHECK_NSTEP} steps: "
+          f"qpos, qvel and dist within 1e-8 ({live} slot-steps in contact), "
+          f"env-steps judged by last-bit copies {judged} (largest move "
+          f"{largest:g}; {check[scene]['s']:.1f} s)", flush=True)
+
+  # the USER actuator, sensor and passive callbacks on the card
+  t0 = time.perf_counter()
+  cb_err = callback_check()
+  print(f"callback scene (USER gain and bias, a USER sensor, a passive "
+        f"callback) card vs CPU f64 B{SDF_CHECK_B} {CALLBACK_NSTEP} steps: "
+        f"finite, largest |card − CPU| / (1 + |CPU|) {cb_err:.3e} (limit "
+        f"1e-8; {time.perf_counter() - t0:.1f} s)", flush=True)
+
+  details["sdf"] = dict(nutbolt=run, guard_resets=reset,
+                        sdf_pass=dict(device_ms=sdf_ms, kernels=sdf_kernels,
+                                      wall_ms=sdf_wall),
+                        ldl_n6=ldl, newton_nv6=newton,
+                        newton_nv6_f64_gate=newton_f64,
+                        newton_nv6_f32_gate=f32_gate, card_vs_cpu=check,
+                        callback_max_err=cb_err)
+  report["ldl_solve"]["n6_sdf"] = ldl
+  report["newton_pyramidal"]["nv6_sdf"] = newton
+  for k in ("ldl_solve", "newton_pyramidal", "megastep"):
+    report[k].setdefault("launches_by_path", {})[name] = run["launches"][k]
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4858,7 +5209,7 @@ def main() -> int:
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
             phase_actuation, phase_control_loop, phase_flex, phase_pixels,
-            phase_wide_megastep)
+            phase_wide_megastep, phase_sdf)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

@@ -27,6 +27,7 @@ module the port has):
   ray                                    # mj_ray
   render / render_scene                  # batched RGB, depth and seg
   skin_update / vis / export_usd         # skins, scene table, USD stage
+  plugin                                 # SDF shapes, mjcb_* callbacks
 
 ``record`` and ``viewer`` are modules of their own (``python -m
 mujoco_tpu_torch.record``, ``python -m mujoco_tpu_torch.viewer``).
@@ -56,7 +57,7 @@ from mujoco_tpu_torch.ops.inverse import compare_fwd_inv, inverse
 from mujoco_tpu_torch.ops.derivative_fd import (inverse_derivatives,
                                                 transition, transition_fd)
 from mujoco_tpu_torch.ops.ray import ray, ray_geom
-from mujoco_tpu_torch import vis
+from mujoco_tpu_torch import plugin, vis
 from mujoco_tpu_torch import usd_export
 from mujoco_tpu_torch.ops.skin import skin_update
 from mujoco_tpu_torch.usd_export import export_usd

@@ -83,8 +83,9 @@ _CONVEX = {GeomType.SPHERE, GeomType.CAPSULE, GeomType.ELLIPSOID,
 
 
 def pair_ncon(t1: int, t2: int) -> int:
-  """Contact slots of a (type1, type2) pair, type1 ≤ type2; raises for a
-  pair no collider takes (SDF geoms wait for the SDF slice)."""
+  """Contact slots of a (type1, type2) pair, type1 ≤ type2, that a
+  collider of its own or MPR takes; raises for any other pair (an SDF
+  pair's slots are ``opt.sdf_initpoints``, ``_contact_meta``)."""
   t1, t2 = GeomType(t1), GeomType(t2)
   if (t1, t2) in _PAIR_NCON:
     return _PAIR_NCON[t1, t2]
@@ -119,6 +120,67 @@ def _mesh_hulls(mjm: Any) -> tuple:
       idx = idx[np.array(sorted(set(keep)), dtype=np.int64)]
     hulls.append((va + idx).astype(np.int32))
   return tuple(hulls)
+
+
+def _plugin_name(mjm: Any, instance: int) -> str:
+  """The registered plugin name of a plugin instance through the process's
+  plugin table (mjp_getPluginAtSlot, which the pip bindings do not
+  expose, through ctypes on the bundled library; mujoco_tpu/models/
+  io.py:251-268). The library is the one of the package that compiled
+  mjm, which is imported already."""
+  import ctypes
+  import glob
+  import sys
+
+  package = sys.modules[type(mjm).__module__.split(".")[0]]
+  libs = glob.glob(os.path.join(os.path.dirname(package.__file__),
+                                "libmujoco*"))
+  lib = ctypes.CDLL(libs[0])
+  lib.mjp_getPluginAtSlot.restype = ctypes.c_void_p
+  p = lib.mjp_getPluginAtSlot(int(mjm.plugin[instance]))
+  if not p:
+    raise NotImplementedError(f"plugin instance {instance}: empty slot")
+  name = ctypes.cast(ctypes.cast(p, ctypes.POINTER(ctypes.c_void_p))[0],
+                     ctypes.c_char_p).value
+  return name.decode()
+
+
+def _sdf_geom_info(mjm: Any, g: int, grids: dict):
+  """(kind, params) of one side of an SDF pair (mujoco_tpu/models/io.py:
+  270-310): an int GeomType and None for a primitive; MESH_GRID and its
+  grid dict for an SDF geom backed by a mesh (made once per mesh in
+  ``grids``: a grid is seconds of numpy work); the plugin name and its
+  attribute vector (each attribute's configured value, else its
+  default) for an SDF plugin geom."""
+  from mujoco_tpu_torch.ops import sdf
+  t = int(mjm.geom_type[g])
+  if t != int(GeomType.SDF):
+    return t, None
+  instance = int(mjm.geom_plugin[g])
+  if instance < 0:
+    mid = int(mjm.geom_dataid[g])
+    if mid < 0:
+      raise NotImplementedError(f"SDF geom {g}: no plugin and no mesh")
+    va, vn = int(mjm.mesh_vertadr[mid]), int(mjm.mesh_vertnum[mid])
+    fa, fn = int(mjm.mesh_faceadr[mid]), int(mjm.mesh_facenum[mid])
+    verts = np.asarray(mjm.mesh_vert).reshape(-1, 3)[va:va + vn]
+    faces = np.asarray(mjm.mesh_face).reshape(-1, 3)[fa:fa + fn]
+    if mid not in grids:
+      grids[mid] = sdf.mesh_grid_sdf(verts, faces)
+    return sdf.MESH_GRID, grids[mid]
+  name = _plugin_name(mjm, instance)
+  if name not in sdf.PLUGIN_SDF:
+    raise NotImplementedError(f"SDF plugin {name!r}")
+  _, attr_names, defaults = sdf.PLUGIN_SDF[name]
+  # plugin_attr holds each declared attribute's configured value (maybe
+  # empty) as consecutive C strings from plugin_attradr[instance]
+  blob = bytes(np.asarray(mjm.plugin_attr, dtype=np.uint8))
+  vals = blob[int(mjm.plugin_attradr[instance]):].split(b"\x00")
+  params = []
+  for i in range(len(attr_names)):
+    v = vals[i].decode() if i < len(vals) else ""
+    params.append(float(v) if v.strip() else float(defaults[i]))
+  return name, np.asarray(params, dtype=np.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +275,11 @@ def _contact_meta(mjm: Any) -> dict:
   and last the dynamic pair groups: a
   signature of more than max(2·budget, 16) candidates owns ``budget`` pair
   slots (fewer if it has fewer pairs), whose geom ids name its first
-  candidate and are chosen per env and step (``collision_driver``)."""
+  candidate and are chosen per env and step (``collision_driver``). A
+  pair with an SDF side (mujoco_tpu/models/io.py:480-486, 539-546) stays
+  among the plane pairs in enumeration order, owns opt.sdf_initpoints
+  slots and a group of ``sdfgroups``; a height field or mesh against an
+  SDF geom raises."""
   filterparent = not (mjm.opt.disableflags & DisableBit.FILTERPARENT)
   exclude_sigs = {int(mjm.exclude_signature[i]) for i in range(mjm.nexclude)}
   weld = mjm.body_weldid
@@ -222,10 +288,15 @@ def _contact_meta(mjm: Any) -> dict:
 
   def signature(a, b, pid):
     t1, t2 = int(mjm.geom_type[a]), int(mjm.geom_type[b])
-    try:
-      pair_ncon(t1, t2)
-    except NotImplementedError as e:
-      raise NotImplementedError(f"{e} (geoms {a},{b})") from None
+    if t2 == GeomType.SDF:
+      if t1 in (GeomType.HFIELD, GeomType.MESH):
+        raise NotImplementedError(
+            f"{GeomType(t1).name} vs SDF collision (geoms {a},{b})")
+    else:
+      try:
+        pair_ncon(t1, t2)
+      except NotImplementedError as e:
+        raise NotImplementedError(f"{e} (geoms {a},{b})") from None
     if pid >= 0:
       condim = int(mjm.pair_dim[pid])
     else:
@@ -267,7 +338,8 @@ def _contact_meta(mjm: Any) -> dict:
         continue
       a, b = (g1, g2) if mjm.geom_type[g1] <= mjm.geom_type[g2] else (g2, g1)
       sig = signature(a, b, -1)
-      if sig[0] in (GeomType.PLANE, GeomType.HFIELD):
+      if (sig[0] in (GeomType.PLANE, GeomType.HFIELD)
+          or sig[1] == GeomType.SDF):
         static_pairs.append((a, b, -1, sig))
       else:
         staged.setdefault(sig, []).append((a, b, -1, sig))
@@ -283,8 +355,20 @@ def _contact_meta(mjm: Any) -> dict:
       pairs.extend(group)
 
   g1s, g2s, types, condims, first, pairids = [], [], [], [], [], []
+  sdfgroups, grids = [], {}
   for a, b, pid, (t1, t2, _, _, condim) in pairs:
-    for k in range(pair_ncon(t1, t2)):
+    n = (int(mjm.opt.sdf_initpoints) if t2 == GeomType.SDF
+         else pair_ncon(t1, t2))
+    if t2 == GeomType.SDF:
+      kind1, params1 = _sdf_geom_info(mjm, a, grids)
+      kind2, params2 = _sdf_geom_info(mjm, b, grids)
+      sdfgroups.append({
+          "g1": a, "g2": b, "adr": len(g1s), "n": n,
+          "iterations": int(mjm.opt.sdf_iterations), "kind1": kind1,
+          "kind2": kind2, "params1": params1, "params2": params2,
+          "aabb1": np.array(mjm.geom_aabb[a], dtype=np.float64),
+          "aabb2": np.array(mjm.geom_aabb[b], dtype=np.float64)})
+    for k in range(n):
       g1s.append(a)
       g2s.append(b)
       types.append((t1, t2))
@@ -326,7 +410,8 @@ def _contact_meta(mjm: Any) -> dict:
           "flex_budget": flex["flex_budget"],
           "selfgroups": tuple(flex["selfgroups"]),
           "intgroups": tuple(flex["intgroups"]),
-          "evgroups": tuple(flex["evgroups"])}
+          "evgroups": tuple(flex["evgroups"]),
+          "sdfgroups": tuple(sdfgroups)}
 
 
 # geom types a flex collides with (mujoco_tpu/models/io.py:568-569)
@@ -551,13 +636,14 @@ def _names(mjm: Any) -> dict:
 
 def _actuator_meta(mjm: Any):
   """Actuator enums remapped to the v3.11 values by NAME (the pip package
-  may number them differently); every dyn, gain and bias type but USER,
-  on any transmission. Also the DC-motor and PID activation slots
-  (mj_dcmotorSlots), the setpoint wrap period of each rotational servo
-  and PID (wrapPeriod), and the control and output blocks
-  (mujoco_tpu/models/io.py:1205-1354): an SO3 gain resolves its site or
-  ball-joint transmission to TrnType.SO3 and owns 3 controls (4 under the
-  quaternion chart) and 3 outputs; every other actuator one of each."""
+  may number them differently); every dyn, gain and bias type, on any
+  transmission (USER through the callbacks ``model_from_numpy`` reads).
+  Also the DC-motor and PID activation slots (mj_dcmotorSlots), the
+  setpoint wrap period of each rotational servo and PID (wrapPeriod),
+  and the control and output blocks (mujoco_tpu/models/io.py:1205-1354):
+  an SO3 gain resolves its site or ball-joint transmission to
+  TrnType.SO3 and owns 3 controls (4 under the quaternion chart) and 3
+  outputs; every other actuator one of each."""
   import mujoco
   dyn_map = {int(v): DynType[k[len("mjDYN_"):]].value
              for k, v in mujoco.mjtDyn.__members__.items()}
@@ -569,10 +655,6 @@ def _actuator_meta(mjm: Any):
   dyn = np.array([dyn_map[int(t)] for t in mjm.actuator_dyntype], np.int32)
   gain = np.array([gain_map[int(t)] for t in mjm.actuator_gaintype], np.int32)
   bias = np.array([bias_map[int(t)] for t in mjm.actuator_biastype], np.int32)
-  for i in range(nu):
-    if (dyn[i] == DynType.USER or gain[i] == GainType.USER
-        or bias[i] == BiasType.USER):
-      raise NotImplementedError(f"actuator {i}: USER dyn, gain or bias")
   dynprm = np.asarray(mjm.actuator_dynprm, dtype=np.float64)
   gainprm = np.asarray(mjm.actuator_gainprm, dtype=np.float64)
   biasprm = np.asarray(mjm.actuator_biasprm, dtype=np.float64)
@@ -636,8 +718,9 @@ def _actuator_meta(mjm: Any):
   return dyn, gain, bias, slots, wrapprd, blocks
 
 
-# sensors ops/sensor.py does not compute: plugins and user callbacks
-_SENSOR_REFUSED = (SensorType.PLUGIN, SensorType.USER)
+# sensors ops/sensor.py does not compute: plugins, which the reference's
+# sensor stages refuse as well (mujoco_tpu/ops/sensor.py:764, 837, 914)
+_SENSOR_REFUSED = (SensorType.PLUGIN,)
 
 
 def _sensor_meta(mjm: Any) -> dict:
@@ -645,7 +728,7 @@ def _sensor_meta(mjm: Any) -> dict:
   values remapped to the port's by NAME, as ``_actuator_meta`` remaps the
   actuator enums, and the contact sensors' integer parameters and the
   history buffers' tables (mujoco_tpu/models/io.py:1608-1624); a plugin
-  or user sensor raises by name."""
+  sensor raises by name."""
   import mujoco
 
   def remap(enum_cls, mj_enum, prefix, values):
@@ -936,10 +1019,14 @@ def _flex_fields(mjm: Any) -> dict:
 def flatten(obj: Any, prefix: str = "") -> dict:
   """Flat {dotted name: np.ndarray} of a dataclass (Model, Data or their
   ``mujoco_tpu`` counterparts): nested dataclasses, dicts and tuples
-  recurse; every other value goes through ``np.asarray``."""
+  recurse; None and callables (``Model.user_cb``, an SDF group's params
+  of a primitive) have no array form and are left out; every other value
+  goes through ``np.asarray``."""
   out = {}
 
   def walk(v, name):
+    if v is None or callable(v):
+      return
     if dataclasses.is_dataclass(v):
       for f in dataclasses.fields(v):
         walk(getattr(v, f.name), f"{name}{f.name}.")
@@ -1006,6 +1093,8 @@ def model_numpy(mjm: Any) -> dict:
   for gname in ("dyngroups", "selfgroups", "intgroups", "evgroups"):
     f.update({f"con.{gname}.{i}.{k}": v
               for i, grp in enumerate(con.pop(gname)) for k, v in grp.items()})
+  # an SDF group's plugin name is a numpy string, its grid a nested dict
+  f.update(flatten(con.pop("sdfgroups"), "con.sdfgroups."))
   f.update({f"con.{k}": v for k, v in con.items()})
   f.update({f"efc.{k}": v for k, v in efc.items()})
   f.update(_flex_fields(mjm))
@@ -1207,11 +1296,14 @@ def _tree_meta(mjm: Any) -> dict:
 
 def _groups(fields: dict, name: str) -> tuple:
   """A tuple of dicts flattened as ``name.i.key`` (ContactMeta.dyngroups,
-  FlexMeta.strain): integer values become ints or int32 arrays, float
-  values floats or float64 arrays."""
+  FlexMeta.strain), a nested dict's values as ``name.i.key.sub``:
+  integer values become ints or int32 arrays, float values floats or
+  float64 arrays, strings str."""
 
   def value(v):
     v = np.asarray(v)
+    if v.dtype.kind == "U":
+      return str(v)
     integer = v.dtype.kind in "biu"
     if v.ndim == 0:
       return int(v) if integer else float(v)
@@ -1220,8 +1312,15 @@ def _groups(fields: dict, name: str) -> tuple:
   out = []
   while any(k.startswith(f"{name}.{len(out)}.") for k in fields):
     pre = f"{name}.{len(out)}."
-    out.append({k[len(pre):]: value(v) for k, v in fields.items()
-                if k.startswith(pre)})
+    item = {}
+    for k, v in fields.items():
+      if k.startswith(pre):
+        key, _, sub = k[len(pre):].partition(".")
+        if sub:
+          item.setdefault(key, {})[sub] = value(v)
+        else:
+          item[key] = value(v)
+    out.append(item)
   return tuple(out)
 
 
@@ -1255,6 +1354,9 @@ def _build(cls, fields: dict, prefix: str, device, dtype):
       kw[f.name] = _build(nested[f.type], fields, name + ".", device, dtype)
     elif f.type == "dict" and f.name == "vis_meta":
       kw[f.name] = _vis_meta(fields, name + ".")
+    elif f.name == "user_cb":
+      from mujoco_tpu_torch import plugin
+      kw[f.name] = plugin.resolve()
     elif f.type == "dict":
       pre = name + "."
       table = {}
@@ -1263,6 +1365,10 @@ def _build(cls, fields: dict, prefix: str, device, dtype):
           kind, obj = k[len(pre):].split(".", 1)
           table.setdefault(kind, {})[obj] = int(v)
       kw[f.name] = table
+    elif f.type == "tuple" and f.name == "sdfgroups":
+      # a primitive side's params are None, which has no flat form
+      kw[f.name] = tuple({"params1": None, "params2": None, **g}
+                         for g in _groups(fields, name))
     elif f.type == "tuple":
       kw[f.name] = _groups(fields, name)
     elif f.type.startswith("Tuple"):
@@ -1286,9 +1392,21 @@ def model_from_numpy(fields: dict, dtype: Optional[torch.dtype] = None,
                      device=None) -> Model:
   """The port's Model from flat numpy fields (``model_numpy``, a loaded
   snapshot, or ``flatten`` of a ``mujoco_tpu`` Model); fields the port
-  does not carry are ignored."""
+  does not carry are ignored. The callbacks are the ones registered now
+  (``plugin.resolve``); a USER actuator without its callback raises, as
+  the reference's put_model does (mujoco_tpu/models/io.py:1236-1246)."""
   dtype = dtype or torch.get_default_dtype()
-  return _build(Model, fields, "", default_device(device), dtype)
+  m = _build(Model, fields, "", default_device(device), dtype)
+  cb_dyn, cb_gain, cb_bias = m.user_cb[:3]
+  for i in range(m.nu):
+    if ((int(m.actuator_dyntype[i]) == DynType.USER and cb_dyn is None)
+        or (int(m.actuator_gaintype[i]) == GainType.USER and cb_gain is None)
+        or (int(m.actuator_biastype[i]) == BiasType.USER
+            and cb_bias is None)):
+      raise NotImplementedError(
+          f"actuator {i}: USER dyn/gain/bias requires "
+          "plugin.set_actuator_callbacks before the Model is built")
+  return m
 
 
 def put_model(mjm: Any, dtype: Optional[torch.dtype] = None,

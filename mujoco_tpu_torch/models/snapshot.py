@@ -1,10 +1,10 @@
 """Write the committed model snapshots (needs the pip ``mujoco``).
 
-    python -m mujoco_tpu_torch.models.snapshot
+    python -m mujoco_tpu_torch.models.snapshot [name ...]
 
-compiles each model of ``zoo.SNAPSHOTS`` and saves the port's ``put_model``
-fields in flat numpy form (``io.model_numpy``, f64) to
-``mujoco_tpu_torch/models/assets/<name>.npz``. ``humanoid`` and
+compiles each model of ``zoo.SNAPSHOTS`` (or the named ones) and saves
+the port's ``put_model`` fields in flat numpy form (``io.model_numpy``,
+f64) to ``mujoco_tpu_torch/models/assets/<name>.npz``. ``humanoid`` and
 ``quadruped`` come from ``mujoco_tpu/models/assets/*.xml``; the scenes from
 the copies below: ``mixed`` and ``spherebox`` of tests/test_megastep.py
 (``_MIXED_XML`` :35 and ``_SPHEREBOX_XML`` :115), and the constraint-class
@@ -22,7 +22,9 @@ test_flex_self.py and test_sleep.py, and ``humanoid_hammock``, the
 flagship lying in a pinned cloth; the render, skin, vis and USD scenes
 (``zoo.RENDER``) of tests/test_render.py, test_skin.py, test_vis.py and
 test_usd.py, and ``humanoid_pixels``, the flagship with dm_control's
-humanoid visuals. A snapshot records the flex slot
+humanoid visuals; the SDF scenes (``zoo.SDF``) of tests/test_sdf.py, and
+``sdf_nutbolt``, a nut threaded on a bolt (modelled on MuJoCo's
+model/plugin/sdf/nutbolt.xml). A snapshot records the flex slot
 budgets it was compiled at (``con.flex_budget``, the self and internal
 groups' sizes): ``flex_budgets`` sets each scene's (the defaults but for
 the small flex scenes) whatever the environment holds. Every scene is compiled with
@@ -2189,6 +2191,143 @@ class flex_budgets:
         os.environ[k] = v
 
 
+# SDF geoms (tests/test_sdf.py): MuJoCo's plugin shapes and a mesh-backed
+# SDF, one pair each of prim-vs-SDF, SDF-vs-SDF and plane-vs-SDF
+_TORUS_EXT = """
+  <extension>
+    <plugin plugin="mujoco.sdf.torus">
+      <instance name="torus">
+        <config key="radius1" value="0.35"/>
+        <config key="radius2" value="0.15"/>
+      </instance>
+    </plugin>
+  </extension>
+  <asset><mesh name="torus"><plugin instance="torus"/></mesh></asset>
+"""
+# a free nut threaded on the tip of a fixed bolt, turned by a torque about
+# its axis (a nut-tightening task, modelled on MuJoCo's
+# model/plugin/sdf/nutbolt.xml); the threads are in phase at z = 1.75,
+# where 1.75·12 is a whole number
+SDF_NUTBOLT_XML = """
+<mujoco model="sdf_nutbolt">
+  <extension>
+    <plugin plugin="mujoco.sdf.nut"><instance name="nut"><config key="radius" value="0.26"/></instance></plugin>
+    <plugin plugin="mujoco.sdf.bolt"><instance name="bolt"><config key="radius" value="0.255"/></instance></plugin>
+  </extension>
+  <asset>
+    <mesh name="nut"><plugin instance="nut"/></mesh>
+    <mesh name="bolt"><plugin instance="bolt"/></mesh>
+  </asset>
+  <option sdf_iterations="10" sdf_initpoints="40" iterations="4" ls_iterations="8"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <body pos="0 0 0.5" euler="180 0 0">
+      <geom type="sdf" mesh="bolt"><plugin instance="bolt"/></geom>
+    </body>
+    <body pos="0 0 1.75"><freejoint/>
+      <geom type="sdf" mesh="nut" mass="0.5"><plugin instance="nut"/></geom><site name="nut"/>
+    </body>
+  </worldbody>
+  <actuator><motor site="nut" gear="0 0 0 0 0 1" ctrlrange="-2 2"/></actuator>
+</mujoco>
+"""
+SPHERE_IN_TORUS_XML = f"""
+<mujoco>
+  {_TORUS_EXT}
+  <option sdf_iterations="10" sdf_initpoints="40"/>
+  <worldbody>
+    <body pos="0 0 0.5">
+      <geom type="sdf" mesh="torus" mass="0.5"><plugin instance="torus"/></geom>
+    </body>
+    <body pos="0.05 0.02 1.0"><freejoint/>
+      <geom type="sphere" size="0.25" mass="0.2"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+TORUS_ON_TORUS_XML = f"""
+<mujoco>
+  {_TORUS_EXT}
+  <option sdf_iterations="10" sdf_initpoints="20"/>
+  <worldbody>
+    <body pos="0 0 0.5" euler="90 0 0">
+      <geom type="sdf" mesh="torus" mass="0.5"><plugin instance="torus"/></geom>
+    </body>
+    <body pos="0.32 0 1.1"><freejoint/>
+      <geom type="sdf" mesh="torus" mass="0.5"><plugin instance="torus"/></geom>
+    </body>
+  </worldbody>
+</mujoco>"""
+CAPSULE_IN_BOWL_XML = """
+<mujoco>
+  <extension>
+    <plugin plugin="mujoco.sdf.bowl">
+      <instance name="bowl">
+        <config key="height" value="0.3"/>
+        <config key="radius" value="0.5"/>
+        <config key="thickness" value="0.03"/>
+      </instance>
+    </plugin>
+  </extension>
+  <asset><mesh name="bowl"><plugin instance="bowl"/></mesh></asset>
+  <option sdf_iterations="10" sdf_initpoints="20"/>
+  <worldbody>
+    <body pos="0 0 0.2">
+      <geom type="sdf" mesh="bowl" mass="0.5"><plugin instance="bowl"/></geom>
+    </body>
+    <body pos="0.05 0.02 0.8"><freejoint/>
+      <geom type="capsule" size="0.08" fromto="-0.1 0 0 0.1 0 0" mass="0.2"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+BOX_ON_NUT_XML = """
+<mujoco>
+  <extension>
+    <plugin plugin="mujoco.sdf.nut">
+      <instance name="nut"><config key="radius" value="0.26"/></instance>
+    </plugin>
+  </extension>
+  <asset><mesh name="nut"><plugin instance="nut"/></mesh></asset>
+  <option sdf_iterations="10" sdf_initpoints="20"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1" pos="0 0 -1"/>
+    <body pos="0 0 0">
+      <geom type="sdf" mesh="nut" mass="0.5"><plugin instance="nut"/></geom>
+    </body>
+    <body pos="0.0 0.1 0.6"><freejoint/>
+      <geom type="box" size="0.1 0.1 0.1" mass="0.2"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+TORUS_ON_PLANE_XML = f"""
+<mujoco>
+  {_TORUS_EXT}
+  <option sdf_iterations="10" sdf_initpoints="40"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <body pos="0 0 0.5"><freejoint/>
+      <geom type="sdf" mesh="torus" mass="0.5"><plugin instance="torus"/></geom>
+    </body>
+  </worldbody>
+</mujoco>"""
+SPHERE_ON_MESH_SDF_XML = """
+<mujoco>
+  <asset>
+    <mesh name="cube" vertex="-.3 -.3 -.3  .3 -.3 -.3  -.3 .3 -.3  .3 .3 -.3
+                              -.3 -.3 .3  .3 -.3 .3  -.3 .3 .3  .3 .3 .3"/>
+  </asset>
+  <worldbody>
+    <geom type="sdf" mesh="cube"/>
+    <body pos="0 0 1"><freejoint/><geom type="sphere" size=".1"/></body>
+  </worldbody>
+</mujoco>"""
+_SDF = {"sdf_nutbolt": SDF_NUTBOLT_XML,
+        "sphere_in_torus": SPHERE_IN_TORUS_XML,
+        "torus_on_torus": TORUS_ON_TORUS_XML,
+        "capsule_in_bowl": CAPSULE_IN_BOWL_XML, "box_on_nut": BOX_ON_NUT_XML,
+        "torus_on_plane": TORUS_ON_PLANE_XML,
+        "sphere_on_mesh_sdf": SPHERE_ON_MESH_SDF_XML}
+
+
 # the many-body scenes keep constraint islands enabled
 _MANY_BODY = {"multi_humanoid10": lambda: multi_humanoid_mj(10),
               "multi_humanoid10_sleep": lambda: multi_humanoid_mj(
@@ -2223,7 +2362,7 @@ _SCENES = {"mixed": MIXED_XML, "spherebox": SPHEREBOX_XML,
            "adhesion": ADHESION_XML % ("pyramidal", 3),
            "contact_sensor_suite": CONTACT_SENSOR_SUITE_XML,
            "tactile": TACTILE_XML, "geom_distance": GEOM_DISTANCE_XML,
-           "rangefinder": RANGEFINDER_XML}
+           "rangefinder": RANGEFINDER_XML, **_SDF}
 _FROM_FILE = {"humanoid_tendon": humanoid_tendon_xml,
               "dcmotor": dcmotor_xml, "dcmotor_delay": lambda: dcmotor_xml(
                   0.004),
@@ -2271,12 +2410,13 @@ def compile_numpy(name: str) -> dict:
     return io.model_numpy(compile_mj(name))
 
 
-def main() -> None:
-  for name in zoo.SNAPSHOTS:
+def main(names=()) -> None:
+  for name in names or zoo.SNAPSHOTS:
     path = zoo.snapshot_path(name)
     np.savez_compressed(path, **compile_numpy(name))
     print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
 
 if __name__ == "__main__":
-  main()
+  import sys
+  main(sys.argv[1:])

@@ -348,6 +348,16 @@ class ContactMeta:
   selfgroups: tuple = static_field()
   intgroups: tuple = static_field()
   evgroups: tuple = static_field()
+  # SDF narrowphase groups (mujoco_tpu/models/types.py:370-374), one per
+  # pair with an SDF side, after the other geom pairs' slots in the
+  # reference's order: n = opt.sdf_initpoints descent starts, one slot
+  # each. kind is an int GeomType for a primitive (its size is the
+  # geom's geom_size), a plugin name (params its attribute vector) or
+  # sdf.MESH_GRID (params a dict of grid, lower, spacing); aabb the
+  # geom's local bounding box (center, half sizes). Dicts {g1, g2, adr, n,
+  # iterations, kind1, kind2, params1, params2, aabb1, aabb2}, params None
+  # for a primitive
+  sdfgroups: tuple = static_field()
 
 
 @dataclass
@@ -823,6 +833,10 @@ class Model:
   # read (mujoco_tpu/models/io.py:84 ``_vis_meta_of``): floats, the
   # headlight's on/off an int, colors tuples
   vis_meta: dict = static_field()
+  # the mjcb_* callbacks (mujoco_tpu/models/types.py:738-741), read from
+  # ``plugin.resolve()`` when the Model is built: (act_dyn, act_gain,
+  # act_bias, sensor, passive), None where unset; never saved
+  user_cb: tuple = static_field()
 
   def disabled(self, bit: DisableBit) -> bool:
     return bool(self.opt.disableflags & bit)

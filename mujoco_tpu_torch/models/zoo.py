@@ -40,7 +40,10 @@ first. ``RENDER`` are the reference's render, skin, vis and USD scenes;
 ``humanoid_pixels`` is the flagship with dm_control's humanoid visuals
 (a headlight, a gradient skybox, a checker floor, a body material, a
 light and the ``back`` and ``side`` cameras tracking the center of mass),
-the pixel-RL scene.
+the pixel-RL scene. ``SDF`` are the scenes of SDF geoms (MuJoCo's plugin
+shapes and a mesh-backed SDF), ``sdf_nutbolt`` (a free nut threaded on a
+fixed bolt, turned by a torque about its axis) first; ``SDF_START`` puts
+each scene's free body where its contacts act from the first step.
 """
 
 from __future__ import annotations
@@ -144,11 +147,25 @@ RENDER = ("render_primitives", "render_lit", "render_lit_rgba",
           "render_lit_directional", "render_lit_spot", "render_lit_oblique",
           "render_lit_side", "render_hfield_mesh", "render_ortho", "skin",
           "skin_flex", "vis_box", "usd_scene", "usd_flex_skin")
+# SDF geoms: the nut threaded on a bolt (the slice's full-width model),
+# then the reference's SDF scenes (tests/test_sdf.py): a sphere in a
+# torus, a torus dropped on a torus, a capsule in a bowl, a box on a nut,
+# a torus on a plane and a sphere on a mesh-backed SDF cube
+SDF = ("sdf_nutbolt", "sphere_in_torus", "torus_on_torus", "capsule_in_bowl",
+       "box_on_nut", "torus_on_plane", "sphere_on_mesh_sdf")
+# scene → {qpos index: value}: the free body placed where its SDF contacts
+# act from the first step (the scenes' own starts are above their contact,
+# the box's over the nut's hole, which it falls through); sdf_nutbolt's
+# nut starts threaded and torus_on_torus's tori overlapping
+SDF_START = {"sdf_nutbolt": {}, "sphere_in_torus": {2: 0.755},
+             "torus_on_torus": {}, "capsule_in_bowl": {2: -0.17},
+             "box_on_nut": {1: 0.35, 2: 0.096}, "torus_on_plane": {2: 0.1425},
+             "sphere_on_mesh_sdf": {2: 0.3925}}
 SNAPSHOTS = (("humanoid", "quadruped", "mixed", "spherebox") + GENERAL
              + TENDON + ("humanoid_tendon",)
              + tuple(sorted({s for s, _ in OPTIONS.values()}))
              + ("humanoid_elliptic",) + MANY_BODY + CONVEX + SENSORS
-             + ACTUATION + FLEX + RENDER + ("humanoid_pixels",))
+             + ACTUATION + FLEX + RENDER + ("humanoid_pixels",) + SDF)
 # the SO3 scenes of tests/test_so3.py and tests/test_actuator.py's PID,
 # which the pip compiler predates
 ACTUATION_CARRIED = ("so3_refsite", "so3_ball", "so3_integrator", "pid")

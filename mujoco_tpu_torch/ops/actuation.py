@@ -6,10 +6,12 @@ forces :301-430, and ``_actgravcomp_dof_mask`` :432; ``next_activation``
 of mujoco_tpu/ops/forward.py:266 lives here beside the dynamics it
 integrates).
 
-Covers every dyn, gain and bias type but USER: dyn NONE, INTEGRATOR,
-FILTER, FILTEREXACT, MUSCLE, DCMOTOR and PID, gains FIXED, AFFINE,
-MUSCLE, DCMOTOR, PID and SO3, biases NONE, AFFINE, MUSCLE, DCMOTOR and
-SO3; delayed controls read from the history buffers, ctrl clamping per
+Covers every dyn, gain and bias type: dyn NONE, INTEGRATOR, FILTER,
+FILTEREXACT, MUSCLE, DCMOTOR, PID and USER, gains FIXED, AFFINE, MUSCLE,
+DCMOTOR, PID, SO3 and USER, biases NONE, AFFINE, MUSCLE, DCMOTOR, SO3 and
+USER (the registered callbacks of ``Model.user_cb``, one call per such
+actuator: mujoco_tpu/ops/actuation.py:218-219, 327-328, 371-372);
+delayed controls read from the history buffers, ctrl clamping per
 control, the bad-ctrl guard, actuator-group disabling, ``actearly`` (the
 force reads the next step's activation), the setpoint wrap of rotational
 servos and PIDs, force limits (an SO3 torque's norm), the DC motor's
@@ -95,6 +97,20 @@ def _make_tables(m: Model) -> dict:
                                      np.ones(m.nu, np.int64), delayed),
            "so3": np.nonzero(gain == GainType.SO3)[0],
            "scalar": np.nonzero(gain != GainType.SO3)[0]}
+
+
+def _user(m: Model, d: Data, cb, table, usertype, like):
+  """like (1 or B, nu) with the columns of the actuators whose ``table``
+  type is USER set to their callback's value, cb(m, d, i) (B,) for
+  actuator i; like as it is where there are none."""
+  ids = np.nonzero(np.asarray(table) == usertype)[0]
+  if not len(ids):
+    return like
+  like = like.expand(d.qpos.shape[0], -1)
+  vals = [torch.as_tensor(cb(m, d, int(i)), dtype=like.dtype,
+                          device=like.device).expand(like.shape[0])
+          for i in ids]
+  return like.index_copy(1, index(ids, m.device), torch.stack(vals, 1))
 
 
 def _is(m: Model, table, *types) -> torch.Tensor:
@@ -277,7 +293,7 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
     if np.any(dyn == DynType.MUSCLE):
       last = torch.where(_is(m, dyn, DynType.MUSCLE),
                          muscle.dynamics(ci, a_last, dp), last)
-    cols[-1] = last
+    cols[-1] = _user(m, d, m.user_cb[0], dyn, DynType.USER, last)
   # one gather of each slot's value: the roles' (B, nu) tables side by
   # side, then ctrl for the SO3 integrators' slots, then a zero for a slot
   # no dynamics writes
@@ -509,6 +525,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   pid = gt == GainType.PID
   if pid.any():
     gain = torch.where(const(pid, dev), 0.0, gain)
+  gain = _user(m, d, m.user_cb[1], gt, GainType.USER, gain)
   force = gain * actuator_input(m, d, ci, adot)
   if pid.any():
     qref = wrap_setpoint(m, ci, length)
@@ -527,6 +544,9 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     c = index(cols, dev)
     force = force.index_copy(1, c, force[:, c] + muscle.bias(
         length[:, c], m.actuator_lengthrange[c], m.actuator_acc0[c], b[:, c]))
+  if np.any(bt == BiasType.USER):
+    force = force + _user(m, d, m.user_cb[2], bt, BiasType.USER,
+                          torch.zeros_like(force))
   backemf = (bt == BiasType.DCMOTOR) & (slots[:, _CUR] < 0)
   if backemf.any():
     force = torch.where(const(backemf, dev),

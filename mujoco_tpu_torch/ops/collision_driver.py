@@ -18,10 +18,11 @@ their geom ids go to ``Contact.geomids`` and the candidates that overlap
 beyond the budget to ``Data.warning``. The flex slots (the flex branches
 :64-141, :211, :238-250) are ``collision_flex``'s, their contacting
 vertices ``Contact.flexvert``/``flexvert1``; a flex side's contact
-parameters are its flex's. Contact parameters combine as
-mj_contactParam does: priority override, solmix-weighted solref/solimp,
-elementwise-max friction, summed margins; an explicit <pair>'s slots take
-the pair's own.
+parameters are its flex's. The slots of a pair with an SDF side are
+``collision_sdf``'s (:215-216, :251-253), filled after the flex slots.
+Contact parameters combine as mj_contactParam does: priority override,
+solmix-weighted solref/solimp, elementwise-max friction, summed margins;
+an explicit <pair>'s slots take the pair's own.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from mujoco_tpu_torch.models.types import (Contact, Data, DisableBit,
                                            GeomType, Model)
 from mujoco_tpu_torch.ops import collision_box, collision_convex, collision_flex
-from mujoco_tpu_torch.ops import collision_hfield, collision_mesh
+from mujoco_tpu_torch.ops import collision_hfield, collision_mesh, collision_sdf
 from mujoco_tpu_torch.ops import collision_primitive as cp
 from mujoco_tpu_torch.utils import math as mjm
 from mujoco_tpu_torch.utils.device import const, index
@@ -236,8 +237,9 @@ def collision(m: Model, d: Data) -> Data:
   frame = torch.eye(3, dtype=dtype, device=dev).repeat(nbatch, ncon, 1, 1)
 
   groups = {}
-  # the flex slots are collision_flex's
-  for c in np.nonzero(m.con.con_first & (m.con.flex2 < 0))[0]:
+  # the flex slots are collision_flex's, the SDF slots collision_sdf's
+  for c in np.nonzero(m.con.con_first & (m.con.flex2 < 0)
+                      & (m.con.pair_type[:, 1] != GeomType.SDF))[0]:
     groups.setdefault(_signature(m, c), []).append(c)
   for key, first in groups.items():
     fn, k = _collider_for(m, *key)
@@ -262,6 +264,8 @@ def collision(m: Model, d: Data) -> Data:
   if m.con.selfgroups or m.con.intgroups or m.con.evgroups:
     flex_out = collision_flex.flex_flex_collision(m, d, flex_out)
   dist, pos, frame, flexvert, flexvert1, ncon_dropped = flex_out
+  if m.con.sdfgroups:
+    dist, pos, frame = collision_sdf.sdf_collision(m, d, dist, pos, frame)
 
   # static slots' parameters broadcast over envs; a dynamic group's slots
   # (last in the table) take their env's selected pairs

@@ -129,12 +129,11 @@ def enabled() -> bool:
 def supported(m: Model) -> bool:
   """Whether the kernel runs m: the reference's model class
   (mujoco_tpu/ops/megastep_tpu.py:92-178), at any nv (the route follows
-  the size, ``route``); a flex or a flex slot keeps a model off it. Fields
-  the port's Model lacks (SDF groups) belong to models ``io.put_model``
-  refuses. Unlike the reference, a missing field raises instead of
-  answering False. The answer is computed once per Model and kept in the
-  tables' cache entry, so a later call reads nothing back from the
-  card."""
+  the size, ``route``); a flex or a flex slot, an SDF group and a
+  registered passive callback keep a model off it. Unlike the reference,
+  a missing field raises instead of answering False. The answer is
+  computed once per Model and kept in the tables' cache entry, so a
+  later call reads nothing back from the card."""
   entry = _entry(m)
   if "supported" not in entry:
     entry["supported"] = _supported(m)
@@ -181,8 +180,13 @@ def _supported(m: Model) -> bool:
     return False
   # the reference leaves models its stage path would island-decompose on
   # that path (megastep_tpu.py:118-120), and models with dynamic pair
-  # groups (:143-145); sleep is refused with every enable flag above
-  if island.use_islands(m) or m.con.dyngroups:
+  # groups or SDF groups (:143-145); sleep is refused with every enable
+  # flag above
+  if island.use_islands(m) or m.con.dyngroups or m.con.sdfgroups:
+    return False
+  # a registered passive callback: the kernel computes no qfrc_passive of
+  # it (the reference's gate does not test for one; ROADMAP §C)
+  if m.user_cb[4] is not None:
     return False
   jt = np.asarray(m.jnt_type)
   if not np.all(np.isin(jt, [JointType.FREE, JointType.HINGE,
@@ -219,8 +223,7 @@ def _supported(m: Model) -> bool:
   if np.any(np.asarray(m.jnt_actfrclimited)):
     return False
   # tendons and mocap bodies (megastep_tpu.py:111-112), and limit rows of
-  # anything but a hinge or slide joint (:137-140); SDF groups are refused
-  # by io.put_model before a Model exists
+  # anything but a hinge or slide joint (:137-140)
   if m.ntendon or m.nmocap:
     return False
   if np.any(np.asarray(m.efc.limit_jnt) < 0):

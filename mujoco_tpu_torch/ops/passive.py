@@ -6,8 +6,8 @@ Port of mujoco_tpu/ops/passive.py:19-143 (``_joint_springs`` and
 :105-119, and the gravity compensation of joints that route it through
 their actuators :129-135), ``_fluid`` :146 (the inertia-box model, with
 wind), ``_semi_axes`` :210 and ``_ellipsoid_fluid_body`` :224, with the
-flex edge, element and interpolated forces of ``ops/flex.py`` (:80-104).
-Springs are
+flex edge, element and interpolated forces of ``ops/flex.py`` (:80-104),
+and the registered passive callback (:138-140, ``plugin``). Springs are
 manifold-aware (quaternion log for ball/free rotations). The ellipsoid
 fluid model is one expression over every geom that carries fluid
 coefficients, the inertia-box model one over the other bodies. With
@@ -127,10 +127,13 @@ def passive(m: Model, d: Data) -> Data:
     from mujoco_tpu_torch.ops import actuation
     gravcomp = torch.where(const(actuation.actgravcomp_dof_mask(m),
                                  m.device), 0.0, qfrc_gravcomp)
+  qfrc_passive = qfrc_spring + qfrc_damper + gravcomp + qfrc_fluid
+  if m.user_cb[4] is not None:
+    # the registered passive callback (mjcb_passive)
+    qfrc_passive = qfrc_passive + m.user_cb[4](m, d)
   return d.replace(qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
                    qfrc_gravcomp=qfrc_gravcomp, qfrc_fluid=qfrc_fluid,
-                   qfrc_passive=(qfrc_spring + qfrc_damper + gravcomp
-                                 + qfrc_fluid))
+                   qfrc_passive=qfrc_passive)
 
 
 def _fluid_geoms(m: Model) -> np.ndarray:

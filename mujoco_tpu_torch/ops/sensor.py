@@ -19,8 +19,12 @@ write of all its values into sensordata through a static index table. A
 stage's launches therefore grow with its number of groups, not of
 sensors.
 
-Every sensor type the reference computes is here but plugins and user
-sensors, which ``io.put_model`` refuses. The rangefinders of a group are
+Every sensor type the reference computes is here; plugin sensors, which
+the reference's stages refuse, ``io.put_model`` refuses. A user sensor's
+value is the registered callback's (``Model.user_cb``, one call per
+sensor; :757-763, :830-836, :907-913), and, as the stage writes its
+sensors together, the callback reads the stage's sensordata as it was
+before the stage. The rangefinders of a group are
 one ``ray.ray`` over the scene; the geom-distance sensors' geom pairs are
 one collider call per pair type; the contact sensors of a group (one
 match, reduction and data layout) are one match over (B, k, ncon) and one
@@ -409,6 +413,8 @@ def _stage_plan(m: Model, sids: np.ndarray) -> dict:
       site = (int(m.site_type[m.sensor_objid[i]])
               if int(m.sensor_objtype[i]) == ObjType.SITE else -1)
       sub = tuple(int(x) for x in m.sensor_intprm[i]) + (site,)
+    elif t == ST.USER:
+      sub = int(m.sensor_dim[i])
     elif t == ST.TACTILE:
       mesh = int(m.sensor_objid[i])
       vnum = int(m.mesh_vertnum[mesh])
@@ -973,6 +979,15 @@ def _value(m: Model, d: Data, g, cf=None):
     return torch.where((nrm > mjm.MINVAL)[..., None], n / nrm[..., None],
                        0.0)
   k = len(objid)
+  if t == ST.USER:
+    cb = m.user_cb[3]
+    if cb is None:
+      raise NotImplementedError(
+          "USER sensor requires plugin.set_sensor_callback")
+    nbatch = d.qpos.shape[0]
+    return torch.stack([torch.as_tensor(
+        cb(m, d, int(i)), dtype=d.qpos.dtype, device=d.qpos.device).expand(
+            nbatch, g["dim"]) for i in g["sensors"]], 1)
   if t == ST.E_POTENTIAL:
     return d.energy[:, :1].expand(-1, k)
   if t == ST.E_KINETIC:

@@ -288,11 +288,14 @@ def test_megastep_gate_refuses_as_reference(scenes, name):
 
 
 _OUT_OF_SLICE = {
+    # SDF geoms load since the SDF slice; a mesh against one does not, as
+    # the reference refuses it
     "sdf": """<mujoco><extension><plugin plugin="mujoco.sdf.torus">
       <instance name="torus"><config key="radius1" value="0.35"/>
       <config key="radius2" value="0.15"/></instance></plugin></extension>
-      <asset><mesh name="torus"><plugin instance="torus"/></mesh></asset>
-      <worldbody><geom type="plane" size="1 1 1"/><body pos="0 0 1">
+      <asset><mesh name="torus"><plugin instance="torus"/></mesh>
+      <mesh name="c" vertex="0 0 0 1 0 0 0 1 0 0 0 1"/></asset>
+      <worldbody><geom type="mesh" mesh="c"/><body pos="0 0 1">
       <freejoint/><geom type="sdf" mesh="torus"><plugin instance="torus"/>
       </geom></body></worldbody></mujoco>""",
     # a flex loads since the flex slice; its vertex equality does not

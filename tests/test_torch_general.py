@@ -403,10 +403,16 @@ _STILL_RAISE = {
     "flex": """<mujoco><worldbody><flexcomp name="f" type="grid"
       count="2 2 1" spacing=".1 .1 .1" pos="0 0 .3" dim="2">
       <edge equality="vert"/></flexcomp></worldbody></mujoco>""",
-    # user sensors and actuator callbacks wait for plugin.py (A14)
-    "sensor USER": """<mujoco><worldbody><body><joint type="slide"/>
-      <geom size="0.1"/></body></worldbody><sensor><user dim="1"
-      needstage="pos"/></sensor></mujoco>""",
+    # a plugin sensor, which the reference's sensor stages refuse
+    "sensor PLUGIN": """<mujoco><extension><plugin
+      plugin="mujoco.sensor.touch_grid"/></extension><worldbody><body>
+      <joint type="slide"/><geom size="0.1"/><site name="s"/></body>
+      </worldbody><sensor><plugin name="t" plugin="mujoco.sensor.touch_grid"
+      objtype="site" objname="s"><config key="size" value="3 3"/><config
+      key="fov" value="45 45"/><config key="gamma" value="0"/><config
+      key="nchannel" value="1"/></plugin></sensor></mujoco>""",
+    # a USER actuator without its callback (plugin.set_actuator_callbacks),
+    # as the reference's put_model refuses it
     "USER dyn": """<mujoco><worldbody><body>
       <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
       </worldbody><actuator><general joint="a" dyntype="user"/>
@@ -468,6 +474,11 @@ _WIDENED = {
       <joint name="a" type="hinge"/><geom size="0.1" contype="0"/></body>
       </worldbody><actuator><dcmotor joint="a" motorconst="0.05"
       resistance="2"/></actuator></mujoco>""",
+    # a user sensor loads since the SDF and plugin slice (its stage calls
+    # the registered sensor callback)
+    "sensor USER": """<mujoco><worldbody><body><joint type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor><user dim="1"
+      needstage="pos"/></sensor></mujoco>""",
 }
 # what each many-body case holds once loaded: (dynamic groups, trees,
 # sleep enabled)

@@ -7,10 +7,11 @@ equal a fresh compile, and ``multi_humanoid3`` and the SO3 and PID
 scenes (``zoo.ACTUATION_CARRIED``) a fresh carry-across of the reference's
 Models (``python tests/test_torch_model.py`` writes them);
 a mujoco_tpu Model carried across with model_from_numpy equals the port's
-own put_model; models outside the slice raise NotImplementedError, and the
+own put_model (its SDF groups too: plugin names, params, boxes and mesh
+grids); models outside the slice raise NotImplementedError, and the
 models of features ported since (plane-box, box-box, eulerdamp, CG,
 tendons, the elliptic cone, RK4, implicitfast, the adhesion transmission,
-the geom-distance sensors) load.
+the geom-distance sensors, user sensors, SDF geoms) load.
 """
 
 import mujoco
@@ -122,7 +123,8 @@ def assert_fields_match(port: dict, ref: dict, prefix=""):
 
 
 @pytest.fixture(scope="module", params=["humanoid", "pendulum",
-                                        "tendon_rows", "mocap_weld"])
+                                        "tendon_rows", "mocap_weld",
+                                        "sdf_nutbolt", "sphere_on_mesh_sdf"])
 def models(request):
   mjm = _mjmodel(request.param)
   return (request.param, mjm, jio.put_model(mjm),
@@ -247,14 +249,24 @@ def test_many_body_snapshots_load(monkeypatch):
 
 
 _OUT_OF_SLICE = {
-    # plugin and user sensors wait for plugin.py (every other sensor loads
-    # since the slice of the rest of the actuators and sensors)
-    "user_sensor": """<mujoco><worldbody><body><joint type="slide"/>
-      <geom size="0.1"/></body></worldbody><sensor><user dim="2"
-      needstage="vel"/></sensor></mujoco>""",
+    # a USER actuator without its callback (plugin.set_actuator_callbacks),
+    # as the reference's put_model refuses it
     "user_gain": """<mujoco><worldbody><body><joint name="a"/>
       <geom size="0.1" contype="0"/></body></worldbody><actuator>
       <general joint="a" gaintype="user"/></actuator></mujoco>""",
+    # a plugin sensor, which the reference's sensor stages refuse
+    "plugin_sensor": """<mujoco><extension><plugin
+      plugin="mujoco.sensor.touch_grid"/></extension><worldbody><body>
+      <joint type="slide"/><geom size="0.1"/><site name="s"/></body>
+      </worldbody><sensor><plugin name="t" plugin="mujoco.sensor.touch_grid"
+      objtype="site" objname="s"><config key="size" value="3 3"/><config
+      key="fov" value="45 45"/><config key="gamma" value="0"/><config
+      key="nchannel" value="1"/></plugin></sensor></mujoco>""",
+    # a mesh against an SDF geom, which the reference refuses
+    "mesh_vs_sdf": """<mujoco><asset><mesh name="c" vertex="0 0 0 1 0 0
+      0 1 0 0 0 1"/></asset><worldbody><geom type="sdf" mesh="c"/><body
+      pos="0 0 2"><freejoint/><geom type="mesh" mesh="c"/></body>
+      </worldbody></mujoco>""",
     # a box against a flex under a vertex equality (box-box contact loads
     # since the collision breadth slice, a flex since the flex slice; its
     # FLEXVERT equality does not)
@@ -267,6 +279,25 @@ _OUT_OF_SLICE = {
 
 # models that raised before the slices that widened what the port runs
 _WIDENED = {
+    # a user sensor loads (its stage calls plugin.set_sensor_callback's)
+    "user_sensor": """<mujoco><worldbody><body><joint type="slide"/>
+      <geom size="0.1"/></body></worldbody><sensor><user dim="2"
+      needstage="vel"/></sensor></mujoco>""",
+    # a gear (the one plugin shape no zoo.SDF scene has) on a plane: 20
+    # slots, its attributes read from the plugin's configuration
+    "sdf_gear": """<mujoco><extension><plugin plugin="mujoco.sdf.gear">
+      <instance name="g"><config key="diameter" value="1.2"/><config
+      key="teeth" value="12"/></instance></plugin></extension><asset>
+      <mesh name="g"><plugin instance="g"/></mesh></asset><option
+      sdf_initpoints="20"/><worldbody><geom type="plane" size="3 3 .1"/>
+      <body pos="0 0 0.5"><freejoint/><geom type="sdf" mesh="g"><plugin
+      instance="g"/></geom></body></worldbody></mujoco>""",
+    # a sphere over a mesh-backed SDF geom: sdf_initpoints (40) slots
+    "sdf_mesh": """<mujoco><asset><mesh name="c" vertex="-.3 -.3 -.3
+      .3 -.3 -.3 -.3 .3 -.3 .3 .3 -.3 -.3 -.3 .3 .3 -.3 .3 -.3 .3 .3
+      .3 .3 .3"/></asset><worldbody><geom type="sdf" mesh="c"/><body
+      pos="0 0 1"><freejoint/><geom size=".1"/></body></worldbody>
+      </mujoco>""",
     "body_transmission": """<mujoco><worldbody><body name="b"><freejoint/>
       <geom size="0.1"/></body></worldbody><actuator>
       <adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
@@ -323,7 +354,11 @@ def test_widened_slice_loads(name):
   mjm = mujoco.MjModel.from_xml_string(_WIDENED[name])
   m = tio.put_model(mjm, dtype=torch.float64, device="cpu")
   assert m.con.ncon == {"plane_box": 4, "elliptic": 1, "box_box": 8,
-                        "flex_box_contact": m.con.flex_budget}.get(name, 0)
+                        "flex_box_contact": m.con.flex_budget,
+                        "sdf_mesh": 40, "sdf_gear": 20}.get(name, 0)
+  if name == "sdf_gear":
+    np.testing.assert_array_equal(m.con.sdfgroups[0]["params2"],
+                                  [0.0, 1.2, 12.0, 0.2, -1.0])
   assert m.has_dof_damping == (name in ("eulerdamp",
                                         "implicitfast_damping"))
   assert (m.opt.cone, m.opt.integrator) == (int(mjm.opt.cone),
