@@ -384,6 +384,24 @@ Phases, each of which passes or ends the script with a nonzero exit:
    its bits); the USER gain, bias, sensor and passive callbacks of
    tests/test_plugin.py as torch functions on ``sensor_suite``
    (``callback_model``), 20 steps at f64, B 64, card = CPU.
+31. the MJCF compiler (``mujoco_tpu_torch.compiler``) under an import
+   guard that makes ``import mujoco`` raise: the port's
+   ``models/assets/humanoid.xml`` compiled with set_const on the card at
+   f64 and again on the CPU, every CompiledModel field equal (integers
+   exactly, floats within 1e-12 relative), each compile's seconds printed
+   beside the card's name and power limit; its Model at f64 against the
+   committed ``humanoid.npz`` within 1e-8 but the differences the native
+   build records (unnamed actuators named, ``vis_meta`` colours within
+   2.4e-8, ``opt.sleep_tolerance`` 0 against 1e-4), each difference
+   listed; the compiled model at f32 through ``make_batch`` (B 3072, the
+   main path's start) and ``scan_steps(m, d, 200, d_fresh, check=True)``:
+   finite, exactly one megastep launch and no LDL or Newton launch, qpos
+   and qvel against the same run from the snapshot's Model by phase 6's
+   f32 rule (``check_f32``); ``snapshot.MUSCLE_XML`` compiled on the card
+   and on the CPU: its length ranges (the batch of 2·nu envs × 1,000 steps
+   of ``setconst.length_range_step``, at least two LDL launches a step)
+   within 1e-9 of each other and of the committed ``muscle.npz``, with the
+   batch's width, its seconds and its LDL and Newton launches per step.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
@@ -391,7 +409,8 @@ kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
 and 13 to 29 (phase 26's ``discrete_acc``, ``transition`` and
 ``randomized``; phase 27's ``humanoid_hammock``; the megastep's phase
 28 ``humanoid_pixels`` and phase 29's ``multi_humanoid3`` and
-``multi_humanoid10_monolithic``; phase 30's ``sdf_nutbolt``); the
+``multi_humanoid10_monolithic``; phase 30's ``sdf_nutbolt``; phase 31's
+``compiled_humanoid`` and ``compiler_lengthrange``); the
 megastep's ``wide`` entry holds phase
 29's times per scene; the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
@@ -409,6 +428,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2297,7 +2317,8 @@ def phase_option_scenes(report, details):
 # the numbers this docstring gives main()'s phases, in their order
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                 "22", "23", "24", "25", "26", "27", "28", "29", "30")
+                 "22", "23", "24", "25", "26", "27", "28", "29", "30",
+                 "31")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -5183,6 +5204,288 @@ def phase_sdf(report, details):
     report[k].setdefault("launches_by_path", {})[name] = run["launches"][k]
 
 
+# ---- the MJCF compiler: phase 31
+
+class no_pip_mujoco:
+  """``import mujoco`` raises ImportError inside the block (a None entry
+  in sys.modules); the entry as it was comes back afterwards."""
+
+  def __enter__(self):
+    self.old = sys.modules.get("mujoco", False)
+    sys.modules["mujoco"] = None
+
+  def __exit__(self, *exc):
+    if self.old is False:
+      sys.modules.pop("mujoco", None)
+    else:
+      sys.modules["mujoco"] = self.old
+
+
+def compiled_models_equal(card, cpu, where="") -> float:
+  """Every field of two CompiledModels: integers, bools, strings and the
+  name tables exactly, floats within 1e-12 of max(1, |CPU|); fails
+  otherwise. Returns the largest relative float difference."""
+  from types import SimpleNamespace
+  if sorted(vars(card)) != sorted(vars(cpu)):
+    raise AssertionError(f"compiled fields differ{where}: "
+                         f"{sorted(set(vars(card)) ^ set(vars(cpu)))}")
+  worst = 0.0
+  for k in sorted(vars(cpu)):
+    a, b = getattr(card, k), getattr(cpu, k)
+    if isinstance(b, SimpleNamespace):
+      worst = max(worst, compiled_models_equal(a, b, f" {k}."))
+      continue
+    if not isinstance(b, np.ndarray) or b.dtype.kind != "f":
+      same = (np.array_equal(a, b) if isinstance(b, np.ndarray)
+              else a == b)
+      if not same:
+        raise AssertionError(f"compiled field{where}{k}: card {a!r} != "
+                             f"CPU {b!r}")
+      continue
+    if a.shape != b.shape or a.dtype != b.dtype:
+      raise AssertionError(f"compiled field{where}{k}: shape or dtype")
+    if b.size:
+      err = float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+      if not err <= 1e-12:
+        raise AssertionError(f"compiled field{where}{k}: card against CPU "
+                             f"{err:.3e} > 1e-12")
+      worst = max(worst, err)
+  return worst
+
+
+# the differences of the port's compile of humanoid.xml from the snapshot
+# the pip mujoco wrote (CHANGES.md, the native build), field → largest
+# |compile − snapshot|; every other field within 1e-8
+SNAPSHOT_ALLOWED = {"opt.sleep_tolerance": 1e-4}
+SNAPSHOT_VIS_COLOURS = 2.4e-8
+
+
+def snapshot_differences(fields: dict, snap: dict) -> list:
+  """The port's Model fields of the compiled humanoid against the
+  committed snapshot's: fails on any difference but the allowed ones
+  (unnamed actuators named, vis_meta within SNAPSHOT_VIS_COLOURS,
+  SNAPSHOT_ALLOWED); returns every difference found, the allowed ones
+  and those within 1e-8, as (field, largest |a − b|)."""
+  extra = sorted(set(fields) - set(snap))
+  if set(snap) - set(fields) or any(
+      not re.fullmatch(r"names\.actuator\.actuator\d+", k) for k in extra):
+    raise AssertionError(f"compiled humanoid fields against the snapshot: "
+                         f"only compiled {extra}, only snapshot "
+                         f"{sorted(set(snap) - set(fields))}")
+  found = [(f"{len(extra)} unnamed actuators named (names.actuator."
+            f"actuator0..{len(extra) - 1})", 0.0)] if extra else []
+  for k in sorted(snap):
+    a, b = np.asarray(fields[k]), np.asarray(snap[k])
+    if a.shape != b.shape:
+      raise AssertionError(f"compiled humanoid {k}: shape {a.shape} "
+                           f"against the snapshot's {b.shape}")
+    if a.dtype.kind != "f" or b.dtype.kind != "f":
+      if not np.array_equal(a, b):
+        raise AssertionError(f"compiled humanoid {k} differs from the "
+                             f"snapshot")
+      continue
+    err = float(np.max(np.abs(a - b))) if a.size else 0.0
+    if err == 0.0:
+      continue
+    found.append((k, err))
+    limit = SNAPSHOT_ALLOWED.get(
+        k, SNAPSHOT_VIS_COLOURS if k.startswith("vis_meta.") else 1e-8)
+    if not err <= limit:
+      raise AssertionError(f"compiled humanoid {k}: {err:.3e} from the "
+                           f"snapshot, limit {limit:g}")
+  return found
+
+
+# the CPU side of phase 31, run in a process of its own beside the card's
+# compiles (each host-bound on one core): the same two compiles with
+# set_const on the CPU, saved with the port's serialize, with their seconds
+COMPILE_ON_CPU = """
+import json, os, sys, time
+sys.modules["mujoco"] = None
+import torch
+torch.set_num_threads(1)
+from mujoco_tpu_torch import compiler
+from mujoco_tpu_torch.compiler import setconst
+from mujoco_tpu_torch.models import snapshot, zoo
+out = sys.argv[1]
+lr_s = []
+batch = setconst.length_ranges
+def timed(*args):
+  t = time.perf_counter()
+  r = batch(*args)
+  lr_s.append(time.perf_counter() - t)
+  return r
+setconst.length_ranges = timed
+t0 = time.perf_counter()
+cm = compiler.load_xml_path(os.path.join(zoo.XML_DIR, "humanoid.xml"),
+                            device="cpu")
+humanoid_s = time.perf_counter() - t0
+compiler.save_model(cm, os.path.join(out, "humanoid.npz"))
+t0 = time.perf_counter()
+cm = compiler.load_xml(snapshot.MUSCLE_XML, device="cpu")
+muscle_s = time.perf_counter() - t0
+compiler.save_model(cm, os.path.join(out, "muscle.npz"))
+with open(os.path.join(out, "seconds.json"), "w") as f:
+  json.dump({"humanoid": humanoid_s, "muscle": muscle_s,
+             "lengthrange": lr_s[0]}, f)
+"""
+
+
+def phase_compiler(report, details):
+  """31: the MJCF compiler with no pip mujoco importable: humanoid.xml
+  compiled with set_const on the card and on the CPU (equal), against the
+  committed snapshot (1e-8 but the allowed differences), put on the card
+  at f32 and run 200 steps at B 3072 in one megastep launch against the
+  snapshot's run (check_f32); the muscle scene's length ranges (the LDL
+  kernel's batch) on the card against the CPU and the snapshot (1e-9).
+  The CPU compiles run in a process of their own, under the same guard,
+  beside the card's."""
+  import tempfile
+  from mujoco_tpu_torch import compiler
+  from mujoco_tpu_torch.compiler import setconst
+  from mujoco_tpu_torch.models import io, snapshot, zoo
+  from mujoco_tpu_torch.parallel import rollout
+  card = card_line()
+  path = os.path.join(zoo.XML_DIR, "humanoid.xml")
+  tmp = tempfile.TemporaryDirectory()
+  env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+      [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+  cpu_side = subprocess.Popen([sys.executable, "-c", COMPILE_ON_CPU,
+                               tmp.name], env=env, cwd=ROOT)
+  try:
+    with no_pip_mujoco():
+      try:
+        import mujoco  # noqa: F401
+      except ImportError:
+        pass
+      else:
+        raise AssertionError("the import guard let mujoco in")
+      # humanoid.xml on the card
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      cm = compiler.load_xml_path(path, device="cuda")
+      torch.cuda.synchronize()
+      card_s = time.perf_counter() - t0
+      found = snapshot_differences(io.model_numpy(cm),
+                                   zoo.load_snapshot("humanoid"))
+      print(f"compiler: the compiled humanoid's Model at f64 against the "
+            f"snapshot (limit 1e-8): {len(found)} differences:", flush=True)
+      for k, err in found:
+        print(f"  {k}: {err:.3e}", flush=True)
+
+      # the main path on the compiled model
+      m = io.put_model(cm, dtype=torch.float32, device="cuda")
+      m_snap = zoo.humanoid(torch.float32)
+      d = main_path_batch(m)
+      fresh = io.make_data(m, device="cuda")
+      torch.cuda.synchronize()
+      reset_counts()
+      t0 = time.perf_counter()
+      out = rollout.scan_steps(m, d, NSTEP, fresh, check=True)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+      launches = read_counts()
+      finite = bool(torch.isfinite(out.qpos).all()
+                    & torch.isfinite(out.qvel).all())
+      print(f"compiler: compiled humanoid f32 B{B} {NSTEP} steps check=True: "
+            f"wall {wall:.4f} s, launches {launches}, finite {finite}",
+            flush=True)
+      if not finite or launches != {"ldl_solve": 0, "newton_pyramidal": 0,
+                                    "megastep": 1}:
+        raise AssertionError(f"compiled humanoid: finite {finite}, "
+                             f"launches {launches}: want one megastep "
+                             f"launch")
+      d_snap = main_path_batch(m_snap)
+      out_snap = rollout.scan_steps(m_snap, d_snap, NSTEP,
+                                    io.make_data(m_snap, device="cuda"),
+                                    check=True)
+      fracs = check_f32("compiled humanoid against the snapshot's",
+                        {"qpos": out.qpos, "qvel": out.qvel},
+                        {"qpos": out_snap.qpos, "qvel": out_snap.qvel})
+      del out, out_snap, d, d_snap
+
+      # the muscle scene: the length-range batch on the card, timed alone
+      # through a wrapper of setconst.length_ranges
+      lr_s = []
+      batch = setconst.length_ranges
+
+      def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = batch(*args)
+        torch.cuda.synchronize()
+        lr_s.append(time.perf_counter() - t)
+        return res
+
+      setconst.length_ranges = timed
+      try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        mus = compiler.load_xml(snapshot.MUSCLE_XML, device="cuda")
+        torch.cuda.synchronize()
+        mus_card_s = time.perf_counter() - t0
+        lr_launches = read_counts()
+      finally:
+        setconst.length_ranges = batch
+    if cpu_side.wait(timeout=600) != 0:
+      raise AssertionError(f"the CPU compiles exited {cpu_side.returncode}")
+    with open(os.path.join(tmp.name, "seconds.json")) as f:
+      cpu_times = json.load(f)
+    # both sides through the same save and load, so that each field has
+    # the same type on both
+    compiler.save_model(cm, os.path.join(tmp.name, "humanoid_card.npz"))
+    worst = compiled_models_equal(
+        compiler.load_model(os.path.join(tmp.name, "humanoid_card.npz")),
+        compiler.load_model(os.path.join(tmp.name, "humanoid.npz")))
+    mus_cpu = compiler.load_model(os.path.join(tmp.name, "muscle.npz"))
+  finally:
+    if cpu_side.poll() is None:
+      cpu_side.kill()
+      cpu_side.wait()
+    tmp.cleanup()
+  print(f"compiler: humanoid.xml compiled in {card_s:.3f} s with set_const "
+        f"on the card, {cpu_times['humanoid']:.3f} s on the CPU ({card}); "
+        f"every field equal, floats within {worst:.3e} relative (limit "
+        f"1e-12)", flush=True)
+  nstep_lr = int(round(setconst.LR_INTTOTAL / setconst.LR_DT))
+  need = 2 * int(mus.nu)
+  lr = mus.actuator_lengthrange
+  lr_snap = zoo.load_snapshot("muscle")["actuator_lengthrange"]
+  gap_cpu = float(np.max(np.abs(lr - mus_cpu.actuator_lengthrange)))
+  gap_snap = float(np.max(np.abs(lr - lr_snap)))
+  per_step = {k: v / nstep_lr for k, v in lr_launches.items()}
+  print(f"compiler: muscle scene (2 muscles on a limited hinge) compiled in "
+        f"{mus_card_s:.3f} s on the card, {cpu_times['muscle']:.3f} s on the "
+        f"CPU ({card}); the length-range batch of {need} envs x {nstep_lr} "
+        f"steps: {lr_s[0]:.3f} s on the card, "
+        f"{cpu_times['lengthrange']:.3f} s on the CPU, launches per step "
+        f"{per_step}; lengthrange {lr.tolist()}, |card - CPU| "
+        f"{gap_cpu:.3e}, |card - snapshot| {gap_snap:.3e} (limit 1e-9)",
+        flush=True)
+  if not (gap_cpu <= 1e-9 and gap_snap <= 1e-9):
+    raise AssertionError("muscle lengthrange: card, CPU and snapshot "
+                         "disagree")
+  if lr_launches["ldl_solve"] < 2 * nstep_lr:
+    raise AssertionError(f"length-range batch: {lr_launches} launches, "
+                         f"want at least two LDL launches a step")
+  details["compiler"] = dict(
+      card=card, humanoid_card_s=card_s, humanoid_cpu_s=cpu_times["humanoid"],
+      card_vs_cpu_max_rel=worst,
+      snapshot_differences={k: e for k, e in found}, main_path=dict(
+          batch=B, nstep=NSTEP, wall_s=wall, launches=launches,
+          f32_fractions=fracs),
+      muscle=dict(card_s=mus_card_s, cpu_s=cpu_times["muscle"],
+                  lengthrange_card_s=lr_s[0],
+                  lengthrange_cpu_s=cpu_times["lengthrange"],
+                  envs=need, nstep=nstep_lr, launches=lr_launches,
+                  launches_per_step=per_step, lengthrange=lr.tolist(),
+                  card_vs_cpu=gap_cpu, card_vs_snapshot=gap_snap))
+  for k in ("ldl_solve", "newton_pyramidal", "megastep"):
+    paths = report[k].setdefault("launches_by_path", {})
+    paths["compiled_humanoid"] = launches[k]
+    paths["compiler_lengthrange"] = lr_launches[k]
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5209,7 +5512,7 @@ def main() -> int:
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
             phase_actuation, phase_control_loop, phase_flex, phase_pixels,
-            phase_wide_megastep, phase_sdf)
+            phase_wide_megastep, phase_sdf, phase_compiler)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

@@ -2,12 +2,14 @@
 
 A second engine beside ``mujoco_tpu`` (the JAX reference), held against it
 stage by stage. This package imports ``torch`` and ``numpy`` only; the pip
-``mujoco`` is imported inside ``models.io.put_model`` as a model compiler
-and inside ``models.io.get_data``/``get_data_into``, which hand one env
-back to the C engine, and nowhere else; nothing here imports ``jax`` or
-``mujoco_tpu``.
+``mujoco`` is imported inside ``models.io.put_model`` where it is handed a
+``mujoco.MjModel`` (never for a CompiledModel of the port's own
+``compiler``) and inside ``models.io.get_data``/``get_data_into``, which
+hand one env back to the C engine, and nowhere else; nothing here imports
+``jax`` or ``mujoco_tpu``.
 
-Layout mirrors ``mujoco_tpu/``: ``models/`` (types, io, zoo), ``ops/``
+Layout mirrors ``mujoco_tpu/``: ``compiler/`` (MJCF, URDF and mjz to a
+CompiledModel, set_const on this engine), ``models/`` (types, io, zoo), ``ops/``
 (pipeline stages and the hand-written CUDA kernels' wrappers,
 ``linalg_cuda``, ``newton_cuda`` and ``megastep_cuda``), ``parallel/``
 (rollout), ``utils/``. CUDA sources live in ``csrc/`` and are compiled with
@@ -16,7 +18,8 @@ nvcc at first use (``ops/cuda_build.py``).
 Public API (the reference's names, mujoco_tpu/__init__.py:19-53, for every
 module the port has):
 
-  put_model(mujoco.MjModel) -> Model     # model bridge
+  compiler.load_xml(xml) -> CompiledModel  # mj_loadXML, no pip mujoco
+  put_model(mujoco.MjModel | CompiledModel) -> Model  # model bridge
   make_data(Model) -> Data               # mj_makeData, a batch of 1
   step / forward / inverse               # mj_step / mj_forward / mj_inverse
   get_state / set_state / StateBit       # mj_getState / mj_setState
@@ -57,7 +60,7 @@ from mujoco_tpu_torch.ops.inverse import compare_fwd_inv, inverse
 from mujoco_tpu_torch.ops.derivative_fd import (inverse_derivatives,
                                                 transition, transition_fd)
 from mujoco_tpu_torch.ops.ray import ray, ray_geom
-from mujoco_tpu_torch import plugin, vis
+from mujoco_tpu_torch import compiler, plugin, vis
 from mujoco_tpu_torch import usd_export
 from mujoco_tpu_torch.ops.skin import skin_update
 from mujoco_tpu_torch.usd_export import export_usd

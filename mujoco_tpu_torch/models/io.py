@@ -2,9 +2,10 @@
 
 Counterparts: ``put_model`` (mujoco_tpu/models/io.py:1357) with
 ``_tree_topology`` (:311, the pure-Python path), ``_contact_meta`` (:410),
-``_efc_meta`` (:1074), ``_names`` (:1173), ``_actuator_meta`` (:1205,
-with the wrap periods), the sensor tables (:1608-1625, their enums
-remapped by name in ``_sensor_meta``) and the tree tables of
+``_efc_meta`` (:1074), ``_names`` (:1173, ``name_ids`` of
+``_PipFields`` and ``_CompiledFields``), ``_actuator_meta`` (:1205,
+with the wrap periods), the sensor tables (:1608-1625), their enums
+remapped by name in ``_PipFields``, and the tree tables of
 ``_sleep_meta`` (:1628); the flex tables of ``_flex_meta`` (:742),
 ``_strain_entries`` (:898), ``_interp_meta`` (:949),
 ``_flex_stiffness_dense`` (:1040) and ``_flex_bending_dense`` (:1057)
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from types import SimpleNamespace
 from typing import Any, Optional
 
 import numpy as np
@@ -122,29 +124,6 @@ def _mesh_hulls(mjm: Any) -> tuple:
   return tuple(hulls)
 
 
-def _plugin_name(mjm: Any, instance: int) -> str:
-  """The registered plugin name of a plugin instance through the process's
-  plugin table (mjp_getPluginAtSlot, which the pip bindings do not
-  expose, through ctypes on the bundled library; mujoco_tpu/models/
-  io.py:251-268). The library is the one of the package that compiled
-  mjm, which is imported already."""
-  import ctypes
-  import glob
-  import sys
-
-  package = sys.modules[type(mjm).__module__.split(".")[0]]
-  libs = glob.glob(os.path.join(os.path.dirname(package.__file__),
-                                "libmujoco*"))
-  lib = ctypes.CDLL(libs[0])
-  lib.mjp_getPluginAtSlot.restype = ctypes.c_void_p
-  p = lib.mjp_getPluginAtSlot(int(mjm.plugin[instance]))
-  if not p:
-    raise NotImplementedError(f"plugin instance {instance}: empty slot")
-  name = ctypes.cast(ctypes.cast(p, ctypes.POINTER(ctypes.c_void_p))[0],
-                     ctypes.c_char_p).value
-  return name.decode()
-
-
 def _sdf_geom_info(mjm: Any, g: int, grids: dict):
   """(kind, params) of one side of an SDF pair (mujoco_tpu/models/io.py:
   270-310): an int GeomType and None for a primitive; MESH_GRID and its
@@ -168,7 +147,7 @@ def _sdf_geom_info(mjm: Any, g: int, grids: dict):
     if mid not in grids:
       grids[mid] = sdf.mesh_grid_sdf(verts, faces)
     return sdf.MESH_GRID, grids[mid]
-  name = _plugin_name(mjm, instance)
+  name = mjm.plugin_name(instance)
   if name not in sdf.PLUGIN_SDF:
     raise NotImplementedError(f"SDF plugin {name!r}")
   _, attr_names, defaults = sdf.PLUGIN_SDF[name]
@@ -608,53 +587,179 @@ def _efc_meta(mjm: Any, con: dict) -> dict:
           "con_nrow": si(con_nrow)}
 
 
-def _names(mjm: Any) -> dict:
-  """name → id per object type (mj_name2id analog); a FLEXSTRAIN view
-  (``models/strain.py``) names what its compiled model names."""
-  import mujoco
-  mjm = getattr(mjm, "mjmodel", mjm)
-  types = {
-      "body": (mujoco.mjtObj.mjOBJ_BODY, mjm.nbody),
-      "joint": (mujoco.mjtObj.mjOBJ_JOINT, mjm.njnt),
-      "geom": (mujoco.mjtObj.mjOBJ_GEOM, mjm.ngeom),
-      "site": (mujoco.mjtObj.mjOBJ_SITE, mjm.nsite),
-      "actuator": (mujoco.mjtObj.mjOBJ_ACTUATOR, mjm.nu),
-      "sensor": (mujoco.mjtObj.mjOBJ_SENSOR, mjm.nsensor),
-      "tendon": (mujoco.mjtObj.mjOBJ_TENDON, mjm.ntendon),
-      "camera": (mujoco.mjtObj.mjOBJ_CAMERA, mjm.ncam),
-      "equality": (mujoco.mjtObj.mjOBJ_EQUALITY, mjm.neq),
-      "key": (mujoco.mjtObj.mjOBJ_KEY, mjm.nkey),
-  }
-  out = {}
-  for tname, (objtype, n) in types.items():
-    for i in range(n):
-      name = mujoco.mj_id2name(mjm, objtype, i)
-      if name:
-        out[f"{tname}.{name}"] = i
-  return out
+def _compiled(mjm: Any) -> bool:
+  """Whether ``mjm`` is a CompiledModel of the port's own compiler
+  (``mujoco_tpu_torch.compiler``), which carries its names in
+  ``name_tables`` and its enums at the engine's (v3.11) values, so that
+  nothing on its way to the Model imports ``mujoco``."""
+  return bool(getattr(mjm, "is_mjtpu_compiled", False))
+
+
+# the enum fields the Model holds at the port's values: field → (the
+# port's enum, the pip package's enum, its member prefix, whether a
+# value the port does not name passes through)
+_ENUM_FIELDS = {
+    "actuator_dyntype": (DynType, "mjtDyn", "mjDYN_", False),
+    "actuator_gaintype": (GainType, "mjtGain", "mjGAIN_", False),
+    "actuator_biastype": (BiasType, "mjtBias", "mjBIAS_", False),
+    "sensor_type": (SensorType, "mjtSensor", "mjSENS_", True),
+    "sensor_datatype": (DataType, "mjtDataType", "mjDATATYPE_", True),
+    "sensor_needstage": (Stage, "mjtStage", "mjSTAGE_", True),
+    "sensor_objtype": (ObjType, "mjtObj", "mjOBJ_", True),
+    "sensor_reftype": (ObjType, "mjtObj", "mjOBJ_", True)}
+
+
+class _PipFields:
+  """A ``mujoco.MjModel`` (or a FLEXSTRAIN view of one, models/strain.py)
+  as ``model_numpy`` reads it: the enum fields remapped to the port's
+  values by NAME (the pip package may number them differently), and
+  ``name_ids``; every other field is the model's own."""
+
+  def __init__(self, mjm: Any):
+    self._mjm = mjm
+
+  def __getattr__(self, name: str):
+    if name not in _ENUM_FIELDS:
+      return getattr(self._mjm, name)
+    import mujoco
+    enum_cls, mj_enum, prefix, passes = _ENUM_FIELDS[name]
+    table = {int(v): enum_cls[k[len(prefix):]].value
+             for k, v in getattr(mujoco, mj_enum).__members__.items()
+             if not passes or k[len(prefix):] in enum_cls.__members__}
+    return np.array([table.get(int(t), int(t)) if passes else table[int(t)]
+                     for t in getattr(self._mjm, name)],
+                    np.int32).reshape(-1)
+
+  def name_ids(self) -> dict:
+    """name → id per object type (mj_name2id analog); a FLEXSTRAIN view
+    names what its compiled model names."""
+    import mujoco
+    mjm = getattr(self._mjm, "mjmodel", self._mjm)
+    types = {
+        "body": (mujoco.mjtObj.mjOBJ_BODY, mjm.nbody),
+        "joint": (mujoco.mjtObj.mjOBJ_JOINT, mjm.njnt),
+        "geom": (mujoco.mjtObj.mjOBJ_GEOM, mjm.ngeom),
+        "site": (mujoco.mjtObj.mjOBJ_SITE, mjm.nsite),
+        "actuator": (mujoco.mjtObj.mjOBJ_ACTUATOR, mjm.nu),
+        "sensor": (mujoco.mjtObj.mjOBJ_SENSOR, mjm.nsensor),
+        "tendon": (mujoco.mjtObj.mjOBJ_TENDON, mjm.ntendon),
+        "camera": (mujoco.mjtObj.mjOBJ_CAMERA, mjm.ncam),
+        "equality": (mujoco.mjtObj.mjOBJ_EQUALITY, mjm.neq),
+        "key": (mujoco.mjtObj.mjOBJ_KEY, mjm.nkey),
+    }
+    out = {}
+    for tname, (objtype, n) in types.items():
+      for i in range(n):
+        name = mujoco.mj_id2name(mjm, objtype, i)
+        if name:
+          out[f"{tname}.{name}"] = i
+    return out
+
+  def plugin_name(self, instance: int) -> str:
+    """The registered plugin name of a plugin instance through the
+    process's plugin table (mjp_getPluginAtSlot, which the pip bindings
+    do not expose, through ctypes on the bundled library; mujoco_tpu/
+    models/io.py:251-268). The library is the one of the package that
+    compiled the model, which is imported already."""
+    import ctypes
+    import glob
+    import sys
+
+    package = sys.modules[type(self._mjm).__module__.split(".")[0]]
+    libs = glob.glob(os.path.join(os.path.dirname(package.__file__),
+                                  "libmujoco*"))
+    lib = ctypes.CDLL(libs[0])
+    lib.mjp_getPluginAtSlot.restype = ctypes.c_void_p
+    p = lib.mjp_getPluginAtSlot(int(self._mjm.plugin[instance]))
+    if not p:
+      raise NotImplementedError(f"plugin instance {instance}: empty slot")
+    name = ctypes.cast(ctypes.cast(p, ctypes.POINTER(ctypes.c_void_p))[0],
+                       ctypes.c_char_p).value
+    return name.decode()
+
+
+# mj_defaultVisual's glyph and headlight values (engine_init.c:157-165),
+# which a CompiledModel without a vis block takes, as in the reference's
+# put_model
+_DEFAULT_VIS = SimpleNamespace(
+    scale=SimpleNamespace(contactwidth=0.3, contactheight=0.1,
+                          forcewidth=0.1),
+    map=SimpleNamespace(force=0.005),
+    rgba=SimpleNamespace(contactpoint=(0.9, 0.6, 0.2, 1.0),
+                         contactforce=(0.7, 0.9, 0.9, 1.0)),
+    headlight=SimpleNamespace(active=1, ambient=0.1, diffuse=0.4,
+                              specular=0.5))
+
+
+class _CompiledFields:
+  """A CompiledModel as ``model_numpy`` reads it, with no ``mujoco``
+  import: its enums as its compiler emitted them (the v3.11 values
+  already), ``name_ids`` from its ``name_tables``, and the fields its
+  compiler does not emit at the values the reference's put_model takes
+  for them (its getattr defaults: no flex interpolation, stiffness,
+  bending, nodes or layers beyond the first, no element edges or flaps,
+  no mesh normals, mj_defaultVisual's glyphs, and before set_const unit
+  dof lengths and mj_defaultStatistic's mean size and mass); every other
+  field is the CompiledModel's own."""
+
+  def __init__(self, cm: Any):
+    self._cm = cm
+    nflex = int(getattr(cm, "nflex", 0))
+    self.stat = SimpleNamespace(**{"meansize": 0.2, "meanmass": 1.0,
+                                   **vars(cm.stat)})
+    self._fill = {
+        "nflexnode": 0, "nflexelemedge": 0,
+        "flex_elemlayer": np.zeros(int(getattr(cm, "nflexelem", 0))),
+        "flex_activelayers": np.ones(nflex),
+        "flex_evpairnum": np.zeros(nflex), "flex_evpairadr": np.zeros(nflex),
+        "flex_evpair": np.zeros(0), "flex_interp": np.zeros(nflex),
+        "flex_cellnum": np.ones((nflex, 3)),
+        "flex_stiffnessadr": np.full(nflex, -1),
+        "flex_stiffness": np.zeros(0),
+        "flex_bendingadr": np.full(nflex, -1), "flex_bending": np.zeros(0),
+        "flex_elemedgeadr": np.full(nflex, -1),
+        "flex_elemedge": np.zeros(0),
+        "flex_edgeflap": np.full((int(getattr(cm, "nflexedge", 0)), 2), -1),
+        "flex_nodeadr": np.full(nflex, -1), "flex_nodenum": np.zeros(nflex),
+        "flex_nodebodyid": np.zeros(0), "flex_node": np.zeros((0, 3)),
+        "flex_node0": np.zeros((0, 3)),
+        "flex_vert0": np.zeros((int(getattr(cm, "nflexvert", 0)), 3)),
+        "flex_rgba": np.tile([0.5, 0.5, 0.5, 1.0], (nflex, 1)),
+        "mesh_normal": np.zeros((0, 3)),
+        "mesh_normaladr": np.zeros(len(np.asarray(cm.mesh_vertadr))),
+        "mesh_normalnum": np.zeros(len(np.asarray(cm.mesh_vertadr))),
+        "vis": _DEFAULT_VIS,
+        # set_const fills dof_length after its own put_model
+        "dof_length": np.ones(int(cm.nv))}
+
+  def __getattr__(self, name: str):
+    try:
+      return getattr(self._cm, name)
+    except AttributeError:
+      if name in self._fill:
+        return self._fill[name]
+      raise
+
+  def name_ids(self) -> dict:
+    return {f"{kind}.{name}": int(i)
+            for kind, table in self._cm.name_tables.items()
+            for name, i in table.items()}
 
 
 def _actuator_meta(mjm: Any):
-  """Actuator enums remapped to the v3.11 values by NAME (the pip package
-  may number them differently); every dyn, gain and bias type, on any
-  transmission (USER through the callbacks ``model_from_numpy`` reads).
+  """The actuator enums of ``mjm`` (a ``_PipFields`` or
+  ``_CompiledFields``, at the v3.11 values); every dyn, gain and bias
+  type, on any transmission (USER through the callbacks ``model_from_numpy`` reads).
   Also the DC-motor and PID activation slots (mj_dcmotorSlots), the
   setpoint wrap period of each rotational servo and PID (wrapPeriod),
   and the control and output blocks (mujoco_tpu/models/io.py:1205-1354):
   an SO3 gain resolves its site or ball-joint transmission to
   TrnType.SO3 and owns 3 controls (4 under the quaternion chart) and 3
   outputs; every other actuator one of each."""
-  import mujoco
-  dyn_map = {int(v): DynType[k[len("mjDYN_"):]].value
-             for k, v in mujoco.mjtDyn.__members__.items()}
-  gain_map = {int(v): GainType[k[len("mjGAIN_"):]].value
-              for k, v in mujoco.mjtGain.__members__.items()}
-  bias_map = {int(v): BiasType[k[len("mjBIAS_"):]].value
-              for k, v in mujoco.mjtBias.__members__.items()}
   nu = int(mjm.nu)
-  dyn = np.array([dyn_map[int(t)] for t in mjm.actuator_dyntype], np.int32)
-  gain = np.array([gain_map[int(t)] for t in mjm.actuator_gaintype], np.int32)
-  bias = np.array([bias_map[int(t)] for t in mjm.actuator_biastype], np.int32)
+  dyn = np.asarray(mjm.actuator_dyntype, np.int32).reshape(nu)
+  gain = np.asarray(mjm.actuator_gaintype, np.int32).reshape(nu)
+  bias = np.asarray(mjm.actuator_biastype, np.int32).reshape(nu)
   dynprm = np.asarray(mjm.actuator_dynprm, dtype=np.float64)
   gainprm = np.asarray(mjm.actuator_gainprm, dtype=np.float64)
   biasprm = np.asarray(mjm.actuator_biasprm, dtype=np.float64)
@@ -725,36 +830,23 @@ _SENSOR_REFUSED = (SensorType.PLUGIN,)
 
 def _sensor_meta(mjm: Any) -> dict:
   """Sensor tables with the mjtSensor, mjtObj, mjtDataType and mjtStage
-  values remapped to the port's by NAME, as ``_actuator_meta`` remaps the
-  actuator enums, and the contact sensors' integer parameters and the
+  values as ``mjm`` (a ``_PipFields`` or ``_CompiledFields``) gives them,
+  at the port's, and the contact sensors' integer parameters and the
   history buffers' tables (mujoco_tpu/models/io.py:1608-1624); a plugin
   sensor raises by name."""
-  import mujoco
-
-  def remap(enum_cls, mj_enum, prefix, values):
-    table = {int(v): enum_cls[k[len(prefix):]].value
-             for k, v in mj_enum.__members__.items()
-             if k[len(prefix):] in enum_cls.__members__}
-    return np.array([table[int(t)] if int(t) in table else int(t)
-                     for t in values], np.int32).reshape(-1)
-
   n = int(mjm.nsensor)
-  stype = remap(SensorType, mujoco.mjtSensor, "mjSENS_", mjm.sensor_type)
+  si = lambda x: np.asarray(x, dtype=np.int32).reshape(-1)
+  stype = si(mjm.sensor_type)
   for i in range(n):
     t = SensorType(int(stype[i]))
     if t in _SENSOR_REFUSED:
       raise NotImplementedError(f"sensor {i}: sensor {t.name}")
-  si = lambda x: np.asarray(x, dtype=np.int32).reshape(-1)
   return {
       "sensor_type": stype,
-      "sensor_datatype": remap(DataType, mujoco.mjtDataType, "mjDATATYPE_",
-                               mjm.sensor_datatype),
-      "sensor_needstage": remap(Stage, mujoco.mjtStage, "mjSTAGE_",
-                                mjm.sensor_needstage),
-      "sensor_objtype": remap(ObjType, mujoco.mjtObj, "mjOBJ_",
-                              mjm.sensor_objtype),
-      "sensor_reftype": remap(ObjType, mujoco.mjtObj, "mjOBJ_",
-                              mjm.sensor_reftype),
+      "sensor_datatype": si(mjm.sensor_datatype),
+      "sensor_needstage": si(mjm.sensor_needstage),
+      "sensor_objtype": si(mjm.sensor_objtype),
+      "sensor_reftype": si(mjm.sensor_reftype),
       "sensor_objid": si(mjm.sensor_objid),
       "sensor_refid": si(mjm.sensor_refid),
       "sensor_adr": si(mjm.sensor_adr), "sensor_dim": si(mjm.sensor_dim),
@@ -1046,8 +1138,11 @@ def flatten(obj: Any, prefix: str = "") -> dict:
 
 
 def model_numpy(mjm: Any) -> dict:
-  """The port's Model of a compiled ``mujoco.MjModel`` in flat numpy form
-  (floats at f64)."""
+  """The port's Model of a compiled ``mujoco.MjModel``, or of a
+  CompiledModel of ``mujoco_tpu_torch.compiler`` (as the reference's
+  put_model takes one, keyed on ``is_mjtpu_compiled``; no ``mujoco``
+  import on its way), in flat numpy form (floats at f64)."""
+  mjm = _CompiledFields(mjm) if _compiled(mjm) else _PipFields(mjm)
   jx = lambda x: np.asarray(x, dtype=np.float64)
   si = lambda x: np.asarray(x, dtype=np.int32)
   dyn, gain, bias, slots, wrapprd, blocks = _actuator_meta(mjm)
@@ -1166,7 +1261,7 @@ def model_numpy(mjm: Any) -> dict:
   f["actuator_dyntype"], f["actuator_gaintype"], f["actuator_biastype"] = (
       dyn, gain, bias)
   f["actuator_group"] = si(getattr(mjm, "actuator_group", np.zeros(mjm.nu)))
-  f.update({f"names.{k}": np.asarray(v) for k, v in _names(mjm).items()})
+  f.update({f"names.{k}": np.asarray(v) for k, v in mjm.name_ids().items()})
   return {k: np.asarray(v) for k, v in f.items()}
 
 
@@ -1411,7 +1506,8 @@ def model_from_numpy(fields: dict, dtype: Optional[torch.dtype] = None,
 
 def put_model(mjm: Any, dtype: Optional[torch.dtype] = None,
               device=None) -> Model:
-  """Convert a compiled ``mujoco.MjModel`` into the port's Model."""
+  """Convert a compiled ``mujoco.MjModel``, or a CompiledModel of the
+  port's compiler, into the port's Model."""
   return model_from_numpy(model_numpy(mjm), dtype=dtype, device=device)
 
 

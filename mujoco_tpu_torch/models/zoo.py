@@ -4,8 +4,9 @@ Every model loads a committed snapshot ``assets/<name>.npz``: the port's
 ``put_model`` fields in flat numpy form at f64, written by ``python -m
 mujoco_tpu_torch.models.snapshot``. The machine with the card has no pip
 ``mujoco`` to compile MJCF, so the snapshots are how the models get there.
-``humanoid`` and ``quadruped`` are the reference zoo's XMLs
-(``mujoco_tpu/models/assets``); ``mixed`` and ``spherebox`` are the two
+``humanoid`` and ``quadruped`` are the reference zoo's XMLs, copied to
+``assets/`` (``XML_DIR``; ``compiler.load_xml_path`` compiles them without
+the pip ``mujoco``); ``mixed`` and ``spherebox`` are the two
 test scenes of tests/test_megastep.py that, with the quadruped, reach every
 contact pair and the implicit-damping Euler branch of the megastep class;
 ``GENERAL`` are the scenes of the general rigid-body constraint class
@@ -48,6 +49,7 @@ each scene's free body where its contacts act from the first step.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -58,9 +60,9 @@ from mujoco_tpu_torch.models import io
 from mujoco_tpu_torch.models.types import Model
 
 _ASSETS = os.path.join(os.path.dirname(__file__), "assets")
-# the zoo's XMLs live with the reference package; read-only, by path
-XML_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "mujoco_tpu", "models", "assets")
+# the zoo's XMLs: the port's own copies of the reference zoo's humanoid.xml
+# and quadruped.xml, beside the snapshots
+XML_DIR = _ASSETS
 GENERAL = ("eq_connect_joint", "limits_frictionloss", "ball_hinge_fric",
            "pair_condim6", "sphere_condim4", "weld_ball_chain")
 TENDON = ("tendon_straight", "tendon_sphere_wrap", "tendon_cyl_wrap",
@@ -177,9 +179,19 @@ def snapshot_path(name: str) -> str:
   return os.path.join(_ASSETS, f"{name}.npz")
 
 
-def load_snapshot(name: str) -> dict:
-  with np.load(snapshot_path(name), allow_pickle=False) as z:
+@functools.lru_cache(maxsize=None)
+def _read_snapshot(path: str, mtime_ns: int) -> dict:
+  with np.load(path, allow_pickle=False) as z:
     return {k: z[k] for k in z.files}
+
+
+def load_snapshot(name: str) -> dict:
+  """The snapshot's fields, each a fresh array: the file (a few hundred
+  small arrays, whose reading costs tens of ms) is read once per process
+  while it stays unchanged."""
+  path = snapshot_path(name)
+  return {k: v.copy() for k, v in _read_snapshot(
+      path, os.stat(path).st_mtime_ns).items()}
 
 
 def keyframe_qpos(name: str, key: str) -> tuple:

@@ -41,7 +41,8 @@ from mujoco_tpu_torch.models.types import (ConeType, Data, DisableBit, EqType,
                                            Model, SolverType)
 from mujoco_tpu_torch.ops import linalg_cuda, sleep
 from mujoco_tpu_torch.utils.device import const, index
-from mujoco_tpu_torch.utils.math import MINVAL, dot, mat_vec
+from mujoco_tpu_torch.utils.math import (MINVAL, dot, mat_vec,
+                                         newton_linesearch)
 from mujoco_tpu_torch.utils.struct import cached
 
 
@@ -301,23 +302,11 @@ def island_cost(p, x):
 
 def _linesearch(p, jar0, jp, gx0, pmp, ls_iter: int):
   """The reference's bracketing Newton linesearch, per island."""
-  lo = torch.zeros_like(gx0)
-  hi = torch.full_like(gx0, float("inf"))
-  has_hi = torch.zeros_like(gx0, dtype=torch.bool)
-  alpha = torch.zeros_like(gx0)
-  for _ in range(ls_iter):
+  def derivatives(alpha):
     force, _, w = _update(p, jar0 + alpha[:, None] * jp)
-    dphi = gx0 + alpha * pmp - dot(jp, force)
-    ddphi = pmp + (w * jp * jp).sum(-1)
-    neg = dphi < 0
-    lo = torch.where(neg, torch.maximum(lo, alpha), lo)
-    hi = torch.where(neg, hi, torch.minimum(hi, alpha))
-    has_hi = has_hi | ~neg
-    prop = alpha - dphi / torch.clamp(ddphi, min=MINVAL)
-    mid = 0.5 * (lo + torch.where(has_hi, hi, lo))
-    ok = (prop >= lo) & (prop <= hi)
-    alpha = torch.where(ok, prop, torch.where(has_hi, mid, prop))
-  return torch.clamp(alpha, min=0.0)
+    return (gx0 + alpha * pmp - dot(jp, force),
+            pmp + (w * jp * jp).sum(-1))
+  return newton_linesearch(derivatives, gx0, ls_iter)
 
 
 def _system(p, x, with_h: bool = True):

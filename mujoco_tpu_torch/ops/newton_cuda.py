@@ -40,7 +40,7 @@ import torch.autograd.forward_ad as fwAD
 from mujoco_tpu_torch.ops import cuda_build
 from mujoco_tpu_torch.ops.linalg_cuda import has_tangent
 from mujoco_tpu_torch.utils.device import const
-from mujoco_tpu_torch.utils.math import MINVAL
+from mujoco_tpu_torch.utils.math import newton_linesearch
 
 STAT_ROWS = 32
 # kernel launches by ``newton_pyramidal`` (never by the plain path, nor by
@@ -96,23 +96,12 @@ def objective(args, x):
 
 def _linesearch(jar0, jp, gx0, pmp, D, R, fl, fric, ones, ls_iter: int):
   """Bracketed safeguarded Newton on φ'(α) = 0, per env."""
-  lo = torch.zeros_like(gx0)
-  hi = torch.full_like(gx0, float("inf"))
-  has_hi = torch.zeros_like(gx0, dtype=torch.bool)
-  alpha = torch.zeros_like(gx0)
-  for _ in range(ls_iter):
-    force, _, w = row_update(jar0 + alpha[:, None] * jp, D, R, fl, fric, ones)
-    dphi = gx0 + alpha * pmp - (jp * force).sum(-1)
-    ddphi = pmp + (w * jp * jp).sum(-1)
-    neg = dphi < 0
-    lo = torch.where(neg, torch.maximum(lo, alpha), lo)
-    hi = torch.where(neg, hi, torch.minimum(hi, alpha))
-    has_hi = has_hi | ~neg
-    prop = alpha - dphi / torch.clamp(ddphi, min=MINVAL)
-    mid = 0.5 * (lo + torch.where(has_hi, hi, lo))
-    ok = (prop >= lo) & (prop <= hi)
-    alpha = torch.where(ok, prop, torch.where(has_hi, mid, prop))
-  return torch.clamp(alpha, min=0.0)
+  def derivatives(alpha):
+    force, _, w = row_update(jar0 + alpha[:, None] * jp, D, R, fl, fric,
+                             ones)
+    return (gx0 + alpha * pmp - (jp * force).sum(-1),
+            pmp + (w * jp * jp).sum(-1))
+  return newton_linesearch(derivatives, gx0, ls_iter)
 
 
 def newton_plain(J, aref, D, R, fl, fric, ones, M, a_s, warm, reg,

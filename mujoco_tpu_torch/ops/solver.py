@@ -18,7 +18,9 @@ core has the reference's three regimes: a static unroll at ≤ 4
 iterations, a fixed trip count with a per-env freeze and per-iteration
 ``solver_stat`` rows at ≤ 32, and above that the early-exit loop, which
 freezes each env as JAX's batched ``while_loop`` does and reads "is any
-env still iterating" back to the host only every ``_POLL`` iterations.
+env still iterating" back to the host before every iteration: an
+iteration is hundreds of launches (a Newton step and its linesearch), and
+the read costs one, so the loop never runs an iteration no env needs.
 
 PGS is the dual Gauss-Seidel sweep over AR = J·M⁻¹·Jᵀ + diag(R) (M⁻¹
 through the tree factor), a fixed trip count with a per-env freeze; the
@@ -40,10 +42,8 @@ from mujoco_tpu_torch.models.types import (ConeType, Data, DisableBit, Model,
                                            SolverType)
 from mujoco_tpu_torch.ops import island, linalg_cuda, newton_cuda, smooth
 from mujoco_tpu_torch.utils.device import const, index
-from mujoco_tpu_torch.utils.math import MINVAL, dot, mat_vec
-
-# the early-exit loop reads its stop test back to the host this often
-_POLL = 4
+from mujoco_tpu_torch.utils.math import (MINVAL, dot, mat_vec,
+                                         newton_linesearch)
 
 
 def _elliptic(m: Model) -> bool:
@@ -229,28 +229,17 @@ def _cone_curvature(m: Model, d: Data, cone: _Cone, jp):
 
 
 def _linesearch(m: Model, d: Data, jar0, jp, gx0, pmp):
-  """Bracketed safeguarded Newton on φ'(α) = 0 per env (PrimalSearch):
-  Newton proposals inside the bracket are kept, escapes bisect."""
-  lo = torch.zeros_like(gx0)
-  hi = torch.full_like(gx0, float("inf"))
-  has_hi = torch.zeros_like(gx0, dtype=torch.bool)
-  alpha = torch.zeros_like(gx0)
-  for _ in range(int(m.opt.ls_iterations)):
+  """The exact linesearch along jp (``newton_linesearch``) with the
+  rows' forces and curvature at jar0 + α·jp, the elliptic cones' too."""
+  def derivatives(alpha):
     force, _, quad_w, cone = _update(m, d, jar0 + alpha[:, None] * jp,
                                      with_cost=False)
     dphi = gx0 + alpha * pmp - dot(jp, force)
     ddphi = pmp + (quad_w * jp * jp).sum(-1)
     if cone is not None:
       ddphi = ddphi + _cone_curvature(m, d, cone, jp)
-    neg = dphi < 0
-    lo = torch.where(neg, torch.maximum(lo, alpha), lo)
-    hi = torch.where(neg, hi, torch.minimum(hi, alpha))
-    has_hi = has_hi | ~neg
-    prop = alpha - dphi / torch.clamp(ddphi, min=MINVAL)
-    mid = 0.5 * (lo + torch.where(has_hi, hi, lo))
-    ok = (prop >= lo) & (prop <= hi)
-    alpha = torch.where(ok, prop, torch.where(has_hi, mid, prop))
-  return torch.clamp(alpha, min=0.0)
+    return dphi, ddphi
+  return newton_linesearch(derivatives, gx0, int(m.opt.ls_iterations))
 
 
 def newton_system(m: Model, d: Data, x):
@@ -375,9 +364,9 @@ def _core(m: Model, d: Data):
     stat = torch.cat([torch.stack(rows, dim=1), stat[:, iterations:]], dim=1)
   else:
     # early exit: the same freeze, until no env iterates
-    for i in range(iterations):
+    for _ in range(iterations):
       keep = running(carry)
-      if i % _POLL == 0 and not bool(keep.any()):
+      if not bool(keep.any()):
         break
       carry = freeze(keep, body(carry), carry)
   x, niter = carry[0], carry[3]

@@ -12,9 +12,9 @@ The PNG files are written by a small writer on the standard library's
       [--camera ID] [--shadows] [--usd] [--device cpu]
 
 A name loads a committed snapshot (``models/zoo.py``); an XML path is
-compiled by the pip ``mujoco`` through ``io.put_model`` (the reference
-compiles it with its own compiler, which the port does not have). The
-device is the CUDA card unless ``--device`` says otherwise.
+compiled by the port's own compiler (``compiler.load_xml_path``, with
+set_const on the same device), so no pip ``mujoco`` is needed. The device
+is the CUDA card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -70,11 +70,11 @@ def write_png(path: str, image: np.ndarray) -> None:
 
 
 def load_model(name: str, device=None):
-  """A zoo or snapshot name, or an XML path (the pip ``mujoco``)."""
+  """A zoo or snapshot name, or an XML path (the port's compiler)."""
   from mujoco_tpu_torch.models import io, zoo
   if os.path.exists(name):
-    import mujoco
-    return io.put_model(mujoco.MjModel.from_xml_path(name), device=device)
+    from mujoco_tpu_torch.compiler import load_xml_path
+    return io.put_model(load_xml_path(name, device=device), device=device)
   fn = getattr(zoo, name, None)
   if callable(fn):
     return fn(device=device)

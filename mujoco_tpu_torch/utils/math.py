@@ -15,9 +15,53 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 # small-denominator clamp, mirroring mjMINVAL (mujoco_tpu/utils/math.py:22)
 MINVAL = 1e-15
+
+
+def ls_fixed_point(alpha, prev) -> bool:
+  """Whether a linesearch iteration left every env's step α where it was,
+  on the CPU and with no gradient or forward-mode tangent on it. The
+  bracketed Newton linesearch's state is then a fixed point: the same α
+  gives the same φ′, so the bracket and the proposal repeat and every
+  further iteration returns the same α, and the loop may stop with its
+  result unchanged bit for bit. On the card the test would synchronize the
+  stream, and a tangent or gradient still moves after α stops, so there
+  the loop runs its full count."""
+  if alpha.is_cuda or alpha.requires_grad or prev.requires_grad:
+    return False
+  if fwAD.unpack_dual(alpha).tangent is not None:
+    return False
+  return torch.equal(alpha, prev) and torch.equal(torch.signbit(alpha),
+                                                  torch.signbit(prev))
+
+
+def newton_linesearch(derivatives, like, ls_iter: int):
+  """Bracketed safeguarded Newton on φ'(α) = 0 per env (the reference's
+  PrimalSearch), the linesearch of the general core, the island solve and
+  the Newton kernel's plain version: ``derivatives(α)`` gives (φ'(α),
+  φ''(α)), each shaped like ``like``. Newton proposals inside the bracket
+  are kept, escapes bisect; ``ls_iter`` iterations, fewer on the CPU
+  where the step stops moving (``ls_fixed_point``)."""
+  lo = torch.zeros_like(like)
+  hi = torch.full_like(like, float("inf"))
+  has_hi = torch.zeros_like(like, dtype=torch.bool)
+  alpha = torch.zeros_like(like)
+  for _ in range(ls_iter):
+    dphi, ddphi = derivatives(alpha)
+    neg = dphi < 0
+    lo = torch.where(neg, torch.maximum(lo, alpha), lo)
+    hi = torch.where(neg, hi, torch.minimum(hi, alpha))
+    has_hi = has_hi | ~neg
+    prop = alpha - dphi / torch.clamp(ddphi, min=MINVAL)
+    mid = 0.5 * (lo + torch.where(has_hi, hi, lo))
+    ok = (prop >= lo) & (prop <= hi)
+    alpha, prev = torch.where(ok, prop, torch.where(has_hi, mid, prop)), alpha
+    if ls_fixed_point(alpha, prev):
+      break
+  return torch.clamp(alpha, min=0.0)
 
 
 def cross(a, b):

@@ -20,6 +20,8 @@ on the CPU.
   ``jax.jacfwd`` to 1e-7.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,15 @@ from mujoco_tpu_torch.ops import sdf as t_sdf
 torch.set_num_threads(1)
 
 # plugin → attribute vectors: the defaults and the scenes' own
+@functools.lru_cache(maxsize=None)
+def compiled(name):
+  """(the MjModel, the reference's Model) of an SDF scene, made once for
+  this file's tests (a mesh SDF's compile and grid take seconds); the
+  tests only read them."""
+  mjm = snapshot.compile_mj(name)
+  return mjm, jio.put_model(mjm)
+
+
 SHAPES = {
     "mujoco.sdf.torus": [(0.35, 0.15)],
     "mujoco.sdf.bolt": [(0.26,), (0.255,)],
@@ -133,8 +144,7 @@ def test_mesh_grid_matches_reference():
 def test_mesh_grid_of_scene_matches_reference():
   """The mesh-backed SDF scene's grid at the default resolution, as the
   snapshot holds it, equals the reference's put_model's."""
-  mjm = snapshot.compile_mj("sphere_on_mesh_sdf")
-  ref = jio.put_model(mjm).con.sdfgroups[0]["params2"]
+  ref = compiled("sphere_on_mesh_sdf")[1].con.sdfgroups[0]["params2"]
   got = zoo.load("sphere_on_mesh_sdf", torch.float64,
                  "cpu").con.sdfgroups[0]["params2"]
   for k in ("grid", "lower", "spacing"):
@@ -151,8 +161,7 @@ def test_starts_match_reference():
 
 @pytest.mark.parametrize("name", zoo.SDF)
 def test_megastep_gate_refuses_sdf_scenes(name):
-  mjm = snapshot.compile_mj(name)
-  assert not megastep_tpu.supported(jio.put_model(mjm))
+  assert not megastep_tpu.supported(compiled(name)[1])
   m = zoo.load(name, torch.float32, "cpu")
   assert len(m.con.sdfgroups) and not megastep_cuda._supported(m)
 
@@ -177,8 +186,7 @@ def test_transition_of_sdf_scene_matches_reference():
   the tangents' dual level): A and B equal the reference's jax.jacfwd to
   1e-7."""
   name = "sphere_in_torus"
-  mjm = snapshot.compile_mj(name)
-  jm = jio.put_model(mjm)
+  mjm, jm = compiled(name)
   qpos, qvel, ctrl = sdf_batch(name, mjm, 2, 5)
   jd = jax.vmap(lambda q, v, c: jio.make_data(jm).replace(
       qpos=q, qvel=v, ctrl=c))(jnp.asarray(qpos), jnp.asarray(qvel),
