@@ -148,7 +148,7 @@ Phases, each of which passes or ends the script with a nonzero exit:
 18. every scene of ``zoo.OPTIONS`` (PGS pyramidal and elliptic, noslip
    after the general core, after the Newton kernel and on the elliptic
    cone at condim 3 and 4, the elliptic cone, RK4, implicit and
-   implicitfast): card against CPU at f64, B 64 (10 steps, fewer where a
+   implicitfast): card against CPU at f64, B 64 (6 steps, fewer where a
    step takes seconds: ``SCENE_NSTEP``), then at f32, B 3072, finite, its
    env-steps/s, kernel launches and a profiled step (the slowest scenes
    timed on that profiled step alone).
@@ -402,15 +402,34 @@ Phases, each of which passes or ends the script with a nonzero exit:
    of ``setconst.length_range_step``, at least two LDL launches a step)
    within 1e-9 of each other and of the committed ``muscle.npz``, with the
    batch's width, its seconds and its LDL and Newton launches per step.
+32. the tools on top of the engine at f64: ``sysid`` on the humanoid, its
+   21 hinge dampings over 50 steps of ctrl 0.3·sin(0.1·t + j) observed by
+   the port's own ``simulate``, the fit from 1.01× the true values (from
+   1.2× the reference's Gauss-Newton leaves the basin: PERF.md §6) with
+   ``max_iter`` 10: the Jacobian at the start on the card against the same
+   call on the CPU (largest difference within 1e-8 of the largest entry),
+   at least one LDL and one Newton launch per step of its rollout (B 21),
+   x on the true dampings within 1e-6 relative, iterations, cost, seconds
+   per trip; ``minimize.ik`` on ``humanoid_sensors`` (``hand_r`` moved 0.1
+   m, the free joint held): the site within 1e-6 m of its target, x card
+   = CPU within 1e-8; ``print_model`` of the humanoid card = CPU,
+   ``box_qp`` (n 27) and ``chol_solve_band`` ((27, 3, 6)) card = CPU within
+   1e-12; ``testspeed`` of the humanoid at f32, B 3072, 200 steps, from
+   its snapshot and from ``models/assets/humanoid.xml``: one megastep
+   launch and no LDL or Newton launch per timed call, finite, env-steps/s
+   beside phase 5's; ``parallel.dryrun.dryrun_multichip`` on the card;
+   ``io._tree_topology`` of ``multi_humanoid10`` timed on the host. The
+   CPU side runs in a process of its own beside the card's fit.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 29 (phase 26's ``discrete_acc``, ``transition`` and
+and 13 to 32 (phase 26's ``discrete_acc``, ``transition`` and
 ``randomized``; phase 27's ``humanoid_hammock``; the megastep's phase
 28 ``humanoid_pixels`` and phase 29's ``multi_humanoid3`` and
 ``multi_humanoid10_monolithic``; phase 30's ``sdf_nutbolt``; phase 31's
-``compiled_humanoid`` and ``compiler_lengthrange``); the
+``compiled_humanoid`` and ``compiler_lengthrange``; phase 32's
+``sysid_jacobian`` and ``testspeed``); the
 megastep's ``wide`` entry holds phase
 29's times per scene; the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
@@ -1980,11 +1999,14 @@ RK4 = 1
 # a step, PERF.md §5); the integrator scenes 20. The elliptic sweeps cut
 # again (from 2, 2 and 3) when phase 27 came, to keep the script in its
 # time; phase 28 cut PGS pyramidal from 10 to 5, balls_elliptic from 2 to
-# 1 and the rest from 20 to 10
-SCENE_NSTEP = {"pgs_pyramidal": 5, "pgs_elliptic": 1,
-               "noslip_pyramidal": 5, "noslip_pyramidal_it4": 10,
+# 1 and the rest from 20 to 10; phase 32 cut PGS pyramidal and noslip
+# pyramidal from 5 to 3, noslip_pyramidal_it4 from 10 to 5 and the rest
+# (SCENE_NSTEP_REST) from 10 to 6
+SCENE_NSTEP = {"pgs_pyramidal": 3, "pgs_elliptic": 1,
+               "noslip_pyramidal": 3, "noslip_pyramidal_it4": 5,
                "noslip_elliptic": 1, "noslip_condim4": 1,
                "balls_elliptic": 1}
+SCENE_NSTEP_REST = 6
 # scenes whose B 3072 step takes seconds: timed on one profiled step
 SLOW_SCENES = ("pgs_elliptic", "noslip_elliptic", "noslip_condim4",
                "balls_elliptic")
@@ -2269,7 +2291,7 @@ def phase_option_scenes(report, details):
   scenes = {}
   for name in zoo.OPTIONS:
     t0 = time.perf_counter()
-    nstep = SCENE_NSTEP.get(name, 10)
+    nstep = SCENE_NSTEP.get(name, SCENE_NSTEP_REST)
     worst = card_vs_cpu(lambda dtype, dev, n=name: zoo.load_scene(n, dtype,
                                                                   dev),
                         lambda mm, dev, n=name: option_batch(n, mm, 64, 25,
@@ -2318,7 +2340,7 @@ def phase_option_scenes(report, details):
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
                  "22", "23", "24", "25", "26", "27", "28", "29", "30",
-                 "31")
+                 "31", "32")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -5486,6 +5508,271 @@ def phase_compiler(report, details):
     paths["compiled_humanoid"] = launches[k]
     paths["compiler_lengthrange"] = lr_launches[k]
 
+# ---- the tools on top of the engine: phase 32
+
+SYSID_NSTEP = 50
+# the humanoid's 21 hinge dampings (the free joint's 6 dofs apart)
+SYSID_SPEC = [("dof_damping", list(range(6, 27)))]
+# the fit's start, a factor on the true dampings: from 1.2× or 1.05× the
+# reference's Gauss-Newton (and the port's, step for step) leaves the
+# basin on this 50-step run, from 1.01× it converges (PERF.md §6)
+SYSID_START = 1.01
+SYSID_MAX_ITER = 10
+IK_OFFSET = (0.1, 0.0, 0.0)
+
+
+def sysid_ctrls(nstep: int, nu: int) -> np.ndarray:
+  """ctrl_j(t) = 0.3·sin(0.1·t + j), the sysid run's controls."""
+  return 0.3 * np.sin(0.1 * np.arange(nstep)[:, None]
+                      + np.arange(nu)[None, :])
+
+
+def sysid_jacobian(device, observed):
+  """(r, J) of the sysid fit's residual on the humanoid at f64 at the
+  fit's start (the true dampings × SYSID_START), on ``device``."""
+  from mujoco_tpu_torch import minimize, sysid
+  from mujoco_tpu_torch.models import io, zoo
+  m = zoo.humanoid(torch.float64, device)
+  d0 = io.make_data(m, device=device)
+  res = sysid.residual_fn(m, d0, sysid_ctrls(SYSID_NSTEP, m.nu), observed,
+                          SYSID_SPEC)
+  return minimize.jacobian(res, SYSID_START * sysid.get_params(m, SYSID_SPEC))
+
+
+def ik_case(device):
+  """IK on ``humanoid_sensors``: the ``hand_r`` site moved IK_OFFSET from
+  its rest position, the free joint's 7 qpos held. Returns (result,
+  the site's position at the result, the target)."""
+  from mujoco_tpu_torch import minimize
+  from mujoco_tpu_torch.models import io, zoo
+  from mujoco_tpu_torch.ops import smooth
+  m = zoo.load("humanoid_sensors", torch.float64, device)
+  d = io.make_data(m, device=device)
+  site = m.names["site"]["hand_r"]
+  target = smooth.kinematics(m, d).site_xpos[0, site] + torch.tensor(
+      IK_OFFSET, dtype=torch.float64, device=device)
+  mask = np.ones(m.nq, dtype=bool)
+  mask[:7] = False
+  out = minimize.ik(m, d, site, target, joint_mask=mask)
+  reached = smooth.kinematics(m, d.replace(qpos=out.x[None])).site_xpos[
+      0, site]
+  return out, reached, target
+
+
+def seeded_box_qp(n=27, seed=32):
+  """A box QP of order n from a numpy seed: (h, g, lower, upper)."""
+  rng = np.random.default_rng(seed)
+  a = rng.standard_normal((n, n))
+  return (a @ a.T + n * np.eye(n), 2.0 * rng.standard_normal(n),
+          -0.5 * np.abs(rng.standard_normal(n)),
+          0.5 * np.abs(rng.standard_normal(n)))
+
+
+def seeded_band(ntotal=27, nband=3, ndense=6, seed=33):
+  """An SPD band-dense matrix (ntotal, nband, ndense) and a vector from a
+  numpy seed."""
+  rng = np.random.default_rng(seed)
+  a = rng.standard_normal((ntotal, ntotal))
+  spd = a @ a.T + ntotal * np.eye(ntotal)
+  from mujoco_tpu_torch.utils import math as mjm
+  return (mjm.dense_to_band(torch.as_tensor(spd), ntotal, nband,
+                            ndense).numpy(), rng.standard_normal(ntotal))
+
+
+def small_solves(device):
+  """``box_qp`` and ``chol_solve_band`` on the seeded problems, at f64."""
+  from mujoco_tpu_torch.utils import math as mjm
+  put = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+  x, conv = mjm.box_qp(*(put(a) for a in seeded_box_qp()))
+  mat, vec = seeded_band()
+  shape = (27, 3, 6)
+  sol = mjm.chol_solve_band(mjm.chol_factor_band(put(mat), *shape),
+                            put(vec), *shape)
+  return x.cpu().numpy(), bool(conv), sol.cpu().numpy()
+
+
+# the CPU side of phase 32, run in a process of its own beside the card's
+# fit: the sysid Jacobian at the fit's start, the IK solve and the small
+# solves with the plain versions, with their seconds
+TOOLS_ON_CPU = """
+import json, os, sys, time
+import numpy as np, torch
+# two threads, so that the card's process, bound by its host, keeps the
+# other cores
+torch.set_num_threads(2)
+import chip_smoke
+out = sys.argv[1]
+t0 = time.perf_counter()
+r, jac = chip_smoke.sysid_jacobian("cpu", np.load(os.path.join(out,
+                                                     "observed.npy")))
+jac_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+ik, reached, target = chip_smoke.ik_case("cpu")
+ik_s = time.perf_counter() - t0
+box, conv, band = chip_smoke.small_solves("cpu")
+np.savez(os.path.join(out, "cpu.npz"), r=r.numpy(), jac=jac.numpy(),
+         ik=ik.x.numpy(), box=box, band=band)
+with open(os.path.join(out, "cpu.json"), "w") as f:
+  json.dump({"jacobian_s": jac_s, "ik_s": ik_s, "ik_niter": ik.niter,
+             "box_converged": conv}, f)
+"""
+
+
+def phase_tools(report, details):
+  """32: the tools on top of the engine. sysid on the humanoid at f64
+  (the 21 hinge dampings from 1.2× their values against the port's own
+  50-step run at the true ones): the Jacobian at the start on the card
+  against the CPU's, at least one LDL and one Newton launch per step of
+  its rollout, the fit back on the true values within 1e-6 relative; IK
+  on ``humanoid_sensors`` (card = CPU, the site on its target); testspeed
+  of the humanoid from its snapshot and its XML (one megastep launch per
+  timed call); the printer, box QP and banded Cholesky card = CPU; the
+  multi-device dry run on the card; ``io._tree_topology`` of
+  ``multi_humanoid10`` timed on the host. The CPU side runs in a process
+  of its own beside the card's fit."""
+  import tempfile
+  from mujoco_tpu_torch import sysid, testspeed
+  from mujoco_tpu_torch.models import io, printer, zoo
+  from mujoco_tpu_torch.parallel.dryrun import dryrun_multichip
+  card = card_line()
+  m = zoo.humanoid(torch.float64, "cuda")
+  d0 = io.make_data(m, device="cuda")
+  ctrls = sysid_ctrls(SYSID_NSTEP, m.nu)
+  x_true = sysid.get_params(m, SYSID_SPEC)
+  observed = sysid.simulate(m, d0, ctrls)
+  tmp = tempfile.TemporaryDirectory()
+  np.save(os.path.join(tmp.name, "observed.npy"), observed.cpu().numpy())
+  env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+      [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+  cpu_side = subprocess.Popen([sys.executable, "-c", TOOLS_ON_CPU, tmp.name],
+                              env=env, cwd=ROOT)
+  try:
+    # the Jacobian at the start, its rollout's launches counted
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r0, jac = sysid_jacobian("cuda", observed)
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    jac_launches = read_counts()
+    per_step = {k: v / SYSID_NSTEP for k, v in jac_launches.items()}
+    # the fit
+    m_start = sysid.apply_params(m, SYSID_SPEC, SYSID_START * x_true)
+    reset_counts()
+    t0 = time.perf_counter()
+    fit = sysid.fit(m_start, d0, ctrls, observed, SYSID_SPEC,
+                    max_iter=SYSID_MAX_ITER)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_counts()
+    rel = float(((fit.x - x_true).abs() / x_true.abs()).max())
+    trips = min(fit.niter + 1, SYSID_MAX_ITER)
+    # IK, printer and the small solves on the card
+    ik, reached, target = ik_case("cuda")
+    ik_miss = float((reached - target).abs().max())
+    text_card = printer.print_model(m)
+    box, box_conv, band = small_solves("cuda")
+    if cpu_side.wait(timeout=600) != 0:
+      raise AssertionError(f"the CPU side exited {cpu_side.returncode}")
+    cpu = dict(np.load(os.path.join(tmp.name, "cpu.npz")))
+    with open(os.path.join(tmp.name, "cpu.json")) as f:
+      cpu_times = json.load(f)
+  finally:
+    if cpu_side.poll() is None:
+      cpu_side.kill()
+      cpu_side.wait()
+    tmp.cleanup()
+  jac_gap = float(np.abs(jac.cpu().numpy() - cpu["jac"]).max()
+                  / np.abs(cpu["jac"]).max())
+  cost0 = 0.5 * float((r0 * r0).sum())
+  print(f"sysid humanoid f64: {len(x_true)} dampings from "
+        f"{SYSID_START}x, {SYSID_NSTEP} steps, max_iter {SYSID_MAX_ITER}: "
+        f"{fit.niter} iterations before the freeze ({trips} trips), cost "
+        f"{cost0:.6e} -> {float(fit.cost):.6e}, largest relative error of "
+        f"x {rel:.3e} (limit 1e-6); fit {fit_s:.2f} s, {fit_s / trips:.2f} "
+        f"s per trip, launches {fit_launches} ({card})", flush=True)
+  print(f"sysid Jacobian rollout (B {len(x_true)}, {SYSID_NSTEP} steps): "
+        f"{jac_s:.2f} s on the card, {cpu_times['jacobian_s']:.2f} s on the "
+        f"CPU; launches per step {per_step}; largest |card - CPU| over the "
+        f"largest |CPU| {jac_gap:.3e} (limit 1e-8)", flush=True)
+  if not jac_gap <= 1e-8:
+    raise AssertionError(f"sysid Jacobian: card against CPU {jac_gap:.3e}")
+  if not rel <= 1e-6:
+    raise AssertionError(f"sysid: dampings off by {rel:.3e} relative")
+  if (per_step["ldl_solve"] < 1 or per_step["newton_pyramidal"] < 1
+      or fit_launches["megastep"]):
+    raise AssertionError(f"sysid Jacobian rollout launches {jac_launches}: "
+                         f"want at least one LDL and one Newton a step")
+  ik_gap = float(np.abs(ik.x.cpu().numpy() - cpu["ik"]).max())
+  print(f"ik humanoid_sensors hand_r moved {IK_OFFSET} m, free joint held: "
+        f"{ik.niter} iterations, site off its target by {ik_miss:.3e} m "
+        f"(limit 1e-6), |x card - CPU| {ik_gap:.3e} (limit 1e-8)",
+        flush=True)
+  if not (ik_miss <= 1e-6 and ik_gap <= 1e-8):
+    raise AssertionError("ik: the site misses its target or card != CPU")
+  box_gap = float(np.abs(box - cpu["box"]).max())
+  band_gap = float(np.abs(band - cpu["band"]).max())
+  text_cpu = printer.print_model(zoo.humanoid(torch.float64, "cpu"))
+  print(f"print_model humanoid card == CPU: {text_card == text_cpu} "
+        f"({len(text_card.splitlines())} lines); box_qp n 27 |card - CPU| "
+        f"{box_gap:.3e}, converged {box_conv}; chol_solve_band (27, 3, 6) "
+        f"|card - CPU| {band_gap:.3e} (limit 1e-12)", flush=True)
+  if text_card != text_cpu or not (box_gap <= 1e-12 and band_gap <= 1e-12):
+    raise AssertionError("printer, box_qp or chol_solve_band: card != CPU")
+
+  # testspeed of the humanoid, from its snapshot and from its XML
+  speeds = {}
+  for label, model in (("snapshot", "humanoid"),
+                       ("xml", os.path.join(zoo.XML_DIR, "humanoid.xml"))):
+    reset_counts()
+    out = testspeed.main([model, "--nbatch", str(B), "--nstep",
+                          str(NSTEP)])
+    both = read_counts()
+    # the first call and the timed one, one megastep launch each
+    if not out["finite"] or out["launches"] != {
+        "ldl_solve": 0, "newton_pyramidal": 0, "megastep": 1} or both != {
+            "ldl_solve": 0, "newton_pyramidal": 0, "megastep": 2}:
+      raise AssertionError(f"testspeed {label}: {out}, both calls {both}")
+    speeds[label] = out
+  main_sps = details.get("main_path", {}).get("env_steps_per_s")
+  print(f"testspeed humanoid f32 B{B} {NSTEP} steps: "
+        f"{speeds['snapshot']['env_steps_per_s']:.1f} env-steps/s from the "
+        f"snapshot, {speeds['xml']['env_steps_per_s']:.1f} from the XML, "
+        f"phase 5's {main_sps if main_sps is None else f'{main_sps:.1f}'} "
+        f"({card})", flush=True)
+
+  heights = dryrun_multichip(["cuda"])
+  snap = zoo.load_snapshot("multi_humanoid10")
+  t0 = time.perf_counter()
+  io._tree_topology(snap["body_parentid"], snap["body_dofadr"],
+                    snap["body_dofnum"], snap["dof_parentid"],
+                    int(snap["nv"]), snap["dof_jntid"], snap["jnt_type"],
+                    snap["jnt_dofadr"])
+  topo_s = time.perf_counter() - t0
+  print(f"io._tree_topology multi_humanoid10 (nv {int(snap['nv'])}): "
+        f"{topo_s:.4f} s on the card's host", flush=True)
+  details["tools"] = dict(
+      card=card, sysid=dict(
+          nstep=SYSID_NSTEP, nparam=len(x_true), start=SYSID_START,
+          max_iter=SYSID_MAX_ITER, niter=fit.niter, trips=trips,
+          cost_start=cost0, cost_end=float(fit.cost), max_rel_err=rel,
+          fit_s=fit_s, s_per_trip=fit_s / trips, fit_launches=fit_launches,
+          jacobian_card_s=jac_s,
+          jacobian_cpu_s=cpu_times["jacobian_s"], jacobian_gap=jac_gap,
+          jacobian_launches=jac_launches, launches_per_step=per_step),
+      ik=dict(niter=ik.niter, miss_m=ik_miss, card_vs_cpu=ik_gap,
+              cpu_s=cpu_times["ik_s"]),
+      box_qp_gap=box_gap, band_gap=band_gap,
+      testspeed={k: {kk: v[kk] for kk in ("env_steps_per_s", "first_s",
+                                          "run_s", "route", "launches")}
+                 for k, v in speeds.items()},
+      dryrun=heights, tree_topology_multi_humanoid10_s=topo_s)
+  for k in ("ldl_solve", "newton_pyramidal", "megastep"):
+    paths = report[k].setdefault("launches_by_path", {})
+    paths["sysid_jacobian"] = jac_launches[k]
+    paths["testspeed"] = sum(v["launches"][k] for v in speeds.values())
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5512,7 +5799,7 @@ def main() -> int:
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
             phase_actuation, phase_control_loop, phase_flex, phase_pixels,
-            phase_wide_megastep, phase_sdf, phase_compiler)
+            phase_wide_megastep, phase_sdf, phase_compiler, phase_tools)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

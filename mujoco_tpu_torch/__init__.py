@@ -31,9 +31,12 @@ module the port has):
   render / render_scene                  # batched RGB, depth and seg
   skin_update / vis / export_usd         # skins, scene table, USD stage
   plugin                                 # SDF shapes, mjcb_* callbacks
+  sysid                                  # parameter fits by Gauss-Newton
 
-``record`` and ``viewer`` are modules of their own (``python -m
-mujoco_tpu_torch.record``, ``python -m mujoco_tpu_torch.viewer``).
+``minimize`` (least squares, ``ik``) and ``models.printer`` are modules of
+their own, as in the reference; ``record``, ``viewer`` and ``testspeed``
+run as ``python -m mujoco_tpu_torch.record`` (``.viewer``,
+``.testspeed``), and ``parallel.dryrun`` splits a batch over devices.
 """
 
 import torch
@@ -60,7 +63,7 @@ from mujoco_tpu_torch.ops.inverse import compare_fwd_inv, inverse
 from mujoco_tpu_torch.ops.derivative_fd import (inverse_derivatives,
                                                 transition, transition_fd)
 from mujoco_tpu_torch.ops.ray import ray, ray_geom
-from mujoco_tpu_torch import compiler, plugin, vis
+from mujoco_tpu_torch import compiler, plugin, sysid, vis
 from mujoco_tpu_torch import usd_export
 from mujoco_tpu_torch.ops.skin import skin_update
 from mujoco_tpu_torch.usd_export import export_usd

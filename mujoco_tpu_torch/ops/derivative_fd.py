@@ -24,11 +24,14 @@ stateDiff differences perturbed-next against nominal-next.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.autograd.forward_ad as fwAD
 
 from mujoco_tpu_torch.models.types import Data, Model
 from mujoco_tpu_torch.ops import actuation, forward, inverse, support
+from mujoco_tpu_torch.utils.struct import is_static
 
 
 def _repeat(d: Data, k: int) -> Data:
@@ -68,19 +71,42 @@ def _next_state(m: Model, d: Data, qpos_next0, w):
   return dq, out.qvel, out.act, out.sensordata
 
 
-def _tangents(d: Data, ndir: int, fn):
+def zero_tangents(v):
+  """v (a Model, a Data, or a tensor) with every finite floating tensor
+  that carries no tangent given an explicit zero one, inside a
+  ``fwAD.dual_level``. Values and tangents stay the same. An op that mixes
+  a dual tensor with a plain one gives the plain one an efficient zero
+  tangent, and PyTorch computes that zero's shape through its Python meta
+  kernels: a few hundred µs of host time per op, against tens for an op
+  of two duals. Tensors that hold an inf or a NaN stay plain, so that no
+  0·inf enters a tangent."""
+  if isinstance(v, torch.Tensor):
+    if (v.is_floating_point() and fwAD.unpack_dual(v).tangent is None
+        and bool(torch.isfinite(v).all())):
+      return fwAD.make_dual(v, torch.zeros_like(v))
+    return v
+  if dataclasses.is_dataclass(v):
+    return v.replace(**{f.name: zero_tangents(getattr(v, f.name))
+                        for f in dataclasses.fields(v) if not is_static(f)})
+  return v
+
+
+def _tangents(m: Model, d: Data, ndir: int, fn):
   """Forward-mode Jacobians of ``fn`` at d along the ndir unit directions:
   d's envs repeated ndir times, copy j of each env given direction j as
-  the tangent of a zero displacement w (B·ndir, ndir); ``fn(dr, w)``, dr
-  the repeated envs, returns a tuple of (B·ndir, k) outputs (``fn`` steps
-  a Model repeated alike, ``Model.repeat_envs``). Returns each output's
-  tangents as (B, ndir, k): row j the derivative along direction j."""
+  the tangent of a zero displacement w (B·ndir, ndir); ``fn(mr, dr, w)``,
+  dr the repeated envs and mr the Model repeated alike
+  (``Model.repeat_envs``), both with zero tangents on their other tensors
+  (``zero_tangents``), returns a tuple of (B·ndir, k) outputs. Returns
+  each output's tangents as (B, ndir, k): row j the derivative along
+  direction j."""
   nbatch = d.qpos.shape[0]
   eye = torch.eye(ndir, dtype=d.qpos.dtype, device=d.qpos.device)
   seeds = eye.repeat(nbatch, 1)
   with fwAD.dual_level():
     w = fwAD.make_dual(torch.zeros_like(seeds), seeds)
-    outs = fn(_repeat(d, ndir), w)
+    outs = fn(zero_tangents(m.repeat_envs(ndir)),
+              zero_tangents(_repeat(d, ndir)), w)
     tangents = []
     for o in outs:
       t = fwAD.unpack_dual(o).tangent
@@ -97,12 +123,11 @@ def transition(m: Model, d: Data):
   nv, na, nu, nx = _sizes(m)
   ndir = nx + nu
   qpos_next0 = forward.step(m, d).qpos.repeat_interleave(ndir, dim=0)
-  mr = m.repeat_envs(ndir)
 
-  def fn(dr, w):
+  def fn(mr, dr, w):
     return _next_state(mr, dr, qpos_next0, w)
 
-  tq, tv, ta, ts = _tangents(d, ndir, fn)
+  tq, tv, ta, ts = _tangents(m, d, ndir, fn)
   # (B, ndir, k) → (B, k, ndir): rows outputs, columns directions
   x = torch.cat([tq, tv, ta], dim=-1).transpose(1, 2)
   s = ts.transpose(1, 2)
@@ -145,9 +170,8 @@ def inverse_derivatives(m: Model, d: Data, flg_actuation: bool = True):
   subtracts qfrc_actuator from qfrc_inverse, as the reference's flag. m
   may be a per-env Model of d's envs."""
   nv = m.nv
-  mr = m.repeat_envs(3 * nv)
 
-  def fn(dr, w):
+  def fn(mr, dr, w):
     zero_a = w.new_zeros((w.shape[0], m.na))
     zero_u = w.new_zeros((w.shape[0], m.nctrl))
     dd = _apply_tangent(mr, dr, w[:, :nv], w[:, nv:2 * nv], zero_a, zero_u)
@@ -157,6 +181,6 @@ def inverse_derivatives(m: Model, d: Data, flg_actuation: bool = True):
       qfrc = qfrc - actuation.fwd_actuation(mr, out).qfrc_actuator
     return qfrc, out.sensordata
 
-  tf, ts = _tangents(d, 3 * nv, fn)
+  tf, ts = _tangents(m, d, 3 * nv, fn)
   return (tf[:, :nv], tf[:, nv:2 * nv], tf[:, 2 * nv:],
           ts[:, :nv], ts[:, nv:2 * nv], ts[:, 2 * nv:])

@@ -1,5 +1,7 @@
 """Quaternion and spatial (6D) algebra on tensors with any leading batch
-dims (port of mujoco_tpu/utils/math.py:1-231).
+dims (port of mujoco_tpu/utils/math.py:1-231), the box-constrained QP
+(``box_qp``, :234) and the banded Cholesky family in the band-dense layout
+(:296-375).
 
 Conventions are the reference's: quaternions (w, x, y, z); spatial vectors
 angular-first, v = (omega; v_lin), f = (torque; force).
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
@@ -88,6 +91,14 @@ def normalize(x):
   return x / norm_safe(x, keepdim=True)
 
 
+def _twice(a):
+  """2·a, bit for bit, as a + a: under forward-mode AD a product with a
+  Python number gives that number an efficient zero tangent whose shape
+  PyTorch works out through its Python meta kernels, a few hundred µs of
+  host time per op against ~10 for a sum of two duals."""
+  return a + a
+
+
 def mul_quat(q1, q2):
   """Hamilton product q1 ⊗ q2 (mju_mulQuat)."""
   w1, x1, y1, z1 = q1.unbind(-1)
@@ -109,7 +120,7 @@ def rot_vec_quat(v, q):
   w = q[..., :1]
   r = q[..., 1:]
   cross1 = cross(r, v) + w * v
-  return v + 2.0 * cross(r, cross1)
+  return v + _twice(cross(r, cross1))
 
 
 def quat_to_mat(q):
@@ -118,12 +129,14 @@ def quat_to_mat(q):
   xx, yy, zz = x * x, y * y, z * z
   xy, xz, yz = x * y, x * z, y * z
   wx, wy, wz = w * x, w * y, w * z
-  m = torch.stack([
-      1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
-      2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
-      2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
-  ], dim=-1)
-  return m.reshape(m.shape[:-1] + (3, 3))
+  m = _twice(torch.stack([
+      yy + zz, xy - wz, xz + wy,
+      xy + wz, xx + zz, yz - wx,
+      xz - wy, yz + wx, xx + yy,
+  ], dim=-1)).reshape(q.shape[:-1] + (3, 3))
+  # the diagonal is 1 − 2·(…), the rest 2·(…)
+  eye = torch.eye(3, dtype=torch.bool, device=q.device)
+  return torch.where(eye, 1.0 - m, m)
 
 
 def axis_angle_to_quat(axis, angle):
@@ -219,6 +232,147 @@ def transform_spatial(vec, flg_force: bool, newpos, oldpos, rotnew2old=None):
     ang = (ang[..., None, :] @ rotnew2old)[..., 0, :]
     lin = (lin[..., None, :] @ rotnew2old)[..., 0, :]
   return torch.cat([ang, lin], dim=-1)
+
+
+def box_qp(h, g, lower, upper, x0=None, maxiter=100):
+  """Box-constrained QP: minimize ½xᵀHx + gᵀx s.t. lower ≤ x ≤ upper, for
+  h (..., n, n) and g (..., n) with any leading batch dims (the reference
+  vmaps its single problem; mujoco_tpu/utils/math.py:234).
+
+  The projected Newton of mju_boxQP: the clamped set from the gradient's
+  sign at the bounds, a Newton step on the free subspace (a masked solve:
+  clamped rows and columns become the identity), Armijo backtracking over
+  25 halvings on the projected path. H must be SPD on the free subspace.
+  Each problem freezes once converged. On the CPU the loop stops once
+  every problem is frozen (the result is the same); on the card it runs
+  ``maxiter`` iterations, so nothing is read back. Returns (x, converged),
+  converged a bool tensor of the batch shape."""
+  n = h.shape[-1]
+  dtype, dev = h.dtype, h.device
+  batch = torch.broadcast_shapes(h.shape[:-2], g.shape[:-1])
+  h = h.expand(batch + (n, n))
+  g = g.expand(batch + (n,))
+  lower = torch.as_tensor(lower, dtype=dtype, device=dev).expand(batch + (n,))
+  upper = torch.as_tensor(upper, dtype=dtype, device=dev).expand(batch + (n,))
+  x = (torch.zeros(batch + (n,), dtype=dtype, device=dev) if x0 is None
+       else torch.as_tensor(x0, dtype=dtype, device=dev).expand(batch + (n,)))
+  x = torch.clamp(x, lower, upper)
+  eye = torch.eye(n, dtype=dtype, device=dev)
+  alphas = 0.5 ** torch.arange(25, dtype=dtype, device=dev)
+  done = torch.zeros(batch, dtype=torch.bool, device=dev)
+
+  def cost(y):
+    return 0.5 * dot(y, mat_vec(h[..., None, :, :], y)) + dot(y, g[..., None, :])
+
+  for _ in range(maxiter):
+    grad = mat_vec(h, x) + g
+    clamped = ((x <= lower) & (grad > 0)) | ((x >= upper) & (grad < 0))
+    free = ~clamped
+    gfree = torch.where(free, grad, 0.0)
+    gnorm = (gfree ** 2).sum(-1)
+    fm = free.to(dtype)
+    hmask = h * fm[..., :, None] * fm[..., None, :] + eye * (1.0 - fm)[
+        ..., None, :]
+    dx = -torch.linalg.solve(hmask, gfree)
+    dx = torch.where(free, dx, 0.0)
+    sdotg = dot(dx, grad)
+    c0 = 0.5 * dot(x, mat_vec(h, x)) + dot(x, g)
+    cand = torch.clamp(x[..., None, :] + alphas[:, None] * dx[..., None, :],
+                       lower[..., None, :], upper[..., None, :])
+    ok = cost(cand) <= c0[..., None] + 0.1 * alphas * sdotg[..., None]
+    anyok = ok.any(-1)
+    first = ok.to(torch.int8).argmax(-1)
+    pick = torch.gather(cand, -2, first[..., None, None].expand(
+        batch + (1, n)))[..., 0, :]
+    x_new = torch.where(anyok[..., None], pick, x)
+    conv = (gnorm < 1e-16) | ~anyok
+    x = torch.where(done[..., None], x, x_new)
+    done = done | conv
+    if dev.type != "cuda" and bool(done.all()):
+      break
+  return x, done
+
+
+# ---------------------------------------------------------------------------
+# banded linear algebra (mju_cholFactorBand / mju_cholSolveBand /
+# mju_bandMulMatVec; mujoco_tpu/utils/math.py:287-375) in the band-dense
+# layout: the first (ntotal − ndense)·nband entries hold each banded row's
+# in-band slice (left of and including the diagonal), the last ndense rows
+# are stored dense. Leading batch dims broadcast.
+# ---------------------------------------------------------------------------
+
+
+def _band_slots(ntotal, nband, ndense):
+  """(row, column, slot) of every in-band entry of the banded rows."""
+  nb = ntotal - ndense
+  rows, slots = np.meshgrid(np.arange(nb), np.arange(nband), indexing="ij")
+  cols = rows - (nband - 1 - slots)
+  keep = cols >= 0
+  return rows[keep], cols[keep], (rows * nband + slots)[keep]
+
+
+def band_to_dense(mat, ntotal, nband, ndense, symmetric=True):
+  """Band-dense (..., L) → full dense (..., ntotal, ntotal)
+  (mju_band2Dense). With symmetric=True the strict upper triangle is
+  mirrored from the lower."""
+  nb = ntotal - ndense
+  rows, cols, slots = _band_slots(ntotal, nband, ndense)
+  out = mat.new_zeros(mat.shape[:-1] + (ntotal, ntotal))
+  out[..., rows, cols] = mat[..., slots]
+  if ndense:
+    out[..., nb:, :] = mat[..., nb * nband:].reshape(
+        mat.shape[:-1] + (ndense, ntotal))
+  if symmetric:
+    out = torch.tril(out) + torch.tril(out, -1).transpose(-1, -2)
+  return out
+
+
+def dense_to_band(dense, ntotal, nband, ndense):
+  """Full dense (..., ntotal, ntotal) → band-dense layout
+  (mju_dense2Band); entries outside the band are dropped."""
+  nb = ntotal - ndense
+  rows, cols, slots = _band_slots(ntotal, nband, ndense)
+  flat = dense.new_zeros(dense.shape[:-2] + (nb * nband,))
+  flat[..., slots] = dense[..., rows, cols]
+  if ndense:
+    flat = torch.cat([flat, dense[..., nb:, :].reshape(
+        dense.shape[:-2] + (-1,))], dim=-1)
+  return flat
+
+
+def chol_factor_band(mat, ntotal, nband, ndense, diagadd=0.0, diagmul=0.0):
+  """Banded Cholesky in the band-dense layout (mju_cholFactorBand): adds
+  diagadd + diagmul·mat_ii to the diagonal, then factors. Returns the
+  band-dense lower factor; the dense rows' entries above the diagonal keep
+  their input values, as the reference's in-place factor does."""
+  a = band_to_dense(mat, ntotal, nband, ndense, symmetric=True)
+  diag = torch.diagonal(a, dim1=-2, dim2=-1)
+  a = a + torch.diag_embed(diagadd + diagmul * diag)
+  out = dense_to_band(torch.linalg.cholesky(a), ntotal, nband, ndense)
+  if ndense:
+    nb = ntotal - ndense
+    upper = torch.as_tensor(
+        np.arange(ntotal)[None, :] > nb + np.arange(ndense)[:, None],
+        device=mat.device).reshape(-1)
+    tail = torch.where(upper, mat[..., nb * nband:], out[..., nb * nband:])
+    out = torch.cat([out[..., :nb * nband], tail], dim=-1)
+  return out
+
+
+def chol_solve_band(factor, vec, ntotal, nband, ndense):
+  """Solve L Lᵀ x = vec with a band-dense factor (mju_cholSolveBand);
+  vec (..., ntotal)."""
+  lo = torch.tril(band_to_dense(factor, ntotal, nband, ndense,
+                                symmetric=False))
+  y = torch.linalg.solve_triangular(lo, vec[..., None], upper=False)
+  return torch.linalg.solve_triangular(lo.transpose(-1, -2), y,
+                                       upper=True)[..., 0]
+
+
+def band_mul_vec(mat, vec, ntotal, nband, ndense, flg_sym=True):
+  """Band-dense matrix × vector (mju_bandMulMatVec, symmetric fill)."""
+  return mat_vec(band_to_dense(mat, ntotal, nband, ndense,
+                               symmetric=flg_sym), vec)
 
 
 def mat_to_rot_quat(mat, iters: int = 128):

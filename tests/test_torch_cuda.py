@@ -1204,3 +1204,72 @@ def test_render_card_matches_cpu_f64(cuda, name):
   assert hits > 0 and judged <= 0.01 * 8 * 32 * 32
   assert (linalg_cuda.LAUNCHES, newton_cuda.LAUNCHES,
           megastep_cuda.LAUNCHES) == (0, 0, 0)
+
+
+ARM_XML = """
+<mujoco>
+  <option timestep="0.005"/>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint name="j1" type="hinge" axis="0 1 0" damping="0.31"/>
+      <geom type="capsule" size="0.04" fromto="0 0 0 0.4 0 0" density="900"/>
+      <body pos="0.4 0 0">
+        <joint name="j2" type="hinge" axis="0 1 0" damping="0.12"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator><motor joint="j1" gear="2"/><motor joint="j2"/></actuator>
+</mujoco>"""
+
+
+def _sysid_case(name, dev):
+  """(Model, spec, steps) of a sysid Jacobian check on ``dev`` at f64:
+  tests/test_torch_sysid.py's arm (no constraint row; compiled by the
+  port's compiler) or the humanoid's 21 hinge dampings."""
+  from mujoco_tpu_torch import compiler
+  from mujoco_tpu_torch.models import io
+  if name == "arm":
+    return (io.put_model(compiler.load_xml(ARM_XML, device=dev),
+                         dtype=torch.float64, device=dev),
+            [("dof_damping", None), ("body_mass", [2])], 30)
+  return (zoo.humanoid(torch.float64, dev),
+          [("dof_damping", list(range(6, 27)))], 10)
+
+
+@pytest.mark.parametrize("name", ["arm", "humanoid"])
+def test_sysid_jacobian_card_matches_cpu(cuda, name):
+  """The Jacobian of sysid's residual (one rollout of dual copies) on the
+  card equals the CPU's to 1e-9 of its largest entry; each step of the
+  card's rollout launches the LDL kernel at least twice (a solve and its
+  forward-mode rule) and, where the model has constraint rows, the
+  Newton kernel once."""
+  from mujoco_tpu_torch import minimize, sysid
+  from mujoco_tpu_torch.models import io
+  out = {}
+  for dev in ("cpu", cuda):
+    m, spec, nstep = _sysid_case(name, dev)
+    d0 = io.make_data(m, device=dev)
+    ctrls = 0.3 * np.sin(0.1 * np.arange(nstep)[:, None]
+                         + np.arange(m.nu)[None])
+    res = sysid.residual_fn(m, d0, ctrls, np.zeros((nstep, m.nq)), spec)
+    x0 = 1.05 * sysid.get_params(m, spec)
+    linalg_cuda.LAUNCHES = newton_cuda.LAUNCHES = 0
+    out[str(dev)] = [t.cpu() for t in minimize.jacobian(res, x0)]
+    torch.cuda.synchronize()
+  assert linalg_cuda.LAUNCHES >= 2 * nstep
+  assert newton_cuda.LAUNCHES == (nstep if m.efc.nefc else 0)
+  (r_cpu, j_cpu), (r_card, j_card) = out["cpu"], out[str(cuda)]
+  assert (j_card - j_cpu).abs().max() <= 1e-9 * j_cpu.abs().max()
+  assert (r_card - r_cpu).abs().max() <= 1e-9 * max(r_cpu.abs().max(), 1)
+
+
+def test_testspeed_is_one_megastep_launch(cuda, capsys):
+  """testspeed of the humanoid at f32: the timed call is one megastep
+  launch and no LDL or Newton launch, and the state stays finite."""
+  from mujoco_tpu_torch import testspeed
+  out = testspeed.main(["humanoid", "--nbatch", "256", "--nstep", "20"])
+  assert out["launches"] == {"ldl_solve": 0, "newton_pyramidal": 0,
+                             "megastep": 1}
+  assert out["finite"] and out["route"].startswith("megastep")
+  assert "finite         : True" in capsys.readouterr().out

@@ -146,7 +146,7 @@ def test_public_api_names_the_ported_modules():
                "ray_geom", "init_sleep", "contact_force", "smooth",
                "support", "Model", "Data", "vis", "usd_export",
                "export_usd", "skin_update", "render", "render_scene",
-               "compiler"):
+               "compiler", "sysid"):
     assert hasattr(mujoco_tpu_torch, name), name
 
 
@@ -161,7 +161,11 @@ _FULL_MODULES = {"ops/flex.py": "mujoco_tpu_torch.ops.flex",
                  "vis.py": "mujoco_tpu_torch.vis",
                  "usd_export.py": "mujoco_tpu_torch.usd_export",
                  "record.py": "mujoco_tpu_torch.record",
-                 "viewer.py": "mujoco_tpu_torch.viewer"}
+                 "viewer.py": "mujoco_tpu_torch.viewer",
+                 "minimize.py": "mujoco_tpu_torch.minimize",
+                 "sysid.py": "mujoco_tpu_torch.sysid",
+                 "models/printer.py": "mujoco_tpu_torch.models.printer",
+                 "testspeed.py": "mujoco_tpu_torch.testspeed"}
 
 
 # modules whose private helpers the port keeps too, by the same names
