@@ -420,16 +420,34 @@ Phases, each of which passes or ends the script with a nonzero exit:
    beside phase 5's; ``parallel.dryrun.dryrun_multichip`` on the card;
    ``io._tree_topology`` of ``multi_humanoid10`` timed on the host. The
    CPU side runs in a process of its own beside the card's fit.
+33. the per-env leaves past the eighteen: the pixel-RL loop of
+   ``humanoid_pixels`` with its nine render leaves (``rollout.
+   RENDER_LEAVES``), ``geom_size`` and ``jnt_range`` drawn per env, f32, B
+   3072, 64×64, 10 control steps of 5 physics steps of
+   ``step_randomized`` and a frame of every env with the per-env Model
+   after each: the humanoid in 99 % of every frame, exactly one LDL and
+   one Newton launch per physics step, env-frames/s beside phase 28's
+   plain loop; the LDL and Newton kernels on the randomized humanoid's qM
+   and rows at f64, B 3072, against their plain versions (phase 25's
+   ``path_kernels_gate``); the same loop at f64, B 16, 2 control steps,
+   card = CPU (the states by ``randomized_card_vs_cpu``, the 32×32 frames
+   by ``pixel_judge``); ``humanoid_tendon`` with the eleven tendon leaves
+   and ``quadruped_sim2real`` at implicitfast with ``SIM2REAL_LEAVES`` and
+   the three actuator leaves, each f32, B 3072, 20 steps of
+   ``step_randomized`` (finite, one LDL and one Newton launch per step,
+   env-steps/s, the idle share of a profiled 3-step window) and f64, B
+   256, 5 steps card = CPU.
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 32 (phase 26's ``discrete_acc``, ``transition`` and
+and 13 to 33 (phase 26's ``discrete_acc``, ``transition`` and
 ``randomized``; phase 27's ``humanoid_hammock``; the megastep's phase
 28 ``humanoid_pixels`` and phase 29's ``multi_humanoid3`` and
 ``multi_humanoid10_monolithic``; phase 30's ``sdf_nutbolt``; phase 31's
 ``compiled_humanoid`` and ``compiler_lengthrange``; phase 32's
-``sysid_jacobian`` and ``testspeed``); the
+``sysid_jacobian`` and ``testspeed``; phase 33's ``randomized_pixels``,
+``randomized_humanoid_tendon`` and ``randomized_quadruped_sim2real``); the
 megastep's ``wide`` entry holds phase
 29's times per scene; the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
@@ -2340,7 +2358,7 @@ def phase_option_scenes(report, details):
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
                  "22", "23", "24", "25", "26", "27", "28", "29", "30",
-                 "31", "32")
+                 "31", "32", "33")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -3369,13 +3387,16 @@ def without_delays(m, history=True):
                    sensor_interval=zero(m.sensor_interval))
 
 
-def path_kernels_gate(m64):
+def path_kernels_gate(m64, tag="quadruped_sim2real", step=None, d=None):
   """The LDL and Newton kernels on the arguments one stage-path step of
-  m64 (f64) gives them at B 3072, from the phase's start, against their
-  plain versions: the LDL elementwise at f64 and by backward error at f32
+  m64 (f64) gives them at B 3072 (``step(d)``, by default
+  ``forward.step`` from the quadruped's start), against their plain
+  versions: the LDL elementwise at f64 and by backward error at f32
   (``ldl_gate``), the Newton kernel at the model's iterations by phase
   11's rule (``newton_rows_gate``)."""
   from mujoco_tpu_torch.ops import forward, linalg_cuda, newton_cuda
+  if step is None:
+    step, d = lambda dd: forward.step(m64, dd), quadruped_batch(m64, B, 83)
   ldl_args, newton_args = [], []
   spd, run = linalg_cuda.spd_solve, newton_cuda.run
 
@@ -3389,15 +3410,14 @@ def path_kernels_gate(m64):
 
   linalg_cuda.spd_solve, newton_cuda.run = spd_rec, run_rec
   try:
-    forward.step(m64, quadruped_batch(m64, B, 83))
+    step(d)
   finally:
     linalg_cuda.spd_solve, newton_cuda.run = spd, run
   if (len(ldl_args), len(newton_args)) != (1, 1):
     raise AssertionError(f"a step made {len(ldl_args)} LDL and "
                          f"{len(newton_args)} Newton solves")
   h, g = ldl_args[0]
-  ldl_err = {str(dt)[6:]: ldl_gate("quadruped_sim2real's qM",
-                                   h.to(dt), g.to(dt))
+  ldl_err = {str(dt)[6:]: ldl_gate(f"{tag}'s qM", h.to(dt), g.to(dt))
              for dt in (torch.float64, torch.float32)}
   args = newton_args[0]
   it, ls = int(m64.opt.iterations), int(m64.opt.ls_iterations)
@@ -3407,13 +3427,12 @@ def path_kernels_gate(m64):
   viol = newton_violation(out_k, out_p)
   off, worst_other, table = newton_rows_gate(args, out_k, out_p, it, ls)
   unmatched = [row for row in table if row[1] == 0]
-  print(f"newton rows quadruped_sim2real: nefc {m64.efc.nefc}, nv "
+  print(f"newton rows {tag}: nefc {m64.efc.nefc}, nv "
         f"{m64.nv}; f64 B{B} it{it} ls{ls} worst err / (1e-9 + "
         f"1e-9·|plain|) " + " ".join(f"{k} {v:.3f}" for k, v in viol.items())
         + f"; {len(off)} envs off elementwise, replayed {table}", flush=True)
   if len(off) > B // 100 or not worst_other <= 1.0 or unmatched:
-    raise AssertionError("newton rows quadruped_sim2real: kernel and plain "
-                         "disagree")
+    raise AssertionError(f"newton rows {tag}: kernel and plain disagree")
   return dict(ldl_abs_err=ldl_err, newton_violation=viol, off_envs=off,
               replay=table)
 
@@ -3777,19 +3796,13 @@ def control_leaves(m, nbatch, seed, leaves=None):
           for k, v in rollout.draw_leaves(m, nbatch, seed, leaves).items()}
 
 
-def take_model_envs(bm, idx):
-  """The per-env Model bm at its envs idx (its per-env leaves' rows)."""
-  return bm.replace_leaves({k: bm.leaf(k)[idx.to(bm.device)]
-                            for k in bm.env_leaves})
-
-
 def randomized_card_vs_cpu(bm_card, bm_cpu, d, nstep, fields):
   """nstep steps at f64 of a per-env Model (bm_card on the card, bm_cpu
   its copy on the CPU), each step of the CPU's state on both: ``fields``
   within 1e-8 absolute plus relative, an env that misses judged by
   last-bit copies of its state (qpos, qvel, act), each copy with its
-  env's leaves, on both sides (judge_envs). Returns the env-steps
-  judged."""
+  env's leaves, on both sides (judge_envs). Returns (the env-steps
+  judged, the CPU's state after the nstep steps)."""
   from mujoco_tpu_torch.ops import forward
   judged = 0
   for _ in range(nstep):
@@ -3803,7 +3816,7 @@ def randomized_card_vs_cpu(bm_card, bm_cpu, d, nstep, fields):
       copies = take_envs(d, rep)
       moved = {f: getattr(copies, f) * (1 + last_bits(
           getattr(copies, f).shape, gen)) for f in ("qpos", "qvel", "act")}
-      r = forward.step(take_model_envs(bm, rep),
+      r = forward.step(bm.envs(rep.to(bm.device)),
                        copies.replace(**moved).to(bm.device))
       return [getattr(r, f).reshape((len(idx), k) + getattr(r, f).shape[1:])
               for f in fields]
@@ -3814,7 +3827,7 @@ def randomized_card_vs_cpu(bm_card, bm_cpu, d, nstep, fields):
                          lambda idx: rerun(idx, bm_card), SCENE_COPIES, 1e-8,
                          1.0)
     d = out_h
-  return judged
+  return judged, d
 
 
 def step_loop(fn, d, nstep):
@@ -3842,9 +3855,9 @@ def control_randomized_phase(report):
   for dev in ("cuda", "cpu"):
     m = zoo.humanoid(torch.float64, device=dev)
     bms[dev], axes = rollout.randomize_model(m, control_leaves(m, B, 95))
-  judged = randomized_card_vs_cpu(bms["cuda"], bms["cpu"],
-                                  control_state(m, B, 96, "cpu"),
-                                  CONTROL_NSTEP, ("qpos", "qvel"))
+  judged, _ = randomized_card_vs_cpu(bms["cuda"], bms["cpu"],
+                                     control_state(m, B, 96, "cpu"),
+                                     CONTROL_NSTEP, ("qpos", "qvel"))
   m, bm = zoo.humanoid(torch.float64), bms["cuda"]
   start = control_state(m, B, 96)
   d_rand = start
@@ -3852,7 +3865,7 @@ def control_randomized_phase(report):
     d_rand = rollout.step_randomized(bm, axes, d_rand)
   single = 0.0
   for i in (0, 1, B // 3, B - 1):
-    plain = take_model_envs(bm, torch.tensor(i))
+    plain = bm.envs(i)
     if plain.env_leaves:
       raise AssertionError(f"env {i}'s Model keeps per-env leaves")
     di = take_envs(start, torch.tensor([i], device="cuda"))
@@ -3941,7 +3954,7 @@ def control_sim2real_phase(report):
     m64 = zoo.load("quadruped_sim2real", torch.float64, device=dev, opt=opt)
     bms[dev] = rollout.randomize_model(m64, control_leaves(
         m64, 8, 98, SIM2REAL_LEAVES))[0]
-  judged = randomized_card_vs_cpu(
+  judged, _ = randomized_card_vs_cpu(
       bms["cuda"], bms["cpu"], quadruped_batch(m64, 8, 99, "cpu"),
       SIM2REAL_CHECK_NSTEP, ACTUATION_FIELDS)
   for k in ("ldl_solve", "newton_pyramidal"):
@@ -4330,8 +4343,8 @@ def pixel_judge(card, cpu, mc, mh, dc, dh, camid, size, tol, **kw):
     o, v = orgs[b, k] * move, dirs[b, k] * move
 
     def matches(m, d, dev, other):
-      r, dd, sg = render_along(m, take_envs(d, [b]), o.to(dev, m.dtype),
-                               v.to(dev, m.dtype), **kw)
+      r, dd, sg = render_along(m.envs([b]), take_envs(d, [b]),
+                               o.to(dev, m.dtype), v.to(dev, m.dtype), **kw)
       want_r, want_d, want_s = (t[b, y, x] for t in other)
       same = sg.cpu() == want_s.cpu()
       same &= pixels_close(r, want_r.expand_as(r), tol).all(-1)
@@ -4391,16 +4404,19 @@ def pixel_controls(m, nbatch, seed):
   return [rng.uniform(lo, hi, (nbatch, m.nu)) for _ in range(PIXEL_CONTROL)]
 
 
-def pixel_loop(m, d, controls, camid, gate):
+def pixel_loop(m, d, controls, camid, gate, advance=None):
   """The pixel-RL loop: per control step, ctrl set, PIXEL_NSTEP steps of
-  scan_steps(check=True), the frames rebuilt, a frame of every env.
-  gate(m, frame) checks each frame and returns the share of envs that see
-  the humanoid; returns (the least such share, device ms of the steps and
-  of the frames, host wall s)."""
+  scan_steps(check=True) (or of ``advance(d)``), the frames rebuilt, a
+  frame of every env. gate(m, frame) checks each frame and returns the
+  share of envs that see the humanoid; returns (the least such share,
+  device ms of the steps and of the frames, host wall s)."""
   from mujoco_tpu_torch.models import io
   from mujoco_tpu_torch.ops import render
   from mujoco_tpu_torch.parallel import rollout
-  fresh = io.make_data(m)
+  if advance is None:
+    fresh = io.make_data(m)
+    advance = lambda dd: rollout.scan_steps(m, dd, PIXEL_NSTEP, fresh,
+                                            check=True)
   events, seen = [], 1.0
   torch.cuda.synchronize()
   t0 = time.perf_counter()
@@ -4408,7 +4424,7 @@ def pixel_loop(m, d, controls, camid, gate):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     d = d.replace(ctrl=torch.as_tensor(ctrl, dtype=m.dtype, device="cuda"))
     ev[0].record()
-    d = rollout.scan_steps(m, d, PIXEL_NSTEP, fresh, check=True)
+    d = advance(d)
     ev[1].record()
     frame = render.render(m, rebuild_frames(m, d), camid, PIXEL_SIZE,
                           PIXEL_SIZE)
@@ -5773,6 +5789,215 @@ def phase_tools(report, details):
     paths["testspeed"] = sum(v["launches"][k] for v in speeds.values())
 
 
+# phase 33: the leaves past the control loop's eighteen
+ENV_PIXEL_LEAVES = ("geom_size", "jnt_range")   # with the render leaves
+TENDON_LEAVES = ("tendon_stiffness", "tendon_damping", "tendon_frictionloss",
+                 "tendon_range", "tendon_lengthspring", "tendon_armature",
+                 "tendon_margin", "tendon_solref_lim", "tendon_solimp_lim",
+                 "tendon_solref_fri", "tendon_solimp_fri")
+ACTUATOR_LEAVES = ("actuator_dynprm", "actuator_ctrlrange",
+                   "actuator_forcerange")
+ENV_SIDE_NSTEP = 20        # the side paths' f32 rollouts
+ENV_CHECK_B = 256          # their f64 card-against-CPU batch
+ENV_CHECK_NSTEP = 5
+ENV_PIXEL_CHECK_B = 16     # the pixel loop's f64 card-against-CPU check
+ENV_PIXEL_CHECK_SIZE = 32
+ENV_PIXEL_CHECK_CONTROL = 2
+
+
+def steps_of(step, nstep):
+  """fn(d): nstep calls of step."""
+  def run(d):
+    for _ in range(nstep):
+      d = step(d)
+    return d
+  return run
+
+
+def env_pixel_card_vs_cpu(leaves):
+  """The randomized pixel loop of humanoid_pixels at f64, B
+  ENV_PIXEL_CHECK_B, ENV_PIXEL_CHECK_CONTROL control steps of
+  PIXEL_NSTEP physics steps of ``step_randomized``, each step of the
+  CPU's state on both (``randomized_card_vs_cpu``), then each control
+  step's frames (32×32) of the CPU's state on both, judged by
+  ``pixel_judge``. Returns (env-steps judged, pixels judged, pixels
+  hit)."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.ops import render
+  bms = {}
+  for dev in ("cuda", "cpu"):
+    m = zoo.load("humanoid_pixels", torch.float64, dev)
+    bms[dev] = control_randomize(m, ENV_PIXEL_CHECK_B, 100, leaves)[0]
+  side = m.names["camera"]["side"]
+  d = start_batch(m, ENV_PIXEL_CHECK_B, 101, "cpu")
+  steps = pixels = hits = 0
+  n = ENV_PIXEL_CHECK_SIZE
+  for ctrl in pixel_controls(m, ENV_PIXEL_CHECK_B, 102)[
+      :ENV_PIXEL_CHECK_CONTROL]:
+    d = d.replace(ctrl=torch.as_tensor(ctrl, dtype=torch.float64))
+    judged, d = randomized_card_vs_cpu(bms["cuda"], bms["cpu"], d,
+                                       PIXEL_NSTEP, ("qpos", "qvel"))
+    steps += judged
+    dh = rebuild_frames(bms["cpu"], d)
+    dc = rebuild_frames(bms["cuda"], d.to("cuda"))
+    cpu = render.render(bms["cpu"], dh, side, n, n)
+    card = render.render(bms["cuda"], dc, side, n, n)
+    pixels += pixel_judge(card, cpu, bms["cuda"], bms["cpu"], dc, dh, side,
+                          n, RENDER_TOL)
+    hits += int((cpu[2] >= 0).sum())
+  return steps, pixels, hits
+
+
+def control_randomize(m, nbatch, seed, leaves):
+  """randomize_model of m with ``leaves`` drawn by ``control_leaves``."""
+  from mujoco_tpu_torch.parallel import rollout
+  return rollout.randomize_model(m, control_leaves(m, nbatch, seed, leaves))
+
+
+def env_side_path(report, tag, load, leaves, start, fields, seed):
+  """A randomized side path: ``step_randomized`` of the Model load(dtype,
+  device) gives, at f32 with ``leaves`` per env, ENV_SIDE_NSTEP steps at
+  B 3072 from start(m, B, seed) (finite, one LDL and one Newton launch per
+  step), env-steps/s and the idle share of a profiled 3-step window; then
+  ENV_CHECK_NSTEP steps at f64, B ENV_CHECK_B, card = CPU
+  (``randomized_card_vs_cpu``)."""
+  from mujoco_tpu_torch.ops import megastep_cuda
+  from mujoco_tpu_torch.parallel import rollout
+  m = load(torch.float32, "cuda")
+  bm, axes = control_randomize(m, B, seed, leaves)
+  if megastep_cuda.supported(bm):
+    raise AssertionError(f"the megastep admits a per-env {tag}")
+  step = lambda d: rollout.step_randomized(bm, axes, d)
+  out, wall, launches = step_loop(step, start(m, B, seed + 1),
+                                  ENV_SIDE_NSTEP)
+  finite = all(bool(torch.isfinite(getattr(out, f)).all()) for f in fields)
+  want = {"ldl_solve": ENV_SIDE_NSTEP, "newton_pyramidal": ENV_SIDE_NSTEP,
+          "megastep": 0}
+  if not finite or launches != want:
+    raise AssertionError(f"{tag} f32: finite {finite}, launches {launches}")
+  prof = profile_window(lambda: (steps_of(step, 3)(out),
+                                 torch.cuda.synchronize()), 3)[0]
+  rate = B * ENV_SIDE_NSTEP / wall
+  bms = {}
+  for dev in ("cuda", "cpu"):
+    bms[dev] = control_randomize(load(torch.float64, dev), ENV_CHECK_B, seed,
+                                 leaves)[0]
+  judged, _ = randomized_card_vs_cpu(
+      bms["cuda"], bms["cpu"], start(bms["cpu"], ENV_CHECK_B, seed + 1,
+                                     "cpu"), ENV_CHECK_NSTEP, fields)
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})[f"randomized_{tag}"] = (
+        launches[k])
+  print(f"randomized {tag}: {len(bm.env_leaves)} leaves per env "
+        f"({', '.join(bm.env_leaves)}), f32 B{B} {ENV_SIDE_NSTEP} steps of "
+        f"step_randomized: {rate:.1f} env-steps/s, "
+        f"{launches['ldl_solve'] / ENV_SIDE_NSTEP} LDL and "
+        f"{launches['newton_pyramidal'] / ENV_SIDE_NSTEP} Newton launches "
+        f"per step, idle {prof['device_idle_share']:.2%} of a profiled "
+        f"3-step window ({prof['kernel_launches_per_step']:.1f} device "
+        f"kernels per step); f64 B{ENV_CHECK_B} {ENV_CHECK_NSTEP} steps card "
+        f"= CPU (1e-8 on {', '.join(fields)}; {judged} env-steps judged by "
+        f"last-bit copies)", flush=True)
+  return dict(leaves=list(bm.env_leaves), env_steps_per_s=rate,
+              launches=launches, idle_share=prof["device_idle_share"],
+              kernels_per_step=prof["kernel_launches_per_step"],
+              card_vs_cpu_judged=judged)
+
+
+def phase_env_leaves(report, details):
+  """33: the leaves past the eighteen. The pixel-RL loop of
+  humanoid_pixels with every render leaf, geom_size and jnt_range drawn
+  per env: f32, B 3072, 64×64, PIXEL_CONTROL control steps of
+  PIXEL_NSTEP physics steps of ``step_randomized`` (one LDL and one
+  Newton launch each; the megastep refuses a per-env Model), a frame of
+  every env with the per-env Model after each; env-frames/s beside phase
+  28's plain loop. The LDL and Newton kernels against their plain
+  versions on the randomized humanoid's qM and rows (f64, B 3072); the
+  randomized pixel loop at f64 card = CPU; the side paths
+  humanoid_tendon with the eleven tendon leaves and quadruped_sim2real
+  (implicitfast) with SIM2REAL_LEAVES and the three actuator leaves."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import Integrator
+  from mujoco_tpu_torch.ops import megastep_cuda, render
+  from mujoco_tpu_torch.parallel import rollout
+  leaves = rollout.RENDER_LEAVES + ENV_PIXEL_LEAVES
+  m = zoo.load("humanoid_pixels", torch.float32)
+  bm, axes = control_randomize(m, B, 103, leaves)
+  if megastep_cuda.supported(bm):
+    raise AssertionError("the megastep admits a per-env humanoid_pixels")
+  side = m.names["camera"]["side"]
+  npix = PIXEL_SIZE * PIXEL_SIZE
+  chunk = render.env_chunk(bm, rollout.make_batch(m, B), npix)
+  controls = pixel_controls(m, B, 104)
+  d0 = start_batch(m, B, 105)
+  advance = steps_of(lambda d: rollout.step_randomized(bm, axes, d),
+                     PIXEL_NSTEP)
+  pixel_loop(bm, d0, controls[:1], side, pixel_gate, advance)   # warm
+  torch.cuda.synchronize()
+  reset_counts()
+  seen, step_ms, frame_ms, wall = pixel_loop(bm, d0, controls, side,
+                                             pixel_gate, advance)
+  launches = read_counts()
+  nphys = PIXEL_CONTROL * PIXEL_NSTEP
+  if launches != {"ldl_solve": nphys, "newton_pyramidal": nphys,
+                  "megastep": 0}:
+    raise AssertionError(f"randomized pixel loop launches {launches}: want "
+                         f"one LDL and one Newton launch per physics step")
+  rate = B * PIXEL_CONTROL / wall
+  plain = details.get("pixels", {}).get("env_frames_per_s")
+  print(f"randomized pixel loop humanoid_pixels f32 B{B} {PIXEL_SIZE}² "
+        f"{PIXEL_CONTROL} control steps of {PIXEL_NSTEP} step_randomized, "
+        f"{len(bm.env_leaves)} leaves per env ({', '.join(bm.env_leaves)}): "
+        f"{rate:.1f} env-frames/s (wall {wall:.3f} s; phase 28's plain "
+        f"megastep loop {plain if plain is None else f'{plain:.1f}'}), "
+        f"{launches['ldl_solve'] / nphys} LDL and "
+        f"{launches['newton_pyramidal'] / nphys} Newton launches per "
+        f"physics step, device: steps {step_ms:.3f} ms, frames "
+        f"{frame_ms:.3f} ms (share {frame_ms / (step_ms + frame_ms):.2%}), "
+        f"frames in chunks of {chunk} envs, the humanoid in at least "
+        f"{seen:.2%} of envs", flush=True)
+  for k in ("ldl_solve", "newton_pyramidal"):
+    report[k].setdefault("launches_by_path", {})["randomized_pixels"] = (
+        launches[k])
+  del d0
+
+  # the kernels on the randomized humanoid's qM and rows at f64
+  m64 = zoo.load("humanoid_pixels", torch.float64)
+  bm64, axes64 = control_randomize(m64, B, 103, leaves)
+  kernels = path_kernels_gate(
+      m64, "randomized humanoid_pixels",
+      lambda d: rollout.step_randomized(bm64, axes64, d),
+      start_batch(m64, B, 105))
+  del bm64
+
+  steps, pixels, hits = env_pixel_card_vs_cpu(leaves)
+  print(f"randomized pixel loop f64 B{ENV_PIXEL_CHECK_B} "
+        f"{ENV_PIXEL_CHECK_CONTROL} control steps card = CPU: qpos and qvel "
+        f"within 1e-8 ({steps} env-steps judged by last-bit copies); frames "
+        f"{ENV_PIXEL_CHECK_SIZE}² depth and RGB within {RENDER_TOL:g} where "
+        f"seg agrees, {hits} pixels hit, {pixels} judged by last-bit "
+        f"copies", flush=True)
+
+  tendon = env_side_path(
+      report, "humanoid_tendon",
+      lambda dt, dev: zoo.load("humanoid_tendon", dt, dev), TENDON_LEAVES,
+      control_state, ("qpos", "qvel"), 106)
+  opt = {"integrator": int(Integrator.IMPLICITFAST)}
+  sim2real = env_side_path(
+      report, "quadruped_sim2real",
+      lambda dt, dev: zoo.load("quadruped_sim2real", dt, dev, opt=opt),
+      SIM2REAL_LEAVES + ACTUATOR_LEAVES, quadruped_batch, ACTUATION_FIELDS,
+      108)
+  details["env_leaves"] = dict(
+      leaves=list(bm.env_leaves), env_frames_per_s=rate,
+      plain_env_frames_per_s=plain, wall_s=wall, launches=launches,
+      steps_device_ms=step_ms, frames_device_ms=frame_ms, chunk=chunk,
+      humanoid_seen=seen, kernels=kernels,
+      card_vs_cpu=dict(env_steps_judged=steps, pixels_judged=pixels,
+                       pixels_hit=hits),
+      humanoid_tendon=tendon, quadruped_sim2real=sim2real)
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5799,7 +6024,8 @@ def main() -> int:
             phase_islands, phase_dynamic_pairs, phase_sleep,
             phase_colliders, phase_convex_scenes, phase_sensors,
             phase_actuation, phase_control_loop, phase_flex, phase_pixels,
-            phase_wide_megastep, phase_sdf, phase_compiler, phase_tools)
+            phase_wide_megastep, phase_sdf, phase_compiler, phase_tools,
+            phase_env_leaves)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

@@ -443,14 +443,30 @@ class EfcMeta:
 
 
 # the numeric leaves ``parallel.rollout.randomize_model`` may give a leading
-# env axis (domain randomization), each with its rank without that axis
+# env axis (domain randomization), each with its rank without that axis:
+# the dynamics leaves, then the render leaves of pixel RL, the geom sizes,
+# and the joint-limit, tendon, equality and actuator leaves
 ENV_LEAVES = {"opt.gravity": 1, "geom_friction": 2, "body_mass": 1,
               "body_ipos": 2, "body_inertia": 2, "dof_damping": 1,
               "dof_armature": 1, "dof_frictionloss": 1,
               "actuator_gainprm": 2, "actuator_biasprm": 2,
               "geom_solref": 2, "geom_solimp": 2, "jnt_stiffness": 1,
               "actuator_gear": 2, "body_pos": 2, "body_quat": 2, "qpos0": 1,
-              "opt.timestep": 0}
+              "opt.timestep": 0,
+              "geom_rgba": 2, "mat_rgba": 2, "light_pos": 2, "light_dir": 2,
+              "light_ambient": 2, "light_diffuse": 2, "light_specular": 2,
+              "cam_pos": 2, "cam_quat": 2,
+              "geom_size": 2,
+              "jnt_range": 2, "jnt_solref": 2, "jnt_solimp": 2,
+              "tendon_stiffness": 1, "tendon_damping": 1,
+              "tendon_frictionloss": 1, "tendon_range": 2,
+              "tendon_lengthspring": 2, "tendon_armature": 1,
+              "tendon_margin": 1, "tendon_solref_lim": 2,
+              "tendon_solimp_lim": 2, "tendon_solref_fri": 2,
+              "tendon_solimp_fri": 2,
+              "eq_data": 2, "eq_solref": 2, "eq_solimp": 2,
+              "actuator_dynprm": 2, "actuator_ctrlrange": 2,
+              "actuator_forcerange": 2}
 
 
 @dataclass
@@ -891,6 +907,24 @@ class Model:
       return self
     return self.replace_leaves({name: self.leaf(name).repeat_interleave(
         k, dim=0) for name in leaves})
+
+  def envs(self, sl) -> "Model":
+    """A per-env Model's leaves at the envs ``sl`` (a slice or indices),
+    to meet a Data cut to those envs, or at one env (an int), a plain
+    Model; a plain Model is returned itself."""
+    leaves = self.env_leaves
+    if not leaves:
+      return self
+    return self.replace_leaves({name: self.leaf(name)[sl]
+                                for name in leaves})
+
+  def refuse_per_env(self, name: str, consumer: str):
+    """Raise NotImplementedError where leaf ``name`` is per env and
+    ``consumer`` does not read it per env."""
+    if self.leaf(name).dim() > ENV_LEAVES[name]:
+      raise NotImplementedError(
+          f"Model.{name} per env is not ported to {consumer}; randomize it "
+          f"on a model without that case")
 
   def enabled(self, bit: EnableBit) -> bool:
     return bool(self.opt.enableflags & bit)

@@ -174,10 +174,10 @@ def ctrl_of(m: Model, d: Data):
   if not m.disabled(DisableBit.CLAMPCTRL):
     ctrl_act = np.repeat(np.arange(m.nu), np.asarray(m.actuator_ctrlnum))
     limited = const(m.actuator_ctrllimited.astype(bool)[ctrl_act], dev)
-    rng = m.actuator_ctrlrange
+    rng = m.per_env("actuator_ctrlrange")                # (1 or B, nu, 2)
     if len(ctrl_act) != m.nu:
-      rng = rng[index(ctrl_act, dev)]
-    ctrl = torch.where(limited, torch.clamp(ctrl, rng[:, 0], rng[:, 1]),
+      rng = rng[:, index(ctrl_act, dev)]
+    ctrl = torch.where(limited, torch.clamp(ctrl, rng[..., 0], rng[..., 1]),
                        ctrl)
   bad = (torch.isnan(ctrl) | (ctrl.abs() > _MAXVAL)).any(-1, keepdim=True)
   return torch.where(bad, 0.0, ctrl)
@@ -214,13 +214,13 @@ def _antiwindup(x, acc, imax):
 def _dc_resistance(m: Model, act):
   """(B, nu) winding resistance, raised by the temperature slot where
   there is one."""
-  g, dp = m.per_env("actuator_gainprm"), m.actuator_dynprm
+  g, dp = m.per_env("actuator_gainprm"), m.per_env("actuator_dynprm")
   r = g[..., 0].expand(act.shape[0], -1)
   if np.any(np.asarray(m.actuator_slots)[:, _TEMP] >= 0):
     t_rise = _slot_value(m, act, _TEMP)
     has = const(np.asarray(m.actuator_slots)[:, _TEMP] >= 0, m.device)
     r = torch.where(
-        has, r * (1 + g[..., 2] * (t_rise + dp[:, 4] - g[..., 3])), r)
+        has, r * (1 + g[..., 2] * (t_rise + dp[..., 4] - g[..., 3])), r)
   return r
 
 
@@ -238,7 +238,7 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
   length = _per_actuator(m, d.actuator_length, np.asarray(m.actuator_outadr))
   velocity = _per_actuator(m, d.actuator_velocity,
                            np.asarray(m.actuator_outadr))
-  dp, gp, bp = (m.actuator_dynprm, m.per_env("actuator_gainprm"),
+  dp, gp, bp = (m.per_env("actuator_dynprm"), m.per_env("actuator_gainprm"),
                 m.per_env("actuator_biasprm"))
   is_pid, is_dc = dyn == DynType.PID, dyn == DynType.DCMOTOR
   period = np.where(is_pid, np.asarray(m.actuator_wrapprd, np.float64), 0.0)
@@ -246,7 +246,7 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
   if np.any((is_pid | is_dc) & (slots[:, _SLEW] >= 0)):
     u_prev = _slot_value(m, d.act, _SLEW)
     target = _wrap(ci, u_prev, period, dev)
-    rate = torch.where(const(is_pid, dev), dp[:, 1], dp[:, 7]) * h
+    rate = torch.where(const(is_pid, dev), dp[..., 1], dp[..., 7]) * h
     u_eff = torch.minimum(torch.maximum(target, u_prev - rate),
                           u_prev + rate)
     has = const(slots[:, _SLEW] >= 0, dev)
@@ -262,7 +262,7 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
                         err - p * torch.round(err / p), err)
     mode = slots[:, _MODE]
     acc = torch.where(const(is_pid | (mode == 1), dev), err, ci)
-    imax = torch.where(const(is_pid, dev), dp[:, 0], dp[:, 8])
+    imax = torch.where(const(is_pid, dev), dp[..., 0], dp[..., 8])
     cols[_INTEG] = _antiwindup(x_i, acc, imax)
   if np.any(is_dc):
     volt = _dcmotor_voltage(m, ci, length, velocity, x_i)
@@ -273,21 +273,22 @@ def _ctrl_and_actdot(m: Model, d: Data, ctrl):
       current = torch.where(has_cur, _slot_value(m, d.act, _CUR),
                             (volt - k * velocity) / r)
       t_rise = _slot_value(m, d.act, _TEMP)
-      cols[_TEMP] = (r * current * current - t_rise / dp[:, 2]) / dp[:, 3]
+      cols[_TEMP] = ((r * current * current - t_rise / dp[..., 2])
+                     / dp[..., 3])
     if np.any(slots[:, _BRIST] >= 0):
       g = _lugre_stribeck(velocity, bp[..., 3], bp[..., 4], bp[..., 5])
-      a = -dp[:, 5] * velocity.abs() / torch.clamp(g, min=MINVAL)
+      a = -dp[..., 5] * velocity.abs() / torch.clamp(g, min=MINVAL)
       cols[_BRIST] = a * _slot_value(m, d.act, _BRIST) + velocity
     if np.any(slots[:, _CUR] >= 0):
       i_dot = (volt / r - k / r * velocity
-               - _slot_value(m, d.act, _CUR)) / dp[:, 0]
-      dimax = dp[:, 1]
+               - _slot_value(m, d.act, _CUR)) / dp[..., 0]
+      dimax = dp[..., 1]
       cols[_CUR] = torch.where(
           dimax > 0, torch.minimum(torch.maximum(i_dot, -dimax), dimax),
           i_dot)
   if -1 in tab["roles"]:
     a_last = _act_of_actuator(m, d.act)
-    tau = torch.clamp(dp[:, 0], min=MINVAL)
+    tau = torch.clamp(dp[..., 0], min=MINVAL)
     last = torch.where(_is(m, dyn, DynType.INTEGRATOR), ci,
                        (ci - a_last) / tau)
     if np.any(dyn == DynType.MUSCLE):
@@ -328,12 +329,12 @@ def next_activation(m: Model, act, adot, velocity=None):
   owned = tab["slot_act"] >= 0
   sa, role = np.maximum(tab["slot_act"], 0), tab["slot_role"]
   dyn = np.where(owned, np.asarray(m.actuator_dyntype)[sa], -1)
-  dp = m.actuator_dynprm[index(sa, dev)]
+  dp = m.per_env("actuator_dynprm")[:, index(sa, dev)]   # (1 or B, na, 10)
   nxt = act + h * adot
   exact = ((dyn == DynType.FILTEREXACT) & (role == -1)) | (
       (dyn == DynType.DCMOTOR) & (role == _CUR))
   if exact.any():
-    tau = torch.clamp(dp[:, 0], min=MINVAL)
+    tau = torch.clamp(dp[..., 0], min=MINVAL)
     nxt = torch.where(const(exact, dev),
                       act + adot * tau * (1.0 - torch.exp(-h / tau)), nxt)
   brist = (dyn == DynType.DCMOTOR) & (role == _BRIST)
@@ -341,7 +342,7 @@ def next_activation(m: Model, act, adot, velocity=None):
     vel = velocity[:, index(np.asarray(m.actuator_outadr)[sa], dev)]
     bp = m.per_env("actuator_biasprm")[:, index(sa, dev)]
     g = _lugre_stribeck(vel, bp[..., 3], bp[..., 4], bp[..., 5])
-    rate = -dp[:, 5] * vel.abs() / torch.clamp(g, min=MINVAL)
+    rate = -dp[..., 5] * vel.abs() / torch.clamp(g, min=MINVAL)
     exp_ah = torch.exp(rate * h)
     int_h = torch.where(rate.abs() > MINVAL,
                         (exp_ah - 1.0) / torch.where(
@@ -349,7 +350,7 @@ def next_activation(m: Model, act, adot, velocity=None):
     nxt = torch.where(const(brist, dev), exp_ah * act + int_h * vel, nxt)
   integ = (dyn == DynType.DCMOTOR) & (role == _INTEG)
   if integ.any():
-    imax = dp[:, 8]
+    imax = dp[..., 8]
     nxt = torch.where(const(integ, dev) & (imax > 0),
                       torch.minimum(torch.maximum(nxt, -imax), imax), nxt)
   num = np.asarray(m.actuator_actnum)[sa]
@@ -473,7 +474,7 @@ def _so3_forces(m: Model, d: Data, ctrl, adot):
   lim = np.asarray(m.actuator_forcelimited)[so3].astype(bool)
   if lim.any():
     norm = mjm.norm_safe(f3)
-    hi = m.actuator_forcerange[s, 1]
+    hi = m.per_env("actuator_forcerange")[:, s, 1]
     scale = torch.where(norm > hi, hi / torch.clamp(norm, min=MINVAL), 1.0)
     f3 = torch.where(const(lim[:, None], dev), f3 * scale[..., None], f3)
   return f3
@@ -554,19 +555,20 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   off = _disabled_actuators(m)
   force = torch.where(const(off, dev), 0.0, force)
   flimited = const(m.actuator_forcelimited.astype(bool), dev)
-  frange = m.actuator_forcerange
+  frange = m.per_env("actuator_forcerange")              # (1 or B, nu, 2)
   force = torch.where(flimited,
-                      torch.clamp(force, frange[:, 0], frange[:, 1]), force)
+                      torch.clamp(force, frange[..., 0], frange[..., 1]),
+                      force)
   # the DC motor's cogging torque and LuGre friction, past the force limit
   mech = (bt == BiasType.DCMOTOR) & ~off
   if mech.any():
     add = b[..., 0] * torch.sin(b[..., 1] * length + b[..., 2])
     if np.any(slots[:, _BRIST] >= 0):
-      dp = m.actuator_dynprm
+      dp = m.per_env("actuator_dynprm")
       add = add - torch.where(
           const(slots[:, _BRIST] >= 0, dev),
-          dp[:, 5] * _slot_value(m, d.act, _BRIST)
-          + dp[:, 6] * _slot_value(m, adot, _BRIST), 0.0)
+          dp[..., 5] * _slot_value(m, d.act, _BRIST)
+          + dp[..., 6] * _slot_value(m, adot, _BRIST), 0.0)
     force = torch.where(const(mech, dev), force + add, force)
   if len(tab["so3"]):
     # the outputs in order: scalar actuators' and each SO3 block

@@ -75,6 +75,17 @@ def _collider_for(m: Model, t1: int, t2: int, did1: int, did2: int):
           collision_convex.CONVEX_NCON)
 
 
+def _sizes_for(m: Model, t1: int, t2: int):
+  """The geom sizes (1 or B, ngeom, 3) a collider of the type pair reads,
+  per env where ``geom_size`` is. A pair with a mesh or height-field side
+  raises there: those colliders are not ported to per-env sizes."""
+  for t in (t1, t2):
+    if t in (GeomType.MESH, GeomType.HFIELD):
+      m.refuse_per_env("geom_size",
+                       f"the {GeomType(t).name.lower()} colliders")
+  return m.per_env("geom_size")
+
+
 def _signature(m: Model, c: int) -> tuple:
   """(type1, type2, data id1, data id2) of contact slot c."""
   t1, t2 = int(m.con.pair_type[c, 0]), int(m.con.pair_type[c, 1])
@@ -246,9 +257,10 @@ def collision(m: Model, d: Data) -> Data:
     first = np.asarray(first)
     g1 = index(m.con.geom1[first], dev)
     g2 = index(m.con.geom2[first], dev)
+    size = _sizes_for(m, key[0], key[1])                  # (1 or B, ngeom, 3)
     dd, pp, nn, tt = fn(d.geom_xpos[:, g1], d.geom_xmat[:, g1],
-                        m.geom_size[g1], d.geom_xpos[:, g2],
-                        d.geom_xmat[:, g2], m.geom_size[g2])
+                        size[:, g1], d.geom_xpos[:, g2],
+                        d.geom_xmat[:, g2], size[:, g2])
     slots = index((first[:, None] + np.arange(k)[None, :]).ravel(), dev)
     dist[:, slots] = dd.reshape(nbatch, -1)
     pos[:, slots] = pp.reshape(nbatch, -1, 3)
@@ -260,11 +272,14 @@ def collision(m: Model, d: Data) -> Data:
   ncon_dropped = torch.zeros((nbatch,), dtype=torch.int32, device=dev)
   flex_out = (dist, pos, frame, flexvert, flexvert1, ncon_dropped)
   if len(m.con.flexpair_geom):
+    m.refuse_per_env("geom_size", "flex-geom collision "
+                     "(ops/collision_flex.py)")
     flex_out = collision_flex.flex_collision(m, d, flex_out)
   if m.con.selfgroups or m.con.intgroups or m.con.evgroups:
     flex_out = collision_flex.flex_flex_collision(m, d, flex_out)
   dist, pos, frame, flexvert, flexvert1, ncon_dropped = flex_out
   if m.con.sdfgroups:
+    m.refuse_per_env("geom_size", "SDF collision (ops/collision_sdf.py)")
     dist, pos, frame = collision_sdf.sdf_collision(m, d, dist, pos, frame)
 
   # static slots' parameters broadcast over envs; a dynamic group's slots
@@ -316,9 +331,11 @@ def _dynamic_group(m: Model, d: Data, grp: dict, dist, pos, frame):
   dropped = torch.clamp((score < 0).sum(1) - npair, min=0).to(torch.int32)
   sg1, sg2 = g1[idx], g2[idx]                               # (B, npair)
   env = torch.arange(nbatch, device=dev)[:, None]
+  # each env's chosen pairs' sizes, gathered by env as their frames are
+  size = _sizes_for(m, grp["t1"], grp["t2"]).expand(nbatch, -1, -1)
   dd, pp, nn, tt = fn(d.geom_xpos[env, sg1], d.geom_xmat[env, sg1],
-                      m.geom_size[sg1], d.geom_xpos[env, sg2],
-                      d.geom_xmat[env, sg2], m.geom_size[sg2])
+                      size[env, sg1], d.geom_xpos[env, sg2],
+                      d.geom_xmat[env, sg2], size[env, sg2])
   sl = slice(adr, adr + npair * k)
   dist[:, sl] = dd.reshape(nbatch, -1)
   pos[:, sl] = pp.reshape(nbatch, -1, 3)

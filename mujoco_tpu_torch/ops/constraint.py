@@ -131,11 +131,11 @@ def _eq_points(m: Model, d: Data, i: int):
   if int(m.eq_objtype[i]) == _OBJ_SITE:
     b1, b2 = int(m.site_bodyid[obj1]), int(m.site_bodyid[obj2])
     return b1, b2, d.site_xpos[:, obj1], d.site_xpos[:, obj2]
-  data = m.eq_data[i]
+  data = m.per_env("eq_data")[:, i]                      # (1 or B, 11)
   if et == EqType.CONNECT:
-    anchor1, anchor2 = data[0:3], data[3:6]
+    anchor1, anchor2 = data[:, 0:3], data[:, 3:6]
   else:
-    anchor1, anchor2 = data[3:6], data[0:3]
+    anchor1, anchor2 = data[:, 3:6], data[:, 0:3]
   pos1 = d.xpos[:, obj1] + mjm.mat_vec(d.xmat[:, obj1], anchor1)
   pos2 = d.xpos[:, obj2] + mjm.mat_vec(d.xmat[:, obj2], anchor2)
   return obj1, obj2, pos1, pos2
@@ -151,6 +151,11 @@ def _quat_axis(q, v):
 # diaga, solref, solimp, imp_pos; the friction-loss rows also frictionloss),
 # every value with the env batch leading
 # ---------------------------------------------------------------------------
+
+
+def _over_envs(v, nbatch: int):
+  """A (1 or B, …) per-env leaf's rows as (B, …)."""
+  return v.expand((nbatch,) + v.shape[1:])
 
 
 def _rows(J, pos, active, diaga, solref, solimp, imp_pos, margin=None):
@@ -180,13 +185,17 @@ def _equality_rows(m: Model, d: Data):
     poss.append(pos)
     actives.append(active[:, None].expand(nbatch, k))
     diagas.append(diaga.expand(nbatch, k))
-    solrefs.append(m.eq_solref[i].expand(nbatch, k, 2))
-    solimps.append(m.eq_solimp[i].expand(nbatch, k, 5))
+    solrefs.append(eq_solref[:, i, None].expand(nbatch, k, 2))
+    solimps.append(eq_solimp[:, i, None].expand(nbatch, k, 5))
     imp_poss.append(imp_pos)
 
+  # (1 or B, neq, ·): the equalities' parameters may be randomized per env
+  eq_data, eq_solref, eq_solimp = (m.per_env("eq_data"),
+                                   m.per_env("eq_solref"),
+                                   m.per_env("eq_solimp"))
   for i in range(m.neq):
     et = int(m.eq_type[i])
-    data = m.eq_data[i]
+    data = eq_data[:, i]
     active = d.eq_active[:, i] & enabled
     if et in (EqType.CONNECT, EqType.WELD):
       b1, b2, pos1, pos2 = _eq_points(m, d, i)
@@ -200,21 +209,21 @@ def _equality_rows(m: Model, d: Data):
         for r in range(3):
           add(jp[:, r], cpos3[:, r], active, invw_t, i, imp_pos)
         continue
-      torquescale = data[10]
+      torquescale = data[:, 10, None]                      # (1 or B, 1)
       if int(m.eq_objtype[i]) == _OBJ_SITE:
         obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
         quat = mjm.mul_quat(d.xquat[:, b1], m.site_quat[obj1])
         negq1 = mjm.conj_quat(mjm.mul_quat(d.xquat[:, b2],
                                            m.site_quat[obj2]))
       else:
-        quat = mjm.mul_quat(d.xquat[:, b1], data[6:10])
+        quat = mjm.mul_quat(d.xquat[:, b1], data[:, 6:10])
         negq1 = mjm.conj_quat(d.xquat[:, b2])
       crot = mjm.mul_quat(negq1, quat)[:, 1:] * torquescale
       # rotation Jacobian: 0.5·(negq1 ⊗ (0, axis) ⊗ quat) per dof column
       axis_cols = (jacr1 - jacr2).transpose(1, 2)          # (B, nv, 3)
       q2cols = _quat_axis(negq1[:, None].expand(nbatch, nv, 4), axis_cols)
       q3cols = mjm.mul_quat(q2cols, quat[:, None].expand(nbatch, nv, 4))
-      jrot = 0.5 * q3cols[..., 1:] * torquescale           # (B, nv, 3)
+      jrot = 0.5 * q3cols[..., 1:] * torquescale[..., None]  # (B, nv, 3)
       invw_r = m.body_invweight0[b1, 1] + m.body_invweight0[b2, 1]
       imp_pos = mjm.norm_safe(torch.cat([cpos3, crot], dim=-1))
       for r in range(3):
@@ -241,15 +250,15 @@ def _equality_rows(m: Model, d: Data):
       if obj2 >= 0:
         pos2v, ref2, j2, invw2 = obj(obj2)
         dif = pos2v - ref2
-        cpos = (pos1v - ref1 - data[0]
-                - (data[1] * dif + data[2] * dif**2 + data[3] * dif**3
-                   + data[4] * dif**4))
-        deriv = (data[1] + 2 * data[2] * dif + 3 * data[3] * dif**2
-                 + 4 * data[4] * dif**3)
+        cpos = (pos1v - ref1 - data[:, 0]
+                - (data[:, 1] * dif + data[:, 2] * dif**2
+                   + data[:, 3] * dif**3 + data[:, 4] * dif**4))
+        deriv = (data[:, 1] + 2 * data[:, 2] * dif + 3 * data[:, 3] * dif**2
+                 + 4 * data[:, 4] * dif**3)
         jrow = j1 - deriv[:, None] * j2
         diaga = invw1 + invw2
       else:
-        cpos = pos1v - ref1 - data[0]
+        cpos = pos1v - ref1 - data[:, 0]
         jrow = j1.expand(nbatch, nv)
         diaga = invw1
       add(jrow, cpos, active, diaga, i, cpos)
@@ -295,14 +304,17 @@ def _friction_rows(m: Model, d: Data):
   active = torch.full((nbatch, meta.nf),
                       not m.disabled(DisableBit.FRICTIONLOSS),
                       dtype=torch.bool, device=dev)
+  # a tendon's row parameters may be randomized per env
+  ten = lambda name: _over_envs(m.per_env(name)[:, tix], nbatch)
   return dict(
       _rows(J, zero, active,
             ex(cat(m.dof_invweight0[dix], m.tendon_invweight0[tix])),
-            ex(cat(m.dof_solref[dix], m.tendon_solref_fri[tix])),
-            ex(cat(m.dof_solimp[dix], m.tendon_solimp_fri[tix])), zero),
+            torch.cat([ex(m.dof_solref[dix]), ten("tendon_solref_fri")], 1),
+            torch.cat([ex(m.dof_solimp[dix]), ten("tendon_solimp_fri")], 1),
+            zero),
       frictionloss=torch.cat([
           m.per_env("dof_frictionloss")[:, dix].expand(nbatch, -1),
-          ex(m.tendon_frictionloss[tix])], dim=1))
+          ten("tendon_frictionloss")], dim=1))
 
 
 def _limit_rows(m: Model, d: Data):
@@ -321,8 +333,9 @@ def _limit_rows(m: Model, d: Data):
     sides = meta.limit_side[jrows].astype(np.float64)
     # a ball row (side 0) gets pos 0 and J 0 here, then its own below
     value = d.qpos[:, ix(m.jnt_qposadr[jids])]
-    rng = m.jnt_range[ix(jids)]
-    lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
+    jnt_range = m.per_env("jnt_range")                   # (1 or B, njnt, 2)
+    rng = jnt_range[:, ix(jids)]
+    lim = torch.where(const(sides < 0, dev), rng[..., 0], rng[..., 1])
     pos = const(sides, dev, m.dtype) * (lim - value)
     jmat = np.zeros((len(jrows), nv))
     jmat[np.arange(len(jrows)), m.jnt_dofadr[jids]] = -sides
@@ -336,25 +349,26 @@ def _limit_rows(m: Model, d: Data):
       aa = mjm.quat_to_vel(mjm.normalize(d.qpos[:, qadr:qadr + 4]))
       angle = mjm.norm_safe(aa)
       J[:, r, dadr:dadr + 3] = -(aa / angle[:, None])
-      pos[:, r] = (torch.maximum(m.jnt_range[jid, 0], m.jnt_range[jid, 1])
+      pos[:, r] = (torch.maximum(jnt_range[:, jid, 0], jnt_range[:, jid, 1])
                    - angle)
     dofs = ix(m.jnt_dofadr[jids])
     jx = ix(jids)
     parts.append((J, pos, ex(m.jnt_margin[jx]), ex(m.dof_invweight0[dofs]),
-                  ex(m.jnt_solref[jx]), ex(m.jnt_solimp[jx])))
+                  _over_envs(m.per_env("jnt_solref")[:, jx], nbatch),
+                  _over_envs(m.per_env("jnt_solimp")[:, jx], nbatch)))
   trows = np.nonzero(meta.limit_jnt < 0)[0]
   if len(trows):
     tens = meta.limit_ten[trows]
     sides = meta.limit_side[trows].astype(np.float64)
     tx = ix(tens)
-    rng = m.tendon_range[tx]
-    lim = torch.where(const(sides < 0, dev), rng[:, 0], rng[:, 1])
+    rng = m.per_env("tendon_range")[:, tx]
+    lim = torch.where(const(sides < 0, dev), rng[..., 0], rng[..., 1])
     side = const(sides, dev, m.dtype)
     pos = side * (lim - d.ten_length[:, tx])
     J = -side[:, None] * d.ten_J[:, tx]
-    parts.append((J, pos, ex(m.tendon_margin[tx]),
-                  ex(m.tendon_invweight0[tx]), ex(m.tendon_solref_lim[tx]),
-                  ex(m.tendon_solimp_lim[tx])))
+    ten = lambda name: _over_envs(m.per_env(name)[:, tx], nbatch)
+    parts.append((J, pos, ten("tendon_margin"), ex(m.tendon_invweight0[tx]),
+                  ten("tendon_solref_lim"), ten("tendon_solimp_lim")))
   J, pos, margin, diaga, solref, solimp = (
       torch.cat(x, dim=1) if len(parts) > 1 else x[0] for x in zip(*parts))
   active = (pos < margin) & (not m.disabled(DisableBit.LIMIT))
@@ -577,8 +591,8 @@ def _jdotv_correction(m: Model, d: Data, aref):
     jdv2, jrdv2 = _jacdot_v(m, d, pos2, b2)
     corr = [-(jdv1 - jdv2)]
     if et == EqType.WELD:
-      data = m.eq_data[i]
-      torquescale = data[10]
+      data = m.per_env("eq_data")[:, i]                  # (1 or B, 11)
+      torquescale = data[:, 10, None]
       deriv_quat = lambda q, w: 0.5 * _quat_axis(q, w)
       omega1, omega2 = d.cvel[:, b1, :3], d.cvel[:, b2, :3]
       domega = omega1 - omega2
@@ -590,10 +604,10 @@ def _jdotv_correction(m: Model, d: Data, aref):
         qdot0r = deriv_quat(q0r, omega1)
         negqdot1 = mjm.conj_quat(deriv_quat(qfull1, omega2))
       else:
-        q0r = mjm.mul_quat(d.xquat[:, b1], data[6:10])
+        q0r = mjm.mul_quat(d.xquat[:, b1], data[:, 6:10])
         negq1 = mjm.conj_quat(d.xquat[:, b2])
         qdot0r = mjm.mul_quat(deriv_quat(d.xquat[:, b1], omega1),
-                              data[6:10])
+                              data[:, 6:10])
         negqdot1 = mjm.conj_quat(deriv_quat(d.xquat[:, b2], omega2))
       t1 = mjm.mul_quat(_quat_axis(negqdot1, domega), q0r)
       t2 = mjm.mul_quat(_quat_axis(negq1, jrdv1 - jrdv2), q0r)

@@ -55,7 +55,7 @@ def actuator_vel(m: Model, d: Data):
   dev = m.device
   gt, bt = np.asarray(m.actuator_gaintype), np.asarray(m.actuator_biastype)
   slots = np.asarray(m.actuator_slots)
-  g, dp = m.per_env("actuator_gainprm"), m.actuator_dynprm
+  g, dp = m.per_env("actuator_gainprm"), m.per_env("actuator_dynprm")
   bias_vel = torch.where(const(np.isin(bt, [BiasType.AFFINE, BiasType.SO3]),
                                dev), m.per_env("actuator_biasprm")[..., 2],
                          0.0)
@@ -70,7 +70,7 @@ def actuator_vel(m: Model, d: Data):
     mode = slots[:, 6]
     dvdw = torch.where(const(mode == 1, dev), -g[..., 6],
                        torch.where(const(mode == 2, dev), -g[..., 4], 0.0))
-    s = 1.0 - torch.exp(-m.timestep(2) / dp[:, 0])
+    s = 1.0 - torch.exp(-m.timestep(2) / dp[..., 0])
     cur = slots[:, 4] >= 0
     term = torch.where(const(cur, dev), k * (dvdw - k) * s / r,
                        k * dvdw / r)
@@ -78,7 +78,7 @@ def actuator_vel(m: Model, d: Data):
                            bias_vel + term, bias_vel)
     brist = dc & (slots[:, 3] >= 0)
     if brist.any():
-      bias_vel = torch.where(const(brist, dev), bias_vel - dp[:, 6],
+      bias_vel = torch.where(const(brist, dev), bias_vel - dp[..., 6],
                              bias_vel)
   gain_vel = torch.where(const(gt == GainType.AFFINE, dev), g[..., 2], 0.0)
   outadr = np.asarray(m.actuator_outadr)
@@ -91,9 +91,9 @@ def actuator_vel(m: Model, d: Data):
         m.actuator_lengthrange[c], m.actuator_acc0[c], g[:, c]))
   inp = d.ctrl[:, index(np.asarray(m.actuator_ctrladr), dev)]
   if not m.disabled(DisableBit.CLAMPCTRL):
-    rng = m.actuator_ctrlrange
+    rng = m.per_env("actuator_ctrlrange")
     inp = torch.where(const(m.actuator_ctrllimited.astype(bool), dev),
-                      torch.clamp(inp, rng[:, 0], rng[:, 1]), inp)
+                      torch.clamp(inp, rng[..., 0], rng[..., 1]), inp)
   if m.na:
     act = d.act
     early = np.asarray(m.actuator_actearly).astype(bool)
@@ -104,15 +104,15 @@ def actuator_vel(m: Model, d: Data):
       a = torch.where(const(early, dev), nxt, a)
     inp = torch.where(const(np.asarray(m.actuator_actnum) > 0, dev), a, inp)
   coef = bias_vel + gain_vel * inp
-  f, frange = d.actuator_force, m.actuator_forcerange
+  f, frange = d.actuator_force, m.per_env("actuator_forcerange")
   fo = f[:, index(outadr, dev)]
-  clamped = (fo <= frange[:, 0]) | (fo >= frange[:, 1])
+  clamped = (fo <= frange[..., 0]) | (fo >= frange[..., 1])
   so3 = np.nonzero(gt == GainType.SO3)[0]
   if len(so3):
     norm = mjm.norm_safe(f[:, index(outadr[so3][:, None] + np.arange(3),
                                     dev)])
     clamped = clamped.index_copy(
-        1, index(so3, dev), norm >= frange[index(so3, dev), 1])
+        1, index(so3, dev), norm >= frange[:, index(so3, dev), 1])
   coef = torch.where(const(m.actuator_forcelimited.astype(bool), dev)
                      & clamped, 0.0, coef)
   if m.nout != m.nu:
@@ -133,8 +133,8 @@ def passive_vel(m: Model, d: Data):
     return out
   out = out - torch.diag_embed(m.per_env("dof_damping"))
   if m.ntendon:
-    out = out - d.ten_J.transpose(1, 2) @ (m.tendon_damping[:, None]
-                                           * d.ten_J)
+    out = out - d.ten_J.transpose(1, 2) @ (
+        m.per_env("tendon_damping")[..., None] * d.ten_J)
   flx = m.flx
   if m.has_flex and flx.nedge:
     c = m.flex_edgedamping[index(flx.edge_flexid, m.device)] * const(

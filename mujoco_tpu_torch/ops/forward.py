@@ -131,7 +131,7 @@ def _tendon_bias(m: Model, d: Data):
                       for p, t in ((q, tq), (v, tv)))
       jqv = fwAD.make_dual(y.detach(),
                            _jvp_by_vjp(y, (q, v), tangent, False).detach())
-  coef = m.tendon_armature * jqv
+  coef = m.per_env("tendon_armature") * jqv
   return mjm.mat_vec(d.ten_J.transpose(1, 2), coef)
 
 

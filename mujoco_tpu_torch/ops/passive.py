@@ -106,14 +106,16 @@ def passive(m: Model, d: Data) -> Data:
     # tendon spring outside its [lo, hi] deadband, and tendon damper
     Jt = d.ten_J.transpose(1, 2)
     length = d.ten_length
-    lo, hi = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    spring = m.per_env("tendon_lengthspring")         # (1 or B, ntendon, 2)
+    lo, hi = spring[..., 0], spring[..., 1]
     x = torch.where(length > hi, length - hi,
                     torch.where(length < lo, length - lo, 0.0))
     if not m.disabled(DisableBit.SPRING):
-      qfrc_spring = qfrc_spring + mjm.mat_vec(Jt, -m.tendon_stiffness * x)
+      qfrc_spring = qfrc_spring + mjm.mat_vec(
+          Jt, -m.per_env("tendon_stiffness") * x)
     if not m.disabled(DisableBit.DAMPER):
       qfrc_damper = qfrc_damper + mjm.mat_vec(
-          Jt, -m.tendon_damping * d.ten_velocity)
+          Jt, -m.per_env("tendon_damping") * d.ten_velocity)
   qfrc_gravcomp = zero
   if not m.disabled(DisableBit.GRAVITY):
     f = (-(m.per_env("body_mass") * m.body_gravcomp)[..., None]
@@ -182,17 +184,18 @@ def _fluid(m: Model, d: Data):
 
 
 def _semi_axes(m: Model, geoms: np.ndarray):
-  """(G, 3) equivalent ellipsoid semi-axes (mju_geomSemiAxes)."""
-  s = m.geom_size[index(geoms, m.device)]
+  """(1 or B, G, 3) equivalent ellipsoid semi-axes (mju_geomSemiAxes),
+  per env where ``geom_size`` is."""
+  s = m.per_env("geom_size")[:, index(geoms, m.device)]
   t = np.asarray(m.geom_type)[geoms][:, None]
-  s0, s1 = s[:, :1], s[:, 1:2]
+  s0, s1 = s[..., :1], s[..., 1:2]
   dev = m.device
   return torch.where(
-      const(t == GeomType.SPHERE, dev), s0.expand(-1, 3),
+      const(t == GeomType.SPHERE, dev), s0.expand(s.shape),
       torch.where(const(t == GeomType.CAPSULE, dev),
                   torch.cat([s0, s0, s1 + s0], -1),
                   torch.where(const(t == GeomType.CYLINDER, dev),
-                              torch.cat([s0, s0, s1], -1), s[:, :3])))
+                              torch.cat([s0, s0, s1], -1), s[..., :3])))
 
 
 def _ellipsoid_fluid(m: Model, d: Data, geoms: np.ndarray):
@@ -224,7 +227,7 @@ def _ellipsoid_fluid(m: Model, d: Data, geoms: np.ndarray):
   d_max, d_min = size.amax(-1), size.amin(-1)
   d_mid = size.sum(-1) - d_max - d_min
   a_max = np.pi * d_max * d_mid
-  magnus_force = mjm.cross(w, v) * (magnus * rho * volume)[:, None]
+  magnus_force = mjm.cross(w, v) * (magnus * rho * volume)[..., None]
   s01, s12, s20 = sx * sy, sy * sz, sz * sx
   vx, vy, vz = v.unbind(-1)
   proj_denom = s12 ** 4 * vx ** 2 + s20 ** 4 * vy ** 2 + s01 ** 4 * vz ** 2
@@ -241,11 +244,11 @@ def _ellipsoid_fluid(m: Model, d: Data, geoms: np.ndarray):
   lin_visc_force = 3.0 * np.pi * eq_d
   lin_visc_torq = np.pi * eq_d ** 3
   i_max = 8.0 / 15.0 * np.pi * d_mid * d_max ** 4
-  ii = torch.stack([8.0 / 15.0 * np.pi * size[:, k] * torch.maximum(
-      size[:, (k + 1) % 3], size[:, (k + 2) % 3]) ** 4 for k in range(3)],
+  ii = torch.stack([8.0 / 15.0 * np.pi * size[..., k] * torch.maximum(
+      size[..., (k + 1) % 3], size[..., (k + 2) % 3]) ** 4 for k in range(3)],
       -1)
   mom_visc = w * (ang_drag[:, None] * ii
-                  + slender[:, None] * (i_max[:, None] - ii))
+                  + slender[:, None] * (i_max[..., None] - ii))
   drag_lin = (visc * lin_visc_force + rho * vnorm
               * (a_proj * blunt + slender * (a_max - a_proj)))
   drag_ang = visc * lin_visc_torq + rho * mjm.norm_safe(mom_visc)

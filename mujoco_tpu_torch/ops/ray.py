@@ -296,9 +296,12 @@ def ray(m: Model, d: Data, pnt, vec, geomgroup=None, flg_static: bool = True,
           else _kept(m, geomgroup, flg_static))
   # rays that share their origin (a camera's) map it once per geom
   origin = pnt[:, :1] if nray > 1 and pnt.stride(1) == 0 else pnt
+  geom_size = m.per_env("geom_size")
   for t, fn, geoms in _groups(m, keep):
     gi = index(geoms, dev)
-    pos, mat, size = d.geom_xpos[:, gi], d.geom_xmat[:, gi], m.geom_size[gi]
+    # sizes (1 or B, 1, G, 3) against the rays' (B, R, G, ·)
+    pos, mat, size = (d.geom_xpos[:, gi], d.geom_xmat[:, gi],
+                      geom_size[:, None, gi])
     if t == GeomType.SPHERE:
       x = ray_sphere(pos[:, None], mat, size, origin[:, :, None],
                      vec[:, :, None])

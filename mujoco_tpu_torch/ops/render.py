@@ -243,13 +243,23 @@ def _tex_cube_sample(m: Model, texid: int, v3):
   return _texel(m, adr + 3 * (row * w + col))
 
 
+def _env_rows(t, ids):
+  """A (1 or B, n, …) table's rows at ids (B, …): each env's own rows
+  where it holds one per env."""
+  if t.shape[0] == 1:
+    return t[0][ids]
+  env = torch.arange(t.shape[0], device=ids.device)
+  return t[env.reshape((-1,) + (1,) * (ids.dim() - 1)), ids]
+
+
 def _materials(m: Model, dtype):
-  """Per geom its resolved rgba (ngeom, 4), emission, specular and
-  shininess (ngeom,), by the setMaterial rule: a material's color unless
-  the geom's rgba differs from the 0.5/0.5/0.5/1 default; without a
-  material, emission 0, specular and shininess 0.5."""
+  """Per geom its resolved rgba (1 or B, ngeom, 4), emission, specular
+  and shininess (ngeom,), by the setMaterial rule: a material's color
+  unless the geom's rgba differs from the 0.5/0.5/0.5/1 default; without
+  a material, emission 0, specular and shininess 0.5. The colors are
+  per env where ``geom_rgba`` or ``mat_rgba`` is."""
   dev = m.device
-  grgba = m.geom_rgba.to(dtype)
+  grgba = m.per_env("geom_rgba").to(dtype)
   matid = np.asarray(m.geom_matid) if m.nmat else np.full(m.ngeom, -1)
   if not m.nmat or (matid < 0).all():
     return (grgba, torch.zeros(m.ngeom, dtype=dtype, device=dev),
@@ -259,8 +269,8 @@ def _materials(m: Model, dtype):
   mi = index(np.maximum(matid, 0), dev)
   default = const(np.array([0.5, 0.5, 0.5, 1.0]), dev, dtype)
   explicit = ((grgba - default).abs() > 1e-7).any(-1)
-  rgba = torch.where((has & ~explicit)[:, None],
-                     m.mat_rgba.to(dtype)[mi], grgba)
+  rgba = torch.where((has & ~explicit)[..., None],
+                     m.per_env("mat_rgba").to(dtype)[:, mi], grgba)
   pick = lambda v, other: torch.where(has, v.to(dtype)[mi], other)
   return (rgba, pick(m.mat_emission, 0.0),
           pick(m.mat_specular, 0.5), pick(m.mat_shininess, 0.5))
@@ -275,7 +285,8 @@ def _geom_surface(m: Model, gid, lp, size, dtype):
   OBJECT_PLANE mapping, a cube texture by the local direction."""
   rgba, emission, specular, shininess = _materials(m, dtype)
   rgb, emission, specular, shininess = (
-      rgba[:, :3][gid], emission[gid], specular[gid], shininess[gid])
+      _env_rows(rgba[..., :3], gid), emission[gid], specular[gid],
+      shininess[gid])
   matid = np.asarray(m.geom_matid) if m.nmat else np.full(m.ngeom, -1)
   texid = np.asarray(m.mat_texid)
   pix_mat = index(matid, m.device)[gid]
@@ -325,10 +336,17 @@ def _envs(d, sl):
 
 
 def frame_bytes_per_env(m: Model, npix: int, dtype) -> int:
-  """A frame's estimated peak memory per env."""
+  """A frame's estimated peak memory per env: the ray tests', and a
+  per-env Model's leaves a frame gathers (its rows of each per-env leaf,
+  and per pixel the hit geom's size and color)."""
   ngeom = max(sum(len(g[-1]) for g in ray_mod._groups(m)), 1)
+  size = torch.finfo(dtype).bits // 8
+  leaves = m.env_leaves
+  gathered = sum(m.leaf(k)[0].numel() for k in leaves) * size
+  if leaves:
+    gathered += npix * (3 + 4) * size
   return (npix * ngeom * _BYTES_PER_RAY_GEOM * torch.finfo(dtype).bits
-          // 32)
+          // 32 + gathered)
 
 
 def env_chunk(m: Model, d: Data, npix: int) -> int:
@@ -357,8 +375,10 @@ def render(m: Model, d: Data, camid: int = 0, width: int = 64,
   if chunk >= nbatch:
     return _render(m, d, camid, width, height, geomgroup, shadows, flexes,
                    skins)
-  parts = [_render(m, _envs(d, slice(i, i + chunk)), camid, width, height,
-                   geomgroup, shadows, flexes, skins)
+  # a per-env Model is cut with its Data, each chunk's leaves meeting its
+  # envs
+  parts = [_render(m.envs(slice(i, i + chunk)), _envs(d, slice(i, i + chunk)),
+                   camid, width, height, geomgroup, shadows, flexes, skins)
            for i in range(0, nbatch, chunk)]
   return tuple(torch.cat(x) for x in zip(*parts))
 
@@ -378,7 +398,7 @@ def _render(m, d, camid, width, height, geomgroup, shadows, flexes, skins):
   gpos, gmat = d.geom_xpos[bidx, g], d.geom_xmat[bidx, g]
   # world → local, a 3×3 product per pixel as elementwise sums
   lp = (gmat * (p - gpos)[..., :, None]).sum(-2)
-  size = m.geom_size.to(dtype)[g]
+  size = _env_rows(m.per_env("geom_size").to(dtype), g)
   gtype = index(m.geom_type, dev)[g]
   normal = torch.zeros_like(lp)
   cache = _mesh_cache(m)
@@ -455,9 +475,10 @@ def _render(m, d, camid, width, height, geomgroup, shadows, flexes, skins):
       else:                                      # mjLIGHT_POINT
         spot = ones
     occl = shadow(ldir, ldist) if bool(m.light_castshadow[li]) else ones
-    rgb = accum(rgb, ldir, m.light_ambient[li].to(dtype),
-                m.light_diffuse[li].to(dtype),
-                m.light_specular[li].to(dtype), atten, spot, occl)
+    # (1 or B, 1, 3): a light's colors may be randomized per env
+    color = lambda k: m.per_env(k)[:, li, None].to(dtype)
+    rgb = accum(rgb, ldir, color("light_ambient"), color("light_diffuse"),
+                color("light_specular"), atten, spot, occl)
   rgb = torch.clamp(rgb, 0.0, 1.0)
 
   # flexes and skins: one more ray pass each, flat shaded, seg ids past

@@ -106,12 +106,15 @@ def object_quat(m: Model, d: Data, objtype: int, ids):
   dev = m.device
   if t == ObjType.XBODY:
     return _take(d.xquat, ids, dev)
-  local = {ObjType.BODY: m.body_iquat, ObjType.GEOM: m.geom_quat,
-           ObjType.SITE: m.site_quat, ObjType.CAMERA: m.cam_quat}
+  # (1 or B, n, 4): a camera's frame may be randomized per env
+  local = {ObjType.BODY: m.body_iquat[None], ObjType.GEOM: m.geom_quat[None],
+           ObjType.SITE: m.site_quat[None],
+           ObjType.CAMERA: m.per_env("cam_quat")}
   if t not in local:
     raise NotImplementedError(f"object type {t.name} quat")
   body = object_body(m, objtype, ids)
-  return mjm.mul_quat(_take(d.xquat, body, dev), local[t][index(ids, dev)])
+  return mjm.mul_quat(_take(d.xquat, body, dev),
+                      local[t][:, index(ids, dev)])
 
 
 def _if_moving(m: Model, body, x):
@@ -289,7 +292,7 @@ def rne_postconstraint(m: Model, d: Data, cf=None) -> Data:
       k = obj if body_sem else int(m.site_bodyid[obj])
       if k == 0:
         continue
-      offset = (m.eq_data[e, 3 * off:3 * off + 3] if body_sem
+      offset = (m.per_env("eq_data")[:, e, 3 * off:3 * off + 3] if body_sem
                 else m.site_pos[obj])
       pos = mjm.mat_vec(d.xmat[:, k], offset) + d.xpos[:, k]
       v = mjm.transform_spatial(cfrc, True,
@@ -345,11 +348,11 @@ def energy_pos(m: Model, d: Data) -> Data:
                         m.qpos_spring[index(qa, dev)])
       e = e + (0.5 * k[:, index(rot, dev)] * (dq * dq).sum(-1)).sum(-1)
     if m.ntendon:
-      lo = m.tendon_lengthspring[:, 0]
-      hi = m.tendon_lengthspring[:, 1]
+      spring = m.per_env("tendon_lengthspring")         # (1 or B, ntendon, 2)
+      lo, hi = spring[..., 0], spring[..., 1]
       ln = d.ten_length
       x = torch.where(ln > hi, ln - hi, torch.where(ln < lo, ln - lo, 0.0))
-      e = e + 0.5 * (m.tendon_stiffness * x * x).sum(-1)
+      e = e + 0.5 * (m.per_env("tendon_stiffness") * x * x).sum(-1)
   return d.replace(energy=torch.stack([e, d.energy[:, 1]], -1))
 
 
@@ -600,8 +603,9 @@ def _geom_distance(m: Model, d: Data, g):
     fn = collision_driver._COLLIDERS[key][0]
     rows = index([c[0] for c in call], dev)
     a, b = index([c[1] for c in call], dev), index([c[2] for c in call], dev)
-    dd, pp, nn, _ = fn(d.geom_xpos[:, a], d.geom_xmat[:, a], m.geom_size[a],
-                       d.geom_xpos[:, b], d.geom_xmat[:, b], m.geom_size[b])
+    size = m.per_env("geom_size")
+    dd, pp, nn, _ = fn(d.geom_xpos[:, a], d.geom_xmat[:, a], size[:, a],
+                       d.geom_xpos[:, b], d.geom_xmat[:, b], size[:, b])
     i = dd.argmin(-1)[..., None]
     dmin = torch.gather(dd, -1, i)[..., 0]
     pos = torch.gather(pp, -2, i[..., None].expand(i.shape + (3,)))[..., 0, :]
@@ -800,7 +804,9 @@ def _tactile(m: Model, d: Data, g):
     go = index(others, dev)
     lp = _mtv(d.geom_xmat[:, None, None, go],
               xpos[:, :, :, None] - d.geom_xpos[:, None, None, go])
-    depth = torch.clamp(sdf.distance(t, lp, m.geom_size[go]), max=0.0)
+    # sizes (1 or B, 1, 1, G, 3) against the points' (B, k, V, G, ·)
+    depth = torch.clamp(sdf.distance(
+        t, lp, m.per_env("geom_size")[:, None, None, go]), max=0.0)
     active = (rel[:, :, go] & const(valid, dev))[:, :, None]  # (B, k, 1, G)
     pen = torch.where(active, -depth, 0.0).amax(-1)
     out[0] = torch.maximum(out[0], pen)

@@ -157,8 +157,9 @@ def _tendon_limit(m: Model, d: Data, t: int):
   if not bool(m.tendon_limited[t]):
     return torch.zeros_like(d.time, dtype=torch.bool)
   length = d.ten_length[:, t]
-  lo, hi = m.tendon_range[t, 0], m.tendon_range[t, 1]
-  margin = m.tendon_margin[t]
+  rng = m.per_env("tendon_range")[:, t]                 # (1 or B, 2)
+  lo, hi = rng[:, 0], rng[:, 1]
+  margin = m.per_env("tendon_margin")[:, t]
   return ((length - lo) < margin) | ((hi - length) < margin)
 
 

@@ -231,8 +231,8 @@ def crb(m: Model, d: Data) -> Data:
   qm = qm + torch.diag_embed(m.per_env("dof_armature"))
   if m.has_tendon_armature:
     # M += armature · ten_Jᵀ ten_J (mj_tendonArmature), dense
-    qm = qm + torch.einsum("t,btv,btw->bvw", m.tendon_armature, d.ten_J,
-                           d.ten_J)
+    qm = qm + torch.einsum("btv,btw->bvw", m.per_env("tendon_armature")[
+        ..., None] * d.ten_J, d.ten_J)
   return d.replace(crb=crb_, qM=qm)
 
 
@@ -572,12 +572,15 @@ def camlight(m: Model, d: Data) -> Data:
     return d
   nbatch = d.qpos.shape[0]
   up = const(np.array([0.0, 0.0, 1.0]), d.qpos.device, d.qpos.dtype)
+  # (1 or B, n, ·): the local frames may be randomized per env
+  cam_pos, cam_quat = m.per_env("cam_pos"), m.per_env("cam_quat")
+  light_pos, light_dir = m.per_env("light_pos"), m.per_env("light_dir")
   cam_xpos, cam_xmat = [], []
   for i in range(m.ncam):
     bid, tid = int(m.cam_bodyid[i]), int(m.cam_targetbodyid[i])
     mode = int(m.cam_mode[i])
-    pos = d.xpos[:, bid] + mjm.mat_vec(d.xmat[:, bid], m.cam_pos[i])
-    mat = mjm.quat_to_mat(mjm.mul_quat(d.xquat[:, bid], m.cam_quat[i]))
+    pos = d.xpos[:, bid] + mjm.mat_vec(d.xmat[:, bid], cam_pos[:, i])
+    mat = mjm.quat_to_mat(mjm.mul_quat(d.xquat[:, bid], cam_quat[:, i]))
     if mode in (CamLightType.TRACK, CamLightType.TRACKCOM):
       mat = m.cam_mat0[i].expand(nbatch, 3, 3)
       if mode == CamLightType.TRACK:
@@ -599,8 +602,8 @@ def camlight(m: Model, d: Data) -> Data:
   for i in range(m.nlight):
     bid, tid = int(m.light_bodyid[i]), int(m.light_targetbodyid[i])
     mode = int(m.light_mode[i])
-    pos = d.xpos[:, bid] + mjm.mat_vec(d.xmat[:, bid], m.light_pos[i])
-    xdir = mjm.rot_vec_quat(m.light_dir[i], d.xquat[:, bid])
+    pos = d.xpos[:, bid] + mjm.mat_vec(d.xmat[:, bid], light_pos[:, i])
+    xdir = mjm.rot_vec_quat(light_dir[:, i], d.xquat[:, bid])
     if mode in (CamLightType.TRACK, CamLightType.TRACKCOM):
       xdir = m.light_dir0[i].expand(nbatch, 3)
       if mode == CamLightType.TRACK:

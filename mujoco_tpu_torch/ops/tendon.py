@@ -140,7 +140,7 @@ def wrap_inside(end, radius):
   # default point: the scaled midpoint
   mid = 0.5 * (e0 + e1)
   midn = mid / torch.clamp(_norm2(mid), min=MINVAL)[..., None]
-  default_pnt = midn * radius
+  default_pnt = midn * radius[..., None]
 
   a_ = radius / torch.clamp(len0, min=MINVAL)
   b_ = radius / torch.clamp(len1, min=MINVAL)
@@ -185,8 +185,9 @@ def wrap_inside(end, radius):
                     asin_z - torch.arcsin(torch.clamp(a_ * z, -1, 1)),
                     asin_z - torch.arcsin(torch.clamp(b_ * z, -1, 1)))
   ca, sa = torch.cos(ang), torch.sin(ang)
-  p = radius * torch.stack([ca * vec[..., 0] - sa * vec[..., 1],
-                            sa * vec[..., 0] + ca * vec[..., 1]], dim=-1)
+  p = radius[..., None] * torch.stack(
+      [ca * vec[..., 0] - sa * vec[..., 1],
+       sa * vec[..., 0] + ca * vec[..., 1]], dim=-1)
   p = torch.where(use_default[..., None], default_pnt, p)
   pnt = torch.cat([p, p], dim=-1)
   wlen = torch.where(nowrap, _NOWRAP, torch.zeros_like(len0))
@@ -199,8 +200,8 @@ def _to_local(xmat, v):
 
 def wrap(x0, x1, xpos, xmat, radius, wraptype: int, side_xpos=None):
   """3D wrap of a path segment x0 → x1 (B, 3) around a sphere or cylinder
-  geom at (xpos, xmat) (mju_wrap). Returns (wlen (B,), wpnt (B, 2, 3));
-  wlen < 0: no wrap."""
+  geom at (xpos, xmat) of radius (1 or B,) (mju_wrap). Returns (wlen (B,),
+  wpnt (B, 2, 3)); wlen < 0: no wrap."""
   p0 = _to_local(xmat, x0 - xpos)
   p1 = _to_local(xmat, x1 - xpos)
   nowrap = (mjm.norm_safe(p0) < MINVAL) | (mjm.norm_safe(p1) < MINVAL)
@@ -228,7 +229,8 @@ def wrap(x0, x1, xpos, xmat, radius, wraptype: int, side_xpos=None):
   if side_xpos is not None:
     s = _to_local(xmat, side_xpos - xpos)
     sd = torch.stack([mjm.dot(s, ax0), mjm.dot(s, ax1)], dim=-1)
-    sd = sd / torch.clamp(_norm2(sd), min=MINVAL)[..., None] * radius
+    sd = sd / torch.clamp(_norm2(sd), min=MINVAL)[..., None] * radius[
+        ..., None]
     inside = mjm.norm_safe(s) < radius
     w_in, p_in = wrap_inside(end, radius)
     w_ci, p_ci = wrap_circle(end, sd, radius)
@@ -306,7 +308,8 @@ def spatial_tendon(m: Model, d: Data, t: int):
 
       side = d.site_xpos[:, sideid] if sideid >= 0 else None
       wlen, wpnt = wrap(site0, site1, d.geom_xpos[:, wrapid],
-                        d.geom_xmat[:, wrapid], m.geom_size[wrapid, 0],
+                        d.geom_xmat[:, wrapid],
+                        m.per_env("geom_size")[:, wrapid, 0],
                         t1, side)
       wrapped = wlen >= 0
       # straight variant

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from mujoco_tpu_torch.models import io
-from mujoco_tpu_torch.models.types import ENV_LEAVES, Data, JointType, Model
+from mujoco_tpu_torch.models.types import (ENV_LEAVES, Data, EqType,
+                                          JointType, Model)
 from mujoco_tpu_torch.ops import forward, megastep_cuda
 from mujoco_tpu_torch.ops.linalg_cuda import has_tangent
 
@@ -151,12 +152,19 @@ def randomize_model(m: Model, leaf_updates: dict):
       d = step_randomized(bm, axes, d)
 
   The leaves of ``types.ENV_LEAVES`` are admitted; any other raises
-  NotImplementedError. As in the reference, derived fields are not
-  recomputed (``body_subtreemass``, ``dof_invweight0`` and
-  ``tendon_length0`` keep the model's values), and a static choice the
-  compiler made (rows only for dofs with friction loss, joint damping only
-  where the model has some) stays the model's. ``draw_leaves`` draws such
-  values from a seed."""
+  NotImplementedError, and so does a stage that does not read an
+  admitted leaf per env (``geom_size`` at a mesh, height-field, SDF or
+  flex collision). As in the reference, derived fields are not
+  recomputed: ``body_subtreemass``, ``dof_invweight0``, ``geom_rbound``
+  (the broadphase does not widen with a larger ``geom_size``),
+  ``cam_pos0``, ``cam_poscom0``, ``cam_mat0``, ``light_pos0``,
+  ``light_poscom0``, ``light_dir0``, ``tendon_length0``,
+  ``tendon_invweight0``, ``actuator_acc0`` and ``actuator_lengthrange``
+  keep the model's values. A static choice the compiler made stays the
+  model's: rows only for the dofs and tendons with friction loss and for
+  the limited joints and tendons, joint damping and tendon armature only
+  where the model has some. ``draw_leaves`` draws such values from a
+  seed."""
   nbatch = None
   updates = {}
   for name, value in leaf_updates.items():
@@ -177,6 +185,26 @@ def randomize_model(m: Model, leaf_updates: dict):
   return m.replace_leaves(updates), tuple(updates)
 
 
+# the leaves ``draw_leaves`` draws where none are named: the control
+# loop's dynamics
+DEFAULT_LEAVES = ("opt.gravity", "geom_friction", "body_mass", "body_ipos",
+                  "body_inertia", "dof_damping", "dof_armature",
+                  "dof_frictionloss", "actuator_gainprm", "actuator_biasprm",
+                  "geom_solref", "geom_solimp", "jnt_stiffness",
+                  "actuator_gear", "body_pos", "body_quat", "qpos0",
+                  "opt.timestep")
+# what pixel-RL users randomize: colours, lights and cameras
+RENDER_LEAVES = ("geom_rgba", "mat_rgba", "light_pos", "light_dir",
+                 "light_ambient", "light_diffuse", "light_specular",
+                 "cam_pos", "cam_quat")
+_COLOURS = ("geom_rgba", "mat_rgba", "light_ambient", "light_diffuse",
+            "light_specular")
+_SOLIMPS = ("geom_solimp", "jnt_solimp", "tendon_solimp_lim",
+            "tendon_solimp_fri", "eq_solimp")
+_RANGES = ("jnt_range", "tendon_range", "tendon_lengthspring",
+           "actuator_ctrlrange", "actuator_forcerange")
+
+
 def _turn(q, rng, angle):
   """Quaternions q (…, 4) each turned by up to ``angle`` rad about a random
   axis (q ⊗ δ, δ a unit quaternion)."""
@@ -191,32 +219,63 @@ def _turn(q, rng, angle):
 
 
 def draw_leaves(m: Model, nbatch: int, seed: int, leaves=None) -> dict:
-  """Per-env values of ``leaves`` (every leaf of ``types.ENV_LEAVES`` by
-  default), nbatch rows each, as numpy arrays for ``randomize_model``,
-  drawn from a numpy seed by one rule per leaf:
+  """Per-env values of ``leaves`` (``DEFAULT_LEAVES`` by default; any of
+  ``types.ENV_LEAVES`` by name), nbatch rows each, as numpy arrays for
+  ``randomize_model``, drawn from a numpy seed by one rule per leaf:
 
   - ``body_pos``: the model's plus an offset in [−0.02, 0.02] per entry;
     ``qpos0``: plus one in [−0.05, 0.05] at a hinge or slide and in
     [−0.02, 0.02] at a free joint's position (a zero entry does not move
-    under a factor);
-  - ``body_quat`` and the ball and free joints' quaternions in ``qpos0``:
-    turned by up to 0.05 rad about a random axis;
-  - ``geom_solimp`` kept valid: dmin^[1, 1.5] ≤ dmin ≤ dmax ≤
-    dmax^[0.7, 1], all in (0, 1), width ×[0.7, 1.3], midpoint^[0.7, 1.3],
-    power 1 + (power − 1)·[0.7, 1.3] ≥ 1;
-  - every other leaf: the model's times a factor in [0.7, 1.3] per entry,
-    which keeps each sign, so ``geom_solref`` keeps its mode (standard
-    where positive, direct where negative)."""
+    under a factor); ``light_pos`` and ``cam_pos``: plus one in
+    [−0.03, 0.03];
+  - ``body_quat``, ``cam_quat`` and the ball and free joints' quaternions
+    in ``qpos0``: turned by up to 0.05 rad about a random axis;
+    ``light_dir``: plus an offset in [−0.05, 0.05] per entry, rescaled to
+    the model's length;
+  - colours (``geom_rgba``, ``mat_rgba``, the lights' ambient, diffuse and
+    specular): plus an offset in [−0.2, 0.2] per channel, reflected at 0
+    and 1 into [0, 1] (so a channel at 1 moves too); an rgba's alpha
+    stays the model's;
+  - ``geom_solimp`` and the joint, tendon and equality solimps kept valid:
+    dmin^[1, 1.5] ≤ dmin ≤ dmax ≤ dmax^[0.7, 1], all in (0, 1), width
+    ×[0.7, 1.3], midpoint^[0.7, 1.3], power 1 + (power − 1)·[0.7, 1.3] ≥ 1;
+  - ranges (``jnt_range``, ``tendon_range``, ``tendon_lengthspring``,
+    ``actuator_ctrlrange``, ``actuator_forcerange``): each end times a
+    factor in [0.95, 1.05], the two then put in order (lo ≤ hi; lo < hi
+    where the model's were);
+  - ``eq_data``: each entry times a factor in [0.95, 1.05], but a weld's
+    relative quaternion (entries 6-9), turned by up to 0.05 rad;
+  - the rest of the leaves past the default eighteen (``geom_size``, the
+    tendons' stiffness, damping, friction loss, armature and margin, the
+    solrefs, ``actuator_dynprm``): the model's times a factor in
+    [0.95, 1.05] per entry;
+  - every other leaf of the eighteen: the model's times a factor in
+    [0.7, 1.3] per entry.
+
+  A factor keeps each sign, so a solref keeps its mode (standard where
+  positive, direct where negative), and a zero (a tendon's absent
+  stiffness or armature) stays zero."""
   rng = np.random.default_rng(seed)
   out = {}
-  for name in ENV_LEAVES if leaves is None else leaves:
+  for name in DEFAULT_LEAVES if leaves is None else leaves:
     base = m.leaf(name).detach().cpu().numpy().astype(np.float64)
     val = np.repeat(base[None], nbatch, axis=0)
     u = lambda a, b, shape=val.shape: rng.uniform(a, b, shape)
     if name == "body_pos":
       val = val + u(-0.02, 0.02)
-    elif name == "body_quat":
+    elif name in ("light_pos", "cam_pos"):
+      val = val + u(-0.03, 0.03)
+    elif name in ("body_quat", "cam_quat"):
       val = _turn(val, rng, 0.05)
+    elif name == "light_dir":
+      moved = val + u(-0.05, 0.05)
+      val = moved * (np.linalg.norm(val, axis=-1, keepdims=True)
+                     / np.linalg.norm(moved, axis=-1, keepdims=True))
+    elif name in _COLOURS:
+      moved = 1.0 - np.abs(1.0 - np.abs(val + u(-0.2, 0.2)))
+      if val.shape[-1] == 4:
+        moved[..., 3] = val[..., 3]
+      val = moved
     elif name == "qpos0":
       for j in range(m.njnt):
         adr, jt = int(m.jnt_qposadr[j]), int(m.jnt_type[j])
@@ -227,15 +286,24 @@ def draw_leaves(m: Model, nbatch: int, seed: int, leaves=None) -> dict:
             val[:, adr:adr + 3] += u(-0.02, 0.02, (nbatch, 3))
             adr += 3
           val[:, adr:adr + 4] = _turn(val[:, adr:adr + 4], rng, 0.05)
-    elif name == "geom_solimp":
+    elif name in _SOLIMPS:
       shape = val.shape[:-1]
       val = np.stack([val[..., 0] ** u(1.0, 1.5, shape),
                       val[..., 1] ** u(0.7, 1.0, shape),
                       val[..., 2] * u(0.7, 1.3, shape),
                       val[..., 3] ** u(0.7, 1.3, shape),
                       1 + (val[..., 4] - 1) * u(0.7, 1.3, shape)], axis=-1)
-    else:
+    elif name in _RANGES:
+      val = np.sort(val * u(0.95, 1.05), axis=-1)
+    elif name == "eq_data":
+      val = val * u(0.95, 1.05)
+      for e in np.nonzero(np.asarray(m.eq_type) == EqType.WELD)[0]:
+        val[:, e, 6:10] = _turn(base[None, e, 6:10].repeat(nbatch, 0), rng,
+                                0.05)
+    elif name in DEFAULT_LEAVES:
       val = val * u(0.7, 1.3)
+    else:
+      val = val * u(0.95, 1.05)
     out[name] = val
   return out
 

@@ -41,9 +41,8 @@ def _indices(m: Model, spec: ParamSpec):
   for name, idx in spec:
     if name not in ENV_LEAVES:
       raise NotImplementedError(
-          f"sysid of Model.{name} is not ported (ROADMAP.md A10: the "
-          f"leaves a Model may carry per env); the admitted leaves are "
-          f"{', '.join(ENV_LEAVES)}")
+          f"sysid of Model.{name} is not ported: it fits the leaves a "
+          f"Model may carry per env, {', '.join(ENV_LEAVES)}")
     shape = tuple(m.leaf(name).shape[m.leaf(name).dim() - ENV_LEAVES[name]:])
     sel = (np.arange(int(np.prod(shape))) if idx is None
            else np.asarray(idx, dtype=np.int64))

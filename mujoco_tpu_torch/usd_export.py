@@ -137,8 +137,9 @@ class _Frame:
 
 def export_usd(m: Model, data: Union[Data, Sequence[Data]], path: str,
                fps: float = 60.0, env: int = 0) -> str:
-  """Write the Model and env ``env`` of the frame(s) to ``path`` as usda;
-  returns the text."""
+  """Write the Model and env ``env`` of the frame(s) to ``path`` as usda
+  (a per-env Model at that env's leaves); returns the text."""
+  m = m.envs(env)
   datas = [data] if isinstance(data, Data) else list(data)
   frames = [_Frame(d, env) for d in datas]
   nfr = len(frames)

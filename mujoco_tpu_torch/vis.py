@@ -61,7 +61,8 @@ def update_scene(m: Model, d: Data, contact_points: bool = True,
   vm = m.vis_meta
   scl = float(vm["meansize"])
   ncon = m.con.ncon if contact_points or contact_forces else 0
-  env = lambda x: x.to(dtype).expand((nbatch,) + x.shape)
+  # a (1 or B, …) table, per env where the Model randomizes it
+  env = lambda x: x.to(dtype).expand((nbatch,) + x.shape[1:])
   full = lambda v, n: torch.full((nbatch, n), v, dtype=dtype, device=dev)
   color = lambda key, n: const(np.asarray(vm[key]), dev, dtype).expand(
       nbatch, n, 4)
@@ -69,7 +70,7 @@ def update_scene(m: Model, d: Data, contact_points: bool = True,
   types = list(np.asarray(m.geom_type, dtype=np.int64))
   cats = [CAT_GEOM] * m.ngeom
   objid = list(range(m.ngeom))
-  pos, mat, size = [d.geom_xpos], [d.geom_xmat], [env(m.geom_size)]
+  pos, mat, size = [d.geom_xpos], [d.geom_xmat], [env(m.per_env("geom_size"))]
   rgba = [env(_materials(m, dtype)[0])]
   active = [torch.ones((nbatch, m.ngeom), dtype=torch.bool, device=dev)]
 

@@ -4,7 +4,9 @@ against mujoco_tpu's, at f64 on the CPU.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_parallel.py -q
 
-- Each of the eighteen admitted leaves, per env on a small scene that
+- Each of the eighteen leaves ``rollout.draw_leaves`` draws by default
+  (``rollout.DEFAULT_LEAVES``; tests/test_torch_env_leaves.py holds the
+  rest of ``types.ENV_LEAVES``), per env on a small scene that
   reaches every consumer (contacts whose geoms mix their solref and
   solimp, joint damping, armature, friction loss and a spring, a slide
   joint, a position servo and a geared motor, gravity and its
@@ -17,8 +19,10 @@ against mujoco_tpu's, at f64 on the CPU.
 - the flagship humanoid with all eighteen leaves drawn per env, B 4, 5
   steps, to 1e-9, and each env equal to a plain Model holding its leaves;
   the small scene with all eighteen at implicitfast, B 4, to 1e-9;
-- ``geom_size`` is refused by name; the megastep refuses a per-env Model
-  of any admitted leaf;
+- a leaf outside ``types.ENV_LEAVES`` is refused by name, and a per-env
+  ``geom_size`` by each consumer not ported to it (the mesh and
+  height-field colliders, SDF and flex-geom collision); the megastep
+  refuses a per-env Model of any admitted leaf;
 - ``sharded_step`` over ``["cpu", "cpu"]`` equals the unsplit step to
   1e-12.
 """
@@ -42,7 +46,7 @@ from mujoco_tpu_torch.parallel import rollout as t_roll
 # one intra-op thread per process (tests/test_torch_tendon.py)
 torch.set_num_threads(1)
 
-LEAVES = tuple(ENV_LEAVES)
+LEAVES = t_roll.DEFAULT_LEAVES
 
 # a box sliding on the floor, the two mixing their solref and solimp, and
 # a damped arm of a hinge and a sprung hinge and slide, with armature,
@@ -217,8 +221,9 @@ def test_implicitfast_all_leaves_match_reference():
 
 def test_randomize_refuses_other_leaves_and_shapes():
   tm = zoo.humanoid(torch.float64, device="cpu")
-  with pytest.raises(NotImplementedError, match="geom_size"):
-    t_roll.randomize_model(tm, {"geom_size": tm.geom_size[None]})
+  assert "mesh_vert" not in ENV_LEAVES and set(LEAVES) < set(ENV_LEAVES)
+  with pytest.raises(NotImplementedError, match="mesh_vert"):
+    t_roll.randomize_model(tm, {"mesh_vert": tm.mesh_vert[None]})
   with pytest.raises(ValueError, match="body_mass"):
     t_roll.randomize_model(tm, {"body_mass": tm.body_mass})
   with pytest.raises(ValueError, match="env counts"):
@@ -230,13 +235,34 @@ def test_randomize_refuses_other_leaves_and_shapes():
     t_roll.step_randomized(bm, axes, t_roll.make_batch(tm, 2, device="cpu"))
 
 
+# a scene of each consumer that refuses a per-env geom_size, and the
+# words its error names that consumer by
+SIZE_REFUSED = {"mesh_plane": "mesh colliders",
+                "hfield_bowl": "hfield colliders",
+                "torus_on_plane": "SDF collision",
+                "cloth_bodies": "flex-geom collision"}
+
+
+@pytest.mark.parametrize("scene", sorted(SIZE_REFUSED))
+def test_per_env_geom_size_refused_where_not_ported(scene):
+  """A per-env geom_size raises NotImplementedError naming the leaf and
+  the consumer, where that consumer reads the model's sizes only."""
+  tm = zoo.load(scene, torch.float64, "cpu")
+  bm, axes = t_roll.randomize_model(
+      tm, t_roll.draw_leaves(tm, 2, 0, ("geom_size",)))
+  d = t_roll.make_batch(tm, 2, device="cpu")
+  with pytest.raises(NotImplementedError,
+                     match=f"geom_size.*{SIZE_REFUSED[scene]}"):
+    t_roll.step_randomized(bm, axes, d)
+
+
 def test_megastep_refuses_per_env_model():
   tm = zoo.humanoid(torch.float32, device="cpu")
   assert megastep_cuda.supported(tm)
   d = t_roll.make_batch(tm, 4, device="cpu")
   fresh = tio.make_data(tm, device="cpu")
   assert t_roll.megastep_eligible(tm, d, fresh)
-  for name, value in t_roll.draw_leaves(tm, 4, 5).items():
+  for name, value in t_roll.draw_leaves(tm, 4, 5, tuple(ENV_LEAVES)).items():
     bm, _ = t_roll.randomize_model(tm, {name: value})
     assert bm.env_leaves == (name,)
     assert not megastep_cuda.supported(bm), name

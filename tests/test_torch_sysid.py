@@ -126,12 +126,12 @@ def test_get_and_apply_params_match_reference(arm):
 
 
 def test_leaf_outside_env_leaves_raises(arm):
-  assert "geom_rgba" not in ENV_LEAVES
-  with pytest.raises(NotImplementedError, match="A10"):
-    sysid.apply_params(arm["tm"], [("geom_rgba", [0])], np.array([0.5]))
-  with pytest.raises(NotImplementedError, match="geom_size"):
+  assert "geom_pos" not in ENV_LEAVES and "mesh_vert" not in ENV_LEAVES
+  with pytest.raises(NotImplementedError, match="geom_pos"):
+    sysid.apply_params(arm["tm"], [("geom_pos", [0])], np.array([0.5]))
+  with pytest.raises(NotImplementedError, match="mesh_vert"):
     sysid.fit(arm["tm"], arm["td0"], arm["ctrls"], arm["observed"],
-              [("geom_size", None)])
+              [("mesh_vert", None)])
 
 
 def test_simulate_matches_reference(arm):
