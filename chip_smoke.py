@@ -436,18 +436,34 @@ Phases, each of which passes or ends the script with a nonzero exit:
    the three actuator leaves, each f32, B 3072, 20 steps of
    ``step_randomized`` (finite, one LDL and one Newton launch per step,
    env-steps/s, the idle share of a profiled 3-step window) and f64, B
-   256, 5 steps card = CPU.
+   256, 5 steps card = CPU;
+34. ``rollout.scan_steps(mesh=)``: the humanoid at f32, B 3072, 200 steps,
+   plain, over ``["cuda:0"]`` (one megastep launch, bitwise the plain
+   call) and over ``["cuda:0", "cuda:0"]`` (two launches of 1536 envs, no
+   LDL or Newton launch, each env bitwise the unsplit call's or by phase
+   4's f32 rule), env-steps/s of each; ``quadruped_sim2real`` at
+   implicitfast with the frame and contact leaves it reaches
+   (``SIM2REAL_NEW_LEAVES``) beside phase 33's, as phase 33's side paths
+   (f32, B 3072, 20 steps, one LDL and one Newton launch per step, the
+   idle share; f64, B 256, 5 steps card = CPU), and the LDL and Newton
+   kernels on its f64 qM and rows against their plain versions; the six
+   pair leaves on ``pair_condim6`` at f64, B 64, 5 steps card = CPU; the
+   three ``examples_torch/`` scripts at their defaults, each in its own
+   process (exit 0, its seconds, one megastep launch in
+   ``rollout_batch.py``, the damping within 1e-4 in ``sysid_fit.py``).
 
 The kernels' ``launches`` are counted in the run of their own path: the
 megastep's in phase 5, the LDL's and the Newton kernel's in phase 6; each
 kernel's ``launches_by_path`` adds its counts in the runs of phases 9 to 11
-and 13 to 33 (phase 26's ``discrete_acc``, ``transition`` and
+and 13 to 34 (phase 26's ``discrete_acc``, ``transition`` and
 ``randomized``; phase 27's ``humanoid_hammock``; the megastep's phase
 28 ``humanoid_pixels`` and phase 29's ``multi_humanoid3`` and
 ``multi_humanoid10_monolithic``; phase 30's ``sdf_nutbolt``; phase 31's
 ``compiled_humanoid`` and ``compiler_lengthrange``; phase 32's
 ``sysid_jacobian`` and ``testspeed``; phase 33's ``randomized_pixels``,
-``randomized_humanoid_tendon`` and ``randomized_quadruped_sim2real``); the
+``randomized_humanoid_tendon`` and ``randomized_quadruped_sim2real``;
+phase 34's megastep ``mesh_1`` and ``mesh_2`` and LDL and Newton
+``randomized_quadruped_sim2real_frames``); the
 megastep's ``wide`` entry holds phase
 29's times per scene; the LDL's ``wide`` entry holds phase 13's table (each order
 of ``WIDE_ORDERS`` at f32 and f64, and the scene's qM at n 81) and the
@@ -2358,7 +2374,7 @@ def phase_option_scenes(report, details):
 PHASE_NUMBERS = ("2", "3", "4", "4b", "5", "6", "7", "8", "9", "10", "11",
                  "12", "13", "14", "15", "16", "17", "18", "19", "20", "21",
                  "22", "23", "24", "25", "26", "27", "28", "29", "30",
-                 "31", "32", "33")
+                 "31", "32", "33", "34")
 MANY_NSTEP = 20
 # the sleep scene's card-against-CPU run: long enough for its stack (step
 # 79) and its ball (step 48) to fall asleep
@@ -5998,6 +6014,181 @@ def phase_env_leaves(report, details):
       humanoid_tendon=tendon, quadruped_sim2real=sim2real)
 
 
+# phase 34: scan_steps over a mesh, the frame and contact leaves, the
+# examples
+MESH_REPS = 3              # timed calls of each megastep rollout
+SIM2REAL_NEW_LEAVES = ("geom_pos", "geom_quat", "site_pos", "site_quat",
+                       "site_size", "body_iquat", "jnt_pos", "jnt_axis",
+                       "geom_margin", "geom_solmix", "jnt_margin",
+                       "opt.impratio")
+PAIR_LEAVES = ("pair_friction", "pair_solref", "pair_solreffriction",
+               "pair_solimp", "pair_margin", "pair_gap")
+PAIR_CHECK_B = 64
+EXAMPLES_TIMEOUT = 240
+
+
+def mesh_rollouts(details):
+  """The humanoid at f32, B 3072, NSTEP steps from the main path's start:
+  the plain ``scan_steps``, a mesh of the one card (one megastep launch,
+  bitwise the plain call's state) and a mesh of the card twice (two
+  launches, each of B/2 envs on its stream; each env held to the unsplit
+  call bitwise, else by phase 4's f32 rule); env-steps/s of each, the
+  best of MESH_REPS timed calls."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.parallel import rollout
+  m = zoo.humanoid(torch.float32)
+  d = main_path_batch(m)
+  meshes = {"plain": None, "mesh_1": ["cuda:0"],
+            "mesh_2": ["cuda:0", "cuda:0"]}
+  out, rates, launches = {}, {}, {}
+  for tag, mesh in meshes.items():
+    run = lambda: rollout.scan_steps(m, d, NSTEP, mesh=mesh)
+    run()                                                  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    out[tag] = run()
+    torch.cuda.synchronize()
+    launches[tag] = read_counts()
+    walls = []
+    for _ in range(MESH_REPS):
+      t0 = time.perf_counter()
+      run()
+      torch.cuda.synchronize()
+      walls.append(time.perf_counter() - t0)
+    rates[tag] = B * NSTEP / min(walls)
+  want = {"plain": 1, "mesh_1": 1, "mesh_2": 2}
+  for tag, n in want.items():
+    if launches[tag] != {"ldl_solve": 0, "newton_pyramidal": 0,
+                         "megastep": n}:
+      raise AssertionError(f"scan_steps {tag}: launches {launches[tag]}, "
+                           f"want {n} megastep launch(es) and no other")
+  state = lambda o: {f: getattr(o, f) for f in rollout.STATE_FIELDS}
+  bitwise = {tag: all(torch.equal(a, b) for a, b in zip(
+      state(out[tag]).values(), state(out["plain"]).values()))
+      for tag in ("mesh_1", "mesh_2")}
+  if not bitwise["mesh_1"]:
+    raise AssertionError("scan_steps(mesh=[cuda:0]) is not the plain call")
+  fracs = None
+  if not bitwise["mesh_2"]:
+    fracs = check_f32("mesh of two against the unsplit call",
+                      state(out["mesh_2"]), state(out["plain"]))
+  if out["mesh_2"].qpos.shape != out["plain"].qpos.shape:
+    raise AssertionError("scan_steps over a mesh lost envs")
+  print(f"scan_steps over a mesh: humanoid f32 B{B} {NSTEP} steps, "
+        f"env-steps/s plain {rates['plain']:.1f}, mesh [cuda:0] "
+        f"{rates['mesh_1']:.1f} (1 megastep launch, bitwise the plain "
+        f"call), mesh [cuda:0, cuda:0] {rates['mesh_2']:.1f} (2 megastep "
+        f"launches of {B // 2} envs, no LDL or Newton launch; "
+        + ("bitwise the unsplit call" if bitwise["mesh_2"] else
+           "by phase 4's f32 rule: " + " ".join(
+               f"{k} {v:.2%}" for k, v in fracs.items()))
+        + f"); best of {MESH_REPS} calls", flush=True)
+  details["mesh"] = dict(env_steps_per_s=rates, launches=launches,
+                         bitwise=bitwise, f32_fractions=fracs)
+  return launches
+
+
+def pair_card_vs_cpu():
+  """pair_condim6 (a condim-6 explicit pair) at f64 with the six pair
+  leaves per env, B PAIR_CHECK_B, ENV_CHECK_NSTEP steps: card = CPU
+  (``randomized_card_vs_cpu``) from the scene's start, the ball 1 cm in
+  the floor, so that the pair acts from the first step."""
+  from mujoco_tpu_torch.models import zoo
+  bms = {}
+  for dev in ("cuda", "cpu"):
+    m = zoo.load("pair_condim6", torch.float64, dev)
+    bms[dev] = control_randomize(m, PAIR_CHECK_B, 110, PAIR_LEAVES)[0]
+  d = start_batch(bms["cpu"], PAIR_CHECK_B, 111, "cpu")
+  judged, out = randomized_card_vs_cpu(bms["cuda"], bms["cpu"], d,
+                                       ENV_CHECK_NSTEP, ("qpos", "qvel"))
+  if not bool(torch.isfinite(out.qpos).all()):
+    raise AssertionError("pair_condim6 per env: non-finite state")
+  return dict(leaves=list(bms["cpu"].env_leaves), env_steps_judged=judged)
+
+
+def run_examples() -> dict:
+  """The examples_torch scripts at their defaults, each in a process of
+  its own on the card: exit 0 and its seconds; rollout_batch (timed
+  alone, first) makes one megastep launch; procedural_model and sysid_fit
+  (one env each, host-bound) run side by side; sysid_fit recovers the
+  damping."""
+  env = {k: v for k, v in os.environ.items()
+         if not k.startswith("EX_") and k != "PYTHONPATH"}
+  out = {}
+  for batch in (("rollout_batch.py",), ("procedural_model.py",
+                                        "sysid_fit.py")):
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join("examples_torch", name)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in batch}
+    secs, results = {}, {}
+    try:
+      for name, p in procs.items():
+        results[name] = p.communicate(timeout=EXAMPLES_TIMEOUT)
+        secs[name] = time.perf_counter() - t0
+    finally:
+      for p in procs.values():
+        if p.poll() is None:
+          p.kill()
+          p.wait()
+    for name, p in procs.items():
+      stdout, stderr = results[name]
+      last = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+      print(f"example {name}: exit {p.returncode} in {secs[name]:.1f} s"
+            f"{' (side by side)' if len(batch) > 1 else ''}: {last}",
+            flush=True)
+      if p.returncode != 0:
+        raise AssertionError(f"examples_torch/{name} failed:\n{stdout}\n"
+                             f"{stderr[-4000:]}")
+      if name == "rollout_batch.py" and "1 megastep launch" not in last:
+        raise AssertionError(f"rollout_batch: {last}")
+      if name == "sysid_fit.py":
+        x = float(re.search(r"recovered ([0-9.]+)", last).group(1))
+        if abs(x - 0.27) > 1e-4:
+          raise AssertionError(f"sysid_fit: {last}")
+      out[name] = dict(seconds=secs[name], last_line=last,
+                       side_by_side=len(batch) > 1)
+  return out
+
+
+def phase_mesh_leaves(report, details):
+  """34: ``scan_steps(mesh=)`` (``mesh_rollouts``); quadruped_sim2real
+  (implicitfast) with the frame and contact leaves it reaches beside its
+  phase-33 leaves, f32 B 3072, ENV_SIDE_NSTEP steps of
+  ``step_randomized`` (one LDL and one Newton launch each), its idle
+  share, card = CPU at f64 (``env_side_path``), and the LDL and Newton
+  kernels against their plain versions on its f64 qM and rows; the pair
+  leaves on pair_condim6 card = CPU; the three examples."""
+  from mujoco_tpu_torch.models import zoo
+  from mujoco_tpu_torch.models.types import Integrator
+  from mujoco_tpu_torch.parallel import rollout
+  launches = mesh_rollouts(details)
+  report["megastep"].setdefault("launches_by_path", {}).update(
+      mesh_1=launches["mesh_1"]["megastep"],
+      mesh_2=launches["mesh_2"]["megastep"])
+  opt = {"integrator": int(Integrator.IMPLICITFAST)}
+  load = lambda dt, dev: zoo.load("quadruped_sim2real", dt, dev, opt=opt)
+  leaves = SIM2REAL_LEAVES + ACTUATOR_LEAVES + SIM2REAL_NEW_LEAVES
+  sim2real = env_side_path(report, "quadruped_sim2real_frames", load,
+                           leaves, quadruped_batch, ACTUATION_FIELDS, 112)
+  m64 = load(torch.float64, "cuda")
+  bm64, axes64 = control_randomize(m64, B, 112, leaves)
+  kernels = path_kernels_gate(
+      m64, "randomized quadruped_sim2real (frames, contact)",
+      lambda d: rollout.step_randomized(bm64, axes64, d),
+      quadruped_batch(m64, B, 113))
+  del bm64
+  pair = pair_card_vs_cpu()
+  print(f"pair_condim6 per env ({', '.join(pair['leaves'])}): f64 "
+        f"B{PAIR_CHECK_B} {ENV_CHECK_NSTEP} steps card = CPU (qpos and qvel "
+        f"within 1e-8; {pair['env_steps_judged']} env-steps judged by "
+        f"last-bit copies)", flush=True)
+  examples = run_examples()
+  details["mesh_leaves"] = dict(quadruped_sim2real=sim2real, kernels=kernels,
+                                pair_condim6=pair, examples=examples)
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6025,7 +6216,7 @@ def main() -> int:
             phase_colliders, phase_convex_scenes, phase_sensors,
             phase_actuation, phase_control_loop, phase_flex, phase_pixels,
             phase_wide_megastep, phase_sdf, phase_compiler, phase_tools,
-            phase_env_leaves)
+            phase_env_leaves, phase_mesh_leaves)
   for number, phase in zip(PHASE_NUMBERS, phases):
     t0 = time.perf_counter()
     phase(report, details)

@@ -445,7 +445,9 @@ class EfcMeta:
 # the numeric leaves ``parallel.rollout.randomize_model`` may give a leading
 # env axis (domain randomization), each with its rank without that axis:
 # the dynamics leaves, then the render leaves of pixel RL, the geom sizes,
-# and the joint-limit, tendon, equality and actuator leaves
+# the joint-limit, tendon, equality and actuator leaves, the frames (where
+# geoms, sites and joints sit on their bodies) and the contact and
+# constraint leaves of sim-to-real
 ENV_LEAVES = {"opt.gravity": 1, "geom_friction": 2, "body_mass": 1,
               "body_ipos": 2, "body_inertia": 2, "dof_damping": 1,
               "dof_armature": 1, "dof_frictionloss": 1,
@@ -466,7 +468,14 @@ ENV_LEAVES = {"opt.gravity": 1, "geom_friction": 2, "body_mass": 1,
               "tendon_solimp_fri": 2,
               "eq_data": 2, "eq_solref": 2, "eq_solimp": 2,
               "actuator_dynprm": 2, "actuator_ctrlrange": 2,
-              "actuator_forcerange": 2}
+              "actuator_forcerange": 2,
+              "geom_pos": 2, "geom_quat": 2, "site_pos": 2, "site_quat": 2,
+              "site_size": 2, "body_iquat": 2, "jnt_pos": 2, "jnt_axis": 2,
+              "geom_margin": 1, "geom_solmix": 1, "pair_friction": 2,
+              "pair_solref": 2, "pair_solreffriction": 2, "pair_solimp": 2,
+              "pair_margin": 1, "pair_gap": 1, "jnt_margin": 1,
+              "dof_solref": 2, "dof_solimp": 2, "jnt_actfrcrange": 2,
+              "opt.impratio": 0}
 
 
 @dataclass

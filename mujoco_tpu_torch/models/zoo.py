@@ -240,3 +240,44 @@ def quadruped(dtype: Optional[torch.dtype] = None, device=None) -> Model:
   """18-DoF torque-controlled quadruped: a box chassis (plane-box contacts)
   and sphere feet, joint damping (nq 19, nv 18, nu 12)."""
   return load("quadruped", dtype=dtype, device=device)
+
+
+def load_mj(name: str, device=None):
+  """The compiled model of zoo XML ``name`` (``humanoid``, ``quadruped``):
+  the port compiler's CompiledModel, which ``io.put_model`` takes, where
+  the reference returns the pip ``mujoco.MjModel`` (the card's machine has
+  no pip ``mujoco``). ``device`` is where its set_const runs, the card by
+  default (``compiler.load_xml_path``)."""
+  from mujoco_tpu_torch import compiler
+  return compiler.load_xml_path(os.path.join(XML_DIR, f"{name}.xml"),
+                                device=device)
+
+
+def multi_humanoid_spec(n: int = 4, spacing: float = 3.0):
+  """The port compiler's MjSpec of one scene with n flagship humanoids on
+  one floor (mujoco_tpu/models/zoo.py:38): humanoid i > 0 attached under
+  the prefix ``h{i}_`` without its floor, its root placed on a grid of
+  ``spacing``. The humanoid's contype/conaffinity already exclude
+  humanoid-humanoid contacts, so each robot is its own island."""
+  from mujoco_tpu_torch.compiler import MjSpec
+  with open(os.path.join(XML_DIR, "humanoid.xml")) as f:
+    xml = f.read()
+  scene = MjSpec.from_xml(xml)
+  part = MjSpec.from_xml(xml)
+  part.worldbody.delete(part.find("floor"))
+  for i in range(1, n):
+    scene.attach(part, prefix=f"h{i}_")
+    root = scene.find(f"h{i}_root")
+    row, col = divmod(i, max(1, int(round(n ** 0.5))))
+    root.set(pos=[spacing * row, spacing * col, 1.35])
+  return scene
+
+
+def multi_humanoid(n: int = 4, spacing: float = 3.0,
+                   dtype: Optional[torch.dtype] = None, device=None) -> Model:
+  """The port's Model of ``multi_humanoid_spec(n, spacing)``, compiled by
+  the port's own compiler (set_const on ``device``, the card by default),
+  with no pip ``mujoco``."""
+  cm = multi_humanoid_spec(n, spacing).compile(device=device)
+  return io.put_model(cm, dtype=dtype, device=device)
+

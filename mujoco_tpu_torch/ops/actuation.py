@@ -491,6 +491,15 @@ def actgravcomp_dof_mask(m: Model) -> np.ndarray:
   return mask
 
 
+def act_dot(m: Model, d: Data) -> torch.Tensor:
+  """(B, na) the activations' time derivatives at d's state and controls
+  (mujoco_tpu/ops/actuation.py:227); d.act_dot where the model has
+  none."""
+  if m.na == 0:
+    return d.act_dot
+  return _ctrl_and_actdot(m, d, ctrl_of(m, d))[1]
+
+
 def fwd_actuation(m: Model, d: Data) -> Data:
   """act_dot, actuator forces and qfrc_actuator (mj_fwdActuation)."""
   nbatch = d.qpos.shape[0]
@@ -587,7 +596,7 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   if len(jnts):
     # clamp qfrc_actuator at each limited joint's first dof
     dofs = index(m.jnt_dofadr[jnts], dev)
-    rng = m.jnt_actfrcrange[index(jnts, dev)]
+    rng = m.per_env("jnt_actfrcrange")[:, index(jnts, dev)]  # (1 or B, k, 2)
     qfrc = qfrc.clone()
-    qfrc[:, dofs] = torch.clamp(qfrc[:, dofs], rng[:, 0], rng[:, 1])
+    qfrc[:, dofs] = torch.clamp(qfrc[:, dofs], rng[..., 0], rng[..., 1])
   return d.replace(act_dot=adot, actuator_force=force, qfrc_actuator=qfrc)

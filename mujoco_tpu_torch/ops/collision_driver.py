@@ -121,7 +121,8 @@ def _env_rows(leaf, g1, g2):
 
 # the geom leaves of a contact's parameters that may be randomized per env
 _ENV_GEOM = (("friction", "geom_friction"), ("solref", "geom_solref"),
-             ("solimp", "geom_solimp"))
+             ("solimp", "geom_solimp"), ("solmix", "geom_solmix"),
+             ("margin", "geom_margin"))
 
 
 def _mix(m: Model, g1, g2, hi1, hi2):
@@ -129,10 +130,9 @@ def _mix(m: Model, g1, g2, hi1, hi2):
   or per env (B, n); hi1, hi2: g1's or g2's priority is the higher, shaped
   g1[..., None]) → (margin, friction5, solref, solreffriction, solimp),
   friction5, solref, solreffriction and solimp with a leading env axis (1
-  or B) where the ids are static, as ``geom_friction``, ``geom_solref``
-  and ``geom_solimp`` may be randomized per env."""
-  s1 = {"solmix": m.geom_solmix[g1], "margin": m.geom_margin[g1]}
-  s2 = {"solmix": m.geom_solmix[g2], "margin": m.geom_margin[g2]}
+  or B) where the ids are static, as the geom leaves of ``_ENV_GEOM``
+  may be randomized per env."""
+  s1, s2 = {}, {}
   for key, name in _ENV_GEOM:
     s1[key], s2[key] = _env_rows(m.per_env(name), g1, g2)
   return _mix_sides(s1, s2, hi1, hi2)
@@ -174,8 +174,6 @@ def _flex_sides(m: Model):
   dev, con, flx = m.device, m.con, m.flx
   # a model of flexes alone: one zero geom row stands in (its slots are
   # all flex-flex, both sides overridden)
-  pad = (lambda t: t) if m.ngeom else (
-      lambda t: t.new_zeros((1,) + t.shape[1:]))
   g1 = np.minimum(con.geom1, max(m.ngeom - 1, 0))
   g2 = np.minimum(np.maximum(con.geom2, 0), max(m.ngeom - 1, 0))
   env = {k: m.per_env(name) for k, name in _ENV_GEOM}
@@ -184,15 +182,13 @@ def _flex_sides(m: Model):
   sides, prios = [], []
   for g, fx in ((g1, con.flex1), (g2, con.flex2)):
     gi = index(g, dev)
-    side = {"solmix": pad(m.geom_solmix)[gi],
-            "margin": pad(m.geom_margin)[gi]}
-    side.update({k: v[:, gi] for k, v in env.items()})
+    side = {k: v[:, gi] for k, v in env.items()}
     is_f = const(fx >= 0, dev)
     fi = index(np.maximum(fx, 0), dev)
     for k, leaf in (("solmix", m.flex_solmix), ("solref", m.flex_solref),
                     ("solimp", m.flex_solimp), ("friction", m.flex_friction),
                     ("margin", m.flex_margin)):
-      mask = is_f if side[k].dim() == 1 else is_f[:, None]
+      mask = is_f if side[k].dim() == 2 else is_f[:, None]
       side[k] = torch.where(mask, leaf[fi], side[k])
     sides.append(side)
     gp = np.asarray(m.geom_priority)[g] if m.ngeom else np.zeros(len(g))
@@ -203,8 +199,8 @@ def _flex_sides(m: Model):
 
 def _combine_params(m: Model):
   """Per-slot (includemargin, friction5, solref, solreffriction, solimp),
-  each (1, ncon, ...), or (B, ncon, ...) where the geom leaves it mixes
-  are randomized per env, from the slots' static geom ids (and
+  each (1, ncon, ...), or (B, ncon, ...) where the geom or pair leaves it
+  reads are randomized per env, from the slots' static geom ids (and
   flexes)."""
   dev = m.device
   if np.any(m.con.flex2 >= 0):
@@ -222,19 +218,21 @@ def _combine_params(m: Model):
 
   # an explicit <pair> replaces the combined parameters wholesale
   # (mj_collideGeomPair): its own friction (all 5), solref, solreffriction,
-  # solimp and margin
+  # solimp and margin, each (1 or B, ncon, ·); its gap, as the reference's,
+  # is read nowhere
   pid = m.con.pairid
   if np.any(pid >= 0):
     pidx = index(np.maximum(pid, 0), dev)
     is_pair = const(pid >= 0, dev)
     col = is_pair[:, None]
-    solref = torch.where(col, m.pair_solref[pidx], solref)
-    solreffriction = torch.where(col, m.pair_solreffriction[pidx],
+    pair = lambda name: m.per_env(name)[:, pidx]
+    solref = torch.where(col, pair("pair_solref"), solref)
+    solreffriction = torch.where(col, pair("pair_solreffriction"),
                                  solreffriction)
-    solimp = torch.where(col, m.pair_solimp[pidx], solimp)
-    friction5 = torch.where(col, m.pair_friction[pidx], friction5)
-    margin = torch.where(is_pair, m.pair_margin[pidx], margin)
-  return margin[None], friction5, solref, solreffriction, solimp
+    solimp = torch.where(col, pair("pair_solimp"), solimp)
+    friction5 = torch.where(col, pair("pair_friction"), friction5)
+    margin = torch.where(is_pair, pair("pair_margin"), margin)
+  return margin, friction5, solref, solreffriction, solimp
 
 
 def collision(m: Model, d: Data) -> Data:
@@ -324,9 +322,12 @@ def _dynamic_group(m: Model, d: Data, grp: dict, dist, pos, frame):
   npair, adr = int(grp["npair"]), int(grp["adr"])
   g1 = index(grp["g1"], dev)
   g2 = index(grp["g2"], dev)
+  # the bounding spheres as compiled (geom_rbound does not grow with a
+  # randomized size or margin, as in the reference), each env's margins
+  margin1, margin2 = _env_rows(m.per_env("geom_margin"), g1, g2)
   score = (mjm.norm_safe(d.geom_xpos[:, g1] - d.geom_xpos[:, g2])
            - m.geom_rbound[g1] - m.geom_rbound[g2]
-           - m.geom_margin[g1] - m.geom_margin[g2])         # (B, ncand)
+           - margin1 - margin2)                             # (B, ncand)
   idx = torch.sort(score, dim=1, stable=True)[1][:, :npair]
   dropped = torch.clamp((score < 0).sum(1) - npair, min=0).to(torch.int32)
   sg1, sg2 = g1[idx], g2[idx]                               # (B, npair)

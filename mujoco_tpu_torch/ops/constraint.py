@@ -212,9 +212,10 @@ def _equality_rows(m: Model, d: Data):
       torquescale = data[:, 10, None]                      # (1 or B, 1)
       if int(m.eq_objtype[i]) == _OBJ_SITE:
         obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
-        quat = mjm.mul_quat(d.xquat[:, b1], m.site_quat[obj1])
+        site_quat = m.per_env("site_quat")               # (1 or B, nsite, 4)
+        quat = mjm.mul_quat(d.xquat[:, b1], site_quat[:, obj1])
         negq1 = mjm.conj_quat(mjm.mul_quat(d.xquat[:, b2],
-                                           m.site_quat[obj2]))
+                                           site_quat[:, obj2]))
       else:
         quat = mjm.mul_quat(d.xquat[:, b1], data[:, 6:10])
         negq1 = mjm.conj_quat(d.xquat[:, b2])
@@ -304,13 +305,14 @@ def _friction_rows(m: Model, d: Data):
   active = torch.full((nbatch, meta.nf),
                       not m.disabled(DisableBit.FRICTIONLOSS),
                       dtype=torch.bool, device=dev)
-  # a tendon's row parameters may be randomized per env
+  # a dof's and a tendon's row parameters may be randomized per env
+  dof = lambda name: _over_envs(m.per_env(name)[:, dix], nbatch)
   ten = lambda name: _over_envs(m.per_env(name)[:, tix], nbatch)
   return dict(
       _rows(J, zero, active,
             ex(cat(m.dof_invweight0[dix], m.tendon_invweight0[tix])),
-            torch.cat([ex(m.dof_solref[dix]), ten("tendon_solref_fri")], 1),
-            torch.cat([ex(m.dof_solimp[dix]), ten("tendon_solimp_fri")], 1),
+            torch.cat([dof("dof_solref"), ten("tendon_solref_fri")], 1),
+            torch.cat([dof("dof_solimp"), ten("tendon_solimp_fri")], 1),
             zero),
       frictionloss=torch.cat([
           m.per_env("dof_frictionloss")[:, dix].expand(nbatch, -1),
@@ -353,7 +355,8 @@ def _limit_rows(m: Model, d: Data):
                    - angle)
     dofs = ix(m.jnt_dofadr[jids])
     jx = ix(jids)
-    parts.append((J, pos, ex(m.jnt_margin[jx]), ex(m.dof_invweight0[dofs]),
+    parts.append((J, pos, _over_envs(m.per_env("jnt_margin")[:, jx], nbatch),
+                  ex(m.dof_invweight0[dofs]),
                   _over_envs(m.per_env("jnt_solref")[:, jx], nbatch),
                   _over_envs(m.per_env("jnt_solimp")[:, jx], nbatch)))
   trows = np.nonzero(meta.limit_jnt < 0)[0]
@@ -547,7 +550,8 @@ def make_constraint(m: Model, d: Data) -> Data:
     base = meta.ne + meta.nf + meta.nl
     cid = index(meta.con_id, dev)
     r0 = r_[:, index(meta.con_efcadr, dev)]
-    r1 = r0 / torch.clamp(m.opt.impratio, min=mjm.MINVAL)
+    # (1 or B, 1): the ratio may be randomized per env
+    r1 = r0 / torch.clamp(m.per_env("opt.impratio")[:, None], min=mjm.MINVAL)
     fri0 = d.contact.friction[..., 0]
     mu = fri0 * torch.sqrt(r1 / torch.clamp(r0, min=mjm.MINVAL))
     if elliptic:
@@ -598,8 +602,9 @@ def _jdotv_correction(m: Model, d: Data, aref):
       domega = omega1 - omega2
       if int(m.eq_objtype[i]) == _OBJ_SITE:
         obj1, obj2 = int(m.eq_obj1id[i]), int(m.eq_obj2id[i])
-        q0r = mjm.mul_quat(d.xquat[:, b1], m.site_quat[obj1])
-        qfull1 = mjm.mul_quat(d.xquat[:, b2], m.site_quat[obj2])
+        site_quat = m.per_env("site_quat")               # (1 or B, nsite, 4)
+        q0r = mjm.mul_quat(d.xquat[:, b1], site_quat[:, obj1])
+        qfull1 = mjm.mul_quat(d.xquat[:, b2], site_quat[:, obj2])
         negq1 = mjm.conj_quat(qfull1)
         qdot0r = deriv_quat(q0r, omega1)
         negqdot1 = mjm.conj_quat(deriv_quat(qfull1, omega2))

@@ -6,7 +6,9 @@ ten_velocity and the tendon-armature bias ``_tendon_bias`` :91),
 ``fwd_actuation`` (:111), ``fwd_acceleration`` (:115, whose M⁻¹·qfrc goes
 through the CUDA LDL kernel, or under CG through the tree factor),
 ``fwd_constraint`` (:134), ``forward`` (:152, with the energy and sensor
-stages of ``ops/sensor.py``), ``integrate_pos`` (:210), ``_advance``
+stages of ``ops/sensor.py``; ``sensor_pos``, ``sensor_vel`` and
+``sensor_acc`` :184-200), ``integrate_pos`` (:210), ``next_activation``
+(:266, over ``actuation.next_activation``), ``_advance``
 (:300, with the history buffers' advance ``_advance_history`` :365, the
 activations' advance and the INTEGRATOR and SO3 setpoint wraps),
 ``euler`` (:416, with implicit joint damping), ``rungekutta4`` (:437,
@@ -182,6 +184,28 @@ def forward(m: Model, d: Data) -> Data:
   d = fwd_acceleration(m, d)
   d = fwd_constraint(m, d)
   return sensor.sensor_acc(m, d)
+
+
+def sensor_pos(m: Model, d: Data) -> Data:
+  """The position-stage sensors (mujoco_tpu/ops/forward.py:184)."""
+  return sensor.sensor_pos(m, d) if m.nsensor else d
+
+
+def sensor_vel(m: Model, d: Data) -> Data:
+  """The velocity-stage sensors (mujoco_tpu/ops/forward.py:191)."""
+  return sensor.sensor_vel(m, d) if m.nsensor else d
+
+
+def sensor_acc(m: Model, d: Data) -> Data:
+  """The acceleration-stage sensors (mujoco_tpu/ops/forward.py:198)."""
+  return sensor.sensor_acc(m, d) if m.nsensor else d
+
+
+def next_activation(m: Model, d: Data, act_dot) -> torch.Tensor:
+  """(B, na) the activations one step on from d.act at act_dot
+  (mj_nextActivation; mujoco_tpu/ops/forward.py:266):
+  ``actuation.next_activation`` with d's actuator velocities."""
+  return actuation.next_activation(m, d.act, act_dot, d.actuator_velocity)
 
 
 def _dof_to_qpos_map(m: Model) -> np.ndarray:

@@ -168,19 +168,45 @@ def value_and_grad(kind: str, x, size):
   return _FNS[kind](x, size)
 
 
-def _capsule(x, size):
+# each primitive's signed distance (…,) at local points x (…, 3), negative
+# inside (geomDistance; mujoco_tpu/ops/sdf.py:22-53)
+
+
+def sd_plane(x, size):
+  return x[..., 2]
+
+
+def sd_sphere(x, size):
+  return mjm.norm_safe(x) - size[..., 0]
+
+
+def sd_capsule(x, size):
   z = x[..., 2] - torch.minimum(torch.maximum(x[..., 2], -size[..., 1]),
                                 size[..., 1])
   return mjm.norm_safe(torch.stack([x[..., 0], x[..., 1], z], -1)) \
       - size[..., 0]
 
 
-_DIST = {int(GeomType.PLANE): lambda x, size: x[..., 2],
-         int(GeomType.SPHERE): lambda x, size: mjm.norm_safe(x) - size[..., 0],
-         int(GeomType.CAPSULE): _capsule,
-         int(GeomType.CYLINDER): lambda x, size: _cylinder(x, size)[0],
-         int(GeomType.ELLIPSOID): lambda x, size: _ellipsoid(x, size)[0],
-         int(GeomType.BOX): lambda x, size: _box(x, size)[0]}
+def sd_cylinder(x, size):
+  return _cylinder(x, size)[0]
+
+
+def sd_ellipsoid(x, size):
+  """The first-order ellipsoid distance bound (geomDistance
+  mjGEOM_ELLIPSOID)."""
+  return _ellipsoid(x, size)[0]
+
+
+def sd_box(x, size):
+  """Exact outside; inside, the reference's rotating radial field
+  (geomDistance mjGEOM_BOX with radialField3d)."""
+  return _box(x, size)[0]
+
+
+_DIST = {int(GeomType.PLANE): sd_plane, int(GeomType.SPHERE): sd_sphere,
+         int(GeomType.CAPSULE): sd_capsule,
+         int(GeomType.CYLINDER): sd_cylinder,
+         int(GeomType.ELLIPSOID): sd_ellipsoid, int(GeomType.BOX): sd_box}
 
 
 def has_sdf(geomtype: int) -> bool:
@@ -191,6 +217,21 @@ def distance(geomtype: int, x, size):
   """Signed distance (...,) of local points x (..., 3) to a primitive of
   static type, negative inside (geomDistance)."""
   return _DIST[int(geomtype)](x, size)
+
+
+def geom_distance(m, d, g: int, points):
+  """Signed distance (B, …) of world points (B, …, 3) to geom g, each env
+  at its own frame and size (mujoco_tpu/ops/sdf.py:463). A mesh or height
+  field has no analytic distance and raises, as in the reference."""
+  t = int(m.geom_type[g])
+  if t not in _DIST:
+    raise NotImplementedError(f"SDF for geom type {GeomType(t).name}")
+  lead = (points.shape[0],) + (1,) * (points.dim() - 2)
+  pos = d.geom_xpos[:, g].reshape(lead + (3,))
+  mat = d.geom_xmat[:, g].reshape(lead + (3, 3))
+  local = (mat.transpose(-1, -2) @ (points - pos)[..., None])[..., 0]
+  size = m.per_env("geom_size")[:, g]                     # (1 or B, 3)
+  return _DIST[t](local, size.reshape(size.shape[:1] + lead[1:] + (3,)))
 
 
 # ---------------------------------------------------------------------------

@@ -106,15 +106,14 @@ def object_quat(m: Model, d: Data, objtype: int, ids):
   dev = m.device
   if t == ObjType.XBODY:
     return _take(d.xquat, ids, dev)
-  # (1 or B, n, 4): a camera's frame may be randomized per env
-  local = {ObjType.BODY: m.body_iquat[None], ObjType.GEOM: m.geom_quat[None],
-           ObjType.SITE: m.site_quat[None],
-           ObjType.CAMERA: m.per_env("cam_quat")}
+  # (1 or B, n, 4): the local frames may be randomized per env
+  local = {ObjType.BODY: "body_iquat", ObjType.GEOM: "geom_quat",
+           ObjType.SITE: "site_quat", ObjType.CAMERA: "cam_quat"}
   if t not in local:
     raise NotImplementedError(f"object type {t.name} quat")
   body = object_body(m, objtype, ids)
   return mjm.mul_quat(_take(d.xquat, body, dev),
-                      local[t][:, index(ids, dev)])
+                      m.per_env(local[t])[:, index(ids, dev)])
 
 
 def _if_moving(m: Model, body, x):
@@ -293,7 +292,7 @@ def rne_postconstraint(m: Model, d: Data, cf=None) -> Data:
       if k == 0:
         continue
       offset = (m.per_env("eq_data")[:, e, 3 * off:3 * off + 3] if body_sem
-                else m.site_pos[obj])
+                else m.per_env("site_pos")[:, obj])
       pos = mjm.mat_vec(d.xmat[:, k], offset) + d.xpos[:, k]
       v = mjm.transform_spatial(cfrc, True,
                                 d.subtree_com[:, int(m.body_rootid[k])], pos)
@@ -514,6 +513,38 @@ def _camprojection(m: Model, d: Data, g):
                       fy * rel[..., 1] / denom + 0.5 * res[:, 1]], -1)
 
 
+def geom_distance(m: Model, d: Data, g1: int, g2: int, cutoff):
+  """(B,) signed distance and (B, 6) nearest segment [from; to] between
+  geoms g1 and g2 (mj_geomDistance; mujoco_tpu/ops/sensor.py:953): the
+  nearest contact of the narrowphase collider of their type pair, the
+  cutoff and a zero segment where it is not below the cutoff or no
+  collider takes the pair."""
+  from mujoco_tpu_torch.ops import collision_driver
+  nbatch, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
+  t1, t2 = int(m.geom_type[g1]), int(m.geom_type[g2])
+  swap = t1 > t2
+  a, b = (g2, g1) if swap else (g1, g2)
+  cut = torch.as_tensor(cutoff, dtype=dtype, device=dev).expand(nbatch)
+  entry = collision_driver._COLLIDERS.get(
+      (GeomType(min(t1, t2)), GeomType(max(t1, t2))))
+  if entry is None:
+    return cut.clone(), d.qpos.new_zeros((nbatch, 6))
+  size = m.per_env("geom_size")
+  dd, pp, nn, _ = entry[0](
+      d.geom_xpos[:, a, None], d.geom_xmat[:, a, None], size[:, a, None],
+      d.geom_xpos[:, b, None], d.geom_xmat[:, b, None], size[:, b, None])
+  dd, pp, nn = dd[:, 0], pp[:, 0], nn[:, 0]               # (B, k, ·)
+  i = dd.argmin(-1)
+  env = torch.arange(nbatch, device=dev)
+  dist, pos = dd[env, i], pp[env, i]
+  nrm = nn[env, i] * (-1.0 if swap else 1.0)
+  half = (dist * 0.5)[:, None]
+  ok = (dist < cut)[:, None]
+  fromto = torch.where(ok, torch.cat([pos - nrm * half, pos + nrm * half],
+                                     -1), 0.0)
+  return torch.minimum(dist, cut), fromto
+
+
 def inside_geom(pos, mat, size, geomtype: int, point):
   """1 where point lies inside the primitive (mju_insideGeom), else 0;
   leading dims broadcast."""
@@ -556,7 +587,7 @@ def _touch(m: Model, d: Data, g, cf):
   vec = d.contact.frame[:, None, :, 0, :] * sign[..., None]
   hit = ray.ray_geom(_take(d.site_xpos, site, dev)[:, :, None],
                      _take(d.site_xmat, site, dev)[:, :, None],
-                     m.site_size[index(site, dev)][:, None],
+                     m.per_env("site_size")[:, index(site, dev), None],
                      d.contact.pos[:, None], vec, g["subtype"])
   ok = (active & (fn > 0))[:, None] & torch.isfinite(hit) & (sel1 | sel2)
   return torch.where(ok, fn[:, None, :], 0.0).sum(-1)
@@ -671,7 +702,7 @@ def _match_contacts(m: Model, d: Data, g):
     dev, site = m.device, g["objid"]
     ok = inside_geom(_take(d.site_xpos, site, dev)[:, :, None],
                      _take(d.site_xmat, site, dev)[:, :, None],
-                     m.site_size[index(site, dev)][:, None],
+                     m.per_env("site_size")[:, index(site, dev), None],
                      g["subtype"][3], d.contact.pos[:, None]) > 0.5
   m11 = _check_match(m, gids, bodies, t1, g["objid"], 0)
   m12 = _check_match(m, gids, bodies, t1, g["objid"], 1)
@@ -960,7 +991,8 @@ def _value(m: Model, d: Data, g, cf=None):
     site = g["refid"]
     return inside_geom(_take(d.site_xpos, site, dev),
                        _take(d.site_xmat, site, dev),
-                       m.site_size[index(site, dev)], g["subtype"], xpos)
+                       m.per_env("site_size")[:, index(site, dev)],
+                       g["subtype"], xpos)
   if t == ST.TOUCH:
     return _touch(m, d, g, contact_force(m, d) if cf is None else cf)
   if t == ST.CONTACT:

@@ -7,7 +7,7 @@ override :96-103), ``com_pos`` (:206), ``crb`` (:260, with tendon armature
 ``rne`` (:378), ``tendon`` (:405), ``transmission`` (:459: JOINT and
 JOINTINPARENT on all four joint types, TENDON, SITE with and without a
 refsite, SLIDERCRANK, SO3 :538-605 and BODY, the adhesion row :606-648)
-and ``camlight`` (:662). Tree recursions are the
+``com_acc`` (:649) and ``camlight`` (:662). Tree recursions are the
 reference's static dense masks (Model.tree) turned into batched matmuls;
 forward kinematics and the tree factor stay level-sequential, one
 vectorized block per tree level.
@@ -106,7 +106,9 @@ def kinematics(m: Model, d: Data) -> Data:
         jid = jid_all[sel]
         qadr = m.jnt_qposadr[jid]
         bq_s, bp_s = bq[:, ix(sel)], bp[:, ix(sel)]
-        jaxis, jpos = m.jnt_axis[ix(jid)], m.jnt_pos[ix(jid)]
+        # (1 or B, k, 3): the joint frames may be randomized per env
+        jaxis = m.per_env("jnt_axis")[:, ix(jid)]
+        jpos = m.per_env("jnt_pos")[:, ix(jid)]
         if jt == JointType.FREE:
           q7 = _take_qpos(qpos, qadr, 7, m.nq)
           new_bp = q7[..., :3]
@@ -161,13 +163,18 @@ def kinematics(m: Model, d: Data) -> Data:
 
   xmat = mjm.quat_to_mat(xquat)
   xipos = xpos + mjm.rot_vec_quat(m.per_env("body_ipos"), xquat)
-  ximat = mjm.quat_to_mat(mjm.mul_quat(xquat, m.body_iquat))
+  # (1 or B, n, ·): the local frames may be randomized per env
+  ximat = mjm.quat_to_mat(mjm.mul_quat(xquat, m.per_env("body_iquat")))
   gb = ix(m.geom_bodyid)
-  geom_xpos = xpos[:, gb] + mjm.rot_vec_quat(m.geom_pos, xquat[:, gb])
-  geom_xmat = mjm.quat_to_mat(mjm.mul_quat(xquat[:, gb], m.geom_quat))
+  geom_xpos = xpos[:, gb] + mjm.rot_vec_quat(m.per_env("geom_pos"),
+                                             xquat[:, gb])
+  geom_xmat = mjm.quat_to_mat(mjm.mul_quat(xquat[:, gb],
+                                           m.per_env("geom_quat")))
   sb = ix(m.site_bodyid)
-  site_xpos = xpos[:, sb] + mjm.rot_vec_quat(m.site_pos, xquat[:, sb])
-  site_xmat = mjm.quat_to_mat(mjm.mul_quat(xquat[:, sb], m.site_quat))
+  site_xpos = xpos[:, sb] + mjm.rot_vec_quat(m.per_env("site_pos"),
+                                             xquat[:, sb])
+  site_xmat = mjm.quat_to_mat(mjm.mul_quat(xquat[:, sb],
+                                           m.per_env("site_quat")))
   return d.replace(qpos=qpos, xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
                    ximat=ximat, xanchor=xanchor, xaxis=xaxis,
                    geom_xpos=geom_xpos, geom_xmat=geom_xmat,
@@ -463,8 +470,9 @@ def _transmission_one(m: Model, d: Data, i: int):
     # frame; the site's axes on the relative rotational Jacobian, the dof
     # chain the two bodies share cleared
     bodyid, refbody = int(m.site_bodyid[tid]), int(m.site_bodyid[refid])
-    quat = mjm.mul_quat(m.site_quat[tid], d.xquat[:, bodyid])
-    refquat = mjm.mul_quat(m.site_quat[refid], d.xquat[:, refbody])
+    site_quat = m.per_env("site_quat")                   # (1 or B, nsite, 4)
+    quat = mjm.mul_quat(site_quat[:, tid], d.xquat[:, bodyid])
+    refquat = mjm.mul_quat(site_quat[:, refid], d.xquat[:, refbody])
     _, jacr = support.jac(m, d, d.site_xpos[:, tid], bodyid)
     _, jacr_r = support.jac(m, d, d.site_xpos[:, refid], refbody)
     chain = const(_ancestor_chain_mask(m, bodyid, refbody), dev, m.dtype)
@@ -517,8 +525,9 @@ def _transmission_one(m: Model, d: Data, i: int):
     wrench_t = mjm.mat_vec(d.site_xmat[:, refid], gear[:, :3])
     row = zero[:, None] + _vec_mat(wrench_t, (jacp - jacp_r) * chain)
     # rotational part (site_quat ⊗ xquat, as the reference orders it)
-    quat = mjm.mul_quat(m.site_quat[tid], d.xquat[:, bodyid])
-    refquat = mjm.mul_quat(m.site_quat[refid], d.xquat[:, refbody])
+    site_quat = m.per_env("site_quat")                   # (1 or B, nsite, 4)
+    quat = mjm.mul_quat(site_quat[:, tid], d.xquat[:, bodyid])
+    refquat = mjm.mul_quat(site_quat[:, refid], d.xquat[:, refbody])
     vec_r = mjm.quat_sub(quat, refquat)
     leng = leng + mjm.dot(vec_r, gear[:, 3:6])
     wrench_r = mjm.mat_vec(d.site_xmat[:, refid], gear[:, 3:6])
@@ -562,6 +571,21 @@ def transmission(m: Model, d: Data) -> Data:
     moment = torch.cat([moment] + [p[1].reshape(nbatch, -1, m.nv)
                                    for p in parts], dim=1)[:, index(inv, dev)]
   return d.replace(actuator_length=length, actuator_moment=moment)
+
+
+def com_acc(m: Model, d: Data) -> torch.Tensor:
+  """(B, nbody, 6) the bodies' spatial accelerations given d.qacc, with
+  gravity's −g in the linear part unless it is disabled
+  (mujoco_tpu/ops/smooth.py:649; the acc-stage sensors' and
+  rnePostConstraint's cacc): Σ over each body's ancestor dofs of
+  qvel·cdof_dot + qacc·cdof."""
+  anc = const(m.tree.ancestor_mask, m.device, d.qpos.dtype)  # (nbody, nv)
+  cacc = ((anc * d.qvel[:, None]) @ d.cdof_dot
+          + (anc * d.qacc[:, None]) @ d.cdof)
+  if m.disabled(DisableBit.GRAVITY):
+    return cacc
+  gravity = m.per_env("opt.gravity")                     # (1 or B, 3)
+  return cacc + torch.cat([torch.zeros_like(gravity), -gravity], -1)[:, None]
 
 
 def camlight(m: Model, d: Data) -> Data:

@@ -374,6 +374,13 @@ def _core(m: Model, d: Data):
   return x, force, niter, stat
 
 
+def monolithic_core(m: Model, d: Data):
+  """The general core over the whole model, (qacc, efc_force, niter,
+  solver_stat) (mujoco_tpu/ops/solver.py:295; the island solve's fallback
+  there): ``_core``."""
+  return _core(m, d)
+
+
 def _use_newton_kernel(m: Model) -> bool:
   return (int(m.opt.solver) == int(SolverType.NEWTON)
           and int(m.opt.iterations) <= 4

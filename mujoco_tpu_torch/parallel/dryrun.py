@@ -22,7 +22,7 @@ def dryrun_multichip(devices: Optional[Sequence] = None) -> dict:
   devices or names, an int for the first n cards, every card by default;
   ``rollout.make_mesh``): one ``rollout.sharded_step`` and the mean root
   height gathered onto the first device, then 3 steps of
-  ``rollout.scan_steps`` on each shard (one megastep launch per card).
+  ``rollout.scan_steps`` over the mesh (one megastep launch per card).
   Asserts that every result is finite, prints the reference's two lines
   and returns the two mean heights."""
   from mujoco_tpu_torch.models import zoo
@@ -45,10 +45,10 @@ def dryrun_multichip(devices: Optional[Sequence] = None) -> dict:
   print(f"dryrun_multichip ok: {n} devices, batch {nbatch}, mean height "
         f"{height:.3f}")
 
-  shards = shard_data(rollout.make_batch(m, nbatch, device=mesh[0]))
-  shards = [rollout.scan_steps(m.to(s.qpos.device), s, 3) for s in shards]
-  assert all(bool(torch.isfinite(s.qpos).all()) for s in shards)
-  height3 = mean_height(shards)
+  out = rollout.scan_steps(m, rollout.make_batch(m, nbatch, device=mesh[0]),
+                           3, mesh=mesh)
+  assert bool(torch.isfinite(out.qpos).all())
+  height3 = mean_height([out])
   assert math.isfinite(height3), height3
   print(f"dryrun_multichip rollout ok: sharded scan_steps x3, mean height "
         f"{height3:.3f}")

@@ -1,7 +1,8 @@
 """Batched, randomized and split rollouts (port of
 mujoco_tpu/parallel/rollout.py: ``make_batch`` :25, ``batched_step`` :32,
-``rollout`` :37, ``STATE_FIELDS`` :59, ``scan_steps`` :64 with the
-single-device dispatch of ``_scan_steps_local`` :133, ``make_mesh`` :173,
+``rollout`` :37, ``STATE_FIELDS`` :59, ``scan_steps`` :64 with its split
+over a mesh :86-132 and the single-device ``_scan_steps_local`` :135,
+``make_mesh`` :173,
 ``sharded_step`` :177, ``randomize_model`` :195, ``step_randomized`` :224,
 ``check_reset`` :231).
 
@@ -12,8 +13,9 @@ stage path, where a Python loop takes the place of ``lax.scan``. Neither
 reads a value back to the host, so a rollout only enqueues work on the
 card. A domain-randomized Model carries a leading env axis on the leaves
 of ``types.ENV_LEAVES`` and takes the stage path (``draw_leaves``, the
-port's own, draws such values from a seed); a split rollout steps one
-chunk of the env axis on each device of a list.
+port's own, draws such values from a seed); a split rollout
+(``sharded_step``, ``scan_steps(mesh=)``) steps one chunk of the env axis
+on each device of a list.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from mujoco_tpu_torch.models.types import (ENV_LEAVES, Data, EqType,
                                           JointType, Model)
 from mujoco_tpu_torch.ops import forward, megastep_cuda
 from mujoco_tpu_torch.ops.linalg_cuda import has_tangent
+from mujoco_tpu_torch.utils.struct import cached
 
 # the integration state that crosses step boundaries, act (the actuators'
 # activations) and the ctrl and sensor history buffers with it; everything
@@ -115,17 +118,42 @@ def megastep_eligible(m: Model, d: Data, d_fresh: Data) -> bool:
           and not megastep_cuda.model_requires_grad(m))
 
 
-def scan_steps(m: Model, d: Data, nstep: int, d_fresh: Optional[Data] = None,
-               check: bool = True) -> Data:
+def scan_steps(m: Model, d, nstep: int, d_fresh: Optional[Data] = None,
+               check: bool = True, mesh: Optional[Sequence] = None):
   """nstep physics steps carrying only STATE_FIELDS between steps; with
   check=True each step ends with the divergence guard. Returns d_fresh's
   workspace merged with the final state, as the reference does.
 
-  As the reference's ``_scan_steps_local``, a rollout on the card that is
-  ``megastep_eligible`` goes to the megastep kernel. That path is
-  numerically equivalent to the stage path, not bit-identical, and its
-  guard resets time to 0 rather than to d_fresh.time. CPU tensors keep the
-  stage path, as the reference keeps its XLA path off the TPU."""
+  With a ``mesh`` of more than one device (``make_mesh``: a list of
+  devices or names), d's envs are split into contiguous chunks, one per
+  device (``_split``); each chunk runs ``_scan_steps_local`` on its device
+  and its own stream, with a copy of the Model made once per (Model,
+  device), so a card's megastep sees only that card's envs. The chunks
+  come back as one Data in env order on d's device, as the reference
+  returns one Data of the global batch from its ``shard_map``. Given a
+  list of per-device Data (``sharded_step``'s ``shard_data``), each runs
+  on its own device in place and the list is returned: the counterpart of
+  the reference's committed multi-device sharding. A mesh of one device is
+  the plain call. A shard that fails raises; none falls back to another
+  device or path."""
+  if isinstance(d, (list, tuple)):
+    return _scan_shards(m, list(d), nstep, d_fresh, check)
+  if mesh is not None and len(mesh) > 1:
+    out = _scan_shards(m, _split(d, [torch.device(x) for x in mesh]), nstep,
+                       d_fresh, check)
+    return _gather(out, d.qpos.device)
+  return _scan_steps_local(m, d, nstep, d_fresh, check)
+
+
+def _scan_steps_local(m: Model, d: Data, nstep: int,
+                      d_fresh: Optional[Data], check: bool) -> Data:
+  """One device's ``scan_steps`` (reference ``_scan_steps_local`` :135).
+
+  As the reference's, a rollout on the card that is ``megastep_eligible``
+  goes to the megastep kernel. That path is numerically equivalent to the
+  stage path, not bit-identical, and its guard resets time to 0 rather
+  than to d_fresh.time. CPU tensors keep the stage path, as the reference
+  keeps its XLA path off the TPU."""
   if d_fresh is None:
     d_fresh = io.make_data(m, dtype=d.qpos.dtype, device=d.qpos.device)
   if d.qpos.is_cuda and megastep_eligible(m, d, d_fresh):
@@ -139,6 +167,77 @@ def scan_steps(m: Model, d: Data, nstep: int, d_fresh: Optional[Data] = None,
       dd = check_reset(m, dd, d_fresh)
     st = {k: getattr(dd, k) for k in STATE_FIELDS}
   return template.replace(**st)
+
+
+def _device(dev) -> torch.device:
+  """dev with its index: a bare "cuda" is the current card."""
+  dev = torch.device(dev)
+  if dev.type == "cuda" and dev.index is None:
+    return torch.device("cuda", torch.cuda.current_device())
+  return dev
+
+
+# per Model, its copies on other devices (``struct.cached``: dropped with
+# the Model)
+_COPIES: dict = {}
+
+
+def _model_on(m: Model, dev: torch.device) -> Model:
+  """m on device dev, copied once per (Model, device)."""
+  if _device(m.device) == dev:
+    return m
+  copies = cached(_COPIES, m, lambda m: {})
+  if dev not in copies:
+    copies[dev] = m.to(dev)
+  return copies[dev]
+
+
+def _tensors(v):
+  if isinstance(v, torch.Tensor):
+    return [v]
+  return [t for k in v.__dataclass_fields__ for t in _tensors(getattr(v, k))]
+
+
+def _scan_shards(m: Model, shards: list, nstep: int,
+                 d_fresh: Optional[Data], check: bool) -> list:
+  """Each shard's ``_scan_steps_local`` on the shard's device; the shards
+  on cards run on each card's own stream, all enqueued before any is
+  waited for, so the cards run at once."""
+  out = []
+  for shard in shards:
+    dev = _device(shard.qpos.device)
+    mm = _model_on(m, dev)
+    fresh = None if d_fresh is None else d_fresh.to(dev)
+    if dev.type != "cuda":
+      out.append(_scan_steps_local(mm, shard, nstep, fresh, check))
+      continue
+    stream = torch.cuda.Stream(dev)
+    current = torch.cuda.current_stream(dev)
+    # the shard was written on the card's current stream; its memory must
+    # outlive the side stream's reads, the result's its reads after
+    stream.wait_stream(current)
+    for t in _tensors(shard):
+      t.record_stream(stream)
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+      res = _scan_steps_local(mm, shard, nstep, fresh, check)
+    current.wait_stream(stream)
+    for t in _tensors(res):
+      t.record_stream(current)
+    out.append(res)
+  return out
+
+
+def _gather(shards: list, dev) -> Data:
+  """The shards' envs in order as one Data on device dev; a leaf of size 0
+  (an absent act or mocap) comes back (B, 0), as the reference restores
+  its zero-size leaves to the global batch (:126-130)."""
+  def cat(vs):
+    if isinstance(vs[0], torch.Tensor):
+      return torch.cat([v.to(dev) for v in vs])
+    return vs[0].replace(**{k: cat([getattr(v, k) for v in vs])
+                            for k in vs[0].__dataclass_fields__})
+
+  return cat(shards)
 
 
 def randomize_model(m: Model, leaf_updates: dict):
@@ -197,12 +296,21 @@ DEFAULT_LEAVES = ("opt.gravity", "geom_friction", "body_mass", "body_ipos",
 RENDER_LEAVES = ("geom_rgba", "mat_rgba", "light_pos", "light_dir",
                  "light_ambient", "light_diffuse", "light_specular",
                  "cam_pos", "cam_quat")
+# what sim-to-real users randomize first: where geoms, sites (the IMU) and
+# joints sit on their bodies, and the contact and constraint parameters
+FRAME_LEAVES = ("geom_pos", "geom_quat", "site_pos", "site_quat", "site_size",
+                "body_iquat", "jnt_pos", "jnt_axis")
+CONTACT_LEAVES = ("geom_margin", "geom_solmix", "pair_friction",
+                  "pair_solref", "pair_solreffriction", "pair_solimp",
+                  "pair_margin", "pair_gap", "jnt_margin", "dof_solref",
+                  "dof_solimp", "jnt_actfrcrange", "opt.impratio")
+_MARGINS = ("geom_margin", "pair_margin", "pair_gap", "jnt_margin")
 _COLOURS = ("geom_rgba", "mat_rgba", "light_ambient", "light_diffuse",
             "light_specular")
 _SOLIMPS = ("geom_solimp", "jnt_solimp", "tendon_solimp_lim",
-            "tendon_solimp_fri", "eq_solimp")
+            "tendon_solimp_fri", "eq_solimp", "pair_solimp", "dof_solimp")
 _RANGES = ("jnt_range", "tendon_range", "tendon_lengthspring",
-           "actuator_ctrlrange", "actuator_forcerange")
+           "actuator_ctrlrange", "actuator_forcerange", "jnt_actfrcrange")
 
 
 def _turn(q, rng, angle):
@@ -227,27 +335,35 @@ def draw_leaves(m: Model, nbatch: int, seed: int, leaves=None) -> dict:
     ``qpos0``: plus one in [−0.05, 0.05] at a hinge or slide and in
     [−0.02, 0.02] at a free joint's position (a zero entry does not move
     under a factor); ``light_pos`` and ``cam_pos``: plus one in
-    [−0.03, 0.03];
-  - ``body_quat``, ``cam_quat`` and the ball and free joints' quaternions
-    in ``qpos0``: turned by up to 0.05 rad about a random axis;
-    ``light_dir``: plus an offset in [−0.05, 0.05] per entry, rescaled to
-    the model's length;
+    [−0.03, 0.03]; ``geom_pos``, ``site_pos`` and ``jnt_pos``: plus one
+    in [−0.01, 0.01];
+  - the margins and the gap (``geom_margin``, ``pair_margin``,
+    ``pair_gap``, ``jnt_margin``): plus an offset in [0, 0.002], so that
+    a zero margin moves too and none turns negative;
+  - ``body_quat``, ``cam_quat``, ``geom_quat``, ``site_quat``,
+    ``body_iquat`` and the ball and free joints' quaternions in ``qpos0``:
+    turned by up to 0.05 rad about a random axis;
+    ``light_dir`` and ``jnt_axis``: plus an offset in [−0.05, 0.05] per
+    entry, rescaled to the model's length;
   - colours (``geom_rgba``, ``mat_rgba``, the lights' ambient, diffuse and
     specular): plus an offset in [−0.2, 0.2] per channel, reflected at 0
     and 1 into [0, 1] (so a channel at 1 moves too); an rgba's alpha
     stays the model's;
-  - ``geom_solimp`` and the joint, tendon and equality solimps kept valid:
+  - ``geom_solimp`` and the joint, tendon, equality, pair and dof solimps
+    kept valid:
     dmin^[1, 1.5] ≤ dmin ≤ dmax ≤ dmax^[0.7, 1], all in (0, 1), width
     ×[0.7, 1.3], midpoint^[0.7, 1.3], power 1 + (power − 1)·[0.7, 1.3] ≥ 1;
   - ranges (``jnt_range``, ``tendon_range``, ``tendon_lengthspring``,
-    ``actuator_ctrlrange``, ``actuator_forcerange``): each end times a
+    ``actuator_ctrlrange``, ``actuator_forcerange``,
+    ``jnt_actfrcrange``): each end times a
     factor in [0.95, 1.05], the two then put in order (lo ≤ hi; lo < hi
     where the model's were);
   - ``eq_data``: each entry times a factor in [0.95, 1.05], but a weld's
     relative quaternion (entries 6-9), turned by up to 0.05 rad;
   - the rest of the leaves past the default eighteen (``geom_size``, the
     tendons' stiffness, damping, friction loss, armature and margin, the
-    solrefs, ``actuator_dynprm``): the model's times a factor in
+    solrefs, ``actuator_dynprm``, ``site_size``, ``geom_solmix``,
+    ``pair_friction``, ``opt.impratio``): the model's times a factor in
     [0.95, 1.05] per entry;
   - every other leaf of the eighteen: the model's times a factor in
     [0.7, 1.3] per entry.
@@ -265,9 +381,14 @@ def draw_leaves(m: Model, nbatch: int, seed: int, leaves=None) -> dict:
       val = val + u(-0.02, 0.02)
     elif name in ("light_pos", "cam_pos"):
       val = val + u(-0.03, 0.03)
-    elif name in ("body_quat", "cam_quat"):
+    elif name in ("geom_pos", "site_pos", "jnt_pos"):
+      val = val + u(-0.01, 0.01)
+    elif name in _MARGINS:
+      val = val + u(0.0, 0.002)
+    elif name in ("body_quat", "cam_quat", "geom_quat", "site_quat",
+                  "body_iquat"):
       val = _turn(val, rng, 0.05)
-    elif name == "light_dir":
+    elif name in ("light_dir", "jnt_axis"):
       moved = val + u(-0.05, 0.05)
       val = moved * (np.linalg.norm(val, axis=-1, keepdims=True)
                      / np.linalg.norm(moved, axis=-1, keepdims=True))

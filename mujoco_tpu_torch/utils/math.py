@@ -6,10 +6,11 @@ dims (port of mujoco_tpu/utils/math.py:1-231), the box-constrained QP
 Conventions are the reference's: quaternions (w, x, y, z); spatial vectors
 angular-first, v = (omega; v_lin), f = (torque; force).
 
-``cos_accurate`` (mujoco_tpu/utils/math.py:40) is not ported: it works around
-an XLA-CPU f64 ``cos`` that is only f32-accurate on scalars. ``torch.cos`` at
-f64 agrees with numpy to the last bit on scalars and vectors alike, so the
-port calls it directly.
+``cos_accurate`` (mujoco_tpu/utils/math.py:40) is a plain ``torch.cos``
+here: the reference's 1 − 2·sin²(x/2) works around an XLA-CPU f64 ``cos``
+that is only f32-accurate on scalars, and ``torch.cos`` at f64 agrees with
+numpy to the last bit on scalars and vectors alike, so the port's own code
+calls ``torch.cos`` directly.
 """
 
 from __future__ import annotations
@@ -216,6 +217,21 @@ def spatial_inertia(mass, inertia_diag, imat, offset):
   top = torch.cat([icom + m * (cx @ cx.transpose(-1, -2)), m * cx], dim=-1)
   bot = torch.cat([m * cx.transpose(-1, -2), m * eye], dim=-1)
   return torch.cat([top, bot], dim=-2)
+
+
+def transform_motion(v, offset):
+  """A motion vector (..., 6) [ω; u] moved to a frame displaced by
+  ``offset``: (ω, u + ω × offset) (mujoco_tpu/utils/math.py:205)."""
+  w, u = v[..., :3], v[..., 3:]
+  return torch.cat([w, u + cross(w, offset)], dim=-1)
+
+
+def cos_accurate(x):
+  """cos x (mujoco_tpu/utils/math.py:40). The reference computes
+  1 − 2·sin²(x/2) to work around XLA's CPU f64 cos on scalars, which is
+  only f32-accurate; ``torch.cos`` has no such defect, so this is
+  ``torch.cos`` itself, kept for code written against the reference."""
+  return torch.cos(x)
 
 
 def transform_spatial(vec, flg_force: bool, newpos, oldpos, rotnew2old=None):

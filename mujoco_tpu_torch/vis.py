@@ -192,7 +192,8 @@ def apply_perturb_force(m: Model, d: Data, body: int, localpos, refselpos,
     torque = torque - (math.sqrt(stiffnessrot) * inertia
                        * mjm.dot(diffn, ang))[..., None] * diffn
   if rotate and refquat is not None:
-    xiquat = mjm.mul_quat(d.xquat[:, body], m.body_iquat[body].to(dtype))
+    xiquat = mjm.mul_quat(d.xquat[:, body],
+                          m.per_env("body_iquat")[:, body].to(dtype))
     difquat = mjm.mul_quat(vec(refquat), mjm.conj_quat(xiquat))
     torque = (mjm.quat_to_vel(difquat) * (stiffnessrot * inertia)
               - math.sqrt(stiffnessrot) * inertia * ang)

@@ -279,12 +279,14 @@ def test_each_leaf_matches_reference(request, leaf):
 
 
 def test_every_leaf_has_a_test():
-  """The 48 leaves: the eighteen of tests/test_torch_parallel.py and the
-  thirty here."""
+  """The 69 leaves: the eighteen of tests/test_torch_parallel.py, the
+  thirty here and the frame and contact leaves of
+  tests/test_torch_env_leaves2.py."""
   here = set(PHYSICS_LEAVES) | set(RENDER_LEAVES)
   assert len(here) == 30
-  assert here | set(t_roll.DEFAULT_LEAVES) == set(ENV_LEAVES)
-  assert len(ENV_LEAVES) == 48
+  assert (here | set(t_roll.DEFAULT_LEAVES) | set(t_roll.FRAME_LEAVES)
+          | set(t_roll.CONTACT_LEAVES)) == set(ENV_LEAVES)
+  assert len(ENV_LEAVES) == 69
 
 
 # ---------------------------------------------------------------------------

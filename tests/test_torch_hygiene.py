@@ -1,7 +1,8 @@
 """Import and device hygiene of the PyTorch port.
 
 The package and the port's scripts (chip_smoke.py, kernel_times.py,
-op_counts.py, quadruped_stand.py, thread_counts.py) import neither jax nor
+op_counts.py, quadruped_stand.py, thread_counts.py, examples_torch/)
+import neither jax nor
 mujoco_tpu, and importing them does not import the pip mujoco either: it
 is imported inside functions only, in models/io.py by the compile side of
 put_model and by get_data/get_data_into, which hand one env back to the C
@@ -68,6 +69,10 @@ def _sources():
   yield os.path.join(ROOT, "op_counts.py")
   yield os.path.join(ROOT, "quadruped_stand.py")
   yield os.path.join(ROOT, "thread_counts.py")
+  examples = os.path.join(ROOT, "examples_torch")
+  for f in sorted(os.listdir(examples)):
+    if f.endswith(".py"):
+      yield os.path.join(examples, f)
 
 
 def test_sources_never_import_jax_or_reference():

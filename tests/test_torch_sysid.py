@@ -126,9 +126,9 @@ def test_get_and_apply_params_match_reference(arm):
 
 
 def test_leaf_outside_env_leaves_raises(arm):
-  assert "geom_pos" not in ENV_LEAVES and "mesh_vert" not in ENV_LEAVES
-  with pytest.raises(NotImplementedError, match="geom_pos"):
-    sysid.apply_params(arm["tm"], [("geom_pos", [0])], np.array([0.5]))
+  assert "hfield_data" not in ENV_LEAVES and "mesh_vert" not in ENV_LEAVES
+  with pytest.raises(NotImplementedError, match="hfield_data"):
+    sysid.apply_params(arm["tm"], [("hfield_data", [0])], np.array([0.5]))
   with pytest.raises(NotImplementedError, match="mesh_vert"):
     sysid.fit(arm["tm"], arm["td0"], arm["ctrls"], arm["observed"],
               [("mesh_vert", None)])
